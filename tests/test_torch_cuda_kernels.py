@@ -1,0 +1,135 @@
+"""Hand-written CUDA kernels of the port vs their plain PyTorch versions.
+
+These need the card and skip without one.  On a machine with an H100 and
+no JAX, run them without the repository's JAX conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: float32 runs both sides in exact fp32 (no TF32), so only the
+summation order differs (1e-4 relative to the output's scale).  bfloat16
+rounds the output (and, in attention, the probabilities before P·V) at
+different points in the two versions: up to a few bf16 ulps (2e-2
+relative to the output's scale).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vlm_compression_tpu_torch.ops import attention as A
+from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel vs plain version")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1.0)
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (20, 2048, 5120),      # beam decode step, ragged M
+    (515, 1408, 4224),     # ViT qkv, ragged M
+    (20, 5120, 2048),      # beam decode T5 wo: split-K
+    (72, 5120, 2048),      # T5 wo
+    (33, 30, 13),          # nothing tiles: unvectorized loads
+    (7, 1001, 77),         # unvectorized loads, split-K
+])
+def test_masked_matmul_matches_plain(cuda, dtype, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = torch.randn(k, n, generator=g, device=cuda).to(dtype)
+    mask = torch.rand(k, n, generator=g, device=cuda) < 0.5
+    before = ML.launches
+    got = ML.masked_matmul(x, w, mask)
+    assert ML.launches == before + 1
+    _close(got, ML.masked_matmul_ref(x, w, mask), dtype)
+
+
+def test_masked_matmul_leading_dims_and_strided_x(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3, 7, 96, generator=g, device=cuda)[:, :, :64]
+    w = torch.randn(64, 40, generator=g, device=cuda)
+    mask = torch.rand(64, 40, generator=g, device=cuda) < 0.3
+    got = ML.masked_matmul(x, w, mask)
+    assert got.shape == (3, 7, 40)
+    _close(got, ML.masked_matmul_ref(x, w, mask), torch.float32)
+
+
+def _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(rng.standard_normal((b, n, h, d)), device=cuda).to(dtype)
+    k = torch.tensor(rng.standard_normal((b, m, h, d)), device=cuda).to(dtype)
+    v = torch.tensor(rng.standard_normal((b, m, h, d)), device=cuda).to(dtype)
+    biases = []
+    for shape in bias_shapes:
+        if shape == "pad":
+            keep = rng.random((b, 1, 1, m)) < 0.8
+            keep[..., 0] = True
+            biases.append(torch.tensor(np.where(keep, 0.0, A.NEG_INF),
+                                       dtype=torch.float32, device=cuda))
+        else:
+            biases.append(torch.tensor(rng.standard_normal(shape),
+                                       dtype=torch.float32, device=cuda))
+    return q, k, v, biases
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale,causal", [
+    (2, 257, 257, 16, 88, [], 88 ** -0.5, False),          # EVA ViT-g self
+    (2, 32, 257, 12, 64, ["pad"], 0.125, False),           # Q-Former cross
+    (2, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0, False),  # T5 encoder
+    (5, 1, 10, 32, 64, [(1, 32, 1, 10), (1, 1, 1, 10)], 1.0, False),  # decode
+    (2, 40, 40, 4, 64, [], 0.125, True),                  # causal, n = m
+    (2, 9, 5, 2, 32, [], 1.0, True),                      # causal, n > m
+    (1, 130, 200, 2, 100, [(1, 1, 130, 200)], 0.1, True),  # ragged tiles
+])
+def test_flash_matches_plain(cuda, dtype, b, n, m, h, d, bias_shapes, scale,
+                             causal):
+    q, k, v, biases = _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes)
+    before = A.launches
+    got = A.attention_core(q, k, v, biases, scale=scale, causal=causal)
+    assert A.launches == before + 1
+    _close(got, A.mha_reference(q, k, v, biases, scale, causal), dtype)
+
+
+def test_flash_fully_masked_row_is_uniform_average(cuda):
+    q, k, v, _ = _attn_case(cuda, torch.float32, 1, 4, 6, 2, 16, [])
+    bias = torch.zeros(1, 1, 4, 6, device=cuda)
+    bias[0, 0, 2, :] = A.NEG_INF
+    got = A.attention_core(q, k, v, [bias])
+    _close(got, A.mha_reference(q, k, v, [bias]), torch.float32)
+    torch.testing.assert_close(got[0, 2], v[0].mean(0), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_strided_views_of_fused_qkv(cuda):
+    rng = np.random.default_rng(3)
+    qkv = torch.tensor(rng.standard_normal((2, 257, 3, 16, 88)),
+                       device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = A.attention_core(q, k, v, scale=88 ** -0.5)
+    _close(got, A.mha_reference(q, k, v, (), 88 ** -0.5), torch.bfloat16)
+
+
+def test_flash_lse(cuda):
+    q, k, v, biases = _attn_case(cuda, torch.float32, 2, 20, 30, 3, 64,
+                                 [(2, 1, 1, 30)])
+    _, lse = A.flash_attention(q, k, v, biases, scale=0.2)
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * 0.2 + biases[0]
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4,
+                               rtol=1e-5)

@@ -1,0 +1,220 @@
+"""Port ops vs the JAX package on the CPU: masked matmul, attention, the
+calibration-statistics fold and mask selection.
+
+Inputs come from a numpy seed and go through both packages; the JAX side
+runs as its own tests run it (CPU, fp32 at HIGHEST precision, the flash
+kernel in interpret mode).  Tolerance: atol = rtol = 1e-5 per op; masks
+must agree bit for bit, ties included.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vlm_compression_tpu.ops import attention as JA
+from vlm_compression_tpu.ops import masked_linear as JML
+from vlm_compression_tpu.ops import masks as JM
+from vlm_compression_tpu.ops import stats as JS
+from vlm_compression_tpu_torch.ops import attention as TA
+from vlm_compression_tpu_torch.ops import masked_linear as TML
+from vlm_compression_tpu_torch.ops import masks as TM
+from vlm_compression_tpu_torch.ops import stats as TS
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# ---------------------------------------------------------------- (a)
+
+
+@pytest.mark.parametrize("shape_x,k,n", [((20, 48), 48, 40),
+                                          ((2, 7, 33), 33, 17),
+                                          ((5, 1, 16), 16, 64)])
+def test_masked_matmul_matches_jax_ref(shape_x, k, n):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape_x).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    mask = rng.random((k, n)) < 0.5
+    want = _np(JML.masked_matmul_ref(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(mask)))
+    before = TML.launches
+    got = TML.masked_matmul(_t(x), _t(w), _t(mask))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert TML.launches == before   # the CPU never launches the kernel
+
+
+# ---------------------------------------------------------------- (b)
+
+
+def _attn_inputs(rng, b, n, m, h, d):
+    q = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, m, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, m, h, d)).astype(np.float32)
+    return q, k, v
+
+
+def _bias(rng, shape):
+    if shape == "pad":
+        return None
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+BIAS_CASES = [
+    [],
+    [(2, 3, 5, 7)],                 # full (b, h, n, m)
+    [(1, 3, 5, 7)],                 # relative position (1, h, n, m)
+    [(2, 1, 1, 7)],                 # padding (b, 1, 1, m)
+    [(1, 1, 5, 7)],                 # additive causal (1, 1, n, m)
+    [(2, 1, 5, 7)],                 # per-batch (b, 1, n, m)
+    [(1, 3, 5, 7), (2, 1, 1, 7)],   # T5: position bias + padding
+    [(7,)],                         # rank < 4 broadcasts from the right
+]
+
+
+@pytest.fixture
+def jax_flash():
+    JA.use_flash_attention(True)   # interpret mode off-TPU
+    yield
+    JA.use_flash_attention("auto")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_shapes", BIAS_CASES)
+def test_attention_matches_jax(jax_flash, bias_shapes, causal):
+    rng = np.random.default_rng(1)
+    q, k, v = _attn_inputs(rng, 2, 5, 7, 3, 8)
+    biases = [_bias(rng, s) for s in bias_shapes]
+    jb = [jnp.asarray(x) for x in biases]
+    ref = _np(JA.mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jb, scale=0.3, causal=causal))
+    flash = _np(JA.attention_core(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jb, scale=0.3,
+                                  causal=causal))
+    got = TA.attention_core(_t(q), _t(k), _t(v), [_t(x) for x in biases],
+                            scale=0.3, causal=causal).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    np.testing.assert_allclose(got, flash, atol=2e-5, rtol=1e-4)
+
+
+def test_attention_fully_masked_row_and_causal_n_gt_m(jax_flash):
+    rng = np.random.default_rng(2)
+    q, k, v = _attn_inputs(rng, 1, 6, 4, 2, 8)
+    bias = np.zeros((1, 1, 6, 4), np.float32)
+    bias[0, 0, 1, :] = TA.NEG_INF           # a fully masked row
+    for causal in (False, True):            # causal: n > m rows see no key
+        want = _np(JA.mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), [jnp.asarray(bias)],
+                                    causal=causal))
+        got = TA.attention_core(_t(q), _t(k), _t(v), [_t(bias), None],
+                                causal=causal).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+    # the fully masked row is the uniform average of v
+    np.testing.assert_allclose(got[0, 1], v[0].mean(0), **TOL)
+
+
+def test_attention_decode_step_matches_jax():
+    rng = np.random.default_rng(3)
+    q, k, v = _attn_inputs(rng, 4, 1, 10, 2, 8)
+    pos = rng.standard_normal((1, 2, 10, 10)).astype(np.float32)
+    step = np.where(np.arange(10) <= 3, 0.0, -1e9).astype(np.float32)
+    step = step[None, None, None, :]
+    want = _np(JA.attention_core(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v),
+                                 [jnp.asarray(pos[:, :, 3:4]),
+                                  jnp.asarray(step)]))
+    got = TA.attention_core(_t(q), _t(k), _t(v),
+                            [_t(pos)[:, :, 3:4], _t(step)]).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+# ---------------------------------------------------------------- stats
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_calib_stats_fold_matches_jax(with_mask):
+    rng = np.random.default_rng(4)
+    xs = [rng.standard_normal((3, 6, 12)).astype(np.float32) for _ in range(2)]
+    tm = (rng.random((3, 6)) < 0.7).astype(np.int32) if with_mask else None
+    js = JS.init_calib_stats(12, with_hessian=True)
+    ts = TS.init_calib_stats(12, with_hessian=True)
+    for x in xs:
+        js = JS.update_calib_stats(js, jnp.asarray(x),
+                                   None if tm is None else jnp.asarray(tm))
+        ts = TS.update_calib_stats(ts, _t(x), None if tm is None else _t(tm))
+    for name in ("scaler_row", "sum_metric_row", "mean", "var"):
+        np.testing.assert_allclose(getattr(ts, name).numpy(),
+                                   _np(getattr(js, name)), **TOL)
+    assert ts.nsamples == int(js.nsamples)
+    assert int(ts.ntokens) == int(js.ntokens)
+    np.testing.assert_allclose(TS.finalize_hessian(ts).numpy(),
+                               _np(JS.finalize_hessian(js)), **TOL)
+
+
+# ---------------------------------------------------------------- (d)
+
+
+def _tied_metric(rng, units, n_in, levels=5):
+    """Few distinct values → many ties in every row."""
+    return rng.integers(0, levels, (units, n_in)).astype(np.float32) / levels
+
+
+def test_wanda_metric_matches_jax():
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((24, 16)).astype(np.float32)
+    s = rng.random(24).astype(np.float32)
+    want = _np(JM.wanda_metric(jnp.asarray(w.T), jnp.asarray(s)))
+    got = TM.wanda_metric(_t(w).T, _t(s)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("sparsity", [0.0, 0.3, 0.5, 0.7, 1.0])
+@pytest.mark.parametrize("tied", [False, True])
+def test_unstructured_mask_bit_equal(sparsity, tied):
+    rng = np.random.default_rng(6)
+    met = (_tied_metric(rng, 16, 40) if tied
+           else rng.random((16, 40)).astype(np.float32))
+    want = _np(JM.unstructured_mask(jnp.asarray(met), sparsity))
+    got = TM.unstructured_mask(_t(met), sparsity).numpy()
+    np.testing.assert_array_equal(got, want)
+    rnd = TM.unstructured_mask(_t(met), sparsity, rounding="round").numpy()
+    np.testing.assert_array_equal(
+        rnd, _np(JM.unstructured_mask(jnp.asarray(met), sparsity,
+                                      rounding="round")))
+
+
+@pytest.mark.parametrize("sparsity", [0.25, 0.5, 0.9])
+@pytest.mark.parametrize("tied", [False, True])
+def test_flat_threshold_mask_bit_equal(sparsity, tied):
+    rng = np.random.default_rng(7)
+    met = (_tied_metric(rng, 12, 20) if tied
+           else rng.random((12, 20)).astype(np.float32))
+    want = _np(JM.flat_threshold_mask(jnp.asarray(met), sparsity))
+    got = TM.flat_threshold_mask(_t(met), sparsity).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,m", [(2, 4), (4, 8), (1, 4)])
+@pytest.mark.parametrize("tied", [False, True])
+def test_nm_mask_bit_equal(n, m, tied):
+    rng = np.random.default_rng(8)
+    met = (_tied_metric(rng, 10, 32, levels=3) if tied
+           else rng.random((10, 32)).astype(np.float32))
+    want = _np(JM.nm_structured_mask(jnp.asarray(met), n, m))
+    got = TM.nm_structured_mask(_t(met), n, m).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unstructured_mask_infinite_metric():
+    """The sort path is exact for ±inf (the JAX bisection is not)."""
+    met = np.array([[np.inf, 1.0, -np.inf, 0.5, 2.0, np.inf]], np.float32)
+    got = TM.unstructured_mask(_t(met), 0.5).numpy()
+    np.testing.assert_array_equal(
+        got, [[True, False, False, False, True, True]])

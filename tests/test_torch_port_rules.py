@@ -1,0 +1,114 @@
+"""Rules of the PyTorch/CUDA port that hold without a card: what it may
+import, where its entry points run, and that its kernel wrappers never
+fall back to the plain versions on a device they do not serve."""
+
+import ast
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+import vlm_compression_tpu_torch
+from vlm_compression_tpu_torch.common.device import resolve_device
+from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+    Blip2T5Instruct,
+    Blip2T5InstructConfig,
+)
+from vlm_compression_tpu_torch.ops import _cuda
+from vlm_compression_tpu_torch.ops import attention as TA
+from vlm_compression_tpu_torch.ops import masked_linear as TML
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = Path(vlm_compression_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vlm_compression_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py"))
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for mod in _imported_modules(tree):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_attention(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        name = (node.attr if isinstance(node, ast.Attribute)
+                else node.id if isinstance(node, ast.Name) else None)
+        assert name != "scaled_dot_product_attention", path.name
+
+
+def test_entry_points_need_a_device_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Blip2T5Instruct(Blip2T5InstructConfig.tiny())
+    assert resolve_device("cpu") == torch.device("cpu")
+    m = Blip2T5Instruct(Blip2T5InstructConfig.tiny(), device="cpu")
+    assert m.device == torch.device("cpu")
+
+
+def test_wrappers_raise_instead_of_falling_back():
+    """Off the CPU a wrapper launches its kernel or raises: a device the
+    kernels do not serve is refused, never routed to the plain version."""
+    x = torch.empty(4, 8, device="meta")
+    w = torch.empty(8, 16, device="meta")
+    mask = torch.empty(8, 16, dtype=torch.bool, device="meta")
+    before = TML.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        TML.masked_matmul(x, w, mask)
+    q = torch.empty(1, 3, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.attention_core(q, q, q)
+    assert TML.launches == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    import torch.utils.cpp_extension as cpp
+
+    monkeypatch.setenv("VCT_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda.build(["masked_matmul"])
+
+
+@pytest.mark.parametrize("m,n,k", [(20, 2048, 5120), (20, 5120, 2048),
+                                   (7, 77, 1001), (32896, 6144, 1408),
+                                   (1, 1, 1), (288, 768, 3072)])
+def test_split_k_covers_k_exactly_once(m, n, k):
+    splits, k_split = TML.split_k(m, n, k, sms=132)
+    assert k_split % 32 == 0 and splits >= 1
+    assert (splits - 1) * k_split < k <= splits * k_split
+    if m >= 4096:
+        assert splits == 1     # calibration shapes fill the card unsplit
+
+
+def test_kernel_sources_export_the_bound_entry_points():
+    for name, fns in _cuda._SIGNATURES.items():
+        src = (_cuda.CSRC / f"{name}.cu").read_text()
+        assert "sm_90a" in src or "Hopper" in src
+        for fn, argtypes in fns.items():
+            m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+            assert m, fn
+            assert len(m.group(1).split(",")) == len(argtypes), fn

@@ -1,0 +1,38 @@
+"""Per-block mask functions (port of the Wanda part of
+``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
+(in, out); scoring runs unit-major (out, in) and keep-masks go back
+(in, out), contiguous for the masked-matmul kernel."""
+
+from __future__ import annotations
+
+from vlm_compression_tpu_torch.compression.calibrate import BlockPruneResult
+from vlm_compression_tpu_torch.ops.masks import (
+    flat_threshold_mask,
+    nm_structured_mask,
+    unstructured_mask,
+    wanda_metric,
+)
+
+
+def wanda_mask_fn(prune_n: int = 0, prune_m: int = 0,
+                  flat_threshold: bool = False):
+    """Wanda |W|·sqrt(E‖X‖²).  flat_threshold=True selects the per-tensor
+    value threshold used for the ViT; False the per-unit top-k of the
+    language towers; prune_n > 0 selects n:m."""
+
+    def one(kernel, scaler_row, sparsity):
+        met = wanda_metric(kernel.T, scaler_row)
+        if prune_n > 0:
+            keep = nm_structured_mask(met, prune_n, prune_m)
+        elif flat_threshold:
+            keep = flat_threshold_mask(met, sparsity)
+        else:
+            keep = unstructured_mask(met, sparsity)
+        return keep.T.contiguous()
+
+    def fn(kernels, stats, sparsities):
+        return BlockPruneResult(
+            {p: one(k, stats[p].scaler_row, float(sparsities[p]))
+             for p, k in kernels.items()}, {})
+
+    return fn

@@ -1,0 +1,184 @@
+"""Registered pruner classes (port of the joint V+L orchestration of
+``vlm_compression_tpu/compression/pruners/towers.py``, FlanT5 branch).
+
+Orchestration as in the JAX package: ViT → T5 encoder → T5 decoder; in
+the LoRA path (``lora_model=True``: masks kept) upstream towers run
+``dense`` while a downstream tower calibrates; in the non-LoRA path the
+pruned weights are zeroed and the sweeps chain (each tower's replayed
+activations feed the next tower's stem).  ViT Wanda uses the per-tensor
+flat threshold, the language towers per-unit top-k.
+
+Registered here: ``blipt5_wanda_pruner``.  SparseGPT, DSnoT and the other
+methods arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from vlm_compression_tpu_torch.common.registry import registry
+from vlm_compression_tpu_torch.compression import adapters as A
+from vlm_compression_tpu_torch.compression.calibrate import (
+    calibrate_and_prune_tower,
+    fuse_batch_dicts,
+)
+from vlm_compression_tpu_torch.compression.pruners import methods as M
+from vlm_compression_tpu_torch.compression.pruners.base import (
+    LayerWisePrunerBase,
+    convert_spec_to_list,
+)
+from vlm_compression_tpu_torch.models.t5 import shift_right
+
+
+class _MethodMixin:
+    method: str = "wanda"
+
+    def make_mask_fn(self, lora_model: bool, tower: str = "llm"):
+        if self.method != "wanda":
+            raise NotImplementedError(
+                f"pruning method {self.method!r} is not ported yet")
+        return M.wanda_mask_fn(self.prune_n, self.prune_m,
+                               flat_threshold=(tower == "vit"))
+
+    def _prune_tower(self, adapter, batches, sparsity_for, lora_model,
+                     tower="llm", return_outputs=False):
+        return calibrate_and_prune_tower(
+            adapter, batches,
+            mask_fn=self.make_mask_fn(lora_model, tower),
+            sparsity_for=sparsity_for,
+            with_hessian=self.with_hessian,
+            lora_model=lora_model,
+            progress=logging.info,
+            return_outputs=return_outputs)
+
+
+class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
+    @torch.no_grad()
+    def prune(self, lora_model: bool = True):
+        module = self.model   # Blip2T5Instruct
+        if not hasattr(module.cfg, "t5"):
+            raise NotImplementedError("only the FlanT5 composition is ported")
+        vit_spec = convert_spec_to_list(self.vit_prune_spec)
+        t5_spec = convert_spec_to_list(self.t5_prune_spec)
+        vit_keep = vit_spec[1] if vit_spec else 1.0
+        t5_keep = t5_spec[1] if t5_spec else 1.0
+
+        sfor_global = None
+        if self.sparsity_ratio_granularity not in (None, "none"):
+            sfor_global = self.get_sparsity(1.0 - t5_keep,
+                                            self.sparsity_ratio_granularity)
+        batches = self.batches()
+        # upstream dense iff that tower is being pruned in the LoRA path
+        vit_mode_for_llm = ("dense" if (lora_model and vit_keep < 1.0)
+                            else "masked")
+        llm_upstream = "dense" if (lora_model and t5_keep < 1.0) else "masked"
+        prune_vit = bool(vit_spec and vit_keep < 1.0)
+        prune_llm = bool(t5_spec and t5_keep < 1.0)
+        chain = (not lora_model) and prune_vit and prune_llm
+        vit_outs = None
+
+        if prune_vit:
+            vit = module.visual_encoder
+            ad = A.make_vit_adapter(
+                vit, lambda b: (vit.embed(b["image"]), {}),
+                (self.vit_model_prefix,))
+            vit_outs = self._prune_tower(
+                ad, batches, sfor_global or self.get_sparsity(1.0 - vit_keep),
+                lora_model, tower="vit", return_outputs=chain)
+
+        if prune_llm:
+            sfor = sfor_global or self.get_sparsity(1.0 - t5_keep)
+            t5 = module.t5_model
+            if chain:
+                # the engine fused the calibration batches when it could:
+                # align the batch dicts with the replayed activations
+                bb = fuse_batch_dicts(batches) if len(vit_outs) == 1 else batches
+                enc_batches = [dict(b, vit_x=x) for b, x in zip(bb, vit_outs)]
+                vit_outs = None
+
+                def enc_embeds_fn(b):
+                    return _encoder_inputs_from_prefix(
+                        module, b, module.encode_image_from_features(
+                            b["vit_x"], b.get("qformer_input_ids"),
+                            b.get("qformer_attention_mask")))
+            else:
+                enc_batches = batches
+
+                def enc_embeds_fn(b):
+                    return _blip_encoder_inputs(module, b, vit_mode_for_llm)
+
+            enc_ad = A.make_t5_encoder_adapter(
+                t5.encoder, enc_embeds_fn, (self.t5_model_prefix, "encoder"))
+            enc_outs = self._prune_tower(enc_ad, enc_batches, sfor,
+                                         lora_model, tower="llm",
+                                         return_outputs=chain)
+            if chain:
+                bb = (fuse_batch_dicts(enc_batches) if len(enc_outs) == 1
+                      else enc_batches)
+                dec_batches = [dict(b, enc_x=x) for b, x in zip(bb, enc_outs)]
+                bb = enc_batches = enc_outs = None
+
+                def dec_inputs_fn(b):
+                    return _decoder_inputs_from_enc(module, b)
+            else:
+                dec_batches = batches
+
+                def dec_inputs_fn(b):
+                    return _blip_decoder_inputs(module, b, vit_mode_for_llm,
+                                                llm_upstream)
+
+            dec_ad = A.make_t5_decoder_adapter(
+                t5.decoder, dec_inputs_fn, (self.t5_model_prefix, "decoder"))
+            self._prune_tower(dec_ad, dec_batches, sfor, lora_model,
+                              tower="llm")
+        return self.model, getattr(sfor_global, "mapping", None)
+
+
+def _encoder_inputs_from_prefix(m, batch, prefix):
+    """[query prefix ⊕ T5 token embeds] and its mask, given a prefix."""
+    return m._encoder_inputs(prefix, batch["input_ids"],
+                             batch["attention_mask"])
+
+
+def _blip_encoder_inputs(m, batch, vit_mode):
+    prefix = m.encode_image(batch["image"], vit_mode,
+                            batch.get("qformer_input_ids"),
+                            batch.get("qformer_attention_mask"))
+    return _encoder_inputs_from_prefix(m, batch, prefix)
+
+
+def _decoder_tail(m, batch, enc_out, enc_mask):
+    t5cfg = m.cfg.t5
+    dec_ids = shift_right(batch["labels"], t5cfg.decoder_start_token_id,
+                          t5cfg.pad_token_id)
+    dec_mask = (batch["labels"] != -100).to(torch.int32)
+    return m.t5_model.embed_tokens(dec_ids), dec_mask, enc_out, enc_mask
+
+
+def _blip_decoder_inputs(m, batch, vit_mode, llm_mode):
+    embeds, mask = _blip_encoder_inputs(m, batch, vit_mode)
+    enc_out = m.t5_model.encoder(embeds, mask, mode=llm_mode)
+    return _decoder_tail(m, batch, enc_out, mask)
+
+
+def _decoder_inputs_from_enc(m, batch):
+    """Decoder stem from the encoder sweep's replayed last-block output
+    (``enc_x``): only the encoder's final RMSNorm remains to apply."""
+    enc_out = m.t5_model.encoder.final_norm(batch["enc_x"])
+    b, nq = batch["enc_x"].shape[0], m.cfg.qformer.num_query_tokens
+    am = batch["attention_mask"]
+    enc_mask = torch.cat([torch.ones((b, nq), dtype=am.dtype,
+                                     device=am.device), am], dim=1)
+    return _decoder_tail(m, batch, enc_out, enc_mask)
+
+
+def _make(base, method_name, reg_name):
+    cls = type(f"{reg_name}_cls", (base,),
+               {"method": method_name, "pruner_name": reg_name})
+    registry.register_pruner(reg_name)(cls)
+    return cls
+
+
+BlipT5WandaPruner = _make(BlipT5PrunerBase, "wanda", "blipt5_wanda_pruner")
