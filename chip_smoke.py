@@ -7,22 +7,28 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases,
 each of which fails the run (non-zero exit, no result line) on error:
 
   1. device   — the card's name and its nvidia-smi name/power-limit line;
-  2. build    — both hand-written kernels compiled from csrc/ with nvcc, in
-                parallel;
+  2. build    — every hand-written kernel source compiled from csrc/ with
+                nvcc, in parallel;
   3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes, in bf16 and float32, within stated
-                tolerances;
+                path's shapes (prune, generate and retrain), in bf16 and
+                float32, within stated tolerances;
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
-                the same model on the CPU (plain versions);
+                the same model on the CPU (plain versions): masked logits,
+                and one KD train step (loss, LoRA gradients and update);
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
-                Q-Former, FlanT5-XL 24+24, bf16, seeded random weights):
+                Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
+                SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
                 ``blipt5_wanda_pruner`` with lora_model=True (masks kept)
-                on 128 synthetic calibration samples, then beam-5
+                on 128 synthetic calibration samples; beam-5
                 ``generate_t5`` on 4 requests, twice (cold, then warm; the
-                two must agree).  Every kernel's launch count must rise in
-                the prune and in each generate phase;
-  6. profile  — the main path once more under torch.profiler: device time
-                by kernel group against the phase's unprofiled wall-clock;
+                two must agree); RESSA retraining (dense teacher,
+                sparse_lora student, KD loss, AdamW on the LoRA factors) for
+                1 cold + 3 timed steps at batch 32; the sparse merge; and
+                beam-5 generate from the merged model.  Each phase's
+                kernels must have launched in it;
+  6. profile  — the main path once more under torch.profiler (prune,
+                generate, one train step): device time by kernel group
+                against each phase's unprofiled wall-clock;
   7. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound.
@@ -33,6 +39,7 @@ The last lines are the kernel JSON, the nvidia-smi line and
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -128,6 +135,50 @@ FLASH_SHAPES = [
 ]
 FLASH_TIMED = "vit_self_calib"
 
+# retraining (scripts/launch_lib.py:87-125 train_ressa;
+# configs/projects/train/continue_stage2_cc3m_t5_instruct.yaml): SparseLoRA
+# on all three towers, KD with weight 0.1 at T = 1, AdamW at batch 32 with
+# a linear warmup from 1e-6 towards 1e-4 over 1000 steps
+LORA = dict(tune_opt="LVQ", lora_r_v=4, lora_r_l=8, lora_r_q=2,
+            lora_alpha=16)
+KL_WEIGHT, T_KD = 0.1, 1.0
+TRAIN_BS, N_TIMED_STEPS = 32, 3
+SCHED = dict(lr_sched="linear_warmup_cosine_lr", init_lr=1e-4, min_lr=1e-5,
+             warmup_lr=1e-6, warmup_steps=1000, max_epoch=1)
+WEIGHT_DECAY = 0.05
+
+# sparse-LoRA (M, K, N, r) at the retrain batch: ViT (M = 32 × 257, r = 4),
+# Q-Former (r = 2; its linears hold no mask on this path, so they run the
+# unmasked adapter, but the kernel is held to its widths too), T5 encoder
+# (M = 32 × 72) and decoder (M = 32 × 12), r = 8
+LORA_SHAPES = [
+    ("vit_qkv", 8224, 1408, 4224, 4),
+    ("vit_proj", 8224, 1408, 1408, 4),
+    ("vit_fc1", 8224, 1408, 6144, 4),
+    ("vit_fc2", 8224, 6144, 1408, 4),
+    ("qformer_self", 2304, 768, 768, 2),
+    ("qformer_ffn", 1024, 768, 3072, 2),
+    ("t5_enc_qkvo", 2304, 2048, 2048, 8),
+    ("t5_enc_wi", 2304, 2048, 5120, 8),
+    ("t5_enc_wo", 2304, 5120, 2048, 8),
+    ("t5_dec_qkvo", 384, 2048, 2048, 8),
+    ("t5_dec_wi", 384, 2048, 5120, 8),
+    ("t5_dec_wo", 384, 5120, 2048, 8),
+]
+LORA_TIMED = "vit_fc1"
+
+# flash backward at the retrain batch (b, n, m, h, d, biases, scale);
+# "relc" = the T5 decoder's position bias with its additive causal mask
+BWD_SHAPES = [
+    ("vit_self", 32, 257, 257, 16, 88, [], 88 ** -0.5),
+    ("qformer_cross", 32, 32, 257, 12, 64, ["pad"], 0.125),
+    ("qformer_self", 32, 72, 72, 12, 64, ["pad"], 0.125),
+    ("t5_encoder", 32, 72, 72, 32, 64, ["rel", "pad"], 1.0),
+    ("t5_decoder_self", 32, 12, 12, 32, 64, ["relc", "pad"], 1.0),
+    ("t5_decoder_cross", 32, 12, 72, 32, 64, ["pad"], 1.0),
+]
+BWD_TIMED = "vit_self"
+
 
 def mm_inputs(m, k, n, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -155,12 +206,60 @@ def flash_inputs(b, n, m, h, d, kinds, dtype, seed=0):
             vis = torch.arange(m, device="cuda") <= m // 2
             biases.append(torch.where(vis, 0.0, NEG_INF)[None, None, None]
                           .expand(1, 1, n, m).contiguous())
+        elif kind == "relc":
+            vis = (torch.arange(m, device="cuda")[None, :]
+                   <= torch.arange(n, device="cuda")[:, None] + (m - n))
+            biases.append(torch.randn(1, h, n, m, generator=g, device="cuda")
+                          + torch.where(vis, 0.0, NEG_INF))
     return q, k, v, biases
+
+
+def lora_inputs(m, k, n, r, dtype, seed=0):
+    """x, W, mask as mm_inputs; A he-uniform as initialized, B non-zero so
+    that the merge matters."""
+    x, w, mask = mm_inputs(m, k, n, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    bound = (6.0 / k) ** 0.5
+    a = ((torch.rand(k, r, generator=g, device="cuda") * 2 - 1) * bound)
+    b = torch.randn(r, n, generator=g, device="cuda") * 0.02
+    return x, w, mask, a.to(dtype), b.to(dtype)
+
+
+def grad_like(q, seed=5):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
 
 
 def mm_bound_ms(m, k, n):
     flops = 2.0 * m * n * k
     nbytes = 2.0 * m * k + 3.0 * k * n + 2.0 * m * n
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def lora_bound_ms(m, k, n, r):
+    """The function's own work: the masked matmul's bytes plus A and B;
+    its operations plus the delta A·B formed once (the kernel's recompute
+    of A·B per M tile is a cost of its design, not of the function)."""
+    flops = 2.0 * m * n * k + 2.0 * k * n * r
+    nbytes = 2.0 * m * k + 3.0 * k * n + 2.0 * m * n + 2.0 * (k + n) * r
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flash_bwd_bound_ms(q, k, v, biases, which):
+    """dq: three products (q·kᵀ, g·vᵀ, ds·k), reads q, g, k, v, lse,
+    delta and the biases, writes dq.  dk/dv: four (q·kᵀ, g·vᵀ, dsᵀ·q,
+    pᵀ·g), same reads, writes dk and dv.  2·b·h·n·m·d operations each."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    es = q.element_size()
+    flops = (3.0 if which == "dq" else 4.0) * 2.0 * b * h * n * m * d
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 8.0 * b * h * n \
+        + sum(4.0 * x.numel() for x in biases) \
+        + (q.numel() if which == "dq" else k.numel() + v.numel()) * es
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -221,6 +320,49 @@ def check_kernels():
                 f"max_abs_err={err:.3e}")
             if err > tol * s:
                 raise AssertionError("flash_attention causal")
+        # sparse-LoRA: the kernel sums Σ_r A·B in another order than the
+        # plain version's matmul, which now and then flips one bf16 ulp of
+        # the merged weight before the product: the masked matmul's
+        # tolerance holds
+        for name, m, k, n, r in LORA_SHAPES:
+            x, w, mask, a, b = lora_inputs(m, k, n, r, dtype)
+            err, scale = max_err(
+                ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r),
+                ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r))
+            ok = err <= tol * scale
+            log(f"  sparse_lora_matmul {name:18s} {str(dtype)[6:]:8s} "
+                f"M={m} K={k} N={n} r={r} max_abs_err={err:.3e} "
+                f"(tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"sparse_lora_matmul {name} {dtype}")
+            worst[("sparse_lora_matmul", name, dtype)] = err
+        # flash backward: dq, and dk with dv, against the plain version
+        # from the same out and lse; then causal n = m and n > m
+        cases = [(name, b, n, m, h, d, kinds, scale, False)
+                 for name, b, n, m, h, d, kinds, scale in BWD_SHAPES]
+        cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True),
+                  ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True)]
+        for name, b, n, m, h, d, kinds, scale, causal in cases:
+            q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
+            g = grad_like(q)
+            out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+            got = A.flash_attention_backward(q, k_, v, out, lse, g, biases,
+                                             scale, causal)
+            want = A.flash_attention_backward_ref(q, k_, v, out, lse, g,
+                                                  biases, scale, causal)
+            errs = [max_err(x, y) for x, y in zip(got, want)]
+            ok = all(e <= tol * sc for e, sc in errs)
+            log(f"  flash_attention_bwd {name:18s} {str(dtype)[6:]:8s} "
+                f"b={b} n={n} m={m} h={h} d={d} biases={kinds} "
+                f"causal={causal} max_abs_err dq/dk/dv="
+                f"{'/'.join(f'{e:.3e}' for e, _ in errs)} (tol "
+                f"{'/'.join(f'{tol * sc:.3e}' for _, sc in errs)}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {name} {dtype}")
+            worst[("flash_attention_bwd_dq", name, dtype)] = errs[0][0]
+            worst[("flash_attention_bwd_dkv", name, dtype)] = max(
+                errs[1][0], errs[2][0])
     return worst
 
 
@@ -268,21 +410,131 @@ def tiny_reference_check():
         raise AssertionError("tiny reference check")
 
 
-N_CALIB, BS, TXT, LBL, N_REQ = 128, 16, 40, 12, 4
-
-
-def xl_setup(seed: int):
-    """Full-width InstructBLIP-FlanT5-XL with seeded random bf16 weights on
-    the card, the synthetic calibration batches of bench.py:189-191
-    (bs 16, text 40, labels 12) and N_REQ generate requests."""
+def tiny_train_check():
+    """One KD train step of a tiny float32 InstructBLIP-T5 with SparseLoRA
+    (ranks 4/2/8, random masks, seeded non-zero lora_b): kernels on the
+    card vs plain versions on the CPU.  Base weights are drawn at std 0.02:
+    at std 0.2 this small model amplifies one-ulp rounding of its weights
+    into ~1e-3 of its gradients, which no fixed limit on the card's
+    rounding can tell from a wrong gradient.  Limits:
+      - loss, CE, KL within 1e-4;
+      - the whole LoRA gradient (all leaves as one vector) within 1e-4 of
+        its norm, and each leaf within 1e-3 of its own norm (a leaf that is
+        zero or of the wrong sign gives 1 or 2);
+      - the AdamW update at lr 1e-3, which moves an entry by ~lr·sign(g):
+        within 2.1·lr everywhere, and within 1e-3·lr where |g| is above
+        1e-3 of its leaf's largest entry, so that a zero or flipped
+        gradient there (an error of lr or 2·lr) fails."""
     from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
         Blip2T5Instruct,
         Blip2T5InstructConfig,
     )
     from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+    from vlm_compression_tpu_torch.models.t5 import T5Config
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        RessaTrainState,
+        make_kd_train_step,
+    )
 
-    cfg = Blip2T5InstructConfig.flan_t5_xl()
-    model = random_init_(Blip2T5Instruct(cfg), seed=seed)
+    lr = 1e-3
+    f32 = dict(param_dtype="float32", dtype="float32")
+    cfg = Blip2T5InstructConfig.tiny(
+        vit=EvaViTConfig.tiny(lora_rank=4, **f32),
+        qformer=QFormerConfig.tiny(lora_rank=2, dtype="float32"),
+        t5=T5Config.tiny(d_model=16, lora_rank=8, **f32))
+    cpu = random_init_(Blip2T5Instruct(cfg, device="cpu"), seed=5, std=0.02)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for mod in cpu.modules():
+            if isinstance(mod, SparseLinear):
+                mod.mask = torch.rand(mod.kernel.shape, generator=g) < 0.6
+                if mod.lora_rank:
+                    mod.lora_b.normal_(0.0, 0.3, generator=g)
+    gpu = Blip2T5Instruct(cfg, device="cuda")
+    for a, b in zip(cpu.modules(), gpu.modules()):
+        if isinstance(a, SparseLinear):
+            b.mask = a.mask.cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    batch = dict(
+        image=torch.randn(2, 28, 28, 3, generator=g),
+        input_ids=torch.randint(2, 96, (2, 5), generator=g),
+        attention_mask=torch.tensor([[1, 1, 1, 0, 0], [1] * 5]),
+        labels=torch.randint(2, 96, (2, 4), generator=g),
+        qformer_input_ids=torch.randint(2, 64, (2, 5), generator=g),
+        qformer_attention_mask=torch.ones(2, 5, dtype=torch.int64))
+
+    def kd_step(model):
+        state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+        dev = model.device
+        met = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)(
+            {k: v.to(dev) for k, v in batch.items()}, lr)
+        return ({k: float(v) for k, v in met.items()},
+                {n: (p.grad.cpu(), p.detach().cpu())
+                 for n, p in state.lora.items()})
+
+    (mc, lc), (mg, lg) = kd_step(cpu), kd_step(gpu)
+    err_m = max(abs(mg[k] - mc[k]) for k in mc)
+    want = torch.cat([gr.flatten() for gr, _ in lc.values()])
+    got = torch.cat([lg[n][0].flatten() for n in lc])
+    err_g = float((got - want).norm() / want.norm())
+    err_leaf = max(float((lg[n][0] - gr).norm()) / float(gr.norm())
+                   for n, (gr, _) in lc.items() if bool(gr.any()))
+    err_p = err_big = 0.0
+    for n, (gr, p) in lc.items():
+        diff = (lg[n][1] - p).abs()
+        err_p = max(err_p, float(diff.max()))
+        big = gr.abs() > 1e-3 * gr.abs().max()
+        err_big = max(err_big, float(diff[big].max()) if bool(big.any())
+                      else float(diff.max()))
+    log(f"  tiny fp32 KD step, card vs CPU: loss/ce/kl max_abs_err="
+        f"{err_m:.3e} (tol 1e-4); LoRA gradient |Δg|/|g| whole "
+        f"{err_g:.3e} (tol 1e-4), worst leaf {err_leaf:.3e} (tol 1e-3); "
+        f"AdamW update at lr {lr:g}: max_abs_err {err_p:.3e} (tol "
+        f"{2.1 * lr:.1e}), where |g| > 1e-3 of its leaf's max "
+        f"{err_big:.3e} (tol {1e-3 * lr:.1e}); kl {mc['kl']:.3e}; launches "
+        f"sparse_lora {ML.lora_launches}, bwd dq {A.dq_launches}, bwd dkv "
+        f"{A.dkv_launches}")
+    if not (err_m <= 1e-4 and err_g <= 1e-4 and err_leaf <= 1e-3
+            and err_p <= 2.1 * lr and err_big <= 1e-3 * lr and mc["kl"] > 0
+            and all(torch.isfinite(torch.tensor(list(mg.values()))))):
+        raise AssertionError("tiny KD step, card vs CPU")
+
+
+N_CALIB, BS, TXT, LBL, N_REQ = 128, 16, 40, 12, 4
+
+
+def synthetic_batches(cfg, n: int, bs: int, g: torch.Generator):
+    """n seeded batches of bench.py:189-191's shapes (224² images, text 40,
+    labels 12) with bs samples each."""
+    img = cfg.vit.img_size
+
+    def ids(shape):
+        return torch.randint(3, 2000, shape, generator=g, device="cuda")
+
+    def ones(b):
+        return torch.ones(b, TXT, dtype=torch.int32, device="cuda")
+
+    return [dict(image=torch.randn(bs, img, img, 3, generator=g,
+                                   device="cuda"),
+                 input_ids=ids((bs, TXT)), attention_mask=ones(bs),
+                 labels=ids((bs, LBL)), qformer_input_ids=ids((bs, TXT)),
+                 qformer_attention_mask=ones(bs)) for _ in range(n)]
+
+
+def xl_setup(seed: int):
+    """Full-width InstructBLIP-FlanT5-XL with seeded random bf16 weights on
+    the card (base weights drawn as without adapters; LoRA A he-uniform, B
+    zero), the synthetic calibration batches of bench.py:189-191 (bs 16,
+    text 40, labels 12) and N_REQ generate requests."""
+    from vlm_compression_tpu_torch.models.factory import build_model
+
+    model = build_model(dict(model_type="flant5xl", **LORA), seed=seed)
+    cfg = model.cfg
     img = cfg.vit.img_size
     g = torch.Generator(device="cuda").manual_seed(42 + seed)
 
@@ -292,12 +544,7 @@ def xl_setup(seed: int):
     def ones(b):
         return torch.ones(b, TXT, dtype=torch.int32, device="cuda")
 
-    batches = [dict(image=torch.randn(BS, img, img, 3, generator=g,
-                                      device="cuda"),
-                    input_ids=ids((BS, TXT)), attention_mask=ones(BS),
-                    labels=ids((BS, LBL)), qformer_input_ids=ids((BS, TXT)),
-                    qformer_attention_mask=ones(BS))
-               for _ in range(N_CALIB // BS)]
+    batches = synthetic_batches(cfg, N_CALIB // BS, BS, g)
     req = dict(image=torch.randn(N_REQ, img, img, 3, generator=g,
                                  device="cuda"),
                input_ids=ids((N_REQ, TXT)), attention_mask=ones(N_REQ),
@@ -335,52 +582,193 @@ def run_generate(model, req):
     return seqs.cpu(), gen_cfg
 
 
-def main_path():
-    from vlm_compression_tpu_torch.models.bridge import export_masks
+KERNELS = ("masked_matmul", "flash_attention", "sparse_lora_matmul",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the kernels each phase of the main path runs, and so must launch
+SERVE = ("masked_matmul", "flash_attention")
+PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
+                 "generate_warm": SERVE,
+                 "retrain": ("sparse_lora_matmul", "flash_attention",
+                             "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv"),
+                 "generate_merged": SERVE}
+
+
+def reset_counts():
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
+    ML.launches = ML.lora_launches = 0
+    A.launches = A.dq_launches = A.dkv_launches = 0
+
+
+def read_counts() -> dict:
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    return dict(zip(KERNELS, (ML.launches, A.launches, ML.lora_launches,
+                              A.dq_launches, A.dkv_launches)))
+
+
+def check_generate(seqs, gen_cfg, cfg):
+    if tuple(seqs.shape) != (N_REQ, gen_cfg.max_length) or \
+            not bool((seqs[:, 0] == 0).all()) or \
+            not bool(((seqs >= 0) & (seqs < cfg.t5.vocab_size)).all()):
+        raise AssertionError(f"bad generate output {seqs}")
+    return int((seqs[:, 1:] != gen_cfg.pad_token_id).sum())
+
+
+def tower_density(model, of_kernels: bool = False) -> dict:
+    """Kept share per pruned tower: of the masks, or (of_kernels) of the
+    non-zero kernel entries of every masked linear."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    out = {}
+    for tower in ("visual_encoder", "t5_model.encoder", "t5_model.decoder"):
+        kept = total = n = 0
+        for name, m in model.named_modules():
+            if isinstance(m, SparseLinear) and m.mask is not None \
+                    and name.startswith(tower):
+                kept += int((m.kernel if of_kernels else m.mask)
+                            .count_nonzero())
+                total += m.mask.numel()
+                n += 1
+        out[tower] = (kept / total, n)
+    return out
+
+
+def run_retrain(model, cfg):
+    """RESSA retraining at batch TRAIN_BS: 1 cold + N_TIMED_STEPS timed KD
+    steps on fresh synthetic batches; every step's loss, CE and KL finite;
+    B = 0 makes the first step's lora_a gradients exactly 0 and its lora_b
+    gradients non-zero, the second step's lora_a gradients non-zero; base
+    parameters and masks bit-identical afterwards."""
+    from vlm_compression_tpu_torch.common.optims import make_lr_scheduler
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        RessaTrainState,
+        make_kd_train_step,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batches = synthetic_batches(cfg, 1 + N_TIMED_STEPS, TRAIN_BS, g)
+    before = {n: t.detach().cpu() for n, t in
+              list(model.named_parameters()) + list(model.named_buffers())
+              if n.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")}
+    state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+    sched = make_lr_scheduler(SCHED)
+    step = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)
+    n_lora = len(state.lora) // 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i, batch in enumerate(batches):
+        lr = sched(0, i)
+        t0 = time.perf_counter()
+        met = step(batch, lr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        met = {k: float(v) for k, v in met.items()}
+        nz = {leaf: sum(int(bool(p.grad.count_nonzero()))
+                        for n, p in state.lora.items() if n.endswith(leaf))
+              for leaf in ("lora_a", "lora_b")}
+        log(f"  retrain step {i} ({'cold' if i == 0 else 'timed'}) lr "
+            f"{lr:.4e}: {times[-1]:.3f} s, loss {met['loss']:.5f} ce "
+            f"{met['ce']:.5f} kl {met['kl']:.6f}; linears with non-zero "
+            f"grads: lora_a {nz['lora_a']}/{n_lora}, lora_b "
+            f"{nz['lora_b']}/{n_lora}")
+        if not all(v == v and abs(v) != float("inf") for v in met.values()):
+            raise AssertionError(f"non-finite retrain metrics {met}")
+        # every adapter but the last Q-Former layer's text FFN (whose
+        # output leaves no trace in the loss) gets a gradient
+        if (i == 0 and (nz["lora_a"] != 0 or nz["lora_b"] < n_lora - 2)) \
+                or (i == 1 and nz["lora_a"] < n_lora - 2):
+            raise AssertionError(f"step {i}: gradients {nz} of {n_lora}")
+    peak = torch.cuda.max_memory_allocated()
+    state.opt.zero_grad(set_to_none=True)
+    state.opt.state.clear()
+    changed = [n for n, t in
+               list(model.named_parameters()) + list(model.named_buffers())
+               if n in before and not torch.equal(t.detach().cpu(), before[n])]
+    if changed:
+        raise AssertionError(f"retraining changed frozen tensors {changed[:4]}")
+    s_step = statistics.mean(times[1:])
+    log(f"  retrain (tune_opt=LVQ r 4/8/2, batch {TRAIN_BS}, no gradient "
+        f"accumulation, no remat): {s_step:.3f} s/step over "
+        f"{N_TIMED_STEPS} timed steps, {TRAIN_BS / s_step:.1f} samples/s, "
+        f"cold step {times[0]:.3f} s, peak {peak / 2**30:.2f} GiB; "
+        f"{len(before)} frozen tensors bit-identical")
+    return {"retrain_cold_s": times[0], "retrain_s_per_step": s_step,
+            "retrain_samples_per_s": TRAIN_BS / s_step,
+            "retrain_peak_bytes": peak}
+
+
+def merge_and_check(model):
+    """Sparse merge + re-masking; every merged kernel 0 where its mask is
+    0, and the towers' kept share still 0.5 ± 0.01."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        apply_masks_to_params,
+        merge_lora_into_params,
+    )
+
+    t0 = time.perf_counter()
+    apply_masks_to_params(merge_lora_into_params(model, sparse=True))
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter() - t0
+    bad = [n for n, m in model.named_modules()
+           if isinstance(m, SparseLinear) and m.mask is not None
+           and bool((m.kernel.ne(0) & ~m.mask).any())]
+    if bad:
+        raise AssertionError(f"merged kernels non-zero off their masks {bad[:4]}")
+    for tower, (dens, n) in tower_density(model, of_kernels=True).items():
+        log(f"  merged density {tower}: {dens:.4f} non-zero over {n} linears")
+        if abs(dens - 0.5) > 0.01:
+            raise AssertionError(f"merged density {tower}")
+    log(f"  merge_lora_into_params(sparse=True) + apply_masks_to_params: "
+        f"{t_merge:.2f} s")
+
+
+def main_path():
+    from vlm_compression_tpu_torch.models.bridge import export_masks
+
     t0 = time.perf_counter()
     cfg, model, batches, req = xl_setup(seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  model: InstructBLIP-FlanT5-XL, {n_params / 1e9:.3f} B params, "
-        f"bf16, random init + data {time.perf_counter() - t0:.1f} s; cuts: "
-        f"none (depth 39/24/24, {N_CALIB} calibration samples)")
+    n_params = sum(p.numel() for n, p in model.named_parameters()
+                   if "lora_" not in n)
+    n_lora = sum(p.numel() for n, p in model.named_parameters()
+                 if "lora_" in n)
+    log(f"  model: InstructBLIP-FlanT5-XL, {n_params / 1e9:.3f} B params + "
+        f"{n_lora / 1e6:.3f} M LoRA, bf16, random init + data "
+        f"{time.perf_counter() - t0:.1f} s; cuts: none (depth 39/24/24, "
+        f"{N_CALIB} calibration samples)")
     torch.cuda.reset_peak_memory_stats()
 
     counts = {}
-    ML.launches = A.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     model = run_prune(model, batches)
     t_prune = time.perf_counter() - t0
-    counts["prune"] = {"masked_matmul": ML.launches,
-                       "flash_attention": A.launches}
+    counts["prune"] = read_counts()
     masks = export_masks(model)
-    for tower in ("visual_encoder", "t5_model.encoder", "t5_model.decoder"):
-        ms = [m for p, m in masks.items() if ".".join(p).startswith(tower)]
-        dens = sum(int(m.sum()) for m in ms) / sum(m.size for m in ms)
-        log(f"  prune density {tower}: {dens:.4f} over {len(ms)} linears")
+    for tower, (dens, n) in tower_density(model).items():
+        log(f"  prune density {tower}: {dens:.4f} over {n} linears")
         if abs(dens - 0.5) > 0.01:
             raise AssertionError(f"density {tower}")
     if len(masks) != 39 * 4 + 24 * 7 + 24 * 11:
         raise AssertionError(f"{len(masks)} masked linears")
     log(f"  prune (blipt5_wanda_pruner, lora_model=True): {t_prune:.2f} s")
+    del batches, masks
 
     # the first call pays one-time costs (lazy kernel-module loads, the
     # allocator growing); the second is the steady-state request
     t_gen, outs = {}, {}
     for phase in ("generate_cold", "generate_warm"):
-        ML.launches = A.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         seqs, gen_cfg = run_generate(model, req)
         t_gen[phase] = time.perf_counter() - t0
-        counts[phase] = {"masked_matmul": ML.launches,
-                         "flash_attention": A.launches}
-        if tuple(seqs.shape) != (N_REQ, gen_cfg.max_length) or \
-                not bool((seqs[:, 0] == 0).all()) or \
-                not bool(((seqs >= 0) & (seqs < cfg.t5.vocab_size)).all()):
-            raise AssertionError(f"bad generate output {seqs}")
-        n_tok = int((seqs[:, 1:] != gen_cfg.pad_token_id).sum())
+        counts[phase] = read_counts()
+        n_tok = check_generate(seqs, gen_cfg, cfg)
         outs[phase] = seqs
         log(f"  generate_t5 beam-5 ({phase}), {N_REQ} requests, max_length "
             f"10: {t_gen[phase]:.3f} s, {n_tok} tokens, "
@@ -388,30 +776,53 @@ def main_path():
     if not torch.equal(outs["generate_cold"], outs["generate_warm"]):
         raise AssertionError("two generate calls on the same inputs differ")
     log(f"  tokens: {seqs.tolist()}")
+    tokens_per_s = n_tok / t_gen["generate_warm"]
     peak = torch.cuda.max_memory_allocated()
-    log(f"  max_memory_allocated: {peak / 2**30:.2f} GiB")
+    log(f"  max_memory_allocated (prune + generate): {peak / 2**30:.2f} GiB")
+
+    reset_counts()
+    retrain = run_retrain(model, cfg)
+    counts["retrain"] = read_counts()
+    merge_and_check(model)
+    reset_counts()
+    t0 = time.perf_counter()
+    seqs, gen_cfg = run_generate(model, req)
+    t_merged = time.perf_counter() - t0
+    counts["generate_merged"] = read_counts()
+    n_tok = check_generate(seqs, gen_cfg, cfg)
+    log(f"  generate_t5 beam-5 from the merged model: {t_merged:.3f} s, "
+        f"{n_tok} tokens; same tokens as before retraining: "
+        f"{torch.equal(seqs, outs['generate_warm'])}")
+
     log(f"  launches: {json.dumps(counts)}")
     for phase, c in counts.items():
-        for kernel, n in c.items():
-            if n <= 0:
+        for kernel in PHASE_KERNELS[phase]:
+            if c[kernel] <= 0:
                 raise AssertionError(f"{kernel} never launched in {phase}")
-    del model, batches, masks
+    del model
     torch.cuda.empty_cache()
     return counts, {"prune_s": t_prune,
                     "generate_cold_s": t_gen["generate_cold"],
                     "generate_s": t_gen["generate_warm"],
-                    "tokens_per_s": n_tok / t_gen["generate_warm"],
-                    "peak_bytes": peak}
+                    "tokens_per_s": tokens_per_s,
+                    "peak_bytes": peak, **retrain,
+                    "generate_merged_s": t_merged}
 
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "masked_matmul" in low:
         return "masked_matmul kernel"
+    if "sparse_lora" in low:
+        return "sparse_lora_matmul kernel"
     if "flash_fwd" in low:
         return "flash_attention kernel"
+    if "flash_bwd_dq" in low:
+        return "flash_attention_bwd_dq kernel"
+    if "flash_bwd_dkv" in low:
+        return "flash_attention_bwd_dkv kernel"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
-        return "cuBLAS GEMM (dense capture passes)"
+        return "cuBLAS GEMM (dense passes, backward products)"
     if "sort" in low or "radix" in low:
         return "sort (mask selection)"
     if "reduce" in low:
@@ -450,11 +861,17 @@ def device_breakdown(prof, wall_ms: float, label: str) -> None:
 
 def profile_main_path(e2e):
     """The main path once more under torch.profiler (fresh model and data,
-    seed 1), for where the device time goes.  Launch counts are not read
+    seed 1), for where the device time goes: prune, generate, and one KD
+    train step after an unprofiled one.  Launch counts are not read
     here."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, model, batches, req = xl_setup(seed=1)
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        RessaTrainState,
+        make_kd_train_step,
+    )
+
+    cfg, model, batches, req = xl_setup(seed=1)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         model = run_prune(model, batches)
@@ -462,7 +879,19 @@ def profile_main_path(e2e):
     with profile(activities=acts) as prof:
         run_generate(model, req)
     device_breakdown(prof, 1e3 * e2e["generate_s"], "generate")
-    del model, batches
+    del batches
+    state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+    step = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    warm, batch = synthetic_batches(cfg, 2, TRAIN_BS, g)
+    step(warm, 1e-6)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        step(batch, 1e-6)
+        torch.cuda.synchronize()
+    device_breakdown(prof, 1e3 * e2e["retrain_s_per_step"],
+                     "retrain step")
+    del model, state, step
     torch.cuda.empty_cache()
 
 
@@ -502,6 +931,53 @@ def timing():
         log(f"  time flash_attention {name:22s} b={b} n={n} m={m} h={h} "
             f"d={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    for name, m, k, n, r in LORA_SHAPES:
+        x, w, mask, a, b = lora_inputs(m, k, n, r, bf16)
+        s = 16.0 / r
+        e = ML.sparse_lora_weight(w, mask, a, b, s)
+        ms = device_ms(lambda: ML.sparse_lora_matmul(x, w, mask, a, b, s))
+        plain = device_ms(lambda: ML.sparse_lora_matmul_ref(x, w, mask, a,
+                                                            b, s))
+        lib = device_ms(lambda: torch.matmul(x, e))
+        bound, by = lora_bound_ms(m, k, n, r)
+        rows[("sparse_lora_matmul", name)] = (ms, plain, lib, bound, by)
+        log(f"  time sparse_lora_matmul {name:14s} M={m} K={k} N={n} r={r}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul(x, E) "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    # the wrappers' times include delta = rowsum(g ⊙ out), formed in torch;
+    # the plain version computes dq, dk and dv together; the library call
+    # is the backward of SDPA (all three) on contiguous (b, h, n, d) copies
+    # with the biases summed into one bf16 mask
+    for name, b, n, m, h, d, kinds, scale in BWD_SHAPES:
+        q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
+        g = grad_like(q)
+        out, lse = A.flash_attention(q, k_, v, biases, scale)
+        args = (q, k_, v, out, lse, g, biases, scale)
+        dq_ms = device_ms(lambda: A.flash_attention_backward(
+            *args, need_dkv=False))
+        dkv_ms = device_ms(lambda: A.flash_attention_backward(
+            *args, need_dq=False))
+        plain = device_ms(lambda: A.flash_attention_backward_ref(*args))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k_, v))
+        bsum = None
+        for x in biases:
+            bsum = x if bsum is None else bsum + x
+        bsum = None if bsum is None else bsum.expand(b, h, n, m).to(bf16)
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bsum,
+                                           scale=scale)
+        go = g.transpose(1, 2).contiguous()
+        lib = device_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), go, retain_graph=True))
+        for kname, ms in (("flash_attention_bwd_dq", dq_ms),
+                          ("flash_attention_bwd_dkv", dkv_ms)):
+            which = "dq" if kname.endswith("dq") else "dkv"
+            bound, by = flash_bwd_bound_ms(q, k_, v, biases, which)
+            rows[(kname, name)] = (ms, plain, lib, bound, by)
+            log(f"  time {kname:23s} {name:16s} b={b} n={n} m={m} h={h} "
+                f"d={d}: kernel {ms:.4f} ms, plain (dq+dk+dv) {plain:.4f} "
+                f"ms, sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
+                f"({by})")
     return rows
 
 
@@ -533,7 +1009,14 @@ def main() -> int:
     worst = check_kernels()
     log("[reference] tiny model, card vs CPU")
     tiny_reference_check()
-    log("[main path] InstructBLIP-FlanT5-XL: Wanda prune + beam-5 generate")
+    tiny_train_check()
+    # the checks above leave the caching allocator and the heap full of
+    # their tensors and graphs; the main path starts clean, as it would in
+    # a process of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[main path] InstructBLIP-FlanT5-XL: Wanda prune, beam-5 generate, "
+        "RESSA retrain, merge, beam-5 generate")
     counts, e2e = main_path()
     log("[profile] the main path again under torch.profiler")
     profile_main_path(e2e)
@@ -542,13 +1025,20 @@ def main() -> int:
     rows = timing()
 
     kernels = []
+    csrc = "vlm_compression_tpu_torch/csrc/"
     for kname, timed, src, repl in (
-            ("masked_matmul", MM_TIMED,
-             "vlm_compression_tpu_torch/csrc/masked_matmul.cu",
+            ("masked_matmul", MM_TIMED, csrc + "masked_matmul.cu",
              "vlm_compression_tpu/ops/masked_linear.py:67"),
-            ("flash_attention", FLASH_TIMED,
-             "vlm_compression_tpu_torch/csrc/flash_attention.cu",
-             "vlm_compression_tpu/ops/attention.py:107")):
+            ("flash_attention", FLASH_TIMED, csrc + "flash_attention.cu",
+             "vlm_compression_tpu/ops/attention.py:107"),
+            ("sparse_lora_matmul", LORA_TIMED, csrc + "masked_matmul.cu",
+             "vlm_compression_tpu/ops/masked_linear.py:309"),
+            ("flash_attention_bwd_dq", BWD_TIMED,
+             csrc + "flash_attention_bwd.cu",
+             "vlm_compression_tpu/ops/attention.py:296"),
+            ("flash_attention_bwd_dkv", BWD_TIMED,
+             csrc + "flash_attention_bwd.cu",
+             "vlm_compression_tpu/ops/attention.py:331")):
         ms, plain, lib, bound, by = rows[(kname, timed)]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,

@@ -133,3 +133,107 @@ def test_flash_lse(cuda):
     s = torch.einsum("bnhd,bmhd->bhnm", q, k) * 0.2 + biases[0]
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4,
                                rtol=1e-5)
+
+
+# ------------------------------------------------------- sparse-LoRA kernel
+# Tolerance as the masked matmul's: the kernel sums Σ_r A·B in another
+# order than the plain version's matmul, which now and then flips one bf16
+# ulp of the merged weight E before the product.
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,r", [
+    (514, 1408, 4224, 4),     # ViT qkv (b = 2), ragged M
+    (144, 2048, 5120, 8),     # T5 wi, split-K
+    (24, 5120, 2048, 8),      # T5 decoder wo, split-K
+    (64, 768, 768, 2),        # Q-Former
+    (33, 30, 13, 3),          # nothing tiles: unvectorized loads
+    (300, 256, 136, 128),     # the largest rank
+])
+def test_sparse_lora_matches_plain(cuda, dtype, m, k, n, r):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=cuda) * k ** -0.5).to(dtype)
+    mask = torch.rand(k, n, generator=g, device=cuda) < 0.5
+    a = (torch.rand(k, r, generator=g, device=cuda) - 0.5).to(dtype)
+    b = (torch.randn(r, n, generator=g, device=cuda) * 0.05).to(dtype)
+    before = ML.lora_launches
+    got = ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r)
+    assert ML.lora_launches == before + 1
+    _close(got, ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sparse_lora_grads_match_plain(cuda, dtype):
+    """The Function's backward (the JAX VJP; on the card Gm from a bf16
+    product with fp32 output) against autograd through the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(3, 50, 96, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(96, 72, generator=g, device=cuda) * 0.1).to(dtype)
+    mask = torch.rand(96, 72, generator=g, device=cuda) < 0.5
+    a = torch.randn(96, 4, generator=g, device=cuda).to(dtype)
+    b = (torch.randn(4, 72, generator=g, device=cuda) * 0.1).to(dtype)
+    gy = torch.randn(3, 50, 72, generator=g, device=cuda).to(dtype)
+    leaves = [t.requires_grad_() for t in (x, a, b)]
+    got = torch.autograd.grad(ML.sparse_lora_matmul(x, w, mask, a, b, 4.0),
+                              leaves, gy)
+    want = torch.autograd.grad(ML.sparse_lora_matmul_ref(x, w, mask, a, b,
+                                                         4.0), leaves, gy)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, dtype)
+
+
+# ---------------------------------------------- flash backward (dq, dk/dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale,causal", [
+    (2, 257, 257, 16, 88, [], 88 ** -0.5, False),          # EVA ViT-g self
+    (2, 32, 257, 12, 64, ["pad"], 0.125, False),           # Q-Former cross
+    (2, 72, 72, 12, 64, ["pad"], 0.125, False),            # Q-Former self
+    (2, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0, False),  # T5 encoder
+    (2, 12, 12, 32, 64, [(1, 32, 12, 12), "pad"], 1.0, False),  # T5 decoder
+    (2, 12, 72, 32, 64, ["pad"], 1.0, False),              # T5 cross
+    (2, 40, 40, 4, 64, [], 0.125, True),                  # causal, n = m
+    (2, 9, 5, 2, 32, [], 1.0, True),                      # causal, n > m
+    (1, 130, 200, 2, 100, [(1, 1, 130, 200)], 0.1, True),  # ragged tiles
+])
+def test_flash_backward_matches_plain(cuda, dtype, b, n, m, h, d,
+                                      bias_shapes, scale, causal):
+    q, k, v, biases = _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes)
+    g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
+                     device=cuda).to(dtype)
+    out, lse = A.flash_attention(q, k, v, biases, scale, causal)
+    before = (A.dq_launches, A.dkv_launches)
+    got = A.flash_attention_backward(q, k, v, out, lse, g, biases, scale,
+                                     causal)
+    assert (A.dq_launches, A.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = A.flash_attention_backward_ref(q, k, v, out, lse, g, biases,
+                                          scale, causal)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, dtype)
+
+
+def test_attention_autograd_runs_the_backward_kernels(cuda):
+    q, k, v, biases = _attn_case(cuda, torch.float32, 2, 20, 30, 3, 64,
+                                 [(2, 1, 1, 30)])
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = torch.randn(2, 20, 3, 64, device=cuda)
+    before = (A.dq_launches, A.dkv_launches)
+    got = torch.autograd.grad(A.attention_core(q, k, v, biases, 0.2),
+                              (q, k, v), g)
+    assert (A.dq_launches, A.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(A.mha_reference(q, k, v, biases, 0.2),
+                               (q, k, v), g)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.float32)
+
+
+def test_attention_bias_grad_raises_on_the_card(cuda):
+    q, k, v, _ = _attn_case(cuda, torch.float32, 1, 8, 8, 2, 32, [])
+    q.requires_grad_()
+    bias = torch.zeros(1, 2, 8, 8, device=cuda, requires_grad=True)
+    out = A.attention_core(q, k, v, [bias])
+    with pytest.raises(NotImplementedError, match="dbias"):
+        out.sum().backward()

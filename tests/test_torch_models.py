@@ -210,3 +210,111 @@ def test_blip2_t5_forward_matches_jax(vit_mode, llm_mode):
     np.testing.assert_allclose(got["logits"].numpy(),
                                np.asarray(want["logits"]), **TOL)
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), **TOL)
+
+
+# ------------------------------------------------------------- SparseLoRA
+# Tiny fp32 configs as tests/test_training.py lays them out (LoRA ranks
+# 4 / 2 / 8 on V / Q / L), random masks, and lora_b set to seeded non-zero
+# values in both packages so that the adapters' delta is exercised.
+
+LORA_RANKS = dict(vit=4, qformer=2, t5=8)
+
+
+def tiny_lora_configs():
+    jcfg = JB.Blip2T5InstructConfig.tiny(
+        vit=JV.EvaViTConfig.tiny(lora_rank=LORA_RANKS["vit"], **F32),
+        qformer=JQ.QFormerConfig.tiny(lora_rank=LORA_RANKS["qformer"],
+                                      dtype="float32"),
+        t5=JT.T5Config.tiny(d_model=16, lora_rank=LORA_RANKS["t5"], **F32))
+    tcfg = TB.Blip2T5InstructConfig(
+        vit=port_config(jcfg.vit, TV.EvaViTConfig),
+        qformer=port_config(jcfg.qformer, TQ.QFormerConfig),
+        t5=port_config(jcfg.t5, TT.T5Config))
+    return jcfg, tcfg
+
+
+def seeded_lora(lora, rng, std=0.3):
+    """The lora tree with every lora_b drawn from the seed."""
+    out = {}
+    for k, v in lora.items():
+        if k == "lora_b":
+            out[k] = (std * rng.standard_normal(np.shape(v))).astype(
+                np.float32)
+        elif isinstance(v, dict):
+            out[k] = seeded_lora(v, rng, std)
+        else:
+            out[k] = v
+    return out
+
+
+def tiny_lora_blip(seed=0, b=2):
+    """(jax module, jax variables (params, lora, masks) as numpy, port
+    module, batch) for the tiny LoRA configuration."""
+    rng = np.random.default_rng(seed)
+    jcfg, tcfg = tiny_lora_configs()
+    batch = blip_batch(rng, jcfg, b=b)
+    jm = JB.Blip2T5Instruct(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = numpy_tree(jm.init(jax.random.key(seed), **jb,
+                                   vit_mode="sparse_lora",
+                                   llm_mode="sparse_lora",
+                                   qformer_mode="sparse_lora"))
+    variables = dict(params=variables["params"],
+                     lora=seeded_lora(variables["lora"], rng),
+                     masks=random_masks(variables["params"], rng))
+    tm = TB.Blip2T5Instruct(tcfg, device="cpu")
+    load_jax_variables(tm, variables)
+    return jm, variables, tm, batch
+
+
+@pytest.mark.parametrize("mode", ["sparse_lora", "lora"])
+def test_blip2_t5_lora_modes_match_jax(mode):
+    jm, variables, tm, batch = tiny_lora_blip(seed=7)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    want = jm.apply(variables, **jb, vit_mode=mode, llm_mode=mode,
+                    qformer_mode=mode)
+    got = tm(**{k: _t(v) for k, v in batch.items()}, vit_mode=mode,
+             llm_mode=mode, qformer_mode=mode)
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(want["logits"]), **TOL)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), **TOL)
+
+
+def test_sparse_linear_lora_without_mask_matches_jax():
+    """A LoRA linear that holds no mask: x·W + s·(x·A)·B."""
+    from vlm_compression_tpu.models.layers import SparseLinear as JSL
+    from vlm_compression_tpu_torch.models.layers import SparseLinear as TSL
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 12)).astype(np.float32)
+    jl = JSL(10, lora_rank=4, lora_alpha=8.0)
+    variables = numpy_tree(jl.init(jax.random.key(8), jnp.asarray(x),
+                                   mode="sparse_lora"))
+    variables = dict(params=variables["params"],
+                     lora=seeded_lora(variables["lora"], rng))
+    want = jl.apply(variables, jnp.asarray(x), mode="sparse_lora")
+    tl = TSL(12, 10, lora_rank=4, lora_alpha=8.0)
+    load_jax_variables(tl, variables)
+    got = tl(_t(x), mode="sparse_lora")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_random_init_keeps_base_draws_and_inits_lora():
+    """Adapters do not shift the seeded base weights; A is he-uniform and
+    B zero."""
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+
+    _, tcfg = tiny_lora_configs()
+    _, plain = tiny_blip_configs()
+    with_lora = random_init_(TB.Blip2T5Instruct(tcfg, device="cpu"), seed=3)
+    without = random_init_(TB.Blip2T5Instruct(plain, device="cpu"), seed=3)
+    base = dict(without.named_parameters())
+    for name, p in with_lora.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "lora_b":
+            assert not p.any()
+        elif leaf == "lora_a":
+            bound = (6.0 / p.shape[0]) ** 0.5
+            assert p.abs().max() <= bound and p.abs().max() > 0.5 * bound
+        else:
+            assert torch.equal(p, base[name]), name

@@ -218,3 +218,182 @@ def test_unstructured_mask_infinite_metric():
     got = TM.unstructured_mask(_t(met), 0.5).numpy()
     np.testing.assert_array_equal(
         got, [[True, False, False, False, True, True]])
+
+
+# ------------------------------------------------- masked / sparse-LoRA VJPs
+# Gradients: the port's autograd Functions against jax.vjp of the JAX
+# custom-VJP functions (on the CPU: the XLA reference forward and the
+# hand-written backward).  fp32 on both sides; only the summation order
+# differs, so 1e-5 as for the forward.
+
+
+def _lora_inputs(rng, shape_x, k, n, r):
+    x = rng.standard_normal(shape_x).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    mask = rng.random((k, n)) < 0.5
+    a = rng.uniform(-0.5, 0.5, (k, r)).astype(np.float32)
+    b = (0.3 * rng.standard_normal((r, n))).astype(np.float32)  # non-zero B
+    g = rng.standard_normal(shape_x[:-1] + (n,)).astype(np.float32)
+    return x, w, mask, a, b, g
+
+
+def _leaf(x):
+    return _t(x).requires_grad_()
+
+
+@pytest.mark.parametrize("shape_x,k,n", [((20, 48), 48, 40),
+                                          ((2, 7, 33), 33, 17)])
+def test_masked_matmul_grads_match_jax_vjp(shape_x, k, n):
+    x, w, mask, _, _, g = _lora_inputs(np.random.default_rng(10), shape_x,
+                                       k, n, 2)
+    want_y, vjp = __import__("jax").vjp(
+        lambda x_, w_: JML.masked_matmul(x_, w_, jnp.asarray(mask)),
+        jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(g))
+    tx, tw = _leaf(x), _leaf(w)
+    y = TML.masked_matmul(tx, tw, _t(mask))
+    dx, dw = torch.autograd.grad(y, (tx, tw), _t(g))
+    np.testing.assert_allclose(y.detach().numpy(), _np(want_y), **TOL)
+    np.testing.assert_allclose(dx.numpy(), _np(jdx), **TOL)
+    np.testing.assert_allclose(dw.numpy(), _np(jdw), **TOL)
+    assert not dw.numpy()[~mask].any()       # dW is masked
+
+
+@pytest.mark.parametrize("shape_x,k,n,r", [((20, 48), 48, 40, 4),
+                                            ((2, 7, 33), 33, 17, 2),
+                                            ((3, 5, 16), 16, 24, 8)])
+def test_sparse_lora_matches_jax_vjp(shape_x, k, n, r):
+    import jax
+
+    x, w, mask, a, b, g = _lora_inputs(np.random.default_rng(11), shape_x,
+                                       k, n, r)
+    scale = 16.0 / r
+    want_y, vjp = jax.vjp(
+        lambda x_, w_, a_, b_: JML.sparse_lora_matmul(
+            x_, w_, jnp.asarray(mask), a_, b_, scale),
+        *(jnp.asarray(t) for t in (x, w, a, b)))
+    want = vjp(jnp.asarray(g))
+    leaves = [_leaf(t) for t in (x, w, a, b)]
+    before = TML.lora_launches
+    y = TML.sparse_lora_matmul(leaves[0], leaves[1], _t(mask), leaves[2],
+                               leaves[3], scale)
+    got = torch.autograd.grad(y, leaves, _t(g))
+    assert TML.lora_launches == before      # the CPU never launches
+    np.testing.assert_allclose(y.detach().numpy(), _np(want_y), **TOL)
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), _np(wt), atol=1e-4, rtol=1e-5)
+
+
+def test_lora_refs_and_merge_match_jax():
+    x, w, mask, a, b, _ = _lora_inputs(np.random.default_rng(12), (6, 24),
+                                       24, 20, 4)
+    jx = [jnp.asarray(t) for t in (x, w, mask, a, b)]
+    tx = [_t(t) for t in (x, w, mask, a, b)]
+    np.testing.assert_allclose(TML.lora_matmul_ref(*tx, 4.0).numpy(),
+                               _np(JML.lora_matmul_ref(*jx, 4.0)), **TOL)
+    np.testing.assert_allclose(TML.sparse_lora_matmul_ref(*tx, 4.0).numpy(),
+                               _np(JML.sparse_lora_matmul_ref(*jx, 4.0)),
+                               **TOL)
+    for sparse in (True, False):
+        got = TML.merge_sparse_lora(tx[1], tx[2], tx[3], tx[4], 4.0, sparse)
+        want = JML.merge_sparse_lora(jx[1], jx[2], jx[3], jx[4], 4.0, sparse)
+        np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+# ------------------------------------------------------ attention backward
+# The port's backward (autograd through attention_core, which runs
+# flash_attention_backward_ref on the CPU) against jax.vjp of the JAX
+# attention_core with the flash kernels forced on — the dq and dk/dv
+# Pallas kernels in interpret mode.  fp32; the interpreter and the plain
+# einsums sum in different orders: atol 2e-5, rtol 1e-4 as for the forward.
+
+BWD_CASES = [
+    # (b, n, m, h, d, bias shapes, scale, causal)
+    (2, 5, 7, 3, 8, [], 0.3, False),
+    (2, 6, 6, 2, 11, [(1, 2, 6, 6), "pad"], 1.0, False),   # T5 rel + pad
+    (2, 4, 9, 2, 12, ["pad"], 0.25, False),                # cross, n < m
+    (1, 6, 6, 2, 8, [(1, 2, 6, 6), "pad"], 1.0, True),     # decoder causal
+    (2, 5, 7, 3, 8, [(2, 1, 5, 7)], 0.3, True),
+]
+
+
+def _bwd_inputs(rng, b, n, m, h, d, shapes):
+    q, k, v = _attn_inputs(rng, b, n, m, h, d)
+    biases = []
+    for s in shapes:
+        if s == "pad":
+            keep = rng.random((b, 1, 1, m)) < 0.7
+            keep[..., 0] = True
+            biases.append(np.where(keep, 0.0, TA.NEG_INF).astype(np.float32))
+        else:
+            biases.append(rng.standard_normal(s).astype(np.float32))
+    g = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    return q, k, v, biases, g
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_grads_match_jax_flash_vjp(jax_flash, case):
+    import jax
+
+    b, n, m, h, d, shapes, scale, causal = case
+    q, k, v, biases, g = _bwd_inputs(np.random.default_rng(13), b, n, m, h,
+                                     d, shapes)
+    jb = [jnp.asarray(x) for x in biases]
+    _, vjp = jax.vjp(lambda q_, k_, v_: JA.attention_core(
+        q_, k_, v_, jb, scale=scale, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    leaves = [_leaf(t) for t in (q, k, v)]
+    out = TA.attention_core(*leaves, [_t(x) for x in biases], scale, causal)
+    got = torch.autograd.grad(out, leaves, _t(g))
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), _np(wt), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_ref_matches_autograd(case):
+    """The kernels' plain version (from out and lse) equals autograd
+    through mha_reference, including hidden causal entries (ds = 0)."""
+    b, n, m, h, d, shapes, scale, causal = case
+    q, k, v, biases, g = _bwd_inputs(np.random.default_rng(14), b, n, m, h,
+                                     d, shapes)
+    tb = [_t(x) for x in biases]
+    leaves = [_leaf(t) for t in (q, k, v)]
+    want = torch.autograd.grad(TA.mha_reference(*leaves, tb, scale, causal),
+                               leaves, _t(g))
+    qt, kt, vt = (_t(t) for t in (q, k, v))
+    s = TA._scores(qt, kt, tb, scale, causal)
+    out = TA.mha_reference(qt, kt, vt, tb, scale, causal)
+    got = TA.flash_attention_backward_ref(qt, kt, vt, out,
+                                          torch.logsumexp(s, -1), _t(g), tb,
+                                          scale, causal)
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), wt.numpy(), **TOL)
+
+
+def test_attention_causal_rows_without_keys_have_zero_dq():
+    """Causal with n > m: rows that see no key average v uniformly; their
+    scores are hidden by a `where`, so dq is 0 there and dk gets nothing
+    from them, while dv does (p = 1/m)."""
+    rng = np.random.default_rng(15)
+    q, k, v, _, g = _bwd_inputs(rng, 1, 6, 4, 2, 8, [])
+    leaves = [_leaf(t) for t in (q, k, v)]
+    dq, dk, dv = torch.autograd.grad(
+        TA.attention_core(*leaves, (), 1.0, True), leaves, _t(g))
+    want = torch.autograd.grad(TA.mha_reference(*leaves, (), 1.0, True),
+                               leaves, _t(g))
+    for gt, wt in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(gt.numpy(), wt.numpy(), **TOL)
+    assert not dq[0, :2].any()              # rows 0, 1 see no key (m - n = -2)
+
+
+def test_attention_bias_grad_on_cpu_goes_through_autograd():
+    rng = np.random.default_rng(16)
+    q, k, v, _, g = _bwd_inputs(rng, 1, 5, 5, 2, 8, [])
+    bias = _leaf(rng.standard_normal((1, 2, 5, 5)).astype(np.float32))
+    out = TA.attention_core(_t(q), _t(k), _t(v), [bias], 0.5)
+    (db,) = torch.autograd.grad(out, (bias,), _t(g))
+    bias2 = bias.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        TA.mha_reference(_t(q), _t(k), _t(v), [bias2], 0.5), (bias2,), _t(g))
+    np.testing.assert_allclose(db.numpy(), want.numpy(), **TOL)

@@ -83,6 +83,28 @@ def test_wrappers_raise_instead_of_falling_back():
     assert TML.launches == before
 
 
+def test_new_wrappers_raise_instead_of_falling_back():
+    """The sparse-LoRA and attention-backward wrappers, forward and under
+    autograd, refuse a device the kernels do not serve."""
+    x = torch.empty(4, 8, device="meta")
+    w = torch.empty(8, 16, device="meta")
+    mask = torch.empty(8, 16, dtype=torch.bool, device="meta")
+    a = torch.empty(8, 2, device="meta", requires_grad=True)
+    b = torch.empty(2, 16, device="meta", requires_grad=True)
+    counts = (TML.lora_launches, TA.dq_launches, TA.dkv_launches)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad), \
+                pytest.raises(ValueError, match="unsupported device"):
+            TML.sparse_lora_matmul(x, w, mask, a, b, 8.0)
+    q = torch.empty(1, 3, 2, 8, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.attention_core(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.flash_attention_backward(q, q, q, q, torch.empty(1, 2, 3),
+                                    q, ())
+    assert (TML.lora_launches, TA.dq_launches, TA.dkv_launches) == counts
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp
 

@@ -25,8 +25,23 @@
 // there the wrapper splits K across blocks (fp32 partials, then one
 // ordered sum), so the W and mask bytes stream through enough SMs.
 //
+// The same file holds the sparse-LoRA kernels, y = x @ ((W + s·A·B) ⊙ M),
+// which replace the Pallas TPU kernel `_mm_lora_kernel`
+// (vlm_compression_tpu/ops/masked_linear.py:309, launched by
+// `_sparse_lora_pallas`).  They run the masked matmul's tile loop; each W
+// tile, on its way from registers to shared memory, gets its rank-r delta
+// Σ_r A[k, r]·B[r, n] in fp32 on the CUDA cores (the A rows of the K step
+// and the block's B columns staged in shared memory as fp32), scaled and
+// added to W in fp32, zeroed where the mask is false and cast to W's dtype
+// — the TPU kernel's fp32 merge — before the MMA.  The merged weight never
+// exists in device memory, which is the kernel's purpose: the plain version
+// writes (W + s·A·B) ⊙ M for every layer on every forward.  What bounds it:
+// the masked matmul's bound (2MNK operations; 2MK + 3KN + 2MN bytes) plus
+// the A and B bytes and the delta's recompute, 2KNr operations per M tile
+// ((M/128)·2KNr in all), small next to 2MNK at r ≤ 8.
+//
 // Not yet done (later PRs): a TMA/wgmma pipeline for the compute-bound
-// calibration shapes.
+// calibration and training shapes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -118,6 +133,54 @@ __device__ __forceinline__ void load_w(const bf16* __restrict__ w,
   }
 }
 
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+
+// a warp's 64 × 32 accumulators → y (bf16) or its split's fp32 partial,
+// through the warp's 16 × 16 staging tile; ragged edges masked
+__device__ __forceinline__ void store_tile(Acc (&acc)[4][2], float* cs,
+                                           int lane, int row0, int col0,
+                                           int M, int N, bf16* __restrict__ y,
+                                           float* __restrict__ partial) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int gm = row0 + i * 16 + (e >> 4);
+        const int gn = col0 + j * 16 + (e & 15);
+        if (gm >= M || gn >= N) continue;
+        if (partial)
+          partial[((size_t)blockIdx.z * M + gm) * N + gn] = cs[e];
+        else
+          y[(size_t)gm * N + gn] = __float2bfloat16(cs[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// acc += As · Bs over one BK step (the warp's 64 × 32 slice)
+__device__ __forceinline__ void mma_step(Acc (&acc)[4][2], const bf16* As,
+                                         const bf16* Bs, int wm, int wn) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * LDA + kk, LDA);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::load_matrix_sync(b[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+  }
+}
+
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 masked_matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
@@ -135,7 +198,7 @@ masked_matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   const int k_begin = blockIdx.z * k_split;
   const int k_end = min(K, k_begin + k_split);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  Acc acc[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -157,43 +220,147 @@ masked_matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
       load_x<VEC>(x, M, K, k_end, m0, k0 + BK, tid, ra);
       load_w<VEC>(w, mask, N, k_end, n0, k0 + BK, tid, rb);
     }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    mma_step(acc, As, Bs, wm, wn);
     __syncthreads();
   }
 
-  float* cs = Cs[warp];
+  store_tile(acc, Cs[warp], lane, m0 + wm * 64, n0 + wn * 32, M, N, y,
+             partial);
+}
+
+// ---------------------------------------------------- sparse-LoRA, bf16 path
+
+// W tile chunks and their mask bytes as loaded (two per thread, as in
+// load_w); out-of-range elements read as W = 0, mask = 0
+template <bool VEC>
+__device__ __forceinline__ void load_w_raw(const bf16* __restrict__ w,
+                                           const uint8_t* __restrict__ mask,
+                                           int N, int k_end, int n0, int k0,
+                                           int tid, Pack8 (&pw)[2],
+                                           Mask8 (&pm)[2]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm * 64 + i * 16 + (e >> 4);
-        const int gn = n0 + wn * 32 + j * 16 + (e & 15);
-        if (gm >= M || gn >= N) continue;
-        if (partial)
-          partial[((size_t)blockIdx.z * M + gm) * N + gn] = cs[e];
-        else
-          y[(size_t)gm * N + gn] = __float2bfloat16(cs[e]);
+  for (int i = 0; i < 2; ++i) {
+    const int c = tid + i * THREADS;
+    const int gk = k0 + (c >> 4), gn = n0 + (c & 15) * 8;
+    if (VEC) {
+      if (gk < k_end && gn < N) {
+        const size_t off = (size_t)gk * N + gn;
+        pw[i].u = *reinterpret_cast<const uint4*>(w + off);
+        pm[i].u = *reinterpret_cast<const uint2*>(mask + off);
+      } else {
+        pw[i].u = make_uint4(0u, 0u, 0u, 0u);
+        pm[i].u = make_uint2(0u, 0u);
       }
-      __syncwarp();
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const size_t off = (size_t)gk * N + gn + e;
+        const bool ok = gk < k_end && gn + e < N;
+        pw[i].h[e] = ok ? __bfloat16_as_ushort(w[off]) : 0;
+        pm[i].b[e] = ok ? mask[off] : 0;
+      }
     }
   }
+}
+
+// E = (W + s·Σ_r A[k,r]·B[r,n]) ⊙ M for one chunk of 8 columns, merged in
+// fp32 exactly as the plain version (delta first, then s·delta, then the
+// add; no fused multiply-add across the two) and cast to bf16
+__device__ __forceinline__ uint4 merge_chunk(const Pack8& pw, const Mask8& pm,
+                                             const float* __restrict__ a_row,
+                                             const float* __restrict__ b_col,
+                                             int r, float scale) {
+  float d[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) d[e] = 0.f;
+  for (int rr = 0; rr < r; ++rr) {
+    const float a = a_row[rr];
+    const float4 b0 = *reinterpret_cast<const float4*>(b_col + rr * BN);
+    const float4 b1 = *reinterpret_cast<const float4*>(b_col + rr * BN + 4);
+    d[0] = fmaf(a, b0.x, d[0]);
+    d[1] = fmaf(a, b0.y, d[1]);
+    d[2] = fmaf(a, b0.z, d[2]);
+    d[3] = fmaf(a, b0.w, d[3]);
+    d[4] = fmaf(a, b1.x, d[4]);
+    d[5] = fmaf(a, b1.y, d[5]);
+    d[6] = fmaf(a, b1.z, d[6]);
+    d[7] = fmaf(a, b1.w, d[7]);
+  }
+  Pack8 out;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float wv = __uint_as_float(static_cast<uint32_t>(pw.h[e]) << 16);
+    const float v = pm.b[e] ? __fadd_rn(wv, __fmul_rn(scale, d[e])) : 0.f;
+    out.h[e] = __bfloat16_as_ushort(__float2bfloat16(v));
+  }
+  return out.u;
+}
+
+// two blocks per SM (≤ 128 registers a thread), as the masked kernel gets
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+sparse_lora_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        const uint8_t* __restrict__ mask,
+                        const bf16* __restrict__ lora_a,
+                        const bf16* __restrict__ lora_b, int r, float scale,
+                        bf16* __restrict__ y, float* __restrict__ partial,
+                        int M, int N, int K, int k_split) {
+  __shared__ __align__(128) bf16 As[BM * LDA];
+  __shared__ __align__(128) bf16 Bs[BK * LDB];
+  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
+  // dynamic: the block's B columns (r × BN) and the K step's A rows (BK × r)
+  extern __shared__ __align__(16) float lora_smem[];
+  float* sB = lora_smem;
+  float* sA = lora_smem + r * BN;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(K, k_begin + k_split);
+
+  for (int e = tid; e < r * BN; e += THREADS) {
+    const int gn = n0 + e % BN;
+    sB[e] = gn < N ? __bfloat162float(lora_b[(size_t)(e / BN) * N + gn]) : 0.f;
+  }
+
+  Acc acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  uint4 ra[2];
+  Pack8 pw[2];
+  Mask8 pm[2];
+  load_x<VEC>(x, M, K, k_end, m0, k_begin, tid, ra);
+  load_w_raw<VEC>(w, mask, N, k_end, n0, k_begin, tid, pw, pm);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    for (int e = tid; e < BK * r; e += THREADS) {
+      const int gk = k0 + e / r;
+      sA[e] = gk < k_end ? __bfloat162float(lora_a[(size_t)gk * r + e % r]) : 0.f;
+    }
+    __syncthreads();   // this step's A rows (and, once, B) are in place
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * THREADS;
+      const int row = c >> 4, col = (c & 15) * 8;
+      *reinterpret_cast<uint4*>(As + (c >> 2) * LDA + (c & 3) * 8) = ra[i];
+      *reinterpret_cast<uint4*>(Bs + row * LDB + col) =
+          merge_chunk(pw[i], pm[i], sA + row * r, sB + col, r, scale);
+    }
+    __syncthreads();
+    if (k0 + BK < k_end) {   // next tile's raw loads in flight during the MMAs
+      load_x<VEC>(x, M, K, k_end, m0, k0 + BK, tid, ra);
+      load_w_raw<VEC>(w, mask, N, k_end, n0, k0 + BK, tid, pw, pm);
+    }
+    mma_step(acc, As, Bs, wm, wn);
+    __syncthreads();
+  }
+
+  store_tile(acc, Cs[warp], lane, m0 + wm * 64, n0 + wn * 32, M, N, y,
+             partial);
 }
 
 // y = Σ_z partial[z] in a fixed order, cast to bf16
@@ -236,6 +403,82 @@ masked_matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
       const int wk = k0 + br, wn = n0 + bc;
       const size_t off = (size_t)wk * N + wn;
       Bs[br][bc] = (wk < K && wn < N && mask[off]) ? w[off] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gm < M && gn < N) y[(size_t)gm * N + gn] = acc[i][j];
+    }
+  }
+}
+
+// fp32 sparse-LoRA: the float32 tile loop with the merge on the W tile
+__global__ void __launch_bounds__(FTHREADS)
+sparse_lora_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ lora_a,
+                       const float* __restrict__ lora_b, int r, float scale,
+                       float* __restrict__ y, int M, int N, int K) {
+  __shared__ float As[FBK][FBM + 4];
+  __shared__ float Bs[FBK][FBN + 4];
+  extern __shared__ __align__(16) float lora_smem[];
+  float* sB = lora_smem;             // r × FBN
+  float* sA = lora_smem + r * FBN;   // FBK × r
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  for (int e = tid; e < r * FBN; e += FTHREADS) {
+    const int gn = n0 + e % FBN;
+    sB[e] = gn < N ? lora_b[(size_t)(e / FBN) * N + gn] : 0.f;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+    for (int e = tid; e < FBK * r; e += FTHREADS) {
+      const int gk = k0 + e / r;
+      sA[e] = gk < K ? lora_a[(size_t)gk * r + e % r] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + i * FTHREADS;
+      const int ar = e >> 4, ac = e & 15;
+      const int gm = m0 + ar, gk = k0 + ac;
+      As[ac][ar] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
+      const int br = e >> 6, bc = e & 63;
+      const int wk = k0 + br, wn = n0 + bc;
+      float v = 0.f;
+      if (wk < K && wn < N) {
+        const size_t off = (size_t)wk * N + wn;
+        if (mask[off]) {
+          float d = 0.f;
+          for (int rr = 0; rr < r; ++rr)
+            d = fmaf(sA[br * r + rr], sB[rr * FBN + bc], d);
+          v = __fadd_rn(w[off], __fmul_rn(scale, d));
+        }
+      }
+      Bs[br][bc] = v;
     }
     __syncthreads();
 #pragma unroll
@@ -308,5 +551,58 @@ extern "C" int masked_matmul_f32(const void* x, const void* w, const void* mask,
   masked_matmul_f32_kernel<<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const uint8_t*>(mask), static_cast<float*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// splits > 1: as masked_matmul_bf16.  A (K, r) and B (r, N) are row-major
+// bf16; 1 ≤ r ≤ 128 (the block stages r·(BN + BK) fp32 values).
+extern "C" int sparse_lora_matmul_bf16(const void* x, const void* w,
+                                       const void* mask, const void* lora_a,
+                                       const void* lora_b, int r, float scale,
+                                       void* y, void* workspace, int M, int N,
+                                       int K, int splits, int k_split, int vec,
+                                       void* stream) {
+  if (splits < 1 || (long long)splits * k_split < K ||
+      (splits > 1 && workspace == nullptr) || r < 1 || r > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = r * (BN + BK) * static_cast<int>(sizeof(float));
+  auto kernel = vec ? sparse_lora_bf16_kernel<true> : sparse_lora_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* partial = splits > 1 ? static_cast<float*>(workspace) : nullptr;
+  kernel<<<grid, THREADS, smem, st>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const uint8_t*>(mask), static_cast<const bf16*>(lora_a),
+          static_cast<const bf16*>(lora_b), r, scale, static_cast<bf16*>(y),
+          partial, M, N, K, k_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long mn = (long long)M * N;
+  const long long want = (mn + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(partial, static_cast<bf16*>(y),
+                                               mn, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sparse_lora_matmul_f32(const void* x, const void* w,
+                                      const void* mask, const void* lora_a,
+                                      const void* lora_b, int r, float scale,
+                                      void* y, int M, int N, int K,
+                                      void* stream) {
+  if (r < 1 || r > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = r * (FBN + FBK) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      sparse_lora_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+  sparse_lora_f32_kernel<<<grid, FTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(lora_a),
+      static_cast<const float*>(lora_b), r, scale, static_cast<float*>(y),
+      M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

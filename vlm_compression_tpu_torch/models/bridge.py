@@ -4,10 +4,11 @@ random init at full width.
 The port keeps the JAX package's layout and names (kernels (in, out), bool
 masks (in, out), ``blocks_<i>``, ``attn/qkv``, …), so the bridge only
 renames: the Flax path ``params/visual_encoder/blocks_0/attn/qkv/kernel``
-is the port's parameter ``visual_encoder.blocks_0.attn.qkv.kernel``, and
-``masks/…/qkv/mask`` the ``mask`` buffer of that linear.  Variables arrive
-as a nested dict of numpy arrays (``params``, and ``masks`` where
-present).  Loading real checkpoints through ``models/convert.py`` waits
+is the port's parameter ``visual_encoder.blocks_0.attn.qkv.kernel``,
+``masks/…/qkv/mask`` the ``mask`` buffer of that linear, and
+``lora/…/qkv/lora_a`` (``lora_b``) its adapter parameters.  Variables
+arrive as a nested dict of numpy arrays (``params``, and ``masks`` and
+``lora`` where present).  Loading real checkpoints through ``models/convert.py`` waits
 until weights are in the repository.
 """
 
@@ -19,7 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+from vlm_compression_tpu_torch.models.layers import (
+    SparseLinear,
+    init_lora_,
+    set_mask,
+)
 
 
 def flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]:
@@ -54,7 +59,10 @@ def load_jax_variables(model: nn.Module, variables: dict,
     requires every parameter of the model to be covered."""
     named = dict(model.named_parameters())
     seen = set()
-    for path, leaf in flatten(variables.get("params", {})).items():
+    leaves = list(flatten(variables.get("params", {})).items())
+    leaves += [(path, leaf) for path, leaf in
+               flatten(variables.get("lora", {})).items()]
+    for path, leaf in leaves:
         name = ".".join(path)
         if name not in named:
             raise KeyError(f"no parameter {name!r} in {type(model).__name__}")
@@ -86,9 +94,13 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
                  ) -> nn.Module:
     """Seeded random weights in place, on the model's own device: N(0, std)
     for kernels, embeddings and tokens; ones for norm scales; zeros for
-    biases.  Parameters are drawn in name order from one generator."""
+    biases.  Base parameters are drawn in name order from one generator;
+    LoRA adapters (A he-uniform, B zeros) from a second one, so a model
+    with adapters draws the same base weights as one without."""
     gen = None
     for name, p in sorted(model.named_parameters()):
+        if name.rsplit(".", 1)[-1] in ("lora_a", "lora_b"):
+            continue
         if gen is None:
             gen = torch.Generator(device=p.device).manual_seed(seed)
         leaf = name.rsplit(".", 1)[-1]
@@ -98,4 +110,4 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
             p.zero_()
         else:
             p.normal_(0.0, std, generator=gen)
-    return model
+    return init_lora_(model, seed + 1)

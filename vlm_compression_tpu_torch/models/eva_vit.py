@@ -38,6 +38,8 @@ class EvaViTConfig:
     num_heads: int = 16
     mlp_hidden_dim: int = 6144          # int(1408 * 4.3637)
     layer_norm_eps: float = 1e-6
+    lora_rank: int = 0                  # rank for all target linears (V tower)
+    lora_alpha: float = 16.0
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"
 
@@ -57,16 +59,22 @@ class EvaViTConfig:
         return EvaViTConfig(**d)
 
 
+def _sl(cfg: EvaViTConfig, in_features, features, use_bias=True,
+        device=None):
+    return SparseLinear(in_features, features, use_bias,
+                        param_dtype=_dt(cfg.param_dtype), device=device,
+                        lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+
+
 class EvaAttention(nn.Module):
     def __init__(self, cfg: EvaViTConfig, device=None):
         super().__init__()
         self.cfg = cfg
         pdt, dim = _dt(cfg.param_dtype), cfg.embed_dim
-        self.qkv = SparseLinear(dim, 3 * dim, use_bias=False,
-                                param_dtype=pdt, device=device)
+        self.qkv = _sl(cfg, dim, 3 * dim, use_bias=False, device=device)
         self.q_bias = nn.Parameter(torch.zeros(dim, dtype=pdt, device=device))
         self.v_bias = nn.Parameter(torch.zeros(dim, dtype=pdt, device=device))
-        self.proj = SparseLinear(dim, dim, param_dtype=pdt, device=device)
+        self.proj = _sl(cfg, dim, dim, device=device)
 
     def forward(self, x, mode="masked"):
         cfg = self.cfg
@@ -86,11 +94,8 @@ class EvaAttention(nn.Module):
 class EvaMlp(nn.Module):
     def __init__(self, cfg: EvaViTConfig, device=None):
         super().__init__()
-        pdt = _dt(cfg.param_dtype)
-        self.fc1 = SparseLinear(cfg.embed_dim, cfg.mlp_hidden_dim,
-                                param_dtype=pdt, device=device)
-        self.fc2 = SparseLinear(cfg.mlp_hidden_dim, cfg.embed_dim,
-                                param_dtype=pdt, device=device)
+        self.fc1 = _sl(cfg, cfg.embed_dim, cfg.mlp_hidden_dim, device=device)
+        self.fc2 = _sl(cfg, cfg.mlp_hidden_dim, cfg.embed_dim, device=device)
 
     def forward(self, x, mode="masked"):
         return self.fc2(gelu(self.fc1(x, mode=mode)), mode=mode)

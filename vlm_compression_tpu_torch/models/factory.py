@@ -1,0 +1,92 @@
+"""Model factory: model config → composed InstructBLIP-T5 (port of the
+``blip2_t5_instruct`` branch of ``vlm_compression_tpu/models/factory.py``).
+
+LoRA ranks per tower follow the reference's ``tune_opt`` selector and
+``lora_r_v/l/q`` flags: a tower gets its rank only when its letter is in
+``tune_opt`` (V = vision, L = language, Q = Q-Former).  The other
+compositions and the JAX factory's remat and KV-cache knobs are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from vlm_compression_tpu_torch.common.device import DeviceLike
+from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+    Blip2T5Instruct,
+    Blip2T5InstructConfig,
+)
+from vlm_compression_tpu_torch.models.bridge import random_init_
+from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+from vlm_compression_tpu_torch.models.t5 import T5Config
+
+_NOT_PORTED = ("use_grad_checkpoint", "use_remat", "kv_cache_int8",
+               "kv_cache_per_row")
+
+
+def _get(cfg, key, default=None):
+    if cfg is None:
+        return default
+    v = cfg.get(key, default) if hasattr(cfg, "get") else getattr(
+        cfg, key, default)
+    return default if v is None else v
+
+
+def apply_dtype_policy(cfg, amp: bool):
+    """amp=True keeps the bf16-compute defaults; amp=False rewrites every
+    tower config to float32 compute and storage (the reference's
+    non-autocast path)."""
+    if amp:
+        return cfg
+
+    def fix(node):
+        updates = {}
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            if f.name in ("dtype", "param_dtype") and v == "bfloat16":
+                updates[f.name] = "float32"
+            elif dataclasses.is_dataclass(v):
+                updates[f.name] = fix(v)
+        return dataclasses.replace(node, **updates) if updates else node
+
+    return fix(cfg)
+
+
+def build_model_config(model_cfg) -> Tuple[str, Blip2T5InstructConfig]:
+    """(arch, composed config) from a model config node."""
+    arch = _get(model_cfg, "arch", "blip2_t5_instruct")
+    if arch != "blip2_t5_instruct":
+        raise NotImplementedError(f"arch {arch!r} is not ported yet")
+    for key in _NOT_PORTED:
+        if _get(model_cfg, key, False):
+            raise NotImplementedError(f"{key} is not ported yet")
+    size = str(_get(model_cfg, "model_type",
+                    _get(model_cfg, "model_size", "flant5xl")))
+    tune_opt = str(_get(model_cfg, "tune_opt", ""))
+    r_v = int(_get(model_cfg, "lora_r_v", 0)) if "V" in tune_opt else 0
+    r_l = int(_get(model_cfg, "lora_r_l", 0)) if "L" in tune_opt else 0
+    r_q = int(_get(model_cfg, "lora_r_q", 0)) if "Q" in tune_opt else 0
+    alpha = float(_get(model_cfg, "lora_alpha", 16.0))
+    if bool(_get(model_cfg, "tiny", False)):
+        cfg = Blip2T5InstructConfig(
+            vit=EvaViTConfig.tiny(lora_rank=r_v, lora_alpha=alpha),
+            qformer=QFormerConfig.tiny(lora_rank=r_q, lora_alpha=alpha),
+            t5=T5Config.tiny(lora_rank=r_l, lora_alpha=alpha))
+    else:
+        t5 = (T5Config.flan_t5_xxl if "xxl" in size
+              else T5Config.flan_t5_xl)(lora_rank=r_l, lora_alpha=alpha)
+        cfg = Blip2T5InstructConfig(
+            vit=EvaViTConfig.eva_clip_g(lora_rank=r_v, lora_alpha=alpha),
+            qformer=QFormerConfig(lora_rank=r_q, lora_alpha=alpha), t5=t5)
+    return arch, apply_dtype_policy(cfg, bool(_get(model_cfg, "amp", True)))
+
+
+def build_model(model_cfg, seed: int = 0,
+                device: DeviceLike = None) -> Blip2T5Instruct:
+    """The composed model with seeded random weights (LoRA A he-uniform, B
+    zeros), on the card unless ``device`` says otherwise."""
+    _, cfg = build_model_config(model_cfg)
+    return random_init_(Blip2T5Instruct(cfg, device=device), seed=seed)

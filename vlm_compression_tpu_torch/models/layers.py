@@ -2,25 +2,38 @@
 ``vlm_compression_tpu/models/layers.py``), plus the small shared layers.
 
 Parameters keep the JAX layout and names: ``kernel`` is (in, out), ``bias``
-(out,), and the optional bool ``mask`` buffer is (in, out), True = keep.
-The forward mode is an argument, as in the JAX package:
+(out,), the optional bool ``mask`` buffer (in, out), True = keep, and with
+``lora_rank`` r > 0 the adapters ``lora_a`` (in, r) and ``lora_b`` (r, out)
+(the JAX package's ``lora`` collection).  The forward mode is an argument,
+as in the JAX package:
 
-  dense   y = x · W          (teacher path: the mask is bypassed)
-  masked  y = x · (W ⊙ M)    (pruned model; runs the masked-matmul kernel
-                              on the card; without a mask it is x · W)
+  dense        y = x · W                    (teacher path: mask and LoRA
+                                             bypassed)
+  masked       y = x · (W ⊙ M)              (pruned model; the masked-matmul
+                                             kernel on the card)
+  sparse_lora  y = x · ((W + s·A·B) ⊙ M)    (the RESSA student; the
+                                             sparse-LoRA kernel on the card)
+  lora         y = x · (W ⊙ M) + s·(x·A)·B  (ablation: mask on the base only)
 
-``sparse_lora`` and ``lora`` arrive with the retraining slice, as do the
-int8/int4 kernels and bit-packed masks.
+with s = lora_alpha / r.  Without a mask the masked modes are x · W, and the
+LoRA modes x · W + s·(x·A)·B; a linear with r = 0 runs the LoRA modes as
+``masked``.  A and B are cast to the compute dtype, which follows the input.
+The int8/int4 kernels and bit-packed masks arrive with later slices.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from vlm_compression_tpu_torch.ops.masked_linear import masked_matmul
+from vlm_compression_tpu_torch.ops.masked_linear import (
+    lora_matmul_ref,
+    masked_matmul,
+    sparse_lora_matmul,
+)
 
 DENSE = "dense"
 MASKED = "masked"
@@ -31,30 +44,52 @@ _MODES = (DENSE, MASKED, SPARSE_LORA, LORA)
 
 class SparseLinear(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.in_features = in_features
         self.features = features
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
         self.kernel = nn.Parameter(torch.empty(
             (in_features, features), dtype=param_dtype, device=device))
         self.bias = (nn.Parameter(torch.zeros(features, dtype=param_dtype,
                                               device=device))
                      if use_bias else None)
         self.register_buffer("mask", None)
+        if lora_rank > 0:
+            self.lora_a = nn.Parameter(torch.zeros(
+                (in_features, lora_rank), dtype=param_dtype, device=device))
+            self.lora_b = nn.Parameter(torch.zeros(
+                (lora_rank, features), dtype=param_dtype, device=device))
+
+    @torch.no_grad()
+    def reset_lora_(self, generator: torch.Generator) -> None:
+        """The JAX init: A he-uniform (bound sqrt(6 / in)), B zeros, so the
+        adapter is a no-op until B trains."""
+        bound = math.sqrt(6.0 / self.in_features)
+        self.lora_a.uniform_(-bound, bound, generator=generator)
+        self.lora_b.zero_()
 
     def forward(self, x: torch.Tensor, mode: str = MASKED) -> torch.Tensor:
         if mode not in _MODES:
             raise ValueError(f"mode {mode!r} not in {_MODES}")
-        if mode in (SPARSE_LORA, LORA):
-            raise NotImplementedError(
-                f"mode {mode!r} (SparseLoRA) arrives with the retraining "
-                "slice of the port")
         # compute dtype follows the input, as in the JAX package
         k = self.kernel.to(x.dtype)
-        if mode == DENSE or self.mask is None:
+        if mode == DENSE:
             y = x @ k
+        elif mode == MASKED or self.lora_rank == 0:
+            y = x @ k if self.mask is None else masked_matmul(x, k, self.mask)
         else:
-            y = masked_matmul(x, k, self.mask)
+            s = self.lora_alpha / self.lora_rank
+            a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
+            if self.mask is None:
+                z = (x @ a) @ b
+                y = x @ k + (s * z.float()).to(x.dtype)
+            elif mode == SPARSE_LORA:
+                y = sparse_lora_matmul(x, k, self.mask, a, b, s)
+            else:
+                y = lora_matmul_ref(x, k, self.mask, a, b, s)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -104,3 +139,20 @@ def set_mask(linear: SparseLinear, mask: Optional[torch.Tensor]) -> None:
                              f"{tuple(linear.kernel.shape)}")
         mask = mask.to(device=linear.kernel.device, dtype=torch.bool)
     linear.mask = mask
+
+
+def lora_linears(model: nn.Module):
+    """(name, SparseLinear) for every linear of ``model`` with adapters."""
+    return [(name, m) for name, m in model.named_modules()
+            if isinstance(m, SparseLinear) and m.lora_rank > 0]
+
+
+def init_lora_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Reset every adapter of ``model`` (A he-uniform, B zeros) from one
+    generator of its own, in name order."""
+    gen = None
+    for _, m in sorted(lora_linears(model), key=lambda nm: nm[0]):
+        if gen is None:
+            gen = torch.Generator(device=m.lora_a.device).manual_seed(seed)
+        m.reset_lora_(gen)
+    return model

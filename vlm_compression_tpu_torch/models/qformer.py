@@ -40,6 +40,8 @@ class QFormerConfig:
     encoder_width: int = 1408          # vision feature dim
     num_query_tokens: int = 32
     layer_norm_eps: float = 1e-12
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
     param_dtype: str = "float32"
     dtype: str = "bfloat16"
 
@@ -54,7 +56,8 @@ class QFormerConfig:
 
 def _sl(cfg, in_features, features, device):
     return SparseLinear(in_features, features,
-                        param_dtype=_dt(cfg.param_dtype), device=device)
+                        param_dtype=_dt(cfg.param_dtype), device=device,
+                        lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
 
 
 class BertSelfAttention(nn.Module):

@@ -51,12 +51,21 @@ class T5Config:
     tie_word_embeddings: bool = False
     decoder_start_token_id: int = 0
     pad_token_id: int = 0
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"
 
     @staticmethod
     def flan_t5_xl(**kw) -> "T5Config":
         return T5Config(**kw)
+
+    @staticmethod
+    def flan_t5_xxl(**kw) -> "T5Config":
+        d = dict(d_model=4096, d_ff=10240, num_layers=24,
+                 num_decoder_layers=24, num_heads=64)
+        d.update(kw)
+        return T5Config(**d)
 
     @staticmethod
     def tiny(**kw) -> "T5Config":
@@ -123,15 +132,20 @@ class T5RelPosBias(nn.Module):
         return bias.permute(2, 0, 1)[None]               # (1, heads, q, k)
 
 
+def _sl(cfg: T5Config, in_features, features, device):
+    return SparseLinear(in_features, features, False, _dt(cfg.param_dtype),
+                        device, lora_rank=cfg.lora_rank,
+                        lora_alpha=cfg.lora_alpha)
+
+
 class T5Attention(nn.Module):
     def __init__(self, cfg: T5Config, device=None):
         super().__init__()
         self.cfg = cfg
-        inner, pdt = cfg.num_heads * cfg.d_kv, _dt(cfg.param_dtype)
+        inner = cfg.num_heads * cfg.d_kv
         for name in ("q", "k", "v"):
-            self.add_module(name, SparseLinear(cfg.d_model, inner, False, pdt,
-                                               device))
-        self.o = SparseLinear(inner, cfg.d_model, False, pdt, device)
+            self.add_module(name, _sl(cfg, cfg.d_model, inner, device))
+        self.o = _sl(cfg, inner, cfg.d_model, device)
 
     def project_kv(self, kv, mode="masked"):
         cfg = self.cfg
@@ -169,10 +183,9 @@ class T5FFN(nn.Module):
 
     def __init__(self, cfg: T5Config, device=None):
         super().__init__()
-        pdt = _dt(cfg.param_dtype)
-        self.wi_0 = SparseLinear(cfg.d_model, cfg.d_ff, False, pdt, device)
-        self.wi_1 = SparseLinear(cfg.d_model, cfg.d_ff, False, pdt, device)
-        self.wo = SparseLinear(cfg.d_ff, cfg.d_model, False, pdt, device)
+        self.wi_0 = _sl(cfg, cfg.d_model, cfg.d_ff, device)
+        self.wi_1 = _sl(cfg, cfg.d_model, cfg.d_ff, device)
+        self.wo = _sl(cfg, cfg.d_ff, cfg.d_model, device)
 
     def forward(self, x, mode="masked"):
         gate = gelu(self.wi_0(x, mode=mode), approximate=True)

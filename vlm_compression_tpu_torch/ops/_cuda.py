@@ -22,12 +22,13 @@ from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("masked_matmul", "flash_attention")
+SOURCES = ("masked_matmul", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes per C entry point: pointers (and the stream) as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
@@ -35,11 +36,21 @@ _SIGNATURES = {
         "masked_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P],
         "masked_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "sparse_lora_matmul_bf16": [_P, _P, _P, _P, _P, _I, _F, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _P],
+        "sparse_lora_matmul_f32": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I,
+                                   _I, _P],
     },
     "flash_attention": {
         "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-                                _P],
+                                _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        "flash_attention_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                    _P],
     },
 }
 

@@ -1,7 +1,7 @@
-"""Attention core shared by every tower: plain version + flash kernel.
+"""Attention core shared by every tower: plain versions + flash kernels.
 
-Counterpart of ``vlm_compression_tpu/ops/attention.py`` (forward only).
-Semantics, identical in both versions:
+Counterpart of ``vlm_compression_tpu/ops/attention.py``.  Semantics,
+identical in every version:
 
   s   = (q · kᵀ) * scale + Σ bias_i          (fp32)
   s   = NEG_INF where right-aligned causal masking hides key j from query i
@@ -9,11 +9,25 @@ Semantics, identical in both versions:
   p   = softmax(s, axis=-1)                   (fp32)
   out = p.astype(v.dtype) · v
 
+and the flash backward of the JAX package's kernels, from the saved
+log-sum-exp:
+
+  p  = exp(s − lse);  delta = rowsum(g ⊙ out)
+  dv = pᵀ·g;  ds = p ⊙ (g·vᵀ − delta) · scale;  dq = ds·k;  dk = dsᵀ·q
+
+where entries the causal flag hides get ds = 0 (it is a ``where`` in the
+reference, so they carry no gradient — rows that see no key included).
+
 Layout: q (b, n, h, d), k/v (b, m, h, d); biases are additive fp32 arrays
-broadcastable to (b, h, n, m).  ``attention_core`` runs ``mha_reference``
-on CPU tensors and the hand-written kernel ``csrc/flash_attention.cu`` on
-CUDA tensors (launch or raise, no fallback — decode steps included).
-``launches`` counts kernel launches.
+broadcastable to (b, h, n, m).  ``attention_core`` is an autograd Function
+whose forward runs ``mha_reference`` on CPU tensors and the hand-written
+kernel ``csrc/flash_attention.cu`` on CUDA tensors, and whose backward runs
+``flash_attention_backward_ref`` on the CPU and the two kernels of
+``csrc/flash_attention_bwd.cu`` (dq; dk and dv) on the card — launch or
+raise, no fallback.  A bias that needs a gradient has no kernel yet (the
+dbias kernel): on the card its backward raises; on the CPU autograd through
+``mha_reference`` serves it.  ``launches``, ``dq_launches`` and
+``dkv_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -28,6 +42,8 @@ from vlm_compression_tpu_torch.ops import _cuda
 NEG_INF = -1e9  # matches the towers' additive-mask constant
 
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 
 def _as_4d(bias: torch.Tensor) -> torch.Tensor:
@@ -35,29 +51,112 @@ def _as_4d(bias: torch.Tensor) -> torch.Tensor:
         if bias.ndim < 4 else bias
 
 
-def mha_reference(q, k, v, biases: Sequence[torch.Tensor] = (),
-                  scale: float = 1.0, causal: bool = False) -> torch.Tensor:
-    """q (b,n,h,d), k/v (b,m,h,d), biases broadcastable to (b,h,n,m)."""
+def _hidden(n: int, m: int, device) -> torch.Tensor:
+    """(n, m) bool: True where right-aligned causal masking hides key j
+    from query i."""
+    return (torch.arange(m, device=device)[None, :]
+            > torch.arange(n, device=device)[:, None] + (m - n))
+
+
+def _scores(q, k, biases, scale, causal):
+    """fp32 scores (b, h, n, m) with biases and causal masking."""
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     for bias in biases:
         s = s + bias.float()
     if causal:
+        s = torch.where(_hidden(s.shape[-2], s.shape[-1], s.device)[None, None],
+                        torch.full((), NEG_INF, dtype=s.dtype, device=s.device),
+                        s)
+    return s
+
+
+def mha_reference(q, k, v, biases: Sequence[torch.Tensor] = (),
+                  scale: float = 1.0, causal: bool = False) -> torch.Tensor:
+    """q (b,n,h,d), k/v (b,m,h,d), biases broadcastable to (b,h,n,m)."""
+    p = torch.softmax(_scores(q, k, biases, scale, causal), dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype), v)
+
+
+def flash_attention_backward_ref(q, k, v, out, lse, g,
+                                 biases: Sequence[torch.Tensor] = (),
+                                 scale: float = 1.0, causal: bool = False):
+    """Plain version of the backward kernels: (dq, dk, dv) from the saved
+    out and lse (b, h, n), recomputing p = exp(s − lse) as they do (an
+    entry the causal flag hides takes its exact p, 1/m in a row that sees
+    no key and 0 elsewhere, and ds = 0).  ds is cast to k's (q's) dtype
+    before ds·k (dsᵀ·q), p to g's dtype before pᵀ·g, as in the JAX
+    kernels; products accumulate in fp32."""
+    s = _scores(q, k, biases, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    delta = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float())
+    dp = torch.einsum("bnhd,bmhd->bhnm", g.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    if causal:
         n, m = s.shape[-2], s.shape[-1]
-        vis = (torch.arange(m, device=s.device)[None, :]
-               <= torch.arange(n, device=s.device)[:, None] + (m - n))
-        s = torch.where(vis[None, None], s,
-                        torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bhnm,bmhd->bnhd", p, v)
+        hid = _hidden(n, m, s.device)
+        # exact p of a hidden entry: 1/m in a row that sees no key (its
+        # lse, −1e9 + log m, rounds to −1e9 in fp32), else 0
+        blind = (torch.arange(n, device=s.device) + (m - n) < 0)[:, None]
+        p = torch.where(hid, torch.where(blind, 1.0 / m, 0.0), p)
+        ds = torch.where(hid, 0.0, ds)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(g.dtype).float(), g.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_DBIAS = ("a bias that needs a gradient has no attention backward kernel "
+          "yet: the dbias kernel (_flash_dbias_kernel) is ROADMAP queue 1, "
+          "item 8")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves q, k, v, out, lse and the biases at their broadcast
+    shapes; backward runs the dq and dk/dv kernels (plain versions on the
+    CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, *biases):
+        if q.device.type == "cpu":
+            s = _scores(q, k, biases, scale, causal)
+            out = torch.einsum("bhnm,bmhd->bnhd",
+                               torch.softmax(s, -1).to(v.dtype), v)
+            lse = torch.logsumexp(s, -1)
+        else:
+            out, lse = flash_attention(q, k, v, biases, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse, *biases)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, *biases = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if any(need[5:]):
+            raise NotImplementedError(_DBIAS)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_backward_ref(
+                q, k, v, out, lse, g, biases, ctx.scale, ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_backward(
+                q, k, v, out, lse, g, biases, ctx.scale, ctx.causal,
+                need_dq=need[0], need_dkv=need[1] or need[2])
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None, *[None] * len(biases))
 
 
 def attention_core(q, k, v, biases: Sequence[Optional[torch.Tensor]] = (),
                    scale: float = 1.0, causal: bool = False) -> torch.Tensor:
     """Shared attention core for every tower (None biases are dropped)."""
     biases = [_as_4d(x) for x in biases if x is not None]
-    if q.device.type == "cpu":
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (q, k, v, *biases)):
+        if q.device.type == "cpu":
+            return mha_reference(q, k, v, biases, scale, causal)
+        return flash_attention(q, k, v, biases, scale, causal)[0]
+    if q.device.type == "cpu" and any(b.requires_grad for b in biases):
         return mha_reference(q, k, v, biases, scale, causal)
-    return flash_attention(q, k, v, biases, scale, causal)[0]
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal), *biases)
 
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -97,11 +196,11 @@ def _check_bias(bias, device, full):
                      f"broadcast to {full}")
 
 
-def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
-                    scale: float = 1.0, causal: bool = False):
-    """Launch the flash kernel on CUDA tensors → (out (b,n,h,d) in q's
-    dtype, lse (b,h,n) float32)."""
-    global launches
+def _layout(q, k, v, biases):
+    """Validate q/k/v and the biases for the kernels → (17 strides: q, k, v
+    (b, seq, h); bias0, bias1 (b, h, n, m), 0 on broadcast axes — the
+    kernels read the small arrays, never expanded; the two bias pointers;
+    whether 16-byte row loads are safe)."""
     dev = q.device
     b, n, h, d = q.shape
     m = k.shape[1]
@@ -120,24 +219,90 @@ def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
         if not (bias.dtype == torch.float32 and bias.device == dev
                 and all(s in (1, f) for s, f in zip(shape, full))):
             _check_bias(bias, dev, full)
-        # stride 0 on broadcast axes: the kernel reads the small array
         st = bias.stride()
         strides += [st[ax] if shape[ax] > 1 else 0 for ax in range(4)]
         ptrs[i] = bias.data_ptr()
     strides += [0] * (17 - len(strides))
+    # 16-byte row loads need d, every q/k/v stride and base 8-aligned
+    vec = (d % 8 == 0 and all(x % 8 == 0 for x in strides[:9])
+           and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0
+           and v.data_ptr() % 16 == 0)
+    return strides, ptrs, vec
+
+
+def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
+                    scale: float = 1.0, causal: bool = False):
+    """Launch the flash kernel on CUDA tensors → (out (b,n,h,d) in q's
+    dtype, lse (b,h,n) float32)."""
+    global launches
+    strides, ptrs, vec = _layout(q, k, v, biases)
+    dev = q.device
+    b, n, h, d = q.shape
+    m = k.shape[1]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=dev)
     if b * n * h == 0:
         return out, lse
-    # 16-byte row loads need d, every q/k/v stride and base 8-aligned
-    vec = int(d % 8 == 0 and all(x % 8 == 0 for x in strides[:9])
-              and q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0
-              and v.data_ptr() % 16 == 0)
     err = _cuda.library("flash_attention").flash_attention_fwd(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), lse.data_ptr(), ptrs[0], ptrs[1],
         _STRIDES(*strides), b, n, m, h, d, float(scale), int(bool(causal)),
-        vec, _cuda.stream_ptr(dev))
+        int(vec), _cuda.stream_ptr(dev))
     _cuda.check(err, "flash_attention")
     launches += 1
     return out, lse
+
+
+_BWD_STRIDES = ctypes.c_longlong * 20
+
+
+def flash_attention_backward(q, k, v, out, lse, g,
+                             biases: Sequence[torch.Tensor] = (),
+                             scale: float = 1.0, causal: bool = False,
+                             need_dq: bool = True, need_dkv: bool = True):
+    """Launch the backward kernels on CUDA tensors → (dq, dk, dv) in the
+    layouts and dtypes of q, k, v (None for a gradient not asked for).
+    ``lse`` is the forward's (b, h, n) float32 log-sum-exp; delta =
+    rowsum(g ⊙ out) is formed here in fp32, as the JAX package does."""
+    global dq_launches, dkv_launches
+    strides, ptrs, vec = _layout(q, k, v, biases)
+    dev = q.device
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != dev or \
+            out.shape != q.shape or lse.shape != (b, h, n) or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward: g {tuple(g.shape)} "
+                         f"{g.dtype}, out {tuple(out.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} for q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    g = g if g.stride(3) == 1 else g.contiguous()
+    lse = lse.contiguous()
+    delta = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float()).contiguous()
+    strides = strides + list(g.stride()[:3])
+    vec = int(vec and all(x % 8 == 0 for x in strides[17:])
+              and g.data_ptr() % 16 == 0)
+    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=dev) \
+        if need_dq else None
+    dk, dv = (torch.empty((b, m, h, d), dtype=k.dtype, device=dev),
+              torch.empty((b, m, h, d), dtype=v.dtype, device=dev)) \
+        if need_dkv else (None, None)
+    if b * n * h == 0:
+        return (dq if dq is None else dq.zero_(),
+                dk if dk is None else dk.zero_(),
+                dv if dv is None else dv.zero_())
+    lib = _cuda.library("flash_attention_bwd")
+    common = (int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = (ptrs[0], ptrs[1], _BWD_STRIDES(*strides), b, n, m, h, d,
+            float(scale), int(bool(causal)), vec, _cuda.stream_ptr(dev))
+    if need_dq:
+        _cuda.check(lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *tail),
+                    "flash_attention_bwd_dq")
+        dq_launches += 1
+    if need_dkv:
+        _cuda.check(lib.flash_attention_bwd_dkv(*common, dk.data_ptr(),
+                                                dv.data_ptr(), *tail),
+                    "flash_attention_bwd_dkv")
+        dkv_launches += 1
+    return dq, dk, dv

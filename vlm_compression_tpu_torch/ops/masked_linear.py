@@ -1,13 +1,19 @@
-"""Masked matmul — the sparse forward path: y = x · (W ⊙ M).
+"""Masked and sparse-LoRA matmuls — the sparse forward paths.
 
-Counterpart of ``vlm_compression_tpu/ops/masked_linear.py`` (the
-``masked`` mode only; the sparse-LoRA, LoRA and packed-mask variants come
-with later slices).  Layout as there: x (..., in), W (in, out), mask
-(in, out) bool, True = keep.
+Counterpart of ``vlm_compression_tpu/ops/masked_linear.py`` (the packed-mask
+variant comes with a later slice).  Layout as there: x (..., in), W
+(in, out), mask (in, out) bool, True = keep, A (in, r), B (r, out).
 
-``masked_matmul`` runs the plain version on CPU tensors and the
-hand-written kernel ``csrc/masked_matmul.cu`` on CUDA tensors (it launches
-or raises — there is no fallback).  ``launches`` counts kernel launches.
+  masked       y = x · (W ⊙ M)
+  sparse_lora  y = x · ((W + s·A·B) ⊙ M)      (mask over the sum)
+  lora         y = x · (W ⊙ M) + (x·A)·B·s     (ablation: mask on the base)
+
+``masked_matmul`` and ``sparse_lora_matmul`` are autograd Functions whose
+forward runs the plain version on CPU tensors and a hand-written kernel of
+``csrc/masked_matmul.cu`` on CUDA tensors (launch or raise — no fallback),
+and whose backward is the JAX package's hand-written VJP in plain matmuls
+(as there, the backward products are left to the matmul library).
+``launches`` and ``lora_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from vlm_compression_tpu_torch.ops import _cuda
 
 launches = 0
+lora_launches = 0
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -27,21 +34,155 @@ def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
 
 
+def lora_delta(lora_a: torch.Tensor, lora_b: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """s·A·B in float32."""
+    return scale * torch.matmul(lora_a.float(), lora_b.float())
+
+
+def sparse_lora_weight(w, mask, lora_a, lora_b, scale) -> torch.Tensor:
+    """E = (W + s·A·B) ⊙ M: the fp32 merge, masked, cast to W's dtype."""
+    eff = w.float() + lora_delta(lora_a, lora_b, scale)
+    return torch.where(mask, eff, torch.zeros((), device=w.device)).to(w.dtype)
+
+
+def sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale):
+    """Plain version: the merged weight materialized, then x · E."""
+    return torch.matmul(x.float(), sparse_lora_weight(
+        w, mask, lora_a, lora_b, scale).float()).to(x.dtype)
+
+
+def lora_matmul_ref(x, w, mask, lora_a, lora_b, scale):
+    """x · (W ⊙ M) + s·(x·A)·B, the adapter outside the mask."""
+    base = masked_matmul_ref(x, w, mask)
+    z = torch.matmul(torch.matmul(x.float(), lora_a.float()).to(x.dtype)
+                     .float(), lora_b.float()).to(x.dtype)
+    return base + (scale * z.float()).to(x.dtype)
+
+
+def merge_sparse_lora(w, mask, lora_a, lora_b, scale, sparse: bool = True):
+    """Merge adapters into the base weight:
+    sparse=True   W + (s·A·B) ⊙ M       (stays sparse)
+    sparse=False  W ⊙ M + s·A·B         (densifies — the ablation)."""
+    delta = lora_delta(lora_a, lora_b, scale)
+    w32 = w.float()
+    zero = torch.zeros((), device=w.device)
+    out = (w32 + torch.where(mask, delta, zero) if sparse
+           else torch.where(mask, w32, zero) + delta)
+    return out.to(w.dtype)
+
+
+def _needs_graph(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _masked_grad(x, g, mask) -> torch.Tensor:
+    """Gm = M ⊙ (xᵀ·g) over all leading dims: x's dtype in, fp32 sums and
+    out (JAX's dot_general with preferred_element_type=float32).  The card
+    multiplies bf16 in bf16 with an fp32 result; the CPU, whose matmul has
+    no such variant, in fp32 — the same values, bf16 being exact in fp32."""
+    x2 = x.reshape(-1, x.shape[-1]).t()
+    g2 = g.reshape(-1, g.shape[-1])
+    if x.is_cuda and x.dtype == torch.bfloat16 and g.dtype == x.dtype:
+        gm = torch.mm(x2, g2, out_dtype=torch.float32)
+    else:
+        gm = torch.matmul(x2.float(), g2.float())
+    return torch.where(mask, gm, torch.zeros((), device=gm.device))
+
+
+class _MaskedMatmul(torch.autograd.Function):
+    """JAX ``_masked_matmul_bwd``: dx = g·(W⊙M)ᵀ, dW = M ⊙ (xᵀg)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask):
+        ctx.save_for_backward(x, w, mask)
+        return _masked_matmul_fwd(x, w, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wm = torch.where(mask, w, torch.zeros((), dtype=w.dtype,
+                                                  device=w.device))
+            dx = torch.matmul(g, wm.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _masked_grad(x, g, mask).to(w.dtype)
+        return dx, dw, None
+
+
+class _SparseLoraMatmul(torch.autograd.Function):
+    """JAX ``_sparse_lora_bwd``: with E = (W + s·A·B) ⊙ M, dx = g·Eᵀ,
+    Gm = M ⊙ (xᵀg) in fp32, dW = Gm, dA = s·Gm·Bᵀ, dB = s·Aᵀ·Gm.  Only
+    (x, W, M, A, B) are saved: E is rebuilt in the backward, so no per-layer
+    merged weight stays alive between the passes."""
+
+    @staticmethod
+    def forward(ctx, x, w, mask, lora_a, lora_b, scale):
+        ctx.save_for_backward(x, w, mask, lora_a, lora_b)
+        ctx.scale = scale
+        if x.device.type == "cpu":
+            return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale)
+        return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask, lora_a, lora_b = ctx.saved_tensors
+        s = ctx.scale
+        need_x, need_w, _, need_a, need_b, _ = ctx.needs_input_grad
+        dx = dw = da = db = None
+        if need_x:
+            e = sparse_lora_weight(w, mask, lora_a, lora_b, s)
+            dx = torch.matmul(g, e.t()).to(x.dtype)
+            del e
+        if need_w or need_a or need_b:
+            gm = _masked_grad(x, g, mask)
+            if need_w:
+                dw = gm.to(w.dtype)
+            if need_a:
+                da = (s * torch.matmul(gm, lora_b.float().t())
+                      ).to(lora_a.dtype)
+            if need_b:
+                db = (s * torch.matmul(lora_a.float().t(), gm)
+                      ).to(lora_b.dtype)
+        return dx, dw, None, da, db, None
+
+
 def masked_matmul(x: torch.Tensor, w: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """y = x @ (w ⊙ mask); the masked weight never exists in memory on the
-    card."""
+    card.  Differentiable in x and w."""
+    if _needs_graph(x, w):
+        return _MaskedMatmul.apply(x, w, mask)
+    return _masked_matmul_fwd(x, w, mask)
+
+
+def sparse_lora_matmul(x, w, mask, lora_a, lora_b, scale: float):
+    """y = x @ ((w + lora_a·lora_b·scale) ⊙ mask); on the card the merged
+    weight never exists in memory.  Differentiable in x, w, A and B."""
+    if _needs_graph(x, w, lora_a, lora_b):
+        return _SparseLoraMatmul.apply(x, w, mask, lora_a, lora_b,
+                                       float(scale))
+    if x.device.type == "cpu":
+        return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale)
+    return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale)
+
+
+def _masked_matmul_fwd(x, w, mask):
     if x.device.type == "cpu":
         return masked_matmul_ref(x, w, mask)
     return _masked_matmul_cuda(x, w, mask)
 
 
-# the bf16 kernel's output tile and K step (csrc/masked_matmul.cu)
+# the bf16 kernels' output tile and K step (csrc/masked_matmul.cu)
 _BM, _BN, _BK = 128, 128, 32
+# largest adapter rank the sparse-LoRA kernel stages (as the TPU kernel)
+MAX_LORA_RANK = 128
 
 
 def split_k(m: int, n: int, k: int, sms: int):
-    """(splits, k_split) for the bf16 kernel: when the output tiles cannot
+    """(splits, k_split) for the bf16 kernels: when the output tiles cannot
     fill the card (decode-sized M), split K so that about two blocks per SM
     stream the weight, each split at least 4 K steps long."""
     tiles = -(-m // _BM) * -(-n // _BN)
@@ -52,46 +193,74 @@ def split_k(m: int, n: int, k: int, sms: int):
     return -(-k // k_split), k_split
 
 
-def _check_inputs(x, w, mask):
+def _check_inputs(x, w, mask, what="masked_matmul"):
     """Raise the specific error for inputs the kernel does not take."""
     if x.device.type != "cuda":
-        raise ValueError(f"masked_matmul: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if w.ndim != 2 or x.shape[-1] != w.shape[0] or mask.shape != w.shape:
-        raise ValueError(f"masked_matmul: shapes x {tuple(x.shape)}, "
+        raise ValueError(f"{what}: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, mask {tuple(mask.shape)}")
     if x.dtype != w.dtype or x.dtype not in _DTYPES:
-        raise TypeError(f"masked_matmul: x {x.dtype} and w {w.dtype} must "
+        raise TypeError(f"{what}: x {x.dtype} and w {w.dtype} must "
                         "both be bfloat16 or both float32")
     if mask.dtype != torch.bool:
-        raise TypeError(f"masked_matmul: mask must be bool, got {mask.dtype}")
+        raise TypeError(f"{what}: mask must be bool, got {mask.dtype}")
     if w.device != x.device or mask.device != x.device:
-        raise ValueError("masked_matmul: x, w and mask must share a device")
-    raise ValueError("masked_matmul: w and mask must be contiguous")
+        raise ValueError(f"{what}: x, w and mask must share a device")
+    raise ValueError(f"{what}: w and mask must be contiguous")
+
+
+def _check_lora(x, w, lora_a, lora_b):
+    k, n = w.shape
+    r = lora_a.shape[-1] if lora_a.ndim == 2 else -1
+    if lora_a.shape != (k, r) or lora_b.shape != (r, n) \
+            or not 0 < r <= MAX_LORA_RANK:
+        raise ValueError(f"sparse_lora_matmul: A {tuple(lora_a.shape)} and "
+                         f"B {tuple(lora_b.shape)} for w {(k, n)}, rank "
+                         f"1..{MAX_LORA_RANK}")
+    if lora_a.dtype != x.dtype or lora_b.dtype != x.dtype:
+        raise TypeError(f"sparse_lora_matmul: A {lora_a.dtype} and B "
+                        f"{lora_b.dtype} must match x {x.dtype}")
+    if lora_a.device != x.device or lora_b.device != x.device:
+        raise ValueError("sparse_lora_matmul: A and B must share x's device")
 
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _masked_matmul_cuda(x, w, mask):
-    global launches
+def _valid(x, w, mask) -> bool:
     dev = x.device
-    if not (dev.type == "cuda" and w.ndim == 2 and mask.shape == w.shape
+    return (dev.type == "cuda" and w.ndim == 2 and mask.shape == w.shape
             and x.shape[-1] == w.shape[0] and x.dtype == w.dtype
             and x.dtype in _DTYPES and mask.dtype == torch.bool
             and w.device == dev and mask.device == dev
-            and w.is_contiguous() and mask.is_contiguous()):
-        _check_inputs(x, w, mask)
+            and w.is_contiguous() and mask.is_contiguous())
+
+
+def _launch(fn_bf16, fn_f32, x, w, mask, lora=()):
+    """Shared launch of the masked / sparse-LoRA kernels: flatten x,
+    allocate y (and the split-K workspace), pick the vectorized loads.
+    ``lora`` is () or (A, B, scale).  Returns (y, the launch's error code,
+    or None when an empty shape left nothing to launch)."""
+    dev = x.device
     k, n = w.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0 or n == 0:
-        return y.reshape(*lead, n)
+        return y.reshape(*lead, n), None
     if k == 0:
-        return y.zero_().reshape(*lead, n)
-    lib = _cuda.library("masked_matmul")
+        return y.zero_().reshape(*lead, n), None
     stream = _cuda.stream_ptr(dev)
+    extra = []
+    if lora:
+        a, b, scale = lora
+        extra = [a.contiguous(), b.contiguous()]
+        args = [extra[0].data_ptr(), extra[1].data_ptr(), a.shape[1],
+                float(scale)]
+    else:
+        args = []
     if x.dtype == torch.bfloat16:
         vec = int(k % 8 == 0 and n % 8 == 0
                   and x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
@@ -99,14 +268,43 @@ def _masked_matmul_cuda(x, w, mask):
         splits, k_split = split_k(m, n, k, _cuda.sm_count(dev))
         work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                 if splits > 1 else None)
-        err = lib.masked_matmul_bf16(
-            x2.data_ptr(), w.data_ptr(), mask.data_ptr(), y.data_ptr(),
-            None if work is None else work.data_ptr(), m, n, k, splits,
-            k_split, vec, stream)
+        err = fn_bf16(x2.data_ptr(), w.data_ptr(), mask.data_ptr(), *args,
+                      y.data_ptr(), None if work is None else work.data_ptr(),
+                      m, n, k, splits, k_split, vec, stream)
     else:
-        err = lib.masked_matmul_f32(x2.data_ptr(), w.data_ptr(),
-                                    mask.data_ptr(), y.data_ptr(),
-                                    m, n, k, stream)
-    _cuda.check(err, "masked_matmul")
-    launches += 1
-    return y.reshape(*lead, n)
+        err = fn_f32(x2.data_ptr(), w.data_ptr(), mask.data_ptr(), *args,
+                     y.data_ptr(), m, n, k, stream)
+    return y.reshape(*lead, n), err
+
+
+def _masked_matmul_cuda(x, w, mask):
+    global launches
+    if not _valid(x, w, mask):
+        _check_inputs(x, w, mask)
+    lib = _cuda.library("masked_matmul")
+    y, err = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32,
+                     x, w, mask)
+    if err is not None:
+        _cuda.check(err, "masked_matmul")
+        launches += 1
+    return y
+
+
+def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale):
+    global lora_launches
+    if not _valid(x, w, mask):
+        _check_inputs(x, w, mask, "sparse_lora_matmul")
+    if not (lora_a.ndim == 2 and lora_b.ndim == 2
+            and lora_a.shape[0] == w.shape[0]
+            and lora_b.shape == (lora_a.shape[1], w.shape[1])
+            and 0 < lora_a.shape[1] <= MAX_LORA_RANK
+            and lora_a.dtype == x.dtype and lora_b.dtype == x.dtype
+            and lora_a.device == x.device and lora_b.device == x.device):
+        _check_lora(x, w, lora_a, lora_b)
+    lib = _cuda.library("masked_matmul")
+    y, err = _launch(lib.sparse_lora_matmul_bf16, lib.sparse_lora_matmul_f32,
+                     x, w, mask, (lora_a, lora_b, scale))
+    if err is not None:
+        _cuda.check(err, "sparse_lora_matmul")
+        lora_launches += 1
+    return y
