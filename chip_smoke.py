@@ -13,8 +13,11 @@ each of which fails the run (non-zero exit, no result line) on error:
                 path's shapes (prune, generate and retrain), in bf16 and
                 float32, within stated tolerances;
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
-                the same model on the CPU (plain versions): masked logits,
-                and one KD train step (loss, LoRA gradients and update);
+                the same model on the CPU (plain versions): masked logits
+                (bool, packed and int8 leaves), and one KD train step
+                (loss, LoRA gradients and update); SparseGPT at an XL shape
+                on the card vs the CPU (mask bits that differ), and one
+                batched group of linears against its members one by one;
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -26,10 +29,22 @@ each of which fails the run (non-zero exit, no result line) on error:
                 1 cold + 3 timed steps at batch 32; the sparse merge; and
                 beam-5 generate from the merged model.  Each phase's
                 kernels must have launched in it;
-  6. profile  — the main path once more under torch.profiler (prune,
-                generate, one train step): device time by kernel group
-                against each phase's unprofiled wall-clock;
-  7. timing   — kernel, plain-version and library-call times (CUDA events,
+  6. compressed path — a second full-width XL model (seed 1, after the
+                first is freed; no adapters): ``blipt5_sparsegpt_pruner``
+                (masks kept, updated kernels) on 128 samples, with the
+                Hessians it damped per tower; beam-5
+                generate with bool masks; the masks bit-packed at 2 and 1
+                bits a weight (tokens equal to the bool ones); int8 weights
+                with packed masks (generate twice, equal); the serving form
+                (weights zeroed off their masks, masks dropped, int8).
+                Sizes at rest of each form, one profiled int8 generate;
+                each phase's kernels must have launched in it, and the bool
+                kernel in no packed or int8 phase;
+  7. profile  — the main path once more under torch.profiler (prune,
+                generate, one train step), and the SparseGPT prune: device
+                time by kernel group against each phase's unprofiled
+                wall-clock;
+  8. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound.
 
@@ -39,8 +54,11 @@ The last lines are the kernel JSON, the nvidia-smi line and
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
+import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -180,6 +198,37 @@ BWD_SHAPES = [
 BWD_TIMED = "vit_self"
 
 
+# compressed serving (M, K, N): the prefill of N_REQ = 4 requests (ViT
+# M = 4 × 257, T5 encoder M = 4 × 72; the decoder's cross k/v once for
+# 4 × 5 beams) and beam decode (M = 4 requests × 5 beams); masked linears
+# run the packed kernel (G = 128 and 256) and the int8 kernel with each
+# mask kind
+SERVE_SHAPES = [
+    ("vit_qkv_prefill", 1028, 1408, 4224),
+    ("vit_proj_prefill", 1028, 1408, 1408),
+    ("vit_fc1_prefill", 1028, 1408, 6144),
+    ("vit_fc2_prefill", 1028, 6144, 1408),
+    ("t5_qkvo_prefill", 288, 2048, 2048),
+    ("t5_wi_prefill", 288, 2048, 5120),
+    ("t5_wo_prefill", 288, 5120, 2048),
+    ("t5_cross_kv_prefill", 1440, 2048, 2048),
+    ("t5_qkvo_decode", 20, 2048, 2048),
+    ("t5_wi_decode", 20, 2048, 5120),
+    ("t5_wo_decode", 20, 5120, 2048),
+]
+# int8 linears that hold no mask on the path: Q-Former (4 × (32 + 40)
+# rows), t5_proj (4 × 32 query tokens), the LM head at decode
+INT8_UNMASKED_SHAPES = [
+    ("qformer_self_prefill", 288, 768, 768),
+    ("qformer_ffn_prefill", 288, 768, 3072),
+    ("t5_proj_prefill", 128, 768, 2048),
+    ("lm_head_decode", 20, 2048, 32128),
+]
+COMPRESSED_TIMED = ("vit_fc1_prefill", "t5_wi_decode")
+PACKED_TIMED = "t5_wi_decode G128"
+INT8_TIMED = "t5_wi_decode packed128"
+
+
 def mm_inputs(m, k, n, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
@@ -230,23 +279,35 @@ def grad_like(q, seed=5):
     return torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
 
 
-def mm_bound_ms(m, k, n):
-    flops = 2.0 * m * n * k
-    nbytes = 2.0 * m * k + 3.0 * k * n + 2.0 * m * n
+def _bound(flops, nbytes):
+    """(least ms, what bounds it) at the H100 SXM's bf16 and HBM peaks."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def mm_bound_ms(m, k, n):
+    return _bound(2.0 * m * n * k, 2.0 * m * k + 3.0 * k * n + 2.0 * m * n)
+
+
+def packed_bound_ms(m, k, n, bits):
+    """x, W (bf16), the mask at ``bits`` a weight, y: each once."""
+    return _bound(2.0 * m * n * k,
+                  2.0 * m * k + 2.0 * k * n + k * n * bits / 8 + 2.0 * m * n)
+
+
+def int8_bound_ms(m, k, n, mask_bytes):
+    """x (bf16), the int8 codes, the fp32 scale, the mask, y: each once."""
+    return _bound(2.0 * m * n * k, 2.0 * m * k + k * n + 4.0 * n
+                  + mask_bytes + 2.0 * m * n)
 
 
 def lora_bound_ms(m, k, n, r):
     """The function's own work: the masked matmul's bytes plus A and B;
     its operations plus the delta A·B formed once (the kernel's recompute
     of A·B per M tile is a cost of its design, not of the function)."""
-    flops = 2.0 * m * n * k + 2.0 * k * n * r
-    nbytes = 2.0 * m * k + 3.0 * k * n + 2.0 * m * n + 2.0 * (k + n) * r
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound(2.0 * m * n * k + 2.0 * k * n * r,
+                  2.0 * m * k + 3.0 * k * n + 2.0 * m * n + 2.0 * (k + n) * r)
 
 
 def flash_bwd_bound_ms(q, k, v, biases, which):
@@ -260,9 +321,7 @@ def flash_bwd_bound_ms(q, k, v, biases, which):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 8.0 * b * h * n \
         + sum(4.0 * x.numel() for x in biases) \
         + (q.numel() if which == "dq" else k.numel() + v.numel()) * es
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound(flops, nbytes)
 
 
 def flash_bound_ms(q, k, v, biases):
@@ -273,9 +332,7 @@ def flash_bound_ms(q, k, v, biases):
     flops = 4.0 * b * h * n * m * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + 4.0 * b * h * n + sum(4.0 * x.numel() for x in biases)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound(flops, nbytes)
 
 
 # ------------------------------------------------------------------ phases
@@ -366,9 +423,58 @@ def check_kernels():
     return worst
 
 
+def check_compressed_kernels(worst):
+    """The packed-mask kernel (G = 128, 256) against its plain version and
+    bit-equal to the bool kernel; the int8 kernel (no mask, bool, packed)
+    against its plain version; at the compressed path's shapes."""
+    from vlm_compression_tpu_torch.ops import bitmask as BM
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        tol = TOL[dt]
+        for name, m, k, n in SERVE_SHAPES + INT8_UNMASKED_SHAPES:
+            x, w, mask = mm_inputs(m, k, n, dtype)
+            masked = (name, m, k, n) in SERVE_SHAPES
+            if masked:
+                bool_y = ML.masked_matmul(x, w, mask)
+                for group in (128, 256):
+                    packed = BM.pack_mask(mask, group)
+                    got = ML.masked_matmul_packed(x, w, packed)
+                    err, scale = max_err(
+                        got, ML.masked_matmul_packed_ref(x, w, packed))
+                    equal = torch.equal(got, bool_y)
+                    ok = err <= tol * scale and equal
+                    log(f"  masked_matmul_packed {name:20s} G{group} {dt:8s} "
+                        f"M={m} K={k} N={n} max_abs_err={err:.3e} (tol "
+                        f"{tol * scale:.3e}), bit-equal to the bool kernel "
+                        f"{equal} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"masked_matmul_packed {name} G{group} {dtype}")
+                    worst[("masked_matmul_packed", f"{name} G{group}",
+                           dtype)] = err
+            q, sc = Q.quantize_weight(w)
+            kinds = ((("none", None), ("bool", mask),
+                      ("packed128", BM.pack_mask(mask, 128)))
+                     if masked else (("none", None),))
+            for kind, mk in kinds:
+                err, scale = max_err(Q.int8_matmul(x, q, sc, mk),
+                                     Q.int8_matmul_ref(x, q, sc, mk))
+                ok = err <= tol * scale
+                log(f"  int8_matmul {name:20s} {kind:9s} {dt:8s} M={m} K={k} "
+                    f"N={n} max_abs_err={err:.3e} (tol {tol * scale:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"int8_matmul {name} {kind} {dtype}")
+                worst[("int8_matmul", f"{name} {kind}", dtype)] = err
+
+
 def tiny_reference_check():
     """Tiny float32 InstructBLIP-T5 with random masks: kernels on the card
-    vs plain versions on the CPU, same weights and inputs."""
+    vs plain versions on the CPU, same weights and inputs — with bool
+    masks, packed at 2 and 1 bits a weight, then with int8 weights."""
     from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
         Blip2T5Instruct,
         Blip2T5InstructConfig,
@@ -378,6 +484,8 @@ def tiny_reference_check():
     from vlm_compression_tpu_torch.models.layers import SparseLinear
     from vlm_compression_tpu_torch.models.qformer import QFormerConfig
     from vlm_compression_tpu_torch.models.t5 import T5Config
+    from vlm_compression_tpu_torch.ops import bitmask as BM
+    from vlm_compression_tpu_torch.ops import quant as Q
 
     f32 = dict(param_dtype="float32", dtype="float32")
     cfg = Blip2T5InstructConfig.tiny(
@@ -388,11 +496,6 @@ def tiny_reference_check():
     for mod in cpu.modules():
         if isinstance(mod, SparseLinear):
             mod.mask = torch.rand(mod.kernel.shape, generator=g) < 0.6
-    gpu = Blip2T5Instruct(cfg, device="cuda")
-    for a, b in zip(cpu.modules(), gpu.modules()):
-        if isinstance(a, SparseLinear):
-            b.mask = a.mask.cuda()
-    gpu.load_state_dict(cpu.state_dict())
     batch = dict(
         image=torch.randn(2, 28, 28, 3, generator=g),
         input_ids=torch.randint(2, 96, (2, 5), generator=g),
@@ -400,14 +503,30 @@ def tiny_reference_check():
         labels=torch.randint(2, 96, (2, 4), generator=g),
         qformer_input_ids=torch.randint(2, 64, (2, 5), generator=g),
         qformer_attention_mask=torch.ones(2, 5, dtype=torch.int64))
-    with torch.no_grad():
-        want = cpu(**batch)["logits"]
-        got = gpu(**{k: v.cuda() for k, v in batch.items()})["logits"].cpu()
-    err = float((got - want).abs().max())
-    log(f"  tiny fp32 InstructBLIP-T5 masked logits, card vs CPU: "
-        f"max_abs_err={err:.3e} (tol 1e-4)")
-    if not (err <= 1e-4 and bool(torch.isfinite(got).all())):
-        raise AssertionError("tiny reference check")
+    forms = (("bool masks", None, "masked_matmul"),
+             ("packed-128 masks", lambda m: BM.pack_masks_(m, 128),
+              "masked_matmul_packed"),
+             ("packed-256 masks", lambda m: BM.pack_masks_(m, 256),
+              "masked_matmul_packed"),
+             ("int8 weights, packed-256 masks", Q.quantize_model_int8_,
+              "int8_matmul"))
+    for label, transform, kernel in forms:
+        if transform is not None:
+            transform(cpu)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        reset_counts()
+        with torch.no_grad():
+            want = cpu(**batch)["logits"]
+            got = gpu(**{k: v.cuda() for k, v in batch.items()})["logits"]
+        launched = read_counts()[kernel]
+        err = float((got.cpu() - want).abs().max())
+        log(f"  tiny fp32 InstructBLIP-T5 ({label}) logits, card vs CPU: "
+            f"max_abs_err={err:.3e} (tol 1e-4), {kernel} launches "
+            f"{launched}")
+        if not (err <= 1e-4 and bool(torch.isfinite(got).all())
+                and launched > 0):
+            raise AssertionError(f"tiny reference check ({label})")
+        del gpu
 
 
 def tiny_train_check():
@@ -508,6 +627,80 @@ def tiny_train_check():
 N_CALIB, BS, TXT, LBL, N_REQ = 128, 16, 40, 12, 4
 
 
+def sparsegpt_check():
+    """SparseGPT from the same fp32 inputs on the card and on the CPU, at
+    the T5-XL wo shape (2048 units × 5120 inputs; Hessian of 8192 random
+    tokens): the share of mask bits that differ and the weights' largest
+    difference; then one batched group — the T5 decoder's eight 2048 × 2048
+    attention linears — against its members pruned one by one (wall-clock,
+    synchronised, two readings each, interleaved)."""
+    from vlm_compression_tpu_torch.ops import sparsegpt as SG
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    units, cols, n = 2048, 5120, 8192
+    x = torch.randn(n, cols, generator=g, device="cuda")
+    h = (2.0 / n) * (x.t() @ x)
+    w = torch.randn(units, cols, generator=g, device="cuda") * cols ** -0.5
+    del x
+    t0 = time.perf_counter()
+    card = SG.sparsegpt_prune(w, h, 0.5)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = SG.sparsegpt_prune(w.cpu(), h.cpu(), 0.5)
+    t_cpu = time.perf_counter() - t0
+    cpu_flips = int((card.keep_mask.cpu() != cpu.keep_mask).sum())
+    dens = (float(card.keep_mask.float().mean()),
+            float(cpu.keep_mask.float().mean()))
+    werr = float((card.weight.cpu() - cpu.weight).abs().max()
+                 / cpu.weight.abs().max())
+    log(f"  sparsegpt {units} x {cols}, card vs CPU: {cpu_flips} of "
+        f"{units * cols} mask bits differ "
+        f"({cpu_flips / (units * cols):.2e}); "
+        f"density {dens[0]:.5f} / {dens[1]:.5f}; max |dW| / max |W| "
+        f"{werr:.2e}; {t_card:.2f} s card, {t_cpu:.2f} s CPU")
+    if not (bool(torch.isfinite(card.weight).all())
+            and all(abs(d - 0.5) <= 0.01 for d in dens)
+            and cpu_flips <= 0.01 * units * cols):
+        raise AssertionError("sparsegpt: card and CPU disagree")
+    del card, cpu, w, h
+
+    group, d = 8, 2048
+    x = torch.randn(group, 4096, d, generator=g, device="cuda")
+    hs = (2.0 / 4096) * (x.transpose(1, 2) @ x)
+    ws = torch.randn(group, d, d, generator=g, device="cuda") * d ** -0.5
+    del x
+
+    def batched():
+        return SG.sparsegpt_prune_batched(ws, hs, 0.5)
+
+    def one_by_one():
+        return [SG.sparsegpt_prune(ws[i], hs[i], 0.5) for i in range(group)]
+
+    reads = {"batched": [], "one_by_one": []}
+    outs = {}
+    for name in ("batched", "one_by_one", "one_by_one", "batched",
+                 "batched", "one_by_one"):
+        t0 = time.perf_counter()
+        outs[name] = (batched if name == "batched" else one_by_one)()
+        torch.cuda.synchronize()
+        reads[name].append(time.perf_counter() - t0)
+    # the first reading of each pays one-time costs (cuSOLVER handles,
+    # allocator growth)
+    t_b, t_s = (statistics.mean(reads[k][1:]) for k in ("batched",
+                                                        "one_by_one"))
+    group_flips = sum(int((outs["batched"].keep_mask[i]
+                     != outs["one_by_one"][i].keep_mask).sum())
+                for i in range(group))
+    log(f"  sparsegpt group of {group} x ({d} x {d}): batched {t_b:.3f} s, "
+        f"one by one {t_s:.3f} s ({t_s / t_b:.2f}x); readings "
+        f"{json.dumps({k: [round(v, 4) for v in r] for k, r in reads.items()})}"
+        f"; mask bits differing between the two {group_flips}")
+    return {"sparsegpt_card_vs_cpu_flips": cpu_flips,
+            "sparsegpt_group8_batched_s": t_b,
+            "sparsegpt_group8_one_by_one_s": t_s}
+
+
 def synthetic_batches(cfg, n: int, bs: int, g: torch.Generator):
     """n seeded batches of bench.py:189-191's shapes (224² images, text 40,
     labels 12) with bs samples each."""
@@ -526,14 +719,16 @@ def synthetic_batches(cfg, n: int, bs: int, g: torch.Generator):
                  qformer_attention_mask=ones(bs)) for _ in range(n)]
 
 
-def xl_setup(seed: int):
+def xl_setup(seed: int, lora: bool = True):
     """Full-width InstructBLIP-FlanT5-XL with seeded random bf16 weights on
-    the card (base weights drawn as without adapters; LoRA A he-uniform, B
-    zero), the synthetic calibration batches of bench.py:189-191 (bs 16,
-    text 40, labels 12) and N_REQ generate requests."""
+    the card (base weights drawn as without adapters; with ``lora``, LoRA A
+    he-uniform, B zero), the synthetic calibration batches of
+    bench.py:189-191 (bs 16, text 40, labels 12) and N_REQ generate
+    requests."""
     from vlm_compression_tpu_torch.models.factory import build_model
 
-    model = build_model(dict(model_type="flant5xl", **LORA), seed=seed)
+    model = build_model(dict(model_type="flant5xl", **(LORA if lora else {})),
+                        seed=seed)
     cfg = model.cfg
     img = cfg.vit.img_size
     g = torch.Generator(device="cuda").manual_seed(42 + seed)
@@ -555,10 +750,10 @@ def xl_setup(seed: int):
     return cfg, model, batches, req
 
 
-def run_prune(model, batches):
+def run_prune(model, batches, name="blipt5_wanda_pruner"):
     from vlm_compression_tpu_torch.compression import load_pruner
 
-    pruner = load_pruner("blipt5_wanda_pruner", model, batches,
+    pruner = load_pruner(name, model, batches,
                          vit_prune_spec="39-0.5-1.0-1.0",
                          t5_prune_spec="24-0.5-1.0-1.0", num_samples=N_CALIB)
     model, _ = pruner.prune(lora_model=True)
@@ -583,7 +778,8 @@ def run_generate(model, req):
 
 
 KERNELS = ("masked_matmul", "flash_attention", "sparse_lora_matmul",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "masked_matmul_packed", "int8_matmul")
 # the kernels each phase of the main path runs, and so must launch
 SERVE = ("masked_matmul", "flash_attention")
 PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
@@ -591,23 +787,54 @@ PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                  "retrain": ("sparse_lora_matmul", "flash_attention",
                              "flash_attention_bwd_dq",
                              "flash_attention_bwd_dkv"),
-                 "generate_merged": SERVE}
+                 "generate_merged": SERVE,
+                 "sparsegpt_prune": SERVE, "generate_bool": SERVE,
+                 "generate_packed128": ("masked_matmul_packed",
+                                        "flash_attention"),
+                 "generate_packed256": ("masked_matmul_packed",
+                                        "flash_attention"),
+                 "generate_int8_cold": ("int8_matmul", "flash_attention"),
+                 "generate_int8_warm": ("int8_matmul", "flash_attention"),
+                 "generate_int8_serving": ("int8_matmul",
+                                           "flash_attention")}
+# ... and the kernels a phase must not run: a packed or int8 model never
+# takes the bool-mask path, an int8 model never the bf16 packed one
+PHASE_FORBIDDEN = {
+    "generate_packed128": ("masked_matmul", "int8_matmul"),
+    "generate_packed256": ("masked_matmul", "int8_matmul"),
+    "generate_int8_cold": ("masked_matmul", "masked_matmul_packed"),
+    "generate_int8_warm": ("masked_matmul", "masked_matmul_packed"),
+    "generate_int8_serving": ("masked_matmul", "masked_matmul_packed")}
 
 
 def reset_counts():
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
+    from vlm_compression_tpu_torch.ops import quant as Q
 
-    ML.launches = ML.lora_launches = 0
+    ML.launches = ML.lora_launches = ML.packed_launches = 0
     A.launches = A.dq_launches = A.dkv_launches = 0
+    Q.int8_launches = 0
 
 
 def read_counts() -> dict:
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
+    from vlm_compression_tpu_torch.ops import quant as Q
 
     return dict(zip(KERNELS, (ML.launches, A.launches, ML.lora_launches,
-                              A.dq_launches, A.dkv_launches)))
+                              A.dq_launches, A.dkv_launches,
+                              ML.packed_launches, Q.int8_launches)))
+
+
+def check_phase_counts(counts):
+    for phase, c in counts.items():
+        for kernel in PHASE_KERNELS[phase]:
+            if c[kernel] <= 0:
+                raise AssertionError(f"{kernel} never launched in {phase}")
+        for kernel in PHASE_FORBIDDEN.get(phase, ()):
+            if c[kernel] != 0:
+                raise AssertionError(f"{kernel} launched in {phase}")
 
 
 def check_generate(seqs, gen_cfg, cfg):
@@ -629,9 +856,9 @@ def tower_density(model, of_kernels: bool = False) -> dict:
         for name, m in model.named_modules():
             if isinstance(m, SparseLinear) and m.mask is not None \
                     and name.startswith(tower):
-                kept += int((m.kernel if of_kernels else m.mask)
+                kept += int((m.kernel if of_kernels else m.bool_mask())
                             .count_nonzero())
-                total += m.mask.numel()
+                total += m.kernel.numel()
                 n += 1
         out[tower] = (kept / total, n)
     return out
@@ -795,10 +1022,7 @@ def main_path():
         f"{torch.equal(seqs, outs['generate_warm'])}")
 
     log(f"  launches: {json.dumps(counts)}")
-    for phase, c in counts.items():
-        for kernel in PHASE_KERNELS[phase]:
-            if c[kernel] <= 0:
-                raise AssertionError(f"{kernel} never launched in {phase}")
+    check_phase_counts(counts)
     del model
     torch.cuda.empty_cache()
     return counts, {"prune_s": t_prune,
@@ -809,8 +1033,186 @@ def main_path():
                     "generate_merged_s": t_merged}
 
 
+class DampedLines(logging.Handler):
+    """Echoes the SparseGPT pruner's per-tower damping line (Hessians that
+    got damp·I before use: after a failed factorization, after an
+    overflowing inverse) and keeps its counts by tower."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.by_tower = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "sparsegpt damped" in msg:
+            name, factorization, inverse = record.args
+            self.by_tower[name] = {"factorization": factorization,
+                                   "inverse": inverse}
+            log(f"  {msg}")
+
+
+def model_sizes(model) -> dict:
+    """The model-size report and the bytes at rest of one form."""
+    from vlm_compression_tpu_torch.compression.peft_io import (
+        bytes_at_rest,
+        model_size_accounting,
+    )
+
+    return {**model_size_accounting(model), **bytes_at_rest(model)}
+
+
+def compressed_path():
+    """The compressed-serving path of the launcher grid on a second
+    full-width XL model: SparseGPT prune (masks kept), then serving with
+    bool masks, packed masks (2 and 1 bits a weight), int8 weights with
+    packed masks, and the evaluate.py serving form (zeroed int8 weights,
+    no masks)."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+    from vlm_compression_tpu_torch.ops import bitmask as BM
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(seed=1, lora=False)
+    log(f"  model: InstructBLIP-FlanT5-XL, bf16, seed 1, no adapters, "
+        f"random init (biases 0) + data {time.perf_counter() - t0:.1f} s; "
+        f"cuts: none (depth 39/24/24, {N_CALIB} calibration samples)")
+    torch.cuda.reset_peak_memory_stats()
+    counts, secs, outs, sizes = {}, {}, {}, {}
+
+    # the pruner's INFO lines go to DampedLines alone while it prunes
+    damped = DampedLines()
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    root.handlers = [damped]
+    root.setLevel(logging.INFO)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        model = run_prune(model, batches, "blipt5_sparsegpt_pruner")
+        secs["sparsegpt_prune"] = time.perf_counter() - t0
+        counts["sparsegpt_prune"] = read_counts()
+    finally:
+        root.handlers = handlers
+        root.setLevel(level)
+    del batches
+    if set(damped.by_tower) != {"vit", "t5_encoder", "t5_decoder"}:
+        raise AssertionError(f"damping reported for {sorted(damped.by_tower)}")
+    for tower, (dens, n) in tower_density(model).items():
+        log(f"  sparsegpt density {tower}: {dens:.4f} over {n} linears")
+        if abs(dens - 0.5) > 0.01:
+            raise AssertionError(f"sparsegpt density {tower}")
+    linears = [m for m in model.modules()
+               if isinstance(m, SparseLinear) and m.mask is not None]
+    if len(linears) != 39 * 4 + 24 * 7 + 24 * 11:
+        raise AssertionError(f"{len(linears)} masked linears")
+    bad = [i for i, m in enumerate(linears)
+           if bool((m.kernel.ne(0) & ~m.mask).any())
+           or not bool(torch.isfinite(m.kernel).all())]
+    if bad:
+        raise AssertionError(f"{len(bad)} updated kernels non-zero off their "
+                             "masks or not finite")
+    log(f"  prune (blipt5_sparsegpt_pruner, lora_model=True): "
+        f"{secs['sparsegpt_prune']:.2f} s; updated kernels finite and 0 off "
+        f"their masks")
+
+    def generate(phase):
+        reset_counts()
+        t0 = time.perf_counter()
+        seqs, gen_cfg = run_generate(model, req)
+        secs[phase] = time.perf_counter() - t0
+        counts[phase] = read_counts()
+        n_tok = check_generate(seqs, gen_cfg, cfg)
+        outs[phase] = seqs
+        log(f"  generate_t5 beam-5 ({phase}): {secs[phase]:.3f} s, {n_tok} "
+            f"tokens, {n_tok / secs[phase]:.1f} tokens/s")
+        return seqs
+
+    def same(phase, ref):
+        if not torch.equal(outs[phase], outs[ref]):
+            raise AssertionError(f"{phase} tokens differ from {ref}: "
+                                 f"{outs[phase].tolist()} vs "
+                                 f"{outs[ref].tolist()}")
+
+    generate("generate_bool")
+    log(f"  tokens: {outs['generate_bool'].tolist()}")
+    sizes["bool"] = model_sizes(model)
+    for group in (128, 256):
+        t0 = time.perf_counter()
+        BM.pack_masks_(model, group)
+        torch.cuda.synchronize()
+        log(f"  pack_masks_(model, {group}): "
+            f"{time.perf_counter() - t0:.2f} s")
+        generate(f"generate_packed{group}")
+        same(f"generate_packed{group}", "generate_bool")
+        sizes[f"packed{group}"] = model_sizes(model)
+    BM.pack_masks_(model, 128)   # the default layout under int8
+    t0 = time.perf_counter()
+    Q.quantize_model_int8_(model)
+    torch.cuda.synchronize()
+    log(f"  quantize_model_int8_: {time.perf_counter() - t0:.2f} s")
+    generate("generate_int8_cold")
+    generate("generate_int8_warm")
+    same("generate_int8_warm", "generate_int8_cold")
+    log(f"  tokens (int8, packed-128 masks): "
+        f"{outs['generate_int8_warm'].tolist()}; equal to the bf16 ones: "
+        f"{torch.equal(outs['generate_int8_warm'], outs['generate_bool'])}")
+    sizes["int8_packed128"] = model_sizes(model)
+    peak = torch.cuda.max_memory_allocated()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_generate(model, req)
+    device_breakdown(prof, 1e3 * secs["generate_int8_warm"],
+                     "generate, int8 + packed-128")
+
+    # the evaluate.py serving form: pruned weights zeroed, masks dropped
+    with torch.no_grad():
+        for m in linears:
+            m.kernel.masked_fill_(~m.bool_mask(), 0)
+            set_mask(m, None)
+    generate("generate_int8_serving")
+    # the codes were 0 off the masks already (SparseGPT zeroes what it
+    # prunes): the same products in the same order
+    same("generate_int8_serving", "generate_int8_warm")
+    sizes["int8_serving"] = model_sizes(model)
+
+    for form, sz in sizes.items():
+        log(f"  sizes {form:15s}: kernels {sz['kernels'] / 2**30:.3f} GiB, "
+            f"masks {sz['masks'] / 2**30:.3f} GiB, scales "
+            f"{sz['scales'] / 2**20:.2f} MiB, total "
+            f"{sz['total'] / 2**30:.3f} GiB; parameters "
+            f"{sz['orig_total_size']}, surviving "
+            f"{sz['distilled_total_size']}")
+    log(f"  max_memory_allocated (sparsegpt prune + generates): "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  launches: {json.dumps(counts)}")
+    check_phase_counts(counts)
+    del model, linears
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"sparsegpt_prune_s": secs["sparsegpt_prune"],
+                    "sparsegpt_damped": damped.by_tower,
+                    "generate_bool_s": secs["generate_bool"],
+                    "generate_packed128_s": secs["generate_packed128"],
+                    "generate_packed256_s": secs["generate_packed256"],
+                    "generate_int8_s": secs["generate_int8_warm"],
+                    "generate_int8_serving_s": secs["generate_int8_serving"],
+                    "compressed_peak_bytes": peak,
+                    "bytes_at_rest": {f: sz["total"]
+                                      for f, sz in sizes.items()}}
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "int8_matmul" in low:
+        return "int8_matmul kernel"
+    # the packed instantiations: <VEC, true> (bf16), <true> (float32),
+    # demangled or mangled
+    if re.search(r"masked_matmul_(bf16|f32)_kernel(<(\w+, )?true>"
+                 r"|i(lb[01]e)?lb1ee)", low):
+        return "masked_matmul_packed kernel"
     if "masked_matmul" in low:
         return "masked_matmul kernel"
     if "sparse_lora" in low:
@@ -821,10 +1223,13 @@ def _kernel_group(name: str) -> str:
         return "flash_attention_bwd_dq kernel"
     if "flash_bwd_dkv" in low:
         return "flash_attention_bwd_dkv kernel"
+    if any(t in low for t in ("potrf", "trsm", "trsv", "trtri", "cusolver",
+                              "syrk", "lauum")):
+        return "cuSOLVER/cuBLAS factor and solve"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
         return "cuBLAS GEMM (dense passes, backward products)"
-    if "sort" in low or "radix" in low:
-        return "sort (mask selection)"
+    if any(t in low for t in ("sort", "radix", "kthvalue")):
+        return "sort/select (mask selection)"
     if "reduce" in low:
         return "reductions"
     return "other elementwise/copy"
@@ -835,7 +1240,7 @@ def device_breakdown(prof, wall_ms: float, label: str) -> None:
     kernel events only), against the unprofiled wall-clock of the phase."""
     from torch.autograd import DeviceType
 
-    groups, top, total = {}, [], 0.0
+    groups, top, total, n_kernels = {}, [], 0.0, 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -845,6 +1250,7 @@ def device_breakdown(prof, wall_ms: float, label: str) -> None:
         if t <= 0:
             continue
         total += t / 1e3
+        n_kernels += e.count
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + t / 1e3
         top.append((t / 1e3, e.count, e.key[:70]))
@@ -852,7 +1258,9 @@ def device_breakdown(prof, wall_ms: float, label: str) -> None:
         log(f"  [{label}] profiler recorded no device time: not measured")
         return
     log(f"  [{label}] device time {total:.1f} ms over {wall_ms:.1f} ms "
-        f"unprofiled wall: device busy {100 * total / wall_ms:.1f}%")
+        f"unprofiled wall: device busy {100 * total / wall_ms:.1f}%; "
+        f"{n_kernels} kernels, {1e3 * wall_ms / n_kernels:.1f} us of wall "
+        f"each")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:38s} {t:9.1f} ms  {100 * t / total:5.1f}% of device")
     for t, n, key in sorted(top, reverse=True)[:10]:
@@ -893,6 +1301,21 @@ def profile_main_path(e2e):
                      "retrain step")
     del model, state, step
     torch.cuda.empty_cache()
+
+
+def profile_sparsegpt_prune(e2e):
+    """The compressed path's SparseGPT prune once more (a fresh seed-1
+    model, as timed) under torch.profiler, device activity only: device
+    time by kernel group against the unprofiled prune's wall-clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, model, batches, _ = xl_setup(seed=1, lora=False)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_prune(model, batches, "blipt5_sparsegpt_pruner")
+    del model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    device_breakdown(prof, 1e3 * e2e["sparsegpt_prune_s"], "sparsegpt prune")
 
 
 def timing():
@@ -981,6 +1404,57 @@ def timing():
     return rows
 
 
+def timing_compressed(rows):
+    """The packed-mask and int8 kernels at one prefill and one decode shape
+    of the compressed path, with the bool kernel beside them in the same
+    call.  Library: torch.matmul on a weight masked (and dequantized)
+    beforehand."""
+    from vlm_compression_tpu_torch.ops import bitmask as BM
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    bf16 = torch.bfloat16
+    shapes = {name: (m, k, n) for name, m, k, n in SERVE_SHAPES}
+    for name in COMPRESSED_TIMED:
+        m, k, n = shapes[name]
+        x, w, mask = mm_inputs(m, k, n, bf16)
+        wm = w * mask
+        lib = device_ms(lambda: torch.matmul(x, wm))
+        ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
+        bound, by = mm_bound_ms(m, k, n)
+        log(f"  time masked_matmul (bool) {name:16s} M={m} K={k} N={n}: "
+            f"kernel {ms:.4f} ms, torch.matmul(x, W*mask) {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        for group in (128, 256):
+            packed = BM.pack_mask(mask, group)
+            ms = device_ms(lambda: ML.masked_matmul_packed(x, w, packed))
+            plain = device_ms(lambda: ML.masked_matmul_packed_ref(x, w,
+                                                                  packed))
+            bound, by = packed_bound_ms(m, k, n, 256 // group)
+            rows[("masked_matmul_packed", f"{name} G{group}")] = (
+                ms, plain, lib, bound, by)
+            log(f"  time masked_matmul_packed {name:16s} G{group} M={m} "
+                f"K={k} N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"torch.matmul(x, W*mask) {lib:.4f} ms, bound {bound:.4f} "
+                f"ms ({by})")
+        q, sc = Q.quantize_weight(w)
+        wq = Q.dequantize_weight(q, sc, bf16)
+        for kind, mk, mask_bytes in (
+                ("none", None, 0), ("bool", mask, k * n),
+                ("packed128", BM.pack_mask(mask, 128), k * n * 2 / 8)):
+            lib_w = wq if mk is None else wq * mask
+            ms = device_ms(lambda: Q.int8_matmul(x, q, sc, mk))
+            plain = device_ms(lambda: Q.int8_matmul_ref(x, q, sc, mk))
+            lib = device_ms(lambda: torch.matmul(x, lib_w))
+            bound, by = int8_bound_ms(m, k, n, mask_bytes)
+            rows[("int8_matmul", f"{name} {kind}")] = (ms, plain, lib, bound,
+                                                       by)
+            log(f"  time int8_matmul {name:16s} {kind:9s} M={m} K={k} "
+                f"N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"torch.matmul(x, dequant(q)[*mask]) {lib:.4f} ms, bound "
+                f"{bound:.4f} ms ({by})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1007,9 +1481,13 @@ def main() -> int:
 
     log("[kernels] kernel vs plain version")
     worst = check_kernels()
+    check_compressed_kernels(worst)
     log("[reference] tiny model, card vs CPU")
     tiny_reference_check()
     tiny_train_check()
+    log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
+        "group against its members one by one")
+    sg = sparsegpt_check()
     # the checks above leave the caching allocator and the heap full of
     # their tensors and graphs; the main path starts clean, as it would in
     # a process of its own
@@ -1018,11 +1496,22 @@ def main() -> int:
     log("[main path] InstructBLIP-FlanT5-XL: Wanda prune, beam-5 generate, "
         "RESSA retrain, merge, beam-5 generate")
     counts, e2e = main_path()
-    log("[profile] the main path again under torch.profiler")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[compressed path] InstructBLIP-FlanT5-XL: SparseGPT prune, beam-5 "
+        "generate with bool masks, packed masks (G 128, 256), int8 weights, "
+        "the int8 serving form")
+    c_counts, c_e2e = compressed_path()
+    counts.update(c_counts)
+    e2e.update(c_e2e, **sg)
+    log("[profile] the main path and the SparseGPT prune again under "
+        "torch.profiler")
     profile_main_path(e2e)
+    profile_sparsegpt_prune(e2e)
     log("[timing] bf16, median of 20 calls, CUDA events, L2 flushed before "
         "each call")
     rows = timing()
+    timing_compressed(rows)
 
     kernels = []
     csrc = "vlm_compression_tpu_torch/csrc/"
@@ -1038,7 +1527,11 @@ def main() -> int:
              "vlm_compression_tpu/ops/attention.py:296"),
             ("flash_attention_bwd_dkv", BWD_TIMED,
              csrc + "flash_attention_bwd.cu",
-             "vlm_compression_tpu/ops/attention.py:331")):
+             "vlm_compression_tpu/ops/attention.py:331"),
+            ("masked_matmul_packed", PACKED_TIMED, csrc + "masked_matmul.cu",
+             "vlm_compression_tpu/ops/masked_linear.py:194"),
+            ("int8_matmul", INT8_TIMED, csrc + "int8_matmul.cu",
+             "vlm_compression_tpu/ops/quant.py:84")):
         ms, plain, lib, bound, by = rows[(kname, timed)]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from vlm_compression_tpu_torch.ops import attention as A
+from vlm_compression_tpu_torch.ops import bitmask as BM
 from vlm_compression_tpu_torch.ops import masked_linear as ML
+from vlm_compression_tpu_torch.ops import quant as Q
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +239,95 @@ def test_attention_bias_grad_raises_on_the_card(cuda):
     out = A.attention_core(q, k, v, [bias])
     with pytest.raises(NotImplementedError, match="dbias"):
         out.sum().backward()
+
+
+# ------------------------------------------- packed-mask and int8 kernels
+# The packed kernel runs the bool kernel's tile loop and split-K: for the
+# same W and mask its output is bit-equal to the bool kernel's.  The int8
+# kernel's tolerance is the masked matmul's (the plain version sums the
+# same exact products in another order).
+
+
+def _packed_case(cuda, dtype, m, k, n, group, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=cuda) * k ** -0.5).to(dtype)
+    mask = torch.rand(k, n, generator=g, device=cuda) < 0.5
+    return x, w, mask, BM.pack_mask(mask, group)
+
+
+PACKED_SHAPES = [
+    (20, 2048, 5120),      # beam decode T5 wi: split-K
+    (20, 5120, 2048),      # beam decode T5 wo: splits start inside groups
+    (1028, 1408, 4224),    # ViT qkv prefill (4 requests × 257), ragged M
+    (33, 300, 13),         # nothing tiles: unvectorized loads, padded rows
+    (7, 1001, 77),         # unvectorized loads, split-K
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [128, 256])
+@pytest.mark.parametrize("m,k,n", PACKED_SHAPES)
+def test_masked_matmul_packed_matches_plain_and_bool(cuda, dtype, group, m,
+                                                     k, n):
+    x, w, mask, packed = _packed_case(cuda, dtype, m, k, n, group)
+    before = ML.packed_launches
+    got = ML.masked_matmul_packed(x, w, packed)
+    assert ML.packed_launches == before + 1
+    _close(got, ML.masked_matmul_packed_ref(x, w, packed), dtype)
+    assert torch.equal(got, ML.masked_matmul(x, w, mask))
+
+
+@pytest.mark.parametrize("group", [128, 256])
+def test_masked_matmul_packed_grads_match_plain(cuda, group):
+    x, w, _, packed = _packed_case(cuda, torch.float32, 50, 300, 72, group)
+    gy = torch.randn(50, 72, device=cuda)
+    leaves = [t.requires_grad_() for t in (x, w)]
+    got = torch.autograd.grad(ML.masked_matmul_packed(x, w, packed), leaves,
+                              gy)
+    want = torch.autograd.grad(ML.masked_matmul_packed_ref(x, w, packed),
+                               leaves, gy)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.float32)
+
+
+def _int8_case(cuda, dtype, m, k, n, mask_kind, seed=0):
+    x, w, mask, _ = _packed_case(cuda, torch.float32, m, k, n, 128, seed)
+    q, scale = Q.quantize_weight(w)
+    if mask_kind == "none":
+        mask = None
+    elif mask_kind.startswith("packed"):
+        mask = BM.pack_mask(mask, int(mask_kind[6:]))
+    return x.to(dtype), q, scale, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_kind", ["none", "bool", "packed128",
+                                       "packed256"])
+@pytest.mark.parametrize("m,k,n", PACKED_SHAPES)
+def test_int8_matmul_matches_plain(cuda, dtype, mask_kind, m, k, n):
+    x, q, scale, mask = _int8_case(cuda, dtype, m, k, n, mask_kind)
+    before = Q.int8_launches
+    got = Q.int8_matmul(x, q, scale, mask)
+    assert Q.int8_launches == before + 1
+    assert got.dtype == dtype
+    _close(got, Q.int8_matmul_ref(x, q, scale, mask), dtype)
+
+
+def test_int8_matmul_packed_equals_bool_mask(cuda):
+    """A packed mask and its bool form zero the same codes before the same
+    sums: bit-equal outputs."""
+    x, q, scale, mask = _int8_case(cuda, torch.bfloat16, 20, 5120, 2048,
+                                   "bool")
+    got = Q.int8_matmul(x, q, scale, BM.pack_mask(mask, 256))
+    assert torch.equal(got, Q.int8_matmul(x, q, scale, mask))
+
+
+def test_int8_matmul_grad_matches_plain(cuda):
+    x, q, scale, mask = _int8_case(cuda, torch.float32, 30, 300, 40,
+                                   "packed128")
+    x.requires_grad_()
+    gy = torch.randn(30, 40, device=cuda)
+    got, = torch.autograd.grad(Q.int8_matmul(x, q, scale, mask), x, gy)
+    want, = torch.autograd.grad(Q.int8_matmul_ref(x, q, scale, mask), x, gy)
+    _close(got, want, torch.float32)

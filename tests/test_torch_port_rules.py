@@ -18,6 +18,7 @@ from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
 from vlm_compression_tpu_torch.ops import _cuda
 from vlm_compression_tpu_torch.ops import attention as TA
 from vlm_compression_tpu_torch.ops import masked_linear as TML
+from vlm_compression_tpu_torch.ops import quant as TQ
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(vlm_compression_tpu_torch.__file__).parent
@@ -103,6 +104,24 @@ def test_new_wrappers_raise_instead_of_falling_back():
         TA.flash_attention_backward(q, q, q, q, torch.empty(1, 2, 3),
                                     q, ())
     assert (TML.lora_launches, TA.dq_launches, TA.dkv_launches) == counts
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_compressed_wrappers_raise_instead_of_falling_back(grad):
+    """The packed-mask and int8 wrappers refuse a device the kernels do not
+    serve, forward and under autograd."""
+    x = torch.empty(4, 256, device="meta", requires_grad=grad)
+    w = torch.empty(256, 16, device="meta")
+    packed = torch.empty(16, 16, dtype=torch.int32, device="meta")
+    q = torch.empty(256, 16, dtype=torch.int8, device="meta")
+    scale = torch.empty(16, device="meta")
+    counts = (TML.packed_launches, TQ.int8_launches)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TML.masked_matmul_packed(x, w, packed)
+    for mask in (None, packed):
+        with pytest.raises(ValueError, match="unsupported device"):
+            TQ.int8_matmul(x, q, scale, mask)
+    assert (TML.packed_launches, TQ.int8_launches) == counts
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

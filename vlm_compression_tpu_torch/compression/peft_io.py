@@ -5,8 +5,11 @@ A RESSA checkpoint holds only the adapter-relevant leaves — the ``lora``
 factors and the ``masks`` — nested as the JAX package nests its
 collections ({path part: … {"lora_a", "lora_b"} / {"mask"}}), as CPU
 tensors; it saves with ``torch.save`` where the JAX package uses orbax.
-``count_parameters`` follows the reference's accounting: trainable = the
-LoRA factors, total = base parameters + LoRA.
+A packed mask travels with its ``mask_rows`` and ``mask_group``, as in the
+JAX package's collection.  ``count_parameters`` follows the reference's
+accounting: trainable = the LoRA factors, total = base parameters + LoRA;
+``model_size_accounting`` its model-size report, and ``bytes_at_rest`` what
+the weights and masks hold in memory.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Dict
 
 import torch
 from torch import nn
+
+from vlm_compression_tpu_torch.ops.bitmask import infer_pack_group, is_packed
 
 from vlm_compression_tpu_torch.models.bridge import flatten
 from vlm_compression_tpu_torch.models.layers import (
@@ -43,6 +48,13 @@ def adapter_state(model: nn.Module) -> Dict[str, dict]:
     for name, m in model.named_modules():
         if isinstance(m, SparseLinear) and m.mask is not None:
             _put(out.setdefault("masks", {}), name, "mask", m.mask)
+            if is_packed(m.mask):
+                node = out["masks"]
+                for part in name.split("."):
+                    node = node[part]
+                node.update(mask_rows=m.in_features,
+                            mask_group=infer_pack_group(m.in_features,
+                                                        m.mask.shape[0]))
     return out
 
 
@@ -55,7 +67,10 @@ def attach_adapter_state(model: nn.Module, adapter: Dict[str, dict]
         if path[-1] not in ("lora_a", "lora_b") or linear.lora_rank == 0:
             raise KeyError(f"no adapter {'/'.join(path)} in the model")
         getattr(linear, path[-1]).copy_(value)
-    for path, value in flatten(adapter.get("masks", {})).items():
+    masks = flatten(adapter.get("masks", {}))
+    for path, value in masks.items():
+        if path[-1] in ("mask_rows", "mask_group"):
+            continue
         if path[-1] != "mask":
             raise KeyError(f"unexpected mask leaf {'/'.join(path)}")
         set_mask(model.get_submodule(".".join(path[:-1])), value)
@@ -89,3 +104,55 @@ def print_trainable_parameters(model: nn.Module) -> str:
            f"all params: {c['total']:,} || trainable%: {pct:.4f}")
     logging.info(msg)
     return msg
+
+
+def model_size_accounting(model: nn.Module) -> Dict[str, int]:
+    """The reference's model-size report (JAX
+    ``compression/peft_io.model_size_accounting``): ``orig_total_size`` =
+    every base parameter (LoRA factors and ``kernel_scale`` excluded) and
+    ``distilled_total_size`` = the parameters that survive pruning.  A 2-D
+    kernel with a mask (bool or packed) counts the mask's kept entries;
+    without one, its non-zero entries (float or int8).  The int4 branch
+    is not ported (int4 kernels are not)."""
+    orig = distilled = 0
+    linears = {name: m for name, m in model.named_modules()
+               if isinstance(m, SparseLinear)}
+    for name, p in model.named_parameters():
+        owner, leaf = name.rpartition(".")[::2]
+        if leaf in ("lora_a", "lora_b"):
+            continue
+        if leaf == "kernel_q4":
+            raise NotImplementedError("int4 kernels are not ported yet")
+        n = p.numel()
+        orig += n
+        lin = linears.get(owner)
+        if leaf == "kernel" and p.ndim == 2 and lin is not None \
+                and lin.mask is not None:
+            distilled += int(lin.bool_mask().sum())
+        elif leaf == "kernel" and p.ndim == 2:
+            distilled += int(torch.count_nonzero(p))
+        else:
+            distilled += n
+    return {"orig_total_size": orig, "distilled_total_size": distilled}
+
+
+def bytes_at_rest(model: nn.Module) -> Dict[str, int]:
+    """Bytes the model holds in memory, by kind: the SparseLinear kernels
+    (bf16, fp32 or int8), their masks (bool or packed words), their int8
+    scales, the LoRA factors, and everything else."""
+    out = dict(kernels=0, masks=0, scales=0, lora=0, other=0)
+    for name, m in model.named_modules():
+        if isinstance(m, SparseLinear):
+            out["kernels"] += m.kernel.nbytes
+            out["masks"] += 0 if m.mask is None else m.mask.nbytes
+            out["scales"] += (0 if m.kernel_scale is None
+                              else m.kernel_scale.nbytes)
+            out["other"] += 0 if m.bias is None else m.bias.nbytes
+            if m.lora_rank:
+                out["lora"] += m.lora_a.nbytes + m.lora_b.nbytes
+    seen = sum(out.values())
+    total = sum(t.nbytes for t in list(model.parameters())
+                + list(model.buffers()))
+    out["other"] += total - seen
+    out["total"] = total
+    return out

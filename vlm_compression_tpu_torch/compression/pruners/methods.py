@@ -1,4 +1,4 @@
-"""Per-block mask functions (port of the Wanda part of
+"""Per-block mask functions (port of the Wanda and SparseGPT parts of
 ``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
 (in, out); scoring runs unit-major (out, in) and keep-masks go back
 (in, out), contiguous for the masked-matmul kernel."""
@@ -6,6 +6,7 @@
 from __future__ import annotations
 
 from vlm_compression_tpu_torch.compression.calibrate import BlockPruneResult
+from vlm_compression_tpu_torch.ops.sparsegpt import sparsegpt_prune_group
 from vlm_compression_tpu_torch.ops.masks import (
     flat_threshold_mask,
     nm_structured_mask,
@@ -34,5 +35,30 @@ def wanda_mask_fn(prune_n: int = 0, prune_m: int = 0,
         return BlockPruneResult(
             {p: one(k, stats[p].scaler_row, float(sparsities[p]))
              for p, k in kernels.items()}, {})
+
+    return fn
+
+
+def sparsegpt_mask_fn(prune_n: int = 0, prune_m: int = 0,
+                      blocksize: int = 128, percdamp: float = 0.01):
+    """OBS prune-with-update; always returns updated kernels (the
+    reference assigns weight.data unconditionally).  Linears of one
+    (shape, sparsity) are solved as one batched group (T5's q/k/v/o)."""
+
+    def fn(kernels, stats, sparsities):
+        groups = {}
+        for p, k in kernels.items():
+            groups.setdefault((tuple(k.shape), float(sparsities[p])),
+                              []).append(p)
+        masks, new_k = {}, {}
+        for (_, sp), paths in groups.items():
+            out = sparsegpt_prune_group(
+                [kernels[p] for p in paths], [stats[p] for p in paths], sp,
+                prune_n=prune_n, prune_m=prune_m, blocksize=blocksize,
+                percdamp=percdamp)
+            for (keep, w, _), p in zip(out, paths):
+                masks[p] = keep
+                new_k[p] = w
+        return BlockPruneResult(masks, new_k)
 
     return fn

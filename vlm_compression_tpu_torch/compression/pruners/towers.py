@@ -8,8 +8,9 @@ pruned weights are zeroed and the sweeps chain (each tower's replayed
 activations feed the next tower's stem).  ViT Wanda uses the per-tensor
 flat threshold, the language towers per-unit top-k.
 
-Registered here: ``blipt5_wanda_pruner``.  SparseGPT, DSnoT and the other
-methods arrive with later slices.
+Registered here: ``blipt5_wanda_pruner`` and
+``{t5,vit,blipt5}_sparsegpt_pruner``.  DSnoT and the other methods are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -30,21 +31,33 @@ from vlm_compression_tpu_torch.compression.pruners.base import (
     convert_spec_to_list,
 )
 from vlm_compression_tpu_torch.models.t5 import shift_right
+from vlm_compression_tpu_torch.ops import sparsegpt as SG
 
 
 class _MethodMixin:
     method: str = "wanda"
+    # SparseGPT knobs (reference CLI flags)
+    blocksize: int = 128
+    percdamp: float = 0.01
+
+    @property
+    def with_hessian(self) -> bool:
+        return self.method == "sparsegpt"
 
     def make_mask_fn(self, lora_model: bool, tower: str = "llm"):
-        if self.method != "wanda":
-            raise NotImplementedError(
-                f"pruning method {self.method!r} is not ported yet")
-        return M.wanda_mask_fn(self.prune_n, self.prune_m,
-                               flat_threshold=(tower == "vit"))
+        if self.method == "wanda":
+            return M.wanda_mask_fn(self.prune_n, self.prune_m,
+                                   flat_threshold=(tower == "vit"))
+        if self.method == "sparsegpt":
+            return M.sparsegpt_mask_fn(self.prune_n, self.prune_m,
+                                       self.blocksize, self.percdamp)
+        raise NotImplementedError(
+            f"pruning method {self.method!r} is not ported yet")
 
     def _prune_tower(self, adapter, batches, sparsity_for, lora_model,
                      tower="llm", return_outputs=False):
-        return calibrate_and_prune_tower(
+        before = dict(SG.damped)
+        out = calibrate_and_prune_tower(
             adapter, batches,
             mask_fn=self.make_mask_fn(lora_model, tower),
             sparsity_for=sparsity_for,
@@ -52,6 +65,66 @@ class _MethodMixin:
             lora_model=lora_model,
             progress=logging.info,
             return_outputs=return_outputs)
+        if self.method == "sparsegpt":
+            logging.info("[%s] sparsegpt damped Hessians: %d after a failed "
+                         "factorization, %d after an overflowing inverse",
+                         adapter.name,
+                         SG.damped["factorization"] - before["factorization"],
+                         SG.damped["inverse"] - before["inverse"])
+        return out
+
+
+class T5PrunerBase(_MethodMixin, LayerWisePrunerBase):
+    """Prunes a bare T5ForConditionalGeneration: encoder, then decoder."""
+
+    @torch.no_grad()
+    def prune(self, lora_model: bool = True):
+        t5 = self.model
+        cfg = t5.cfg
+        spec = convert_spec_to_list(self.prune_spec or self.t5_prune_spec)
+        sfor = self.get_sparsity(1.0 - spec[1],
+                                 self.sparsity_ratio_granularity)
+        batches = self.batches()
+        upstream = "dense" if lora_model else "masked"
+
+        def embeds_fn(b):
+            return t5.embed_tokens(b["input_ids"]), b.get("attention_mask")
+
+        self._prune_tower(
+            A.make_t5_encoder_adapter(t5.encoder, embeds_fn, ("encoder",)),
+            batches, sfor, lora_model)
+
+        def dec_inputs_fn(b):
+            embeds, mask = embeds_fn(b)
+            enc_out = t5.encode(inputs_embeds=embeds, attention_mask=mask,
+                                mode=upstream)
+            labels = b["labels"]
+            dec_ids = shift_right(labels, cfg.decoder_start_token_id,
+                                  cfg.pad_token_id)
+            return (t5.embed_tokens(dec_ids), (labels != -100).to(
+                torch.int32), enc_out, mask)
+
+        self._prune_tower(
+            A.make_t5_decoder_adapter(t5.decoder, dec_inputs_fn,
+                                      ("decoder",)),
+            batches, sfor, lora_model)
+        return self.model, getattr(sfor, "mapping", None)
+
+
+class ViTPrunerBase(_MethodMixin, LayerWisePrunerBase):
+    """Prunes a bare EvaViT."""
+
+    @torch.no_grad()
+    def prune(self, lora_model: bool = True):
+        vit = self.model
+        spec = convert_spec_to_list(self.prune_spec or self.vit_prune_spec)
+        sfor = self.get_sparsity(1.0 - spec[1],
+                                 self.sparsity_ratio_granularity)
+        self._prune_tower(
+            A.make_vit_adapter(vit, lambda b: (vit.embed(b["image"]), {}),
+                               ()),
+            self.batches(), sfor, lora_model, tower="vit")
+        return self.model, getattr(sfor, "mapping", None)
 
 
 class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
@@ -182,3 +255,8 @@ def _make(base, method_name, reg_name):
 
 
 BlipT5WandaPruner = _make(BlipT5PrunerBase, "wanda", "blipt5_wanda_pruner")
+
+T5SparseGPTPruner = _make(T5PrunerBase, "sparsegpt", "t5_sparsegpt_pruner")
+ViTSparseGPTPruner = _make(ViTPrunerBase, "sparsegpt", "vit_sparsegpt_pruner")
+BlipT5SparseGPTPruner = _make(BlipT5PrunerBase, "sparsegpt",
+                              "blipt5_sparsegpt_pruner")

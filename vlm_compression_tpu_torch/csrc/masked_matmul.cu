@@ -40,198 +40,53 @@
 // the A and B bytes and the delta's recompute, 2KNr operations per M tile
 // ((M/128)·2KNr in all), small next to 2MNK at r ≤ 8.
 //
+// The packed entry points, y = x @ (W ⊙ unpack(P)), replace the Pallas TPU
+// kernel `_mm_packed_kernel` (vlm_compression_tpu/ops/masked_linear.py:194,
+// launched by `_masked_matmul_packed_pallas`).  P holds the keep-mask as
+// 32-bit words, 2 bits a weight (G = 128) or 1 bit (G = 256), in the
+// interleave of ops/bitmask.py.  They run the bool kernel's tile loop with
+// one difference, the mask loader: each thread keeps the 8 words of its W
+// chunks' columns for a whole G-row group in registers (4 K steps at
+// G = 128, 8 at G = 256; see tile_mma.cuh) and expands the bit of each row
+// as the chunk passes from registers to shared memory.  The words are read
+// from device memory once per group — 2 or 1 bits a weight instead of the
+// bool mask's 8 — with no shared-memory staging and no extra barrier.  The
+// K steps, the split-K and the fp32 summation order are the bool kernel's,
+// so for the same W and mask the two outputs are bit-equal.  What bounds
+// it: 2MNK operations against 2MK + 2KN + KN·b/8 + 2MN bytes (b = 2 or 1);
+// at decode shapes the bytes, where the packed mask saves 3/8 or 7/16 of
+// the bool kernel's weight-side traffic.
+//
 // Not yet done (later PRs): a TMA/wgmma pipeline for the compute-bound
 // calibration and training shapes.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "tile_mma.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- bf16 path
-constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-constexpr int LDA = BK + 8;   // shared row of the x tile, in elements (80 B)
-constexpr int LDB = BN + 8;   // shared row of the W tile, in elements (272 B)
+using namespace tile;
 
-union Pack8 {
-  uint4 u;
-  uint32_t w[4];
-  uint16_t h[8];   // bf16 bit patterns
-};
-
-union Mask8 {
-  uint2 u;
-  uint8_t b[8];
-};
-
-// x tile: BM × BK = 512 chunks of 8 elements, two per thread.
-// Columns at or past k_end read as zeros (the split's or the matrix's end).
-template <bool VEC>
-__device__ __forceinline__ void load_x(const bf16* __restrict__ x, int M, int K,
-                                       int k_end, int m0, int k0, int tid,
-                                       uint4 (&r)[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS;
-    const int row = c >> 2, col = (c & 3) * 8;
-    const int gm = m0 + row, gk = k0 + col;
-    Pack8 p;
-    if (VEC) {
-      p.u = (gm < M && gk < k_end)
-                ? *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk)
-                : make_uint4(0u, 0u, 0u, 0u);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        p.h[e] = (gm < M && gk + e < k_end)
-                     ? __bfloat16_as_ushort(x[(size_t)gm * K + gk + e]) : 0;
-    }
-    r[i] = p.u;
-  }
-}
-
-// W tile: BK × BN = 512 chunks of 8 elements, two per thread; the mask is
-// applied here, in registers, before the tile is stored to shared memory.
-template <bool VEC>
-__device__ __forceinline__ void load_w(const bf16* __restrict__ w,
-                                       const uint8_t* __restrict__ mask,
-                                       int N, int k_end, int n0, int k0,
-                                       int tid, uint4 (&r)[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS;
-    const int row = c >> 4, col = (c & 15) * 8;
-    const int gk = k0 + row, gn = n0 + col;
-    Pack8 p;
-    if (VEC) {
-      if (gk < k_end && gn < N) {
-        const size_t off = (size_t)gk * N + gn;
-        p.u = *reinterpret_cast<const uint4*>(w + off);
-        Mask8 m;
-        m.u = *reinterpret_cast<const uint2*>(mask + off);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          p.w[j] &= (m.b[2 * j] ? 0x0000FFFFu : 0u) |
-                    (m.b[2 * j + 1] ? 0xFFFF0000u : 0u);
-      } else {
-        p.u = make_uint4(0u, 0u, 0u, 0u);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const size_t off = (size_t)gk * N + gn + e;
-        p.h[e] = (gk < k_end && gn + e < N && mask[off])
-                     ? __bfloat16_as_ushort(w[off]) : 0;
-      }
-    }
-    r[i] = p.u;
-  }
-}
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-// a warp's 64 × 32 accumulators → y (bf16) or its split's fp32 partial,
-// through the warp's 16 × 16 staging tile; ragged edges masked
-__device__ __forceinline__ void store_tile(Acc (&acc)[4][2], float* cs,
-                                           int lane, int row0, int col0,
-                                           int M, int N, bf16* __restrict__ y,
-                                           float* __restrict__ partial) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = row0 + i * 16 + (e >> 4);
-        const int gn = col0 + j * 16 + (e & 15);
-        if (gm >= M || gn >= N) continue;
-        if (partial)
-          partial[((size_t)blockIdx.z * M + gm) * N + gn] = cs[e];
-        else
-          y[(size_t)gm * N + gn] = __float2bfloat16(cs[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// acc += As · Bs over one BK step (the warp's 64 × 32 slice)
-__device__ __forceinline__ void mma_step(Acc (&acc)[4][2], const bf16* As,
-                                         const bf16* Bs, int wm, int wn) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(b[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-  }
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
+// The masked kernels are tile_mma.cuh's loops with a bf16 (float) W loader
+// and a bool or packed mask.  Two blocks per SM (≤ 128 registers a
+// thread): the packed loader's words would otherwise take the bf16 kernel
+// to 172 registers and one block per SM.
+template <bool VEC, bool PACKED>
+__global__ void __launch_bounds__(THREADS, 2)
 masked_matmul_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                          const uint8_t* __restrict__ mask, bf16* __restrict__ y,
+                          const void* __restrict__ mask, int group,
+                          const float* __restrict__ scale, bf16* __restrict__ y,
                           float* __restrict__ partial, int M, int N, int K,
                           int k_split) {
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;      // 2 × 4 warps, 64 × 32 each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // split-K: block z sums k in [k_begin, k_end) into its own fp32 partial
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(K, k_begin + k_split);
-
-  Acc acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  uint4 ra[2], rb[2];
-  load_x<VEC>(x, M, K, k_end, m0, k_begin, tid, ra);
-  load_w<VEC>(w, mask, N, k_end, n0, k_begin, tid, rb);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(As + (c >> 2) * LDA + (c & 3) * 8) = ra[i];
-      *reinterpret_cast<uint4*>(Bs + (c >> 4) * LDB + (c & 15) * 8) = rb[i];
-    }
-    __syncthreads();
-    if (k0 + BK < k_end) {   // next tile's loads in flight during the MMAs
-      load_x<VEC>(x, M, K, k_end, m0, k0 + BK, tid, ra);
-      load_w<VEC>(w, mask, N, k_end, n0, k0 + BK, tid, rb);
-    }
-    mma_step(acc, As, Bs, wm, wn);
-    __syncthreads();
-  }
-
-  store_tile(acc, Cs[warp], lane, m0 + wm * 64, n0 + wn * 32, M, N, y,
-             partial);
+  mm_bf16_tile<VEC>(
+      x, WTile<bf16, PACKED ? PACKED_MASK : BOOL_MASK>(w, mask, group, N),
+      scale, y, partial, M, N, K, k_split);
 }
 
 // ---------------------------------------------------- sparse-LoRA, bf16 path
 
-// W tile chunks and their mask bytes as loaded (two per thread, as in
-// load_w); out-of-range elements read as W = 0, mask = 0
+// W tile chunks and their mask bytes as loaded (two per thread, as
+// WTile::load in tile_mma.cuh); out-of-range elements read as W = 0,
+// mask = 0
 template <bool VEC>
 __device__ __forceinline__ void load_w_raw(const bf16* __restrict__ w,
                                            const uint8_t* __restrict__ mask,
@@ -360,74 +215,19 @@ sparse_lora_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 
   store_tile(acc, Cs[warp], lane, m0 + wm * 64, n0 + wn * 32, M, N, y,
-             partial);
-}
-
-// y = Σ_z partial[z] in a fixed order, cast to bf16
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     bf16* __restrict__ y, long long mn,
-                                     int splits) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += partial[z * mn + i];
-    y[i] = __float2bfloat16(s);
-  }
+             partial, nullptr);
 }
 
 // ------------------------------------------------------------- float32 path
-constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
-
+template <bool PACKED>
 __global__ void __launch_bounds__(FTHREADS)
 masked_matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                         const uint8_t* __restrict__ mask, float* __restrict__ y,
+                         const void* __restrict__ mask, int group,
+                         const float* __restrict__ scale, float* __restrict__ y,
                          int M, int N, int K) {
-  __shared__ float As[FBK][FBM + 4];   // transposed x tile: As[k][m]
-  __shared__ float Bs[FBK][FBN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + i * FTHREADS;
-      const int ar = e >> 4, ac = e & 15;           // x: 64 rows × 16 cols
-      const int gm = m0 + ar, gk = k0 + ac;
-      As[ac][ar] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
-      const int br = e >> 6, bc = e & 63;           // W: 16 rows × 64 cols
-      const int wk = k0 + br, wn = n0 + bc;
-      const size_t off = (size_t)wk * N + wn;
-      Bs[br][bc] = (wk < K && wn < N && mask[off]) ? w[off] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gm < M && gn < N) y[(size_t)gm * N + gn] = acc[i][j];
-    }
-  }
+  mm_f32_tile(x,
+              WTile<float, PACKED ? PACKED_MASK : BOOL_MASK>(w, mask, group, N),
+              scale, y, M, N, K);
 }
 
 // fp32 sparse-LoRA: the float32 tile loop with the merge on the W tile
@@ -511,47 +311,68 @@ sparse_lora_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // C entry points (bound with ctypes).  Pointers are device pointers, the
 // stream is a cudaStream_t; the return value is cudaGetLastError() after
 // the launches.  `vec` promises 16-byte aligned x/W rows and 8-byte aligned
-// mask rows (K % 8 == 0, N % 8 == 0 and aligned base pointers).
+// bool-mask rows, or 16-byte aligned packed-word rows (K % 8 == 0,
+// N % 8 == 0 and aligned base pointers).
+
+namespace {
+
+// splits > 1 (decode-sized M, too few output tiles to fill the card):
+// each of `splits` K-ranges of k_split columns writes an fp32 partial
+// into workspace (splits × M × N), then one pass sums them in order
+template <bool PACKED>
+int masked_bf16(const void* x, const void* w, const void* mask, int group,
+                void* y, void* workspace, int M, int N, int K, int splits,
+                int k_split, int vec, void* stream) {
+  if (splits < 1 || (long long)splits * k_split < K ||
+      (splits > 1 && workspace == nullptr) ||
+      (PACKED && group != 128 && group != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bf16(
+      vec ? masked_matmul_bf16_kernel<true, PACKED>
+          : masked_matmul_bf16_kernel<false, PACKED>,
+      x, static_cast<const bf16*>(w), mask, group, nullptr, y, workspace, M, N,
+      K, splits, k_split, static_cast<cudaStream_t>(stream)));
+}
+
+template <bool PACKED>
+int masked_f32(const void* x, const void* w, const void* mask, int group,
+               void* y, int M, int N, int K, void* stream) {
+  if (PACKED && group != 128 && group != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_f32(
+      masked_matmul_f32_kernel<PACKED>, x, static_cast<const float*>(w), mask,
+      group, nullptr, y, M, N, K, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
 extern "C" int masked_matmul_bf16(const void* x, const void* w, const void* mask,
                                   void* y, void* workspace, int M, int N, int K,
                                   int splits, int k_split, int vec,
                                   void* stream) {
-  // splits > 1 (decode-sized M, too few output tiles to fill the card):
-  // each of `splits` K-ranges of k_split columns writes an fp32 partial
-  // into workspace (splits × M × N), then one pass sums them in order
-  if (splits < 1 || (long long)splits * k_split < K ||
-      (splits > 1 && workspace == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* partial = splits > 1 ? static_cast<float*>(workspace) : nullptr;
-  if (vec)
-    masked_matmul_bf16_kernel<true><<<grid, THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const uint8_t*>(mask), static_cast<bf16*>(y), partial,
-        M, N, K, k_split);
-  else
-    masked_matmul_bf16_kernel<false><<<grid, THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const uint8_t*>(mask), static_cast<bf16*>(y), partial,
-        M, N, K, k_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long mn = (long long)M * N;
-  const long long want = (mn + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(partial, static_cast<bf16*>(y),
-                                               mn, splits);
-  return static_cast<int>(cudaGetLastError());
+  return masked_bf16<false>(x, w, mask, 0, y, workspace, M, N, K, splits,
+                            k_split, vec, stream);
 }
 
 extern "C" int masked_matmul_f32(const void* x, const void* w, const void* mask,
                                  void* y, int M, int N, int K, void* stream) {
-  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-  masked_matmul_f32_kernel<<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return masked_f32<false>(x, w, mask, 0, y, M, N, K, stream);
+}
+
+// `packed`: (8·⌈K/group⌉, N) 32-bit words, group 128 or 256
+extern "C" int masked_matmul_packed_bf16(const void* x, const void* w,
+                                         const void* packed, int group, void* y,
+                                         void* workspace, int M, int N, int K,
+                                         int splits, int k_split, int vec,
+                                         void* stream) {
+  return masked_bf16<true>(x, w, packed, group, y, workspace, M, N, K, splits,
+                           k_split, vec, stream);
+}
+
+extern "C" int masked_matmul_packed_f32(const void* x, const void* w,
+                                        const void* packed, int group, void* y,
+                                        int M, int N, int K, void* stream) {
+  return masked_f32<true>(x, w, packed, group, y, M, N, K, stream);
 }
 
 // splits > 1: as masked_matmul_bf16.  A (K, r) and B (r, N) are row-major
@@ -580,12 +401,8 @@ extern "C" int sparse_lora_matmul_bf16(const void* x, const void* w,
           partial, M, N, K, k_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long mn = (long long)M * N;
-  const long long want = (mn + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(partial, static_cast<bf16*>(y),
-                                               mn, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      splitk_reduce(partial, static_cast<bf16*>(y), M, N, splits, nullptr, st));
 }
 
 extern "C" int sparse_lora_matmul_f32(const void* x, const void* w,

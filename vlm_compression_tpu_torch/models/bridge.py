@@ -8,8 +8,12 @@ is the port's parameter ``visual_encoder.blocks_0.attn.qkv.kernel``,
 ``masks/…/qkv/mask`` the ``mask`` buffer of that linear, and
 ``lora/…/qkv/lora_a`` (``lora_b``) its adapter parameters.  Variables
 arrive as a nested dict of numpy arrays (``params``, and ``masks`` and
-``lora`` where present).  Loading real checkpoints through ``models/convert.py`` waits
-until weights are in the repository.
+``lora`` where present).  Compressed leaves travel bit for bit: an int8
+``kernel`` with its ``kernel_scale`` (``ops/quant.py``) becomes the
+linear's int8 kernel and scale buffer; a packed uint32 ``mask`` with
+``mask_rows``/``mask_group`` (``ops/bitmask.py``) its int32 words.
+Loading real checkpoints through ``models/convert.py`` waits until weights
+are in the repository.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from vlm_compression_tpu_torch.models.layers import (
     SparseLinear,
     init_lora_,
+    set_int8_kernel,
     set_mask,
 )
 
@@ -38,10 +43,13 @@ def flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]
 
 
 def to_torch(arr) -> torch.Tensor:
-    """numpy (or array-like) → CPU tensor; bfloat16 travels as its bits."""
+    """numpy (or array-like) → CPU tensor; bfloat16 travels as its bits,
+    uint32 (packed mask words) as int32 of the same bits."""
     a = np.asarray(arr)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32).copy())
     return torch.from_numpy(np.array(a, copy=True))
 
 
@@ -57,9 +65,16 @@ def load_jax_variables(model: nn.Module, variables: dict,
                        strict: bool = True) -> nn.Module:
     """Copy a JAX variables tree into ``model`` in place.  ``strict``
     requires every parameter of the model to be covered."""
+    params = flatten(variables.get("params", {}))
+    # int8 kernels first: they replace the float parameter of their linear
+    for path, leaf in list(params.items()):
+        if path[-1] == "kernel" and np.asarray(leaf).dtype == np.int8:
+            scale = params.pop(path[:-1] + ("kernel_scale",))
+            set_int8_kernel(model.get_submodule(".".join(path[:-1])),
+                            to_torch(leaf), to_torch(scale))
     named = dict(model.named_parameters())
     seen = set()
-    leaves = list(flatten(variables.get("params", {})).items())
+    leaves = list(params.items())
     leaves += [(path, leaf) for path, leaf in
                flatten(variables.get("lora", {})).items()]
     for path, leaf in leaves:
@@ -74,17 +89,27 @@ def load_jax_variables(model: nn.Module, variables: dict,
     if strict and set(named) - seen:
         raise KeyError(f"parameters missing from the variables: "
                        f"{sorted(set(named) - seen)[:8]}")
-    for path, leaf in flatten(variables.get("masks", {})).items():
+    masks = flatten(variables.get("masks", {}))
+    for path, leaf in masks.items():
+        if path[-1] in ("mask_rows", "mask_group"):
+            continue
         if path[-1] != "mask":
             raise KeyError(f"unexpected mask leaf {'/'.join(path)}")
-        set_mask(model.get_submodule(".".join(path[:-1])),
-                 to_torch(leaf).bool())
+        linear = model.get_submodule(".".join(path[:-1]))
+        mask = to_torch(leaf)
+        if mask.dtype == torch.int32:
+            rows = int(masks[path[:-1] + ("mask_rows",)])
+            if rows != linear.in_features:
+                raise ValueError(f"{'/'.join(path)}: mask_rows {rows} vs "
+                                 f"{linear.in_features} kernel rows")
+        set_mask(linear, mask)
     return model
 
 
 def export_masks(model: nn.Module) -> Dict[Tuple[str, ...], np.ndarray]:
-    """{linear path: bool (in, out)} for every linear that holds a mask."""
-    return {tuple(name.split(".")): m.mask.cpu().numpy()
+    """{linear path: bool (in, out)} for every linear that holds a mask
+    (packed masks unpacked)."""
+    return {tuple(name.split(".")): m.bool_mask().cpu().numpy()
             for name, m in model.named_modules()
             if isinstance(m, SparseLinear) and m.mask is not None}
 

@@ -18,7 +18,18 @@ as in the JAX package:
 with s = lora_alpha / r.  Without a mask the masked modes are x · W, and the
 LoRA modes x · W + s·(x·A)·B; a linear with r = 0 runs the LoRA modes as
 ``masked``.  A and B are cast to the compute dtype, which follows the input.
-The int8/int4 kernels and bit-packed masks arrive with later slices.
+
+Compressed leaves, as the JAX package's ``SparseLinear`` reads them:
+
+  * an int8 ``kernel`` (a frozen parameter) with its per-output-column
+    ``kernel_scale`` buffer (``ops/quant.quantize_model_int8_``): the dense
+    and masked modes run ``int8_matmul`` (the int8 kernel on the card),
+    the LoRA modes dequantize once;
+  * a bit-packed ``mask`` (int32 words, ``ops/bitmask.pack_masks_``):
+    ``masked`` runs ``masked_matmul_packed`` (the packed kernel on the
+    card), the LoRA modes unpack once.
+
+The int4 kernels (``kernel_q4``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,11 +40,18 @@ from typing import Optional
 import torch
 from torch import nn
 
+from vlm_compression_tpu_torch.ops.bitmask import (
+    infer_pack_group,
+    is_packed,
+    unpack_mask,
+)
 from vlm_compression_tpu_torch.ops.masked_linear import (
     lora_matmul_ref,
     masked_matmul,
+    masked_matmul_packed,
     sparse_lora_matmul,
 )
+from vlm_compression_tpu_torch.ops.quant import dequantize_weight, int8_matmul
 
 DENSE = "dense"
 MASKED = "masked"
@@ -57,6 +75,7 @@ class SparseLinear(nn.Module):
                                               device=device))
                      if use_bias else None)
         self.register_buffer("mask", None)
+        self.register_buffer("kernel_scale", None)
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.zeros(
                 (in_features, lora_rank), dtype=param_dtype, device=device))
@@ -71,25 +90,55 @@ class SparseLinear(nn.Module):
         self.lora_a.uniform_(-bound, bound, generator=generator)
         self.lora_b.zero_()
 
+    def bool_mask(self) -> Optional[torch.Tensor]:
+        """The keep-mask as bool (in, out), unpacked if it is packed."""
+        if not is_packed(self.mask):
+            return self.mask
+        return unpack_mask(self.mask, self.in_features,
+                           infer_pack_group(self.in_features,
+                                            self.mask.shape[0]))
+
     def forward(self, x: torch.Tensor, mode: str = MASKED) -> torch.Tensor:
         if mode not in _MODES:
             raise ValueError(f"mode {mode!r} not in {_MODES}")
-        # compute dtype follows the input, as in the JAX package
-        k = self.kernel.to(x.dtype)
+        if hasattr(self, "kernel_q4"):
+            raise NotImplementedError("int4 kernels (kernel_q4) are not "
+                                      "ported yet")
+        lora = self.lora_rank > 0 and mode in (SPARSE_LORA, LORA)
+        # an int8 kernel holds codes, not weights: branch before any cast
+        qscale = None
+        if self.kernel.dtype == torch.int8:
+            if lora:
+                k = dequantize_weight(self.kernel, self.kernel_scale, x.dtype)
+            else:
+                qscale = self.kernel_scale
+        else:
+            # compute dtype follows the input, as in the JAX package
+            k = self.kernel.to(x.dtype)
+        mask = self.mask
         if mode == DENSE:
-            y = x @ k
-        elif mode == MASKED or self.lora_rank == 0:
-            y = x @ k if self.mask is None else masked_matmul(x, k, self.mask)
+            y = x @ k if qscale is None else int8_matmul(x, self.kernel,
+                                                         qscale)
+        elif not lora:
+            if qscale is not None:
+                y = int8_matmul(x, self.kernel, qscale, mask)
+            elif mask is None:
+                y = x @ k
+            elif is_packed(mask):
+                y = masked_matmul_packed(x, k, mask)
+            else:
+                y = masked_matmul(x, k, mask)
         else:
             s = self.lora_alpha / self.lora_rank
             a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
-            if self.mask is None:
+            mask = self.bool_mask()
+            if mask is None:
                 z = (x @ a) @ b
                 y = x @ k + (s * z.float()).to(x.dtype)
             elif mode == SPARSE_LORA:
-                y = sparse_lora_matmul(x, k, self.mask, a, b, s)
+                y = sparse_lora_matmul(x, k, mask, a, b, s)
             else:
-                y = lora_matmul_ref(x, k, self.mask, a, b, s)
+                y = lora_matmul_ref(x, k, mask, a, b, s)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -132,13 +181,35 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
 
 
 def set_mask(linear: SparseLinear, mask: Optional[torch.Tensor]) -> None:
-    """Attach (or drop, with None) the keep-mask of one linear."""
-    if mask is not None:
-        if tuple(mask.shape) != tuple(linear.kernel.shape):
-            raise ValueError(f"mask {tuple(mask.shape)} vs kernel "
-                             f"{tuple(linear.kernel.shape)}")
+    """Attach (or drop, with None) the keep-mask of one linear: bool
+    (in, out), or its packed words (8·⌈in/G⌉, out), G = 128 or 256."""
+    shape = tuple(linear.kernel.shape)
+    if mask is not None and is_packed(mask):
+        infer_pack_group(shape[0], mask.shape[0])   # raises on a mismatch
+        if mask.shape[1:] != shape[1:]:
+            raise ValueError(f"packed mask {tuple(mask.shape)} vs kernel "
+                             f"{shape}")
+        mask = mask.to(linear.kernel.device).view(torch.int32)
+    elif mask is not None:
+        if tuple(mask.shape) != shape:
+            raise ValueError(f"mask {tuple(mask.shape)} vs kernel {shape}")
         mask = mask.to(device=linear.kernel.device, dtype=torch.bool)
     linear.mask = mask
+
+
+def set_int8_kernel(linear: SparseLinear, q: torch.Tensor,
+                    scale: torch.Tensor) -> None:
+    """Replace the kernel of one linear with int8 codes q (in, out) and
+    their fp32 per-column scale (out,).  int8 cannot require a gradient:
+    the kernel becomes a frozen parameter, keeping its name."""
+    shape = tuple(linear.kernel.shape)
+    if q.dtype != torch.int8 or tuple(q.shape) != shape \
+            or tuple(scale.shape) != shape[1:]:
+        raise ValueError(f"int8 kernel {tuple(q.shape)} {q.dtype} and scale "
+                         f"{tuple(scale.shape)} for kernel {shape}")
+    dev = linear.kernel.device
+    linear.kernel = nn.Parameter(q.to(dev), requires_grad=False)
+    linear.kernel_scale = scale.to(device=dev, dtype=torch.float32)
 
 
 def lora_linears(model: nn.Module):

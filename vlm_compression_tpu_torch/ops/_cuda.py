@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into its own shared library with a plain C
 interface, at first use, into ``build/kernels/`` at the repository root
 (``VCT_TORCH_BUILD_DIR`` overrides it).  The library name carries a hash
-of the source and the flags, so an edited source rebuilds.  Nothing here
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds.  Nothing here
 runs at import: the CPU tests import every module of the port, and this
 host has no ``nvcc``.
 """
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("masked_matmul", "flash_attention", "flash_attention_bwd")
+SOURCES = ("masked_matmul", "int8_matmul", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -40,6 +42,14 @@ _SIGNATURES = {
                                     _I, _I, _I, _I, _I, _P],
         "sparse_lora_matmul_f32": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I,
                                    _I, _P],
+        "masked_matmul_packed_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _P],
+        "masked_matmul_packed_f32": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+    },
+    "int8_matmul": {
+        "int8_matmul_bf16": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P],
+        "int8_matmul_f32": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -76,10 +86,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES, verbose: bool = False

@@ -1,19 +1,22 @@
 """Masked and sparse-LoRA matmuls — the sparse forward paths.
 
-Counterpart of ``vlm_compression_tpu/ops/masked_linear.py`` (the packed-mask
-variant comes with a later slice).  Layout as there: x (..., in), W
-(in, out), mask (in, out) bool, True = keep, A (in, r), B (r, out).
+Counterpart of ``vlm_compression_tpu/ops/masked_linear.py``.  Layout as
+there: x (..., in), W (in, out), mask (in, out) bool, True = keep, or its
+bit-packed words (``ops/bitmask.py``), A (in, r), B (r, out).
 
-  masked       y = x · (W ⊙ M)
-  sparse_lora  y = x · ((W + s·A·B) ⊙ M)      (mask over the sum)
-  lora         y = x · (W ⊙ M) + (x·A)·B·s     (ablation: mask on the base)
+  masked         y = x · (W ⊙ M)
+  masked_packed  y = x · (W ⊙ unpack(P))       (P: 1 or 2 bits a weight)
+  sparse_lora    y = x · ((W + s·A·B) ⊙ M)      (mask over the sum)
+  lora           y = x · (W ⊙ M) + (x·A)·B·s     (ablation: mask on the base)
 
-``masked_matmul`` and ``sparse_lora_matmul`` are autograd Functions whose
-forward runs the plain version on CPU tensors and a hand-written kernel of
-``csrc/masked_matmul.cu`` on CUDA tensors (launch or raise — no fallback),
-and whose backward is the JAX package's hand-written VJP in plain matmuls
-(as there, the backward products are left to the matmul library).
-``launches`` and ``lora_launches`` count kernel launches.
+``masked_matmul``, ``masked_matmul_packed`` and ``sparse_lora_matmul`` are
+autograd Functions whose forward runs the plain version on CPU tensors and
+a hand-written kernel of ``csrc/masked_matmul.cu`` on CUDA tensors (launch
+or raise — no fallback), and whose backward is the JAX package's
+hand-written VJP in plain matmuls (as there, the backward products are left
+to the matmul library; the packed backward unpacks, as the JAX one does).
+``launches``, ``packed_launches`` and ``lora_launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -21,8 +24,14 @@ from __future__ import annotations
 import torch
 
 from vlm_compression_tpu_torch.ops import _cuda
+from vlm_compression_tpu_torch.ops.bitmask import (
+    infer_pack_group,
+    is_packed,
+    unpack_mask,
+)
 
 launches = 0
+packed_launches = 0
 lora_launches = 0
 
 
@@ -32,6 +41,15 @@ def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     reference's dot_general with preferred_element_type=float32)."""
     wm = torch.where(mask, w, torch.zeros((), dtype=w.dtype, device=w.device))
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
+
+
+def masked_matmul_packed_ref(x: torch.Tensor, w: torch.Tensor,
+                             packed: torch.Tensor) -> torch.Tensor:
+    """Plain version: unpack (the group from the shapes), then
+    ``masked_matmul_ref``."""
+    k = w.shape[0]
+    return masked_matmul_ref(x, w, unpack_mask(
+        packed, k, infer_pack_group(k, packed.shape[0])))
 
 
 def lora_delta(lora_a: torch.Tensor, lora_b: torch.Tensor,
@@ -91,9 +109,19 @@ def _masked_grad(x, g, mask) -> torch.Tensor:
     return torch.where(mask, gm, torch.zeros((), device=gm.device))
 
 
-class _MaskedMatmul(torch.autograd.Function):
+def _masked_vjp(ctx, x, w, mask, g):
     """JAX ``_masked_matmul_bwd``: dx = g·(W⊙M)ᵀ, dW = M ⊙ (xᵀg)."""
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        wm = torch.where(mask, w, torch.zeros((), dtype=w.dtype,
+                                              device=w.device))
+        dx = torch.matmul(g, wm.t()).to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        dw = _masked_grad(x, g, mask).to(w.dtype)
+    return dx, dw, None
 
+
+class _MaskedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, mask):
         ctx.save_for_backward(x, w, mask)
@@ -101,15 +129,23 @@ class _MaskedMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w, mask = ctx.saved_tensors
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            wm = torch.where(mask, w, torch.zeros((), dtype=w.dtype,
-                                                  device=w.device))
-            dx = torch.matmul(g, wm.t()).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = _masked_grad(x, g, mask).to(w.dtype)
-        return dx, dw, None
+        return _masked_vjp(ctx, *ctx.saved_tensors, g)
+
+
+class _MaskedMatmulPacked(torch.autograd.Function):
+    """JAX ``_masked_matmul_packed_bwd``: unpack, then the masked VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w, packed):
+        ctx.save_for_backward(x, w, packed)
+        return _masked_matmul_packed_fwd(x, w, packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, packed = ctx.saved_tensors
+        k = w.shape[0]
+        mask = unpack_mask(packed, k, infer_pack_group(k, packed.shape[0]))
+        return _masked_vjp(ctx, x, w, mask, g)
 
 
 class _SparseLoraMatmul(torch.autograd.Function):
@@ -158,6 +194,18 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor,
     return _masked_matmul_fwd(x, w, mask)
 
 
+def masked_matmul_packed(x: torch.Tensor, w: torch.Tensor,
+                         packed: torch.Tensor) -> torch.Tensor:
+    """y = x @ (w ⊙ unpack(packed)); the pack group (128: 2 bits a weight,
+    256: 1 bit) follows from the words' row count.  On the card the mask is
+    expanded in registers, as a W tile passes to shared memory, and neither
+    the unpacked mask nor the masked weight exists in memory.
+    Differentiable in x and w."""
+    if _needs_graph(x, w):
+        return _MaskedMatmulPacked.apply(x, w, packed)
+    return _masked_matmul_packed_fwd(x, w, packed)
+
+
 def sparse_lora_matmul(x, w, mask, lora_a, lora_b, scale: float):
     """y = x @ ((w + lora_a·lora_b·scale) ⊙ mask); on the card the merged
     weight never exists in memory.  Differentiable in x, w, A and B."""
@@ -173,6 +221,12 @@ def _masked_matmul_fwd(x, w, mask):
     if x.device.type == "cpu":
         return masked_matmul_ref(x, w, mask)
     return _masked_matmul_cuda(x, w, mask)
+
+
+def _masked_matmul_packed_fwd(x, w, packed):
+    if x.device.type == "cpu":
+        return masked_matmul_packed_ref(x, w, packed)
+    return _masked_matmul_packed_cuda(x, w, packed)
 
 
 # the bf16 kernels' output tile and K step (csrc/masked_matmul.cu)
@@ -193,18 +247,34 @@ def split_k(m: int, n: int, k: int, sms: int):
     return -(-k // k_split), k_split
 
 
-def _check_inputs(x, w, mask, what="masked_matmul"):
+def _mask_rows(w, mask, packed: bool) -> int:
+    """The row count ``mask`` must have for ``w``: in (bool), or the word
+    rows of a pack layout for in rows (-1 when there is none)."""
+    k = w.shape[0]
+    if not packed:
+        return k
+    try:
+        infer_pack_group(k, mask.shape[0])
+    except ValueError:
+        return -1
+    return mask.shape[0]
+
+
+def _check_inputs(x, w, mask, what="masked_matmul", packed=False):
     """Raise the specific error for inputs the kernel does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if w.ndim != 2 or x.shape[-1] != w.shape[0] or mask.shape != w.shape:
+    if w.ndim != 2 or mask.ndim != 2 or x.shape[-1] != w.shape[0] \
+            or mask.shape != (_mask_rows(w, mask, packed), w.shape[1]):
         raise ValueError(f"{what}: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, mask {tuple(mask.shape)}")
     if x.dtype != w.dtype or x.dtype not in _DTYPES:
         raise TypeError(f"{what}: x {x.dtype} and w {w.dtype} must "
                         "both be bfloat16 or both float32")
-    if mask.dtype != torch.bool:
-        raise TypeError(f"{what}: mask must be bool, got {mask.dtype}")
+    if packed != is_packed(mask) or not (packed or mask.dtype == torch.bool):
+        raise TypeError(f"{what}: mask must be "
+                        f"{'packed 32-bit words' if packed else 'bool'}, "
+                        f"got {mask.dtype}")
     if w.device != x.device or mask.device != x.device:
         raise ValueError(f"{what}: x, w and mask must share a device")
     raise ValueError(f"{what}: w and mask must be contiguous")
@@ -228,20 +298,22 @@ def _check_lora(x, w, lora_a, lora_b):
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _valid(x, w, mask) -> bool:
+def _valid(x, w, mask, packed: bool = False) -> bool:
     dev = x.device
-    return (dev.type == "cuda" and w.ndim == 2 and mask.shape == w.shape
+    return (dev.type == "cuda" and w.ndim == 2 and mask.ndim == 2
+            and mask.shape == (_mask_rows(w, mask, packed), w.shape[1])
+            and (is_packed(mask) if packed else mask.dtype == torch.bool)
             and x.shape[-1] == w.shape[0] and x.dtype == w.dtype
-            and x.dtype in _DTYPES and mask.dtype == torch.bool
-            and w.device == dev and mask.device == dev
+            and x.dtype in _DTYPES and w.device == dev and mask.device == dev
             and w.is_contiguous() and mask.is_contiguous())
 
 
-def _launch(fn_bf16, fn_f32, x, w, mask, lora=()):
-    """Shared launch of the masked / sparse-LoRA kernels: flatten x,
-    allocate y (and the split-K workspace), pick the vectorized loads.
-    ``lora`` is () or (A, B, scale).  Returns (y, the launch's error code,
-    or None when an empty shape left nothing to launch)."""
+def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8):
+    """Shared launch of the tiled matmul kernels (masked, packed,
+    sparse-LoRA, int8): flatten x, allocate y (and the split-K workspace),
+    pick the vectorized loads.  ``args`` go after the mask pointer;
+    ``mask`` may be None (no pointer).  Returns (y, the launch's error
+    code, or None when an empty shape left nothing to launch)."""
     dev = x.device
     k, n = w.shape
     lead = x.shape[:-1]
@@ -253,26 +325,19 @@ def _launch(fn_bf16, fn_f32, x, w, mask, lora=()):
     if k == 0:
         return y.zero_().reshape(*lead, n), None
     stream = _cuda.stream_ptr(dev)
-    extra = []
-    if lora:
-        a, b, scale = lora
-        extra = [a.contiguous(), b.contiguous()]
-        args = [extra[0].data_ptr(), extra[1].data_ptr(), a.shape[1],
-                float(scale)]
-    else:
-        args = []
+    mask_ptr = None if mask is None else mask.data_ptr()
     if x.dtype == torch.bfloat16:
         vec = int(k % 8 == 0 and n % 8 == 0
-                  and x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-                  and mask.data_ptr() % 8 == 0)
+                  and x2.data_ptr() % 16 == 0 and w.data_ptr() % w_align == 0
+                  and (mask is None or mask_ptr % mask_align == 0))
         splits, k_split = split_k(m, n, k, _cuda.sm_count(dev))
         work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                 if splits > 1 else None)
-        err = fn_bf16(x2.data_ptr(), w.data_ptr(), mask.data_ptr(), *args,
+        err = fn_bf16(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
                       y.data_ptr(), None if work is None else work.data_ptr(),
                       m, n, k, splits, k_split, vec, stream)
     else:
-        err = fn_f32(x2.data_ptr(), w.data_ptr(), mask.data_ptr(), *args,
+        err = fn_f32(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
                      y.data_ptr(), m, n, k, stream)
     return y.reshape(*lead, n), err
 
@@ -290,6 +355,22 @@ def _masked_matmul_cuda(x, w, mask):
     return y
 
 
+def _masked_matmul_packed_cuda(x, w, packed):
+    global packed_launches
+    if not _valid(x, w, packed, packed=True):
+        _check_inputs(x, w, packed, "masked_matmul_packed", packed=True)
+    group = infer_pack_group(w.shape[0], packed.shape[0])
+    lib = _cuda.library("masked_matmul")
+    # each 8-column chunk reads its 8 words as two 16-byte loads
+    y, err = _launch(lib.masked_matmul_packed_bf16,
+                     lib.masked_matmul_packed_f32, x, w, packed, (group,),
+                     mask_align=16)
+    if err is not None:
+        _cuda.check(err, "masked_matmul_packed")
+        packed_launches += 1
+    return y
+
+
 def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale):
     global lora_launches
     if not _valid(x, w, mask):
@@ -302,8 +383,10 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale):
             and lora_a.device == x.device and lora_b.device == x.device):
         _check_lora(x, w, lora_a, lora_b)
     lib = _cuda.library("masked_matmul")
+    a, b = lora_a.contiguous(), lora_b.contiguous()
     y, err = _launch(lib.sparse_lora_matmul_bf16, lib.sparse_lora_matmul_f32,
-                     x, w, mask, (lora_a, lora_b, scale))
+                     x, w, mask, (a.data_ptr(), b.data_ptr(), a.shape[1],
+                                  float(scale)))
     if err is not None:
         _cuda.check(err, "sparse_lora_matmul")
         lora_launches += 1
