@@ -10,12 +10,16 @@ each of which fails the run (non-zero exit, no result line) on error:
   2. build    — every hand-written kernel source compiled from csrc/ with
                 nvcc, in parallel;
   3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes (prune, generate and retrain), in bf16 and
-                float32, within stated tolerances;
+                path's shapes (prune, generate, retrain, the compressed
+                path, and dbias at the first-order path's and every other
+                broadcast pattern), in bf16 and float32, within stated
+                tolerances;
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
-                (bool, packed and int8 leaves), and one KD train step
-                (loss, LoRA gradients and update); SparseGPT at an XL shape
+                (bool, packed and int8 leaves), one KD train step (loss,
+                LoRA gradients and update), the diagonal Fisher of every
+                leaf, the aobd_sum block allocation (ratios equal) and the
+                Wanda masks under it (bit-equal); SparseGPT at an XL shape
                 on the card vs the CPU (mask bits that differ), and one
                 batched group of linears against its members one by one;
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
@@ -40,11 +44,18 @@ each of which fails the run (non-zero exit, no result line) on error:
                 Sizes at rest of each form, one profiled int8 generate;
                 each phase's kernels must have launched in it, and the bool
                 kernel in no packed or int8 phase;
-  7. profile  — the main path once more under torch.profiler (prune,
-                generate, one train step), and the SparseGPT prune: device
-                time by kernel group against each phase's unprofiled
-                wall-clock;
-  8. timing   — kernel, plain-version and library-call times (CUDA events,
+  7. first-order path — a third full-width XL model (seed 2, no
+                adapters): ``blipt5_wanda_pruner`` with the EcoFLaP
+                first-order block allocation (aobd_sum on 32 samples, no
+                dbias launch), the 87 group ratios, beam-5 generate twice;
+                then, rebuilt dense, the diagonal Fisher over 8 batch-1
+                samples (the dbias kernel 48 times a sample),
+                ``prune_by_importance`` at keep 0.5 and beam-5 generate;
+  8. profile  — the main path once more under torch.profiler (prune,
+                generate, one train step), the SparseGPT prune, and the
+                first-order path's Fisher and EcoFLaP prune: device time by
+                kernel group against each phase's unprofiled wall-clock;
+  9. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound.
 
@@ -197,6 +208,26 @@ BWD_SHAPES = [
 ]
 BWD_TIMED = "vit_self"
 
+# dbias (b, n, m, h, d, biases, scale, causal), the gradient of every bias
+# in the list: the T5 encoder's self-attention at the first-order
+# allocation's batch (16) and the diagonal Fisher's (1), position bias and
+# padding mask; the decoder's ("relc": position bias + additive causal
+# mask); then one case of each other broadcast pattern — "bn" (b, 1, n, m),
+# "full" (b, h, n, m) under the causal flag, "pad" at n != m, "keyd1"
+# (b, h, n, 1) — and ragged tiles (n = m = 200)
+DBIAS_SHAPES = [
+    ("t5_encoder_b16", 16, 72, 72, 32, 64, ["rel", "pad"], 1.0, False),
+    ("t5_encoder_b1", 1, 72, 72, 32, 64, ["rel", "pad"], 1.0, False),
+    ("t5_decoder_b16", 16, 12, 12, 32, 64, ["relc", "pad"], 1.0, False),
+    ("t5_decoder_b1", 1, 12, 12, 32, 64, ["relc", "pad"], 1.0, False),
+    ("per_batch", 4, 72, 72, 8, 64, ["bn"], 0.125, False),
+    ("full_causal", 4, 72, 72, 8, 64, ["full"], 0.125, True),
+    ("pad_n_ne_m", 4, 32, 257, 12, 64, ["pad"], 0.125, False),
+    ("key_dim_1", 4, 72, 72, 8, 64, ["keyd1"], 0.125, False),
+    ("ragged_200", 2, 200, 200, 4, 64, ["rel"], 0.125, False),
+]
+DBIAS_TIMED = "t5_encoder_b16"
+
 
 # compressed serving (M, K, N): the prefill of N_REQ = 4 requests (ViT
 # M = 4 × 257, T5 encoder M = 4 × 72; the decoder's cross k/v once for
@@ -260,6 +291,10 @@ def flash_inputs(b, n, m, h, d, kinds, dtype, seed=0):
                    <= torch.arange(n, device="cuda")[:, None] + (m - n))
             biases.append(torch.randn(1, h, n, m, generator=g, device="cuda")
                           + torch.where(vis, 0.0, NEG_INF))
+        else:
+            shape = {"bn": (b, 1, n, m), "full": (b, h, n, m),
+                     "keyd1": (b, h, n, 1)}[kind]
+            biases.append(torch.randn(shape, generator=g, device="cuda"))
     return q, k, v, biases
 
 
@@ -321,6 +356,19 @@ def flash_bwd_bound_ms(q, k, v, biases, which):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 8.0 * b * h * n \
         + sum(4.0 * x.numel() for x in biases) \
         + (q.numel() if which == "dq" else k.numel() + v.numel()) * es
+    return _bound(flops, nbytes)
+
+
+def dbias_bound_ms(q, k, v, biases, i):
+    """dbias of bias i: the two products of the recompute (q·kᵀ, g·vᵀ),
+    4·b·h·n·m·d operations; q, k, v and g read once, lse and delta, every
+    bias at its shape, and dbias written in fp32."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    flops = 4.0 * b * h * n * m * d
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 8.0 * b * h * n + sum(4.0 * x.numel() for x in biases) \
+        + 4.0 * biases[i].numel()
     return _bound(flops, nbytes)
 
 
@@ -469,6 +517,38 @@ def check_compressed_kernels(worst):
                 if not ok:
                     raise AssertionError(f"int8_matmul {name} {kind} {dtype}")
                 worst[("int8_matmul", f"{name} {kind}", dtype)] = err
+
+
+def check_dbias_kernel(worst):
+    """The dbias kernel against its plain version, for every bias of each
+    case, from the same out and lse."""
+    from vlm_compression_tpu_torch.ops import attention as A
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        tol = TOL[dt]
+        for name, b, n, m, h, d, kinds, scale, causal in DBIAS_SHAPES:
+            q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
+            g = grad_like(q)
+            out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+            errs = []
+            for i, bias in enumerate(biases):
+                args = (q, k_, v, out, lse, g, biases, i, scale, causal)
+                got = A.flash_attention_dbias(*args)
+                if got.shape != bias.shape or got.dtype != torch.float32:
+                    raise AssertionError(f"dbias {name}: {tuple(got.shape)} "
+                                         f"{got.dtype}")
+                errs.append(max_err(got, A.flash_attention_dbias_ref(*args)))
+            ok = all(e <= tol * sc for e, sc in errs)
+            log(f"  flash_attention_bwd_dbias {name:16s} {dt:8s} b={b} n={n} "
+                f"m={m} h={h} d={d} biases={kinds} causal={causal} "
+                f"max_abs_err={'/'.join(f'{e:.3e}' for e, _ in errs)} (tol "
+                f"{'/'.join(f'{tol * sc:.3e}' for _, sc in errs)}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd_dbias {name} {dtype}")
+            worst[("flash_attention_bwd_dbias", name, dtype)] = max(
+                e for e, _ in errs)
 
 
 def tiny_reference_check():
@@ -624,7 +704,109 @@ def tiny_train_check():
         raise AssertionError("tiny KD step, card vs CPU")
 
 
+def tiny_gradient_scoring_check():
+    """The gradient-scoring slice on a tiny float32 InstructBLIP-T5 (std
+    0.02, as the KD check): kernels on the card vs plain versions on the
+    CPU, same weights and inputs.  get_data_derivative (power 2, three
+    batch-1 samples) over every leaf: within 1e-3 of the leaf's largest
+    entry (entries of leaves whose gradient is 0 in exact arithmetic —
+    the Q-Former's key biases — within 1e-9 of the largest of all), the
+    dbias kernel launched once per T5 self-attention and sample, both
+    rel_embeddings scored; the aobd_sum block allocation: every ratio
+    equal; ``blipt5_wanda_pruner`` with that allocation: masks
+    bit-equal."""
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.compression.allocator import LayerSparsity
+    from vlm_compression_tpu_torch.compression.derivatives import (
+        get_data_derivative,
+    )
+    from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+        Blip2T5Instruct,
+        Blip2T5InstructConfig,
+    )
+    from vlm_compression_tpu_torch.models.bridge import (
+        export_masks,
+        random_init_,
+    )
+    from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+    from vlm_compression_tpu_torch.models.t5 import T5Config
+
+    f32 = dict(param_dtype="float32", dtype="float32")
+    cfg = Blip2T5InstructConfig.tiny(
+        vit=EvaViTConfig.tiny(**f32), qformer=QFormerConfig.tiny(
+            dtype="float32"), t5=T5Config.tiny(d_model=16, **f32))
+    cpu = random_init_(Blip2T5Instruct(cfg, device="cpu"), seed=9, std=0.02)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(9)
+
+    def batch(b):
+        return dict(
+            image=torch.randn(b, 28, 28, 3, generator=g),
+            input_ids=torch.randint(2, 96, (b, 5), generator=g),
+            attention_mask=torch.ones(b, 5, dtype=torch.int64),
+            labels=torch.randint(2, 96, (b, 4), generator=g),
+            qformer_input_ids=torch.randint(2, 64, (b, 5), generator=g),
+            qformer_attention_mask=torch.ones(b, 5, dtype=torch.int64))
+
+    def on_card(batches):
+        return [{k: v.cuda() for k, v in b.items()} for b in batches]
+
+    samples, calib = [batch(1) for _ in range(3)], [batch(4), batch(4)]
+    want = get_data_derivative(cpu, samples)
+    reset_counts()
+    got = get_data_derivative(gpu, on_card(samples))
+    launched = read_counts()["flash_attention_bwd_dbias"]
+    top = max(float(w.abs().max()) for w in want.values())
+    err = max(float((got[p].cpu() - w).abs().max())
+              / max(float(w.abs().max()), 1e-6 * top)
+              for p, w in want.items())
+    rel = [bool(got[("t5_model", s, "rel_bias", "rel_embedding")].gt(0)
+                .any()) for s in ("encoder", "decoder")]
+    log(f"  tiny fp32 get_data_derivative (power 2, 3 samples), card vs CPU: "
+        f"{len(want)} leaves, worst max_abs_err / leaf max {err:.3e} (tol "
+        f"1e-3); dbias launches {launched} (3 samples x 4 T5 "
+        f"self-attentions); rel_embedding scored (encoder, decoder) {rel}")
+    if not (set(got) == set(want) and err <= 1e-3 and launched == 12
+            and all(rel)):
+        raise AssertionError("tiny get_data_derivative, card vs CPU")
+
+    kw = dict(original_sparsity=0.5, granularity="block",
+              score_method="aobd_sum", num_data=8,
+              prefixes=("visual_encoder", "t5_model"))
+    r_cpu = LayerSparsity(cpu, calib, **kw).return_sparsity()
+    r_gpu = LayerSparsity(gpu, on_card(calib), **kw).return_sparsity()
+    differ = sorted(k for k in r_cpu if r_cpu[k] != r_gpu.get(k))
+    log(f"  tiny fp32 aobd_sum block allocation, card vs CPU: "
+        f"{len(set(r_cpu.values()))} distinct ratios over {len(r_cpu)} "
+        f"linears, {len(differ)} differ")
+    if set(r_cpu) != set(r_gpu) or differ:
+        raise AssertionError(f"tiny allocation, card vs CPU: {differ[:4]}")
+
+    spec = dict(vit_prune_spec="2-0.5-1.0-1.0", t5_prune_spec="2-0.5-1.0-1.0",
+                num_samples=8, num_data_first_stage=8, **FIRST_ORDER)
+    with torch.no_grad():
+        load_pruner("blipt5_wanda_pruner", cpu, calib,
+                    **spec).prune(lora_model=True)
+        load_pruner("blipt5_wanda_pruner", gpu, on_card(calib),
+                    **spec).prune(lora_model=True)
+    mc, mg = export_masks(cpu), export_masks(gpu)
+    flips = sum(int((mc[p] != mg[p]).sum()) for p in mc)
+    log(f"  tiny fp32 blipt5_wanda_pruner (block, aobd_sum), card vs CPU: "
+        f"{len(mc)} masks, {flips} bits differ")
+    if set(mc) != set(mg) or len(mc) != 2 * 4 + 2 * 7 + 2 * 11 or flips:
+        raise AssertionError("tiny first-order Wanda masks, card vs CPU")
+
+
 N_CALIB, BS, TXT, LBL, N_REQ = 128, 16, 40, 12, 4
+# the EcoFLaP first-order grid (scripts/t5/ecoflap_first.sh,
+# scripts/launch_lib.py:24,58-66): a block-granular allocation scored by
+# aobd_sum on num_data_first_stage = 32 samples, max_sparsity_per_layer 0.8
+# (the cli/evaluate.py:48-50 defaults), then Wanda at the allocated ratios
+FIRST_ORDER = dict(sparsity_ratio_granularity="block", score_method="aobd_sum")
+# diagonal-Fisher samples (evaluate_woodfisher.py --get_derivative_info:
+# batch 1); 8, not 16, to keep the run near 12 minutes
+N_FISHER = 8
 
 
 def sparsegpt_check():
@@ -750,15 +932,17 @@ def xl_setup(seed: int, lora: bool = True):
     return cfg, model, batches, req
 
 
-def run_prune(model, batches, name="blipt5_wanda_pruner"):
+def run_prune(model, batches, name="blipt5_wanda_pruner", **kw):
+    """→ (the pruned model, the allocated ratios or None)."""
     from vlm_compression_tpu_torch.compression import load_pruner
 
     pruner = load_pruner(name, model, batches,
                          vit_prune_spec="39-0.5-1.0-1.0",
-                         t5_prune_spec="24-0.5-1.0-1.0", num_samples=N_CALIB)
-    model, _ = pruner.prune(lora_model=True)
+                         t5_prune_spec="24-0.5-1.0-1.0", num_samples=N_CALIB,
+                         **kw)
+    out = pruner.prune(lora_model=True)
     torch.cuda.synchronize()
-    return model
+    return out
 
 
 def run_generate(model, req):
@@ -779,7 +963,7 @@ def run_generate(model, req):
 
 KERNELS = ("masked_matmul", "flash_attention", "sparse_lora_matmul",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "masked_matmul_packed", "int8_matmul")
+           "masked_matmul_packed", "int8_matmul", "flash_attention_bwd_dbias")
 # the kernels each phase of the main path runs, and so must launch
 SERVE = ("masked_matmul", "flash_attention")
 PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
@@ -796,7 +980,19 @@ PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                  "generate_int8_cold": ("int8_matmul", "flash_attention"),
                  "generate_int8_warm": ("int8_matmul", "flash_attention"),
                  "generate_int8_serving": ("int8_matmul",
-                                           "flash_attention")}
+                                           "flash_attention"),
+                 # the allocation's backward (dq, dk/dv), then Wanda
+                 "ecoflap_prune": ("masked_matmul", "flash_attention",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"),
+                 "generate_ecoflap_cold": SERVE,
+                 "generate_ecoflap_warm": SERVE,
+                 "fisher_derivative": ("flash_attention",
+                                       "flash_attention_bwd_dq",
+                                       "flash_attention_bwd_dkv",
+                                       "flash_attention_bwd_dbias"),
+                 # zeroed weights, no masks: dense products
+                 "generate_fisher": ("flash_attention",)}
 # ... and the kernels a phase must not run: a packed or int8 model never
 # takes the bool-mask path, an int8 model never the bf16 packed one
 PHASE_FORBIDDEN = {
@@ -804,7 +1000,11 @@ PHASE_FORBIDDEN = {
     "generate_packed256": ("masked_matmul", "int8_matmul"),
     "generate_int8_cold": ("masked_matmul", "masked_matmul_packed"),
     "generate_int8_warm": ("masked_matmul", "masked_matmul_packed"),
-    "generate_int8_serving": ("masked_matmul", "masked_matmul_packed")}
+    "generate_int8_serving": ("masked_matmul", "masked_matmul_packed"),
+    # RESSA and the first-order allocation differentiate no attention bias
+    # (only LoRA factors; only the prunable kernels)
+    "retrain": ("flash_attention_bwd_dbias",),
+    "ecoflap_prune": ("flash_attention_bwd_dbias",)}
 
 
 def reset_counts():
@@ -813,7 +1013,7 @@ def reset_counts():
     from vlm_compression_tpu_torch.ops import quant as Q
 
     ML.launches = ML.lora_launches = ML.packed_launches = 0
-    A.launches = A.dq_launches = A.dkv_launches = 0
+    A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
     Q.int8_launches = 0
 
 
@@ -824,7 +1024,8 @@ def read_counts() -> dict:
 
     return dict(zip(KERNELS, (ML.launches, A.launches, ML.lora_launches,
                               A.dq_launches, A.dkv_launches,
-                              ML.packed_launches, Q.int8_launches)))
+                              ML.packed_launches, Q.int8_launches,
+                              A.dbias_launches)))
 
 
 def check_phase_counts(counts):
@@ -973,7 +1174,7 @@ def main_path():
     counts = {}
     reset_counts()
     t0 = time.perf_counter()
-    model = run_prune(model, batches)
+    model, _ = run_prune(model, batches)
     t_prune = time.perf_counter() - t0
     counts["prune"] = read_counts()
     masks = export_masks(model)
@@ -1088,7 +1289,7 @@ def compressed_path():
     try:
         reset_counts()
         t0 = time.perf_counter()
-        model = run_prune(model, batches, "blipt5_sparsegpt_pruner")
+        model, _ = run_prune(model, batches, "blipt5_sparsegpt_pruner")
         secs["sparsegpt_prune"] = time.perf_counter() - t0
         counts["sparsegpt_prune"] = read_counts()
     finally:
@@ -1204,6 +1405,173 @@ def compressed_path():
                                       for f, sz in sizes.items()}}
 
 
+def first_order_path():
+    """The gradient-scoring family of the launcher grid on a third
+    full-width XL model (seed 2, no adapters).  A: ``blipt5_wanda_pruner``
+    with the EcoFLaP first-order block allocation (aobd_sum on the first
+    32 of the 128 calibration samples), masks kept, then beam-5 generate
+    twice.  B, on the model rebuilt dense: the diagonal Fisher
+    (``get_data_derivative``, power 2, batch 1), the ``unstrct``
+    ``prune_by_importance`` at keep 0.5 over the ViT and T5 leaves, then
+    beam-5 generate."""
+    from vlm_compression_tpu_torch.compression.derivatives import (
+        get_data_derivative,
+    )
+    from vlm_compression_tpu_torch.compression.distill_merge import (
+        count_nonzero,
+        count_params,
+        prune_by_importance,
+    )
+
+    counts, secs, peaks, outs = {}, {}, {}, {}
+
+    def generate(model, req, cfg, phase):
+        reset_counts()
+        t0 = time.perf_counter()
+        seqs, gen_cfg = run_generate(model, req)
+        secs[phase] = time.perf_counter() - t0
+        counts[phase] = read_counts()
+        n_tok = check_generate(seqs, gen_cfg, cfg)
+        outs[phase] = seqs
+        log(f"  generate_t5 beam-5 ({phase}): {secs[phase]:.3f} s, {n_tok} "
+            f"tokens; tokens {seqs.tolist()}")
+
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(seed=2, lora=False)
+    log(f"  model: InstructBLIP-FlanT5-XL, bf16, seed 2, no adapters, random "
+        f"init + data {time.perf_counter() - t0:.1f} s; cuts: none (depth "
+        f"39/24/24, {N_CALIB} calibration samples, the first 32 scored)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model, ratios = run_prune(model, batches, **FIRST_ORDER)
+    secs["ecoflap_prune"] = time.perf_counter() - t0
+    counts["ecoflap_prune"] = read_counts()
+    peaks["ecoflap_prune"] = torch.cuda.max_memory_allocated()
+    del batches
+    groups = {}
+    for key, r in ratios.items():
+        parts = key.split("/")
+        i = next(j for j, x in enumerate(parts) if x.startswith("blocks_"))
+        groups.setdefault("/".join(parts[:i + 1]), set()).add(r)
+    for tower in ("visual_encoder", "t5_model/encoder", "t5_model/decoder"):
+        rs = [next(iter(v)) for gname, v in groups.items()
+              if gname.startswith(tower + "/")]
+        log(f"  allocated sparsity {tower} ({len(rs)} blocks): "
+            f"{json.dumps([round(r, 4) for r in rs])}")
+    sparsities = [r for v in groups.values() for r in v]
+    kernels = [model.get_submodule(k.replace("/", ".")) for k in ratios]
+    kept = sum(int(m.mask.count_nonzero()) for m in kernels)
+    total = sum(m.kernel.numel() for m in kernels)
+    log(f"  ecoflap prune (blipt5_wanda_pruner, block, aobd_sum, "
+        f"lora_model=True): {secs['ecoflap_prune']:.2f} s, {len(groups)} "
+        f"groups over {len(ratios)} linears, sparsity {min(sparsities):.4f} "
+        f"to {max(sparsities):.4f}, density {kept / total:.4f}; peak "
+        f"{peaks['ecoflap_prune'] / 2**30:.2f} GiB; launches "
+        f"{json.dumps(counts['ecoflap_prune'])}")
+    if not (len(ratios) == 588 and len(groups) == 39 + 24 + 24
+            and all(len(v) == 1 for v in groups.values())
+            and all(0.0 <= r <= 0.8 for r in sparsities)
+            and abs(kept / total - 0.5) <= 0.01):
+        raise AssertionError("ecoflap allocation")
+    del kernels
+    generate(model, req, cfg, "generate_ecoflap_cold")
+    generate(model, req, cfg, "generate_ecoflap_warm")
+    if not torch.equal(outs["generate_ecoflap_cold"],
+                       outs["generate_ecoflap_warm"]):
+        raise AssertionError("two generate calls on the same inputs differ")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(seed=2, lora=False)
+    samples = [{k: v[i:i + 1] for k, v in batches[0].items()}
+               for i in range(N_FISHER)]
+    del batches
+    log(f"  model rebuilt dense (seed 2): {time.perf_counter() - t0:.1f} s; "
+        f"{N_FISHER} samples at batch 1")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fisher = get_data_derivative(model, samples, power=2)
+    torch.cuda.synchronize()
+    secs["fisher_derivative"] = time.perf_counter() - t0
+    counts["fisher_derivative"] = read_counts()
+    peaks["fisher_derivative"] = torch.cuda.max_memory_allocated()
+    bad = [p for p, a in fisher.items()
+           if not bool(torch.isfinite(a).all()) or bool((a < 0).any())]
+    rel = {s: float(fisher[("t5_model", s, "rel_bias", "rel_embedding")]
+                    .sum()) for s in ("encoder", "decoder")}
+    per_sample = counts["fisher_derivative"]["flash_attention_bwd_dbias"] \
+        / N_FISHER
+    log(f"  get_data_derivative (power 2, {N_FISHER} samples, batch 1): "
+        f"{secs['fisher_derivative']:.2f} s "
+        f"({secs['fisher_derivative'] / N_FISHER:.3f} s a sample), "
+        f"{len(fisher)} leaves, {len(bad)} not finite or negative; "
+        f"rel_embedding sums {json.dumps(rel)}; dbias launches "
+        f"{per_sample:g} a sample; peak "
+        f"{peaks['fisher_derivative'] / 2**30:.2f} GiB; launches "
+        f"{json.dumps(counts['fisher_derivative'])}")
+    if bad or not all(v > 0 for v in rel.values()) or per_sample != 48:
+        raise AssertionError(f"fisher: {bad[:4]} {rel} {per_sample}")
+    t0 = time.perf_counter()
+    towers = (model.visual_encoder, model.t5_model)
+    for name, tower in zip(("visual_encoder", "t5_model"), towers):
+        prune_by_importance(tower, {p[1:]: a for p, a in fisher.items()
+                                    if p[0] == name}, keep_ratio=0.5)
+    torch.cuda.synchronize()
+    secs["prune_by_importance"] = time.perf_counter() - t0
+    del fisher
+    dens = sum(count_nonzero(t) for t in towers) / sum(
+        count_params(t) for t in towers)
+    log(f"  prune_by_importance (keep 0.5, visual_encoder + t5_model leaves): "
+        f"{secs['prune_by_importance']:.2f} s, non-zero share {dens:.4f}")
+    if abs(dens - 0.5) > 0.01:
+        raise AssertionError(f"unstrct density {dens}")
+    generate(model, req, cfg, "generate_fisher")
+    log(f"  launches: {json.dumps(counts)}")
+    check_phase_counts(counts)
+    del model, towers, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"ecoflap_prune_s": secs["ecoflap_prune"],
+                    "ecoflap_peak_bytes": peaks["ecoflap_prune"],
+                    "generate_ecoflap_s": secs["generate_ecoflap_warm"],
+                    "fisher_derivative_s": secs["fisher_derivative"],
+                    "fisher_peak_bytes": peaks["fisher_derivative"],
+                    "prune_by_importance_s": secs["prune_by_importance"],
+                    "generate_fisher_s": secs["generate_fisher"]}
+
+
+def profile_first_order(e2e):
+    """The first-order path's two gradient phases again under
+    torch.profiler (device activity only) on a fresh seed-2 model: the
+    diagonal Fisher over 4 samples, then the EcoFLaP prune."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.compression.derivatives import (
+        get_data_derivative,
+    )
+
+    _, model, batches, _ = xl_setup(seed=2, lora=False)
+    samples = [{k: v[i:i + 1] for k, v in batches[0].items()}
+               for i in range(4)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fisher = get_data_derivative(model, samples, power=2)
+        torch.cuda.synchronize()
+    del fisher
+    device_breakdown(prof, 1e3 * e2e["fisher_derivative_s"] * 4 / N_FISHER,
+                     "fisher derivative, 4 samples")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_prune(model, batches, **FIRST_ORDER)
+    device_breakdown(prof, 1e3 * e2e["ecoflap_prune_s"],
+                     "ecoflap prune (allocation + Wanda)")
+    del model, batches, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "int8_matmul" in low:
@@ -1219,6 +1587,8 @@ def _kernel_group(name: str) -> str:
         return "sparse_lora_matmul kernel"
     if "flash_fwd" in low:
         return "flash_attention kernel"
+    if "flash_bwd_dbias" in low:
+        return "flash_attention_bwd_dbias kernel"
     if "flash_bwd_dq" in low:
         return "flash_attention_bwd_dq kernel"
     if "flash_bwd_dkv" in low:
@@ -1237,23 +1607,24 @@ def _kernel_group(name: str) -> str:
 
 def device_breakdown(prof, wall_ms: float, label: str) -> None:
     """Device time by kernel group from a torch.profiler trace (device-side
-    kernel events only), against the unprofiled wall-clock of the phase."""
+    events only), against the unprofiled wall-clock of the phase.  Reads
+    the trace's raw events: ``key_averages`` builds a Python object per
+    event, which took minutes for the SparseGPT prune's 2.2 M kernels."""
     from torch.autograd import DeviceType
 
-    groups, top, total, n_kernels = {}, [], 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
             continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t <= 0:
-            continue
-        total += t / 1e3
-        n_kernels += e.count
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + t / 1e3
-        top.append((t / 1e3, e.count, e.key[:70]))
+        acc = by_name.setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e6
+        acc[1] += 1
+    groups, total, n_kernels = {}, 0.0, 0
+    for name, (t, n) in by_name.items():
+        total += t
+        n_kernels += n
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + t
     if total == 0:
         log(f"  [{label}] profiler recorded no device time: not measured")
         return
@@ -1263,7 +1634,9 @@ def device_breakdown(prof, wall_ms: float, label: str) -> None:
         f"each")
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:38s} {t:9.1f} ms  {100 * t / total:5.1f}% of device")
-    for t, n, key in sorted(top, reverse=True)[:10]:
+    top = sorted(((t, n, name[:70]) for name, (t, n) in by_name.items()),
+                 reverse=True)
+    for t, n, key in top[:10]:
         log(f"    top: {t:8.1f} ms  x{n:<6d} {key}")
 
 
@@ -1282,7 +1655,7 @@ def profile_main_path(e2e):
     cfg, model, batches, req = xl_setup(seed=1)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        model = run_prune(model, batches)
+        model, _ = run_prune(model, batches)
     device_breakdown(prof, 1e3 * e2e["prune_s"], "prune")
     with profile(activities=acts) as prof:
         run_generate(model, req)
@@ -1316,6 +1689,37 @@ def profile_sparsegpt_prune(e2e):
     gc.collect()
     torch.cuda.empty_cache()
     device_breakdown(prof, 1e3 * e2e["sparsegpt_prune_s"], "sparsegpt prune")
+
+
+def sdpa_dbias_ms(q, k, v, biases, g, scale):
+    """The backward of SDPA's memory-efficient backend with an attn_mask
+    that requires a gradient (the biases summed into one (b, h, n, m) mask
+    of q's dtype): dq, dk, dv and the mask's gradient, unreduced.  → (ms,
+    what was timed), or (None, why not)."""
+    import torch.nn.functional as F
+
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError as exc:
+        return None, f"no torch.nn.attention.sdpa_kernel ({exc})"
+    b, n, h, _ = q.shape
+    m = k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    bsum = sum(biases).expand(b, h, n, m).to(q.dtype).contiguous()
+    bsum.requires_grad_()
+    go = g.transpose(1, 2).contiguous()
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bsum,
+                                               scale=scale)
+            torch.autograd.grad(o, (qt, kt, vt, bsum), go, retain_graph=True)
+    except RuntimeError as exc:
+        return None, f"the memory-efficient backend refused: {exc}"[:300]
+    ms = device_ms(lambda: torch.autograd.grad(o, (qt, kt, vt, bsum), go,
+                                               retain_graph=True))
+    return ms, ("SDPA memory-efficient backward: dq, dk, dv and the "
+                "(b, h, n, m) mask gradient")
 
 
 def timing():
@@ -1401,6 +1805,24 @@ def timing():
                 f"d={d}: kernel {ms:.4f} ms, plain (dq+dk+dv) {plain:.4f} "
                 f"ms, sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
                 f"({by})")
+    # dbias of the position bias (the wrapper forms delta in torch, as the
+    # dq and dk/dv wrappers do)
+    name, b, n, m, h, d, kinds, scale, causal = next(
+        c for c in DBIAS_SHAPES if c[0] == DBIAS_TIMED)
+    q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
+    g = grad_like(q)
+    out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+    args = (q, k_, v, out, lse, g, biases, 0, scale, causal)
+    ms = device_ms(lambda: A.flash_attention_dbias(*args))
+    plain = device_ms(lambda: A.flash_attention_dbias_ref(*args))
+    lib, what = sdpa_dbias_ms(q, k_, v, biases, g, scale)
+    bound, by = dbias_bound_ms(q, k_, v, biases, 0)
+    rows[("flash_attention_bwd_dbias", name)] = (ms, plain, lib, bound, by)
+    log(f"  time flash_attention_bwd_dbias {name} b={b} n={n} m={m} h={h} "
+        f"d={d} biases={kinds}, the gradient of {tuple(biases[0].shape)}: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"{'—' if lib is None else f'{lib:.4f} ms'} ({what}), bound "
+        f"{bound:.4f} ms ({by})")
     return rows
 
 
@@ -1478,16 +1900,26 @@ def main() -> int:
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.1f} s")
+    phases, t_phase = {"build": time.perf_counter() - t0}, time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        phases[name] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
 
     log("[kernels] kernel vs plain version")
     worst = check_kernels()
     check_compressed_kernels(worst)
+    check_dbias_kernel(worst)
+    phase_done("kernels")
     log("[reference] tiny model, card vs CPU")
     tiny_reference_check()
     tiny_train_check()
+    tiny_gradient_scoring_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
+    phase_done("reference")
     # the checks above leave the caching allocator and the heap full of
     # their tensors and graphs; the main path starts clean, as it would in
     # a process of its own
@@ -1496,22 +1928,36 @@ def main() -> int:
     log("[main path] InstructBLIP-FlanT5-XL: Wanda prune, beam-5 generate, "
         "RESSA retrain, merge, beam-5 generate")
     counts, e2e = main_path()
+    phase_done("main path")
     gc.collect()
     torch.cuda.empty_cache()
     log("[compressed path] InstructBLIP-FlanT5-XL: SparseGPT prune, beam-5 "
         "generate with bool masks, packed masks (G 128, 256), int8 weights, "
         "the int8 serving form")
     c_counts, c_e2e = compressed_path()
+    phase_done("compressed path")
     counts.update(c_counts)
     e2e.update(c_e2e, **sg)
-    log("[profile] the main path and the SparseGPT prune again under "
-        "torch.profiler")
+    log("[first-order path] InstructBLIP-FlanT5-XL: EcoFLaP first-order "
+        "block allocation + Wanda, beam-5 generate; diagonal Fisher, "
+        "unstrct prune_by_importance, beam-5 generate")
+    f_counts, f_e2e = first_order_path()
+    phase_done("first-order path")
+    counts.update(f_counts)
+    e2e.update(f_e2e)
+    log("[profile] the main path, the SparseGPT prune and the first-order "
+        "path's gradient phases again under torch.profiler")
     profile_main_path(e2e)
     profile_sparsegpt_prune(e2e)
+    profile_first_order(e2e)
+    phase_done("profile")
     log("[timing] bf16, median of 20 calls, CUDA events, L2 flushed before "
         "each call")
     rows = timing()
     timing_compressed(rows)
+    phase_done("timing")
+    log(f"[phases] wall-clock s: "
+        f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
 
     kernels = []
     csrc = "vlm_compression_tpu_torch/csrc/"
@@ -1531,7 +1977,10 @@ def main() -> int:
             ("masked_matmul_packed", PACKED_TIMED, csrc + "masked_matmul.cu",
              "vlm_compression_tpu/ops/masked_linear.py:194"),
             ("int8_matmul", INT8_TIMED, csrc + "int8_matmul.cu",
-             "vlm_compression_tpu/ops/quant.py:84")):
+             "vlm_compression_tpu/ops/quant.py:84"),
+            ("flash_attention_bwd_dbias", DBIAS_TIMED,
+             csrc + "flash_attention_bwd.cu",
+             "vlm_compression_tpu/ops/attention.py:371")):
         ms, plain, lib, bound, by = rows[(kname, timed)]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,

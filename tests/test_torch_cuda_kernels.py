@@ -85,6 +85,12 @@ def _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes, seed=0):
             keep[..., 0] = True
             biases.append(torch.tensor(np.where(keep, 0.0, A.NEG_INF),
                                        dtype=torch.float32, device=cuda))
+        elif shape == "relc":   # T5 decoder: position bias + causal mask
+            vis = np.arange(m)[None, :] <= np.arange(n)[:, None] + (m - n)
+            biases.append(torch.tensor(
+                rng.standard_normal((1, h, n, m)) + np.where(vis, 0.0,
+                                                             A.NEG_INF),
+                dtype=torch.float32, device=cuda))
         else:
             biases.append(torch.tensor(rng.standard_normal(shape),
                                        dtype=torch.float32, device=cuda))
@@ -232,13 +238,53 @@ def test_attention_autograd_runs_the_backward_kernels(cuda):
         _close(gg, ww, torch.float32)
 
 
-def test_attention_bias_grad_raises_on_the_card(cuda):
-    q, k, v, _ = _attn_case(cuda, torch.float32, 1, 8, 8, 2, 32, [])
+def test_attention_bias_grad_runs_the_dbias_kernel(cuda):
+    q, k, v, biases = _attn_case(cuda, torch.float32, 2, 8, 8, 2, 32,
+                                 [(1, 2, 8, 8), "pad"])
     q.requires_grad_()
-    bias = torch.zeros(1, 2, 8, 8, device=cuda, requires_grad=True)
-    out = A.attention_core(q, k, v, [bias])
-    with pytest.raises(NotImplementedError, match="dbias"):
-        out.sum().backward()
+    bias = biases[0].requires_grad_()
+    g = torch.randn(2, 8, 2, 32, device=cuda)
+    before = (A.dq_launches, A.dkv_launches, A.dbias_launches)
+    got = torch.autograd.grad(A.attention_core(q, k, v, biases), (q, bias),
+                              g)
+    # one dbias launch (the padding mask needs no gradient), dq, no dk/dv
+    assert (A.dq_launches, A.dkv_launches, A.dbias_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    want = torch.autograd.grad(A.mha_reference(q, k, v, biases), (q, bias),
+                               g)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.float32)
+
+
+# dbias of each bias against its plain version, from the same out and lse:
+# both sum exact products of the same inputs in fp32, in other orders
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale,causal", [
+    (16, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0, False),  # T5 enc
+    (2, 12, 12, 32, 64, ["relc", "pad"], 1.0, False),     # T5 decoder self
+    (2, 40, 56, 4, 64, [(2, 1, 40, 56)], 0.125, False),   # (b, 1, n, m)
+    (2, 70, 70, 3, 64, [(2, 3, 70, 70)], 0.125, True),    # full, causal
+    (2, 9, 30, 3, 32, [(2, 1, 1, 30)], 0.3, False),       # pad, n != m
+    (2, 20, 130, 3, 64, [(2, 3, 20, 1)], 0.3, False),     # key dim 1
+    (2, 5, 3, 2, 16, [(1, 1, 1, 1)], 1.0, True),          # one scalar
+    (1, 200, 200, 2, 88, [(1, 2, 200, 200)], 0.1, False),  # ragged tiles
+])
+def test_flash_dbias_matches_plain(cuda, dtype, b, n, m, h, d, bias_shapes,
+                                   scale, causal):
+    q, k, v, biases = _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes)
+    g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
+                     device=cuda).to(dtype)
+    out, lse = A.flash_attention(q, k, v, biases, scale, causal)
+    for i, bias in enumerate(biases):
+        before = A.dbias_launches
+        got = A.flash_attention_dbias(q, k, v, out, lse, g, biases, i, scale,
+                                      causal)
+        assert A.dbias_launches == before + 1
+        want = A.flash_attention_dbias_ref(q, k, v, out, lse, g, biases, i,
+                                           scale, causal)
+        assert got.shape == want.shape == bias.shape
+        assert got.dtype == torch.float32
+        _close(got, want, dtype)
 
 
 # ------------------------------------------- packed-mask and int8 kernels

@@ -388,12 +388,74 @@ def test_attention_causal_rows_without_keys_have_zero_dq():
 
 
 def test_attention_bias_grad_on_cpu_goes_through_autograd():
+    """A bias that needs a gradient takes the autograd Function on the CPU
+    too (its backward runs the plain dbias, as the card runs the kernel),
+    and agrees with autograd through mha_reference."""
     rng = np.random.default_rng(16)
     q, k, v, _, g = _bwd_inputs(rng, 1, 5, 5, 2, 8, [])
     bias = _leaf(rng.standard_normal((1, 2, 5, 5)).astype(np.float32))
     out = TA.attention_core(_t(q), _t(k), _t(v), [bias], 0.5)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
     (db,) = torch.autograd.grad(out, (bias,), _t(g))
     bias2 = bias.detach().clone().requires_grad_()
     (want,) = torch.autograd.grad(
         TA.mha_reference(_t(q), _t(k), _t(v), [bias2], 0.5), (bias2,), _t(g))
     np.testing.assert_allclose(db.numpy(), want.numpy(), **TOL)
+
+
+# dbias: autograd through the port's attention_core (the plain dbias on the
+# CPU) against jax.vjp of the JAX attention_core with the flash kernels in
+# interpret mode — the dbias Pallas kernel for every pattern but the key
+# dim 1, which JAX serves with the reference VJP.  The patterns of JAX's
+# tests/test_ops_attention.py:337-372 at small sizes, every bias with a
+# gradient.  fp32: atol 2e-5, rtol 1e-4 as for dq/dk/dv (the JAX package's
+# own _grad_check allows 5e-4 and 1e-3).
+DBIAS_CASES = [
+    # (b, n, m, h, d, bias shapes, scale, causal)
+    (2, 7, 7, 2, 8, [(1, 2, 7, 7), "pad"], 1.0, False),    # T5 rel + pad
+    (2, 7, 7, 2, 8, [(2, 1, 7, 7)], 8 ** -0.5, False),     # (b, 1, n, m)
+    (2, 4, 9, 2, 8, ["pad"], 8 ** -0.5, False),            # cross, n != m
+    (2, 6, 6, 2, 8, [(2, 2, 6, 6)], 8 ** -0.5, True),      # full, causal
+    (2, 5, 7, 2, 8, [(2, 2, 5, 1)], 0.3, False),           # key dim 1
+]
+
+
+@pytest.mark.parametrize("case", DBIAS_CASES)
+def test_attention_dbias_matches_jax_flash_vjp(jax_flash, case):
+    import jax
+
+    b, n, m, h, d, shapes, scale, causal = case
+    q, k, v, biases, g = _bwd_inputs(np.random.default_rng(17), b, n, m, h,
+                                     d, shapes)
+    _, vjp = jax.vjp(lambda q_, k_, v_, bs: JA.attention_core(
+        q_, k_, v_, list(bs), scale=scale, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        tuple(jnp.asarray(x) for x in biases))
+    jq, jk, jv, jbs = vjp(jnp.asarray(g))
+    leaves = [_leaf(t) for t in (q, k, v, *biases)]
+    out = TA.attention_core(*leaves[:3], leaves[3:], scale, causal)
+    got = torch.autograd.grad(out, leaves, _t(g))
+    for gt, wt in zip(got, (jq, jk, jv, *jbs)):
+        assert gt.shape == wt.shape
+        np.testing.assert_allclose(gt.numpy(), _np(wt), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", DBIAS_CASES)
+def test_flash_dbias_ref_matches_autograd(case):
+    """The dbias kernel's plain version (from out and lse) equals autograd
+    through mha_reference, bias by bias."""
+    b, n, m, h, d, shapes, scale, causal = case
+    q, k, v, biases, g = _bwd_inputs(np.random.default_rng(18), b, n, m, h,
+                                     d, shapes)
+    qt, kt, vt = (_t(t) for t in (q, k, v))
+    tb = [_leaf(x) for x in biases]
+    want = torch.autograd.grad(TA.mha_reference(qt, kt, vt, tb, scale,
+                                                causal), tb, _t(g))
+    tb = [x.detach() for x in tb]
+    s = TA._scores(qt, kt, tb, scale, causal)
+    out = TA.mha_reference(qt, kt, vt, tb, scale, causal)
+    for i, w in enumerate(want):
+        got = TA.flash_attention_dbias_ref(qt, kt, vt, out,
+                                           torch.logsumexp(s, -1), _t(g), tb,
+                                           i, scale, causal)
+        np.testing.assert_allclose(got.numpy(), w.numpy(), **TOL)

@@ -85,14 +85,16 @@ def test_wrappers_raise_instead_of_falling_back():
 
 
 def test_new_wrappers_raise_instead_of_falling_back():
-    """The sparse-LoRA and attention-backward wrappers, forward and under
-    autograd, refuse a device the kernels do not serve."""
+    """The sparse-LoRA and attention-backward (dq, dk/dv, dbias) wrappers,
+    forward and under autograd, refuse a device the kernels do not
+    serve."""
     x = torch.empty(4, 8, device="meta")
     w = torch.empty(8, 16, device="meta")
     mask = torch.empty(8, 16, dtype=torch.bool, device="meta")
     a = torch.empty(8, 2, device="meta", requires_grad=True)
     b = torch.empty(2, 16, device="meta", requires_grad=True)
-    counts = (TML.lora_launches, TA.dq_launches, TA.dkv_launches)
+    counts = (TML.lora_launches, TA.dq_launches, TA.dkv_launches,
+              TA.dbias_launches)
     for grad in (False, True):
         with torch.set_grad_enabled(grad), \
                 pytest.raises(ValueError, match="unsupported device"):
@@ -103,7 +105,14 @@ def test_new_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="unsupported device"):
         TA.flash_attention_backward(q, q, q, q, torch.empty(1, 2, 3),
                                     q, ())
-    assert (TML.lora_launches, TA.dq_launches, TA.dkv_launches) == counts
+    bias = torch.empty(1, 2, 3, 3, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.flash_attention_dbias(q, q, q, q, torch.empty(1, 2, 3), q,
+                                 [bias], 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.attention_core(q.detach(), q.detach(), q.detach(), [bias])
+    assert (TML.lora_launches, TA.dq_launches, TA.dkv_launches,
+            TA.dbias_launches) == counts
 
 
 @pytest.mark.parametrize("grad", [False, True])

@@ -61,6 +61,7 @@ class LayerWisePrunerBase(BasePruner):
     ``with_hessian`` and ``make_mask_fn(lora_model, tower)``."""
 
     with_hessian = False
+    owl_m: float = 5.0  # OWL outlier threshold (score_method owl_*)
 
     def __init__(self, model, data_loader,
                  prune_spec: Optional[str] = None,
@@ -69,6 +70,11 @@ class LayerWisePrunerBase(BasePruner):
                  num_samples: int = 64,
                  prune_n: int = 0, prune_m: int = 0,
                  sparsity_ratio_granularity: Optional[str] = None,
+                 max_sparsity_per_layer: float = 0.8,
+                 score_method: str = "obd_avg",
+                 num_data_first_stage: int = 32,
+                 num_noise: int = 1,
+                 noise_eps: float = 1e-3,
                  sparsity_dict: Optional[Dict[str, float]] = None,
                  t5_model_prefix: str = "t5_model",
                  vit_model_prefix: str = "visual_encoder",
@@ -80,6 +86,11 @@ class LayerWisePrunerBase(BasePruner):
         self.num_samples = num_samples
         self.prune_n, self.prune_m = prune_n, prune_m
         self.sparsity_ratio_granularity = sparsity_ratio_granularity
+        self.max_sparsity_per_layer = max_sparsity_per_layer
+        self.score_method = score_method
+        self.num_data_first_stage = num_data_first_stage
+        self.num_noise = num_noise
+        self.noise_eps = noise_eps
         self.sparsity_dict = sparsity_dict
         self.t5_model_prefix = t5_model_prefix
         self.vit_model_prefix = vit_model_prefix
@@ -107,12 +118,33 @@ class LayerWisePrunerBase(BasePruner):
 
     def get_sparsity(self, original_sparsity: float,
                      granularity: Optional[str] = None):
-        """Uniform or dict sparsity; the non-uniform allocator
-        (``compression/allocator.py``) arrives with a later slice."""
+        """Uniform, dict, or the non-uniform ``LayerSparsity`` allocation
+        at the given granularity (scored on the first
+        ``num_data_first_stage`` samples)."""
         if self.sparsity_dict:
             return DictSparsity(self.sparsity_dict)
         if granularity in (None, "none"):
             return UniformSparsity(original_sparsity)
-        raise NotImplementedError(
-            f"sparsity_ratio_granularity={granularity!r}: the sparsity "
-            "allocator is not ported yet")
+        from vlm_compression_tpu_torch.compression.allocator import (
+            LayerSparsity,
+        )
+
+        alloc = LayerSparsity(
+            model=self.model,
+            data_loader=self.data_loader,
+            original_sparsity=original_sparsity,
+            granularity=granularity,
+            max_sparsity_per_layer=self.max_sparsity_per_layer,
+            score_method=self.score_method,
+            num_data=self.num_data_first_stage,
+            num_noise=self.num_noise,
+            noise_eps=self.noise_eps,
+            prefixes=self._allocation_prefixes(),
+            owl_m=self.owl_m,
+        )
+        return DictSparsity(alloc.return_sparsity())
+
+    def _allocation_prefixes(self):
+        """Top-level prefixes whose kernels take part in the allocation
+        (None: all)."""
+        return None

@@ -6,7 +6,9 @@ the LoRA path (``lora_model=True``: masks kept) upstream towers run
 ``dense`` while a downstream tower calibrates; in the non-LoRA path the
 pruned weights are zeroed and the sweeps chain (each tower's replayed
 activations feed the next tower's stem).  ViT Wanda uses the per-tensor
-flat threshold, the language towers per-unit top-k.
+flat threshold, the language towers per-unit top-k.  With a
+``sparsity_ratio_granularity`` the ratios come from the ``LayerSparsity``
+allocator (``compression/allocator.py``), built in ``get_sparsity``.
 
 Registered here: ``blipt5_wanda_pruner`` and
 ``{t5,vit,blipt5}_sparsegpt_pruner``.  DSnoT and the other methods are not
@@ -128,6 +130,11 @@ class ViTPrunerBase(_MethodMixin, LayerWisePrunerBase):
 
 
 class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
+    def _allocation_prefixes(self):
+        # only kernels under the t5/vit prefixes take part in the sparsity
+        # allocation (the Q-Former is excluded), as in the reference
+        return (self.vit_model_prefix, self.t5_model_prefix)
+
     @torch.no_grad()
     def prune(self, lora_model: bool = True):
         module = self.model   # Blip2T5Instruct

@@ -1,9 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a): dq, and dk with dv.
+// Flash-attention backward for Hopper (sm_90a): dq, dk with dv, and dbias.
 //
-// Replaces the Pallas TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel`
-// (vlm_compression_tpu/ops/attention.py:296 and :331, launched by
-// `_flash_backward_pallas`).  Same contract, from the forward's saved
-// log-sum-exp and delta = rowsum(g ⊙ out) (formed by the caller in fp32):
+// Replaces the Pallas TPU kernels `_flash_dq_kernel`, `_flash_dkv_kernel`
+// and `_flash_dbias_kernel` (vlm_compression_tpu/ops/attention.py:296, :331
+// and :371, launched by `_flash_backward_pallas`).  Same contract, from the
+// forward's saved log-sum-exp and delta = rowsum(g ⊙ out) (formed by the
+// caller in fp32):
 //   s  = (q · kᵀ) * scale + Σ bias_i                  (fp32, as the forward)
 //   p  = exp(s − lse)
 //   ds = p ⊙ (g · vᵀ − delta) · scale, cast to the input dtype; 0 where the
@@ -12,10 +13,13 @@
 //        there p is exact: 1/m in a row that sees no key, 0 elsewhere (the
 //        saved lse of such a row, −1e9 + log m, rounds to −1e9 in fp32)
 //   dq = ds · k;   dk = dsᵀ · q;   dv = p.astype(g.dtype)ᵀ · g   (fp32 sums)
+//   dbias_i = p ⊙ (g · vᵀ − delta)  (unscaled: ∂s/∂bias = 1), in fp32,
+//        summed over every axis bias i broadcasts (batch, head, query, key)
 // q/g are (b, n, h, d), k/v (b, m, h, d), read through their strides (last
-// dim contiguous); dq/dk/dv are written contiguous in q/k/v's dtype.  Up to
-// two additive fp32 biases are read at their broadcast shape through four
-// strides each (0 on size-1 axes), as in the forward: never expanded.
+// dim contiguous); dq/dk/dv are written contiguous in q/k/v's dtype, dbias
+// contiguous fp32 at the bias's shape.  Up to two additive fp32 biases are
+// read at their broadcast shape through four strides each (0 on size-1
+// axes), as in the forward: never expanded.
 //
 // What bounds it on an H100: 10·b·h·n·m·d operations (five products: the
 // score recompute, g·vᵀ, and ds·k, dsᵀ·q, pᵀ·g; six of them in the dq
@@ -23,15 +27,28 @@
 // against the bytes of q, k, v, g, dq, dk, dv, lse, delta and the biases.
 // At the towers' training shapes (n, m in the tens to hundreds, d = 64 or
 // 88) the bytes bound it: each kernel reads every input once per tile pair
-// from L2, and the score tiles never reach device memory.
+// from L2, and the score tiles never reach device memory.  The dbias kernel
+// does the two products of the recompute, 4·b·h·n·m·d operations, against
+// q, k, v, g, lse, delta and the biases read once and dbias written once:
+// at T5's shapes (n = m = 72, d = 64) its bytes bound it too, and its
+// design keeps the reduced sum in registers so that each output entry is
+// written once and no (b, h, n, m) ds ever reaches device memory.
 //
 // Design: on the TPU one grid axis ran in order and carried the dq (or
 // dk/dv) sums in VMEM scratch; Hopper blocks run in no order, so that axis
 // is a loop inside the block.  The dq kernel has one block of 4 warps per
 // (q tile of 64 rows, head, batch) and loops over kv tiles; the dk/dv
 // kernel has one block per (kv tile of 64 rows, head, batch) and loops over
-// q tiles, with dk and dv summed in fp32 registers.  bf16 multiplies on the
-// tensor cores (mma.sync, fp32 accumulate) in the forward kernel's register
+// q tiles, with dk and dv summed in fp32 registers.  The dbias kernel has
+// one block per tile of the output at the bias's real dims (kv tile if the
+// bias has a key dim, q tile if it has a query dim, batch and head if it
+// has them) and loops inside the block over every reduced (batch, head,
+// q tile, kv tile), summing ds in fp32 registers in the score tile's
+// layout; where rows or columns are reduced too it sums them through
+// shared memory at the end, and writes once — deterministic, no atomics,
+// no second pass (the TPU kernel carried the same sum across its
+// sequential reduced grid axes).  bf16 multiplies on the tensor cores
+// (mma.sync, fp32 accumulate) in the forward kernel's register
 // layout, described above the bf16 kernels; float32 multiplies on the CUDA
 // cores (no TF32): two lanes share a row, each recomputes 32 of the tile's
 // 64 scores and g·vᵀ entries in registers, writes ds (and p) to shared
@@ -39,14 +56,16 @@
 // is padded to a multiple of 32 in shared memory only (d = 88 runs as 96).
 // The score recompute repeats the forward's arithmetic (scale, then the
 // biases in order), so exp(s − lse) stays consistent with the saved lse
-// (exactly so where the forward summed in the same order).  Causal calls
-// skip the
-// tiles that hold no visible entry: all of them in the dq kernel (hidden
+// (exactly so where the forward summed in the same order); the dbias
+// kernels recompute s and g·vᵀ with the dq kernels' code, so their p and
+// ds are the dq kernels' bit for bit.  Causal calls skip the tiles that
+// hold no visible entry: all of them in the dq and dbias kernels (hidden
 // entries have ds = 0), and in the dk/dv kernel those of q rows that see a
 // key elsewhere (their p is exactly 0 there); rows that see no key at all
 // (n > m) keep the reference's uniform p in dv.
 //
-// Not yet done (later PRs): TMA + wgmma with a pipelined tile ring.
+// Not yet done (later PRs): TMA + wgmma with a pipelined tile ring; dbias
+// fused into the dq kernel (per-batch partials summed in a second pass).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,6 +88,7 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
+  float* dbias;         // contiguous fp32 at its bias's shape
   const float* bias[2];
   long long q_s[3], k_s[3], v_s[3], g_s[3];  // strides of (batch, seq, head)
   long long bias_s[2][4];                    // strides of (b, h, n, m)
@@ -76,6 +96,7 @@ struct Params {
   float scale;
   int causal;
   int vec;   // 16-byte bf16 row loads: d % 8 == 0, aligned bases and strides
+  int keep;  // dbias: the axes its bias keeps, bits b 1, h 2, n 4, m 8
 };
 
 __device__ __forceinline__ bool hidden(const Params& p, int i, int j) {
@@ -630,6 +651,240 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Params p) {
   }
 }
 
+
+// ============================================ dbias kernels (both dtypes)
+//
+// blockIdx.x: the kv tile (a bias with a key dim), .y the q tile (one with
+// a query dim), .z the kept (batch, head).  Iteration `it` of the block's
+// loop names one reduced (batch, head, q tile, kv tile) folding into its
+// tile; `DbiasLoop::at` decodes it.
+
+struct DbiasTile {
+  int b, h, q0, kv0;
+};
+
+struct DbiasLoop {
+  bool kb, kh, kq, kk;
+  int zb, zh, nb, nh, nq, nk;
+
+  __device__ __forceinline__ DbiasLoop(const Params& p) {
+    kb = p.keep & 1;
+    kh = p.keep & 2;
+    kq = p.keep & 4;
+    kk = p.keep & 8;
+    const int hk = kh ? p.H : 1;
+    zb = blockIdx.z / hk;
+    zh = blockIdx.z % hk;
+    nb = kb ? 1 : p.B;
+    nh = kh ? 1 : p.H;
+    nq = kq ? 1 : (p.N + BQ - 1) / BQ;
+    nk = kk ? 1 : (p.M + BKV - 1) / BKV;
+  }
+  __device__ __forceinline__ int count() const { return nb * nh * nq * nk; }
+  __device__ __forceinline__ DbiasTile at(int it) const {
+    const int ik = it % nk;
+    it /= nk;
+    const int iq = it % nq;
+    it /= nq;
+    const int ih = it % nh;
+    const int ib = it / nh;
+    return {kb ? zb : ib, kh ? zh : ih, (kq ? (int)blockIdx.y : iq) * BQ,
+            (kk ? (int)blockIdx.x : ik) * BKV};
+  }
+};
+
+// no entry of the tile is visible under the causal flag: its ds is all 0
+__device__ __forceinline__ bool dbias_skip(const Params& p, const DbiasTile& t) {
+  return p.causal && t.kv0 > min(t.q0 + BQ - 1, p.N - 1) + (p.M - p.N);
+}
+
+// the block's summed 64 × 64 tile `red` (row stride 65, fp32, in shared
+// memory) → dbias: written as it is, or summed over its rows and/or
+// columns where the bias has no query and/or key dim
+__device__ __forceinline__ void dbias_store(const Params& p, const DbiasLoop& L,
+                                            const float* red, int tid) {
+  constexpr int LDS = 65;
+  const int N = p.N, M = p.M;
+  const int hk = L.kh ? p.H : 1, nk = L.kq ? N : 1, mk = L.kk ? M : 1;
+  const int q0 = L.kq ? blockIdx.y * BQ : 0, kv0 = L.kk ? blockIdx.x * BKV : 0;
+  float* out = p.dbias + ((long long)(L.kb ? L.zb : 0) * hk + (L.kh ? L.zh : 0))
+                             * nk * mk;
+  if (L.kq && L.kk) {
+    for (int e = tid; e < BQ * BKV; e += THREADS) {
+      const int r = e / BKV, c = e % BKV, i = q0 + r, j = kv0 + c;
+      if (i < N && j < M) out[(long long)i * M + j] = red[r * LDS + c];
+    }
+  } else if (L.kk) {            // no query dim: sum the rows
+    for (int c = tid; c < BKV; c += THREADS) {
+      float sum = 0.f;
+      for (int r = 0; r < BQ; ++r) sum += red[r * LDS + c];
+      if (kv0 + c < M) out[kv0 + c] = sum;
+    }
+  } else if (L.kq) {            // no key dim: sum the columns
+    for (int r = tid; r < BQ; r += THREADS) {
+      float sum = 0.f;
+      for (int c = 0; c < BKV; ++c) sum += red[r * LDS + c];
+      if (q0 + r < N) out[q0 + r] = sum;
+    }
+  } else if (tid == 0) {        // neither: one sum
+    float sum = 0.f;
+    for (int r = 0; r < BQ; ++r)
+      for (int c = 0; c < BKV; ++c) sum += red[r * LDS + c];
+    out[0] = sum;
+  }
+}
+
+// float32: the dq kernel's lanes and arithmetic (two lanes per row, 32
+// keys each), ds summed in acc[32]
+template <int DP>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dbias_kernel(Params p) {
+  constexpr int LD = DP + 1, TILE = 64 * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sG = sQ + TILE;
+  float* sK = sG + TILE;
+  float* sV = sK + TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int N = p.N, M = p.M, D = p.D;
+  const int r = warp * 16 + (lane >> 1), half = lane & 1;
+  const DbiasLoop L(p);
+  float acc[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) acc[c] = 0.f;
+
+  for (int it = 0; it < L.count(); ++it) {
+    const DbiasTile t = L.at(it);
+    if (dbias_skip(p, t)) continue;
+    const float* q = static_cast<const float*>(p.q) + t.b * p.q_s[0] + t.h * p.q_s[2];
+    const float* k = static_cast<const float*>(p.k) + t.b * p.k_s[0] + t.h * p.k_s[2];
+    const float* v = static_cast<const float*>(p.v) + t.b * p.v_s[0] + t.h * p.v_s[2];
+    const float* g = static_cast<const float*>(p.g) + t.b * p.g_s[0] + t.h * p.g_s[2];
+    const float* bias0 = p.bias[0] ? p.bias[0] + t.b * p.bias_s[0][0] + t.h * p.bias_s[0][1] : nullptr;
+    const float* bias1 = p.bias[1] ? p.bias[1] + t.b * p.bias_s[1][0] + t.h * p.bias_s[1][1] : nullptr;
+    __syncthreads();   // every warp is done with the previous tiles
+    load_rows<DP>(sQ, q, p.q_s[1], t.q0, N, D, tid);
+    load_rows<DP>(sG, g, p.g_s[1], t.q0, N, D, tid);
+    load_rows<DP>(sK, k, p.k_s[1], t.kv0, M, D, tid);
+    load_rows<DP>(sV, v, p.v_s[1], t.kv0, M, D, tid);
+    __syncthreads();
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) s[c] = dp[c] = 0.f;
+    for (int dd = 0; dd < DP; ++dd) {
+      const float qv = sQ[r * LD + dd], gv = sG[r * LD + dd];
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        s[c] = fmaf(qv, sK[(half * 32 + c) * LD + dd], s[c]);
+        dp[c] = fmaf(gv, sV[(half * 32 + c) * LD + dd], dp[c]);
+      }
+    }
+    const int i = t.q0 + r;
+    if (i < N) {
+      const long long row = ((long long)t.b * p.H + t.h) * N + i;
+      const float lse_i = p.lse[row], delta_i = p.delta[row];
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int j = t.kv0 + half * 32 + c;
+        if (j < M && !hidden(p, i, j)) {
+          const float pr = expf(biased(p, bias0, bias1, s[c], i, j) - lse_i);
+          acc[c] += pr * (dp[c] - delta_i);
+        }
+      }
+    }
+  }
+
+  __syncthreads();     // the tiles' shared memory becomes the sum tile
+#pragma unroll
+  for (int c = 0; c < 32; ++c) smem[r * 65 + half * 32 + c] = acc[c];
+  __syncthreads();
+  dbias_store(p, L, smem, tid);
+}
+
+// bf16: the dq mma kernel's fragments and arithmetic, ds summed in the
+// score accumulators' layout acc[8][4]
+template <int DP>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dbias_mma_kernel(Params p) {
+  constexpr int LD = DP + 8, KS = DP / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + BQ * LD;
+  bf16* sK = sG + BQ * LD;
+  bf16* sV = sK + BKV * LD;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int N = p.N, M = p.M, D = p.D;
+  const int r = warp * 16 + gid;   // this thread's rows: r and r + 8
+  const DbiasLoop L(p);
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+
+  for (int it = 0; it < L.count(); ++it) {
+    const DbiasTile t = L.at(it);
+    if (dbias_skip(p, t)) continue;
+    const bf16* q = static_cast<const bf16*>(p.q) + t.b * p.q_s[0] + t.h * p.q_s[2];
+    const bf16* k = static_cast<const bf16*>(p.k) + t.b * p.k_s[0] + t.h * p.k_s[2];
+    const bf16* v = static_cast<const bf16*>(p.v) + t.b * p.v_s[0] + t.h * p.v_s[2];
+    const bf16* g = static_cast<const bf16*>(p.g) + t.b * p.g_s[0] + t.h * p.g_s[2];
+    const float* bias0 = p.bias[0] ? p.bias[0] + t.b * p.bias_s[0][0] + t.h * p.bias_s[0][1] : nullptr;
+    const float* bias1 = p.bias[1] ? p.bias[1] + t.b * p.bias_s[1][0] + t.h * p.bias_s[1][1] : nullptr;
+    __syncthreads();   // every warp is done with the previous tiles
+    load_tile<DP>(sQ, q, p.q_s[1], t.q0, N, D, p.vec, tid);
+    load_tile<DP>(sG, g, p.g_s[1], t.q0, N, D, p.vec, tid);
+    load_tile<DP>(sK, k, p.k_s[1], t.kv0, M, D, p.vec, tid);
+    load_tile<DP>(sV, v, p.v_s[1], t.kv0, M, D, p.vec, tid);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], ga[4];
+      a_frag(qa, sQ + r * LD + kk * 16 + tig * 2, LD);
+      a_frag(ga, sG + r * LD + kk * 16 + tig * 2, LD);
+      mma_rows<DP>(s, qa, sK, kk, gid, tig);
+      mma_rows<DP>(dp, ga, sV, kk, gid, tig);
+    }
+    const int i0 = t.q0 + r, i1 = i0 + 8;
+    const long long row_off = ((long long)t.b * p.H + t.h) * N;
+    const float lse[2] = {i0 < N ? p.lse[row_off + i0] : 0.f,
+                          i1 < N ? p.lse[row_off + i1] : 0.f};
+    const float delta[2] = {i0 < N ? p.delta[row_off + i0] : 0.f,
+                            i1 < N ? p.delta[row_off + i1] : 0.f};
+    // element c of n-tile nt: row (c < 2 ? i0 : i1), key nt·8 + tig·2 + c&1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c < 2 ? i0 : i1, j = t.kv0 + nt * 8 + tig * 2 + (c & 1);
+        if (i < N && j < M && !hidden(p, i, j)) {
+          const float pr = expf(biased(p, bias0, bias1, s[nt][c], i, j)
+                                - lse[c >> 1]);
+          acc[nt][c] += pr * (dp[nt][c] - delta[c >> 1]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();     // the tiles' shared memory becomes the sum tile
+  float* red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      red[(r + (c < 2 ? 0 : 8)) * 65 + nt * 8 + tig * 2 + (c & 1)] = acc[nt][c];
+  __syncthreads();
+  dbias_store(p, L, red, tid);
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int smem_bytes, dim3 grid, const Params& p,
            cudaStream_t stream) {
@@ -640,15 +895,30 @@ int launch(Kernel kernel, int smem_bytes, dim3 grid, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+enum Which { DQ, DKV, DBIAS };
+
 template <int DP>
-int launch_dp(bool dq, bool is_bf16, const Params& p, cudaStream_t stream) {
+int launch_dp(Which which, bool is_bf16, const Params& p, cudaStream_t stream) {
   const int f32_bytes = Layout<DP>::BYTES;
   // bf16: four 64 × (DP + 8) tiles, and the q tile's lse and delta
   const int bf16_bytes = 4 * 64 * (DP + 8) * 2 + 2 * 64 * 4;
-  if (dq) {
+  if (which == DQ) {
     const dim3 grid((p.N + BQ - 1) / BQ, p.H, p.B);
     return is_bf16 ? launch(flash_bwd_dq_mma_kernel<DP>, bf16_bytes, grid, p, stream)
                    : launch(flash_bwd_dq_kernel<DP>, f32_bytes, grid, p, stream);
+  }
+  if (which == DBIAS) {
+    // four q/g/k/v tiles; the 64 × 65 fp32 sum tile reuses them
+    const bool kb = p.keep & 1, kh = p.keep & 2, kq = p.keep & 4,
+               kk = p.keep & 8;
+    const dim3 grid(kk ? (p.M + BKV - 1) / BKV : 1,
+                    kq ? (p.N + BQ - 1) / BQ : 1,
+                    (kb ? p.B : 1) * (kh ? p.H : 1));
+    return is_bf16
+        ? launch(flash_bwd_dbias_mma_kernel<DP>, 4 * 64 * (DP + 8) * 2, grid, p,
+                 stream)
+        : launch(flash_bwd_dbias_kernel<DP>, 4 * Layout<DP>::TILE * 4, grid, p,
+                 stream);
   }
   const dim3 grid((p.M + BKV - 1) / BKV, p.H, p.B);
   return is_bf16 ? launch(flash_bwd_dkv_mma_kernel<DP>, bf16_bytes, grid, p, stream)
@@ -667,6 +937,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* g,
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = p.dk = p.dv = nullptr;
+  p.dbias = nullptr;
+  p.keep = 0;
   p.bias[0] = static_cast<const float*>(bias0);
   p.bias[1] = static_cast<const float*>(bias1);
   for (int t = 0; t < 3; ++t) {
@@ -690,13 +962,13 @@ Params make_params(const void* q, const void* k, const void* v, const void* g,
   return p;
 }
 
-int dispatch(bool dq, int is_bf16, const Params& p, void* stream) {
+int dispatch(Which which, int is_bf16, const Params& p, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
-  if (p.D <= 32) return launch_dp<32>(dq, bf, p, st);
-  if (p.D <= 64) return launch_dp<64>(dq, bf, p, st);
-  if (p.D <= 96) return launch_dp<96>(dq, bf, p, st);
-  if (p.D <= 128) return launch_dp<128>(dq, bf, p, st);
+  if (p.D <= 32) return launch_dp<32>(which, bf, p, st);
+  if (p.D <= 64) return launch_dp<64>(which, bf, p, st);
+  if (p.D <= 96) return launch_dp<96>(which, bf, p, st);
+  if (p.D <= 128) return launch_dp<128>(which, bf, p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -708,7 +980,9 @@ int dispatch(bool dq, int is_bf16, const Params& p, void* stream) {
 // contiguous (b, h, n) float32; dq is a contiguous (b, n, h, d) tensor of
 // q's dtype, dk and dv contiguous (b, m, h, d).  `vec` promises 16-byte
 // aligned bf16 rows (d % 8 == 0, aligned bases, strides multiples of 8).
-// Each returns cudaGetLastError() after its launch (or the attribute
+// dbias is a contiguous float32 tensor at its bias's shape; `keep` names
+// the axes the bias keeps (bits: b 1, h 2, n 4, m 8), every other axis is
+// summed.  Each returns cudaGetLastError() after its launch (or the attribute
 // call's error).
 extern "C" int flash_attention_bwd_dq(int is_bf16, const void* q, const void* k,
                                       const void* v, const void* g,
@@ -721,7 +995,7 @@ extern "C" int flash_attention_bwd_dq(int is_bf16, const void* q, const void* k,
   Params p = make_params(q, k, v, g, lse, delta, bias0, bias1, strides, B, N,
                          M, H, D, scale, causal, vec);
   p.dq = dq;
-  return dispatch(true, is_bf16, p, stream);
+  return dispatch(DQ, is_bf16, p, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(int is_bf16, const void* q,
@@ -736,5 +1010,22 @@ extern "C" int flash_attention_bwd_dkv(int is_bf16, const void* q,
                          M, H, D, scale, causal, vec);
   p.dk = dk;
   p.dv = dv;
-  return dispatch(false, is_bf16, p, stream);
+  return dispatch(DKV, is_bf16, p, stream);
+}
+
+extern "C" int flash_attention_bwd_dbias(int is_bf16, const void* q,
+                                         const void* k, const void* v,
+                                         const void* g, const void* lse,
+                                         const void* delta, void* dbias,
+                                         int keep, const void* bias0,
+                                         const void* bias1,
+                                         const long long* strides, int B,
+                                         int N, int M, int H, int D,
+                                         float scale, int causal, int vec,
+                                         void* stream) {
+  Params p = make_params(q, k, v, g, lse, delta, bias0, bias1, strides, B, N,
+                         M, H, D, scale, causal, vec);
+  p.dbias = static_cast<float*>(dbias);
+  p.keep = keep;
+  return dispatch(DBIAS, is_bf16, p, stream);
 }

@@ -61,6 +61,9 @@ _SIGNATURES = {
         "flash_attention_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                                     _P],
+        "flash_attention_bwd_dbias": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                      _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                      _P],
     },
 }
 

@@ -14,6 +14,7 @@ log-sum-exp:
 
   p  = exp(s − lse);  delta = rowsum(g ⊙ out)
   dv = pᵀ·g;  ds = p ⊙ (g·vᵀ − delta) · scale;  dq = ds·k;  dk = dsᵀ·q
+  dbias_i = p ⊙ (g·vᵀ − delta), summed over bias i's broadcast axes (fp32)
 
 where entries the causal flag hides get ds = 0 (it is a ``where`` in the
 reference, so they carry no gradient — rows that see no key included).
@@ -22,12 +23,12 @@ Layout: q (b, n, h, d), k/v (b, m, h, d); biases are additive fp32 arrays
 broadcastable to (b, h, n, m).  ``attention_core`` is an autograd Function
 whose forward runs ``mha_reference`` on CPU tensors and the hand-written
 kernel ``csrc/flash_attention.cu`` on CUDA tensors, and whose backward runs
-``flash_attention_backward_ref`` on the CPU and the two kernels of
-``csrc/flash_attention_bwd.cu`` (dq; dk and dv) on the card — launch or
-raise, no fallback.  A bias that needs a gradient has no kernel yet (the
-dbias kernel): on the card its backward raises; on the CPU autograd through
-``mha_reference`` serves it.  ``launches``, ``dq_launches`` and
-``dkv_launches`` count kernel launches.
+``flash_attention_backward_ref`` and ``flash_attention_dbias_ref`` on the
+CPU and the three kernels of ``csrc/flash_attention_bwd.cu`` (dq; dk and
+dv; dbias, once for each bias that needs a gradient, any broadcast pattern
+including a key dim of 1) on the card — launch or raise, no fallback.
+``launches``, ``dq_launches``, ``dkv_launches`` and ``dbias_launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ NEG_INF = -1e9  # matches the towers' additive-mask constant
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+dbias_launches = 0
 
 
 def _as_4d(bias: torch.Tensor) -> torch.Tensor:
@@ -105,15 +107,30 @@ def flash_attention_backward_ref(q, k, v, out, lse, g,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-_DBIAS = ("a bias that needs a gradient has no attention backward kernel "
-          "yet: the dbias kernel (_flash_dbias_kernel) is ROADMAP queue 1, "
-          "item 8")
+def flash_attention_dbias_ref(q, k, v, out, lse, g,
+                              biases: Sequence[torch.Tensor], i: int,
+                              scale: float = 1.0, causal: bool = False):
+    """Plain version of the dbias kernel: the gradient of bias ``i``, fp32
+    at its (4-d) shape — ds = p ⊙ (g·vᵀ − delta), unscaled, with p
+    recomputed from the saved lse as ``flash_attention_backward_ref`` does,
+    0 where the causal flag hides the entry, and summed over every axis the
+    bias broadcasts."""
+    s = _scores(q, k, biases, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    delta = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float())
+    dp = torch.einsum("bnhd,bmhd->bhnm", g.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    if causal:
+        ds = torch.where(_hidden(s.shape[-2], s.shape[-1], s.device), 0.0, ds)
+    shape = _as_4d(biases[i]).shape
+    axes = [ax for ax in range(4) if shape[ax] == 1 and ds.shape[ax] > 1]
+    return (ds.sum(axes, keepdim=True) if axes else ds).reshape(shape)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward saves q, k, v, out, lse and the biases at their broadcast
-    shapes; backward runs the dq and dk/dv kernels (plain versions on the
-    CPU)."""
+    shapes; backward runs the dq, dk/dv and dbias kernels (plain versions
+    on the CPU), each only where a gradient is needed."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, *biases):
@@ -132,17 +149,19 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse, *biases = ctx.saved_tensors
         need = ctx.needs_input_grad
-        if any(need[5:]):
-            raise NotImplementedError(_DBIAS)
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_backward_ref(
-                q, k, v, out, lse, g, biases, ctx.scale, ctx.causal)
-        else:
-            dq, dk, dv = flash_attention_backward(
-                q, k, v, out, lse, g, biases, ctx.scale, ctx.causal,
-                need_dq=need[0], need_dkv=need[1] or need[2])
+        args = (q, k, v, out, lse, g, biases, ctx.scale, ctx.causal)
+        dq = dk = dv = None
+        cpu = q.device.type == "cpu"
+        if any(need[:3]):
+            dq, dk, dv = (flash_attention_backward_ref(*args) if cpu else
+                          flash_attention_backward(
+                              *args, need_dq=need[0],
+                              need_dkv=need[1] or need[2]))
+        dbias = flash_attention_dbias_ref if cpu else flash_attention_dbias
+        dbs = [dbias(q, k, v, out, lse, g, biases, i, ctx.scale, ctx.causal)
+               if need[5 + i] else None for i in range(len(biases))]
         return (dq if need[0] else None, dk if need[1] else None,
-                dv if need[2] else None, None, None, *[None] * len(biases))
+                dv if need[2] else None, None, None, *dbs)
 
 
 def attention_core(q, k, v, biases: Sequence[Optional[torch.Tensor]] = (),
@@ -154,8 +173,6 @@ def attention_core(q, k, v, biases: Sequence[Optional[torch.Tensor]] = (),
         if q.device.type == "cpu":
             return mha_reference(q, k, v, biases, scale, causal)
         return flash_attention(q, k, v, biases, scale, causal)[0]
-    if q.device.type == "cpu" and any(b.requires_grad for b in biases):
-        return mha_reference(q, k, v, biases, scale, causal)
     return _FlashAttention.apply(q, k, v, float(scale), bool(causal), *biases)
 
 
@@ -256,32 +273,39 @@ def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
 _BWD_STRIDES = ctypes.c_longlong * 20
 
 
-def flash_attention_backward(q, k, v, out, lse, g,
-                             biases: Sequence[torch.Tensor] = (),
-                             scale: float = 1.0, causal: bool = False,
-                             need_dq: bool = True, need_dkv: bool = True):
-    """Launch the backward kernels on CUDA tensors → (dq, dk, dv) in the
-    layouts and dtypes of q, k, v (None for a gradient not asked for).
-    ``lse`` is the forward's (b, h, n) float32 log-sum-exp; delta =
-    rowsum(g ⊙ out) is formed here in fp32, as the JAX package does."""
-    global dq_launches, dkv_launches
+def _backward_layout(q, k, v, out, lse, g, biases, what):
+    """_layout plus g's strides, the contiguous lse and delta = rowsum(g ⊙
+    out) formed here in fp32, as the JAX package does."""
     strides, ptrs, vec = _layout(q, k, v, biases)
-    dev = q.device
-    b, n, h, d = q.shape
-    m = k.shape[1]
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != dev or \
+    b, n, h, _ = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device or \
             out.shape != q.shape or lse.shape != (b, h, n) or \
             lse.dtype != torch.float32:
-        raise ValueError(f"flash_attention_backward: g {tuple(g.shape)} "
-                         f"{g.dtype}, out {tuple(out.shape)}, lse "
-                         f"{tuple(lse.shape)} {lse.dtype} for q "
-                         f"{tuple(q.shape)} {q.dtype}")
+        raise ValueError(f"{what}: g {tuple(g.shape)} {g.dtype}, out "
+                         f"{tuple(out.shape)}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype} for q {tuple(q.shape)} {q.dtype}")
     g = g if g.stride(3) == 1 else g.contiguous()
     lse = lse.contiguous()
     delta = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float()).contiguous()
     strides = strides + list(g.stride()[:3])
     vec = int(vec and all(x % 8 == 0 for x in strides[17:])
               and g.data_ptr() % 16 == 0)
+    return strides, ptrs, vec, g, lse, delta
+
+
+def flash_attention_backward(q, k, v, out, lse, g,
+                             biases: Sequence[torch.Tensor] = (),
+                             scale: float = 1.0, causal: bool = False,
+                             need_dq: bool = True, need_dkv: bool = True):
+    """Launch the backward kernels on CUDA tensors → (dq, dk, dv) in the
+    layouts and dtypes of q, k, v (None for a gradient not asked for).
+    ``lse`` is the forward's (b, h, n) float32 log-sum-exp."""
+    global dq_launches, dkv_launches
+    strides, ptrs, vec, g, lse, delta = _backward_layout(
+        q, k, v, out, lse, g, biases, "flash_attention_backward")
+    dev = q.device
+    b, n, h, d = q.shape
+    m = k.shape[1]
     dq = torch.empty((b, n, h, d), dtype=q.dtype, device=dev) \
         if need_dq else None
     dk, dv = (torch.empty((b, m, h, d), dtype=k.dtype, device=dev),
@@ -306,3 +330,31 @@ def flash_attention_backward(q, k, v, out, lse, g,
                     "flash_attention_bwd_dkv")
         dkv_launches += 1
     return dq, dk, dv
+
+
+def flash_attention_dbias(q, k, v, out, lse, g,
+                          biases: Sequence[torch.Tensor], i: int,
+                          scale: float = 1.0, causal: bool = False):
+    """Launch the dbias kernel on CUDA tensors → the gradient of bias
+    ``i``, float32 at its 4-d shape (every axis where it is 1 summed)."""
+    global dbias_launches
+    strides, ptrs, vec, g, lse, delta = _backward_layout(
+        q, k, v, out, lse, g, biases, "flash_attention_dbias")
+    b, n, h, _ = q.shape
+    m = k.shape[1]
+    shape = tuple(_as_4d(biases[i]).shape)
+    # the axes the bias keeps, as the kernel's bits b 1, h 2, n 4, m 8
+    keep = sum(1 << ax for ax, (s, f) in enumerate(zip(shape, (b, h, n, m)))
+               if s == f and f > 1)
+    db = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    if b * n * h == 0:
+        return db
+    err = _cuda.library("flash_attention_bwd").flash_attention_bwd_dbias(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        db.data_ptr(), keep, ptrs[0], ptrs[1], _BWD_STRIDES(*strides), b, n,
+        m, h, q.shape[3], float(scale), int(bool(causal)), vec,
+        _cuda.stream_ptr(q.device))
+    _cuda.check(err, "flash_attention_bwd_dbias")
+    dbias_launches += 1
+    return db
