@@ -8,12 +8,16 @@ each of which fails the run (non-zero exit, no result line) on error:
 
   1. device   — the card's name and its nvidia-smi name/power-limit line;
   2. build    — every hand-written kernel source compiled from csrc/ with
-                nvcc, in parallel;
+                nvcc, in parallel (the Hopper loop of the masked, packed and
+                sparse-LoRA matmuls, masked_matmul_wgmma.cu, is a source of
+                its own: its build seconds stand on their own line);
   3. kernels  — each kernel against its plain PyTorch version at the main
                 path's shapes (prune, generate, retrain, the compressed
                 path, and dbias at the first-order path's and every other
                 broadcast pattern), in bf16 and float32, within stated
-                tolerances;
+                tolerances; each bf16 masked and sparse-LoRA shape on the
+                main loop that ``plan`` picks (the Hopper loop wherever K
+                is not split, never at decode);
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -57,7 +61,15 @@ each of which fails the run (non-zero exit, no result line) on error:
                 kernel group against each phase's unprofiled wall-clock;
   9. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
-                beside each kernel's bound.
+                beside each kernel's bound; where the masked and sparse-LoRA
+                matmuls run the Hopper loop, the WMMA loop too (forced
+                through the wrappers' ``_loop`` argument).
+
+Launch gates: each phase's kernels launched in it (and the Hopper loop in
+every phase that runs the masked, packed or sparse-LoRA kernel at a
+calibration, training or prefill shape), none that the phase must not run
+(the bool kernel in a packed or int8 phase, the Hopper loop in an int8
+phase).
 
 The last lines are the kernel JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -395,11 +407,13 @@ def check_kernels():
         tol = TOL[str(dtype).split(".")[-1]]
         for name, m, k, n in MM_SHAPES:
             x, w, mask = mm_inputs(m, k, n, dtype)
-            err, scale = max_err(ML.masked_matmul(x, w, mask),
-                                 ML.masked_matmul_ref(x, w, mask))
+            before = ML.wgmma_launches
+            got = ML.masked_matmul(x, w, mask)
+            loop = check_loop("masked_matmul", name, m, k, n, dtype, before)
+            err, scale = max_err(got, ML.masked_matmul_ref(x, w, mask))
             ok = err <= tol * scale
             log(f"  masked_matmul {name:22s} {str(dtype)[6:]:8s} "
-                f"M={m} K={k} N={n} max_abs_err={err:.3e} "
+                f"M={m} K={k} N={n} {loop:5s} max_abs_err={err:.3e} "
                 f"(tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"masked_matmul {name} {dtype}")
@@ -431,12 +445,15 @@ def check_kernels():
         # tolerance holds
         for name, m, k, n, r in LORA_SHAPES:
             x, w, mask, a, b = lora_inputs(m, k, n, r, dtype)
+            before = ML.wgmma_launches
+            got = ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r)
+            loop = check_loop("sparse_lora_matmul", name, m, k, n, dtype,
+                              before, r)
             err, scale = max_err(
-                ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r),
-                ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r))
+                got, ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r))
             ok = err <= tol * scale
             log(f"  sparse_lora_matmul {name:18s} {str(dtype)[6:]:8s} "
-                f"M={m} K={k} N={n} r={r} max_abs_err={err:.3e} "
+                f"M={m} K={k} N={n} r={r} {loop:5s} max_abs_err={err:.3e} "
                 f"(tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"sparse_lora_matmul {name} {dtype}")
@@ -489,13 +506,17 @@ def check_compressed_kernels(worst):
                 bool_y = ML.masked_matmul(x, w, mask)
                 for group in (128, 256):
                     packed = BM.pack_mask(mask, group)
+                    before = ML.wgmma_launches
                     got = ML.masked_matmul_packed(x, w, packed)
+                    loop = check_loop("masked_matmul_packed", name, m, k, n,
+                                      dtype, before)
                     err, scale = max_err(
                         got, ML.masked_matmul_packed_ref(x, w, packed))
                     equal = torch.equal(got, bool_y)
                     ok = err <= tol * scale and equal
                     log(f"  masked_matmul_packed {name:20s} G{group} {dt:8s} "
-                        f"M={m} K={k} N={n} max_abs_err={err:.3e} (tol "
+                        f"M={m} K={k} N={n} {loop:5s} max_abs_err={err:.3e} "
+                        f"(tol "
                         f"{tol * scale:.3e}), bit-equal to the bool kernel "
                         f"{equal} {'ok' if ok else 'FAIL'}")
                     if not ok:
@@ -964,19 +985,23 @@ def run_generate(model, req):
 KERNELS = ("masked_matmul", "flash_attention", "sparse_lora_matmul",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "masked_matmul_packed", "int8_matmul", "flash_attention_bwd_dbias")
-# the kernels each phase of the main path runs, and so must launch
-SERVE = ("masked_matmul", "flash_attention")
+# the kernels each phase of the main path runs, and so must launch;
+# "wgmma_loop" counts the masked, packed and sparse-LoRA launches that ran
+# the Hopper loop (calibration, training and the generate prefill: every
+# shape that splits no K)
+WGMMA_LOOP = "wgmma_loop"
+SERVE = ("masked_matmul", "flash_attention", WGMMA_LOOP)
 PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                  "generate_warm": SERVE,
                  "retrain": ("sparse_lora_matmul", "flash_attention",
                              "flash_attention_bwd_dq",
-                             "flash_attention_bwd_dkv"),
+                             "flash_attention_bwd_dkv", WGMMA_LOOP),
                  "generate_merged": SERVE,
                  "sparsegpt_prune": SERVE, "generate_bool": SERVE,
                  "generate_packed128": ("masked_matmul_packed",
-                                        "flash_attention"),
+                                        "flash_attention", WGMMA_LOOP),
                  "generate_packed256": ("masked_matmul_packed",
-                                        "flash_attention"),
+                                        "flash_attention", WGMMA_LOOP),
                  "generate_int8_cold": ("int8_matmul", "flash_attention"),
                  "generate_int8_warm": ("int8_matmul", "flash_attention"),
                  "generate_int8_serving": ("int8_matmul",
@@ -984,7 +1009,7 @@ PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                  # the allocation's backward (dq, dk/dv), then Wanda
                  "ecoflap_prune": ("masked_matmul", "flash_attention",
                                    "flash_attention_bwd_dq",
-                                   "flash_attention_bwd_dkv"),
+                                   "flash_attention_bwd_dkv", WGMMA_LOOP),
                  "generate_ecoflap_cold": SERVE,
                  "generate_ecoflap_warm": SERVE,
                  "fisher_derivative": ("flash_attention",
@@ -994,13 +1019,15 @@ PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                  # zeroed weights, no masks: dense products
                  "generate_fisher": ("flash_attention",)}
 # ... and the kernels a phase must not run: a packed or int8 model never
-# takes the bool-mask path, an int8 model never the bf16 packed one
+# takes the bool-mask path, an int8 model never the bf16 packed one (and so
+# never the Hopper loop: the int8 kernel runs the WMMA loop only)
+INT8_FORBIDDEN = ("masked_matmul", "masked_matmul_packed", WGMMA_LOOP)
 PHASE_FORBIDDEN = {
     "generate_packed128": ("masked_matmul", "int8_matmul"),
     "generate_packed256": ("masked_matmul", "int8_matmul"),
-    "generate_int8_cold": ("masked_matmul", "masked_matmul_packed"),
-    "generate_int8_warm": ("masked_matmul", "masked_matmul_packed"),
-    "generate_int8_serving": ("masked_matmul", "masked_matmul_packed"),
+    "generate_int8_cold": INT8_FORBIDDEN,
+    "generate_int8_warm": INT8_FORBIDDEN,
+    "generate_int8_serving": INT8_FORBIDDEN,
     # RESSA and the first-order allocation differentiate no attention bias
     # (only LoRA factors; only the prunable kernels)
     "retrain": ("flash_attention_bwd_dbias",),
@@ -1013,6 +1040,7 @@ def reset_counts():
     from vlm_compression_tpu_torch.ops import quant as Q
 
     ML.launches = ML.lora_launches = ML.packed_launches = 0
+    ML.wgmma_launches = 0
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
     Q.int8_launches = 0
 
@@ -1022,10 +1050,34 @@ def read_counts() -> dict:
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
 
-    return dict(zip(KERNELS, (ML.launches, A.launches, ML.lora_launches,
-                              A.dq_launches, A.dkv_launches,
-                              ML.packed_launches, Q.int8_launches,
-                              A.dbias_launches)))
+    return dict(zip(KERNELS + (WGMMA_LOOP,),
+                    (ML.launches, A.launches, ML.lora_launches,
+                     A.dq_launches, A.dkv_launches, ML.packed_launches,
+                     Q.int8_launches, A.dbias_launches, ML.wgmma_launches)))
+
+
+def expected_loop(m, k, n, dtype, rank=0) -> str:
+    """The main loop ``plan`` gives a fresh, contiguous (so aligned)
+    operand set of this shape."""
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    return ML.plan(m, n, k, torch.cuda.get_device_properties(0)
+                   .multi_processor_count, bf16=dtype == torch.bfloat16,
+                   rank=rank)[0]
+
+
+def check_loop(what, name, m, k, n, dtype, wgmma_before, rank=0) -> str:
+    """The launch just made ran the loop ``plan`` picks: one Hopper-loop
+    launch counted exactly when that is the Hopper loop, none at a decode
+    shape."""
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    loop = expected_loop(m, k, n, dtype, rank)
+    ran = ML.wgmma_launches - wgmma_before
+    if ran != (loop == ML.WGMMA) or (name.endswith("_decode") and ran):
+        raise AssertionError(f"{what} {name} {dtype}: {ran} Hopper-loop "
+                             f"launches, plan {loop}")
+    return loop
 
 
 def check_phase_counts(counts):
@@ -1576,6 +1628,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "int8_matmul" in low:
         return "int8_matmul kernel"
+    if "masked_matmul_packed" in low:   # the Hopper loop's packed kernel
+        return "masked_matmul_packed kernel"
     # the packed instantiations: <VEC, true> (bf16), <true> (float32),
     # demangled or mangled
     if re.search(r"masked_matmul_(bf16|f32)_kernel(<(\w+, )?true>"
@@ -1728,20 +1782,32 @@ def timing():
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
-    rows = {}
+    rows, wmma = {}, {}
     bf16 = torch.bfloat16
+
+    def wmma_ms(key, fn, m, k, n, rank=0):
+        """The WMMA loop's time where the plan is the Hopper loop (forced
+        through the wrapper's internal ``_loop`` argument), for the two
+        loops side by side in one run; '' elsewhere."""
+        if expected_loop(m, k, n, bf16, rank) != ML.WGMMA:
+            return ""
+        wmma[key] = device_ms(fn)
+        return f", WMMA loop {wmma[key]:.4f} ms"
+
     for name, m, k, n in MM_SHAPES:
         x, w, mask = mm_inputs(m, k, n, bf16)
         wm = w * mask
         ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
+        old = wmma_ms(("masked_matmul", name), lambda: ML.masked_matmul(
+            x, w, mask, _loop=ML.WMMA), m, k, n)
         plain = device_ms(lambda: ML.masked_matmul_ref(x, w, mask))
         lib = device_ms(lambda: torch.matmul(x, wm))
         bound, by = mm_bound_ms(m, k, n)
         rows[("masked_matmul", name)] = (ms, plain, lib, bound, by)
-        log(f"  time masked_matmul {name:22s} M={m} K={k} N={n}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.matmul(x, W*mask) {lib:.4f} ms, bound {bound:.4f} ms "
-            f"({by})")
+        log(f"  time masked_matmul {name:22s} M={m} K={k} N={n} "
+            f"{expected_loop(m, k, n, bf16):5s}: kernel {ms:.4f} ms{old}, "
+            f"plain {plain:.4f} ms, torch.matmul(x, W*mask) {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
     for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES:
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k_, v))
@@ -1763,14 +1829,19 @@ def timing():
         s = 16.0 / r
         e = ML.sparse_lora_weight(w, mask, a, b, s)
         ms = device_ms(lambda: ML.sparse_lora_matmul(x, w, mask, a, b, s))
+        old = wmma_ms(("sparse_lora_matmul", name),
+                      lambda: ML.sparse_lora_matmul(x, w, mask, a, b, s,
+                                                    _loop=ML.WMMA),
+                      m, k, n, r)
         plain = device_ms(lambda: ML.sparse_lora_matmul_ref(x, w, mask, a,
                                                             b, s))
         lib = device_ms(lambda: torch.matmul(x, e))
         bound, by = lora_bound_ms(m, k, n, r)
         rows[("sparse_lora_matmul", name)] = (ms, plain, lib, bound, by)
-        log(f"  time sparse_lora_matmul {name:14s} M={m} K={k} N={n} r={r}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul(x, E) "
-            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        log(f"  time sparse_lora_matmul {name:14s} M={m} K={k} N={n} r={r} "
+            f"{expected_loop(m, k, n, bf16, r):5s}: kernel {ms:.4f} ms{old}, "
+            f"plain {plain:.4f} ms, torch.matmul(x, E) {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
     # the wrappers' times include delta = rowsum(g ⊙ out), formed in torch;
     # the plain version computes dq, dk and dv together; the library call
     # is the backward of SDPA (all three) on contiguous (b, h, n, d) copies
@@ -1823,7 +1894,7 @@ def timing():
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
         f"{'—' if lib is None else f'{lib:.4f} ms'} ({what}), bound "
         f"{bound:.4f} ms ({by})")
-    return rows
+    return rows, wmma
 
 
 def timing_compressed(rows):
@@ -1844,9 +1915,10 @@ def timing_compressed(rows):
         lib = device_ms(lambda: torch.matmul(x, wm))
         ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
         bound, by = mm_bound_ms(m, k, n)
-        log(f"  time masked_matmul (bool) {name:16s} M={m} K={k} N={n}: "
-            f"kernel {ms:.4f} ms, torch.matmul(x, W*mask) {lib:.4f} ms, "
-            f"bound {bound:.4f} ms ({by})")
+        loop = expected_loop(m, k, n, bf16)
+        log(f"  time masked_matmul (bool) {name:16s} M={m} K={k} N={n} "
+            f"{loop:5s}: kernel {ms:.4f} ms, torch.matmul(x, W*mask) "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
         for group in (128, 256):
             packed = BM.pack_mask(mask, group)
             ms = device_ms(lambda: ML.masked_matmul_packed(x, w, packed))
@@ -1856,7 +1928,8 @@ def timing_compressed(rows):
             rows[("masked_matmul_packed", f"{name} G{group}")] = (
                 ms, plain, lib, bound, by)
             log(f"  time masked_matmul_packed {name:16s} G{group} M={m} "
-                f"K={k} N={n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"K={k} N={n} {loop:5s}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, "
                 f"torch.matmul(x, W*mask) {lib:.4f} ms, bound {bound:.4f} "
                 f"ms ({by})")
         q, sc = Q.quantize_weight(w)
@@ -1899,7 +1972,9 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
-        f"wall {time.perf_counter() - t0:.1f} s")
+        f"wall {time.perf_counter() - t0:.1f} s; the Hopper loop "
+        f"(masked_matmul_wgmma.cu, its kernels with wgmma_tile.cuh) "
+        f"{secs.get('masked_matmul_wgmma', float('nan')):.1f} s")
     phases, t_phase = {"build": time.perf_counter() - t0}, time.perf_counter()
 
     def phase_done(name):
@@ -1953,7 +2028,7 @@ def main() -> int:
     phase_done("profile")
     log("[timing] bf16, median of 20 calls, CUDA events, L2 flushed before "
         "each call")
-    rows = timing()
+    rows, wmma = timing()
     timing_compressed(rows)
     phase_done("timing")
     log(f"[phases] wall-clock s: "
@@ -1988,7 +2063,9 @@ def main() -> int:
             "launches_by_phase": {p: c[kname] for p, c in counts.items()},
             "max_abs_err": worst[(kname, timed, torch.bfloat16)],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib, "shape": timed})
+            "library_ms": lib, "shape": timed,
+            **({"wmma_loop_ms": wmma[(kname, timed)]}
+               if (kname, timed) in wmma else {})})
     log(f"[e2e] {json.dumps(e2e)}  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

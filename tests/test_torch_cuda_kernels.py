@@ -377,3 +377,105 @@ def test_int8_matmul_grad_matches_plain(cuda):
     got, = torch.autograd.grad(Q.int8_matmul(x, q, scale, mask), x, gy)
     want, = torch.autograd.grad(Q.int8_matmul_ref(x, q, scale, mask), x, gy)
     _close(got, want, torch.float32)
+
+
+# ----------------------------------------------- the Hopper (wgmma) loop
+# Wherever the output tiles fill the card without split-K, the bool,
+# packed and sparse-LoRA matmuls run the TMA + wgmma loop (``ML.plan``);
+# each case asserts through ``ML.wgmma_launches`` which loop it ran.  The
+# ragged cases cut M, N and K inside a tile (N = 1296 leaves the last
+# tile's second 64-column W box wholly out of bounds).  Tolerances as
+# above; the packed kernel is bit-equal to the bool one on this loop too.
+
+HOPPER_SHAPES = [
+    (2000, 1408, 1392),    # ragged M and N
+    (1600, 1000, 1296),    # ragged K; an all-out-of-bounds W box
+    (1028, 1408, 4224),    # ViT qkv prefill (4 requests × 257)
+    (9216, 5120, 2048),    # T5 wo calibration
+    (32896, 1408, 6144),   # ViT fc1 calibration
+]
+
+
+def _loop_ran(before: int, m: int, k: int, n: int, rank: int = 0) -> str:
+    """The loop ``plan`` gives the shape, checked against the counter."""
+    loop = ML.plan(m, n, k, torch.cuda.get_device_properties(0)
+                   .multi_processor_count, rank=rank)[0]
+    assert ML.wgmma_launches - before == (loop == ML.WGMMA)
+    return loop
+
+
+@pytest.mark.parametrize("m,k,n", HOPPER_SHAPES)
+def test_hopper_loop_matches_plain(cuda, m, k, n):
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
+    before = ML.wgmma_launches
+    got = ML.masked_matmul(x, w, mask)
+    assert _loop_ran(before, m, k, n) == ML.WGMMA
+    _close(got, ML.masked_matmul_ref(x, w, mask), torch.bfloat16)
+
+
+@pytest.mark.parametrize("group", [128, 256])
+@pytest.mark.parametrize("m,k,n", HOPPER_SHAPES)
+def test_hopper_loop_packed_bit_equal_to_bool(cuda, group, m, k, n):
+    x, w, mask, packed = _packed_case(cuda, torch.bfloat16, m, k, n, group)
+    before = ML.wgmma_launches
+    got = ML.masked_matmul_packed(x, w, packed)
+    assert _loop_ran(before, m, k, n) == ML.WGMMA
+    _close(got, ML.masked_matmul_packed_ref(x, w, packed), torch.bfloat16)
+    assert torch.equal(got, ML.masked_matmul(x, w, mask))
+
+
+def _lora_case(cuda, m, k, n, r, seed=0):
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128, seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    a = ((torch.rand(k, r, generator=g, device=cuda) * 2 - 1)
+         * (6.0 / k) ** 0.5).bfloat16()
+    b = (torch.randn(r, n, generator=g, device=cuda) * 0.05).bfloat16()
+    return x, w, mask, a, b
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(2000, 1408, 1392), (1600, 1000, 1296),
+                                   (8224, 1408, 6144), (2304, 2048, 5120)])
+def test_hopper_loop_sparse_lora_matches_plain(cuda, r, m, k, n):
+    x, w, mask, a, b = _lora_case(cuda, m, k, n, r)
+    before = ML.wgmma_launches
+    got = ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r)
+    assert _loop_ran(before, m, k, n, r) == ML.WGMMA
+    _close(got, ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_hopper_loop_sparse_lora_grads_match_plain(cuda, r):
+    """The autograd Function's forward on the Hopper loop, its backward (the
+    JAX VJP) against autograd through the plain version."""
+    x, w, mask, a, b = _lora_case(cuda, 2100, 1408, 1392, r, seed=3)
+    x = x.reshape(3, 700, 1408)
+    gy = torch.randn(3, 700, 1392, device=cuda).bfloat16()
+    leaves = [t.requires_grad_() for t in (x, a, b)]
+    before = ML.wgmma_launches
+    got = torch.autograd.grad(
+        ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r), leaves, gy)
+    assert _loop_ran(before, 2100, 1408, 1392, r) == ML.WGMMA
+    want = torch.autograd.grad(
+        ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r), leaves, gy)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n,loop", [
+    (2000, 1408, 1392, ML.WGMMA),   # tiles fill the card, TMA-able
+    (1000, 1408, 1400, ML.WMMA),    # N % 16 != 0: no TMA stride
+    (20, 2048, 5120, ML.WMMA),      # decode: split-K
+])
+def test_dispatch_picks_each_loop(cuda, m, k, n, loop):
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
+    before = ML.wgmma_launches
+    got = ML.masked_matmul(x, w, mask)
+    assert _loop_ran(before, m, k, n) == loop
+    _close(got, ML.masked_matmul_ref(x, w, mask), torch.bfloat16)
+    # the WMMA loop forced at the same shape agrees too
+    before = ML.wgmma_launches
+    _close(ML.masked_matmul(x, w, mask, _loop=ML.WMMA),
+           ML.masked_matmul_ref(x, w, mask), torch.bfloat16)
+    assert ML.wgmma_launches == before

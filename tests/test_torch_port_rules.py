@@ -115,6 +115,33 @@ def test_new_wrappers_raise_instead_of_falling_back():
             TA.dbias_launches) == counts
 
 
+@pytest.mark.parametrize("loop", [None, TML.WMMA])
+@pytest.mark.parametrize("grad", [False, True])
+def test_hopper_loop_wrappers_raise_instead_of_falling_back(grad, loop):
+    """At a shape the Hopper loop would run (and with the WMMA loop forced)
+    the masked, packed and sparse-LoRA wrappers refuse a device the kernels
+    do not serve, forward and under autograd: no launch is counted, on
+    either loop."""
+    x = torch.empty(32896, 1408, device="meta", requires_grad=grad)
+    w = torch.empty(1408, 6144, device="meta")
+    mask = torch.empty(1408, 6144, dtype=torch.bool, device="meta")
+    packed = torch.empty(88, 6144, dtype=torch.int32, device="meta")
+    a = torch.empty(1408, 4, device="meta", requires_grad=grad)
+    b = torch.empty(4, 6144, device="meta", requires_grad=grad)
+    assert TML.plan(32896, 6144, 1408, 132, rank=4)[0] == TML.WGMMA
+    counts = (TML.launches, TML.packed_launches, TML.lora_launches,
+              TML.wgmma_launches)
+    for call in (lambda: TML.masked_matmul(x, w, mask, _loop=loop),
+                 lambda: TML.masked_matmul_packed(x, w, packed, _loop=loop),
+                 lambda: TML.sparse_lora_matmul(x, w, mask, a, b, 4.0,
+                                                _loop=loop)):
+        with torch.set_grad_enabled(grad), \
+                pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert (TML.launches, TML.packed_launches, TML.lora_launches,
+            TML.wgmma_launches) == counts
+
+
 @pytest.mark.parametrize("grad", [False, True])
 def test_compressed_wrappers_raise_instead_of_falling_back(grad):
     """The packed-mask and int8 wrappers refuse a device the kernels do not
@@ -162,3 +189,23 @@ def test_kernel_sources_export_the_bound_entry_points():
             m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
             assert m, fn
             assert len(m.group(1).split(",")) == len(argtypes), fn
+    # the Hopper loop's entry points take the float32 ones' arguments
+    sigs = _cuda._SIGNATURES
+    for kind in ("masked_matmul", "masked_matmul_packed",
+                 "sparse_lora_matmul"):
+        assert sigs["masked_matmul_wgmma"][f"{kind}_wgmma"] == \
+            sigs["masked_matmul"][f"{kind}_f32"], kind
+
+
+def test_the_hopper_loop_is_tma_wgmma_and_mbarriers():
+    """The Hopper main loop is built from TMA loads, mbarrier stages,
+    warpgroup MMAs and register rebalancing, and the Hopper entry points'
+    source includes it."""
+    src = (_cuda.CSRC / "wgmma_tile.cuh").read_text()
+    for ptx in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                "mbarrier.arrive.expect_tx", "wgmma.mma_async",
+                "wgmma.wait_group", "setmaxnreg", "fence.proxy.async"):
+        assert ptx in src, ptx
+    assert '#include "wgmma_tile.cuh"' in (
+        _cuda.CSRC / "masked_matmul_wgmma.cu").read_text()
+    assert "masked_matmul_wgmma" in _cuda.SOURCES

@@ -57,8 +57,17 @@
 // at decode shapes the bytes, where the packed mask saves 3/8 or 7/16 of
 // the bool kernel's weight-side traffic.
 //
-// Not yet done (later PRs): a TMA/wgmma pipeline for the compute-bound
-// calibration and training shapes.
+// Two main loops.  The WMMA loop of tile_mma.cuh (128 × 128 tiles, mma.sync
+// through WMMA, register prefetch, split-K) runs the decode-sized shapes,
+// the ones TMA cannot take, and float32.  Where the output tiles fill the
+// card without split-K (calibration, training, prefill) the bool, packed
+// and sparse-LoRA entry points `*_wgmma` of masked_matmul_wgmma.cu run the
+// Hopper loop of wgmma_tile.cuh instead: TMA loads into a 3-stage
+// mbarrier ring, the mask (or the LoRA merge) applied to the W tile in
+// shared memory by a transform warpgroup while two consumer warpgroups run
+// wgmma on the previous stage.  ops/masked_linear.py `plan` picks the loop
+// from the shape and the alignment alone; the packed entry point takes the
+// same loop as the bool one at every shape, so the two stay bit-equal.
 
 #include "tile_mma.cuh"
 
@@ -423,3 +432,4 @@ extern "C" int sparse_lora_matmul_f32(const void* x, const void* w,
       M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
+

@@ -9,6 +9,12 @@
 // Every kernel runs the same loop, so for the same weights and mask their
 // fp32 sums run in the same order: the packed-mask kernel's output is
 // bit-equal to the bool-mask kernel's.
+//
+// The bf16 loop is the WMMA (mma.sync) one: it runs decode-sized M with
+// split-K, shapes TMA cannot take, and the int8 kernel everywhere.  Where
+// the output tiles fill the card unsplit, the bool, packed and sparse-LoRA
+// matmuls run the Hopper TMA + wgmma loop of wgmma_tile.cuh instead
+// (ops/masked_linear.py `plan`).
 
 #pragma once
 

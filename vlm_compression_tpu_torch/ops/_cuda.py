@@ -23,8 +23,8 @@ from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("masked_matmul", "int8_matmul", "flash_attention",
-           "flash_attention_bwd")
+SOURCES = ("masked_matmul", "masked_matmul_wgmma", "int8_matmul",
+           "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -45,6 +45,13 @@ _SIGNATURES = {
         "masked_matmul_packed_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _P],
         "masked_matmul_packed_f32": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+    },
+    # the Hopper loop's entry points take the float32 ones' arguments
+    "masked_matmul_wgmma": {
+        "masked_matmul_wgmma": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "masked_matmul_packed_wgmma": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+        "sparse_lora_matmul_wgmma": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I,
+                                     _I, _P],
     },
     "int8_matmul": {
         "int8_matmul_bf16": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,

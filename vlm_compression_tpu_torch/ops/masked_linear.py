@@ -15,8 +15,11 @@ a hand-written kernel of ``csrc/masked_matmul.cu`` on CUDA tensors (launch
 or raise — no fallback), and whose backward is the JAX package's
 hand-written VJP in plain matmuls (as there, the backward products are left
 to the matmul library; the packed backward unpacks, as the JAX one does).
-``launches``, ``packed_launches`` and ``lora_launches`` count kernel
-launches.
+``plan`` picks each bf16 launch's main loop from the shape and alignment
+alone: the Hopper TMA + wgmma loop where the output tiles fill the card,
+else the WMMA loop with split-K.  ``launches``, ``packed_launches`` and
+``lora_launches`` count kernel launches, ``wgmma_launches`` those of them
+that ran the Hopper loop.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from vlm_compression_tpu_torch.ops.bitmask import (
 launches = 0
 packed_launches = 0
 lora_launches = 0
+wgmma_launches = 0
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -123,29 +127,29 @@ def _masked_vjp(ctx, x, w, mask, g):
 
 class _MaskedMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, mask):
+    def forward(ctx, x, w, mask, loop):
         ctx.save_for_backward(x, w, mask)
-        return _masked_matmul_fwd(x, w, mask)
+        return _masked_matmul_fwd(x, w, mask, loop)
 
     @staticmethod
     def backward(ctx, g):
-        return _masked_vjp(ctx, *ctx.saved_tensors, g)
+        return *_masked_vjp(ctx, *ctx.saved_tensors, g), None
 
 
 class _MaskedMatmulPacked(torch.autograd.Function):
     """JAX ``_masked_matmul_packed_bwd``: unpack, then the masked VJP."""
 
     @staticmethod
-    def forward(ctx, x, w, packed):
+    def forward(ctx, x, w, packed, loop):
         ctx.save_for_backward(x, w, packed)
-        return _masked_matmul_packed_fwd(x, w, packed)
+        return _masked_matmul_packed_fwd(x, w, packed, loop)
 
     @staticmethod
     def backward(ctx, g):
         x, w, packed = ctx.saved_tensors
         k = w.shape[0]
         mask = unpack_mask(packed, k, infer_pack_group(k, packed.shape[0]))
-        return _masked_vjp(ctx, x, w, mask, g)
+        return *_masked_vjp(ctx, x, w, mask, g), None
 
 
 class _SparseLoraMatmul(torch.autograd.Function):
@@ -155,18 +159,18 @@ class _SparseLoraMatmul(torch.autograd.Function):
     merged weight stays alive between the passes."""
 
     @staticmethod
-    def forward(ctx, x, w, mask, lora_a, lora_b, scale):
+    def forward(ctx, x, w, mask, lora_a, lora_b, scale, loop):
         ctx.save_for_backward(x, w, mask, lora_a, lora_b)
         ctx.scale = scale
         if x.device.type == "cpu":
             return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale)
-        return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale)
+        return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop)
 
     @staticmethod
     def backward(ctx, g):
         x, w, mask, lora_a, lora_b = ctx.saved_tensors
         s = ctx.scale
-        need_x, need_w, _, need_a, need_b, _ = ctx.needs_input_grad
+        need_x, need_w, _, need_a, need_b, _, _ = ctx.needs_input_grad
         dx = dw = da = db = None
         if need_x:
             e = sparse_lora_weight(w, mask, lora_a, lora_b, s)
@@ -182,61 +186,71 @@ class _SparseLoraMatmul(torch.autograd.Function):
             if need_b:
                 db = (s * torch.matmul(lora_a.float().t(), gm)
                       ).to(lora_b.dtype)
-        return dx, dw, None, da, db, None
+        return dx, dw, None, da, db, None, None
 
+
+# ``_loop`` (all three wrappers): None runs the loop ``plan`` picks; WMMA
+# forces the WMMA loop where the plan is the Hopper one — for timing the
+# two loops side by side on the card, not a knob of the model.
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, *, _loop=None) -> torch.Tensor:
     """y = x @ (w ⊙ mask); the masked weight never exists in memory on the
     card.  Differentiable in x and w."""
     if _needs_graph(x, w):
-        return _MaskedMatmul.apply(x, w, mask)
-    return _masked_matmul_fwd(x, w, mask)
+        return _MaskedMatmul.apply(x, w, mask, _loop)
+    return _masked_matmul_fwd(x, w, mask, _loop)
 
 
 def masked_matmul_packed(x: torch.Tensor, w: torch.Tensor,
-                         packed: torch.Tensor) -> torch.Tensor:
+                         packed: torch.Tensor, *, _loop=None) -> torch.Tensor:
     """y = x @ (w ⊙ unpack(packed)); the pack group (128: 2 bits a weight,
     256: 1 bit) follows from the words' row count.  On the card the mask is
-    expanded in registers, as a W tile passes to shared memory, and neither
-    the unpacked mask nor the masked weight exists in memory.
-    Differentiable in x and w."""
+    expanded on the W tile on its way to the MMA (in registers in the WMMA
+    loop, in shared memory in the Hopper one), and neither the unpacked
+    mask nor the masked weight exists in memory.  Differentiable in x and
+    w."""
     if _needs_graph(x, w):
-        return _MaskedMatmulPacked.apply(x, w, packed)
-    return _masked_matmul_packed_fwd(x, w, packed)
+        return _MaskedMatmulPacked.apply(x, w, packed, _loop)
+    return _masked_matmul_packed_fwd(x, w, packed, _loop)
 
 
-def sparse_lora_matmul(x, w, mask, lora_a, lora_b, scale: float):
+def sparse_lora_matmul(x, w, mask, lora_a, lora_b, scale: float, *,
+                       _loop=None):
     """y = x @ ((w + lora_a·lora_b·scale) ⊙ mask); on the card the merged
     weight never exists in memory.  Differentiable in x, w, A and B."""
     if _needs_graph(x, w, lora_a, lora_b):
         return _SparseLoraMatmul.apply(x, w, mask, lora_a, lora_b,
-                                       float(scale))
+                                       float(scale), _loop)
     if x.device.type == "cpu":
         return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale)
-    return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale)
+    return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, _loop)
 
 
-def _masked_matmul_fwd(x, w, mask):
+def _masked_matmul_fwd(x, w, mask, loop=None):
     if x.device.type == "cpu":
         return masked_matmul_ref(x, w, mask)
-    return _masked_matmul_cuda(x, w, mask)
+    return _masked_matmul_cuda(x, w, mask, loop)
 
 
-def _masked_matmul_packed_fwd(x, w, packed):
+def _masked_matmul_packed_fwd(x, w, packed, loop=None):
     if x.device.type == "cpu":
         return masked_matmul_packed_ref(x, w, packed)
-    return _masked_matmul_packed_cuda(x, w, packed)
+    return _masked_matmul_packed_cuda(x, w, packed, loop)
 
 
-# the bf16 kernels' output tile and K step (csrc/masked_matmul.cu)
+# the WMMA loop's output tile and K step (csrc/tile_mma.cuh)
 _BM, _BN, _BK = 128, 128, 32
 # largest adapter rank the sparse-LoRA kernel stages (as the TPU kernel)
 MAX_LORA_RANK = 128
+# the main loops of one bf16 or float32 launch
+WGMMA, WMMA, FP32 = "wgmma", "wmma", "fp32"
+# adapter ranks the Hopper loop holds in registers (0: no adapter)
+WGMMA_RANKS = (0, 2, 4, 8)
 
 
 def split_k(m: int, n: int, k: int, sms: int):
-    """(splits, k_split) for the bf16 kernels: when the output tiles cannot
+    """(splits, k_split) for the WMMA loop: when the output tiles cannot
     fill the card (decode-sized M), split K so that about two blocks per SM
     stream the weight, each split at least 4 K steps long."""
     tiles = -(-m // _BM) * -(-n // _BN)
@@ -245,6 +259,30 @@ def split_k(m: int, n: int, k: int, sms: int):
         splits = max(1, min(-(-2 * sms // tiles), k // (4 * _BK)))
     k_split = -(-(-(-k // splits)) // _BK) * _BK
     return -(-k // k_split), k_split
+
+
+def plan(m: int, n: int, k: int, sms: int, *, bf16: bool = True,
+         aligned: bool = True, rank: int = 0):
+    """(loop, splits, k_split) of one tiled-matmul launch, from the shape
+    and the alignment alone (no launch is retried on the other loop):
+
+    - float32: the CUDA-core loop, all of K in one block: (FP32, 1, k);
+    - bf16 whose output tiles fill the card unsplit (``split_k`` gives one
+      split), which TMA can take (``aligned``: 16-byte aligned bases; and
+      K % 8 == 0, N % 16 == 0 for 16-byte strides) and whose adapter rank
+      the Hopper loop holds: (WGMMA, 1, k);
+    - any other bf16 (decode-sized M, misaligned, another rank; the int8
+      kernel, which passes ``aligned=False``): (WMMA, splits, k_split).
+
+    The packed kernel is planned as the bool one, so at every shape both
+    take the same loop and stay bit-equal."""
+    if not bf16:
+        return FP32, 1, k
+    splits, k_split = split_k(m, n, k, sms)
+    if splits == 1 and aligned and k % 8 == 0 and n % 16 == 0 \
+            and rank in WGMMA_RANKS:
+        return WGMMA, 1, k
+    return WMMA, splits, k_split
 
 
 def _mask_rows(w, mask, packed: bool) -> int:
@@ -308,12 +346,19 @@ def _valid(x, w, mask, packed: bool = False) -> bool:
             and w.is_contiguous() and mask.is_contiguous())
 
 
-def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8):
+def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
+            fn_wgmma=None, extra_ptrs=(), rank=0, loop=None):
     """Shared launch of the tiled matmul kernels (masked, packed,
     sparse-LoRA, int8): flatten x, allocate y (and the split-K workspace),
-    pick the vectorized loads.  ``args`` go after the mask pointer;
-    ``mask`` may be None (no pointer).  Returns (y, the launch's error
-    code, or None when an empty shape left nothing to launch)."""
+    ``plan`` the loop — the Hopper one only where ``fn_wgmma`` is given
+    (called as the float32 entry point is) and x, W, the mask and
+    ``extra_ptrs`` are 16-byte aligned — and pick the WMMA loop's
+    vectorized loads.  ``args`` go after the mask pointer; ``mask`` may be
+    None (no pointer).  ``loop`` = WMMA forces the WMMA loop.  Returns (y,
+    the launch's error code or None when an empty shape left nothing to
+    launch, the loop)."""
+    if loop not in (None, WMMA):
+        raise ValueError(f"loop {loop!r}: only {WMMA!r} can be forced")
     dev = x.device
     k, n = w.shape
     lead = x.shape[:-1]
@@ -321,16 +366,24 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8):
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0 or n == 0:
-        return y.reshape(*lead, n), None
+        return y.reshape(*lead, n), None, None
     if k == 0:
-        return y.zero_().reshape(*lead, n), None
+        return y.zero_().reshape(*lead, n), None, None
     stream = _cuda.stream_ptr(dev)
     mask_ptr = None if mask is None else mask.data_ptr()
-    if x.dtype == torch.bfloat16:
+    ptrs = (x2.data_ptr(), w.data_ptr(), mask_ptr, *extra_ptrs)
+    aligned = fn_wgmma is not None and loop is None and all(
+        p is None or p % 16 == 0 for p in ptrs)
+    route, splits, k_split = plan(m, n, k, _cuda.sm_count(dev),
+                                  bf16=x.dtype == torch.bfloat16,
+                                  aligned=aligned, rank=rank)
+    if route == WGMMA:
+        err = fn_wgmma(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
+                       y.data_ptr(), m, n, k, stream)
+    elif route == WMMA:
         vec = int(k % 8 == 0 and n % 8 == 0
                   and x2.data_ptr() % 16 == 0 and w.data_ptr() % w_align == 0
                   and (mask is None or mask_ptr % mask_align == 0))
-        splits, k_split = split_k(m, n, k, _cuda.sm_count(dev))
         work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
                 if splits > 1 else None)
         err = fn_bf16(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
@@ -339,39 +392,56 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8):
     else:
         err = fn_f32(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
                      y.data_ptr(), m, n, k, stream)
-    return y.reshape(*lead, n), err
+    return y.reshape(*lead, n), err, route
 
 
-def _masked_matmul_cuda(x, w, mask):
+def _wgmma(kind: str):
+    """The Hopper loop's entry point of ``kind`` (csrc/masked_matmul_wgmma.cu,
+    built on first use)."""
+    return getattr(_cuda.library("masked_matmul_wgmma"), f"{kind}_wgmma")
+
+
+def _count_wgmma(route) -> None:
+    global wgmma_launches
+    if route == WGMMA:
+        wgmma_launches += 1
+
+
+def _masked_matmul_cuda(x, w, mask, loop=None):
     global launches
     if not _valid(x, w, mask):
         _check_inputs(x, w, mask)
     lib = _cuda.library("masked_matmul")
-    y, err = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32,
-                     x, w, mask)
+    y, err, route = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32,
+                            x, w, mask, fn_wgmma=_wgmma("masked_matmul"),
+                            loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul")
         launches += 1
+        _count_wgmma(route)
     return y
 
 
-def _masked_matmul_packed_cuda(x, w, packed):
+def _masked_matmul_packed_cuda(x, w, packed, loop=None):
     global packed_launches
     if not _valid(x, w, packed, packed=True):
         _check_inputs(x, w, packed, "masked_matmul_packed", packed=True)
     group = infer_pack_group(w.shape[0], packed.shape[0])
     lib = _cuda.library("masked_matmul")
     # each 8-column chunk reads its 8 words as two 16-byte loads
-    y, err = _launch(lib.masked_matmul_packed_bf16,
-                     lib.masked_matmul_packed_f32, x, w, packed, (group,),
-                     mask_align=16)
+    y, err, route = _launch(lib.masked_matmul_packed_bf16,
+                            lib.masked_matmul_packed_f32, x, w, packed,
+                            (group,), mask_align=16,
+                            fn_wgmma=_wgmma("masked_matmul_packed"),
+                            loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul_packed")
         packed_launches += 1
+        _count_wgmma(route)
     return y
 
 
-def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale):
+def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
     global lora_launches
     if not _valid(x, w, mask):
         _check_inputs(x, w, mask, "sparse_lora_matmul")
@@ -384,10 +454,13 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale):
         _check_lora(x, w, lora_a, lora_b)
     lib = _cuda.library("masked_matmul")
     a, b = lora_a.contiguous(), lora_b.contiguous()
-    y, err = _launch(lib.sparse_lora_matmul_bf16, lib.sparse_lora_matmul_f32,
-                     x, w, mask, (a.data_ptr(), b.data_ptr(), a.shape[1],
-                                  float(scale)))
+    y, err, route = _launch(
+        lib.sparse_lora_matmul_bf16, lib.sparse_lora_matmul_f32, x, w, mask,
+        (a.data_ptr(), b.data_ptr(), a.shape[1], float(scale)),
+        fn_wgmma=_wgmma("sparse_lora_matmul"),
+        extra_ptrs=(a.data_ptr(), b.data_ptr()), rank=a.shape[1], loop=loop)
     if err is not None:
         _cuda.check(err, "sparse_lora_matmul")
         lora_launches += 1
+        _count_wgmma(route)
     return y

@@ -172,9 +172,10 @@ def _int8_matmul_cuda(x, q, scale, mask):
     else:
         kind, group, mask_align = _BOOL_MASK, 0, 8
     lib = _cuda.library("int8_matmul")
-    y, err = ML._launch(lib.int8_matmul_bf16, lib.int8_matmul_f32, x, q, mask,
-                        (kind, group, scale.data_ptr()), w_align=8,
-                        mask_align=mask_align)
+    # the int8 kernel has no Hopper loop: always the WMMA one
+    y, err, _ = ML._launch(lib.int8_matmul_bf16, lib.int8_matmul_f32, x, q,
+                           mask, (kind, group, scale.data_ptr()), w_align=8,
+                           mask_align=mask_align)
     if err is not None:
         _cuda.check(err, "int8_matmul")
         int8_launches += 1
