@@ -17,7 +17,11 @@ each of which fails the run (non-zero exit, no result line) on error:
                 broadcast pattern), in bf16 and float32, within stated
                 tolerances; each bf16 masked and sparse-LoRA shape on the
                 main loop that ``plan`` picks (the Hopper loop wherever K
-                is not split, never at decode);
+                is not split, never at decode); the attention backward on
+                the route ``ops/attention.plan`` picks (bf16: the TMA +
+                wgmma kernel) and on the mma.sync route, causal, ragged,
+                dq alone and dk/dv alone, and the largest |dq₁ − dq₂| of
+                two identical calls (the dq atomics' order);
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -63,11 +67,16 @@ each of which fails the run (non-zero exit, no result line) on error:
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
-                through the wrappers' ``_loop`` argument).
+                through the wrappers' ``_loop`` argument); the attention
+                backward's two bf16 routes (``_impl``) at every training
+                shape; SDPA, the attention yardstick, on each of its
+                backends, the fastest timed in turns with the kernel.
 
 Launch gates: each phase's kernels launched in it (and the Hopper loop in
 every phase that runs the masked, packed or sparse-LoRA kernel at a
-calibration, training or prefill shape), none that the phase must not run
+calibration, training or prefill shape; the TMA + wgmma attention
+backward in the retrain step, the EcoFLaP allocation and the Fisher),
+none that the phase must not run
 (the bool kernel in a packed or int8 phase, the Hopper loop in an int8
 phase).
 
@@ -357,17 +366,17 @@ def lora_bound_ms(m, k, n, r):
                   2.0 * m * k + 3.0 * k * n + 2.0 * m * n + 2.0 * (k + n) * r)
 
 
-def flash_bwd_bound_ms(q, k, v, biases, which):
-    """dq: three products (q·kᵀ, g·vᵀ, ds·k), reads q, g, k, v, lse,
-    delta and the biases, writes dq.  dk/dv: four (q·kᵀ, g·vᵀ, dsᵀ·q,
-    pᵀ·g), same reads, writes dk and dv.  2·b·h·n·m·d operations each."""
+def flash_bwd_bound_ms(q, k, v, biases):
+    """The whole backward (dq, dk and dv): five products (q·kᵀ, g·vᵀ,
+    ds·k, dsᵀ·q, pᵀ·g), 10·b·h·n·m·d operations; q, k, v, g, lse, delta
+    and the biases read once, dq, dk and dv written once."""
     b, n, h, d = q.shape
     m = k.shape[1]
     es = q.element_size()
-    flops = (3.0 if which == "dq" else 4.0) * 2.0 * b * h * n * m * d
+    flops = 10.0 * b * h * n * m * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 8.0 * b * h * n \
         + sum(4.0 * x.numel() for x in biases) \
-        + (q.numel() if which == "dq" else k.numel() + v.numel()) * es
+        + (q.numel() + k.numel() + v.numel()) * es
     return _bound(flops, nbytes)
 
 
@@ -459,32 +468,79 @@ def check_kernels():
                 raise AssertionError(f"sparse_lora_matmul {name} {dtype}")
             worst[("sparse_lora_matmul", name, dtype)] = err
         # flash backward: dq, and dk with dv, against the plain version
-        # from the same out and lse; then causal n = m and n > m
-        cases = [(name, b, n, m, h, d, kinds, scale, False)
+        # from the same out and lse, on the route ``plan`` picks (bf16:
+        # the TMA + wgmma kernel) and, in bf16, on the mma.sync route too;
+        # causal n = m and n > m, ragged tiles on both sides (n = m = 200),
+        # and dq alone and dk/dv alone
+        cases = [(name, b, n, m, h, d, kinds, scale, False, True, True)
                  for name, b, n, m, h, d, kinds, scale in BWD_SHAPES]
-        cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True),
-                  ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True)]
-        for name, b, n, m, h, d, kinds, scale, causal in cases:
+        cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True, True,
+                   True),
+                  ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True, True,
+                   True),
+                  ("ragged_200", 2, 200, 200, 4, 88, ["rel"], 0.125, False,
+                   True, True),
+                  ("vit_self_dq_only", 4, 257, 257, 16, 88, [], 88 ** -0.5,
+                   False, True, False),
+                  ("vit_self_dkv_only", 4, 257, 257, 16, 88, [], 88 ** -0.5,
+                   False, False, True)]
+        routes = [None] if dtype == torch.float32 else [None, A.MMA]
+        for name, b, n, m, h, d, kinds, scale, causal, ndq, ndkv in cases:
             q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
             g = grad_like(q)
             out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
-            got = A.flash_attention_backward(q, k_, v, out, lse, g, biases,
-                                             scale, causal)
             want = A.flash_attention_backward_ref(q, k_, v, out, lse, g,
                                                   biases, scale, causal)
-            errs = [max_err(x, y) for x, y in zip(got, want)]
-            ok = all(e <= tol * sc for e, sc in errs)
-            log(f"  flash_attention_bwd {name:18s} {str(dtype)[6:]:8s} "
-                f"b={b} n={n} m={m} h={h} d={d} biases={kinds} "
-                f"causal={causal} max_abs_err dq/dk/dv="
-                f"{'/'.join(f'{e:.3e}' for e, _ in errs)} (tol "
-                f"{'/'.join(f'{tol * sc:.3e}' for _, sc in errs)}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention_bwd {name} {dtype}")
-            worst[("flash_attention_bwd_dq", name, dtype)] = errs[0][0]
-            worst[("flash_attention_bwd_dkv", name, dtype)] = max(
-                errs[1][0], errs[2][0])
+            for impl in routes:
+                route = impl or A.plan(n, m, d,
+                                       bf16=dtype == torch.bfloat16)
+                before = A.bwd_wgmma_launches
+                got = A.flash_attention_backward(
+                    q, k_, v, out, lse, g, biases, scale, causal, ndq, ndkv,
+                    _impl=impl)
+                if (A.bwd_wgmma_launches - before) != (route == A.WGMMA):
+                    raise AssertionError(f"flash_attention_bwd {name}: "
+                                         f"route {route} not taken")
+                errs = [(0.0, 1.0) if x is None else max_err(x, y)
+                        for x, y in zip(got, want)]
+                if any((x is None) != (not need) for x, need in
+                       zip(got, (ndq, ndkv, ndkv))):
+                    raise AssertionError(f"flash_attention_bwd {name}: "
+                                         "gradients not asked for")
+                ok = all(e <= tol * sc for e, sc in errs)
+                log(f"  flash_attention_bwd {name:18s} {str(dtype)[6:]:8s} "
+                    f"{route:5s} b={b} n={n} m={m} h={h} d={d} "
+                    f"biases={kinds} causal={causal} dq={ndq} dkv={ndkv} "
+                    f"max_abs_err dq/dk/dv="
+                    f"{'/'.join(f'{e:.3e}' for e, _ in errs)} (tol "
+                    f"{'/'.join(f'{tol * sc:.3e}' for _, sc in errs)}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd {name} {dtype} "
+                                         f"{route}")
+                if impl is None:
+                    worst[("flash_attention_bwd_dq", name, dtype)] = \
+                        errs[0][0]
+                    worst[("flash_attention_bwd_dkv", name, dtype)] = max(
+                        errs[1][0], errs[2][0])
+    # the dq atomics sum in an order that changes from call to call: two
+    # identical calls of the bf16 route at the ViT's shape
+    name, b, n, m, h, d, kinds, scale = next(c for c in BWD_SHAPES
+                                             if c[0] == BWD_TIMED)
+    q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
+    g = grad_like(q)
+    out, lse = A.flash_attention(q, k_, v, biases, scale)
+    dq1 = A.flash_attention_backward(q, k_, v, out, lse, g, biases, scale,
+                                     need_dkv=False)[0].float()
+    dq2 = A.flash_attention_backward(q, k_, v, out, lse, g, biases, scale,
+                                     need_dkv=False)[0].float()
+    top = float(dq1.abs().max())
+    ulp = 2.0 ** (torch.frexp(torch.tensor(top))[1].item() - 8)
+    diff = float((dq1 - dq2).abs().max())
+    log(f"  flash_attention_bwd {name} two identical calls, route "
+        f"{A.plan(n, m, d)}: max |dq1 - dq2| {diff:.3e}, |dq|max {top:.3e}, "
+        f"one bf16 ulp there {ulp:.3e} ({diff / ulp:.2f} ulp); "
+        f"{int((dq1 != dq2).sum())} of {dq1.numel()} entries differ")
     return worst
 
 
@@ -990,12 +1046,15 @@ KERNELS = ("masked_matmul", "flash_attention", "sparse_lora_matmul",
 # the Hopper loop (calibration, training and the generate prefill: every
 # shape that splits no K)
 WGMMA_LOOP = "wgmma_loop"
+# "bwd_wgmma" counts the attention backward's TMA + wgmma launches (each
+# one whole backward: pre-pass, main kernel, dq cast); the
+# flash_attention_bwd_dq / _dkv counts are the mma.sync route's
+BWD_WGMMA = "bwd_wgmma"
 SERVE = ("masked_matmul", "flash_attention", WGMMA_LOOP)
 PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                  "generate_warm": SERVE,
                  "retrain": ("sparse_lora_matmul", "flash_attention",
-                             "flash_attention_bwd_dq",
-                             "flash_attention_bwd_dkv", WGMMA_LOOP),
+                             BWD_WGMMA, WGMMA_LOOP),
                  "generate_merged": SERVE,
                  "sparsegpt_prune": SERVE, "generate_bool": SERVE,
                  "generate_packed128": ("masked_matmul_packed",
@@ -1008,13 +1067,10 @@ PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                                            "flash_attention"),
                  # the allocation's backward (dq, dk/dv), then Wanda
                  "ecoflap_prune": ("masked_matmul", "flash_attention",
-                                   "flash_attention_bwd_dq",
-                                   "flash_attention_bwd_dkv", WGMMA_LOOP),
+                                   BWD_WGMMA, WGMMA_LOOP),
                  "generate_ecoflap_cold": SERVE,
                  "generate_ecoflap_warm": SERVE,
-                 "fisher_derivative": ("flash_attention",
-                                       "flash_attention_bwd_dq",
-                                       "flash_attention_bwd_dkv",
+                 "fisher_derivative": ("flash_attention", BWD_WGMMA,
                                        "flash_attention_bwd_dbias"),
                  # zeroed weights, no masks: dense products
                  "generate_fisher": ("flash_attention",)}
@@ -1042,6 +1098,7 @@ def reset_counts():
     ML.launches = ML.lora_launches = ML.packed_launches = 0
     ML.wgmma_launches = 0
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
+    A.bwd_wgmma_launches = 0
     Q.int8_launches = 0
 
 
@@ -1050,10 +1107,19 @@ def read_counts() -> dict:
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
 
-    return dict(zip(KERNELS + (WGMMA_LOOP,),
+    return dict(zip(KERNELS + (WGMMA_LOOP, BWD_WGMMA),
                     (ML.launches, A.launches, ML.lora_launches,
                      A.dq_launches, A.dkv_launches, ML.packed_launches,
-                     Q.int8_launches, A.dbias_launches, ML.wgmma_launches)))
+                     Q.int8_launches, A.dbias_launches, ML.wgmma_launches,
+                     A.bwd_wgmma_launches)))
+
+
+def bwd_routes(c: dict, per: int = 1) -> str:
+    """A phase's attention-backward launches by route (per step or
+    sample)."""
+    return (f"TMA + wgmma {c[BWD_WGMMA] / per:g}, mma.sync dq "
+            f"{c['flash_attention_bwd_dq'] / per:g} and dk/dv "
+            f"{c['flash_attention_bwd_dkv'] / per:g}")
 
 
 def expected_loop(m, k, n, dtype, rank=0) -> str:
@@ -1263,6 +1329,8 @@ def main_path():
     reset_counts()
     retrain = run_retrain(model, cfg)
     counts["retrain"] = read_counts()
+    log(f"  retrain attention backward per step, by route: "
+        f"{bwd_routes(counts['retrain'], 1 + N_TIMED_STEPS)}")
     merge_and_check(model)
     reset_counts()
     t0 = time.perf_counter()
@@ -1500,6 +1568,8 @@ def first_order_path():
     secs["ecoflap_prune"] = time.perf_counter() - t0
     counts["ecoflap_prune"] = read_counts()
     peaks["ecoflap_prune"] = torch.cuda.max_memory_allocated()
+    log(f"  ecoflap allocation's attention backward, by route: "
+        f"{bwd_routes(counts['ecoflap_prune'])}")
     del batches
     groups = {}
     for key, r in ratios.items():
@@ -1551,6 +1621,8 @@ def first_order_path():
     secs["fisher_derivative"] = time.perf_counter() - t0
     counts["fisher_derivative"] = read_counts()
     peaks["fisher_derivative"] = torch.cuda.max_memory_allocated()
+    log(f"  fisher attention backward per sample, by route: "
+        f"{bwd_routes(counts['fisher_derivative'], N_FISHER)}")
     bad = [p for p, a in fisher.items()
            if not bool(torch.isfinite(a).all()) or bool((a < 0).any())]
     rel = {s: float(fisher[("t5_model", s, "rel_bias", "rel_embedding")]
@@ -1641,6 +1713,14 @@ def _kernel_group(name: str) -> str:
         return "sparse_lora_matmul kernel"
     if "flash_fwd" in low:
         return "flash_attention kernel"
+    # the TMA + wgmma backward's three passes (before the mma.sync names:
+    # "flash_bwd_dq_cast" holds "flash_bwd_dq")
+    if "flash_bwd_wgmma" in low:
+        return "flash_attention_bwd_wgmma main kernel"
+    if "flash_bwd_delta" in low:
+        return "flash_attention_bwd delta pre-pass"
+    if "flash_bwd_dq_cast" in low:
+        return "flash_attention_bwd_wgmma dq cast"
     if "flash_bwd_dbias" in low:
         return "flash_attention_bwd_dbias kernel"
     if "flash_bwd_dq" in low:
@@ -1745,35 +1825,112 @@ def profile_sparsegpt_prune(e2e):
     device_breakdown(prof, 1e3 * e2e["sparsegpt_prune_s"], "sparsegpt prune")
 
 
-def sdpa_dbias_ms(q, k, v, biases, g, scale):
-    """The backward of SDPA's memory-efficient backend with an attn_mask
-    that requires a gradient (the biases summed into one (b, h, n, m) mask
-    of q's dtype): dq, dk, dv and the mask's gradient, unreduced.  → (ms,
-    what was timed), or (None, why not)."""
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+SDPA_WORDS = {"FLASH_ATTENTION": "flash attention",
+              "EFFICIENT_ATTENTION": "efficient",
+              "CUDNN_ATTENTION": "cudnn"}
+
+
+def sdpa_candidates(build) -> dict:
+    """The library yardstick on every SDPA backend: ``build(backend)``
+    returns a call of ``scaled_dot_product_attention`` pinned to that
+    backend (with ``torch.nn.attention.sdpa_kernel``); each is run once.
+    → backend name → the call, or 'refused: why' (SDPA's warning or
+    error)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend
+
+    out = {}
+    for name in SDPA_BACKENDS:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fn = build(getattr(SDPBackend, name))
+                fn()
+                torch.cuda.synchronize()
+                out[name] = fn
+                continue
+            except (RuntimeError, ValueError, NotImplementedError) as exc:
+                # SDPA warns why each backend it considered declined; keep
+                # the warnings about the one pinned
+                why = [str(w.message) for w in caught
+                       if SDPA_WORDS[name] in str(w.message).lower()] \
+                    or [str(exc)]
+        text = re.sub(r"\s*\(Triggered internally at [^)]*\)\.?", "",
+                      " ".join(why))
+        out[name] = "refused: " + " ".join(text.split())[:240]
+    return out
+
+
+def pinned(backend, call):
+    """``call`` run under ``sdpa_kernel(backend)``."""
+    from torch.nn.attention import sdpa_kernel
+
+    def run():
+        with sdpa_kernel(backend):
+            return call()
+    return run
+
+
+def sdpa_backward(backend, q, k, v, biases, g, scale, mask_grad=False):
+    """SDPA's backward on ``backend``: the forward is run pinned (the
+    backend is chosen there and its backward recorded), on contiguous
+    (b, h, n, d) copies with the biases summed into one mask of q's dtype;
+    the call returned is the backward alone — dq, dk, dv, and with
+    ``mask_grad`` the (b, h, n, m) mask's gradient, unreduced."""
     import torch.nn.functional as F
 
-    try:
-        from torch.nn.attention import SDPBackend, sdpa_kernel
-    except ImportError as exc:
-        return None, f"no torch.nn.attention.sdpa_kernel ({exc})"
     b, n, h, _ = q.shape
     m = k.shape[1]
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    bsum = sum(biases).expand(b, h, n, m).to(q.dtype).contiguous()
-    bsum.requires_grad_()
+    mask = None
+    if biases:
+        mask = sum(biases).expand(b, h, n, m).to(q.dtype).contiguous()
+        mask.requires_grad_(mask_grad)
+    leaves = (qt, kt, vt) + ((mask,) if mask_grad else ())
+    o = pinned(backend, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale))()
     go = g.transpose(1, 2).contiguous()
-    try:
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bsum,
-                                               scale=scale)
-            torch.autograd.grad(o, (qt, kt, vt, bsum), go, retain_graph=True)
-    except RuntimeError as exc:
-        return None, f"the memory-efficient backend refused: {exc}"[:300]
-    ms = device_ms(lambda: torch.autograd.grad(o, (qt, kt, vt, bsum), go,
-                                               retain_graph=True))
-    return ms, ("SDPA memory-efficient backward: dq, dk, dv and the "
-                "(b, h, n, m) mask gradient")
+    return lambda: torch.autograd.grad(o, leaves, go, retain_graph=True)
+
+
+def against_library(kernel, candidates: dict) -> dict:
+    """Each accepted backend timed once; then the kernel and the fastest
+    backend in turns (kernel, library, library, kernel), so that the two
+    are read under the same conditions.  → kernel_ms and library_ms (the
+    means of their two turns), the backend, every reading."""
+    each = {name: device_ms(fn) if callable(fn) else fn
+            for name, fn in candidates.items()}
+    timed = {name: ms for name, ms in each.items() if not isinstance(ms, str)}
+    if not timed:
+        k1 = device_ms(kernel)
+        return {"kernel_ms": k1, "library_ms": None, "library_backend": None,
+                "backends": each, "turns": (k1,)}
+    best = min(timed, key=timed.get)
+    k1 = device_ms(kernel)
+    l1 = device_ms(candidates[best])
+    l2 = device_ms(candidates[best])
+    k2 = device_ms(kernel)
+    return {"kernel_ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+            "library_backend": best, "backends": each,
+            "turns": (k1, l1, l2, k2)}
+
+
+def library_note(r: dict) -> str:
+    """One log fragment: each backend's time (or refusal), the turns and
+    their spreads."""
+    parts = [f"{name} {ms:.4f} ms" if not isinstance(ms, str)
+             else f"{name} {ms}" for name, ms in r["backends"].items()]
+    if r["library_ms"] is None:
+        return "library: " + "; ".join(parts)
+    k1, l1, l2, k2 = r["turns"]
+    spread = lambda a, b: 100 * abs(a - b) / ((a + b) / 2)  # noqa: E731
+    return (f"library {r['library_ms']:.4f} ms ({r['library_backend']}); "
+            f"backends: {'; '.join(parts)}; turns kernel {k1:.4f} / "
+            f"{k2:.4f} ms (spread {spread(k1, k2):.1f} %), library "
+            f"{l1:.4f} / {l2:.4f} ms (spread {spread(l1, l2):.1f} %)")
 
 
 def timing():
@@ -1782,7 +1939,7 @@ def timing():
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
-    rows, wmma = {}, {}
+    rows, wmma, extra = {}, {}, {}
     bf16 = torch.bfloat16
 
     def wmma_ms(key, fn, m, k, n, rank=0):
@@ -1815,15 +1972,21 @@ def timing():
         for x in biases:
             bsum = x if bsum is None else bsum + x
         bsum = None if bsum is None else bsum.expand(b, h, n, m).to(bf16)
-        ms = device_ms(lambda: A.attention_core(q, k_, v, biases, scale))
+        lib = against_library(
+            lambda: A.attention_core(q, k_, v, biases, scale),
+            sdpa_candidates(lambda be: pinned(
+                be, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bsum, scale=scale))))
+        ms = lib["kernel_ms"]
         plain = device_ms(lambda: A.mha_reference(q, k_, v, biases, scale))
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bsum, scale=scale))
         bound, by = flash_bound_ms(q, k_, v, biases)
-        rows[("flash_attention", name)] = (ms, plain, lib, bound, by)
+        rows[("flash_attention", name)] = (ms, plain, lib["library_ms"],
+                                           bound, by)
+        extra[("flash_attention", name)] = {
+            "library_backend": lib["library_backend"]}
         log(f"  time flash_attention {name:22s} b={b} n={n} m={m} h={h} "
-            f"d={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"d={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); {library_note(lib)}")
     for name, m, k, n, r in LORA_SHAPES:
         x, w, mask, a, b = lora_inputs(m, k, n, r, bf16)
         s = 16.0 / r
@@ -1842,59 +2005,65 @@ def timing():
             f"{expected_loop(m, k, n, bf16, r):5s}: kernel {ms:.4f} ms{old}, "
             f"plain {plain:.4f} ms, torch.matmul(x, E) {lib:.4f} ms, bound "
             f"{bound:.4f} ms ({by})")
-    # the wrappers' times include delta = rowsum(g ⊙ out), formed in torch;
-    # the plain version computes dq, dk and dv together; the library call
-    # is the backward of SDPA (all three) on contiguous (b, h, n, d) copies
-    # with the biases summed into one bf16 mask
+    # the attention backward at every training shape: the TMA + wgmma
+    # route as the whole backward (delta pre-pass + main kernel + dq cast),
+    # forced with ``_impl``; the mma.sync route (the pre-pass's delta, dq,
+    # dk/dv) in the same call; the plain version (dq, dk, dv together);
+    # the library: SDPA's backward (all three) on each backend, on
+    # contiguous (b, h, n, d) copies with the biases summed into one bf16
+    # mask, in turns with the new route
     for name, b, n, m, h, d, kinds, scale in BWD_SHAPES:
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
         g = grad_like(q)
         out, lse = A.flash_attention(q, k_, v, biases, scale)
         args = (q, k_, v, out, lse, g, biases, scale)
-        dq_ms = device_ms(lambda: A.flash_attention_backward(
-            *args, need_dkv=False))
-        dkv_ms = device_ms(lambda: A.flash_attention_backward(
-            *args, need_dq=False))
+        lib = against_library(
+            lambda: A.flash_attention_backward(*args, _impl=A.WGMMA),
+            sdpa_candidates(lambda be: sdpa_backward(be, q, k_, v, biases,
+                                                     g, scale)))
+        ms = lib["kernel_ms"]
+        pr2 = device_ms(lambda: A.flash_attention_backward(*args,
+                                                           _impl=A.MMA))
         plain = device_ms(lambda: A.flash_attention_backward_ref(*args))
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k_, v))
-        bsum = None
-        for x in biases:
-            bsum = x if bsum is None else bsum + x
-        bsum = None if bsum is None else bsum.expand(b, h, n, m).to(bf16)
-        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bsum,
-                                           scale=scale)
-        go = g.transpose(1, 2).contiguous()
-        lib = device_ms(lambda: torch.autograd.grad(
-            o, (qt, kt, vt), go, retain_graph=True))
-        for kname, ms in (("flash_attention_bwd_dq", dq_ms),
-                          ("flash_attention_bwd_dkv", dkv_ms)):
-            which = "dq" if kname.endswith("dq") else "dkv"
-            bound, by = flash_bwd_bound_ms(q, k_, v, biases, which)
-            rows[(kname, name)] = (ms, plain, lib, bound, by)
-            log(f"  time {kname:23s} {name:16s} b={b} n={n} m={m} h={h} "
-                f"d={d}: kernel {ms:.4f} ms, plain (dq+dk+dv) {plain:.4f} "
-                f"ms, sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
-                f"({by})")
-    # dbias of the position bias (the wrapper forms delta in torch, as the
-    # dq and dk/dv wrappers do)
+        delta = device_ms(lambda: torch.einsum("bnhd,bnhd->bhn", g.float(),
+                                               out.float()))
+        bound, by = flash_bwd_bound_ms(q, k_, v, biases)
+        for kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            rows[(kname, name)] = (ms, plain, lib["library_ms"], bound, by)
+            extra[(kname, name)] = {"pr2_ms": pr2,
+                                    "library_backend": lib["library_backend"]}
+        log(f"  time flash_attention_bwd {name:16s} b={b} n={n} m={m} "
+            f"h={h} d={d} (plan {A.plan(n, m, d)}): TMA + wgmma whole "
+            f"backward {ms:.4f} ms, mma.sync route {pr2:.4f} ms "
+            f"({pr2 / ms:.2f}x), plain {plain:.4f} ms, bound {bound:.4f} ms "
+            f"({by}); delta as a torch einsum of fp32 upcasts (the older "
+            f"route's before the pre-pass) alone {delta:.4f} ms; "
+            f"{library_note(lib)}")
+    # dbias of the position bias; the library: SDPA's backward with a
+    # mask that requires a gradient, on each backend that accepts it
     name, b, n, m, h, d, kinds, scale, causal = next(
         c for c in DBIAS_SHAPES if c[0] == DBIAS_TIMED)
     q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
     g = grad_like(q)
     out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
     args = (q, k_, v, out, lse, g, biases, 0, scale, causal)
-    ms = device_ms(lambda: A.flash_attention_dbias(*args))
+    lib = against_library(
+        lambda: A.flash_attention_dbias(*args),
+        sdpa_candidates(lambda be: sdpa_backward(be, q, k_, v, biases, g,
+                                                 scale, mask_grad=True)))
+    ms = lib["kernel_ms"]
     plain = device_ms(lambda: A.flash_attention_dbias_ref(*args))
-    lib, what = sdpa_dbias_ms(q, k_, v, biases, g, scale)
     bound, by = dbias_bound_ms(q, k_, v, biases, 0)
-    rows[("flash_attention_bwd_dbias", name)] = (ms, plain, lib, bound, by)
+    rows[("flash_attention_bwd_dbias", name)] = (ms, plain, lib["library_ms"],
+                                                 bound, by)
+    extra[("flash_attention_bwd_dbias", name)] = {
+        "library_backend": lib["library_backend"]}
     log(f"  time flash_attention_bwd_dbias {name} b={b} n={n} m={m} h={h} "
         f"d={d} biases={kinds}, the gradient of {tuple(biases[0].shape)}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-        f"{'—' if lib is None else f'{lib:.4f} ms'} ({what}), bound "
-        f"{bound:.4f} ms ({by})")
-    return rows, wmma
+        f"kernel {ms:.4f} ms (delta by the pre-pass), plain {plain:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}); {library_note(lib)} (SDPA: dq, dk, "
+        f"dv and the unreduced (b, h, n, m) mask gradient)")
+    return rows, wmma, extra
 
 
 def timing_compressed(rows):
@@ -1967,7 +2136,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     log(f"[device] {name} | {smi} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda} (the library yardsticks' versions)")
 
     t0 = time.perf_counter()
     secs = _cuda.build()
@@ -2026,28 +2195,33 @@ def main() -> int:
     profile_sparsegpt_prune(e2e)
     profile_first_order(e2e)
     phase_done("profile")
-    log("[timing] bf16, median of 20 calls, CUDA events, L2 flushed before "
-        "each call")
-    rows, wmma = timing()
+    log("[timing] bf16, each reading the median of 20 calls, CUDA events, "
+        "L2 flushed before each call; attention kernels and their library "
+        "call in turns (kernel, library, library, kernel), the means")
+    rows, wmma, extra = timing()
     timing_compressed(rows)
     phase_done("timing")
     log(f"[phases] wall-clock s: "
         f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
 
+    # the attention backward's two rows both report the TMA + wgmma
+    # route's whole backward (its time, bound and launches, beside the
+    # mma.sync route's time and launches)
     kernels = []
     csrc = "vlm_compression_tpu_torch/csrc/"
     for kname, timed, src, repl in (
-            ("masked_matmul", MM_TIMED, csrc + "masked_matmul.cu",
+            ("masked_matmul", MM_TIMED, csrc + "masked_matmul_wgmma.cu",
              "vlm_compression_tpu/ops/masked_linear.py:67"),
             ("flash_attention", FLASH_TIMED, csrc + "flash_attention.cu",
              "vlm_compression_tpu/ops/attention.py:107"),
-            ("sparse_lora_matmul", LORA_TIMED, csrc + "masked_matmul.cu",
+            ("sparse_lora_matmul", LORA_TIMED,
+             csrc + "masked_matmul_wgmma.cu",
              "vlm_compression_tpu/ops/masked_linear.py:309"),
             ("flash_attention_bwd_dq", BWD_TIMED,
-             csrc + "flash_attention_bwd.cu",
+             csrc + "flash_attention_bwd_wgmma.cu",
              "vlm_compression_tpu/ops/attention.py:296"),
             ("flash_attention_bwd_dkv", BWD_TIMED,
-             csrc + "flash_attention_bwd.cu",
+             csrc + "flash_attention_bwd_wgmma.cu",
              "vlm_compression_tpu/ops/attention.py:331"),
             ("masked_matmul_packed", PACKED_TIMED, csrc + "masked_matmul.cu",
              "vlm_compression_tpu/ops/masked_linear.py:194"),
@@ -2057,13 +2231,21 @@ def main() -> int:
              csrc + "flash_attention_bwd.cu",
              "vlm_compression_tpu/ops/attention.py:371")):
         ms, plain, lib, bound, by = rows[(kname, timed)]
+        bwd = kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+        launches = {p: c[kname] + (c[BWD_WGMMA] if bwd else 0)
+                    for p, c in counts.items()}
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": sum(c[kname] for c in counts.values()),
-            "launches_by_phase": {p: c[kname] for p, c in counts.items()},
+            "launches": sum(launches.values()),
+            "launches_by_phase": launches,
+            **({"launches_by_route": {
+                "wgmma": sum(c[BWD_WGMMA] for c in counts.values()),
+                "mma": sum(c[kname] for c in counts.values())}}
+               if bwd else {}),
             "max_abs_err": worst[(kname, timed, torch.bfloat16)],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "shape": timed,
+            **extra.get((kname, timed), {}),
             **({"wmma_loop_ms": wmma[(kname, timed)]}
                if (kname, timed) in wmma else {})})
     log(f"[e2e] {json.dumps(e2e)}  total {time.perf_counter() - t_start:.1f} s")

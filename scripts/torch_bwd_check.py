@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Both bf16 routes of the port's attention backward against the plain
+version, then timed, on one CUDA card.
+
+    python3 scripts/torch_bwd_check.py
+
+Run from the root of a checkout.  At every shape of chip_smoke.py's
+``BWD_SHAPES`` and five more (causal n = m and n > m, ragged n = m = 200,
+ragged causal n = 200 m = 130, the T5 decoder's position bias with its
+additive causal mask), for dq, dk and dv together, dq alone and dk/dv
+alone, it runs the TMA + wgmma route and the mma.sync route (forced with
+``_impl``) from the same forward's out and lse, and prints each gradient's
+max |kernel − plain| over max(1, max |plain|) (chip_smoke's bf16 tolerance
+is 2e-2).  Then, at the ``BWD_SHAPES`` shapes, the whole backward's time on
+each route (chip_smoke's ``device_ms``: median of 20 calls, L2 flushed),
+the new route twice around the old one.  Exits non-zero if any gradient
+is out of tolerance.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as CS  # noqa: E402
+from vlm_compression_tpu_torch.ops import attention as A  # noqa: E402
+
+EXTRA = [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True),
+         ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True),
+         ("ragged_200", 2, 200, 200, 4, 88, ["rel"], 0.125, False),
+         ("ragged_causal", 2, 200, 130, 4, 64, [], 0.125, True),
+         ("relc_70", 2, 70, 70, 4, 64, ["relc", "pad"], 1.0, False)]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_bwd_check: no CUDA device", file=sys.stderr)
+        return 2
+    cases = [(name, b, n, m, h, d, kinds, scale, False)
+             for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES] + EXTRA
+    bad = 0
+    for name, b, n, m, h, d, kinds, scale, causal in cases:
+        q, k, v, biases = CS.flash_inputs(b, n, m, h, d, kinds,
+                                          torch.bfloat16)
+        g = CS.grad_like(q)
+        out, lse = A.flash_attention(q, k, v, biases, scale, causal)
+        want = A.flash_attention_backward_ref(q, k, v, out, lse, g, biases,
+                                              scale, causal)
+        for impl in (A.WGMMA, A.MMA):
+            for need in ((True, True), (True, False), (False, True)):
+                got = A.flash_attention_backward(
+                    q, k, v, out, lse, g, biases, scale, causal, *need,
+                    _impl=impl)
+                errs = [None if x is None else
+                        (lambda e: e[0] / e[1])(CS.max_err(x, y))
+                        for x, y in zip(got, want)]
+                ok = all(e is None or e <= 2e-2 for e in errs)
+                bad += not ok
+                print(f"{name:16s} {impl:5s} dq={need[0]} dkv={need[1]} "
+                      f"relative err dq/dk/dv "
+                      f"{'/'.join('-' if e is None else f'{e:.2e}' for e in errs)}"
+                      f" {'ok' if ok else 'FAIL'}", flush=True)
+    for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES:
+        q, k, v, biases = CS.flash_inputs(b, n, m, h, d, kinds,
+                                          torch.bfloat16)
+        g = CS.grad_like(q)
+        out, lse = A.flash_attention(q, k, v, biases, scale)
+        args = (q, k, v, out, lse, g, biases, scale)
+        new1 = CS.device_ms(lambda: A.flash_attention_backward(
+            *args, _impl=A.WGMMA))
+        old = CS.device_ms(lambda: A.flash_attention_backward(
+            *args, _impl=A.MMA))
+        new2 = CS.device_ms(lambda: A.flash_attention_backward(
+            *args, _impl=A.WGMMA))
+        print(f"time {name}: TMA + wgmma {new1:.4f} / {new2:.4f} ms, "
+              f"mma.sync {old:.4f} ms", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    print(f"{bad} out of tolerance", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

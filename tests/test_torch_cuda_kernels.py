@@ -213,14 +213,110 @@ def test_flash_backward_matches_plain(cuda, dtype, b, n, m, h, d,
     g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
                      device=cuda).to(dtype)
     out, lse = A.flash_attention(q, k, v, biases, scale, causal)
-    before = (A.dq_launches, A.dkv_launches)
+    before = (A.dq_launches, A.dkv_launches, A.bwd_wgmma_launches)
     got = A.flash_attention_backward(q, k, v, out, lse, g, biases, scale,
                                      causal)
-    assert (A.dq_launches, A.dkv_launches) == (before[0] + 1, before[1] + 1)
+    # the route ``plan`` picks: one TMA + wgmma launch, or dq and dk/dv
+    wg = A.plan(n, m, d, bf16=dtype == torch.bfloat16) == A.WGMMA
+    assert (A.dq_launches, A.dkv_launches, A.bwd_wgmma_launches) == (
+        before[0] + (not wg), before[1] + (not wg), before[2] + wg)
     want = A.flash_attention_backward_ref(q, k, v, out, lse, g, biases,
                                           scale, causal)
     for gg, ww in zip(got, want):
         _close(gg, ww, dtype)
+
+
+# the bf16 TMA + wgmma route (forced where ``plan`` would pick it anyway)
+# and the mma.sync route, each against the plain version, with dq alone
+# and dk/dv alone; the dq atomics sum in another order than the plain
+# version, as the mma.sync kernels' registers do: the bf16 tolerance holds
+BWD_CASES = [
+    (2, 257, 257, 16, 88, [], 88 ** -0.5, False),          # EVA ViT-g self
+    (2, 32, 257, 12, 64, ["pad"], 0.125, False),           # Q-Former cross
+    (2, 72, 72, 12, 64, ["pad"], 0.125, False),            # Q-Former self
+    (2, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0, False),  # T5 encoder
+    (2, 12, 12, 32, 64, ["relc", "pad"], 1.0, False),     # T5 decoder self
+    (2, 12, 72, 32, 64, ["pad"], 1.0, False),              # T5 cross
+    (2, 40, 40, 4, 64, [], 0.125, True),                  # causal, n = m
+    (2, 9, 5, 2, 64, [], 1.0, True),                      # causal, n > m
+    (2, 200, 200, 4, 88, [(1, 4, 200, 200)], 0.125, False),   # ragged
+    (1, 130, 200, 2, 40, [(1, 1, 130, 200)], 0.1, True),  # ragged, causal
+]
+
+
+@pytest.mark.parametrize("impl", [A.WGMMA, A.MMA])
+@pytest.mark.parametrize("need", [(True, True), (True, False),
+                                  (False, True)])
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale,causal", BWD_CASES)
+def test_flash_backward_routes_match_plain(cuda, impl, need, b, n, m, h, d,
+                                           bias_shapes, scale, causal):
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, b, n, m, h, d,
+                                 bias_shapes)
+    g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
+                     device=cuda).to(torch.bfloat16)
+    out, lse = A.flash_attention(q, k, v, biases, scale, causal)
+    before = A.bwd_wgmma_launches
+    got = A.flash_attention_backward(q, k, v, out, lse, g, biases, scale,
+                                     causal, *need, _impl=impl)
+    assert A.bwd_wgmma_launches == before + (impl == A.WGMMA)
+    want = A.flash_attention_backward_ref(q, k, v, out, lse, g, biases,
+                                          scale, causal)
+    for gg, ww, asked in zip(got, want, (need[0], need[1], need[1])):
+        assert (gg is None) == (not asked)
+        if asked:
+            _close(gg, ww, torch.bfloat16)
+
+
+def test_flash_backward_wgmma_on_views_of_fused_qkv(cuda):
+    rng = np.random.default_rng(3)
+    qkv = torch.tensor(rng.standard_normal((2, 257, 3, 16, 88)),
+                       device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    g = torch.tensor(rng.standard_normal((2, 257, 16, 88)),
+                     device=cuda).to(torch.bfloat16)
+    out, lse = A.flash_attention(q, k, v, (), 88 ** -0.5)
+    assert A._tma_aligned(q, k, v, g, out)
+    before = A.bwd_wgmma_launches
+    got = A.flash_attention_backward(q, k, v, out, lse, g, (), 88 ** -0.5)
+    assert A.bwd_wgmma_launches == before + 1
+    want = A.flash_attention_backward_ref(q, k, v, out, lse, g, (),
+                                          88 ** -0.5)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.bfloat16)
+
+
+def test_bf16_attention_autograd_runs_the_wgmma_backward(cuda):
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, 2, 72, 72, 8, 64,
+                                 [(1, 8, 72, 72), "pad"])
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = torch.randn(2, 72, 8, 64, device=cuda).to(torch.bfloat16)
+    before = (A.bwd_wgmma_launches, A.dq_launches, A.dkv_launches)
+    got = torch.autograd.grad(A.attention_core(q, k, v, biases, 1.0),
+                              (q, k, v), g)
+    assert (A.bwd_wgmma_launches, A.dq_launches, A.dkv_launches) == (
+        before[0] + 1, before[1], before[2])
+    out, lse = A.flash_attention(q.detach(), k.detach(), v.detach(), biases,
+                                 1.0)
+    want = A.flash_attention_backward_ref(q.detach(), k.detach(), v.detach(),
+                                          out, lse, g, biases, 1.0)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.bfloat16)
+
+
+def test_the_pre_pass_delta_matches_plain(cuda):
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _ = _attn_case(cuda, dtype, 2, 72, 72, 4, 88, [])
+        g = torch.randn(2, 72, 4, 88, device=cuda).to(dtype)
+        out, _ = A.flash_attention(q, k, v)
+        want = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float())
+        torch.testing.assert_close(A._delta(g, out), want, rtol=1e-5,
+                                   atol=1e-5)
+        # scalar loads: a head dim off 8
+        g2, o2 = g[..., :84].contiguous(), out[..., :84].contiguous()
+        torch.testing.assert_close(
+            A._delta(g2, o2),
+            torch.einsum("bnhd,bnhd->bhn", g2.float(), o2.float()),
+            rtol=1e-5, atol=1e-5)
 
 
 def test_attention_autograd_runs_the_backward_kernels(cuda):

@@ -170,6 +170,30 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _cuda.build(["masked_matmul"])
 
 
+def test_backward_without_its_library_raises(monkeypatch, tmp_path):
+    """The TMA + wgmma backward on a tensor the kernels serve, with its
+    library not built and no nvcc to build it: the wrapper raises; it does
+    not fall back to the plain version, and counts no launch."""
+    import torch.utils.cpp_extension as cpp
+
+    monkeypatch.setenv("VCT_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda, "_LIBS", {})
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(TA, "_on_card", lambda t: True)
+    q = torch.zeros(2, 257, 4, 88, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 4, 257)
+    assert TA.plan(257, 257, 88) == TA.WGMMA
+    counts = (TA.bwd_wgmma_launches, TA.dq_launches, TA.dkv_launches,
+              TA.delta_launches)
+    for impl in (None, TA.MMA):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            TA.flash_attention_backward(q, q, q, q, lse, q, _impl=impl)
+    assert (TA.bwd_wgmma_launches, TA.dq_launches, TA.dkv_launches,
+            TA.delta_launches) == counts
+
+
 @pytest.mark.parametrize("m,n,k", [(20, 2048, 5120), (20, 5120, 2048),
                                    (7, 77, 1001), (32896, 6144, 1408),
                                    (1, 1, 1), (288, 768, 3072)])
@@ -200,8 +224,11 @@ def test_kernel_sources_export_the_bound_entry_points():
 def test_the_hopper_loop_is_tma_wgmma_and_mbarriers():
     """The Hopper main loop is built from TMA loads, mbarrier stages,
     warpgroup MMAs and register rebalancing, and the Hopper entry points'
-    source includes it."""
-    src = (_cuda.CSRC / "wgmma_tile.cuh").read_text()
+    source includes it.  The PTX wrappers live in ``hopper.cuh``, which the
+    loop includes."""
+    loop = (_cuda.CSRC / "wgmma_tile.cuh").read_text()
+    assert '#include "hopper.cuh"' in loop
+    src = loop + (_cuda.CSRC / "hopper.cuh").read_text()
     for ptx in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
                 "mbarrier.arrive.expect_tx", "wgmma.mma_async",
                 "wgmma.wait_group", "setmaxnreg", "fence.proxy.async"):
@@ -209,3 +236,27 @@ def test_the_hopper_loop_is_tma_wgmma_and_mbarriers():
     assert '#include "wgmma_tile.cuh"' in (
         _cuda.CSRC / "masked_matmul_wgmma.cu").read_text()
     assert "masked_matmul_wgmma" in _cuda.SOURCES
+
+
+def test_the_attention_backward_is_tma_wgmma_and_mbarriers():
+    """The bf16 attention backward's main kernel loads its tiles by TMA
+    through an mbarrier ring and multiplies with warpgroup MMAs (SS and
+    RS), from the shared Hopper helpers, which the matmuls' loop uses
+    too; its source builds on its own."""
+    src = (_cuda.CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+    hopper = (_cuda.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src
+    for call in ("tma_load_4d", "bulk_load", "mbar_expect_tx", "mbar_wait",
+                 "mbar_arrive", "wgmma_ss_n64", "wgmma_rs_dp",
+                 "wgmma_ss_dp", "wgmma_commit", "wgmma_wait", "setmaxnreg",
+                 "fence.proxy.async", "atomicAdd", "flash_bwd_delta_kernel",
+                 "flash_bwd_dq_cast_kernel"):
+        assert call in src, call
+    for ptx in ("cp.async.bulk.tensor.4d", "cp.async.bulk.shared",
+                "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+                "wgmma.mma_async.sync.aligned.m64n64k16",
+                "wgmma.mma_async.sync.aligned.m64n96k16"):
+        assert ptx in hopper, ptx
+    assert '#include "hopper.cuh"' in (_cuda.CSRC / "wgmma_tile.cuh") \
+        .read_text()
+    assert "flash_attention_bwd_wgmma" in _cuda.SOURCES

@@ -200,6 +200,15 @@ def test_clamp_infs_matches_jax():
 # ------------------------------------------------------------- pruners
 
 
+def _assert_nm(tres, pruned, prune_n, prune_m):
+    """Every mask keeps m − n of each group of m consecutive inputs."""
+    masks = export_masks(tres)
+    for path in pruned:
+        keep = np.asarray(masks[path])
+        groups = keep.reshape(keep.shape[0] // prune_m, prune_m, -1).sum(1)
+        assert (groups == prune_m - prune_n).all(), "/".join(path)
+
+
 def _assert_pruned_like_jax(tres, jvars, pruned, lora_model):
     """Masks bit-equal; every pruned linear's updated kernel within the
     weights' tolerance; lora_model=False keeps no mask."""
@@ -253,19 +262,34 @@ def _seeded_biases(variables, tm, seed):
     return variables
 
 
-@pytest.mark.parametrize("lora_model", [True, False])
-def test_blipt5_sparsegpt_pruner_matches_jax(lora_model):
+# n:m cases calibrate on 8 batches of 8 samples: at 2 × 4 the n:m sweep
+# meets near-ties whose order rounding decides, at 8 × 8 every mask is
+# bit-equal to the JAX pruner's, with the seeded biases or without
+NM_CASES = [(True, 0, 0), (False, 0, 0), (True, 2, 4), (True, 4, 8)]
+
+
+def _nm_calibration(seed, prune_n):
+    if not prune_n:
+        return _calib_batches(seed), dict(SPECS)
+    return (_calib_batches(seed, n=8, bs=8),
+            dict(SPECS, num_samples=64, prune_n=prune_n,
+                 prune_m=2 * prune_n))
+
+
+@pytest.mark.parametrize("lora_model,prune_n,prune_m", NM_CASES)
+def test_blipt5_sparsegpt_pruner_matches_jax(lora_model, prune_n, prune_m):
     jm, variables, tm, _ = tiny_blip(seed=41, masks=False)
     variables = _seeded_biases(variables, tm, 41)
-    batches = _calib_batches(42)
+    batches, specs = _nm_calibration(42, prune_n)
+    assert specs.get("prune_m", 0) == prune_m
     jp = jax_load_pruner(
         "blipt5_sparsegpt_pruner", FlaxModel(jm, _copy_spine(variables)),
         [{k: jnp.asarray(v) for k, v in b.items()} for b in batches],
-        **SPECS)
+        **specs)
     jres, _ = jp.prune(lora_model=lora_model)
     tp = load_pruner("blipt5_sparsegpt_pruner", tm,
                      [{k: _t(v) for k, v in b.items()} for b in batches],
-                     **SPECS)
+                     **specs)
     assert tp.with_hessian
     with torch.no_grad():
         tres, _ = tp.prune(lora_model=lora_model)
@@ -274,20 +298,22 @@ def test_blipt5_sparsegpt_pruner_matches_jax(lora_model):
         ("visual_encoder",), ("t5_model", "encoder"), ("t5_model", "decoder")))
     assert len(pruned) == 2 * 4 + 2 * 7 + 2 * 11
     _assert_pruned_like_jax(tres, jres.variables, pruned, lora_model)
+    if prune_n:
+        _assert_nm(tres, pruned, prune_n, prune_m)
 
 
-def _t5_case(seed):
+def _t5_case(seed, n=2, bs=4):
     rng = np.random.default_rng(seed)
     jcfg = JT.T5Config.tiny(**F32)
     jm = JT.T5ForConditionalGeneration(jcfg)
     batches = []
-    for _ in range(2):
-        mask = np.ones((4, 7), np.int32)
+    for _ in range(n):
+        mask = np.ones((bs, 7), np.int32)
         mask[1, -3:] = 0
-        labels = rng.integers(1, jcfg.vocab_size, (4, 5)).astype(np.int32)
+        labels = rng.integers(1, jcfg.vocab_size, (bs, 5)).astype(np.int32)
         labels[2, -2:] = -100
         batches.append(dict(
-            input_ids=rng.integers(1, jcfg.vocab_size, (4, 7)).astype(
+            input_ids=rng.integers(1, jcfg.vocab_size, (bs, 7)).astype(
                 np.int32), attention_mask=mask, labels=labels))
     b0 = batches[0]
     variables = numpy_tree(jm.init(
@@ -300,12 +326,12 @@ def _t5_case(seed):
     return jm, variables, tm, batches, (("encoder",), ("decoder",))
 
 
-def _vit_case(seed):
+def _vit_case(seed, n=2, bs=4):
     rng = np.random.default_rng(seed)
     jcfg = JV.EvaViTConfig.tiny(**F32)
     jm = JV.EvaViT(jcfg)
-    batches = [dict(image=rng.standard_normal((4, 28, 28, 3)).astype(
-        np.float32)) for _ in range(2)]
+    batches = [dict(image=rng.standard_normal((bs, 28, 28, 3)).astype(
+        np.float32)) for _ in range(n)]
     variables = numpy_tree(jm.init(jax.random.key(seed),
                                    jnp.asarray(batches[0]["image"]),
                                    mode="dense"))
@@ -313,12 +339,16 @@ def _vit_case(seed):
     return jm, variables, tm, batches, ((),)
 
 
+@pytest.mark.parametrize("prune_n,prune_m", [(0, 0), (2, 4), (4, 8)])
 @pytest.mark.parametrize("tower", ["t5", "vit"])
-def test_tower_sparsegpt_pruners_match_jax(tower):
+def test_tower_sparsegpt_pruners_match_jax(tower, prune_n, prune_m):
     jm, variables, tm, batches, towers = (_t5_case if tower == "t5"
-                                          else _vit_case)(43)
+                                          else _vit_case)(
+        43, n=8 if prune_n else 2, bs=8 if prune_n else 4)
     variables = _seeded_biases(variables, tm, 43)
     spec = dict(prune_spec="2-0.5-1.0-1.0", num_samples=8)
+    if prune_n:   # 8 batches of 8 samples, as the blipt5 n:m cases
+        spec.update(num_samples=64, prune_n=prune_n, prune_m=prune_m)
     name = f"{tower}_sparsegpt_pruner"
     jp = jax_load_pruner(name, FlaxModel(jm, _copy_spine(variables)),
                          [{k: jnp.asarray(v) for k, v in b.items()}
@@ -331,3 +361,5 @@ def test_tower_sparsegpt_pruners_match_jax(tower):
     pruned = _block_linears(jres.variables["params"], towers)
     assert pruned
     _assert_pruned_like_jax(tres, jres.variables, pruned, True)
+    if prune_n:
+        _assert_nm(tres, pruned, prune_n, prune_m)

@@ -1,0 +1,737 @@
+// Flash-attention backward for Hopper (sm_90a), bf16: dq, dk and dv from
+// one TMA + wgmma kernel per kv tile, with delta and the dq sum done by
+// two small passes.
+//
+// Replaces, on the bf16 route that ops/attention.py `plan` picks, the
+// Pallas TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel`
+// (vlm_compression_tpu/ops/attention.py:296 and :331, launched by
+// `_flash_backward_pallas`), which flash_attention_bwd.cu ported as two
+// mma.sync kernels (they stay: fp32, and the shapes this one does not
+// take).  The contract is theirs (flash_attention_bwd.cu:6-22):
+//   s  = (q · kᵀ) * scale + Σ bias_i (fp32, the forward's order),
+//   p  = exp(s − lse), ds = p ⊙ (g · vᵀ − delta) · scale,
+//   dq = ds · k;  dk = dsᵀ · q;  dv = pᵀ · g  (bf16 operands, fp32 sums);
+// hidden entries of the right-aligned causal flag have ds = 0, and rows
+// that see no key take the exact uniform p = 1/m in dv.  q/g (b, n, h, d)
+// and k/v (b, m, h, d) are strided views with a contiguous last dim; the
+// biases (at most two) are read at their broadcast shapes; dq, dk, dv are
+// written contiguous in bf16.
+//
+// Three kernels, launched in order on one stream by one C entry point:
+//   1. `flash_bwd_delta_kernel`: delta = rowsum(g ⊙ out) in fp32, half a
+//      warp a row, 16-byte loads; it copies lse beside it into a (b, h,
+//      n_pad) layout whose q tiles are 256-byte aligned (n_pad = n rounded
+//      up to 64), and zeroes the fp32 dq workspace (b, h, n_pad, DP) where
+//      the atomics add (rows < n, columns < d).  Alone it also serves the
+//      mma.sync route and the dbias kernel (any dtype, scalar loads where
+//      16-byte ones do not fit).
+//   2. `flash_bwd_wgmma_kernel`, one block per (kv tile of 64 rows, head,
+//      batch), walking the q tiles once; two warpgroups:
+//      * the producer (one thread): TMA loads (cp.async.bulk.tensor.4d,
+//        64-byte swizzle, boxes of 64 rows × 32 columns) of the block's K
+//        and V once, then of each q tile's Q and G into a ring of two
+//        stages, with its lse and delta rows (cp.async.bulk), on `full`
+//        mbarriers; a stage is refilled when the consumers free it
+//        (`empty`).  TMA's out-of-bounds zero fill pads d to DP (88 → 96)
+//        and blanks rows ≥ n or ≥ m, so nothing else handles an edge.
+//      * the consumer warpgroup owns the block's 64 kv rows, dK and dV in
+//        fp32 registers.  Per q tile: Sᵀ = K·Qᵀ and dPᵀ = V·Gᵀ (SS wgmma
+//        m64n64k16 over DP); pᵀ = exp(Sᵀ·scale + biases − lse) and
+//        dSᵀ = pᵀ ⊙ (dPᵀ − delta) · scale in the accumulator registers;
+//        cast to bf16 they are the register A operands of dV += Pᵀ·G and
+//        dK += dSᵀ·Q (RS wgmma m64nDPk16, G and Q MN-major); dSᵀ is also
+//        stored in shared memory (128-byte swizzle, two buffers) as the
+//        M-major A of dQ_tile = dS·K (SS wgmma), whose fp32 result is
+//        added into the workspace with vector atomics (red.global.add
+//        .v2.f32; bulk reduce-adds of the tile staged in shared memory
+//        were slower, PERF.md §6).  The five products of the function,
+//        not the mma.sync route's seven.  Only tiles on the ragged edge
+//        or the causal diagonal test each element; fully hidden tiles are
+//        skipped.
+//      setmaxnreg moves registers from the producer to the consumers; two
+//      blocks share an SM.
+//   3. `flash_bwd_dq_cast_kernel`: the workspace cast to bf16 into q's
+//      (b, n, h, d) layout.
+//
+// The atomics add the kv tiles' dq contributions in an order that changes
+// from call to call: dq's fp32 sum, and so its bf16 rounding, is not
+// bit-reproducible (chip_smoke.py prints |dq₁ − dq₂| over two identical
+// calls).  dk and dv are summed in registers in a fixed order.
+//
+// What bounds it on the H100: the function's 10·b·h·n·m·d operations on
+// the tensor cores against q, k, v, g, lse, delta (and the biases) read
+// once and dq, dk, dv written once.  At the ViT's shape (b 32, n = m =
+// 257, h 16, d 88) the bytes, 163 MB, 49 µs at 3.35 TB/s (the operations,
+// 29.8 GFLOP, take 30 µs at 989 TFLOP/s).  This design moves more: the
+// pre-pass reads g and out, the kernel reads Q and G once per kv tile (5
+// times at the ViT's shape, from L2), the dq atomics add 64 × d fp32 a
+// tile pair into L2 and the cast reads the workspace back.  Its tiles pad
+// the tensor work: 5 × 5 tiles of 64 cover 257 × 257 and DP = 96 covers
+// 88, so 41 % of it is padding at the ViT's shape.  What bounds the kernel
+// in practice is the chain of each q step (products, elementwise,
+// products, dq atomics) in one consumer warpgroup: PERF.md §6 has the
+// per-step timeline.  Compile with -DBWD_TRACE for a per-q-step clock64
+// timeline of block (0, 0, 0) (scripts/torch_bwd_trace.py).
+//
+// Preconditions (ops/attention.py `plan`): bf16; 32 < d ≤ 96, d % 8 == 0;
+// 16-byte aligned q, k, v, g, out bases and (batch, seq, head) strides.
+
+#include "hopper.cuh"
+
+#include <math.h>
+
+namespace {
+
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
+constexpr int BQ = 64, BKV = 64, STAGES = 2, THREADS = 256;
+constexpr int BOX = 32;                    // d columns a TMA box: 64 bytes
+constexpr int BOX_BYTES = 64 * BOX * 2;    // a 64-row box, 4 KB
+constexpr int DS_BYTES = BKV * BQ * 2;     // the bf16 dSᵀ tile, 8 KB
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K, V; two dSᵀ buffers; the ring's Q and G tiles; its lse and delta rows
+template <int DP>
+struct Smem {
+  static constexpr int NB = DP / BOX;                     // boxes a tile
+  static constexpr int TILE = NB * BOX_BYTES;             // 64 × DP bf16
+  static constexpr int STAGE = 2 * TILE;                  // Q and G
+  static constexpr int K_OFF = 0, V_OFF = TILE, DS_OFF = 2 * TILE;
+  static constexpr int RING_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int ROWS_OFF = RING_OFF + STAGES * STAGE;
+  static constexpr int BYTES =
+      ROWS_OFF + STAGES * 2 * BQ * 4 + 1024;   // + the alignment
+};
+
+struct Params {
+  const float* lse;     // (b, h, NP) fp32, rows ≥ n zero
+  const float* delta;   // (b, h, NP)
+  float* dq_ws;         // (b, h, NP, DP) fp32, zeroed where the atomics
+                        // add; null: no dq
+  bf16* dk;             // (b, m, h, d); null: no dk/dv
+  bf16* dv;
+  const float* bias[2];
+  long long bias_s[2][4];   // strides of (b, h, n, m), 0 on broadcast axes
+  int B, N, M, H, D, NP;
+  float scale;
+  int causal;
+};
+
+// -DBWD_TRACE: block (0, 0, 0) records clock64 at six points of each q
+// step (scripts/torch_bwd_trace.py reads them)
+#ifdef BWD_TRACE
+__device__ long long bwd_trace[6][64];
+#define TRACE(e, it)                                                      \
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && (it) < 64) \
+    bwd_trace[e][it] = clock64();
+#else
+#define TRACE(e, it)
+#endif
+
+// no row of the q tile sees a key of the kv tile, and each sees one
+// elsewhere (so its p here is exactly 0): nothing to add (hidden entries
+// have ds = 0)
+__device__ __forceinline__ bool skip_tile(const Params& p, int q0, int kv0) {
+  const int off = p.M - p.N;
+  return p.causal && q0 + off >= 0 && min(q0 + BQ - 1, p.N - 1) + off < kv0;
+}
+
+// 2^x on the special-function unit (the forward's exp(s − lse) as
+// 2^((s − lse)·log2 e); a result below the normal range flushes to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// pᵀ and dsᵀ of the tile in place of the Sᵀ and dPᵀ accumulators.  Element
+// 4jj + e of a thread: kv row r0 (e < 2) or r0 + 8, q column
+// 8jj + 2(lane % 4) + (e & 1).  EDGE: the tile crosses n, m or the causal
+// diagonal, so each element is tested.  NBIAS (0, 1, 2) is a template
+// argument so that the 32 elements unroll without a branch between them
+// and their latencies overlap.
+template <bool EDGE, int NBIAS>
+__device__ __forceinline__ void scores(const Params& p, float (&sc)[32],
+                                       float (&dp)[32], const float* s_lse,
+                                       const float* s_delta, const float* b0,
+                                       const float* b1, int q0, int kv0,
+                                       int r0, int lane) {
+  const int N = p.N, M = p.M, off = M - N;
+  const bool causal = p.causal;
+  const float scale = p.scale;
+  const long long s0i = p.bias_s[0][2], s0j = p.bias_s[0][3];
+  const long long s1i = p.bias_s[1][2], s1j = p.bias_s[1][3];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = 8 * jj + 2 * (lane & 3);
+    const float2 l2 = *reinterpret_cast<const float2*>(s_lse + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(s_delta + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * jj + e;
+      const int i = q0 + c + (e & 1), j = kv0 + r0 + (e < 2 ? 0 : 8);
+      const float lse_i = (e & 1) ? l2.y : l2.x;
+      const float delta_i = (e & 1) ? d2.y : d2.x;
+      float s = sc[x] * scale;
+      if (NBIAS > 0) {
+        // edge tiles read the bias at a clamped index; the entry is
+        // overwritten below
+        const long long ii = EDGE ? min(i, N - 1) : i;
+        const long long jc = EDGE ? min(j, M - 1) : j;
+        s += b0[ii * s0i + jc * s0j];
+        if (NBIAS > 1) s += b1[ii * s1i + jc * s1j];
+      }
+      float pv = exp2_approx((s - lse_i) * LOG2E);
+      float ds = pv * (dp[x] - delta_i) * scale;
+      if (EDGE) {
+        if (i >= N || j >= M) {
+          pv = 0.f;
+          ds = 0.f;
+        } else if (causal && j > i + off) {
+          // exact p of a hidden entry: 1/m in a row that sees no key (its
+          // lse, −1e9 + log m, rounds to −1e9 in fp32), else 0; ds = 0
+          pv = i + off < 0 ? 1.f / M : 0.f;
+          ds = 0.f;
+        }
+      }
+      sc[x] = pv;
+      dp[x] = ds;
+    }
+  }
+}
+
+// d (+)= A · B at N = DP, both operands in shared memory
+template <int DP, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_dp(float (&d)[DP / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  if constexpr (DP == 64)
+    wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_ss_n96<TA, TB>(d, da, db, scale_d);
+}
+
+// d += A (registers) · B (shared memory, MN-major) at N = DP
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_dp(float (&d)[DP / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_n64<1>(d, a, db);
+  else
+    wgmma_rs_n96<1>(d, a, db);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_g,
+                       const __grid_constant__ Params p) {
+  using S = Smem<DP>;
+  constexpr int NB = S::NB, KS = DP / 16, ND = DP / 2;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kv_full;
+  // aligned by an offset from the shared array (not an integer round
+  // trip), so that the compiler keeps shared loads and stores
+  uint8_t* smem = dyn_smem + ((1024 - (smem_u32(dyn_smem) & 1023)) & 1023);
+  uint8_t* ring = smem + S::RING_OFF;
+
+  const int tid = threadIdx.x, t = tid & 127, warp_group = tid >> 7;
+  const int kv0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z;
+  const int N = p.N, M = p.M, off = M - N;
+  const int n_qt = (N + BQ - 1) / BQ;
+  const long long row0 = (static_cast<long long>(b) * p.H + h) * p.NP;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);      // every consumer warp
+    }
+    mbar_init(&kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp_group == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (t == 0) {
+      mbar_expect_tx(&kv_full, 2 * S::TILE);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(smem + S::K_OFF + c * BOX_BYTES, &tm_k, &kv_full,
+                    c * BOX, kv0, h, b);
+        tma_load_4d(smem + S::V_OFF + c * BOX_BYTES, &tm_v, &kv_full,
+                    c * BOX, kv0, h, b);
+      }
+      int it = 0;
+      for (int qt = 0; qt < n_qt; ++qt) {
+        const int q0 = qt * BQ;
+        if (skip_tile(p, q0, kv0)) continue;
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        uint8_t* st = ring + s * S::STAGE;
+        uint8_t* rows = smem + S::ROWS_OFF + s * 2 * BQ * 4;
+        mbar_expect_tx(&full[s], 2 * S::TILE + 2 * BQ * 4);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load_4d(st + c * BOX_BYTES, &tm_q, &full[s], c * BOX, q0, h, b);
+          tma_load_4d(st + S::TILE + c * BOX_BYTES, &tm_g, &full[s], c * BOX,
+                      q0, h, b);
+        }
+        bulk_load(rows, p.lse + row0 + q0, BQ * 4, &full[s]);
+        bulk_load(rows + BQ * 4, p.delta + row0 + q0, BQ * 4, &full[s]);
+        TRACE(0, it);
+        ++it;
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumer
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = t >> 5, lane = t & 31;
+    const int r0 = warp * 16 + (lane >> 2);   // rows r0, r0 + 8 of a tile
+    const float* b0 = p.bias[0] ? p.bias[0] + b * p.bias_s[0][0] +
+                                      h * p.bias_s[0][1] : nullptr;
+    const float* b1 = p.bias[1] ? p.bias[1] + b * p.bias_s[1][0] +
+                                      h * p.bias_s[1][1] : nullptr;
+    const bool need_dkv = p.dk != nullptr, need_dq = p.dq_ws != nullptr;
+    const uint32_t k_a = smem_u32(smem + S::K_OFF);
+    const uint32_t v_a = smem_u32(smem + S::V_OFF);
+    float dk[ND], dv[ND];
+#pragma unroll
+    for (int x = 0; x < ND; ++x) dk[x] = dv[x] = 0.f;
+
+    mbar_wait(&kv_full, 0);
+    int it = 0;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * BQ;
+      if (skip_tile(p, q0, kv0)) continue;
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      if (t == 0) TRACE(1, it);
+      uint8_t* st = ring + s * S::STAGE;
+      const uint32_t q_a = smem_u32(st), g_a = q_a + S::TILE;
+      const float* s_lse = reinterpret_cast<const float*>(
+          smem + S::ROWS_OFF + s * 2 * BQ * 4);
+      const float* s_delta = s_lse + BQ;
+
+      // Sᵀ = K·Qᵀ and dPᵀ = V·Gᵀ: both operands K-major (64-byte rows of
+      // 32 d columns; k16 steps 32 bytes apart inside a box, boxes 4 KB
+      // apart; 8-row groups 512 bytes apart)
+      float sc[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+      fence_acc(sc);
+      fence_acc(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t o = (kk >> 1) * BOX_BYTES + (kk & 1) * 32;
+        wgmma_ss_n64<0, 0>(sc, sw64_desc(k_a + o, 16, 512),
+                           sw64_desc(q_a + o, 16, 512), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t o = (kk >> 1) * BOX_BYTES + (kk & 1) * 32;
+        wgmma_ss_n64<0, 0>(dp, sw64_desc(v_a + o, 16, 512),
+                           sw64_desc(g_a + o, 16, 512), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      if (t == 0) TRACE(2, it);
+
+      const bool edge = q0 + BQ > N || kv0 + BKV > M ||
+                        (p.causal && kv0 + BKV - 1 > q0 + off);
+      const int nbias = (b0 != nullptr) + (b1 != nullptr);
+      if (edge) {
+        if (nbias == 0)
+          scores<true, 0>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
+                          lane);
+        else if (nbias == 1)
+          scores<true, 1>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
+                          lane);
+        else
+          scores<true, 2>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
+                          lane);
+      } else {
+        if (nbias == 0)
+          scores<false, 0>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
+                           lane);
+        else if (nbias == 1)
+          scores<false, 1>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
+                           lane);
+        else
+          scores<false, 2>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
+                           lane);
+      }
+
+      // bf16 A operands of the four k16 steps over the tile's q columns
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kq][e] = pack_bf16(sc[8 * kq + 2 * e], sc[8 * kq + 2 * e + 1]);
+          sa[kq][e] = pack_bf16(dp[8 * kq + 2 * e], dp[8 * kq + 2 * e + 1]);
+        }
+      // dSᵀ [kv row][q column] into this step's buffer, 128-byte rows,
+      // 128-byte swizzle (16-byte chunk ^= row % 8); the buffer two steps
+      // back was last read by a dQ product every warp has waited for
+      // before the barrier of the step in between
+      uint8_t* ds = smem + S::DS_OFF + (it & 1) * DS_BYTES;
+      if (need_dq) {
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + ((e & 1) ? 8 : 0), chunk = 2 * kq + (e >> 1);
+            *reinterpret_cast<uint32_t*>(ds + r * 128 +
+                                         ((chunk ^ (r & 7)) << 4) +
+                                         (lane & 3) * 4) = sa[kq][e];
+          }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      }
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (t == 0) TRACE(3, it);
+
+      float dq[ND];
+#pragma unroll
+      for (int x = 0; x < ND; ++x) dq[x] = 0.f;
+      fence_acc(dq);
+      fence_acc(dk);
+      fence_acc(dv);
+      wgmma_fence();
+      if (need_dkv) {
+        // dV += Pᵀ·G and dK += dSᵀ·Q: G and Q MN-major (transpose bit),
+        // k16 steps 16 rows (1 KB) apart, 32-column boxes 4 KB apart
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+          wgmma_rs_dp<DP>(dv, pa[kq],
+                          sw64_desc(g_a + kq * 1024, BOX_BYTES, 512));
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+          wgmma_rs_dp<DP>(dk, sa[kq],
+                          sw64_desc(q_a + kq * 1024, BOX_BYTES, 512));
+      }
+      if (need_dq) {
+        // dQ = dS·K: A = the dSᵀ tile read M-major (128-byte rows, k16
+        // steps 2 KB apart), B = K MN-major
+        const uint32_t ds_a = smem_u32(ds);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_dp<DP, 1, 1>(dq, sw128_desc(ds_a + kk * 2048, 8192, 1024),
+                                sw64_desc(k_a + kk * 1024, BOX_BYTES, 512),
+                                kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      fence_acc(dk);
+      fence_acc(dv);
+      fence_regs(pa[0]);
+      fence_regs(pa[1]);
+      fence_regs(pa[2]);
+      fence_regs(pa[3]);
+      fence_regs(sa[0]);
+      fence_regs(sa[1]);
+      fence_regs(sa[2]);
+      fence_regs(sa[3]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (t == 0) TRACE(4, it);
+
+      if (need_dq) {
+        // dQ into the workspace: vector atomics (red.global.add.v2.f32) of
+        // the valid rows and columns
+        float* wrow = p.dq_ws + (row0 + q0) * DP;
+#pragma unroll
+        for (int jj = 0; jj < DP / 8; ++jj) {
+          const int col = 8 * jj + 2 * (lane & 3);
+          if (col >= p.D) continue;
+          if (q0 + r0 < N)
+            atomicAdd(reinterpret_cast<float2*>(wrow + r0 * DP + col),
+                      make_float2(dq[4 * jj], dq[4 * jj + 1]));
+          if (q0 + r0 + 8 < N)
+            atomicAdd(reinterpret_cast<float2*>(wrow + (r0 + 8) * DP + col),
+                      make_float2(dq[4 * jj + 2], dq[4 * jj + 3]));
+        }
+      }
+      if (t == 0) TRACE(5, it);
+      ++it;
+    }
+
+    if (need_dkv) {
+#pragma unroll
+      for (int jj = 0; jj < DP / 8; ++jj) {
+        const int col = 8 * jj + 2 * (lane & 3);
+        if (col >= p.D) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = kv0 + r0 + 8 * hh;
+          if (j >= M) continue;
+          const long long o =
+              ((static_cast<long long>(b) * M + j) * p.H + h) * p.D + col;
+          *reinterpret_cast<__nv_bfloat162*>(p.dk + o) = __floats2bfloat162_rn(
+              dk[4 * jj + 2 * hh], dk[4 * jj + 2 * hh + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(p.dv + o) = __floats2bfloat162_rn(
+              dv[4 * jj + 2 * hh], dv[4 * jj + 2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ the passes
+
+template <typename T>
+__device__ __forceinline__ float dot8(const T* a, const T* b);
+
+template <>
+__device__ __forceinline__ float dot8<bf16>(const bf16* a, const bf16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = __bfloat1622float2(xs[e]), v = __bfloat1622float2(ys[e]);
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+  }
+  return s;
+}
+
+template <>
+__device__ __forceinline__ float dot8<float>(const float* a, const float* b) {
+  const float4 x0 = *reinterpret_cast<const float4*>(a);
+  const float4 x1 = *reinterpret_cast<const float4*>(a + 4);
+  const float4 y0 = *reinterpret_cast<const float4*>(b);
+  const float4 y1 = *reinterpret_cast<const float4*>(b + 4);
+  float s = x0.x * y0.x;
+  s = fmaf(x0.y, y0.y, s);
+  s = fmaf(x0.z, y0.z, s);
+  s = fmaf(x0.w, y0.w, s);
+  s = fmaf(x1.x, y1.x, s);
+  s = fmaf(x1.y, y1.y, s);
+  s = fmaf(x1.z, y1.z, s);
+  return fmaf(x1.w, y1.w, s);
+}
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+struct DeltaArgs {
+  const void* g;
+  const void* out;
+  const float* lse;     // (b, h, n) contiguous
+  float* delta;         // (b, h, pitch)
+  float* lse_pad;       // (b, h, pitch) or null
+  float* ws;            // (b, h, pitch, ws_cols) zeroed, or null
+  long long g_s[3], o_s[3];   // strides of (b, n, h)
+  int B, N, H, D, pitch, ws_cols, vec;
+};
+
+// half a warp a row (b, h, i < pitch) of the padded layout: delta (0 for
+// i ≥ n) and lse beside it; the valid columns of a valid workspace row
+// zeroed (the only ones the atomics and the cast touch)
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const DeltaArgs a) {
+  const long long row = blockIdx.x * 16ll + (threadIdx.x >> 4);
+  const int lane = threadIdx.x & 15;
+  const bool live = row < static_cast<long long>(a.B) * a.H * a.pitch;
+  const int i = live ? static_cast<int>(row % a.pitch) : a.N;
+  const long long bh = row / a.pitch;
+  const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+  float sum = 0.f;
+  if (i < a.N) {
+    const T* g = static_cast<const T*>(a.g) + b * a.g_s[0] + i * a.g_s[1] +
+                 h * a.g_s[2];
+    const T* o = static_cast<const T*>(a.out) + b * a.o_s[0] +
+                 i * a.o_s[1] + h * a.o_s[2];
+    if (a.vec) {
+      for (int c = lane * 8; c < a.D; c += 128) sum += dot8<T>(g + c, o + c);
+    } else {
+      for (int c = lane; c < a.D; c += 16)
+        sum = fmaf(to_f32(g[c]), to_f32(o[c]), sum);
+    }
+    if (a.ws)
+      for (int c = lane; c < a.D / 4; c += 16)
+        reinterpret_cast<float4*>(a.ws + row * a.ws_cols)[c] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the half-warp's sum (xor below 16 stays in the half)
+#pragma unroll
+  for (int w = 8; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+  if (live && lane == 0) {
+    a.delta[row] = sum;
+    if (a.lse_pad) a.lse_pad[row] = i < a.N ? a.lse[bh * a.N + i] : 0.f;
+  }
+}
+
+// dq (b, n, h, d) bf16 ← the workspace (b, h, np, dp): 8 columns a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_cast_kernel(const float* __restrict__ ws, bf16* __restrict__ dq,
+                         int B, int N, int H, int D, int np, int dp) {
+  const long long idx = blockIdx.x * 256ll + threadIdx.x;
+  const int chunks = D / 8;
+  if (idx >= static_cast<long long>(B) * N * H * chunks) return;
+  const int c = static_cast<int>(idx % chunks);
+  long long r = idx / chunks;
+  const int h = static_cast<int>(r % H);
+  r /= H;
+  const int i = static_cast<int>(r % N), b = static_cast<int>(r / N);
+  const float4* src = reinterpret_cast<const float4*>(
+      ws + ((static_cast<long long>(b) * H + h) * np + i) * dp + c * 8);
+  const float4 x = src[0], y = src[1];
+  uint4 v;
+  v.x = pack_bf16(x.x, x.y);
+  v.y = pack_bf16(x.z, x.w);
+  v.z = pack_bf16(y.x, y.y);
+  v.w = pack_bf16(y.z, y.w);
+  reinterpret_cast<uint4*>(dq)[idx] = v;
+}
+
+// ------------------------------------------------------------------ host
+
+// a (batch, seq, head, d) bf16 view as a 4-D map of 64-row × 32-column
+// boxes, 64-byte swizzle; rows ≥ seq and columns ≥ d load as zeros
+bool encode_4d(CUtensorMap* map, const void* base, int batch, int seq,
+               int heads, int d, const long long* strides) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t st[3] = {static_cast<cuuint64_t>(strides[1]) * 2,
+                            static_cast<cuuint64_t>(strides[2]) * 2,
+                            static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {BOX, 64, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, st, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_delta(int is_bf16, const DeltaArgs& a, cudaStream_t st) {
+  const long long rows = static_cast<long long>(a.B) * a.H * a.pitch;
+  const unsigned grid = static_cast<unsigned>((rows + 15) / 16);
+  if (is_bf16)
+    flash_bwd_delta_kernel<bf16><<<grid, 256, 0, st>>>(a);
+  else
+    flash_bwd_delta_kernel<float><<<grid, 256, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_main(const CUtensorMap* maps, const Params& p, cudaStream_t st) {
+  constexpr int bytes = Smem<DP>::BYTES;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((p.M + BKV - 1) / BKV, p.H, p.B);
+  flash_bwd_wgmma_kernel<DP><<<grid, THREADS, bytes, st>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// delta = rowsum(g ⊙ out) (fp32, (b, h, n) contiguous) for the mma.sync
+// route and the dbias kernel.  strides: g (b, n, h), out (b, n, h); `vec`
+// promises 16-byte aligned rows of 8 elements (bf16: d % 8 == 0; fp32: the
+// same, 32-byte rows).  Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_bwd_delta(int is_bf16, const void* g,
+                                         const void* out, void* delta,
+                                         const long long* strides, int B,
+                                         int N, int H, int D, int vec,
+                                         void* stream) {
+  DeltaArgs a{g, out, nullptr, static_cast<float*>(delta), nullptr, nullptr,
+              {strides[0], strides[1], strides[2]},
+              {strides[3], strides[4], strides[5]}, B, N, H, D, N, 0, vec};
+  return launch_delta(is_bf16, a, static_cast<cudaStream_t>(stream));
+}
+
+// The whole bf16 backward: the pre-pass, the main kernel and (with dq) the
+// cast.  strides holds 23 int64 values: q (b, n, h), k (b, m, h), v (b, m,
+// h), bias0 (b, h, n, m), bias1 (b, h, n, m), g (b, n, h), out (b, n, h).
+// lse is the forward's contiguous (b, h, n) fp32.  Scratch from the
+// caller: delta_pad and lse_pad (b, h, np) fp32 with np = n rounded up to
+// 64, and dq_ws (b, h, np, dp) fp32 with dp = 64 (d ≤ 64) or 96.  dq (b,
+// n, h, d), dk and dv (b, m, h, d) are contiguous bf16; a null dq (with a
+// null dq_ws) or null dk and dv skips that gradient.  Returns the first
+// non-zero cudaError_t of the launches (cudaErrorInvalidValue for a shape
+// or layout it does not take).
+extern "C" int flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* out, const void* lse, void* delta_pad, void* lse_pad,
+    void* dq_ws, void* dq, void* dk, void* dv, const void* bias0,
+    const void* bias1, const long long* strides, int B, int N, int M, int H,
+    int D, float scale, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
+  if (D <= 32 || D > 96 || D % 8 != 0 || (dq == nullptr) != (dq_ws == nullptr)
+      || (dk == nullptr) != (dv == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = D <= 64 ? 64 : 96, np = (N + BQ - 1) / BQ * BQ;
+  CUtensorMap maps[4];
+  if (!encode_4d(&maps[0], q, B, N, H, D, strides) ||
+      !encode_4d(&maps[1], k, B, M, H, D, strides + 3) ||
+      !encode_4d(&maps[2], v, B, M, H, D, strides + 6) ||
+      !encode_4d(&maps[3], g, B, N, H, D, strides + 17))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  DeltaArgs a{g, out, static_cast<const float*>(lse),
+              static_cast<float*>(delta_pad), static_cast<float*>(lse_pad),
+              static_cast<float*>(dq_ws),
+              {strides[17], strides[18], strides[19]},
+              {strides[20], strides[21], strides[22]}, B, N, H, D, np, dp, 1};
+  int err = launch_delta(1, a, st);
+  if (err != 0) return err;
+
+  Params p;
+  p.lse = static_cast<const float*>(lse_pad);
+  p.delta = static_cast<const float*>(delta_pad);
+  p.dq_ws = static_cast<float*>(dq_ws);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.bias[0] = static_cast<const float*>(bias0);
+  p.bias[1] = static_cast<const float*>(bias1);
+  for (int t = 0; t < 4; ++t) {
+    p.bias_s[0][t] = strides[9 + t];
+    p.bias_s[1][t] = strides[13 + t];
+  }
+  p.B = B;
+  p.N = N;
+  p.M = M;
+  p.H = H;
+  p.D = D;
+  p.NP = np;
+  p.scale = scale;
+  p.causal = causal;
+  err = dp == 64 ? launch_main<64>(maps, p, st) : launch_main<96>(maps, p, st);
+  if (err != 0 || dq == nullptr) return err;
+
+  const long long n_chunks = static_cast<long long>(B) * N * H * (D / 8);
+  flash_bwd_dq_cast_kernel<<<static_cast<unsigned>((n_chunks + 255) / 256),
+                             256, 0, st>>>(static_cast<const float*>(dq_ws),
+                                           static_cast<bf16*>(dq), B, N, H, D,
+                                           np, dp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef BWD_TRACE
+extern "C" int bwd_trace_read(void* dst) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(dst, bwd_trace, sizeof(bwd_trace)));
+}
+#endif

@@ -24,11 +24,15 @@ broadcastable to (b, h, n, m).  ``attention_core`` is an autograd Function
 whose forward runs ``mha_reference`` on CPU tensors and the hand-written
 kernel ``csrc/flash_attention.cu`` on CUDA tensors, and whose backward runs
 ``flash_attention_backward_ref`` and ``flash_attention_dbias_ref`` on the
-CPU and the three kernels of ``csrc/flash_attention_bwd.cu`` (dq; dk and
-dv; dbias, once for each bias that needs a gradient, any broadcast pattern
-including a key dim of 1) on the card — launch or raise, no fallback.
-``launches``, ``dq_launches``, ``dkv_launches`` and ``dbias_launches``
-count kernel launches.
+CPU and, on the card, the backward route ``plan`` picks — the bf16 TMA +
+wgmma kernel of ``csrc/flash_attention_bwd_wgmma.cu`` (with its delta
+pre-pass and dq cast), or the dq and dk/dv kernels of
+``csrc/flash_attention_bwd.cu`` (fp32, and bf16 the first does not take) —
+and the dbias kernel (once for each bias that needs a gradient, any
+broadcast pattern including a key dim of 1): launch or raise, no fallback.
+``launches``, ``bwd_wgmma_launches``, ``dq_launches``, ``dkv_launches``,
+``dbias_launches`` and ``delta_launches`` (the pre-pass alone, for the
+other two) count kernel launches.
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ from vlm_compression_tpu_torch.ops import _cuda
 NEG_INF = -1e9  # matches the towers' additive-mask constant
 
 launches = 0
+bwd_wgmma_launches = 0
 dq_launches = 0
 dkv_launches = 0
 dbias_launches = 0
+delta_launches = 0
 
 
 def _as_4d(bias: torch.Tensor) -> torch.Tensor:
@@ -180,9 +186,14 @@ _DTYPES = (torch.bfloat16, torch.float32)
 _STRIDES = ctypes.c_longlong * 17
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies where the kernels run (a CUDA device)."""
+    return t.device.type == "cuda"
+
+
 def _check_inputs(q, k, v, biases):
     """Raise the specific error for q/k/v the kernel does not take."""
-    if q.device.type != "cuda":
+    if not _on_card(q):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, n, h, d = q.shape
     m = k.shape[1]
@@ -221,7 +232,7 @@ def _layout(q, k, v, biases):
     dev = q.device
     b, n, h, d = q.shape
     m = k.shape[1]
-    if not (dev.type == "cuda" and k.shape == (b, m, h, d)
+    if not (_on_card(q) and k.shape == (b, m, h, d)
             and v.shape == k.shape and q.dtype == k.dtype == v.dtype
             and q.dtype in _DTYPES and 0 < d <= 128 and m > 0
             and k.device == dev and v.device == dev and q.stride(3) == 1
@@ -271,41 +282,110 @@ def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
 
 
 _BWD_STRIDES = ctypes.c_longlong * 20
+_WGMMA_STRIDES = ctypes.c_longlong * 23
+
+# the backward's routes (``plan``)
+WGMMA = "wgmma"   # csrc/flash_attention_bwd_wgmma.cu: bf16, TMA + wgmma
+MMA = "mma"       # csrc/flash_attention_bwd.cu, bf16 on mma.sync
+FP32 = "fp32"     # csrc/flash_attention_bwd.cu, fp32 on the CUDA cores
+
+
+def plan(n: int, m: int, d: int, *, bf16: bool = True,
+         aligned: bool = True) -> str:
+    """The backward's route for one call, from the dtype, head dim,
+    alignment and shape alone (a miss is a routed decision, never a launch
+    that is retried):
+
+    - float32: the CUDA-core kernels (FP32);
+    - bf16 that TMA can take (``aligned``: 16-byte aligned q, k, v, g and
+      out bases and (batch, seq, head) strides) with a head dim the TMA +
+      wgmma kernel holds (32 < d ≤ 96, d % 8 == 0): WGMMA;
+    - any other bf16: the mma.sync kernels (MMA).
+
+    No shape rule: at every training shape of chip_smoke.py's
+    ``BWD_SHAPES`` the TMA + wgmma route was the faster in one call of its
+    timing phase (H100 80GB HBM3, 700.00 W; whole backward, ms, TMA +
+    wgmma vs mma.sync): vit_self 0.3118 vs 1.1642, qformer_cross 0.0723
+    vs 0.1904, qformer_self 0.0521 vs 0.1286, t5_encoder 0.1267 vs
+    0.3440, t5_decoder_self 0.0439 vs 0.0661, t5_decoder_cross 0.0704 vs
+    0.1568 (PERF.md §6)."""
+    if not bf16:
+        return FP32
+    if aligned and d % 8 == 0 and 32 < d <= 96:
+        return WGMMA
+    return MMA
+
+
+def _tma_aligned(*tensors) -> bool:
+    """16-byte aligned bases and (batch, seq, head) strides: what the TMA
+    maps and the 16-byte row loads need."""
+    return all(t.data_ptr() % 16 == 0
+               and all((x * t.element_size()) % 16 == 0
+                       for x in t.stride()[:3]) for t in tensors)
 
 
 def _backward_layout(q, k, v, out, lse, g, biases, what):
-    """_layout plus g's strides, the contiguous lse and delta = rowsum(g ⊙
-    out) formed here in fp32, as the JAX package does."""
+    """_layout plus g's strides; g and out with a contiguous last dim and
+    the contiguous lse.  (delta = rowsum(g ⊙ out) is formed on the card by
+    the pre-pass, ``_delta``.)"""
     strides, ptrs, vec = _layout(q, k, v, biases)
     b, n, h, _ = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device or \
-            out.shape != q.shape or lse.shape != (b, h, n) or \
-            lse.dtype != torch.float32:
+            out.shape != q.shape or out.dtype != q.dtype or \
+            lse.shape != (b, h, n) or lse.dtype != torch.float32:
         raise ValueError(f"{what}: g {tuple(g.shape)} {g.dtype}, out "
                          f"{tuple(out.shape)}, lse {tuple(lse.shape)} "
                          f"{lse.dtype} for q {tuple(q.shape)} {q.dtype}")
     g = g if g.stride(3) == 1 else g.contiguous()
+    out = out if out.stride(3) == 1 else out.contiguous()
     lse = lse.contiguous()
-    delta = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float()).contiguous()
     strides = strides + list(g.stride()[:3])
     vec = int(vec and all(x % 8 == 0 for x in strides[17:])
               and g.data_ptr() % 16 == 0)
-    return strides, ptrs, vec, g, lse, delta
+    return strides, ptrs, vec, g, out, lse
+
+
+def _delta(g, out):
+    """delta = rowsum(g ⊙ out), (b, h, n) fp32, by the pre-pass kernel."""
+    global delta_launches
+    b, n, h, d = g.shape
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=g.device)
+    vec = int(d % 8 == 0 and _tma_aligned(g, out))
+    err = _cuda.library("flash_attention_bwd_wgmma").flash_attention_bwd_delta(
+        int(g.dtype == torch.bfloat16), g.data_ptr(), out.data_ptr(),
+        delta.data_ptr(), (ctypes.c_longlong * 6)(*g.stride()[:3],
+                                                  *out.stride()[:3]),
+        b, n, h, d, vec, _cuda.stream_ptr(g.device))
+    _cuda.check(err, "flash_attention_bwd_delta")
+    delta_launches += 1
+    return delta
 
 
 def flash_attention_backward(q, k, v, out, lse, g,
                              biases: Sequence[torch.Tensor] = (),
                              scale: float = 1.0, causal: bool = False,
-                             need_dq: bool = True, need_dkv: bool = True):
-    """Launch the backward kernels on CUDA tensors → (dq, dk, dv) in the
-    layouts and dtypes of q, k, v (None for a gradient not asked for).
-    ``lse`` is the forward's (b, h, n) float32 log-sum-exp."""
-    global dq_launches, dkv_launches
-    strides, ptrs, vec, g, lse, delta = _backward_layout(
+                             need_dq: bool = True, need_dkv: bool = True,
+                             _impl: Optional[str] = None):
+    """Launch the backward on CUDA tensors → (dq, dk, dv) in the layouts
+    and dtypes of q, k, v (None for a gradient not asked for).  ``lse`` is
+    the forward's (b, h, n) float32 log-sum-exp.  The route is ``plan``'s;
+    ``_impl`` (internal: the timing phase of chip_smoke.py) forces WGMMA
+    or MMA, and raises where that route cannot take the call."""
+    global bwd_wgmma_launches, dq_launches, dkv_launches
+    strides, ptrs, vec, g, out, lse = _backward_layout(
         q, k, v, out, lse, g, biases, "flash_attention_backward")
     dev = q.device
     b, n, h, d = q.shape
     m = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    route = plan(n, m, d, bf16=bf16,
+                 aligned=_tma_aligned(q, k, v, g, out))
+    if _impl is not None:
+        if _impl not in (WGMMA, MMA) or not bf16 or \
+                (_impl == WGMMA and route != WGMMA):
+            raise ValueError(f"flash_attention_backward: route {_impl!r} "
+                             f"cannot take this call (plan: {route})")
+        route = _impl
     dq = torch.empty((b, n, h, d), dtype=q.dtype, device=dev) \
         if need_dq else None
     dk, dv = (torch.empty((b, m, h, d), dtype=k.dtype, device=dev),
@@ -315,9 +395,27 @@ def flash_attention_backward(q, k, v, out, lse, g,
         return (dq if dq is None else dq.zero_(),
                 dk if dk is None else dk.zero_(),
                 dv if dv is None else dv.zero_())
+    if route == WGMMA:
+        n_pad, d_pad = -(-n // 64) * 64, 64 if d <= 64 else 96
+        pads = torch.empty((2, b, h, n_pad), dtype=torch.float32, device=dev)
+        ws = torch.empty((b, h, n_pad, d_pad), dtype=torch.float32,
+                         device=dev) if need_dq else None
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        err = _cuda.library("flash_attention_bwd_wgmma") \
+            .flash_attention_bwd_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), pads[0].data_ptr(),
+                pads[1].data_ptr(), ptr(ws), ptr(dq), ptr(dk), ptr(dv),
+                ptrs[0], ptrs[1],
+                _WGMMA_STRIDES(*strides, *out.stride()[:3]), b, n, m, h, d,
+                float(scale), int(bool(causal)), _cuda.stream_ptr(dev))
+        _cuda.check(err, "flash_attention_bwd_wgmma")
+        bwd_wgmma_launches += 1
+        return dq, dk, dv
+    delta = _delta(g, out)
     lib = _cuda.library("flash_attention_bwd")
-    common = (int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    common = (int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (ptrs[0], ptrs[1], _BWD_STRIDES(*strides), b, n, m, h, d,
             float(scale), int(bool(causal)), vec, _cuda.stream_ptr(dev))
     if need_dq:
@@ -338,7 +436,7 @@ def flash_attention_dbias(q, k, v, out, lse, g,
     """Launch the dbias kernel on CUDA tensors → the gradient of bias
     ``i``, float32 at its 4-d shape (every axis where it is 1 summed)."""
     global dbias_launches
-    strides, ptrs, vec, g, lse, delta = _backward_layout(
+    strides, ptrs, vec, g, out, lse = _backward_layout(
         q, k, v, out, lse, g, biases, "flash_attention_dbias")
     b, n, h, _ = q.shape
     m = k.shape[1]
@@ -349,6 +447,7 @@ def flash_attention_dbias(q, k, v, out, lse, g,
     db = torch.zeros(shape, dtype=torch.float32, device=q.device)
     if b * n * h == 0:
         return db
+    delta = _delta(g, out)
     err = _cuda.library("flash_attention_bwd").flash_attention_bwd_dbias(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
