@@ -21,7 +21,11 @@ each of which fails the run (non-zero exit, no result line) on error:
                 the route ``ops/attention.plan`` picks (bf16: the TMA +
                 wgmma kernel) and on the mma.sync route, causal, ragged,
                 dq alone and dk/dv alone, and the largest |dq₁ − dq₂| of
-                two identical calls (the dq atomics' order);
+                two identical calls (the dq atomics' order); the forward
+                on the route ``plan_forward`` picks (bf16: the TMA + wgmma
+                kernel) and on the mma.sync route at every FLASH_SHAPES
+                shape and causal n = m and n > m, and two identical calls
+                of the new route bit-equal;
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -69,13 +73,16 @@ each of which fails the run (non-zero exit, no result line) on error:
                 matmuls run the Hopper loop, the WMMA loop too (forced
                 through the wrappers' ``_loop`` argument); the attention
                 backward's two bf16 routes (``_impl``) at every training
-                shape; SDPA, the attention yardstick, on each of its
-                backends, the fastest timed in turns with the kernel.
+                shape; the attention forward's two bf16 routes at every
+                FLASH_SHAPES shape; SDPA, the attention yardstick, on each
+                of its backends, the fastest timed in turns with the
+                kernel.
 
 Launch gates: each phase's kernels launched in it (and the Hopper loop in
 every phase that runs the masked, packed or sparse-LoRA kernel at a
 calibration, training or prefill shape; the TMA + wgmma attention
-backward in the retrain step, the EcoFLaP allocation and the Fisher),
+forward in the Wanda prune, the retrain step, the EcoFLaP prune and the
+Fisher, and its backward in the last three),
 none that the phase must not run
 (the bool kernel in a packed or int8 phase, the Hopper loop in an int8
 phase).
@@ -427,27 +434,50 @@ def check_kernels():
             if not ok:
                 raise AssertionError(f"masked_matmul {name} {dtype}")
             worst[("masked_matmul", name, dtype)] = err
-        for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES:
+        # the forward on the route ``plan_forward`` picks (bf16: the TMA +
+        # wgmma kernel at every shape here) and, in bf16, on the mma.sync
+        # route too; causal masking, including n > m rows that see no key
+        cases = [(name, b, n, m, h, d, kinds, scale, False)
+                 for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES]
+        cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True),
+                  ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True)]
+        routes = [None] if dtype == torch.float32 else [None, A.MMA]
+        for name, b, n, m, h, d, kinds, scale, causal in cases:
             q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
-            err, s = max_err(A.attention_core(q, k_, v, biases, scale),
-                             A.mha_reference(q, k_, v, biases, scale))
-            ok = err <= tol * s
-            log(f"  flash_attention {name:22s} {str(dtype)[6:]:8s} "
-                f"b={b} n={n} m={m} h={h} d={d} biases={kinds} "
-                f"max_abs_err={err:.3e} (tol {tol * s:.3e}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention {name} {dtype}")
-            worst[("flash_attention", name, dtype)] = err
-        # causal masking, including n > m rows that see no key
-        for b, n, m in ((2, 40, 40), (2, 9, 5)):
-            q, k_, v, _ = flash_inputs(b, n, m, 4, 64, [], dtype)
-            err, s = max_err(A.attention_core(q, k_, v, (), 0.125, True),
-                             A.mha_reference(q, k_, v, (), 0.125, True))
-            log(f"  flash_attention causal n={n} m={m} {str(dtype)[6:]} "
-                f"max_abs_err={err:.3e}")
-            if err > tol * s:
-                raise AssertionError("flash_attention causal")
+            want = A.mha_reference(q, k_, v, biases, scale, causal)
+            for impl in routes:
+                route = impl or A.plan_forward(
+                    n, m, d, bf16=dtype == torch.bfloat16)
+                before = A.fwd_wgmma_launches
+                got = A.flash_attention(q, k_, v, biases, scale, causal,
+                                        _impl=impl)[0]
+                if (A.fwd_wgmma_launches - before) != (route == A.WGMMA):
+                    raise AssertionError(f"flash_attention {name}: route "
+                                         f"{route} not taken")
+                err, s = max_err(got, want)
+                ok = err <= tol * s
+                log(f"  flash_attention {name:22s} {str(dtype)[6:]:8s} "
+                    f"{route:5s} b={b} n={n} m={m} h={h} d={d} "
+                    f"biases={kinds} causal={causal} max_abs_err={err:.3e} "
+                    f"(tol {tol * s:.3e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"flash_attention {name} {dtype} "
+                                         f"{route}")
+                if impl is None and not causal:
+                    worst[("flash_attention", name, dtype)] = err
+    # the TMA + wgmma forward sums in a fixed order (no atomics): two
+    # identical calls at every FLASH_SHAPES shape are bit-equal
+    for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES:
+        q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
+        out1, lse1 = A.flash_attention(q, k_, v, biases, scale, _impl=A.WGMMA)
+        out2, lse2 = A.flash_attention(q, k_, v, biases, scale, _impl=A.WGMMA)
+        if not (torch.equal(out1, out2) and torch.equal(lse1, lse2)):
+            raise AssertionError(f"flash_attention {name}: two identical "
+                                 "calls differ")
+    log("  flash_attention TMA + wgmma: two identical calls bit-equal (out "
+        "and lse) at every FLASH_SHAPES shape")
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype).split(".")[-1]]
         # sparse-LoRA: the kernel sums Σ_r A·B in another order than the
         # plain version's matmul, which now and then flips one bf16 ulp of
         # the merged weight before the product: the masked matmul's
@@ -1050,11 +1080,14 @@ WGMMA_LOOP = "wgmma_loop"
 # one whole backward: pre-pass, main kernel, dq cast); the
 # flash_attention_bwd_dq / _dkv counts are the mma.sync route's
 BWD_WGMMA = "bwd_wgmma"
+# "fwd_wgmma" counts the attention forward's TMA + wgmma launches; the
+# flash_attention count is every forward's, on either route
+FWD_WGMMA = "fwd_wgmma"
 SERVE = ("masked_matmul", "flash_attention", WGMMA_LOOP)
-PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
+PHASE_KERNELS = {"prune": SERVE + (FWD_WGMMA,), "generate_cold": SERVE,
                  "generate_warm": SERVE,
                  "retrain": ("sparse_lora_matmul", "flash_attention",
-                             BWD_WGMMA, WGMMA_LOOP),
+                             FWD_WGMMA, BWD_WGMMA, WGMMA_LOOP),
                  "generate_merged": SERVE,
                  "sparsegpt_prune": SERVE, "generate_bool": SERVE,
                  "generate_packed128": ("masked_matmul_packed",
@@ -1067,10 +1100,11 @@ PHASE_KERNELS = {"prune": SERVE, "generate_cold": SERVE,
                                            "flash_attention"),
                  # the allocation's backward (dq, dk/dv), then Wanda
                  "ecoflap_prune": ("masked_matmul", "flash_attention",
-                                   BWD_WGMMA, WGMMA_LOOP),
+                                   FWD_WGMMA, BWD_WGMMA, WGMMA_LOOP),
                  "generate_ecoflap_cold": SERVE,
                  "generate_ecoflap_warm": SERVE,
-                 "fisher_derivative": ("flash_attention", BWD_WGMMA,
+                 "fisher_derivative": ("flash_attention", FWD_WGMMA,
+                                       BWD_WGMMA,
                                        "flash_attention_bwd_dbias"),
                  # zeroed weights, no masks: dense products
                  "generate_fisher": ("flash_attention",)}
@@ -1098,7 +1132,7 @@ def reset_counts():
     ML.launches = ML.lora_launches = ML.packed_launches = 0
     ML.wgmma_launches = 0
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
-    A.bwd_wgmma_launches = 0
+    A.fwd_wgmma_launches = A.bwd_wgmma_launches = 0
     Q.int8_launches = 0
 
 
@@ -1107,17 +1141,18 @@ def read_counts() -> dict:
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
 
-    return dict(zip(KERNELS + (WGMMA_LOOP, BWD_WGMMA),
+    return dict(zip(KERNELS + (WGMMA_LOOP, FWD_WGMMA, BWD_WGMMA),
                     (ML.launches, A.launches, ML.lora_launches,
                      A.dq_launches, A.dkv_launches, ML.packed_launches,
                      Q.int8_launches, A.dbias_launches, ML.wgmma_launches,
-                     A.bwd_wgmma_launches)))
+                     A.fwd_wgmma_launches, A.bwd_wgmma_launches)))
 
 
-def bwd_routes(c: dict, per: int = 1) -> str:
-    """A phase's attention-backward launches by route (per step or
-    sample)."""
-    return (f"TMA + wgmma {c[BWD_WGMMA] / per:g}, mma.sync dq "
+def attn_routes(c: dict, per: int = 1) -> str:
+    """A phase's attention launches by route (per step or sample)."""
+    return (f"forward: TMA + wgmma {c[FWD_WGMMA] / per:g}, mma.sync or fp32 "
+            f"{(c['flash_attention'] - c[FWD_WGMMA]) / per:g}; backward: "
+            f"TMA + wgmma {c[BWD_WGMMA] / per:g}, mma.sync dq "
             f"{c['flash_attention_bwd_dq'] / per:g} and dk/dv "
             f"{c['flash_attention_bwd_dkv'] / per:g}")
 
@@ -1295,6 +1330,7 @@ def main_path():
     model, _ = run_prune(model, batches)
     t_prune = time.perf_counter() - t0
     counts["prune"] = read_counts()
+    log(f"  prune attention, by route: {attn_routes(counts['prune'])}")
     masks = export_masks(model)
     for tower, (dens, n) in tower_density(model).items():
         log(f"  prune density {tower}: {dens:.4f} over {n} linears")
@@ -1329,8 +1365,8 @@ def main_path():
     reset_counts()
     retrain = run_retrain(model, cfg)
     counts["retrain"] = read_counts()
-    log(f"  retrain attention backward per step, by route: "
-        f"{bwd_routes(counts['retrain'], 1 + N_TIMED_STEPS)}")
+    log(f"  retrain attention per step, by route: "
+        f"{attn_routes(counts['retrain'], 1 + N_TIMED_STEPS)}")
     merge_and_check(model)
     reset_counts()
     t0 = time.perf_counter()
@@ -1568,8 +1604,8 @@ def first_order_path():
     secs["ecoflap_prune"] = time.perf_counter() - t0
     counts["ecoflap_prune"] = read_counts()
     peaks["ecoflap_prune"] = torch.cuda.max_memory_allocated()
-    log(f"  ecoflap allocation's attention backward, by route: "
-        f"{bwd_routes(counts['ecoflap_prune'])}")
+    log(f"  ecoflap prune's attention, by route: "
+        f"{attn_routes(counts['ecoflap_prune'])}")
     del batches
     groups = {}
     for key, r in ratios.items():
@@ -1621,8 +1657,8 @@ def first_order_path():
     secs["fisher_derivative"] = time.perf_counter() - t0
     counts["fisher_derivative"] = read_counts()
     peaks["fisher_derivative"] = torch.cuda.max_memory_allocated()
-    log(f"  fisher attention backward per sample, by route: "
-        f"{bwd_routes(counts['fisher_derivative'], N_FISHER)}")
+    log(f"  fisher attention per sample, by route: "
+        f"{attn_routes(counts['fisher_derivative'], N_FISHER)}")
     bad = [p for p, a in fisher.items()
            if not bool(torch.isfinite(a).all()) or bool((a < 0).any())]
     rel = {s: float(fisher[("t5_model", s, "rel_bias", "rel_embedding")]
@@ -1711,8 +1747,10 @@ def _kernel_group(name: str) -> str:
         return "masked_matmul kernel"
     if "sparse_lora" in low:
         return "sparse_lora_matmul kernel"
+    if "flash_fwd_wgmma" in low:
+        return "flash_attention_fwd_wgmma kernel"
     if "flash_fwd" in low:
-        return "flash_attention kernel"
+        return "flash_attention kernel (mma.sync / fp32)"
     # the TMA + wgmma backward's three passes (before the mma.sync names:
     # "flash_bwd_dq_cast" holds "flash_bwd_dq")
     if "flash_bwd_wgmma" in low:
@@ -1978,15 +2016,19 @@ def timing():
                 be, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=bsum, scale=scale))))
         ms = lib["kernel_ms"]
+        mma = device_ms(lambda: A.flash_attention(q, k_, v, biases, scale,
+                                                  _impl=A.MMA))
         plain = device_ms(lambda: A.mha_reference(q, k_, v, biases, scale))
         bound, by = flash_bound_ms(q, k_, v, biases)
         rows[("flash_attention", name)] = (ms, plain, lib["library_ms"],
                                            bound, by)
         extra[("flash_attention", name)] = {
-            "library_backend": lib["library_backend"]}
+            "mma_ms": mma, "library_backend": lib["library_backend"]}
         log(f"  time flash_attention {name:22s} b={b} n={n} m={m} h={h} "
-            f"d={d}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}); {library_note(lib)}")
+            f"d={d} (plan_forward {A.plan_forward(n, m, d)}): TMA + wgmma "
+            f"{ms:.4f} ms, mma.sync route {mma:.4f} ms ({mma / ms:.2f}x), "
+            f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{library_note(lib)}")
     for name, m, k, n, r in LORA_SHAPES:
         x, w, mask, a, b = lora_inputs(m, k, n, r, bf16)
         s = 16.0 / r
@@ -2204,15 +2246,18 @@ def main() -> int:
     log(f"[phases] wall-clock s: "
         f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
 
-    # the attention backward's two rows both report the TMA + wgmma
-    # route's whole backward (its time, bound and launches, beside the
-    # mma.sync route's time and launches)
+    # the attention forward's row reports its TMA + wgmma route (its time
+    # and launches, beside the mma.sync route's time and the other
+    # routes' launches); the backward's two rows both report the TMA +
+    # wgmma route's whole backward (its time, bound and launches, beside
+    # the mma.sync route's time and launches)
     kernels = []
     csrc = "vlm_compression_tpu_torch/csrc/"
     for kname, timed, src, repl in (
             ("masked_matmul", MM_TIMED, csrc + "masked_matmul_wgmma.cu",
              "vlm_compression_tpu/ops/masked_linear.py:67"),
-            ("flash_attention", FLASH_TIMED, csrc + "flash_attention.cu",
+            ("flash_attention", FLASH_TIMED,
+             csrc + "flash_attention_fwd_wgmma.cu",
              "vlm_compression_tpu/ops/attention.py:107"),
             ("sparse_lora_matmul", LORA_TIMED,
              csrc + "masked_matmul_wgmma.cu",
@@ -2242,6 +2287,11 @@ def main() -> int:
                 "wgmma": sum(c[BWD_WGMMA] for c in counts.values()),
                 "mma": sum(c[kname] for c in counts.values())}}
                if bwd else {}),
+            **({"launches_by_route": {
+                "wgmma": sum(c[FWD_WGMMA] for c in counts.values()),
+                "mma_or_fp32": sum(c[kname] - c[FWD_WGMMA]
+                                   for c in counts.values())}}
+               if kname == "flash_attention" else {}),
             "max_abs_err": worst[(kname, timed, torch.bfloat16)],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "shape": timed,

@@ -1,10 +1,12 @@
-"""The attention backward's dispatch (``ops/attention.plan`` and
+"""The attention forward's and backward's dispatch (``ops/attention
+.plan_forward`` with ``flash_attention``, ``plan`` with
 ``flash_attention_backward``) on the CPU: which route a call takes — the
 bf16 TMA + wgmma kernel, the mma.sync kernels or the float32 ones — from
-the dtype, head dim and alignment alone; which entry points a call reaches
-and with which gradients switched off; the launch counters; the internal
-``_impl`` argument; and the whole backward's bound.  The kernels
-themselves run only on the card (``tests/test_torch_cuda_kernels.py``)."""
+the dtype, head dim and alignment alone; which entry points a call reaches,
+with which strides and bias pointers, and with which gradients switched
+off; the launch counters; the internal ``_impl`` argument; and the whole
+backward's bound.  The kernels themselves run only on the card
+(``tests/test_torch_cuda_kernels.py``)."""
 
 import pytest
 import torch
@@ -192,3 +194,147 @@ def test_whole_backward_bound(b, n, m, h, d, biases):
                   else "bytes")
     if (n, d) == (257, 88):   # the ViT's: its bytes, 163.2 MB
         assert by == "bytes" and ms == pytest.approx(0.048706, rel=1e-4)
+
+
+# ------------------------------------------------------------- the forward
+# (case, n, m, d, bf16, aligned, route) for ``plan_forward``: every shape
+# of chip_smoke.py's FLASH_SHAPES (the decode steps, n = 1, included) and
+# what the TMA + wgmma kernel does not take
+FWD_CASES = [(name, n, m, d, True, True, A.WGMMA)
+             for name, b, n, m, h, d, kinds, scale in CS.FLASH_SHAPES]
+FWD_CASES += [
+    ("vit_d88", 257, 257, 88, True, True, A.WGMMA),
+    ("t5_qformer_d64", 72, 72, 64, True, True, A.WGMMA),
+    ("decode_n1", 1, 10, 64, True, True, A.WGMMA),
+    ("ragged_130_200", 130, 200, 88, True, True, A.WGMMA),
+    ("d_32", 72, 72, 32, True, True, A.MMA),
+    ("d_100", 72, 72, 100, True, True, A.MMA),
+    ("d_128", 72, 72, 128, True, True, A.MMA),
+    ("misaligned", 257, 257, 88, True, False, A.MMA),
+    ("fp32_vit", 257, 257, 88, False, True, A.FP32),
+    ("fp32_decode", 1, 10, 64, False, True, A.FP32),
+]
+
+
+@pytest.mark.parametrize("case,n,m,d,bf16,aligned,route", FWD_CASES,
+                         ids=[c[0] for c in FWD_CASES])
+def test_plan_forward_picks_the_route(case, n, m, d, bf16, aligned, route):
+    assert A.plan_forward(n, m, d, bf16=bf16, aligned=aligned) == route
+
+
+@pytest.mark.parametrize("n,wgs", [(1, 1), (32, 1), (64, 1), (72, 1),
+                                   (128, 1), (129, 3), (257, 3)])
+def test_forward_block_rows(n, wgs):
+    """One consumer warpgroup (64 query rows) a block up to n = 128, three
+    above when no bias is added; one wherever a bias is."""
+    assert A._fwd_wgs(n, False) == wgs
+    assert A._fwd_wgs(n, True) == 1
+
+
+def _fwd_counts():
+    return A.launches, A.fwd_wgmma_launches
+
+
+def _t5_biases(b, n, m, h):
+    rel = torch.zeros(1, h, n, m)
+    pad = torch.zeros(b, 1, 1, m)
+    return [rel, pad]
+
+
+@pytest.mark.parametrize("b,n,m,h,d,with_bias", [
+    (2, 257, 257, 4, 88, False),     # ViT self
+    (2, 72, 72, 4, 64, True),        # T5 encoder: position bias + padding
+    (5, 1, 10, 4, 64, True),         # decode step
+])
+def test_the_forward_wgmma_route_is_one_launch(fake_card, b, n, m, h, d,
+                                              with_bias):
+    """One call of the TMA + wgmma entry point per forward, with the 17
+    strides (q, k, v, then each bias's, 0 on its broadcast axes), the two
+    bias pointers, the shape, scale, causal flag and the block's consumer
+    warpgroups."""
+    q, k, v = _case(b, n, m, h, d)[:3]
+    biases = _t5_biases(b, n, m, h) if with_bias else []
+    before = _fwd_counts()
+    out, lse = A.flash_attention(q, k, v, biases, scale=0.125, causal=True)
+    (called, cargs), = fake_card.calls
+    assert called == "flash_attention_fwd_wgmma"
+    assert cargs[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), lse.data_ptr())
+    want_ptrs = [t.data_ptr() for t in biases] + [None] * (2 - len(biases))
+    assert list(cargs[5:7]) == want_ptrs
+    strides = list(cargs[7])
+    assert strides[:9] == [*q.stride()[:3], *k.stride()[:3],
+                           *v.stride()[:3]]
+    if with_bias:
+        # rel (1, h, n, m): 0 on size-1 axes; pad (b, 1, 1, m)
+        assert strides[9:] == [0, m * n, m if n > 1 else 0, 1, m, 0, 0, 1]
+    else:
+        assert strides[9:] == [0] * 8
+    assert cargs[8:13] == (b, n, m, h, d)
+    assert cargs[13] == pytest.approx(0.125) and cargs[14] == 1
+    assert cargs[15] == A._fwd_wgs(n, with_bias)
+    assert out.shape == q.shape and lse.shape == (b, h, n)
+    assert _fwd_counts() == (before[0] + 1, before[1] + 1)
+
+
+def _misaligned(b, n, h, d):
+    flat = torch.zeros(b * n * h * d + 1, dtype=torch.bfloat16)
+    return flat[1:].view(b, n, h, d)             # base 2 bytes off
+
+
+@pytest.mark.parametrize("what", ["bf16_d100", "fp32", "misaligned"])
+def test_the_forward_other_routes(fake_card, what):
+    """bf16 the TMA + wgmma kernel does not take, and float32, go to the
+    entry point of flash_attention.cu with their dtype flag."""
+    if what == "bf16_d100":
+        q, k, v = _case(2, 72, 72, 4, 100)[:3]
+    elif what == "fp32":
+        q, k, v = _case(2, 257, 257, 4, 88, torch.float32)[:3]
+    else:
+        q = _misaligned(2, 257, 4, 88)
+        k = v = torch.zeros(2, 257, 4, 88, dtype=torch.bfloat16)
+    before = _fwd_counts()
+    A.flash_attention(q, k, v)
+    (called, cargs), = fake_card.calls
+    assert called == "flash_attention_fwd"
+    assert cargs[0] == int(what != "fp32")
+    assert _fwd_counts() == (before[0] + 1, before[1])
+
+
+def test_forward_impl_forces_the_mma_route(fake_card):
+    q, k, v = _case(2, 257, 257, 4, 88)[:3]
+    before = _fwd_counts()
+    A.flash_attention(q, k, v, _impl=A.MMA)
+    assert [c for c, _ in fake_card.calls] == ["flash_attention_fwd"]
+    A.flash_attention(q, k, v, _impl=A.WGMMA)
+    assert [c for c, _ in fake_card.calls][1:] == [
+        "flash_attention_fwd_wgmma"]
+    assert _fwd_counts() == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("what,impl", [("fp32", A.WGMMA), ("fp32", A.MMA),
+                                       ("bf16_d100", A.WGMMA),
+                                       ("misaligned", A.WGMMA),
+                                       ("bf16", "fp32")])
+def test_forward_impl_raises_where_the_route_cannot_take_the_call(
+        fake_card, what, impl):
+    if what == "misaligned":
+        q = _misaligned(2, 72, 4, 64)
+        k = v = torch.zeros(2, 72, 4, 64, dtype=torch.bfloat16)
+    else:
+        dtype = torch.float32 if what == "fp32" else torch.bfloat16
+        q, k, v = _case(2, 72, 72, 4, 100 if what == "bf16_d100" else 64,
+                        dtype)[:3]
+    before = _fwd_counts()
+    with pytest.raises(ValueError, match="cannot take this call"):
+        A.flash_attention(q, k, v, _impl=impl)
+    assert fake_card.calls == [] and _fwd_counts() == before
+
+
+@pytest.mark.parametrize("impl", [A.WGMMA, A.MMA])
+def test_forward_impl_raises_on_a_cpu_tensor(impl):
+    q, k, v = _case(2, 72, 72, 4, 64)[:3]
+    before = _fwd_counts()
+    with pytest.raises(ValueError, match="unsupported device"):
+        A.flash_attention(q, k, v, _impl=impl)
+    assert _fwd_counts() == before

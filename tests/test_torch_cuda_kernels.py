@@ -97,6 +97,10 @@ def _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes, seed=0):
     return q, k, v, biases
 
 
+# the route ``plan_forward`` picks (None), and each bf16 route forced with
+# ``_impl``: where the route takes the case the kernel is held to the
+# plain version, elsewhere ``_impl`` raises and nothing launches
+@pytest.mark.parametrize("impl", [None, A.WGMMA, A.MMA])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale,causal", [
     (2, 257, 257, 16, 88, [], 88 ** -0.5, False),          # EVA ViT-g self
@@ -105,14 +109,32 @@ def _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes, seed=0):
     (5, 1, 10, 32, 64, [(1, 32, 1, 10), (1, 1, 1, 10)], 1.0, False),  # decode
     (2, 40, 40, 4, 64, [], 0.125, True),                  # causal, n = m
     (2, 9, 5, 2, 32, [], 1.0, True),                      # causal, n > m
+    (2, 9, 5, 2, 64, [], 1.0, True),                      # the same at d 64
     (1, 130, 200, 2, 100, [(1, 1, 130, 200)], 0.1, True),  # ragged tiles
+    (1, 130, 200, 2, 88, [(1, 1, 130, 200)], 0.1, True),   # ragged, d 88
+    (2, 80, 80, 4, 64, ["pad"], 0.125, False),    # a last kv tile of 16
+    (2, 81, 81, 4, 88, [(1, 4, 81, 81)], 0.1, False),  # ... and of 17
 ])
-def test_flash_matches_plain(cuda, dtype, b, n, m, h, d, bias_shapes, scale,
-                             causal):
+def test_flash_matches_plain(cuda, impl, dtype, b, n, m, h, d, bias_shapes,
+                             scale, causal):
     q, k, v, biases = _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes)
-    before = A.launches
-    got = A.attention_core(q, k, v, biases, scale=scale, causal=causal)
-    assert A.launches == before + 1
+    plan = A.plan_forward(n, m, d, bf16=dtype == torch.bfloat16,
+                          aligned=A._tma_aligned(q, k, v))
+    before = (A.launches, A.fwd_wgmma_launches)
+    if impl is not None and (dtype == torch.float32 or
+                             (impl == A.WGMMA and plan != A.WGMMA)):
+        with pytest.raises(ValueError, match="cannot take this call"):
+            A.flash_attention(q, k, v, biases, scale, causal, _impl=impl)
+        assert (A.launches, A.fwd_wgmma_launches) == before
+        return
+    if impl is None:
+        got = A.attention_core(q, k, v, biases, scale=scale, causal=causal)
+    else:
+        got, _ = A.flash_attention(q, k, v, biases, scale, causal,
+                                   _impl=impl)
+    route = impl or plan
+    assert (A.launches, A.fwd_wgmma_launches) == (
+        before[0] + 1, before[1] + (route == A.WGMMA))
     _close(got, A.mha_reference(q, k, v, biases, scale, causal), dtype)
 
 
@@ -126,21 +148,92 @@ def test_flash_fully_masked_row_is_uniform_average(cuda):
 
 
 def test_flash_strided_views_of_fused_qkv(cuda):
+    """The ViT's q, k, v as views of its fused projection run the TMA +
+    wgmma forward without a copy."""
     rng = np.random.default_rng(3)
     qkv = torch.tensor(rng.standard_normal((2, 257, 3, 16, 88)),
                        device=cuda).to(torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = A.fwd_wgmma_launches
     got = A.attention_core(q, k, v, scale=88 ** -0.5)
+    assert A.fwd_wgmma_launches == before + 1
     _close(got, A.mha_reference(q, k, v, (), 88 ** -0.5), torch.bfloat16)
 
 
-def test_flash_lse(cuda):
-    q, k, v, biases = _attn_case(cuda, torch.float32, 2, 20, 30, 3, 64,
+@pytest.mark.parametrize("dtype,impl", [(torch.float32, None),
+                                        (torch.bfloat16, A.WGMMA),
+                                        (torch.bfloat16, A.MMA)])
+def test_flash_lse(cuda, dtype, impl):
+    """The log-sum-exp the backward reads, against the plain one of the
+    same (bf16-rounded) inputs: both sum exact products in fp32."""
+    q, k, v, biases = _attn_case(cuda, dtype, 2, 20, 30, 3, 64,
                                  [(2, 1, 1, 30)])
-    _, lse = A.flash_attention(q, k, v, biases, scale=0.2)
-    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * 0.2 + biases[0]
+    _, lse = A.flash_attention(q, k, v, biases, scale=0.2, _impl=impl)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * 0.2 \
+        + biases[0]
     torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", [A.WGMMA, A.MMA])
+def test_flash_rows_without_keys_are_uniform_averages_in_bf16(cuda, impl):
+    """bf16 rows that see no key — causal with n > m, and a row whose every
+    bias entry is NEG_INF — take the uniform average over the real m keys
+    on both routes (the TMA + wgmma kernel's padded kv columns are −inf,
+    never NEG_INF)."""
+    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 2, 9, 5, 2, 64, [])
+    got, _ = A.flash_attention(q, k, v, (), 1.0, True, _impl=impl)
+    _close(got, A.mha_reference(q, k, v, (), 1.0, True), torch.bfloat16)
+    # rows 0-3 see no key: the mean of v over the 5 keys
+    want = v.float().mean(1, keepdim=True).expand(2, 4, 2, 64)
+    torch.testing.assert_close(got[:, :4].float(), want, atol=2e-2,
+                               rtol=2e-2)
+    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 1, 70, 70, 2, 88, [])
+    bias = torch.zeros(1, 1, 70, 70, device=cuda)
+    bias[0, 0, 5, :] = A.NEG_INF
+    got, _ = A.flash_attention(q, k, v, [bias], 0.125, _impl=impl)
+    _close(got, A.mha_reference(q, k, v, [bias], 0.125), torch.bfloat16)
+    torch.testing.assert_close(got[0, 5].float(), v[0].float().mean(0),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_flash_wgmma_two_calls_are_bit_equal(cuda):
+    """The TMA + wgmma forward sums in a fixed order (no atomics)."""
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, 2, 72, 72, 8, 64,
+                                 [(1, 8, 72, 72), "pad"])
+    out1, lse1 = A.flash_attention(q, k, v, biases, 1.0, _impl=A.WGMMA)
+    out2, lse2 = A.flash_attention(q, k, v, biases, 1.0, _impl=A.WGMMA)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale", [
+    (2, 257, 257, 16, 88, [], 88 ** -0.5),                  # EVA ViT-g self
+    (2, 72, 72, 8, 64, [(1, 8, 72, 72), "pad"], 1.0),       # T5 encoder
+])
+def test_bf16_autograd_forward_runs_the_wgmma_routes(cuda, b, n, m, h, d,
+                                                     bias_shapes, scale):
+    """Under autograd the ViT's and T5's bf16 attention runs the TMA +
+    wgmma forward, and its out and lse feed the TMA + wgmma backward to the
+    plain backward's tolerance (the plain backward fed the plain
+    forward's out and lse)."""
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, b, n, m, h, d,
+                                 bias_shapes)
+    g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
+                     device=cuda).to(torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (A.fwd_wgmma_launches, A.bwd_wgmma_launches)
+    out = A.attention_core(q, k, v, biases, scale)
+    got = torch.autograd.grad(out, leaves, g)
+    assert (A.fwd_wgmma_launches, A.bwd_wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    qd, kd, vd = (t.detach() for t in leaves)
+    ref_out = A.mha_reference(qd, kd, vd, biases, scale)
+    ref_lse = torch.logsumexp(A._scores(qd, kd, biases, scale, False), -1)
+    _close(out, ref_out, torch.bfloat16)
+    want = A.flash_attention_backward_ref(qd, kd, vd, ref_out, ref_lse, g,
+                                          biases, scale)
+    for gg, ww in zip(got, want):
+        _close(gg, ww, torch.bfloat16)
 
 
 # ------------------------------------------------------- sparse-LoRA kernel

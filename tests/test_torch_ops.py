@@ -120,6 +120,50 @@ def test_attention_fully_masked_row_and_causal_n_gt_m(jax_flash):
     np.testing.assert_allclose(got[0, 1], v[0].mean(0), **TOL)
 
 
+def test_attention_vit_geometry_matches_jax_flash(jax_flash):
+    """The ViT's odd geometry (n = m = 257, d = 88: ragged q and kv tiles,
+    a head dim off every power of two), fp32: the JAX Pallas forward in
+    interpret mode against the port's plain version, out and the per-row
+    log-sum-exp the backward reads."""
+    rng = np.random.default_rng(5)
+    q, k, v = _attn_inputs(rng, 1, 257, 257, 3, 88)
+    scale = 88 ** -0.5
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    flash = _np(JA.attention_core(jq, jk, jv, (), scale=scale))
+    _, jlse = JA._flash_attention_pallas(jq, jk, jv, [], scale, False,
+                                         interpret=True, return_lse=True)
+    got = TA.attention_core(_t(q), _t(k), _t(v), scale=scale).numpy()
+    lse = torch.logsumexp(TA._scores(_t(q), _t(k), (), scale, False), -1)
+    np.testing.assert_allclose(got, flash, **TOL)
+    np.testing.assert_allclose(lse.numpy(), _np(jlse), **TOL)
+
+
+def test_fully_masked_row_keeps_the_reference_mean_not_the_pallas_one():
+    """A known difference, kept: the JAX Pallas forward pads m to its kv
+    block and masks the padded columns with NEG_INF, so a row whose real
+    scores are all NEG_INF averages v over the padded length (its zero
+    rows included); ``mha_reference`` and the port average over the real
+    m keys.  The probe of ROADMAP.md queue 3 (b, n, m, h, d = 1, 6, 4, 2,
+    8; row 1 fully masked)."""
+    rng = np.random.default_rng(2)
+    q, k, v = _attn_inputs(rng, 1, 6, 4, 2, 8)
+    bias = np.zeros((1, 1, 6, 4), np.float32)
+    bias[0, 0, 1, :] = TA.NEG_INF
+    jargs = [jnp.asarray(x) for x in (q, k, v)]
+    pallas = _np(JA._flash_attention_pallas(*jargs, [jnp.asarray(bias)], 1.0,
+                                            False, interpret=True))
+    got = TA.attention_core(_t(q), _t(k), _t(v), [_t(bias)]).numpy()
+    m_pad = int(round(float(v[0].sum(0)[0, 0] / pallas[0, 1, 0, 0])))
+    assert m_pad > 4
+    np.testing.assert_allclose(pallas[0, 1], v[0].sum(0) / m_pad, **TOL)
+    np.testing.assert_allclose(got[0, 1], v[0].mean(0), **TOL)
+    assert np.abs(pallas - got).max() == pytest.approx(1.10, abs=0.01)
+    # every other row agrees
+    np.testing.assert_allclose(np.delete(got, 1, axis=1),
+                               np.delete(pallas, 1, axis=1), atol=2e-5,
+                               rtol=1e-4)
+
+
 def test_attention_decode_step_matches_jax():
     rng = np.random.default_rng(3)
     q, k, v = _attn_inputs(rng, 4, 1, 10, 2, 8)

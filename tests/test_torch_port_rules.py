@@ -260,3 +260,69 @@ def test_the_attention_backward_is_tma_wgmma_and_mbarriers():
     assert '#include "hopper.cuh"' in (_cuda.CSRC / "wgmma_tile.cuh") \
         .read_text()
     assert "flash_attention_bwd_wgmma" in _cuda.SOURCES
+
+
+def test_the_attention_forward_is_tma_wgmma_and_mbarriers():
+    """The bf16 attention forward's Hopper kernel loads Q, K and V by TMA
+    through an mbarrier ring, multiplies with warpgroup MMAs (SS for the
+    scores, RS with P in registers for P·V), rebalances registers with
+    setmaxnreg and stores O by TMA, from the shared Hopper helpers; its
+    source builds on its own."""
+    src = (_cuda.CSRC / "flash_attention_fwd_wgmma.cu").read_text()
+    hopper = (_cuda.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src
+    for call in ("tma_load_4d", "tma_store_4d", "encode_4d", "mbar_init",
+                 "mbar_expect_tx", "mbar_wait", "mbar_arrive", "wgmma_ss_n64",
+                 "wgmma_ss_n16", "wgmma_rs_dp", "wgmma_fence", "wgmma_commit",
+                 "wgmma_wait", "setmaxnreg", "fence.proxy.async",
+                 "exp2_approx", "bind_context"):
+        assert call in src, call
+    for ptx in ("cp.async.bulk.tensor.4d.shared::cluster.global",
+                "cp.async.bulk.tensor.4d.global.shared::cta",
+                "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+                "wgmma.mma_async.sync.aligned.m64n64k16",
+                "wgmma.mma_async.sync.aligned.m64n16k16",
+                "wgmma.mma_async.sync.aligned.m64n96k16", "ex2.approx"):
+        assert ptx in hopper, ptx
+    assert "flash_attention_fwd_wgmma" in _cuda.SOURCES
+    assert "flash_attention_fwd_wgmma" in _cuda._SIGNATURES
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("impl", [None, TA.WGMMA, TA.MMA])
+def test_forward_wrappers_raise_instead_of_falling_back(grad, impl):
+    """At a shape the TMA + wgmma forward takes (the ViT's), and with
+    either bf16 route forced, the forward wrapper refuses a device the
+    kernels do not serve, alone and under autograd: no launch is counted
+    on either route."""
+    q = torch.empty(2, 257, 16, 88, dtype=torch.bfloat16, device="meta",
+                    requires_grad=grad)
+    assert TA.plan_forward(257, 257, 88) == TA.WGMMA
+    counts = (TA.launches, TA.fwd_wgmma_launches)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TA.flash_attention(q, q, q, (), 88 ** -0.5, _impl=impl)
+    with torch.set_grad_enabled(grad), \
+            pytest.raises(ValueError, match="unsupported device"):
+        TA.attention_core(q, q, q, scale=88 ** -0.5)
+    assert (TA.launches, TA.fwd_wgmma_launches) == counts
+
+
+def test_forward_without_its_library_raises(monkeypatch, tmp_path):
+    """The TMA + wgmma forward (and the mma.sync one, forced) on a tensor
+    the kernels serve, with its library not built and no nvcc to build it:
+    the wrapper raises; it does not fall back to the plain version, and
+    counts no launch."""
+    import torch.utils.cpp_extension as cpp
+
+    monkeypatch.setenv("VCT_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda, "_LIBS", {})
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(TA, "_on_card", lambda t: True)
+    q = torch.zeros(2, 257, 4, 88, dtype=torch.bfloat16)
+    counts = (TA.launches, TA.fwd_wgmma_launches)
+    for impl in (None, TA.MMA):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            TA.flash_attention(q, q, q, (), 88 ** -0.5, _impl=impl)
+    assert (TA.launches, TA.fwd_wgmma_launches) == counts

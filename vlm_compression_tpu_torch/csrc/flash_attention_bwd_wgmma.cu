@@ -137,14 +137,6 @@ __device__ __forceinline__ bool skip_tile(const Params& p, int q0, int kv0) {
   return p.causal && q0 + off >= 0 && min(q0 + BQ - 1, p.N - 1) + off < kv0;
 }
 
-// 2^x on the special-function unit (the forward's exp(s − lse) as
-// 2^((s − lse)·log2 e); a result below the normal range flushes to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // pᵀ and dsᵀ of the tile in place of the Sᵀ and dPᵀ accumulators.  Element
 // 4jj + e of a thread: kv row r0 (e < 2) or r0 + 8, q column
 // 8jj + 2(lane % 4) + (e & 1).  EDGE: the tile crosses n, m or the causal
@@ -199,27 +191,6 @@ __device__ __forceinline__ void scores(const Params& p, float (&sc)[32],
       dp[x] = ds;
     }
   }
-}
-
-// d (+)= A · B at N = DP, both operands in shared memory
-template <int DP, int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_dp(float (&d)[DP / 2], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  if constexpr (DP == 64)
-    wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
-  else
-    wgmma_ss_n96<TA, TB>(d, da, db, scale_d);
-}
-
-// d += A (registers) · B (shared memory, MN-major) at N = DP
-template <int DP>
-__device__ __forceinline__ void wgmma_rs_dp(float (&d)[DP / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  if constexpr (DP == 64)
-    wgmma_rs_n64<1>(d, a, db);
-  else
-    wgmma_rs_n96<1>(d, a, db);
 }
 
 template <int DP>
@@ -599,27 +570,6 @@ flash_bwd_dq_cast_kernel(const float* __restrict__ ws, bf16* __restrict__ dq,
 
 // ------------------------------------------------------------------ host
 
-// a (batch, seq, head, d) bf16 view as a 4-D map of 64-row × 32-column
-// boxes, 64-byte swizzle; rows ≥ seq and columns ≥ d load as zeros
-bool encode_4d(CUtensorMap* map, const void* base, int batch, int seq,
-               int heads, int d, const long long* strides) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t st[3] = {static_cast<cuuint64_t>(strides[1]) * 2,
-                            static_cast<cuuint64_t>(strides[2]) * 2,
-                            static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {BOX, 64, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, st, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_delta(int is_bf16, const DeltaArgs& a, cudaStream_t st) {
   const long long rows = static_cast<long long>(a.B) * a.H * a.pitch;
   const unsigned grid = static_cast<unsigned>((rows + 15) / 16);
@@ -684,10 +634,10 @@ extern "C" int flash_attention_bwd_wgmma(
     return static_cast<int>(cudaErrorInvalidValue);
   const int dp = D <= 64 ? 64 : 96, np = (N + BQ - 1) / BQ * BQ;
   CUtensorMap maps[4];
-  if (!encode_4d(&maps[0], q, B, N, H, D, strides) ||
-      !encode_4d(&maps[1], k, B, M, H, D, strides + 3) ||
-      !encode_4d(&maps[2], v, B, M, H, D, strides + 6) ||
-      !encode_4d(&maps[3], g, B, N, H, D, strides + 17))
+  if (!encode_4d(&maps[0], q, B, N, H, D, strides, BOX, 64) ||
+      !encode_4d(&maps[1], k, B, M, H, D, strides + 3, BOX, 64) ||
+      !encode_4d(&maps[2], v, B, M, H, D, strides + 6, BOX, 64) ||
+      !encode_4d(&maps[3], g, B, N, H, D, strides + 17, BOX, 64))
     return static_cast<int>(cudaErrorInvalidValue);
 
   DeltaArgs a{g, out, static_cast<const float*>(lse),

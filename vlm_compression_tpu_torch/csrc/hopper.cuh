@@ -2,8 +2,10 @@
 // shared-memory addresses, mbarriers, TMA and bulk loads, wgmma
 // shared-memory descriptors, the wgmma fence / commit / wait, and the
 // wgmma.mma_async shapes the kernels issue (bf16 in, fp32 accumulators in
-// registers).  Used by wgmma_tile.cuh (the masked and sparse-LoRA matmuls)
-// and flash_attention_bwd_wgmma.cu (the attention backward).
+// registers), 2^x on the special-function unit, and the 4-D tensor maps of
+// the attention kernels.  Used by wgmma_tile.cuh (the masked and
+// sparse-LoRA matmuls), flash_attention_fwd_wgmma.cu (the attention
+// forward) and flash_attention_bwd_wgmma.cu (the attention backward).
 //
 // wgmma accumulator layout (m64nN, fp32), thread t of the warpgroup, warp
 // w = t / 32, lane l: d[4j + {0, 1}] is row 16w + l/4, columns
@@ -80,6 +82,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 4-D TMA store of one box from shared memory at (c0 innermost, ...,
+// c3 outermost); elements outside the map are not written.  Generic-proxy
+// writes of the box need fence.proxy.async before it.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N bulk groups still read their shared source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 // contiguous bytes (16-byte aligned, a multiple of 16) into shared memory
@@ -209,6 +234,25 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d[64 × 16] (+)= A[64 × 16] · B[16 × 16], both from shared memory (d:
+// the first 8 accumulators of the m64nN layout); TA / TB: the transpose
+// bits (1 = MN-major), scale_d 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d[64 × 64] += A[64 × 16] (registers: the m64n16 accumulator layout
 // packed to bf16 pairs) · B[16 × 64] (shared memory); TB: transpose bit
 template <int TB>
@@ -306,6 +350,35 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
         "n"(TB));
 }
 
+// d (+)= A · B at N = DP (64 or 96), both operands in shared memory
+template <int DP, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_dp(float (&d)[DP / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  if constexpr (DP == 64)
+    wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_ss_n96<TA, TB>(d, da, db, scale_d);
+}
+
+// d += A (registers) · B (shared memory, MN-major) at N = DP (64 or 96)
+template <int DP>
+__device__ __forceinline__ void wgmma_rs_dp(float (&d)[DP / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (DP == 64)
+    wgmma_rs_n64<1>(d, a, db);
+  else
+    wgmma_rs_n96<1>(d, a, db);
+}
+
+// 2^x on the special-function unit (a result below the normal range
+// flushes to 0; 2^-inf is 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------------------ host
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -342,6 +415,31 @@ inline EncodeTiled encoder() {
                ? reinterpret_cast<EncodeTiled>(p) : nullptr;
   }();
   return fn;
+}
+
+// A (batch, seq, head, d) bf16 view as a 4-D map of `box_rows` ×
+// `box_cols` boxes with the 64-byte swizzle (box_cols · 2 = 64 bytes);
+// rows ≥ seq and columns ≥ d load as zeros.  strides: (batch, seq, head)
+// in elements, each a multiple of 8 (16 bytes), as the base's alignment.
+inline bool encode_4d(CUtensorMap* map, const void* base, int batch, int seq,
+                      int heads, int d, const long long* strides,
+                      int box_cols, int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t st[3] = {static_cast<cuuint64_t>(strides[1]) * 2,
+                            static_cast<cuuint64_t>(strides[2]) * 2,
+                            static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, st, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -24,8 +24,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("masked_matmul", "masked_matmul_wgmma", "int8_matmul",
-           "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_wgmma")
+           "flash_attention", "flash_attention_fwd_wgmma",
+           "flash_attention_bwd", "flash_attention_bwd_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -62,6 +62,10 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "flash_attention_fwd_wgmma": {
+        "flash_attention_fwd_wgmma": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _I,
+                                                 _I, _P],
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,

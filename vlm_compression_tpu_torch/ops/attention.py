@@ -21,8 +21,11 @@ reference, so they carry no gradient — rows that see no key included).
 
 Layout: q (b, n, h, d), k/v (b, m, h, d); biases are additive fp32 arrays
 broadcastable to (b, h, n, m).  ``attention_core`` is an autograd Function
-whose forward runs ``mha_reference`` on CPU tensors and the hand-written
-kernel ``csrc/flash_attention.cu`` on CUDA tensors, and whose backward runs
+whose forward runs ``mha_reference`` on CPU tensors and, on CUDA tensors,
+the forward route ``plan_forward`` picks — the bf16 TMA + wgmma kernel of
+``csrc/flash_attention_fwd_wgmma.cu``, or the kernels of
+``csrc/flash_attention.cu`` (bf16 on mma.sync where the first does not
+take the call, fp32 on the CUDA cores) — and whose backward runs
 ``flash_attention_backward_ref`` and ``flash_attention_dbias_ref`` on the
 CPU and, on the card, the backward route ``plan`` picks — the bf16 TMA +
 wgmma kernel of ``csrc/flash_attention_bwd_wgmma.cu`` (with its delta
@@ -30,7 +33,8 @@ pre-pass and dq cast), or the dq and dk/dv kernels of
 ``csrc/flash_attention_bwd.cu`` (fp32, and bf16 the first does not take) —
 and the dbias kernel (once for each bias that needs a gradient, any
 broadcast pattern including a key dim of 1): launch or raise, no fallback.
-``launches``, ``bwd_wgmma_launches``, ``dq_launches``, ``dkv_launches``,
+``launches`` (every forward), ``fwd_wgmma_launches`` (the forward's TMA +
+wgmma route), ``bwd_wgmma_launches``, ``dq_launches``, ``dkv_launches``,
 ``dbias_launches`` and ``delta_launches`` (the pre-pass alone, for the
 other two) count kernel launches.
 """
@@ -47,6 +51,7 @@ from vlm_compression_tpu_torch.ops import _cuda
 NEG_INF = -1e9  # matches the towers' additive-mask constant
 
 launches = 0
+fwd_wgmma_launches = 0
 bwd_wgmma_launches = 0
 dq_launches = 0
 dkv_launches = 0
@@ -258,36 +263,117 @@ def _layout(q, k, v, biases):
     return strides, ptrs, vec
 
 
+# the routes of the forward (``plan_forward``) and of the backward (``plan``)
+WGMMA = "wgmma"   # bf16, TMA + wgmma: csrc/flash_attention_fwd_wgmma.cu,
+#                   csrc/flash_attention_bwd_wgmma.cu
+MMA = "mma"       # bf16 on mma.sync: csrc/flash_attention.cu,
+#                   csrc/flash_attention_bwd.cu
+FP32 = "fp32"     # fp32 on the CUDA cores, the same two sources
+
+
+def _tma_aligned(*tensors) -> bool:
+    """16-byte aligned bases and (batch, seq, head) strides: what the TMA
+    maps and the 16-byte row loads need."""
+    return all(t.data_ptr() % 16 == 0
+               and all((x * t.element_size()) % 16 == 0
+                       for x in t.stride()[:3]) for t in tensors)
+
+
+def plan_forward(n: int, m: int, d: int, *, bf16: bool = True,
+                 aligned: bool = True) -> str:
+    """The forward's route for one call, from the dtype, head dim,
+    alignment and shape alone (a miss is a routed decision, never a launch
+    that is retried):
+
+    - float32: the CUDA-core kernel (FP32);
+    - bf16 that TMA can take (``aligned``: 16-byte aligned q, k and v bases
+      and (batch, seq, head) strides) with a head dim the TMA + wgmma
+      kernel holds (32 < d ≤ 96, d % 8 == 0): WGMMA;
+    - any other bf16: the mma.sync kernel (MMA).
+
+    No shape rule: at every shape of chip_smoke.py's ``FLASH_SHAPES``, the
+    decode steps (n = 1) included, the TMA + wgmma route was the faster in
+    one call of ``scripts/torch_fwd_check.py`` (H100 80GB HBM3, 700.00 W;
+    ms, the mean of two turns, TMA + wgmma vs mma.sync):
+
+        vit_self_calib          0.2719 vs 1.4561
+        vit_self_b16            0.0442 vs 0.2268
+        qformer_cross           0.0168 vs 0.0598
+        qformer_self            0.0142 vs 0.0270
+        t5_encoder_calib        0.1318 vs 0.4809
+        t5_encoder_b16          0.0239 vs 0.0727
+        t5_decoder_self_calib   0.0411 vs 0.1060
+        t5_self_decode          0.0128 vs 0.0219
+        t5_cross_decode         0.0179 vs 0.0431
+
+    (PERF.md §6)."""
+    if not bf16:
+        return FP32
+    if aligned and d % 8 == 0 and 32 < d <= 96:
+        return WGMMA
+    return MMA
+
+
+def _fwd_wgs(n: int, biased: bool) -> int:
+    """Consumer warpgroups a block of the TMA + wgmma forward (64 query
+    rows each; two blocks an SM with one, one with three).  Three above
+    n = 128 with no bias: vit_self_calib (n = 257) 0.2719 ms against 0.3997
+    with one, in the call of ``scripts/torch_fwd_check.py`` that
+    ``plan_forward``'s table comes from.  One elsewhere: three hold 160
+    registers each, which the bias paths spilled, and at n ≤ 128 the
+    second and third hold few rows or none (with the bias paths built for
+    three, an earlier call read t5_encoder_calib, n = 72, at 0.1378 with
+    three against 0.1301 with one; PERF.md §6)."""
+    return 3 if n > 128 and not biased else 1
+
+
 def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
-                    scale: float = 1.0, causal: bool = False):
-    """Launch the flash kernel on CUDA tensors → (out (b,n,h,d) in q's
-    dtype, lse (b,h,n) float32)."""
-    global launches
+                    scale: float = 1.0, causal: bool = False,
+                    _impl: Optional[str] = None):
+    """Launch the forward on CUDA tensors → (out (b,n,h,d) in q's dtype,
+    lse (b,h,n) float32).  The route is ``plan_forward``'s; ``_impl``
+    (internal: the timing phase of chip_smoke.py) forces WGMMA or MMA, and
+    raises where that route cannot take the call."""
+    global launches, fwd_wgmma_launches
     strides, ptrs, vec = _layout(q, k, v, biases)
     dev = q.device
     b, n, h, d = q.shape
     m = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    route = plan_forward(n, m, d, bf16=bf16, aligned=_tma_aligned(q, k, v))
+    if _impl is not None:
+        if _impl not in (WGMMA, MMA) or not bf16 or \
+                (_impl == WGMMA and route != WGMMA):
+            raise ValueError(f"flash_attention: route {_impl!r} cannot take "
+                             f"this call (plan_forward: {route})")
+        route = _impl
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=dev)
     if b * n * h == 0:
         return out, lse
-    err = _cuda.library("flash_attention").flash_attention_fwd(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), lse.data_ptr(), ptrs[0], ptrs[1],
-        _STRIDES(*strides), b, n, m, h, d, float(scale), int(bool(causal)),
-        int(vec), _cuda.stream_ptr(dev))
-    _cuda.check(err, "flash_attention")
+    if route == WGMMA:
+        err = _cuda.library("flash_attention_fwd_wgmma") \
+            .flash_attention_fwd_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), ptrs[0], ptrs[1], _STRIDES(*strides), b, n,
+                m, h, d, float(scale), int(bool(causal)),
+                _fwd_wgs(n, bool(biases)),
+                _cuda.stream_ptr(dev))
+        _cuda.check(err, "flash_attention_fwd_wgmma")
+        fwd_wgmma_launches += 1
+    else:
+        err = _cuda.library("flash_attention").flash_attention_fwd(
+            int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), ptrs[0], ptrs[1],
+            _STRIDES(*strides), b, n, m, h, d, float(scale),
+            int(bool(causal)), int(vec), _cuda.stream_ptr(dev))
+        _cuda.check(err, "flash_attention")
     launches += 1
     return out, lse
 
 
 _BWD_STRIDES = ctypes.c_longlong * 20
 _WGMMA_STRIDES = ctypes.c_longlong * 23
-
-# the backward's routes (``plan``)
-WGMMA = "wgmma"   # csrc/flash_attention_bwd_wgmma.cu: bf16, TMA + wgmma
-MMA = "mma"       # csrc/flash_attention_bwd.cu, bf16 on mma.sync
-FP32 = "fp32"     # csrc/flash_attention_bwd.cu, fp32 on the CUDA cores
 
 
 def plan(n: int, m: int, d: int, *, bf16: bool = True,
@@ -314,14 +400,6 @@ def plan(n: int, m: int, d: int, *, bf16: bool = True,
     if aligned and d % 8 == 0 and 32 < d <= 96:
         return WGMMA
     return MMA
-
-
-def _tma_aligned(*tensors) -> bool:
-    """16-byte aligned bases and (batch, seq, head) strides: what the TMA
-    maps and the 16-byte row loads need."""
-    return all(t.data_ptr() % 16 == 0
-               and all((x * t.element_size()) % 16 == 0
-                       for x in t.stride()[:3]) for t in tensors)
 
 
 def _backward_layout(q, k, v, out, lse, g, biases, what):
