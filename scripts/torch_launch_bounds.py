@@ -10,8 +10,9 @@ Run from the root of a checkout.  Builds ``csrc/masked_matmul.cu`` and
 the minimum of blocks per SM removed (``__launch_bounds__(THREADS)``).
 Prints each bf16 tile kernel's registers and spill stores in both builds,
 then times the bool-mask, packed-mask (G 128) and int8 (packed-128 mask)
-matmuls through the port's wrappers in both builds at the compressed
-path's prefill and decode shapes, in the order committed, one-block,
+matmuls through the port's wrappers, on the WMMA loop (forced with
+``_loop``), in both builds at the compressed path's prefill and decode
+shapes, in the order committed, one-block,
 one-block, committed (chip_smoke.py's method: median of 20 calls, CUDA
 events, L2 flushed).  The last line is a JSON object of the readings.
 """
@@ -39,7 +40,7 @@ from vlm_compression_tpu_torch.ops import quant as Q  # noqa: E402
 SOURCES = ("masked_matmul", "int8_matmul")
 OUT = ROOT / "build" / "launch_bounds"
 SHAPES = {name: (m, k, n) for name, m, k, n in CS.SERVE_SHAPES
-          if name in CS.COMPRESSED_TIMED}
+          if name in (CS.PREFILL_TIMED, "t5_wi_decode")}
 
 
 def variant_sources(variant: str) -> Path:
@@ -116,11 +117,13 @@ def timings(libs) -> dict:
         x, w, mask = CS.mm_inputs(m, k, n, torch.bfloat16)
         packed = BM.pack_mask(mask, 128)
         q, sc = Q.quantize_weight(w)
-        out[f"bool {name}"] = CS.device_ms(lambda: ML.masked_matmul(x, w, mask))
+        # the WMMA loop, forced where the plan is another loop
+        out[f"bool {name}"] = CS.device_ms(
+            lambda: ML.masked_matmul(x, w, mask, _loop=ML.WMMA))
         out[f"packed128 {name}"] = CS.device_ms(
-            lambda: ML.masked_matmul_packed(x, w, packed))
+            lambda: ML.masked_matmul_packed(x, w, packed, _loop=ML.WMMA))
         out[f"int8_packed128 {name}"] = CS.device_ms(
-            lambda: Q.int8_matmul(x, q, sc, packed))
+            lambda: Q.int8_matmul(x, q, sc, packed, _loop=ML.WMMA))
     return out
 
 

@@ -655,16 +655,125 @@ def test_hopper_loop_sparse_lora_grads_match_plain(cuda, r):
 @pytest.mark.parametrize("m,k,n,loop", [
     (2000, 1408, 1392, ML.WGMMA),   # tiles fill the card, TMA-able
     (1000, 1408, 1400, ML.WMMA),    # N % 16 != 0: no TMA stride
-    (20, 2048, 5120, ML.WMMA),      # decode: split-K
+    (20, 2048, 5120, ML.DECODE),    # decode: the cluster split-K kernel
 ])
 def test_dispatch_picks_each_loop(cuda, m, k, n, loop):
     x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
-    before = ML.wgmma_launches
+    before, decode = ML.wgmma_launches, ML.decode_launches
     got = ML.masked_matmul(x, w, mask)
     assert _loop_ran(before, m, k, n) == loop
+    assert ML.decode_launches - decode == (loop == ML.DECODE)
     _close(got, ML.masked_matmul_ref(x, w, mask), torch.bfloat16)
     # the WMMA loop forced at the same shape agrees too
     before = ML.wgmma_launches
     _close(ML.masked_matmul(x, w, mask, _loop=ML.WMMA),
            ML.masked_matmul_ref(x, w, mask), torch.bfloat16)
     assert ML.wgmma_launches == before
+
+
+# ------------------------------------------------ the decode kernel
+# At M ≤ 64 every weight form (bool, packed, int8 with any mask) runs
+# csrc/matmul_decode.cu: swap-AB mma.sync, W streamed by TMA, K split
+# across a cluster and summed in rank order.  So packed ≡ bool and
+# int8-masked ≡ int8 on zeroed codes without a mask, bit for bit, and two
+# identical calls agree bit for bit.  Ragged cases cut K inside a stage and
+# a split unit (1000, 2056) and N inside a column tile (2064, 784).
+
+DECODE_SHAPES = [(2048, 2048), (2048, 5120), (5120, 2048),   # T5 qkvo, wi, wo
+                 (1000, 2064), (2056, 784)]
+DECODE_FORMS = ["bool", "packed128", "packed256", "int8_none", "int8_bool",
+                "int8_packed128"]
+
+
+def _decode_call(form, x, w, mask):
+    """The form's wrapper (public, so the card's route) on bf16 x, the
+    float weight w and the bool mask: (output, plain version's output)."""
+    if form == "bool":
+        return (ML.masked_matmul(x, w, mask),
+                ML.masked_matmul_ref(x, w, mask))
+    if form.startswith("packed"):
+        packed = BM.pack_mask(mask, int(form[6:]))
+        return (ML.masked_matmul_packed(x, w, packed),
+                ML.masked_matmul_packed_ref(x, w, packed))
+    q, scale = Q.quantize_weight(w)
+    kind = form[5:]
+    mk = {"none": None, "bool": mask}.get(kind)
+    if kind.startswith("packed"):
+        mk = BM.pack_mask(mask, int(kind[6:]))
+    return Q.int8_matmul(x, q, scale, mk), Q.int8_matmul_ref(x, q, scale, mk)
+
+
+@pytest.mark.parametrize("form", DECODE_FORMS)
+@pytest.mark.parametrize("m", [1, 7, 20, 64])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+def test_decode_kernel_matches_plain(cuda, form, m, k, n):
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
+    before = ML.decode_launches
+    got, want = _decode_call(form, x, w, mask)
+    assert ML.decode_launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _close(got, want, torch.bfloat16)
+
+
+def test_decode_kernel_lm_head_int8(cuda):
+    """The LM head at decode: int8 without a mask, 502 column tiles, one
+    split."""
+    x, w, _, _ = _packed_case(cuda, torch.bfloat16, 20, 2048, 32128, 128)
+    q, scale = Q.quantize_weight(w)
+    before = ML.decode_launches
+    got = Q.int8_matmul(x, q, scale)
+    assert ML.decode_launches == before + 1
+    _close(got, Q.int8_matmul_ref(x, q, scale), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 20, 64])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+def test_decode_kernel_packed_bit_equal_to_bool(cuda, m, k, n):
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
+    want = ML.masked_matmul(x, w, mask)
+    for group in (128, 256):
+        got = ML.masked_matmul_packed(x, w, BM.pack_mask(mask, group))
+        assert torch.equal(got, want), group
+
+
+@pytest.mark.parametrize("kind", ["bool", "packed128", "packed256"])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+def test_decode_kernel_int8_mask_bit_equal_to_zeroed_codes(cuda, kind, k, n):
+    """The serving form: codes zeroed off the mask, no mask, the same
+    products in the same order."""
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, 20, k, n, 128)
+    q, scale = Q.quantize_weight(w)
+    mk = mask if kind == "bool" else BM.pack_mask(mask, int(kind[6:]))
+    got = Q.int8_matmul(x, q, scale, mk)
+    zeroed = q.masked_fill(~mask, 0)
+    assert torch.equal(got, Q.int8_matmul(x, zeroed, scale))
+
+
+@pytest.mark.parametrize("form", ["bool", "packed128", "int8_packed128"])
+def test_decode_kernel_two_calls_are_bit_equal(cuda, form):
+    """The cluster sums the split partials in rank order: no atomics."""
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, 20, 5120, 2048, 128)
+    one = _decode_call(form, x, w, mask)[0]
+    two = _decode_call(form, x, w, mask)[0]
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("form", ["bool", "packed128", "int8_packed128"])
+def test_decode_shape_forced_wmma_loop_matches_plain(
+        cuda, form):
+    """``_loop=WMMA`` at a decode shape runs the WMMA loop, within the
+    tolerance of the same plain version."""
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, 20, 2048, 5120, 128)
+    decode, wmma = ML.decode_launches, ML.wmma_decode_m_launches
+    if form == "bool":
+        got = ML.masked_matmul(x, w, mask, _loop=ML.WMMA)
+    elif form == "packed128":
+        got = ML.masked_matmul_packed(x, w, BM.pack_mask(mask, 128),
+                                      _loop=ML.WMMA)
+    else:
+        q, scale = Q.quantize_weight(w)
+        got = Q.int8_matmul(x, q, scale, BM.pack_mask(mask, 128),
+                            _loop=ML.WMMA)
+    assert ML.decode_launches == decode
+    assert ML.wmma_decode_m_launches == wmma + 1
+    _close(got, _decode_call(form, x, w, mask)[1], torch.bfloat16)

@@ -1,8 +1,10 @@
 """The tiled matmuls' dispatch (``ops/masked_linear.plan`` and ``_launch``)
-on the CPU: which main loop a launch takes — the Hopper TMA + wgmma loop,
-the WMMA loop with its split-K, or the float32 one — from the shape and
-the alignment alone, that K is covered exactly once, and that the wrappers
-count the Hopper loop's launches.  The kernels themselves run only on the
+on the CPU: which main loop a launch takes — the decode kernel at
+decode-sized M, the Hopper TMA + wgmma loop, the WMMA loop with its
+split-K, or the float32 one — from the shape and the alignment alone,
+that K is covered exactly once, and that the wrappers count the Hopper
+loop's and the decode kernel's launches (``tests/test_torch_decode_route.py``
+holds the decode kernel's own routing cases).  The kernels themselves run only on the
 card (``tests/test_torch_cuda_kernels.py``)."""
 
 import pytest
@@ -24,9 +26,9 @@ CASES = [
     ("vit_qkv_prefill", 1028, 4224, 1408, True, True, 0, ML.WGMMA),
     ("ragged_n_1392", 2000, 1392, 1408, True, True, 0, ML.WGMMA),
     ("ragged_mk", 1100, 2048, 1000, True, True, 0, ML.WGMMA),
-    # decode-sized M: too few tiles, split K on the WMMA loop
-    ("t5_wi_decode", 20, 5120, 2048, True, True, 0, ML.WMMA),
-    ("t5_wo_decode", 20, 2048, 5120, True, True, 0, ML.WMMA),
+    # decode-sized M: the decode kernel, K split across a cluster
+    ("t5_wi_decode", 20, 5120, 2048, True, True, 0, ML.DECODE),
+    ("t5_wo_decode", 20, 2048, 5120, True, True, 0, ML.DECODE),
     ("vit_proj_prefill", 1028, 1408, 1408, True, True, 0, ML.WMMA),
     ("t5_dec_wi_train_r8", 384, 5120, 2048, True, True, 8, ML.WMMA),
     # what TMA cannot take: N % 16, K % 8, a misaligned base
@@ -51,7 +53,10 @@ def test_plan_picks_the_loop_and_covers_k_once(case, m, n, k, bf16, aligned,
                                    rank=rank)
     assert got == loop
     assert splits >= 1 and (splits - 1) * k_split < k <= splits * k_split
-    if loop != ML.WMMA:
+    if loop == ML.DECODE:
+        assert (splits, k_split) == ML.plan_decode(m, n, k, SMS)[1:]
+        assert k_split % ML.DECODE_K_UNIT == 0
+    elif loop != ML.WMMA:
         assert (splits, k_split) == (1, k)    # one launch over all of K
     else:
         assert (splits, k_split) == ML.split_k(m, n, k, SMS)
@@ -71,12 +76,14 @@ def _main_path_shapes():
 def test_main_path_runs_the_hopper_loop_wherever_k_is_not_split(case, m, n,
                                                                  k, rank):
     """Every bf16 main-path shape that the WMMA loop would run unsplit goes
-    to the Hopper loop; decode shapes never do."""
-    loop, splits, _ = ML.plan(m, n, k, SMS, rank=rank)
+    to the Hopper loop; decode shapes never do: they run the decode
+    kernel, K split as ``plan_decode`` says."""
+    loop, splits, k_split = ML.plan(m, n, k, SMS, rank=rank)
     wmma_splits, _ = ML.split_k(m, n, k, SMS)
     assert (loop == ML.WGMMA) == (wmma_splits == 1)
     if case.endswith("_decode"):
-        assert loop == ML.WMMA and splits > 1
+        assert loop == ML.DECODE
+        assert (splits, k_split) == ML.plan_decode(m, n, k, SMS)[1:]
 
 
 class _Lib:
@@ -109,14 +116,18 @@ def _bf16(*shape):
 @pytest.mark.parametrize("kind", ["bool", "packed", "lora"])
 @pytest.mark.parametrize("m,loop,forced", [(2048, ML.WGMMA, None),
                                            (2048, ML.WMMA, ML.WMMA),
-                                           (16, ML.WMMA, None)])
+                                           (16, ML.DECODE, None)])
 def test_wrappers_launch_the_planned_loop_and_count_it(fake_card, kind, m,
                                                        loop, forced):
+    """At M = 16 the bool and packed matmuls run the decode kernel; the
+    sparse-LoRA one, which it does not take, the WMMA loop."""
+    if kind == "lora" and loop == ML.DECODE:
+        loop = ML.WMMA
     k, n = 1024, 2048
     x, w = _bf16(m, k), _bf16(k, n)
     mask = torch.ones(k, n, dtype=torch.bool)
     before = (ML.launches, ML.packed_launches, ML.lora_launches,
-              ML.wgmma_launches)
+              ML.wgmma_launches, ML.decode_launches)
     if kind == "bool":
         ML._masked_matmul_cuda(x, w, mask, forced)
         name = "masked_matmul"
@@ -129,16 +140,24 @@ def test_wrappers_launch_the_planned_loop_and_count_it(fake_card, kind, m,
         ML._sparse_lora_cuda(x, w, mask, a, b, 4.0, forced)
         name = "sparse_lora_matmul"
     (called, args), = fake_card.calls
-    assert called == f"{name}_{'wgmma' if loop == ML.WGMMA else 'bf16'}"
-    # the Hopper entry points take the float32 ones' arguments: no
-    # workspace, no splits; the WMMA one its splits and vec flag
-    assert args[-4:-1] == (m, n, k) if loop == ML.WGMMA \
-        else args[-7:-4] == (m, n, k)
+    if loop == ML.DECODE:
+        # one entry point for every form: ..., m, n, k, splits, k_split
+        assert called == "matmul_decode"
+        assert args[-6:-3] == (m, n, k)
+        assert args[-3:-1] == ML.plan_decode(m, n, k, SMS)[1:]
+    else:
+        assert called == \
+            f"{name}_{'wgmma' if loop == ML.WGMMA else 'bf16'}"
+        # the Hopper entry points take the float32 ones' arguments: no
+        # workspace, no splits; the WMMA one its splits and vec flag
+        assert args[-4:-1] == (m, n, k) if loop == ML.WGMMA \
+            else args[-7:-4] == (m, n, k)
     after = (ML.launches, ML.packed_launches, ML.lora_launches,
-             ML.wgmma_launches)
+             ML.wgmma_launches, ML.decode_launches)
     which = ("bool", "packed", "lora").index(kind)
     assert after[which] == before[which] + 1
     assert after[3] == before[3] + (loop == ML.WGMMA)
+    assert after[4] == before[4] + (loop == ML.DECODE)
 
 
 def test_a_misaligned_adapter_takes_the_wmma_loop(fake_card):

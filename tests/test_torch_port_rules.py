@@ -288,6 +288,29 @@ def test_the_attention_forward_is_tma_wgmma_and_mbarriers():
     assert "flash_attention_fwd_wgmma" in _cuda._SIGNATURES
 
 
+def test_the_decode_kernel_is_tma_cluster_and_has_no_atomics():
+    """The decode kernel streams W by TMA through an mbarrier ring, builds
+    its swap-AB fragments with ldmatrix for mma.sync, and sums its K
+    splits across a thread-block cluster through distributed shared memory
+    in rank order: no atomics, no workspace, no second launch.  Its source
+    builds on its own and names the TPU kernels it replaces."""
+    src = (_cuda.CSRC / "matmul_decode.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    for call in ("tma_load", "encode_2d", "mbar_init", "mbar_expect_tx",
+                 "mbar_wait", "mbar_arrive", "bind_context",
+                 "ldmatrix.sync.aligned.m8n8.x4.trans",
+                 "mma.sync.aligned.m16n8k16", "barrier.cluster.arrive",
+                 "mapa.shared::cluster", "st.shared::cluster",
+                 "cudaLaunchAttributeClusterDimension", "cudaLaunchKernelEx",
+                 "vlm_compression_tpu/ops/masked_linear.py:194",
+                 "vlm_compression_tpu/ops/quant.py:84"):
+        assert call in src, call
+    for banned in ("atomicAdd", "atom.", "red.global", "splitk_reduce"):
+        assert banned not in src, banned
+    assert "matmul_decode" in _cuda.SOURCES
+    assert "matmul_decode" in _cuda._SIGNATURES
+
+
 @pytest.mark.parametrize("grad", [False, True])
 @pytest.mark.parametrize("impl", [None, TA.WGMMA, TA.MMA])
 def test_forward_wrappers_raise_instead_of_falling_back(grad, impl):

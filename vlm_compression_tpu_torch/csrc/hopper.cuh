@@ -2,10 +2,12 @@
 // shared-memory addresses, mbarriers, TMA and bulk loads, wgmma
 // shared-memory descriptors, the wgmma fence / commit / wait, and the
 // wgmma.mma_async shapes the kernels issue (bf16 in, fp32 accumulators in
-// registers), 2^x on the special-function unit, and the 4-D tensor maps of
-// the attention kernels.  Used by wgmma_tile.cuh (the masked and
-// sparse-LoRA matmuls), flash_attention_fwd_wgmma.cu (the attention
-// forward) and flash_attention_bwd_wgmma.cu (the attention backward).
+// registers), 2^x on the special-function unit, and the 2-D tensor maps of
+// the matmuls and the 4-D ones of the attention kernels.  Used by
+// wgmma_tile.cuh (the masked and sparse-LoRA matmuls), matmul_decode.cu
+// (the decode-shaped matmuls), flash_attention_fwd_wgmma.cu (the
+// attention forward) and flash_attention_bwd_wgmma.cu (the attention
+// backward).
 //
 // wgmma accumulator layout (m64nN, fp32), thread t of the warpgroup, warp
 // w = t / 32, lane l: d[4j + {0, 1}] is row 16w + l/4, columns
@@ -415,6 +417,25 @@ inline EncodeTiled encoder() {
                ? reinterpret_cast<EncodeTiled>(p) : nullptr;
   }();
   return fn;
+}
+
+// a 2-D row-major (rows, cols) tensor of elem_bytes elements, boxes of
+// box_rows × box_cols; out-of-bounds elements load as zeros
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                      int elem_bytes, const void* base, int rows, int cols,
+                      int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A (batch, seq, head, d) bf16 view as a 4-D map of `box_rows` ×

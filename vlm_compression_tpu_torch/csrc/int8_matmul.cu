@@ -17,12 +17,13 @@
 //
 // What bounds it on an H100: 2MNK operations against 2MK + KN + 4N + 2MN
 // bytes (plus KN·b/8 for a packed mask, b = 2 or 1, or KN for a bool mask).
-// At decode shapes (M = batch × beams = 20) the bytes: the weights stream
-// at one byte each instead of bf16's two.
+// At decode shapes (M = batch × beams = 20) the bytes; those run the
+// decode kernel of matmul_decode.cu (ops/masked_linear.py `plan`), and
+// this loop takes the prefill (and what TMA cannot take).
 //
 // Design: the masked matmul's tile loop (tile_mma.cuh: 128 × 128 output
 // tiles, K steps of 32, WMMA bf16 products with fp32 accumulation, register
-// prefetch of the next tile, split-K for decode-sized M).  W tiles travel
+// prefetch of the next tile, split-K where the tiles do not fill the card).  W tiles travel
 // as int8, 8 codes (8 bytes) a chunk; in registers each code converts to
 // x's dtype (|q| ≤ 127 is exact in bf16), is zeroed where the mask is false
 // (packed words held in registers for a whole group, as in the packed
@@ -30,8 +31,8 @@
 // weight never exists in device memory.  The scale is applied in the fp32
 // epilogue.  A float32 variant multiplies on the CUDA cores (no TF32).
 //
-// Not yet done (later PRs): int8 tiles in shared memory with a TMA/wgmma
-// pipeline; the W8A8 products (int8 × int8 on the tensor cores).
+// Not yet done (later PRs): a TMA/wgmma pipeline for the prefill; the
+// W8A8 products (int8 × int8 on the tensor cores).
 
 #include "tile_mma.cuh"
 

@@ -10,11 +10,12 @@
 // fp32 sums run in the same order: the packed-mask kernel's output is
 // bit-equal to the bool-mask kernel's.
 //
-// The bf16 loop is the WMMA (mma.sync) one: it runs decode-sized M with
-// split-K, shapes TMA cannot take, and the int8 kernel everywhere.  Where
-// the output tiles fill the card unsplit, the bool, packed and sparse-LoRA
-// matmuls run the Hopper TMA + wgmma loop of wgmma_tile.cuh instead
-// (ops/masked_linear.py `plan`).
+// The bf16 loop is the WMMA (mma.sync) one, with split-K: it runs shapes
+// TMA cannot take, small M with an adapter, and int8 above decode-sized M.
+// At decode-sized M the bool, packed and int8 matmuls run the decode
+// kernel of matmul_decode.cu; where the output tiles fill the card
+// unsplit, the bool, packed and sparse-LoRA matmuls run the Hopper TMA +
+// wgmma loop of wgmma_tile.cuh (ops/masked_linear.py `plan`).
 
 #pragma once
 

@@ -338,25 +338,6 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
 }
 
 // ------------------------------------------------------------------ host
-// a 2-D row-major (rows, cols) tensor of elem_bytes elements, boxes of
-// box_rows × box_cols; out-of-bounds elements load as zeros
-inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type,
-                      int elem_bytes, const void* base, int rows, int cols,
-                      int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // encode the maps and launch `kernel` (a __global__ wrapping mm_wgmma<KIND,
 // R> with the same arguments) over (N/BN, M/BM); returns a cudaError_t.
 // The shared-memory opt-in is set once per kernel.

@@ -16,10 +16,14 @@ or raise — no fallback), and whose backward is the JAX package's
 hand-written VJP in plain matmuls (as there, the backward products are left
 to the matmul library; the packed backward unpacks, as the JAX one does).
 ``plan`` picks each bf16 launch's main loop from the shape and alignment
-alone: the Hopper TMA + wgmma loop where the output tiles fill the card,
-else the WMMA loop with split-K.  ``launches``, ``packed_launches`` and
-``lora_launches`` count kernel launches, ``wgmma_launches`` those of them
-that ran the Hopper loop.
+alone: the decode kernel (``csrc/matmul_decode.cu``: swap-AB, W streamed
+by TMA, split-K across a thread-block cluster) at decode-sized M, the
+Hopper TMA + wgmma loop where the output tiles fill the card, else the
+WMMA loop with split-K.  ``launches``, ``packed_launches`` and
+``lora_launches`` count kernel launches; ``wgmma_launches`` those that ran
+the Hopper loop, ``decode_launches`` those that ran the decode kernel (the
+int8 kernel's too), and ``wmma_decode_m_launches`` the WMMA-loop launches
+at a decode-sized M (misaligned, or the loop forced).
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ launches = 0
 packed_launches = 0
 lora_launches = 0
 wgmma_launches = 0
+decode_launches = 0
+wmma_decode_m_launches = 0
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -244,7 +250,7 @@ _BM, _BN, _BK = 128, 128, 32
 # largest adapter rank the sparse-LoRA kernel stages (as the TPU kernel)
 MAX_LORA_RANK = 128
 # the main loops of one bf16 or float32 launch
-WGMMA, WMMA, FP32 = "wgmma", "wmma", "fp32"
+WGMMA, WMMA, FP32, DECODE = "wgmma", "wmma", "fp32", "decode"
 # adapter ranks the Hopper loop holds in registers (0: no adapter)
 WGMMA_RANKS = (0, 2, 4, 8)
 
@@ -261,26 +267,65 @@ def split_k(m: int, n: int, k: int, sms: int):
     return -(-k // k_split), k_split
 
 
+# the decode kernel (csrc/matmul_decode.cu): M rows it takes, weight
+# columns a block, the unit of its K splits (the larger pack group, so
+# every mask form of a shape splits alike and no split straddles a group),
+# the most splits a cluster holds
+DECODE_MAX_M = 64
+DECODE_BN = 64
+DECODE_K_UNIT = 256
+DECODE_MAX_SPLITS = 8
+
+
+def plan_decode(m: int, n: int, k: int, sms: int, int8: bool = False):
+    """(BN, splits, k_split) of one decode-kernel launch: column tiles of
+    BN, each split over K into ``splits`` blocks of ``k_split`` rows (a
+    multiple of DECODE_K_UNIT; one cluster a tile; each split non-empty,
+    at most DECODE_MAX_SPLITS) so that there are at least half as many
+    blocks as SMs for bf16 weights and as many for int8 codes: a bf16
+    block's loads bound it, and fewer, longer blocks pay the split-K sum
+    less often; an int8 block's fragment build bounds it, and more blocks
+    share that work (``scripts/torch_decode_trace.py --splits`` times the
+    choices).  The same for every mask kind of a weight form, so the
+    bit-equalities between them hold."""
+    tiles = -(-n // DECODE_BN)
+    units = -(-k // DECODE_K_UNIT)
+    target = sms if int8 else sms // 2
+    splits = max(1, min(DECODE_MAX_SPLITS, units, -(-target // tiles)))
+    per = -(-units // splits)
+    return DECODE_BN, -(-units // per), per * DECODE_K_UNIT
+
+
 def plan(m: int, n: int, k: int, sms: int, *, bf16: bool = True,
-         aligned: bool = True, rank: int = 0):
+         aligned: bool = True, rank: int = 0, wgmma: bool = True,
+         int8: bool = False):
     """(loop, splits, k_split) of one tiled-matmul launch, from the shape
     and the alignment alone (no launch is retried on the other loop):
 
     - float32: the CUDA-core loop, all of K in one block: (FP32, 1, k);
+    - bf16 that TMA can take (``aligned``: 16-byte aligned bases; and
+      K % 8 == 0, N % 16 == 0 for 16-byte strides of x, W, int8 codes and
+      bool masks) with no adapter at M ≤ DECODE_MAX_M: the decode kernel,
+      (DECODE, splits, k_split) from ``plan_decode`` (``int8``: the
+      weights are int8 codes);
     - bf16 whose output tiles fill the card unsplit (``split_k`` gives one
-      split), which TMA can take (``aligned``: 16-byte aligned bases; and
-      K % 8 == 0, N % 16 == 0 for 16-byte strides) and whose adapter rank
-      the Hopper loop holds: (WGMMA, 1, k);
-    - any other bf16 (decode-sized M, misaligned, another rank; the int8
-      kernel, which passes ``aligned=False``): (WMMA, splits, k_split).
+      split), which TMA can take and whose adapter rank the Hopper loop
+      holds, where the kernel has a Hopper loop (``wgmma``; the int8 one
+      has none): (WGMMA, 1, k);
+    - any other bf16 (small M with an adapter, misaligned, another rank,
+      int8 prefill): (WMMA, splits, k_split).
 
-    The packed kernel is planned as the bool one, so at every shape both
-    take the same loop and stay bit-equal."""
+    Every mask kind of a weight form is planned alike (bool and packed
+    bf16; int8 with no, bool or packed mask), so at every shape they take
+    the same loop and splits and stay bit-equal."""
     if not bf16:
         return FP32, 1, k
+    tma = aligned and k % 8 == 0 and n % 16 == 0
+    if tma and rank == 0 and m <= DECODE_MAX_M:
+        _, splits, k_split = plan_decode(m, n, k, sms, int8)
+        return DECODE, splits, k_split
     splits, k_split = split_k(m, n, k, sms)
-    if splits == 1 and aligned and k % 8 == 0 and n % 16 == 0 \
-            and rank in WGMMA_RANKS:
+    if splits == 1 and tma and wgmma and rank in WGMMA_RANKS:
         return WGMMA, 1, k
     return WMMA, splits, k_split
 
@@ -347,16 +392,17 @@ def _valid(x, w, mask, packed: bool = False) -> bool:
 
 
 def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
-            fn_wgmma=None, extra_ptrs=(), rank=0, loop=None):
+            fn_wgmma=None, fn_decode=None, extra_ptrs=(), rank=0, loop=None):
     """Shared launch of the tiled matmul kernels (masked, packed,
     sparse-LoRA, int8): flatten x, allocate y (and the split-K workspace),
-    ``plan`` the loop — the Hopper one only where ``fn_wgmma`` is given
-    (called as the float32 entry point is) and x, W, the mask and
-    ``extra_ptrs`` are 16-byte aligned — and pick the WMMA loop's
-    vectorized loads.  ``args`` go after the mask pointer; ``mask`` may be
-    None (no pointer).  ``loop`` = WMMA forces the WMMA loop.  Returns (y,
-    the launch's error code or None when an empty shape left nothing to
-    launch, the loop)."""
+    ``plan`` the loop — the Hopper or decode one only where x, W, the mask
+    and ``extra_ptrs`` are 16-byte aligned, the Hopper one only where
+    ``fn_wgmma`` is given (called as the float32 entry point is) — and
+    pick the WMMA loop's vectorized loads.  ``fn_decode`` is called as
+    (x, w, mask, y, m, n, k, splits, k_split, stream) pointers and ints.
+    ``args`` go after the mask pointer; ``mask`` may be None (no pointer).
+    ``loop`` = WMMA forces the WMMA loop.  Returns (y, the launch's error
+    code or None when an empty shape left nothing to launch, the loop)."""
     if loop not in (None, WMMA):
         raise ValueError(f"loop {loop!r}: only {WMMA!r} can be forced")
     dev = x.device
@@ -372,12 +418,16 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
     stream = _cuda.stream_ptr(dev)
     mask_ptr = None if mask is None else mask.data_ptr()
     ptrs = (x2.data_ptr(), w.data_ptr(), mask_ptr, *extra_ptrs)
-    aligned = fn_wgmma is not None and loop is None and all(
-        p is None or p % 16 == 0 for p in ptrs)
+    aligned = loop is None and all(p is None or p % 16 == 0 for p in ptrs)
     route, splits, k_split = plan(m, n, k, _cuda.sm_count(dev),
                                   bf16=x.dtype == torch.bfloat16,
-                                  aligned=aligned, rank=rank)
-    if route == WGMMA:
+                                  aligned=aligned, rank=rank,
+                                  wgmma=fn_wgmma is not None,
+                                  int8=w.dtype == torch.int8)
+    if route == DECODE:
+        err = fn_decode(x2.data_ptr(), w.data_ptr(), mask_ptr, y.data_ptr(),
+                        m, n, k, splits, k_split, stream)
+    elif route == WGMMA:
         err = fn_wgmma(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
                        y.data_ptr(), m, n, k, stream)
     elif route == WMMA:
@@ -401,10 +451,28 @@ def _wgmma(kind: str):
     return getattr(_cuda.library("masked_matmul_wgmma"), f"{kind}_wgmma")
 
 
-def _count_wgmma(route) -> None:
-    global wgmma_launches
+def _decode(w_int8: bool, mask_kind: int, group: int = 0, scale=None):
+    """The decode kernel's entry point (csrc/matmul_decode.cu, built on
+    first use) for one weight form and mask kind (0 none, 1 bool, 2
+    packed words of ``group``), called as ``_launch``'s ``fn_decode``."""
+    fn = _cuda.library("matmul_decode").matmul_decode
+
+    def launch(x, w, mask, y, m, n, k, splits, k_split, stream):
+        return fn(x, w, int(w_int8), mask, mask_kind, group, scale, y, m, n,
+                  k, splits, k_split, stream)
+    return launch
+
+
+def count_route(route, m: int) -> None:
+    """Count a launch that ran: by loop, and the WMMA loop at a
+    decode-sized M."""
+    global wgmma_launches, decode_launches, wmma_decode_m_launches
     if route == WGMMA:
         wgmma_launches += 1
+    elif route == DECODE:
+        decode_launches += 1
+    elif route == WMMA and m <= DECODE_MAX_M:
+        wmma_decode_m_launches += 1
 
 
 def _masked_matmul_cuda(x, w, mask, loop=None):
@@ -414,11 +482,11 @@ def _masked_matmul_cuda(x, w, mask, loop=None):
     lib = _cuda.library("masked_matmul")
     y, err, route = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32,
                             x, w, mask, fn_wgmma=_wgmma("masked_matmul"),
-                            loop=loop)
+                            fn_decode=_decode(False, 1), loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul")
         launches += 1
-        _count_wgmma(route)
+        count_route(route, x.numel() // w.shape[0])
     return y
 
 
@@ -433,11 +501,11 @@ def _masked_matmul_packed_cuda(x, w, packed, loop=None):
                             lib.masked_matmul_packed_f32, x, w, packed,
                             (group,), mask_align=16,
                             fn_wgmma=_wgmma("masked_matmul_packed"),
-                            loop=loop)
+                            fn_decode=_decode(False, 2, group), loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul_packed")
         packed_launches += 1
-        _count_wgmma(route)
+        count_route(route, x.numel() // w.shape[0])
     return y
 
 
@@ -462,5 +530,5 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
     if err is not None:
         _cuda.check(err, "sparse_lora_matmul")
         lora_launches += 1
-        _count_wgmma(route)
+        count_route(route, x.numel() // w.shape[0])
     return y

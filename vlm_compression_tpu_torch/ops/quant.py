@@ -11,12 +11,17 @@ rounded to x's dtype once — the JAX package's default path
 (``_int8_matmul_ref`` and ``int8_matmul``).  Masks (bool or bit-packed)
 compose: the mask zeroes codes before the product.
 
-``int8_matmul`` runs the plain version on CPU tensors and the hand-written
-kernel of ``csrc/int8_matmul.cu`` on CUDA tensors, always (launch or raise):
+``int8_matmul`` runs the plain version on CPU tensors and a hand-written
+kernel on CUDA tensors, always (launch or raise): at decode-sized M the
+decode kernel of ``csrc/matmul_decode.cu`` (the bool and packed matmuls'
+decode launches run it too), elsewhere the WMMA loop of
+``csrc/int8_matmul.cu`` (``ops/masked_linear.plan`` decides from the shape
+and alignment, whatever the mask kind):
 the JAX package's opt-in (``use_pallas_int8_matmul``, off by default)
 followed a measurement of Mosaic's int8 relayout on a TPU v5e that says
 nothing about this card, and the port decides dispatch by H100
-measurements.  ``int8_launches`` counts kernel launches.
+measurements.  ``int8_launches`` counts kernel launches (and
+``masked_linear``'s route counters count them by loop).
 
 Not ported yet: the W8A8 products (``int8_matmul_dynamic``,
 ``int8_matmul_outlier``, ``select_int8_matmul``) and int4; SparseLinear
@@ -79,9 +84,9 @@ class _Int8Matmul(torch.autograd.Function):
     in fp32, as autodiff of the JAX reference path gives."""
 
     @staticmethod
-    def forward(ctx, x, q, scale, mask):
+    def forward(ctx, x, q, scale, mask, loop):
         ctx.save_for_backward(q, scale, mask)
-        return _int8_matmul_fwd(x, q, scale, mask)
+        return _int8_matmul_fwd(x, q, scale, mask, loop)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,23 +96,26 @@ class _Int8Matmul(torch.autograd.Function):
         if mask is not None:
             qf = torch.where(mask, qf, torch.zeros((), device=qf.device))
         dx = torch.matmul(g.float() * scale, qf.t()).to(g.dtype)
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                mask=None) -> torch.Tensor:
+                mask=None, *, _loop=None) -> torch.Tensor:
     """y = (x @ (q ⊙ mask)) · scale, the scale on each output column; mask
     None, bool (in, out) or packed words.  Weights stay int8 in memory; on
-    the card they are dequantized per tile in registers."""
+    the card they are dequantized per tile in registers.  ``_loop`` =
+    ``masked_linear.WMMA`` forces the WMMA loop where the plan is the
+    decode kernel — for timing the two side by side on the card, not a
+    knob of the model."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Int8Matmul.apply(x, q, scale, mask)
-    return _int8_matmul_fwd(x, q, scale, mask)
+        return _Int8Matmul.apply(x, q, scale, mask, _loop)
+    return _int8_matmul_fwd(x, q, scale, mask, _loop)
 
 
-def _int8_matmul_fwd(x, q, scale, mask):
+def _int8_matmul_fwd(x, q, scale, mask, loop=None):
     if x.device.type == "cpu":
         return int8_matmul_ref(x, q, scale, mask)
-    return _int8_matmul_cuda(x, q, scale, mask)
+    return _int8_matmul_cuda(x, q, scale, mask, loop)
 
 
 def _check_int8(x, q, scale, mask):
@@ -160,7 +168,7 @@ def _valid_int8(x, q, scale, mask) -> bool:
             and mask.shape == (ML._mask_rows(q, mask, packed), q.shape[1]))
 
 
-def _int8_matmul_cuda(x, q, scale, mask):
+def _int8_matmul_cuda(x, q, scale, mask, loop=None):
     global int8_launches
     if not _valid_int8(x, q, scale, mask):
         _check_int8(x, q, scale, mask)
@@ -172,13 +180,16 @@ def _int8_matmul_cuda(x, q, scale, mask):
     else:
         kind, group, mask_align = _BOOL_MASK, 0, 8
     lib = _cuda.library("int8_matmul")
-    # the int8 kernel has no Hopper loop: always the WMMA one
-    y, err, _ = ML._launch(lib.int8_matmul_bf16, lib.int8_matmul_f32, x, q,
-                           mask, (kind, group, scale.data_ptr()), w_align=8,
-                           mask_align=mask_align)
+    # no Hopper loop for int8: the decode kernel at decode-sized M, else the
+    # WMMA loop
+    y, err, route = ML._launch(
+        lib.int8_matmul_bf16, lib.int8_matmul_f32, x, q, mask,
+        (kind, group, scale.data_ptr()), w_align=8, mask_align=mask_align,
+        fn_decode=ML._decode(True, kind, group, scale.data_ptr()), loop=loop)
     if err is not None:
         _cuda.check(err, "int8_matmul")
         int8_launches += 1
+        ML.count_route(route, x.numel() // q.shape[0])
     return y
 
 
