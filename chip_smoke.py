@@ -9,18 +9,22 @@ each of which fails the run (non-zero exit, no result line) on error:
   1. device   — the card's name and its nvidia-smi name/power-limit line;
   2. build    — every hand-written kernel source compiled from csrc/ with
                 nvcc, in parallel (the Hopper loop of the masked, packed and
-                sparse-LoRA matmuls, masked_matmul_wgmma.cu, is a source of
-                its own: its build seconds stand on their own line);
+                sparse-LoRA matmuls, masked_matmul_wgmma.cu, and of the int8
+                one, int8_matmul_wgmma.cu, are sources of their own: their
+                build seconds stand on their own line);
   3. kernels  — each kernel against its plain PyTorch version at the main
                 path's shapes (prune, generate, retrain, the compressed
                 path, and dbias at the first-order path's and every other
                 broadcast pattern), in bf16 and float32, within stated
                 tolerances; each bf16 masked, packed, int8 and sparse-LoRA
                 shape on the main loop that ``plan`` picks (the Hopper
-                loop wherever K is not split; the decode kernel,
-                csrc/matmul_decode.cu, at every decode shape, never the
-                Hopper loop), packed ≡ bool and int8 with a mask ≡ int8
-                on codes zeroed off it, bit for bit; the attention backward on
+                loop at every calibration, training and prefill shape,
+                split-K across a cluster where the output tiles do not
+                fill the card; the decode kernel, csrc/matmul_decode.cu,
+                at every decode shape, never the Hopper loop), packed ≡
+                bool and int8 with a mask (bool, packed G 128 and 256) ≡
+                int8 on codes zeroed off it, bit for bit, and two identical
+                split calls of each form bit-equal; the attention backward on
                 the route ``ops/attention.plan`` picks (bf16: the TMA +
                 wgmma kernel) and on the mma.sync route, causal, ragged,
                 dq alone and dk/dv alone, and the largest |dq₁ − dq₂| of
@@ -57,11 +61,13 @@ each of which fails the run (non-zero exit, no result line) on error:
                 with packed masks (generate twice, equal); the serving form
                 (weights zeroed off their masks, masks dropped, int8).
                 Sizes at rest of each form; each form's generate (bool,
-                packed-128/256, int8) profiled twice, its decode steps on
-                the decode kernel and on the WMMA loop (the decode kernel
-                switched off): device time, the decode kernel's share;
-                each phase's kernels must have launched in it, the bool
-                kernel in no packed or int8 phase;
+                packed-128/256, int8) profiled twice, on the planned loops
+                and with int8 prefill and the under-filled prefill shapes
+                on the WMMA loop (the plan before the Hopper loop took
+                them): device time by loop (decode kernel, Hopper loop,
+                WMMA loop); each phase's kernels must
+                have launched in it, the bool kernel in no packed or int8
+                phase;
   7. first-order path — a third full-width XL model (seed 2, no
                 adapters): ``blipt5_wanda_pruner`` with the EcoFLaP
                 first-order block allocation (aobd_sum on 32 samples, no
@@ -82,20 +88,24 @@ each of which fails the run (non-zero exit, no result line) on error:
                 shape; the attention forward's two bf16 routes at every
                 FLASH_SHAPES shape; SDPA, the attention yardstick, on each
                 of its backends, the fastest timed in turns with the
-                kernel; every decode shape (and the int8 LM head) in every
-                weight form on the decode kernel, in turns with the WMMA
-                loop and torch.matmul on the pre-masked (dequantized)
-                weight, beside the plain version and the bound.
+                kernel; every prefill and decode shape of the compressed
+                path (and the int8 linears that hold no mask) in every
+                weight form on its planned loop (the Hopper loop, split or
+                not; the decode kernel), in turns with the WMMA loop and
+                torch.matmul on the pre-masked (dequantized) weight,
+                beside the plain version and the bound.
 
 Launch gates: each phase's kernels launched in it (and the Hopper loop in
-every phase that runs the masked, packed or sparse-LoRA kernel at a
-calibration, training or prefill shape; the TMA + wgmma attention
-forward in the Wanda prune, the retrain step, the EcoFLaP prune and the
-Fisher, and its backward in the last three),
-none that the phase must not run
-(the bool kernel in a packed or int8 phase, the Hopper loop in an int8
-phase); the decode kernel in every generate phase of a masked or int8
-model, and no WMMA-loop launch at decode-sized M in any generate phase.
+every phase that runs the masked, packed, int8 or sparse-LoRA kernel at a
+calibration, training or prefill shape, the int8 generates included; the
+TMA + wgmma attention forward in the Wanda prune, the retrain step, the
+EcoFLaP prune and the Fisher, and its backward in the last three), none
+that the phase must not run (the bool kernel in a packed or int8 phase,
+the packed one in an int8 phase); the decode kernel in every generate
+phase of a masked or int8 model, and no WMMA-loop launch at all in any
+generate phase or the retrain step.  WMMA-loop launches left in other
+phases are printed with their shapes and why the other loops refused
+them.
 
 The last lines are the kernel JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -294,11 +304,9 @@ INT8_UNMASKED_SHAPES = [
     ("lm_head_decode", 20, 2048, 32128),
 ]
 PREFILL_TIMED = "vit_fc1_prefill"
-# the decode kernel's shapes: the T5 decode steps and the int8 LM head
-DECODE_TIMED = [s for s in SERVE_SHAPES if s[0].endswith("_decode")] + [
-    s for s in INT8_UNMASKED_SHAPES if s[0].endswith("_decode")]
 PACKED_TIMED = "t5_wi_decode G128"
 INT8_TIMED = "t5_wi_decode packed128"
+INT8_PREFILL_TIMED = f"{PREFILL_TIMED} packed128"
 
 
 def mm_inputs(m, k, n, dtype, seed=0):
@@ -589,11 +597,14 @@ def check_kernels():
 
 def check_compressed_kernels(worst):
     """The packed-mask kernel (G = 128, 256) against its plain version and
-    bit-equal to the bool kernel; the int8 kernel (no mask, bool, packed)
-    against its plain version and, masked, bit-equal to the int8 kernel on
-    codes zeroed off the mask without one; each on the loop ``plan`` picks
-    (the decode kernel at every decode shape); at the compressed path's
-    shapes."""
+    bit-equal to the bool kernel; the int8 kernel (no mask, bool, packed
+    G = 128, 256) against its plain version and, masked, bit-equal to the
+    int8 kernel on codes zeroed off the mask without one; each on the loop
+    ``plan`` picks (the decode kernel at every decode shape, the Hopper
+    loop at every prefill shape, split-K where the tiles do not fill the
+    card); at the compressed path's shapes.  Where the plan splits K, two
+    identical calls of each form are bit-equal (the cluster's ordered
+    sum)."""
     from vlm_compression_tpu_torch.ops import bitmask as BM
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
@@ -628,7 +639,8 @@ def check_compressed_kernels(worst):
                            dtype)] = err
             q, sc = Q.quantize_weight(w)
             kinds = ((("none", None), ("bool", mask),
-                      ("packed128", BM.pack_mask(mask, 128)))
+                      ("packed128", BM.pack_mask(mask, 128)),
+                      ("packed256", BM.pack_mask(mask, 256)))
                      if masked else (("none", None),))
             # the serving form: codes zeroed off the mask, no mask — the
             # same products in the same order as the masked forms
@@ -651,6 +663,21 @@ def check_compressed_kernels(worst):
                 if not ok:
                     raise AssertionError(f"int8_matmul {name} {kind} {dtype}")
                 worst[("int8_matmul", f"{name} {kind}", dtype)] = err
+            splits = ML.plan(m, n, k, sm_count())[1]
+            if dtype == torch.bfloat16 and splits > 1 \
+                    and not name.endswith("_decode"):
+                calls = {"int8": lambda: Q.int8_matmul(x, q, sc, kinds[-1][1])}
+                if masked:
+                    calls.update(
+                        bool=lambda: ML.masked_matmul(x, w, mask),
+                        packed128=lambda: ML.masked_matmul_packed(
+                            x, w, kinds[2][1]))
+                for form, call in calls.items():
+                    if not torch.equal(call(), call()):
+                        raise AssertionError(f"{name} {form}: two identical "
+                                             f"split calls differ")
+                log(f"  {name} ({splits} splits): two identical calls "
+                    f"bit-equal ({', '.join(calls)})")
 
 
 def check_dbias_kernel(worst):
@@ -1100,10 +1127,15 @@ KERNELS = ("masked_matmul", "flash_attention", "sparse_lora_matmul",
            "masked_matmul_packed", "int8_matmul", "flash_attention_bwd_dbias",
            "matmul_decode")
 # the kernels each phase of the main path runs, and so must launch;
-# "wgmma_loop" counts the masked, packed and sparse-LoRA launches that ran
-# the Hopper loop (calibration, training and the generate prefill: every
-# shape that splits no K)
+# "wgmma_loop" counts the masked, packed, sparse-LoRA and int8 launches
+# that ran the Hopper loop (calibration, training and the generate
+# prefill: every shape above decode-sized M that TMA takes, split-K where
+# the output tiles do not fill the card); "wmma_loop" those that ran the
+# WMMA loop (what TMA cannot take), which no generate phase and no retrain
+# step may make, and "wmma_calls" their shapes and why
 WGMMA_LOOP = "wgmma_loop"
+WMMA_LOOP = "wmma_loop"
+WMMA_CALLS = "wmma_calls"
 # "bwd_wgmma" counts the attention backward's TMA + wgmma launches (each
 # one whole backward: pre-pass, main kernel, dq cast); the
 # flash_attention_bwd_dq / _dkv counts are the mma.sync route's
@@ -1112,10 +1144,8 @@ BWD_WGMMA = "bwd_wgmma"
 # flash_attention count is every forward's, on either route
 FWD_WGMMA = "fwd_wgmma"
 # "matmul_decode" counts the decode kernel's launches (the bool, packed and
-# int8 matmuls at decode-sized M); "wmma_decode_m" the WMMA loop's launches
-# at decode-sized M, which no generate phase may make
+# int8 matmuls at decode-sized M)
 DECODE = "matmul_decode"
-WMMA_DECODE_M = "wmma_decode_m"
 PRUNE = ("masked_matmul", "flash_attention", WGMMA_LOOP)
 SERVE = PRUNE + (DECODE,)
 PHASE_KERNELS = {"prune": PRUNE + (FWD_WGMMA,), "generate_cold": SERVE,
@@ -1131,11 +1161,11 @@ PHASE_KERNELS = {"prune": PRUNE + (FWD_WGMMA,), "generate_cold": SERVE,
                                         "flash_attention", WGMMA_LOOP,
                                         DECODE),
                  "generate_int8_cold": ("int8_matmul", "flash_attention",
-                                        DECODE),
+                                        WGMMA_LOOP, DECODE),
                  "generate_int8_warm": ("int8_matmul", "flash_attention",
-                                        DECODE),
+                                        WGMMA_LOOP, DECODE),
                  "generate_int8_serving": ("int8_matmul", "flash_attention",
-                                           DECODE),
+                                           WGMMA_LOOP, DECODE),
                  # the allocation's backward (dq, dk/dv), then Wanda
                  "ecoflap_prune": ("masked_matmul", "flash_attention",
                                    FWD_WGMMA, BWD_WGMMA, WGMMA_LOOP),
@@ -1148,10 +1178,9 @@ PHASE_KERNELS = {"prune": PRUNE + (FWD_WGMMA,), "generate_cold": SERVE,
                  # int8 linear, so no decode launch either)
                  "generate_fisher": ("flash_attention",)}
 # ... and the kernels a phase must not run: a packed or int8 model never
-# takes the bool-mask path, an int8 model never the bf16 packed one (and so
-# never the Hopper loop: the int8 kernel has none; it runs the decode kernel
-# at decode-sized M and the WMMA loop elsewhere)
-INT8_FORBIDDEN = ("masked_matmul", "masked_matmul_packed", WGMMA_LOOP)
+# takes the bool-mask path, an int8 model never the bf16 packed one (its
+# prefill runs the Hopper loop, its decode steps the decode kernel)
+INT8_FORBIDDEN = ("masked_matmul", "masked_matmul_packed")
 PHASE_FORBIDDEN = {
     "generate_packed128": ("masked_matmul", "int8_matmul"),
     "generate_packed256": ("masked_matmul", "int8_matmul"),
@@ -1159,15 +1188,16 @@ PHASE_FORBIDDEN = {
     "generate_int8_warm": INT8_FORBIDDEN,
     "generate_int8_serving": INT8_FORBIDDEN,
     # RESSA and the first-order allocation differentiate no attention bias
-    # (only LoRA factors; only the prunable kernels)
-    "retrain": ("flash_attention_bwd_dbias",),
+    # (only LoRA factors; only the prunable kernels); the retrain step's
+    # sparse-LoRA launches all run the Hopper loop
+    "retrain": ("flash_attention_bwd_dbias", WMMA_LOOP),
     "ecoflap_prune": ("flash_attention_bwd_dbias",)}
-# every generate phase runs its decode steps on the decode kernel: no WMMA
-# loop at decode-sized M
+# every generate phase runs its prefill on the Hopper loop and its decode
+# steps on the decode kernel: no WMMA-loop launch at all
 for _phase in PHASE_KERNELS:
     if _phase.startswith("generate"):
         PHASE_FORBIDDEN[_phase] = PHASE_FORBIDDEN.get(_phase, ()) + (
-            WMMA_DECODE_M,)
+            WMMA_LOOP,)
 
 
 def reset_counts():
@@ -1176,7 +1206,8 @@ def reset_counts():
     from vlm_compression_tpu_torch.ops import quant as Q
 
     ML.launches = ML.lora_launches = ML.packed_launches = 0
-    ML.wgmma_launches = ML.decode_launches = ML.wmma_decode_m_launches = 0
+    ML.wgmma_launches = ML.decode_launches = ML.wmma_launches = 0
+    ML.wmma_calls.clear()
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
     A.fwd_wgmma_launches = A.bwd_wgmma_launches = 0
     Q.int8_launches = 0
@@ -1187,13 +1218,15 @@ def read_counts() -> dict:
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
 
-    return dict(zip(KERNELS + (WGMMA_LOOP, FWD_WGMMA, BWD_WGMMA,
-                               WMMA_DECODE_M),
-                    (ML.launches, A.launches, ML.lora_launches,
-                     A.dq_launches, A.dkv_launches, ML.packed_launches,
-                     Q.int8_launches, A.dbias_launches, ML.decode_launches,
-                     ML.wgmma_launches, A.fwd_wgmma_launches,
-                     A.bwd_wgmma_launches, ML.wmma_decode_m_launches)))
+    counts = dict(zip(KERNELS + (WGMMA_LOOP, FWD_WGMMA, BWD_WGMMA, WMMA_LOOP),
+                      (ML.launches, A.launches, ML.lora_launches,
+                       A.dq_launches, A.dkv_launches, ML.packed_launches,
+                       Q.int8_launches, A.dbias_launches, ML.decode_launches,
+                       ML.wgmma_launches, A.fwd_wgmma_launches,
+                       A.bwd_wgmma_launches, ML.wmma_launches)))
+    counts[WMMA_CALLS] = [f"M={m} N={n} K={k} rank {r}: {why} x{c}"
+                          for (m, n, k, r, why), c in ML.wmma_calls.items()]
+    return counts
 
 
 def attn_routes(c: dict, per: int = 1) -> str:
@@ -1205,15 +1238,17 @@ def attn_routes(c: dict, per: int = 1) -> str:
             f"{c['flash_attention_bwd_dkv'] / per:g}")
 
 
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def expected_loop(m, k, n, dtype, rank=0, int8=False) -> str:
     """The main loop ``plan`` gives a fresh, contiguous (so aligned)
-    operand set of this shape (``int8``: the int8 kernel's, which has no
-    Hopper loop)."""
+    operand set of this shape (``int8``: the int8 kernel's)."""
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
-    return ML.plan(m, n, k, torch.cuda.get_device_properties(0)
-                   .multi_processor_count, bf16=dtype == torch.bfloat16,
-                   rank=rank, wgmma=not int8, int8=int8)[0]
+    return ML.plan(m, n, k, sm_count(), bf16=dtype == torch.bfloat16,
+                   rank=rank, int8=int8)[0]
 
 
 def loop_counts() -> tuple:
@@ -1243,7 +1278,12 @@ def check_loop(what, name, m, k, n, dtype, before, rank=0,
 
 
 def check_phase_counts(counts):
+    """Each phase's kernels launched, none it must not run; the WMMA-loop
+    launches left in a phase, printed with their shapes and why the other
+    loops refused them."""
     for phase, c in counts.items():
+        if c[WMMA_CALLS]:
+            log(f"  WMMA loop in {phase}: {'; '.join(c[WMMA_CALLS])}")
         for kernel in PHASE_KERNELS[phase]:
             if c[kernel] <= 0:
                 raise AssertionError(f"{kernel} never launched in {phase}")
@@ -1796,9 +1836,16 @@ def profile_first_order(e2e):
 
 DECODE_GROUP = "matmul_decode kernel (decode route)"
 SPLITK_GROUP = "WMMA loop split-K sums"
-# the masked, packed and int8 matmuls' groups (every loop)
-MATMUL_GROUPS = (DECODE_GROUP, SPLITK_GROUP, "masked_matmul kernel",
-                 "masked_matmul_packed kernel", "int8_matmul kernel")
+# the masked, packed, sparse-LoRA and int8 matmuls' groups are named
+# "<form> kernel, <loop>"; a loop's device time is the sum of its groups
+HOPPER, WMMA, FP32_LOOP = "Hopper loop", "WMMA loop", "fp32 loop"
+
+
+def loop_ms(groups: dict, loop: str) -> float:
+    """Device ms of one main loop of the tiled matmuls (the WMMA loop's
+    split-K sums with it)."""
+    return sum(t for g, t in groups.items() if g.endswith(f", {loop}")
+               or (loop == WMMA and g == SPLITK_GROUP))
 
 
 def _kernel_group(name: str) -> str:
@@ -1807,19 +1854,20 @@ def _kernel_group(name: str) -> str:
         return DECODE_GROUP
     if "splitk_reduce" in low:
         return SPLITK_GROUP
-    if "int8_matmul" in low:
-        return "int8_matmul kernel"
-    if "masked_matmul_packed" in low:   # the Hopper loop's packed kernel
-        return "masked_matmul_packed kernel"
-    # the packed instantiations: <VEC, true> (bf16), <true> (float32),
-    # demangled or mangled
-    if re.search(r"masked_matmul_(bf16|f32)_kernel(<(\w+, )?true>"
-                 r"|i(lb[01]e)?lb1ee)", low):
-        return "masked_matmul_packed kernel"
-    if "masked_matmul" in low:
-        return "masked_matmul kernel"
-    if "sparse_lora" in low:
-        return "sparse_lora_matmul kernel"
+    if "matmul" in low or "sparse_lora" in low:
+        loop = (HOPPER if "wgmma" in low else
+                FP32_LOOP if "f32_kernel" in low else WMMA)
+        if "int8_matmul" in low:
+            return f"int8_matmul kernel, {loop}"
+        # the WMMA loop's packed instantiations: <VEC, true> (bf16), <true>
+        # (float32), demangled or mangled
+        if "masked_matmul_packed" in low or re.search(
+                r"masked_matmul_(bf16|f32)_kernel(<(\w+, )?true>"
+                r"|i(lb[01]e)?lb1ee)", low):
+            return f"masked_matmul_packed kernel, {loop}"
+        if "masked_matmul" in low:
+            return f"masked_matmul kernel, {loop}"
+        return f"sparse_lora_matmul kernel, {loop}"
     if "flash_fwd_wgmma" in low:
         return "flash_attention_fwd_wgmma kernel"
     if "flash_fwd" in low:
@@ -1887,38 +1935,56 @@ def device_breakdown(prof, wall_ms: float, label: str) -> tuple:
     return total, groups
 
 
+def wmma_prefill_plan(plan):
+    """``plan`` as it was before the Hopper loop took int8 and split K: the
+    Hopper loop only for bf16 launches whose output tiles fill the card
+    unsplit; int8 prefill and the under-filled shapes on the WMMA loop."""
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    def planned(m, n, k, sms, **kw):
+        loop, splits, k_split = plan(m, n, k, sms, **kw)
+        wmma = ML.split_k(m, n, k, sms)
+        if loop == ML.WGMMA and (kw.get("int8") or wmma[0] > 1):
+            return (ML.WMMA, *wmma)
+        return loop, splits, k_split
+    return planned
+
+
 def profile_generate(model, req, wall_ms: float, form: str) -> dict:
-    """One generate of ``form`` under torch.profiler on the decode kernel,
-    then one with the decode kernel switched off (its decode launches on
-    the WMMA loop, the route before it): each one's device ms, the decode
-    kernel's share of it, and all the masked, packed and int8 matmuls'
-    (every loop, the prefill's included, and the WMMA loop's split-K
-    sums) against everything else."""
+    """One generate of ``form`` under torch.profiler on the planned loops,
+    then one with int8 prefill and the under-filled prefill shapes on the
+    WMMA loop (``wmma_prefill_plan``): each one's device ms, split by loop —
+    the decode kernel, the Hopper loop, the WMMA loop (its split-K sums
+    with it) — and all the masked, packed and int8 matmuls against
+    everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
     out = {}
-    saved = ML.DECODE_MAX_M
-    for route in ("decode", "wmma"):
-        ML.DECODE_MAX_M = saved if route == "decode" else 0
+    planned = ML.plan
+    for route in ("planned", "wmma_prefill"):
+        ML.plan = planned if route == "planned" else wmma_prefill_plan(
+            planned)
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 run_generate(model, req)
         finally:
-            ML.DECODE_MAX_M = saved
+            ML.plan = planned
         total, groups = device_breakdown(
-            prof, wall_ms, f"generate, {form}, decode matmuls on the "
-            f"{'decode kernel' if route == 'decode' else 'WMMA loop'}")
-        decode = groups.get(DECODE_GROUP, 0.0)
-        matmul = sum(groups.get(g, 0.0) for g in MATMUL_GROUPS)
-        out[route] = {"device_ms": total, "decode_kernel_ms": decode,
-                      "matmuls_ms": matmul}
-        log(f"  [generate, {form}] decode steps on the {route} route: "
-            f"device {total:.1f} ms; the decode kernel {decode:.1f} ms, "
-            f"everything else {total - decode:.1f} ms; all masked/packed/"
-            f"int8 matmuls {matmul:.1f} ms, everything else "
-            f"{total - matmul:.1f} ms")
+            prof, wall_ms, f"generate, {form}, "
+            + ("the planned loops" if route == "planned"
+               else "prefill on the WMMA loop"))
+        loops = {"decode_kernel_ms": groups.get(DECODE_GROUP, 0.0),
+                 "hopper_loop_ms": loop_ms(groups, HOPPER),
+                 "wmma_loop_ms": loop_ms(groups, WMMA)}
+        matmul = sum(loops.values())
+        out[route] = {"device_ms": total, **loops, "matmuls_ms": matmul}
+        log(f"  [generate, {form}] {route} loops: device {total:.1f} ms; "
+            f"decode kernel {loops['decode_kernel_ms']:.1f}, Hopper loop "
+            f"{loops['hopper_loop_ms']:.1f}, WMMA loop "
+            f"{loops['wmma_loop_ms']:.1f}; all masked/packed/int8 matmuls "
+            f"{matmul:.1f} ms, everything else {total - matmul:.1f} ms")
     return out
 
 
@@ -2219,60 +2285,23 @@ def timing():
 
 
 def timing_compressed(rows, wmma):
-    """The packed-mask and int8 kernels at one prefill shape of the
-    compressed path, with the bool kernel beside them; then every decode
-    shape (and the int8 LM head) in every form — bool, packed G 128 and
-    256, int8 with no, bool and packed-128 masks — on the decode kernel,
-    in turns with the WMMA loop forced through ``_loop`` and the library
-    (decode, WMMA, library, library, WMMA, decode; the means), beside the
-    plain version and the bound.  Library: torch.matmul on a weight masked
-    (and dequantized) beforehand.  Returns the decode table."""
+    """Every shape of the compressed path — prefill and decode, and the
+    int8 linears that hold no mask — in every weight form (bool, packed G
+    128 and 256, int8 with no, bool and packed-128 masks) on the loop
+    ``plan`` picks (the Hopper loop at prefill, split-K where the output
+    tiles do not fill the card; the decode kernel at decode), in turns
+    with the WMMA loop forced through ``_loop`` and the library (planned,
+    WMMA, library, library, WMMA, planned; the means), beside the plain
+    version and the bound.  Library: torch.matmul on a weight masked (and
+    dequantized) beforehand.  Returns the table."""
     from vlm_compression_tpu_torch.ops import bitmask as BM
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
 
     bf16 = torch.bfloat16
-    m, k, n = next((m, k, n) for name, m, k, n in SERVE_SHAPES
-                   if name == PREFILL_TIMED)
-    x, w, mask = mm_inputs(m, k, n, bf16)
-    wm = w * mask
-    lib = device_ms(lambda: torch.matmul(x, wm))
-    ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
-    bound, by = mm_bound_ms(m, k, n)
-    loop = expected_loop(m, k, n, bf16)
-    log(f"  time masked_matmul (bool) {PREFILL_TIMED:16s} M={m} K={k} N={n} "
-        f"{loop:6s}: kernel {ms:.4f} ms, torch.matmul(x, W*mask) {lib:.4f} "
-        f"ms, bound {bound:.4f} ms ({by})")
-    for group in (128, 256):
-        packed = BM.pack_mask(mask, group)
-        ms = device_ms(lambda: ML.masked_matmul_packed(x, w, packed))
-        plain = device_ms(lambda: ML.masked_matmul_packed_ref(x, w, packed))
-        bound, by = packed_bound_ms(m, k, n, 256 // group)
-        rows[("masked_matmul_packed", f"{PREFILL_TIMED} G{group}")] = (
-            ms, plain, lib, bound, by)
-        log(f"  time masked_matmul_packed {PREFILL_TIMED:16s} G{group} M={m} "
-            f"K={k} N={n} {loop:6s}: kernel {ms:.4f} ms, plain {plain:.4f} "
-            f"ms, torch.matmul(x, W*mask) {lib:.4f} ms, bound {bound:.4f} ms "
-            f"({by})")
-    q, sc = Q.quantize_weight(w)
-    wq = Q.dequantize_weight(q, sc, bf16)
-    for kind, mk, mask_bytes in (
-            ("none", None, 0), ("bool", mask, k * n),
-            ("packed128", BM.pack_mask(mask, 128), k * n * 2 / 8)):
-        lib_w = wq if mk is None else wq * mask
-        ms = device_ms(lambda: Q.int8_matmul(x, q, sc, mk))
-        plain = device_ms(lambda: Q.int8_matmul_ref(x, q, sc, mk))
-        lib = device_ms(lambda: torch.matmul(x, lib_w))
-        bound, by = int8_bound_ms(m, k, n, mask_bytes)
-        rows[("int8_matmul", f"{PREFILL_TIMED} {kind}")] = (ms, plain, lib,
-                                                           bound, by)
-        log(f"  time int8_matmul {PREFILL_TIMED:16s} {kind:9s} M={m} K={k} "
-            f"N={n} wmma  : kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.matmul(x, dequant(q)[*mask]) {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({by})")
-
+    unmasked = {s[0] for s in INT8_UNMASKED_SHAPES}
     table = {}
-    for name, m, k, n in DECODE_TIMED:
+    for name, m, k, n in SERVE_SHAPES + INT8_UNMASKED_SHAPES:
         x, w, mask = mm_inputs(m, k, n, bf16)
         q, sc = Q.quantize_weight(w)
         wq = Q.dequantize_weight(q, sc, bf16)
@@ -2297,45 +2326,49 @@ def timing_compressed(rows, wmma):
                for kind, mk, mask_bytes in (
                    ("none", None, 0), ("bool", mask, k * n),
                    ("packed128", packed[128], k * n * 2 / 8))}}
-        if name in dict((s[0], 1) for s in INT8_UNMASKED_SHAPES):
+        if name in unmasked:
             forms = {"int8_none": forms["int8_none"]}
+        decode = name.endswith("_decode")
+        want = ML.DECODE if decode else ML.WGMMA
+        _, splits, _ = ML.plan(m, n, k, sm_count())
         for form, (call, ref, lib_w, (bound, by)) in forms.items():
             if expected_loop(m, k, n, bf16, int8=form.startswith("int8")) \
-                    != ML.DECODE:
-                raise AssertionError(f"{name} {form}: not the decode kernel")
+                    != want:
+                raise AssertionError(f"{name} {form}: not on the {want} "
+                                     "loop")
             fns = (call, lambda: call(ML.WMMA),
                    lambda: torch.matmul(x, lib_w))
             t = [device_ms(f) for f in fns]
             t += [device_ms(f) for f in reversed(fns)]
-            dec, old, lib = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, \
+            new, old, lib = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, \
                 (t[2] + t[3]) / 2
             plain = device_ms(ref)
             key = f"{name} {form}"
-            table[key] = {"decode_ms": dec, "wmma_loop_ms": old,
+            table[key] = {"loop": want, "ms": new, "wmma_loop_ms": old,
                           "library_ms": lib, "plain_ms": plain,
                           "bound_ms": bound, "bound_by": by,
                           "turns": [round(v, 5) for v in t]}
-            log(f"  time decode {name:16s} {form:15s} M={m} K={k} N={n}: "
-                f"decode kernel {dec:.4f} ms (turns {t[0]:.4f} / "
-                f"{t[5]:.4f}), WMMA loop {old:.4f} ({old / dec:.2f}x), "
-                f"library {lib:.4f} (÷ library {dec / lib:.2f}), plain "
-                f"{plain:.4f}, bound {bound:.5f} ms ({by}; "
-                f"{dec / bound:.1f}x)")
-            if form == "packed128":
-                rows[("masked_matmul_packed", f"{name} G128")] = (
-                    dec, plain, lib, bound, by)
-                rows[("matmul_decode", f"{name} G128")] = (
-                    dec, plain, lib, bound, by)
+            where = "decode kernel" if decode else (
+                f"Hopper loop{f' ({splits} splits)' if splits > 1 else ''}")
+            log(f"  time {name:20s} {form:15s} M={m} K={k} N={n}: {where} "
+                f"{new:.4f} ms (turns {t[0]:.4f} / {t[5]:.4f}), WMMA loop "
+                f"{old:.4f} ({old / new:.2f}x), library {lib:.4f} (÷ "
+                f"library {new / lib:.2f}), plain {plain:.4f}, bound "
+                f"{bound:.5f} ms ({by}; {new / bound:.1f}x)")
+            if old <= new:
+                log(f"  NOTE planned loop not faster than the WMMA loop: "
+                    f"{key}")
+            timed = (new, plain, lib, bound, by)
+            if form == "packed128" and decode:
+                rows[("masked_matmul_packed", f"{name} G128")] = timed
+                rows[("matmul_decode", f"{name} G128")] = timed
                 wmma[("masked_matmul_packed", f"{name} G128")] = old
                 wmma[("matmul_decode", f"{name} G128")] = old
             if form.startswith("int8"):
-                rows[("int8_matmul", f"{name} {form[5:]}")] = (
-                    dec, plain, lib, bound, by)
-                wmma[("int8_matmul", f"{name} {form[5:]}")] = old
-            if old <= dec:
-                log(f"  NOTE decode kernel not faster than the WMMA loop: "
-                    f"{key}")
-    log(f"[decode table] {json.dumps(table)}")
+                kname = "int8_matmul" if decode else "int8_matmul_wgmma"
+                rows[(kname, f"{name} {form[5:]}")] = timed
+                wmma[(kname, f"{name} {form[5:]}")] = old
+    log(f"[compressed table] {json.dumps(table)}")
     return table
 
 
@@ -2362,8 +2395,10 @@ def main() -> int:
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.1f} s; the Hopper loop "
-        f"(masked_matmul_wgmma.cu, its kernels with wgmma_tile.cuh) "
-        f"{secs.get('masked_matmul_wgmma', float('nan')):.1f} s")
+        f"(masked_matmul_wgmma.cu and int8_matmul_wgmma.cu, their kernels "
+        f"with wgmma_tile.cuh) "
+        f"{secs.get('masked_matmul_wgmma', float('nan')):.1f} and "
+        f"{secs.get('int8_matmul_wgmma', float('nan')):.1f} s")
     phases, t_phase = {"build": time.perf_counter() - t0}, time.perf_counter()
 
     def phase_done(name):
@@ -2450,6 +2485,9 @@ def main() -> int:
              "vlm_compression_tpu/ops/masked_linear.py:194"),
             ("int8_matmul", INT8_TIMED, csrc + "matmul_decode.cu",
              "vlm_compression_tpu/ops/quant.py:84"),
+            ("int8_matmul_wgmma", INT8_PREFILL_TIMED,
+             csrc + "int8_matmul_wgmma.cu",
+             "vlm_compression_tpu/ops/quant.py:84"),
             ("flash_attention_bwd_dbias", DBIAS_TIMED,
              csrc + "flash_attention_bwd.cu",
              "vlm_compression_tpu/ops/attention.py:371"),
@@ -2459,10 +2497,16 @@ def main() -> int:
         bwd = kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
         # the decode kernel: its error at the timed shape is the packed
         # kernel's there (the same launch); it replaces the int8 TPU
-        # kernel too
-        err_key = ("masked_matmul_packed" if kname == DECODE else kname,
+        # kernel too.  The int8 Hopper route: its error is the int8
+        # kernel's at the timed prefill shape; its launches are the Hopper
+        # loop's in the int8 generates (which run no other form: their
+        # gates forbid the bool and packed kernels)
+        err_key = ({DECODE: "masked_matmul_packed",
+                    "int8_matmul_wgmma": "int8_matmul"}.get(kname, kname),
                    timed, torch.bfloat16)
-        launches = {p: c[kname] + (c[BWD_WGMMA] if bwd else 0)
+        launches = {p: (c[WGMMA_LOOP] if p.startswith("generate_int8")
+                        else 0) if kname == "int8_matmul_wgmma"
+                    else c[kname] + (c[BWD_WGMMA] if bwd else 0)
                     for p, c in counts.items()}
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
@@ -2477,6 +2521,11 @@ def main() -> int:
                 "mma_or_fp32": sum(c[kname] - c[FWD_WGMMA]
                                    for c in counts.values())}}
                if kname == "flash_attention" else {}),
+            **({"launches_by_route": {
+                "decode": sum(c[DECODE] for p, c in counts.items()
+                              if p.startswith("generate_int8")),
+                "wgmma": sum(launches.values())}}
+               if kname == "int8_matmul_wgmma" else {}),
             **({"also_replaces": "vlm_compression_tpu/ops/quant.py:84"}
                if kname == DECODE else {}),
             "max_abs_err": worst[err_key],

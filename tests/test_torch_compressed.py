@@ -204,6 +204,24 @@ def test_int8_matmul_matches_jax(mask_kind):
     assert TQ.int8_launches == before
 
 
+@pytest.mark.parametrize("mask_kind", ["none", "bool", "packed128",
+                                       "packed256"])
+def test_int8_prefill_matches_jax(mask_kind):
+    """A prefill-like shape (4 requests × 72 tokens, K across two 256-row
+    groups): the port's ``int8_matmul`` — the kernel's function, which the
+    card runs on the Hopper loop — against the JAX package's default path,
+    ``_int8_matmul_ref`` then ``(out * scale).astype(x.dtype)``, within
+    1e-4 × max(1, max |ref|)."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((4, 72, 512)).astype(np.float32)
+    q, s, jm, tm = _int8_case(rng, 512, 160, mask_kind)
+    want = np.asarray(JQ.int8_matmul(jnp.asarray(x), q, s, jm))
+    got = TQ.int8_matmul(_t(x), to_torch(q), to_torch(s), tm).numpy()
+    assert got.shape == want.shape == (4, 72, 160)
+    err = np.abs(got - want).max()
+    assert err <= 1e-4 * max(1.0, np.abs(want).max()), err
+
+
 @pytest.mark.parametrize("mask_kind", ["none", "packed128"])
 def test_int8_matmul_grad_matches_jax_vjp(mask_kind):
     rng = np.random.default_rng(8)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 from vlm_compression_tpu_torch.ops import attention as A
 from vlm_compression_tpu_torch.ops import bitmask as BM
 from vlm_compression_tpu_torch.ops import masked_linear as ML
@@ -671,6 +672,94 @@ def test_dispatch_picks_each_loop(cuda, m, k, n, loop):
     assert ML.wgmma_launches == before
 
 
+# ------------------------------------- the Hopper loop at prefill shapes
+# Above decode-sized M every weight form runs the Hopper loop: unsplit
+# where the output tiles fill the card, split-K across a cluster (the
+# partials summed in rank order over distributed shared memory) where they
+# do not.  The int8 form converts its codes in shared memory and scales the
+# fp32 sum once.  Shapes: every prefill shape of the serving path, the
+# under-filled training shapes, and ragged ones (K inside a split unit, N
+# inside a tile, M of one row tile).
+
+PREFILL_SHAPES = [(m, k, n) for name, m, k, n in CS.SERVE_SHAPES
+                  + CS.INT8_UNMASKED_SHAPES if not name.endswith("_decode")]
+# split-K (the last two ragged: K inside a split unit, N inside a tile)
+SPLIT_SHAPES = [(288, 2048, 2048), (1028, 1408, 1408), (300, 1000, 1296),
+                (100, 2056, 784)]
+RAGGED_SHAPES = [(2000, 1000, 1296)] + SPLIT_SHAPES[2:]
+
+
+def _planned(m, k, n, rank=0):
+    return ML.plan(m, n, k, torch.cuda.get_device_properties(0)
+                   .multi_processor_count, rank=rank)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "bool", "packed128",
+                                       "packed256"])
+@pytest.mark.parametrize("m,k,n", PREFILL_SHAPES + RAGGED_SHAPES)
+def test_int8_prefill_runs_the_hopper_loop(cuda, mask_kind, m, k, n):
+    x, q, scale, mask = _int8_case(cuda, torch.bfloat16, m, k, n, mask_kind)
+    before, wmma = ML.wgmma_launches, ML.wmma_launches
+    got = Q.int8_matmul(x, q, scale, mask)
+    assert ML.wgmma_launches == before + 1 and ML.wmma_launches == wmma
+    assert _planned(m, k, n)[0] == ML.WGMMA
+    _close(got, Q.int8_matmul_ref(x, q, scale, mask), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_SHAPES + RAGGED_SHAPES)
+def test_hopper_loop_int8_mask_bit_equal_to_zeroed_codes_and_forms(cuda, m,
+                                                                    k, n):
+    """int8 with a bool mask ≡ with its packed-128 and packed-256 words ≡
+    without a mask on codes zeroed off it; the bf16 packed forms ≡ the bool
+    one; split or not."""
+    x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
+    q, scale = Q.quantize_weight(w)
+    want = Q.int8_matmul(x, q.masked_fill(~mask, 0), scale)
+    assert torch.equal(Q.int8_matmul(x, q, scale, mask), want)
+    bool_y = ML.masked_matmul(x, w, mask)
+    for group in (128, 256):
+        packed = BM.pack_mask(mask, group)
+        assert torch.equal(Q.int8_matmul(x, q, scale, packed), want), group
+        assert torch.equal(ML.masked_matmul_packed(x, w, packed), bool_y)
+
+
+@pytest.mark.parametrize("form", ["bool", "packed128", "int8_packed128",
+                                  "lora"])
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_hopper_split_k_matches_plain_and_repeats_bit_equal(cuda, form, m, k,
+                                                            n):
+    """The split form of each weight form against its plain version, and
+    two identical calls bit-equal (the cluster's ordered sum)."""
+    splits = _planned(m, k, n, 4 if form == "lora" else 0)[1]
+    assert splits > 1
+    if form == "lora":
+        x, w, mask, a, b = _lora_case(cuda, m, k, n, 4)
+        call = lambda: ML.sparse_lora_matmul(x, w, mask, a, b, 4.0)  # noqa
+        want = ML.sparse_lora_matmul_ref(x, w, mask, a, b, 4.0)
+    else:
+        x, w, mask, _ = _packed_case(cuda, torch.bfloat16, m, k, n, 128)
+        call = lambda: _decode_call(form, x, w, mask)[0]  # noqa: E731
+        want = _decode_call(form, x, w, mask)[1]
+    before = ML.wgmma_launches
+    one = call()
+    assert ML.wgmma_launches == before + 1
+    _close(one, want, torch.bfloat16)
+    assert torch.equal(one, call())
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(384, 2048, 5120), (2304, 768, 768),
+                                   (1024, 768, 3072)])
+def test_hopper_loop_sparse_lora_training_shapes(cuda, r, m, k, n):
+    """The T5 decoder's and the Q-Former's training shapes, split or not."""
+    x, w, mask, a, b = _lora_case(cuda, m, k, n, r)
+    before = ML.wgmma_launches
+    got = ML.sparse_lora_matmul(x, w, mask, a, b, 16.0 / r)
+    assert ML.wgmma_launches == before + 1
+    _close(got, ML.sparse_lora_matmul_ref(x, w, mask, a, b, 16.0 / r),
+           torch.bfloat16)
+
+
 # ------------------------------------------------ the decode kernel
 # At M ≤ 64 every weight form (bool, packed, int8 with any mask) runs
 # csrc/matmul_decode.cu: swap-AB mma.sync, W streamed by TMA, K split
@@ -764,7 +853,7 @@ def test_decode_shape_forced_wmma_loop_matches_plain(
     """``_loop=WMMA`` at a decode shape runs the WMMA loop, within the
     tolerance of the same plain version."""
     x, w, mask, _ = _packed_case(cuda, torch.bfloat16, 20, 2048, 5120, 128)
-    decode, wmma = ML.decode_launches, ML.wmma_decode_m_launches
+    decode, wmma = ML.decode_launches, ML.wmma_launches
     if form == "bool":
         got = ML.masked_matmul(x, w, mask, _loop=ML.WMMA)
     elif form == "packed128":
@@ -775,5 +864,5 @@ def test_decode_shape_forced_wmma_loop_matches_plain(
         got = Q.int8_matmul(x, q, scale, BM.pack_mask(mask, 128),
                             _loop=ML.WMMA)
     assert ML.decode_launches == decode
-    assert ML.wmma_decode_m_launches == wmma + 1
+    assert ML.wmma_launches == wmma + 1
     _close(got, _decode_call(form, x, w, mask)[1], torch.bfloat16)

@@ -1,11 +1,13 @@
-"""The tiled matmuls' dispatch (``ops/masked_linear.plan`` and ``_launch``)
-on the CPU: which main loop a launch takes — the decode kernel at
-decode-sized M, the Hopper TMA + wgmma loop, the WMMA loop with its
-split-K, or the float32 one — from the shape and the alignment alone,
-that K is covered exactly once, and that the wrappers count the Hopper
-loop's and the decode kernel's launches (``tests/test_torch_decode_route.py``
-holds the decode kernel's own routing cases).  The kernels themselves run only on the
-card (``tests/test_torch_cuda_kernels.py``)."""
+"""The tiled matmuls' dispatch (``ops/masked_linear.plan``, ``plan_wgmma``
+and ``_launch``) on the CPU: which main loop a launch takes — the decode
+kernel at decode-sized M, the Hopper TMA + wgmma loop above it (split-K
+across a cluster where the output tiles do not fill the card), the WMMA
+loop with its split-K only for what TMA cannot take, or the float32 one
+— from the shape and the alignment alone, that K is covered exactly once
+on the splits' 256-row boundaries, and that the wrappers count each
+launch by loop (``tests/test_torch_decode_route.py`` holds the decode
+kernel's own routing cases and the int8 wrapper's).  The kernels
+themselves run only on the card (``tests/test_torch_cuda_kernels.py``)."""
 
 import pytest
 import torch
@@ -29,8 +31,13 @@ CASES = [
     # decode-sized M: the decode kernel, K split across a cluster
     ("t5_wi_decode", 20, 5120, 2048, True, True, 0, ML.DECODE),
     ("t5_wo_decode", 20, 2048, 5120, True, True, 0, ML.DECODE),
-    ("vit_proj_prefill", 1028, 1408, 1408, True, True, 0, ML.WMMA),
-    ("t5_dec_wi_train_r8", 384, 5120, 2048, True, True, 8, ML.WMMA),
+    # output tiles that do not fill the card: the Hopper loop, split-K
+    ("vit_proj_prefill", 1028, 1408, 1408, True, True, 0, ML.WGMMA),
+    ("t5_dec_wi_train_r8", 384, 5120, 2048, True, True, 8, ML.WGMMA),
+    ("qformer_self_gen_12_tiles", 288, 768, 768, True, True, 0, ML.WGMMA),
+    ("m_65_past_decode", 65, 2048, 2048, True, True, 0, ML.WGMMA),
+    # an adapter at decode-sized M: the decode kernel takes none
+    ("adapter_at_m_20", 20, 2048, 2048, True, True, 8, ML.WMMA),
     # what TMA cannot take: N % 16, K % 8, a misaligned base
     ("n_1400_not_16", 2000, 1400, 1408, True, True, 0, ML.WMMA),
     ("k_1001_not_8", 2000, 2048, 1001, True, True, 0, ML.WMMA),
@@ -56,7 +63,10 @@ def test_plan_picks_the_loop_and_covers_k_once(case, m, n, k, bf16, aligned,
     if loop == ML.DECODE:
         assert (splits, k_split) == ML.plan_decode(m, n, k, SMS)[1:]
         assert k_split % ML.DECODE_K_UNIT == 0
-    elif loop != ML.WMMA:
+    elif loop == ML.WGMMA:
+        assert (splits, k_split) == ML.plan_wgmma(m, n, k, SMS)
+        assert splits == 1 or k_split % ML.WGMMA_K_UNIT == 0
+    elif loop == ML.FP32:
         assert (splits, k_split) == (1, k)    # one launch over all of K
     else:
         assert (splits, k_split) == ML.split_k(m, n, k, SMS)
@@ -75,15 +85,70 @@ def _main_path_shapes():
                          ids=[c[0] for c in _main_path_shapes()])
 def test_main_path_runs_the_hopper_loop_wherever_k_is_not_split(case, m, n,
                                                                  k, rank):
-    """Every bf16 main-path shape that the WMMA loop would run unsplit goes
-    to the Hopper loop; decode shapes never do: they run the decode
-    kernel, K split as ``plan_decode`` says."""
+    """Every bf16 main-path shape above decode-sized M goes to the Hopper
+    loop — unsplit where the output tiles fill the card, split-K across a
+    cluster where they do not, so no main-path shape runs the WMMA loop;
+    decode shapes never do: they run the decode kernel, K split as
+    ``plan_decode`` says."""
     loop, splits, k_split = ML.plan(m, n, k, SMS, rank=rank)
-    wmma_splits, _ = ML.split_k(m, n, k, SMS)
-    assert (loop == ML.WGMMA) == (wmma_splits == 1)
+    tiles = -(-m // ML.WGMMA_BM) * -(-n // ML.WGMMA_BN)
     if case.endswith("_decode"):
         assert loop == ML.DECODE
         assert (splits, k_split) == ML.plan_decode(m, n, k, SMS)[1:]
+    else:
+        assert loop == ML.WGMMA
+        assert (splits, k_split) == ML.plan_wgmma(m, n, k, SMS)
+        assert (splits == 1) >= (tiles >= SMS)   # a full card is never split
+        assert tiles * splits <= ML.wgmma_wave(SMS) or splits == 1
+
+
+# K lengths of the main path and ragged ones (inside a 256-row unit, a
+# step, a pack group), at tile counts from 1 to past the card
+SPLIT_SHAPES = [(m, n, k) for m in (65, 128, 288, 384, 1028, 2304)
+                for n in (768, 1296, 2048, 5120)
+                for k in (768, 1000, 1408, 2048, 2056, 5120, 6144)]
+
+
+@pytest.mark.parametrize("m,n,k", SPLIT_SHAPES,
+                         ids=[f"{m}x{n}x{k}" for m, n, k in SPLIT_SHAPES])
+def test_wgmma_splits_cover_k_once_on_group_boundaries(m, n, k):
+    """Each split non-empty, all of K covered once; split boundaries on
+    multiples of 256 (BK = 64 steps, both pack groups); at most a portable
+    cluster; the same plan for every weight form and mask kind (the int8
+    flag only steers the decode kernel), so the bit-equalities hold."""
+    splits, k_split = ML.plan_wgmma(m, n, k, SMS)
+    assert 1 <= splits <= ML.WGMMA_MAX_SPLITS
+    assert (splits - 1) * k_split < k <= splits * k_split
+    if splits > 1:
+        assert k_split % ML.WGMMA_K_UNIT == 0
+        assert k_split % 64 == 0 and k_split % 128 == 0
+        # only tiles under a wave split, and never past one split a unit
+        assert -(-m // 256) * -(-n // 128) * splits <= ML.wgmma_wave(SMS)
+        assert splits <= -(-k // ML.WGMMA_K_UNIT)
+    else:
+        assert k_split == k
+    for rank in (0, 2, 4, 8):
+        for int8 in (False, True) if rank == 0 else (False,):
+            assert ML.plan(m, n, k, SMS, rank=rank, int8=int8) == (
+                ML.WGMMA, splits, k_split)
+
+
+def test_wgmma_splits_fill_one_wave_of_clusters():
+    """The most splits whose blocks fit one wave (110 at 132 SMs): ViT
+    proj and fc2 prefill (55 tiles) two; T5 qkvo and wo prefill (32
+    tiles) three; T5 wi prefill (80 tiles) and cross k/v (96) none; a
+    seven-tile shape as many as its nine K units allow in 2-unit splits;
+    ViT fc1 prefill (240 tiles) none."""
+    assert ML.wgmma_wave(SMS) == 110
+    for (m, n, k), want in [((1028, 1408, 1408), 2), ((1028, 1408, 6144), 2),
+                            ((288, 2048, 2048), 3), ((288, 2048, 5120), 3),
+                            ((288, 5120, 2048), 1), ((1440, 2048, 2048), 1),
+                            ((100, 784, 2056), 5), ((1028, 6144, 1408), 1),
+                            ((288, 768, 768), 3)]:
+        splits, k_split = ML.plan_wgmma(m, n, k, SMS)
+        assert splits == want, (m, n, k)
+        tiles = -(-m // 256) * -(-n // 128)
+        assert tiles * splits <= ML.wgmma_wave(SMS) or splits == 1
 
 
 class _Lib:
@@ -116,18 +181,20 @@ def _bf16(*shape):
 @pytest.mark.parametrize("kind", ["bool", "packed", "lora"])
 @pytest.mark.parametrize("m,loop,forced", [(2048, ML.WGMMA, None),
                                            (2048, ML.WMMA, ML.WMMA),
-                                           (16, ML.DECODE, None)])
+                                           (16, ML.DECODE, None),
+                                           (288, ML.WGMMA, None)])
 def test_wrappers_launch_the_planned_loop_and_count_it(fake_card, kind, m,
                                                        loop, forced):
     """At M = 16 the bool and packed matmuls run the decode kernel; the
-    sparse-LoRA one, which it does not take, the WMMA loop."""
+    sparse-LoRA one, which it does not take, the WMMA loop.  At M = 288
+    the 32 output tiles do not fill the card: the Hopper loop, split."""
     if kind == "lora" and loop == ML.DECODE:
         loop = ML.WMMA
     k, n = 1024, 2048
     x, w = _bf16(m, k), _bf16(k, n)
     mask = torch.ones(k, n, dtype=torch.bool)
     before = (ML.launches, ML.packed_launches, ML.lora_launches,
-              ML.wgmma_launches, ML.decode_launches)
+              ML.wgmma_launches, ML.decode_launches, ML.wmma_launches)
     if kind == "bool":
         ML._masked_matmul_cuda(x, w, mask, forced)
         name = "masked_matmul"
@@ -148,16 +215,20 @@ def test_wrappers_launch_the_planned_loop_and_count_it(fake_card, kind, m,
     else:
         assert called == \
             f"{name}_{'wgmma' if loop == ML.WGMMA else 'bf16'}"
-        # the Hopper entry points take the float32 ones' arguments: no
-        # workspace, no splits; the WMMA one its splits and vec flag
-        assert args[-4:-1] == (m, n, k) if loop == ML.WGMMA \
-            else args[-7:-4] == (m, n, k)
+        # the Hopper entry points take the float32 ones' arguments and
+        # the split plan, no workspace; the WMMA one its splits and vec flag
+        if loop == ML.WGMMA:
+            assert args[-6:-3] == (m, n, k)
+            assert args[-3:-1] == ML.plan_wgmma(m, n, k, SMS)
+        else:
+            assert args[-7:-4] == (m, n, k)
     after = (ML.launches, ML.packed_launches, ML.lora_launches,
-             ML.wgmma_launches, ML.decode_launches)
+             ML.wgmma_launches, ML.decode_launches, ML.wmma_launches)
     which = ("bool", "packed", "lora").index(kind)
     assert after[which] == before[which] + 1
     assert after[3] == before[3] + (loop == ML.WGMMA)
     assert after[4] == before[4] + (loop == ML.DECODE)
+    assert after[5] == before[5] + (loop == ML.WMMA)
 
 
 def test_a_misaligned_adapter_takes_the_wmma_loop(fake_card):
@@ -173,6 +244,7 @@ def test_a_misaligned_adapter_takes_the_wmma_loop(fake_card):
     (called, _), = fake_card.calls
     assert called == "sparse_lora_matmul_bf16"
     assert ML.wgmma_launches == before
+    assert ML.wmma_calls[(2048, n, k, 4, "a base not 16-byte aligned")] >= 1
 
 
 def test_only_the_wmma_loop_can_be_forced(fake_card):
@@ -181,3 +253,43 @@ def test_only_the_wmma_loop_can_be_forced(fake_card):
     with pytest.raises(ValueError, match="can be forced"):
         ML._masked_matmul_cuda(x, w, mask, ML.WGMMA)
     assert fake_card.calls == []
+
+
+@pytest.mark.parametrize("name,m,k,n,r", CS.LORA_SHAPES,
+                         ids=[c[0] for c in CS.LORA_SHAPES])
+def test_every_training_shape_runs_the_hopper_loop(fake_card, name, m, k, n,
+                                                   r):
+    """The retrain step's sparse-LoRA launches, the Q-Former's and the T5
+    decoder's under-filled ones included: the Hopper entry point with
+    ``plan_wgmma``'s splits, no WMMA launch."""
+    x, w = _bf16(m, k), _bf16(k, n)
+    mask = torch.ones(k, n, dtype=torch.bool)
+    before = ML.wmma_launches
+    ML._sparse_lora_cuda(x, w, mask, _bf16(k, r), _bf16(r, n), 16.0 / r)
+    (called, args), = fake_card.calls
+    assert called == "sparse_lora_matmul_wgmma"
+    assert args[5] == r and args[-6:-3] == (m, n, k)
+    assert args[-3:-1] == ML.plan_wgmma(m, n, k, SMS)
+    assert ML.wmma_launches == before
+
+
+@pytest.mark.parametrize("m,n,k,rank,aligned,why", [
+    (2048, 2048, 2048, 0, False, "a base not 16-byte aligned"),
+    (2048, 2048, 1001, 0, True, "K % 8 != 0"),
+    (2048, 1400, 2048, 0, True, "N % 16 != 0"),
+    (2048, 2048, 2048, 3, True, "adapter rank 3"),
+    (2048, 2048, 2048, 16, True, "adapter rank 16"),
+    (20, 2048, 2048, 8, True, "an adapter at M <= 64"),
+])
+def test_wmma_launches_are_recorded_with_why(m, n, k, rank, aligned, why):
+    """What still runs the WMMA loop, and the reason chip_smoke prints."""
+    assert ML.plan(m, n, k, SMS, aligned=aligned, rank=rank)[0] == ML.WMMA
+    assert ML.wmma_reason(m, n, k, aligned, rank) == why
+
+
+def test_a_forced_launch_is_recorded_as_forced(fake_card):
+    x, w = _bf16(2048, 64), _bf16(64, 2048)
+    mask = torch.ones(64, 2048, dtype=torch.bool)
+    before = ML.wmma_calls.get((2048, 2048, 64, 0, "forced"), 0)
+    ML._masked_matmul_cuda(x, w, mask, ML.WMMA)
+    assert ML.wmma_calls[(2048, 2048, 64, 0, "forced")] == before + 1

@@ -213,12 +213,16 @@ def test_kernel_sources_export_the_bound_entry_points():
             m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
             assert m, fn
             assert len(m.group(1).split(",")) == len(argtypes), fn
-    # the Hopper loop's entry points take the float32 ones' arguments
+    # the Hopper loop's entry points take the float32 ones' arguments, then
+    # the split plan (splits, k_split) before the stream
     sigs = _cuda._SIGNATURES
+    I, P = sigs["masked_matmul"]["masked_matmul_f32"][-2:]
     for kind in ("masked_matmul", "masked_matmul_packed",
                  "sparse_lora_matmul"):
         assert sigs["masked_matmul_wgmma"][f"{kind}_wgmma"] == \
-            sigs["masked_matmul"][f"{kind}_f32"], kind
+            sigs["masked_matmul"][f"{kind}_f32"][:-1] + [I, I, P], kind
+    assert sigs["int8_matmul_wgmma"]["int8_matmul_wgmma"] == \
+        sigs["int8_matmul"]["int8_matmul_f32"][:-1] + [I, I, P]
 
 
 def test_the_hopper_loop_is_tma_wgmma_and_mbarriers():
@@ -296,6 +300,10 @@ def test_the_decode_kernel_is_tma_cluster_and_has_no_atomics():
     builds on its own and names the TPU kernels it replaces."""
     src = (_cuda.CSRC / "matmul_decode.cu").read_text()
     assert '#include "hopper.cuh"' in src
+    # the cluster's barrier and remote stores are hopper.cuh's helpers
+    hopper = (_cuda.CSRC / "hopper.cuh").read_text()
+    for call in ("cluster_sync()", "cluster_rank()", "st_cluster_v4("):
+        assert call in src, call
     for call in ("tma_load", "encode_2d", "mbar_init", "mbar_expect_tx",
                  "mbar_wait", "mbar_arrive", "bind_context",
                  "ldmatrix.sync.aligned.m8n8.x4.trans",
@@ -304,11 +312,33 @@ def test_the_decode_kernel_is_tma_cluster_and_has_no_atomics():
                  "cudaLaunchAttributeClusterDimension", "cudaLaunchKernelEx",
                  "vlm_compression_tpu/ops/masked_linear.py:194",
                  "vlm_compression_tpu/ops/quant.py:84"):
-        assert call in src, call
+        assert call in src + hopper, call
     for banned in ("atomicAdd", "atom.", "red.global", "splitk_reduce"):
-        assert banned not in src, banned
+        assert banned not in src + hopper, banned
     assert "matmul_decode" in _cuda.SOURCES
     assert "matmul_decode" in _cuda._SIGNATURES
+
+
+def test_the_hopper_loop_splits_k_over_a_cluster_and_takes_int8():
+    """The Hopper loop's split-K form sums its partials across a
+    thread-block cluster through distributed shared memory (no atomics, no
+    workspace, no second launch); its int8 form stages the codes by TMA
+    and converts them in the transform warpgroup, the scale in the
+    epilogue.  The int8 entry point is a source of its own, built in
+    parallel, and names the TPU kernel it replaces."""
+    loop = (_cuda.CSRC / "wgmma_tile.cuh").read_text()
+    hopper = (_cuda.CSRC / "hopper.cuh").read_text()
+    for call in ("cluster_sync()", "st_cluster_v4(", "CODE_OFF",
+                 "convert_codes", "__byte_perm", "s_scale",
+                 "cudaLaunchAttributeClusterDimension", "cudaLaunchKernelEx"):
+        assert call in loop, call
+    for banned in ("atomicAdd", "atom.", "red.global", "splitk_reduce"):
+        assert banned not in loop + hopper, banned
+    src = (_cuda.CSRC / "int8_matmul_wgmma.cu").read_text()
+    assert '#include "wgmma_tile.cuh"' in src
+    assert "vlm_compression_tpu/ops/quant.py:84" in src
+    assert "int8_matmul_wgmma" in _cuda.SOURCES
+    assert "int8_matmul_wgmma" in _cuda._SIGNATURES
 
 
 @pytest.mark.parametrize("grad", [False, True])

@@ -2,9 +2,10 @@
 // shared-memory addresses, mbarriers, TMA and bulk loads, wgmma
 // shared-memory descriptors, the wgmma fence / commit / wait, and the
 // wgmma.mma_async shapes the kernels issue (bf16 in, fp32 accumulators in
-// registers), 2^x on the special-function unit, and the 2-D tensor maps of
-// the matmuls and the 4-D ones of the attention kernels.  Used by
-// wgmma_tile.cuh (the masked and sparse-LoRA matmuls), matmul_decode.cu
+// registers), the thread-block cluster's barrier and remote stores, 2^x on
+// the special-function unit, and the 2-D tensor maps of the matmuls and
+// the 4-D ones of the attention kernels.  Used by
+// wgmma_tile.cuh (the masked, sparse-LoRA and int8 matmuls), matmul_decode.cu
 // (the decode-shaped matmuls), flash_attention_fwd_wgmma.cu (the
 // attention forward) and flash_attention_bwd_wgmma.cu (the attention
 // backward).
@@ -371,6 +372,36 @@ __device__ __forceinline__ void wgmma_rs_dp(float (&d)[DP / 2],
     wgmma_rs_n64<1>(d, a, db);
   else
     wgmma_rs_n96<1>(d, a, db);
+}
+
+// ---------------------------------------------------- thread-block clusters
+// every thread of every block of the cluster arrives, then waits (release /
+// acquire: shared-memory writes before it, remote ones included, are seen
+// after it)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// four floats into block `rank`'s shared memory at this block's address
+// `addr` (16-byte aligned)
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint32_t rank,
+                                              const float (&v)[4]) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                   remote),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
 }
 
 // 2^x on the special-function unit (a result below the normal range

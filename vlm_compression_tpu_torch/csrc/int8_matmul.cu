@@ -18,8 +18,10 @@
 // What bounds it on an H100: 2MNK operations against 2MK + KN + 4N + 2MN
 // bytes (plus KN·b/8 for a packed mask, b = 2 or 1, or KN for a bool mask).
 // At decode shapes (M = batch × beams = 20) the bytes; those run the
-// decode kernel of matmul_decode.cu (ops/masked_linear.py `plan`), and
-// this loop takes the prefill (and what TMA cannot take).
+// decode kernel of matmul_decode.cu, and the prefill runs the Hopper loop
+// of int8_matmul_wgmma.cu (ops/masked_linear.py `plan`).  This loop takes
+// only what TMA cannot take (misaligned bases, K % 8 or N % 16), float32,
+// and the launches forced onto it (`_loop`) for timing.
 //
 // Design: the masked matmul's tile loop (tile_mma.cuh: 128 × 128 output
 // tiles, K steps of 32, WMMA bf16 products with fp32 accumulation, register
@@ -31,8 +33,8 @@
 // weight never exists in device memory.  The scale is applied in the fp32
 // epilogue.  A float32 variant multiplies on the CUDA cores (no TF32).
 //
-// Not yet done (later PRs): a TMA/wgmma pipeline for the prefill; the
-// W8A8 products (int8 × int8 on the tensor cores).
+// Not yet done (later PRs): the W8A8 products (int8 × int8 on the tensor
+// cores).
 
 #include "tile_mma.cuh"
 

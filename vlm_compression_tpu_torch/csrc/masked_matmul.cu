@@ -57,17 +57,19 @@
 // at decode shapes the bytes, where the packed mask saves 3/8 or 7/16 of
 // the bool kernel's weight-side traffic.
 //
-// Two main loops.  The WMMA loop of tile_mma.cuh (128 × 128 tiles, mma.sync
-// through WMMA, register prefetch, split-K) runs the decode-sized shapes,
-// the ones TMA cannot take, and float32.  Where the output tiles fill the
-// card without split-K (calibration, training, prefill) the bool, packed
-// and sparse-LoRA entry points `*_wgmma` of masked_matmul_wgmma.cu run the
+// Three main loops.  The WMMA loop of tile_mma.cuh (128 × 128 tiles,
+// mma.sync through WMMA, register prefetch, split-K) runs the shapes TMA
+// cannot take, adapter ranks other than 2, 4 and 8, and float32.  Above
+// decode-sized M (calibration, training, prefill) the bool, packed and
+// sparse-LoRA entry points `*_wgmma` of masked_matmul_wgmma.cu run the
 // Hopper loop of wgmma_tile.cuh instead: TMA loads into a 3-stage
 // mbarrier ring, the mask (or the LoRA merge) applied to the W tile in
 // shared memory by a transform warpgroup while two consumer warpgroups run
-// wgmma on the previous stage.  ops/masked_linear.py `plan` picks the loop
-// from the shape and the alignment alone; the packed entry point takes the
-// same loop as the bool one at every shape, so the two stay bit-equal.
+// wgmma on the previous stage, K split across a cluster where the tiles
+// do not fill the card.  At decode-sized M the bool and packed matmuls run
+// matmul_decode.cu.  ops/masked_linear.py `plan` picks the loop from the
+// shape and the alignment alone; the packed entry point takes the same
+// loop as the bool one at every shape, so the two stay bit-equal.
 
 #include "tile_mma.cuh"
 

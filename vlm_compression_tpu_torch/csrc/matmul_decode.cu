@@ -163,32 +163,6 @@ __device__ __forceinline__ uint32_t sw128(uint32_t base, int row, int chunk) {
   return base + row * 128 + (((chunk ^ row) & 7) << 4);
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n\t"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// four floats into block `rank`'s shared memory at this block's address
-// `addr` (16-byte aligned)
-__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint32_t rank,
-                                              const float (&v)[4]) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
-                   remote),
-               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
-               : "memory");
-}
-
 // One block: output columns [n0, n0 + 64) over K in [blockIdx.x · k_split,
 // + k_split); the cluster is the blockIdx.x row of splits.
 template <bool INT8, int MASK, int MT>

@@ -11,11 +11,12 @@
 // bit-equal to the bool-mask kernel's.
 //
 // The bf16 loop is the WMMA (mma.sync) one, with split-K: it runs shapes
-// TMA cannot take, small M with an adapter, and int8 above decode-sized M.
-// At decode-sized M the bool, packed and int8 matmuls run the decode
-// kernel of matmul_decode.cu; where the output tiles fill the card
-// unsplit, the bool, packed and sparse-LoRA matmuls run the Hopper TMA +
-// wgmma loop of wgmma_tile.cuh (ops/masked_linear.py `plan`).
+// TMA cannot take, ranks other than 2, 4 and 8, small M with an adapter,
+// and launches forced onto it for timing.  At decode-sized M the bool,
+// packed and int8 matmuls run the decode kernel of matmul_decode.cu;
+// above it all four run the Hopper TMA + wgmma loop of wgmma_tile.cuh,
+// split-K across a cluster where the tiles do not fill the card
+// (ops/masked_linear.py `plan`).
 
 #pragma once
 

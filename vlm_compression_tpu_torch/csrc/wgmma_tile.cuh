@@ -1,59 +1,89 @@
-// The Hopper main loop of the bf16 masked, packed-mask and sparse-LoRA
-// matmuls (sm_90a): y = x @ ((W [+ s·A·B]) ⊙ mask), TMA + wgmma, with the
-// mask (and the LoRA merge) applied to the W tile in shared memory.
+// The Hopper main loop of the masked, packed-mask, sparse-LoRA and int8
+// matmuls (sm_90a), bf16 x and y:
+//   bf16 W      y = x @ ((W [+ s·A·B]) ⊙ mask)
+//   int8 codes  y = (x @ (q ⊙ mask)) · scale      (no, bool or packed mask)
+// TMA + wgmma, with the mask (the LoRA merge, the codes' conversion)
+// applied to the W tile in shared memory.
 //
-// One block computes a BM × BN = 256 × 128 output tile over all of K, in K
-// steps of BK = 64, through a ring of STAGES = 3 shared-memory stages
-// (57 KB each).  Three warpgroups:
+// One block computes a BM × BN = 256 × 128 output tile over its split of
+// K (all of K, or k_split rows of it), in K steps of BK = 64, through a
+// ring of STAGES = 3 shared-memory stages (57 KB each; 65 KB with the
+// int8 codes' staging area).  Three warpgroups:
 //   * WG0, the transform warpgroup.  Its thread 0 is also the producer: it
 //     issues, per step, the TMA loads (cp.async.bulk.tensor, completion on
 //     the stage's `full` mbarrier) of the x tile (256 × 64, 128-byte
 //     swizzle), the raw W tile (64 × 128 as two 64 × 64 boxes, 128-byte
-//     swizzle), the mask tile (uint8 64 × 128, or the (8, 128) 32-bit words
-//     of ops/bitmask.py's layout for the step's G-row group) and, for
+//     swizzle) or the int8 code tile (64 × 128 bytes, 8 KB, unswizzled,
+//     into a staging area of its own: codes cannot widen in place), the
+//     mask tile (uint8 64 × 128, or the (8, 128) 32-bit words of
+//     ops/bitmask.py's layout for the step's G-row group) and, for
 //     sparse-LoRA, the step's rows of A (a plain cp.async.bulk: A's rows are
 //     4-16 bytes, below TMA's 16-byte stride).  Every thread of WG0
 //     rewrites its 8 chunks of 8 columns of the stage's W tile in place:
 //     zeroed where the mask is false (bool bytes or packed bits), or merged
 //     as (W + s·Σ_r A[k,r]·B[r,n]) ⊙ M in fp32 — Σ_r fmaf in r order, then
 //     __fadd_rn(w, __fmul_rn(s, d)), as the WMMA loop's merge_chunk — and
-//     cast to bf16.  A thread owns one 8-column chunk for the whole K loop,
-//     so its r × 8 B values stay in registers; 256 rows a tile halve the
-//     merge's recompute against a 128-row tile.  It then fences the
-//     generic-proxy writes for the async proxy (fence.proxy.async) and
-//     arrives on the stage's `ready` mbarrier; thread 0 then refills the
-//     stage that step k - 1 used once its consumers free it (`empty`).  The
-//     masked or merged weight never exists in device memory, as on the TPU.
+//     cast to bf16; or, for int8, it masks the codes' bytes and writes them
+//     as bf16 into the same swizzled W layout (exact: each byte q + 128
+//     under the exponent of 2^23 is the float 2^23 + q + 128, less
+//     2^23 + 128; the decode kernel's conversion).  A thread owns one
+//     8-column chunk for the whole K loop, so its r × 8 B values stay in
+//     registers; 256 rows a tile halve the merge's recompute against a
+//     128-row tile.  It then fences the generic-proxy writes for the async
+//     proxy (fence.proxy.async) and arrives on the stage's `ready`
+//     mbarrier; thread 0 then refills the stage that step k - 1 used once
+//     its consumers free it (`empty`).  The masked, merged or dequantized
+//     weight never exists in device memory, as on the TPU.
 //   * WG1, WG2, the consumers: 128 rows each, two wgmma.mma_async
 //     m64n128k16 per k16 (bf16 in, fp32 accumulators in registers; x
 //     K-major, W MN-major through the descriptor's transpose bit).  Each
 //     frees a stage as soon as its products on it are done.  So the
 //     transform of step k + 1 runs on the CUDA cores while the tensor cores
 //     work on step k.
-// setmaxnreg moves registers from WG0 to the consumers.  The epilogue
-// stages the tile in shared memory as bf16 and writes 16-byte rows, masking
-// the ragged M/N edge; TMA's out-of-bounds zero fill covers the loads.
+// setmaxnreg moves registers from WG0 to the consumers.
 //
-// What bounds it on the H100: the function, by operations (2MNK); this
-// loop, by its ring: a K step's loads take longer to land than its
-// wgmmas take to run, and the sparse-LoRA merge takes longer still, so
-// the tensor cores idle part of each step (PERF.md §6).  Compile with
-// -DWG_TRACE for a per-step clock64 timeline of block (0, 0)
-// (scripts/torch_wgmma_trace.py).
+// Split-K (where the output tiles do not fill the card; ops/masked_linear.py
+// `plan_wgmma` picks the splits): the `splits` blocks of one output tile
+// are one thread-block cluster (gridDim.x = splits ≤ 8), block r over K
+// rows [r·k_split, (r + 1)·k_split), k_split a multiple of 256 (the larger
+// pack group, so no split straddles a group's words).  Their sum is a
+// reduce-scatter over distributed shared memory: the tile's 16 units of 16
+// rows (one consumer warp's rows of one accumulator) are owned by the
+// cluster's blocks in turn (unit u by rank u % splits).  After a cluster
+// barrier (every ring is spent), each block sends the fp32 accumulators of
+// the units it does not own into their owners' rings (st.shared::cluster,
+// landing slot by source rank); after a second barrier each owner adds the
+// others' partials to its own in rank order, scales (int8: the fp32 sum
+// times scale[n], as quant.py, never a partial), rounds to bf16 once and
+// stores its units' rows.  One launch, no workspace, no atomics: the same
+// inputs give the same bits, and every mask kind of a weight form sums the
+// same products in the same order.
 //
-// Preconditions (checked by the wrapper's dispatch, ops/masked_linear.py
-// `plan`): bf16; K % 8 == 0 and N % 16 == 0 (TMA strides), 16-byte
-// aligned x, W, mask (and A, B) bases; packed group 128 or 256 (a K step of
-// 64 lies in one group); LoRA rank 2, 4 or 8.  No split-K: the loop runs
-// where the output tiles fill the card.
+// The epilogue stages the tile (or the block's units of it) in shared
+// memory as bf16 and writes 16-byte rows, masking the ragged M/N edge;
+// TMA's out-of-bounds zero fill covers the loads.
+//
+// What bounds it on the H100: the function, by operations (2MNK) at every
+// shape it runs but the smallest prefill ones; this loop, by its ring: a
+// K step's loads take longer to land than its wgmmas take to run, and the
+// sparse-LoRA merge takes longer still, so the tensor cores idle part of
+// each step (PERF.md §6).  Compile with -DWG_TRACE for a per-step clock64
+// timeline of block (0, 0, 0) (scripts/torch_wgmma_trace.py).
+//
+// Preconditions (checked by the launch below and by the wrapper's
+// dispatch, ops/masked_linear.py `plan`): bf16 x; K % 8 == 0 and
+// N % 16 == 0 (TMA strides), 16-byte aligned x, W (codes), mask (and A,
+// B) bases; packed group 128 or 256 (a K step of 64 lies in one group);
+// LoRA rank 2, 4 or 8.
 //
 // For the same x, W and mask the bool and packed kernels write the same
 // bf16 W tile and issue the same wgmma sequence, so their outputs are
-// bit-equal.
+// bit-equal; so are int8 with a mask and int8 without one on codes zeroed
+// off it (a masked byte and a zero code both become +0).
 
 #pragma once
 
-#include "hopper.cuh"   // the PTX helpers: mbarriers, TMA, wgmma
+#include "hopper.cuh"   // the PTX helpers: mbarriers, TMA, wgmma, clusters
 #include "tile_mma.cuh"
 
 namespace wg {
@@ -71,36 +101,70 @@ constexpr int W_BYTES = 2 * W_BOX_BYTES;
 constexpr int MASK_BYTES = BK * BN;           // bool; packed words use 4 KB
 constexpr int WORD_BYTES = 8 * BN * 4;
 constexpr int A_BYTES = BK * 8 * 2;           // LoRA A rows, rank ≤ 8
-constexpr int STAGE_BYTES = X_BYTES + W_BYTES + MASK_BYTES + A_BYTES;
+constexpr int CODE_BYTES = BK * BN;           // int8 codes, staged
+constexpr int MASK_OFF = X_BYTES + W_BYTES;
+constexpr int A_OFF = MASK_OFF + MASK_BYTES;
+constexpr int CODE_OFF = A_OFF + A_BYTES;
+// a stage of the bf16 kinds, and of int8 (its codes' staging area after)
+__host__ __device__ constexpr int stage_bytes(bool int8) {
+  return int8 ? CODE_OFF + CODE_BYTES : CODE_OFF;
+}
+constexpr int STAGE_BYTES = stage_bytes(false);
 constexpr int LDC = BN + 8;                   // epilogue staging row (272 B)
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;   // + alignment
-static_assert(STAGE_BYTES % 1024 == 0, "stages must stay 1024-byte aligned");
+__host__ __device__ constexpr int smem_bytes(bool int8) {
+  return STAGES * stage_bytes(int8) + 1024;   // + alignment
+}
+// split-K: the most splits (a portable cluster), the unit of their
+// boundaries (the larger pack group), the tile's 16-row units and one
+// unit's fp32 partial
+constexpr int MAX_SPLITS = 8, K_UNIT = 256;
+constexpr int UNITS = BM / 16, UNIT_BYTES = 16 * BN * 4;
+static_assert(stage_bytes(false) % 1024 == 0 && stage_bytes(true) % 1024 == 0,
+              "stages must stay 1024-byte aligned");
+static_assert(CODE_OFF % 128 == 0, "TMA destinations 128-byte aligned");
 static_assert(BM * LDC * 2 <= STAGES * STAGE_BYTES, "epilogue staging");
+// the landing slots of the split-K sum, over the spent ring: `splits`
+// source slots of ⌈UNITS / splits⌉ units each, most at 7 splits (21 units)
+static_assert(7 * 3 * UNIT_BYTES <= STAGES * STAGE_BYTES, "landing slots");
+static_assert(smem_bytes(true) <= 227 * 1024, "the shared-memory opt-in");
 
-enum Kind { BOOL_MASK = 1, PACKED_MASK = 2 };
+enum Kind { NO_MASK = 0, BOOL_MASK = 1, PACKED_MASK = 2 };
 
-// -DWG_TRACE: block (0, 0) records clock64 at five points of each K step
-// (scripts/torch_wgmma_trace.py reads them)
+// -DWG_TRACE: block (0, 0, 0) records clock64 at five points of each K step
+// (rows 0-4) and at its fixed points (row 5: start, the consumers' loop
+// end, past each cluster barrier, the sum done, the stores done);
+// scripts/torch_wgmma_trace.py reads them
 #ifdef WG_TRACE
 __device__ long long wg_trace[6][1024];
 #define TRACE(e, g)                                                  \
-  if (blockIdx.x == 0 && blockIdx.y == 0 && (g) < 1024)              \
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&       \
+      (g) < 1024)                                                    \
     wg_trace[e][g] = clock64();
 #else
 #define TRACE(e, g)
 #endif
 
 // one m64n128 accumulator (rows row0 + {0, 8} of each lane quad) into the
-// epilogue's bf16 staging tile: lane l holds columns 8j + 2(l % 4) + {0, 1}
+// epilogue's bf16 staging tile: lane l holds columns 8j + 2(l % 4) + {0, 1};
+// int8 (SCALE): each column times its scale in fp32 before the rounding
+template <bool SCALE>
 __device__ __forceinline__ void stage_acc(bf16* cs, const float (&acc)[64],
-                                          int row0, int lane) {
+                                          const float* sc, int row0,
+                                          int lane) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = j * 8 + (lane & 3) * 2;
+    float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+    if (SCALE) {
+      v[0] = __fmul_rn(v[0], sc[col]);
+      v[1] = __fmul_rn(v[1], sc[col + 1]);
+      v[2] = __fmul_rn(v[2], sc[col]);
+      v[3] = __fmul_rn(v[3], sc[col + 1]);
+    }
     *reinterpret_cast<__nv_bfloat162*>(cs + row0 * LDC + col) =
-        __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        __floats2bfloat162_rn(v[0], v[1]);
     *reinterpret_cast<__nv_bfloat162*>(cs + (row0 + 8) * LDC + col) =
-        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        __floats2bfloat162_rn(v[2], v[3]);
   }
 }
 
@@ -188,29 +252,144 @@ __device__ __forceinline__ void transform_stage(uint8_t* ws, const uint8_t* ms,
   }
 }
 
+// bytes b and b + 1 of u (each the code q + 128) as a bf16 pair: the float
+// 2^23 + byte, less 2^23 + 128, is q exactly (|q| ≤ 128), and so is its bf16
+__device__ __forceinline__ uint32_t code_pair(uint32_t u, int b) {
+  const float bias = 8388736.0f;   // 2^23 + 128
+  return pack_bf16(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)) - bias,
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + b)) - bias);
+}
+
+// int8: the stage's codes (64 rows of 128 bytes) masked and converted into
+// the bf16 W tile, in the thread's chunks as transform_stage's.  The mask
+// acts on the code bytes: a bool byte b keeps its code through b · 0xFF; a
+// packed mask's eight rows q + 8i of a column are its word's bits
+// bit0 + i (the step lies in one group, k0 % 8 == 0), gathered per column
+// into one byte.
+template <int KIND>
+__device__ __forceinline__ void convert_codes(uint8_t* ws, const uint8_t* cs,
+                                              const uint8_t* ms, int k0,
+                                              int group, int t) {
+  const int c = t & 15, q = t >> 4;
+  uint8_t* wrow = ws + (c >> 3) * W_BOX_BYTES + q * 128 + (((c & 7) ^ q) << 4);
+  uint2 code[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    code[i] = *reinterpret_cast<const uint2*>(cs + (q + 8 * i) * BN + c * 8);
+  if (KIND == BOOL_MASK) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint2 m =
+          *reinterpret_cast<const uint2*>(ms + (q + 8 * i) * BN + c * 8);
+      code[i].x &= m.x * 0xFFu;
+      code[i].y &= m.y * 0xFFu;
+    }
+  }
+  if (KIND == PACKED_MASK) {
+    const uint4* wp = reinterpret_cast<const uint4*>(ms + q * BN * 4 + c * 32);
+    const uint4 lo = wp[0], hi = wp[1];
+    const int bit = tile::word_bit(k0 + q, group);
+    // byte e of kl (kh): the 8 rows' bits of column e (4 + e)
+    const uint32_t kl = __byte_perm(
+        __byte_perm(lo.x >> bit, lo.y >> bit, 0x0040),
+        __byte_perm(lo.z >> bit, lo.w >> bit, 0x0040), 0x5410);
+    const uint32_t kh = __byte_perm(
+        __byte_perm(hi.x >> bit, hi.y >> bit, 0x0040),
+        __byte_perm(hi.z >> bit, hi.w >> bit, 0x0040), 0x5410);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      code[i].x &= ((kl >> i) & 0x01010101u) * 0xFFu;
+      code[i].y &= ((kh >> i) & 0x01010101u) * 0xFFu;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t u0 = code[i].x ^ 0x80808080u, u1 = code[i].y ^ 0x80808080u;
+    Pack8 p;
+    p.w[0] = code_pair(u0, 0);
+    p.w[1] = code_pair(u0, 2);
+    p.w[2] = code_pair(u1, 0);
+    p.w[3] = code_pair(u1, 2);
+    *reinterpret_cast<uint4*>(wrow + i * 1024) = p.u;
+  }
+}
+
+// ----------------------------------------------------------- split-K sum
+// landing slot of (source rank, unit u) in the owner's ring, for `splits`
+// blocks: ⌈UNITS / splits⌉ units a source
+__device__ __forceinline__ int slot_offset(int src, int u, int splits) {
+  return (src * ((UNITS + splits - 1) / splits) + u / splits) * UNIT_BYTES;
+}
+
+// a warp's unit u (its lane's 64 accumulators) into the owner's landing
+// slot: lane l's four floats i at 512·i + 16·l, so each store instruction
+// writes 512 contiguous bytes
+__device__ __forceinline__ void send_unit(const float (&acc)[64],
+                                          uint32_t base, int rank, int u,
+                                          int splits, int lane) {
+  const uint32_t dst = base + slot_offset(rank, u, splits) + lane * 16;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float v[4] = {acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                        acc[4 * i + 3]};
+    st_cluster_v4(dst + i * 512, u % splits, v);
+  }
+}
+
+// the owner adds the other ranks' partials of unit u to its own, in rank
+// order
+__device__ __forceinline__ void add_unit(float (&acc)[64], const uint8_t* smem,
+                                         int rank, int u, int splits,
+                                         int lane) {
+  for (int s = 0; s < splits; ++s) {
+    if (s == rank) continue;
+    const float4* src = reinterpret_cast<const float4*>(
+        smem + slot_offset(s, u, splits) + lane * 16);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float4 v = src[i * 32];
+      acc[4 * i] = __fadd_rn(acc[4 * i], v.x);
+      acc[4 * i + 1] = __fadd_rn(acc[4 * i + 1], v.y);
+      acc[4 * i + 2] = __fadd_rn(acc[4 * i + 2], v.z);
+      acc[4 * i + 3] = __fadd_rn(acc[4 * i + 3], v.w);
+    }
+  }
+}
+
 // -------------------------------------------------------------- the loop
-// tm_x: x (M, K) bf16; tm_w: W (K, N) bf16; tm_m: the bool mask (K, N)
-// uint8 or the packed words (8·⌈K/G⌉, N) uint32.  R = 0: no adapter;
-// R = 2, 4, 8: sparse-LoRA with A (K, R) and B (R, N) bf16.  One block
-// per output tile.
-template <int KIND, int R>
+// tm_x: x (M, K) bf16; tm_w: W (K, N) bf16, or the int8 codes (K, N)
+// (INT8, with col_scale: N floats); tm_m: the bool mask (K, N) uint8 or the
+// packed words (8·⌈K/G⌉, N) uint32 (unread for NO_MASK).  R = 0: no
+// adapter; R = 2, 4, 8: sparse-LoRA with A (K, R) and B (R, N) bf16.  Grid
+// (splits, N tiles, M tiles), one cluster of `splits` blocks a tile.
+template <int KIND, int R, bool INT8>
 __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
                                          const CUtensorMap* tm_w,
                                          const CUtensorMap* tm_m,
                                          const bf16* __restrict__ lora_a,
                                          const bf16* __restrict__ lora_b,
-                                         float scale, bf16* __restrict__ y,
-                                         int M, int N, int K, int group) {
+                                         float scale,
+                                         const float* __restrict__ col_scale,
+                                         bf16* __restrict__ y, int M, int N,
+                                         int K, int k_split, int group) {
+  static_assert(!INT8 || R == 0, "no adapter on int8 codes");
+  constexpr int STAGE = stage_bytes(INT8);
+  static_assert(INT8 || KIND != NO_MASK, "bf16 W comes with a mask");
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t full[STAGES], ready[STAGES], empty[STAGES];
+  __shared__ float s_scale[BN];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(dyn_smem) + 1023) & ~uintptr_t(1023));
 
   const int tid = threadIdx.x, t = tid & 127, warp_group = tid >> 7;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_k = (K + BK - 1) / BK;
+  const int splits = gridDim.x, rank = blockIdx.x;   // rank in the cluster
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
+  const int k_begin = rank * k_split;
+  const int n_k = (min(K, k_begin + k_split) - k_begin + BK - 1) / BK;
 
   if (tid == 0) {
+    TRACE(5, 0);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&ready[s], 128);      // every transform thread
@@ -218,27 +397,34 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if (INT8 && tid < BN) s_scale[tid] = n0 + tid < N ? col_scale[n0 + tid] : 0.f;
   __syncthreads();
 
   if (warp_group == 0) {
     // ---------------------------------------------- producer + transform
     asm volatile("setmaxnreg.dec.sync.aligned.u32 152;\n" ::: "memory");
     auto issue = [&](int j) {
-      const int s = j % STAGES, k0 = j * BK;
-      uint8_t* st = smem + s * STAGE_BYTES;
+      const int s = j % STAGES, k0 = k_begin + j * BK;
+      uint8_t* st = smem + s * STAGE;
       const uint32_t a_bytes = R ? min(BK, K - k0) * R * 2 : 0;
-      mbar_expect_tx(&full[s], X_BYTES + W_BYTES +
+      mbar_expect_tx(&full[s], X_BYTES + (INT8 ? CODE_BYTES : W_BYTES) +
                                    (KIND == PACKED_MASK ? WORD_BYTES
-                                                        : MASK_BYTES) +
+                                    : KIND == BOOL_MASK ? MASK_BYTES
+                                                        : 0) +
                                    a_bytes);
       tma_load(st, tm_x, &full[s], k0, m0);
-      tma_load(st + X_BYTES, tm_w, &full[s], n0, k0);
-      tma_load(st + X_BYTES + W_BOX_BYTES, tm_w, &full[s], n0 + 64, k0);
-      tma_load(st + X_BYTES + W_BYTES, tm_m, &full[s], n0,
-               KIND == PACKED_MASK ? 8 * (k0 / group) : k0);
+      if (INT8) {
+        tma_load(st + CODE_OFF, tm_w, &full[s], n0, k0);
+      } else {
+        tma_load(st + X_BYTES, tm_w, &full[s], n0, k0);
+        tma_load(st + X_BYTES + W_BOX_BYTES, tm_w, &full[s], n0 + 64, k0);
+      }
+      if (KIND != NO_MASK)
+        tma_load(st + MASK_OFF, tm_m, &full[s], n0,
+                 KIND == PACKED_MASK ? 8 * (k0 / group) : k0);
       if (R)
-        bulk_load(st + X_BYTES + W_BYTES + MASK_BYTES,
-                  lora_a + static_cast<size_t>(k0) * R, a_bytes, &full[s]);
+        bulk_load(st + A_OFF, lora_a + static_cast<size_t>(k0) * R, a_bytes,
+                  &full[s]);
       TRACE(0, j);
     };
     if (t == 0)
@@ -261,13 +447,16 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
 
     for (int kt = 0; kt < n_k; ++kt) {
       const int s = kt % STAGES;
-      uint8_t* st = smem + s * STAGE_BYTES;
+      uint8_t* st = smem + s * STAGE;
       mbar_wait(&full[s], (kt / STAGES) & 1);
       if (t == 0) TRACE(1, kt);
-      transform_stage<KIND, R>(st + X_BYTES, st + X_BYTES + W_BYTES,
-                               reinterpret_cast<const bf16*>(
-                                   st + X_BYTES + W_BYTES + MASK_BYTES),
-                               kt * BK, group, t, b, scale);
+      if constexpr (INT8)
+        convert_codes<KIND>(st + X_BYTES, st + CODE_OFF, st + MASK_OFF,
+                            k_begin + kt * BK, group, t);
+      else
+        transform_stage<KIND, R>(st + X_BYTES, st + MASK_OFF,
+                                 reinterpret_cast<const bf16*>(st + A_OFF),
+                                 k_begin + kt * BK, group, t, b, scale);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       mbar_arrive(&ready[s]);
       if (t == 0) TRACE(2, kt);
@@ -277,6 +466,11 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
         mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
         issue(j);
       }
+    }
+    if (splits > 1) {   // the consumers' two barriers of the split-K sum
+      __syncwarp();
+      cluster_sync();
+      cluster_sync();
     }
   } else {
     // --------------------------------------------------------- consumers
@@ -292,11 +486,11 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
       mbar_wait(&full[s], par);
       mbar_wait(&ready[s], par);
       if (tid == 128) TRACE(3, kt);
-      const uint32_t xa = smem_u32(smem + s * STAGE_BYTES) + g * 128 * 128;
-      const uint32_t wa = smem_u32(smem + s * STAGE_BYTES + X_BYTES);
+      const uint32_t xa = smem_u32(smem + s * STAGE) + g * 128 * 128;
+      const uint32_t wa = smem_u32(smem + s * STAGE + X_BYTES);
       fence_acc(acc0);
       fence_acc(acc1);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         // W: 16 rows further per k16; the two 64-column boxes 8 KB apart
@@ -307,71 +501,122 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
         wgmma_m64n128k16(acc0, sw128_desc(xa + kk * 32, 16, 1024), db);
         wgmma_m64n128k16(acc1, sw128_desc(xa + 8192 + kk * 32, 16, 1024), db);
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_commit();
       // free the stage as soon as its products are done
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_wait<0>();
       fence_acc(acc0);
       fence_acc(acc1);
       if (tid == 128) TRACE(4, kt);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
+    if (tid == 128) TRACE(5, 1);
 
-    // epilogue: both consumer warpgroups are done with the ring; stage the
-    // tile as bf16 (row stride LDC), then 16-byte stores of whole rows
+    // the tile's units of 16 rows: acc0's and acc1's of this warp; a unit
+    // wholly past M is neither sent, summed nor stored
+    const int u0 = g * 8 + warp, u1 = u0 + 4;
+    const bool live0 = m0 + 16 * u0 < M, live1 = m0 + 16 * u1 < M;
+    if (splits > 1) {
+      __syncwarp();
+      cluster_sync();   // every block of the cluster is past its main loop
+      if (tid == 128) TRACE(5, 2);
+      const uint32_t base = smem_u32(smem);
+      if (live0 && u0 % splits != rank)
+        send_unit(acc0, base, rank, u0, splits, lane);
+      if (live1 && u1 % splits != rank)
+        send_unit(acc1, base, rank, u1, splits, lane);
+      cluster_sync();   // the partials have landed
+      if (tid == 128) TRACE(5, 3);
+      if (live0 && u0 % splits == rank)
+        add_unit(acc0, smem, rank, u0, splits, lane);
+      if (live1 && u1 % splits == rank)
+        add_unit(acc1, smem, rank, u1, splits, lane);
+      if (tid == 128) TRACE(5, 4);
+    }
+
+    // epilogue: both consumer warpgroups are done with the ring (and the
+    // landing slots); stage the block's units as bf16 (row stride LDC),
+    // then 16-byte stores of whole rows
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     bf16* cs = reinterpret_cast<bf16*>(smem);
     const int row = g * 128 + warp * 16 + (lane >> 2);
-    stage_acc(cs, acc0, row, lane);
-    stage_acc(cs, acc1, row + 64, lane);
+    if (live0 && u0 % splits == rank)
+      stage_acc<INT8>(cs, acc0, s_scale, row, lane);
+    if (live1 && u1 % splits == rank)
+      stage_acc<INT8>(cs, acc1, s_scale, row + 64, lane);
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     const int u = tid - 128;
 #pragma unroll 4
     for (int it = 0; it < BM * BN / 8 / 256; ++it) {
       const int id = u + it * 256, r = id >> 4, ch = id & 15;
       const int gm = m0 + r, gn = n0 + ch * 8;
-      if (gm < M && gn < N)   // N % 16 == 0: a chunk is all in or all out
+      // N % 16 == 0: a chunk is all in or all out
+      if (gm < M && gn < N && (splits == 1 || (r >> 4) % splits == rank))
         *reinterpret_cast<uint4*>(y + static_cast<size_t>(gm) * N + gn) =
             *reinterpret_cast<const uint4*>(cs + r * LDC + ch * 8);
     }
-    if (tid == 128) TRACE(5, n_k - 1);
+    if (tid == 128) TRACE(5, 5);
   }
 }
 
 // ------------------------------------------------------------------ host
-// encode the maps and launch `kernel` (a __global__ wrapping mm_wgmma<KIND,
-// R> with the same arguments) over (N/BN, M/BM); returns a cudaError_t.
-// The shared-memory opt-in is set once per kernel.
-template <int KIND, auto kernel>
+// encode the maps and launch `kernel` (a __global__ wrapping
+// mm_wgmma<KIND, R, INT8> with the same arguments) over (splits, N/BN,
+// M/BM) in clusters of `splits`: `splits` blocks of `k_split` K rows cover
+// K, each non-empty (one split: k_split ≥ K; more: k_split a multiple of
+// K_UNIT, at most MAX_SPLITS).  Returns a cudaError_t.  The shared-memory
+// opt-in is set once per kernel.
+template <int KIND, bool INT8, auto kernel>
 int launch_wgmma(const void* x, const void* w, const void* mask, int group,
-                 const void* lora_a, const void* lora_b, float scale, void* y,
-                 int M, int N, int K, cudaStream_t st) {
-  if (K % 8 != 0 || N % 16 != 0 ||
-      (KIND == PACKED_MASK && group != 128 && group != 256))
+                 const void* lora_a, const void* lora_b, float scale,
+                 const float* col_scale, void* y, int M, int N, int K,
+                 int splits, int k_split, cudaStream_t st) {
+  if (M < 1 || N < 1 || K < 1 || K % 8 != 0 || N % 16 != 0 ||
+      (KIND == PACKED_MASK && group != 128 && group != 256) || splits < 1 ||
+      splits > MAX_SPLITS || k_split < 1 ||
+      (splits > 1 && k_split % K_UNIT != 0) ||
+      static_cast<long long>(splits) * k_split < K ||
+      static_cast<long long>(splits - 1) * k_split >= K ||
+      (KIND == NO_MASK) != (mask == nullptr) || INT8 != (col_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap tx, tw, tm;
-  const bool ok =
-      encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BM, BK,
-                CU_TENSOR_MAP_SWIZZLE_128B) &&
-      encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, K, N, BK, 64,
-                CU_TENSOR_MAP_SWIZZLE_128B) &&
-      (KIND == PACKED_MASK
-           ? encode_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4, mask,
-                       8 * ((K + group - 1) / group), N, 8, BN,
-                       CU_TENSOR_MAP_SWIZZLE_NONE)
-           : encode_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, mask, K, N, BK,
-                       BN, CU_TENSOR_MAP_SWIZZLE_NONE));
+  bool ok = encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, BM,
+                      BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            (INT8 ? encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N,
+                              BK, BN, CU_TENSOR_MAP_SWIZZLE_NONE)
+                  : encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, K,
+                              N, BK, 64, CU_TENSOR_MAP_SWIZZLE_128B));
+  if (KIND == PACKED_MASK)
+    ok = ok && encode_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4, mask,
+                         8 * ((K + group - 1) / group), N, 8, BN,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  else if (KIND == BOOL_MASK)
+    ok = ok && encode_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, mask, K, N,
+                         BK, BN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    tm = tw;   // unread
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(INT8));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      tx, tw, tm, static_cast<const bf16*>(lora_a),
-      static_cast<const bf16*>(lora_b), scale, static_cast<bf16*>(y), M, N, K,
-      group);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + BN - 1) / BN, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes(INT8);
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1;   // one split: no cluster
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, tx, tw, tm, static_cast<const bf16*>(lora_a),
+      static_cast<const bf16*>(lora_b), scale, col_scale,
+      static_cast<bf16*>(y), M, N, K, k_split, group);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace wg

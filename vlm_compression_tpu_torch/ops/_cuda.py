@@ -24,8 +24,9 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("masked_matmul", "masked_matmul_wgmma", "matmul_decode",
-           "int8_matmul", "flash_attention", "flash_attention_fwd_wgmma",
-           "flash_attention_bwd", "flash_attention_bwd_wgmma")
+           "int8_matmul", "int8_matmul_wgmma", "flash_attention",
+           "flash_attention_fwd_wgmma", "flash_attention_bwd",
+           "flash_attention_bwd_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -47,12 +48,14 @@ _SIGNATURES = {
                                       _I, _I, _P],
         "masked_matmul_packed_f32": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
     },
-    # the Hopper loop's entry points take the float32 ones' arguments
+    # the Hopper loop's entry points take the float32 ones' arguments and
+    # the split plan (splits, k_split) before the stream
     "masked_matmul_wgmma": {
-        "masked_matmul_wgmma": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "masked_matmul_packed_wgmma": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+        "masked_matmul_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "masked_matmul_packed_wgmma": [_P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                       _I, _P],
         "sparse_lora_matmul_wgmma": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I,
-                                     _I, _P],
+                                     _I, _I, _I, _P],
     },
     # the decode-shaped bool, packed and int8 matmuls (one entry point)
     "matmul_decode": {
@@ -63,6 +66,10 @@ _SIGNATURES = {
         "int8_matmul_bf16": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P],
         "int8_matmul_f32": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P],
+    },
+    "int8_matmul_wgmma": {
+        "int8_matmul_wgmma": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
     },
     "flash_attention": {
         "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P,

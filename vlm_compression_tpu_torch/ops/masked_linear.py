@@ -18,12 +18,14 @@ to the matmul library; the packed backward unpacks, as the JAX one does).
 ``plan`` picks each bf16 launch's main loop from the shape and alignment
 alone: the decode kernel (``csrc/matmul_decode.cu``: swap-AB, W streamed
 by TMA, split-K across a thread-block cluster) at decode-sized M, the
-Hopper TMA + wgmma loop where the output tiles fill the card, else the
-WMMA loop with split-K.  ``launches``, ``packed_launches`` and
-``lora_launches`` count kernel launches; ``wgmma_launches`` those that ran
-the Hopper loop, ``decode_launches`` those that ran the decode kernel (the
-int8 kernel's too), and ``wmma_decode_m_launches`` the WMMA-loop launches
-at a decode-sized M (misaligned, or the loop forced).
+Hopper TMA + wgmma loop (``csrc/wgmma_tile.cuh``) above it — unsplit where
+the output tiles fill the card, split-K across a cluster where they do
+not — and the WMMA loop with split-K only for what TMA cannot take.
+``launches``, ``packed_launches`` and ``lora_launches`` count kernel
+launches; ``wgmma_launches``, ``decode_launches`` and ``wmma_launches``
+those that ran the Hopper loop, the decode kernel and the WMMA loop (the
+int8 kernel's too), and ``wmma_calls`` the WMMA-loop launches by shape and
+by why the other loops refused them.
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ packed_launches = 0
 lora_launches = 0
 wgmma_launches = 0
 decode_launches = 0
-wmma_decode_m_launches = 0
+wmma_launches = 0
+# (M, N, K, rank, why) -> WMMA-loop launches
+wmma_calls: dict = {}
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -196,8 +200,8 @@ class _SparseLoraMatmul(torch.autograd.Function):
 
 
 # ``_loop`` (all three wrappers): None runs the loop ``plan`` picks; WMMA
-# forces the WMMA loop where the plan is the Hopper one — for timing the
-# two loops side by side on the card, not a knob of the model.
+# forces the WMMA loop where the plan is another — for timing the loops
+# side by side on the card, not a knob of the model.
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor,
                   mask: torch.Tensor, *, _loop=None) -> torch.Tensor:
@@ -257,8 +261,8 @@ WGMMA_RANKS = (0, 2, 4, 8)
 
 def split_k(m: int, n: int, k: int, sms: int):
     """(splits, k_split) for the WMMA loop: when the output tiles cannot
-    fill the card (decode-sized M), split K so that about two blocks per SM
-    stream the weight, each split at least 4 K steps long."""
+    fill the card, split K so that about two blocks per SM stream the
+    weight, each split at least 4 K steps long."""
     tiles = -(-m // _BM) * -(-n // _BN)
     splits = 1
     if tiles < sms:
@@ -296,11 +300,47 @@ def plan_decode(m: int, n: int, k: int, sms: int, int8: bool = False):
     return DECODE_BN, -(-units // per), per * DECODE_K_UNIT
 
 
+# the Hopper loop (csrc/wgmma_tile.cuh): its output tile, the unit of its
+# K splits (the larger pack group: every mask form splits alike and no
+# split straddles a group), and the most splits a cluster holds
+WGMMA_BM, WGMMA_BN = 256, 128
+WGMMA_K_UNIT = 256
+WGMMA_MAX_SPLITS = 8
+
+
+def wgmma_wave(sms: int) -> int:
+    """The blocks one wave of the Hopper loop's split clusters holds: 5/6
+    of the SMs (one block an SM; a cluster's blocks share a GPC, and the
+    GPCs' SM counts leave SMs over at clusters of 3 and more)."""
+    return 5 * sms // 6
+
+
+def plan_wgmma(m: int, n: int, k: int, sms: int):
+    """(splits, k_split) of one Hopper-loop launch.  Where the 256 × 128
+    output tiles fill a wave, one split over all of K: (1, k).  Where they
+    do not, K splits across a cluster of ``splits`` blocks of ``k_split``
+    rows (a multiple of WGMMA_K_UNIT, each split non-empty): the most
+    splits, at most WGMMA_MAX_SPLITS, whose tiles × splits blocks still fit
+    one wave (``wgmma_wave``).  A second wave costs more than a split
+    saves: measured on an H100 at every prefill and training shape by
+    ``scripts/torch_wgmma_check.py --splits`` (T5 wi prefill, 80 tiles:
+    one split 0.0406 ms, three 0.0609; T5 qkvo, 32 tiles: three splits
+    0.0261, one 0.0392).  The same for every mask kind and weight form of
+    a shape, so the bit-equalities between them hold."""
+    tiles = -(-m // WGMMA_BM) * -(-n // WGMMA_BN)
+    units = -(-k // WGMMA_K_UNIT)
+    want = min(WGMMA_MAX_SPLITS, units, wgmma_wave(sms) // tiles)
+    if want <= 1:
+        return 1, k
+    per = -(-units // want)
+    splits = -(-units // per)
+    return (1, k) if splits == 1 else (splits, per * WGMMA_K_UNIT)
+
+
 def plan(m: int, n: int, k: int, sms: int, *, bf16: bool = True,
-         aligned: bool = True, rank: int = 0, wgmma: bool = True,
-         int8: bool = False):
+         aligned: bool = True, rank: int = 0, int8: bool = False):
     """(loop, splits, k_split) of one tiled-matmul launch, from the shape
-    and the alignment alone (no launch is retried on the other loop):
+    and the alignment alone (no launch is retried on another loop):
 
     - float32: the CUDA-core loop, all of K in one block: (FP32, 1, k);
     - bf16 that TMA can take (``aligned``: 16-byte aligned bases; and
@@ -308,12 +348,13 @@ def plan(m: int, n: int, k: int, sms: int, *, bf16: bool = True,
       bool masks) with no adapter at M ≤ DECODE_MAX_M: the decode kernel,
       (DECODE, splits, k_split) from ``plan_decode`` (``int8``: the
       weights are int8 codes);
-    - bf16 whose output tiles fill the card unsplit (``split_k`` gives one
-      split), which TMA can take and whose adapter rank the Hopper loop
-      holds, where the kernel has a Hopper loop (``wgmma``; the int8 one
-      has none): (WGMMA, 1, k);
-    - any other bf16 (small M with an adapter, misaligned, another rank,
-      int8 prefill): (WMMA, splits, k_split).
+    - bf16 that TMA can take above DECODE_MAX_M with an adapter rank the
+      Hopper loop holds (WGMMA_RANKS): the Hopper loop, (WGMMA, splits,
+      k_split) from ``plan_wgmma`` — one split where the output tiles fill
+      the card, split-K across a cluster where they do not;
+    - any other bf16 (misaligned, K % 8, N % 16, another rank, an adapter
+      at decode-sized M): the WMMA loop, (WMMA, splits, k_split) from
+      ``split_k``.
 
     Every mask kind of a weight form is planned alike (bool and packed
     bf16; int8 with no, bool or packed mask), so at every shape they take
@@ -324,10 +365,22 @@ def plan(m: int, n: int, k: int, sms: int, *, bf16: bool = True,
     if tma and rank == 0 and m <= DECODE_MAX_M:
         _, splits, k_split = plan_decode(m, n, k, sms, int8)
         return DECODE, splits, k_split
-    splits, k_split = split_k(m, n, k, sms)
-    if splits == 1 and tma and wgmma and rank in WGMMA_RANKS:
-        return WGMMA, 1, k
-    return WMMA, splits, k_split
+    if tma and rank in WGMMA_RANKS and m > DECODE_MAX_M:
+        return WGMMA, *plan_wgmma(m, n, k, sms)
+    return WMMA, *split_k(m, n, k, sms)
+
+
+def wmma_reason(m: int, n: int, k: int, aligned: bool, rank: int) -> str:
+    """Why ``plan`` gives an unforced bf16 launch the WMMA loop."""
+    if not aligned:
+        return "a base not 16-byte aligned"
+    if k % 8:
+        return "K % 8 != 0"
+    if n % 16:
+        return "N % 16 != 0"
+    if rank not in WGMMA_RANKS:
+        return f"adapter rank {rank}"
+    return f"an adapter at M <= {DECODE_MAX_M}"
 
 
 def _mask_rows(w, mask, packed: bool) -> int:
@@ -394,15 +447,17 @@ def _valid(x, w, mask, packed: bool = False) -> bool:
 def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
             fn_wgmma=None, fn_decode=None, extra_ptrs=(), rank=0, loop=None):
     """Shared launch of the tiled matmul kernels (masked, packed,
-    sparse-LoRA, int8): flatten x, allocate y (and the split-K workspace),
-    ``plan`` the loop — the Hopper or decode one only where x, W, the mask
-    and ``extra_ptrs`` are 16-byte aligned, the Hopper one only where
-    ``fn_wgmma`` is given (called as the float32 entry point is) — and
-    pick the WMMA loop's vectorized loads.  ``fn_decode`` is called as
-    (x, w, mask, y, m, n, k, splits, k_split, stream) pointers and ints.
-    ``args`` go after the mask pointer; ``mask`` may be None (no pointer).
-    ``loop`` = WMMA forces the WMMA loop.  Returns (y, the launch's error
-    code or None when an empty shape left nothing to launch, the loop)."""
+    sparse-LoRA, int8): flatten x, allocate y (and the WMMA loop's split-K
+    workspace), ``plan`` the loop — the Hopper or decode one only where x,
+    W, the mask and ``extra_ptrs`` are 16-byte aligned — pick the WMMA
+    loop's vectorized loads, launch, and count the launch by loop
+    (``count_route``) when it succeeded.  ``fn_wgmma`` is called as the
+    float32 entry point with (splits, k_split) before the stream;
+    ``fn_decode`` as (x, w, mask, y, m, n, k, splits, k_split, stream)
+    pointers and ints.  ``args`` go after the mask pointer; ``mask`` may be
+    None (no pointer).  ``loop`` = WMMA forces the WMMA loop.  Returns (y,
+    the launch's error code or None when an empty shape left nothing to
+    launch)."""
     if loop not in (None, WMMA):
         raise ValueError(f"loop {loop!r}: only {WMMA!r} can be forced")
     dev = x.device
@@ -412,24 +467,23 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
     m = x2.shape[0]
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0 or n == 0:
-        return y.reshape(*lead, n), None, None
+        return y.reshape(*lead, n), None
     if k == 0:
-        return y.zero_().reshape(*lead, n), None, None
+        return y.zero_().reshape(*lead, n), None
     stream = _cuda.stream_ptr(dev)
     mask_ptr = None if mask is None else mask.data_ptr()
     ptrs = (x2.data_ptr(), w.data_ptr(), mask_ptr, *extra_ptrs)
-    aligned = loop is None and all(p is None or p % 16 == 0 for p in ptrs)
-    route, splits, k_split = plan(m, n, k, _cuda.sm_count(dev),
-                                  bf16=x.dtype == torch.bfloat16,
-                                  aligned=aligned, rank=rank,
-                                  wgmma=fn_wgmma is not None,
-                                  int8=w.dtype == torch.int8)
+    aligned = all(p is None or p % 16 == 0 for p in ptrs)
+    bf16 = x.dtype == torch.bfloat16
+    route, splits, k_split = plan(m, n, k, _cuda.sm_count(dev), bf16=bf16,
+                                  aligned=aligned and loop is None,
+                                  rank=rank, int8=w.dtype == torch.int8)
     if route == DECODE:
         err = fn_decode(x2.data_ptr(), w.data_ptr(), mask_ptr, y.data_ptr(),
                         m, n, k, splits, k_split, stream)
     elif route == WGMMA:
         err = fn_wgmma(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
-                       y.data_ptr(), m, n, k, stream)
+                       y.data_ptr(), m, n, k, splits, k_split, stream)
     elif route == WMMA:
         vec = int(k % 8 == 0 and n % 8 == 0
                   and x2.data_ptr() % 16 == 0 and w.data_ptr() % w_align == 0
@@ -442,7 +496,12 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
     else:
         err = fn_f32(x2.data_ptr(), w.data_ptr(), mask_ptr, *args,
                      y.data_ptr(), m, n, k, stream)
-    return y.reshape(*lead, n), err, route
+    if err == 0:
+        why = None
+        if route == WMMA:
+            why = "forced" if loop else wmma_reason(m, n, k, aligned, rank)
+        count_route(route, (m, n, k, rank, why))
+    return y.reshape(*lead, n), err
 
 
 def _wgmma(kind: str):
@@ -463,16 +522,17 @@ def _decode(w_int8: bool, mask_kind: int, group: int = 0, scale=None):
     return launch
 
 
-def count_route(route, m: int) -> None:
-    """Count a launch that ran: by loop, and the WMMA loop at a
-    decode-sized M."""
-    global wgmma_launches, decode_launches, wmma_decode_m_launches
+def count_route(route, call: tuple) -> None:
+    """Count a launch that ran, by loop; a WMMA-loop one also under its
+    ``call``: (M, N, K, rank, why the other loops refused it)."""
+    global wgmma_launches, decode_launches, wmma_launches
     if route == WGMMA:
         wgmma_launches += 1
     elif route == DECODE:
         decode_launches += 1
-    elif route == WMMA and m <= DECODE_MAX_M:
-        wmma_decode_m_launches += 1
+    elif route == WMMA:
+        wmma_launches += 1
+        wmma_calls[call] = wmma_calls.get(call, 0) + 1
 
 
 def _masked_matmul_cuda(x, w, mask, loop=None):
@@ -480,13 +540,12 @@ def _masked_matmul_cuda(x, w, mask, loop=None):
     if not _valid(x, w, mask):
         _check_inputs(x, w, mask)
     lib = _cuda.library("masked_matmul")
-    y, err, route = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32,
-                            x, w, mask, fn_wgmma=_wgmma("masked_matmul"),
-                            fn_decode=_decode(False, 1), loop=loop)
+    y, err = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32, x, w,
+                     mask, fn_wgmma=_wgmma("masked_matmul"),
+                     fn_decode=_decode(False, 1), loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul")
         launches += 1
-        count_route(route, x.numel() // w.shape[0])
     return y
 
 
@@ -497,15 +556,13 @@ def _masked_matmul_packed_cuda(x, w, packed, loop=None):
     group = infer_pack_group(w.shape[0], packed.shape[0])
     lib = _cuda.library("masked_matmul")
     # each 8-column chunk reads its 8 words as two 16-byte loads
-    y, err, route = _launch(lib.masked_matmul_packed_bf16,
-                            lib.masked_matmul_packed_f32, x, w, packed,
-                            (group,), mask_align=16,
-                            fn_wgmma=_wgmma("masked_matmul_packed"),
-                            fn_decode=_decode(False, 2, group), loop=loop)
+    y, err = _launch(lib.masked_matmul_packed_bf16,
+                     lib.masked_matmul_packed_f32, x, w, packed, (group,),
+                     mask_align=16, fn_wgmma=_wgmma("masked_matmul_packed"),
+                     fn_decode=_decode(False, 2, group), loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul_packed")
         packed_launches += 1
-        count_route(route, x.numel() // w.shape[0])
     return y
 
 
@@ -522,7 +579,7 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
         _check_lora(x, w, lora_a, lora_b)
     lib = _cuda.library("masked_matmul")
     a, b = lora_a.contiguous(), lora_b.contiguous()
-    y, err, route = _launch(
+    y, err = _launch(
         lib.sparse_lora_matmul_bf16, lib.sparse_lora_matmul_f32, x, w, mask,
         (a.data_ptr(), b.data_ptr(), a.shape[1], float(scale)),
         fn_wgmma=_wgmma("sparse_lora_matmul"),
@@ -530,5 +587,4 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
     if err is not None:
         _cuda.check(err, "sparse_lora_matmul")
         lora_launches += 1
-        count_route(route, x.numel() // w.shape[0])
     return y

@@ -14,7 +14,10 @@ compose: the mask zeroes codes before the product.
 ``int8_matmul`` runs the plain version on CPU tensors and a hand-written
 kernel on CUDA tensors, always (launch or raise): at decode-sized M the
 decode kernel of ``csrc/matmul_decode.cu`` (the bool and packed matmuls'
-decode launches run it too), elsewhere the WMMA loop of
+decode launches run it too), above it the Hopper TMA + wgmma loop of
+``csrc/int8_matmul_wgmma.cu`` (the bf16 matmuls' loop, the codes converted
+to bf16 in shared memory; split-K across a cluster where the tiles do not
+fill the card), and only what TMA cannot take on the WMMA loop of
 ``csrc/int8_matmul.cu`` (``ops/masked_linear.plan`` decides from the shape
 and alignment, whatever the mask kind):
 the JAX package's opt-in (``use_pallas_int8_matmul``, off by default)
@@ -103,10 +106,11 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 mask=None, *, _loop=None) -> torch.Tensor:
     """y = (x @ (q ⊙ mask)) · scale, the scale on each output column; mask
     None, bool (in, out) or packed words.  Weights stay int8 in memory; on
-    the card they are dequantized per tile in registers.  ``_loop`` =
-    ``masked_linear.WMMA`` forces the WMMA loop where the plan is the
-    decode kernel — for timing the two side by side on the card, not a
-    knob of the model."""
+    the card they are dequantized per tile on chip (in registers, or in
+    shared memory on the Hopper loop).  ``_loop`` =
+    ``masked_linear.WMMA`` forces the WMMA loop where the plan is another
+    — for timing the loops side by side on the card, not a knob of the
+    model."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _Int8Matmul.apply(x, q, scale, mask, _loop)
     return _int8_matmul_fwd(x, q, scale, mask, _loop)
@@ -180,16 +184,14 @@ def _int8_matmul_cuda(x, q, scale, mask, loop=None):
     else:
         kind, group, mask_align = _BOOL_MASK, 0, 8
     lib = _cuda.library("int8_matmul")
-    # no Hopper loop for int8: the decode kernel at decode-sized M, else the
-    # WMMA loop
-    y, err, route = ML._launch(
+    y, err = ML._launch(
         lib.int8_matmul_bf16, lib.int8_matmul_f32, x, q, mask,
         (kind, group, scale.data_ptr()), w_align=8, mask_align=mask_align,
+        fn_wgmma=_cuda.library("int8_matmul_wgmma").int8_matmul_wgmma,
         fn_decode=ML._decode(True, kind, group, scale.data_ptr()), loop=loop)
     if err is not None:
         _cuda.check(err, "int8_matmul")
         int8_launches += 1
-        ML.count_route(route, x.numel() // q.shape[0])
     return y
 
 
