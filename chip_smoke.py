@@ -32,15 +32,21 @@ each of which fails the run (non-zero exit, no result line) on error:
                 on the route ``plan_forward`` picks (bf16: the TMA + wgmma
                 kernel) and on the mma.sync route at every FLASH_SHAPES
                 shape and causal n = m and n > m, and two identical calls
-                of the new route bit-equal;
+                of the new route bit-equal; the VQA eval's shapes among
+                them (the beam-decode steps at M = 320, split-K; the
+                ranking decoder at M = 8192, its cross k/v at 90112 rows;
+                attention at batch 320 and 2048);
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
                 LoRA gradients and update), the diagonal Fisher of every
                 leaf, the aobd_sum block allocation (ratios equal) and the
-                Wanda masks under it (bit-equal); SparseGPT at an XL shape
-                on the card vs the CPU (mask bits that differ), and one
-                batched group of linears against its members one by one;
+                Wanda masks under it (bit-equal), the VQA task's
+                ``valid_step`` in generate (beam 2) and rank mode (answers
+                equal; ``predict_class_t5``'s NLLs within 1e-4);
+                SparseGPT at an XL shape on the card vs the CPU (mask bits
+                that differ), and one batched group of linears against its
+                members one by one;
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -49,9 +55,21 @@ each of which fails the run (non-zero exit, no result line) on error:
                 ``generate_t5`` on 4 requests, twice (cold, then warm; the
                 two must agree); RESSA retraining (dense teacher,
                 sparse_lora student, KD loss, AdamW on the LoRA factors) for
-                1 cold + 3 timed steps at batch 32; the sparse merge; and
-                beam-5 generate from the merged model.  Each phase's
-                kernels must have launched in it;
+                1 cold + 3 timed steps at batch 32; the sparse merge;
+                beam-5 generate from the merged model; then its zero-shot
+                VQA eval through the tasks (``setup_task``, ``evaluation``,
+                ``after_evaluation``) at the eval yamls' settings (batch
+                64, beam 5, max_len 10): GQA cold and warm (answers equal;
+                exactly 50.00 against a ground truth of each even
+                question's own answer), OK-VQA with the lemmatizer (the
+                VQAv2 accuracy's closed form), the answers equal to a
+                direct ``generate_t5``'s decoded tokens, ranking the 64
+                questions over 128 candidates in 4 chunks (answers from
+                the list, NLLs finite, equal to a direct
+                ``predict_class_t5``'s argmin), every masked-linear and
+                attention shape of these phases one that phase 3 checked,
+                and one GQA pass profiled.  Each phase's kernels must have
+                launched in it;
   6. compressed path — a second full-width XL model (seed 1, after the
                 first is freed; no adapters): ``blipt5_sparsegpt_pruner``
                 (masks kept, updated kernels) on 128 samples, with the
@@ -85,7 +103,8 @@ each of which fails the run (non-zero exit, no result line) on error:
                 matmuls run the Hopper loop, the WMMA loop too (forced
                 through the wrappers' ``_loop`` argument); the attention
                 backward's two bf16 routes (``_impl``) at every training
-                shape; the attention forward's two bf16 routes at every
+                shape; dbias at the allocation's batch-16 and the Fisher's
+                batch-1 shape; the attention forward's two bf16 routes at every
                 FLASH_SHAPES shape; SDPA, the attention yardstick, on each
                 of its backends, the fastest timed in turns with the
                 kernel; every prefill and decode shape of the compressed
@@ -103,7 +122,8 @@ EcoFLaP prune and the Fisher, and its backward in the last three), none
 that the phase must not run (the bool kernel in a packed or int8 phase,
 the packed one in an int8 phase); the decode kernel in every generate
 phase of a masked or int8 model, and no WMMA-loop launch at all in any
-generate phase or the retrain step.  WMMA-loop launches left in other
+generate phase, the retrain step or the three VQA phases (which must run
+the Hopper loop and the TMA + wgmma forward).  WMMA-loop launches left in other
 phases are printed with their shapes and why the other loops refused
 them.
 
@@ -117,10 +137,13 @@ import copy
 import gc
 import json
 import logging
+import os
+import random
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -194,6 +217,27 @@ MM_SHAPES = [
     ("t5_qkvo_decode", 20, 2048, 2048),
     ("t5_wi_decode", 20, 2048, 5120),
     ("t5_wo_decode", 20, 5120, 2048),
+    # the VQA eval of 64 questions (vqa_path): ViT M = 64 × 257; T5 encoder
+    # M = 64 × 44 (32 query tokens + the seeded batch's longest prompt, 12
+    # tokens); the beam-decode steps at M = 64 × 5 beams (split-K) and the
+    # cross k/v once for 320 × 44 rows; ranking in chunks of 32 candidates
+    # × 64 questions × 4 label tokens (M = 8192), the cross k/v for
+    # 2048 × 44 rows.  vqa_path fails if it launches a shape not listed
+    ("vit_qkv_vqa", 16448, 1408, 4224),
+    ("vit_proj_vqa", 16448, 1408, 1408),
+    ("vit_fc1_vqa", 16448, 1408, 6144),
+    ("vit_fc2_vqa", 16448, 6144, 1408),
+    ("t5_qkvo_vqa", 2816, 2048, 2048),
+    ("t5_wi_vqa", 2816, 2048, 5120),
+    ("t5_wo_vqa", 2816, 5120, 2048),
+    ("t5_cross_kv_vqa", 14080, 2048, 2048),
+    ("t5_qkvo_beam_step", 320, 2048, 2048),
+    ("t5_wi_beam_step", 320, 2048, 5120),
+    ("t5_wo_beam_step", 320, 5120, 2048),
+    ("t5_dec_qkvo_rank", 8192, 2048, 2048),
+    ("t5_dec_wi_rank", 8192, 2048, 5120),
+    ("t5_dec_wo_rank", 8192, 5120, 2048),
+    ("t5_cross_kv_rank", 90112, 2048, 2048),
 ]
 MM_TIMED = "vit_fc1_calib"
 
@@ -209,6 +253,19 @@ FLASH_SHAPES = [
     ("t5_decoder_self_calib", 128, 12, 12, 32, 64, ["rel", "pad"], 1.0),
     ("t5_self_decode", 20, 1, 10, 32, 64, ["rel", "step"], 1.0),
     ("t5_cross_decode", 20, 1, 72, 32, 64, ["pad"], 1.0),
+    # the VQA eval (the shapes of MM_SHAPES' VQA block): the towers at
+    # b = 64 (Q-Former and T5 encoder over 32 + 12 tokens; the Q-Former's
+    # cross-attention takes no mask), the beam-decode steps at b = 320
+    # (self over the 11-slot cache), the ranking decoder over 2048 rows
+    # (causal position bias at n = m = 4, cross over 44 keys)
+    ("vit_self_b64", 64, 257, 257, 16, 88, [], 88 ** -0.5),
+    ("qformer_cross_b64", 64, 32, 257, 12, 64, [], 0.125),
+    ("qformer_self_b64", 64, 44, 44, 12, 64, ["pad"], 0.125),
+    ("t5_encoder_b64", 64, 44, 44, 32, 64, ["rel", "pad"], 1.0),
+    ("t5_self_beam_step", 320, 1, 11, 32, 64, ["rel", "step"], 1.0),
+    ("t5_cross_beam_step", 320, 1, 44, 32, 64, ["pad"], 1.0),
+    ("t5_decoder_self_rank", 2048, 4, 4, 32, 64, ["relc"], 1.0),
+    ("t5_cross_rank", 2048, 4, 44, 32, 64, ["pad"], 1.0),
 ]
 FLASH_TIMED = "vit_self_calib"
 
@@ -275,6 +332,8 @@ DBIAS_SHAPES = [
     ("ragged_200", 2, 200, 200, 4, 64, ["rel"], 0.125, False),
 ]
 DBIAS_TIMED = "t5_encoder_b16"
+# the diagonal Fisher's batch-1 shape, the one dbias is launched at
+DBIAS_FISHER = "t5_encoder_b1"
 
 
 # compressed serving (M, K, N): the prefill of N_REQ = 4 requests (ViT
@@ -744,6 +803,7 @@ def tiny_reference_check():
         labels=torch.randint(2, 96, (2, 4), generator=g),
         qformer_input_ids=torch.randint(2, 64, (2, 5), generator=g),
         qformer_attention_mask=torch.ones(2, 5, dtype=torch.int64))
+    tiny_vqa_check(cpu, g)
     forms = (("bool masks", None, "masked_matmul"),
              ("packed-128 masks", lambda m: BM.pack_masks_(m, 128),
               "masked_matmul_packed"),
@@ -768,6 +828,55 @@ def tiny_reference_check():
                 and launched > 0):
             raise AssertionError(f"tiny reference check ({label})")
         del gpu
+
+
+def tiny_vqa_check(cpu, g):
+    """The VQA task's ``valid_step`` on the tiny float32 model with bool
+    masks: on the card (kernels) vs on the CPU (plain versions), in
+    generate mode (beam 2) and rank mode — answers equal — and the rank
+    mode's NLL matrix within 1e-4."""
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_labels
+    from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+        predict_class_t5,
+    )
+    from vlm_compression_tpu_torch.tasks.vqa import VQATask
+
+    cfg = cpu.cfg
+    gpu = copy.deepcopy(cpu).to("cuda")
+    toks = vqa_tokenizers(cfg)
+    img = cfg.vit.img_size
+    samples = {"image": torch.randn(4, img, img, 3, generator=g),
+               "text_input": ["what is the man holding", "how many dogs",
+                              "what color is the sky", "is there a cat"],
+               "question_id": list(range(4))}
+    gen = VQATask(num_beams=2, max_len=4, prompt=VQA_PROMPT, **toks)
+    rank = VQATask(max_len=4, prompt=VQA_PROMPT, **toks)
+    rank.answer_list = ["yes", "no", "two dogs", "red", "a man", "left"]
+    reset_counts()
+    with torch.no_grad():
+        for label, task in (("generate, beam 2", gen), ("rank", rank)):
+            want = task.valid_step(cpu, samples)
+            got = task.valid_step(gpu, samples)
+            log(f"  tiny fp32 VQATask valid_step ({label}), card vs CPU: "
+                f"answers {[r['answer'] for r in got]}, equal "
+                f"{got == want}")
+            if got != want:
+                raise AssertionError(f"tiny VQA check ({label})")
+        labels = torch.from_numpy(batch_labels(toks["tokenizer"],
+                                               rank.answer_list, 4))
+        nll = [predict_class_t5(m, *enc[:3], labels, *enc[3:])
+               for m, enc in ((cpu, rank._encode(cpu, samples)),
+                              (gpu, rank._encode(gpu, samples)))]
+    err = float((nll[1].cpu() - nll[0]).abs().max())
+    launched = read_counts()
+    log(f"  tiny fp32 predict_class_t5 NLLs {tuple(nll[0].shape)}, card vs "
+        f"CPU: max_abs_err={err:.3e} (tol 1e-4); masked_matmul launches "
+        f"{launched['masked_matmul']}, flash_attention "
+        f"{launched['flash_attention']}")
+    if not (err <= 1e-4 and launched["masked_matmul"] > 0
+            and launched["flash_attention"] > 0):
+        raise AssertionError("tiny VQA check (NLLs)")
+    del gpu
 
 
 def tiny_train_check():
@@ -1177,6 +1286,13 @@ PHASE_KERNELS = {"prune": PRUNE + (FWD_WGMMA,), "generate_cold": SERVE,
                  # zeroed weights, no masks: dense products (no masked or
                  # int8 linear, so no decode launch either)
                  "generate_fisher": ("flash_attention",)}
+# the VQA eval of the merged model at batch 64 × 5 beams: every masked
+# linear has M > 64 (the beam-decode steps' M = 320 included), so the
+# Hopper loop must run and the decode kernel need not; the TMA + wgmma
+# attention forward must run (the rank phase's decoder self-attention at
+# n = m = L over b · C rows too)
+VQA = ("masked_matmul", "flash_attention", FWD_WGMMA, WGMMA_LOOP)
+PHASE_KERNELS.update(vqa_gqa=VQA, vqa_okvqa=VQA, vqa_rank=VQA)
 # ... and the kernels a phase must not run: a packed or int8 model never
 # takes the bool-mask path, an int8 model never the bf16 packed one (its
 # prefill runs the Hopper loop, its decode steps the decode kernel)
@@ -1193,9 +1309,10 @@ PHASE_FORBIDDEN = {
     "retrain": ("flash_attention_bwd_dbias", WMMA_LOOP),
     "ecoflap_prune": ("flash_attention_bwd_dbias",)}
 # every generate phase runs its prefill on the Hopper loop and its decode
-# steps on the decode kernel: no WMMA-loop launch at all
+# steps on the decode kernel, every VQA phase all its matmuls on the
+# Hopper loop: no WMMA-loop launch at all
 for _phase in PHASE_KERNELS:
-    if _phase.startswith("generate"):
+    if _phase.startswith(("generate", "vqa")):
         PHASE_FORBIDDEN[_phase] = PHASE_FORBIDDEN.get(_phase, ()) + (
             WMMA_LOOP,)
 
@@ -1208,6 +1325,8 @@ def reset_counts():
     ML.launches = ML.lora_launches = ML.packed_launches = 0
     ML.wgmma_launches = ML.decode_launches = ML.wmma_launches = 0
     ML.wmma_calls.clear()
+    ML.shape_launches.clear()
+    A.shape_launches.clear()
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
     A.fwd_wgmma_launches = A.bwd_wgmma_launches = 0
     Q.int8_launches = 0
@@ -1227,6 +1346,17 @@ def read_counts() -> dict:
     counts[WMMA_CALLS] = [f"M={m} N={n} K={k} rank {r}: {why} x{c}"
                           for (m, n, k, r, why), c in ML.wmma_calls.items()]
     return counts
+
+
+def read_shapes() -> dict:
+    """The launches since ``reset_counts`` by shape: masked, packed,
+    sparse-LoRA and int8 matmuls by (M, N, K, loop), attention forwards by
+    (b, n, m, h, d, route)."""
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    return {"matmul": dict(ML.shape_launches),
+            "attention": dict(A.shape_launches)}
 
 
 def attn_routes(c: dict, per: int = 1) -> str:
@@ -1410,6 +1540,297 @@ def merge_and_check(model):
         f"{t_merge:.2f} s")
 
 
+# zero-shot VQA on the merged model at the eval yamls' run settings:
+# configs/projects/eval/gqa_zeroshot_flant5xl_instruct_eval.yaml:13-26
+# (batch_size_eval 64, seed 42, beam 5, max_len 10, min_len 1, the
+# prompt); okvqa_zeroshot_flant5xl_instruct_eval.yaml:14-27 runs the same
+# settings, and sets model.apply_lemmatizer: true (:4).  The synthetic
+# batch is drawn from the yamls' run seed
+VQA_PROMPT = "Question: {} Short answer:"
+VQA_RUN = dict(batch_size_eval=64, seed=42, num_beams=5, max_len=10,
+               min_len=1, prompt=VQA_PROMPT)
+XL_EVAL_MODEL = dict(arch="blip2_t5_instruct", model_type="flant5xl")
+OKVQA_MODEL = dict(XL_EVAL_MODEL, apply_lemmatizer=True)
+# ranking: the batch's 64 questions, each over N_CANDS distinct seeded
+# candidates of 1-3 words — the ranking eval's traffic in
+# configs/projects/blip/eval/vqav2_eval.yaml:18,23-24 (batch_size_eval 64,
+# num_ans_candidates 128, inference_method rank); the InstructBLIP-T5 eval
+# yamls generate
+N_CANDS = 128
+# a ground truth no answer can match: SimpleTokenizer answers decode to
+# "<id> <id> ...", which normalize to digits
+NEVER = "never produced"
+VQA_WORDS = dict(
+    ask=["what color is the", "how many", "what is the", "where is the",
+         "is there a", "which side of the", "what is on the"],
+    noun=["dog", "man", "car", "table", "sky", "bus", "woman", "horse",
+          "plate", "tree", "boat", "cat", "shirt", "window"],
+    rel=["near the", "on the", "behind the", "under the", "in the",
+         "next to the"],
+    answer=["red", "blue", "two", "three", "left", "right", "yes", "no",
+            "wood", "grass", "snow", "kitchen", "street", "water"])
+
+
+def vqa_samples(cfg, n: int, seed: int = VQA_RUN["seed"]) -> dict:
+    """One collated eval batch of n synthetic questions (cleaned by the
+    yamls' ``blip_question`` text processor) on seeded 224² images."""
+    from vlm_compression_tpu_torch.datasets.processors import (
+        BlipQuestionProcessor,
+    )
+
+    rng = random.Random(seed)
+    w = VQA_WORDS
+    clean = BlipQuestionProcessor()
+    questions = [clean(f"{rng.choice(w['ask'])} {rng.choice(w['noun'])} "
+                       f"{rng.choice(w['rel'])} {rng.choice(w['noun'])}?")
+                 for _ in range(n)]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = cfg.vit.img_size
+    return {"image": torch.randn(n, img, img, 3, generator=g, device="cuda"),
+            "text_input": questions, "question_id": list(range(n)),
+            "instance_id": list(range(n))}
+
+
+def vqa_tokenizers(cfg) -> dict:
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+    )
+
+    return dict(tokenizer=SimpleTokenizer(cfg.t5.vocab_size),
+                qformer_tokenizer=SimpleTokenizer(cfg.qformer.vocab_size))
+
+
+def vqa_closed_form(k: int) -> float:
+    """VQAv2 accuracy of an answer that k of the 10 annotators gave."""
+    return (k * min(1.0, (k - 1) / 3) + (10 - k) * min(1.0, k / 3)) / 10
+
+
+def decode_step_routes(tally: dict, m: int) -> dict:
+    """The launches at M = m (the beam-decode steps: requests × beams) by
+    (N, K) and loop, beside the loop and splits ``plan`` gives the shape;
+    ``tally``: ``read_shapes()["matmul"]``."""
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    rows = {}
+    for (mm, n, k, route), c in sorted(tally.items()):
+        if mm != m:
+            continue
+        loop, splits, _ = ML.plan(m, n, k, sm_count())
+        row = rows.setdefault(f"N={n} K={k}", {"plan": f"{loop} x{splits}"})
+        row[route] = row.get(route, 0) + c
+    return rows
+
+
+def check_vqa_shapes(shapes: dict):
+    """Every masked-linear and attention-forward shape the VQA phases
+    launched (``shapes``: phase → ``read_shapes()``) is one that phase 3
+    held against its plain version (MM_SHAPES, FLASH_SHAPES)."""
+    mm = {(m, k, n) for _, m, k, n in MM_SHAPES}
+    fl = {tuple(c[1:6]) for c in FLASH_SHAPES}
+    seen_mm = {(m, k, n) for s in shapes.values()
+               for m, n, k, _ in s["matmul"]}
+    seen_fl = {c[:5] for s in shapes.values() for c in s["attention"]}
+    missing = [f"matmul M={m} K={k} N={n}"
+               for m, k, n in sorted(seen_mm - mm)]
+    missing += [f"attention b={b} n={n} m={m} h={h} d={d}"
+                for b, n, m, h, d in sorted(seen_fl - fl)]
+    log(f"  vqa shapes: {len(seen_mm)} masked-linear and {len(seen_fl)} "
+        f"attention shapes launched, {len(missing)} not checked in phase 3")
+    if missing:
+        raise AssertionError(f"VQA shapes never held against the plain "
+                             f"version: {missing}")
+
+
+def vqa_path(model, cfg):
+    """The zero-shot VQA evaluation of the merged model through the tasks'
+    entry points (``setup_task``, ``evaluation`` → ``valid_step``,
+    ``after_evaluation``), at the eval batch and the yamls' settings, no
+    cut: GQA generate twice (cold; warm with a ground truth that is each
+    even question's own cold answer and unreachable for the odd ones:
+    exactly 50.00), OK-VQA generate with the lemmatizer (question i's own
+    answer in i % 11 of its 10 slots: the closed form of the VQAv2
+    accuracy), then ranking the batch over N_CANDS candidates, in more
+    than one chunk.  Between the counted phases: the generate answers
+    against the decoded tokens of a direct ``generate_t5`` call, the rank
+    answers against the argmin of a direct ``predict_class_t5``.  Then
+    every shape the phases launched must be one phase 3 checked, and one
+    GQA pass runs under torch.profiler.  Returns (launch counts by phase,
+    numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        batch_encode,
+        batch_labels,
+    )
+    from vlm_compression_tpu_torch.evaluation.lemmatize import lemmatize
+    from vlm_compression_tpu_torch.models import blip2_t5_instruct as BT
+    from vlm_compression_tpu_torch.models.generation import GenerationConfig
+    from vlm_compression_tpu_torch.tasks.vqa import GQATask, VQATask
+
+    n = VQA_RUN["batch_size_eval"]
+    beams = VQA_RUN["num_beams"]
+    samples = vqa_samples(cfg, n)
+    toks = vqa_tokenizers(cfg)
+    tok = toks["tokenizer"]
+    counts, shapes, secs, peaks = {}, {}, {}, {}
+
+    def start():
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def end(phase):
+        counts[phase] = read_counts()
+        shapes[phase] = read_shapes()
+        peaks[phase] = torch.cuda.max_memory_allocated()
+
+    def answers_of(records):
+        return [r["answer"] for r in records]
+
+    tmp = tempfile.TemporaryDirectory(prefix="vqa_results_")
+    try:
+        # --- GQA: cold, then warm with the ground truth; one phase
+        gqa = GQATask.setup_task(dict(run=VQA_RUN, model=XL_EVAL_MODEL),
+                                 **toks)
+        start()
+        cold = timed("vqa_gqa_cold", lambda: gqa.evaluation(model, [samples]))
+        answers = answers_of(cold)
+        scored = dict(samples, answers=[
+            [a] if i % 2 == 0 else [NEVER] for i, a in enumerate(answers)])
+        warm = timed("vqa_gqa_warm", lambda: gqa.evaluation(model, [scored]))
+        end("vqa_gqa")
+        if answers_of(warm) != answers:
+            raise AssertionError("GQA: the warm pass answered otherwise")
+        gqa_metrics = gqa.after_evaluation(
+            warm, split_name="val",
+            result_dir=os.path.join(tmp.name, "gqa", "result"))
+        n_empty = sum(a == "" for a in answers)
+        log(f"  vqa gqa: {n} questions, beam {beams}, max_len "
+            f"{VQA_RUN['max_len']}: cold {secs['vqa_gqa_cold']:.3f} s, warm "
+            f"{secs['vqa_gqa_warm']:.3f} s "
+            f"({n / secs['vqa_gqa_warm']:.1f} questions/s),"
+            f" peak {peaks['vqa_gqa'] / 2**30:.2f} GiB; answers equal cold "
+            f"vs warm; {n_empty} empty; metrics {json.dumps(gqa_metrics)}; "
+            f"e.g. {json.dumps(dict(zip(samples['text_input'][:3], answers)))}")
+        if gqa_metrics["acc"] != 50.0 or gqa_metrics["agg_metrics"] != 50.0:
+            raise AssertionError(f"GQA accuracy {gqa_metrics}, not 50.00")
+        tally = shapes["vqa_gqa"]["matmul"]
+        step_rows = decode_step_routes(tally, n * beams)
+        at_m = {route: sum(c for (m, _, _, r), c in tally.items()
+                           if m == n * beams and r == route)
+                for route in ("decode", "wgmma", "wmma", "fp32")}
+        log(f"  vqa gqa, the M = {n * beams} beam-decode steps' matmul "
+            f"launches by loop (both passes): {json.dumps(at_m)}; by shape, "
+            f"beside plan's loop and splits: {json.dumps(step_rows)}")
+
+        # --- the task adds no drift: a direct generate_t5 on the same
+        # encoded inputs, decoded by hand
+        prompts = [VQA_PROMPT.format(q) for q in samples["text_input"]]
+        enc = [torch.from_numpy(a).cuda() for a in (
+            *batch_encode(tok, prompts, 128),
+            *batch_encode(toks["qformer_tokenizer"], prompts, 128))]
+        seqs = BT.generate_t5(model, samples["image"], *enc,
+                           gen_cfg=GenerationConfig(
+                               num_beams=beams,
+                               max_length=VQA_RUN["max_len"] + 1,
+                               min_length=VQA_RUN["min_len"])).cpu()
+        direct = []
+        for row in seqs[:, 1:].tolist():
+            row = row[:row.index(tok.eos_token_id)] \
+                if tok.eos_token_id in row else row
+            direct.append(tok.decode(row).strip())
+        if tuple(seqs.shape) != (n, VQA_RUN["max_len"] + 1) \
+                or direct != answers:
+            raise AssertionError("the GQA task's answers differ from a "
+                                 "direct generate_t5's decoded tokens")
+
+        # --- OK-VQA: lemmatized answers, k = i % 11 of 10 slots
+        okvqa = VQATask.setup_task(dict(run=VQA_RUN, model=OKVQA_MODEL),
+                                   **toks)
+        lemmas = lemmatize(answers)
+        ks = [i % 11 for i in range(n)]
+        scored = dict(samples, answers=[[a] * k + [NEVER] * (10 - k)
+                                        for a, k in zip(lemmas, ks)])
+        start()
+        ok = timed("vqa_okvqa", lambda: okvqa.evaluation(model, [scored]))
+        end("vqa_okvqa")
+        ok_metrics = okvqa.after_evaluation(
+            ok, split_name="test",
+            result_dir=os.path.join(tmp.name, "okvqa", "result"))
+        want = round(100 * sum(map(vqa_closed_form, ks)) / n, 2)
+        log(f"  vqa okvqa (apply_lemmatizer={okvqa.apply_lemmatizer}): "
+            f"{secs['vqa_okvqa']:.3f} s, peak "
+            f"{peaks['vqa_okvqa'] / 2**30:.2f} GiB; metrics "
+            f"{json.dumps(ok_metrics)}, closed form {want}")
+        if not okvqa.apply_lemmatizer or answers_of(ok) != lemmas \
+                or ok_metrics["overall"] != want:
+            raise AssertionError(f"OK-VQA {ok_metrics} against {want}")
+
+        # --- ranking the batch over N_CANDS distinct candidates
+        rng = random.Random(VQA_RUN["seed"] + 1)
+        vocab = VQA_WORDS["answer"] + VQA_WORDS["noun"]
+        cands = []
+        while len(cands) < N_CANDS:
+            c = " ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3)))
+            if c not in cands:
+                cands.append(c)
+        ranker = VQATask.setup_task(dict(run=VQA_RUN, model=XL_EVAL_MODEL),
+                                    **toks)
+        ranker.answer_list = cands
+        labels = torch.from_numpy(batch_labels(tok, cands, ranker.max_len))
+        per_chunk = max(1, BT._LOGIT_BYTES // (
+            n * labels.shape[1] * cfg.t5.vocab_size * 4))
+        chunks = -(-N_CANDS // per_chunk)
+        if chunks < 2:
+            raise AssertionError("the ranking runs predict_class_t5 in one "
+                                 "chunk: its chunk loop goes untested")
+        start()
+        ranked = timed("vqa_rank", lambda: ranker.evaluation(model,
+                                                             [samples]))
+        end("vqa_rank")
+        image, ids, mask, q_ids, q_mask = ranker._encode(model, samples)
+        nll = BT.predict_class_t5(model, image, ids, mask, labels, q_ids,
+                                  q_mask)
+        finite = float(torch.isfinite(nll).float().mean())
+        best = [cands[i] for i in nll.argmin(-1).tolist()]
+        log(f"  vqa rank: {n} questions x {N_CANDS} candidates "
+            f"(labels {tuple(labels.shape)}; {chunks} chunks of "
+            f"{per_chunk} candidates, {n * per_chunk * labels.shape[1]} "
+            f"decoder rows each): {secs['vqa_rank']:.3f} s, peak "
+            f"{peaks['vqa_rank'] / 2**30:.2f} GiB; answers "
+            f"{answers_of(ranked)[:8]}...; NLL matrix {tuple(nll.shape)} "
+            f"finite share {finite}, range [{float(nll.min()):.4f}, "
+            f"{float(nll.max()):.4f}]")
+        if any(a not in cands for a in answers_of(ranked)) or finite != 1.0 \
+                or best != answers_of(ranked):
+            raise AssertionError("VQA ranking")
+    finally:
+        tmp.cleanup()
+    check_vqa_shapes(shapes)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gqa.evaluation(model, [samples])
+        torch.cuda.synchronize()
+    device_breakdown(prof, 1e3 * secs["vqa_gqa_warm"],
+                     f"vqa gqa, {n} questions, beam {beams}")
+    return counts, {
+        "vqa_gqa_cold_s": secs["vqa_gqa_cold"],
+        "vqa_gqa_warm_s": secs["vqa_gqa_warm"],
+        "vqa_gqa_acc": gqa_metrics["acc"],
+        "vqa_okvqa_s": secs["vqa_okvqa"],
+        "vqa_okvqa_acc": ok_metrics["overall"],
+        "vqa_rank_s": secs["vqa_rank"],
+        "vqa_peak_bytes": max(peaks.values()),
+        "vqa_decode_step_launches": at_m}
+
+
 def main_path():
     from vlm_compression_tpu_torch.models.bridge import export_masks
 
@@ -1478,6 +1899,11 @@ def main_path():
     log(f"  generate_t5 beam-5 from the merged model: {t_merged:.3f} s, "
         f"{n_tok} tokens; same tokens as before retraining: "
         f"{torch.equal(seqs, outs['generate_warm'])}")
+    del req
+    gc.collect()
+    torch.cuda.empty_cache()
+    vqa_counts, vqa = vqa_path(model, cfg)
+    counts.update(vqa_counts)
 
     log(f"  launches: {json.dumps(counts)}")
     check_phase_counts(counts)
@@ -1488,7 +1914,7 @@ def main_path():
                     "generate_s": t_gen["generate_warm"],
                     "tokens_per_s": tokens_per_s,
                     "peak_bytes": peak, **retrain,
-                    "generate_merged_s": t_merged}
+                    "generate_merged_s": t_merged, **vqa}
 
 
 class DampedLines(logging.Handler):
@@ -1823,8 +2249,15 @@ def profile_first_order(e2e):
         fisher = get_data_derivative(model, samples, power=2)
         torch.cuda.synchronize()
     del fisher
-    device_breakdown(prof, 1e3 * e2e["fisher_derivative_s"] * 4 / N_FISHER,
-                     "fisher derivative, 4 samples")
+    total, groups = device_breakdown(
+        prof, 1e3 * e2e["fisher_derivative_s"] * len(samples) / N_FISHER,
+        f"fisher derivative, {len(samples)} samples")
+    dbias = groups.get("flash_attention_bwd_dbias kernel", 0.0)
+    e2e["fisher_dbias_ms_per_sample"] = dbias / len(samples)
+    e2e["fisher_dbias_share"] = dbias / total if total else 0.0
+    log(f"  [fisher derivative] dbias {dbias / len(samples):.3f} ms of "
+        f"device a sample, {100 * e2e['fisher_dbias_share']:.2f}% of the "
+        f"Fisher's device time")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_prune(model, batches, **FIRST_ORDER)
     device_breakdown(prof, 1e3 * e2e["ecoflap_prune_s"],
@@ -2257,10 +2690,23 @@ def timing():
             f"({by}); delta as a torch einsum of fp32 upcasts (the older "
             f"route's before the pre-pass) alone {delta:.4f} ms; "
             f"{library_note(lib)}")
-    # dbias of the position bias; the library: SDPA's backward with a
-    # mask that requires a gradient, on each backend that accepts it
-    name, b, n, m, h, d, kinds, scale, causal = next(
-        c for c in DBIAS_SHAPES if c[0] == DBIAS_TIMED)
+    # dbias of the position bias, at the first-order allocation's batch and
+    # at the diagonal Fisher's (batch 1, where it is launched); the
+    # library: SDPA's backward with a mask that requires a gradient, on
+    # each backend that accepts it
+    for name, b, n, m, h, d, kinds, scale, causal in DBIAS_SHAPES:
+        if name in (DBIAS_TIMED, DBIAS_FISHER):
+            time_dbias(rows, extra, name, b, n, m, h, d, kinds, scale,
+                       causal)
+    return rows, wmma, extra
+
+
+def time_dbias(rows, extra, name, b, n, m, h, d, kinds, scale, causal):
+    """dbias of the first bias at one DBIAS_SHAPES case: the kernel in
+    turns with SDPA's backward, the plain version, the bound."""
+    from vlm_compression_tpu_torch.ops import attention as A
+
+    bf16 = torch.bfloat16
     q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
     g = grad_like(q)
     out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
@@ -2281,7 +2727,6 @@ def timing():
         f"kernel {ms:.4f} ms (delta by the pre-pass), plain {plain:.4f} ms, "
         f"bound {bound:.4f} ms ({by}); {library_note(lib)} (SDPA: dq, dk, "
         f"dv and the unreduced (b, h, n, m) mask gradient)")
-    return rows, wmma, extra
 
 
 def timing_compressed(rows, wmma):
@@ -2531,6 +2976,10 @@ def main() -> int:
             "max_abs_err": worst[err_key],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "shape": timed,
+            **({"at_fisher_shape": dict(zip(
+                ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by"), (DBIAS_FISHER, *rows[(kname, DBIAS_FISHER)])))}
+               if kname == "flash_attention_bwd_dbias" else {}),
             **extra.get((kname, timed), {}),
             **({"wmma_loop_ms": wmma[(kname, timed)]}
                if (kname, timed) in wmma else {})})

@@ -293,3 +293,26 @@ def test_a_forced_launch_is_recorded_as_forced(fake_card):
     before = ML.wmma_calls.get((2048, 2048, 64, 0, "forced"), 0)
     ML._masked_matmul_cuda(x, w, mask, ML.WMMA)
     assert ML.wmma_calls[(2048, 2048, 64, 0, "forced")] == before + 1
+
+
+VQA_SHAPES = [c for c in CS.MM_SHAPES
+              if c[0].endswith(("_beam_step", "_rank"))]
+
+
+@pytest.mark.parametrize("name,m,k,n", VQA_SHAPES,
+                         ids=[c[0] for c in VQA_SHAPES])
+def test_launches_are_tallied_by_shape_and_loop(fake_card, name, m, k, n):
+    """The VQA eval's beam-decode steps (M = 320) and ranking decoder: the
+    bool matmul counts its launch under (M, N, K, plan's loop), which
+    chip_smoke.py reads with ``read_shapes`` and clears with
+    ``reset_counts``."""
+    x, w = _bf16(m, k), _bf16(k, n)
+    mask = torch.ones(k, n, dtype=torch.bool)
+    CS.reset_counts()
+    ML._masked_matmul_cuda(x, w, mask)
+    ML._masked_matmul_cuda(x, w, mask)
+    loop = ML.plan(m, n, k, SMS)[0]
+    assert loop == ML.WGMMA
+    assert CS.read_shapes()["matmul"] == {(m, n, k, loop): 2}
+    CS.reset_counts()
+    assert CS.read_shapes() == {"matmul": {}, "attention": {}}

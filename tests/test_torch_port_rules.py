@@ -48,6 +48,37 @@ def test_port_imports_no_jax(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+def _module_level_imports(tree):
+    """The modules a file imports when it is itself imported: every import
+    outside a function body (class bodies and ``if``/``try`` blocks at
+    module level run at import time)."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_host_only_package_at_module_level(path):
+    """The card's machine has no PIL, yaml, spaCy or transformers: a module
+    of the port may import them only inside the function that needs them
+    (the HF tokenizer from a local path, the spaCy probe)."""
+    tree = ast.parse(path.read_text())
+    for mod in _module_level_imports(tree):
+        top = mod.split(".")[0]
+        assert top not in ("PIL", "yaml", "spacy", "transformers"), \
+            f"{path.name} imports {mod} at module level"
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_calls_no_library_attention(path):

@@ -76,7 +76,24 @@ class Blip2T5Instruct(nn.Module):
 
     def encode_image(self, image, vit_mode="masked", qformer_input_ids=None,
                      qformer_attention_mask=None, qformer_mode="masked"):
-        """Image (+instruction) → T5-space prefix embeddings (b, 32, d)."""
+        """Image (+instruction) → T5-space prefix embeddings (b, 32, d).
+
+        Video: a 5-dim ``(b, t, H, W, 3)`` stack folds its frames into the
+        batch (each request's instruction repeated per frame), so the ViT
+        and the Q-Former run once; the per-frame query outputs are
+        concatenated along the sequence → ``(b, t·32, d)``."""
+        if image.dim() == 5:
+            b, t = image.shape[:2]
+            image = image.reshape((b * t,) + tuple(image.shape[2:]))
+            if qformer_input_ids is not None:
+                qformer_input_ids = qformer_input_ids.repeat_interleave(
+                    t, dim=0)
+                if qformer_attention_mask is not None:
+                    qformer_attention_mask = \
+                        qformer_attention_mask.repeat_interleave(t, dim=0)
+            proj = self.encode_image(image, vit_mode, qformer_input_ids,
+                                     qformer_attention_mask, qformer_mode)
+            return proj.reshape(b, t * proj.shape[1], proj.shape[2])
         feats = self.visual_encoder(image, mode=vit_mode)
         return self.encode_image_from_features(
             feats, qformer_input_ids, qformer_attention_mask, qformer_mode)
@@ -133,6 +150,49 @@ class Blip2T5Instruct(nn.Module):
         enc = self.t5_model.encode(inputs_embeds=embeds,
                                    attention_mask=enc_mask, mode=llm_mode)
         return enc, enc_mask
+
+
+# fp32 logits a ``predict_class_t5`` chunk may hold: b · C · L rows × the
+# vocabulary grow fast at XL (64 questions × 128 candidates × 4 tokens ×
+# 32128 is 4.2 GB), so the candidates go through the decoder in chunks
+_LOGIT_BYTES = 1 << 30
+
+
+@torch.no_grad()
+def predict_class_t5(model: Blip2T5Instruct, image, input_ids, attention_mask,
+                     candidate_labels, qformer_input_ids=None,
+                     qformer_attention_mask=None, vit_mode="masked",
+                     llm_mode="masked", qformer_mode="masked"):
+    """Candidate ranking: the decoder's summed negative log-likelihood of
+    each candidate answer, (b, C) float32 (lower is better).
+    ``candidate_labels``: (C, L) int, -100 padded.  The image and prompt
+    are encoded once; the candidates run the decoder in chunks of whole
+    candidates, so each row's sum is taken over its own L tokens alone."""
+    cfg = model.cfg
+    enc, enc_mask = model.encode_multimodal(
+        image, input_ids, attention_mask, qformer_input_ids,
+        qformer_attention_mask, vit_mode, llm_mode, qformer_mode)
+    b = enc.shape[0]
+    labels_all = candidate_labels.to(enc.device)
+    C, L = labels_all.shape
+    chunk = max(1, _LOGIT_BYTES // (b * L * cfg.t5.vocab_size * 4))
+    nll = []
+    for c0 in range(0, C, chunk):
+        labels = labels_all[c0:c0 + chunk]
+        c = labels.shape[0]
+        labels = labels.repeat(b, 1)                     # (b·c, L), b-major
+        dec_ids = shift_right(labels, cfg.t5.decoder_start_token_id,
+                              cfg.t5.pad_token_id)
+        logits = model.t5_model.decode(
+            dec_ids, enc.repeat_interleave(c, dim=0), None,
+            enc_mask.repeat_interleave(c, dim=0), mode=llm_mode)
+        logp = torch.log_softmax(logits, dim=-1)
+        valid = labels != -100
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        ll = torch.gather(logp, -1, safe[..., None].long())[..., 0]
+        nll.append(-(ll * valid).sum(-1).reshape(b, c))
+        del logits, logp
+    return torch.cat(nll, dim=1)
 
 
 @torch.no_grad()

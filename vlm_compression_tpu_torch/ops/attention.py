@@ -36,7 +36,8 @@ broadcast pattern including a key dim of 1): launch or raise, no fallback.
 ``launches`` (every forward), ``fwd_wgmma_launches`` (the forward's TMA +
 wgmma route), ``bwd_wgmma_launches``, ``dq_launches``, ``dkv_launches``,
 ``dbias_launches`` and ``delta_launches`` (the pre-pass alone, for the
-other two) count kernel launches.
+other two) count kernel launches; ``shape_launches`` the forward's by
+shape and route.
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ dq_launches = 0
 dkv_launches = 0
 dbias_launches = 0
 delta_launches = 0
+# (b, n, m, h, d, route) -> forward launches
+shape_launches: dict = {}
 
 
 def _as_4d(bias: torch.Tensor) -> torch.Tensor:
@@ -369,6 +372,8 @@ def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
             int(bool(causal)), int(vec), _cuda.stream_ptr(dev))
         _cuda.check(err, "flash_attention")
     launches += 1
+    key = (b, n, m, h, d, route)
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     return out, lse
 
 

@@ -24,8 +24,9 @@ not — and the WMMA loop with split-K only for what TMA cannot take.
 ``launches``, ``packed_launches`` and ``lora_launches`` count kernel
 launches; ``wgmma_launches``, ``decode_launches`` and ``wmma_launches``
 those that ran the Hopper loop, the decode kernel and the WMMA loop (the
-int8 kernel's too), and ``wmma_calls`` the WMMA-loop launches by shape and
-by why the other loops refused them.
+int8 kernel's too), ``wmma_calls`` the WMMA-loop launches by shape and
+by why the other loops refused them, and ``shape_launches`` every counted
+launch by shape and loop.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ decode_launches = 0
 wmma_launches = 0
 # (M, N, K, rank, why) -> WMMA-loop launches
 wmma_calls: dict = {}
+# (M, N, K, loop) -> launches
+shape_launches: dict = {}
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -523,9 +526,12 @@ def _decode(w_int8: bool, mask_kind: int, group: int = 0, scale=None):
 
 
 def count_route(route, call: tuple) -> None:
-    """Count a launch that ran, by loop; a WMMA-loop one also under its
-    ``call``: (M, N, K, rank, why the other loops refused it)."""
+    """Count a launch that ran, by loop and by (M, N, K, loop); a WMMA-loop
+    one also under its ``call``: (M, N, K, rank, why the other loops
+    refused it)."""
     global wgmma_launches, decode_launches, wmma_launches
+    key = (*call[:3], route)
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     if route == WGMMA:
         wgmma_launches += 1
     elif route == DECODE:
