@@ -27,8 +27,15 @@ each of which fails the run (non-zero exit, no result line) on error:
                 split calls of each form bit-equal; the attention backward on
                 the route ``ops/attention.plan`` picks (bf16: the TMA +
                 wgmma kernel) and on the mma.sync route, causal, ragged,
-                dq alone and dk/dv alone, and the largest |dq₁ − dq₂| of
-                two identical calls (the dq atomics' order); the forward
+                dq alone and dk/dv alone, and two identical calls of the
+                planned route bit-equal (dq, dk, dv) at every BWD_SHAPES
+                shape (dq summed over the kv tiles in a fixed order);
+                dbias of every bias of each DBIAS_SHAPES case on the
+                separate dbias kernel, and, in bf16, of each bias the TMA
+                + wgmma backward returns (``plan_dbias``: it keeps the
+                query and key dims) from that kernel, with dq, dk, dv and
+                alone, and two identical calls bit-equal at batch 16 and
+                1; the forward
                 on the route ``plan_forward`` picks (bf16: the TMA + wgmma
                 kernel) and on the mma.sync route at every FLASH_SHAPES
                 shape and causal n = m and n > m, and two identical calls
@@ -55,7 +62,9 @@ each of which fails the run (non-zero exit, no result line) on error:
                 ``generate_t5`` on 4 requests, twice (cold, then warm; the
                 two must agree); RESSA retraining (dense teacher,
                 sparse_lora student, KD loss, AdamW on the LoRA factors) for
-                1 cold + 3 timed steps at batch 32; the sparse merge;
+                1 cold + 3 timed steps at batch 32, then the first two again
+                from the saved starting state (LoRA leaves bit-equal to the
+                first run's after two steps); the sparse merge;
                 beam-5 generate from the merged model; then its zero-shot
                 VQA eval through the tasks (``setup_task``, ``evaluation``,
                 ``after_evaluation``) at the eval yamls' settings (batch
@@ -91,20 +100,27 @@ each of which fails the run (non-zero exit, no result line) on error:
                 first-order block allocation (aobd_sum on 32 samples, no
                 dbias launch), the 87 group ratios, beam-5 generate twice;
                 then, rebuilt dense, the diagonal Fisher over 8 batch-1
-                samples (the dbias kernel 48 times a sample),
+                samples (48 position-bias gradients a sample, each an
+                output of the TMA + wgmma backward; the separate dbias
+                kernel never launched),
                 ``prune_by_importance`` at keep 0.5 and beam-5 generate;
   8. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune, and the
-                first-order path's Fisher and EcoFLaP prune: device time by
-                kernel group against each phase's unprofiled wall-clock;
+                first-order path's Fisher (its attention backward's device
+                time a sample) and EcoFLaP prune: device time by kernel
+                group against each phase's unprofiled wall-clock;
   9. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
                 through the wrappers' ``_loop`` argument); the attention
                 backward's two bf16 routes (``_impl``) at every training
-                shape; dbias at the allocation's batch-16 and the Fisher's
-                batch-1 shape; the attention forward's two bf16 routes at every
+                shape; the backward with the position bias's gradient at
+                the allocation's batch-16 and the Fisher's batch-1 shape —
+                one TMA + wgmma call, in turns with the unfused route (the
+                backward, then the separate dbias kernel), SDPA's backward
+                with a mask gradient and the backward alone; the attention
+                forward's two bf16 routes at every
                 FLASH_SHAPES shape; SDPA, the attention yardstick, on each
                 of its backends, the fastest timed in turns with the
                 kernel; every prefill and decode shape of the compressed
@@ -118,9 +134,11 @@ Launch gates: each phase's kernels launched in it (and the Hopper loop in
 every phase that runs the masked, packed, int8 or sparse-LoRA kernel at a
 calibration, training or prefill shape, the int8 generates included; the
 TMA + wgmma attention forward in the Wanda prune, the retrain step, the
-EcoFLaP prune and the Fisher, and its backward in the last three), none
-that the phase must not run (the bool kernel in a packed or int8 phase,
-the packed one in an int8 phase); the decode kernel in every generate
+EcoFLaP prune and the Fisher, and its backward in the last three; the
+Fisher's position-bias gradients from that backward), none that the phase
+must not run (the separate dbias kernel in the retrain step, the EcoFLaP
+prune and the Fisher, the bool kernel in a packed or int8 phase, the
+packed one in an int8 phase); the decode kernel in every generate
 phase of a masked or int8 model, and no WMMA-loop launch at all in any
 generate phase, the retrain step or the three VQA phases (which must run
 the Hopper loop and the TMA + wgmma forward).  WMMA-loop launches left in other
@@ -167,11 +185,16 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# clock cycles of the spin kernel before each timed call: about 1 ms
+SPIN_CYCLES = 2_000_000
+
+
 def device_ms(fn, iters=20, warmup=3) -> float:
     """Median time of one call on the card: CUDA events around each call,
     with a 512 MB write before it that evicts the 50 MB L2 (a real step
-    finds its weights cold) and keeps the card busy while the host enqueues
-    the call, so host overhead stays out of the reading."""
+    finds its weights cold) and a spin kernel of about 1 ms that keeps the
+    card busy while the host enqueues the call, so host overhead stays out
+    of the reading (the write alone, 0.16 ms, did not cover a slow host)."""
     flush = torch.empty(512 * 2**20, dtype=torch.int8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -179,6 +202,7 @@ def device_ms(fn, iters=20, warmup=3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -277,6 +301,8 @@ LORA = dict(tune_opt="LVQ", lora_r_v=4, lora_r_l=8, lora_r_q=2,
             lora_alpha=16)
 KL_WEIGHT, T_KD = 0.1, 1.0
 TRAIN_BS, N_TIMED_STEPS = 32, 3
+# the retrain steps replayed from the saved starting state (bit-equal)
+N_REPLAY = 2
 SCHED = dict(lr_sched="linear_warmup_cosine_lr", init_lr=1e-4, min_lr=1e-5,
              warmup_lr=1e-6, warmup_steps=1000, max_epoch=1)
 WEIGHT_DECAY = 0.05
@@ -312,6 +338,8 @@ BWD_SHAPES = [
     ("t5_decoder_cross", 32, 12, 72, 32, 64, ["pad"], 1.0),
 ]
 BWD_TIMED = "vit_self"
+# the same at the diagonal Fisher's batch 1
+BWD_FISHER = [(f"{name}_b1", 1, *rest) for name, _, *rest in BWD_SHAPES]
 
 # dbias (b, n, m, h, d, biases, scale, causal), the gradient of every bias
 # in the list: the T5 encoder's self-attention at the first-order
@@ -453,30 +481,21 @@ def lora_bound_ms(m, k, n, r):
                   2.0 * m * k + 3.0 * k * n + 2.0 * m * n + 2.0 * (k + n) * r)
 
 
-def flash_bwd_bound_ms(q, k, v, biases):
+def flash_bwd_bound_ms(q, k, v, biases, dbias_of=()):
     """The whole backward (dq, dk and dv): five products (q·kᵀ, g·vᵀ,
     ds·k, dsᵀ·q, pᵀ·g), 10·b·h·n·m·d operations; q, k, v, g, lse, delta
-    and the biases read once, dq, dk and dv written once."""
+    and the biases read once, dq, dk and dv written once — and the
+    gradient of each bias in ``dbias_of`` written once in fp32 (no
+    operation more: it is u = ds / scale, summed over the bias's broadcast
+    axes)."""
     b, n, h, d = q.shape
     m = k.shape[1]
     es = q.element_size()
     flops = 10.0 * b * h * n * m * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 8.0 * b * h * n \
         + sum(4.0 * x.numel() for x in biases) \
-        + (q.numel() + k.numel() + v.numel()) * es
-    return _bound(flops, nbytes)
-
-
-def dbias_bound_ms(q, k, v, biases, i):
-    """dbias of bias i: the two products of the recompute (q·kᵀ, g·vᵀ),
-    4·b·h·n·m·d operations; q, k, v and g read once, lse and delta, every
-    bias at its shape, and dbias written in fp32."""
-    b, n, h, d = q.shape
-    m = k.shape[1]
-    flops = 4.0 * b * h * n * m * d
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-        + 8.0 * b * h * n + sum(4.0 * x.numel() for x in biases) \
-        + 4.0 * biases[i].numel()
+        + (q.numel() + k.numel() + v.numel()) * es \
+        + sum(4.0 * biases[i].numel() for i in dbias_of)
     return _bound(flops, nbytes)
 
 
@@ -583,11 +602,19 @@ def check_kernels():
         # causal n = m and n > m, ragged tiles on both sides (n = m = 200),
         # and dq alone and dk/dv alone
         cases = [(name, b, n, m, h, d, kinds, scale, False, True, True)
-                 for name, b, n, m, h, d, kinds, scale in BWD_SHAPES]
+                 for name, b, n, m, h, d, kinds, scale in
+                 BWD_SHAPES + BWD_FISHER]
         cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True, True,
                    True),
                   ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True, True,
                    True),
+                  # several kv tiles under the causal flag: the cast stops
+                  # at each q tile's last visible one; rows of n > m that
+                  # see no key
+                  ("causal_200", 2, 200, 200, 4, 64, [], 0.125, True, True,
+                   True),
+                  ("causal_200_130", 2, 200, 130, 4, 64, [], 0.125, True,
+                   True, True),
                   ("ragged_200", 2, 200, 200, 4, 88, ["rel"], 0.125, False,
                    True, True),
                   ("vit_self_dq_only", 4, 257, 257, 16, 88, [], 88 ** -0.5,
@@ -633,24 +660,25 @@ def check_kernels():
                         errs[0][0]
                     worst[("flash_attention_bwd_dkv", name, dtype)] = max(
                         errs[1][0], errs[2][0])
-    # the dq atomics sum in an order that changes from call to call: two
-    # identical calls of the bf16 route at the ViT's shape
-    name, b, n, m, h, d, kinds, scale = next(c for c in BWD_SHAPES
-                                             if c[0] == BWD_TIMED)
-    q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
-    g = grad_like(q)
-    out, lse = A.flash_attention(q, k_, v, biases, scale)
-    dq1 = A.flash_attention_backward(q, k_, v, out, lse, g, biases, scale,
-                                     need_dkv=False)[0].float()
-    dq2 = A.flash_attention_backward(q, k_, v, out, lse, g, biases, scale,
-                                     need_dkv=False)[0].float()
-    top = float(dq1.abs().max())
-    ulp = 2.0 ** (torch.frexp(torch.tensor(top))[1].item() - 8)
-    diff = float((dq1 - dq2).abs().max())
-    log(f"  flash_attention_bwd {name} two identical calls, route "
-        f"{A.plan(n, m, d)}: max |dq1 - dq2| {diff:.3e}, |dq|max {top:.3e}, "
-        f"one bf16 ulp there {ulp:.3e} ({diff / ulp:.2f} ulp); "
-        f"{int((dq1 != dq2).sum())} of {dq1.numel()} entries differ")
+    # dq is summed over the kv tiles in one fixed order (a slab a kv tile,
+    # added by the cast; no atomics), dk and dv in registers: two identical
+    # calls of the planned route are bit-equal at every training shape and
+    # at the Fisher's batch 1
+    for name, b, n, m, h, d, kinds, scale in BWD_SHAPES + BWD_FISHER:
+        q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
+        g = grad_like(q)
+        out, lse = A.flash_attention(q, k_, v, biases, scale)
+        one, two = (A.flash_attention_backward(q, k_, v, out, lse, g, biases,
+                                               scale) for _ in range(2))
+        differ = [int((x != y).sum()) for x, y in zip(one, two)]
+        log(f"  flash_attention_bwd {name} two identical calls, route "
+            f"{A.plan(n, m, d)}: entries that differ dq/dk/dv "
+            f"{'/'.join(map(str, differ))} of {one[0].numel()}/"
+            f"{one[1].numel()}/{one[2].numel()} "
+            f"{'FAIL' if any(differ) else 'ok'}")
+        if any(differ):
+            raise AssertionError(f"flash_attention_bwd {name}: two identical "
+                                 "calls differ")
     return worst
 
 
@@ -740,8 +768,15 @@ def check_compressed_kernels(worst):
 
 
 def check_dbias_kernel(worst):
-    """The dbias kernel against its plain version, for every bias of each
-    case, from the same out and lse."""
+    """The separate dbias kernel against its plain version, for every bias
+    of each case, from the same out and lse; then, in bf16, each bias the
+    TMA + wgmma backward returns (``plan_dbias`` FUSED: it keeps the query
+    and key dims) from one backward call, with dq, dk, dv and alone: no
+    launch of the separate kernel, one fused output counted each, every
+    output (dq, dk, dv and each dbias) within the bf16 tolerance of the
+    plain version's; two identical calls bit-equal
+    at the T5 encoder's batch 16 (summed over the batches in order) and 1
+    (stored)."""
     from vlm_compression_tpu_torch.ops import attention as A
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -769,6 +804,54 @@ def check_dbias_kernel(worst):
                 raise AssertionError(f"flash_attention_bwd_dbias {name} {dtype}")
             worst[("flash_attention_bwd_dbias", name, dtype)] = max(
                 e for e, _ in errs)
+    tol = TOL["bfloat16"]
+    for name, b, n, m, h, d, kinds, scale, causal in DBIAS_SHAPES:
+        q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
+        fused = [i for i, x in enumerate(biases) if A.plan_dbias(
+            A.plan(n, m, d), x.shape, n, m) == A.FUSED]
+        if not fused:
+            log(f"  fused dbias {name:16s} none of {kinds} (the separate "
+                f"kernel takes them)")
+            continue
+        g = grad_like(q)
+        out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+        want = A.flash_attention_backward_ref(q, k_, v, out, lse, g, biases,
+                                              scale, causal, dbias_of=fused)
+        for need in (True, False):
+            before = A.dbias_launches, A.bwd_dbias_outputs
+            got = A.flash_attention_backward(
+                q, k_, v, out, lse, g, biases, scale, causal, need, need,
+                dbias_of=fused)
+            launched = (A.dbias_launches - before[0],
+                        A.bwd_dbias_outputs - before[1])
+            # every output of the call: dq, dk, dv (where asked for) and
+            # each fused dbias
+            pairs = [(x, y) for x, y in zip(got, want) if x is not None]
+            errs = [max_err(x, y) for x, y in pairs]
+            ok = launched == (0, len(fused)) and \
+                len(pairs) == len(fused) + 3 * need and all(
+                    x.shape == y.shape for x, y in pairs) and all(
+                    e <= tol * sc for e, sc in errs)
+            log(f"  fused dbias {name:16s} bias {fused} of {kinds}, "
+                f"max_abs_err {'dq/dk/dv/' if need else ''}dbias="
+                f"{'/'.join(f'{e:.3e}' for e, _ in errs)} (tol "
+                f"{'/'.join(f'{tol * sc:.3e}' for _, sc in errs)}); separate "
+                f"launches, fused outputs {launched} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fused dbias {name}")
+            if need:
+                worst[("fused_dbias", name, torch.bfloat16)] = max(
+                    e for e, _ in errs[3:])
+        if name in (DBIAS_TIMED, DBIAS_FISHER):
+            one, two = (A.flash_attention_backward(
+                q, k_, v, out, lse, g, biases, scale, causal,
+                dbias_of=fused) for _ in range(2))
+            if not all(torch.equal(x, y) for x, y in zip(one, two)):
+                raise AssertionError(f"fused dbias {name}: two identical "
+                                     "calls differ")
+            log(f"  fused dbias {name}: two identical calls bit-equal (dq, "
+                f"dk, dv, dbias)")
 
 
 def tiny_reference_check():
@@ -1252,6 +1335,10 @@ BWD_WGMMA = "bwd_wgmma"
 # "fwd_wgmma" counts the attention forward's TMA + wgmma launches; the
 # flash_attention count is every forward's, on either route
 FWD_WGMMA = "fwd_wgmma"
+# "bwd_dbias_outputs" counts the bias gradients the TMA + wgmma backward
+# returned (each an output of one of its launches); the
+# flash_attention_bwd_dbias count is the separate dbias kernel's launches
+BWD_DBIAS = "bwd_dbias_outputs"
 # "matmul_decode" counts the decode kernel's launches (the bool, packed and
 # int8 matmuls at decode-sized M)
 DECODE = "matmul_decode"
@@ -1281,8 +1368,7 @@ PHASE_KERNELS = {"prune": PRUNE + (FWD_WGMMA,), "generate_cold": SERVE,
                  "generate_ecoflap_cold": SERVE,
                  "generate_ecoflap_warm": SERVE,
                  "fisher_derivative": ("flash_attention", FWD_WGMMA,
-                                       BWD_WGMMA,
-                                       "flash_attention_bwd_dbias"),
+                                       BWD_WGMMA, BWD_DBIAS),
                  # zeroed weights, no masks: dense products (no masked or
                  # int8 linear, so no decode launch either)
                  "generate_fisher": ("flash_attention",)}
@@ -1305,9 +1391,11 @@ PHASE_FORBIDDEN = {
     "generate_int8_serving": INT8_FORBIDDEN,
     # RESSA and the first-order allocation differentiate no attention bias
     # (only LoRA factors; only the prunable kernels); the retrain step's
-    # sparse-LoRA launches all run the Hopper loop
-    "retrain": ("flash_attention_bwd_dbias", WMMA_LOOP),
-    "ecoflap_prune": ("flash_attention_bwd_dbias",)}
+    # sparse-LoRA launches all run the Hopper loop; the Fisher's position
+    # bias gradients all come from the TMA + wgmma backward
+    "retrain": ("flash_attention_bwd_dbias", BWD_DBIAS, WMMA_LOOP),
+    "ecoflap_prune": ("flash_attention_bwd_dbias", BWD_DBIAS),
+    "fisher_derivative": ("flash_attention_bwd_dbias",)}
 # every generate phase runs its prefill on the Hopper loop and its decode
 # steps on the decode kernel, every VQA phase all its matmuls on the
 # Hopper loop: no WMMA-loop launch at all
@@ -1328,7 +1416,7 @@ def reset_counts():
     ML.shape_launches.clear()
     A.shape_launches.clear()
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
-    A.fwd_wgmma_launches = A.bwd_wgmma_launches = 0
+    A.fwd_wgmma_launches = A.bwd_wgmma_launches = A.bwd_dbias_outputs = 0
     Q.int8_launches = 0
 
 
@@ -1337,12 +1425,14 @@ def read_counts() -> dict:
     from vlm_compression_tpu_torch.ops import masked_linear as ML
     from vlm_compression_tpu_torch.ops import quant as Q
 
-    counts = dict(zip(KERNELS + (WGMMA_LOOP, FWD_WGMMA, BWD_WGMMA, WMMA_LOOP),
+    counts = dict(zip(KERNELS + (WGMMA_LOOP, FWD_WGMMA, BWD_WGMMA, WMMA_LOOP,
+                                 BWD_DBIAS),
                       (ML.launches, A.launches, ML.lora_launches,
                        A.dq_launches, A.dkv_launches, ML.packed_launches,
                        Q.int8_launches, A.dbias_launches, ML.decode_launches,
                        ML.wgmma_launches, A.fwd_wgmma_launches,
-                       A.bwd_wgmma_launches, ML.wmma_launches)))
+                       A.bwd_wgmma_launches, ML.wmma_launches,
+                       A.bwd_dbias_outputs)))
     counts[WMMA_CALLS] = [f"M={m} N={n} K={k} rank {r}: {why} x{c}"
                           for (m, n, k, r, why), c in ML.wmma_calls.items()]
     return counts
@@ -1365,7 +1455,9 @@ def attn_routes(c: dict, per: int = 1) -> str:
             f"{(c['flash_attention'] - c[FWD_WGMMA]) / per:g}; backward: "
             f"TMA + wgmma {c[BWD_WGMMA] / per:g}, mma.sync dq "
             f"{c['flash_attention_bwd_dq'] / per:g} and dk/dv "
-            f"{c['flash_attention_bwd_dkv'] / per:g}")
+            f"{c['flash_attention_bwd_dkv'] / per:g}; bias gradients: TMA + "
+            f"wgmma outputs {c[BWD_DBIAS] / per:g}, separate dbias kernel "
+            f"{c['flash_attention_bwd_dbias'] / per:g}")
 
 
 def sm_count() -> int:
@@ -1454,7 +1546,11 @@ def run_retrain(model, cfg):
     steps on fresh synthetic batches; every step's loss, CE and KL finite;
     B = 0 makes the first step's lora_a gradients exactly 0 and its lora_b
     gradients non-zero, the second step's lora_a gradients non-zero; base
-    parameters and masks bit-identical afterwards."""
+    parameters and masks bit-identical afterwards.  Then the first
+    N_REPLAY steps again from the saved starting state (the LoRA factors
+    and a fresh AdamW): every LoRA leaf bit-equal to the first run's after
+    as many steps (the run reproduces; the model keeps the replay's
+    factors)."""
     from vlm_compression_tpu_torch.common.optims import make_lr_scheduler
     from vlm_compression_tpu_torch.tasks.retrain import (
         RessaTrainState,
@@ -1470,6 +1566,7 @@ def run_retrain(model, cfg):
     sched = make_lr_scheduler(SCHED)
     step = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)
     n_lora = len(state.lora) // 2
+    saved = {n: p.detach().clone() for n, p in state.lora.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1495,7 +1592,26 @@ def run_retrain(model, cfg):
         if (i == 0 and (nz["lora_a"] != 0 or nz["lora_b"] < n_lora - 2)) \
                 or (i == 1 and nz["lora_a"] < n_lora - 2):
             raise AssertionError(f"step {i}: gradients {nz} of {n_lora}")
+        if i + 1 == N_REPLAY:
+            first = {n: p.detach().clone() for n, p in state.lora.items()}
     peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        for n, p in state.lora.items():
+            p.copy_(saved[n])
+    state.opt.zero_grad(set_to_none=True)
+    state.opt.state.clear()
+    for i in range(N_REPLAY):
+        step(batches[i], sched(0, i))
+    torch.cuda.synchronize()
+    differ = {n: int((p != first[n]).sum()) for n, p in state.lora.items()
+              if not torch.equal(p, first[n])}
+    log(f"  retrain replay: {N_REPLAY} KD steps again from the saved "
+        f"starting state: {len(differ)} of {len(first)} LoRA leaves differ "
+        f"from the first run's ({sum(differ.values())} entries) "
+        f"{'FAIL' if differ else 'ok'}")
+    if differ:
+        raise AssertionError(f"retrain does not reproduce: "
+                             f"{sorted(differ)[:4]}")
     state.opt.zero_grad(set_to_none=True)
     state.opt.state.clear()
     changed = [n for n, t in
@@ -1888,7 +2004,7 @@ def main_path():
     retrain = run_retrain(model, cfg)
     counts["retrain"] = read_counts()
     log(f"  retrain attention per step, by route: "
-        f"{attn_routes(counts['retrain'], 1 + N_TIMED_STEPS)}")
+        f"{attn_routes(counts['retrain'], 1 + N_TIMED_STEPS + N_REPLAY)}")
     merge_and_check(model)
     reset_counts()
     t0 = time.perf_counter()
@@ -2191,13 +2307,14 @@ def first_order_path():
            if not bool(torch.isfinite(a).all()) or bool((a < 0).any())]
     rel = {s: float(fisher[("t5_model", s, "rel_bias", "rel_embedding")]
                     .sum()) for s in ("encoder", "decoder")}
-    per_sample = counts["fisher_derivative"]["flash_attention_bwd_dbias"] \
-        / N_FISHER
+    # the position bias's gradient in each T5 self-attention (24 encoder,
+    # 24 decoder layers), every one an output of the TMA + wgmma backward
+    per_sample = counts["fisher_derivative"][BWD_DBIAS] / N_FISHER
     log(f"  get_data_derivative (power 2, {N_FISHER} samples, batch 1): "
         f"{secs['fisher_derivative']:.2f} s "
         f"({secs['fisher_derivative'] / N_FISHER:.3f} s a sample), "
         f"{len(fisher)} leaves, {len(bad)} not finite or negative; "
-        f"rel_embedding sums {json.dumps(rel)}; dbias launches "
+        f"rel_embedding sums {json.dumps(rel)}; fused dbias outputs "
         f"{per_sample:g} a sample; peak "
         f"{peaks['fisher_derivative'] / 2**30:.2f} GiB; launches "
         f"{json.dumps(counts['fisher_derivative'])}")
@@ -2252,12 +2369,18 @@ def profile_first_order(e2e):
     total, groups = device_breakdown(
         prof, 1e3 * e2e["fisher_derivative_s"] * len(samples) / N_FISHER,
         f"fisher derivative, {len(samples)} samples")
-    dbias = groups.get("flash_attention_bwd_dbias kernel", 0.0)
-    e2e["fisher_dbias_ms_per_sample"] = dbias / len(samples)
-    e2e["fisher_dbias_share"] = dbias / total if total else 0.0
-    log(f"  [fisher derivative] dbias {dbias / len(samples):.3f} ms of "
-        f"device a sample, {100 * e2e['fisher_dbias_share']:.2f}% of the "
-        f"Fisher's device time")
+    # the attention backward: every pass of either route, the separate
+    # dbias kernel included (the Fisher launches it no more)
+    bwd = {grp: ms for grp, ms in groups.items() if grp in BWD_GROUPS}
+    per = sum(bwd.values()) / len(samples)
+    e2e["fisher_attention_bwd_ms_per_sample"] = per
+    e2e["fisher_attention_bwd_share"] = \
+        sum(bwd.values()) / total if total else 0.0
+    log(f"  [fisher derivative] attention backward {per:.3f} ms of device a "
+        f"sample, {100 * e2e['fisher_attention_bwd_share']:.2f}% of the "
+        f"Fisher's device time; by pass, ms a sample: "
+        + ", ".join(f"{grp} {ms / len(samples):.3f}"
+                    for grp, ms in sorted(bwd.items())))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_prune(model, batches, **FIRST_ORDER)
     device_breakdown(prof, 1e3 * e2e["ecoflap_prune_s"],
@@ -2267,6 +2390,13 @@ def profile_first_order(e2e):
     torch.cuda.empty_cache()
 
 
+# the attention backward's kernel groups (``_kernel_group``), both routes
+BWD_GROUPS = ("flash_attention_bwd_wgmma main kernel",
+              "flash_attention_bwd delta pre-pass",
+              "flash_attention_bwd_wgmma dq cast",
+              "flash_attention_bwd_dbias kernel",
+              "flash_attention_bwd_dq kernel",
+              "flash_attention_bwd_dkv kernel")
 DECODE_GROUP = "matmul_decode kernel (decode route)"
 SPLITK_GROUP = "WMMA loop split-K sums"
 # the masked, packed, sparse-LoRA and int8 matmuls' groups are named
@@ -2690,10 +2820,10 @@ def timing():
             f"({by}); delta as a torch einsum of fp32 upcasts (the older "
             f"route's before the pre-pass) alone {delta:.4f} ms; "
             f"{library_note(lib)}")
-    # dbias of the position bias, at the first-order allocation's batch and
-    # at the diagonal Fisher's (batch 1, where it is launched); the
-    # library: SDPA's backward with a mask that requires a gradient, on
-    # each backend that accepts it
+    # the backward with the position bias's gradient, at the first-order
+    # allocation's batch and at the diagonal Fisher's (batch 1, where it
+    # runs); the library: SDPA's backward with a mask that requires a
+    # gradient, on each backend that accepts it
     for name, b, n, m, h, d, kinds, scale, causal in DBIAS_SHAPES:
         if name in (DBIAS_TIMED, DBIAS_FISHER):
             time_dbias(rows, extra, name, b, n, m, h, d, kinds, scale,
@@ -2702,31 +2832,66 @@ def timing():
 
 
 def time_dbias(rows, extra, name, b, n, m, h, d, kinds, scale, causal):
-    """dbias of the first bias at one DBIAS_SHAPES case: the kernel in
-    turns with SDPA's backward, the plain version, the bound."""
+    """The backward with the gradient of the first bias at one
+    DBIAS_SHAPES case: one TMA + wgmma call returning dq, dk, dv and
+    dbias, in turns with the unfused route (the backward, then the
+    separate dbias kernel), the backward alone and SDPA's backward with a
+    mask gradient (fused, unfused, alone, library, library, alone, unfused,
+    fused; the means); the plain version; the bound."""
     from vlm_compression_tpu_torch.ops import attention as A
 
     bf16 = torch.bfloat16
     q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
     g = grad_like(q)
     out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
-    args = (q, k_, v, out, lse, g, biases, 0, scale, causal)
-    lib = against_library(
-        lambda: A.flash_attention_dbias(*args),
-        sdpa_candidates(lambda be: sdpa_backward(be, q, k_, v, biases, g,
-                                                 scale, mask_grad=True)))
-    ms = lib["kernel_ms"]
-    plain = device_ms(lambda: A.flash_attention_dbias_ref(*args))
-    bound, by = dbias_bound_ms(q, k_, v, biases, 0)
-    rows[("flash_attention_bwd_dbias", name)] = (ms, plain, lib["library_ms"],
-                                                 bound, by)
+    args = (q, k_, v, out, lse, g, biases, scale, causal)
+    if A.plan_dbias(A.plan(n, m, d), biases[0].shape, n, m) != A.FUSED:
+        raise AssertionError(f"time_dbias {name}: not on the fused route")
+
+    def fused():
+        return A.flash_attention_backward(*args, dbias_of=(0,))
+
+    def unfused():
+        A.flash_attention_backward(*args)
+        return A.flash_attention_dbias(q, k_, v, out, lse, g, biases, 0,
+                                       scale, causal)
+
+    def alone():
+        return A.flash_attention_backward(*args)
+
+    cands = sdpa_candidates(lambda be: sdpa_backward(
+        be, q, k_, v, biases, g, scale, mask_grad=True))
+    each = {be: device_ms(fn) if callable(fn) else fn
+            for be, fn in cands.items()}
+    timed = {be: x for be, x in each.items() if not isinstance(x, str)}
+    best = min(timed, key=timed.get) if timed else None
+    order = [fused, unfused, alone] + ([cands[best]] * 2 if best else []) \
+        + [alone, unfused, fused]
+    turns = [device_ms(fn) for fn in order]
+    ms = (turns[0] + turns[-1]) / 2
+    unf = (turns[1] + turns[-2]) / 2
+    bwd = (turns[2] + turns[-3]) / 2
+    lib = (turns[3] + turns[4]) / 2 if best else None
+    plain = device_ms(lambda: A.flash_attention_backward_ref(
+        *args, dbias_of=(0,)))
+    bound, by = flash_bwd_bound_ms(q, k_, v, biases, dbias_of=(0,))
+    rows[("flash_attention_bwd_dbias", name)] = (ms, plain, lib, bound, by)
     extra[("flash_attention_bwd_dbias", name)] = {
-        "library_backend": lib["library_backend"]}
-    log(f"  time flash_attention_bwd_dbias {name} b={b} n={n} m={m} h={h} "
-        f"d={d} biases={kinds}, the gradient of {tuple(biases[0].shape)}: "
-        f"kernel {ms:.4f} ms (delta by the pre-pass), plain {plain:.4f} ms, "
-        f"bound {bound:.4f} ms ({by}); {library_note(lib)} (SDPA: dq, dk, "
-        f"dv and the unreduced (b, h, n, m) mask gradient)")
+        "unfused_ms": unf, "backward_alone_ms": bwd,
+        "dbias_cost_ms": ms - bwd, "library_backend": best,
+        "turns": turns}
+    log(f"  time fused dbias {name} b={b} n={n} m={m} h={h} d={d} "
+        f"biases={kinds}, with the gradient of {tuple(biases[0].shape)}: "
+        f"one TMA + wgmma call (dq, dk, dv, dbias) {ms:.4f} ms, the backward "
+        f"alone {bwd:.4f} ms (dbias's cost {ms - bwd:.4f} ms), unfused (the "
+        f"backward, then the separate dbias kernel) {unf:.4f} ms "
+        f"({unf / ms:.2f}x), plain {plain:.4f} ms, bound {bound:.4f} ms "
+        f"({by}); library "
+        f"{'none' if lib is None else f'{lib:.4f} ms ({best})'}; backends: "
+        + "; ".join(f"{be} {x:.4f} ms" if not isinstance(x, str)
+                    else f"{be} {x}" for be, x in each.items())
+        + f"; turns {' / '.join(f'{t:.4f}' for t in turns)} ms (SDPA: dq, "
+        f"dk, dv and the unreduced (b, h, n, m) mask gradient)")
 
 
 def timing_compressed(rows, wmma):
@@ -2934,7 +3099,7 @@ def main() -> int:
              csrc + "int8_matmul_wgmma.cu",
              "vlm_compression_tpu/ops/quant.py:84"),
             ("flash_attention_bwd_dbias", DBIAS_TIMED,
-             csrc + "flash_attention_bwd.cu",
+             csrc + "flash_attention_bwd_wgmma.cu",
              "vlm_compression_tpu/ops/attention.py:371"),
             ("matmul_decode", PACKED_TIMED, csrc + "matmul_decode.cu",
              "vlm_compression_tpu/ops/masked_linear.py:194")):
@@ -2947,10 +3112,16 @@ def main() -> int:
         # loop's in the int8 generates (which run no other form: their
         # gates forbid the bool and packed kernels)
         err_key = ({DECODE: "masked_matmul_packed",
-                    "int8_matmul_wgmma": "int8_matmul"}.get(kname, kname),
+                    "int8_matmul_wgmma": "int8_matmul",
+                    "flash_attention_bwd_dbias": "fused_dbias"}.get(kname,
+                                                                    kname),
                    timed, torch.bfloat16)
+        # the dbias row: the bias gradients the TMA + wgmma backward
+        # returned (the separate kernel's launches beside them)
+        dbias = kname == "flash_attention_bwd_dbias"
         launches = {p: (c[WGMMA_LOOP] if p.startswith("generate_int8")
                         else 0) if kname == "int8_matmul_wgmma"
+                    else c[BWD_DBIAS] if dbias
                     else c[kname] + (c[BWD_WGMMA] if bwd else 0)
                     for p, c in counts.items()}
         kernels.append({
@@ -2971,6 +3142,11 @@ def main() -> int:
                               if p.startswith("generate_int8")),
                 "wgmma": sum(launches.values())}}
                if kname == "int8_matmul_wgmma" else {}),
+            **({"launches_by_route": {
+                "fused": sum(launches.values()),
+                "separate_kernel": sum(c[kname] for c in counts.values())},
+                "separate_kernel_source": csrc + "flash_attention_bwd.cu"}
+               if dbias else {}),
             **({"also_replaces": "vlm_compression_tpu/ops/quant.py:84"}
                if kname == DECODE else {}),
             "max_abs_err": worst[err_key],
@@ -2978,8 +3154,9 @@ def main() -> int:
             "library_ms": lib, "shape": timed,
             **({"at_fisher_shape": dict(zip(
                 ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                 "bound_by"), (DBIAS_FISHER, *rows[(kname, DBIAS_FISHER)])))}
-               if kname == "flash_attention_bwd_dbias" else {}),
+                 "bound_by"), (DBIAS_FISHER, *rows[(kname, DBIAS_FISHER)])),
+                **extra[(kname, DBIAS_FISHER)])}
+               if dbias else {}),
             **extra.get((kname, timed), {}),
             **({"wmma_loop_ms": wmma[(kname, timed)]}
                if (kname, timed) in wmma else {})})

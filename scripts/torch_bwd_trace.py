@@ -9,10 +9,10 @@ with ``-DBWD_TRACE`` (block (0, 0, 0) of each launch records ``clock64`` at
 six points of every q step: the producer's issue of the step's loads, the
 consumer warpgroup seeing them land, its Sᵀ and dPᵀ products done, the
 elementwise pass and the dSᵀ tile stored, the dV, dK and dQ products done,
-and the dq atomics issued) into ``build/bwd_trace/``, then runs the bf16
-backward at the ViT's training shape (b=32 n=m=257 h=16 d=88) once to warm
-up and once traced.  Prints the mean SM clocks of each span over the
-block's q steps, then the device time of each of the three passes
+and the dQ tile stored into its slab) into ``build/bwd_trace/``, then
+runs the bf16 backward at the ViT's training shape (b=32 n=m=257 h=16
+d=88) once to warm up and once traced.  Prints the mean SM clocks of each
+span over the block's q steps, then the device time of each of the three passes
 (pre-pass, main kernel, dq cast) from torch.profiler over 10 calls of the
 committed build, and the card's nvidia-smi line.  The traced build is the
 committed kernel plus the stores of the trace.
@@ -68,7 +68,7 @@ def report(lib) -> None:
           f"{mean(landed, issue):.0f}; Sᵀ and dPᵀ products "
           f"{mean(scores, landed):.0f}; elementwise + dSᵀ store + barrier "
           f"{mean(stored, scores):.0f}; dV, dK, dQ products "
-          f"{mean(products, stored):.0f}; dq atomics "
+          f"{mean(products, stored):.0f}; dQ store into its slab "
           f"{mean(done, products):.0f}; waiting for the next step's "
           f"loads {waited:.0f}", flush=True)
 
@@ -113,7 +113,8 @@ def main() -> int:
     out, lse = A.flash_attention(q, k, v, (), scale)
     n_pad = -(-n // 64) * 64
     pads = torch.empty((2, b, h, n_pad), dtype=torch.float32, device=dev)
-    ws = torch.empty((b, h, n_pad, 96), dtype=torch.float32, device=dev)
+    ws = torch.empty((-(-m // 64), b, h, n_pad, 96), dtype=torch.float32,
+                     device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 23)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *([0] * 8),
@@ -125,7 +126,7 @@ def main() -> int:
             out.data_ptr(), lse.data_ptr(), pads[0].data_ptr(),
             pads[1].data_ptr(), ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None, None, strides, b, n, m, h, d, scale, 0,
-            stream)
+            None, None, None, None, 0, stream)
         torch.cuda.synchronize()
         if rc:
             raise RuntimeError(f"launch failed: cudaError {rc}")

@@ -21,6 +21,7 @@ CASES += [
     ("ragged_200", 200, 200, 88, True, True, A.WGMMA),
     ("causal_n_gt_m", 9, 5, 64, True, True, A.WGMMA),
     ("d_40", 72, 72, 40, True, True, A.WGMMA),
+    ("m_576", 72, 576, 64, True, True, A.WGMMA),     # nine kv tiles
     # what the TMA + wgmma kernel does not take: a head dim off 8 (a
     # 16-byte TMA stride), at most 32 or above 96; a misaligned view
     ("d_100", 72, 72, 100, True, True, A.MMA),
@@ -115,6 +116,66 @@ def test_the_wgmma_route_is_one_launch_with_null_outputs(fake_card, need_dq,
     assert len(cargs[14]) == 23 and cargs[15:20] == (2, 257, 257, 4, 88)
     after = _counts()
     assert after == (before[0] + 1, before[1], before[2], before[3])
+
+
+# (case, b, n, m, h, d): the TMA + wgmma backward's dq workspace, an fp32
+# slab a kv tile at every shape — the retrain's batch 32 (every
+# BWD_SHAPES shape), the diagonal Fisher's batch 1, batches between, one
+# kv tile and nine
+SLAB_CASES = [(name, b, n, m, h, d)
+              for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES]
+SLAB_CASES += [
+    ("fisher_vit", 1, 257, 257, 16, 88),
+    ("fisher_qformer_cross", 1, 32, 257, 12, 64),
+    ("fisher_t5_encoder", 1, 72, 72, 32, 64),
+    ("fisher_t5_decoder_self", 1, 12, 12, 32, 64),   # one kv tile
+    ("fisher_t5_decoder_cross", 1, 12, 72, 32, 64),
+    ("vit_b8", 8, 257, 257, 16, 88),
+    ("t5_b16", 16, 72, 72, 32, 64),
+    ("m_576", 2, 72, 576, 4, 64),                     # nine kv tiles
+]
+
+
+def _allocations(monkeypatch):
+    """Record the shape and dtype of every torch.empty call."""
+    made, empty = [], torch.empty
+
+    def spy(*shape, **kw):
+        made.append((tuple(shape[0]) if len(shape) == 1 else shape,
+                     kw.get("dtype")))
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", spy)
+    return made
+
+
+@pytest.mark.parametrize("case,b,n,m,h,d", SLAB_CASES,
+                         ids=[c[0] for c in SLAB_CASES])
+def test_the_dq_workspace_is_a_slab_a_kv_tile(fake_card, monkeypatch, case,
+                                              b, n, m, h, d):
+    """The entry point gets the workspace of (kv tiles, b, h, n rounded up
+    to 64, d padded to 64 or 96) float32, whatever the batch: each kv tile
+    stores its dQ into its own slab and the cast sums them in kv order."""
+    args = _case(b, n, m, h, d)
+    made = _allocations(monkeypatch)
+    A.flash_attention_backward(*args, scale=0.1)
+    (called, cargs), = fake_card.calls
+    assert called == "flash_attention_bwd_wgmma" and cargs[8] is not None
+    slabs = (-(-m // 64), b, h, -(-n // 64) * 64, 64 if d <= 64 else 96)
+    assert (slabs, torch.float32) in made
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_the_wgmma_call_carries_no_scratch_without_dbias(fake_card, b):
+    """Without a bias gradient, the entry point's dbias outputs, their
+    scratch and keep bits are null and 0, at the Fisher's batch and the
+    retrain's alike."""
+    args = _case(b, 257, 257, 16, 88)
+    A.flash_attention_backward(*args, scale=0.1)
+    (called, cargs), = fake_card.calls
+    # ... scale, causal, dbias0, dbias1, their scratch, keep, stream
+    assert cargs[22:27] == (None, None, None, None, 0)
+    assert len(cargs) == 28
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 100),
@@ -338,3 +399,191 @@ def test_forward_impl_raises_on_a_cpu_tensor(impl):
     with pytest.raises(ValueError, match="unsupported device"):
         A.flash_attention(q, k, v, _impl=impl)
     assert _fwd_counts() == before
+
+
+# -------------------------------------------------------------- the dbias
+# (case, bias shape as a function of (b, h, n, m), route, where its
+# gradient comes from): the TMA + wgmma backward returns the gradient of a
+# bias that keeps the query and key dims; the separate dbias kernel takes
+# every other bias, and every bias off that route
+DBIAS_PLANS = [
+    ("rel_1hnm", lambda b, h, n, m: (1, h, n, m), A.WGMMA, A.FUSED),
+    ("bn_b1nm", lambda b, h, n, m: (b, 1, n, m), A.WGMMA, A.FUSED),
+    ("full_bhnm", lambda b, h, n, m: (b, h, n, m), A.WGMMA, A.FUSED),
+    ("one_11nm", lambda b, h, n, m: (1, 1, n, m), A.WGMMA, A.FUSED),
+    ("pad_b11m", lambda b, h, n, m: (b, 1, 1, m), A.WGMMA, A.DBIAS),
+    ("keyd1_bhn1", lambda b, h, n, m: (b, h, n, 1), A.WGMMA, A.DBIAS),
+    ("rel_on_mma", lambda b, h, n, m: (1, h, n, m), A.MMA, A.DBIAS),
+    ("rel_on_fp32", lambda b, h, n, m: (1, h, n, m), A.FP32, A.DBIAS),
+]
+
+
+@pytest.mark.parametrize("case,shape,route,where", DBIAS_PLANS,
+                         ids=[c[0] for c in DBIAS_PLANS])
+def test_plan_dbias_picks_where_the_gradient_comes_from(case, shape, route,
+                                                        where):
+    assert A.plan_dbias(route, shape(4, 8, 72, 72), 72, 72) == where
+
+
+def _dbias_counts():
+    return (A.bwd_wgmma_launches, A.bwd_dbias_outputs, A.dbias_launches,
+            A.delta_launches, A.dq_launches, A.dkv_launches)
+
+
+@pytest.mark.parametrize("kind", ["rel", "bn", "full", "full_causal",
+                                  "rel_b1"])
+@pytest.mark.parametrize("need_qkv", [True, False])
+def test_the_fused_dbias_is_an_output_of_the_wgmma_launch(fake_card,
+                                                         monkeypatch, kind,
+                                                         need_qkv):
+    """A bf16 backward on the TMA + wgmma route with a bias that keeps the
+    query and key dims: one entry-point call (its pre-pass, main kernel,
+    cast and, for a bias it sums over batch or heads, the sum pass) with
+    the dbias pointer set, the bias's keep bits and, where it sums, a
+    (b, h, n, m) float32 scratch; no call of the separate dbias kernel;
+    with no dq, dk, dv asked for the call carries null outputs for them."""
+    b = 1 if kind == "rel_b1" else 2
+    h, n, m, d = 4, 72, 72, 64
+    q, k, v, out, lse, g = _case(b, n, m, h, d)
+    shape = {"rel": (1, h, n, m), "rel_b1": (1, h, n, m), "bn": (b, 1, n, m),
+             "full": (b, h, n, m), "full_causal": (b, h, n, m)}[kind]
+    pad = torch.zeros(b, 1, 1, m)
+    before = _dbias_counts()
+    made = _allocations(monkeypatch)
+    dq, dk, dv, db = A.flash_attention_backward(
+        q, k, v, out, lse, g, [torch.zeros(shape), pad], 0.125,
+        kind == "full_causal", need_qkv, need_qkv, dbias_of=[0])
+    (called, cargs), = fake_card.calls
+    assert called == "flash_attention_bwd_wgmma"
+    assert db.shape == shape and db.dtype == torch.float32
+    assert (dq is None, dk is None) == (not need_qkv, not need_qkv)
+    assert (cargs[9] is None, cargs[10] is None) == (not need_qkv,
+                                                     not need_qkv)
+    # ... scale, causal, dbias0, dbias1, their scratch, keep, stream
+    db0, db1, ws0, ws1, keep = cargs[22:27]
+    assert db0 == db.data_ptr() and db1 is None and ws1 is None
+    kb, kh = shape[0] == b, shape[1] == h
+    assert keep == kb | kh << 1
+    # summed over batch or heads: a scratch of every (batch, head)'s tiles
+    summed = (1 if kb else b) * (1 if kh else h) > 1
+    assert (ws0 is not None) == summed
+    assert made.count(((b, h, n, m), torch.float32)) == \
+        (shape == (b, h, n, m)) + summed
+    after = _dbias_counts()
+    assert [x - y for x, y in zip(after, before)] == [1, 1, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("what", ["pad", "keyd1", "fp32", "bf16_d100",
+                                  "impl_mma"])
+def test_other_bias_gradients_take_the_dbias_kernel(fake_card, what):
+    """fp32, the mma.sync route (a head dim the TMA + wgmma kernel does
+    not hold, or forced) and biases without a query or key dim: the
+    separate dbias kernel, with its own delta pre-pass, beside the
+    backward's launches."""
+    dtype = torch.float32 if what == "fp32" else torch.bfloat16
+    d = 100 if what == "bf16_d100" else 64
+    b, h, n, m = 2, 4, 72, 72
+    q, k, v, out, lse, g = _case(b, n, m, h, d, dtype)
+    bias = torch.zeros({"pad": (b, 1, 1, m),
+                        "keyd1": (b, h, n, 1)}.get(what, (1, h, n, m)))
+    before = _dbias_counts()
+    *_, db = A.flash_attention_backward(
+        q, k, v, out, lse, g, [bias], dbias_of=(0,),
+        _impl=A.MMA if what == "impl_mma" else None)
+    calls = [c for c, _ in fake_card.calls]
+    assert calls[-2:] == ["flash_attention_bwd_delta",
+                          "flash_attention_bwd_dbias"]
+    wg = what in ("pad", "keyd1")
+    assert calls[:-2] == (["flash_attention_bwd_wgmma"] if wg else [
+        "flash_attention_bwd_delta", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"])
+    if wg:   # the backward's call carries no dbias
+        assert fake_card.calls[0][1][22:27] == (None, None, None, None, 0)
+    assert db.shape == bias.shape
+    after = _dbias_counts()
+    assert [x - y for x, y in zip(after, before)][:3] == [int(wg), 0, 1]
+
+
+def test_a_dbias_only_call_off_the_fused_route_launches_no_backward(
+        fake_card):
+    """Only the gradient of a padding mask asked for: no backward launch,
+    the separate dbias kernel alone."""
+    q, k, v, out, lse, g = _case(2, 72, 72, 4, 64)
+    before = _dbias_counts()
+    A.flash_attention_backward(q, k, v, out, lse, g,
+                               [torch.zeros(2, 1, 1, 72)], need_dq=False,
+                               need_dkv=False, dbias_of=(0,))
+    assert [c for c, _ in fake_card.calls] == [
+        "flash_attention_bwd_delta", "flash_attention_bwd_dbias"]
+    after = _dbias_counts()
+    assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("dbias_of", [(2,), (0, 0), (-1,)])
+def test_dbias_of_names_distinct_biases(fake_card, dbias_of):
+    q, k, v, out, lse, g = _case(2, 72, 72, 4, 64)
+    with pytest.raises(ValueError, match="dbias_of"):
+        A.flash_attention_backward(q, k, v, out, lse, g,
+                                   [torch.zeros(1, 4, 72, 72)] * 2,
+                                   dbias_of=dbias_of)
+    assert fake_card.calls == []
+
+
+class _Ctx:
+    """Stands in for autograd's context of ``_FlashAttention``."""
+
+    def __init__(self, saved, needs):
+        self.saved_tensors, self.needs_input_grad = saved, needs
+        self.scale, self.causal = 0.125, False
+
+
+@pytest.mark.parametrize("needs_qkv", [(True, True, True),
+                                       (True, False, False),
+                                       (False, False, False)])
+def test_the_autograd_backward_is_one_call(monkeypatch, needs_qkv):
+    """``_FlashAttention.backward`` off the CPU makes one backward call for
+    q, k, v and every bias that needs a gradient (the other biases get
+    None); on the CPU one call of the plain version, likewise."""
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        q, k = args[0], args[1]
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(k), *(torch.empty_like(args[6][i])
+                                       for i in kw["dbias_of"]))
+
+    monkeypatch.setattr(A, "flash_attention_backward", spy)
+    q = torch.empty(2, 72, 4, 64, device="meta")
+    k = torch.empty(2, 72, 4, 64, device="meta")
+    lse = torch.empty(2, 4, 72, device="meta")
+    rel = torch.empty(1, 4, 72, 72, device="meta")
+    pad = torch.empty(2, 1, 1, 72, device="meta")
+    ctx = _Ctx((q, k, k, q, lse, rel, pad),
+               (*needs_qkv, False, False, True, False))
+    grads = A._FlashAttention.backward(ctx, q)
+    assert len(calls) == 1
+    assert calls[0]["dbias_of"] == [0]
+    assert (calls[0]["need_dq"], calls[0]["need_dkv"]) == (
+        needs_qkv[0], needs_qkv[1] or needs_qkv[2])
+    assert [x is None for x in grads] == [
+        not needs_qkv[0], not needs_qkv[1], not needs_qkv[2], True, True,
+        False, True]
+
+    ref_calls = []
+    ref = A.flash_attention_backward_ref
+
+    def ref_spy(*args, **kw):
+        ref_calls.append(kw)
+        return ref(*args, **kw)
+
+    monkeypatch.setattr(A, "flash_attention_backward_ref", ref_spy)
+    gen = torch.Generator().manual_seed(0)
+    qc, kc, vc = (torch.randn(1, 5, 2, 8, generator=gen).requires_grad_(
+        need) for need in needs_qkv)
+    relc = torch.randn(1, 2, 5, 5, generator=gen, requires_grad=True)
+    padc = torch.zeros(1, 1, 1, 5)
+    out = A.attention_core(qc, kc, vc, [relc, padc], 0.5)
+    torch.autograd.grad(out, [t for t in (qc, kc, vc, relc)
+                              if t.requires_grad], torch.ones_like(out))
+    assert ref_calls == [{"dbias_of": [0]}]

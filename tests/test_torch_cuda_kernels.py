@@ -322,7 +322,7 @@ def test_flash_backward_matches_plain(cuda, dtype, b, n, m, h, d,
 
 # the bf16 TMA + wgmma route (forced where ``plan`` would pick it anyway)
 # and the mma.sync route, each against the plain version, with dq alone
-# and dk/dv alone; the dq atomics sum in another order than the plain
+# and dk/dv alone; the dq slabs' sum runs in another order than the plain
 # version, as the mma.sync kernels' registers do: the bf16 tolerance holds
 BWD_CASES = [
     (2, 257, 257, 16, 88, [], 88 ** -0.5, False),          # EVA ViT-g self
@@ -335,6 +335,7 @@ BWD_CASES = [
     (2, 9, 5, 2, 64, [], 1.0, True),                      # causal, n > m
     (2, 200, 200, 4, 88, [(1, 4, 200, 200)], 0.125, False),   # ragged
     (1, 130, 200, 2, 40, [(1, 1, 130, 200)], 0.1, True),  # ragged, causal
+    (2, 200, 130, 4, 64, [], 0.125, True),    # causal, n > m, 3 kv tiles
 ]
 
 
@@ -428,22 +429,30 @@ def test_attention_autograd_runs_the_backward_kernels(cuda):
         _close(gg, ww, torch.float32)
 
 
-def test_attention_bias_grad_runs_the_dbias_kernel(cuda):
-    q, k, v, biases = _attn_case(cuda, torch.float32, 2, 8, 8, 2, 32,
+# float32 on the CUDA-core kernels: dq and the separate dbias kernel; bf16 on
+# the TMA + wgmma route: one launch that returns dq and the position bias's
+# gradient (a fused dbias output, no dbias launch)
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 64)])
+def test_attention_bias_grad_runs_the_dbias_kernel(cuda, dtype, d):
+    q, k, v, biases = _attn_case(cuda, dtype, 2, 8, 8, 2, d,
                                  [(1, 2, 8, 8), "pad"])
     q.requires_grad_()
     bias = biases[0].requires_grad_()
-    g = torch.randn(2, 8, 2, 32, device=cuda)
-    before = (A.dq_launches, A.dkv_launches, A.dbias_launches)
+    g = torch.randn(2, 8, 2, d, device=cuda).to(dtype)
+    counters = ("dq_launches", "dkv_launches", "dbias_launches",
+                "bwd_wgmma_launches", "bwd_dbias_outputs")
+    before = [getattr(A, c) for c in counters]
     got = torch.autograd.grad(A.attention_core(q, k, v, biases), (q, bias),
                               g)
-    # one dbias launch (the padding mask needs no gradient), dq, no dk/dv
-    assert (A.dq_launches, A.dkv_launches, A.dbias_launches) == (
-        before[0] + 1, before[1], before[2] + 1)
+    # the padding mask needs no gradient; dq, no dk/dv
+    wg = dtype == torch.bfloat16
+    assert [getattr(A, c) - x for c, x in zip(counters, before)] == (
+        [0, 0, 0, 1, 1] if wg else [1, 0, 1, 0, 0])
     want = torch.autograd.grad(A.mha_reference(q, k, v, biases), (q, bias),
                                g)
     for gg, ww in zip(got, want):
-        _close(gg, ww, torch.float32)
+        _close(gg, ww, dtype)
 
 
 # dbias of each bias against its plain version, from the same out and lse:
@@ -475,6 +484,72 @@ def test_flash_dbias_matches_plain(cuda, dtype, b, n, m, h, d, bias_shapes,
         assert got.shape == want.shape == bias.shape
         assert got.dtype == torch.float32
         _close(got, want, dtype)
+
+
+# the gradient of every bias in one backward call, in bf16: the biases that
+# keep the query and key dims on the TMA + wgmma route come out of that
+# kernel (stored, or summed over batch and heads in order by a pass); the
+# others (a key dim of 1, a (b, 1, 1, m) mask, the mma.sync route's head
+# dims) from the separate dbias kernel; each against its plain version
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale,causal", [
+    (16, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0, False),  # T5 enc
+    (1, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0, False),   # Fisher
+    (2, 12, 12, 32, 64, ["relc", "pad"], 1.0, False),     # T5 decoder self
+    (2, 40, 56, 4, 64, [(2, 1, 40, 56)], 0.125, False),   # (b, 1, n, m)
+    (2, 70, 70, 3, 64, [(2, 3, 70, 70)], 0.125, True),    # full, causal
+    (3, 130, 200, 2, 40, [(1, 1, 130, 200)], 0.1, True),  # ragged, causal
+    (2, 9, 30, 3, 32, [(2, 1, 1, 30)], 0.3, False),       # pad, n != m
+    (2, 20, 130, 3, 64, [(2, 3, 20, 1)], 0.3, False),     # key dim 1
+    (1, 200, 200, 2, 88, [(1, 2, 200, 200)], 0.1, False),  # ragged tiles
+])
+@pytest.mark.parametrize("need_qkv", [True, False])
+def test_fused_dbias_matches_plain(cuda, b, n, m, h, d, bias_shapes, scale,
+                                   causal, need_qkv):
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, b, n, m, h, d,
+                                 bias_shapes)
+    g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
+                     device=cuda).to(torch.bfloat16)
+    out, lse = A.flash_attention(q, k, v, biases, scale, causal)
+    routes = [A.plan_dbias(A.plan(n, m, d), A._as_4d(x).shape, n, m)
+              for x in biases]
+    before = (A.bwd_dbias_outputs, A.dbias_launches)
+    got = A.flash_attention_backward(q, k, v, out, lse, g, biases, scale,
+                                     causal, need_qkv, need_qkv,
+                                     dbias_of=range(len(biases)))
+    assert (A.bwd_dbias_outputs - before[0], A.dbias_launches - before[1]) \
+        == (routes.count(A.FUSED), routes.count(A.DBIAS))
+    want = A.flash_attention_backward_ref(q, k, v, out, lse, g, biases,
+                                          scale, causal,
+                                          dbias_of=range(len(biases)))
+    for i, (gg, ww) in enumerate(zip(got, want)):
+        if i < 3 and not need_qkv:
+            assert gg is None
+            continue
+        assert gg.shape == ww.shape
+        _close(gg, ww, torch.bfloat16)
+
+
+# dq, dk, dv and the fused dbias are summed in fixed orders (dq over the
+# kv tiles, dbias over the batches): two identical calls are bit-equal
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes,scale", [
+    (16, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0),   # T5 encoder
+    (1, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0),    # the Fisher's
+    (8, 257, 257, 16, 88, [], 88 ** -0.5),                 # EVA ViT-g
+])
+def test_backward_two_calls_are_bit_equal(cuda, b, n, m, h, d, bias_shapes,
+                                          scale):
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, b, n, m, h, d,
+                                 bias_shapes)
+    g = torch.tensor(np.random.default_rng(9).standard_normal((b, n, h, d)),
+                     device=cuda).to(torch.bfloat16)
+    out, lse = A.flash_attention(q, k, v, biases, scale)
+    dbias_of = (0,) if biases else ()
+    one, two = (A.flash_attention_backward(q, k, v, out, lse, g, biases,
+                                           scale, dbias_of=dbias_of)
+                for _ in range(2))
+    assert len(one) == 3 + len(dbias_of)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
 
 
 # ------------------------------------------- packed-mask and int8 kernels

@@ -503,3 +503,41 @@ def test_flash_dbias_ref_matches_autograd(case):
                                            torch.logsumexp(s, -1), _t(g), tb,
                                            i, scale, causal)
         np.testing.assert_allclose(got.numpy(), w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", DBIAS_CASES)
+def test_backward_ref_dbias_of_matches_dbias_ref_and_jax(jax_flash, case):
+    """The whole backward's plain version with ``dbias_of`` (every bias):
+    dq, dk, dv as without it, then each bias's gradient equal to
+    ``flash_attention_dbias_ref``'s and, within the dbias tolerance above,
+    to jax.vjp's through the JAX attention_core (flash kernels in
+    interpret mode; the reference VJP for the key dim 1)."""
+    import jax
+
+    b, n, m, h, d, shapes, scale, causal = case
+    q, k, v, biases, g = _bwd_inputs(np.random.default_rng(19), b, n, m, h,
+                                     d, shapes)
+    _, vjp = jax.vjp(lambda bs: JA.attention_core(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), list(bs),
+        scale=scale, causal=causal), tuple(jnp.asarray(x) for x in biases))
+    (jbs,) = vjp(jnp.asarray(g))
+    qt, kt, vt, gt = (_t(t) for t in (q, k, v, g))
+    tb = [_t(x) for x in biases]
+    s = TA._scores(qt, kt, tb, scale, causal)
+    out = TA.mha_reference(qt, kt, vt, tb, scale, causal)
+    lse = torch.logsumexp(s, -1)
+    every = tuple(range(len(tb)))
+    got = TA.flash_attention_backward_ref(qt, kt, vt, out, lse, gt, tb,
+                                          scale, causal, dbias_of=every)
+    plain = TA.flash_attention_backward_ref(qt, kt, vt, out, lse, gt, tb,
+                                            scale, causal)
+    assert len(got) == 3 + len(tb) and len(plain) == 3
+    for x, y in zip(got[:3], plain):
+        assert torch.equal(x, y)
+    for i, (db, jdb) in enumerate(zip(got[3:], jbs)):
+        want = TA.flash_attention_dbias_ref(qt, kt, vt, out, lse, gt, tb, i,
+                                            scale, causal)
+        assert db.shape == want.shape == jdb.shape
+        assert torch.equal(db, want)
+        np.testing.assert_allclose(db.numpy(), _np(jdb), atol=2e-5,
+                                   rtol=1e-4)

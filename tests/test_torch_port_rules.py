@@ -277,15 +277,17 @@ def test_the_attention_backward_is_tma_wgmma_and_mbarriers():
     """The bf16 attention backward's main kernel loads its tiles by TMA
     through an mbarrier ring and multiplies with warpgroup MMAs (SS and
     RS), from the shared Hopper helpers, which the matmuls' loop uses
-    too; its source builds on its own."""
+    too; dq is summed over slabs a kv tile by the cast, a broadcast dbias
+    over its (batch, head) tiles by a pass of its own; its source builds on
+    its own."""
     src = (_cuda.CSRC / "flash_attention_bwd_wgmma.cu").read_text()
     hopper = (_cuda.CSRC / "hopper.cuh").read_text()
     assert '#include "hopper.cuh"' in src
     for call in ("tma_load_4d", "bulk_load", "mbar_expect_tx", "mbar_wait",
                  "mbar_arrive", "wgmma_ss_n64", "wgmma_rs_dp",
                  "wgmma_ss_dp", "wgmma_commit", "wgmma_wait", "setmaxnreg",
-                 "fence.proxy.async", "atomicAdd", "flash_bwd_delta_kernel",
-                 "flash_bwd_dq_cast_kernel"):
+                 "fence.proxy.async", "dbias_tile", "flash_bwd_delta_kernel",
+                 "flash_bwd_dq_cast_kernel", "flash_bwd_dbias_sum_kernel"):
         assert call in src, call
     for ptx in ("cp.async.bulk.tensor.4d", "cp.async.bulk.shared",
                 "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
@@ -295,6 +297,24 @@ def test_the_attention_backward_is_tma_wgmma_and_mbarriers():
     assert '#include "hopper.cuh"' in (_cuda.CSRC / "wgmma_tile.cuh") \
         .read_text()
     assert "flash_attention_bwd_wgmma" in _cuda.SOURCES
+
+
+def _code(src: str) -> str:
+    """A CUDA source with its comments stripped."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+
+
+def test_the_attention_backward_has_no_atomics():
+    """The bf16 attention backward sums dq over the kv tiles, and a dbias
+    over the batches and heads it broadcasts, in one fixed order, and no
+    block waits on another: its code (comments stripped) and the helpers it
+    includes hold no atomic add, no reduction instruction, no atomic
+    operation and no acquire load to poll a flag with."""
+    code = _code((_cuda.CSRC / "flash_attention_bwd_wgmma.cu").read_text())
+    hopper = _code((_cuda.CSRC / "hopper.cuh").read_text())
+    for banned in ("atomicAdd", "atomicCAS", "atomicExch", "red.global",
+                   "red.async", "atom.", "ld.acquire"):
+        assert banned not in code + hopper, banned
 
 
 def test_the_attention_forward_is_tma_wgmma_and_mbarriers():

@@ -92,8 +92,10 @@ _SIGNATURES = {
     "flash_attention_bwd_wgmma": {
         "flash_attention_bwd_delta": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _P],
+        # ... scale, causal, the two dbias outputs, their scratch, their
+        # keep bits, the stream
         "flash_attention_bwd_wgmma": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _I,
-                                                  _P],
+                                                  _P, _P, _P, _P, _I, _P],
     },
 }
 

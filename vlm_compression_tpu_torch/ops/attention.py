@@ -12,9 +12,9 @@ identical in every version:
 and the flash backward of the JAX package's kernels, from the saved
 log-sum-exp:
 
-  p  = exp(s − lse);  delta = rowsum(g ⊙ out)
-  dv = pᵀ·g;  ds = p ⊙ (g·vᵀ − delta) · scale;  dq = ds·k;  dk = dsᵀ·q
-  dbias_i = p ⊙ (g·vᵀ − delta), summed over bias i's broadcast axes (fp32)
+  p  = exp(s − lse);  delta = rowsum(g ⊙ out);  u = p ⊙ (g·vᵀ − delta)
+  dv = pᵀ·g;  ds = u · scale;  dq = ds·k;  dk = dsᵀ·q
+  dbias_i = u, summed over bias i's broadcast axes (fp32)
 
 where entries the causal flag hides get ds = 0 (it is a ``where`` in the
 reference, so they carry no gradient — rows that see no key included).
@@ -26,17 +26,22 @@ the forward route ``plan_forward`` picks — the bf16 TMA + wgmma kernel of
 ``csrc/flash_attention_fwd_wgmma.cu``, or the kernels of
 ``csrc/flash_attention.cu`` (bf16 on mma.sync where the first does not
 take the call, fp32 on the CUDA cores) — and whose backward runs
-``flash_attention_backward_ref`` and ``flash_attention_dbias_ref`` on the
-CPU and, on the card, the backward route ``plan`` picks — the bf16 TMA +
-wgmma kernel of ``csrc/flash_attention_bwd_wgmma.cu`` (with its delta
-pre-pass and dq cast), or the dq and dk/dv kernels of
-``csrc/flash_attention_bwd.cu`` (fp32, and bf16 the first does not take) —
-and the dbias kernel (once for each bias that needs a gradient, any
-broadcast pattern including a key dim of 1): launch or raise, no fallback.
+``flash_attention_backward_ref`` (with ``flash_attention_dbias_ref`` for
+the biases) on the CPU and, on the card, one call of
+``flash_attention_backward`` for q, k, v and every bias that needs a
+gradient, on the route ``plan`` picks — the bf16 TMA + wgmma kernel of
+``csrc/flash_attention_bwd_wgmma.cu`` (with its delta pre-pass and dq
+cast; dq summed over the kv tiles in a fixed order), which also returns
+the gradient of each bias that keeps the query and key dims, or the dq and
+dk/dv kernels of ``csrc/flash_attention_bwd.cu`` (fp32, and bf16 the first
+does not take) — and, for every other bias gradient (``plan_dbias``: fp32,
+the mma.sync route, a bias without a query or key dim), the dbias kernel
+of that file: launch or raise, no fallback.
 ``launches`` (every forward), ``fwd_wgmma_launches`` (the forward's TMA +
 wgmma route), ``bwd_wgmma_launches``, ``dq_launches``, ``dkv_launches``,
 ``dbias_launches`` and ``delta_launches`` (the pre-pass alone, for the
-other two) count kernel launches; ``shape_launches`` the forward's by
+other two) count kernel launches; ``bwd_dbias_outputs`` the bias gradients
+the TMA + wgmma backward returned; ``shape_launches`` the forward's by
 shape and route.
 """
 
@@ -58,6 +63,7 @@ dq_launches = 0
 dkv_launches = 0
 dbias_launches = 0
 delta_launches = 0
+bwd_dbias_outputs = 0
 # (b, n, m, h, d, route) -> forward launches
 shape_launches: dict = {}
 
@@ -95,13 +101,16 @@ def mha_reference(q, k, v, biases: Sequence[torch.Tensor] = (),
 
 def flash_attention_backward_ref(q, k, v, out, lse, g,
                                  biases: Sequence[torch.Tensor] = (),
-                                 scale: float = 1.0, causal: bool = False):
-    """Plain version of the backward kernels: (dq, dk, dv) from the saved
-    out and lse (b, h, n), recomputing p = exp(s − lse) as they do (an
-    entry the causal flag hides takes its exact p, 1/m in a row that sees
-    no key and 0 elsewhere, and ds = 0).  ds is cast to k's (q's) dtype
-    before ds·k (dsᵀ·q), p to g's dtype before pᵀ·g, as in the JAX
-    kernels; products accumulate in fp32."""
+                                 scale: float = 1.0, causal: bool = False,
+                                 dbias_of: Sequence[int] = ()):
+    """Plain version of the backward kernels: (dq, dk, dv, *dbias) from the
+    saved out and lse (b, h, n), recomputing p = exp(s − lse) as they do
+    (an entry the causal flag hides takes its exact p, 1/m in a row that
+    sees no key and 0 elsewhere, and ds = 0).  ds is cast to k's (q's)
+    dtype before ds·k (dsᵀ·q), p to g's dtype before pᵀ·g, as in the JAX
+    kernels; products accumulate in fp32.  After dq, dk, dv comes
+    ``flash_attention_dbias_ref``'s gradient of each bias in ``dbias_of``,
+    in that order."""
     s = _scores(q, k, biases, scale, causal)
     p = torch.exp(s - lse[..., None])
     delta = torch.einsum("bnhd,bnhd->bhn", g.float(), out.float())
@@ -118,7 +127,9 @@ def flash_attention_backward_ref(q, k, v, out, lse, g,
     dq = torch.einsum("bhnm,bmhd->bnhd", ds.to(k.dtype).float(), k.float())
     dk = torch.einsum("bhnm,bnhd->bmhd", ds.to(q.dtype).float(), q.float())
     dv = torch.einsum("bhnm,bnhd->bmhd", p.to(g.dtype).float(), g.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dbs = [flash_attention_dbias_ref(q, k, v, out, lse, g, biases, i, scale,
+                                     causal) for i in dbias_of]
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), *dbs)
 
 
 def flash_attention_dbias_ref(q, k, v, out, lse, g,
@@ -143,8 +154,8 @@ def flash_attention_dbias_ref(q, k, v, out, lse, g,
 
 class _FlashAttention(torch.autograd.Function):
     """Forward saves q, k, v, out, lse and the biases at their broadcast
-    shapes; backward runs the dq, dk/dv and dbias kernels (plain versions
-    on the CPU), each only where a gradient is needed."""
+    shapes; backward makes one backward call (the plain version on the
+    CPU) for the gradients of q, k, v and of every bias that needs one."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, *biases):
@@ -164,16 +175,17 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, *biases = ctx.saved_tensors
         need = ctx.needs_input_grad
         args = (q, k, v, out, lse, g, biases, ctx.scale, ctx.causal)
-        dq = dk = dv = None
-        cpu = q.device.type == "cpu"
-        if any(need[:3]):
-            dq, dk, dv = (flash_attention_backward_ref(*args) if cpu else
-                          flash_attention_backward(
-                              *args, need_dq=need[0],
-                              need_dkv=need[1] or need[2]))
-        dbias = flash_attention_dbias_ref if cpu else flash_attention_dbias
-        dbs = [dbias(q, k, v, out, lse, g, biases, i, ctx.scale, ctx.causal)
-               if need[5 + i] else None for i in range(len(biases))]
+        want = [i for i in range(len(biases)) if need[5 + i]]
+        if q.device.type == "cpu":
+            dq, dk, dv, *got = flash_attention_backward_ref(
+                *args, dbias_of=want)
+        else:
+            dq, dk, dv, *got = flash_attention_backward(
+                *args, need_dq=need[0], need_dkv=need[1] or need[2],
+                dbias_of=want)
+        dbs = [None] * len(biases)
+        for i, db in zip(want, got):
+            dbs[i] = db
         return (dq if need[0] else None, dk if need[1] else None,
                 dv if need[2] else None, None, None, *dbs)
 
@@ -407,6 +419,27 @@ def plan(n: int, m: int, d: int, *, bf16: bool = True,
     return MMA
 
 
+# where a bias's gradient comes from (``plan_dbias``)
+FUSED = "fused"   # an output of the TMA + wgmma backward
+DBIAS = "dbias"   # the dbias kernel of csrc/flash_attention_bwd.cu
+
+
+def plan_dbias(route: str, shape: Sequence[int], n: int, m: int) -> str:
+    """Where the gradient of a bias of 4-d ``shape`` comes from in a
+    backward on ``route`` (``plan``'s), from the route and the shape alone
+    (a routed decision, never a launch that is retried):
+
+    - the TMA + wgmma route and a bias that keeps the query and key dims,
+      (1 | b, 1 | h, n, m): FUSED, an output of that route's kernel (its
+      uᵀ tiles stored, or summed over batch and heads in a fixed order by
+      a small pass), no recompute of S or dP;
+    - every other call — fp32, the mma.sync route, a bias without a query
+      or key dim ((b, 1, 1, m), a key dim of 1): DBIAS, the dbias kernel.
+    """
+    return FUSED if route == WGMMA and shape[2] == n and shape[3] == m \
+        else DBIAS
+
+
 def _backward_layout(q, k, v, out, lse, g, biases, what):
     """_layout plus g's strides; g and out with a contiguous last dim and
     the contiguous lse.  (delta = rowsum(g ⊙ out) is formed on the card by
@@ -448,13 +481,18 @@ def flash_attention_backward(q, k, v, out, lse, g,
                              biases: Sequence[torch.Tensor] = (),
                              scale: float = 1.0, causal: bool = False,
                              need_dq: bool = True, need_dkv: bool = True,
+                             dbias_of: Sequence[int] = (),
                              _impl: Optional[str] = None):
-    """Launch the backward on CUDA tensors → (dq, dk, dv) in the layouts
-    and dtypes of q, k, v (None for a gradient not asked for).  ``lse`` is
-    the forward's (b, h, n) float32 log-sum-exp.  The route is ``plan``'s;
-    ``_impl`` (internal: the timing phase of chip_smoke.py) forces WGMMA
-    or MMA, and raises where that route cannot take the call."""
-    global bwd_wgmma_launches, dq_launches, dkv_launches
+    """Launch the backward on CUDA tensors → (dq, dk, dv, *dbias): dq, dk,
+    dv in the layouts and dtypes of q, k, v (None for a gradient not asked
+    for), then the gradient of each bias in ``dbias_of``, float32 at its
+    4-d shape — an output of the same TMA + wgmma launch where
+    ``plan_dbias`` says FUSED, else the dbias kernel's
+    (``flash_attention_dbias``).  ``lse`` is the forward's (b, h, n)
+    float32 log-sum-exp.  The route is ``plan``'s; ``_impl`` (internal:
+    the timing phase of chip_smoke.py) forces WGMMA or MMA, and raises
+    where that route cannot take the call."""
+    global bwd_wgmma_launches, dq_launches, dkv_launches, bwd_dbias_outputs
     strides, ptrs, vec, g, out, lse = _backward_layout(
         q, k, v, out, lse, g, biases, "flash_attention_backward")
     dev = q.device
@@ -469,6 +507,14 @@ def flash_attention_backward(q, k, v, out, lse, g,
             raise ValueError(f"flash_attention_backward: route {_impl!r} "
                              f"cannot take this call (plan: {route})")
         route = _impl
+    dbias_of = tuple(dbias_of)
+    if len(set(dbias_of)) != len(dbias_of) or \
+            not all(0 <= i < len(biases) for i in dbias_of):
+        raise ValueError(f"flash_attention_backward: dbias_of {dbias_of} "
+                         f"for {len(biases)} biases")
+    shapes = {i: tuple(_as_4d(biases[i]).shape) for i in dbias_of}
+    fused = [i for i in dbias_of
+             if plan_dbias(route, shapes[i], n, m) == FUSED]
     dq = torch.empty((b, n, h, d), dtype=q.dtype, device=dev) \
         if need_dq else None
     dk, dv = (torch.empty((b, m, h, d), dtype=k.dtype, device=dev),
@@ -477,12 +523,26 @@ def flash_attention_backward(q, k, v, out, lse, g,
     if b * n * h == 0:
         return (dq if dq is None else dq.zero_(),
                 dk if dk is None else dk.zero_(),
-                dv if dv is None else dv.zero_())
-    if route == WGMMA:
+                dv if dv is None else dv.zero_(),
+                *(torch.zeros(shapes[i], dtype=torch.float32, device=dev)
+                  for i in dbias_of))
+    dbias = {i: torch.empty(shapes[i], dtype=torch.float32, device=dev)
+             for i in fused}
+    if route == WGMMA and (need_dq or need_dkv or fused):
         n_pad, d_pad = -(-n // 64) * 64, 64 if d <= 64 else 96
         pads = torch.empty((2, b, h, n_pad), dtype=torch.float32, device=dev)
-        ws = torch.empty((b, h, n_pad, d_pad), dtype=torch.float32,
-                         device=dev) if need_dq else None
+        # dq: an fp32 slab a kv tile, which the cast sums in kv order
+        ws = torch.empty((-(-m // 64), b, h, n_pad, d_pad),
+                         dtype=torch.float32, device=dev) \
+            if need_dq else None
+        # bits 2i and 2i + 1: fused bias i keeps the batch, the head; one
+        # that broadcasts over either (b or h above 1) takes a (b, h, n, m)
+        # scratch of the (batch, head) tiles, which a pass sums in order
+        keeps = {i: (shapes[i][0] == b, shapes[i][1] == h) for i in fused}
+        keep = sum((kb | kh << 1) << 2 * i for i, (kb, kh) in keeps.items())
+        sums = {i: torch.empty((b, h, n, m), dtype=torch.float32, device=dev)
+                for i, (kb, kh) in keeps.items()
+                if (1 if kb else b) * (1 if kh else h) > 1}
         ptr = (lambda t: None if t is None else t.data_ptr())
         err = _cuda.library("flash_attention_bwd_wgmma") \
             .flash_attention_bwd_wgmma(
@@ -491,26 +551,34 @@ def flash_attention_backward(q, k, v, out, lse, g,
                 pads[1].data_ptr(), ptr(ws), ptr(dq), ptr(dk), ptr(dv),
                 ptrs[0], ptrs[1],
                 _WGMMA_STRIDES(*strides, *out.stride()[:3]), b, n, m, h, d,
-                float(scale), int(bool(causal)), _cuda.stream_ptr(dev))
+                float(scale), int(bool(causal)), ptr(dbias.get(0)),
+                ptr(dbias.get(1)), ptr(sums.get(0)), ptr(sums.get(1)), keep,
+                _cuda.stream_ptr(dev))
         _cuda.check(err, "flash_attention_bwd_wgmma")
         bwd_wgmma_launches += 1
-        return dq, dk, dv
-    delta = _delta(g, out)
-    lib = _cuda.library("flash_attention_bwd")
-    common = (int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              g.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    tail = (ptrs[0], ptrs[1], _BWD_STRIDES(*strides), b, n, m, h, d,
-            float(scale), int(bool(causal)), vec, _cuda.stream_ptr(dev))
-    if need_dq:
-        _cuda.check(lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *tail),
-                    "flash_attention_bwd_dq")
-        dq_launches += 1
-    if need_dkv:
-        _cuda.check(lib.flash_attention_bwd_dkv(*common, dk.data_ptr(),
-                                                dv.data_ptr(), *tail),
-                    "flash_attention_bwd_dkv")
-        dkv_launches += 1
-    return dq, dk, dv
+        bwd_dbias_outputs += len(fused)
+    elif route != WGMMA and (need_dq or need_dkv):
+        delta = _delta(g, out)
+        lib = _cuda.library("flash_attention_bwd")
+        common = (int(bf16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        tail = (ptrs[0], ptrs[1], _BWD_STRIDES(*strides), b, n, m, h, d,
+                float(scale), int(bool(causal)), vec, _cuda.stream_ptr(dev))
+        if need_dq:
+            _cuda.check(lib.flash_attention_bwd_dq(*common, dq.data_ptr(),
+                                                   *tail),
+                        "flash_attention_bwd_dq")
+            dq_launches += 1
+        if need_dkv:
+            _cuda.check(lib.flash_attention_bwd_dkv(*common, dk.data_ptr(),
+                                                    dv.data_ptr(), *tail),
+                        "flash_attention_bwd_dkv")
+            dkv_launches += 1
+    for i in dbias_of:
+        if i not in dbias:
+            dbias[i] = flash_attention_dbias(q, k, v, out, lse, g, biases, i,
+                                             scale, causal)
+    return (dq, dk, dv, *(dbias[i] for i in dbias_of))
 
 
 def flash_attention_dbias(q, k, v, out, lse, g,
