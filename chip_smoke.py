@@ -51,9 +51,16 @@ each of which fails the run (non-zero exit, no result line) on error:
                 Wanda masks under it (bit-equal), the VQA task's
                 ``valid_step`` in generate (beam 2) and rank mode (answers
                 equal; ``predict_class_t5``'s NLLs within 1e-4);
-                SparseGPT at an XL shape on the card vs the CPU (mask bits
-                that differ), and one batched group of linears against its
-                members one by one;
+                every pruner name of the launcher grid's other pruners
+                (``t5_``/``vit_wanda``, ``{t5,vit,blipt5}_dsnot``
+                unstructured and 2:4 with the wanda and sparsegpt initial
+                metrics, ``blipt5_{mag,absmag,aobd,mezo}``: masks
+                bit-equal; ``rand``: two runs on the card from one seed
+                bit-equal); SparseGPT at an XL shape on the card vs the CPU
+                (mask bits that differ), and one batched group of linears
+                against its members one by one; DSnoT at the T5-XL wo
+                shape, unstructured and 2:4 (at most 1e-4 of the mask
+                entries differ, cycles equal);
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -104,12 +111,28 @@ each of which fails the run (non-zero exit, no result line) on error:
                 output of the TMA + wgmma backward; the separate dbias
                 kernel never launched),
                 ``prune_by_importance`` at keep 0.5 and beam-5 generate;
-  8. profile  — the main path once more under torch.profiler (prune,
-                generate, one train step), the SparseGPT prune, and the
+  8. grid path — a fourth full-width XL model (seed 3, no adapters; its
+                dense kernels restored between pruners):
+                ``blipt5_dsnot_pruner`` (the grid's defaults, masks kept;
+                the cycle histogram over the 588 linears, the refinement's
+                share of the prune) and beam-5 generate; ``mag`` and
+                ``rand`` layerwise, ``mag`` global (the threshold's
+                defining property counted on the card); ``aobd`` on the
+                128 samples (the TMA + wgmma attention backward, no bias
+                gradient); the grid's zeroth entry (``blipt5_wanda_pruner``
+                with a block ``olmezo-gradient_sum`` allocation) scoring
+                ONE sample at batch 1 — the path's one cut: the grid scores
+                32 — and beam-5 generate.  Each tower at 0.5 ± 0.01 (the
+                zeroth entry: the parameter-weighted mean of its ratios and
+                its masks), finite losses, every shape launched one that
+                phase 3 checked;
+  9. profile  — the main path once more under torch.profiler (prune,
+                generate, one train step), the SparseGPT prune, the
                 first-order path's Fisher (its attention backward's device
-                time a sample) and EcoFLaP prune: device time by kernel
-                group against each phase's unprofiled wall-clock;
-  9. timing   — kernel, plain-version and library-call times (CUDA events,
+                time a sample) and EcoFLaP prune, and the grid path's
+                prunes (the zeroth scoring of 24 keys): device time by
+                kernel group against each phase's unprofiled wall-clock;
+ 10. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
@@ -138,7 +161,9 @@ EcoFLaP prune and the Fisher, and its backward in the last three; the
 Fisher's position-bias gradients from that backward), none that the phase
 must not run (the separate dbias kernel in the retrain step, the EcoFLaP
 prune and the Fisher, the bool kernel in a packed or int8 phase, the
-packed one in an int8 phase); the decode kernel in every generate
+packed one in an int8 phase; any kernel in the magnitude and random
+prunes; any attention backward in the DSnoT and zeroth prunes; the dbias
+outputs, the masked matmul and the WMMA loop in the aobd prune); the decode kernel in every generate
 phase of a masked or int8 model, and no WMMA-loop launch at all in any
 generate phase, the retrain step or the three VQA phases (which must run
 the Hopper loop and the TMA + wgmma forward).  WMMA-loop launches left in other
@@ -290,6 +315,24 @@ FLASH_SHAPES = [
     ("t5_cross_beam_step", 320, 1, 44, 32, 64, ["pad"], 1.0),
     ("t5_decoder_self_rank", 2048, 4, 4, 32, 64, ["relc"], 1.0),
     ("t5_cross_rank", 2048, 4, 44, 32, 64, ["pad"], 1.0),
+    # the grid path (grid_path): the decoder's cross-attention in the
+    # calibration sweeps (b = 128); the aobd pruner's passes at b = 16
+    # (decoder); the zeroth entry's scoring forwards and the batch-1 stems
+    # of its sweep; the towers at generate (b = 4 requests).  grid_path
+    # fails if it launches a shape not listed
+    ("t5_decoder_cross_calib", 128, 12, 72, 32, 64, ["pad"], 1.0),
+    ("t5_decoder_self_b16", 16, 12, 12, 32, 64, ["rel", "pad"], 1.0),
+    ("t5_decoder_cross_b16", 16, 12, 72, 32, 64, ["pad"], 1.0),
+    ("vit_self_b1", 1, 257, 257, 16, 88, [], 88 ** -0.5),
+    ("qformer_cross_b1", 1, 32, 257, 12, 64, ["pad"], 0.125),
+    ("qformer_self_b1", 1, 72, 72, 12, 64, ["pad"], 0.125),
+    ("t5_encoder_b1", 1, 72, 72, 32, 64, ["rel", "pad"], 1.0),
+    ("t5_decoder_self_b1", 1, 12, 12, 32, 64, ["rel", "pad"], 1.0),
+    ("t5_decoder_cross_b1", 1, 12, 72, 32, 64, ["pad"], 1.0),
+    ("vit_self_gen", 4, 257, 257, 16, 88, [], 88 ** -0.5),
+    ("qformer_cross_gen", 4, 32, 257, 12, 64, ["pad"], 0.125),
+    ("qformer_self_gen", 4, 72, 72, 12, 64, ["pad"], 0.125),
+    ("t5_encoder_gen", 4, 72, 72, 32, 64, ["rel", "pad"], 1.0),
 ]
 FLASH_TIMED = "vit_self_calib"
 
@@ -1236,6 +1279,164 @@ def sparsegpt_check():
             "sparsegpt_group8_one_by_one_s": t_s}
 
 
+def tiny_grid_pruners_check():
+    """The launcher grid's other pruners on a tiny float32 InstructBLIP-T5
+    (std 0.02, biases drawn too, so the Hessians the sparsegpt initial
+    metric factors are regular, as in the CPU parity tests): the same
+    weights and batches on the card and on the CPU, every keep-mask
+    bit-equal — ``t5_`` / ``vit_wanda_pruner`` on the bare towers,
+    ``{t5,vit,blipt5}_dsnot_pruner`` (unstructured and 2:4, the wanda and
+    sparsegpt initial metrics), ``blipt5_{mag,absmag,aobd,mezo}_pruner``
+    (mezo under the global threshold, its z from numpy through
+    ``noise_fn``); ``rand``: each layer's density, and two runs on the
+    card from one seed bit-equal."""
+    import numpy as np
+
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+        Blip2T5Instruct,
+        Blip2T5InstructConfig,
+    )
+    from vlm_compression_tpu_torch.models.bridge import (
+        export_masks,
+        random_init_,
+    )
+    from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+    from vlm_compression_tpu_torch.models.t5 import T5Config
+
+    f32 = dict(param_dtype="float32", dtype="float32")
+    cfg = Blip2T5InstructConfig.tiny(
+        vit=EvaViTConfig.tiny(**f32), qformer=QFormerConfig.tiny(
+            dtype="float32"), t5=T5Config.tiny(d_model=16, **f32))
+    cpu = random_init_(Blip2T5Instruct(cfg, device="cpu"), seed=10, std=0.02)
+    g = torch.Generator().manual_seed(10)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.rsplit(".", 1)[-1] == "bias":
+                p.normal_(0.0, 0.02, generator=g)
+
+    def batch(b):
+        return dict(
+            image=torch.randn(b, 28, 28, 3, generator=g),
+            input_ids=torch.randint(2, 96, (b, 5), generator=g),
+            attention_mask=torch.ones(b, 5, dtype=torch.int64),
+            labels=torch.randint(2, 96, (b, 4), generator=g),
+            qformer_input_ids=torch.randint(2, 64, (b, 5), generator=g),
+            qformer_attention_mask=torch.ones(b, 5, dtype=torch.int64))
+
+    calib = [batch(4), batch(4)]
+    noise, nrng = {}, np.random.default_rng(10)
+
+    def noise_fn(tag, key, shape):
+        # drawn on the first run, replayed on the second
+        if (tag, key) not in noise:
+            noise[(tag, key)] = nrng.standard_normal(shape).astype(
+                np.float32)
+        return noise[(tag, key)]
+
+    towers = {
+        "t5": (lambda m: m.t5_model, ("input_ids", "attention_mask",
+                                      "labels")),
+        "vit": (lambda m: m.visual_encoder, ("image",)),
+        "blipt5": (lambda m: m, tuple(calib[0]))}
+    spec = dict(vit_prune_spec="2-0.5-1.0-1.0", t5_prune_spec="2-0.5-1.0-1.0",
+                num_samples=8)
+    # a low update threshold keeps DSnoT cycling at this model's scale
+    ds = dict(update_threshold=1e-4)
+    nm = dict(prune_n=2, prune_m=4)
+    sg = dict(initial_method="sparsegpt")
+    cases = [("t5_wanda_pruner", {}), ("vit_wanda_pruner", {}),
+             ("t5_dsnot_pruner", ds), ("t5_dsnot_pruner", {**ds, **nm, **sg}),
+             ("vit_dsnot_pruner", {**ds, **nm}),
+             ("vit_dsnot_pruner", {**ds, **sg}),
+             ("blipt5_dsnot_pruner", ds), ("blipt5_dsnot_pruner", {**ds, **nm}),
+             ("blipt5_dsnot_pruner", {**ds, **sg}),
+             ("blipt5_dsnot_pruner", {**ds, **nm, **sg}),
+             ("blipt5_mag_pruner", {}),
+             ("blipt5_mag_pruner", dict(is_global=True)),
+             ("blipt5_absmag_pruner", {}), ("blipt5_aobd_pruner", {}),
+             ("blipt5_mezo_pruner", dict(is_global=True, noise_fn=noise_fn,
+                                         noise_eps=5e-2, num_samples=4))]
+
+    def prune(name, model, batches, **kw):
+        get, fields = towers[name.split("_")[0]]
+        tower = get(model)
+        with torch.no_grad():
+            load_pruner(name, tower, [{k: b[k] for k in fields}
+                                      for b in batches],
+                        **{**spec, **kw}).prune(lora_model=True)
+        return export_masks(tower)
+
+    on_card = [{k: v.cuda() for k, v in b.items()} for b in calib]
+    for name, kw in cases:
+        mc = prune(name, copy.deepcopy(cpu), calib, **kw)
+        mg = prune(name, copy.deepcopy(cpu).to("cuda"), on_card, **kw)
+        flips = sum(int((mc[p] != mg[p]).sum()) for p in mc)
+        dens = sum(int(m.sum()) for m in mc.values()) / sum(
+            m.size for m in mc.values())
+        knobs = {k: v for k, v in kw.items() if k != "noise_fn"}
+        log(f"  tiny fp32 {name} {json.dumps(knobs)}, card vs CPU: "
+            f"{len(mc)} masks, density {dens:.4f}, {flips} bits differ")
+        if not mc or set(mc) != set(mg) or flips:
+            raise AssertionError(f"tiny {name} {knobs}, card vs CPU")
+
+    runs = [prune("blipt5_rand_pruner", copy.deepcopy(cpu).to("cuda"),
+                  on_card, seed=5) for _ in range(2)]
+    same = all(np.array_equal(runs[0][p], runs[1][p]) for p in runs[0])
+    exact = all(int(m.sum()) == m.size - int(0.5 * m.size)
+                for m in runs[0].values())
+    log(f"  tiny fp32 blipt5_rand_pruner (seed 5) on the card: "
+        f"{len(runs[0])} masks, each layer at 0.5: {exact}; two runs "
+        f"bit-equal: {same}")
+    if not (len(runs[0]) == 2 * 4 + 2 * 7 + 2 * 11 and exact and same):
+        raise AssertionError("tiny rand pruner on the card")
+
+
+def dsnot_xl_check():
+    """DSnoT from the same fp32 inputs on the card and on the CPU at the
+    T5-XL wo shape (2048 units × 5120 inputs; statistics of 8192 random
+    tokens with a mean per column, folded on the card), unstructured at
+    0.5 and 2:4, the grid's other knobs at their defaults: the mask
+    entries that differ (at most 1e-4 of them: the only source of a
+    difference is the reduction order of the row error) and the cycles
+    (equal)."""
+    from vlm_compression_tpu_torch.ops.dsnot import dsnot_refine_mask
+    from vlm_compression_tpu_torch.ops.stats import (
+        init_calib_stats,
+        update_calib_stats,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    units, cols, n = 2048, 5120, 8192
+    x = torch.randn(n, cols, generator=g, device="cuda") \
+        + 0.5 * torch.randn(cols, generator=g, device="cuda")
+    s = update_calib_stats(init_calib_stats(cols, device="cuda"), x[None])
+    del x
+    w = torch.randn(units, cols, generator=g, device="cuda") * cols ** -0.5
+    args = (w, s.scaler_row, s.sum_metric_row, s.var)
+    out = {}
+    for label, kw in (("unstructured", {}), ("2:4", dict(prune_n=2,
+                                                         prune_m=4))):
+        t0 = time.perf_counter()
+        card = dsnot_refine_mask(*args, 0.5, **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = dsnot_refine_mask(*(a.cpu() for a in args), 0.5, **kw)
+        t_cpu = time.perf_counter() - t0
+        flips = int((card.keep_mask.cpu() != cpu.keep_mask).sum())
+        log(f"  dsnot {label} {units} x {cols}, card vs CPU: {flips} of "
+            f"{units * cols} mask entries differ; cycles {card.cycles} / "
+            f"{cpu.cycles}; density {float(card.keep_mask.float().mean()):.5f}"
+            f"; {t_card:.3f} s card, {t_cpu:.2f} s CPU")
+        if flips > 1e-4 * units * cols or card.cycles != cpu.cycles:
+            raise AssertionError(f"dsnot {label}: card and CPU disagree")
+        out[f"dsnot_xl_{label}_flips"] = flips
+        out[f"dsnot_xl_{label}_card_s"] = t_card
+    return out
+
+
 def synthetic_batches(cfg, n: int, bs: int, g: torch.Generator):
     """n seeded batches of bench.py:189-191's shapes (224² images, text 40,
     labels 12) with bs samples each."""
@@ -1396,6 +1597,25 @@ PHASE_FORBIDDEN = {
     "retrain": ("flash_attention_bwd_dbias", BWD_DBIAS, WMMA_LOOP),
     "ecoflap_prune": ("flash_attention_bwd_dbias", BWD_DBIAS),
     "fisher_derivative": ("flash_attention_bwd_dbias",)}
+# the grid path: DSnoT sweeps as Wanda does (its refinement runs no kernel
+# of the port); the magnitude and random pruners score with no forward at
+# all; aobd differentiates the prunable kernels only (dense products, the
+# attention backward on TMA + wgmma, no bias gradient); the zeroth entry
+# scores with dense forwards and no backward, then sweeps as Wanda does
+SCORE_ONLY = ("masked_matmul", "flash_attention")
+BACKWARD = (BWD_WGMMA, "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dbias", BWD_DBIAS)
+PHASE_KERNELS.update(
+    dsnot_prune=PRUNE + (FWD_WGMMA,), generate_dsnot=SERVE, mag_prune=(),
+    rand_prune=(), mag_global=(),
+    aobd_prune=("flash_attention", FWD_WGMMA, BWD_WGMMA),
+    zeroth_prune=PRUNE + (FWD_WGMMA,), generate_zeroth=SERVE)
+PHASE_FORBIDDEN.update(
+    dsnot_prune=BACKWARD, mag_prune=SCORE_ONLY, rand_prune=SCORE_ONLY,
+    mag_global=SCORE_ONLY,
+    aobd_prune=("flash_attention_bwd_dbias", BWD_DBIAS, "masked_matmul",
+                WMMA_LOOP),
+    zeroth_prune=BACKWARD)
 # every generate phase runs its prefill on the Hopper loop and its decode
 # steps on the decode kernel, every VQA phase all its matmuls on the
 # Hopper loop: no WMMA-loop launch at all
@@ -1737,11 +1957,13 @@ def decode_step_routes(tally: dict, m: int) -> dict:
     return rows
 
 
-def check_vqa_shapes(shapes: dict):
-    """Every masked-linear and attention-forward shape the VQA phases
-    launched (``shapes``: phase → ``read_shapes()``) is one that phase 3
-    held against its plain version (MM_SHAPES, FLASH_SHAPES)."""
-    mm = {(m, k, n) for _, m, k, n in MM_SHAPES}
+def check_shapes(shapes: dict, what: str):
+    """Every masked-linear and attention-forward shape the phases launched
+    (``shapes``: phase → ``read_shapes()``) is one that phase 3 held
+    against its plain version (MM_SHAPES; SERVE_SHAPES, where the bool
+    kernel is held bit-equal to the packed one and that to its plain
+    version; FLASH_SHAPES)."""
+    mm = {(m, k, n) for _, m, k, n in MM_SHAPES + SERVE_SHAPES}
     fl = {tuple(c[1:6]) for c in FLASH_SHAPES}
     seen_mm = {(m, k, n) for s in shapes.values()
                for m, n, k, _ in s["matmul"]}
@@ -1750,10 +1972,10 @@ def check_vqa_shapes(shapes: dict):
                for m, k, n in sorted(seen_mm - mm)]
     missing += [f"attention b={b} n={n} m={m} h={h} d={d}"
                 for b, n, m, h, d in sorted(seen_fl - fl)]
-    log(f"  vqa shapes: {len(seen_mm)} masked-linear and {len(seen_fl)} "
+    log(f"  {what} shapes: {len(seen_mm)} masked-linear and {len(seen_fl)} "
         f"attention shapes launched, {len(missing)} not checked in phase 3")
     if missing:
-        raise AssertionError(f"VQA shapes never held against the plain "
+        raise AssertionError(f"{what} shapes never held against the plain "
                              f"version: {missing}")
 
 
@@ -1929,7 +2151,7 @@ def vqa_path(model, cfg):
             raise AssertionError("VQA ranking")
     finally:
         tmp.cleanup()
-    check_vqa_shapes(shapes)
+    check_shapes(shapes, "vqa")
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         gqa.evaluation(model, [samples])
@@ -2349,6 +2571,245 @@ def first_order_path():
                     "generate_fisher_s": secs["generate_fisher"]}
 
 
+# the grid's zeroth entry (scripts/launch_lib.py:23): Wanda at a
+# block-granular allocation scored by olmezo-gradient_sum.  The grid scores
+# 32 samples at batch 1 (cli/evaluate.py:34,48), 2 × 32 forwards for each
+# of the 588 keys; here one sample (1176 forwards), the one cut of the path
+ZEROTH = dict(sparsity_ratio_granularity="block",
+              score_method="olmezo-gradient_sum")
+N_ZEROTH, N_ZEROTH_GRID = 1, 32
+# the zeroth scoring's keys traced under the profiler (profile_grid)
+N_PROFILED = 24
+TOWERS = ("visual_encoder", "t5_model.encoder", "t5_model.decoder")
+GLOBAL_PHASES = ("mag_prune", "rand_prune", "mag_global", "aobd_prune")
+
+
+def grid_path():
+    """The launcher grid's other pruners on a fourth full-width XL model
+    (seed 3, no adapters), its dense kernels restored between pruners (kept
+    in pinned host memory): ``blipt5_dsnot_pruner`` (the wanda initial
+    metric, the grid's defaults; masks kept) and beam-5 generate;
+    ``blipt5_mag_pruner`` and ``blipt5_rand_pruner`` (layerwise, as the
+    grid runs them), ``blipt5_mag_pruner`` with ``is_global`` (the
+    threshold checked on the card: #{s ≤ thr} ≥ k > #{s < thr} over every
+    leaf); ``blipt5_aobd_pruner`` on the 128 samples; the grid's zeroth
+    entry (one sample scored at batch 1, the calibration at batch 1 as the
+    grid feeds it) and beam-5 generate.  Gates: each tower's density
+    0.5 ± 0.01 (the zeroth entry: the parameter-weighted mean of its
+    ratios and of its masks), finite outputs, each phase's kernels
+    launched and the forbidden ones not, every shape launched one that
+    phase 3 checked."""
+    from vlm_compression_tpu_torch.compression import allocator as AL
+    from vlm_compression_tpu_torch.compression.pruners import (
+        global_pruner as GP,
+    )
+    from vlm_compression_tpu_torch.compression.pruners import methods as PM
+    from vlm_compression_tpu_torch.models.layers import set_mask
+
+    counts, secs, peaks, shapes, outs = {}, {}, {}, {}, {}
+    e2e = {}
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(seed=3, lora=False)
+    keys = AL.select_prunable_keys(model, ("visual_encoder", "t5_model"))
+    lins = [model.get_submodule(".".join(k)) for k in keys]
+    linears = {t: sum(".".join(k).startswith(t) for k in keys)
+               for t in TOWERS}
+    dense = [torch.empty(lin.kernel.shape, dtype=lin.kernel.dtype,
+                         pin_memory=True).copy_(lin.kernel) for lin in lins]
+    log(f"  model: InstructBLIP-FlanT5-XL, bf16, seed 3, no adapters, random "
+        f"init + data + a pinned host copy of the {len(keys)} prunable "
+        f"kernels ({json.dumps(linears)}) "
+        f"{time.perf_counter() - t0:.1f} s; cuts: the zeroth "
+        f"entry scores {N_ZEROTH} sample at batch 1 (the grid: "
+        f"{N_ZEROTH_GRID}); nothing else (depth 39/24/24, {N_CALIB} "
+        f"calibration samples at batch {BS})")
+
+    @torch.no_grad()
+    def restore():
+        for lin, w in zip(lins, dense):
+            lin.kernel.copy_(w, non_blocking=True)
+            set_mask(lin, None)
+        torch.cuda.synchronize()
+
+    def run(phase, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[phase] = time.perf_counter() - t0
+        counts[phase] = read_counts()
+        shapes[phase] = read_shapes()
+        peaks[phase] = torch.cuda.max_memory_allocated()
+        return out
+
+    def check_pruned(phase, every_tower=True):
+        """Densities by tower (of the masks; the global pruners also zero
+        the kernels off them), and one finite forward loss."""
+        dens = tower_density(model)
+        # the global pruners zero the kernels off their masks; the others
+        # keep them
+        zeroed = (all(not bool(lin.kernel[~lin.mask].any()) for lin in lins)
+                  if phase in GLOBAL_PHASES else None)
+        with torch.no_grad():
+            loss = float(model(**batches[0])["loss"])
+        log(f"  {phase}: {secs[phase]:.3f} s, peak "
+            f"{peaks[phase] / 2**30:.2f} GiB; density by tower "
+            f"{json.dumps({t: round(d, 5) for t, (d, _) in dens.items()})}"
+            f"; kernels zeroed off the masks {zeroed}; loss on a "
+            f"calibration batch {loss:.4f}; launches "
+            f"{json.dumps(counts[phase])}")
+        bad = [t for t, (d, n) in dens.items()
+               if n != linears[t] or (every_tower and abs(d - 0.5) > 0.01)]
+        if bad or zeroed is False or loss != loss \
+                or abs(loss) == float("inf"):
+            raise AssertionError(f"{phase}: {bad} {zeroed} {loss}")
+        e2e[f"{phase}_s"] = secs[phase]
+        e2e[f"{phase}_peak_bytes"] = peaks[phase]
+
+    def generate(phase):
+        seqs, gen_cfg = run(phase, lambda: run_generate(model, req))
+        n_tok = check_generate(seqs, gen_cfg, cfg)
+        outs[phase] = seqs
+        e2e[f"{phase}_s"] = secs[phase]
+        log(f"  generate_t5 beam-5 ({phase}): {secs[phase]:.3f} s, {n_tok} "
+            f"tokens; tokens {seqs.tolist()}")
+
+    # DSnoT, its refinement timed and its cycles counted per linear
+    refine, cycles, refine_s = PM.dsnot_refine_mask, [], [0.0]
+
+    def timed_refine(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = refine(*a, **kw)
+        torch.cuda.synchronize()
+        refine_s[0] += time.perf_counter() - t0
+        cycles.append(res.cycles)
+        return res
+
+    PM.dsnot_refine_mask = timed_refine
+    try:
+        run("dsnot_prune",
+            lambda: run_prune(model, batches, name="blipt5_dsnot_pruner"))
+    finally:
+        PM.dsnot_refine_mask = refine
+    hist = {c: cycles.count(c) for c in sorted(set(cycles))}
+    e2e["dsnot_refine_s"] = refine_s[0]
+    e2e["dsnot_cycles"] = sum(cycles)
+    log(f"  dsnot refinement: {len(cycles)} linears, cycles {hist} "
+        f"(cycle: linears), {sum(cycles)} cycles and about "
+        f"{sum(cycles) + len(cycles)} host syncs in all; {refine_s[0]:.3f} s "
+        f"of the prune's {secs['dsnot_prune']:.3f} s "
+        f"({100 * refine_s[0] / secs['dsnot_prune']:.1f} %)")
+    if len(cycles) != len(keys):
+        raise AssertionError(f"dsnot refined {len(cycles)} linears")
+    check_pruned("dsnot_prune")
+    generate("generate_dsnot")
+    restore()
+
+    for phase, name, kw in (("mag_prune", "blipt5_mag_pruner", {}),
+                            ("rand_prune", "blipt5_rand_pruner", {})):
+        run(phase, lambda: run_prune(model, batches, name=name, **kw))
+        check_pruned(phase)
+        restore()
+
+    # the global threshold: its defining property, on the card
+    select, seen = GP.kth_smallest, []
+
+    def checked_select(leaves, k):
+        thr = select(leaves, k)
+        if len(leaves) > 1:
+            le = sum(int((v <= thr).sum()) for v in leaves)
+            lt = sum(int((v < thr).sum()) for v in leaves)
+            seen.append((k, float(thr), le, lt,
+                         sum(v.numel() for v in leaves)))
+        return thr
+
+    GP.kth_smallest = checked_select
+    try:
+        run("mag_global", lambda: run_prune(
+            model, batches, name="blipt5_mag_pruner", is_global=True))
+    finally:
+        GP.kth_smallest = select
+    log(f"  mag_global threshold (k, thr, #<=thr, #<thr, scores): {seen}")
+    if len(seen) != 1 or not seen[0][2] >= seen[0][0] > seen[0][3]:
+        raise AssertionError(f"mag_global threshold {seen}")
+    check_pruned("mag_global")
+    restore()
+
+    run("aobd_prune", lambda: run_prune(model, batches,
+                                        name="blipt5_aobd_pruner"))
+    log(f"  aobd prune's attention, by route: "
+        f"{attn_routes(counts['aobd_prune'])}")
+    check_pruned("aobd_prune")
+    restore()
+
+    # the zeroth entry, fed at batch 1 as the grid feeds it; its scoring
+    # timed apart from the sweep
+    ones = [{k: v[i:i + 1] for k, v in b.items()} for b in batches
+            for i in range(BS)]
+    score, score_s = AL.mezo_layer_scalars, [0.0]
+
+    def timed_score(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = score(*a, **kw)
+        torch.cuda.synchronize()
+        score_s[0] += time.perf_counter() - t0
+        return out
+
+    AL.mezo_layer_scalars = timed_score
+    try:
+        _, ratios = run("zeroth_prune", lambda: run_prune(
+            model, ones, num_data_first_stage=N_ZEROTH, **ZEROTH))
+    finally:
+        AL.mezo_layer_scalars = score
+    forwards = 2 * N_ZEROTH * len(keys)
+    ms = 1e3 * score_s[0] / forwards
+    e2e["zeroth_score_s"] = score_s[0]
+    e2e["zeroth_ms_per_forward"] = ms
+    e2e["zeroth_grid_score_s"] = ms * 2 * N_ZEROTH_GRID * len(keys) / 1e3
+    log(f"  zeroth scoring: {forwards} forwards at batch 1 in "
+        f"{score_s[0]:.2f} s ({ms:.2f} ms a forward); the grid's "
+        f"{N_ZEROTH_GRID} samples ({2 * N_ZEROTH_GRID * len(keys)} forwards) "
+        f"at that rate {e2e['zeroth_grid_score_s']:.0f} s")
+    groups = {}
+    numel = {"/".join(k): lin.kernel.numel() for k, lin in zip(keys, lins)}
+    for key, r in ratios.items():
+        parts = key.split("/")
+        i = next(j for j, x in enumerate(parts) if x.startswith("blocks_"))
+        groups.setdefault("/".join(parts[:i + 1]), set()).add(r)
+    for tower in ("visual_encoder", "t5_model/encoder", "t5_model/decoder"):
+        rs = [next(iter(v)) for gname, v in groups.items()
+              if gname.startswith(tower + "/")]
+        log(f"  zeroth allocated sparsity {tower} ({len(rs)} blocks): "
+            f"{json.dumps([round(r, 4) for r in rs])}")
+    weighted = sum(r * numel[k] for k, r in ratios.items()) / sum(
+        numel.values())
+    kept = sum(int(lin.mask.count_nonzero()) for lin in lins)
+    total = sum(numel.values())
+    log(f"  zeroth allocation: {len(groups)} groups over {len(ratios)} "
+        f"linears, parameter-weighted sparsity {weighted:.5f}, mask "
+        f"density {kept / total:.5f}")
+    depth = cfg.vit.depth + cfg.t5.num_layers + cfg.t5.num_decoder_layers
+    if not (len(ratios) == len(keys) and len(groups) == depth
+            and all(len(v) == 1 for v in groups.values())
+            and abs(weighted - 0.5) <= 0.01
+            and abs(kept / total - 0.5) <= 0.01):
+        raise AssertionError("zeroth allocation")
+    # the allocation moves density between towers: no per-tower gate
+    check_pruned("zeroth_prune", every_tower=False)
+    generate("generate_zeroth")
+    log(f"  launches: {json.dumps(counts)}")
+    check_phase_counts(counts)
+    check_shapes(shapes, "grid")
+    del model, lins, dense, batches, ones
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, e2e
+
+
 def profile_first_order(e2e):
     """The first-order path's two gradient phases again under
     torch.profiler (device activity only) on a fresh seed-2 model: the
@@ -2386,6 +2847,56 @@ def profile_first_order(e2e):
     device_breakdown(prof, 1e3 * e2e["ecoflap_prune_s"],
                      "ecoflap prune (allocation + Wanda)")
     del model, batches, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_grid(e2e):
+    """The grid path's prunes once more under torch.profiler (device
+    activity only) on a fresh seed-3 model, each against its unprofiled
+    wall-clock: the zeroth entry's scoring of its first N_PROFILED keys at
+    batch 1 (timed unprofiled just before), the DSnoT prune, the aobd
+    prune and the global magnitude prune."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.compression import allocator as AL
+    from vlm_compression_tpu_torch.models.layers import set_mask
+
+    _, model, batches, _ = xl_setup(seed=3, lora=False)
+    keys = AL.select_prunable_keys(model, ("visual_encoder", "t5_model"))
+    sample = [{k: v[:1] for k, v in batches[0].items()}]
+
+    def score():
+        AL.mezo_layer_scalars(
+            model, keys[:N_PROFILED], sample, AL.model_loss, eps=1e-3,
+            num_noise=1, num_samples=1,
+            z_fn=lambda tag, k, shape: AL.seeded_normal(shape, (0, 1, *tag),
+                                                        "cuda"))
+        torch.cuda.synchronize()
+
+    score()     # warm: the first forwards at batch 1 of this model
+    t0 = time.perf_counter()
+    score()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        score()
+    total, _ = device_breakdown(
+        prof, 1e3 * wall, f"zeroth scoring, {N_PROFILED} keys "
+        f"({2 * N_PROFILED} batch-1 forwards)")
+    e2e["zeroth_score_busy"] = total / (1e3 * wall)
+    for label, name, kw in (("dsnot_prune", "blipt5_dsnot_pruner", {}),
+                            ("aobd_prune", "blipt5_aobd_pruner", {}),
+                            ("mag_global", "blipt5_mag_pruner",
+                             dict(is_global=True))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_prune(model, batches, name, **kw)
+        total, _ = device_breakdown(prof, 1e3 * e2e[f"{label}_s"], label)
+        e2e[f"{label}_busy"] = total / (1e3 * e2e[f"{label}_s"])
+        # DSnoT keeps the kernels: drop its masks before the next prune
+        with torch.no_grad():
+            for k in keys:
+                set_mask(model.get_submodule(".".join(k)), None)
+    del model, batches, sample
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3025,9 +3536,12 @@ def main() -> int:
     tiny_reference_check()
     tiny_train_check()
     tiny_gradient_scoring_check()
+    tiny_grid_pruners_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
+    log("[reference] DSnoT at an XL shape, card vs CPU")
+    sg.update(dsnot_xl_check())
     phase_done("reference")
     # the checks above leave the caching allocator and the heap full of
     # their tensors and graphs; the main path starts clean, as it would in
@@ -3054,11 +3568,22 @@ def main() -> int:
     phase_done("first-order path")
     counts.update(f_counts)
     e2e.update(f_e2e)
-    log("[profile] the main path, the SparseGPT prune and the first-order "
-        "path's gradient phases again under torch.profiler")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[grid path] InstructBLIP-FlanT5-XL: DSnoT prune, beam-5 generate; "
+        "magnitude and random prunes, layerwise; magnitude, global; aobd; "
+        "the zeroth entry (one sample scored at batch 1), beam-5 generate")
+    g_counts, g_e2e = grid_path()
+    phase_done("grid path")
+    counts.update(g_counts)
+    e2e.update(g_e2e)
+    log("[profile] the main path, the SparseGPT prune, the first-order "
+        "path's gradient phases and the grid path's prunes again under "
+        "torch.profiler")
     profile_main_path(e2e)
     profile_sparsegpt_prune(e2e)
     profile_first_order(e2e)
+    profile_grid(e2e)
     phase_done("profile")
     log("[timing] bf16, each reading the median of 20 calls, CUDA events, "
         "L2 flushed before each call; attention kernels and their library "

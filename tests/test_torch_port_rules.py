@@ -430,3 +430,29 @@ def test_forward_without_its_library_raises(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             TA.flash_attention(q, q, q, (), 88 ** -0.5, _impl=impl)
     assert (TA.launches, TA.fwd_wgmma_launches) == counts
+
+
+# the JAX package's pruners the port does not register yet (ROADMAP
+# queue 1, items 6 and 7): RIA, soft-mask and GPTQ for each composition
+NOT_PORTED_PRUNERS = {f"{tower}_{method}_pruner"
+                      for tower in ("t5", "vit", "blipt5")
+                      for method in ("ria", "softmask", "gptq")}
+
+
+def test_pruner_registry_is_the_jax_one_minus_the_listed_names():
+    """A pruner ported or dropped without the list above changing fails
+    here; ``load_pruner`` builds every registered name."""
+    from vlm_compression_tpu.common.registry import registry as jax_registry
+    import vlm_compression_tpu.compression  # noqa: F401  (registers)
+
+    from vlm_compression_tpu_torch.common.registry import registry
+    from vlm_compression_tpu_torch.compression import load_pruner
+
+    jax_names = set(jax_registry.list_names("pruner"))
+    assert len(jax_names) == 23 and NOT_PORTED_PRUNERS <= jax_names
+    ported = set(registry.mapping["pruner_name_mapping"])
+    assert ported == jax_names - NOT_PORTED_PRUNERS
+    model = torch.nn.Linear(2, 2)
+    for name in sorted(ported):
+        pruner = load_pruner(name, model, [], t5_prune_spec="1-0.5-1.0-1.0")
+        assert pruner.pruner_name == name

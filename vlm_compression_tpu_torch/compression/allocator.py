@@ -170,8 +170,58 @@ def compute_the_sparsity_per_group(
 # ---------------------------------------------------------------------------
 
 
-def _default_loss(model, batch):
+def model_loss(model, batch):
     return model(**batch)["loss"]
+
+
+def seeded_normal(shape, tag: Sequence[int], device) -> torch.Tensor:
+    """A replayable standard normal on ``device``: the generator's seed is
+    drawn from ``SeedSequence(tag)``."""
+    seed = int(np.random.SeedSequence(list(tag)).generate_state(1)[0])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
+@torch.no_grad()
+def mezo_layer_scalars(model: torch.nn.Module, keys: Sequence[Path],
+                       batches: Sequence[dict], loss_fn: Callable, *,
+                       eps: float, num_noise: int, num_samples: int,
+                       z_fn: Callable, abs_each: bool = True
+                       ) -> Dict[Path, float]:
+    """One zeroth-order scalar per kernel: Σ over batches of |Σ over
+    noises of the projected gradient (loss(W + εz) − loss(W − εz)) / 2ε|,
+    each noise's |·| first when ``abs_each``.  The sample budget counts
+    one batch per noise evaluation, as the reference does (bs 1, 4
+    noises, 8 samples means two batches).  ``z_fn((leaf, batch, noise),
+    key, shape)`` gives z.  Each kernel is perturbed in place and restored
+    from a saved copy."""
+    out = {}
+    for li, k in enumerate(keys):
+        w = model.get_submodule(".".join(k)).kernel
+        orig = w.detach().clone()
+        acc = 0.0
+        accum = 0
+        try:
+            for bi, b in enumerate(batches):
+                if accum >= num_samples:
+                    break
+                per = 0.0
+                for ni in range(num_noise):
+                    if accum >= num_samples:
+                        break
+                    z = z_fn((li, bi, ni), k, w.shape)
+                    losses = []
+                    for scale in (+1.0, -1.0):
+                        w.copy_((orig.float() + scale * eps * z).to(w.dtype))
+                        losses.append(loss_fn(model, b))
+                    pg = float((losses[0] - losses[1]) / (2.0 * eps))
+                    per += abs(pg) if abs_each else pg
+                    accum += int(next(iter(b.values())).shape[0])
+                acc += abs(per)
+        finally:
+            w.copy_(orig)
+        out[k] = acc
+    return out
 
 
 class LayerSparsity:
@@ -216,7 +266,7 @@ class LayerSparsity:
         self.owl_m = float(owl_m)
         self.noise_fn = noise_fn
         self.reference_fixups = reference_fixups
-        self.loss_fn = loss_fn or _default_loss
+        self.loss_fn = loss_fn or model_loss
 
     # -- plumbing ------------------------------------------------------
     def _device(self) -> torch.device:
@@ -240,13 +290,8 @@ class LayerSparsity:
         return self.model.get_submodule(".".join(key)).kernel
 
     def _z(self, shape, tag) -> torch.Tensor:
-        """A replayable standard normal: the generator's seed is drawn from
-        (seed, *tag)."""
-        dev = self._device()
-        seed = int(np.random.SeedSequence([self.seed, *tag])
-                   .generate_state(1)[0])
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return torch.randn(tuple(shape), generator=gen, device=dev)
+        """A replayable standard normal seeded from (seed, *tag)."""
+        return seeded_normal(shape, (self.seed, *tag), self._device())
 
     def _injected(self, tag, key: Path, shape) -> torch.Tensor:
         return torch.as_tensor(
@@ -418,42 +463,17 @@ class LayerSparsity:
     # -- per-layer MeZO scorer (EcoFLaP-style) -------------------------
     @torch.no_grad()
     def _score_mezo_layer(self, keys) -> Dict[Path, float]:
-        eps = self.noise_eps
         one = self.score_compute.startswith("olmezo")
-        n_noise = self.num_noise if one else 4
         num_samples = self.num_data if one else min(self.num_data, 8)
-        batches = self._batches(num_samples)
-        grad_scalar = {}
-        for li, k in enumerate(keys):
-            w = self._kernel(k)
-            orig = w.detach().clone()
-            acc = 0.0
-            # the reference's sample budget counts one batch per NOISE
-            # evaluation (bs 1, 4 noises, 8 samples means two batches)
-            accum = 0
-            try:
-                for bi, b in enumerate(batches):
-                    if accum >= num_samples:
-                        break
-                    per = 0.0
-                    for ni in range(n_noise):
-                        if accum >= num_samples:
-                            break
-                        z = (self._injected((li, bi, ni), k, w.shape)
-                             if self.noise_fn is not None
-                             else self._z(w.shape, (1, li, bi, ni)))
-                        losses = []
-                        for scale in (+1.0, -1.0):
-                            w.copy_((orig.float() + scale * eps * z)
-                                    .to(w.dtype))
-                            losses.append(self.loss_fn(self.model, b))
-                        pg = float((losses[0] - losses[1]) / (2.0 * eps))
-                        per += abs(pg) if one else pg
-                        accum += int(next(iter(b.values())).shape[0])
-                    acc += abs(per)
-            finally:
-                w.copy_(orig)
-            grad_scalar[k] = acc
+
+        def z_fn(tag, k, shape):
+            return (self._injected(tag, k, shape) if self.noise_fn is not None
+                    else self._z(shape, (1, *tag)))
+
+        grad_scalar = mezo_layer_scalars(
+            self.model, keys, self._batches(num_samples), self.loss_fn,
+            eps=self.noise_eps, num_noise=self.num_noise if one else 4,
+            num_samples=num_samples, z_fn=z_fn, abs_each=one)
 
         sums = {}
         for k in keys:

@@ -1,11 +1,12 @@
-"""Per-block mask functions (port of the Wanda and SparseGPT parts of
-``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
+"""Per-block mask functions (port of the Wanda, SparseGPT and DSnoT parts
+of ``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
 (in, out); scoring runs unit-major (out, in) and keep-masks go back
 (in, out), contiguous for the masked-matmul kernel."""
 
 from __future__ import annotations
 
 from vlm_compression_tpu_torch.compression.calibrate import BlockPruneResult
+from vlm_compression_tpu_torch.ops.dsnot import dsnot_refine_mask
 from vlm_compression_tpu_torch.ops.sparsegpt import sparsegpt_prune_group
 from vlm_compression_tpu_torch.ops.masks import (
     flat_threshold_mask,
@@ -13,6 +14,7 @@ from vlm_compression_tpu_torch.ops.masks import (
     unstructured_mask,
     wanda_metric,
 )
+from vlm_compression_tpu_torch.ops.stats import finalize_hessian
 
 
 def wanda_mask_fn(prune_n: int = 0, prune_m: int = 0,
@@ -60,5 +62,39 @@ def sparsegpt_mask_fn(prune_n: int = 0, prune_m: int = 0,
                 masks[p] = keep
                 new_k[p] = w
         return BlockPruneResult(masks, new_k)
+
+    return fn
+
+
+def dsnot_mask_fn(prune_n: int = 0, prune_m: int = 0,
+                  initial_method: str = "wanda",
+                  max_cycle_time: int = 50,
+                  update_threshold: float = 0.1,
+                  pow_of_var_regrowing: float = 1.0,
+                  without_same_sign: bool = True,
+                  without_dsnot: bool = False):
+    """DSnoT refinement of each linear, one at a time (each loop ends
+    where its own rows stop).  ``initial_method="sparsegpt"`` reads the
+    block's finalized Hessians.  The JAX function also returns each
+    linear's mean |Wanda metric|; nothing in the port reads it, so it is
+    not computed."""
+
+    def fn(kernels, stats, sparsities):
+        masks = {}
+        for p, k in kernels.items():
+            s = stats[p]
+            h = (finalize_hessian(s) if (initial_method == "sparsegpt"
+                                         and s.hessian is not None) else None)
+            res = dsnot_refine_mask(
+                k.T, s.scaler_row, s.sum_metric_row, s.var,
+                float(sparsities[p]), prune_n=prune_n, prune_m=prune_m,
+                max_cycle_time=max_cycle_time,
+                update_threshold=update_threshold,
+                pow_of_var_regrowing=pow_of_var_regrowing,
+                without_same_sign=without_same_sign,
+                without_dsnot=without_dsnot,
+                initial_method=initial_method, hessian=h)
+            masks[p] = res.keep_mask.T.contiguous()
+        return BlockPruneResult(masks, {})
 
     return fn

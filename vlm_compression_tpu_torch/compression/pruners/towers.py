@@ -10,9 +10,9 @@ flat threshold, the language towers per-unit top-k.  With a
 ``sparsity_ratio_granularity`` the ratios come from the ``LayerSparsity``
 allocator (``compression/allocator.py``), built in ``get_sparsity``.
 
-Registered here: ``blipt5_wanda_pruner`` and
-``{t5,vit,blipt5}_sparsegpt_pruner``.  DSnoT and the other methods are not
-ported yet.
+Registered here: ``{t5,vit,blipt5}_{wanda,sparsegpt,dsnot}_pruner``; the
+global pruners are in ``global_pruner.py``.  Still to port: the RIA,
+soft-mask and GPTQ pruners (``{t5,vit,blipt5}_{ria,softmask,gptq}_pruner``).
 """
 
 from __future__ import annotations
@@ -38,13 +38,21 @@ from vlm_compression_tpu_torch.ops import sparsegpt as SG
 
 class _MethodMixin:
     method: str = "wanda"
-    # SparseGPT knobs (reference CLI flags)
+    # DSnoT and SparseGPT knobs (reference CLI flags)
+    initial_method: str = "wanda"
+    max_cycle_time: int = 50
+    update_threshold: float = 0.1
+    pow_of_var_regrowing: float = 1.0
+    without_same_sign: bool = True
+    without_dsnot: bool = False
     blocksize: int = 128
     percdamp: float = 0.01
 
     @property
     def with_hessian(self) -> bool:
-        return self.method == "sparsegpt"
+        if self.method == "sparsegpt":
+            return True
+        return self.method == "dsnot" and self.initial_method == "sparsegpt"
 
     def make_mask_fn(self, lora_model: bool, tower: str = "llm"):
         if self.method == "wanda":
@@ -53,6 +61,12 @@ class _MethodMixin:
         if self.method == "sparsegpt":
             return M.sparsegpt_mask_fn(self.prune_n, self.prune_m,
                                        self.blocksize, self.percdamp)
+        if self.method == "dsnot":
+            return M.dsnot_mask_fn(
+                self.prune_n, self.prune_m, self.initial_method,
+                self.max_cycle_time, self.update_threshold,
+                self.pow_of_var_regrowing, self.without_same_sign,
+                self.without_dsnot)
         raise NotImplementedError(
             f"pruning method {self.method!r} is not ported yet")
 
@@ -261,9 +275,15 @@ def _make(base, method_name, reg_name):
     return cls
 
 
+T5WandaPruner = _make(T5PrunerBase, "wanda", "t5_wanda_pruner")
+ViTWandaPruner = _make(ViTPrunerBase, "wanda", "vit_wanda_pruner")
 BlipT5WandaPruner = _make(BlipT5PrunerBase, "wanda", "blipt5_wanda_pruner")
 
 T5SparseGPTPruner = _make(T5PrunerBase, "sparsegpt", "t5_sparsegpt_pruner")
 ViTSparseGPTPruner = _make(ViTPrunerBase, "sparsegpt", "vit_sparsegpt_pruner")
 BlipT5SparseGPTPruner = _make(BlipT5PrunerBase, "sparsegpt",
                               "blipt5_sparsegpt_pruner")
+
+T5DSnoTPruner = _make(T5PrunerBase, "dsnot", "t5_dsnot_pruner")
+ViTDSnoTPruner = _make(ViTPrunerBase, "dsnot", "vit_dsnot_pruner")
+BlipT5DSnoTPruner = _make(BlipT5PrunerBase, "dsnot", "blipt5_dsnot_pruner")
