@@ -42,7 +42,12 @@ each of which fails the run (non-zero exit, no result line) on error:
                 of the new route bit-equal; the VQA eval's shapes among
                 them (the beam-decode steps at M = 320, split-K; the
                 ranking decoder at M = 8192, its cross k/v at 90112 rows;
-                attention at batch 320 and 2048);
+                attention at batch 320 and 2048); the Vicuna path's
+                (LLaMA's linears at K, N ∈ {4096, 11008}; its attention at
+                d = 128 on the mma.sync kernel, under LLaMA's one additive
+                bias: the calibration sweep, the primes and the decode
+                steps at b = 20 and 320, and rows that see no valid key),
+                two identical calls bit-equal there too;
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -60,7 +65,10 @@ each of which fails the run (non-zero exit, no result line) on error:
                 (mask bits that differ), and one batched group of linears
                 against its members one by one; DSnoT at the T5-XL wo
                 shape, unstructured and 2:4 (at most 1e-4 of the mask
-                entries differ, cycles equal);
+                entries differ, cycles equal); a tiny float32
+                InstructBLIP-Vicuna: masked logits within 1e-4, beam-2
+                ``generate_vicuna`` tokens equal, the Wanda masks over the
+                ViT and ``llm_model`` bit-equal;
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -126,13 +134,26 @@ each of which fails the run (non-zero exit, no result line) on error:
                 zeroth entry: the parameter-weighted mean of its ratios and
                 its masks), finite losses, every shape launched one that
                 phase 3 checked;
-  9. profile  — the main path once more under torch.profiler (prune,
+  9. vicuna path — full-width InstructBLIP-Vicuna-7B (EVA-ViT-g 39
+                layers, Q-Former 12, LLaMA 32 × 4096, ffn 11008, 32 heads of
+                128, vocab 32000; bf16, seed 4; after the XL models are
+                freed): ``blipt5_wanda_pruner`` with
+                ``t5_model_prefix=llm_model`` on 128 synthetic packed
+                samples at batch 16 (each tower 0.5 ± 0.01); beam-5
+                ``generate_vicuna`` on 4 left-padded requests, cold and
+                warm (tokens equal); GQA cold and warm (exactly 50.00) and
+                OK-VQA (the closed form) through the tasks at the Vicuna
+                eval yamls' settings, the answers equal to a direct
+                ``generate_vicuna``'s; every shape launched one that phase
+                3 checked, no WMMA-loop launch, and one GQA pass profiled
+                (busy share, device time by kernel group, peak memory);
+ 10. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune, the
                 first-order path's Fisher (its attention backward's device
                 time a sample) and EcoFLaP prune, and the grid path's
                 prunes (the zeroth scoring of 24 keys): device time by
                 kernel group against each phase's unprofiled wall-clock;
- 10. timing   — kernel, plain-version and library-call times (CUDA events,
+ 11. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
@@ -166,7 +187,9 @@ prunes; any attention backward in the DSnoT and zeroth prunes; the dbias
 outputs, the masked matmul and the WMMA loop in the aobd prune); the decode kernel in every generate
 phase of a masked or int8 model, and no WMMA-loop launch at all in any
 generate phase, the retrain step or the three VQA phases (which must run
-the Hopper loop and the TMA + wgmma forward).  WMMA-loop launches left in other
+the Hopper loop and the TMA + wgmma forward), nor in any phase of the
+Vicuna path, its prune included (whose LLaMA forwards must run the
+mma.sync route).  WMMA-loop launches left in other
 phases are printed with their shapes and why the other loops refused
 them.
 
@@ -287,6 +310,29 @@ MM_SHAPES = [
     ("t5_dec_wi_rank", 8192, 2048, 5120),
     ("t5_dec_wo_rank", 8192, 5120, 2048),
     ("t5_cross_kv_rank", 90112, 2048, 2048),
+    # the Vicuna path (vicuna_path): LLaMA-7B's linears (q/k/v/o 4096 →
+    # 4096, gate/up 4096 → 11008, down 11008 → 4096) in the calibration
+    # sweep (M = 128 × (32 query tokens + 40 text)), the 4-request
+    # generate's prime (M = 20 × 71: 32 query tokens + the 40-token prompt
+    # minus its last, per beam) and decode steps (M = 20), the VQA eval's
+    # prime (M = 320 × 44: the seeded batch's longest prompt is 13 tokens
+    # with BOS) and beam steps (M = 320, split-K).  vicuna_path fails if
+    # it launches a shape not listed
+    ("llama_qkvo_calib", 9216, 4096, 4096),
+    ("llama_gate_up_calib", 9216, 4096, 11008),
+    ("llama_down_calib", 9216, 11008, 4096),
+    ("llama_qkvo_prime_gen", 1420, 4096, 4096),
+    ("llama_gate_up_prime_gen", 1420, 4096, 11008),
+    ("llama_down_prime_gen", 1420, 11008, 4096),
+    ("llama_qkvo_decode", 20, 4096, 4096),
+    ("llama_gate_up_decode", 20, 4096, 11008),
+    ("llama_down_decode", 20, 11008, 4096),
+    ("llama_qkvo_prime_vqa", 14080, 4096, 4096),
+    ("llama_gate_up_prime_vqa", 14080, 4096, 11008),
+    ("llama_down_prime_vqa", 14080, 11008, 4096),
+    ("llama_qkvo_beam_step", 320, 4096, 4096),
+    ("llama_gate_up_beam_step", 320, 4096, 11008),
+    ("llama_down_beam_step", 320, 11008, 4096),
 ]
 MM_TIMED = "vit_fc1_calib"
 
@@ -335,6 +381,26 @@ FLASH_SHAPES = [
     ("t5_encoder_gen", 4, 72, 72, 32, 64, ["rel", "pad"], 1.0),
 ]
 FLASH_TIMED = "vit_self_calib"
+# the Vicuna path (vicuna_path): LLaMA's self-attention, 32 heads of
+# d = 128 (the mma.sync kernel: plan_forward sends TMA + wgmma only
+# d <= 96), under one additive bias as the JAX package builds it — the
+# calibration sweep (causal + right-padded text, b = 128), the primes (the
+# cache's pad bias over the left-padded prompt + the step visibility,
+# n = P, m = P + max_length) and the decode steps (n = 1 over the whole
+# cache) of the 4-request generate (b = 20) and of the VQA eval (b = 320).
+# A list of its own: the TMA + wgmma route does not take d = 128, and the
+# scripts that force that route read FLASH_SHAPES.  vicuna_path fails if
+# it launches a shape not listed
+VICUNA_FLASH_SHAPES = [
+    ("llama_self_calib", 128, 72, 72, 32, 128, ["cpad"], 128 ** -0.5),
+    ("llama_prime_gen", 20, 71, 81, 32, 128, ["lpad"], 128 ** -0.5),
+    ("llama_decode_gen", 20, 1, 81, 32, 128, ["dstep"], 128 ** -0.5),
+    ("llama_prime_vqa", 320, 44, 55, 32, 128, ["lpad"], 128 ** -0.5),
+    ("llama_beam_step", 320, 1, 55, 32, 128, ["dstep"], 128 ** -0.5),
+]
+# the Vicuna shapes timed for the forward's row of the kernel line: the
+# mma.sync kernel at the VQA eval's prime and beam-decode step
+FLASH_VICUNA_TIMED = ("llama_prime_vqa", "llama_beam_step")
 
 # retraining (scripts/launch_lib.py:87-125 train_ressa;
 # configs/projects/train/continue_stage2_cc3m_t5_instruct.yaml): SparseLoRA
@@ -465,6 +531,8 @@ def flash_inputs(b, n, m, h, d, kinds, dtype, seed=0):
             vis = torch.arange(m, device="cuda") <= m // 2
             biases.append(torch.where(vis, 0.0, NEG_INF)[None, None, None]
                           .expand(1, 1, n, m).contiguous())
+        elif kind in ("cpad", "lpad", "lpad0", "dstep"):
+            biases.append(llama_bias(kind, b, n, m, g))
         elif kind == "relc":
             vis = (torch.arange(m, device="cuda")[None, :]
                    <= torch.arange(n, device="cuda")[:, None] + (m - n))
@@ -475,6 +543,32 @@ def flash_inputs(b, n, m, h, d, kinds, dtype, seed=0):
                      "keyd1": (b, h, n, 1)}[kind]
             biases.append(torch.randn(shape, generator=g, device="cuda"))
     return q, k, v, biases
+
+
+def llama_bias(kind, b, n, m, g):
+    """LLaMA's one additive bias (b, 1, n, m), summed as the JAX package
+    sums it: "cpad" the calibration's causal −1e9 mask + the padding bias
+    of right-padded text (n = m); "lpad" a prime's pad bias over the cache
+    — the 32 query slots valid, then a left-padded prompt of 0-3 pads —
+    + the step visibility of rows 0 … n − 1; "lpad0" the same with the
+    pads from slot 0 on, so the first rows of a padded request see no
+    valid key (every score −1e9 or −2e9: the plain version averages v
+    over the slots at −1e9, and so must the kernel); "dstep" a decode
+    step's pad bias + visibility up to slot m − 4 (n = 1)."""
+    from vlm_compression_tpu_torch.ops.attention import NEG_INF
+
+    pads = torch.randint(0, 4, (b,), generator=g, device="cuda")
+    j = torch.arange(m, device="cuda")
+    if kind == "cpad":
+        keep = j[None, :] < (m - pads)[:, None]
+        cur = 0
+    else:
+        first = 0 if kind == "lpad0" else 32
+        keep = (j[None, :] < first) | (j[None, :] >= first + pads[:, None])
+        cur = m - 4 if kind == "dstep" else 0
+    pad = torch.where(keep, 0.0, NEG_INF)[:, None, None, :]
+    vis = j[None, :] <= cur + torch.arange(n, device="cuda")[:, None]
+    return (pad + torch.where(vis, 0.0, NEG_INF)[None, None]).contiguous()
 
 
 def lora_inputs(m, k, n, r, dtype, seed=0):
@@ -580,9 +674,14 @@ def check_kernels():
         # wgmma kernel at every shape here) and, in bf16, on the mma.sync
         # route too; causal masking, including n > m rows that see no key
         cases = [(name, b, n, m, h, d, kinds, scale, False)
-                 for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES]
+                 for name, b, n, m, h, d, kinds, scale in
+                 FLASH_SHAPES + VICUNA_FLASH_SHAPES]
         cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True),
-                  ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True)]
+                  ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True),
+                  # LLaMA's prime with rows that see no valid key, held
+                  # as the plain version defines them
+                  ("llama_rows_seeing_no_key", 4, 44, 55, 32, 128,
+                   ["lpad0"], 128 ** -0.5, False)]
         routes = [None] if dtype == torch.float32 else [None, A.MMA]
         for name, b, n, m, h, d, kinds, scale, causal in cases:
             q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
@@ -607,17 +706,21 @@ def check_kernels():
                                          f"{route}")
                 if impl is None and not causal:
                     worst[("flash_attention", name, dtype)] = err
-    # the TMA + wgmma forward sums in a fixed order (no atomics): two
-    # identical calls at every FLASH_SHAPES shape are bit-equal
-    for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES:
+    # both bf16 forwards sum in a fixed order (no atomics): two identical
+    # calls of the planned route at every shape are bit-equal (TMA +
+    # wgmma at d <= 96; mma.sync at LLaMA's d = 128)
+    for name, b, n, m, h, d, kinds, scale in \
+            FLASH_SHAPES + VICUNA_FLASH_SHAPES:
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
-        out1, lse1 = A.flash_attention(q, k_, v, biases, scale, _impl=A.WGMMA)
-        out2, lse2 = A.flash_attention(q, k_, v, biases, scale, _impl=A.WGMMA)
+        route = A.plan_forward(n, m, d)
+        out1, lse1 = A.flash_attention(q, k_, v, biases, scale, _impl=route)
+        out2, lse2 = A.flash_attention(q, k_, v, biases, scale, _impl=route)
         if not (torch.equal(out1, out2) and torch.equal(lse1, lse2)):
-            raise AssertionError(f"flash_attention {name}: two identical "
-                                 "calls differ")
-    log("  flash_attention TMA + wgmma: two identical calls bit-equal (out "
-        "and lse) at every FLASH_SHAPES shape")
+            raise AssertionError(f"flash_attention {name} ({route}): two "
+                                 "identical calls differ")
+    log("  flash_attention, the planned bf16 route: two identical calls "
+        "bit-equal (out and lse) at every FLASH_SHAPES and "
+        "VICUNA_FLASH_SHAPES shape")
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[-1]]
         # sparse-LoRA: the kernel sums Σ_r A·B in another order than the
@@ -1536,6 +1639,9 @@ BWD_WGMMA = "bwd_wgmma"
 # "fwd_wgmma" counts the attention forward's TMA + wgmma launches; the
 # flash_attention count is every forward's, on either route
 FWD_WGMMA = "fwd_wgmma"
+# "fwd_mma_or_fp32" counts the forwards on the other routes (the bf16
+# mma.sync kernel, which takes LLaMA's d = 128, and the fp32 one)
+FWD_MMA = "fwd_mma_or_fp32"
 # "bwd_dbias_outputs" counts the bias gradients the TMA + wgmma backward
 # returned (each an output of one of its launches); the
 # flash_attention_bwd_dbias count is the separate dbias kernel's launches
@@ -1610,6 +1716,16 @@ PHASE_KERNELS.update(
     rand_prune=(), mag_global=(),
     aobd_prune=("flash_attention", FWD_WGMMA, BWD_WGMMA),
     zeroth_prune=PRUNE + (FWD_WGMMA,), generate_zeroth=SERVE)
+# the Vicuna path: the ViT and Q-Former forwards on TMA + wgmma, LLaMA's
+# (d = 128) on mma.sync; no backward, and no WMMA-loop launch in any of
+# its phases (the prune included)
+VICUNA_GEN = SERVE + (FWD_WGMMA, FWD_MMA)
+VICUNA_VQA = VQA + (FWD_MMA,)
+PHASE_KERNELS.update(
+    vicuna_prune=PRUNE + (FWD_WGMMA, FWD_MMA),
+    generate_vicuna_cold=VICUNA_GEN, generate_vicuna_warm=VICUNA_GEN,
+    vqa_vicuna_gqa=VICUNA_VQA, vqa_vicuna_okvqa=VICUNA_VQA)
+PHASE_FORBIDDEN.update(vicuna_prune=BACKWARD + (WMMA_LOOP,))
 PHASE_FORBIDDEN.update(
     dsnot_prune=BACKWARD, mag_prune=SCORE_ONLY, rand_prune=SCORE_ONLY,
     mag_global=SCORE_ONLY,
@@ -1653,6 +1769,7 @@ def read_counts() -> dict:
                        ML.wgmma_launches, A.fwd_wgmma_launches,
                        A.bwd_wgmma_launches, ML.wmma_launches,
                        A.bwd_dbias_outputs)))
+    counts[FWD_MMA] = counts["flash_attention"] - counts[FWD_WGMMA]
     counts[WMMA_CALLS] = [f"M={m} N={n} K={k} rank {r}: {why} x{c}"
                           for (m, n, k, r, why), c in ML.wmma_calls.items()]
     return counts
@@ -1742,13 +1859,15 @@ def check_generate(seqs, gen_cfg, cfg):
     return int((seqs[:, 1:] != gen_cfg.pad_token_id).sum())
 
 
-def tower_density(model, of_kernels: bool = False) -> dict:
+def tower_density(model, of_kernels: bool = False,
+                  towers=("visual_encoder", "t5_model.encoder",
+                          "t5_model.decoder")) -> dict:
     """Kept share per pruned tower: of the masks, or (of_kernels) of the
     non-zero kernel entries of every masked linear."""
     from vlm_compression_tpu_torch.models.layers import SparseLinear
 
     out = {}
-    for tower in ("visual_encoder", "t5_model.encoder", "t5_model.decoder"):
+    for tower in towers:
         kept = total = n = 0
         for name, m in model.named_modules():
             if isinstance(m, SparseLinear) and m.mask is not None \
@@ -1964,7 +2083,7 @@ def check_shapes(shapes: dict, what: str):
     kernel is held bit-equal to the packed one and that to its plain
     version; FLASH_SHAPES)."""
     mm = {(m, k, n) for _, m, k, n in MM_SHAPES + SERVE_SHAPES}
-    fl = {tuple(c[1:6]) for c in FLASH_SHAPES}
+    fl = {tuple(c[1:6]) for c in FLASH_SHAPES + VICUNA_FLASH_SHAPES}
     seen_mm = {(m, k, n) for s in shapes.values()
                for m, n, k, _ in s["matmul"]}
     seen_fl = {c[:5] for s in shapes.values() for c in s["attention"]}
@@ -2810,6 +2929,398 @@ def grid_path():
     return counts, e2e
 
 
+# the Vicuna path (vicuna_path): InstructBLIP-Vicuna-7B as
+# configs/models/blip2_vicuna_instruct_7b.yaml builds it (EVA-ViT-g 39
+# layers, Q-Former 12, LLaMA 32 × 4096, ffn 11008, 32 heads of 128, vocab
+# 32000), seed 4; pruned as scripts/launch_lib.py:50-51 prunes it
+# (``--t5_model_prefix llm_model``) and scored with the Vicuna eval yamls
+# (configs/projects/eval/gqa_zeroshot_vicuna_instruct_eval.yaml:18-29 and
+# okvqa_zeroshot_vicuna_instruct_eval.yaml:4,18-29: batch 64, beam 5,
+# max_len 10, min_len 1, the prompt; the lemmatizer for OK-VQA)
+VICUNA_MODEL = dict(arch="blip2_vicuna_instruct", model_type="vicuna7b")
+VICUNA_OKVQA_MODEL = dict(VICUNA_MODEL, apply_lemmatizer=True)
+VICUNA_SEED = 4
+
+
+def vicuna_tokenizers(cfg) -> dict:
+    """LLaMA's special ids (pad 0, BOS 1, EOS 2) over its 32000 ids; the
+    Q-Former keeps a tokenizer of its own vocabulary (LLaMA's ids overflow
+    it)."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+    )
+
+    llm = cfg.llm
+    return dict(tokenizer=SimpleTokenizer(
+        llm.vocab_size, pad_token_id=llm.pad_token_id,
+        eos_token_id=llm.eos_token_id, bos_token_id=llm.bos_token_id),
+        qformer_tokenizer=SimpleTokenizer(cfg.qformer.vocab_size))
+
+
+def vicuna_batches(cfg, n: int, bs: int, g: torch.Generator):
+    """n seeded calibration batches as the decoder-only collator packs
+    them (``pack_qa``): 224² images; TXT tokens of prompt ⊕ answer, BOS
+    first, right-padded from TXT − 8 … TXT; labels −100 over the prompt
+    half and the pads; the Q-Former's TXT tokens."""
+    img, llm = cfg.vit.img_size, cfg.llm
+    pos = torch.arange(TXT, device="cuda")[None]
+    out = []
+    for _ in range(n):
+        ids = torch.randint(3, llm.vocab_size, (bs, TXT), generator=g,
+                            device="cuda")
+        ids[:, 0] = llm.bos_token_id
+        lens = torch.randint(TXT - 8, TXT + 1, (bs, 1), generator=g,
+                             device="cuda")
+        keep = pos < lens
+        out.append(dict(
+            image=torch.randn(bs, img, img, 3, generator=g, device="cuda"),
+            text_input_ids=torch.where(keep, ids, llm.pad_token_id),
+            text_attention_mask=keep.to(torch.int32),
+            labels=torch.where(keep & (pos >= TXT // 2), ids, -100),
+            qformer_input_ids=torch.randint(3, 2000, (bs, TXT), generator=g,
+                                            device="cuda"),
+            qformer_attention_mask=torch.ones(bs, TXT, dtype=torch.int32,
+                                              device="cuda")))
+    return out
+
+
+def tiny_vicuna_check():
+    """A tiny float32 InstructBLIP-Vicuna on the card (kernels) vs the same
+    model on the CPU (plain versions): logits with random masks on every
+    linear and left-padded text, within 1e-4; beam-2 ``generate_vicuna``
+    over left-padded prompts (pads 0, 1, 2), tokens equal; the dense model
+    pruned by ``blipt5_wanda_pruner`` over the ViT and ``llm_model``,
+    masks bit-equal."""
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+        Blip2VicunaInstruct,
+        Blip2VicunaInstructConfig,
+        generate_vicuna,
+    )
+    from vlm_compression_tpu_torch.models.bridge import (
+        export_masks,
+        random_init_,
+    )
+    from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+    from vlm_compression_tpu_torch.models.generation import GenerationConfig
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+    from vlm_compression_tpu_torch.models.llama import LlamaConfig
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+
+    f32 = dict(param_dtype="float32", dtype="float32")
+    cfg = Blip2VicunaInstructConfig.tiny(
+        vit=EvaViTConfig.tiny(**f32),
+        qformer=QFormerConfig.tiny(dtype="float32"),
+        llm=LlamaConfig.tiny(**f32))
+    dense = random_init_(Blip2VicunaInstruct(cfg, device="cpu"), seed=12,
+                         std=0.2)
+    g = torch.Generator().manual_seed(12)
+    cpu = copy.deepcopy(dense)
+    for mod in cpu.modules():
+        if isinstance(mod, SparseLinear):
+            mod.mask = torch.rand(mod.kernel.shape, generator=g) < 0.6
+    gpu = copy.deepcopy(cpu).to("cuda")
+    mask = torch.ones(3, 6, dtype=torch.int32)
+    mask[1, :1] = mask[2, :2] = 0
+    ids = torch.randint(3, 96, (3, 6), generator=g) * mask
+    for i in range(3):
+        ids[i, i] = cfg.llm.bos_token_id
+    image = torch.randn(3, 28, 28, 3, generator=g)
+    q_ids = torch.randint(2, 64, (3, 5), generator=g)
+    q_mask = torch.ones(3, 5, dtype=torch.int32)
+    batch = dict(image=image, text_input_ids=ids, text_attention_mask=mask,
+                 labels=ids * mask + (mask - 1) * 100,
+                 qformer_input_ids=q_ids, qformer_attention_mask=q_mask)
+    gen_cfg = GenerationConfig(num_beams=2, max_length=5, min_length=1,
+                               eos_token_id=cfg.llm.eos_token_id)
+    reset_counts()
+    with torch.no_grad():
+        want = cpu(**batch)["logits"]
+        got = gpu(**{k: v.cuda() for k, v in batch.items()})["logits"]
+        seqs = [generate_vicuna(m, *(t.to(dev) for t in (image, ids, mask,
+                                                        q_ids, q_mask)),
+                                gen_cfg=gen_cfg).cpu()
+                for m, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+    c = read_counts()
+    err = float((got.cpu() - want).abs().max())
+    log(f"  tiny fp32 InstructBLIP-Vicuna (bool masks) logits, card vs CPU: "
+        f"max_abs_err={err:.3e} (tol 1e-4); beam-2 generate_vicuna tokens "
+        f"{seqs[1].tolist()}, equal {torch.equal(seqs[0], seqs[1])}; "
+        f"masked_matmul launches {c['masked_matmul']}, attention forwards "
+        f"{c['flash_attention']}")
+    if not (err <= 1e-4 and bool(torch.isfinite(got).all())
+            and torch.equal(seqs[0], seqs[1]) and c["masked_matmul"] > 0
+            and c["flash_attention"] > 0):
+        raise AssertionError("tiny Vicuna check (logits, generate)")
+    del gpu
+    calib = [dict(image=torch.randn(4, 28, 28, 3, generator=g),
+                  text_input_ids=torch.randint(3, 96, (4, 6), generator=g),
+                  text_attention_mask=torch.tensor([[1] * 6] * 3
+                                                   + [[1] * 4 + [0] * 2]),
+                  labels=torch.randint(3, 96, (4, 6), generator=g),
+                  qformer_input_ids=torch.randint(2, 64, (4, 5), generator=g),
+                  qformer_attention_mask=torch.ones(4, 5, dtype=torch.int32))
+             for _ in range(2)]
+    masks = []
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(dense).to(dev)
+        with torch.no_grad():
+            load_pruner("blipt5_wanda_pruner", model, calib,
+                        vit_prune_spec="2-0.5-1.0-1.0",
+                        t5_prune_spec="2-0.5-1.0-1.0", num_samples=8,
+                        t5_model_prefix="llm_model").prune(lora_model=True)
+        masks.append(export_masks(model))
+        del model
+    differ = sum(int((masks[0][p] != masks[1][p]).sum()) for p in masks[0])
+    log(f"  tiny fp32 InstructBLIP-Vicuna blipt5_wanda_pruner (ViT + "
+        f"llm_model), card vs CPU: {len(masks[1])} masks, {differ} bits "
+        f"differ")
+    if set(masks[0]) != set(masks[1]) or len(masks[0]) != 2 * 4 + 2 * 7 \
+            or differ:
+        raise AssertionError("tiny Vicuna check (Wanda masks)")
+
+
+def vicuna_path():
+    """Full-width InstructBLIP-Vicuna-7B (bf16, seeded random weights, seed
+    VICUNA_SEED, after the XL models are freed), through the entry points a
+    user calls: ``blipt5_wanda_pruner`` with ``t5_model_prefix=llm_model``
+    over the ViT and LLaMA on N_CALIB synthetic samples at batch BS (masks
+    kept; each tower at 0.5 ± 0.01); beam-5 ``generate_vicuna`` on N_REQ
+    left-padded requests, cold and warm (tokens equal); the GQA task cold
+    and warm (warm: a ground truth of each even question's own cold answer
+    → exactly 50.00) and OK-VQA with the lemmatizer (the VQAv2 accuracy's
+    closed form) at the Vicuna eval yamls' settings, the answers equal to
+    a direct ``generate_vicuna``'s decoded tokens; every shape launched one
+    that phase 3 checked, each phase's kernels launched and no WMMA-loop
+    launch; one GQA pass profiled.  Returns (launches by phase, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_encode
+    from vlm_compression_tpu_torch.evaluation.lemmatize import lemmatize
+    from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+        generate_vicuna,
+    )
+    from vlm_compression_tpu_torch.models.factory import build_model
+    from vlm_compression_tpu_torch.models.generation import GenerationConfig
+    from vlm_compression_tpu_torch.tasks.vqa import GQATask, VQATask
+
+    t0 = time.perf_counter()
+    model = build_model(VICUNA_MODEL, seed=VICUNA_SEED)
+    cfg, llm = model.cfg, model.cfg.llm
+    g = torch.Generator(device="cuda").manual_seed(42 + VICUNA_SEED)
+    batches = vicuna_batches(cfg, N_CALIB // BS, BS, g)
+    img = cfg.vit.img_size
+    # N_REQ prompts of TXT tokens, BOS first; request 1 left-padded by 7
+    prompt_mask = torch.ones(N_REQ, TXT, dtype=torch.int32, device="cuda")
+    prompt_mask[1, :7] = 0
+    prompt = torch.randint(3, llm.vocab_size, (N_REQ, TXT), generator=g,
+                           device="cuda") * prompt_mask
+    prompt[0, 0] = prompt[2, 0] = prompt[3, 0] = prompt[1, 7] = \
+        llm.bos_token_id
+    req = (torch.randn(N_REQ, img, img, 3, generator=g, device="cuda"),
+           prompt, prompt_mask,
+           torch.randint(3, 2000, (N_REQ, TXT), generator=g, device="cuda"),
+           torch.ones(N_REQ, TXT, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model: InstructBLIP-Vicuna-7B, {n_params / 1e9:.3f} B params, "
+        f"bf16, random init + data {time.perf_counter() - t0:.1f} s; cuts: "
+        f"none (depth {cfg.vit.depth}/{cfg.qformer.num_layers}/"
+        f"{llm.num_layers}, {N_CALIB} calibration samples)")
+    counts, shapes, secs, peaks = {}, {}, {}, {}
+
+    def start():
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def end(phase):
+        counts[phase] = read_counts()
+        shapes[phase] = read_shapes()
+        peaks[phase] = torch.cuda.max_memory_allocated()
+
+    # --- the Wanda prune, ViT then llm_model
+    pruner = load_pruner(
+        "blipt5_wanda_pruner", model, batches,
+        vit_prune_spec=f"{cfg.vit.depth}-0.5-1.0-1.0",
+        t5_prune_spec=f"{llm.num_layers}-0.5-1.0-1.0", num_samples=N_CALIB,
+        t5_model_prefix="llm_model")
+    start()
+    timed("vicuna_prune", lambda: pruner.prune(lora_model=True))
+    end("vicuna_prune")
+    del batches, pruner
+    n_masked = 0
+    density = tower_density(model, towers=("visual_encoder", "llm_model"))
+    for tower, (dens, n_lin) in density.items():
+        n_masked += n_lin
+        log(f"  vicuna prune density {tower}: {dens:.4f} over {n_lin} "
+            f"linears")
+        if abs(dens - 0.5) > 0.01:
+            raise AssertionError(f"vicuna density {tower}")
+    if n_masked != cfg.vit.depth * 4 + llm.num_layers * 7:
+        raise AssertionError(f"{n_masked} masked linears")
+    log(f"  vicuna prune (blipt5_wanda_pruner, t5_model_prefix=llm_model, "
+        f"lora_model=True): {secs['vicuna_prune']:.2f} s, peak "
+        f"{peaks['vicuna_prune'] / 2**30:.2f} GiB; attention "
+        f"{attn_routes(counts['vicuna_prune'])}")
+
+    # --- beam-5 generate on N_REQ requests, cold then warm
+    gen_cfg = GenerationConfig(num_beams=5, max_length=10, min_length=1,
+                               eos_token_id=llm.eos_token_id,
+                               pad_token_id=llm.pad_token_id)
+    outs = {}
+    for phase in ("generate_vicuna_cold", "generate_vicuna_warm"):
+        start()
+        outs[phase] = timed(phase, lambda: generate_vicuna(
+            model, *req, gen_cfg=gen_cfg)).cpu()
+        end(phase)
+    seqs = outs["generate_vicuna_warm"]
+    if tuple(seqs.shape) != (N_REQ, gen_cfg.max_length) \
+            or not torch.equal(seqs[:, 0], prompt[:, -1].int().cpu()) \
+            or not bool(((seqs >= 0) & (seqs < llm.vocab_size)).all()):
+        raise AssertionError(f"bad generate_vicuna output {seqs}")
+    if not torch.equal(outs["generate_vicuna_cold"], seqs):
+        raise AssertionError("two generate_vicuna calls on the same inputs "
+                             "differ")
+    n_tok = int((seqs[:, 1:] != gen_cfg.pad_token_id).sum())
+    for phase in outs:
+        log(f"  generate_vicuna beam-5 ({phase}), {N_REQ} requests, "
+            f"max_length 10: {secs[phase]:.3f} s, {n_tok} tokens, "
+            f"{n_tok / secs[phase]:.1f} tokens/s, peak "
+            f"{peaks[phase] / 2**30:.2f} GiB; attention "
+            f"{attn_routes(counts[phase])}")
+    log(f"  tokens (first column: each prompt's last token): "
+        f"{seqs.tolist()}; equal cold vs warm")
+
+    # --- GQA cold and warm, OK-VQA, through the tasks
+    n = VQA_RUN["batch_size_eval"]
+    beams = VQA_RUN["num_beams"]
+    samples = vqa_samples(cfg, n)
+    toks = vicuna_tokenizers(cfg)
+    tok = toks["tokenizer"]
+    tmp = tempfile.TemporaryDirectory(prefix="vicuna_vqa_")
+    try:
+        gqa = GQATask.setup_task(dict(run=VQA_RUN, model=VICUNA_MODEL),
+                                 **toks)
+        start()
+        cold = timed("vicuna_gqa_cold",
+                     lambda: gqa.evaluation(model, [samples]))
+        answers = [r["answer"] for r in cold]
+        scored = dict(samples, answers=[
+            [a] if i % 2 == 0 else [NEVER] for i, a in enumerate(answers)])
+        warm = timed("vicuna_gqa_warm",
+                     lambda: gqa.evaluation(model, [scored]))
+        end("vqa_vicuna_gqa")
+        if [r["answer"] for r in warm] != answers:
+            raise AssertionError("Vicuna GQA: the warm pass answered "
+                                 "otherwise")
+        gqa_metrics = gqa.after_evaluation(
+            warm, split_name="val",
+            result_dir=os.path.join(tmp.name, "gqa", "result"))
+        log(f"  vicuna gqa: {n} questions, beam {beams}, max_len "
+            f"{VQA_RUN['max_len']}: cold {secs['vicuna_gqa_cold']:.3f} s, "
+            f"warm {secs['vicuna_gqa_warm']:.3f} s "
+            f"({n / secs['vicuna_gqa_warm']:.1f} questions/s), peak "
+            f"{peaks['vqa_vicuna_gqa'] / 2**30:.2f} GiB; answers equal cold "
+            f"vs warm; {sum(a == '' for a in answers)} empty; metrics "
+            f"{json.dumps(gqa_metrics)}; e.g. "
+            f"{json.dumps(dict(zip(samples['text_input'][:3], answers)))}")
+        if gqa_metrics["acc"] != 50.0 or gqa_metrics["agg_metrics"] != 50.0:
+            raise AssertionError(f"Vicuna GQA accuracy {gqa_metrics}, not "
+                                 "50.00")
+        # the task adds no drift: a direct generate_vicuna on the prompts
+        # encoded as the task encodes them (left-padded, BOS first),
+        # decoded by hand after the seed column
+        prompts = [VQA_PROMPT.format(q) for q in samples["text_input"]]
+        ids, mask = batch_encode(tok, prompts, 128, left_pad=True,
+                                 add_bos=True)
+        enc = [torch.from_numpy(a).cuda() for a in (
+            ids, mask, *batch_encode(toks["qformer_tokenizer"], prompts,
+                                     128))]
+        direct_seqs = generate_vicuna(
+            model, samples["image"], *enc, gen_cfg=GenerationConfig(
+                num_beams=beams, max_length=VQA_RUN["max_len"] + 1,
+                min_length=VQA_RUN["min_len"],
+                eos_token_id=llm.eos_token_id)).cpu()
+        direct = []
+        for row in direct_seqs[:, 1:].tolist():
+            row = row[:row.index(tok.eos_token_id)] \
+                if tok.eos_token_id in row else row
+            direct.append(tok.decode(row).strip())
+        pads = sorted(set((ids.shape[1] - mask.sum(1)).tolist()))
+        log(f"  vicuna gqa prompts: {tuple(ids.shape)} (the prime holds "
+            f"{cfg.qformer.num_query_tokens} + {ids.shape[1] - 1} slots, "
+            f"pads per prompt {pads}); answers equal to a direct "
+            f"generate_vicuna's {direct == answers}")
+        if direct != answers:
+            raise AssertionError("the Vicuna GQA task's answers differ from "
+                                 "a direct generate_vicuna's decoded tokens")
+
+        okvqa = VQATask.setup_task(dict(run=VQA_RUN,
+                                        model=VICUNA_OKVQA_MODEL), **toks)
+        lemmas = lemmatize(answers)
+        ks = [i % 11 for i in range(n)]
+        scored = dict(samples, answers=[[a] * k + [NEVER] * (10 - k)
+                                        for a, k in zip(lemmas, ks)])
+        start()
+        ok = timed("vicuna_okvqa", lambda: okvqa.evaluation(model, [scored]))
+        end("vqa_vicuna_okvqa")
+        ok_metrics = okvqa.after_evaluation(
+            ok, split_name="test",
+            result_dir=os.path.join(tmp.name, "okvqa", "result"))
+        want = round(100 * sum(map(vqa_closed_form, ks)) / n, 2)
+        log(f"  vicuna okvqa (apply_lemmatizer={okvqa.apply_lemmatizer}): "
+            f"{secs['vicuna_okvqa']:.3f} s, peak "
+            f"{peaks['vqa_vicuna_okvqa'] / 2**30:.2f} GiB; metrics "
+            f"{json.dumps(ok_metrics)}, closed form {want}")
+        if not okvqa.apply_lemmatizer \
+                or [r["answer"] for r in ok] != lemmas \
+                or ok_metrics["overall"] != want:
+            raise AssertionError(f"Vicuna OK-VQA {ok_metrics} against {want}")
+    finally:
+        tmp.cleanup()
+    tally = shapes["vqa_vicuna_gqa"]["matmul"]
+    log(f"  vicuna gqa, the M = {n * beams} beam-decode steps' matmul "
+        f"launches by shape, beside plan's loop and splits: "
+        f"{json.dumps(decode_step_routes(tally, n * beams))}")
+    log(f"  launches: {json.dumps(counts)}")
+    check_phase_counts(counts)
+    check_shapes(shapes, "vicuna")
+
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gqa.evaluation(model, [samples])
+        torch.cuda.synchronize()
+    dev_ms, groups = device_breakdown(
+        prof, 1e3 * secs["vicuna_gqa_warm"],
+        f"vicuna gqa, {n} questions, beam {beams}")
+    log(f"  vicuna gqa profiled pass: peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {
+        "vicuna_prune_s": secs["vicuna_prune"],
+        "vicuna_generate_cold_s": secs["generate_vicuna_cold"],
+        "vicuna_generate_s": secs["generate_vicuna_warm"],
+        "vicuna_tokens_per_s": n_tok / secs["generate_vicuna_warm"],
+        "vicuna_gqa_cold_s": secs["vicuna_gqa_cold"],
+        "vicuna_gqa_warm_s": secs["vicuna_gqa_warm"],
+        "vicuna_gqa_acc": gqa_metrics["acc"],
+        "vicuna_okvqa_s": secs["vicuna_okvqa"],
+        "vicuna_okvqa_acc": ok_metrics["overall"],
+        "vicuna_gqa_device_ms": dev_ms,
+        "vicuna_peak_bytes": {k: v for k, v in peaks.items()}}
+
+
 def profile_first_order(e2e):
     """The first-order path's two gradient phases again under
     torch.profiler (device activity only) on a fresh seed-2 model: the
@@ -3253,7 +3764,8 @@ def timing():
             f"{expected_loop(m, k, n, bf16):5s}: kernel {ms:.4f} ms{old}, "
             f"plain {plain:.4f} ms, torch.matmul(x, W*mask) {lib:.4f} ms, "
             f"bound {bound:.4f} ms ({by})")
-    for name, b, n, m, h, d, kinds, scale in FLASH_SHAPES:
+    for name, b, n, m, h, d, kinds, scale in \
+            FLASH_SHAPES + VICUNA_FLASH_SHAPES:
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k_, v))
         bsum = None
@@ -3275,7 +3787,7 @@ def timing():
         extra[("flash_attention", name)] = {
             "mma_ms": mma, "library_backend": lib["library_backend"]}
         log(f"  time flash_attention {name:22s} b={b} n={n} m={m} h={h} "
-            f"d={d} (plan_forward {A.plan_forward(n, m, d)}): TMA + wgmma "
+            f"d={d}: the planned route ({A.plan_forward(n, m, d)}) "
             f"{ms:.4f} ms, mma.sync route {mma:.4f} ms ({mma / ms:.2f}x), "
             f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
             f"{library_note(lib)}")
@@ -3537,6 +4049,7 @@ def main() -> int:
     tiny_train_check()
     tiny_gradient_scoring_check()
     tiny_grid_pruners_check()
+    tiny_vicuna_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -3577,6 +4090,14 @@ def main() -> int:
     phase_done("grid path")
     counts.update(g_counts)
     e2e.update(g_e2e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[vicuna path] InstructBLIP-Vicuna-7B: Wanda prune (ViT and "
+        "llm_model), beam-5 generate, GQA and OK-VQA through the tasks")
+    v_counts, v_e2e = vicuna_path()
+    phase_done("vicuna path")
+    counts.update(v_counts)
+    e2e.update(v_e2e)
     log("[profile] the main path, the SparseGPT prune, the first-order "
         "path's gradient phases and the grid path's prunes again under "
         "torch.profiler")
@@ -3659,8 +4180,15 @@ def main() -> int:
                if bwd else {}),
             **({"launches_by_route": {
                 "wgmma": sum(c[FWD_WGMMA] for c in counts.values()),
-                "mma_or_fp32": sum(c[kname] - c[FWD_WGMMA]
-                                   for c in counts.values())}}
+                "mma_or_fp32": sum(c[FWD_MMA] for c in counts.values())},
+                "vicuna_mma": {name: dict(zip(
+                    ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by"), rows[(kname, name)]),
+                    **extra[(kname, name)])
+                    for name in FLASH_VICUNA_TIMED},
+                "vicuna_launches_by_route": {
+                    p: {"wgmma": c[FWD_WGMMA], "mma": c[FWD_MMA]}
+                    for p, c in counts.items() if "vicuna" in p}}
                if kname == "flash_attention" else {}),
             **({"launches_by_route": {
                 "decode": sum(c[DECODE] for p, c in counts.items()

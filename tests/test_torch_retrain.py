@@ -297,7 +297,7 @@ def test_factory_ranks_dtype_policy_and_task():
     _, xl = TF.build_model_config(dict(model_type="flant5xl"))
     _, xxl = TF.build_model_config(dict(model_type="flant5xxl"))
     assert (xl.t5.d_model, xxl.t5.d_model) == (2048, 4096)
-    for bad in (dict(arch="blip2_vicuna_instruct"),
+    for bad in (dict(arch="blip2_opt"),
                 dict(use_grad_checkpoint=True)):
         with pytest.raises(NotImplementedError):
             TF.build_model_config(bad)

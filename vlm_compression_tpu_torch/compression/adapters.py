@@ -1,6 +1,6 @@
 """Tower adapters binding the models to the calibration engine (port of
 ``vlm_compression_tpu/compression/adapters.py``: ViT, T5 encoder, T5
-decoder).
+decoder, the decoder-only LLaMA).
 
 An adapter owns the block application and the side inputs; the stem —
 everything upstream of block 0 — is a closure from the pruner, which
@@ -14,8 +14,11 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import torch
+
 from vlm_compression_tpu_torch.compression.calibrate import TowerAdapter
 from vlm_compression_tpu_torch.models.eva_vit import EvaViT
+from vlm_compression_tpu_torch.models.llama import LlamaForCausalLM
 from vlm_compression_tpu_torch.models.t5 import (
     T5Decoder,
     T5Encoder,
@@ -79,4 +82,33 @@ def make_t5_decoder_adapter(decoder: T5Decoder, decoder_inputs_fn: Callable,
     return TowerAdapter(
         name="t5_decoder", blocks=decoder,
         block_names=list(decoder.block_names),
+        block_fn=block_fn, stem_fn=stem_fn, subtree=subtree)
+
+
+def make_llama_adapter(llm: LlamaForCausalLM, inputs_fn: Callable,
+                       subtree: Tuple[str, ...] = ("llm_model",)
+                       ) -> TowerAdapter:
+    """Decoder-only (LLaMA / Vicuna) layer sweep.  inputs_fn(batch) ->
+    (inputs_embeds, attention_mask|None).  The stem builds the side inputs
+    as the JAX stem does: the causal −1e9 mask plus the padding bias, one
+    (b, 1, n, n) bias, and the rotary positions ``cumsum(mask) − 1``."""
+
+    def stem_fn(batch):
+        embeds, attn_mask = inputs_fn(batch)
+        b, n, _ = embeds.shape
+        dev = embeds.device
+        mask = causal_mask(n, device=dev)
+        if attn_mask is not None:
+            mask = mask + extend_mask(attn_mask)
+            positions = torch.clamp(
+                torch.cumsum(attn_mask.to(torch.int32), dim=-1) - 1, min=0)
+        else:
+            positions = torch.arange(n, device=dev)[None].expand(b, n)
+        return embeds, {"mask": mask, "positions": positions}
+
+    def block_fn(blk, x, side, mode):
+        return blk(x, side["mask"], side["positions"], mode=mode)
+
+    return TowerAdapter(
+        name="llama", blocks=llm, block_names=list(llm.block_names),
         block_fn=block_fn, stem_fn=stem_fn, subtree=subtree)

@@ -1,7 +1,8 @@
 """Registered pruner classes (port of the joint V+L orchestration of
 ``vlm_compression_tpu/compression/pruners/towers.py``, FlanT5 branch).
 
-Orchestration as in the JAX package: ViT → T5 encoder → T5 decoder; in
+Orchestration as in the JAX package: ViT → T5 encoder → T5 decoder (or,
+for InstructBLIP-Vicuna, ViT → one sweep over ``llm_model``'s blocks); in
 the LoRA path (``lora_model=True``: masks kept) upstream towers run
 ``dense`` while a downstream tower calibrates; in the non-LoRA path the
 pruned weights are zeroed and the sweeps chain (each tower's replayed
@@ -31,6 +32,9 @@ from vlm_compression_tpu_torch.compression.pruners import methods as M
 from vlm_compression_tpu_torch.compression.pruners.base import (
     LayerWisePrunerBase,
     convert_spec_to_list,
+)
+from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+    prefix_inputs,
 )
 from vlm_compression_tpu_torch.models.t5 import shift_right
 from vlm_compression_tpu_torch.ops import sparsegpt as SG
@@ -151,9 +155,8 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
 
     @torch.no_grad()
     def prune(self, lora_model: bool = True):
-        module = self.model   # Blip2T5Instruct
-        if not hasattr(module.cfg, "t5"):
-            raise NotImplementedError("only the FlanT5 composition is ported")
+        module = self.model   # Blip2T5Instruct or Blip2VicunaInstruct
+        is_t5 = hasattr(module.cfg, "t5")
         vit_spec = convert_spec_to_list(self.vit_prune_spec)
         t5_spec = convert_spec_to_list(self.t5_prune_spec)
         vit_keep = vit_spec[1] if vit_spec else 1.0
@@ -182,7 +185,30 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
                 ad, batches, sfor_global or self.get_sparsity(1.0 - vit_keep),
                 lora_model, tower="vit", return_outputs=chain)
 
-        if prune_llm:
+        if prune_llm and not is_t5:
+            # decoder-only LLM (Vicuna): one sweep over the llm_model blocks
+            sfor = sfor_global or self.get_sparsity(1.0 - t5_keep)
+            if chain:
+                bb = fuse_batch_dicts(batches) if len(vit_outs) == 1 else batches
+                llm_batches = [dict(b, vit_x=x) for b, x in zip(bb, vit_outs)]
+                bb = vit_outs = None
+
+                def llm_inputs_fn(b):
+                    return _llm_inputs_from_prefix(
+                        module, b, module.encode_image_from_features(
+                            b["vit_x"], b.get("qformer_input_ids"),
+                            b.get("qformer_attention_mask")))
+            else:
+                llm_batches = batches
+
+                def llm_inputs_fn(b):
+                    return _blip_llm_inputs(module, b, vit_mode_for_llm)
+
+            self._prune_tower(
+                A.make_llama_adapter(module.llm_model, llm_inputs_fn,
+                                     ("llm_model",)),
+                llm_batches, sfor, lora_model, tower="llm")
+        elif prune_llm:
             sfor = sfor_global or self.get_sparsity(1.0 - t5_keep)
             t5 = module.t5_model
             if chain:
@@ -228,6 +254,20 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
             self._prune_tower(dec_ad, dec_batches, sfor, lora_model,
                               tower="llm")
         return self.model, getattr(sfor_global, "mapping", None)
+
+
+def _llm_inputs_from_prefix(m, batch, prefix):
+    """[query prefix ⊕ packed prompt+answer embeds] and its mask, given a
+    prefix (the chained sweep feeds the pruned ViT's replayed features)."""
+    return prefix_inputs(m, prefix, batch["text_input_ids"],
+                         batch["text_attention_mask"])
+
+
+def _blip_llm_inputs(m, batch, vit_mode):
+    prefix = m.encode_image(batch["image"], vit_mode,
+                            batch.get("qformer_input_ids"),
+                            batch.get("qformer_attention_mask"))
+    return _llm_inputs_from_prefix(m, batch, prefix)
 
 
 def _encoder_inputs_from_prefix(m, batch, prefix):

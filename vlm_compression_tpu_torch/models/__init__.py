@@ -1,2 +1,3 @@
 """Towers and compositions of the port (EVA ViT-g, Q-Former, FlanT5,
-InstructBLIP-T5), decoding, and the weight bridge."""
+LLaMA, InstructBLIP-T5, InstructBLIP-Vicuna), decoding, and the weight
+bridge."""

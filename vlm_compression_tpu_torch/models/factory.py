@@ -1,5 +1,7 @@
-"""Model factory: model config → composed InstructBLIP-T5 (port of the
-``blip2_t5_instruct`` branch of ``vlm_compression_tpu/models/factory.py``).
+"""Model factory: model config → composed InstructBLIP-T5 or
+InstructBLIP-Vicuna (port of the ``blip2_t5_instruct`` and
+``blip2_vicuna_instruct`` branches of
+``vlm_compression_tpu/models/factory.py``).
 
 LoRA ranks per tower follow the reference's ``tune_opt`` selector and
 ``lora_r_v/l/q`` flags: a tower gets its rank only when its letter is in
@@ -11,15 +13,22 @@ yet and raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Tuple, Union
+
+from torch import nn
 
 from vlm_compression_tpu_torch.common.device import DeviceLike
 from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
     Blip2T5Instruct,
     Blip2T5InstructConfig,
 )
+from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+    Blip2VicunaInstruct,
+    Blip2VicunaInstructConfig,
+)
 from vlm_compression_tpu_torch.models.bridge import random_init_
 from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+from vlm_compression_tpu_torch.models.llama import LlamaConfig
 from vlm_compression_tpu_torch.models.qformer import QFormerConfig
 from vlm_compression_tpu_torch.models.t5 import T5Config
 
@@ -55,10 +64,15 @@ def apply_dtype_policy(cfg, amp: bool):
     return fix(cfg)
 
 
-def build_model_config(model_cfg) -> Tuple[str, Blip2T5InstructConfig]:
+_MODELS = {"blip2_t5_instruct": Blip2T5Instruct,
+           "blip2_vicuna_instruct": Blip2VicunaInstruct}
+Config = Union[Blip2T5InstructConfig, Blip2VicunaInstructConfig]
+
+
+def build_model_config(model_cfg) -> Tuple[str, Config]:
     """(arch, composed config) from a model config node."""
     arch = _get(model_cfg, "arch", "blip2_t5_instruct")
-    if arch != "blip2_t5_instruct":
+    if arch not in _MODELS:
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     for key in _NOT_PORTED:
         if _get(model_cfg, key, False):
@@ -70,7 +84,22 @@ def build_model_config(model_cfg) -> Tuple[str, Blip2T5InstructConfig]:
     r_l = int(_get(model_cfg, "lora_r_l", 0)) if "L" in tune_opt else 0
     r_q = int(_get(model_cfg, "lora_r_q", 0)) if "Q" in tune_opt else 0
     alpha = float(_get(model_cfg, "lora_alpha", 16.0))
-    if bool(_get(model_cfg, "tiny", False)):
+    tiny = bool(_get(model_cfg, "tiny", False))
+    if arch == "blip2_vicuna_instruct":
+        if tiny:
+            cfg = Blip2VicunaInstructConfig(
+                vit=EvaViTConfig.tiny(lora_rank=r_v, lora_alpha=alpha),
+                qformer=QFormerConfig.tiny(lora_rank=r_q, lora_alpha=alpha),
+                llm=LlamaConfig.tiny(lora_rank=r_l, lora_alpha=alpha))
+        else:
+            llm = (LlamaConfig.vicuna_13b if "13b" in size
+                   else LlamaConfig.vicuna_7b)(lora_rank=r_l,
+                                               lora_alpha=alpha)
+            cfg = Blip2VicunaInstructConfig(
+                vit=EvaViTConfig.eva_clip_g(lora_rank=r_v, lora_alpha=alpha),
+                qformer=QFormerConfig(lora_rank=r_q, lora_alpha=alpha),
+                llm=llm)
+    elif tiny:
         cfg = Blip2T5InstructConfig(
             vit=EvaViTConfig.tiny(lora_rank=r_v, lora_alpha=alpha),
             qformer=QFormerConfig.tiny(lora_rank=r_q, lora_alpha=alpha),
@@ -85,8 +114,8 @@ def build_model_config(model_cfg) -> Tuple[str, Blip2T5InstructConfig]:
 
 
 def build_model(model_cfg, seed: int = 0,
-                device: DeviceLike = None) -> Blip2T5Instruct:
+                device: DeviceLike = None) -> nn.Module:
     """The composed model with seeded random weights (LoRA A he-uniform, B
     zeros), on the card unless ``device`` says otherwise."""
-    _, cfg = build_model_config(model_cfg)
-    return random_init_(Blip2T5Instruct(cfg, device=device), seed=seed)
+    arch, cfg = build_model_config(model_cfg)
+    return random_init_(_MODELS[arch](cfg, device=device), seed=seed)

@@ -83,6 +83,10 @@ def make_kd_train_step(model: nn.Module, opt: torch.optim.Optimizer,
     holds the model's keyword arguments.  ``accum_grad_iters`` k > 1 splits
     the batch's leading dim into k equal micro-batches and averages their
     gradients (and metrics) before the one update."""
+    if hasattr(model, "llm_model"):
+        raise NotImplementedError(
+            "RESSA retraining of InstructBLIP-Vicuna is not ported yet "
+            "(ROADMAP queue 1, item 8)")
     accum = int(accum_grad_iters)
 
     def micro_step(batch, inv: float):

@@ -1,11 +1,12 @@
 """VQA / OK-VQA / GQA tasks — answers generated (or ranked over a candidate
-list) by InstructBLIP-T5 and scored with the official metrics (port of
-``vlm_compression_tpu/tasks/vqa.py``).
+list) by InstructBLIP-T5 or InstructBLIP-Vicuna and scored with the
+official metrics (port of ``vlm_compression_tpu/tasks/vqa.py``).
 
 ``valid_step`` formats each question with the prompt, encodes it for the
-Q-Former and for T5 (128 tokens), and either generates a short answer
-(beam search, ``max_len`` new tokens) or, with ``answer_list`` set, picks
-the candidate of least decoder NLL.  ``after_evaluation`` saves the
+Q-Former and for the language model (128 tokens; for Vicuna left-padded
+with BOS first) and either generates a short answer (beam search,
+``max_len`` new tokens) or, with ``answer_list`` set, picks the candidate
+of least decoder NLL (InstructBLIP-T5 only).  ``after_evaluation`` saves the
 results (a shard per process, merged) and reports the VQAv2 accuracy, or
 GQA's exact match, appending it to ``result_dir/../evaluate.txt``.
 
@@ -37,14 +38,18 @@ from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
     generate_t5,
     predict_class_t5,
 )
+from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+    Blip2VicunaInstruct,
+    generate_vicuna,
+)
 from vlm_compression_tpu_torch.models.generation import GenerationConfig
 from vlm_compression_tpu_torch.tasks.base import BaseTask
 
 
-def _not_t5(what: str):
+def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} needs an InstructBLIP-T5 model: the OPT and Vicuna "
-        "compositions are not ported yet (ROADMAP queue 1, item 8)")
+        f"{what} needs an InstructBLIP-T5 model: ranking on Vicuna and the "
+        "OPT composition are not ported yet (ROADMAP queue 1, item 8)")
 
 
 @registry.register_task("vqa")
@@ -104,16 +109,18 @@ class VQATask(BaseTask):
         return [self.prompt.format(q) if "{}" in self.prompt
                 else self.prompt + q for q in samples["text_input"]]
 
-    def _encode(self, model, samples):
-        """(image, T5 ids, T5 mask, Q-Former ids, Q-Former mask) on the
-        model's device."""
+    def _encode(self, model, samples, decoder_only: bool = False):
+        """(image, LM ids, LM mask, Q-Former ids, Q-Former mask) on the
+        model's device; ``decoder_only``: the LM prompt left-padded, BOS
+        first."""
         questions = self._prompts(samples)
         dev = model.device
 
         def t(a):
             return torch.from_numpy(np.asarray(a)).to(dev)
 
-        ids, mask = batch_encode(self.tokenizer, questions, 128)
+        ids, mask = batch_encode(self.tokenizer, questions, 128,
+                                 left_pad=decoder_only, add_bos=decoder_only)
         q_ids, q_mask = batch_encode(self.qformer_tokenizer, questions, 128)
         image = torch.as_tensor(samples["image"], dtype=torch.float32,
                                 device=dev)
@@ -130,23 +137,27 @@ class VQATask(BaseTask):
         return out
 
     def valid_step(self, model, samples) -> List[Dict]:
-        """model: an InstructBLIP-T5 (``Blip2T5Instruct``).  With
-        ``answer_list`` set, answers are ranked by decoder NLL over the
-        candidates instead of generated."""
+        """model: an InstructBLIP-T5 (``Blip2T5Instruct``) or -Vicuna
+        (``Blip2VicunaInstruct``).  With ``answer_list`` set, answers are
+        ranked by decoder NLL over the candidates instead of generated."""
         if self.answer_list:
             return self._rank_step(model, samples)
-        if not isinstance(model, Blip2T5Instruct):
-            raise _not_t5("generating answers")
+        vicuna = isinstance(model, Blip2VicunaInstruct)
+        if not (vicuna or isinstance(model, Blip2T5Instruct)):
+            raise _not_ported("generating answers")
         if self.speculative_gamma > 0:
             raise NotImplementedError(
                 "speculative_gamma > 0 (draft-and-verify serving) is not "
                 "ported yet (ROADMAP queue 1, item 9)")
-        image, ids, mask, q_ids, q_mask = self._encode(model, samples)
+        image, ids, mask, q_ids, q_mask = self._encode(model, samples,
+                                                       decoder_only=vicuna)
+        eos = dict(eos_token_id=model.cfg.llm.eos_token_id) if vicuna else {}
         gen_cfg = GenerationConfig(
             num_beams=self.num_beams, max_length=self.max_len + 1,
-            min_length=self.min_len)
-        seqs = generate_t5(model, image, ids, mask, q_ids, q_mask,
-                           gen_cfg=gen_cfg)
+            min_length=self.min_len, **eos)
+        generate = generate_vicuna if vicuna else generate_t5
+        seqs = generate(model, image, ids, mask, q_ids, q_mask,
+                        gen_cfg=gen_cfg)
         answers = self._decode(seqs.cpu())
         if self.apply_lemmatizer:
             answers = lemmatize(answers)
@@ -154,7 +165,7 @@ class VQATask(BaseTask):
 
     def _rank_step(self, model, samples) -> List[Dict]:
         if not isinstance(model, Blip2T5Instruct):
-            raise _not_t5("ranking an answer list")
+            raise _not_ported("ranking an answer list")
         image, ids, mask, q_ids, q_mask = self._encode(model, samples)
         cands = batch_labels(self.tokenizer, self.answer_list, self.max_len)
         nll = predict_class_t5(model, image, ids, mask,
