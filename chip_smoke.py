@@ -29,7 +29,9 @@ each of which fails the run (non-zero exit, no result line) on error:
                 wgmma kernel) and on the mma.sync route, causal, ragged,
                 dq alone and dk/dv alone, and two identical calls of the
                 planned route bit-equal (dq, dk, dv) at every BWD_SHAPES
-                shape (dq summed over the kv tiles in a fixed order);
+                shape and at the towers' batch 1 and 16 (dq summed over
+                the kv tiles in a fixed order), the forward the backward
+                starts from held there too;
                 dbias of every bias of each DBIAS_SHAPES case on the
                 separate dbias kernel, and, in bf16, of each bias the TMA
                 + wgmma backward returns (``plan_dbias``: it keeps the
@@ -47,7 +49,15 @@ each of which fails the run (non-zero exit, no result line) on error:
                 d = 128 on the mma.sync kernel, under LLaMA's one additive
                 bias: the calibration sweep, the primes and the decode
                 steps at b = 20 and 320, and rows that see no valid key),
-                two identical calls bit-equal there too;
+                two identical calls bit-equal there too; the caption
+                pass's (the T5 encoder over 32 + 3 tokens, its cross k/v
+                for 320 × 35 rows, the decoder's self-attention over up to
+                31 cache slots); the Vicuna retrain's (sparse-LoRA at
+                LLaMA's widths, M = 32 × 72, r = 8, the down projection at
+                K = 11008; the Q-Former's attention over 32 + 34 tokens;
+                the attention backward at d = 128 on the
+                mma.sync kernels under the causal + pad bias, against the
+                plain version in bf16 and fp32, two calls bit-equal);
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -79,7 +89,9 @@ each of which fails the run (non-zero exit, no result line) on error:
                 sparse_lora student, KD loss, AdamW on the LoRA factors) for
                 1 cold + 3 timed steps at batch 32, then the first two again
                 from the saved starting state (LoRA leaves bit-equal to the
-                first run's after two steps); the sparse merge;
+                first run's after two steps; every sparse-LoRA, attention
+                and attention-backward shape it launched one that phase 3
+                checked); the sparse merge;
                 beam-5 generate from the merged model; then its zero-shot
                 VQA eval through the tasks (``setup_task``, ``evaluation``,
                 ``after_evaluation``) at the eval yamls' settings (batch
@@ -92,8 +104,18 @@ each of which fails the run (non-zero exit, no result line) on error:
                 the list, NLLs finite, equal to a direct
                 ``predict_class_t5``'s argmin), every masked-linear and
                 attention shape of these phases one that phase 3 checked,
-                and one GQA pass profiled.  Each phase's kernels must have
-                launched in it;
+                and one GQA pass profiled; then NoCaps captioning through
+                the captioning task at the NoCaps (and COCO) eval yaml's
+                settings (batch 64, beam 5, max_len 30, min_len 8), cold
+                and warm (captions equal, and equal to a direct
+                ``generate_t5``'s decoded tokens; no EOS before position
+                min_len; each image's own caption as its reference gives
+                BLEU-1..4 and ROUGE-L of exactly 1 in the host-only
+                caption metrics), once more with EOS made the top logit
+                of every step (every caption ends, none before min_len,
+                each equal to a direct ``generate_t5``'s), its shapes
+                checked in phase 3, one pass profiled.  Each phase's
+                kernels must have launched in it;
   6. compressed path — a second full-width XL model (seed 1, after the
                 first is freed; no adapters): ``blipt5_sparsegpt_pruner``
                 (masks kept, updated kernels) on 128 samples, with the
@@ -147,6 +169,18 @@ each of which fails the run (non-zero exit, no result line) on error:
                 ``generate_vicuna``'s; every shape launched one that phase
                 3 checked, no WMMA-loop launch, and one GQA pass profiled
                 (busy share, device time by kernel group, peak memory);
+                then RESSA retraining of the pruned model (SparseLoRA
+                tune_opt=LVQ, ranks 4/8/2, on batches collated by
+                ``make_vicuna_batch_preparer``, LLaMA at n = m = 72, the
+                Q-Former at 32 + 34 in every batch) with the main path's
+                gates (1 cold + 3 timed steps at batch 32, the first two
+                replayed bit-equal; LLaMA's attention backward on the
+                mma.sync kernels at d = 128, no bias gradient, no
+                WMMA-loop launch; every shape launched, sparse-LoRA and
+                backward included, one that phase 3 checked), one more
+                step profiled,
+                the sparse merge (zero off the masks, 0.5 ± 0.01) and
+                beam-5 generate from the merged model;
  10. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune, the
                 first-order path's Fisher (its attention backward's device
@@ -184,10 +218,13 @@ must not run (the separate dbias kernel in the retrain step, the EcoFLaP
 prune and the Fisher, the bool kernel in a packed or int8 phase, the
 packed one in an int8 phase; any kernel in the magnitude and random
 prunes; any attention backward in the DSnoT and zeroth prunes; the dbias
-outputs, the masked matmul and the WMMA loop in the aobd prune); the decode kernel in every generate
+outputs, the masked matmul and the WMMA loop in the aobd prune; the dbias
+outputs, the separate dbias kernel and the WMMA loop in the Vicuna
+retrain, which must run the sparse-LoRA kernel on the Hopper loop and
+both attention routes forward and backward); the decode kernel in every generate
 phase of a masked or int8 model, and no WMMA-loop launch at all in any
 generate phase, the retrain step or the three VQA phases (which must run
-the Hopper loop and the TMA + wgmma forward), nor in any phase of the
+the Hopper loop and the TMA + wgmma forward) or the caption pass, nor in any phase of the
 Vicuna path, its prune included (whose LLaMA forwards must run the
 mma.sync route).  WMMA-loop launches left in other
 phases are printed with their shapes and why the other loops refused
@@ -310,6 +347,15 @@ MM_SHAPES = [
     ("t5_dec_wi_rank", 8192, 2048, 5120),
     ("t5_dec_wo_rank", 8192, 5120, 2048),
     ("t5_cross_kv_rank", 90112, 2048, 2048),
+    # the NoCaps / COCO caption pass of 64 images (caption_path): the T5
+    # encoder at M = 64 × 35 (32 query tokens + the 3 tokens of "a photo
+    # of"), the cross k/v once for 320 × 35 rows; the ViT and the M = 320
+    # beam-decode steps as in the VQA block.  caption_path fails if it
+    # launches a shape not listed
+    ("t5_qkvo_caption", 2240, 2048, 2048),
+    ("t5_wi_caption", 2240, 2048, 5120),
+    ("t5_wo_caption", 2240, 5120, 2048),
+    ("t5_cross_kv_caption", 11200, 2048, 2048),
     # the Vicuna path (vicuna_path): LLaMA-7B's linears (q/k/v/o 4096 →
     # 4096, gate/up 4096 → 11008, down 11008 → 4096) in the calibration
     # sweep (M = 128 × (32 query tokens + 40 text)), the 4-request
@@ -361,6 +407,13 @@ FLASH_SHAPES = [
     ("t5_cross_beam_step", 320, 1, 44, 32, 64, ["pad"], 1.0),
     ("t5_decoder_self_rank", 2048, 4, 4, 32, 64, ["relc"], 1.0),
     ("t5_cross_rank", 2048, 4, 44, 32, 64, ["pad"], 1.0),
+    # the caption pass: the Q-Former and T5 encoder over 32 + 3 tokens at
+    # b = 64, the beam-decode steps at b = 320 (self over the cache of up
+    # to 31 slots: max_len 30 + the start token; cross over 35 keys)
+    ("qformer_self_caption", 64, 35, 35, 12, 64, ["pad"], 0.125),
+    ("t5_encoder_caption", 64, 35, 35, 32, 64, ["rel", "pad"], 1.0),
+    ("t5_self_beam_step_caption", 320, 1, 31, 32, 64, ["rel", "step"], 1.0),
+    ("t5_cross_beam_step_caption", 320, 1, 35, 32, 64, ["pad"], 1.0),
     # the grid path (grid_path): the decoder's cross-attention in the
     # calibration sweeps (b = 128); the aobd pruner's passes at b = 16
     # (decoder); the zeroth entry's scoring forwards and the batch-1 stems
@@ -397,6 +450,9 @@ VICUNA_FLASH_SHAPES = [
     ("llama_decode_gen", 20, 1, 81, 32, 128, ["dstep"], 128 ** -0.5),
     ("llama_prime_vqa", 320, 44, 55, 32, 128, ["lpad"], 128 ** -0.5),
     ("llama_beam_step", 320, 1, 55, 32, 128, ["dstep"], 128 ** -0.5),
+    # the retrain (vicuna_retrain): causal + pad over 32 query tokens + 40
+    # text tokens at the train batch, the forward of the backward below
+    ("llama_self_train", 32, 72, 72, 32, 128, ["cpad"], 128 ** -0.5),
 ]
 # the Vicuna shapes timed for the forward's row of the kernel line: the
 # mma.sync kernel at the VQA eval's prime and beam-decode step
@@ -433,8 +489,16 @@ LORA_SHAPES = [
     ("t5_dec_qkvo", 384, 2048, 2048, 8),
     ("t5_dec_wi", 384, 2048, 5120, 8),
     ("t5_dec_wo", 384, 5120, 2048, 8),
+    # LLaMA-7B at the Vicuna retrain (vicuna_retrain: M = 32 × (32 query
+    # tokens + 40 text), r = 8): q/k/v/o, gate/up, and down at K = 11008,
+    # 172 K steps of 64 through the Hopper loop's ring
+    ("llama_qkvo", 2304, 4096, 4096, 8),
+    ("llama_gate_up", 2304, 4096, 11008, 8),
+    ("llama_down", 2304, 11008, 4096, 8),
 ]
 LORA_TIMED = "vit_fc1"
+# the LLaMA shapes reported beside the timed one in the kernel line
+LORA_LLAMA = ("llama_qkvo", "llama_gate_up", "llama_down")
 
 # flash backward at the retrain batch (b, n, m, h, d, biases, scale);
 # "relc" = the T5 decoder's position bias with its additive causal mask
@@ -445,10 +509,33 @@ BWD_SHAPES = [
     ("t5_encoder", 32, 72, 72, 32, 64, ["rel", "pad"], 1.0),
     ("t5_decoder_self", 32, 12, 12, 32, 64, ["relc", "pad"], 1.0),
     ("t5_decoder_cross", 32, 12, 72, 32, 64, ["pad"], 1.0),
+    # the Vicuna retrain (vicuna_retrain): the Q-Former's self-attention
+    # over 32 query tokens + the batch's longest prompt, 34 words
+    # (vicuna_train_batches gives every batch one); LLaMA's
+    # self-attention: d = 128, so the mma.sync kernels (``plan`` sends
+    # TMA + wgmma only d <= 96), under the one additive causal + pad bias,
+    # which takes no gradient
+    ("qformer_self_vicuna", 32, 66, 66, 12, 64, ["pad"], 0.125),
+    ("llama_self", 32, 72, 72, 32, 128, ["cpad"], 128 ** -0.5),
 ]
 BWD_TIMED = "vit_self"
-# the same at the diagonal Fisher's batch 1
-BWD_FISHER = [(f"{name}_b1", 1, *rest) for name, _, *rest in BWD_SHAPES]
+
+
+def bwd_at(batch: int) -> list:
+    """The BWD_SHAPES shapes the TMA + wgmma backward takes (``plan``),
+    at another batch: 1 for the diagonal Fisher, 16 for the first-order
+    allocation's and the aobd pruner's passes."""
+    from vlm_compression_tpu_torch.ops import attention as A
+
+    return [(f"{name}_b{batch}", batch, n, m, h, d, kinds, scale)
+            for name, _, n, m, h, d, kinds, scale in BWD_SHAPES
+            if A.plan(n, m, d) == A.WGMMA]
+
+
+def bwd_held() -> list:
+    """Every shape phase 3 holds the backward (and the forward it starts
+    from) at against the plain version."""
+    return BWD_SHAPES + bwd_at(1) + bwd_at(16)
 
 # dbias (b, n, m, h, d, biases, scale, causal), the gradient of every bias
 # in the list: the T5 encoder's self-attention at the first-order
@@ -746,10 +833,11 @@ def check_kernels():
         # from the same out and lse, on the route ``plan`` picks (bf16:
         # the TMA + wgmma kernel) and, in bf16, on the mma.sync route too;
         # causal n = m and n > m, ragged tiles on both sides (n = m = 200),
-        # and dq alone and dk/dv alone
+        # and dq alone and dk/dv alone; at the training shapes and at the
+        # towers' batch 1 and 16 (the Fisher; the first-order and aobd
+        # passes), the forward the backward starts from as well
         cases = [(name, b, n, m, h, d, kinds, scale, False, True, True)
-                 for name, b, n, m, h, d, kinds, scale in
-                 BWD_SHAPES + BWD_FISHER]
+                 for name, b, n, m, h, d, kinds, scale in bwd_held()]
         cases += [("causal_n_eq_m", 2, 40, 40, 4, 64, [], 0.125, True, True,
                    True),
                   ("causal_n_gt_m", 2, 9, 5, 4, 64, [], 0.125, True, True,
@@ -772,11 +860,18 @@ def check_kernels():
             q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
             g = grad_like(q)
             out, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+            err, s = max_err(out, A.mha_reference(q, k_, v, biases, scale,
+                                                  causal))
+            if err > tol * s:
+                raise AssertionError(f"flash_attention {name} {dtype}: "
+                                     f"max_abs_err {err:.3e} (tol "
+                                     f"{tol * s:.3e}) at a backward shape")
             want = A.flash_attention_backward_ref(q, k_, v, out, lse, g,
                                                   biases, scale, causal)
-            for impl in routes:
-                route = impl or A.plan(n, m, d,
-                                       bf16=dtype == torch.bfloat16)
+            planned = A.plan(n, m, d, bf16=dtype == torch.bfloat16)
+            # where the plan is mma.sync already (LLaMA's d = 128), once
+            for impl in (routes if planned != A.MMA else [None]):
+                route = impl or planned
                 before = A.bwd_wgmma_launches
                 got = A.flash_attention_backward(
                     q, k_, v, out, lse, g, biases, scale, causal, ndq, ndkv,
@@ -809,8 +904,8 @@ def check_kernels():
     # dq is summed over the kv tiles in one fixed order (a slab a kv tile,
     # added by the cast; no atomics), dk and dv in registers: two identical
     # calls of the planned route are bit-equal at every training shape and
-    # at the Fisher's batch 1
-    for name, b, n, m, h, d, kinds, scale in BWD_SHAPES + BWD_FISHER:
+    # at the towers' batch 1 and 16
+    for name, b, n, m, h, d, kinds, scale in bwd_held():
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
         g = grad_like(q)
         out, lse = A.flash_attention(q, k_, v, biases, scale)
@@ -1685,7 +1780,8 @@ PHASE_KERNELS = {"prune": PRUNE + (FWD_WGMMA,), "generate_cold": SERVE,
 # attention forward must run (the rank phase's decoder self-attention at
 # n = m = L over b · C rows too)
 VQA = ("masked_matmul", "flash_attention", FWD_WGMMA, WGMMA_LOOP)
-PHASE_KERNELS.update(vqa_gqa=VQA, vqa_okvqa=VQA, vqa_rank=VQA)
+PHASE_KERNELS.update(vqa_gqa=VQA, vqa_okvqa=VQA, vqa_rank=VQA,
+                     caption_nocaps=VQA)
 # ... and the kernels a phase must not run: a packed or int8 model never
 # takes the bool-mask path, an int8 model never the bf16 packed one (its
 # prefill runs the Hopper loop, its decode steps the decode kernel)
@@ -1726,6 +1822,18 @@ PHASE_KERNELS.update(
     generate_vicuna_cold=VICUNA_GEN, generate_vicuna_warm=VICUNA_GEN,
     vqa_vicuna_gqa=VICUNA_VQA, vqa_vicuna_okvqa=VICUNA_VQA)
 PHASE_FORBIDDEN.update(vicuna_prune=BACKWARD + (WMMA_LOOP,))
+# the Vicuna retrain: sparse-LoRA on the Hopper loop (ViT r 4, LLaMA r 8),
+# the ViT's and Q-Former's attention forward and backward on TMA + wgmma,
+# LLaMA's (d = 128) on the mma.sync kernels; no bias takes a gradient (no
+# dbias output, no separate dbias kernel) and nothing runs the WMMA loop;
+# then the merged model's generate
+PHASE_KERNELS.update(
+    vicuna_retrain=("sparse_lora_matmul", "flash_attention", FWD_WGMMA,
+                    FWD_MMA, BWD_WGMMA, "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", WGMMA_LOOP),
+    generate_vicuna_merged=VICUNA_GEN)
+PHASE_FORBIDDEN.update(vicuna_retrain=("flash_attention_bwd_dbias",
+                                       BWD_DBIAS, WMMA_LOOP))
 PHASE_FORBIDDEN.update(
     dsnot_prune=BACKWARD, mag_prune=SCORE_ONLY, rand_prune=SCORE_ONLY,
     mag_global=SCORE_ONLY,
@@ -1733,10 +1841,10 @@ PHASE_FORBIDDEN.update(
                 WMMA_LOOP),
     zeroth_prune=BACKWARD)
 # every generate phase runs its prefill on the Hopper loop and its decode
-# steps on the decode kernel, every VQA phase all its matmuls on the
-# Hopper loop: no WMMA-loop launch at all
+# steps on the decode kernel, every VQA and caption phase all its matmuls
+# on the Hopper loop: no WMMA-loop launch at all
 for _phase in PHASE_KERNELS:
-    if _phase.startswith(("generate", "vqa")):
+    if _phase.startswith(("generate", "vqa", "caption")):
         PHASE_FORBIDDEN[_phase] = PHASE_FORBIDDEN.get(_phase, ()) + (
             WMMA_LOOP,)
 
@@ -1750,7 +1858,9 @@ def reset_counts():
     ML.wgmma_launches = ML.decode_launches = ML.wmma_launches = 0
     ML.wmma_calls.clear()
     ML.shape_launches.clear()
+    ML.lora_shape_launches.clear()
     A.shape_launches.clear()
+    A.bwd_shape_launches.clear()
     A.launches = A.dq_launches = A.dkv_launches = A.dbias_launches = 0
     A.fwd_wgmma_launches = A.bwd_wgmma_launches = A.bwd_dbias_outputs = 0
     Q.int8_launches = 0
@@ -1777,13 +1887,16 @@ def read_counts() -> dict:
 
 def read_shapes() -> dict:
     """The launches since ``reset_counts`` by shape: masked, packed,
-    sparse-LoRA and int8 matmuls by (M, N, K, loop), attention forwards by
-    (b, n, m, h, d, route)."""
+    sparse-LoRA and int8 matmuls by (M, N, K, loop), the sparse-LoRA ones
+    alone by (M, N, K, rank), attention forwards and backwards by (b, n,
+    m, h, d, route)."""
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
     return {"matmul": dict(ML.shape_launches),
-            "attention": dict(A.shape_launches)}
+            "lora": dict(ML.lora_shape_launches),
+            "attention": dict(A.shape_launches),
+            "attention_bwd": dict(A.bwd_shape_launches)}
 
 
 def attn_routes(c: dict, per: int = 1) -> str:
@@ -1880,9 +1993,9 @@ def tower_density(model, of_kernels: bool = False,
     return out
 
 
-def run_retrain(model, cfg):
+def run_retrain(model, batches, prefix="retrain"):
     """RESSA retraining at batch TRAIN_BS: 1 cold + N_TIMED_STEPS timed KD
-    steps on fresh synthetic batches; every step's loss, CE and KL finite;
+    steps on ``batches`` (fresh ones); every step's loss, CE and KL finite;
     B = 0 makes the first step's lora_a gradients exactly 0 and its lora_b
     gradients non-zero, the second step's lora_a gradients non-zero; base
     parameters and masks bit-identical afterwards.  Then the first
@@ -1896,8 +2009,6 @@ def run_retrain(model, cfg):
         make_kd_train_step,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(7)
-    batches = synthetic_batches(cfg, 1 + N_TIMED_STEPS, TRAIN_BS, g)
     before = {n: t.detach().cpu() for n, t in
               list(model.named_parameters()) + list(model.named_buffers())
               if n.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")}
@@ -1919,7 +2030,7 @@ def run_retrain(model, cfg):
         nz = {leaf: sum(int(bool(p.grad.count_nonzero()))
                         for n, p in state.lora.items() if n.endswith(leaf))
               for leaf in ("lora_a", "lora_b")}
-        log(f"  retrain step {i} ({'cold' if i == 0 else 'timed'}) lr "
+        log(f"  {prefix} step {i} ({'cold' if i == 0 else 'timed'}) lr "
             f"{lr:.4e}: {times[-1]:.3f} s, loss {met['loss']:.5f} ce "
             f"{met['ce']:.5f} kl {met['kl']:.6f}; linears with non-zero "
             f"grads: lora_a {nz['lora_a']}/{n_lora}, lora_b "
@@ -1944,7 +2055,7 @@ def run_retrain(model, cfg):
     torch.cuda.synchronize()
     differ = {n: int((p != first[n]).sum()) for n, p in state.lora.items()
               if not torch.equal(p, first[n])}
-    log(f"  retrain replay: {N_REPLAY} KD steps again from the saved "
+    log(f"  {prefix} replay: {N_REPLAY} KD steps again from the saved "
         f"starting state: {len(differ)} of {len(first)} LoRA leaves differ "
         f"from the first run's ({sum(differ.values())} entries) "
         f"{'FAIL' if differ else 'ok'}")
@@ -1959,19 +2070,20 @@ def run_retrain(model, cfg):
     if changed:
         raise AssertionError(f"retraining changed frozen tensors {changed[:4]}")
     s_step = statistics.mean(times[1:])
-    log(f"  retrain (tune_opt=LVQ r 4/8/2, batch {TRAIN_BS}, no gradient "
+    log(f"  {prefix} (tune_opt=LVQ r 4/8/2, batch {TRAIN_BS}, no gradient "
         f"accumulation, no remat): {s_step:.3f} s/step over "
         f"{N_TIMED_STEPS} timed steps, {TRAIN_BS / s_step:.1f} samples/s, "
         f"cold step {times[0]:.3f} s, peak {peak / 2**30:.2f} GiB; "
         f"{len(before)} frozen tensors bit-identical")
-    return {"retrain_cold_s": times[0], "retrain_s_per_step": s_step,
-            "retrain_samples_per_s": TRAIN_BS / s_step,
-            "retrain_peak_bytes": peak}
+    return {f"{prefix}_cold_s": times[0], f"{prefix}_s_per_step": s_step,
+            f"{prefix}_samples_per_s": TRAIN_BS / s_step,
+            f"{prefix}_peak_bytes": peak}
 
 
-def merge_and_check(model):
+def merge_and_check(model, towers=("visual_encoder", "t5_model.encoder",
+                                   "t5_model.decoder")):
     """Sparse merge + re-masking; every merged kernel 0 where its mask is
-    0, and the towers' kept share still 0.5 ± 0.01."""
+    0, and each of ``towers``' kept share still 0.5 ± 0.01."""
     from vlm_compression_tpu_torch.models.layers import SparseLinear
     from vlm_compression_tpu_torch.tasks.retrain import (
         apply_masks_to_params,
@@ -1987,7 +2099,8 @@ def merge_and_check(model):
            and bool((m.kernel.ne(0) & ~m.mask).any())]
     if bad:
         raise AssertionError(f"merged kernels non-zero off their masks {bad[:4]}")
-    for tower, (dens, n) in tower_density(model, of_kernels=True).items():
+    for tower, (dens, n) in tower_density(model, of_kernels=True,
+                                          towers=towers).items():
         log(f"  merged density {tower}: {dens:.4f} non-zero over {n} linears")
         if abs(dens - 0.5) > 0.01:
             raise AssertionError(f"merged density {tower}")
@@ -2077,22 +2190,43 @@ def decode_step_routes(tally: dict, m: int) -> dict:
 
 
 def check_shapes(shapes: dict, what: str):
-    """Every masked-linear and attention-forward shape the phases launched
-    (``shapes``: phase → ``read_shapes()``) is one that phase 3 held
-    against its plain version (MM_SHAPES; SERVE_SHAPES, where the bool
-    kernel is held bit-equal to the packed one and that to its plain
-    version; FLASH_SHAPES)."""
+    """Every shape the phases launched (``shapes``: phase →
+    ``read_shapes()``) is one that phase 3 held against its plain version:
+    the masked, packed and int8 matmuls' (MM_SHAPES; SERVE_SHAPES, where
+    the bool kernel is held bit-equal to the packed one and that to its
+    plain version), the sparse-LoRA matmul's with its rank (LORA_SHAPES),
+    the attention forward's (FLASH_SHAPES, VICUNA_FLASH_SHAPES and the
+    backward's shapes) and the attention backward's (``bwd_held``)."""
+    held_bwd = {tuple(c[1:6]) for c in bwd_held()}
     mm = {(m, k, n) for _, m, k, n in MM_SHAPES + SERVE_SHAPES}
-    fl = {tuple(c[1:6]) for c in FLASH_SHAPES + VICUNA_FLASH_SHAPES}
-    seen_mm = {(m, k, n) for s in shapes.values()
-               for m, n, k, _ in s["matmul"]}
+    lora = {(m, k, n, r) for _, m, k, n, r in LORA_SHAPES}
+    fl = {tuple(c[1:6]) for c in FLASH_SHAPES + VICUNA_FLASH_SHAPES} \
+        | held_bwd
+    # a matmul launch that is not a sparse-LoRA one is the masked, packed
+    # or int8 kernel's
+    plain_mm = {}
+    for s in shapes.values():
+        for (m, n, k, _), c in s["matmul"].items():
+            plain_mm[(m, k, n)] = plain_mm.get((m, k, n), 0) + c
+        for (m, n, k, _), c in s["lora"].items():
+            plain_mm[(m, k, n)] -= c
+    seen_mm = {key for key, c in plain_mm.items() if c}
+    seen_lora = {(m, k, n, r) for s in shapes.values()
+                 for m, n, k, r in s["lora"]}
     seen_fl = {c[:5] for s in shapes.values() for c in s["attention"]}
+    seen_bwd = {c[:5] for s in shapes.values() for c in s["attention_bwd"]}
     missing = [f"matmul M={m} K={k} N={n}"
                for m, k, n in sorted(seen_mm - mm)]
+    missing += [f"sparse_lora_matmul M={m} K={k} N={n} r={r}"
+                for m, k, n, r in sorted(seen_lora - lora)]
     missing += [f"attention b={b} n={n} m={m} h={h} d={d}"
                 for b, n, m, h, d in sorted(seen_fl - fl)]
-    log(f"  {what} shapes: {len(seen_mm)} masked-linear and {len(seen_fl)} "
-        f"attention shapes launched, {len(missing)} not checked in phase 3")
+    missing += [f"attention backward b={b} n={n} m={m} h={h} d={d}"
+                for b, n, m, h, d in sorted(seen_bwd - held_bwd)]
+    log(f"  {what} shapes: {len(seen_mm)} masked-linear, {len(seen_lora)} "
+        f"sparse-LoRA, {len(seen_fl)} attention and {len(seen_bwd)} "
+        f"attention-backward shapes launched, {len(missing)} not checked "
+        f"in phase 3")
     if missing:
         raise AssertionError(f"{what} shapes never held against the plain "
                              f"version: {missing}")
@@ -2288,6 +2422,182 @@ def vqa_path(model, cfg):
         "vqa_decode_step_launches": at_m}
 
 
+# NoCaps / COCO captioning of the merged model at the eval yamls' run
+# settings: configs/projects/eval/nocaps_flant5xl_instruct_eval.yaml:13-24
+# (task captioning, batch_size_eval 64, seed 42, beam 5, max_len 30,
+# min_len 8; the task's default prompt "a photo of");
+# caption_coco_flant5xl_instruct_eval.yaml runs the same settings on its
+# test split, so one pass stands for both.  The images are drawn from the
+# run seed
+CAPTION_RUN = dict(task="captioning", batch_size_eval=64, seed=42,
+                   num_beams=5, max_len=30, min_len=8)
+CAPTION_METRICS_ONE = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L")
+
+
+def caption_path(model, cfg):
+    """One NoCaps pass of the merged model through the captioning task's
+    entry points (``setup_task``, ``evaluation`` → ``valid_step``,
+    ``after_evaluation``), at the eval batch and the yaml's settings, no
+    cut: cold, then warm (captions equal); the captions equal to the
+    decoded tokens of a direct ``generate_t5`` call; no EOS before
+    position min_len (the start token at 0: at least min_len − 1 caption
+    tokens, EOS forbidden for the first steps and allowed after); with
+    each image's references set to its own caption, BLEU-1..4 and ROUGE-L
+    exactly 1 (the host-only caption metrics); once more with EOS the top
+    logit of every step, where min_len binds: every caption ends, none
+    before min_len, each equal to a direct ``generate_t5``'s; every shape
+    launched one that phase 3 checked; one pass profiled.  Returns (launch
+    counts by phase, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_encode
+    from vlm_compression_tpu_torch.models import blip2_t5_instruct as BT
+    from vlm_compression_tpu_torch.models.generation import GenerationConfig
+    from vlm_compression_tpu_torch.tasks.captioning import CaptionTask
+
+    run = CAPTION_RUN
+    n, beams = run["batch_size_eval"], run["num_beams"]
+    max_len, min_len = run["max_len"], run["min_len"]
+    g = torch.Generator(device="cuda").manual_seed(run["seed"])
+    img = cfg.vit.img_size
+    samples = {"image": torch.randn(n, img, img, 3, generator=g,
+                                    device="cuda"),
+               "image_id": list(range(n))}
+    toks = vqa_tokenizers(cfg)
+    tok = toks["tokenizer"]
+    task = CaptionTask.setup_task(dict(run=run, model=XL_EVAL_MODEL), **toks)
+    if (task.num_beams, task.max_len, task.min_len, task.prompt) != \
+            (beams, max_len, min_len, "a photo of"):
+        raise AssertionError("the caption task did not take the yaml's run "
+                             "settings")
+    secs = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in ("cold", "warm"):
+        t0 = time.perf_counter()
+        out = task.evaluation(model, [samples])
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        if key == "cold":
+            cold = out
+    counts = {"caption_nocaps": read_counts()}
+    shapes = {"caption_nocaps": read_shapes()}
+    peak = torch.cuda.max_memory_allocated()
+    captions = [r["caption"] for r in out]
+    if [r["caption"] for r in cold] != captions or \
+            [r["image_id"] for r in out] != samples["image_id"]:
+        raise AssertionError("captioning: the warm pass captioned otherwise")
+
+    # the task adds no drift: a direct generate_t5 on the prompt as the
+    # task encodes it (32 tokens), decoded by hand
+    prompts = [task.prompt] * n
+    enc = [torch.from_numpy(a).cuda() for a in (
+        *batch_encode(tok, prompts, 32),
+        *batch_encode(toks["qformer_tokenizer"], prompts, 32))]
+
+    def direct_captions(what):
+        """The captions of a direct generate_t5 and the EOS position of
+        each (max_len + 1 where none came), against the task's
+        ``captions`` of ``what``; no EOS before position min_len."""
+        seqs = BT.generate_t5(model, samples["image"], *enc,
+                              gen_cfg=GenerationConfig(
+                                  num_beams=beams, max_length=max_len + 1,
+                                  min_length=min_len,
+                                  repetition_penalty=1.0)).cpu()
+        direct, eos_at = [], []
+        for row in seqs.tolist():
+            cut = row.index(tok.eos_token_id) \
+                if tok.eos_token_id in row[1:] else len(row)
+            eos_at.append(cut)
+            direct.append(tok.decode(row[1:cut]).strip())
+        if tuple(seqs.shape) != (n, max_len + 1) or \
+                direct != [r["caption"] for r in what]:
+            raise AssertionError("the caption task's captions differ from "
+                                 "a direct generate_t5's decoded tokens")
+        if min(eos_at) < min_len:
+            raise AssertionError(f"an EOS before position {min_len}: "
+                                 f"{sorted(eos_at)[:4]}")
+        return eos_at
+
+    eos_at = direct_captions(out)
+    ended = sum(p < max_len + 1 for p in eos_at)
+
+    # the metrics on the host: each image's references its own caption
+    task.gts = {r["image_id"]: [r["caption"]] for r in out}
+    tmp = tempfile.TemporaryDirectory(prefix="caption_results_")
+    try:
+        rd = os.path.join(tmp.name, "nocaps", "result")
+        t0 = time.perf_counter()
+        metrics = task.after_evaluation(out, split_name="val",
+                                        result_dir=rd)
+        secs["metrics"] = time.perf_counter() - t0
+        with open(os.path.join(rd, "..", "evaluate.txt")) as fh:
+            logged = json.loads(fh.readlines()[-1])
+    finally:
+        tmp.cleanup()
+    n_tok = [len(c.split()) for c in captions]
+    log(f"  caption nocaps: {n} images, beam {beams}, max_len {max_len}, "
+        f"min_len {min_len}, prompt {task.prompt!r}: cold "
+        f"{secs['cold']:.3f} s, warm {secs['warm']:.3f} s "
+        f"({n / secs['warm']:.1f} captions/s), peak {peak / 2**30:.2f} GiB; "
+        f"captions equal cold vs warm and to a direct generate_t5's; "
+        f"tokens a caption {min(n_tok)}-{max(n_tok)}, EOS at positions "
+        f"{min(eos_at)}-{max(eos_at)} ({ended} of {n} ended before "
+        f"max_len); metrics against their own captions "
+        f"{json.dumps(metrics)} ({secs['metrics']:.3f} s on the host); "
+        f"e.g. {json.dumps(captions[:2])}")
+    if any(metrics[k] != 1.0 for k in CAPTION_METRICS_ONE) \
+            or metrics["SPICE"] is not None or logged != {"val": metrics}:
+        raise AssertionError(f"caption metrics {metrics}")
+    tally = shapes["caption_nocaps"]["matmul"]
+    log(f"  caption nocaps, the M = {n * beams} beam-decode steps' matmul "
+        f"launches by shape, beside plan's loop and splits: "
+        f"{json.dumps(decode_step_routes(tally, n * beams))}")
+
+    # min_len at work: the random weights' captions all run to max_len, so
+    # once more with EOS the top logit of every row (a hook on lm_head's
+    # output, removed afterwards): min_len alone holds EOS back, and each
+    # image's best beam finishes once it may (its EOS candidate tops the
+    # step), so every caption ends, none before position min_len
+    eos = tok.eos_token_id
+
+    def eos_on_top(module, args, logits):
+        logits = logits.clone()
+        logits[..., eos] = logits.max(-1).values + 1.0
+        return logits
+
+    hook = model.t5_model.lm_head.register_forward_hook(eos_on_top)
+    try:
+        reset_counts()
+        out_eos = task.evaluation(model, [samples])
+        shapes["caption_nocaps_eos"] = read_shapes()
+        eos_at_bound = direct_captions(out_eos)
+    finally:
+        hook.remove()
+    n_ended = sum(p < max_len + 1 for p in eos_at_bound)
+    log(f"  caption nocaps with EOS the top logit of every step: EOS at "
+        f"positions {min(eos_at_bound)}-{max(eos_at_bound)} ({n_ended} of "
+        f"{n} ended before max_len, "
+        f"{sum(p == min_len for p in eos_at_bound)} at min_len "
+        f"{min_len}); captions equal to a direct generate_t5's")
+    if n_ended != n:
+        raise AssertionError(f"with EOS on top, {n - n_ended} captions ran "
+                             f"to max_len")
+    check_shapes(shapes, "caption")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        task.evaluation(model, [samples])
+        torch.cuda.synchronize()
+    dev_ms, groups = device_breakdown(
+        prof, 1e3 * secs["warm"], f"caption nocaps, {n} images, beam {beams}")
+    return counts, {
+        "caption_cold_s": secs["cold"], "caption_warm_s": secs["warm"],
+        "captions_per_s": n / secs["warm"], "caption_peak_bytes": peak,
+        "caption_metrics_s": secs["metrics"],
+        "caption_device_ms": dev_ms}
+
+
 def main_path():
     from vlm_compression_tpu_torch.models.bridge import export_masks
 
@@ -2342,8 +2652,11 @@ def main_path():
     log(f"  max_memory_allocated (prune + generate): {peak / 2**30:.2f} GiB")
 
     reset_counts()
-    retrain = run_retrain(model, cfg)
+    retrain = run_retrain(model, synthetic_batches(
+        cfg, 1 + N_TIMED_STEPS, TRAIN_BS,
+        torch.Generator(device="cuda").manual_seed(7)))
     counts["retrain"] = read_counts()
+    check_shapes({"retrain": read_shapes()}, "retrain")
     log(f"  retrain attention per step, by route: "
         f"{attn_routes(counts['retrain'], 1 + N_TIMED_STEPS + N_REPLAY)}")
     merge_and_check(model)
@@ -2361,6 +2674,8 @@ def main_path():
     torch.cuda.empty_cache()
     vqa_counts, vqa = vqa_path(model, cfg)
     counts.update(vqa_counts)
+    caption_counts, caption = caption_path(model, cfg)
+    counts.update(caption_counts)
 
     log(f"  launches: {json.dumps(counts)}")
     check_phase_counts(counts)
@@ -2371,7 +2686,7 @@ def main_path():
                     "generate_s": t_gen["generate_warm"],
                     "tokens_per_s": tokens_per_s,
                     "peak_bytes": peak, **retrain,
-                    "generate_merged_s": t_merged, **vqa}
+                    "generate_merged_s": t_merged, **vqa, **caption}
 
 
 class DampedLines(logging.Handler):
@@ -2984,6 +3299,43 @@ def vicuna_batches(cfg, n: int, bs: int, g: torch.Generator):
     return out
 
 
+def vicuna_train_batches(cfg, n: int, bs: int, seed: int):
+    """n retrain batches of bs samples as the Vicuna collator
+    (``make_vicuna_batch_preparer``) packs them on the host: prompt ⊕
+    answer of seeded words (one id a word), BOS first and EOS after the
+    answer, 32-TXT ids a sample and TXT in each batch, right-padded, labels
+    −100 over the prompt and the pads; the Q-Former's prompts padded to
+    TXT − 6 in every batch (its first sample has the longest: a 4-word
+    answer), so its attention runs one shape; seeded 224² images; moved to
+    the card by the caller, as a training loop does."""
+    from vlm_compression_tpu_torch.tasks.preparers import (
+        make_vicuna_batch_preparer,
+    )
+
+    prepare = make_vicuna_batch_preparer(**vicuna_tokenizers(cfg))
+    rng = random.Random(seed)
+    g = torch.Generator().manual_seed(seed)
+    words = sorted({w for group in VQA_WORDS.values() for phrase in group
+                    for w in phrase.split()})
+    img = cfg.vit.img_size
+    out = []
+    for _ in range(n):
+        text_in, text_out = [], []
+        for i, length in enumerate(
+                [TXT] + [rng.randint(TXT - 8, TXT) for _ in range(bs - 1)]):
+            a = 4 if i == 0 else rng.randint(4, min(12, length - 3))
+            text_in.append(" ".join(rng.choices(words, k=length - 2 - a)))
+            text_out.append(" ".join(rng.choices(words, k=a)))
+        batch = prepare({"image": torch.randn(bs, img, img, 3, generator=g),
+                         "text_input": text_in, "text_output": text_out})
+        if batch["text_input_ids"].shape != (bs, TXT) or \
+                batch["qformer_input_ids"].shape != (bs, TXT - 6):
+            raise AssertionError(f"collated {batch['text_input_ids'].shape}, "
+                                 f"{batch['qformer_input_ids'].shape}")
+        out.append({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    return out
+
+
 def tiny_vicuna_check():
     """A tiny float32 InstructBLIP-Vicuna on the card (kernels) vs the same
     model on the CPU (plain versions): logits with random masks on every
@@ -3106,7 +3458,9 @@ def vicuna_path():
     from vlm_compression_tpu_torch.tasks.vqa import GQATask, VQATask
 
     t0 = time.perf_counter()
-    model = build_model(VICUNA_MODEL, seed=VICUNA_SEED)
+    # with the retrain's adapters (B = 0: the masked forward ignores them,
+    # and the base weights are drawn as without them)
+    model = build_model(dict(VICUNA_MODEL, **LORA), seed=VICUNA_SEED)
     cfg, llm = model.cfg, model.cfg.llm
     g = torch.Generator(device="cuda").manual_seed(42 + VICUNA_SEED)
     batches = vicuna_batches(cfg, N_CALIB // BS, BS, g)
@@ -3123,9 +3477,13 @@ def vicuna_path():
            torch.randint(3, 2000, (N_REQ, TXT), generator=g, device="cuda"),
            torch.ones(N_REQ, TXT, dtype=torch.int32, device="cuda"))
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  model: InstructBLIP-Vicuna-7B, {n_params / 1e9:.3f} B params, "
-        f"bf16, random init + data {time.perf_counter() - t0:.1f} s; cuts: "
+    n_params = sum(p.numel() for n, p in model.named_parameters()
+                   if "lora_" not in n)
+    n_lora = sum(p.numel() for n, p in model.named_parameters()
+                 if "lora_" in n)
+    log(f"  model: InstructBLIP-Vicuna-7B, {n_params / 1e9:.3f} B params + "
+        f"{n_lora / 1e6:.3f} M LoRA (tune_opt=LVQ, r 4/8/2), bf16, random "
+        f"init + data {time.perf_counter() - t0:.1f} s; cuts: "
         f"none (depth {cfg.vit.depth}/{cfg.qformer.num_layers}/"
         f"{llm.num_layers}, {N_CALIB} calibration samples)")
     counts, shapes, secs, peaks = {}, {}, {}, {}
@@ -3304,10 +3662,12 @@ def vicuna_path():
         f"vicuna gqa, {n} questions, beam {beams}")
     log(f"  vicuna gqa profiled pass: peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    retrain = vicuna_retrain(model, req, gen_cfg, counts, shapes, secs)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return counts, {
+        **retrain,
         "vicuna_prune_s": secs["vicuna_prune"],
         "vicuna_generate_cold_s": secs["generate_vicuna_cold"],
         "vicuna_generate_s": secs["generate_vicuna_warm"],
@@ -3319,6 +3679,70 @@ def vicuna_path():
         "vicuna_okvqa_acc": ok_metrics["overall"],
         "vicuna_gqa_device_ms": dev_ms,
         "vicuna_peak_bytes": {k: v for k, v in peaks.items()}}
+
+
+def vicuna_retrain(model, req, gen_cfg, counts, shapes, secs) -> dict:
+    """RESSA retraining of the pruned InstructBLIP-Vicuna-7B (the main
+    path's ``run_retrain`` and its gates, on batches collated by
+    ``make_vicuna_batch_preparer``: LLaMA at n = m = 72, d = 128 on the
+    mma.sync backward), one more KD step profiled (busy share, device time
+    by kernel group), the sparse merge (each tower zero off its masks, at
+    0.5 ± 0.01), and beam-5 ``generate_vicuna`` on the merged model.  Adds
+    its phases to ``counts`` / ``shapes`` and checks them (launch gates;
+    every shape launched, backward and sparse-LoRA included, one that
+    phase 3 held against its plain version); returns the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+        generate_vicuna,
+    )
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        RessaTrainState,
+        make_kd_train_step,
+    )
+
+    cfg = model.cfg
+    batches = vicuna_train_batches(cfg, 2 + N_TIMED_STEPS, TRAIN_BS, seed=7)
+    extra = batches.pop()
+    reset_counts()
+    out = run_retrain(model, batches, prefix="vicuna_retrain")
+    counts["vicuna_retrain"] = read_counts()
+    shapes["vicuna_retrain"] = read_shapes()
+    log(f"  vicuna retrain attention per step, by route: "
+        f"{attn_routes(counts['vicuna_retrain'], 1 + N_TIMED_STEPS + N_REPLAY)}")
+    state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+    step = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)
+    step(batches[0], 1e-6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(extra, 1e-6)
+        torch.cuda.synchronize()
+    dev_ms, _ = device_breakdown(prof, 1e3 * out["vicuna_retrain_s_per_step"],
+                                 "vicuna retrain step")
+    state.opt.zero_grad(set_to_none=True)
+    del state, step, batches, extra, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    merge_and_check(model, towers=("visual_encoder", "llm_model"))
+    reset_counts()
+    t0 = time.perf_counter()
+    seqs = generate_vicuna(model, *req, gen_cfg=gen_cfg).cpu()
+    torch.cuda.synchronize()
+    secs["generate_vicuna_merged"] = time.perf_counter() - t0
+    counts["generate_vicuna_merged"] = read_counts()
+    shapes["generate_vicuna_merged"] = read_shapes()
+    if tuple(seqs.shape) != (N_REQ, gen_cfg.max_length) \
+            or not torch.equal(seqs[:, 0], req[1][:, -1].int().cpu()) \
+            or not bool(((seqs >= 0) & (seqs < cfg.llm.vocab_size)).all()):
+        raise AssertionError(f"bad merged generate_vicuna output {seqs}")
+    log(f"  generate_vicuna beam-5 from the merged model: "
+        f"{secs['generate_vicuna_merged']:.3f} s, tokens {seqs.tolist()}")
+    phases = ("vicuna_retrain", "generate_vicuna_merged")
+    log(f"  launches: {json.dumps({p: counts[p] for p in phases})}")
+    check_phase_counts({p: counts[p] for p in phases})
+    check_shapes({p: shapes[p] for p in phases}, "vicuna retrain")
+    return {**out, "vicuna_retrain_device_ms": dev_ms,
+            "vicuna_generate_merged_s": secs["generate_vicuna_merged"]}
 
 
 def profile_first_order(e2e):
@@ -3821,13 +4245,17 @@ def timing():
         g = grad_like(q)
         out, lse = A.flash_attention(q, k_, v, biases, scale)
         args = (q, k_, v, out, lse, g, biases, scale)
+        # the planned route against the library: TMA + wgmma at the
+        # towers' d <= 96, mma.sync at LLaMA's d = 128 (which TMA + wgmma
+        # does not take)
+        route = A.plan(n, m, d)
         lib = against_library(
-            lambda: A.flash_attention_backward(*args, _impl=A.WGMMA),
+            lambda: A.flash_attention_backward(*args, _impl=route),
             sdpa_candidates(lambda be: sdpa_backward(be, q, k_, v, biases,
                                                      g, scale)))
         ms = lib["kernel_ms"]
-        pr2 = device_ms(lambda: A.flash_attention_backward(*args,
-                                                           _impl=A.MMA))
+        pr2 = ms if route == A.MMA else device_ms(
+            lambda: A.flash_attention_backward(*args, _impl=A.MMA))
         plain = device_ms(lambda: A.flash_attention_backward_ref(*args))
         delta = device_ms(lambda: torch.einsum("bnhd,bnhd->bhn", g.float(),
                                                out.float()))
@@ -3837,7 +4265,7 @@ def timing():
             extra[(kname, name)] = {"pr2_ms": pr2,
                                     "library_backend": lib["library_backend"]}
         log(f"  time flash_attention_bwd {name:16s} b={b} n={n} m={m} "
-            f"h={h} d={d} (plan {A.plan(n, m, d)}): TMA + wgmma whole "
+            f"h={h} d={d} (plan {route}): {route} whole "
             f"backward {ms:.4f} ms, mma.sync route {pr2:.4f} ms "
             f"({pr2 / ms:.2f}x), plain {plain:.4f} ms, bound {bound:.4f} ms "
             f"({by}); delta as a torch einsum of fp32 upcasts (the older "
@@ -4015,6 +4443,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({exc}); run "
               "from the root of a checkout", file=sys.stderr)
         return 2
+    from vlm_compression_tpu_torch.ops import attention as A
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4062,7 +4492,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("[main path] InstructBLIP-FlanT5-XL: Wanda prune, beam-5 generate, "
-        "RESSA retrain, merge, beam-5 generate")
+        "RESSA retrain, merge, beam-5 generate, VQA, NoCaps captioning")
     counts, e2e = main_path()
     phase_done("main path")
     gc.collect()
@@ -4093,7 +4523,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("[vicuna path] InstructBLIP-Vicuna-7B: Wanda prune (ViT and "
-        "llm_model), beam-5 generate, GQA and OK-VQA through the tasks")
+        "llm_model), beam-5 generate, GQA and OK-VQA through the tasks, "
+        "RESSA retrain, merge, beam-5 generate")
     v_counts, v_e2e = vicuna_path()
     phase_done("vicuna path")
     counts.update(v_counts)
@@ -4176,8 +4607,29 @@ def main() -> int:
             "launches_by_phase": launches,
             **({"launches_by_route": {
                 "wgmma": sum(c[BWD_WGMMA] for c in counts.values()),
-                "mma": sum(c[kname] for c in counts.values())}}
+                "mma": sum(c[kname] for c in counts.values())},
+                # the training shapes ``plan`` sends to the mma.sync
+                # kernels (LLaMA's d = 128 at the Vicuna retrain), their
+                # launches in that phase
+                "llama_retrain": {name: dict(zip(
+                    ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by"), rows[(kname, name)]),
+                    **extra[(kname, name)],
+                    max_abs_err=worst[(kname, name, torch.bfloat16)],
+                    route="mma", source=csrc + "flash_attention_bwd.cu",
+                    launches=counts["vicuna_retrain"][kname])
+                    for name, _, n, m, _, d, *_ in BWD_SHAPES
+                    if A.plan(n, m, d) == A.MMA}}
                if bwd else {}),
+            **({"llama_retrain": {name: dict(zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                rows[(kname, name)]),
+                max_abs_err=worst[(kname, name, torch.bfloat16)],
+                **({"wmma_loop_ms": wmma[(kname, name)]}
+                   if (kname, name) in wmma else {}))
+                for name in LORA_LLAMA},
+                "llama_retrain_launches": counts["vicuna_retrain"][kname]}
+               if kname == "sparse_lora_matmul" else {}),
             **({"launches_by_route": {
                 "wgmma": sum(c[FWD_WGMMA] for c in counts.values()),
                 "mma_or_fp32": sum(c[FWD_MMA] for c in counts.values())},

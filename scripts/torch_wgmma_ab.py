@@ -94,6 +94,8 @@ def bwd():
         A.flash_attention_backward).parameters
     out = []
     for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES + BWD_BATCHES:
+        if A.plan(n, m, d) != A.WGMMA:     # LLaMA's d = 128: mma.sync
+            continue
         q, k, v, biases = CS.flash_inputs(b, n, m, h, d, kinds, bf16)
         g = CS.grad_like(q)
         o, lse = A.flash_attention(q, k, v, biases, scale)

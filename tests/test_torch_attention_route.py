@@ -14,8 +14,9 @@ import torch
 import chip_smoke as CS
 from vlm_compression_tpu_torch.ops import attention as A
 
-# (case, n, m, d, bf16, aligned, route)
-CASES = [(name, n, m, d, True, True, A.WGMMA)
+# (case, n, m, d, bf16, aligned, route): every training shape on TMA +
+# wgmma but those of d = 128 (LLaMA's), which the mma.sync kernels take
+CASES = [(name, n, m, d, True, True, A.MMA if d == 128 else A.WGMMA)
          for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES]
 CASES += [
     ("ragged_200", 200, 200, 88, True, True, A.WGMMA),
@@ -118,12 +119,30 @@ def test_the_wgmma_route_is_one_launch_with_null_outputs(fake_card, need_dq,
     assert after == (before[0] + 1, before[1], before[2], before[3])
 
 
+@pytest.mark.parametrize("b,n,m,h,d,route", [(2, 257, 257, 4, 88, A.WGMMA),
+                                              (2, 72, 72, 4, 128, A.MMA)])
+def test_backward_calls_are_tallied_by_shape_and_route(fake_card, b, n, m, h,
+                                                       d, route):
+    """One backward call counts once under (b, n, m, h, d, route) on either
+    route (mma.sync: its dq and dk/dv launches together), which
+    chip_smoke.py reads with ``read_shapes`` and holds to its backward
+    shapes with ``check_shapes``."""
+    CS.reset_counts()
+    A.flash_attention_backward(*_case(b, n, m, h, d), scale=0.1)
+    A.flash_attention_backward(*_case(b, n, m, h, d), scale=0.1,
+                               need_dkv=False)
+    assert CS.read_shapes()["attention_bwd"] == {(b, n, m, h, d, route): 2}
+    CS.reset_counts()
+    assert A.bwd_shape_launches == {}
+
+
 # (case, b, n, m, h, d): the TMA + wgmma backward's dq workspace, an fp32
 # slab a kv tile at every shape — the retrain's batch 32 (every
-# BWD_SHAPES shape), the diagonal Fisher's batch 1, batches between, one
-# kv tile and nine
+# BWD_SHAPES shape that route takes), the diagonal Fisher's batch 1,
+# batches between, one kv tile and nine
 SLAB_CASES = [(name, b, n, m, h, d)
-              for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES]
+              for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES
+              if A.plan(n, m, d) == A.WGMMA]
 SLAB_CASES += [
     ("fisher_vit", 1, 257, 257, 16, 88),
     ("fisher_qformer_cross", 1, 32, 257, 12, 64),

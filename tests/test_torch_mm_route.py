@@ -315,4 +315,49 @@ def test_launches_are_tallied_by_shape_and_loop(fake_card, name, m, k, n):
     assert loop == ML.WGMMA
     assert CS.read_shapes()["matmul"] == {(m, n, k, loop): 2}
     CS.reset_counts()
-    assert CS.read_shapes() == {"matmul": {}, "attention": {}}
+    assert CS.read_shapes() == {"matmul": {}, "lora": {}, "attention": {},
+                                "attention_bwd": {}}
+
+
+@pytest.mark.parametrize("name,m,k,n,r", CS.LORA_SHAPES,
+                         ids=[c[0] for c in CS.LORA_SHAPES])
+def test_sparse_lora_launches_are_tallied_by_shape_and_rank(fake_card, name,
+                                                            m, k, n, r):
+    """The retrain's sparse-LoRA launches count under (M, N, K, loop) with
+    the other matmuls and under (M, N, K, rank) on their own, which
+    ``check_shapes`` holds to LORA_SHAPES."""
+    x, w = _bf16(m, k), _bf16(k, n)
+    mask = torch.ones(k, n, dtype=torch.bool)
+    CS.reset_counts()
+    ML._sparse_lora_cuda(x, w, mask, _bf16(k, r), _bf16(r, n), 16.0 / r)
+    shapes = CS.read_shapes()
+    assert shapes["matmul"] == {(m, n, k, ML.WGMMA): 1}
+    assert shapes["lora"] == {(m, n, k, r): 1}
+    CS.check_shapes({"retrain": shapes}, "retrain")
+    CS.reset_counts()
+
+
+def _retrain_tally():
+    """A tally of every retrain shape phase 3 holds: each sparse-LoRA
+    shape, each backward shape and the forward it starts from."""
+    bwd = {(b, n, m, h, d, "wgmma"): 1
+           for _, b, n, m, h, d, _, _ in CS.bwd_held()}
+    return {"matmul": {(m, n, k, ML.WGMMA): 1
+                       for _, m, k, n, _ in CS.LORA_SHAPES},
+            "lora": {(m, n, k, r): 1 for _, m, k, n, r in CS.LORA_SHAPES},
+            "attention": dict(bwd), "attention_bwd": dict(bwd)}
+
+
+@pytest.mark.parametrize("kind,key", [
+    ("lora", (2304, 4096, 4096, 4)),                  # a rank not held
+    ("matmul", (2304, 4096, 4096, ML.WGMMA)),         # a masked launch
+    ("attention", (32, 64, 64, 12, 64, "wgmma")),
+    ("attention_bwd", (32, 64, 64, 12, 64, "wgmma")),
+    ("attention_bwd", (8, 72, 72, 32, 128, "mma")),
+])
+def test_check_shapes_refuses_a_launch_phase_3_never_held(kind, key):
+    CS.check_shapes({"retrain": _retrain_tally()}, "retrain")
+    tally = _retrain_tally()
+    tally[kind][key] = tally[kind].get(key, 0) + 1
+    with pytest.raises(AssertionError, match="never held"):
+        CS.check_shapes({"retrain": tally}, "retrain")

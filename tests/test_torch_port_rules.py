@@ -69,14 +69,32 @@ def _module_level_imports(tree):
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_host_only_package_at_module_level(path):
-    """The card's machine has no PIL, yaml, spaCy or transformers: a module
-    of the port may import them only inside the function that needs them
-    (the HF tokenizer from a local path, the spaCy probe)."""
+    """The card's machine has no PIL, yaml, spaCy, transformers or nltk: a
+    module of the port may import them only inside the function that needs
+    them (the HF tokenizer from a local path, the spaCy probe)."""
     tree = ast.parse(path.read_text())
     for mod in _module_level_imports(tree):
         top = mod.split(".")[0]
-        assert top not in ("PIL", "yaml", "spacy", "transformers"), \
+        assert top not in ("PIL", "yaml", "spacy", "transformers", "nltk"), \
             f"{path.name} imports {mod} at module level"
+
+
+@pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_nltk_anywhere(path):
+    """The card's machine has no nltk, and the caption metrics run there:
+    the port carries its own copies of the Treebank tokenizer and the
+    Porter stemmer, and no file imports nltk, at module level or inside a
+    function."""
+    tree = ast.parse(path.read_text())
+    for mod in _imported_modules(tree):
+        assert mod.split(".")[0] != "nltk", f"{path.name} imports {mod}"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            assert not str(node.args[0].value).startswith("nltk"), path.name
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -55,7 +55,6 @@ from vlm_compression_tpu_torch.models.bridge import (
     load_jax_variables,
 )
 from vlm_compression_tpu_torch.models.generation import GenerationConfig
-from vlm_compression_tpu_torch.tasks import retrain as TR
 from vlm_compression_tpu_torch.tasks import vqa as TVQA
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -372,8 +371,6 @@ def test_unported_vicuna_paths_raise(tiny):
         with pytest.raises(NotImplementedError, match="item 9"):
             TL.LlamaForCausalLM(TL.LlamaConfig.tiny(**{knob: True}),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TR.make_kd_train_step(tm, None)
     ranker = TVQA.VQATask(tokenizer=TTok.SimpleTokenizer(96))
     ranker.answer_list = ["yes", "no"]
     with pytest.raises(NotImplementedError, match="ranking.*item 8"):

@@ -42,7 +42,8 @@ wgmma route), ``bwd_wgmma_launches``, ``dq_launches``, ``dkv_launches``,
 ``dbias_launches`` and ``delta_launches`` (the pre-pass alone, for the
 other two) count kernel launches; ``bwd_dbias_outputs`` the bias gradients
 the TMA + wgmma backward returned; ``shape_launches`` the forward's by
-shape and route.
+shape and route, ``bwd_shape_launches`` the backward's (one a call that
+launched a kernel of either route).
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ delta_launches = 0
 bwd_dbias_outputs = 0
 # (b, n, m, h, d, route) -> forward launches
 shape_launches: dict = {}
+# (b, n, m, h, d, route) -> backward calls that launched a kernel
+bwd_shape_launches: dict = {}
 
 
 def _as_4d(bias: torch.Tensor) -> torch.Tensor:
@@ -574,6 +577,9 @@ def flash_attention_backward(q, k, v, out, lse, g,
                                                     dv.data_ptr(), *tail),
                         "flash_attention_bwd_dkv")
             dkv_launches += 1
+    if need_dq or need_dkv or (route == WGMMA and fused):
+        key = (b, n, m, h, d, route)
+        bwd_shape_launches[key] = bwd_shape_launches.get(key, 0) + 1
     for i in dbias_of:
         if i not in dbias:
             dbias[i] = flash_attention_dbias(q, k, v, out, lse, g, biases, i,

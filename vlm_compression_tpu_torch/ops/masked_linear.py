@@ -25,8 +25,9 @@ not — and the WMMA loop with split-K only for what TMA cannot take.
 launches; ``wgmma_launches``, ``decode_launches`` and ``wmma_launches``
 those that ran the Hopper loop, the decode kernel and the WMMA loop (the
 int8 kernel's too), ``wmma_calls`` the WMMA-loop launches by shape and
-by why the other loops refused them, and ``shape_launches`` every counted
-launch by shape and loop.
+by why the other loops refused them, ``shape_launches`` every counted
+launch by shape and loop, and ``lora_shape_launches`` the sparse-LoRA ones
+by shape and rank.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ wmma_launches = 0
 wmma_calls: dict = {}
 # (M, N, K, loop) -> launches
 shape_launches: dict = {}
+# (M, N, K, rank) -> sparse-LoRA launches
+lora_shape_launches: dict = {}
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -593,4 +596,6 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
     if err is not None:
         _cuda.check(err, "sparse_lora_matmul")
         lora_launches += 1
+        key = (y.numel() // w.shape[1], w.shape[1], w.shape[0], a.shape[1])
+        lora_shape_launches[key] = lora_shape_launches.get(key, 0) + 1
     return y

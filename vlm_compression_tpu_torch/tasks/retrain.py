@@ -82,11 +82,9 @@ def make_kd_train_step(model: nn.Module, opt: torch.optim.Optimizer,
     teacher, student, gradients and one AdamW update at ``lr``.  ``batch``
     holds the model's keyword arguments.  ``accum_grad_iters`` k > 1 splits
     the batch's leading dim into k equal micro-batches and averages their
-    gradients (and metrics) before the one update."""
-    if hasattr(model, "llm_model"):
-        raise NotImplementedError(
-            "RESSA retraining of InstructBLIP-Vicuna is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+    gradients (and metrics) before the one update.  ``model``: an
+    InstructBLIP-T5 or InstructBLIP-Vicuna; both take the batch's keyword
+    arguments and the three mode switches."""
     accum = int(accum_grad_iters)
 
     def micro_step(batch, inv: float):
