@@ -57,7 +57,13 @@ each of which fails the run (non-zero exit, no result line) on error:
                 K = 11008; the Q-Former's attention over 32 + 34 tokens;
                 the attention backward at d = 128 on the
                 mma.sync kernels under the causal + pad bias, against the
-                plain version in bf16 and fp32, two calls bit-equal);
+                plain version in bf16 and fp32, two calls bit-equal); the
+                retrieval path's (the pruned ViT at the eval loader's
+                ragged last batch, b = 32, M = 32 × 257; the stage-1
+                Q-Former's queries-only image pass at b = 64 and 32, its
+                text-only pass over captions of 35 tokens at b = 256 and
+                32, the ITM rerank at b = 128 over 32 + 35 tokens and its
+                cross-attention to the 257 image tokens);
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -77,8 +83,12 @@ each of which fails the run (non-zero exit, no result line) on error:
                 shape, unstructured and 2:4 (at most 1e-4 of the mask
                 entries differ, cycles equal); a tiny float32
                 InstructBLIP-Vicuna: masked logits within 1e-4, beam-2
-                ``generate_vicuna`` tokens equal, the Wanda masks over the
-                ViT and ``llm_model`` bit-equal;
+                ``generate_vicuna`` tokens equal, the Wanda and DSnoT masks
+                over the ViT and ``llm_model`` bit-equal (DSnoT's cycles by
+                linear equal); DSnoT at LLaMA-7B's down shape too; a tiny
+                float32 stage-1 Blip2Qformer through ``RetrievalTask`` at
+                k_test 0 and 2: score matrices within 1e-4, the same
+                entries reranked, the metrics equal;
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -180,14 +190,41 @@ each of which fails the run (non-zero exit, no result line) on error:
                 backward included, one that phase 3 checked), one more
                 step profiled,
                 the sparse merge (zero off the masks, 0.5 ± 0.01) and
-                beam-5 generate from the merged model;
- 10. profile  — the main path once more under torch.profiler (prune,
+                beam-5 generate from the merged model; then, rebuilt dense
+                from seed 4, the Vicuna grid's DSnoT entry
+                (``blipt5_dsnot_pruner``, ``t5_model_prefix=llm_model``,
+                scripts/vicuna/dsnot.py's defaults; each tower 0.5 ± 0.01,
+                a finite loss, the refinement's cycles, host syncs and
+                seconds) and beam-5 ``generate_vicuna``, every shape held
+                in phase 3;
+ 10. retrieval path — the stage-1 BLIP-2 Q-Former at full width (arch
+                blip2, model_type coco: EVA-ViT-g 39 layers in bf16, the
+                Q-Former and its heads in fp32; seed 5, after the Vicuna
+                model is freed): ``vit_wanda_pruner`` on its ViT (masks
+                kept, 0.5 ± 0.01), then ``RetrievalTask`` at
+                ret_flickr_eval.yaml's settings (batch 64, k_test 128)
+                over 160 synthetic images and 800 captions (5 an image;
+                the cut: Flickr30k's test split holds 1000 × 5000), cold
+                and warm (score matrices bit-equal), at k_test 0 (the ITC
+                pass: score_i2t == score_t2i.T; the rerank moved exactly
+                each row's ITC top-k entries off it), a direct
+                ``compute_sim_matrix`` (bit-equal to the task's),
+                R@1/5/10 exactly 10/50/100 both ways against a ground truth
+                read off the scores' own order, every shape held in phase
+                3; one image batch's 64 ITM calls profiled: the ITM call's
+                device ms, and its wall ms in the warm pass and the direct
+                call, with the image and caption branches' rates,
+                extrapolated to the Flickr30k and COCO 5k test splits;
+ 11. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune, the
                 first-order path's Fisher (its attention backward's device
                 time a sample) and EcoFLaP prune, and the grid path's
-                prunes (the zeroth scoring of 24 keys): device time by
-                kernel group against each phase's unprofiled wall-clock;
- 11. timing   — kernel, plain-version and library-call times (CUDA events,
+                zeroth scoring of 24 keys, aobd and global magnitude
+                prunes and (the cut that keeps the command under 900 s:
+                at 13/8/8 of its 39/24/24 blocks, timed unprofiled at
+                that depth first) its DSnoT prune: device time by kernel
+                group against each phase's unprofiled wall-clock;
+ 12. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
@@ -236,7 +273,9 @@ The last lines are the kernel JSON, the nvidia-smi line and
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import logging
@@ -379,6 +418,15 @@ MM_SHAPES = [
     ("llama_qkvo_beam_step", 320, 4096, 4096),
     ("llama_gate_up_beam_step", 320, 4096, 11008),
     ("llama_down_beam_step", 320, 11008, 4096),
+    # the retrieval path (retrieval_path): the pruned ViT of the stage-1
+    # Q-Former over the eval loader's batches of 64 images (the *_vqa rows,
+    # M = 64 × 257) and the ragged last batch of 32 (M = 32 × 257); its
+    # calibration at the *_calib rows.  retrieval_path fails if it
+    # launches a shape not listed
+    ("vit_qkv_ret_b32", 8224, 1408, 4224),
+    ("vit_proj_ret_b32", 8224, 1408, 1408),
+    ("vit_fc1_ret_b32", 8224, 1408, 6144),
+    ("vit_fc2_ret_b32", 8224, 6144, 1408),
 ]
 MM_TIMED = "vit_fc1_calib"
 
@@ -432,6 +480,22 @@ FLASH_SHAPES = [
     ("qformer_cross_gen", 4, 32, 257, 12, 64, ["pad"], 0.125),
     ("qformer_self_gen", 4, 72, 72, 12, 64, ["pad"], 0.125),
     ("t5_encoder_gen", 4, 72, 72, 32, 64, ["rel", "pad"], 1.0),
+    # the retrieval path: the ViT at the ragged last batch (b = 32, beside
+    # vit_self_b64); the Q-Former's image pass over the 32 queries alone
+    # (self-attention without a mask, cross-attention to 257 image
+    # tokens) at b = 64 and 32; its text-only pass over the captions in
+    # chunks of 256 and the remainder of 32, n = m = 35 (the captions
+    # clipped at the task's 35 tokens) under the padding mask; the ITM
+    # rerank at b = k_test = 128 (self over 32 queries + 35 tokens, cross
+    # from the 32 queries to the image)
+    ("vit_self_b32", 32, 257, 257, 16, 88, [], 88 ** -0.5),
+    ("qformer_query_self_b64", 64, 32, 32, 12, 64, [], 0.125),
+    ("qformer_query_self_b32", 32, 32, 32, 12, 64, [], 0.125),
+    ("qformer_cross_b32", 32, 32, 257, 12, 64, [], 0.125),
+    ("qformer_text_b256", 256, 35, 35, 12, 64, ["pad"], 0.125),
+    ("qformer_text_b32", 32, 35, 35, 12, 64, ["pad"], 0.125),
+    ("qformer_itm_self_b128", 128, 67, 67, 12, 64, ["pad"], 0.125),
+    ("qformer_itm_cross_b128", 128, 32, 257, 12, 64, [], 0.125),
 ]
 FLASH_TIMED = "vit_self_calib"
 # the Vicuna path (vicuna_path): LLaMA's self-attention, 32 heads of
@@ -1593,12 +1657,13 @@ def tiny_grid_pruners_check():
 
 def dsnot_xl_check():
     """DSnoT from the same fp32 inputs on the card and on the CPU at the
-    T5-XL wo shape (2048 units × 5120 inputs; statistics of 8192 random
-    tokens with a mean per column, folded on the card), unstructured at
-    0.5 and 2:4, the grid's other knobs at their defaults: the mask
-    entries that differ (at most 1e-4 of them: the only source of a
-    difference is the reduction order of the row error) and the cycles
-    (equal)."""
+    T5-XL wo shape (2048 units × 5120 inputs) and at LLaMA-7B's down
+    projection (4096 units × 11008 inputs: the Vicuna DSnoT entry's
+    widest linear), statistics of 8192 random tokens with a mean per
+    column, folded on the card; unstructured at 0.5 and 2:4, the grid's
+    other knobs at their defaults: the mask entries that differ (at most
+    1e-4 of them: the only source of a difference is the reduction order
+    of the row error) and the cycles (equal)."""
     from vlm_compression_tpu_torch.ops.dsnot import dsnot_refine_mask
     from vlm_compression_tpu_torch.ops.stats import (
         init_calib_stats,
@@ -1606,33 +1671,83 @@ def dsnot_xl_check():
     )
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    units, cols, n = 2048, 5120, 8192
-    x = torch.randn(n, cols, generator=g, device="cuda") \
-        + 0.5 * torch.randn(cols, generator=g, device="cuda")
-    s = update_calib_stats(init_calib_stats(cols, device="cuda"), x[None])
-    del x
-    w = torch.randn(units, cols, generator=g, device="cuda") * cols ** -0.5
-    args = (w, s.scaler_row, s.sum_metric_row, s.var)
     out = {}
-    for label, kw in (("unstructured", {}), ("2:4", dict(prune_n=2,
-                                                         prune_m=4))):
-        t0 = time.perf_counter()
-        card = dsnot_refine_mask(*args, 0.5, **kw)
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cpu = dsnot_refine_mask(*(a.cpu() for a in args), 0.5, **kw)
-        t_cpu = time.perf_counter() - t0
-        flips = int((card.keep_mask.cpu() != cpu.keep_mask).sum())
-        log(f"  dsnot {label} {units} x {cols}, card vs CPU: {flips} of "
-            f"{units * cols} mask entries differ; cycles {card.cycles} / "
-            f"{cpu.cycles}; density {float(card.keep_mask.float().mean()):.5f}"
-            f"; {t_card:.3f} s card, {t_cpu:.2f} s CPU")
-        if flips > 1e-4 * units * cols or card.cycles != cpu.cycles:
-            raise AssertionError(f"dsnot {label}: card and CPU disagree")
-        out[f"dsnot_xl_{label}_flips"] = flips
-        out[f"dsnot_xl_{label}_card_s"] = t_card
+    for shape, units, cols in (("xl", 2048, 5120),
+                               ("llama_down", 4096, 11008)):
+        n = 8192
+        x = torch.randn(n, cols, generator=g, device="cuda") \
+            + 0.5 * torch.randn(cols, generator=g, device="cuda")
+        s = update_calib_stats(init_calib_stats(cols, device="cuda"),
+                               x[None])
+        del x
+        w = torch.randn(units, cols, generator=g, device="cuda") \
+            * cols ** -0.5
+        args = (w, s.scaler_row, s.sum_metric_row, s.var)
+        for label, kw in (("unstructured", {}),
+                          ("2:4", dict(prune_n=2, prune_m=4))):
+            t0 = time.perf_counter()
+            card = dsnot_refine_mask(*args, 0.5, **kw)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = dsnot_refine_mask(*(a.cpu() for a in args), 0.5, **kw)
+            t_cpu = time.perf_counter() - t0
+            flips = int((card.keep_mask.cpu() != cpu.keep_mask).sum())
+            log(f"  dsnot {label} {units} x {cols}, card vs CPU: {flips} of "
+                f"{units * cols} mask entries differ; cycles {card.cycles} "
+                f"/ {cpu.cycles}; density "
+                f"{float(card.keep_mask.float().mean()):.5f}; {t_card:.3f} s "
+                f"card, {t_cpu:.2f} s CPU")
+            if flips > 1e-4 * units * cols or card.cycles != cpu.cycles:
+                raise AssertionError(f"dsnot {label} {units} x {cols}: card "
+                                     "and CPU disagree")
+            out[f"dsnot_{shape}_{label}_flips"] = flips
+            out[f"dsnot_{shape}_{label}_card_s"] = t_card
+        del w, args, s
     return out
+
+@contextlib.contextmanager
+def dsnot_tally():
+    """While the block runs, DSnoT's refinement is synchronised and timed
+    around each call, and its cycles are kept per linear: yields
+    {"cycles": [...], "s": seconds}."""
+    from vlm_compression_tpu_torch.compression.pruners import methods as PM
+
+    refine, tally = PM.dsnot_refine_mask, {"cycles": [], "s": 0.0}
+
+    def timed_refine(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = refine(*a, **kw)
+        torch.cuda.synchronize()
+        tally["s"] += time.perf_counter() - t0
+        tally["cycles"].append(res.cycles)
+        return res
+
+    PM.dsnot_refine_mask = timed_refine
+    try:
+        yield tally
+    finally:
+        PM.dsnot_refine_mask = refine
+
+
+def log_dsnot_tally(tally, prune_s: float, n_linears: int,
+                    prefix: str = "dsnot") -> dict:
+    """The cycle histogram, host syncs (one a cycle, one a linear) and the
+    refinement's share of the prune; fails unless every prunable linear
+    was refined once."""
+    cycles = tally["cycles"]
+    hist = {c: cycles.count(c) for c in sorted(set(cycles))}
+    log(f"  {prefix} refinement: {len(cycles)} linears, cycles {hist} "
+        f"(cycle: linears), {sum(cycles)} cycles and about "
+        f"{sum(cycles) + len(cycles)} host syncs in all; {tally['s']:.3f} s "
+        f"of the prune's {prune_s:.3f} s "
+        f"({100 * tally['s'] / prune_s:.1f} %)")
+    if len(cycles) != n_linears:
+        raise AssertionError(f"{prefix} refined {len(cycles)} linears, not "
+                             f"{n_linears}")
+    return {f"{prefix}_refine_s": tally["s"], f"{prefix}_cycles": sum(cycles),
+            f"{prefix}_host_syncs": sum(cycles) + len(cycles)}
 
 
 def synthetic_batches(cfg, n: int, bs: int, g: torch.Generator):
@@ -1653,16 +1768,34 @@ def synthetic_batches(cfg, n: int, bs: int, g: torch.Generator):
                  qformer_attention_mask=ones(bs)) for _ in range(n)]
 
 
-def xl_setup(seed: int, lora: bool = True):
+def xl_setup(seed: int, lora: bool = True, depth: tuple = None):
     """Full-width InstructBLIP-FlanT5-XL with seeded random bf16 weights on
     the card (base weights drawn as without adapters; with ``lora``, LoRA A
     he-uniform, B zero), the synthetic calibration batches of
     bench.py:189-191 (bs 16, text 40, labels 12) and N_REQ generate
-    requests."""
-    from vlm_compression_tpu_torch.models.factory import build_model
+    requests.  ``depth`` = (ViT, T5 encoder, T5 decoder blocks) cuts the
+    depth (every width kept); None keeps the config's 39/24/24."""
+    from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+        Blip2T5Instruct,
+    )
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.factory import (
+        build_model,
+        build_model_config,
+    )
 
-    model = build_model(dict(model_type="flant5xl", **(LORA if lora else {})),
-                        seed=seed)
+    model_cfg = dict(model_type="flant5xl", **(LORA if lora else {}))
+    if depth is None:
+        model = build_model(model_cfg, seed=seed)
+    else:
+        # build_model's own steps, on the config cut to ``depth``
+        vit, enc, dec = depth
+        _, cfg = build_model_config(model_cfg)
+        cfg = dataclasses.replace(
+            cfg, vit=dataclasses.replace(cfg.vit, depth=vit),
+            t5=dataclasses.replace(cfg.t5, num_layers=enc,
+                                   num_decoder_layers=dec))
+        model = random_init_(Blip2T5Instruct(cfg), seed=seed)
     cfg = model.cfg
     img = cfg.vit.img_size
     g = torch.Generator(device="cuda").manual_seed(42 + seed)
@@ -1688,10 +1821,13 @@ def run_prune(model, batches, name="blipt5_wanda_pruner", **kw):
     """→ (the pruned model, the allocated ratios or None)."""
     from vlm_compression_tpu_torch.compression import load_pruner
 
+    # the launcher's specs (scripts/launch_lib.py:55-56), their block counts
+    # the model's
+    cfg = model.cfg
     pruner = load_pruner(name, model, batches,
-                         vit_prune_spec="39-0.5-1.0-1.0",
-                         t5_prune_spec="24-0.5-1.0-1.0", num_samples=N_CALIB,
-                         **kw)
+                         vit_prune_spec=f"{cfg.vit.depth}-0.5-1.0-1.0",
+                         t5_prune_spec=f"{cfg.t5.num_layers}-0.5-1.0-1.0",
+                         num_samples=N_CALIB, **kw)
     out = pruner.prune(lora_model=True)
     torch.cuda.synchronize()
     return out
@@ -1834,6 +1970,25 @@ PHASE_KERNELS.update(
     generate_vicuna_merged=VICUNA_GEN)
 PHASE_FORBIDDEN.update(vicuna_retrain=("flash_attention_bwd_dbias",
                                        BWD_DBIAS, WMMA_LOOP))
+# the Vicuna grid's DSnoT entry sweeps as the Wanda prune does (its
+# refinement runs no kernel of the port); then the generate
+PHASE_KERNELS.update(vicuna_dsnot_prune=PRUNE + (FWD_WGMMA, FWD_MMA),
+                     generate_vicuna_dsnot=VICUNA_GEN)
+PHASE_FORBIDDEN.update(vicuna_dsnot_prune=BACKWARD + (WMMA_LOOP,))
+# the retrieval path: the stage-1 model's ViT prune, then the eval passes
+# (the pruned ViT's masked matmuls on the Hopper loop, every attention on
+# TMA + wgmma; the Q-Former holds no mask, so its text-only branch runs
+# attention alone); no backward and no WMMA-loop launch anywhere
+RETRIEVAL = ("masked_matmul", "flash_attention", FWD_WGMMA, WGMMA_LOOP)
+PHASE_KERNELS.update(retrieval_prune=PRUNE + (FWD_WGMMA,),
+                     retrieval_cold=RETRIEVAL, retrieval_warm=RETRIEVAL,
+                     retrieval_itc=RETRIEVAL, retrieval_direct=RETRIEVAL,
+                     retrieval_images=RETRIEVAL,
+                     retrieval_captions=("flash_attention", FWD_WGMMA))
+for _phase in ("retrieval_prune", "retrieval_cold", "retrieval_warm",
+               "retrieval_itc", "retrieval_direct", "retrieval_images",
+               "retrieval_captions"):
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (WMMA_LOOP,)
 PHASE_FORBIDDEN.update(
     dsnot_prune=BACKWARD, mag_prune=SCORE_ONLY, rand_prune=SCORE_ONLY,
     mag_global=SCORE_ONLY,
@@ -1947,6 +2102,28 @@ def check_loop(what, name, m, k, n, dtype, before, rank=0,
         raise AssertionError(f"{what} {name} {dtype}: {wg} Hopper-loop and "
                              f"{dec} decode-kernel launches, plan {loop}")
     return loop
+
+
+def run_phase(rec: dict, phase: str, fn):
+    """``fn()`` as one phase: the launch counts reset before it and read
+    after, by kernel (``rec["counts"]``) and by shape
+    (``rec["shapes"]``), its synchronised wall-clock (``rec["secs"]``)
+    and peak memory (``rec["peaks"]``).  Returns what ``fn`` returns."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec["secs"][phase] = time.perf_counter() - t0
+    rec["counts"][phase] = read_counts()
+    rec["shapes"][phase] = read_shapes()
+    rec["peaks"][phase] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def new_record() -> dict:
+    return {"counts": {}, "shapes": {}, "secs": {}, "peaks": {}}
 
 
 def check_phase_counts(counts):
@@ -3037,11 +3214,11 @@ def grid_path():
     from vlm_compression_tpu_torch.compression.pruners import (
         global_pruner as GP,
     )
-    from vlm_compression_tpu_torch.compression.pruners import methods as PM
     from vlm_compression_tpu_torch.models.layers import set_mask
 
-    counts, secs, peaks, shapes, outs = {}, {}, {}, {}, {}
-    e2e = {}
+    rec, outs, e2e = new_record(), {}, {}
+    counts, secs, peaks, shapes = (rec[k] for k in ("counts", "secs",
+                                                    "peaks", "shapes"))
     t0 = time.perf_counter()
     cfg, model, batches, req = xl_setup(seed=3, lora=False)
     keys = AL.select_prunable_keys(model, ("visual_encoder", "t5_model"))
@@ -3064,19 +3241,6 @@ def grid_path():
             lin.kernel.copy_(w, non_blocking=True)
             set_mask(lin, None)
         torch.cuda.synchronize()
-
-    def run(phase, fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[phase] = time.perf_counter() - t0
-        counts[phase] = read_counts()
-        shapes[phase] = read_shapes()
-        peaks[phase] = torch.cuda.max_memory_allocated()
-        return out
 
     def check_pruned(phase, every_tower=True):
         """Densities by tower (of the masks; the global pruners also zero
@@ -3103,7 +3267,8 @@ def grid_path():
         e2e[f"{phase}_peak_bytes"] = peaks[phase]
 
     def generate(phase):
-        seqs, gen_cfg = run(phase, lambda: run_generate(model, req))
+        seqs, gen_cfg = run_phase(rec, phase,
+                                  lambda: run_generate(model, req))
         n_tok = check_generate(seqs, gen_cfg, cfg)
         outs[phase] = seqs
         e2e[f"{phase}_s"] = secs[phase]
@@ -3111,40 +3276,18 @@ def grid_path():
             f"tokens; tokens {seqs.tolist()}")
 
     # DSnoT, its refinement timed and its cycles counted per linear
-    refine, cycles, refine_s = PM.dsnot_refine_mask, [], [0.0]
-
-    def timed_refine(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = refine(*a, **kw)
-        torch.cuda.synchronize()
-        refine_s[0] += time.perf_counter() - t0
-        cycles.append(res.cycles)
-        return res
-
-    PM.dsnot_refine_mask = timed_refine
-    try:
-        run("dsnot_prune",
-            lambda: run_prune(model, batches, name="blipt5_dsnot_pruner"))
-    finally:
-        PM.dsnot_refine_mask = refine
-    hist = {c: cycles.count(c) for c in sorted(set(cycles))}
-    e2e["dsnot_refine_s"] = refine_s[0]
-    e2e["dsnot_cycles"] = sum(cycles)
-    log(f"  dsnot refinement: {len(cycles)} linears, cycles {hist} "
-        f"(cycle: linears), {sum(cycles)} cycles and about "
-        f"{sum(cycles) + len(cycles)} host syncs in all; {refine_s[0]:.3f} s "
-        f"of the prune's {secs['dsnot_prune']:.3f} s "
-        f"({100 * refine_s[0] / secs['dsnot_prune']:.1f} %)")
-    if len(cycles) != len(keys):
-        raise AssertionError(f"dsnot refined {len(cycles)} linears")
+    with dsnot_tally() as tally:
+        run_phase(rec, "dsnot_prune", lambda: run_prune(
+            model, batches, name="blipt5_dsnot_pruner"))
+    e2e.update(log_dsnot_tally(tally, secs["dsnot_prune"], len(keys)))
     check_pruned("dsnot_prune")
     generate("generate_dsnot")
     restore()
 
     for phase, name, kw in (("mag_prune", "blipt5_mag_pruner", {}),
                             ("rand_prune", "blipt5_rand_pruner", {})):
-        run(phase, lambda: run_prune(model, batches, name=name, **kw))
+        run_phase(rec, phase,
+                  lambda: run_prune(model, batches, name=name, **kw))
         check_pruned(phase)
         restore()
 
@@ -3162,7 +3305,7 @@ def grid_path():
 
     GP.kth_smallest = checked_select
     try:
-        run("mag_global", lambda: run_prune(
+        run_phase(rec, "mag_global", lambda: run_prune(
             model, batches, name="blipt5_mag_pruner", is_global=True))
     finally:
         GP.kth_smallest = select
@@ -3172,8 +3315,8 @@ def grid_path():
     check_pruned("mag_global")
     restore()
 
-    run("aobd_prune", lambda: run_prune(model, batches,
-                                        name="blipt5_aobd_pruner"))
+    run_phase(rec, "aobd_prune", lambda: run_prune(
+        model, batches, name="blipt5_aobd_pruner"))
     log(f"  aobd prune's attention, by route: "
         f"{attn_routes(counts['aobd_prune'])}")
     check_pruned("aobd_prune")
@@ -3195,7 +3338,7 @@ def grid_path():
 
     AL.mezo_layer_scalars = timed_score
     try:
-        _, ratios = run("zeroth_prune", lambda: run_prune(
+        _, ratios = run_phase(rec, "zeroth_prune", lambda: run_prune(
             model, ones, num_data_first_stage=N_ZEROTH, **ZEROTH))
     finally:
         AL.mezo_layer_scalars = score
@@ -3341,8 +3484,9 @@ def tiny_vicuna_check():
     model on the CPU (plain versions): logits with random masks on every
     linear and left-padded text, within 1e-4; beam-2 ``generate_vicuna``
     over left-padded prompts (pads 0, 1, 2), tokens equal; the dense model
-    pruned by ``blipt5_wanda_pruner`` over the ViT and ``llm_model``,
-    masks bit-equal."""
+    pruned by ``blipt5_wanda_pruner`` and ``blipt5_dsnot_pruner`` over the
+    ViT and ``llm_model``, masks bit-equal (DSnoT: its cycles by linear
+    equal too)."""
     from vlm_compression_tpu_torch.compression import load_pruner
     from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
         Blip2VicunaInstruct,
@@ -3413,23 +3557,127 @@ def tiny_vicuna_check():
                   qformer_input_ids=torch.randint(2, 64, (4, 5), generator=g),
                   qformer_attention_mask=torch.ones(4, 5, dtype=torch.int32))
              for _ in range(2)]
-    masks = []
-    for dev in ("cpu", "cuda"):
-        model = copy.deepcopy(dense).to(dev)
-        with torch.no_grad():
-            load_pruner("blipt5_wanda_pruner", model, calib,
-                        vit_prune_spec="2-0.5-1.0-1.0",
-                        t5_prune_spec="2-0.5-1.0-1.0", num_samples=8,
-                        t5_model_prefix="llm_model").prune(lora_model=True)
-        masks.append(export_masks(model))
-        del model
-    differ = sum(int((masks[0][p] != masks[1][p]).sum()) for p in masks[0])
-    log(f"  tiny fp32 InstructBLIP-Vicuna blipt5_wanda_pruner (ViT + "
-        f"llm_model), card vs CPU: {len(masks[1])} masks, {differ} bits "
-        f"differ")
-    if set(masks[0]) != set(masks[1]) or len(masks[0]) != 2 * 4 + 2 * 7 \
-            or differ:
-        raise AssertionError("tiny Vicuna check (Wanda masks)")
+    # the Vicuna grid's Wanda and DSnoT entries (DSnoT at a low update
+    # threshold, which keeps its loop cycling at this model's scale)
+    for name, kw in (("blipt5_wanda_pruner", {}),
+                     ("blipt5_dsnot_pruner", dict(update_threshold=1e-4))):
+        masks, cycles = [], []
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(dense).to(dev)
+            with torch.no_grad(), dsnot_tally() as tally:
+                load_pruner(name, model, calib,
+                            vit_prune_spec="2-0.5-1.0-1.0",
+                            t5_prune_spec="2-0.5-1.0-1.0", num_samples=8,
+                            t5_model_prefix="llm_model",
+                            **kw).prune(lora_model=True)
+            masks.append(export_masks(model))
+            cycles.append(tally["cycles"])
+            del model
+        differ = sum(int((masks[0][p] != masks[1][p]).sum())
+                     for p in masks[0])
+        log(f"  tiny fp32 InstructBLIP-Vicuna {name} (ViT + llm_model), "
+            f"card vs CPU: {len(masks[1])} masks, {differ} bits differ; "
+            f"DSnoT cycles by linear, card {cycles[1]}, CPU {cycles[0]}")
+        if set(masks[0]) != set(masks[1]) or differ \
+                or len(masks[0]) != 2 * 4 + 2 * 7 or cycles[0] != cycles[1] \
+                or (name == "blipt5_dsnot_pruner"
+                    and len(cycles[0]) != len(masks[0])):
+            raise AssertionError(f"tiny Vicuna check ({name} masks)")
+
+class RetrievalLoader:
+    """A retrieval eval loader: batches of ``batch`` images (the last one
+    ragged), the dataset (captions, ``txt2img``, ``img2txt``) on
+    ``.dataset``."""
+
+    def __init__(self, images, text, per_image: int, batch: int):
+        self.images, self.batch = images, batch
+        self.dataset = type("RetrievalSet", (), {})()
+        self.dataset.text = text
+        self.dataset.txt2img = [t // per_image for t in range(len(text))]
+        self.dataset.img2txt = {
+            i: list(range(i * per_image, (i + 1) * per_image))
+            for i in range(len(images))}
+
+    def __iter__(self):
+        return iter({"image": self.images[s:s + self.batch]}
+                    for s in range(0, len(self.images), self.batch))
+
+
+def retrieval_captions(n: int, rng: random.Random, shortest: int,
+                       longest: int) -> list:
+    """n seeded captions of shortest-longest words (the first one the
+    longest)."""
+    words = sorted({w for group in VQA_WORDS.values() for phrase in group
+                    for w in phrase.split()})
+    return [" ".join(rng.choices(words, k=longest if i == 0 else
+                                 rng.randint(shortest, longest)))
+            for i in range(n)]
+
+
+def tiny_retrieval_check():
+    """A tiny float32 stage-1 Blip2Qformer with random masks on every
+    linear, on the card (kernels) vs on the CPU (plain versions), through
+    ``RetrievalTask`` at k_test 2 over 6 images in batches of 4 and 12
+    captions: the score matrices within 1e-4, the entries the rerank moved
+    (those off the k_test-0 ITC score) the same, the metrics equal."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+    )
+    from vlm_compression_tpu_torch.models.blip2_qformer import (
+        Blip2Qformer,
+        Blip2QformerConfig,
+    )
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+    from vlm_compression_tpu_torch.tasks.retrieval import RetrievalTask
+
+    cfg = Blip2QformerConfig.tiny(
+        vit=EvaViTConfig.tiny(param_dtype="float32", dtype="float32"),
+        qformer=QFormerConfig.tiny(dtype="float32"))
+    cpu = random_init_(Blip2Qformer(cfg, device="cpu"), seed=13, std=0.2)
+    g = torch.Generator().manual_seed(13)
+    for mod in cpu.modules():
+        if isinstance(mod, SparseLinear):
+            mod.mask = torch.rand(mod.kernel.shape, generator=g) < 0.6
+    gpu = copy.deepcopy(cpu).to("cuda")
+    images = torch.randn(6, 28, 28, 3, generator=g)
+    text = retrieval_captions(12, random.Random(13), 2, 9)
+    tok = SimpleTokenizer(cfg.qformer.vocab_size)
+    res, launched = {}, {}
+    for side, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+        loader = RetrievalLoader(images.to(dev), text, 2, 4)
+        reset_counts()
+        res[side] = [RetrievalTask(k_test=k, tokenizer=tok).evaluation(
+            model, loader) for k in (0, 2)]
+        launched[side] = read_counts()
+    moved = {side: [r[1][key] != r[0][key] for key in ("score_i2t",
+                                                      "score_t2i")]
+             for side, r in res.items()}
+    err = max(float(abs(res["card"][i][key] - res["cpu"][i][key]).max())
+              for i in (0, 1) for key in ("score_i2t", "score_t2i"))
+    with tempfile.TemporaryDirectory(prefix="tiny_retrieval_") as tmp:
+        metrics = {side: RetrievalTask().after_evaluation(
+            r[1], result_dir=os.path.join(tmp, side, "result"))
+            for side, r in res.items()}
+    same_moved = all((a == b).all() for a, b in zip(moved["cpu"],
+                                                    moved["card"]))
+    c = launched["card"]
+    log(f"  tiny fp32 Blip2Qformer RetrievalTask k_test 0 and 2, card vs "
+        f"CPU: score matrices max_abs_err={err:.3e} (tol 1e-4); the "
+        f"reranked entries the same {same_moved} "
+        f"({[int(x.sum()) for x in moved['card']]} of "
+        f"{[x.size for x in moved['card']]}); metrics equal "
+        f"{metrics['cpu'] == metrics['card']} {json.dumps(metrics['card'])}"
+        f"; masked_matmul launches {c['masked_matmul']}, attention "
+        f"forwards {c['flash_attention']}")
+    if not (err <= 1e-4 and same_moved
+            and all(int(x.sum(1).min()) == int(x.sum(1).max()) == 2
+                    for x in moved["card"])
+            and metrics["cpu"] == metrics["card"]
+            and c["masked_matmul"] > 0 and c["flash_attention"] > 0):
+        raise AssertionError("tiny retrieval check")
 
 
 def vicuna_path():
@@ -3444,7 +3692,9 @@ def vicuna_path():
     closed form) at the Vicuna eval yamls' settings, the answers equal to
     a direct ``generate_vicuna``'s decoded tokens; every shape launched one
     that phase 3 checked, each phase's kernels launched and no WMMA-loop
-    launch; one GQA pass profiled.  Returns (launches by phase, numbers)."""
+    launch; one GQA pass profiled; then the retrain (``vicuna_retrain``)
+    and, on a dense model rebuilt once that one is freed, the DSnoT grid
+    entry (``vicuna_dsnot``).  Returns (launches by phase, numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vlm_compression_tpu_torch.compression import load_pruner
@@ -3666,8 +3916,10 @@ def vicuna_path():
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    dsnot_counts, dsnot = vicuna_dsnot(req, gen_cfg)
+    counts.update(dsnot_counts)
     return counts, {
-        **retrain,
+        **retrain, **dsnot,
         "vicuna_prune_s": secs["vicuna_prune"],
         "vicuna_generate_cold_s": secs["generate_vicuna_cold"],
         "vicuna_generate_s": secs["generate_vicuna_warm"],
@@ -3745,6 +3997,323 @@ def vicuna_retrain(model, req, gen_cfg, counts, shapes, secs) -> dict:
             "vicuna_generate_merged_s": secs["generate_vicuna_merged"]}
 
 
+def vicuna_dsnot(req, gen_cfg) -> tuple:
+    """The Vicuna grid's DSnoT entry (scripts/vicuna/dsnot.py's defaults:
+    keep 0.5 in the ViT and in LLaMA, unstructured, the wanda initial
+    metric) through ``blipt5_dsnot_pruner`` with
+    ``t5_model_prefix=llm_model``, masks kept, on a dense
+    InstructBLIP-Vicuna-7B rebuilt from VICUNA_SEED once the retrained one
+    is freed (the same base weights, no adapters: the random init takes
+    under a second on the card, where a pinned host copy of the 380
+    prunable kernels would hold 15 GB of host memory, and the retrain has
+    merged its adapters into those kernels), on the Wanda prune's
+    N_CALIB samples at batch BS; then beam-5 ``generate_vicuna`` on the
+    N_REQ requests.  Gates: each tower 0.5 ± 0.01, a finite loss, every
+    prunable linear refined once (its cycles, host syncs and seconds
+    recorded as grid_path records them), the phases' launch tables and
+    every shape launched one that phase 3 held."""
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+        generate_vicuna,
+    )
+    from vlm_compression_tpu_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(VICUNA_MODEL, seed=VICUNA_SEED)
+    cfg, llm = model.cfg, model.cfg.llm
+    # the draws of vicuna_path: the same calibration batches
+    batches = vicuna_batches(
+        cfg, N_CALIB // BS, BS,
+        torch.Generator(device="cuda").manual_seed(42 + VICUNA_SEED))
+    torch.cuda.synchronize()
+    log(f"  vicuna dsnot: the dense model rebuilt from seed {VICUNA_SEED} "
+        f"(no adapters) + data {time.perf_counter() - t0:.1f} s")
+    rec = new_record()
+    pruner = load_pruner(
+        "blipt5_dsnot_pruner", model, batches,
+        vit_prune_spec=f"{cfg.vit.depth}-0.5-1.0-1.0",
+        t5_prune_spec=f"{llm.num_layers}-0.5-1.0-1.0", num_samples=N_CALIB,
+        t5_model_prefix="llm_model")
+    with dsnot_tally() as tally:
+        run_phase(rec, "vicuna_dsnot_prune",
+                  lambda: pruner.prune(lora_model=True))
+    secs, peaks = rec["secs"], rec["peaks"]
+    n_lin = cfg.vit.depth * 4 + llm.num_layers * 7
+    e2e = log_dsnot_tally(tally, secs["vicuna_dsnot_prune"], n_lin,
+                          prefix="vicuna_dsnot")
+    density = tower_density(model, towers=("visual_encoder", "llm_model"))
+    with torch.no_grad():
+        loss = float(model(**batches[0])["loss"])
+    log(f"  vicuna dsnot prune (blipt5_dsnot_pruner, t5_model_prefix="
+        f"llm_model, lora_model=True): {secs['vicuna_dsnot_prune']:.2f} s, "
+        f"peak {peaks['vicuna_dsnot_prune'] / 2**30:.2f} GiB; density by "
+        f"tower {json.dumps({t: round(d, 5) for t, (d, _) in density.items()})}"
+        f" over {json.dumps({t: n for t, (_, n) in density.items()})} "
+        f"linears; loss on a calibration batch {loss:.4f}; attention "
+        f"{attn_routes(rec['counts']['vicuna_dsnot_prune'])}")
+    if any(abs(d - 0.5) > 0.01 for d, _ in density.values()) \
+            or sum(n for _, n in density.values()) != n_lin \
+            or loss != loss or abs(loss) == float("inf"):
+        raise AssertionError(f"vicuna dsnot: {density} {loss}")
+    del batches, pruner
+    seqs = run_phase(rec, "generate_vicuna_dsnot", lambda: generate_vicuna(
+        model, *req, gen_cfg=gen_cfg)).cpu()
+    if tuple(seqs.shape) != (N_REQ, gen_cfg.max_length) \
+            or not torch.equal(seqs[:, 0], req[1][:, -1].int().cpu()) \
+            or not bool(((seqs >= 0) & (seqs < llm.vocab_size)).all()):
+        raise AssertionError(f"bad generate_vicuna output after DSnoT {seqs}")
+    log(f"  generate_vicuna beam-5 after the DSnoT prune: "
+        f"{secs['generate_vicuna_dsnot']:.3f} s, tokens {seqs.tolist()}")
+    log(f"  launches: {json.dumps(rec['counts'])}")
+    check_phase_counts(rec["counts"])
+    check_shapes(rec["shapes"], "vicuna dsnot")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["counts"], {
+        **e2e, "vicuna_dsnot_prune_s": secs["vicuna_dsnot_prune"],
+        "vicuna_dsnot_peak_bytes": peaks["vicuna_dsnot_prune"],
+        "vicuna_dsnot_loss": loss,
+        "vicuna_generate_dsnot_s": secs["generate_vicuna_dsnot"]}
+
+
+# the retrieval path (retrieval_path): the stage-1 Q-Former as
+# configs/projects/eval/ret_flickr_eval.yaml evaluates it (model: arch
+# blip2, model_type coco; run: batch_size_eval 64, k_test 128; the task
+# clips captions at 35 tokens; ret_coco_eval.yaml the same), its ViT pruned
+# first by vit_wanda_pruner at 39-0.5-1.0-1.0 on N_CALIB synthetic images
+# at batch BS; seed 5.  The cut: 160 synthetic 224² images and 800
+# captions of 8-40 words, 5 an image as in Flickr30k, where the test
+# splits hold the sizes of RET_FULL, to which the readings extrapolate
+RETRIEVAL_MODEL = dict(arch="blip2", model_type="coco")
+RETRIEVAL_RUN = dict(task="retrieval", batch_size_eval=64, k_test=128)
+RETRIEVAL_SEED = 5
+N_RET_IMAGES, RET_PER_IMAGE, RET_WORDS = 160, 5, (8, 40)
+RET_FULL = {"flickr30k_test": (1000, 5000), "coco_5k_test": (5000, 25000)}
+
+
+def retrieval_path() -> tuple:
+    """The stage-1 Q-Former's retrieval eval through the task's entry
+    points at ret_flickr_eval.yaml's settings: ``vit_wanda_pruner`` on
+    the full-width model's ViT (masks kept; 0.5 ± 0.01), then
+    ``RetrievalTask`` (ITC ranking + the ITM rerank of each row's top
+    k_test) cold and warm (score matrices bit-equal), at k_test 0 (the ITC
+    pass alone: score_i2t == score_t2i.T; the rerank moved exactly the
+    top-min(k, n) entries of each row off it and left the rest), and a
+    direct ``compute_sim_matrix`` (bit-equal to the task's; a second warm
+    wall-clock); the image and caption branches timed alone; the ITM rows
+    of one image batch (as compute_sim_matrix makes them) under the
+    profiler: device ms an ITM call; R@1/5/10 both ways exactly 10/50/100
+    against a ground truth taken from the warm scores' own order (image
+    i's caption at rank i mod 10, caption t's image at rank t mod 10);
+    every shape launched one that phase 3 held.  Returns (launches by
+    phase, readings with the full test splits extrapolated: at the ITM
+    call's device time, and at its two wall-clocks)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.models.blip2_qformer import (
+        compute_sim_matrix,
+    )
+    from vlm_compression_tpu_torch.models.factory import build_model
+    from vlm_compression_tpu_torch.tasks.retrieval import RetrievalTask
+
+    t0 = time.perf_counter()
+    model = build_model(RETRIEVAL_MODEL, seed=RETRIEVAL_SEED)
+    cfg = model.cfg
+    img = cfg.vit.img_size
+    g = torch.Generator(device="cuda").manual_seed(42 + RETRIEVAL_SEED)
+    calib = [{"image": torch.randn(BS, img, img, 3, generator=g,
+                                   device="cuda")}
+             for _ in range(N_CALIB // BS)]
+    images = torch.randn(N_RET_IMAGES, img, img, 3, generator=g,
+                         device="cuda")
+    text = retrieval_captions(N_RET_IMAGES * RET_PER_IMAGE,
+                              random.Random(RETRIEVAL_SEED), *RET_WORDS)
+    batch = RETRIEVAL_RUN["batch_size_eval"]
+    loader = RetrievalLoader(images, text, RET_PER_IMAGE, batch)
+    # the Q-Former's own vocabulary (torch raises on ids past it)
+    tok = SimpleTokenizer(cfg.qformer.vocab_size)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model: stage-1 BLIP-2 Q-Former ({RETRIEVAL_MODEL}), "
+        f"{n_params / 1e9:.3f} B params (ViT bf16, Q-Former and heads "
+        f"fp32), random init + data {time.perf_counter() - t0:.1f} s; "
+        f"cuts: {N_RET_IMAGES} images and {len(text)} captions (the test "
+        f"splits: {json.dumps(RET_FULL)}), depth {cfg.vit.depth}/"
+        f"{cfg.qformer.num_layers}")
+    rec = new_record()
+    counts, shapes, secs, peaks = (rec[k] for k in ("counts", "shapes",
+                                                    "secs", "peaks"))
+    run_phase(rec, "retrieval_prune", lambda: load_pruner(
+        "vit_wanda_pruner", model.visual_encoder, calib,
+        vit_prune_spec=f"{cfg.vit.depth}-0.5-1.0-1.0",
+        num_samples=N_CALIB).prune(lora_model=True))
+    del calib
+    (dens, n_lin), = tower_density(model, towers=("visual_encoder",)
+                                   ).values()
+    log(f"  retrieval prune (vit_wanda_pruner, lora_model=True): "
+        f"{secs['retrieval_prune']:.2f} s, peak "
+        f"{peaks['retrieval_prune'] / 2**30:.2f} GiB; ViT density "
+        f"{dens:.4f} over {n_lin} linears")
+    if abs(dens - 0.5) > 0.01 or n_lin != cfg.vit.depth * 4:
+        raise AssertionError(f"retrieval prune: density {dens} over {n_lin}")
+
+    task = RetrievalTask.setup_task(dict(run=RETRIEVAL_RUN), tokenizer=tok)
+    k = task.k_test
+    cold = run_phase(rec, "retrieval_cold",
+                     lambda: task.evaluation(model, loader))
+    warm = run_phase(rec, "retrieval_warm",
+                     lambda: task.evaluation(model, loader))
+    itc = run_phase(rec, "retrieval_itc", lambda: RetrievalTask(
+        k_test=0, tokenizer=tok).evaluation(model, loader))
+    keys = ("score_i2t", "score_t2i")
+    same = all(np.array_equal(cold[x], warm[x]) for x in keys)
+    symmetric = np.array_equal(itc["score_i2t"], itc["score_t2i"].T)
+    moved = {x: warm[x] != itc[x] for x in keys}
+    topk = {x: all(set(np.flatnonzero(m).tolist())
+                   == set(np.argsort(-row)[:k].tolist())
+                   for m, row in zip(moved[x], itc[x])) for x in keys}
+    per_row = {x: sorted(set(moved[x].sum(1).tolist())) for x in keys}
+    want_rows = {x: [min(k, itc[x].shape[1])] for x in keys}
+    log(f"  retrieval task (k_test {k}, batch_size_eval {batch}): "
+        f"{N_RET_IMAGES} images x {len(text)} captions, cold "
+        f"{secs['retrieval_cold']:.3f} s, warm {secs['retrieval_warm']:.3f} "
+        f"s, peak {peaks['retrieval_warm'] / 2**30:.2f} GiB; cold == warm "
+        f"{same}; at k_test 0: {secs['retrieval_itc']:.3f} s, score_i2t == "
+        f"score_t2i.T {symmetric}; entries the rerank moved per row "
+        f"{json.dumps(per_row)} (want {json.dumps(want_rows)}), each row's "
+        f"ITC top-k {json.dumps(topk)}")
+    if not (same and symmetric and per_row == want_rows
+            and all(topk.values())):
+        raise AssertionError("retrieval task: cold vs warm, the ITC pass or "
+                             "the rerank")
+
+    ids, mask = batch_encode(tok, text, task.max_txt_len)
+    ids_d, mask_d = (torch.from_numpy(x).cuda() for x in (ids, mask))
+
+    @torch.no_grad()
+    def image_branch():
+        for b in loader:
+            model.forward_image(b["image"])
+
+    @torch.no_grad()
+    def caption_branch():
+        for s in range(0, len(text), 256):
+            model.forward_text(ids_d[s:s + 256], mask_d[s:s + 256])
+
+    run_phase(rec, "retrieval_images", image_branch)
+    run_phase(rec, "retrieval_captions", caption_branch)
+    direct = run_phase(rec, "retrieval_direct", lambda: compute_sim_matrix(
+        model, (b["image"] for b in loader), ids, mask, k_test=k))
+    as_task = all(np.array_equal(d, warm[x]) for d, x in zip(direct, keys))
+    log(f"  retrieval: captions padded to {ids.shape[1]} tokens; a direct "
+        f"compute_sim_matrix {secs['retrieval_direct']:.3f} s, equal to the "
+        f"task's {as_task}")
+    if not as_task or ids.shape[1] != min(task.max_txt_len, RET_WORDS[1]):
+        raise AssertionError("retrieval: the task's scores differ from a "
+                             "direct compute_sim_matrix's")
+
+    # the ITM rows of one image batch under the profiler, as
+    # compute_sim_matrix makes them (the ITC top-k captions of each image
+    # at b = k): device time an ITM call
+    first = next(iter(loader))["image"]
+    top = torch.from_numpy(np.stack([
+        np.argsort(-row)[:k] for row in itc["score_i2t"][:len(first)]]))
+    top = top.cuda()
+    with torch.no_grad():
+        embeds = model.image_embeds(first)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i, t in enumerate(top):
+                model.itm_logits(embeds[i:i + 1].expand(k, -1, -1),
+                                 ids_d[t], mask_d[t])
+            torch.cuda.synchronize()
+    n_itm = N_RET_IMAGES + len(text)
+    itm_ms = {x: 1e3 * (secs[x] - secs["retrieval_itc"]) / n_itm
+              for x in ("retrieval_warm", "retrieval_direct")}
+    dev_ms, _ = device_breakdown(
+        prof, len(top) * itm_ms["retrieval_warm"],
+        f"retrieval: {len(top)} ITM calls at b = {k} (the wall: the warm "
+        f"pass's ms a call)")
+    itm_dev_ms = dev_ms / len(top)
+    del prof, embeds
+
+    # R@k at a closed form: the ground truth read off the warm scores in
+    # itm_eval's own order
+    gt = dict(warm, img2txt={
+        i: [int(np.argsort(row)[::-1][i % 10])]
+        for i, row in enumerate(warm["score_i2t"])},
+        txt2img=[int(np.argsort(row)[::-1][t % 10])
+                 for t, row in enumerate(warm["score_t2i"])])
+    with tempfile.TemporaryDirectory(prefix="retrieval_") as tmp:
+        flickr = task.after_evaluation(
+            cold, result_dir=os.path.join(tmp, "flickr", "result"))
+        closed = task.after_evaluation(
+            gt, result_dir=os.path.join(tmp, "closed", "result"))
+        with open(os.path.join(tmp, "closed", "evaluate.txt")) as fh:
+            logged = json.loads(fh.read())
+    want = {f"{d}_r{r}": v for d in ("txt", "img")
+            for r, v in ((1, 10.0), (5, 50.0), (10, 100.0))}
+    log(f"  retrieval metrics: against the 5-captions-an-image ground truth "
+        f"{json.dumps(flickr)}; against the closed-form ground truth "
+        f"{json.dumps(closed)} (want {json.dumps(want)})")
+    if any(closed[x] != v for x, v in want.items()) \
+            or logged != {"test": closed}:
+        raise AssertionError(f"retrieval metrics {closed}")
+    log(f"  launches: {json.dumps(counts)}")
+    check_phase_counts(counts)
+    check_shapes(shapes, "retrieval")
+
+    img_rate = N_RET_IMAGES / secs["retrieval_images"]
+    cap_rate = len(text) / secs["retrieval_captions"]
+    walls = sorted(itm_ms.values())
+
+    def extrapolate(ms):
+        return {name: ni / img_rate + nt / cap_rate + (ni + nt) * ms / 1e3
+                for name, (ni, nt) in RET_FULL.items()}
+
+    full, lo, hi = (extrapolate(x) for x in (itm_dev_ms, *walls))
+    at_walls = {x: [round(lo[x], 1), round(hi[x], 1)] for x in full}
+    log(f"  retrieval readings: ITC pass {secs['retrieval_itc']:.3f} s; "
+        f"{n_itm} ITM calls at b = {k}: {itm_dev_ms:.3f} ms of device time a "
+        f"call, {itm_ms['retrieval_warm']:.3f} ms of wall in the warm pass "
+        f"and {itm_ms['retrieval_direct']:.3f} in the direct call (the "
+        f"rerank {100 * itm_dev_ms / walls[1]:.1f}-"
+        f"{100 * itm_dev_ms / walls[0]:.1f} % busy); "
+        f"{N_RET_IMAGES / secs['retrieval_warm']:.1f} images/s and "
+        f"{len(text) / secs['retrieval_warm']:.1f} captions/s end to end "
+        f"(warm); the image branch {img_rate:.1f} images/s, the caption "
+        f"branch {cap_rate:.1f} captions/s; extrapolated passes (s) at the "
+        f"ITM call's device time "
+        f"{json.dumps({x: round(v, 1) for x, v in full.items()})}, at its "
+        f"walls {json.dumps(at_walls)}")
+    del model, images, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {
+        "retrieval_prune_s": secs["retrieval_prune"],
+        "retrieval_cold_s": secs["retrieval_cold"],
+        "retrieval_warm_s": secs["retrieval_warm"],
+        "retrieval_direct_s": secs["retrieval_direct"],
+        "retrieval_itc_s": secs["retrieval_itc"],
+        "retrieval_itm_ms": itm_ms["retrieval_warm"],
+        "retrieval_itm_ms_direct": itm_ms["retrieval_direct"],
+        "retrieval_itm_device_ms": itm_dev_ms,
+        "retrieval_images_per_s": N_RET_IMAGES / secs["retrieval_warm"],
+        "retrieval_captions_per_s": len(text) / secs["retrieval_warm"],
+        "retrieval_image_branch_per_s": img_rate,
+        "retrieval_caption_branch_per_s": cap_rate,
+        "retrieval_peak_bytes": peaks["retrieval_warm"],
+        **{f"retrieval_{x}_s": v for x, v in full.items()},
+        **{f"retrieval_{x}_wall_s": [lo[x], hi[x]] for x in full}}
+
+
 def profile_first_order(e2e):
     """The first-order path's two gradient phases again under
     torch.profiler (device activity only) on a fresh seed-2 model: the
@@ -3786,12 +4355,24 @@ def profile_first_order(e2e):
     torch.cuda.empty_cache()
 
 
+# the cut that keeps the command under 900 s: the grid path's DSnoT prune
+# is profiled at a third of its depth (ViT, T5 encoder, T5 decoder blocks;
+# every width as at full depth), timed unprofiled at that depth.  The
+# zeroth scoring and aobd stay at full depth: their walls are mostly
+# per-call host work that the cut hardly shortens while it cuts their
+# device time, so their busy shares would fall (on one H100 the zeroth
+# scoring 4.5 s at the cut against 5.2 s at full depth, aobd 2.45 s
+# against 3.48 s); the global magnitude prune takes 1.4 s at full depth
+GRID_PROFILED_DEPTH = (13, 8, 8)
+
+
 def profile_grid(e2e):
     """The grid path's prunes once more under torch.profiler (device
-    activity only) on a fresh seed-3 model, each against its unprofiled
-    wall-clock: the zeroth entry's scoring of its first N_PROFILED keys at
-    batch 1 (timed unprofiled just before), the DSnoT prune, the aobd
-    prune and the global magnitude prune."""
+    activity only) on fresh seed-3 models: at full depth the zeroth
+    entry's scoring of its first N_PROFILED keys at batch 1 (timed
+    unprofiled just before), the aobd prune and the global magnitude
+    prune (against the grid path's walls); the DSnoT prune at
+    GRID_PROFILED_DEPTH, timed unprofiled at that depth just before."""
     from torch.profiler import ProfilerActivity, profile
 
     from vlm_compression_tpu_torch.compression import allocator as AL
@@ -3809,6 +4390,12 @@ def profile_grid(e2e):
                                                         "cuda"))
         torch.cuda.synchronize()
 
+    @torch.no_grad()
+    def drop_masks():
+        for k in AL.select_prunable_keys(model,
+                                         ("visual_encoder", "t5_model")):
+            set_mask(model.get_submodule(".".join(k)), None)
+
     score()     # warm: the first forwards at batch 1 of this model
     t0 = time.perf_counter()
     score()
@@ -3819,19 +4406,34 @@ def profile_grid(e2e):
         prof, 1e3 * wall, f"zeroth scoring, {N_PROFILED} keys "
         f"({2 * N_PROFILED} batch-1 forwards)")
     e2e["zeroth_score_busy"] = total / (1e3 * wall)
-    for label, name, kw in (("dsnot_prune", "blipt5_dsnot_pruner", {}),
-                            ("aobd_prune", "blipt5_aobd_pruner", {}),
+    for label, name, kw in (("aobd_prune", "blipt5_aobd_pruner", {}),
                             ("mag_global", "blipt5_mag_pruner",
                              dict(is_global=True))):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_prune(model, batches, name, **kw)
         total, _ = device_breakdown(prof, 1e3 * e2e[f"{label}_s"], label)
         e2e[f"{label}_busy"] = total / (1e3 * e2e[f"{label}_s"])
-        # DSnoT keeps the kernels: drop its masks before the next prune
-        with torch.no_grad():
-            for k in keys:
-                set_mask(model.get_submodule(".".join(k)), None)
+        drop_masks()
     del model, batches, sample
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the cut; DSnoT keeps the kernels, so the second prune starts from
+    # the same dense weights
+    _, model, batches, _ = xl_setup(seed=3, lora=False,
+                                    depth=GRID_PROFILED_DEPTH)
+    t0 = time.perf_counter()
+    run_prune(model, batches, "blipt5_dsnot_pruner")
+    wall = time.perf_counter() - t0
+    drop_masks()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_prune(model, batches, "blipt5_dsnot_pruner")
+    total, _ = device_breakdown(
+        prof, 1e3 * wall, f"dsnot_prune at depth "
+        f"{'/'.join(map(str, GRID_PROFILED_DEPTH))} (at full depth "
+        f"{e2e['dsnot_prune_s']:.2f} s)")
+    e2e["dsnot_prune_busy"] = total / (1e3 * wall)
+    del model, batches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4045,7 +4647,9 @@ def profile_sparsegpt_prune(e2e):
     del model, batches
     gc.collect()
     torch.cuda.empty_cache()
-    device_breakdown(prof, 1e3 * e2e["sparsegpt_prune_s"], "sparsegpt prune")
+    total, _ = device_breakdown(prof, 1e3 * e2e["sparsegpt_prune_s"],
+                                "sparsegpt prune")
+    e2e["sparsegpt_busy"] = total / (1e3 * e2e["sparsegpt_prune_s"])
 
 
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -4480,6 +5084,7 @@ def main() -> int:
     tiny_gradient_scoring_check()
     tiny_grid_pruners_check()
     tiny_vicuna_check()
+    tiny_retrieval_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -4524,11 +5129,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[vicuna path] InstructBLIP-Vicuna-7B: Wanda prune (ViT and "
         "llm_model), beam-5 generate, GQA and OK-VQA through the tasks, "
-        "RESSA retrain, merge, beam-5 generate")
+        "RESSA retrain, merge, beam-5 generate; rebuilt dense: the DSnoT "
+        "grid entry, beam-5 generate")
     v_counts, v_e2e = vicuna_path()
     phase_done("vicuna path")
     counts.update(v_counts)
     e2e.update(v_e2e)
+    log("[retrieval path] the stage-1 BLIP-2 Q-Former: ViT Wanda prune, "
+        "Flickr30k retrieval through the task (ITC ranking + ITM rerank at "
+        "k_test 128), cold and warm")
+    r_counts, r_e2e = retrieval_path()
+    phase_done("retrieval path")
+    counts.update(r_counts)
+    e2e.update(r_e2e)
     log("[profile] the main path, the SparseGPT prune, the first-order "
         "path's gradient phases and the grid path's prunes again under "
         "torch.profiler")

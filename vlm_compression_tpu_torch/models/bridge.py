@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vlm_compression_tpu_torch.models.blip2_qformer import TEMP_INIT
 from vlm_compression_tpu_torch.models.layers import (
     SparseLinear,
     init_lora_,
@@ -119,7 +120,7 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
                  ) -> nn.Module:
     """Seeded random weights in place, on the model's own device: N(0, std)
     for kernels, embeddings and tokens; ones for norm scales; zeros for
-    biases.  Base parameters are drawn in name order from one generator;
+    biases; the stage-1 Q-Former's ``temp`` at its init, 0.07.  Base parameters are drawn in name order from one generator;
     LoRA adapters (A he-uniform, B zeros) from a second one, so a model
     with adapters draws the same base weights as one without."""
     gen = None
@@ -131,6 +132,8 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             p.fill_(1.0)
+        elif leaf == "temp":
+            p.fill_(TEMP_INIT)
         elif leaf in ("bias", "q_bias", "v_bias"):
             p.zero_()
         else:

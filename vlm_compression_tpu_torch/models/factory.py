@@ -1,13 +1,16 @@
-"""Model factory: model config → composed InstructBLIP-T5 or
-InstructBLIP-Vicuna (port of the ``blip2_t5_instruct`` and
-``blip2_vicuna_instruct`` branches of
-``vlm_compression_tpu/models/factory.py``).
+"""Model factory: model config → composed InstructBLIP-T5,
+InstructBLIP-Vicuna or the stage-1 BLIP-2 Q-Former (port of the
+``blip2_t5_instruct`` and ``blip2_vicuna_instruct`` branches of
+``vlm_compression_tpu/models/factory.py`` and of its ``blip2``,
+``blip2_feature_extractor`` and ``blip2_image_text_matching`` archs).
 
 LoRA ranks per tower follow the reference's ``tune_opt`` selector and
 ``lora_r_v/l/q`` flags: a tower gets its rank only when its letter is in
-``tune_opt`` (V = vision, L = language, Q = Q-Former).  The other
-compositions and the JAX factory's remat and KV-cache knobs are not ported
-yet and raise.
+``tune_opt`` (V = vision, L = language, Q = Q-Former); the stage-1 archs
+take none, and every ``model_type`` (``pretrain``, ``coco``, …) gives the
+one full-width config, as in the JAX package.  Still raising: the OPT
+composition and the legacy zoo (ROADMAP queue 1, items 8 and 11), and the
+JAX factory's remat and KV-cache knobs.
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ from typing import Tuple, Union
 from torch import nn
 
 from vlm_compression_tpu_torch.common.device import DeviceLike
+from vlm_compression_tpu_torch.models.blip2_qformer import (
+    Blip2ITM,
+    Blip2Qformer,
+    Blip2QformerConfig,
+)
 from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
     Blip2T5Instruct,
     Blip2T5InstructConfig,
@@ -65,8 +73,11 @@ def apply_dtype_policy(cfg, amp: bool):
 
 
 _MODELS = {"blip2_t5_instruct": Blip2T5Instruct,
-           "blip2_vicuna_instruct": Blip2VicunaInstruct}
-Config = Union[Blip2T5InstructConfig, Blip2VicunaInstructConfig]
+           "blip2_vicuna_instruct": Blip2VicunaInstruct,
+           "blip2": Blip2Qformer, "blip2_feature_extractor": Blip2Qformer,
+           "blip2_image_text_matching": Blip2ITM}
+Config = Union[Blip2T5InstructConfig, Blip2VicunaInstructConfig,
+               Blip2QformerConfig]
 
 
 def build_model_config(model_cfg) -> Tuple[str, Config]:
@@ -85,7 +96,9 @@ def build_model_config(model_cfg) -> Tuple[str, Config]:
     r_q = int(_get(model_cfg, "lora_r_q", 0)) if "Q" in tune_opt else 0
     alpha = float(_get(model_cfg, "lora_alpha", 16.0))
     tiny = bool(_get(model_cfg, "tiny", False))
-    if arch == "blip2_vicuna_instruct":
+    if issubclass(_MODELS[arch], Blip2Qformer):
+        cfg = Blip2QformerConfig.tiny() if tiny else Blip2QformerConfig()
+    elif arch == "blip2_vicuna_instruct":
         if tiny:
             cfg = Blip2VicunaInstructConfig(
                 vit=EvaViTConfig.tiny(lora_rank=r_v, lora_alpha=alpha),

@@ -179,6 +179,58 @@ class QFormer(nn.Module):
             x = q
         return self.emb_ln(x).to(_dt(cfg.dtype))
 
+    def embed_text_only(self, text_ids):
+        """Text embeddings without the query tokens (the stage-1 ITC text
+        branch)."""
+        te = self.word_embeddings(text_ids)
+        pos = self.position_embeddings(
+            torch.arange(text_ids.shape[1], device=text_ids.device))
+        x = (te + pos[None]).float()
+        return self.emb_ln(x).to(_dt(self.cfg.dtype))
+
+    def forward_text(self, text_ids, text_mask=None, causal: bool = False,
+                     mode: str = "masked"):
+        """Text-only encoder pass (query_length 0: no cross-attention, no
+        query FFN)."""
+        x = self.embed_text_only(text_ids)
+        b, n = x.shape[:2]
+        if text_mask is not None:
+            m = text_mask[:, None, None, :].bool()
+        else:
+            m = torch.ones((b, 1, 1, n), dtype=torch.bool, device=x.device)
+        if causal:
+            i = torch.arange(n, device=x.device)
+            m = m & (i[None, :] <= i[:, None])[None, None]
+        for name in self.layer_names:
+            x = getattr(self, name)(x, m, None, None, 0, mode=mode)
+        return x
+
+    def forward_multimodal(self, image_embeds, text_ids, text_mask=None,
+                           causal_text: bool = False, mode: str = "masked"):
+        """[queries ⊕ text] with image cross-attention.  ``causal_text``
+        gives the stage-1 LM pattern ``(j < ql) | (j <= i)``: queries see
+        each other, text sees the queries and its own past."""
+        cfg = self.cfg
+        x = self.embed(text_ids)
+        b = image_embeds.shape[0]
+        if x.shape[0] == 1 and b > 1:
+            x = x.expand((b,) + tuple(x.shape[1:]))
+        ql = cfg.num_query_tokens
+        n = x.shape[1]
+        tmask = (text_mask if text_mask is not None else
+                 torch.ones((b, n - ql), dtype=torch.int32, device=x.device))
+        valid = torch.cat([torch.ones((b, ql), dtype=tmask.dtype,
+                                      device=tmask.device), tmask], dim=1)
+        m = valid[:, None, None, :].bool()
+        if causal_text:
+            i = torch.arange(n, device=x.device)[:, None]
+            j = torch.arange(n, device=x.device)[None, :]
+            m = m & ((j < ql) | (j <= i))[None, None]
+        img = image_embeds.to(x.dtype)
+        for name in self.layer_names:
+            x = getattr(self, name)(x, m, img, None, ql, mode=mode)
+        return x
+
     def forward(self, image_embeds, text_ids=None, text_mask=None,
                 mode: str = "masked"):
         cfg = self.cfg
