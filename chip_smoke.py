@@ -215,7 +215,23 @@ each of which fails the run (non-zero exit, no result line) on error:
                 device ms, and its wall ms in the warm pass and the direct
                 call, with the image and caption branches' rates,
                 extrapolated to the Flickr30k and COCO 5k test splits;
- 11. profile  — the main path once more under torch.profiler (prune,
+ 11. cli path — the launcher's T5 grid point ``prune_and_eval("wanda",
+                0.5, 0.5)`` (scripts/launch_lib.py:41-84) through the port's
+                own ``cli.evaluate`` (argv composed here, calls made in this
+                process) on full-width InstructBLIP-FlanT5-XL (seed 6): the
+                prune call on prune_stage2_t5_instruct.yaml over 128
+                synthetic 256 × 320 .npy images with a caption each
+                (``blip2_image_train``, batch 1, the checkpoint saved with
+                ``torch.save``), then the GQA instruct eval call on that
+                checkpoint over 64 synthetic questions (batch 64, beam 5);
+                the restored weights equal to the pruned ones tensor for
+                tensor, each tower 0.5 ± 0.01, GQA exactly 50.00 in
+                ``eval_stats``, the answers equal to a direct
+                ``generate_t5``'s, no linear kernel launched (no masks),
+                every shape held in phase 3, data and checkpoint deleted;
+                each call's phases timed (build, calibration, prune, save,
+                load, eval), the checkpoint's size, the peaks;
+ 12. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune, the
                 first-order path's Fisher (its attention backward's device
                 time a sample) and EcoFLaP prune, and the grid path's
@@ -224,7 +240,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 at 13/8/8 of its 39/24/24 blocks, timed unprofiled at
                 that depth first) its DSnoT prune: device time by kernel
                 group against each phase's unprofiled wall-clock;
- 12. timing   — kernel, plain-version and library-call times (CUDA events,
+ 13. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
@@ -497,6 +513,20 @@ FLASH_SHAPES = [
     ("qformer_itm_self_b128", 128, 67, 67, 12, 64, ["pad"], 0.125),
     ("qformer_itm_cross_b128", 128, 32, 257, 12, 64, [], 0.125),
 ]
+# the CLI path (cli_path): the launcher's --prune_batch_size 1 over
+# captions of CLI_WORDS words (a token a word).  Prompts of several lengths
+# do not fuse, so the Q-Former's self-attention and the T5 encoder run at
+# b = 1 over 32 query tokens + L, the decoder over the L + 1 label tokens
+# (the caption and EOS); the ViT stems fuse (vit_self_calib), the
+# Q-Former's cross-attention is qformer_cross_b1, and the GQA eval call
+# runs vqa_path's shapes.  cli_path fails if it launches a shape not listed
+CLI_WORDS = range(8, 13)
+FLASH_SHAPES += [shape for n in CLI_WORDS for shape in (
+    (f"qformer_self_cli{n}", 1, 32 + n, 32 + n, 12, 64, ["pad"], 0.125),
+    (f"t5_encoder_cli{n}", 1, 32 + n, 32 + n, 32, 64, ["rel", "pad"], 1.0),
+    (f"t5_decoder_self_cli{n}", 1, n + 1, n + 1, 32, 64, ["rel", "pad"],
+     1.0),
+    (f"t5_decoder_cross_cli{n}", 1, n + 1, 32 + n, 32, 64, ["pad"], 1.0))]
 FLASH_TIMED = "vit_self_calib"
 # the Vicuna path (vicuna_path): LLaMA's self-attention, 32 heads of
 # d = 128 (the mma.sync kernel: plan_forward sends TMA + wgmma only
@@ -1995,6 +2025,16 @@ PHASE_FORBIDDEN.update(
     aobd_prune=("flash_attention_bwd_dbias", BWD_DBIAS, "masked_matmul",
                 WMMA_LOOP),
     zeroth_prune=BACKWARD)
+# the CLI path: prune(lora_model=False) zeroes the weights and keeps no
+# mask, so every linear of both calls and of the direct generates is a
+# plain product (no matmul kernel of the port); attention on TMA + wgmma;
+# no backward
+CLI_PHASES = ("cli_prune", "cli_truth", "cli_eval", "cli_direct")
+for _phase in CLI_PHASES:
+    PHASE_KERNELS[_phase] = ("flash_attention", FWD_WGMMA)
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (
+        "masked_matmul", "masked_matmul_packed", "int8_matmul",
+        "sparse_lora_matmul", DECODE, WGMMA_LOOP, WMMA_LOOP)
 # every generate phase runs its prefill on the Hopper loop and its decode
 # steps on the decode kernel, every VQA and caption phase all its matmuls
 # on the Hopper loop: no WMMA-loop launch at all
@@ -2316,6 +2356,15 @@ VQA_WORDS = dict(
             "wood", "grass", "snow", "kitchen", "street", "water"])
 
 
+def vqa_questions(n: int, seed: int = VQA_RUN["seed"]) -> list:
+    """n seeded synthetic questions, as a VQA annotation holds them."""
+    rng = random.Random(seed)
+    w = VQA_WORDS
+    return [f"{rng.choice(w['ask'])} {rng.choice(w['noun'])} "
+            f"{rng.choice(w['rel'])} {rng.choice(w['noun'])}?"
+            for _ in range(n)]
+
+
 def vqa_samples(cfg, n: int, seed: int = VQA_RUN["seed"]) -> dict:
     """One collated eval batch of n synthetic questions (cleaned by the
     yamls' ``blip_question`` text processor) on seeded 224² images."""
@@ -2323,12 +2372,7 @@ def vqa_samples(cfg, n: int, seed: int = VQA_RUN["seed"]) -> dict:
         BlipQuestionProcessor,
     )
 
-    rng = random.Random(seed)
-    w = VQA_WORDS
-    clean = BlipQuestionProcessor()
-    questions = [clean(f"{rng.choice(w['ask'])} {rng.choice(w['noun'])} "
-                       f"{rng.choice(w['rel'])} {rng.choice(w['noun'])}?")
-                 for _ in range(n)]
+    questions = list(map(BlipQuestionProcessor(), vqa_questions(n, seed)))
     g = torch.Generator(device="cuda").manual_seed(seed)
     img = cfg.vit.img_size
     return {"image": torch.randn(n, img, img, 3, generator=g, device="cuda"),
@@ -2409,6 +2453,37 @@ def check_shapes(shapes: dict, what: str):
                              f"version: {missing}")
 
 
+def direct_vqa_answers(model, samples) -> tuple:
+    """A direct ``generate_t5`` over a collated VQA batch (images as an
+    array or a tensor) at the eval yamls' settings, encoded and decoded by
+    hand as the task does: (answers, token rows)."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+        generate_t5,
+    )
+    from vlm_compression_tpu_torch.models.generation import GenerationConfig
+
+    dev = next(model.parameters()).device
+    tok = SimpleTokenizer(model.cfg.t5.vocab_size)
+    qtok = SimpleTokenizer(model.cfg.qformer.vocab_size)
+    prompts = [VQA_PROMPT.format(q) for q in samples["text_input"]]
+    enc = [torch.from_numpy(a).to(dev) for a in (
+        *batch_encode(tok, prompts, 128), *batch_encode(qtok, prompts, 128))]
+    image = torch.as_tensor(samples["image"], device=dev)
+    seqs = generate_t5(model, image, *enc, gen_cfg=GenerationConfig(
+        num_beams=VQA_RUN["num_beams"], max_length=VQA_RUN["max_len"] + 1,
+        min_length=VQA_RUN["min_len"])).cpu()
+    out = []
+    for row in seqs[:, 1:].tolist():
+        row = row[:row.index(tok.eos_token_id)] \
+            if tok.eos_token_id in row else row
+        out.append(tok.decode(row).strip())
+    return out, seqs
+
+
 def vqa_path(model, cfg):
     """The zero-shot VQA evaluation of the merged model through the tasks'
     entry points (``setup_task``, ``evaluation`` → ``valid_step``,
@@ -2426,13 +2501,9 @@ def vqa_path(model, cfg):
     numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vlm_compression_tpu_torch.datasets.tokenization import (
-        batch_encode,
-        batch_labels,
-    )
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_labels
     from vlm_compression_tpu_torch.evaluation.lemmatize import lemmatize
     from vlm_compression_tpu_torch.models import blip2_t5_instruct as BT
-    from vlm_compression_tpu_torch.models.generation import GenerationConfig
     from vlm_compression_tpu_torch.tasks.vqa import GQATask, VQATask
 
     n = VQA_RUN["batch_size_eval"]
@@ -2500,20 +2571,7 @@ def vqa_path(model, cfg):
 
         # --- the task adds no drift: a direct generate_t5 on the same
         # encoded inputs, decoded by hand
-        prompts = [VQA_PROMPT.format(q) for q in samples["text_input"]]
-        enc = [torch.from_numpy(a).cuda() for a in (
-            *batch_encode(tok, prompts, 128),
-            *batch_encode(toks["qformer_tokenizer"], prompts, 128))]
-        seqs = BT.generate_t5(model, samples["image"], *enc,
-                           gen_cfg=GenerationConfig(
-                               num_beams=beams,
-                               max_length=VQA_RUN["max_len"] + 1,
-                               min_length=VQA_RUN["min_len"])).cpu()
-        direct = []
-        for row in seqs[:, 1:].tolist():
-            row = row[:row.index(tok.eos_token_id)] \
-                if tok.eos_token_id in row else row
-            direct.append(tok.decode(row).strip())
+        direct, seqs = direct_vqa_answers(model, samples)
         if tuple(seqs.shape) != (n, VQA_RUN["max_len"] + 1) \
                 or direct != answers:
             raise AssertionError("the GQA task's answers differ from a "
@@ -4314,6 +4372,235 @@ def retrieval_path() -> tuple:
         **{f"retrieval_{x}_wall_s": [lo[x], hi[x]] for x in full}}
 
 
+# the launcher's T5 grid point prune_and_eval("wanda", 0.5, 0.5)
+# (scripts/launch_lib.py:41-84), composed for the port's CLI: its job id,
+# specs, score method and granularity; --prune_batch_size and
+# --num_data_for_prune at the CLI's defaults (1 and 128), as the launcher
+# leaves them.  --seed 6 for the prune call's random init, 7 for the eval
+# call's (which the checkpoint must overwrite whole)
+CLI_SEED = 6
+CLI_JOB = "prune-xl-wanda_0.5_0.5"
+CLI_EVAL = "gqa_zeroshot_flant5xl_instruct_eval"
+CLI_N_CALIB = 128
+CLI_IMAGE = (256, 320)      # H × W, not square: the train crop resamples
+CLI_N_GQA = 64              # one batch of the GQA yaml's batch_size_eval
+CLI_TOWERS = ("visual_encoder", "t5_model.encoder", "t5_model.decoder")
+
+
+def cli_data(root: str) -> tuple:
+    """Seeded synthetic data under ``root``: CLI_N_CALIB uint8 images of
+    CLI_IMAGE saved as .npy, each with one caption of CLI_WORDS words (the
+    lengths in turn; CC3M's captions run about 10 words), and CLI_N_GQA
+    more with vqa_path's questions.  Returns (the caption annotation file,
+    the GQA one, the image root, the GQA annotations)."""
+    import numpy as np
+
+    rng = np.random.default_rng(CLI_SEED)
+    wrng = random.Random(CLI_SEED)
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    words = [w for group in ("noun", "rel", "answer")
+             for phrase in VQA_WORDS[group] for w in phrase.split()]
+
+    def image(name):
+        np.save(os.path.join(images, name), rng.integers(
+            0, 256, CLI_IMAGE + (3,), dtype=np.uint8))
+        return name
+
+    caps = [{"image": image(f"cc3m_{i}.npy"), "caption": " ".join(
+        wrng.choice(words) for _ in range(CLI_WORDS[i % len(CLI_WORDS)]))}
+        for i in range(CLI_N_CALIB)]
+    gqa = [{"image": image(f"gqa_{i}.npy"), "question": q,
+            "question_id": i, "answer": [NEVER]}
+           for i, q in enumerate(vqa_questions(CLI_N_GQA))]
+    paths = []
+    for name, anns in (("cc3m_train.json", caps), ("gqa_val.json", gqa)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            json.dump(anns, f)
+    return paths[0], paths[1], images, gqa
+
+
+def cli_densities(model) -> dict:
+    """Each pruned tower's share of non-zero weights over its blocks'
+    linears (no masks: the CLI's prune zeroes the weights)."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    out = {}
+    for tower in CLI_TOWERS:
+        kept = total = n = 0
+        for name, m in model.named_modules():
+            if isinstance(m, SparseLinear) and \
+                    name.startswith(tower + ".blocks_"):
+                kept += int(m.kernel.count_nonzero())
+                total += m.kernel.numel()
+                n += 1
+        out[tower] = (kept / total, n)
+    return out
+
+
+def cli_path() -> tuple:
+    """The launcher's T5 grid point through the port's own CLI
+    (``cli.evaluate.run`` on argv composed as scripts/launch_lib.py:41-84
+    composes it, in this process), on full-width InstructBLIP-FlanT5-XL
+    (seed 6) and seeded synthetic data: the prune call
+    (prune_stage2_t5_instruct.yaml, ``blipt5_wanda_pruner``, specs
+    39/24-0.5, 128 captioned 256 × 320 .npy images through
+    ``blip2_image_train`` at batch 1, ``prune(lora_model=False)``, the
+    state dict saved), a direct ``generate_t5`` of the pruned model over
+    the 64 GQA questions (each even question's answer becomes its ground
+    truth, the odd ones' is unreachable), then the eval call (the GQA
+    instruct yaml, ``--pruned_checkpoint``).  Gates: the restored model
+    equal to the pruned one tensor for tensor (``torch.equal``: the saved
+    state dict round trip); each tower 0.5 ± 0.01 non-zero in the restored
+    weights; GQA exactly 50.00 in ``eval_stats_<job>.json``; the eval
+    call's answers equal to a direct ``generate_t5`` of the restored
+    model; no linear kernel (no masks), attention on TMA + wgmma, every
+    shape one phase 3 held; the checkpoint and the data deleted.  Returns
+    (launches by phase, readings)."""
+    import shutil
+
+    from vlm_compression_tpu_torch.cli import evaluate as E
+    from vlm_compression_tpu_torch.common.config import Config
+    from vlm_compression_tpu_torch.datasets.builders import load_builder
+    from vlm_compression_tpu_torch.models.model_zoo import (
+        default_config_path,
+    )
+
+    rec = new_record()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="cli_path_")
+    try:
+        t0 = time.perf_counter()
+        cap_ann, gqa_ann, images, gqa = cli_data(root)
+        data_s = time.perf_counter() - t0
+        out = os.path.join(root, "output")
+        cc3m = "datasets.prefix_conceptual_caption_3m.build_info"
+        prune_argv = [
+            "--cfg-path", os.path.join(
+                repo, "configs/projects/eval/prune_stage2_t5_instruct.yaml"),
+            "--prune", "--pruning_method", "blipt5_wanda_pruner",
+            "--save_pruned_model", "--t5_prune_spec", "24-0.5-1.0-1.0",
+            "--vit_prune_spec", "39-0.5-1.0-1.0", "--prune_n", "0",
+            "--prune_m", "0", "--model_size", "xl", "--job_id", CLI_JOB,
+            "--score_method", "obd_avg", "--sparsity_ratio_granularity",
+            "none", "--seed", str(CLI_SEED), "--options",
+            f"run.output_dir={out}/{CLI_JOB}",
+            f"{cc3m}.annotations.train=[{cap_ann}]",
+            f"{cc3m}.images.storage={images}", *CLI_OPTIONS, *CLI_ARGS]
+        eval_job = f"{CLI_JOB}-{CLI_EVAL}"
+        eval_options = [f"run.output_dir={out}/{eval_job}",
+                        f"datasets.gqa.build_info.annotations.val=[{gqa_ann}]",
+                        f"datasets.gqa.build_info.images.storage={images}",
+                        *CLI_EVAL_OPTIONS]
+        eval_cfg = os.path.join(repo, f"configs/projects/eval/{CLI_EVAL}.yaml")
+        eval_argv = ["--cfg-path", eval_cfg, "--pruned_checkpoint",
+                     f"{out}/{CLI_JOB}/pruned_{CLI_JOB}", "--job_id",
+                     eval_job, "--seed", str(CLI_SEED + 1), "--options",
+                     *eval_options, *CLI_ARGS]
+        free = shutil.disk_usage(root).free
+        log(f"  cli: data {data_s:.2f} s ({CLI_N_CALIB} + {CLI_N_GQA} "
+            f"{CLI_IMAGE[0]} x {CLI_IMAGE[1]} .npy images); {free / 2**30:.1f} "
+            f"GiB free under {tempfile.gettempdir()}; the prune call: "
+            f"{' '.join(prune_argv)}")
+
+        p_stats, p_runner, p_timer = run_phase(
+            rec, "cli_prune", lambda: E.run(E.parse_args(prune_argv)))
+        pruned = p_runner.model
+        ckpt = p_stats["pruned_checkpoint"]
+        ckpt_bytes = os.path.getsize(ckpt)
+
+        # the ground truth: a direct generate of the pruned model over the
+        # batch the eval call reads (its config, builder and processors)
+        cfg = Config(cfg_path=eval_cfg, options=eval_options,
+                     defaults=default_config_path)
+        ds = load_builder("gqa", cfg.datasets_cfg["gqa"]).build_datasets()[
+            "val"]
+        samples = ds.collater([ds[i] for i in range(len(ds))])
+        truth = run_phase(rec, "cli_truth",
+                          lambda: direct_vqa_answers(pruned, samples)[0])
+        for i, (ann, a) in enumerate(zip(gqa, truth)):
+            ann["answer"] = [a] if i % 2 == 0 else [NEVER]
+        with open(gqa_ann, "w") as f:
+            json.dump(gqa, f)
+
+        log(f"  cli: the eval call: {' '.join(eval_argv)}")
+        e_stats, e_runner, e_timer = run_phase(
+            rec, "cli_eval", lambda: E.run(E.parse_args(eval_argv)))
+        restored = e_runner.model
+        want, got = pruned.state_dict(), restored.state_dict()
+        if list(got) != list(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("the restored model differs from the "
+                                 "pruned one it was saved from")
+        del pruned, p_runner, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        dens = cli_densities(restored)
+        with open(os.path.join(out, eval_job,
+                               f"eval_stats_{eval_job}.json")) as f:
+            written = json.load(f)
+        with open(os.path.join(out, eval_job, "result",
+                               "val_vqa_result.json")) as f:
+            answers = {r["question_id"]: r["answer"] for r in json.load(f)}
+        direct = run_phase(rec, "cli_direct",
+                           lambda: direct_vqa_answers(restored, samples)[0])
+        metrics = written["eval_results"]["val"]
+        times = {"prune call": {**p_timer.stats,
+                                "wall": rec["secs"]["cli_prune"],
+                                "prune_seconds": p_stats["prune_seconds"]},
+                 "eval call": {**e_timer.stats,
+                               "wall": rec["secs"]["cli_eval"]}}
+        log(f"  cli: phase seconds and live GiB {json.dumps(times)}; "
+            f"checkpoint {ckpt_bytes} bytes ({ckpt_bytes / 2**30:.3f} GiB); "
+            f"peaks GiB "
+            f"{json.dumps({p: round(b / 2**30, 2) for p, b in rec['peaks'].items()})}; "
+            f"densities {json.dumps({t: round(d, 6) for t, (d, _) in dens.items()})}; "
+            f"eval_stats {json.dumps(written)}; answers e.g. "
+            f"{json.dumps([answers[i] for i in range(4)])}; the Wanda prune "
+            f"at batch 1: {p_timer.stats['prune_seconds']} s (with the "
+            f"calibration data's loading, eval_stats' prune_seconds: "
+            f"{p_stats['prune_seconds']} s)")
+        for phase in CLI_PHASES:
+            c = rec["counts"][phase]
+            log(f"  cli {phase}: {rec['secs'][phase]:.3f} s; linear kernels "
+                f"{c['masked_matmul'] + c[WGMMA_LOOP] + c[DECODE]}; "
+                f"attention {attn_routes(c)}")
+        for tower, (d, n) in dens.items():
+            if n == 0 or abs(d - 0.5) > 0.01:
+                raise AssertionError(f"cli: {tower} density {d} over {n} "
+                                     "linears")
+        if written != json.loads(json.dumps(e_stats, default=str)) or \
+                metrics["acc"] != 50.0 or metrics["agg_metrics"] != 50.0:
+            raise AssertionError(f"cli: GQA {metrics}, not 50.00")
+        if [answers[i] for i in range(CLI_N_GQA)] != direct:
+            raise AssertionError("cli: the eval call's answers differ from a "
+                                 "direct generate_t5 of the restored model")
+        del restored, e_runner
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        raise AssertionError(f"cli: {root} was not deleted")
+    log(f"  cli: {root} (data and checkpoint) deleted")
+    check_phase_counts(rec["counts"])
+    check_shapes(rec["shapes"], "cli")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["counts"], {
+        "cli_prune_call_s": rec["secs"]["cli_prune"],
+        "cli_eval_call_s": rec["secs"]["cli_eval"],
+        "cli_wanda_b1_s": p_timer.stats["prune_seconds"],
+        **{f"cli_prune_{k}": v for k, v in p_timer.stats.items()},
+        **{f"cli_eval_{k}": v for k, v in e_timer.stats.items()},
+        "cli_checkpoint_bytes": ckpt_bytes,
+        "cli_gqa_acc": metrics["acc"],
+        "cli_peak_bytes": max(rec["peaks"].values())}
+
+
+# the CPU rehearsal's additions to both calls (empty on the card)
+CLI_ARGS, CLI_OPTIONS, CLI_EVAL_OPTIONS = [], [], []
+
+
 def profile_first_order(e2e):
     """The first-order path's two gradient phases again under
     torch.profiler (device activity only) on a fresh seed-2 model: the
@@ -5142,6 +5429,13 @@ def main() -> int:
     phase_done("retrieval path")
     counts.update(r_counts)
     e2e.update(r_e2e)
+    log("[cli path] the launcher's T5 grid point through the port's CLI: "
+        "the Wanda prune call at batch 1 (checkpoint saved), the GQA eval "
+        "call on the checkpoint")
+    cl_counts, cl_e2e = cli_path()
+    phase_done("cli path")
+    counts.update(cl_counts)
+    e2e.update(cl_e2e)
     log("[profile] the main path, the SparseGPT prune, the first-order "
         "path's gradient phases and the grid path's prunes again under "
         "torch.profiler")

@@ -85,6 +85,28 @@ def fuse_batch_dicts(batches: Sequence[dict]) -> Sequence[dict]:
     return [out]
 
 
+def with_outputs(batches: Sequence[dict], outs: Sequence[torch.Tensor],
+                 key: str) -> List[dict]:
+    """Each calibration batch dict with a tower's replayed activations under
+    ``key``, for the next tower's stem.  The engine fuses stems of one
+    shape into one batch: then one output covers every batch.  When every
+    array of the batch dicts has one shape across them, one fused dict
+    takes it; else (prompts of several lengths at batch 1) the output is
+    split back along the batch axis, a slice to each batch."""
+    if len(outs) == len(batches):
+        return [dict(b, **{key: x}) for b, x in zip(batches, outs)]
+    first = batches[0]
+    if all(set(b) == set(first) for b in batches) and all(
+            getattr(first[k], "ndim", 0) == 0 or all(
+                getattr(b[k], "shape", None) == first[k].shape
+                for b in batches) for k in first):
+        return [dict(fuse_batch_dicts(batches)[0], **{key: outs[0]})]
+    sizes = [next(v.shape[0] for v in b.values()
+                  if getattr(v, "ndim", 0) > 0) for b in batches]
+    return [dict(b, **{key: x})
+            for b, x in zip(batches, torch.split(outs[0], sizes))]
+
+
 def _fuse_side(sides: List[dict], batch_sizes: List[int]) -> dict:
     """Concatenate per-batch side tensors whose leading dim is the batch."""
     out = {}
@@ -114,9 +136,10 @@ def calibrate_and_prune_tower(
     """Run the layer sweep over one tower, in place.
 
     lora_model=True writes each linear's keep-mask; lora_model=False
-    instead zeroes the pruned weights and writes no masks (zeroed weights
-    already encode the sparsity).  With ``return_outputs`` the replayed
-    activations after the last block come back, per (fused) batch."""
+    instead zeroes the pruned weights and drops the swept linears' masks
+    (zeroed weights already encode the sparsity).  With
+    ``return_outputs`` the replayed activations after the last block come
+    back, per (fused) batch."""
     # 1. stem over every batch, then FUSE equal shapes into one batch:
     # statistics are sums over samples and tokens, so concatenation is
     # exact, and one fold + one replay per block replaces len(batches)
@@ -171,9 +194,14 @@ def calibrate_and_prune_tower(
             elif not lora_model:
                 lin.kernel.masked_fill_(~keep, 0)
 
-        # 3. replay through the pruned block
+        # 3. replay through the pruned block; without LoRA the zeroed
+        # weights stand alone: the block's masks leave the model after the
+        # replay, as they leave the JAX package's variable tree
         xs = [adapter.block_fn(block, x, side, mode)
               for x, side in zip(xs, sides)]
+        if not lora_model:
+            for lin in linears.values():
+                set_mask(lin, None)
         if progress:
             dens = torch.stack([result.masks[p].float().mean()
                                 for p in lpaths]).mean()

@@ -26,7 +26,7 @@ from vlm_compression_tpu_torch.common.registry import registry
 from vlm_compression_tpu_torch.compression import adapters as A
 from vlm_compression_tpu_torch.compression.calibrate import (
     calibrate_and_prune_tower,
-    fuse_batch_dicts,
+    with_outputs,
 )
 from vlm_compression_tpu_torch.compression.pruners import methods as M
 from vlm_compression_tpu_torch.compression.pruners.base import (
@@ -189,9 +189,8 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
             # decoder-only LLM (Vicuna): one sweep over the llm_model blocks
             sfor = sfor_global or self.get_sparsity(1.0 - t5_keep)
             if chain:
-                bb = fuse_batch_dicts(batches) if len(vit_outs) == 1 else batches
-                llm_batches = [dict(b, vit_x=x) for b, x in zip(bb, vit_outs)]
-                bb = vit_outs = None
+                llm_batches = with_outputs(batches, vit_outs, "vit_x")
+                vit_outs = None
 
                 def llm_inputs_fn(b):
                     return _llm_inputs_from_prefix(
@@ -214,8 +213,7 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
             if chain:
                 # the engine fused the calibration batches when it could:
                 # align the batch dicts with the replayed activations
-                bb = fuse_batch_dicts(batches) if len(vit_outs) == 1 else batches
-                enc_batches = [dict(b, vit_x=x) for b, x in zip(bb, vit_outs)]
+                enc_batches = with_outputs(batches, vit_outs, "vit_x")
                 vit_outs = None
 
                 def enc_embeds_fn(b):
@@ -235,10 +233,8 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
                                          lora_model, tower="llm",
                                          return_outputs=chain)
             if chain:
-                bb = (fuse_batch_dicts(enc_batches) if len(enc_outs) == 1
-                      else enc_batches)
-                dec_batches = [dict(b, enc_x=x) for b, x in zip(bb, enc_outs)]
-                bb = enc_batches = enc_outs = None
+                dec_batches = with_outputs(enc_batches, enc_outs, "enc_x")
+                enc_batches = enc_outs = None
 
                 def dec_inputs_fn(b):
                     return _decoder_inputs_from_enc(module, b)

@@ -1,9 +1,13 @@
-"""BaseTask — the generic evaluation loop and result saving (port of
+"""BaseTask — model and dataset construction from a run config, the
+generic evaluation loop and result saving (port of
 ``vlm_compression_tpu/tasks/base.py``).
 
-Results are saved as one JSON shard per process, merged by rank 0 into one
-file (duplicates removed by a key).  Model and dataset construction come
-with the runner and data layer (ROADMAP queue 1, item 4).
+``build_model`` builds the config's model through the factory (the run
+section's ``amp`` becomes the model's dtype policy where the model section
+sets none); ``build_datasets`` builds every dataset the config names
+through its registered builder, the train-sample cap split evenly over
+them.  Results are saved as one JSON shard per process, merged by rank 0
+into one file (duplicates removed by a key).
 """
 
 from __future__ import annotations
@@ -11,9 +15,13 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
 import torch
+
+from vlm_compression_tpu_torch.common.device import DeviceLike
+from vlm_compression_tpu_torch.common.registry import registry
+from vlm_compression_tpu_torch.datasets import builders  # noqa: F401
 
 
 class BaseTask:
@@ -27,16 +35,30 @@ class BaseTask:
     # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
-    def build_model(self, cfg):
-        raise NotImplementedError(
-            "build_model from a run config comes with the port's runner and "
-            "config layer (ROADMAP queue 1, item 4); build the model with "
-            "models.factory.build_model")
+    def build_model(self, cfg, seed: int = 0, device: DeviceLike = None):
+        """The config's model with seeded random weights, on the card unless
+        ``device`` says otherwise.  ``cfg``: a ``common.config.Config``."""
+        from vlm_compression_tpu_torch.models.factory import build_model
 
-    def build_datasets(self, cfg, max_train_samples=None):
-        raise NotImplementedError(
-            "dataset builders come with the port's data layer (ROADMAP "
-            "queue 1, item 4); pass collated sample dicts to evaluation()")
+        model_cfg = cfg.model_cfg
+        run_cfg = getattr(cfg, "run_cfg", None)
+        if run_cfg is not None and run_cfg.get("amp") is not None \
+                and model_cfg.get("amp") is None:
+            model_cfg["amp"] = bool(run_cfg.get("amp"))
+        return build_model(model_cfg, seed=seed, device=device)
+
+    def build_datasets(self, cfg, max_train_samples: Optional[int] = None):
+        """name → {split: dataset}; the train-sample cap is split evenly
+        over the datasets."""
+        datasets = {}
+        datasets_cfg = cfg.datasets_cfg
+        names = list(datasets_cfg)
+        per_ds = (max_train_samples // max(len(names), 1)
+                  if max_train_samples else None)
+        for name in names:
+            builder = registry.get_builder_class(name)(datasets_cfg[name])
+            datasets[name] = builder.build_datasets(max_train_samples=per_ds)
+        return datasets
 
     # ------------------------------------------------------------------
     # evaluation

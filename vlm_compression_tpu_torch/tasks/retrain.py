@@ -157,7 +157,9 @@ class ImageTextRetrainTask:
 
     @classmethod
     def setup_task(cls, cfg=None, **kwargs):
-        run = getattr(cfg, "run_cfg", None) if cfg is not None else None
+        """``cfg``: a ``Config`` or a mapping shaped like a yaml."""
+        run = (getattr(cfg, "run_cfg", None) or (cfg or {}).get("run")
+               if cfg is not None else None)
         get = ((run.get if hasattr(run, "get")
                 else lambda k, d=None: getattr(run, k, d))
                if run is not None else (lambda k, d=None: d))
