@@ -88,7 +88,10 @@ each of which fails the run (non-zero exit, no result line) on error:
                 linear equal); DSnoT at LLaMA-7B's down shape too; a tiny
                 float32 stage-1 Blip2Qformer through ``RetrievalTask`` at
                 k_test 0 and 2: score matrices within 1e-4, the same
-                entries reranked, the metrics equal;
+                entries reranked, the metrics equal; ``cli.train`` on the
+                launcher's RESSA argv at ``--tiny`` in float32 (masks
+                bit-equal, each step's loss, CE and KL within 1e-4, the
+                trained LoRA within 2e-3 of its change);
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -231,7 +234,30 @@ each of which fails the run (non-zero exit, no result line) on error:
                 every shape held in phase 3, data and checkpoint deleted;
                 each call's phases timed (build, calibration, prune, save,
                 load, eval), the checkpoint's size, the peaks;
- 12. profile  — the main path once more under torch.profiler (prune,
+ 12. cli train path — the launcher's T5 RESSA grid point
+                ``train_ressa("wanda", 0.5, 0.5, kl_weight=0.1,
+                max_train_samples=96)`` through the port's own ``cli.train``
+                (argv composed by scripts/torch_launch_lib.py, rewritten
+                only for the data's paths, the output dir, the seed and
+                the device; the call made in this process) on full-width
+                InstructBLIP-FlanT5-XL (seed 8) and the cli path's data:
+                the Wanda prune with its masks kept (at batch 16, not the
+                launcher's 1: the cut that keeps the command's time), 3 KD steps
+                of SparseLoRA (LVQ, r 4/8/2) at batch 32, the sparse merge,
+                the save; then ``eval_checkpoint``'s GQA instruct call with
+                ``--strip_lora_masks``; each tower's masks 0.5 ± 0.01,
+                merged weights 0 off their masks, every lora_b trained,
+                finite losses, the artifacts under the JAX CLI's names,
+                the restored weights equal to the trained ones, GQA exactly
+                50.00, the answers equal to a direct ``generate_t5``'s; the
+                launches of each of the CLI's phases (the masked matmul in
+                the prune, sparse-LoRA and the TMA + wgmma backward in the
+                retrain, no WMMA, no separate dbias, dense products in the
+                eval), every shape held in phase 3 (the retrain's added
+                from the train loader's batches), data and checkpoints
+                deleted; the phases' seconds, both checkpoints' bytes, the
+                free disk, the peaks;
+ 13. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune, the
                 first-order path's Fisher (its attention backward's device
                 time a sample) and EcoFLaP prune, and the grid path's
@@ -240,7 +266,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 at 13/8/8 of its 39/24/24 blocks, timed unprofiled at
                 that depth first) its DSnoT prune: device time by kernel
                 group against each phase's unprofiled wall-clock;
- 13. timing   — kernel, plain-version and library-call times (CUDA events,
+ 14. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
@@ -295,6 +321,7 @@ import dataclasses
 import gc
 import json
 import logging
+import math
 import os
 import random
 import re
@@ -528,6 +555,49 @@ FLASH_SHAPES += [shape for n in CLI_WORDS for shape in (
      1.0),
     (f"t5_decoder_cross_cli{n}", 1, n + 1, 32 + n, 32, 64, ["pad"], 1.0))]
 FLASH_TIMED = "vit_self_calib"
+# the CLI train path (cli_train_path): the launcher's RESSA call prunes
+# the first CLI_TRAIN_SAMPLES of the CLI path's captions with its masks
+# kept, so the prune's replays run the masked matmul.  At the cut's batch
+# of CLI_TRAIN_PRUNE_BS consecutive captions every batch holds each of
+# CLI_WORDS' lengths, so every prompt pads to the longest and all the
+# stems fuse: the ViT at M = 96 × 257, the T5 encoder at M = 96 × (32 +
+# 12) (the decoder's cross k/v too) and the decoder at M = 96 × 13, all on
+# the Hopper loop; attention at b = 96 there, and at b = 16 where the T5
+# stems' inputs run the dense ViT, Q-Former and (for the decoder's) T5
+# encoder a batch.  Its retrain's
+# shapes follow the train loader's batches: add_cli_train_shapes() adds
+# them before phase 3
+CLI_TRAIN_SAMPLES = 96
+CLI_TRAIN_BS = 32           # continue_stage2_cc3m_t5_instruct.yaml's
+# the cut that keeps the command's time: the launcher's --prune_batch_size
+# 1 becomes 16 for the train call (the CLI path keeps batch 1)
+CLI_TRAIN_PRUNE_BS = 16
+CLI_TRAIN_PAD = max(CLI_WORDS)
+VIT_LINEARS = (("qkv", 1408, 4224), ("proj", 1408, 1408),
+               ("fc1", 1408, 6144), ("fc2", 6144, 1408))
+T5_LINEARS = (("qkvo", 2048, 2048), ("wi", 2048, 5120), ("wo", 5120, 2048))
+MM_SHAPES += [(f"vit_{name}_cli_train", CLI_TRAIN_SAMPLES * 257, k, n)
+              for name, k, n in VIT_LINEARS]
+MM_SHAPES += [shape for name, k, n in T5_LINEARS for shape in (
+    (f"t5_{name}_cli_train", CLI_TRAIN_SAMPLES * (32 + CLI_TRAIN_PAD), k, n),
+    (f"t5_dec_{name}_cli_train", CLI_TRAIN_SAMPLES * (CLI_TRAIN_PAD + 1), k,
+     n))]
+_q, _d = 32 + CLI_TRAIN_PAD, CLI_TRAIN_PAD + 1
+FLASH_SHAPES += [
+    ("vit_self_cli_train", CLI_TRAIN_SAMPLES, 257, 257, 16, 88, [],
+     88 ** -0.5),
+    ("qformer_self_cli_prune", CLI_TRAIN_PRUNE_BS, _q, _q, 12, 64, ["pad"],
+     0.125),
+    ("t5_encoder_cli_prune", CLI_TRAIN_PRUNE_BS, _q, _q, 32, 64,
+     ["rel", "pad"], 1.0),
+    ("t5_encoder_cli_train", CLI_TRAIN_SAMPLES, _q, _q, 32, 64,
+     ["rel", "pad"], 1.0),
+    ("t5_decoder_self_cli_train", CLI_TRAIN_SAMPLES, _d, _d, 32, 64,
+     ["rel", "pad"], 1.0),
+    ("t5_decoder_cross_cli_train", CLI_TRAIN_SAMPLES, _d, _q, 32, 64,
+     ["pad"], 1.0)]
+# the retrain's attention backward shapes (add_cli_train_shapes)
+CLI_TRAIN_BWD_SHAPES: list = []
 # the Vicuna path (vicuna_path): LLaMA's self-attention, 32 heads of
 # d = 128 (the mma.sync kernel: plan_forward sends TMA + wgmma only
 # d <= 96), under one additive bias as the JAX package builds it — the
@@ -629,7 +699,45 @@ def bwd_at(batch: int) -> list:
 def bwd_held() -> list:
     """Every shape phase 3 holds the backward (and the forward it starts
     from) at against the plain version."""
-    return BWD_SHAPES + bwd_at(1) + bwd_at(16)
+    return BWD_SHAPES + CLI_TRAIN_BWD_SHAPES + bwd_at(1) + bwd_at(16)
+
+
+def cli_train_lengths() -> list:
+    """The longest caption (words) of each of the train call's batches, in
+    its loader's order (shuffled from seed 0, the ragged tail dropped)
+    over the first CLI_TRAIN_SAMPLES captions of ``cli_data``."""
+    from vlm_compression_tpu_torch.datasets.loaders import DataLoader
+
+    words = [CLI_WORDS[i % len(CLI_WORDS)] for i in range(CLI_TRAIN_SAMPLES)]
+    return sorted({max(b) for b in DataLoader(words, CLI_TRAIN_BS,
+                                              shuffle=True, drop_last=True)})
+
+
+def add_cli_train_shapes() -> list:
+    """The train call's retrain shapes at batch CLI_TRAIN_BS, for each
+    batch's longest caption L (``cli_train_lengths``): the Q-Former's
+    self-attention and the T5 encoder over 32 query tokens + L, the
+    decoder over the L + 1 label tokens (sparse-LoRA at r = 8 on both;
+    the ViT's and the Q-Former's cross-attention are the main path's),
+    added to the lists phase 3 holds.  Returns the lengths."""
+    lengths = cli_train_lengths()
+    for words in lengths:
+        q, d = 32 + words, words + 1
+        CLI_TRAIN_BWD_SHAPES.extend([
+            (f"qformer_self_cli_train{words}", CLI_TRAIN_BS, q, q, 12, 64,
+             ["pad"], 0.125),
+            (f"t5_encoder_cli_train{words}", CLI_TRAIN_BS, q, q, 32, 64,
+             ["rel", "pad"], 1.0),
+            (f"t5_decoder_self_cli_train{words}", CLI_TRAIN_BS, d, d, 32, 64,
+             ["relc", "pad"], 1.0),
+            (f"t5_decoder_cross_cli_train{words}", CLI_TRAIN_BS, d, q, 32,
+             64, ["pad"], 1.0)])
+        LORA_SHAPES.extend(
+            [(f"t5_enc_{name}_cli_train{words}", CLI_TRAIN_BS * q, k, n, 8)
+             for name, k, n in T5_LINEARS]
+            + [(f"t5_dec_{name}_cli_train{words}", CLI_TRAIN_BS * d, k, n, 8)
+               for name, k, n in T5_LINEARS])
+    return lengths
 
 # dbias (b, n, m, h, d, biases, scale, causal), the gradient of every bias
 # in the list: the T5 encoder's self-attention at the first-order
@@ -2035,6 +2143,33 @@ for _phase in CLI_PHASES:
     PHASE_FORBIDDEN[_phase] = BACKWARD + (
         "masked_matmul", "masked_matmul_packed", "int8_matmul",
         "sparse_lora_matmul", DECODE, WGMMA_LOOP, WMMA_LOOP)
+# the CLI train path: the train call's phases as its PhaseTimer names them
+# — the build, the calibration data and the save launch nothing; the
+# prune keeps its masks (prune(lora_model=True)), so its replays run the
+# masked matmul (every fused stem on the Hopper loop, none at a decode
+# shape) and no backward; the retrain runs
+# sparse-LoRA on the Hopper loop and the attention forward and backward
+# on TMA + wgmma, no bias gradient and no WMMA loop; then the eval call on
+# the checkpoint with its masks stripped and the direct generates run
+# dense products, as the CLI path's do
+NOTHING = KERNELS + (WGMMA_LOOP, FWD_WGMMA, BWD_WGMMA, WMMA_LOOP, BWD_DBIAS)
+CLI_TRAIN_PHASES = ("cli_train_build", "cli_train_calibration",
+                    "cli_train_prune", "cli_train_retrain", "cli_train_save")
+for _phase in ("cli_train_build", "cli_train_calibration", "cli_train_save"):
+    PHASE_KERNELS[_phase] = ()
+    PHASE_FORBIDDEN[_phase] = NOTHING
+PHASE_KERNELS.update(
+    cli_train_prune=PRUNE + (FWD_WGMMA,),
+    cli_train_retrain=("sparse_lora_matmul", "flash_attention", FWD_WGMMA,
+                       BWD_WGMMA, WGMMA_LOOP))
+PHASE_FORBIDDEN.update(
+    cli_train_prune=BACKWARD + ("sparse_lora_matmul", "masked_matmul_packed",
+                                "int8_matmul", DECODE, WMMA_LOOP),
+    cli_train_retrain=("flash_attention_bwd_dbias", BWD_DBIAS, WMMA_LOOP,
+                       "masked_matmul_packed", "int8_matmul"))
+for _phase in ("cli_train_truth", "cli_train_eval", "cli_train_direct"):
+    PHASE_KERNELS[_phase] = PHASE_KERNELS["cli_eval"]
+    PHASE_FORBIDDEN[_phase] = PHASE_FORBIDDEN["cli_eval"]
 # every generate phase runs its prefill on the Hopper loop and its decode
 # steps on the decode kernel, every VQA and caption phase all its matmuls
 # on the Hopper loop: no WMMA-loop launch at all
@@ -4600,6 +4735,377 @@ def cli_path() -> tuple:
 # the CPU rehearsal's additions to both calls (empty on the card)
 CLI_ARGS, CLI_OPTIONS, CLI_EVAL_OPTIONS = [], [], []
 
+# the launcher's T5 RESSA grid point train_ressa("wanda", 0.5, 0.5,
+# kl_weight=0.1, max_train_samples=96) (scripts/torch_launch_lib.py, the
+# port's copy of scripts/launch_lib.py:87-125), its argv rewritten only
+# where the environment needs it: the data's paths and run.output_dir
+# (--options), --seed 8 (9 for the eval call's init, which the checkpoint
+# overwrites), --device cuda
+CLI_TRAIN_SEED = 8
+# the CPU rehearsal's additions to the train call (empty on the card)
+CLI_TRAIN_OPTIONS: list = []
+
+
+def launcher_commands(fn, *args, **kw) -> list:
+    """The commands the port's launcher function ``fn`` (of
+    scripts/torch_launch_lib.py, by name) composes, without running
+    them."""
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    try:
+        import torch_launch_lib
+    finally:
+        sys.path.pop(0)
+    cmds = []
+    getattr(torch_launch_lib, fn)(*args, run=cmds.append, **kw)
+    return cmds
+
+
+def repo_path(argv: list, flag: str = "--cfg-path") -> list:
+    """``argv`` with the launcher's repo-relative ``flag`` path made
+    absolute (the same file, wherever the script runs from)."""
+    argv = list(argv)
+    i = argv.index(flag) + 1
+    argv[i] = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           argv[i])
+    return argv
+
+
+def phase_recorder(rec: dict, prefix: str):
+    """A ``PhaseTimer`` for the CLI's ``run`` that records each of its
+    phases into ``rec`` as ``run_phase`` does, as ``prefix + name``: the
+    launch counts reset at its start and read at its end, with its shapes,
+    seconds and peak.  A launch between two phases (none is counted
+    there) fails."""
+    from vlm_compression_tpu_torch.common.profiling import PhaseTimer
+
+    class Recorder(PhaseTimer):
+        @contextlib.contextmanager
+        def phase(self, name, trace=False):
+            stray = {k: v for k, v in read_counts().items()
+                     if isinstance(v, int) and v}
+            if stray:
+                raise AssertionError(f"launches outside the CLI's phases, "
+                                     f"before {name}: {stray}")
+            key = prefix + name
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with super().phase(name, trace):
+                yield
+            torch.cuda.synchronize()
+            rec["secs"][key] = time.perf_counter() - t0
+            rec["counts"][key] = read_counts()
+            rec["shapes"][key] = read_shapes()
+            rec["peaks"][key] = torch.cuda.max_memory_allocated()
+            reset_counts()
+
+    reset_counts()
+    return Recorder()
+
+
+def lora_b_untrained(model) -> list:
+    """The adapters whose lora_b is still all 0, but for the last Q-Former
+    layer's text FFN (its output leaves no trace in the loss: only the
+    query positions leave the Q-Former)."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    last = f"qformer.layers_{model.cfg.qformer.num_layers - 1}.ffn."
+    return [name for name, m in model.named_modules()
+            if isinstance(m, SparseLinear) and m.lora_rank
+            and not name.startswith(last)
+            and not bool(m.lora_b.count_nonzero())]
+
+
+def tiny_cli_train_check():
+    """``cli.train`` on the launcher's RESSA argv at ``--tiny`` in fp32,
+    on the card and on the CPU from the same weights (the factory's
+    seeded CPU init, copied to the card) over 16 of ``cli_data``'s
+    captions at batch 8, the images resized to 28 × 28 by
+    ``blip_image_eval`` (``blip2_image_train``'s crops are drawn from an
+    unseeded generator, so the two runs would see other pixels): two KD
+    steps at lr 1e-3 (at the
+    yaml's warmup lr, 1e-6, an update is a few fp32 ulps of a lora_a
+    entry, so rounding alone would fill the difference).  Limits
+    (tests/test_torch_retrain.py, tests/test_torch_runner.py): masks
+    bit-equal; each step's loss, CE and KL within 1e-4; the trained LoRA's
+    change, as one vector, within 2e-3 of its norm, and every entry within
+    one Adam step (2.1·lr) a step of the CPU's; the card run launched the
+    masked matmul (the prune), sparse-LoRA and the attention backward."""
+    import shutil
+
+    from vlm_compression_tpu_torch.cli import train as T
+    from vlm_compression_tpu_torch.models import factory
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    (cmd,) = launcher_commands("train_ressa", "wanda", 0.5, 0.5,
+                               kl_weight=0.1, max_train_samples=16)
+    root = tempfile.mkdtemp(prefix="tiny_cli_train_")
+    original = factory.build_model
+
+    def seeded_on_the_cpu(cfg, seed=0, device=None):
+        cpu = original(cfg, seed=seed, device="cpu")
+        inits[torch.device(device).type] = {n: p.detach().clone()
+                         for n, p in cpu.named_parameters() if "lora_" in n}
+        if torch.device(device).type == "cpu":
+            return cpu
+        model = original(cfg, seed=seed, device=device)
+        model.load_state_dict(cpu.state_dict())
+        return model
+
+    runs, inits = {}, {}
+    factory.build_model = seeded_on_the_cpu
+    try:
+        cap_ann, _, images, _ = cli_data(root)
+        cc3m = "datasets.instruct_cc3m_caption"
+        for dev in ("cuda", "cpu"):
+            argv = repo_path(cmd[3:]) + [
+                "--tiny", "--device", dev, "--options",
+                f"run.output_dir={root}/{dev}", "run.batch_size_train=8",
+                "run.init_lr=1e-3", "run.warmup_lr=1e-3",
+                "model.amp=false", f"{cc3m}.vis_processor.train.image_size=28",
+                f"{cc3m}.vis_processor.train.name=blip_image_eval",
+                f"{cc3m}.build_info.annotations.train=[{cap_ann}]",
+                f"{cc3m}.build_info.images.storage={images}"]
+            reset_counts()
+            runs[dev] = T.run(T.parse_args(argv))[1]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = read_counts()
+    finally:
+        factory.build_model = original
+        shutil.rmtree(root, ignore_errors=True)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    cpu_modules = dict(cpu.model.named_modules())
+    masks = {n: (m.mask, cpu_modules[n].mask)
+             for n, m in gpu.model.named_modules()
+             if isinstance(m, SparseLinear) and m.mask is not None}
+    flips = sum(int((g.cpu() != c).sum()) for g, c in masks.values())
+    err_m = max(abs(g[k] - c[k]) / max(1.0, abs(c[k]))
+                for g, c in zip(gpu.step_metrics, cpu.step_metrics)
+                for k in ("loss", "ce", "kl"))
+    lr = sum(s["lr"] for s in cpu.step_metrics)
+    la, lc = gpu.train_state.lora, cpu.train_state.lora
+    init = inits["cpu"]
+    if set(init) != set(lc) or any(not torch.equal(init[n], inits["cuda"][n])
+                                   for n in init):
+        raise AssertionError("tiny cli.train: the two runs' initial LoRA "
+                             "factors differ")
+    dg = torch.cat([(la[n].detach().cpu() - init[n]).flatten() for n in lc])
+    dc = torch.cat([(lc[n].detach() - init[n]).flatten() for n in lc])
+    rel = float((dg - dc).norm() / dc.norm())
+    worst = float((dg - dc).abs().max())
+    log(f"  tiny fp32 cli.train (the launcher's RESSA argv), card vs CPU: "
+        f"{len(gpu.step_metrics)} steps; {len(masks)} masks, {flips} bits "
+        f"differ; loss/ce/kl max err {err_m:.3e} (tol 1e-4); LoRA change "
+        f"|Δ|/|Δ_cpu| {rel:.3e} (tol 2e-3), max |Δ| {worst:.3e} (tol "
+        f"{2.1 * lr:.2e}); launches masked_matmul "
+        f"{launched['masked_matmul']}, sparse_lora "
+        f"{launched['sparse_lora_matmul']}, attention backward "
+        f"{launched[BWD_WGMMA] + launched['flash_attention_bwd_dq']}")
+    if not (len(gpu.step_metrics) == len(cpu.step_metrics) == 2
+            and masks and not flips and err_m <= 1e-4 and rel <= 2e-3
+            and worst <= 2.1 * lr and launched["masked_matmul"] > 0
+            and launched["sparse_lora_matmul"] > 0
+            and launched[BWD_WGMMA] + launched["flash_attention_bwd_dq"] > 0):
+        raise AssertionError("tiny cli.train, card vs CPU")
+
+
+def cli_train_path() -> tuple:
+    """The launcher's T5 RESSA grid point through the port's own
+    ``cli.train`` and ``cli.evaluate`` (argv composed by
+    scripts/torch_launch_lib.py, calls made in this process) on
+    full-width InstructBLIP-FlanT5-XL (seed 8) and ``cli_data``'s seeded
+    images and captions: the train call (Wanda 0.5 over 96 captions at
+    batch CLI_TRAIN_PRUNE_BS, the cut, masks kept; LVQ r 4/8/2, KD 0.1 at T 1, 3 steps at batch
+    32; the sparse merge; the model saved without its adapters), a
+    direct ``generate_t5`` of the trained model with its masks dropped
+    (the ground truth: each even question's answer; the odd ones'
+    unreachable), then ``eval_checkpoint``'s GQA instruct call on the
+    checkpoint with ``--strip_lora_masks``.  Gates: each tower's masks
+    0.5 ± 0.01; every merged weight 0 where its mask is false; every
+    lora_b moved off 0 (but the last Q-Former layer's text FFN's); every
+    step's loss, CE and KL finite; the artifacts under JAX's names; the
+    restored model equal to the trained one without its adapters and
+    masks, tensor for tensor; GQA exactly 50.00 in ``eval_stats``; the
+    eval call's answers equal to a direct ``generate_t5`` of the restored
+    model; the launches of each CLI phase (masked matmul in the prune,
+    sparse-LoRA and the TMA + wgmma backward in the retrain, no WMMA, no
+    separate dbias, dense products in the eval); every shape held in phase
+    3; the data and both checkpoints deleted.  Returns (launches by phase,
+    readings)."""
+    import shutil
+
+    from vlm_compression_tpu_torch.cli import evaluate as E
+    from vlm_compression_tpu_torch.cli import train as T
+    from vlm_compression_tpu_torch.common.config import Config
+    from vlm_compression_tpu_torch.datasets.builders import load_builder
+    from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+    from vlm_compression_tpu_torch.models.model_zoo import (
+        default_config_path,
+    )
+
+    rec = new_record()
+    root = tempfile.mkdtemp(prefix="cli_train_path_")
+    try:
+        t0 = time.perf_counter()
+        cap_ann, gqa_ann, images, gqa = cli_data(root)
+        data_s = time.perf_counter() - t0
+        out = os.path.join(root, "output")
+        (cmd,) = launcher_commands(
+            "train_ressa", "wanda", 0.5, 0.5, kl_weight=0.1,
+            max_train_samples=CLI_TRAIN_SAMPLES, device="cuda")
+        job = cmd[cmd.index("--job_id") + 1]
+        cc3m = "datasets.instruct_cc3m_caption.build_info"
+        train_argv = repo_path(cmd[3:])
+        i = train_argv.index("--prune_batch_size") + 1
+        log(f"  cli train: the cut: --prune_batch_size "
+            f"{train_argv[i]} -> {CLI_TRAIN_PRUNE_BS}")
+        train_argv[i] = str(CLI_TRAIN_PRUNE_BS)
+        train_argv += [
+            "--seed", str(CLI_TRAIN_SEED), "--options",
+            f"run.output_dir={out}/{job}",
+            f"{cc3m}.annotations.train=[{cap_ann}]",
+            f"{cc3m}.images.storage={images}", *CLI_TRAIN_OPTIONS, *CLI_ARGS]
+        free = shutil.disk_usage(root).free
+        log(f"  cli train: data {data_s:.2f} s; {free / 2**30:.1f} GiB free "
+            f"under {tempfile.gettempdir()}; the train call: "
+            f"{' '.join(train_argv)}")
+        timer = phase_recorder(rec, "cli_train_")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_stats, t_runner, _ = T.run(T.parse_args(train_argv), timer=timer)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        # the recorder resets the peak at each phase
+        train_peak = max(rec["peaks"][p] for p in CLI_TRAIN_PHASES)
+        model = t_runner.model
+        job_dir = os.path.join(out, job)
+        ckpt = t_stats["pruned_checkpoint"]
+        sizes = {name: os.path.getsize(os.path.join(job_dir, name))
+                 for name in (f"pruned_{job}", "checkpoint_0")}
+        missing = [name for name in (
+            f"pruned_{job}", f"training_statistics/{job}.yaml",
+            f"training_statistics_{job}.json", "checkpoint_0",
+            "checkpoint_meta.json")
+            if not os.path.exists(os.path.join(job_dir, name))]
+        dens = tower_density(model)
+        unmasked = sum(int(m.kernel[~m.mask].count_nonzero())
+                       for m in model.modules()
+                       if isinstance(m, SparseLinear) and m.mask is not None)
+        untrained = lora_b_untrained(model)
+        steps = t_runner.step_metrics
+        log(f"  cli train: the call {train_s:.2f} s, peak "
+            f"{train_peak / 2**30:.2f} GiB; phases "
+            f"{json.dumps({k: round(v, 3) for k, v in rec['secs'].items()})}; "
+            f"steps {json.dumps(steps)}; checkpoint bytes "
+            f"{json.dumps(sizes)}; mask densities "
+            f"{json.dumps({t: round(d, 6) for t, (d, _) in dens.items()})}; "
+            f"non-zero weights off their masks {unmasked}; adapters with "
+            f"lora_b still 0 {untrained}; artifacts missing {missing}")
+        if missing or unmasked or untrained or len(steps) != 3 or not all(
+                math.isfinite(s[k]) for s in steps
+                for k in ("loss", "ce", "kl")):
+            raise AssertionError("cli train: the train call's gates")
+        for tower, (d, n) in dens.items():
+            if n == 0 or abs(d - 0.5) > 0.01:
+                raise AssertionError(f"cli train: {tower} mask density {d} "
+                                     f"over {n} linears")
+
+        # the model the stripped checkpoint holds: the merged weights, no
+        # masks (masked mode then runs plain products); its direct
+        # generate is the ground truth
+        for m in model.modules():
+            if isinstance(m, SparseLinear):
+                set_mask(m, None)
+        eval_job = f"{job}-{CLI_EVAL}"
+        eval_options = [f"run.output_dir={out}/{eval_job}",
+                        f"datasets.gqa.build_info.annotations.val=[{gqa_ann}]",
+                        f"datasets.gqa.build_info.images.storage={images}",
+                        *CLI_EVAL_OPTIONS]
+        ecmds = launcher_commands("eval_checkpoint", ckpt, device="cuda")
+        (ecmd,) = [c for c in ecmds if c[c.index("--cfg-path") + 1]
+                   .endswith(f"/{CLI_EVAL}.yaml")]
+        eval_argv = repo_path(ecmd[3:]) + [
+            "--job_id", eval_job, "--seed", str(CLI_TRAIN_SEED + 1),
+            "--options", *eval_options, *CLI_ARGS]
+        cfg = Config(cfg_path=eval_argv[eval_argv.index("--cfg-path") + 1],
+                     options=eval_options, defaults=default_config_path)
+        ds = load_builder("gqa", cfg.datasets_cfg["gqa"]).build_datasets()[
+            "val"]
+        samples = ds.collater([ds[i] for i in range(len(ds))])
+        truth = run_phase(rec, "cli_train_truth",
+                          lambda: direct_vqa_answers(model, samples)[0])
+        for i, (ann, a) in enumerate(zip(gqa, truth)):
+            ann["answer"] = [a] if i % 2 == 0 else [NEVER]
+        with open(gqa_ann, "w") as f:
+            json.dump(gqa, f)
+
+        log(f"  cli train: the eval call: {' '.join(eval_argv)}")
+        e_stats, e_runner, e_timer = run_phase(
+            rec, "cli_train_eval", lambda: E.run(E.parse_args(eval_argv)))
+        restored = e_runner.model
+        want = {k: v for k, v in model.state_dict().items()
+                if k.rpartition(".")[2] not in ("lora_a", "lora_b")}
+        got = restored.state_dict()
+        if list(got) != list(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("cli train: the restored model differs "
+                                 "from the trained one it was saved from")
+        del model, t_runner, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(os.path.join(out, eval_job,
+                               f"eval_stats_{eval_job}.json")) as f:
+            written = json.load(f)
+        with open(os.path.join(out, eval_job, "result",
+                               "val_vqa_result.json")) as f:
+            answers = {r["question_id"]: r["answer"] for r in json.load(f)}
+        direct = run_phase(rec, "cli_train_direct",
+                           lambda: direct_vqa_answers(restored, samples)[0])
+        metrics = written["eval_results"]["val"]
+        log(f"  cli train: eval call {rec['secs']['cli_train_eval']:.2f} s "
+            f"{json.dumps(e_timer.stats)}; peaks GiB "
+            f"{json.dumps({p: round(b / 2**30, 2) for p, b in rec['peaks'].items()})}; "
+            f"eval_stats {json.dumps(written)}; answers e.g. "
+            f"{json.dumps([answers[i] for i in range(4)])}")
+        for phase in CLI_TRAIN_PHASES + ("cli_train_truth", "cli_train_eval",
+                                         "cli_train_direct"):
+            c = rec["counts"][phase]
+            log(f"  cli train {phase}: {rec['secs'][phase]:.3f} s; masked "
+                f"{c['masked_matmul']} (Hopper loop {c[WGMMA_LOOP]}, decode "
+                f"{c[DECODE]}, WMMA {c[WMMA_LOOP]}), sparse-LoRA "
+                f"{c['sparse_lora_matmul']}; attention {attn_routes(c)}")
+        if written != json.loads(json.dumps(e_stats, default=str)) or \
+                metrics["acc"] != 50.0 or metrics["agg_metrics"] != 50.0:
+            raise AssertionError(f"cli train: GQA {metrics}, not 50.00")
+        if [answers[i] for i in range(CLI_N_GQA)] != direct:
+            raise AssertionError("cli train: the eval call's answers differ "
+                                 "from a direct generate_t5 of the restored "
+                                 "model")
+        del restored, e_runner
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        raise AssertionError(f"cli train: {root} was not deleted")
+    log(f"  cli train: {root} (data and both checkpoints) deleted")
+    check_phase_counts(rec["counts"])
+    check_shapes(rec["shapes"], "cli train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["counts"], {
+        "cli_train_call_s": train_s,
+        "cli_train_eval_call_s": rec["secs"]["cli_train_eval"],
+        **{f"{k}_s": v for k, v in rec["secs"].items()},
+        "cli_train_prune_seconds": t_stats["prune_seconds"],
+        "cli_train_train_seconds": t_stats["train_seconds"],
+        "cli_train_steps": steps,
+        "cli_train_checkpoint_bytes": sizes[f"pruned_{job}"],
+        "cli_train_checkpoint_0_bytes": sizes["checkpoint_0"],
+        "cli_train_free_bytes": free,
+        "cli_train_gqa_acc": metrics["acc"],
+        "cli_train_peak_bytes": max(rec["peaks"].values())}
+
 
 def profile_first_order(e2e):
     """The first-order path's two gradient phases again under
@@ -5360,7 +5866,9 @@ def main() -> int:
         phases[name] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
 
-    log("[kernels] kernel vs plain version")
+    lengths = add_cli_train_shapes()
+    log(f"[kernels] kernel vs plain version (with the CLI train path's "
+        f"retrain shapes: its batches' longest captions {lengths} words)")
     worst = check_kernels()
     check_compressed_kernels(worst)
     check_dbias_kernel(worst)
@@ -5372,6 +5880,7 @@ def main() -> int:
     tiny_grid_pruners_check()
     tiny_vicuna_check()
     tiny_retrieval_check()
+    tiny_cli_train_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -5436,6 +5945,15 @@ def main() -> int:
     phase_done("cli path")
     counts.update(cl_counts)
     e2e.update(cl_e2e)
+    log("[cli train path] the launcher's T5 RESSA grid point through the "
+        "port's CLI: the train call (Wanda at batch 16, the cut; the "
+        "launcher's 1; masks kept; "
+        "SparseLoRA + KD, 3 steps at batch 32; merge; save), the GQA eval "
+        "call on the checkpoint, stripped")
+    ct_counts, ct_e2e = cli_train_path()
+    phase_done("cli train path")
+    counts.update(ct_counts)
+    e2e.update(ct_e2e)
     log("[profile] the main path, the SparseGPT prune, the first-order "
         "path's gradient phases and the grid path's prunes again under "
         "torch.profiler")

@@ -396,19 +396,25 @@ def test_cli_prunes_at_batch_1_over_prompts_of_several_lengths(tmp_path):
 
 
 def test_chip_smoke_drives_the_port_cli_only():
-    """chip_smoke's CLI path composes the launcher's argv itself: it
-    imports neither JAX, nor the JAX package, nor scripts/launch_lib (which
-    names the JAX CLI), at module level or inside a function."""
+    """chip_smoke's CLI paths drive the port's ``cli.evaluate`` and
+    ``cli.train``, the RESSA one on the argv of the port's launcher
+    (scripts/torch_launch_lib.py): it imports neither JAX, nor the JAX
+    package, nor scripts/launch_lib (which names the JAX CLI), at module
+    level or inside a function."""
     import ast
 
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    names = set()
+    names, clis = set(), set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
+            if node.module == "vlm_compression_tpu_torch.cli":
+                clis.update(a.name for a in node.names)
     assert "vlm_compression_tpu_torch.cli" in names
+    assert clis >= {"evaluate", "train"}
+    assert "torch_launch_lib" in names
     for name in names:
         top = name.split(".")[0]
         assert top not in ("jax", "vlm_compression_tpu", "launch_lib",

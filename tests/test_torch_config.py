@@ -295,7 +295,7 @@ def test_port_registry_names_what_it_builds():
     import vlm_compression_tpu_torch.tasks  # noqa: F401
 
     assert "image_text_pretrain" in registry.list_names("task")
-    assert registry.list_names("runner") == ["runner_base"]
+    assert registry.list_names("runner") == ["runner_base", "runner_iter"]
     for name in ("gqa", "prefix_conceptual_caption_3m", "flickr30k"):
         assert name in registry.list_names("builder")
     for name in ("blip_image_eval", "blip2_image_train", "clip_image_eval",

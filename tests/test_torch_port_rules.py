@@ -116,6 +116,12 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     m = Blip2T5Instruct(Blip2T5InstructConfig.tiny(), device="cpu")
     assert m.device == torch.device("cpu")
+    # the CLIs' entry points: the card unless --device says otherwise
+    from vlm_compression_tpu_torch.cli import evaluate, train
+
+    for cli in (evaluate, train):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.run(cli.parse_args(["--cfg-path", "unused.yaml"]))
 
 
 def test_wrappers_raise_instead_of_falling_back():

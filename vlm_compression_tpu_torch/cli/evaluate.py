@@ -28,14 +28,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-# flags that parse but are not ported: (flag, its value when unset, item)
-_NOT_PORTED = (("w8a8", False, 7), ("int8_outliers", 0, 7),
-               ("quantize_int4", False, 7), ("int4_group", 128, 7),
-               ("autotune", False, 9), ("speculative_gamma", 0, 9),
-               ("kv_cache_int8", False, 9), ("kv_cache_per_row", False, 9))
+# flags that parse but are not ported: (flag, item); each raises when set
+# to anything but the parser's default
+_NOT_PORTED = (("w8a8", 7), ("int8_outliers", 7), ("quantize_int4", 7),
+               ("int4_group", 7), ("autotune", 9), ("speculative_gamma", 9),
+               ("kv_cache_int8", 9), ("kv_cache_per_row", 9))
 
 
-def parse_args(argv=None):
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="evaluate (optionally prune)")
     p.add_argument("--cfg-path", default=None)
     p.add_argument("--options", nargs="+", default=None)
@@ -102,7 +102,11 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain PyTorch versions of the kernels)")
-    return p.parse_args(argv)
+    return p
+
+
+def parse_args(argv=None):
+    return _parser().parse_args(argv)
 
 
 def _leaf(name: str) -> str:
@@ -222,8 +226,9 @@ def run(args) -> Tuple[dict, object, object]:
         make_vicuna_batch_preparer,
     )
 
-    for flag, unset, item in _NOT_PORTED:
-        if getattr(args, flag) != unset:
+    parser = _parser()
+    for flag, item in _NOT_PORTED:
+        if getattr(args, flag) != parser.get_default(flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP queue 1, item {item})")
     device = resolve_device(args.device)

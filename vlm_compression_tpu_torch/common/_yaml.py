@@ -17,13 +17,19 @@ exponent).  Anything outside the subset raises ``ValueError``: anchors,
 aliases, tags, block scalars (``|``, ``>``), complex keys, directives,
 more than one document, tabs in indentation, and scalars or flow
 collections that continue on another line.
+
+``safe_dump_flat(mapping)`` writes a flat mapping of scalars (the
+sparsity allocation, the training statistics) as a block mapping that
+``yaml.safe_load`` and ``safe_load`` read back equal, keys sorted as
+``yaml.safe_dump`` sorts them.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import re
-from typing import Any, List, Tuple
+from typing import Any, List, Mapping, Tuple
 
 _SPACE = " \t"
 _FLOW = ",[]{}"
@@ -452,3 +458,46 @@ def safe_load(text: str) -> Any:
     """The document in ``text``, as ``yaml.safe_load`` reads it (within the
     subset; anything else raises ``ValueError``)."""
     return _Reader(text).document()
+
+
+def dump_scalar(v) -> str:
+    """A scalar as ``yaml.safe_dump`` writes it (floats keep a dot before
+    the exponent, as YAML 1.1 needs); strings double-quoted."""
+    if hasattr(v, "item") and not isinstance(v, str):
+        v = v.item()            # a numpy or torch scalar
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    return json.dumps(str(v))
+
+
+_PLAIN_KEY = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_./-]*\Z")
+
+
+def _dump_key(k) -> str:
+    if isinstance(k, str) and _PLAIN_KEY.match(k) and \
+            resolve_plain(k) == k:
+        return k
+    return dump_scalar(k)
+
+
+def safe_dump_flat(mapping: Mapping) -> str:
+    """``mapping`` (keys and values scalars) as a YAML block mapping, one
+    ``key: value`` line each, in sorted key order."""
+    for k, v in mapping.items():
+        if isinstance(v, (dict, list, tuple)):
+            raise ValueError(f"{k!r}: not a scalar ({type(v).__name__})")
+    return "".join(f"{_dump_key(k)}: {dump_scalar(mapping[k])}\n"
+                   for k in sorted(mapping))

@@ -8,13 +8,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import json
 import logging
 import os
 import time
 from typing import Dict, Optional
 
 import torch
+
+from vlm_compression_tpu_torch.common._yaml import safe_dump_flat
 
 
 def device_live_bytes() -> int:
@@ -37,27 +38,6 @@ def print_time(func):
         return out
 
     return wrapper
-
-
-def _yaml_scalar(v) -> str:
-    """A scalar as ``yaml.safe_dump`` writes it (floats keep a dot before
-    the exponent, as YAML 1.1 needs)."""
-    if v is None:
-        return "null"
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if isinstance(v, int):
-        return str(v)
-    if isinstance(v, float):
-        if v != v:
-            return ".nan"
-        if v in (float("inf"), float("-inf")):
-            return ".inf" if v > 0 else "-.inf"
-        text = repr(v).lower()
-        if "." not in text and "e" in text:
-            text = text.replace("e", ".0e", 1)
-        return text
-    return json.dumps(str(v))
 
 
 class PhaseTimer:
@@ -92,8 +72,7 @@ class PhaseTimer:
         if extra:
             payload.update(extra)
         with open(path, "w") as f:
-            for k in sorted(payload):
-                f.write(f"{k}: {_yaml_scalar(payload[k])}\n")
+            f.write(safe_dump_flat(payload))
         return path
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from vlm_compression_tpu_torch.common import dist
 from vlm_compression_tpu_torch.common.registry import registry
 from vlm_compression_tpu_torch.datasets import items as I
 from vlm_compression_tpu_torch.datasets.processors import load_processor
@@ -117,14 +118,34 @@ for _n in ("cc3m_prefix", "cc12m_prefix", "sbu_prefix", "vg_prefix",
     _register(_n, I.PrefixCaptionDataset, I.CaptionEvalDataset)
 
 
+@registry.register_builder("laion2B_multi")
+class Laion2BMultiBuilder(BaseDatasetBuilder):
+    """The LAION webdataset stream: train only; ``build_info.storage`` is a
+    brace pattern of local ``.tar`` shards.  ``max_train_samples`` is the
+    budget of the whole job, split over the processes."""
+
+    train_dataset_cls = I.LaionDataset
+
+    def build_datasets(self, max_train_samples: Optional[int] = None):
+        info = _get(self.config, "build_info", {}) or {}
+        world = dist.get_world_size()
+        per_process = (None if max_train_samples is None
+                       else -(-max_train_samples // world))
+        return {"train": I.LaionDataset(
+            vis_processor=self._processor("vis", "train"),
+            text_processor=self._processor("text", "train"),
+            location=_get(info, "storage", ""),
+            process_index=dist.get_rank(), process_count=world,
+            max_samples=per_process)}
+
+
 def load_builder(name: str, cfg=None) -> BaseDatasetBuilder:
     return registry.get_builder_class(name)(cfg)
 
 
 # not ported yet: the C4 text corpus (the derivative computation, item 6),
 # classification folders, NLVR, SNLI-VE, video and dialogue (the legacy
-# zoo's tasks, item 11), the LAION webdataset stream (the iteration
-# runner, item 4b)
+# zoo's tasks, item 11)
 _not_ported("c4", "text corpus", "6")
 for _n in ("imagenet", "cifar100"):
     _not_ported(_n, "classification", "11")
@@ -134,4 +155,3 @@ for _n in ("msrvtt_caption", "msvd_caption", "vatex_caption",
            "msrvtt_retrieval", "didemo_retrieval", "msrvtt_qa", "msvd_qa"):
     _not_ported(_n, "video", "11")
 _not_ported("avsd_dialogue", "video dialogue", "11")
-_not_ported("laion2B_multi", "webdataset stream", "4b")

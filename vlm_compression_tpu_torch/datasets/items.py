@@ -12,15 +12,20 @@ Annotations are JSON lists of dicts (LAVIS format):
 An image file ending in ``.npy`` is read with ``numpy.load`` (a uint8
 (H, W, 3) array: the form the card's machine reads, having no Pillow);
 any other file is decoded with Pillow, imported where it is read.  The
-text (C4), classification, NLVR, entailment, video and dialogue items and
-the LAION stream are not ported yet (ROADMAP queue 1, items 6, 11 and
-4b).
+LAION stream (``LaionDataset``) reads local webdataset tar shards the same
+way, member by member.  The text (C4), classification, NLVR, entailment,
+video and dialogue items are not ported yet (ROADMAP queue 1, items 6 and
+11).
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
+import re
+import tarfile
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -37,10 +42,12 @@ def _load_ann(paths) -> List[dict]:
     return out
 
 
-def load_image(path: str) -> np.ndarray:
-    """uint8 (H, W, 3): ``.npy`` through numpy, anything else decoded by
-    Pillow and converted to RGB."""
-    if path.endswith(".npy"):
+def load_image(path) -> np.ndarray:
+    """uint8 (H, W, 3) from a path or a file object of a tar member:
+    ``.npy`` through numpy, anything else decoded by Pillow and converted
+    to RGB."""
+    name = path if isinstance(path, str) else getattr(path, "name", "")
+    if name.endswith(".npy"):
         return np.load(path)
     from PIL import Image
 
@@ -164,3 +171,100 @@ class PrefixCaptionDataset(CaptionDataset):
     """CC3M / CC12M / SBU prefix-LM pretraining data — the RESSA
     calibration and retrain corpus.  The sample schema of
     ``CaptionDataset``; the task decides how the text is split."""
+
+
+def expand_braces(pattern: str) -> List[str]:
+    """Expand every webdataset-style numeric brace range
+    (``{00000..01743}``, zero-padded to the low bound's width); several
+    ranges expand as a cross product."""
+    m = re.search(r"\{(\d+)\.\.(\d+)\}", pattern)
+    if m is None:
+        return [pattern]
+    lo, hi = m.group(1), m.group(2)
+    heads = [pattern[: m.start()] + str(i).zfill(len(lo))
+             for i in range(int(lo), int(hi) + 1)]
+    return [h + tail for h in heads
+            for tail in expand_braces(pattern[m.end():])]
+
+
+class LaionDataset:
+    """Streaming (image, caption) pairs from local webdataset tar shards
+    (``location``: a brace pattern of ``.tar`` paths, or a list of them),
+    in the sample schema of ``CaptionDataset``.  A sample is the run of
+    members sharing one key: the first of ``.npy`` (numpy), ``.jpg``,
+    ``.jpeg``, ``.png``, ``.webp`` (Pillow) is its image; ``.json``'s
+    ``caption``, else ``.txt``, its caption; a key with no image is
+    skipped.  Shards are split over processes by
+    ``process_index::process_count``; a process stops after
+    ``max_samples``.  No length: it batches by draining
+    (``loaders.DataLoader``)."""
+
+    IMAGE_EXTS = (".npy", ".jpg", ".jpeg", ".png", ".webp")
+
+    def __init__(self, vis_processor, text_processor, location,
+                 process_index: int = 0, process_count: int = 1,
+                 max_samples: Optional[int] = None):
+        self.vis_processor = vis_processor
+        self.text_processor = text_processor
+        pats = [location] if isinstance(location, str) else list(location)
+        shards: List[str] = []
+        for p in pats:
+            shards.extend(expand_braces(p))
+        if shards and not any(os.path.exists(s) for s in shards):
+            raise FileNotFoundError(
+                f"no laion shard exists under {pats} "
+                f"({len(shards)} candidates, first: {shards[0]})")
+        self.shards = shards[process_index::process_count]
+        self.max_samples = max_samples
+        self.collater = BaseItemDataset.collater.__get__(self)
+
+    def _decode(self, key: str, blobs: Dict[str, bytes]
+                ) -> Optional[Dict[str, Any]]:
+        ext = next((e for e in self.IMAGE_EXTS if e in blobs), None)
+        if ext is None:
+            return None
+        caption = ""
+        if ".json" in blobs:
+            try:
+                caption = json.loads(blobs[".json"].decode()).get(
+                    "caption", "")
+            except (ValueError, AttributeError):
+                caption = ""
+        elif ".txt" in blobs:
+            caption = blobs[".txt"].decode("utf-8", "replace")
+        f = io.BytesIO(blobs[ext])
+        f.name = key + ext
+        return {"image": self.vis_processor(load_image(f)),
+                "text_input": self.text_processor(caption),
+                "text_output": self.text_processor(caption),
+                "image_id": key, "instance_id": key}
+
+    def _samples(self, tf: tarfile.TarFile):
+        key, blobs = None, {}
+        for member in tf:
+            if not member.isfile():
+                continue
+            k, ext = os.path.splitext(os.path.basename(member.name))
+            if key is not None and k != key:
+                yield self._decode(key, blobs)
+                blobs = {}
+            key = k
+            blobs[ext.lower()] = tf.extractfile(member).read()
+        if key is not None:
+            yield self._decode(key, blobs)
+
+    def __iter__(self):
+        yielded = 0
+        for shard in self.shards:
+            if not os.path.exists(shard):
+                warnings.warn(f"laion shard missing, skipping: {shard}")
+                continue
+            with tarfile.open(shard) as tf:
+                for s in self._samples(tf):
+                    if s is None:
+                        continue
+                    yield s
+                    yielded += 1
+                    if self.max_samples is not None and \
+                            yielded >= self.max_samples:
+                        return

@@ -4,7 +4,8 @@ of ``vlm_compression_tpu/datasets/loaders.py``).
 ``DataLoader`` batches a map-style item dataset through its ``collater``
 in the JAX loader's index order (``numpy`` shuffle seeded with
 seed + epoch, then the index list padded to a multiple of the world size
-and sliced by rank, so every rank sees the same number of batches);
+and sliced by rank, so every rank sees the same number of batches), and
+an iterable-only one (the LAION stream) by draining it;
 ``IterLoader`` re-enters epochs; ``MultiIterLoader`` samples loaders by
 ratio; ``PrefetchLoader`` prepares batches on a host thread, copying them
 to the card from pinned memory without blocking; ``prepare_sample`` moves
@@ -64,6 +65,14 @@ class DataLoader:
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
+    @property
+    def _streaming(self) -> bool:
+        """An iterable-only dataset (no ``__len__``) batches by draining
+        its iterator and shards itself over processes.  Its processes may
+        see different numbers of batches, so it trains by iterations
+        (``runner_iter``), not by epochs."""
+        return not hasattr(self.dataset, "__len__")
+
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         idx = np.arange(n)
@@ -78,11 +87,26 @@ class DataLoader:
         return idx
 
     def __len__(self):
+        if self._streaming:
+            raise TypeError(
+                "a streaming dataset has no length: train it by iterations "
+                "(runner_iter, run.iters_per_inner_epoch) or set "
+                "run.iters_per_epoch")
         n = len(self._indices())
         return n // self.batch_size if self.drop_last else \
             (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self):
+        if self._streaming:
+            buf = []
+            for item in self.dataset:
+                buf.append(item)
+                if len(buf) == self.batch_size:
+                    yield self.collate_fn(buf) if self.collate_fn else buf
+                    buf = []
+            if buf and not self.drop_last:
+                yield self.collate_fn(buf) if self.collate_fn else buf
+            return
         idx = self._indices()
         bs = self.batch_size
         stop = len(idx) - (len(idx) % bs) if self.drop_last else len(idx)

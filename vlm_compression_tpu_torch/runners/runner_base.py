@@ -1,4 +1,4 @@
-"""RunnerBase — the evaluation half of the JAX package's runner (port of
+"""RunnerBase — train and evaluation orchestration (port of
 ``vlm_compression_tpu/runners/runner_base.py``).
 
 It builds a loader per split (train: shuffled, ragged tail dropped,
@@ -6,23 +6,35 @@ cycling; eval: in order), hands the pruners their calibration batches,
 collects the model's last activations and runs the task's evaluation over
 ``run.test_splits``, with the model-size accounting the metric report
 carries.  Batches stay numpy on the host, as the JAX runner's do; the
-tasks and the pruners move them to the model's device.
+tasks and the pruners move them to the model's device, and the training
+loop moves each step's batch there.
 
-The training half (the train step, epochs, AdamW and the LR schedule) and
-checkpointing come with ``cli/train.py`` (ROADMAP queue 1, item 4b): they
-raise until then.
+Training: AdamW over the LoRA factors alone (the base frozen around them,
+``tasks/retrain.RessaTrainState``), the run config's LR schedule sampled
+at ``(epoch, i · accum_grad_iters)`` for optimizer step i, ``max(1, iters
+// accum_grad_iters)`` steps an epoch (``iters``: ``run.iters_per_epoch``
+or the loader's length), each over ``accum_grad_iters`` loader batches
+concatenated (ragged lengths padded).  The trained LoRA stays in the
+model.  A checkpoint is ``torch.save`` of ``{lora, opt_state (AdamW's
+state_dict), step, masks}`` at ``output_dir/checkpoint_<tag>``, with
+``checkpoint_meta.json`` beside it; ``run.resume_ckpt_path`` resumes from
+one (the epoch after the meta file's).
 """
 
 from __future__ import annotations
 
+import inspect
 import json
+import logging
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from vlm_compression_tpu_torch.common import dist
+from vlm_compression_tpu_torch.common.logger import MetricLogger, SmoothedValue
+from vlm_compression_tpu_torch.common.optims import make_lr_scheduler
 from vlm_compression_tpu_torch.common.registry import registry
 from vlm_compression_tpu_torch.datasets.loaders import (
     DataLoader,
@@ -31,6 +43,28 @@ from vlm_compression_tpu_torch.datasets.loaders import (
     concat_datasets,
     reorg_datasets_by_split,
 )
+from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+from vlm_compression_tpu_torch.tasks.retrain import RessaTrainState
+
+
+def _concat_micro_batches(micro: List[Dict[str, Any]]
+                          ) -> Dict[str, np.ndarray]:
+    """Stack prepared micro-batches along the batch dim, padding ragged
+    sequence lengths (labels with -100, everything else with 0)."""
+    out = {}
+    for k in micro[0]:
+        if not isinstance(micro[0][k], np.ndarray):
+            continue
+        arrs = [np.asarray(m[k]) for m in micro]
+        if arrs[0].ndim >= 2:
+            max_len = max(a.shape[1] for a in arrs)
+            fill = -100 if k == "labels" else 0
+            arrs = [np.pad(a, [(0, 0), (0, max_len - a.shape[1])]
+                           + [(0, 0)] * (a.ndim - 2),
+                           constant_values=fill)
+                    if a.shape[1] != max_len else a for a in arrs]
+        out[k] = np.concatenate(arrs, axis=0)
+    return out
 
 
 def _get(cfg, key, default=None):
@@ -41,12 +75,6 @@ def _get(cfg, key, default=None):
     else:
         v = getattr(cfg, key, default)
     return default if v is None else v
-
-
-def _training(what: str):
-    return NotImplementedError(
-        f"RunnerBase.{what} is the runner's training half: it comes with "
-        "cli/train.py (ROADMAP queue 1, item 4b)")
 
 
 @registry.register_runner("runner_base")
@@ -69,6 +97,58 @@ class RunnerBase:
         self.output_dir = _get(self.run_cfg, "output_dir", "output/" + job_id)
         os.makedirs(os.path.join(self.output_dir, "result"), exist_ok=True)
         self._dataloaders = None
+        self._train_state = None
+        self._train_step = None
+        self._lr_sched = None
+        # one entry per optimizer step: epoch, iter, lr, loss, ce, kl
+        self.step_metrics: List[Dict[str, float]] = []
+
+    # ------------------------------------------------------------------
+    # training pieces, built on first use
+    # ------------------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    @property
+    def train_state(self) -> RessaTrainState:
+        """The LoRA factors and their AdamW, over the model as it is when
+        first asked for (a caller that prunes after that sets
+        ``_train_state`` to None)."""
+        if self._train_state is None:
+            self._train_state = RessaTrainState.create(
+                self.model,
+                weight_decay=float(_get(self.run_cfg, "weight_decay", 0.05)),
+                beta2=float(_get(self.run_cfg, "beta2", 0.999)))
+        return self._train_state
+
+    @property
+    def optimizer(self) -> torch.optim.Optimizer:
+        return self.train_state.opt
+
+    @property
+    def lr_scheduler(self):
+        if self._lr_sched is None:
+            self._lr_sched = make_lr_scheduler(self.run_cfg)
+        return self._lr_sched
+
+    @property
+    def accum_grad_iters(self) -> int:
+        return int(_get(self.run_cfg, "accum_grad_iters", 1))
+
+    @property
+    def train_step(self):
+        """The task's step over the current optimizer: ``step(batch, lr)
+        -> {"loss", "ce", "kl"}``."""
+        opt = self.optimizer
+        if self._train_step is None or self._train_step[0] is not opt:
+            kw = {}
+            if "accum_grad_iters" in inspect.signature(
+                    self.task.make_train_step).parameters:
+                kw["accum_grad_iters"] = self.accum_grad_iters
+            self._train_step = (opt, self.task.make_train_step(
+                self.model, opt, **kw))
+        return self._train_step[1]
 
     # ------------------------------------------------------------------
     # loaders
@@ -128,7 +208,7 @@ class RunnerBase:
         dss = by_split.get(splits[0]) or next(iter(by_split.values()))
         ds = dss[0] if len(dss) == 1 else concat_datasets(dss)
         dl = DataLoader(ds, batch_size, shuffle=False)
-        dev = next(self.model.parameters()).device
+        dev = self.device
 
         texts, logits_list = [], []
         seen = 0
@@ -149,28 +229,148 @@ class RunnerBase:
         return {"texts": texts, "logits": np.concatenate(padded, axis=0)}
 
     # ------------------------------------------------------------------
-    # training and checkpoints: item 4b
+    # training
     # ------------------------------------------------------------------
-    def train(self, prune_retrain: bool = False):
-        raise _training("train")
+    def train(self, prune_retrain: bool = False) -> Dict[int, Dict[str, str]]:
+        """Epochs from ``start_epoch`` (resumed where ``run.resume_ckpt_path``
+        says): train, then validate and keep the best checkpoint where a
+        ``val`` split runs (``run.valid_splits`` may rule it out), else
+        checkpoint the epoch.  ``prune_retrain``: one epoch only."""
+        best_agg = -1e18
+        self._load_checkpoint_if_resume()
+        stats_all = {}
+        for epoch in range(self.start_epoch, self.max_epoch):
+            stats = self.train_epoch(epoch)
+            self.log_stats(stats, split_name="train")
+            stats_all[epoch] = stats
 
-    def train_epoch(self, epoch: int):
-        raise _training("train_epoch")
+            val = self.dataloaders.get("val")
+            vsplits = _get(self.run_cfg, "valid_splits", None)
+            if vsplits is not None and "val" not in vsplits:
+                val = None
+            if val is not None:
+                metrics = self.eval_epoch("val")
+                agg = float(metrics.get("agg_metrics", 0.0)) if metrics \
+                    else 0.0
+                if agg > best_agg:
+                    best_agg = agg
+                    self._save_checkpoint(epoch, is_best=True)
+                self.log_stats(metrics or {}, split_name="val")
+            else:
+                self._save_checkpoint(epoch, is_best=False)
+            if prune_retrain:
+                break
+        return stats_all
 
-    @property
-    def train_step(self):
-        raise _training("train_step")
+    def train_epoch(self, epoch: int) -> Dict[str, str]:
+        """``max(1, iters // accum)`` optimizer steps; a finite loader is
+        entered again when it runs out mid-epoch."""
+        loader = self.dataloaders["train"]
+        iters = int(_get(self.run_cfg, "iters_per_epoch", 0)) or len(loader)
+        accum = self.accum_grad_iters
+        opt_steps = max(1, iters // accum)
+        logger = MetricLogger(delimiter="  ")
+        logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
+        logger.add_meter("loss", SmoothedValue(window_size=1,
+                                               fmt="{value:.4f}"))
+        state, step, dev = self.train_state, self.train_step, self.device
+        it = iter(loader)
+
+        def pull():
+            nonlocal it
+            try:
+                return next(it)
+            except StopIteration:
+                it = iter(loader)
+                return next(it)
+
+        for i in logger.log_every(range(opt_steps),
+                                  int(_get(self.run_cfg, "log_freq", 50)),
+                                  f"Train: data epoch: [{epoch}]"):
+            if accum == 1:
+                batch = self.prepare_batch(pull())
+            else:
+                batch = _concat_micro_batches(
+                    [self.prepare_batch(pull()) for _ in range(accum)])
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in batch.items()
+                     if isinstance(v, np.ndarray) and v.dtype != object}
+            # the schedule of the micro-iterations, sampled at the first
+            # micro index of the step
+            lr = self.lr_scheduler(epoch, i * accum)
+            metrics = {k: float(v) for k, v in step(batch, lr).items()}
+            state.step += 1
+            self.step_metrics.append({"epoch": epoch, "iter": i, "lr": lr,
+                                      **metrics})
+            logger.update(loss=metrics["loss"], lr=lr)
+        logger.synchronize_between_processes()
+        return {k: f"{m.global_avg:.3f}" for k, m in logger.meters.items()}
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _ckpt_path(self, tag) -> str:
+        return os.path.abspath(
+            os.path.join(self.output_dir, f"checkpoint_{tag}"))
+
+    def _masks(self) -> Dict[str, torch.Tensor]:
+        return {f"{name}.mask": m.mask for name, m in
+                self.model.named_modules()
+                if isinstance(m, SparseLinear) and m.mask is not None}
 
     def _save_checkpoint(self, cur_epoch, is_best: bool = False):
-        raise _training("_save_checkpoint")
+        if not dist.is_main_process():
+            return
+        state = self.train_state
+        payload = {"lora": {n: p.detach() for n, p in state.lora.items()},
+                   "opt_state": state.opt.state_dict(), "step": state.step,
+                   "masks": self._masks()}
+        path = self._ckpt_path("best" if is_best else cur_epoch)
+        torch.save(payload, path)
+        with open(os.path.join(self.output_dir, "checkpoint_meta.json"),
+                  "w") as f:
+            epoch = cur_epoch if isinstance(cur_epoch, int) else -1
+            json.dump({"epoch": epoch, "tag": str(cur_epoch),
+                       "best": bool(is_best)}, f)
+        logging.info("Saved checkpoint to %s", path)
+
+    @torch.no_grad()
+    def _restore(self, path: str, with_optimizer: bool) -> None:
+        """The checkpoint's LoRA and masks into the model (and its AdamW
+        state and step into the train state)."""
+        payload = torch.load(path, map_location=self.device,
+                             weights_only=True)
+        state = self.train_state
+        lora = state.lora
+        if set(payload["lora"]) != set(lora):
+            raise KeyError(f"{path}: LoRA factors "
+                           f"{sorted(set(payload['lora']) ^ set(lora))[:4]} "
+                           "do not match the model's")
+        for n, p in lora.items():
+            p.copy_(payload["lora"][n])
+        for name, mask in payload["masks"].items():
+            set_mask(self.model.get_submodule(name.rpartition(".")[0]), mask)
+        if with_optimizer:
+            state.opt.load_state_dict(payload["opt_state"])
+            state.step = int(payload["step"])
 
     def _load_checkpoint_if_resume(self):
-        raise _training("_load_checkpoint_if_resume")
+        path = _get(self.run_cfg, "resume_ckpt_path")
+        if not path:
+            return
+        path = os.path.abspath(path)
+        self._restore(path, with_optimizer=True)
+        meta = os.path.join(os.path.dirname(path), "checkpoint_meta.json")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                self.start_epoch = json.load(f).get("epoch", 0) + 1
+        logging.info("Resumed from %s (start_epoch=%d)", path,
+                     self.start_epoch)
 
     def _reload_best_model(self):
-        if os.path.exists(os.path.abspath(
-                os.path.join(self.output_dir, "checkpoint_best"))):
-            raise _training("_reload_best_model")
+        path = self._ckpt_path("best")
+        if os.path.exists(path):
+            self._restore(path, with_optimizer=False)
 
     # ------------------------------------------------------------------
     # evaluation

@@ -25,6 +25,7 @@ from vlm_compression_tpu_torch.common.optims import make_adamw, set_lr
 from vlm_compression_tpu_torch.common.registry import registry
 from vlm_compression_tpu_torch.models.layers import SparseLinear, lora_linears
 from vlm_compression_tpu_torch.ops.masked_linear import merge_sparse_lora
+from vlm_compression_tpu_torch.tasks.base import BaseTask
 
 _LORA = ("lora_a", "lora_b")
 
@@ -148,10 +149,12 @@ def apply_masks_to_params(model: nn.Module) -> nn.Module:
 
 
 @registry.register_task("image_text_retrain")
-class ImageTextRetrainTask:
-    """The KD retrain step's settings (kl_weight, T) from a run config."""
+class ImageTextRetrainTask(BaseTask):
+    """The KD retrain step's settings (kl_weight, T) from a run config;
+    the datasets and the evaluation loop are ``BaseTask``'s."""
 
     def __init__(self, kl_weight: float = 0.01, T: float = 2.0):
+        super().__init__()
         self.kl_weight = kl_weight
         self.T = T
 
