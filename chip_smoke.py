@@ -46,18 +46,20 @@ each of which fails the run (non-zero exit, no result line) on error:
                 ranking decoder at M = 8192, its cross k/v at 90112 rows;
                 attention at batch 320 and 2048); the Vicuna path's
                 (LLaMA's linears at K, N ∈ {4096, 11008}; its attention at
-                d = 128 on the mma.sync kernel, under LLaMA's one additive
-                bias: the calibration sweep, the primes and the decode
-                steps at b = 20 and 320, and rows that see no valid key),
+                d = 128 on the TMA + wgmma kernel and on the mma.sync
+                route, under LLaMA's one additive bias: the calibration
+                sweep, the primes and the decode steps at b = 20 and 320,
+                the retrain's forward, and rows that see no valid key),
                 two identical calls bit-equal there too; the caption
                 pass's (the T5 encoder over 32 + 3 tokens, its cross k/v
                 for 320 × 35 rows, the decoder's self-attention over up to
                 31 cache slots); the Vicuna retrain's (sparse-LoRA at
                 LLaMA's widths, M = 32 × 72, r = 8, the down projection at
                 K = 11008; the Q-Former's attention over 32 + 34 tokens;
-                the attention backward at d = 128 on the
-                mma.sync kernels under the causal + pad bias, against the
-                plain version in bf16 and fp32, two calls bit-equal); the
+                the attention backward at d = 128 on the TMA + wgmma
+                kernel and the mma.sync route under the causal + pad bias,
+                against the plain version in bf16 and fp32, two calls of
+                the TMA + wgmma one bit-equal); the
                 retrieval path's (the pruned ViT at the eval loader's
                 ragged last batch, b = 32, M = 32 × 257; the stage-1
                 Q-Former's queries-only image pass at b = 64 and 32, its
@@ -187,11 +189,11 @@ each of which fails the run (non-zero exit, no result line) on error:
                 ``make_vicuna_batch_preparer``, LLaMA at n = m = 72, the
                 Q-Former at 32 + 34 in every batch) with the main path's
                 gates (1 cold + 3 timed steps at batch 32, the first two
-                replayed bit-equal; LLaMA's attention backward on the
-                mma.sync kernels at d = 128, no bias gradient, no
-                WMMA-loop launch; every shape launched, sparse-LoRA and
-                backward included, one that phase 3 checked), one more
-                step profiled,
+                replayed bit-equal; LLaMA's attention forward and
+                backward at d = 128 on the TMA + wgmma kernels, none on
+                the mma.sync ones, no bias gradient, no WMMA-loop launch;
+                every shape launched, sparse-LoRA and backward included,
+                one that phase 3 checked), one more step profiled,
                 the sparse merge (zero off the masks, 0.5 ± 0.01) and
                 beam-5 generate from the merged model; then, rebuilt dense
                 from seed 4, the Vicuna grid's DSnoT entry
@@ -298,16 +300,17 @@ prune and the Fisher, the bool kernel in a packed or int8 phase, the
 packed one in an int8 phase; any kernel in the magnitude and random
 prunes; any attention backward in the DSnoT and zeroth prunes; the dbias
 outputs, the masked matmul and the WMMA loop in the aobd prune; the dbias
-outputs, the separate dbias kernel and the WMMA loop in the Vicuna
-retrain, which must run the sparse-LoRA kernel on the Hopper loop and
-both attention routes forward and backward); the decode kernel in every generate
+outputs, the separate dbias kernel, the WMMA loop and the mma.sync
+attention forward and backward in the Vicuna retrain, which must run the
+sparse-LoRA kernel on the Hopper loop and the TMA + wgmma attention
+forward and backward); the decode kernel in every generate
 phase of a masked or int8 model, and no WMMA-loop launch at all in any
 generate phase, the retrain step or the three VQA phases (which must run
-the Hopper loop and the TMA + wgmma forward) or the caption pass, nor in any phase of the
-Vicuna path, its prune included (whose LLaMA forwards must run the
-mma.sync route).  WMMA-loop launches left in other
-phases are printed with their shapes and why the other loops refused
-them.
+the Hopper loop and the TMA + wgmma forward) or the caption pass, nor in
+any phase of the Vicuna path, its prune included, and no mma.sync
+attention forward there (LLaMA's d = 128 runs the TMA + wgmma kernel).
+WMMA-loop launches left in other phases are printed with their shapes and
+why the other loops refused them.
 
 The last lines are the kernel JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -599,15 +602,15 @@ FLASH_SHAPES += [
 # the retrain's attention backward shapes (add_cli_train_shapes)
 CLI_TRAIN_BWD_SHAPES: list = []
 # the Vicuna path (vicuna_path): LLaMA's self-attention, 32 heads of
-# d = 128 (the mma.sync kernel: plan_forward sends TMA + wgmma only
-# d <= 96), under one additive bias as the JAX package builds it — the
+# d = 128 (the TMA + wgmma kernel at DP = 128, like every other tower's
+# attention), under one additive bias as the JAX package builds it — the
 # calibration sweep (causal + right-padded text, b = 128), the primes (the
 # cache's pad bias over the left-padded prompt + the step visibility,
 # n = P, m = P + max_length) and the decode steps (n = 1 over the whole
 # cache) of the 4-request generate (b = 20) and of the VQA eval (b = 320).
-# A list of its own: the TMA + wgmma route does not take d = 128, and the
-# scripts that force that route read FLASH_SHAPES.  vicuna_path fails if
-# it launches a shape not listed
+# A list of its own (the Vicuna path's; phase 3 holds both routes at each
+# shape, as at FLASH_SHAPES'; scripts/torch_fwd_check.py reads both).
+# vicuna_path fails if it launches a shape not listed
 VICUNA_FLASH_SHAPES = [
     ("llama_self_calib", 128, 72, 72, 32, 128, ["cpad"], 128 ** -0.5),
     ("llama_prime_gen", 20, 71, 81, 32, 128, ["lpad"], 128 ** -0.5),
@@ -618,9 +621,11 @@ VICUNA_FLASH_SHAPES = [
     # text tokens at the train batch, the forward of the backward below
     ("llama_self_train", 32, 72, 72, 32, 128, ["cpad"], 128 ** -0.5),
 ]
-# the Vicuna shapes timed for the forward's row of the kernel line: the
-# mma.sync kernel at the VQA eval's prime and beam-decode step
-FLASH_VICUNA_TIMED = ("llama_prime_vqa", "llama_beam_step")
+# the Vicuna shapes timed for the forward's row of the kernel line (the
+# TMA + wgmma kernel at d = 128, the mma.sync route's time beside it): the
+# VQA eval's prime and beam-decode step, the retrain's forward
+FLASH_VICUNA_TIMED = ("llama_prime_vqa", "llama_beam_step",
+                      "llama_self_train")
 
 # retraining (scripts/launch_lib.py:87-125 train_ressa;
 # configs/projects/train/continue_stage2_cc3m_t5_instruct.yaml): SparseLoRA
@@ -676,24 +681,40 @@ BWD_SHAPES = [
     # the Vicuna retrain (vicuna_retrain): the Q-Former's self-attention
     # over 32 query tokens + the batch's longest prompt, 34 words
     # (vicuna_train_batches gives every batch one); LLaMA's
-    # self-attention: d = 128, so the mma.sync kernels (``plan`` sends
-    # TMA + wgmma only d <= 96), under the one additive causal + pad bias,
-    # which takes no gradient
+    # self-attention: d = 128 (the TMA + wgmma kernel at DP = 128, its dV
+    # and dQ products on a warpgroup of their own), under the one additive
+    # causal + pad bias, which takes no gradient
     ("qformer_self_vicuna", 32, 66, 66, 12, 64, ["pad"], 0.125),
     ("llama_self", 32, 72, 72, 32, 128, ["cpad"], 128 ** -0.5),
 ]
 BWD_TIMED = "vit_self"
+# more backward gates at LLaMA's head dim (b, n, m, h, d, biases, scale,
+# causal, dq, dk/dv): four q and kv tiles under the calibration's causal +
+# pad bias, with dq alone and dk/dv alone; the causal flag at n = m and
+# n > m
+BWD_D128_EXTRA = [
+    ("llama_cpad_200", 2, 200, 200, 8, 128, ["cpad"], 128 ** -0.5, False,
+     True, True),
+    ("llama_cpad_200_dq_only", 2, 200, 200, 8, 128, ["cpad"], 128 ** -0.5,
+     False, True, False),
+    ("llama_cpad_200_dkv_only", 2, 200, 200, 8, 128, ["cpad"], 128 ** -0.5,
+     False, False, True),
+    ("llama_causal_200", 2, 200, 200, 4, 128, [], 128 ** -0.5, True, True,
+     True),
+    ("llama_causal_200_130", 2, 200, 130, 4, 128, [], 128 ** -0.5, True,
+     True, True)]
 
 
 def bwd_at(batch: int) -> list:
     """The BWD_SHAPES shapes the TMA + wgmma backward takes (``plan``),
     at another batch: 1 for the diagonal Fisher, 16 for the first-order
-    allocation's and the aobd pruner's passes."""
+    allocation's and the aobd pruner's passes (on the XL model: LLaMA's
+    backward runs in the Vicuna retrain alone)."""
     from vlm_compression_tpu_torch.ops import attention as A
 
     return [(f"{name}_b{batch}", batch, n, m, h, d, kinds, scale)
             for name, _, n, m, h, d, kinds, scale in BWD_SHAPES
-            if A.plan(n, m, d) == A.WGMMA]
+            if A.plan(n, m, d) == A.WGMMA and not name.startswith("llama")]
 
 
 def bwd_held() -> list:
@@ -756,6 +777,9 @@ DBIAS_SHAPES = [
     ("pad_n_ne_m", 4, 32, 257, 12, 64, ["pad"], 0.125, False),
     ("key_dim_1", 4, 72, 72, 8, 64, ["keyd1"], 0.125, False),
     ("ragged_200", 2, 200, 200, 4, 64, ["rel"], 0.125, False),
+    # the TMA + wgmma backward's d = 128 instantiation with its dbias
+    # output: four q and kv tiles, the causal flag hiding some
+    ("rel_causal_d128", 2, 200, 200, 4, 128, ["rel"], 128 ** -0.5, True),
 ]
 DBIAS_TIMED = "t5_encoder_b16"
 # the diagonal Fisher's batch-1 shape, the one dbias is launched at
@@ -960,8 +984,9 @@ def check_kernels():
                 raise AssertionError(f"masked_matmul {name} {dtype}")
             worst[("masked_matmul", name, dtype)] = err
         # the forward on the route ``plan_forward`` picks (bf16: the TMA +
-        # wgmma kernel at every shape here) and, in bf16, on the mma.sync
-        # route too; causal masking, including n > m rows that see no key
+        # wgmma kernel at every shape here, LLaMA's d = 128 included) and,
+        # in bf16, on the mma.sync route too; causal masking, including
+        # n > m rows that see no key
         cases = [(name, b, n, m, h, d, kinds, scale, False)
                  for name, b, n, m, h, d, kinds, scale in
                  FLASH_SHAPES + VICUNA_FLASH_SHAPES]
@@ -996,10 +1021,13 @@ def check_kernels():
                 if impl is None and not causal:
                     worst[("flash_attention", name, dtype)] = err
     # both bf16 forwards sum in a fixed order (no atomics): two identical
-    # calls of the planned route at every shape are bit-equal (TMA +
-    # wgmma at d <= 96; mma.sync at LLaMA's d = 128)
+    # calls of the planned route (TMA + wgmma, at LLaMA's d = 128 too) at
+    # every shape are bit-equal, LLaMA's rows that see no valid key
+    # included
     for name, b, n, m, h, d, kinds, scale in \
-            FLASH_SHAPES + VICUNA_FLASH_SHAPES:
+            FLASH_SHAPES + VICUNA_FLASH_SHAPES + [
+                ("llama_rows_seeing_no_key", 4, 44, 55, 32, 128, ["lpad0"],
+                 128 ** -0.5)]:
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
         route = A.plan_forward(n, m, d)
         out1, lse1 = A.flash_attention(q, k_, v, biases, scale, _impl=route)
@@ -1009,7 +1037,7 @@ def check_kernels():
                                  "identical calls differ")
     log("  flash_attention, the planned bf16 route: two identical calls "
         "bit-equal (out and lse) at every FLASH_SHAPES and "
-        "VICUNA_FLASH_SHAPES shape")
+        "VICUNA_FLASH_SHAPES shape and llama_rows_seeing_no_key")
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[-1]]
         # sparse-LoRA: the kernel sums Σ_r A·B in another order than the
@@ -1057,6 +1085,11 @@ def check_kernels():
                    False, True, False),
                   ("vit_self_dkv_only", 4, 257, 257, 16, 88, [], 88 ** -0.5,
                    False, False, True)]
+        # LLaMA's d = 128 at four q and kv tiles (the dK warpgroup reuses
+        # each Pᵀ and dSᵀ buffer after the dV/dQ one frees it), causal, and
+        # with dq alone (no dK or dV product) and dk/dv alone (no dQ
+        # product)
+        cases += BWD_D128_EXTRA
         routes = [None] if dtype == torch.float32 else [None, A.MMA]
         for name, b, n, m, h, d, kinds, scale, causal, ndq, ndkv in cases:
             q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
@@ -1071,7 +1104,7 @@ def check_kernels():
             want = A.flash_attention_backward_ref(q, k_, v, out, lse, g,
                                                   biases, scale, causal)
             planned = A.plan(n, m, d, bf16=dtype == torch.bfloat16)
-            # where the plan is mma.sync already (LLaMA's d = 128), once
+            # where the plan is mma.sync already, once
             for impl in (routes if planned != A.MMA else [None]):
                 route = impl or planned
                 before = A.bwd_wgmma_launches
@@ -1105,9 +1138,10 @@ def check_kernels():
                         errs[1][0], errs[2][0])
     # dq is summed over the kv tiles in one fixed order (a slab a kv tile,
     # added by the cast; no atomics), dk and dv in registers: two identical
-    # calls of the planned route are bit-equal at every training shape and
-    # at the towers' batch 1 and 16
-    for name, b, n, m, h, d, kinds, scale in bwd_held():
+    # calls of the planned route are bit-equal at every training shape, at
+    # the towers' batch 1 and 16 and at LLaMA's d = 128 over four kv tiles
+    for name, b, n, m, h, d, kinds, scale in bwd_held() + [
+            c[:8] for c in BWD_D128_EXTRA if c[9] and c[10] and not c[8]]:
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
         g = grad_like(q)
         out, lse = A.flash_attention(q, k_, v, biases, scale)
@@ -2009,7 +2043,8 @@ BWD_WGMMA = "bwd_wgmma"
 # flash_attention count is every forward's, on either route
 FWD_WGMMA = "fwd_wgmma"
 # "fwd_mma_or_fp32" counts the forwards on the other routes (the bf16
-# mma.sync kernel, which takes LLaMA's d = 128, and the fp32 one)
+# mma.sync kernel, for views TMA cannot take and d off the wgmma kernel's,
+# and the fp32 one)
 FWD_MMA = "fwd_mma_or_fp32"
 # "bwd_dbias_outputs" counts the bias gradients the TMA + wgmma backward
 # returned (each an output of one of its launches); the
@@ -2086,33 +2121,36 @@ PHASE_KERNELS.update(
     rand_prune=(), mag_global=(),
     aobd_prune=("flash_attention", FWD_WGMMA, BWD_WGMMA),
     zeroth_prune=PRUNE + (FWD_WGMMA,), generate_zeroth=SERVE)
-# the Vicuna path: the ViT and Q-Former forwards on TMA + wgmma, LLaMA's
-# (d = 128) on mma.sync; no backward, and no WMMA-loop launch in any of
-# its phases (the prune included)
-VICUNA_GEN = SERVE + (FWD_WGMMA, FWD_MMA)
-VICUNA_VQA = VQA + (FWD_MMA,)
+# the Vicuna path: every attention forward on TMA + wgmma, LLaMA's (d =
+# 128) too, none on the mma.sync kernel; no backward, and no WMMA-loop
+# launch in any of its phases (the prune included)
+VICUNA_GEN = SERVE + (FWD_WGMMA,)
 PHASE_KERNELS.update(
-    vicuna_prune=PRUNE + (FWD_WGMMA, FWD_MMA),
+    vicuna_prune=PRUNE + (FWD_WGMMA,),
     generate_vicuna_cold=VICUNA_GEN, generate_vicuna_warm=VICUNA_GEN,
-    vqa_vicuna_gqa=VICUNA_VQA, vqa_vicuna_okvqa=VICUNA_VQA)
-PHASE_FORBIDDEN.update(vicuna_prune=BACKWARD + (WMMA_LOOP,))
+    vqa_vicuna_gqa=VQA, vqa_vicuna_okvqa=VQA)
+PHASE_FORBIDDEN.update(vicuna_prune=BACKWARD + (WMMA_LOOP, FWD_MMA))
 # the Vicuna retrain: sparse-LoRA on the Hopper loop (ViT r 4, LLaMA r 8),
-# the ViT's and Q-Former's attention forward and backward on TMA + wgmma,
-# LLaMA's (d = 128) on the mma.sync kernels; no bias takes a gradient (no
+# every attention forward and backward on TMA + wgmma (LLaMA's d = 128
+# included), none on the mma.sync kernels; no bias takes a gradient (no
 # dbias output, no separate dbias kernel) and nothing runs the WMMA loop;
 # then the merged model's generate
 PHASE_KERNELS.update(
     vicuna_retrain=("sparse_lora_matmul", "flash_attention", FWD_WGMMA,
-                    FWD_MMA, BWD_WGMMA, "flash_attention_bwd_dq",
-                    "flash_attention_bwd_dkv", WGMMA_LOOP),
+                    BWD_WGMMA, WGMMA_LOOP),
     generate_vicuna_merged=VICUNA_GEN)
-PHASE_FORBIDDEN.update(vicuna_retrain=("flash_attention_bwd_dbias",
-                                       BWD_DBIAS, WMMA_LOOP))
+PHASE_FORBIDDEN.update(vicuna_retrain=(
+    "flash_attention_bwd_dbias", BWD_DBIAS, WMMA_LOOP, FWD_MMA,
+    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
 # the Vicuna grid's DSnoT entry sweeps as the Wanda prune does (its
 # refinement runs no kernel of the port); then the generate
-PHASE_KERNELS.update(vicuna_dsnot_prune=PRUNE + (FWD_WGMMA, FWD_MMA),
+PHASE_KERNELS.update(vicuna_dsnot_prune=PRUNE + (FWD_WGMMA,),
                      generate_vicuna_dsnot=VICUNA_GEN)
-PHASE_FORBIDDEN.update(vicuna_dsnot_prune=BACKWARD + (WMMA_LOOP,))
+PHASE_FORBIDDEN.update(vicuna_dsnot_prune=BACKWARD + (WMMA_LOOP, FWD_MMA))
+for _phase in ("generate_vicuna_cold", "generate_vicuna_warm",
+               "vqa_vicuna_gqa", "vqa_vicuna_okvqa", "generate_vicuna_merged",
+               "generate_vicuna_dsnot"):
+    PHASE_FORBIDDEN[_phase] = PHASE_FORBIDDEN.get(_phase, ()) + (FWD_MMA,)
 # the retrieval path: the stage-1 model's ViT prune, then the eval passes
 # (the pruned ViT's masked matmuls on the Hopper loop, every attention on
 # TMA + wgmma; the Q-Former holds no mask, so its text-only branch runs
@@ -2299,6 +2337,21 @@ def run_phase(rec: dict, phase: str, fn):
 
 def new_record() -> dict:
     return {"counts": {}, "shapes": {}, "secs": {}, "peaks": {}}
+
+
+def d128_launches(shapes: dict) -> dict:
+    """LLaMA's d = 128 attention launches, forward and backward, by route
+    in each phase (``shapes``: phase → ``read_shapes()``)."""
+    out = {}
+    for phase, tally in shapes.items():
+        row = {"forward": {}, "backward": {}}
+        for part, key in (("forward", "attention"),
+                          ("backward", "attention_bwd")):
+            for (_, _, _, _, d, route), c in tally[key].items():
+                if d == 128:
+                    row[part][route] = row[part].get(route, 0) + c
+        out[phase] = row
+    return out
 
 
 def check_phase_counts(counts):
@@ -4111,7 +4164,20 @@ def vicuna_path():
     torch.cuda.empty_cache()
     dsnot_counts, dsnot = vicuna_dsnot(req, gen_cfg)
     counts.update(dsnot_counts)
+    # LLaMA's d = 128 attention by phase and route: each phase launched
+    # it, on the TMA + wgmma kernels alone (the mma.sync counters also
+    # read 0 there: check_phase_counts)
+    d128 = d128_launches(shapes)
+    d128.update(dsnot.pop("vicuna_d128_dsnot"))
+    log(f"  vicuna: LLaMA's d = 128 attention launches by phase and route "
+        f"{json.dumps(d128)}")
+    for phase, row in d128.items():
+        if not row["forward"] or set(row["forward"]) != {"wgmma"} or \
+                set(row["backward"]) - {"wgmma"} or \
+                (phase == "vicuna_retrain") != bool(row["backward"]):
+            raise AssertionError(f"vicuna {phase}: d = 128 launches {row}")
     return counts, {
+        "vicuna_d128_launches": d128,
         **retrain, **dsnot,
         "vicuna_prune_s": secs["vicuna_prune"],
         "vicuna_generate_cold_s": secs["generate_vicuna_cold"],
@@ -4130,7 +4196,7 @@ def vicuna_retrain(model, req, gen_cfg, counts, shapes, secs) -> dict:
     """RESSA retraining of the pruned InstructBLIP-Vicuna-7B (the main
     path's ``run_retrain`` and its gates, on batches collated by
     ``make_vicuna_batch_preparer``: LLaMA at n = m = 72, d = 128 on the
-    mma.sync backward), one more KD step profiled (busy share, device time
+    TMA + wgmma backward), one more KD step profiled (busy share, device time
     by kernel group), the sparse merge (each tower zero off its masks, at
     0.5 ± 0.01), and beam-5 ``generate_vicuna`` on the merged model.  Adds
     its phases to ``counts`` / ``shapes`` and checks them (launch gates;
@@ -4264,7 +4330,8 @@ def vicuna_dsnot(req, gen_cfg) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return rec["counts"], {
-        **e2e, "vicuna_dsnot_prune_s": secs["vicuna_dsnot_prune"],
+        **e2e, "vicuna_d128_dsnot": d128_launches(rec["shapes"]),
+        "vicuna_dsnot_prune_s": secs["vicuna_dsnot_prune"],
         "vicuna_dsnot_peak_bytes": peaks["vicuna_dsnot_prune"],
         "vicuna_dsnot_loss": loss,
         "vicuna_generate_dsnot_s": secs["generate_vicuna_dsnot"]}
@@ -5642,9 +5709,8 @@ def timing():
         g = grad_like(q)
         out, lse = A.flash_attention(q, k_, v, biases, scale)
         args = (q, k_, v, out, lse, g, biases, scale)
-        # the planned route against the library: TMA + wgmma at the
-        # towers' d <= 96, mma.sync at LLaMA's d = 128 (which TMA + wgmma
-        # does not take)
+        # the planned route against the library: TMA + wgmma at every
+        # shape, LLaMA's d = 128 included
         route = A.plan(n, m, d)
         lib = against_library(
             lambda: A.flash_attention_backward(*args, _impl=route),
@@ -5973,11 +6039,15 @@ def main() -> int:
 
     # the attention forward's row reports its TMA + wgmma route (its time
     # and launches, beside the mma.sync route's time and the other
-    # routes' launches); the backward's two rows both report the TMA +
+    # routes' launches), and LLaMA's d = 128 shapes on their planned route
+    # (``llama_d128``); the backward's two rows both report the TMA +
     # wgmma route's whole backward (its time, bound and launches, beside
-    # the mma.sync route's time and launches)
+    # the mma.sync route's time and launches), and LLaMA's at the Vicuna
+    # retrain (``llama_retrain``)
     kernels = []
     csrc = "vlm_compression_tpu_torch/csrc/"
+    vicuna_shape = {name: (n, m, d)
+                    for name, _, n, m, _, d, *_ in VICUNA_FLASH_SHAPES}
     for kname, timed, src, repl in (
             ("masked_matmul", MM_TIMED, csrc + "masked_matmul_wgmma.cu",
              "vlm_compression_tpu/ops/masked_linear.py:67"),
@@ -6033,18 +6103,22 @@ def main() -> int:
             **({"launches_by_route": {
                 "wgmma": sum(c[BWD_WGMMA] for c in counts.values()),
                 "mma": sum(c[kname] for c in counts.values())},
-                # the training shapes ``plan`` sends to the mma.sync
-                # kernels (LLaMA's d = 128 at the Vicuna retrain), their
-                # launches in that phase
+                # LLaMA's d = 128 at the Vicuna retrain, on its planned
+                # route (the whole backward's ms; "pr2_ms" the mma.sync
+                # route's, the earlier time), its launches in that phase
+                # by route
                 "llama_retrain": {name: dict(zip(
                     ("ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by"), rows[(kname, name)]),
                     **extra[(kname, name)],
                     max_abs_err=worst[(kname, name, torch.bfloat16)],
-                    route="mma", source=csrc + "flash_attention_bwd.cu",
-                    launches=counts["vicuna_retrain"][kname])
-                    for name, _, n, m, _, d, *_ in BWD_SHAPES
-                    if A.plan(n, m, d) == A.MMA}}
+                    route=A.plan(n, m, d),
+                    source=csrc + ("flash_attention_bwd_wgmma.cu"
+                                   if A.plan(n, m, d) == A.WGMMA
+                                   else "flash_attention_bwd.cu"),
+                    launches=e2e["vicuna_d128_launches"]["vicuna_retrain"][
+                        "backward"])
+                    for name, _, n, m, _, d, *_ in BWD_SHAPES if d == 128}}
                if bwd else {}),
             **({"llama_retrain": {name: dict(zip(
                 ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
@@ -6058,14 +6132,21 @@ def main() -> int:
             **({"launches_by_route": {
                 "wgmma": sum(c[FWD_WGMMA] for c in counts.values()),
                 "mma_or_fp32": sum(c[FWD_MMA] for c in counts.values())},
-                "vicuna_mma": {name: dict(zip(
+                # LLaMA's d = 128 on its planned route ("mma_ms": the
+                # mma.sync route's, the earlier time)
+                "llama_d128": {name: dict(zip(
                     ("ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by"), rows[(kname, name)]),
-                    **extra[(kname, name)])
+                    **extra[(kname, name)],
+                    max_abs_err=worst[(kname, name, torch.bfloat16)],
+                    route=A.plan_forward(*vicuna_shape[name]))
                     for name in FLASH_VICUNA_TIMED},
                 "vicuna_launches_by_route": {
                     p: {"wgmma": c[FWD_WGMMA], "mma": c[FWD_MMA]}
-                    for p, c in counts.items() if "vicuna" in p}}
+                    for p, c in counts.items() if "vicuna" in p},
+                "llama_d128_launches_by_phase": {
+                    p: c["forward"]
+                    for p, c in e2e["vicuna_d128_launches"].items()}}
                if kname == "flash_attention" else {}),
             **({"launches_by_route": {
                 "decode": sum(c[DECODE] for p, c in counts.items()

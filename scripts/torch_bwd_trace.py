@@ -2,16 +2,21 @@
 """Where a q step of the port's TMA + wgmma attention backward spends its
 time, on one CUDA card.
 
-    python3 scripts/torch_bwd_trace.py
+    python3 scripts/torch_bwd_trace.py [SHAPE]
 
 Run from the root of a checkout.  Builds ``csrc/flash_attention_bwd_wgmma.cu``
 with ``-DBWD_TRACE`` (block (0, 0, 0) of each launch records ``clock64`` at
 six points of every q step: the producer's issue of the step's loads, the
 consumer warpgroup seeing them land, its Sᵀ and dPᵀ products done, the
 elementwise pass and the dSᵀ tile stored, the dV, dK and dQ products done,
-and the dQ tile stored into its slab) into ``build/bwd_trace/``, then
-runs the bf16 backward at the ViT's training shape (b=32 n=m=257 h=16
-d=88) once to warm up and once traced.  Prints the mean SM clocks of each
+and the dQ tile stored into its slab; at d = 128 the points are the dK
+warpgroup's: its "elementwise" span includes storing Pᵀ and dSᵀ, its
+"products" span is dK's alone and "dQ stored" follows it at once, since
+the other consumer runs the dV and dQ products and stores dQ) into
+``build/bwd_trace/``,
+then runs the bf16 backward at a shape of chip_smoke.py's ``BWD_SHAPES``
+(default ``vit_self``: b=32 n=m=257 h=16 d=88; ``llama_self``: LLaMA's
+d = 128 under its causal + pad bias) once to warm up and once traced.  Prints the mean SM clocks of each
 span over the block's q steps, then the device time of each of the three passes
 (pre-pass, main kernel, dq cast) from torch.profiler over 10 calls of the
 committed build, and the card's nvidia-smi line.  The traced build is the
@@ -31,11 +36,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke as CS  # noqa: E402
 from vlm_compression_tpu_torch.ops import _cuda  # noqa: E402
 from vlm_compression_tpu_torch.ops import attention as A  # noqa: E402
 
 OUT = ROOT / "build" / "bwd_trace"
-SHAPE = (32, 257, 257, 16, 88)   # b, n, m, h, d: EVA ViT-g self-attention
 
 
 def build() -> ctypes.CDLL:
@@ -105,33 +110,35 @@ def main() -> int:
         return 2
     lib = build()
     dev = torch.device("cuda")
-    b, n, m, h, d = SHAPE
-    gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                  .bfloat16() for s in (n, m, m, n))
-    scale = d ** -0.5
-    out, lse = A.flash_attention(q, k, v, (), scale)
+    name = sys.argv[1] if len(sys.argv) > 1 else "vit_self"
+    _, b, n, m, h, d, kinds, scale = next(c for c in CS.BWD_SHAPES
+                                          if c[0] == name)
+    q, k, v, biases = CS.flash_inputs(b, n, m, h, d, kinds, torch.bfloat16)
+    g = CS.grad_like(q)
+    out, lse = A.flash_attention(q, k, v, biases, scale)
+    layout, ptrs, _ = A._layout(q, k, v, biases)
     n_pad = -(-n // 64) * 64
     pads = torch.empty((2, b, h, n_pad), dtype=torch.float32, device=dev)
-    ws = torch.empty((-(-m // 64), b, h, n_pad, 96), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty((-(-m // 64), b, h, n_pad, A._head_pad(d)),
+                     dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    strides = (ctypes.c_longlong * 23)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *([0] * 8),
-        *g.stride()[:3], *out.stride()[:3])
+    strides = (ctypes.c_longlong * 23)(*layout, *g.stride()[:3],
+                                       *out.stride()[:3])
     stream = torch.cuda.current_stream().cuda_stream
     for _ in range(2):
         rc = lib.flash_attention_bwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             out.data_ptr(), lse.data_ptr(), pads[0].data_ptr(),
             pads[1].data_ptr(), ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None, None, strides, b, n, m, h, d, scale, 0,
-            None, None, None, None, 0, stream)
+            dv.data_ptr(), ptrs[0], ptrs[1], strides, b, n, m, h, d, scale,
+            0, None, None, None, None, 0, stream)
         torch.cuda.synchronize()
         if rc:
             raise RuntimeError(f"launch failed: cudaError {rc}")
+    print(f"{name}: b={b} n={n} m={m} h={h} d={d} biases={kinds}",
+          flush=True)
     report(lib)
-    passes((q, k, v, out, lse, g, (), scale))
+    passes((q, k, v, out, lse, g, biases, scale))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

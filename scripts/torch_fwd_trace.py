@@ -11,7 +11,7 @@ first consumer warpgroup: K landed, the S product done, the softmax done
 and V landed, the P·V product done; and the tile's start, its Q tile
 landed, its epilogue issued), then runs the bf16 forward once to warm up
 and once traced at each named shape of chip_smoke.py's ``FLASH_SHAPES``
-(default: ``vit_self_calib``).  Prints the mean SM clocks of each span
+or ``VICUNA_FLASH_SHAPES`` (default: ``vit_self_calib``).  Prints the mean SM clocks of each span
 over the traced tiles and their steps, then the card's nvidia-smi line.
 The traced build is the committed kernel plus the stores of the trace.
 """
@@ -88,7 +88,7 @@ def main() -> int:
         return 2
     names = sys.argv[1:] or ["vit_self_calib"]
     lib = build()
-    shapes = {s[0]: s[1:] for s in CS.FLASH_SHAPES}
+    shapes = {s[0]: s[1:] for s in CS.FLASH_SHAPES + CS.VICUNA_FLASH_SHAPES}
     for name in names:
         b, n, m, h, d, kinds, scale = shapes[name]
         q, k, v, biases = CS.flash_inputs(b, n, m, h, d, kinds,
@@ -102,7 +102,7 @@ def main() -> int:
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), ptrs[0], ptrs[1],
                 (ctypes.c_longlong * 17)(*strides), b, n, m, h, d, scale, 0,
-                A._fwd_wgs(n, bool(biases)), stream)
+                A._fwd_wgs(n, bool(biases), d), stream)
             torch.cuda.synchronize()
             if rc:
                 raise RuntimeError(f"launch failed: cudaError {rc}")

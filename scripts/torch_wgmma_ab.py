@@ -22,6 +22,9 @@ The targets:
   bias's gradient — one call with ``dbias_of`` where the checkout has it,
   else the backward followed by ``flash_attention_dbias`` — and the
   backward without it;
+- ``bwd128``: the same backward at LLaMA's d = 128 alone: the Vicuna
+  retrain's ``llama_self`` (b 32, n = m = 72, its causal + pad bias), the
+  same at batch 8, and four q and kv tiles (b 8, n = m = 200, h 32);
 - ``fisher``: chip_smoke's full-width InstructBLIP-FlanT5-XL (seed 2,
   dense, as its first-order path builds it), ``get_data_derivative``
   (power 2) once on one batch-1 sample to warm up, then on 4 samples under
@@ -94,7 +97,7 @@ def bwd():
         A.flash_attention_backward).parameters
     out = []
     for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES + BWD_BATCHES:
-        if A.plan(n, m, d) != A.WGMMA:     # LLaMA's d = 128: mma.sync
+        if A.plan(n, m, d) != A.WGMMA:     # off the route in this checkout
             continue
         q, k, v, biases = CS.flash_inputs(b, n, m, h, d, kinds, bf16)
         g = CS.grad_like(q)
@@ -118,6 +121,23 @@ def bwd():
                 A.flash_attention_dbias(q, k, v, o, lse, g, biases, 0, 1.0)))
         alone = device_ms(lambda: A.flash_attention_backward(*args))
         out.append(f"{name} with dbias {with_db:.4f} alone {alone:.4f}")
+    return out
+
+
+def bwd128():
+    from vlm_compression_tpu_torch.ops import attention as A
+
+    out = []
+    for name, b, n, m, h in (("llama_self", 32, 72, 72, 32),
+                             ("llama_self_b8", 8, 72, 72, 32),
+                             ("llama_cpad_200", 8, 200, 200, 32)):
+        q, k, v, biases = CS.flash_inputs(b, n, m, h, 128, ["cpad"], bf16)
+        g = CS.grad_like(q)
+        o, lse = A.flash_attention(q, k, v, biases, 128 ** -0.5)
+        args = (q, k, v, o, lse, g, biases, 128 ** -0.5)
+        ms = device_ms(lambda: A.flash_attention_backward(
+            *args, _impl=A.WGMMA))
+        out.append(f"{name} {ms:.4f}")
     return out
 
 
@@ -159,7 +179,7 @@ def fisher():
                                          for g, ms in sorted(groups.items()))]
 
 
-TARGETS = {"matmul": matmul, "bwd": bwd, "fisher": fisher}
+TARGETS = {"matmul": matmul, "bwd": bwd, "bwd128": bwd128, "fisher": fisher}
 
 if __name__ == "__main__":
     print(f"[{target} {label}] " + ", ".join(TARGETS[target]()), flush=True)

@@ -15,23 +15,28 @@ import chip_smoke as CS
 from vlm_compression_tpu_torch.ops import attention as A
 
 # (case, n, m, d, bf16, aligned, route): every training shape on TMA +
-# wgmma but those of d = 128 (LLaMA's), which the mma.sync kernels take
-CASES = [(name, n, m, d, True, True, A.MMA if d == 128 else A.WGMMA)
+# wgmma, LLaMA's d = 128 included
+CASES = [(name, n, m, d, True, True, A.WGMMA)
          for name, b, n, m, h, d, kinds, scale in CS.BWD_SHAPES]
 CASES += [
     ("ragged_200", 200, 200, 88, True, True, A.WGMMA),
     ("causal_n_gt_m", 9, 5, 64, True, True, A.WGMMA),
     ("d_40", 72, 72, 40, True, True, A.WGMMA),
     ("m_576", 72, 576, 64, True, True, A.WGMMA),     # nine kv tiles
+    # LLaMA's head dim, and those that pad to it (DP = 128)
+    ("d_128", 72, 72, 128, True, True, A.WGMMA),
+    ("d_104", 72, 72, 104, True, True, A.WGMMA),
+    ("d_120", 200, 130, 120, True, True, A.WGMMA),
     # what the TMA + wgmma kernel does not take: a head dim off 8 (a
-    # 16-byte TMA stride), at most 32 or above 96; a misaligned view
+    # 16-byte TMA stride), at most 32 or above 128; a misaligned view
     ("d_100", 72, 72, 100, True, True, A.MMA),
     ("d_32", 72, 72, 32, True, True, A.MMA),
-    ("d_128", 72, 72, 128, True, True, A.MMA),
     ("misaligned", 257, 257, 88, True, False, A.MMA),
+    ("misaligned_d128", 72, 72, 128, True, False, A.MMA),
     # float32: the CUDA-core kernels at every shape
     ("fp32_vit", 257, 257, 88, False, True, A.FP32),
     ("fp32_t5", 72, 72, 64, False, True, A.FP32),
+    ("fp32_d128", 72, 72, 128, False, True, A.FP32),
 ]
 
 
@@ -120,7 +125,8 @@ def test_the_wgmma_route_is_one_launch_with_null_outputs(fake_card, need_dq,
 
 
 @pytest.mark.parametrize("b,n,m,h,d,route", [(2, 257, 257, 4, 88, A.WGMMA),
-                                              (2, 72, 72, 4, 128, A.MMA)])
+                                              (2, 72, 72, 4, 128, A.WGMMA),
+                                              (2, 72, 72, 4, 100, A.MMA)])
 def test_backward_calls_are_tallied_by_shape_and_route(fake_card, b, n, m, h,
                                                        d, route):
     """One backward call counts once under (b, n, m, h, d, route) on either
@@ -173,15 +179,33 @@ def _allocations(monkeypatch):
 def test_the_dq_workspace_is_a_slab_a_kv_tile(fake_card, monkeypatch, case,
                                               b, n, m, h, d):
     """The entry point gets the workspace of (kv tiles, b, h, n rounded up
-    to 64, d padded to 64 or 96) float32, whatever the batch: each kv tile
-    stores its dQ into its own slab and the cast sums them in kv order."""
+    to 64, d padded to 64, 96 or 128) float32, whatever the batch: each kv
+    tile stores its dQ into its own slab and the cast sums them in kv
+    order."""
     args = _case(b, n, m, h, d)
     made = _allocations(monkeypatch)
     A.flash_attention_backward(*args, scale=0.1)
     (called, cargs), = fake_card.calls
     assert called == "flash_attention_bwd_wgmma" and cargs[8] is not None
-    slabs = (-(-m // 64), b, h, -(-n // 64) * 64, 64 if d <= 64 else 96)
+    slabs = (-(-m // 64), b, h, -(-n // 64) * 64,
+             64 if d <= 64 else 96 if d <= 96 else 128)
     assert (slabs, torch.float32) in made
+
+
+@pytest.mark.parametrize("n,m,d", [(72, 72, 128), (200, 130, 128),
+                                   (72, 72, 104)])
+def test_the_dq_slab_is_128_wide_past_d_96(fake_card, monkeypatch, n, m, d):
+    """At LLaMA's d = 128 (and a d that pads to it) the slab's last dim is
+    128, the kernel's DP there: a slab of 96 would be written past."""
+    args = _case(2, n, m, 4, d)
+    made = _allocations(monkeypatch)
+    A.flash_attention_backward(*args, scale=0.1)
+    (called, cargs), = fake_card.calls
+    assert called == "flash_attention_bwd_wgmma"
+    assert A._head_pad(d) == 128
+    slabs = [shape for shape, dtype in made
+             if dtype == torch.float32 and len(shape) == 5]
+    assert slabs == [(-(-m // 64), 2, 4, -(-n // 64) * 64, 128)]
 
 
 @pytest.mark.parametrize("b", [1, 32])
@@ -287,12 +311,18 @@ FWD_CASES += [
     ("t5_qformer_d64", 72, 72, 64, True, True, A.WGMMA),
     ("decode_n1", 1, 10, 64, True, True, A.WGMMA),
     ("ragged_130_200", 130, 200, 88, True, True, A.WGMMA),
+    ("d_128", 72, 72, 128, True, True, A.WGMMA),
+    ("llama_decode_n1", 1, 55, 128, True, True, A.WGMMA),
+    ("d_104", 72, 72, 104, True, True, A.WGMMA),
+    ("d_120", 44, 55, 120, True, True, A.WGMMA),
     ("d_32", 72, 72, 32, True, True, A.MMA),
     ("d_100", 72, 72, 100, True, True, A.MMA),
-    ("d_128", 72, 72, 128, True, True, A.MMA),
+    ("d_136", 72, 72, 136, True, True, A.MMA),
     ("misaligned", 257, 257, 88, True, False, A.MMA),
+    ("misaligned_d128", 44, 55, 128, True, False, A.MMA),
     ("fp32_vit", 257, 257, 88, False, True, A.FP32),
     ("fp32_decode", 1, 10, 64, False, True, A.FP32),
+    ("fp32_d128", 1, 55, 128, False, True, A.FP32),
 ]
 
 
@@ -307,8 +337,17 @@ def test_plan_forward_picks_the_route(case, n, m, d, bf16, aligned, route):
 def test_forward_block_rows(n, wgs):
     """One consumer warpgroup (64 query rows) a block up to n = 128, three
     above when no bias is added; one wherever a bias is."""
-    assert A._fwd_wgs(n, False) == wgs
-    assert A._fwd_wgs(n, True) == 1
+    assert A._fwd_wgs(n, False, 88) == wgs
+    assert A._fwd_wgs(n, True, 88) == 1
+
+
+@pytest.mark.parametrize("d,wgs", [(88, 3), (96, 3), (104, 1), (128, 1)])
+def test_forward_block_rows_at_d_128(d, wgs):
+    """A bias-free call above n = 128 takes three consumer warpgroups at
+    d ≤ 96 and one past it: three Q and O tiles of DP = 128 and the kv ring
+    do not fit a block's shared memory, and the kernel refuses them."""
+    assert A._fwd_wgs(257, False, d) == wgs
+    assert A._fwd_wgs(257, True, d) == 1
 
 
 def _fwd_counts():
@@ -325,6 +364,9 @@ def _t5_biases(b, n, m, h):
     (2, 257, 257, 4, 88, False),     # ViT self
     (2, 72, 72, 4, 64, True),        # T5 encoder: position bias + padding
     (5, 1, 10, 4, 64, True),         # decode step
+    (2, 72, 72, 4, 128, True),       # LLaMA's head dim
+    (5, 1, 55, 4, 128, True),        # LLaMA's decode step
+    (2, 257, 257, 4, 128, False),    # bias-free past n = 128: one warpgroup
 ])
 def test_the_forward_wgmma_route_is_one_launch(fake_card, b, n, m, h, d,
                                               with_bias):
@@ -352,7 +394,8 @@ def test_the_forward_wgmma_route_is_one_launch(fake_card, b, n, m, h, d,
         assert strides[9:] == [0] * 8
     assert cargs[8:13] == (b, n, m, h, d)
     assert cargs[13] == pytest.approx(0.125) and cargs[14] == 1
-    assert cargs[15] == A._fwd_wgs(n, with_bias)
+    assert cargs[15] == A._fwd_wgs(n, with_bias, d)
+    assert cargs[15] == (3 if n > 128 and not with_bias and d <= 96 else 1)
     assert out.shape == q.shape and lse.shape == (b, h, n)
     assert _fwd_counts() == (before[0] + 1, before[1] + 1)
 

@@ -115,6 +115,14 @@ def _attn_case(cuda, dtype, b, n, m, h, d, bias_shapes, seed=0):
     (1, 130, 200, 2, 88, [(1, 1, 130, 200)], 0.1, True),   # ragged, d 88
     (2, 80, 80, 4, 64, ["pad"], 0.125, False),    # a last kv tile of 16
     (2, 81, 81, 4, 88, [(1, 4, 81, 81)], 0.1, False),  # ... and of 17
+    # LLaMA's d = 128 (DP = 128) under its one (b, 1, n, m) bias: training
+    # self-attention, a VQA prime, a decode step; d 104 and 120 pad to 128
+    (2, 72, 72, 32, 128, [(2, 1, 72, 72)], 128 ** -0.5, False),
+    (2, 44, 55, 32, 128, [(2, 1, 44, 55)], 128 ** -0.5, False),
+    (5, 1, 55, 32, 128, [(5, 1, 1, 55)], 128 ** -0.5, False),
+    (2, 200, 130, 4, 128, [], 128 ** -0.5, True),   # causal, 3 kv tiles
+    (2, 81, 81, 4, 104, [(1, 4, 81, 81)], 0.1, False),
+    (1, 130, 200, 2, 120, [(1, 1, 130, 200)], 0.1, True),
 ])
 def test_flash_matches_plain(cuda, impl, dtype, b, n, m, h, d, bias_shapes,
                              scale, causal):
@@ -177,19 +185,22 @@ def test_flash_lse(cuda, dtype, impl):
 
 
 @pytest.mark.parametrize("impl", [A.WGMMA, A.MMA])
-def test_flash_rows_without_keys_are_uniform_averages_in_bf16(cuda, impl):
+@pytest.mark.parametrize("d_causal,d_masked", [(64, 88), (128, 128)])
+def test_flash_rows_without_keys_are_uniform_averages_in_bf16(
+        cuda, impl, d_causal, d_masked):
     """bf16 rows that see no key — causal with n > m, and a row whose every
     bias entry is NEG_INF — take the uniform average over the real m keys
     on both routes (the TMA + wgmma kernel's padded kv columns are −inf,
-    never NEG_INF)."""
-    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 2, 9, 5, 2, 64, [])
+    never NEG_INF), at the towers' head dims and LLaMA's."""
+    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 2, 9, 5, 2, d_causal, [])
     got, _ = A.flash_attention(q, k, v, (), 1.0, True, _impl=impl)
     _close(got, A.mha_reference(q, k, v, (), 1.0, True), torch.bfloat16)
     # rows 0-3 see no key: the mean of v over the 5 keys
-    want = v.float().mean(1, keepdim=True).expand(2, 4, 2, 64)
+    want = v.float().mean(1, keepdim=True).expand(2, 4, 2, d_causal)
     torch.testing.assert_close(got[:, :4].float(), want, atol=2e-2,
                                rtol=2e-2)
-    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 1, 70, 70, 2, 88, [])
+    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 1, 70, 70, 2, d_masked,
+                            [])
     bias = torch.zeros(1, 1, 70, 70, device=cuda)
     bias[0, 0, 5, :] = A.NEG_INF
     got, _ = A.flash_attention(q, k, v, [bias], 0.125, _impl=impl)
@@ -198,10 +209,16 @@ def test_flash_rows_without_keys_are_uniform_averages_in_bf16(cuda, impl):
                                atol=2e-2, rtol=2e-2)
 
 
-def test_flash_wgmma_two_calls_are_bit_equal(cuda):
+@pytest.mark.parametrize("b,n,m,h,d,bias_shapes", [
+    (2, 72, 72, 8, 64, [(1, 8, 72, 72), "pad"]),    # T5 encoder
+    (2, 72, 72, 8, 128, [(2, 1, 72, 72)]),          # LLaMA's d = 128
+    (8, 1, 55, 8, 128, [(8, 1, 1, 55)]),            # ... a decode step
+])
+def test_flash_wgmma_two_calls_are_bit_equal(cuda, b, n, m, h, d,
+                                             bias_shapes):
     """The TMA + wgmma forward sums in a fixed order (no atomics)."""
-    q, k, v, biases = _attn_case(cuda, torch.bfloat16, 2, 72, 72, 8, 64,
-                                 [(1, 8, 72, 72), "pad"])
+    q, k, v, biases = _attn_case(cuda, torch.bfloat16, b, n, m, h, d,
+                                 bias_shapes)
     out1, lse1 = A.flash_attention(q, k, v, biases, 1.0, _impl=A.WGMMA)
     out2, lse2 = A.flash_attention(q, k, v, biases, 1.0, _impl=A.WGMMA)
     assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
@@ -336,6 +353,13 @@ BWD_CASES = [
     (2, 200, 200, 4, 88, [(1, 4, 200, 200)], 0.125, False),   # ragged
     (1, 130, 200, 2, 40, [(1, 1, 130, 200)], 0.1, True),  # ragged, causal
     (2, 200, 130, 4, 64, [], 0.125, True),    # causal, n > m, 3 kv tiles
+    # LLaMA's d = 128 (the dQ product on a warpgroup of its own): the
+    # retrain's self-attention, four q and kv tiles (dSᵀ buffers reused),
+    # causal n > m; d 104 pads to 128
+    (2, 72, 72, 32, 128, [(2, 1, 72, 72)], 128 ** -0.5, False),
+    (2, 200, 200, 4, 128, [(2, 1, 200, 200)], 128 ** -0.5, False),
+    (2, 200, 130, 4, 128, [], 128 ** -0.5, True),
+    (1, 130, 130, 2, 104, [(1, 2, 130, 130)], 0.1, False),
 ]
 
 
@@ -501,6 +525,8 @@ def test_flash_dbias_matches_plain(cuda, dtype, b, n, m, h, d, bias_shapes,
     (2, 9, 30, 3, 32, [(2, 1, 1, 30)], 0.3, False),       # pad, n != m
     (2, 20, 130, 3, 64, [(2, 3, 20, 1)], 0.3, False),     # key dim 1
     (1, 200, 200, 2, 88, [(1, 2, 200, 200)], 0.1, False),  # ragged tiles
+    (2, 200, 200, 4, 128, [(1, 4, 200, 200)], 128 ** -0.5, True),  # d 128
+    (2, 72, 72, 8, 128, [(2, 1, 72, 72)], 128 ** -0.5, False),  # LLaMA's
 ])
 @pytest.mark.parametrize("need_qkv", [True, False])
 def test_fused_dbias_matches_plain(cuda, b, n, m, h, d, bias_shapes, scale,
@@ -535,6 +561,8 @@ def test_fused_dbias_matches_plain(cuda, b, n, m, h, d, bias_shapes, scale,
     (16, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0),   # T5 encoder
     (1, 72, 72, 32, 64, [(1, 32, 72, 72), "pad"], 1.0),    # the Fisher's
     (8, 257, 257, 16, 88, [], 88 ** -0.5),                 # EVA ViT-g
+    (4, 72, 72, 32, 128, [(4, 1, 72, 72)], 128 ** -0.5),   # LLaMA's
+    (2, 200, 200, 4, 128, [(1, 4, 200, 200)], 128 ** -0.5),  # 4 kv tiles
 ])
 def test_backward_two_calls_are_bit_equal(cuda, b, n, m, h, d, bias_shapes,
                                           scale):

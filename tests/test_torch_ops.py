@@ -394,6 +394,89 @@ def test_attention_grads_match_jax_flash_vjp(jax_flash, case):
         np.testing.assert_allclose(gt.numpy(), _np(wt), atol=2e-5, rtol=1e-4)
 
 
+# LLaMA's attention at its head dim, d = 128 (the TMA + wgmma kernels'
+# DP = 128 on the card), under its one additive (b, 1, n, m) bias as the
+# port's adapters and cache build it: the causal −1e9 mask + right padding
+# of a training batch (n = m); a prime's cache of m slots, the query
+# tokens' first (2 here, 32 in the model), then a left-padded prompt, +
+# the step visibility; a decode step's pad bias + visibility up to slot
+# m − 3 (n = 1).  b 2, h 2.  The forward and the VJP of q, k, v against
+# the JAX flash kernels in interpret mode.  fp32; a score or gradient sums
+# 128 products (or m ≤ 9 rows) in another order than the interpreter's,
+# about 1e-6 at these magnitudes: atol 2e-5, rtol 1e-4 as for the other
+# attention cases.
+LLAMA_CASES = [("train", 9, 9, 0), ("prime", 5, 9, 2), ("decode", 1, 9, 2)]
+
+
+def _llama_bias(rng, kind, b, n, m, first):
+    """LLaMA's bias (b, 1, n, m); ``first``: the valid slots before a
+    prompt's left pads (0: a padded prompt's first rows see no valid
+    key)."""
+    j = np.arange(m)
+    pads = rng.integers(1, 3, size=b)
+    if kind == "train":
+        keep = j[None, :] < (m - pads)[:, None]
+        cur = 0
+    else:
+        keep = (j[None, :] < first) | (j[None, :] >= first + pads[:, None])
+        cur = m - 3 if kind == "decode" else 0
+    pad = np.where(keep, 0.0, TA.NEG_INF)[:, None, None, :]
+    vis = j[None, :] <= cur + np.arange(n)[:, None]
+    return (pad + np.where(vis, 0.0, TA.NEG_INF)[None, None]).astype(
+        np.float32)
+
+
+def _llama_d128_case(kind, n, m, first, flash: bool):
+    """(the port's out and q, k, v gradients, JAX's) at one LLaMA case;
+    JAX's attention_core with its flash kernels forced on or off."""
+    import jax
+
+    rng = np.random.default_rng(21)
+    q, k, v = _attn_inputs(rng, 2, n, m, 2, 128)
+    bias = _llama_bias(rng, kind, 2, n, m, first)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    scale = 128 ** -0.5
+    jb = [jnp.asarray(bias)]
+    JA.use_flash_attention(flash)
+    try:
+        want, vjp = jax.vjp(lambda q_, k_, v_: JA.attention_core(
+            q_, k_, v_, jb, scale=scale), jnp.asarray(q), jnp.asarray(k),
+            jnp.asarray(v))
+        want_grads = vjp(jnp.asarray(g))
+    finally:
+        JA.use_flash_attention("auto")
+    leaves = [_leaf(t) for t in (q, k, v)]
+    out = TA.attention_core(*leaves, [_t(bias)], scale)
+    got_grads = torch.autograd.grad(out, leaves, _t(g))
+    return ([out.detach(), *got_grads], [want, *want_grads])
+
+
+@pytest.mark.parametrize("kind,n,m,first", LLAMA_CASES,
+                         ids=[c[0] for c in LLAMA_CASES])
+def test_llama_d128_attention_matches_jax_flash(kind, n, m, first):
+    got, want = _llama_d128_case(kind, n, m, first, flash=True)
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), _np(wt), atol=2e-5, rtol=1e-4)
+
+
+def test_llama_d128_rows_without_a_valid_key_match_jax_reference():
+    """A prime whose padded prompts start at slot 0: their first rows see
+    no valid key (every score −1e9 or −2e9) and average v over the slots
+    at −1e9, as the JAX package's ``mha_reference`` does (the semantics
+    the kernels on the card are held to, chip_smoke's
+    ``llama_rows_seeing_no_key``).  JAX's Pallas kernel masks its padded kv
+    columns with −1e9 too, so there those rows also average over the
+    padding: the forward is held against JAX with its flash kernels off,
+    at the tolerance above.  (Their gradients are not compared: both
+    packages' flash backwards recompute p from an lse that rounds to −1e9
+    in fp32, so p is 1 there, not the uniform 1/count that autodiff of the
+    reference differentiates; the model drops these padded rows, and a
+    training batch, right-padded, has none.)"""
+    got, want = _llama_d128_case("prime", 5, 9, 0, flash=False)
+    np.testing.assert_allclose(got[0].numpy(), _np(want[0]), atol=2e-5,
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_backward_ref_matches_autograd(case):
     """The kernels' plain version (from out and lse) equals autograd

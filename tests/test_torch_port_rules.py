@@ -367,6 +367,32 @@ def test_the_attention_forward_is_tma_wgmma_and_mbarriers():
     assert "flash_attention_fwd_wgmma" in _cuda._SIGNATURES
 
 
+def test_the_attention_kernels_take_llamas_head_dim_on_wgmma():
+    """LLaMA's d = 128 runs both TMA + wgmma attention kernels at DP = 128:
+    ``hopper.cuh`` has the m64n128k16 forms the P·V, dV, dK and dQ
+    products take (shared-memory A with scale_d; register A), and both
+    dispatches refuse any other N at compile time; the forward launches a
+    DP = 128 instantiation with one consumer warpgroup a block, the
+    backward one whose dV and dQ products run on a warpgroup of their own,
+    handed Pᵀ and dSᵀ through shared memory on mbarriers."""
+    hopper = (_cuda.CSRC / "hopper.cuh").read_text()
+    for form in ("wgmma_ss_n128", "wgmma_rs_n128", "check_setmaxnreg"):
+        assert f" {form}(" in hopper, form
+    assert hopper.count('"wgmma.mma_async.sync.aligned.m64n128k16') == 3
+    assert hopper.count(
+        'static_assert(DP == 64 || DP == 96 || DP == 128') == 2
+    fwd = (_cuda.CSRC / "flash_attention_fwd_wgmma.cu").read_text()
+    assert "return launch<128, 1>(maps, p, st);" in fwd
+    assert "D > 128" in fwd and "launch<128, 3>" not in fwd
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in fwd
+    bwd = (_cuda.CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+    assert "launch_dp<128>(maps, p, st)" in bwd and "D > 128" in bwd
+    for name in ("ds_full", "ds_empty", "P_OFF", "load_bias_t"):
+        assert name in bwd, name
+    for banned in ("atomicAdd", "atom.", "red.global"):
+        assert banned not in fwd + bwd, banned
+
+
 def test_the_decode_kernel_is_tma_cluster_and_has_no_atomics():
     """The decode kernel streams W by TMA through an mbarrier ring, builds
     its swap-AB fragments with ldmatrix for mma.sync, and sums its K

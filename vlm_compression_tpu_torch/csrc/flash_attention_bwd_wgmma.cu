@@ -57,6 +57,24 @@
 //        tiles are skipped.
 //      setmaxnreg moves registers from the producer to the consumers; two
 //      blocks share an SM.
+//      At DP = 128 (LLaMA's heads) one warpgroup cannot hold it all: dK and
+//      dV are 128 fp32 registers a thread, Sᵀ and dPᵀ 64 more, and a
+//      64 × 128 dQ tile 64 more, past the 255 a thread can have.  So the
+//      block has a second consumer warpgroup, and the two split the
+//      accumulators: the first keeps dK, Sᵀ and dPᵀ, loads the tile's
+//      biases while its Sᵀ and dPᵀ products run (it has the registers
+//      for them, so their latency hides under the products), stores Pᵀ
+//      and dSᵀ into the step's buffers (128-byte swizzle, two of each)
+//      and arrives on the step's `ds_full` mbarrier before its dK product;
+//      the second keeps dV and a dQ tile, waits there, runs dV += Pᵀ·G
+//      (SS wgmma, Pᵀ K-major) and dQ = dS·K (SS), frees the buffers and,
+//      with the first warpgroup's four warps, the ring stage (`ds_empty`,
+//      `empty`), and stores dQ into the kv tile's slab while the first
+//      already works on the next q tile.  Still the five products, dq
+//      still summed from one slab a kv tile in kv order, no atomics.  Both
+//      consumers take 240 registers by setmaxnreg (the producer 24: three
+//      warpgroups' 168 each at launch); with 130 KB of shared memory, one
+//      block an SM.
 //   3. `flash_bwd_dq_cast_kernel` (with dq): the slabs summed in kv order
 //      and cast to bf16 into q's (b, n, h, d) layout.
 //   4. `flash_bwd_dbias_sum_kernel` (for each dbias that broadcasts over
@@ -99,7 +117,7 @@
 // costs.  Compile with -DBWD_TRACE for a per-q-step clock64 timeline of
 // block (0, 0, 0) (scripts/torch_bwd_trace.py).
 //
-// Preconditions (ops/attention.py `plan`): bf16; 32 < d ≤ 96, d % 8 == 0;
+// Preconditions (ops/attention.py `plan`): bf16; 32 < d ≤ 128, d % 8 == 0;
 // 16-byte aligned q, k, v, g, out bases and (batch, seq, head) strides.
 
 #include "hopper.cuh"
@@ -111,20 +129,34 @@ namespace {
 using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64, BKV = 64, STAGES = 2, THREADS = 256;
+constexpr int BQ = 64, BKV = 64, STAGES = 2;
 constexpr int BOX = 32;                    // d columns a TMA box: 64 bytes
 constexpr int BOX_BYTES = 64 * BOX * 2;    // a 64-row box, 4 KB
 constexpr int DS_BYTES = BKV * BQ * 2;     // the bf16 dSᵀ tile, 8 KB
 constexpr float LOG2E = 1.4426950408889634f;
 
-// K, V; two dSᵀ buffers; the ring's Q and G tiles; its lse and delta rows
+// The block's warpgroups: the producer and one consumer (two blocks an
+// SM), or at DP = 128 (SPLIT) the producer, the dK consumer and the dV /
+// dQ one (one block an SM); the registers setmaxnreg gives the consumers
+template <int DP>
+struct Cfg {
+  static_assert(DP == 64 || DP == 96 || DP == 128, "DP is 64, 96 or 128");
+  static constexpr bool SPLIT = DP == 128;
+  static constexpr int THREADS = SPLIT ? 384 : 256;
+  static constexpr int MIN_BLOCKS = SPLIT ? 1 : 2;
+  static constexpr int CONSUMER_REGS = SPLIT ? 240 : 232;
+};
+
+// K, V; two dSᵀ buffers (SPLIT: and two Pᵀ buffers); the ring's Q and G
+// tiles; its lse and delta rows (130 KB at DP = 128)
 template <int DP>
 struct Smem {
   static constexpr int NB = DP / BOX;                     // boxes a tile
   static constexpr int TILE = NB * BOX_BYTES;             // 64 × DP bf16
   static constexpr int STAGE = 2 * TILE;                  // Q and G
   static constexpr int K_OFF = 0, V_OFF = TILE, DS_OFF = 2 * TILE;
-  static constexpr int RING_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int P_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int RING_OFF = P_OFF + (Cfg<DP>::SPLIT ? 2 * DS_BYTES : 0);
   static constexpr int ROWS_OFF = RING_OFF + STAGES * STAGE;
   static constexpr int BYTES =
       ROWS_OFF + STAGES * 2 * BQ * 4 + 1024;   // + the alignment
@@ -188,19 +220,45 @@ __device__ __forceinline__ void dbias_tile(const Params& p, float* out,
     }
 }
 
+// The biases' sum at a thread's 32 elements of the tile (scores' order),
+// loaded while the tile's products run; edge tiles read at a clamped
+// index, an entry the mask then overwrites.  Summed before the scores are
+// added, as the forward sums them.
+template <bool EDGE>
+__device__ __forceinline__ void load_bias_t(const Params& p, float (&bv)[32],
+                                            const float* b0, const float* b1,
+                                            int q0, int kv0, int r0,
+                                            int lane) {
+  const long long s0i = p.bias_s[0][2], s0j = p.bias_s[0][3];
+  const long long s1i = p.bias_s[1][2], s1j = p.bias_s[1][3];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = q0 + 8 * jj + 2 * (lane & 3) + (e & 1);
+      const int j = kv0 + r0 + (e < 2 ? 0 : 8);
+      const long long ii = EDGE ? min(i, p.N - 1) : i;
+      const long long jc = EDGE ? min(j, p.M - 1) : j;
+      float v = b0[ii * s0i + jc * s0j];
+      if (b1 != nullptr) v += b1[ii * s1i + jc * s1j];
+      bv[4 * jj + e] = v;
+    }
+}
+
 // pᵀ and uᵀ (unscaled: dsᵀ = uᵀ · scale) of the tile in place of the Sᵀ
 // and dPᵀ accumulators.  Element
 // 4jj + e of a thread: kv row r0 (e < 2) or r0 + 8, q column
 // 8jj + 2(lane % 4) + (e & 1).  EDGE: the tile crosses n, m or the causal
 // diagonal, so each element is tested.  NBIAS (0, 1, 2) is a template
 // argument so that the 32 elements unroll without a branch between them
-// and their latencies overlap.
-template <bool EDGE, int NBIAS>
+// and their latencies overlap.  PRE: the biases' sum is preloaded in bv
+// (``load_bias_t``; any NBIAS > 0), else read here.
+template <bool EDGE, int NBIAS, bool PRE>
 __device__ __forceinline__ void scores(const Params& p, float (&sc)[32],
                                        float (&dp)[32], const float* s_lse,
                                        const float* s_delta, const float* b0,
-                                       const float* b1, int q0, int kv0,
-                                       int r0, int lane) {
+                                       const float* b1, const float* bv,
+                                       int q0, int kv0, int r0, int lane) {
   const int N = p.N, M = p.M, off = M - N;
   const bool causal = p.causal;
   const float scale = p.scale;
@@ -218,7 +276,9 @@ __device__ __forceinline__ void scores(const Params& p, float (&sc)[32],
       const float lse_i = (e & 1) ? l2.y : l2.x;
       const float delta_i = (e & 1) ? d2.y : d2.x;
       float s = sc[x] * scale;
-      if (NBIAS > 0) {
+      if (PRE && NBIAS > 0) {
+        s += bv[x];
+      } else if (NBIAS > 0) {
         // edge tiles read the bias at a clamped index; the entry is
         // overwritten below
         const long long ii = EDGE ? min(i, N - 1) : i;
@@ -245,10 +305,68 @@ __device__ __forceinline__ void scores(const Params& p, float (&sc)[32],
   }
 }
 
+// A q tile's dQ into this kv tile's own slab (the cast sums them in
+// order); valid rows and columns only
+template <int DP>
+__device__ __forceinline__ void store_dq(const Params& p,
+                                         const float (&dq)[DP / 2], int j_kv,
+                                         long long row0, int q0, int r0,
+                                         int lane) {
+  float2* wrow = reinterpret_cast<float2*>(p.dq_ws + j_kv * p.dq_slab +
+                                           (row0 + q0) * DP);
+#pragma unroll
+  for (int jj = 0; jj < DP / 8; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = 8 * jj + 2 * (lane & 3), r = r0 + 8 * hh;
+      if (col < p.D && q0 + r < p.N)
+        wrow[(r * DP + col) / 2] =
+            make_float2(dq[4 * jj + 2 * hh], dq[4 * jj + 2 * hh + 1]);
+    }
+}
+
+// dK or dV (fp32 in the consumer's registers) into its contiguous (b, m,
+// h, d) bf16 output; valid rows and columns only
+template <int DP>
+__device__ __forceinline__ void store_kv(const Params& p, bf16* dst,
+                                         const float (&acc)[DP / 2], int b,
+                                         int h, int kv0, int r0, int lane) {
+#pragma unroll
+  for (int jj = 0; jj < DP / 8; ++jj) {
+    const int col = 8 * jj + 2 * (lane & 3);
+    if (col >= p.D) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = kv0 + r0 + 8 * hh;
+      if (j >= p.M) continue;
+      const long long o =
+          ((static_cast<long long>(b) * p.M + j) * p.H + h) * p.D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dst + o) = __floats2bfloat162_rn(
+          acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+    }
+  }
+}
+
+// a bf16 [kv row][q column] tile (the register A operand layout of a k16
+// step over q, `a`) into shared memory: 128-byte rows, 128-byte swizzle
+// (16-byte chunk ^= row % 8)
+__device__ __forceinline__ void store_tile_t(uint8_t* tile,
+                                             const uint32_t (&a)[4][4],
+                                             int r0, int lane) {
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + ((e & 1) ? 8 : 0), chunk = 2 * kq + (e >> 1);
+      *reinterpret_cast<uint32_t*>(tile + r * 128 + ((chunk ^ (r & 7)) << 4) +
+                                   (lane & 3) * 4) = a[kq][e];
+    }
+}
+
 // DB: some dbias is asked for (the instantiations without it keep the
 // registers of the uᵀ tile's stores out of the dq, dk/dv path)
 template <int DP, bool DB>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Cfg<DP>::THREADS, Cfg<DP>::MIN_BLOCKS)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -256,8 +374,13 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ Params p) {
   using S = Smem<DP>;
   constexpr int NB = S::NB, KS = DP / 16, ND = DP / 2;
+  constexpr bool SPLIT = Cfg<DP>::SPLIT;
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kv_full;
+  // SPLIT: a step's Pᵀ and dSᵀ buffers written (every thread of the dK
+  // consumer) and read out by the dV and dQ products (a lane of each warp
+  // of the dV/dQ consumer)
+  __shared__ __align__(8) uint64_t ds_full[2], ds_empty[2];
   // aligned by an offset from the shared array (not an integer round
   // trip), so that the compiler keeps shared loads and stores
   uint8_t* smem = dyn_smem + ((1024 - (smem_u32(dyn_smem) & 1023)) & 1023);
@@ -273,9 +396,16 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);      // every consumer warp
+      // every consumer warp (SPLIT: the dK consumer reads Q, the dV/dQ
+      // one G)
+      mbar_init(&empty[s], SPLIT ? 8 : 4);
     }
     mbar_init(&kv_full, 1);
+    if (SPLIT)
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&ds_full[s], 128);
+        mbar_init(&ds_empty[s], 4);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -313,9 +443,70 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         ++it;
       }
     }
+  } else if (SPLIT && warp_group == 2) {
+    // ------------------------------------- dV and dQ consumer (DP = 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = t >> 5, lane = t & 31;
+    const int r0 = warp * 16 + (lane >> 2);
+    const bool need_dkv = p.dk != nullptr, need_dq = p.dq_ws != nullptr;
+    const uint32_t k_a = smem_u32(smem + S::K_OFF);
+    float dv[ND];
+#pragma unroll
+    for (int x = 0; x < ND; ++x) dv[x] = 0.f;
+    mbar_wait(&kv_full, 0);
+    int it = 0;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * BQ;
+      if (skip_tile(p, q0, kv0)) continue;
+      const int s = it % STAGES, buf = it & 1;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      mbar_wait(&ds_full[buf], (it >> 1) & 1);
+      const uint32_t g_a = smem_u32(ring + s * S::STAGE + S::TILE);
+      const uint32_t p_a = smem_u32(smem + S::P_OFF + buf * DS_BYTES);
+      const uint32_t ds_a = smem_u32(smem + S::DS_OFF + buf * DS_BYTES);
+      float dq[ND];
+#pragma unroll
+      for (int x = 0; x < ND; ++x) dq[x] = 0.f;
+      fence_acc(dq);
+      fence_acc(dv);
+      wgmma_fence();
+      if (need_dkv) {
+        // dV += Pᵀ·G: A = the Pᵀ tile K-major (128-byte rows of q, k16
+        // steps 32 bytes apart, 8-row groups 1 KB apart), B = G MN-major
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_dp<DP, 0, 1>(dv, sw128_desc(p_a + kk * 32, 16, 1024),
+                                sw64_desc(g_a + kk * 1024, BOX_BYTES, 512),
+                                1);
+      }
+      if (need_dq) {
+        // dQ = dS·K: A = the dSᵀ tile read M-major (128-byte rows, k16
+        // steps 2 KB apart), B = K MN-major
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_dp<DP, 1, 1>(dq, sw128_desc(ds_a + kk * 2048, 8192, 1024),
+                                sw64_desc(k_a + kk * 1024, BOX_BYTES, 512),
+                                kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      fence_acc(dv);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[s]);
+        mbar_arrive(&ds_empty[buf]);
+      }
+      if (need_dq) store_dq<DP>(p, dq, j_kv, row0, q0, r0, lane);
+      ++it;
+    }
+    if (need_dkv) store_kv<DP>(p, p.dv, dv, b, h, kv0, r0, lane);
   } else {
-    // ----------------------------------------------------------- consumer
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    // ---------------------------- consumer (dK and dV; SPLIT: dK alone)
+    if constexpr (SPLIT)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int warp = t >> 5, lane = t & 31;
     const int r0 = warp * 16 + (lane >> 2);   // rows r0, r0 + 8 of a tile
     const float* b0 = p.bias[0] ? p.bias[0] + b * p.bias_s[0][0] +
@@ -332,9 +523,13 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                : nullptr;
     const uint32_t k_a = smem_u32(smem + S::K_OFF);
     const uint32_t v_a = smem_u32(smem + S::V_OFF);
-    float dk[ND], dv[ND];
+    // (SPLIT: dV is the other consumer's; its array is never used and
+    // takes no registers)
+    float dk[ND], dv[SPLIT ? 1 : ND];
 #pragma unroll
-    for (int x = 0; x < ND; ++x) dk[x] = dv[x] = 0.f;
+    for (int x = 0; x < ND; ++x) dk[x] = 0.f;
+#pragma unroll
+    for (int x = 0; x < (SPLIT ? 1 : ND); ++x) dv[x] = 0.f;
 
     mbar_wait(&kv_full, 0);
     int it = 0;
@@ -360,6 +555,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           smem + S::ROWS_OFF + s * 2 * BQ * 4);
       const float* s_delta = s_lse + BQ;
 
+      const bool edge = q0 + BQ > N || kv0 + BKV > M ||
+                        (p.causal && kv0 + BKV - 1 > q0 + off);
+      const int nbias = (b0 != nullptr) + (b1 != nullptr);
+
       // Sᵀ = K·Qᵀ and dPᵀ = V·Gᵀ: both operands K-major (64-byte rows of
       // 32 d columns; k16 steps 32 bytes apart inside a box, boxes 4 KB
       // apart; 8-row groups 512 bytes apart)
@@ -382,35 +581,42 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            sw64_desc(g_a + o, 16, 512), kk > 0);
       }
       wgmma_commit();
+      // SPLIT: the tile's biases' sum loaded while the products run (this
+      // warpgroup holds dK alone, so the 32 values fit beside them)
+      float bv[SPLIT ? 32 : 1];
+      if constexpr (SPLIT) {
+        if (nbias > 0) {
+          if (edge)
+            load_bias_t<true>(p, bv, b0, b1, q0, kv0, r0, lane);
+          else
+            load_bias_t<false>(p, bv, b0, b1, q0, kv0, r0, lane);
+        }
+      }
       wgmma_wait<0>();
       fence_acc(sc);
       fence_acc(dp);
       if (t == 0) TRACE(2, it);
 
-      const bool edge = q0 + BQ > N || kv0 + BKV > M ||
-                        (p.causal && kv0 + BKV - 1 > q0 + off);
-      const int nbias = (b0 != nullptr) + (b1 != nullptr);
+      // NB: nbias 1 and 2 read the same preloaded sum when SPLIT
+#define SCORES(EDGE, NBIAS)                                              \
+  scores<EDGE, NBIAS, SPLIT>(p, sc, dp, s_lse, s_delta, b0, b1, bv, q0, \
+                             kv0, r0, lane)
       if (edge) {
         if (nbias == 0)
-          scores<true, 0>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
-                          lane);
-        else if (nbias == 1)
-          scores<true, 1>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
-                          lane);
+          SCORES(true, 0);
+        else if (nbias == 1 || SPLIT)
+          SCORES(true, 1);
         else
-          scores<true, 2>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
-                          lane);
+          SCORES(true, 2);
       } else {
         if (nbias == 0)
-          scores<false, 0>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
-                           lane);
-        else if (nbias == 1)
-          scores<false, 1>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
-                           lane);
+          SCORES(false, 0);
+        else if (nbias == 1 || SPLIT)
+          SCORES(false, 1);
         else
-          scores<false, 2>(p, sc, dp, s_lse, s_delta, b0, b1, q0, kv0, r0,
-                           lane);
+          SCORES(false, 2);
       }
+#undef SCORES
 
       // bf16 A operands of the four k16 steps over the tile's q columns:
       // pᵀ and dSᵀ = uᵀ · scale
@@ -431,54 +637,62 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (db[k] != nullptr)
             dbias_tile<false>(p, db[k], dp, q0, kv0, r0, lane);
       }
-      // dSᵀ [kv row][q column] into this step's buffer, 128-byte rows,
-      // 128-byte swizzle (16-byte chunk ^= row % 8); the buffer two steps
-      // back was last read by a dQ product every warp has waited for
-      // before the barrier of the step in between
+      // dSᵀ (SPLIT: and Pᵀ) [kv row][q column] into this step's buffers;
+      // the buffers two steps back were last read by a dQ (dV) product
+      // every warp has waited for before the barrier of the step in
+      // between (SPLIT: that the other consumer has freed)
       uint8_t* ds = smem + S::DS_OFF + (it & 1) * DS_BYTES;
-      if (need_dq) {
-#pragma unroll
-        for (int kq = 0; kq < 4; ++kq)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = r0 + ((e & 1) ? 8 : 0), chunk = 2 * kq + (e >> 1);
-            *reinterpret_cast<uint32_t*>(ds + r * 128 +
-                                         ((chunk ^ (r & 7)) << 4) +
-                                         (lane & 3) * 4) = sa[kq][e];
-          }
+      if constexpr (SPLIT) {
+        if (it >= 2) mbar_wait(&ds_empty[it & 1], ((it >> 1) - 1) & 1);
+        if (need_dq) store_tile_t(ds, sa, r0, lane);
+        if (need_dkv)
+          store_tile_t(smem + S::P_OFF + (it & 1) * DS_BYTES, pa, r0, lane);
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(&ds_full[it & 1]);
+      } else {
+        if (need_dq) {
+          store_tile_t(ds, sa, r0, lane);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        }
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
       }
-      asm volatile("bar.sync 1, 128;\n" ::: "memory");
       if (t == 0) TRACE(3, it);
 
-      float dq[ND];
+      // (SPLIT: no dQ here)
+      float dq[SPLIT ? 1 : ND];
 #pragma unroll
-      for (int x = 0; x < ND; ++x) dq[x] = 0.f;
+      for (int x = 0; x < (SPLIT ? 1 : ND); ++x) dq[x] = 0.f;
       fence_acc(dq);
       fence_acc(dk);
       fence_acc(dv);
       wgmma_fence();
       if (need_dkv) {
-        // dV += Pᵀ·G and dK += dSᵀ·Q: G and Q MN-major (transpose bit),
-        // k16 steps 16 rows (1 KB) apart, 32-column boxes 4 KB apart
+        // dV += Pᵀ·G (not SPLIT) and dK += dSᵀ·Q: G and Q MN-major
+        // (transpose bit), k16 steps 16 rows (1 KB) apart, 32-column
+        // boxes 4 KB apart
+        if constexpr (!SPLIT) {
 #pragma unroll
-        for (int kq = 0; kq < 4; ++kq)
-          wgmma_rs_dp<DP>(dv, pa[kq],
-                          sw64_desc(g_a + kq * 1024, BOX_BYTES, 512));
+          for (int kq = 0; kq < 4; ++kq)
+            wgmma_rs_dp<DP>(dv, pa[kq],
+                            sw64_desc(g_a + kq * 1024, BOX_BYTES, 512));
+        }
 #pragma unroll
         for (int kq = 0; kq < 4; ++kq)
           wgmma_rs_dp<DP>(dk, sa[kq],
                           sw64_desc(q_a + kq * 1024, BOX_BYTES, 512));
       }
-      if (need_dq) {
-        // dQ = dS·K: A = the dSᵀ tile read M-major (128-byte rows, k16
-        // steps 2 KB apart), B = K MN-major
-        const uint32_t ds_a = smem_u32(ds);
+      if constexpr (!SPLIT) {
+        if (need_dq) {
+          // dQ = dS·K: A = the dSᵀ tile read M-major (128-byte rows, k16
+          // steps 2 KB apart), B = K MN-major
+          const uint32_t ds_a = smem_u32(ds);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_dp<DP, 1, 1>(dq, sw128_desc(ds_a + kk * 2048, 8192, 1024),
-                                sw64_desc(k_a + kk * 1024, BOX_BYTES, 512),
-                                kk > 0);
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_dp<DP, 1, 1>(dq,
+                                  sw128_desc(ds_a + kk * 2048, 8192, 1024),
+                                  sw64_desc(k_a + kk * 1024, BOX_BYTES, 512),
+                                  kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -497,42 +711,16 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(&empty[s]);
       if (t == 0) TRACE(4, it);
 
-      if (need_dq) {
-        // dQ into this kv tile's own slab (the cast sums them in order);
-        // valid rows and columns only
-        float2* wrow = reinterpret_cast<float2*>(
-            p.dq_ws + j_kv * p.dq_slab + (row0 + q0) * DP);
-#pragma unroll
-        for (int jj = 0; jj < DP / 8; ++jj)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int col = 8 * jj + 2 * (lane & 3), r = r0 + 8 * hh;
-            if (col < p.D && q0 + r < N)
-              wrow[(r * DP + col) / 2] =
-                  make_float2(dq[4 * jj + 2 * hh], dq[4 * jj + 2 * hh + 1]);
-          }
+      if constexpr (!SPLIT) {
+        if (need_dq) store_dq<DP>(p, dq, j_kv, row0, q0, r0, lane);
       }
       if (t == 0) TRACE(5, it);
       ++it;
     }
 
     if (need_dkv) {
-#pragma unroll
-      for (int jj = 0; jj < DP / 8; ++jj) {
-        const int col = 8 * jj + 2 * (lane & 3);
-        if (col >= p.D) continue;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int j = kv0 + r0 + 8 * hh;
-          if (j >= M) continue;
-          const long long o =
-              ((static_cast<long long>(b) * M + j) * p.H + h) * p.D + col;
-          *reinterpret_cast<__nv_bfloat162*>(p.dk + o) = __floats2bfloat162_rn(
-              dk[4 * jj + 2 * hh], dk[4 * jj + 2 * hh + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(p.dv + o) = __floats2bfloat162_rn(
-              dv[4 * jj + 2 * hh], dv[4 * jj + 2 * hh + 1]);
-        }
-      }
+      store_kv<DP>(p, p.dk, dk, b, h, kv0, r0, lane);
+      if constexpr (!SPLIT) store_kv<DP>(p, p.dv, dv, b, h, kv0, r0, lane);
     }
   }
 }
@@ -704,13 +892,24 @@ int launch_delta(int is_bf16, const DeltaArgs& a, cudaStream_t st) {
 
 template <int DP, bool DB>
 int launch_main(const CUtensorMap* maps, const Params& p, cudaStream_t st) {
+  using C = Cfg<DP>;
   constexpr int bytes = Smem<DP>::BYTES;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_wgmma_kernel<DP, DB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // opt in to the shared memory and check the setmaxnreg budget once: the
+  // producer's 24 registers and each consumer's
+  static const cudaError_t ready = [] {
+    const void* fn =
+        reinterpret_cast<const void*>(flash_bwd_wgmma_kernel<DP, DB>);
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    return err != cudaSuccess
+               ? err
+               : check_setmaxnreg(fn, C::THREADS / 128, 0,
+                                  24 + (C::THREADS / 128 - 1) *
+                                           C::CONSUMER_REGS);
+  }();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
   const dim3 grid((p.M + BKV - 1) / BKV, p.H, p.B);
-  flash_bwd_wgmma_kernel<DP, DB><<<grid, THREADS, bytes, st>>>(
+  flash_bwd_wgmma_kernel<DP, DB><<<grid, C::THREADS, bytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -745,9 +944,10 @@ extern "C" int flash_attention_bwd_delta(int is_bf16, const void* g,
 // h, n, m), bias1 (b, h, n, m), g (b, n, h), out (b, n, h).  lse is the
 // forward's contiguous (b, h, n) fp32.  Scratch from the caller: delta_pad
 // and lse_pad (b, h, np) fp32 with np = n rounded up to 64, and dq_ws
-// (kv tiles, b, h, np, dp) fp32 with dp = 64 (d ≤ 64) or 96.  dq (b, n, h,
-// d), dk and dv (b, m, h, d) are contiguous bf16; a null dq (with a null
-// dq_ws) or null dk and dv skips that gradient.  dbias0 / dbias1, where not
+// (kv tiles, b, h, np, dp) fp32 with dp = 64 (d ≤ 64), 96 (d ≤ 96) or 128
+// (ops/attention.py `_head_pad`).  dq (b, n, h, d), dk and dv (b, m, h, d)
+// are contiguous bf16; a null dq (with a null dq_ws) or null dk and dv
+// skips that gradient.  dbias0 / dbias1, where not
 // null, receive the gradient of bias0 / bias1, contiguous fp32 at the
 // bias's shape (1 | b, 1 | h, n, m); dbias_keep bit 2k says that bias k
 // keeps the batch, bit 2k + 1 the head.  A dbias that broadcasts over
@@ -765,12 +965,14 @@ extern "C" int flash_attention_bwd_wgmma(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return static_cast<int>(bound);
-  if (D <= 32 || D > 96 || D % 8 != 0 || (dq == nullptr) != (dq_ws == nullptr)
+  if (D <= 32 || D > 128 || D % 8 != 0 ||
+      (dq == nullptr) != (dq_ws == nullptr)
       || (dk == nullptr) != (dv == nullptr)
       || (dbias0 != nullptr && bias0 == nullptr)
       || (dbias1 != nullptr && bias1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dp = D <= 64 ? 64 : 96, np = (N + BQ - 1) / BQ * BQ;
+  const int dp = D <= 64 ? 64 : D <= 96 ? 96 : 128;
+  const int np = (N + BQ - 1) / BQ * BQ;
   CUtensorMap maps[4];
   if (!encode_4d(&maps[0], q, B, N, H, D, strides, BOX, 64) ||
       !encode_4d(&maps[1], k, B, M, H, D, strides + 3, BOX, 64) ||
@@ -823,7 +1025,9 @@ extern "C" int flash_attention_bwd_wgmma(
               {strides[20], strides[21], strides[22]}, B, N, H, D, np, 1};
   int err = launch_delta(1, a, st);
   if (err != 0) return err;
-  err = dp == 64 ? launch_dp<64>(maps, p, st) : launch_dp<96>(maps, p, st);
+  err = dp == 64   ? launch_dp<64>(maps, p, st)
+        : dp == 96 ? launch_dp<96>(maps, p, st)
+                   : launch_dp<128>(maps, p, st);
   if (err != 0) return err;
 
   if (dq != nullptr) {

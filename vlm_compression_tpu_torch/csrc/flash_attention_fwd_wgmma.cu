@@ -33,7 +33,8 @@
 //     product starts before V lands; a Q buffer or stage is refilled when
 //     every consumer warp has freed it (`q_empty`, `empty`).  TMA's zero
 //     fill pads d to DP (88 → 96) and blanks rows ≥ n or ≥ m, so nothing
-//     else handles an edge by address arithmetic.
+//     else handles an edge by address arithmetic (LLaMA's d = 128 fills
+//     DP = 128 exactly; 104 and 120 pad to it).
 //   * each consumer warpgroup owns 64 query rows of the tile and keeps
 //     everything of them in registers: S = Q·Kᵀ by SS wgmma m64n64k16 over
 //     DP (both K-major), with the tile's bias values loaded while it runs;
@@ -55,6 +56,23 @@
 //     columns ≥ d clipped by the map), which runs on under the next tile.
 //   setmaxnreg moves registers from the producer to the consumers.
 //
+// DP = 128 (LLaMA's heads): one consumer warpgroup a block always (three
+// would need 144 KB of Q and O tiles beside a 96 KB ring, more than a
+// block's 227 KB).  A consumer then holds O in 64 fp32 registers beside S
+// (32), the biases' sum (32) and P in bf16 (16), under the 232 that
+// setmaxnreg gives it.  Two blocks an SM still fit: two Q buffers, the O
+// tile and two K + V stages are 112 KB a block, and the dynamic shared
+// memory is aligned to the 64-byte swizzle's 512-byte period (not 1024),
+// so a block asks for 112.5 KB, 2 × (112.5 KB + the 1 KB the card keeps a
+// block) within the SM's 228 KB.  The launcher sizes the persistent grid
+// from the occupancy the card reports for the instantiation, so a
+// layout that fit one block an SM would still run, on half the blocks.
+// At a decode step (n = 1: b · h tiles of one query row each, one or two
+// kv tiles) each tile is a chain of latencies, Q and K landing, the S
+// product, the softmax, the P·V product and the epilogue, which the
+// second block on the SM and the Q tile loaded under the previous one
+// overlap.
+//
 // What bounds it on the H100: the function's bytes.  At the ViT's
 // calibration shape (b 128, n = m = 257, h 16, d 88) q, k, v, out and lse
 // are 370 MB, 0.1112 ms at 3.35 TB/s; its 4·b·h·n·m·d operations, 95
@@ -71,8 +89,9 @@
 // PERF.md §6 has the timeline).  Compile with -DFWD_TRACE for a per-kv-step
 // clock64 timeline of block 0's first tiles (scripts/torch_fwd_trace.py).
 //
-// Preconditions (ops/attention.py `plan_forward`): bf16; 32 < d ≤ 96,
-// d % 8 == 0; 16-byte aligned q, k, v bases and (batch, seq, head) strides.
+// Preconditions (ops/attention.py `plan_forward`): bf16; 32 < d ≤ 128,
+// d % 8 == 0 (three consumer warpgroups: d ≤ 96); 16-byte aligned q, k, v
+// bases and (batch, seq, head) strides.
 
 #include "hopper.cuh"
 
@@ -89,20 +108,24 @@ constexpr int BOX_BYTES = 64 * BOX * 2;    // a 64-row box, 4 KB
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF = -1e9f;    // the towers' additive-mask constant
 constexpr float M_INIT = -1e30f;    // running-max start, as on the TPU
+// every tile is laid out in the 64-byte swizzle, whose pattern repeats
+// every 512 bytes: the shared tiles start on that period
+constexpr int ALIGN = 512;
 
 // two buffers of the consumer warpgroups' Q tiles (the next tile's load
 // runs under this one), their O tiles (the epilogue's staging), and the
 // ring's K and V stages (two with one consumer warpgroup, three with
-// three: 185 KB at DP = 96)
+// three: 185 KB at DP = 96; 112 KB at DP = 128, one warpgroup)
 template <int DP, int WGS>
 struct Smem {
+  static_assert(WGS == 1 || DP <= 96, "three warpgroups hold d <= 96");
   static constexpr int STAGES = WGS == 1 ? 2 : 3;
   static constexpr int NB = DP / BOX;                     // boxes a tile
   static constexpr int TILE = NB * BOX_BYTES;             // 64 × DP bf16
   static constexpr int STAGE = 2 * TILE;                  // K and V
   static constexpr int Q_OFF = 0, O_OFF = 2 * WGS * TILE;
   static constexpr int RING_OFF = 3 * WGS * TILE;
-  static constexpr int BYTES = RING_OFF + STAGES * STAGE + 1024;   // + the
+  static constexpr int BYTES = RING_OFF + STAGES * STAGE + ALIGN;  // + the
                                                                    // alignment
 };
 
@@ -363,7 +386,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       empty[STAGES], q_full[2], q_empty[2];
   // aligned by an offset from the shared array (not an integer round
   // trip), so that the compiler keeps shared loads and stores
-  uint8_t* smem = dyn_smem + ((1024 - (smem_u32(dyn_smem) & 1023)) & 1023);
+  uint8_t* smem =
+      dyn_smem + ((ALIGN - (smem_u32(dyn_smem) & (ALIGN - 1))) & (ALIGN - 1));
   uint8_t* ring = smem + S::RING_OFF;
 
   const int tid = threadIdx.x, t = tid & 127, warp_group = tid >> 7;
@@ -587,24 +611,48 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// The blocks of one instantiation an SM holds at once (shared memory,
+// registers and threads, as the card reports them), after its shared
+// memory is opted in and its setmaxnreg budget checked; found once.
+// Returns the count, or minus the cudaError_t of a step that failed.
+template <int DP, int WGS>
+int blocks_per_sm() {
+  static const int blocks = [] {
+    const void* fn =
+        reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<DP, WGS>);
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<DP, WGS>::BYTES);
+    // the producer's 24 registers and each consumer's 232 (160 with three)
+    if (err == cudaSuccess)
+      err = check_setmaxnreg(fn, WGS + 1, 0,
+                             24 + WGS * (WGS == 1 ? 232 : 160));
+    int n = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fn, 128 * (WGS + 1), Smem<DP, WGS>::BYTES);
+    if (err == cudaSuccess && n == 0) err = cudaErrorInvalidConfiguration;
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+  }();
+  return blocks;
+}
+
 template <int DP, int WGS>
 int launch(const CUtensorMap* maps, const Params& p, cudaStream_t st) {
   constexpr int bytes = Smem<DP, WGS>::BYTES;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DP, WGS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int per_sm = blocks_per_sm<DP, WGS>();
+  if (per_sm < 0) return -per_sm;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   // persistent: as many blocks as the SMs hold at once (two an SM with one
-  // consumer warpgroup, one with three), or one per tile where there are
-  // fewer tiles
+  // consumer warpgroup, one with three, as the card reports), or one per
+  // tile where there are fewer tiles
   const long long tiles =
       static_cast<long long>((p.N + BQ * WGS - 1) / (BQ * WGS)) * p.H * p.B;
-  const long long resident = static_cast<long long>(sms) * (WGS == 1 ? 2 : 1);
+  const long long resident = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
   flash_fwd_wgmma_kernel<DP, WGS><<<grid, 128 * (WGS + 1), bytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], p);
@@ -617,7 +665,8 @@ int launch(const CUtensorMap* maps, const Params& p, cudaStream_t st) {
 // h), v (b, m, h), bias0 (b, h, n, m), bias1 (b, h, n, m) — the mma.sync
 // entry point's.  out is a contiguous (b, n, h, d) bf16 tensor, lse a
 // contiguous (b, h, n) float32 one.  wgs: consumer warpgroups a block (1:
-// 64 query rows, two blocks an SM; 3: 192 rows, one block, no bias).
+// 64 query rows, two blocks an SM; 3: 192 rows, one block, no bias, d ≤
+// 96).
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for a shape,
 // layout or wgs it does not take).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
@@ -630,8 +679,9 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return static_cast<int>(bound);
-  if (D <= 32 || D > 96 || D % 8 != 0 || (wgs != 1 && wgs != 3) || N <= 0 ||
-      M <= 0 || (wgs == 3 && (bias0 != nullptr || bias1 != nullptr)))
+  if (D <= 32 || D > 128 || D % 8 != 0 || (wgs != 1 && wgs != 3) ||
+      N <= 0 || M <= 0 ||
+      (wgs == 3 && (bias0 != nullptr || bias1 != nullptr || D > 96)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long out_strides[3] = {static_cast<long long>(N) * H * D,
                                     static_cast<long long>(H) * D, D};
@@ -659,7 +709,25 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
   p.causal = causal;
   if (D <= 64)
     return wgs == 1 ? launch<64, 1>(maps, p, st) : launch<64, 3>(maps, p, st);
-  return wgs == 1 ? launch<96, 1>(maps, p, st) : launch<96, 3>(maps, p, st);
+  if (D <= 96)
+    return wgs == 1 ? launch<96, 1>(maps, p, st) : launch<96, 3>(maps, p, st);
+  return launch<128, 1>(maps, p, st);
+}
+
+// The blocks an SM holds of the instantiation that a call of head dim d
+// with wgs consumer warpgroups runs (the persistent grid's per-SM count),
+// or minus a cudaError_t (cudaErrorInvalidValue for a d or wgs the entry
+// point does not take).
+extern "C" int flash_attention_fwd_wgmma_blocks_per_sm(int D, int wgs) {
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return -static_cast<int>(bound);
+  if (D <= 32 || D > 128 || (wgs != 1 && wgs != 3) || (wgs == 3 && D > 96))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64)
+    return wgs == 1 ? blocks_per_sm<64, 1>() : blocks_per_sm<64, 3>();
+  if (D <= 96)
+    return wgs == 1 ? blocks_per_sm<96, 1>() : blocks_per_sm<96, 3>();
+  return blocks_per_sm<128, 1>();
 }
 
 #ifdef FWD_TRACE

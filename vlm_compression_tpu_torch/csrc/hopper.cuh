@@ -353,25 +353,114 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
         "n"(TB));
 }
 
-// d (+)= A · B at N = DP (64 or 96), both operands in shared memory
+// d[64 × 128] (+)= A[64 × 16] · B[16 × 128], both from shared memory;
+// TA / TB: the transpose bits (1 = MN-major), scale_d 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 × 128] += A[64 × 16] (registers: the m64n16 accumulator layout
+// packed to bf16 pairs) · B[16 × 128] (shared memory); TB: transpose bit
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64,%65,%66,%67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d (+)= A · B at N = DP (64, 96 or 128), both operands in shared memory
 template <int DP, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_dp(float (&d)[DP / 2], uint64_t da,
                                             uint64_t db, int scale_d) {
+  static_assert(DP == 64 || DP == 96 || DP == 128, "N is 64, 96 or 128");
   if constexpr (DP == 64)
     wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
-  else
+  else if constexpr (DP == 96)
     wgmma_ss_n96<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
 }
 
-// d += A (registers) · B (shared memory, MN-major) at N = DP (64 or 96)
+// d += A (registers) · B (shared memory, MN-major) at N = DP (64, 96 or
+// 128)
 template <int DP>
 __device__ __forceinline__ void wgmma_rs_dp(float (&d)[DP / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
+  static_assert(DP == 64 || DP == 96 || DP == 128, "N is 64, 96 or 128");
   if constexpr (DP == 64)
     wgmma_rs_n64<1>(d, a, db);
-  else
+  else if constexpr (DP == 96)
     wgmma_rs_n96<1>(d, a, db);
+  else
+    wgmma_rs_n128<1>(d, a, db);
 }
 
 // ---------------------------------------------------- thread-block clusters
@@ -429,6 +518,21 @@ inline cudaError_t bind_context() {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
+// Whether a block of `warpgroups` warpgroups of a kernel that moves
+// registers between them with setmaxnreg holds what they ask for: the
+// block is given 128 × warpgroups × the kernel's register count; `asked`
+// sums the counts of the warpgroups that set one, and `keep` warpgroups
+// keep the kernel's count.  A setmaxnreg.inc that the block cannot serve
+// waits for ever, so the launchers check this once before a first launch.
+inline cudaError_t check_setmaxnreg(const void* fn, int warpgroups, int keep,
+                                    int asked) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return err;
+  return a.numRegs * (warpgroups - keep) >= asked
+             ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 // cuTensorMapEncodeTiled from the driver, through the runtime (no libcuda

@@ -78,6 +78,8 @@ _SIGNATURES = {
     "flash_attention_fwd_wgmma": {
         "flash_attention_fwd_wgmma": [_P] * 8 + [_I, _I, _I, _I, _I, _F, _I,
                                                  _I, _P],
+        # (d, consumer warpgroups) -> blocks an SM of that instantiation
+        "flash_attention_fwd_wgmma_blocks_per_sm": [_I, _I],
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -297,6 +297,19 @@ def _tma_aligned(*tensors) -> bool:
                        for x in t.stride()[:3]) for t in tensors)
 
 
+def _wgmma_head(d: int) -> bool:
+    """A head dim the TMA + wgmma kernels hold: 32 < d ≤ 128, d % 8 == 0
+    (a 16-byte TMA row stride; padded to ``_head_pad(d)`` columns)."""
+    return d % 8 == 0 and 32 < d <= 128
+
+
+def _head_pad(d: int) -> int:
+    """The head-dim width DP the TMA + wgmma kernels compute at (and the
+    backward's dq slabs are laid out at): 64, 96 or 128, TMA's zero fill
+    padding d to it."""
+    return 64 if d <= 64 else 96 if d <= 96 else 128
+
+
 def plan_forward(n: int, m: int, d: int, *, bf16: bool = True,
                  aligned: bool = True) -> str:
     """The forward's route for one call, from the dtype, head dim,
@@ -306,7 +319,7 @@ def plan_forward(n: int, m: int, d: int, *, bf16: bool = True,
     - float32: the CUDA-core kernel (FP32);
     - bf16 that TMA can take (``aligned``: 16-byte aligned q, k and v bases
       and (batch, seq, head) strides) with a head dim the TMA + wgmma
-      kernel holds (32 < d ≤ 96, d % 8 == 0): WGMMA;
+      kernel holds (32 < d ≤ 128, d % 8 == 0): WGMMA;
     - any other bf16: the mma.sync kernel (MMA).
 
     No shape rule: at every shape of chip_smoke.py's ``FLASH_SHAPES``, the
@@ -324,15 +337,26 @@ def plan_forward(n: int, m: int, d: int, *, bf16: bool = True,
         t5_self_decode          0.0128 vs 0.0219
         t5_cross_decode         0.0179 vs 0.0431
 
+    and at every shape of its ``VICUNA_FLASH_SHAPES`` (LLaMA's d = 128,
+    DP = 128; one call of ``scripts/torch_fwd_check.py --d 128``, the same
+    card and limit, ms, the mean of two turns):
+
+        llama_self_calib        0.1919 vs 0.9146
+        llama_prime_gen         0.0479 vs 0.1821
+        llama_decode_gen        0.0285 vs 0.0893
+        llama_prime_vqa         0.2355 vs 1.0729
+        llama_beam_step         0.1672 vs 0.7169
+        llama_self_train        0.0569 vs 0.2446
+
     (PERF.md §6)."""
     if not bf16:
         return FP32
-    if aligned and d % 8 == 0 and 32 < d <= 96:
+    if aligned and _wgmma_head(d):
         return WGMMA
     return MMA
 
 
-def _fwd_wgs(n: int, biased: bool) -> int:
+def _fwd_wgs(n: int, biased: bool, d: int) -> int:
     """Consumer warpgroups a block of the TMA + wgmma forward (64 query
     rows each; two blocks an SM with one, one with three).  Three above
     n = 128 with no bias: vit_self_calib (n = 257) 0.2719 ms against 0.3997
@@ -341,8 +365,10 @@ def _fwd_wgs(n: int, biased: bool) -> int:
     registers each, which the bias paths spilled, and at n ≤ 128 the
     second and third hold few rows or none (with the bias paths built for
     three, an earlier call read t5_encoder_calib, n = 72, at 0.1378 with
-    three against 0.1301 with one; PERF.md §6)."""
-    return 3 if n > 128 and not biased else 1
+    three against 0.1301 with one; PERF.md §6).  One at d > 96 always:
+    three warpgroups' Q and O tiles at DP = 128 and the kv ring do not fit
+    a block's shared memory (the kernel refuses them)."""
+    return 3 if n > 128 and not biased and d <= 96 else 1
 
 
 def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
@@ -375,7 +401,7 @@ def flash_attention(q, k, v, biases: Sequence[torch.Tensor] = (),
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), ptrs[0], ptrs[1], _STRIDES(*strides), b, n,
                 m, h, d, float(scale), int(bool(causal)),
-                _fwd_wgs(n, bool(biases)),
+                _fwd_wgs(n, bool(biases), d),
                 _cuda.stream_ptr(dev))
         _cuda.check(err, "flash_attention_fwd_wgmma")
         fwd_wgmma_launches += 1
@@ -405,7 +431,7 @@ def plan(n: int, m: int, d: int, *, bf16: bool = True,
     - float32: the CUDA-core kernels (FP32);
     - bf16 that TMA can take (``aligned``: 16-byte aligned q, k, v, g and
       out bases and (batch, seq, head) strides) with a head dim the TMA +
-      wgmma kernel holds (32 < d ≤ 96, d % 8 == 0): WGMMA;
+      wgmma kernel holds (32 < d ≤ 128, d % 8 == 0): WGMMA;
     - any other bf16: the mma.sync kernels (MMA).
 
     No shape rule: at every training shape of chip_smoke.py's
@@ -414,10 +440,13 @@ def plan(n: int, m: int, d: int, *, bf16: bool = True,
     wgmma vs mma.sync): vit_self 0.3118 vs 1.1642, qformer_cross 0.0723
     vs 0.1904, qformer_self 0.0521 vs 0.1286, t5_encoder 0.1267 vs
     0.3440, t5_decoder_self 0.0439 vs 0.0661, t5_decoder_cross 0.0704 vs
-    0.1568 (PERF.md §6)."""
+    0.1568; and at LLaMA's d = 128, llama_self (b 32, n = m = 72, its
+    causal + pad bias) 0.2216 vs 0.5498, in one call of
+    ``scripts/torch_bwd_check.py --d 128`` (the same card and limit; the
+    TMA + wgmma time the mean of two turns) (PERF.md §6)."""
     if not bf16:
         return FP32
-    if aligned and d % 8 == 0 and 32 < d <= 96:
+    if aligned and _wgmma_head(d):
         return WGMMA
     return MMA
 
@@ -532,7 +561,7 @@ def flash_attention_backward(q, k, v, out, lse, g,
     dbias = {i: torch.empty(shapes[i], dtype=torch.float32, device=dev)
              for i in fused}
     if route == WGMMA and (need_dq or need_dkv or fused):
-        n_pad, d_pad = -(-n // 64) * 64, 64 if d <= 64 else 96
+        n_pad, d_pad = -(-n // 64) * 64, _head_pad(d)
         pads = torch.empty((2, b, h, n_pad), dtype=torch.float32, device=dev)
         # dq: an fp32 slab a kv tile, which the cast sums in kv order
         ws = torch.empty((-(-m // 64), b, h, n_pad, d_pad),
