@@ -14,7 +14,9 @@ in the result file equal, and ``eval_stats`` has JAX's keys and metric.
 The chained prune at the launcher's batch 1 over prompts of several
 lengths, where the JAX CLI fails, is held to its densities and its own
 checkpoint.  Also held against JAX: the checkpoint evaluated again with
-``--strip_lora_masks`` and with ``--quantize_int8`` (answers equal), the
+``--strip_lora_masks``, with ``--quantize_int8``, with
+``--speculative_gamma`` (batch-shared and ``--kv_cache_per_row`` caches)
+and with ``--kv_cache_int8`` (answers equal), the
 tower grafts (``--vit_pruned_checkpoint`` / ``--t5_pruned_checkpoint``,
 equal weights) and ``interpolate_pos_embed`` (atol = rtol = 1e-6); the
 unported flags raise with their ROADMAP items; with no GPU the default
@@ -161,8 +163,11 @@ def test_answers_and_eval_stats_equal_jax(runs):
     assert t["eval_results"] == runs["port"]["eval_results"]
 
 
-@pytest.mark.parametrize("extra,who", [(["--strip_lora_masks"], "strip"),
-                                       (["--quantize_int8"], "int8")])
+@pytest.mark.parametrize("extra,who", [
+    (["--strip_lora_masks"], "strip"), (["--quantize_int8"], "int8"),
+    (["--speculative_gamma", "2"], "spec"),
+    (["--speculative_gamma", "3", "--kv_cache_per_row"], "spec_rows"),
+    (["--kv_cache_int8"], "kv_int8")])
 def test_checkpoint_eval_equals_jax(runs, extra, who):
     from vlm_compression_tpu.cli import evaluate as JE
 
@@ -276,9 +281,8 @@ def test_interpolate_pos_embed_equals_jax(old, new):
 
 @pytest.mark.parametrize("flag,item", [
     (["--w8a8"], 7), (["--int8_outliers", "8"], 7), (["--quantize_int4"], 7),
-    (["--int4_group", "64"], 7), (["--autotune"], 9),
-    (["--speculative_gamma", "4"], 9), (["--kv_cache_int8"], 9),
-    (["--kv_cache_per_row"], 9)], ids=lambda x: str(x))
+    (["--int4_group", "64"], 7), (["--autotune"], 9)],
+    ids=lambda x: str(x))
 def test_unported_flags_raise_with_their_item(flag, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         TE.main(["--cfg-path", "unused.yaml", "--device", "cpu", *flag])

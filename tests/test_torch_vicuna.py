@@ -363,25 +363,67 @@ def test_unported_vicuna_paths_raise(tiny):
     _, _, tm, _ = tiny
     image = torch.zeros(1, 28, 28, 3)
     ids = torch.ones(1, 3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TBV.generate_vicuna(tm, image, ids, ids, speculative_gamma=2)
     with pytest.raises(NotImplementedError, match="item 8"):
         TBV.predict_class_vicuna(tm, image, ids, ids, ids, ids)
-    for knob in ("kv_cache_int8", "kv_cache_per_row", "use_remat"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TL.LlamaForCausalLM(TL.LlamaConfig.tiny(**{knob: True}),
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TL.LlamaForCausalLM(TL.LlamaConfig.tiny(use_remat=True), device="cpu")
     ranker = TVQA.VQATask(tokenizer=TTok.SimpleTokenizer(96))
     ranker.answer_list = ["yes", "no"]
     with pytest.raises(NotImplementedError, match="ranking.*item 8"):
         ranker.valid_step(tm, {"image": np.zeros((1, 28, 28, 3), np.float32),
                                "text_input": ["is it?"],
                                "question_id": [0]})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TVQA.VQATask(tokenizer=TTok.SimpleTokenizer(96),
-                     speculative_gamma=2).valid_step(
-            tm, {"image": np.zeros((1, 28, 28, 3), np.float32),
-                 "text_input": ["is it?"], "question_id": [0]})
+
+
+@pytest.mark.parametrize("knob", ["kv_cache_int8", "kv_cache_per_row"])
+def test_llama_takes_the_kv_cache_knobs(knob):
+    """The cache forms are ported: the tower builds, and its cache has the
+    form's buffers (int8 codes and scales; a (b,) index)."""
+    lm = TL.LlamaForCausalLM(TL.LlamaConfig.tiny(**{knob: True}, **F32),
+                             device="cpu")
+    kv = lm.init_cache(2, 4, torch.float32, "cpu")["layers"][0]["self"]
+    if knob == "kv_cache_int8":
+        assert kv["key"].dtype == torch.int8 and "value_scale" in kv
+    else:
+        assert tuple(kv["index"].shape) == (2,) and kv["bound"] == 0
+
+
+@pytest.mark.parametrize("cls_name,beams,per_row,int8", [
+    ("GQATask", 2, False, False), ("GQATask", 1, True, False),
+    ("VQATask", 1, True, True)],
+    ids=["gqa_beams_to_greedy", "gqa_per_row", "okvqa_per_row_int8"])
+def test_speculative_vqa_tasks_on_vicuna_match_jax(tiny, cls_name, beams,
+                                                   per_row, int8, caplog,
+                                                   monkeypatch):
+    """``speculative_gamma``: the masked student drafts, the dense teacher
+    verifies, beams give way to greedy with a warning; the answers equal
+    the JAX task's and the dense greedy decode's."""
+    jm, variables, tm, _ = tiny
+    jm = JBV.Blip2VicunaInstruct(dataclasses.replace(
+        jm.cfg, llm=dataclasses.replace(jm.cfg.llm, kv_cache_per_row=per_row,
+                                        kv_cache_int8=int8)))
+    TF.set_kv_cache_(tm, int8=int8, per_row=per_row)
+    try:
+        kw = dict(num_beams=beams, max_len=4, min_len=1, prompt=PROMPT,
+                  speculative_gamma=2)
+        jt = getattr(JVQA, cls_name)(**kw, **_tokenizers(JTok, jm.cfg))
+        tt = getattr(TVQA, cls_name)(**kw, **_tokenizers(TTok, jm.cfg))
+        samples = _samples(jm.cfg, 47)
+        with caplog.at_level("WARNING"):
+            got = tt.evaluation(tm, [samples])
+        assert ("replaces num_beams" in caplog.text) == (beams > 1)
+        assert got == jt.evaluation(FlaxModel(jm, variables), [samples])
+        dense = getattr(TVQA, cls_name)(**dict(kw, num_beams=1,
+                                               speculative_gamma=0),
+                                        **_tokenizers(TTok, jm.cfg))
+        teacher = TVQA.generate_vicuna
+        monkeypatch.setattr(TVQA, "generate_vicuna", lambda *a, **k: teacher(
+            *a, **dict(k, llm_mode="dense")))
+        assert got == dense.evaluation(tm, [samples])
+        assert tt.spec_stats["rows"] == len(samples["question_id"])
+        assert tt.spec_stats["rounds"] >= 2
+    finally:
+        TF.set_kv_cache_(tm)
 
 
 # ----------------------------------------------------------------- pruners
@@ -613,7 +655,7 @@ def test_vqa_task_answers_are_a_direct_generate(tiny):
 
 
 # the JAX knobs the port's tower configs leave out (their factory raises)
-NOT_PORTED_KNOBS = {"use_remat", "kv_cache_int8", "kv_cache_per_row"}
+NOT_PORTED_KNOBS = {"use_remat"}
 
 
 def _assert_fields_equal(tcfg, jcfg):
@@ -645,6 +687,20 @@ def test_factory_vicuna_configs_match_jax(size, tune_opt):
     assert isinstance(tcfg, TBV.Blip2VicunaInstructConfig)
     _assert_fields_equal(tcfg, jcfg)
     assert tcfg.llm.head_dim == jcfg.llm.head_dim == 128
+
+
+@pytest.mark.parametrize("knobs", [("kv_cache_int8",), ("kv_cache_per_row",),
+                                   ("kv_cache_int8", "kv_cache_per_row")])
+def test_factory_kv_cache_knobs_match_jax(knobs):
+    """The model config's KV-cache knobs reach every tower that carries
+    them, as JAX's ``set_field_everywhere`` does."""
+    node = dict(arch="blip2_vicuna_instruct", model_type="vicuna7b",
+                **{k: True for k in knobs})
+    _, jcfg = JF.build_model_config(node)
+    _, tcfg = TF.build_model_config(node)
+    _assert_fields_equal(tcfg, jcfg)
+    for knob in ("kv_cache_int8", "kv_cache_per_row"):
+        assert getattr(tcfg.llm, knob) == (knob in knobs)
 
 
 def test_factory_builds_a_seeded_tiny_vicuna():

@@ -5,9 +5,11 @@ OK-VQA lemmatizer (equal, floats included), the 5-dim (video) branch of
 ``encode_image`` (tiny fp32, atol = rtol = 1e-5), ``predict_class_t5``
 (tiny fp32 NLLs, atol = rtol = 1e-4, argmin equal), and the ``vqa`` /
 ``gqa`` tasks end to end — answers, metrics, the merged result file and
-the ``evaluate.txt`` line equal to the JAX tasks'.
+the ``evaluate.txt`` line equal to the JAX tasks', with beams, greedy and
+``speculative_gamma`` (batch-shared, per-row and int8 KV caches).
 """
 
+import dataclasses
 import json
 import sys
 import types
@@ -37,6 +39,7 @@ from vlm_compression_tpu_torch.datasets import tokenization as TTok
 from vlm_compression_tpu_torch.evaluation import lemmatize as TL
 from vlm_compression_tpu_torch.evaluation import vqa_eval as TE
 from vlm_compression_tpu_torch.models import blip2_t5_instruct as TB
+from vlm_compression_tpu_torch.models.factory import set_kv_cache_
 from vlm_compression_tpu_torch.tasks import base as TBase
 from vlm_compression_tpu_torch.tasks import vqa as TQ
 
@@ -433,6 +436,44 @@ def test_generate_mode_tasks_match_jax(tiny, tmp_path, cls_name, beams,
     assert metrics["orig_size"] == "4.023 B"
 
 
+@pytest.mark.parametrize("cls_name,beams,per_row,int8", [
+    ("GQATask", 2, False, False), ("GQATask", 1, True, False),
+    ("VQATask", 1, False, True)],
+    ids=["gqa_beams_to_greedy", "gqa_per_row", "okvqa_int8"])
+def test_speculative_tasks_match_jax(tiny, tmp_path, cls_name, beams,
+                                     per_row, int8, caplog, monkeypatch):
+    """``speculative_gamma``: the masked student drafts, the dense teacher
+    verifies, beams give way to greedy with a warning; answers, metrics
+    and files equal the JAX task's, the answers the dense greedy's."""
+    jm, variables, tm = tiny
+    jm = JB.Blip2T5Instruct(dataclasses.replace(jm.cfg, t5=dataclasses.replace(
+        jm.cfg.t5, kv_cache_per_row=per_row, kv_cache_int8=int8)))
+    set_kv_cache_(tm, int8=int8, per_row=per_row)
+    try:
+        kw = dict(num_beams=beams, max_len=4, min_len=1, prompt=PROMPT)
+        jax_task, torch_task = _tasks((jm, variables, tm), cls_name,
+                                      speculative_gamma=2, **kw)
+        samples = _samples(tiny, 39)
+        with caplog.at_level("WARNING"):
+            first = torch_task[0].evaluation(tm, [samples])
+        assert ("replaces num_beams" in caplog.text) == (beams > 1)
+        answers = [r["answer"] for r in first]
+        got, _ = _evaluate_both(jax_task, torch_task,
+                                _with_gt(samples, answers), tmp_path)
+        assert [r["answer"] for r in got] == answers
+        stats = torch_task[0].spec_stats
+        assert stats["rows"] == 2 * len(answers) and stats["rounds"] >= 2
+        teacher = TQ.generate_t5
+        monkeypatch.setattr(TQ, "generate_t5", lambda *a, **k: teacher(
+            *a, **dict(k, llm_mode="dense")))
+        _, dense = _tasks((jm, variables, tm), cls_name, **dict(kw,
+                                                               num_beams=1))
+        assert [r["answer"] for r in dense[0].evaluation(tm, [samples])] \
+            == answers
+    finally:
+        set_kv_cache_(tm)
+
+
 @pytest.mark.parametrize("cls_name", ["VQATask", "GQATask"])
 def test_rank_mode_tasks_match_jax(tiny, tmp_path, cls_name):
     jax_task, torch_task = _tasks(tiny, cls_name, max_len=4, prompt=PROMPT)
@@ -514,8 +555,6 @@ def test_unported_branches_raise(tiny):
     ranker.answer_list = ["yes", "no"]
     with pytest.raises(NotImplementedError, match="ranking.*item 8"):
         ranker.valid_step(not_t5, samples)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TQ.VQATask(tokenizer=tok, speculative_gamma=3).valid_step(tm, samples)
     # the runner layer builds models and datasets from a Config; what it
     # cannot build yet raises with its item
     from vlm_compression_tpu_torch.common.config import Config

@@ -11,9 +11,11 @@ It takes every flag of the JAX CLI, plus ``--device``: the card unless the
 caller asks for the CPU (``--device cpu``); with no card and no
 ``--device`` it raises.  A checkpoint is the model's ``state_dict`` written
 with ``torch.save``; it is read back with ``weights_only=True`` and strict
-keys.  The flags of what is not ported yet (W8A8, int4: ROADMAP queue 1,
-item 7; autotuning, speculative decoding, the int8 and per-row KV caches:
-item 9) parse, and raise when set.
+keys.  ``--speculative_gamma`` serves the eval with speculative decoding
+(the masked student drafts, the dense teacher verifies), ``--kv_cache_int8``
+and ``--kv_cache_per_row`` choose the decode cache's storage, as in the JAX
+CLI.  The flags of what is not ported yet (W8A8, int4: ROADMAP queue 1,
+item 7; autotuning: item 9) parse, and raise when set.
 """
 
 from __future__ import annotations
@@ -31,8 +33,7 @@ import torch
 # flags that parse but are not ported: (flag, item); each raises when set
 # to anything but the parser's default
 _NOT_PORTED = (("w8a8", 7), ("int8_outliers", 7), ("quantize_int4", 7),
-               ("int4_group", 7), ("autotune", 9), ("speculative_gamma", 9),
-               ("kv_cache_int8", 9), ("kv_cache_per_row", 9))
+               ("int4_group", 7), ("autotune", 9))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -91,11 +92,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--int4_group", type=int, default=128,
                    help="not ported yet (ROADMAP queue 1, item 7)")
     p.add_argument("--speculative_gamma", type=int, default=0,
-                   help="not ported yet (ROADMAP queue 1, item 9)")
+                   help="serve with speculative decoding: the masked "
+                        "student drafts k tokens, the DENSE teacher "
+                        "verifies in one chunked pass (answers = the "
+                        "teacher's greedy decode; overrides num_beams)")
     p.add_argument("--kv_cache_int8", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 9)")
+                   help="store decode KV caches as int8 codes + absmax "
+                        "scales (half the persistent decode memory)")
     p.add_argument("--kv_cache_per_row", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 9)")
+                   help="per-row decode cache frontiers: speculative "
+                        "decoding commits each row's own accepted "
+                        "prefix instead of the batch minimum")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--model_size", default=None)
     p.add_argument("--seed", type=int, default=42)
@@ -243,6 +250,12 @@ def run(args) -> Tuple[dict, object, object]:
         model_cfg["tiny"] = True
     if args.model_size:
         model_cfg["model_type"] = args.model_size
+    if args.kv_cache_int8:
+        model_cfg["kv_cache_int8"] = True
+    if args.kv_cache_per_row:
+        model_cfg["kv_cache_per_row"] = True
+    if args.speculative_gamma:
+        cfg.run_cfg["speculative_gamma"] = args.speculative_gamma
 
     job_id = args.job_id or time.strftime("%Y%m%d%H%M%S")
     output_dir = _get(cfg.run_cfg, "output_dir", f"output/{job_id}")

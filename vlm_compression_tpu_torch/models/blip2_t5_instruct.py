@@ -23,6 +23,8 @@ from vlm_compression_tpu_torch.models.generation import (
     beam_search,
     greedy_generate,
     make_t5_step,
+    speculative_generate,
+    speculative_max_len,
 )
 from vlm_compression_tpu_torch.models.layers import LayerNorm, SparseLinear
 from vlm_compression_tpu_torch.models.qformer import QFormer, QFormerConfig
@@ -200,10 +202,19 @@ def generate_t5(model: Blip2T5Instruct, image, input_ids, attention_mask,
                 qformer_input_ids=None, qformer_attention_mask=None,
                 gen_cfg: Optional[GenerationConfig] = None,
                 vit_mode="masked", llm_mode="masked", qformer_mode="masked",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                speculative_gamma: int = 0, draft_llm_mode: str = "masked",
+                stats: Optional[dict] = None):
     """InstructBLIP-T5 generate: beam search (num_beams > 1) or greedy /
     nucleus over the image-conditioned encoder output.  Returns token ids
-    (b, max_length) starting with the decoder start token."""
+    (b, max_length) starting with the decoder start token.
+
+    ``speculative_gamma > 0`` (no beams): the ``draft_llm_mode`` decoder
+    proposes γ tokens, the ``llm_mode`` one verifies them in one chunked
+    pass; the output is greedy under ``llm_mode`` (the serving pairing:
+    llm_mode "dense", the teacher; draft "masked", the student).  Both
+    decoders read the one encoding made under ``llm_mode``.  ``stats``, a
+    dict, receives the decode's ``rounds`` and ``committed``."""
     cfg = model.cfg
     gen_cfg = gen_cfg or GenerationConfig(
         num_beams=5, max_length=30, min_length=1,
@@ -215,11 +226,25 @@ def generate_t5(model: Blip2T5Instruct, image, input_ids, attention_mask,
     b = enc.shape[0]
     k = gen_cfg.num_beams
     if k > 1:
-        enc = enc.repeat_interleave(k, dim=0)
-        enc_mask = enc_mask.repeat_interleave(k, dim=0)
+        step, cache = make_t5_step(
+            model.t5_model, enc.repeat_interleave(k, dim=0),
+            enc_mask.repeat_interleave(k, dim=0), llm_mode,
+            gen_cfg.max_length)
+        return beam_search(step, cache, b, gen_cfg, device=enc.device)[0]
+    if speculative_gamma > 0:
+        max_len = speculative_max_len(gen_cfg.max_length, speculative_gamma,
+                                      cfg.t5.kv_cache_per_row)
+        dstep, dcache = make_t5_step(model.t5_model, enc, enc_mask,
+                                     draft_llm_mode, max_len)
+        tstep, tcache = make_t5_step(model.t5_model, enc, enc_mask, llm_mode,
+                                     max_len)
+        seqs, _, st = speculative_generate(
+            dstep, dcache, tstep, tcache, b, gen_cfg,
+            gamma=speculative_gamma, generator=generator, device=enc.device)
+        if stats is not None:
+            stats.update(st)
+        return seqs
     step, cache = make_t5_step(model.t5_model, enc, enc_mask, llm_mode,
                                gen_cfg.max_length)
-    if k > 1:
-        return beam_search(step, cache, b, gen_cfg, device=enc.device)[0]
     return greedy_generate(step, cache, b, gen_cfg, device=enc.device,
                            generator=generator)[0]

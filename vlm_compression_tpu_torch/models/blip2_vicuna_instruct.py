@@ -6,9 +6,9 @@ the LLaMA token embeddings.  The model consumes ``text_input_ids`` (prompt
 then answer, packed and right-padded by the collator), its
 ``text_attention_mask`` and ``labels`` (-100 on the prompt and the pads).
 Generation primes the KV cache with [image prefix ⊕ left-padded prompt
-minus its last token] and starts the decode from that last token.
-Candidate ranking and speculative decoding on Vicuna are not ported yet,
-and raise.
+minus its last token] and starts the decode from that last token (beam,
+greedy, nucleus or speculative).  Candidate ranking on Vicuna is not ported
+yet, and raises.
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ from vlm_compression_tpu_torch.models.generation import (
     GenerationConfig,
     beam_search,
     greedy_generate,
+    speculative_generate,
+    speculative_max_len,
+    with_start,
 )
 from vlm_compression_tpu_torch.models.layers import LayerNorm, SparseLinear
 from vlm_compression_tpu_torch.models.llama import (
@@ -133,16 +136,20 @@ def generate_vicuna(model: Blip2VicunaInstruct, image, prompt_input_ids,
                     vit_mode="masked", llm_mode="masked",
                     qformer_mode="masked",
                     generator: Optional[torch.Generator] = None,
-                    speculative_gamma: int = 0):
+                    speculative_gamma: int = 0,
+                    draft_llm_mode: str = "masked",
+                    stats: Optional[dict] = None):
     """InstructBLIP-Vicuna generate: the image prefix and the left-padded
     prompt (BOS first) minus its last token prime the KV cache, repeated
     per beam; the last prompt token seeds beam search (num_beams > 1) or
     greedy / nucleus decoding.  Returns (b, max_length) ids whose first
-    column is that last prompt token."""
-    if speculative_gamma > 0:
-        raise NotImplementedError(
-            "speculative_gamma > 0 (draft-and-verify serving) is not ported "
-            "yet (ROADMAP queue 1, item 9)")
+    column is that last prompt token.
+
+    ``speculative_gamma > 0`` (in place of beams, as in the JAX package):
+    each of the ``draft_llm_mode`` and ``llm_mode`` caches is primed under
+    its own mode; the draft proposes γ tokens, ``llm_mode`` verifies, and
+    the output is greedy under ``llm_mode``.  ``stats``, a dict, receives
+    the decode's ``rounds`` and ``committed``."""
     cfg = model.cfg
     gen_cfg = gen_cfg or GenerationConfig(
         eos_token_id=cfg.llm.eos_token_id, pad_token_id=cfg.llm.pad_token_id)
@@ -153,6 +160,26 @@ def generate_vicuna(model: Blip2VicunaInstruct, image, prompt_input_ids,
         prompt_attention_mask[:, :-1].to(torch.int32))
     b = prefix.shape[0]
     start = prompt_input_ids[:, -1].to(torch.int32)
+    # the loops seed every row with decoder_start_token_id; -1 stands for
+    # the row's own last prompt token
+    gcfg = dataclasses.replace(gen_cfg, decoder_start_token_id=-1)
+    if speculative_gamma > 0:
+        max_len = speculative_max_len(gen_cfg.max_length, speculative_gamma,
+                                      cfg.llm.kv_cache_per_row)
+        dstep, dcache = make_causal_step(model.llm_model, prefix_embeds,
+                                         prefix_mask, mode=draft_llm_mode,
+                                         max_decode_len=max_len)
+        tstep, tcache = make_causal_step(model.llm_model, prefix_embeds,
+                                         prefix_mask, mode=llm_mode,
+                                         max_decode_len=max_len)
+        seqs, _, st = speculative_generate(
+            with_start(dstep, start), dcache, with_start(tstep, start),
+            tcache, b, gcfg, gamma=speculative_gamma, generator=generator,
+            cache_offset=prefix_embeds.shape[1], device=prefix.device)
+        if stats is not None:
+            stats.update(st)
+        seqs[:, 0] = start
+        return seqs
     k = gen_cfg.num_beams
     if k > 1:
         prefix_embeds = prefix_embeds.repeat_interleave(k, dim=0)
@@ -160,15 +187,8 @@ def generate_vicuna(model: Blip2VicunaInstruct, image, prompt_input_ids,
     step, cache = make_causal_step(model.llm_model, prefix_embeds,
                                    prefix_mask, mode=llm_mode,
                                    max_decode_len=gen_cfg.max_length)
-    # the loops seed every row with decoder_start_token_id; -1 stands for
-    # the row's own last prompt token
-    start_rows = start.repeat_interleave(k) if k > 1 else start
-
-    def step_with_start(tokens, c):
-        tok = torch.where(tokens[:, 0] == -1, start_rows, tokens[:, 0])
-        return step(tok[:, None], c)
-
-    gcfg = dataclasses.replace(gen_cfg, decoder_start_token_id=-1)
+    step_with_start = with_start(
+        step, start.repeat_interleave(k) if k > 1 else start)
     if k > 1:
         seqs = beam_search(step_with_start, cache, b, gcfg,
                            device=prefix.device)[0]

@@ -8,9 +8,11 @@ LoRA ranks per tower follow the reference's ``tune_opt`` selector and
 ``lora_r_v/l/q`` flags: a tower gets its rank only when its letter is in
 ``tune_opt`` (V = vision, L = language, Q = Q-Former); the stage-1 archs
 take none, and every ``model_type`` (``pretrain``, ``coco``, …) gives the
-one full-width config, as in the JAX package.  Still raising: the OPT
-composition and the legacy zoo (ROADMAP queue 1, items 8 and 11), and the
-JAX factory's remat and KV-cache knobs.
+one full-width config, as in the JAX package.  ``kv_cache_int8`` and
+``kv_cache_per_row`` reach every tower config that carries them (the JAX
+factory's ``set_field_everywhere``); ``set_kv_cache_`` switches them on a
+built model.  Still raising: the OPT composition and the legacy zoo
+(ROADMAP queue 1, items 8 and 11), and the JAX factory's remat knobs.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from vlm_compression_tpu_torch.models.llama import LlamaConfig
 from vlm_compression_tpu_torch.models.qformer import QFormerConfig
 from vlm_compression_tpu_torch.models.t5 import T5Config
 
-_NOT_PORTED = ("use_grad_checkpoint", "use_remat", "kv_cache_int8",
-               "kv_cache_per_row")
+_NOT_PORTED = ("use_grad_checkpoint", "use_remat")
+_KV_KNOBS = ("kv_cache_int8", "kv_cache_per_row")
 
 
 def _get(cfg, key, default=None):
@@ -70,6 +72,35 @@ def apply_dtype_policy(cfg, amp: bool):
         return dataclasses.replace(node, **updates) if updates else node
 
     return fix(cfg)
+
+
+def set_field_everywhere(node, field: str, value):
+    """Set ``field`` on every nested dataclass config that carries it."""
+    if not dataclasses.is_dataclass(node):
+        return node
+    updates = {}
+    for f in dataclasses.fields(node):
+        v = getattr(node, f.name)
+        if f.name == field:
+            updates[f.name] = value
+        elif dataclasses.is_dataclass(v):
+            new = set_field_everywhere(v, field, value)
+            if new is not v:
+                updates[f.name] = new
+    return dataclasses.replace(node, **updates) if updates else node
+
+
+def set_kv_cache_(model: nn.Module, int8: bool = False,
+                  per_row: bool = False) -> nn.Module:
+    """Switch a built model's decode KV-cache storage in place (every
+    module's config), weights untouched: the next generate allocates its
+    caches in the new form."""
+    for m in model.modules():
+        cfg = getattr(m, "cfg", None)
+        if dataclasses.is_dataclass(cfg):
+            cfg = set_field_everywhere(cfg, "kv_cache_int8", int8)
+            m.cfg = set_field_everywhere(cfg, "kv_cache_per_row", per_row)
+    return model
 
 
 _MODELS = {"blip2_t5_instruct": Blip2T5Instruct,
@@ -123,6 +154,9 @@ def build_model_config(model_cfg) -> Tuple[str, Config]:
         cfg = Blip2T5InstructConfig(
             vit=EvaViTConfig.eva_clip_g(lora_rank=r_v, lora_alpha=alpha),
             qformer=QFormerConfig(lora_rank=r_q, lora_alpha=alpha), t5=t5)
+    for knob in _KV_KNOBS:
+        if bool(_get(model_cfg, knob, False)):
+            cfg = set_field_everywhere(cfg, knob, True)
     return arch, apply_dtype_policy(cfg, bool(_get(model_cfg, "amp", True)))
 
 

@@ -16,8 +16,9 @@ causal flag of ``attention_core`` is not used.
 
 The cached decode takes a cache dict of per-layer ``self`` buffers
 (``models/kvcache.py``) instead of Flax's mutable collection, shaped as the
-T5 decoder's, so ``generation._gather_beams`` reorders it unchanged.  The
-int8 and per-row KV caches and per-block remat are not ported yet.
+T5 decoder's, so ``generation._gather_beams`` reorders it unchanged;
+``kv_cache_int8`` / ``kv_cache_per_row`` choose its storage
+(``models/kvcache.py``).  Per-block remat is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,9 +67,10 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     lora_rank: int = 0
     lora_alpha: float = 16.0
-    # not ported yet (ROADMAP queue 1, item 9): the model raises when set
+    # decode KV cache storage (models/kvcache.py)
     kv_cache_int8: bool = False
     kv_cache_per_row: bool = False
+    # not ported yet (ROADMAP queue 1, item 9): the model raises when set
     use_remat: bool = False
 
     @property
@@ -209,11 +211,10 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        for knob in ("kv_cache_int8", "kv_cache_per_row", "use_remat"):
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"LlamaConfig.{knob} is not ported yet (ROADMAP queue 1, "
-                    "item 9)")
+        if cfg.use_remat:
+            raise NotImplementedError(
+                "LlamaConfig.use_remat is not ported yet (ROADMAP queue 1, "
+                "item 9)")
         self.cfg = cfg
         pdt = _dt(cfg.param_dtype)
         self.embed_tokens = TokenEmbed(cfg.vocab_size, cfg.hidden_size, pdt,
@@ -231,11 +232,13 @@ class LlamaForCausalLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device) -> dict:
-        """Empty per-layer k/v buffers of ``max_len`` slots."""
+        """Empty per-layer k/v buffers of ``max_len`` slots, in the
+        config's int8 / per-row storage."""
         cfg = self.cfg
         return {"layers": [
             {"self": init_kv_cache(batch, max_len, cfg.num_heads,
-                                   cfg.head_dim, dtype, device)}
+                                   cfg.head_dim, dtype, device,
+                                   cfg.kv_cache_int8, cfg.kv_cache_per_row)}
             for _ in self.block_names]}
 
     def backbone(self, inputs_embeds, attention_mask=None, positions=None,
@@ -298,8 +301,10 @@ def make_causal_step(model: LlamaForCausalLM, prefix_embeds,
     call; the decode loop then starts from the last prompt token.
     ``prefix_mask`` (b, p) masks pad slots of the prefix for the whole
     decode, and the rotary positions count only valid tokens: the prime
-    takes ``cumsum(prefix_mask) − 1``, a step ``valid + (cur − p)``,
-    repeated per beam when the step's batch is a multiple of b.  The
+    takes ``cumsum(prefix_mask) − 1``, a step ``valid + (cur − p)`` (the
+    write frontier ``cur``, per row for a per-row cache; a multi-token
+    chunk, speculative decoding's verify, takes consecutive positions from
+    it), repeated per beam when the step's batch is a multiple of b.  The
     prime stops at the final norm: its logits are thrown away (the JAX
     package computes them, in fp32 through the LM head, and drops them)."""
     b, p, _ = prefix_embeds.shape

@@ -11,7 +11,10 @@ the relative-position bias (1, h, n, m) and the padding mask (b, 1, 1, m)
 stay two separate biases (the JAX package summed them into one (b, h, n, m)
 array first; adding a 0 or −1e9 mask before or after the position bias
 gives the same softmax).  The KV-cached decode path takes a per-layer
-cache dict (``models/kvcache.py``) instead of Flax's mutable collection.
+cache dict (``models/kvcache.py``) instead of Flax's mutable collection;
+``kv_cache_int8`` / ``kv_cache_per_row`` choose its storage (int8 codes
+with absmax scales; a write frontier per row, each row then slicing its own
+rows of the position bias, (b, h, n, max_len)).
 """
 
 from __future__ import annotations
@@ -55,6 +58,9 @@ class T5Config:
     lora_alpha: float = 16.0
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"
+    # decode KV cache storage (models/kvcache.py)
+    kv_cache_int8: bool = False
+    kv_cache_per_row: bool = False
 
     @staticmethod
     def flan_t5_xl(**kw) -> "T5Config":
@@ -171,7 +177,12 @@ class T5Attention(nn.Module):
             k, v, cur = cache_kv(cache, k, v)
             max_len = k.shape[1]
             mask = step_visibility_mask(cur, n, max_len, mask, device=x.device)
-            if position_bias is not None:
+            if position_bias is not None and isinstance(cur, torch.Tensor):
+                # each row at its own frontier: its own bias rows
+                rows = cur[:, None] + torch.arange(n, device=cur.device)
+                position_bias = position_bias[0][:, rows].transpose(0, 1) \
+                    .contiguous()
+            elif position_bias is not None:
                 position_bias = position_bias[:, :, cur:cur + n, :]
         # no 1/sqrt(d): T5 folds it into init
         out = attention_core(q, k, v, [position_bias, mask], scale=1.0)
@@ -287,8 +298,9 @@ class T5Decoder(_Stack):
         return self.final_norm(x)
 
     def init_cache(self, enc_out, max_decode_len: int, mode="masked") -> dict:
-        """Empty self-attention k/v buffers of length ``max_decode_len`` and
-        the cross-attention k/v of ``enc_out``, projected once."""
+        """Empty self-attention k/v buffers of length ``max_decode_len`` (in
+        the config's int8 / per-row storage) and the cross-attention k/v of
+        ``enc_out``, projected once."""
         cfg = self.cfg
         b = enc_out.shape[0]
         layers = []
@@ -297,7 +309,8 @@ class T5Decoder(_Stack):
             layers.append({
                 "self": init_kv_cache(b, max_decode_len, cfg.num_heads,
                                       cfg.d_kv, enc_out.dtype,
-                                      enc_out.device),
+                                      enc_out.device, cfg.kv_cache_int8,
+                                      cfg.kv_cache_per_row),
                 "cross": {"key": k, "value": v},
             })
         return {"layers": layers,

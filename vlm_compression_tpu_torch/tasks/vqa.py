@@ -6,7 +6,12 @@ official metrics (port of ``vlm_compression_tpu/tasks/vqa.py``).
 Q-Former and for the language model (128 tokens; for Vicuna left-padded
 with BOS first) and either generates a short answer (beam search,
 ``max_len`` new tokens) or, with ``answer_list`` set, picks the candidate
-of least decoder NLL (InstructBLIP-T5 only).  ``after_evaluation`` saves the
+of least decoder NLL (InstructBLIP-T5 only).  With ``speculative_gamma``
+set (the run config's, or the CLI's ``--speculative_gamma``) the answers
+are the dense teacher's greedy decode, the masked student drafting: beams
+give way to greedy, with a warning, as in the JAX package; ``spec_stats``
+sums the decodes' ``rounds``, ``committed`` and ``rows``.
+``after_evaluation`` saves the
 results (a shard per process, merged) and reports the VQAv2 accuracy, or
 GQA's exact match, appending it to ``result_dir/../evaluate.txt``.
 
@@ -15,6 +20,7 @@ Ground-truth answers ride along in the sample dicts as ``answers``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -72,6 +78,7 @@ class VQATask(BaseTask):
         self.sample_id_key = sample_id_key
         self.apply_lemmatizer = apply_lemmatizer
         self.answer_list = None
+        self.spec_stats = {"rounds": 0, "committed": 0, "rows": 0}
 
     @classmethod
     def setup_task(cls, cfg=None, **kw):
@@ -145,23 +152,39 @@ class VQATask(BaseTask):
         vicuna = isinstance(model, Blip2VicunaInstruct)
         if not (vicuna or isinstance(model, Blip2T5Instruct)):
             raise _not_ported("generating answers")
-        if self.speculative_gamma > 0:
-            raise NotImplementedError(
-                "speculative_gamma > 0 (draft-and-verify serving) is not "
-                "ported yet (ROADMAP queue 1, item 9)")
         image, ids, mask, q_ids, q_mask = self._encode(model, samples,
                                                        decoder_only=vicuna)
         eos = dict(eos_token_id=model.cfg.llm.eos_token_id) if vicuna else {}
         gen_cfg = GenerationConfig(
             num_beams=self.num_beams, max_length=self.max_len + 1,
             min_length=self.min_len, **eos)
+        gen_cfg, spec_kw = self._spec(gen_cfg)
         generate = generate_vicuna if vicuna else generate_t5
         seqs = generate(model, image, ids, mask, q_ids, q_mask,
-                        gen_cfg=gen_cfg)
+                        gen_cfg=gen_cfg, **spec_kw)
+        if spec_kw:
+            for key in ("rounds", "committed"):
+                self.spec_stats[key] += spec_kw["stats"][key]
+            self.spec_stats["rows"] += len(seqs)
         answers = self._decode(seqs.cpu())
         if self.apply_lemmatizer:
             answers = lemmatize(answers)
         return self._records(samples, answers)
+
+    def _spec(self, gen_cfg):
+        """(gen_cfg, extra generate kwargs) for speculative serving: the
+        masked student drafts, the dense teacher verifies, greedy."""
+        if self.speculative_gamma <= 0:
+            return gen_cfg, {}
+        if self.num_beams > 1:
+            logging.warning(
+                "speculative_gamma=%d replaces num_beams=%d with greedy "
+                "draft-and-verify (answers = the dense teacher's GREEDY "
+                "decode, not beam search)", self.speculative_gamma,
+                self.num_beams)
+        return (dataclasses.replace(gen_cfg, num_beams=1),
+                dict(llm_mode="dense", draft_llm_mode="masked",
+                     speculative_gamma=self.speculative_gamma, stats={}))
 
     def _rank_step(self, model, samples) -> List[Dict]:
         if not isinstance(model, Blip2T5Instruct):
