@@ -98,7 +98,14 @@ each of which fails the run (non-zero exit, no result line) on error:
                 entries reranked, the metrics equal; ``cli.train`` on the
                 launcher's RESSA argv at ``--tiny`` in float32 (masks
                 bit-equal, each step's loss, CE and KL within 1e-4, the
-                trained LoRA within 2e-3 of its change);
+                trained LoRA within 2e-3 of its change); the pruners
+                path's slice (``blipt5_ria_pruner``, Wanda 2:4 with hybrid
+                tiles, ``blipt5_softmask_pruner``: masks bit-equal;
+                WoodFisher's scores within 1e-4; a pairwise merge with the
+                permutation, logits within 1e-4;
+                ``cli.evaluate_woodfisher --tiny --distillation_init
+                unstrct_woodfisher``: sizes, eval results and answers
+                equal);
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -182,12 +189,37 @@ each of which fails the run (non-zero exit, no result line) on error:
                 128 samples (the TMA + wgmma attention backward, no bias
                 gradient); the grid's zeroth entry (``blipt5_wanda_pruner``
                 with a block ``olmezo-gradient_sum`` allocation) scoring
-                ONE sample at batch 1 — the path's one cut: the grid scores
-                32 — and beam-5 generate.  Each tower at 0.5 ± 0.01 (the
+                ONE sample at batch 1 on a model cut to 13/8/8 blocks —
+                the path's cuts: the grid scores 32 at 39/24/24 — and
+                beam-5 generate.  Each tower at 0.5 ± 0.01 (the
                 zeroth entry: the parameter-weighted mean of its ratios and
                 its masks), finite losses, every shape launched one that
                 phase 3 checked;
-  9. vicuna path — full-width InstructBLIP-Vicuna-7B (EVA-ViT-g 39
+  9. pruners path — full-width InstructBLIP-FlanT5-XL (bf16, seeds
+                10-14, no adapters, after the grid path): Wanda, then
+                ``blipt5_ria_pruner`` (masks kept; each linear 0.5 ± 0.01;
+                the share of bits that differ from Wanda's logged) and
+                ``blipt5_wanda_pruner`` 2:4 with 64 × 64 hybrid tiles at
+                0.4 (each linear 0.6 ± 0.01, every tile dense or 2:4), a
+                beam-5 generate after each; transposable 2:4 of T5 wi_0's
+                |W| card vs CPU, bit-equal; ``blipt5_softmask_pruner`` 2:4
+                (48 steps, lr 0.1) at 8/5/5 blocks — the cut: its fp32
+                products are about 2.9 PFLOP at 39/24/24 — every group of
+                4 keeping 2, each linear's OBS error at most its Wanda
+                start's, beam-5 generate; ``WoodFisher`` over three named
+                leaves (about 14.7 GB of block inverses; 8 samples at
+                batch 1): one chunk's diag(F⁻¹) within 1e-4 of an fp64
+                inverse from the same gradients, which the unfolded I/damp
+                must miss by over 1e-2, the attention backward on
+                TMA + wgmma with 48 bias gradients a sample as its outputs;
+                ``cli.evaluate_woodfisher`` on the GQA yaml over the cli
+                path's data: the diagonal-Fisher ``unstrct`` prune at 0.5
+                (8 samples, JAX's default 64: a cut; non-zero share 0.5 ±
+                0.01) and the pairwise block merge with the permutation
+                (depths 20/12/12, ``distilled_total_size`` the closed form
+                from the configs), each call's answers equal to a direct
+                ``generate_t5``'s, every shape held in phase 3;
+ 10. vicuna path — full-width InstructBLIP-Vicuna-7B (EVA-ViT-g 39
                 layers, Q-Former 12, LLaMA 32 × 4096, ffn 11008, 32 heads of
                 128, vocab 32000; bf16, seed 4; after the XL models are
                 freed): ``blipt5_wanda_pruner`` with
@@ -219,7 +251,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 a finite loss, the refinement's cycles, host syncs and
                 seconds) and beam-5 ``generate_vicuna``, every shape held
                 in phase 3;
- 10. retrieval path — the stage-1 BLIP-2 Q-Former at full width (arch
+ 11. retrieval path — the stage-1 BLIP-2 Q-Former at full width (arch
                 blip2, model_type coco: EVA-ViT-g 39 layers in bf16, the
                 Q-Former and its heads in fp32; seed 5, after the Vicuna
                 model is freed): ``vit_wanda_pruner`` on its ViT (masks
@@ -237,7 +269,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 device ms, and its wall ms in the warm pass and the direct
                 call, with the image and caption branches' rates,
                 extrapolated to the Flickr30k and COCO 5k test splits;
- 11. cli path — the launcher's T5 grid point ``prune_and_eval("wanda",
+ 12. cli path — the launcher's T5 grid point ``prune_and_eval("wanda",
                 0.5, 0.5)`` (scripts/launch_lib.py:41-84) through the port's
                 own ``cli.evaluate`` (argv composed here, calls made in this
                 process) on full-width InstructBLIP-FlanT5-XL (seed 6): the
@@ -253,7 +285,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 every shape held in phase 3, data and checkpoint deleted;
                 each call's phases timed (build, calibration, prune, save,
                 load, eval), the checkpoint's size, the peaks;
- 12. cli train path — the launcher's T5 RESSA grid point
+ 13. cli train path — the launcher's T5 RESSA grid point
                 ``train_ressa("wanda", 0.5, 0.5, kl_weight=0.1,
                 max_train_samples=96)`` through the port's own ``cli.train``
                 (argv composed by scripts/torch_launch_lib.py, rewritten
@@ -276,7 +308,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 from the train loader's batches), data and checkpoints
                 deleted; the phases' seconds, both checkpoints' bytes, the
                 free disk, the peaks;
- 13. profile  — the main path once more under torch.profiler (prune,
+ 14. profile  — the main path once more under torch.profiler (prune,
                 generate, one train step), the SparseGPT prune (the cut
                 that keeps the command within its limit once the serving
                 passes run: at 8/5/5 of its 39/24/24 blocks, timed
@@ -288,7 +320,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 at 13/8/8 of its 39/24/24 blocks, timed unprofiled at
                 that depth first) its DSnoT prune: device time by kernel
                 group against each phase's unprofiled wall-clock;
- 14. timing   — kernel, plain-version and library-call times (CUDA events,
+ 15. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
@@ -330,7 +362,12 @@ the Hopper loop and the TMA + wgmma forward) or the caption pass, nor in
 any phase of the Vicuna path, its prune included, and no mma.sync
 attention forward there (LLaMA's d = 128 runs the TMA + wgmma kernel);
 in the serving passes the draft's steps on the decode kernel, the dense
-teacher on cuBLAS, no WMMA loop and no mma.sync forward.
+teacher on cuBLAS, no WMMA loop and no mma.sync forward; in the pruners
+path the RIA, hybrid and soft-mask prunes' replays on the Hopper loop and
+their generates' steps on the decode kernel, WoodFisher's and the unstrct
+CLI call's backward on TMA + wgmma with the bias gradients as its
+outputs (no mma.sync backward, no separate dbias kernel), and no linear
+kernel in the CLI calls (no masks).
 WMMA-loop launches left in other phases are printed with their shapes and
 why the other loops refused them.
 
@@ -654,6 +691,14 @@ FLASH_SHAPES += [
      ["pad"], 1.0)]
 # the retrain's attention backward shapes (add_cli_train_shapes)
 CLI_TRAIN_BWD_SHAPES: list = []
+# the pruners path's first evaluate_woodfisher call (pruners_path) scores
+# the GQA yaml's first WF_CLI_DATA questions at batch 1, forward and
+# backward, each prompt at its own length (the Q-Former and the T5
+# encoder over 32 query tokens + the prompt, the decoder over the label);
+# add_wf_cli_shapes() adds them before phase 3 (the ViT and the Q-Former's
+# cross-attention at batch 1 are the Fisher's)
+WF_CLI_DATA = 8
+WF_CLI_BWD_SHAPES: list = []
 # the Vicuna path (vicuna_path): LLaMA's self-attention, 32 heads of
 # d = 128 (the TMA + wgmma kernel at DP = 128, like every other tower's
 # attention), under one additive bias as the JAX package builds it — the
@@ -787,7 +832,8 @@ def bwd_at(batch: int) -> list:
 def bwd_held() -> list:
     """Every shape phase 3 holds the backward (and the forward it starts
     from) at against the plain version."""
-    return BWD_SHAPES + CLI_TRAIN_BWD_SHAPES + bwd_at(1) + bwd_at(16)
+    return (BWD_SHAPES + CLI_TRAIN_BWD_SHAPES + WF_CLI_BWD_SHAPES
+            + bwd_at(1) + bwd_at(16))
 
 
 def cli_train_lengths() -> list:
@@ -825,6 +871,53 @@ def add_cli_train_shapes() -> list:
              for name, k, n in T5_LINEARS]
             + [(f"t5_dec_{name}_cli_train{words}", CLI_TRAIN_BS * d, k, n, 8)
                for name, k, n in T5_LINEARS])
+    return lengths
+
+def wf_cli_lengths() -> list:
+    """(Q-Former prompt, T5 prompt, label) token counts of each of the
+    first WF_CLI_DATA GQA questions as evaluate_woodfisher's scoring
+    loader prepares them at batch 1: the yaml's ``blip_question``
+    processor, the CLI's tokenizers and ``cli_data``'s answer."""
+    import numpy as np
+
+    from vlm_compression_tpu_torch.datasets.processors import (
+        BlipQuestionProcessor,
+    )
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        load_tokenizer,
+    )
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+    from vlm_compression_tpu_torch.models.t5 import T5Config
+    from vlm_compression_tpu_torch.tasks.preparers import (
+        make_t5_batch_preparer,
+    )
+
+    prepare = make_t5_batch_preparer(
+        load_tokenizer(None, vocab_size=T5Config.flan_t5_xl().vocab_size),
+        load_tokenizer(None, vocab_size=QFormerConfig().vocab_size))
+    out = []
+    for q in map(BlipQuestionProcessor(), vqa_questions(WF_CLI_DATA)):
+        b = prepare({"image": np.zeros((1, 1, 1, 3), np.float32),
+                     "text_input": [q], "text_output": [NEVER]})
+        out.append((b["qformer_input_ids"].shape[1],
+                    b["input_ids"].shape[1], b["labels"].shape[1]))
+    return out
+
+
+def add_wf_cli_shapes() -> list:
+    """The attention shapes (forward and backward) of the first
+    evaluate_woodfisher call's batch-1 scoring, added to the lists phase
+    3 holds.  Returns the (Q-Former, T5, label) lengths."""
+    lengths = sorted(set(wf_cli_lengths()))
+    for lq, lt, ll in lengths:
+        q, t = 32 + lq, 32 + lt
+        WF_CLI_BWD_SHAPES.extend([
+            (f"qformer_self_wf{lq}", 1, q, q, 12, 64, ["pad"], 0.125),
+            (f"t5_encoder_wf{lt}", 1, t, t, 32, 64, ["rel", "pad"], 1.0),
+            (f"t5_decoder_self_wf{ll}", 1, ll, ll, 32, 64, ["relc", "pad"],
+             1.0),
+            (f"t5_decoder_cross_wf{ll}_{lt}", 1, ll, t, 32, 64, ["pad"],
+             1.0)])
     return lengths
 
 # dbias (b, n, m, h, d, biases, scale, causal), the gradient of every bias
@@ -2368,6 +2461,38 @@ PHASE_FORBIDDEN.update(
 for _phase in ("cli_train_truth", "cli_train_eval", "cli_train_direct"):
     PHASE_KERNELS[_phase] = PHASE_KERNELS["cli_eval"]
     PHASE_FORBIDDEN[_phase] = PHASE_FORBIDDEN["cli_eval"]
+# the pruners path: RIA, hybrid-tile and soft-mask prunes keep their
+# masks (the Wanda sweep's kernels, no backward), their generates run the
+# Hopper loop and the decode kernel; WoodFisher's per-sample gradients
+# run the attention backward on TMA + wgmma with the position bias's
+# gradient as its output (no mma.sync backward, no separate dbias kernel,
+# no linear kernel: the model holds no mask); the evaluate_woodfisher
+# calls (the unstrct one scores with the same backward, the merge one
+# does not) and the direct generates after them run dense products
+WF_LINEAR = ("masked_matmul", "masked_matmul_packed", "int8_matmul",
+             "sparse_lora_matmul", DECODE, WGMMA_LOOP, WMMA_LOOP)
+WF_BACKWARD = (BWD_WGMMA, BWD_DBIAS)
+for _phase in ("pruners_wanda_prune", "ria_prune", "hybrid_prune",
+               "softmask_prune"):
+    PHASE_KERNELS[_phase] = PRUNE + (FWD_WGMMA,)
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (WMMA_LOOP, FWD_MMA)
+for _phase in ("generate_ria", "generate_hybrid", "generate_softmask"):
+    PHASE_KERNELS[_phase] = SERVE + (FWD_WGMMA,)
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (FWD_MMA,)
+PHASE_KERNELS.update(
+    woodfisher=("flash_attention", FWD_WGMMA) + WF_BACKWARD,
+    wf_cli_unstrct=("flash_attention", FWD_WGMMA) + WF_BACKWARD,
+    wf_cli_unstrct_direct=("flash_attention", FWD_WGMMA),
+    wf_cli_merge=("flash_attention", FWD_WGMMA),
+    wf_cli_merge_direct=("flash_attention", FWD_WGMMA))
+_MMA_BACKWARD = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dbias")
+PHASE_FORBIDDEN.update(
+    woodfisher=_MMA_BACKWARD + WF_LINEAR + (FWD_MMA,),
+    wf_cli_unstrct=_MMA_BACKWARD + WF_LINEAR + (FWD_MMA,),
+    wf_cli_unstrct_direct=BACKWARD + WF_LINEAR + (FWD_MMA,),
+    wf_cli_merge=BACKWARD + WF_LINEAR + (FWD_MMA,),
+    wf_cli_merge_direct=BACKWARD + WF_LINEAR + (FWD_MMA,))
 # every generate phase runs its prefill on the Hopper loop and its decode
 # steps on the decode kernel, every VQA and caption phase all its matmuls
 # on the Hopper loop: no WMMA-loop launch at all
@@ -3912,10 +4037,14 @@ def first_order_path():
 # the grid's zeroth entry (scripts/launch_lib.py:23): Wanda at a
 # block-granular allocation scored by olmezo-gradient_sum.  The grid scores
 # 32 samples at batch 1 (cli/evaluate.py:34,48), 2 × 32 forwards for each
-# of the 588 keys; here one sample (1176 forwards), the one cut of the path
+# of the 588 keys.  Two cuts: one sample, on a model cut to ZEROTH_DEPTH
+# blocks (every width kept; 196 keys, 392 forwards).  At full depth its
+# 1176 batch-1 forwards took 132-197 s of a command that must stay under
+# 1200 s, host-bound (PERF.md §4)
 ZEROTH = dict(sparsity_ratio_granularity="block",
               score_method="olmezo-gradient_sum")
 N_ZEROTH, N_ZEROTH_GRID = 1, 32
+ZEROTH_DEPTH = (13, 8, 8)
 # the zeroth scoring's keys traced under the profiler (profile_grid)
 N_PROFILED = 24
 TOWERS = ("visual_encoder", "t5_model.encoder", "t5_model.decoder")
@@ -3932,7 +4061,8 @@ def grid_path():
     threshold checked on the card: #{s ≤ thr} ≥ k > #{s < thr} over every
     leaf); ``blipt5_aobd_pruner`` on the 128 samples; the grid's zeroth
     entry (one sample scored at batch 1, the calibration at batch 1 as the
-    grid feeds it) and beam-5 generate.  Gates: each tower's density
+    grid feeds it) on a fresh seed-3 model cut to ZEROTH_DEPTH, and beam-5
+    generate.  Gates: each tower's density
     0.5 ± 0.01 (the zeroth entry: the parameter-weighted mean of its
     ratios and of its masks), finite outputs, each phase's kernels
     launched and the forbidden ones not, every shape launched one that
@@ -3959,8 +4089,9 @@ def grid_path():
         f"kernels ({json.dumps(linears)}) "
         f"{time.perf_counter() - t0:.1f} s; cuts: the zeroth "
         f"entry scores {N_ZEROTH} sample at batch 1 (the grid: "
-        f"{N_ZEROTH_GRID}); nothing else (depth 39/24/24, {N_CALIB} "
-        f"calibration samples at batch {BS})")
+        f"{N_ZEROTH_GRID}) on a model cut to "
+        f"{'/'.join(map(str, ZEROTH_DEPTH))} blocks; nothing else (depth "
+        f"39/24/24, {N_CALIB} calibration samples at batch {BS})")
 
     @torch.no_grad()
     def restore():
@@ -4049,8 +4180,21 @@ def grid_path():
     check_pruned("aobd_prune")
     restore()
 
-    # the zeroth entry, fed at batch 1 as the grid feeds it; its scoring
-    # timed apart from the sweep
+    # the zeroth entry at ZEROTH_DEPTH (the cut), on a fresh seed-3 model
+    # that the closures above read, fed at batch 1 as the grid feeds it;
+    # its scoring timed apart from the sweep
+    del model, lins, dense, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, batches, req = xl_setup(seed=3, lora=False,
+                                        depth=ZEROTH_DEPTH)
+    keys = AL.select_prunable_keys(model, ("visual_encoder", "t5_model"))
+    lins = [model.get_submodule(".".join(k)) for k in keys]
+    linears = {t: sum(".".join(k).startswith(t) for k in keys)
+               for t in TOWERS}
+    log(f"  zeroth model: cut to {'/'.join(map(str, ZEROTH_DEPTH))} "
+        f"blocks (the cut; every width kept), seed 3, {len(keys)} keys "
+        f"({json.dumps(linears)})")
     ones = [{k: v[i:i + 1] for k, v in b.items()} for b in batches
             for i in range(BS)]
     score, score_s = AL.mezo_layer_scalars, [0.0]
@@ -4073,11 +4217,10 @@ def grid_path():
     ms = 1e3 * score_s[0] / forwards
     e2e["zeroth_score_s"] = score_s[0]
     e2e["zeroth_ms_per_forward"] = ms
-    e2e["zeroth_grid_score_s"] = ms * 2 * N_ZEROTH_GRID * len(keys) / 1e3
-    log(f"  zeroth scoring: {forwards} forwards at batch 1 in "
-        f"{score_s[0]:.2f} s ({ms:.2f} ms a forward); the grid's "
-        f"{N_ZEROTH_GRID} samples ({2 * N_ZEROTH_GRID * len(keys)} forwards) "
-        f"at that rate {e2e['zeroth_grid_score_s']:.0f} s")
+    log(f"  zeroth scoring at {'/'.join(map(str, ZEROTH_DEPTH))} blocks: "
+        f"{forwards} forwards at batch 1 in {score_s[0]:.2f} s ({ms:.2f} "
+        f"ms a forward); the grid scores {N_ZEROTH_GRID} samples over 588 "
+        f"keys at 39/24/24 ({2 * N_ZEROTH_GRID * 588} forwards)")
     groups = {}
     numel = {"/".join(k): lin.kernel.numel() for k, lin in zip(keys, lins)}
     for key, r in ratios.items():
@@ -4108,7 +4251,7 @@ def grid_path():
     log(f"  launches: {json.dumps(counts)}")
     check_phase_counts(counts)
     check_shapes(shapes, "grid")
-    del model, lins, dense, batches, ones
+    del model, lins, batches, ones
     gc.collect()
     torch.cuda.empty_cache()
     return counts, e2e
@@ -5662,6 +5805,593 @@ def cli_train_path() -> tuple:
         "cli_train_peak_bytes": max(rec["peaks"].values())}
 
 
+# the pruners beyond the launcher grid (pruners_path), seeds 10-14: RIA and
+# the hybrid tiles on one full-width model, the soft-mask anneal at a
+# depth cut (its fp32 products, about 2.9 PFLOP at full depth), WoodFisher
+# over named leaves (the CLI's two whole towers would need about 3.9 TB of
+# block inverses), then evaluate_woodfisher twice at full width
+PRUNERS_SEED = 10
+HYBRID_TILE = 64
+SOFTMASK_DEPTH = (8, 5, 5)
+N_WF = 8
+WF_LEAVES = (("visual_encoder", "blocks_0", "attn", "qkv", "kernel"),
+             ("t5_model", "encoder", "blocks_0", "self_attn", "q", "kernel"),
+             ("t5_model", "encoder", "blocks_0", "self_attn", "v", "kernel"))
+WF_CHUNK = 256
+WF_CLI_EVAL = "gqa_zeroshot_flant5xl_instruct_eval"
+
+
+def pruned_masks(model) -> dict:
+    """name → bool keep-mask (in, out) of every masked linear."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    return {n: m.bool_mask() for n, m in model.named_modules()
+            if isinstance(m, SparseLinear) and m.mask is not None}
+
+
+def clear_masks(model):
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    for m in model.modules():
+        if isinstance(m, SparseLinear):
+            m.mask = None
+
+
+def hybrid_tiles(mask: torch.Tensor, tile: int) -> tuple:
+    """(dense tiles, 2:4 tiles, other tiles) of a keep-mask (in, out): a
+    tile is dense when it keeps everything, 2:4 when every group of 4
+    consecutive inputs of each of its units keeps exactly 2."""
+    k, n = mask.shape
+    if k % tile or n % tile:
+        raise AssertionError(f"hybrid tiles: {k} x {n} not in {tile}-tiles")
+    dense = mask.reshape(k // tile, tile, n // tile, tile).all(dim=3).all(
+        dim=1)
+    nm = (mask.reshape(k // 4, 4, n).sum(dim=1) == 2).reshape(
+        k // tile, tile // 4, n // tile, tile).all(dim=3).all(dim=1)
+    return (int(dense.sum()), int((nm & ~dense).sum()),
+            int((~(dense | nm)).sum()))
+
+
+def block_params(cfg) -> dict:
+    """Parameters of one ViT, T5 encoder and T5 decoder block, from the
+    configs (modules built on the meta device)."""
+    from vlm_compression_tpu_torch.models.eva_vit import EvaBlock
+    from vlm_compression_tpu_torch.models.t5 import T5Block
+
+    def count(m):
+        return sum(p.numel() for p in m.parameters())
+
+    return {"vit": count(EvaBlock(cfg.vit, device="meta")),
+            "enc": count(T5Block(cfg.t5, False, device="meta")),
+            "dec": count(T5Block(cfg.t5, True, device="meta"))}
+
+
+def pruners_path() -> tuple:
+    """The pruners beyond the launcher grid and WoodFisher with block
+    merging, on full-width InstructBLIP-FlanT5-XL (bf16, seeded random
+    weights, no adapters, the 128 calibration samples of bench.py:189-191
+    at batch 16).
+
+    A (seed 10): Wanda, then, masks cleared, ``blipt5_ria_pruner`` at the
+    launcher's specs with ``lora_model=True`` (masks kept; the share of
+    mask bits that differ from Wanda's logged), beam-5 generate; masks
+    cleared, ``blipt5_wanda_pruner`` 2:4 with ``hybrid_tile`` 64 at
+    sparsity 0.4, beam-5 generate; transposable 2:4 of T5 ``wi_0``'s
+    |W| (5120 × 2048) on the card and the CPU.  Gates: each RIA linear
+    0.5 ± 0.01; each hybrid linear 0.6 ± 0.01, every 64 × 64 tile dense
+    or 2:4; the transposable masks bit-equal.
+    B (seed 11, depth SOFTMASK_DEPTH: the cut): ``blipt5_softmask_pruner``
+    2:4, 48 steps, lr 0.1, beam-5 generate.  Gates: every group of 4
+    keeps 2; each linear's OBS error at most its Wanda start's.
+    C (seed 12): ``WoodFisher`` over WF_LEAVES, N_WF samples at batch 1.
+    Gates: one 256-entry chunk's diag(F⁻¹) within 1e-4 relative of an
+    fp64 inverse of damp·I + (1/N) Σ g gᵀ from the same gradients, and
+    the seed I/damp more than 1e-2 from it (else the first gate could not
+    fail a fold that does nothing); the attention backward on TMA + wgmma, 48 bias gradients a sample as its
+    outputs.
+    D (seeds 13, 14): ``cli.evaluate_woodfisher`` on the GQA yaml over
+    ``cli_data``: the diagonal-Fisher ``unstrct`` prune at 0.5 (8
+    samples: the cut; JAX's default is 64), then the pairwise block merge
+    with ``--permute_before_merge`` (ViT 39 → 20, T5 24 + 24 → 12 + 12).
+    Gates: the scored towers' non-zero share 0.5 ± 0.01; the depths;
+    ``distilled_total_size`` the closed form from the configs; each call's
+    answers equal to a direct ``generate_t5`` of its model."""
+    import shutil
+
+    import numpy as np
+
+    from vlm_compression_tpu_torch.cli import evaluate_woodfisher as W
+    from vlm_compression_tpu_torch.common.config import Config
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.compression.distill_merge import (
+        count_nonzero,
+        count_params,
+    )
+    from vlm_compression_tpu_torch.compression.woodfisher import WoodFisher
+    from vlm_compression_tpu_torch.datasets.builders import load_builder
+    from vlm_compression_tpu_torch.models.model_zoo import (
+        default_config_path,
+    )
+    from vlm_compression_tpu_torch.ops.masks import transposable_nm_mask
+
+    rec, e2e = new_record(), {}
+    secs = rec["secs"]
+
+    def generate(model, req, cfg, phase):
+        seqs, gen_cfg = run_phase(rec, phase, lambda: run_generate(model,
+                                                                   req))
+        n_tok = check_generate(seqs, gen_cfg, cfg)
+        log(f"  {phase}: {secs[phase]:.3f} s, {n_tok} tokens; masked "
+            f"{rec['counts'][phase]['masked_matmul']} (Hopper loop "
+            f"{rec['counts'][phase][WGMMA_LOOP]}, decode "
+            f"{rec['counts'][phase][DECODE]}, WMMA "
+            f"{rec['counts'][phase][WMMA_LOOP]})")
+
+    def prune_log(phase, what):
+        c = rec["counts"][phase]
+        log(f"  {what}: {secs[phase]:.2f} s, peak "
+            f"{rec['peaks'][phase] / 2**30:.2f} GiB; masked "
+            f"{c['masked_matmul']} (Hopper loop {c[WGMMA_LOOP]}, WMMA "
+            f"{c[WMMA_LOOP]}); attention {attn_routes(c)}")
+
+    # A: RIA against Wanda, then the hybrid tiles, on one model
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(seed=PRUNERS_SEED, lora=False)
+    log(f"  model: InstructBLIP-FlanT5-XL, bf16, seed {PRUNERS_SEED}, no "
+        f"adapters, random init + data {time.perf_counter() - t0:.1f} s; "
+        f"cuts: none (depth 39/24/24, {N_CALIB} calibration samples)")
+    run_phase(rec, "pruners_wanda_prune", lambda: run_prune(model, batches))
+    prune_log("pruners_wanda_prune", "blipt5_wanda_pruner (the reference)")
+    wanda = {n: m.clone() for n, m in pruned_masks(model).items()}
+    clear_masks(model)
+    run_phase(rec, "ria_prune",
+              lambda: run_prune(model, batches, name="blipt5_ria_pruner"))
+    prune_log("ria_prune", "blipt5_ria_pruner (alpha 0.5, lora_model=True)")
+    ria = pruned_masks(model)
+    flips = sum(int((ria[n] != wanda[n]).sum()) for n in ria)
+    total = sum(m.numel() for m in ria.values())
+    dens = {n: float(m.float().mean()) for n, m in ria.items()}
+    del wanda
+    log(f"  ria: {len(ria)} linears, density {min(dens.values()):.6f} to "
+        f"{max(dens.values()):.6f}; {flips} of {total} mask bits "
+        f"({flips / total:.4f}) differ from Wanda's on the same model and "
+        f"batches")
+    n_lin = 4 * cfg.vit.depth + 7 * cfg.t5.num_layers + \
+        11 * cfg.t5.num_decoder_layers
+    if len(ria) != n_lin or any(
+            abs(d - 0.5) > 0.01 for d in dens.values()) or flips == 0:
+        raise AssertionError(f"ria: {len(ria)} linears, densities "
+                             f"{min(dens.values())}-{max(dens.values())}, "
+                             f"{flips} flips")
+    del ria
+    generate(model, req, cfg, "generate_ria")
+
+    clear_masks(model)
+
+    def hybrid():
+        pruner = load_pruner(
+            "blipt5_wanda_pruner", model, batches,
+            vit_prune_spec=f"{cfg.vit.depth}-0.6-1.0-1.0",
+            t5_prune_spec=f"{cfg.t5.num_layers}-0.6-1.0-1.0",
+            num_samples=N_CALIB, prune_n=2, prune_m=4,
+            hybrid_tile=HYBRID_TILE)
+        return pruner.prune(lora_model=True)
+
+    run_phase(rec, "hybrid_prune", hybrid)
+    prune_log("hybrid_prune", f"blipt5_wanda_pruner 2:4, hybrid_tile "
+              f"{HYBRID_TILE}, sparsity 0.4")
+    hyb = pruned_masks(model)
+    dens = {n: float(m.float().mean()) for n, m in hyb.items()}
+    tiles = [hybrid_tiles(m, HYBRID_TILE) for m in hyb.values()]
+    n_dense, n_nm, n_bad = (sum(t[i] for t in tiles) for i in range(3))
+    log(f"  hybrid: {len(hyb)} linears, density {min(dens.values()):.6f} "
+        f"to {max(dens.values()):.6f}; {n_dense} dense and {n_nm} 2:4 "
+        f"tiles of {HYBRID_TILE} x {HYBRID_TILE}, {n_bad} neither")
+    if len(hyb) != n_lin or n_bad or any(abs(d - 0.6) > 0.01
+                                       for d in dens.values()):
+        raise AssertionError("hybrid tiles")
+    del hyb, tiles
+    generate(model, req, cfg, "generate_hybrid")
+
+    met = model.t5_model.encoder.blocks_0.ffn.wi_0.kernel.detach().float(
+        ).abs().T.contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = transposable_nm_mask(met, 2, 4)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = transposable_nm_mask(met.cpu(), 2, 4)
+    t_cpu = time.perf_counter() - t0
+    u, k = on_cpu.shape
+    tiles = on_cpu.reshape(u // 4, 4, k // 4, 4)
+    worst = max(int(tiles.sum(dim=3).max()), int(tiles.sum(dim=1).max()))
+    differ = int((on_card.cpu() != on_cpu).sum())
+    log(f"  transposable 2:4 of |T5 wi_0| {tuple(met.shape)}: card "
+        f"{t_card:.3f} s, CPU {t_cpu:.3f} s; kept "
+        f"{float(on_cpu.float().mean()):.4f}; most kept in a tile row or "
+        f"column {worst}; {differ} bits differ card vs CPU")
+    if differ or worst > 2:
+        raise AssertionError("transposable n:m, card vs CPU")
+    e2e.update(transposable_card_s=t_card, transposable_cpu_s=t_cpu)
+    del model, batches, met, on_card, on_cpu, tiles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B: the soft-mask anneal at the depth cut
+    v, en, de = SOFTMASK_DEPTH
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(seed=PRUNERS_SEED + 1, lora=False,
+                                        depth=SOFTMASK_DEPTH)
+    log(f"  model: InstructBLIP-FlanT5-XL cut to {v}/{en}/{de} blocks (the "
+        f"cut: the anneal's fp32 products, about 2.9 PFLOP at 39/24/24; "
+        f"every width kept), seed {PRUNERS_SEED + 1}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    pruner = load_pruner("blipt5_softmask_pruner", model, batches,
+                         vit_prune_spec=f"{v}-0.5-1.0-1.0",
+                         t5_prune_spec=f"{en}-0.5-1.0-1.0",
+                         num_samples=N_CALIB, prune_n=2, prune_m=4,
+                         softmask_steps=48, softmask_lr=0.1)
+    run_phase(rec, "softmask_prune", lambda: pruner.prune(lora_model=True))
+    prune_log("softmask_prune", "blipt5_softmask_pruner 2:4, 48 steps, lr "
+              "0.1")
+    soft = pruned_masks(model)
+    bad = sum(int((m.reshape(m.shape[0] // 4, 4, -1).sum(dim=1) != 2).sum())
+              for m in soft.values())
+    errs = torch.stack([torch.stack(e) for e in pruner.softmask_errors]
+                       ).double().cpu()
+    ratio = errs[:, 0] / errs[:, 1].clamp_min(1e-30)
+    n_lin = 4 * v + 7 * en + 11 * de
+    log(f"  softmask: {len(soft)} linears, {bad} groups of 4 not keeping "
+        f"2; err_best / err_init mean {float(ratio.mean()):.4f} (min "
+        f"{float(ratio.min()):.4f}, max {float(ratio.max()):.4f}), "
+        f"{int((ratio < 1).sum())} linears improved")
+    if len(soft) != n_lin or len(errs) != n_lin or bad or bool(
+            (errs[:, 0] > errs[:, 1]).any()):
+        raise AssertionError("softmask masks or errors")
+    e2e.update(softmask_prune_s=secs["softmask_prune"],
+               softmask_err_ratio_mean=float(ratio.mean()))
+    del soft, pruner
+    generate(model, req, cfg, "generate_softmask")
+    del model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # C: WoodFisher over named leaves
+    cfg, model, batches, req = xl_setup(seed=PRUNERS_SEED + 2, lora=False)
+    samples = [{k: t[i:i + 1] for k, t in batches[0].items()}
+               for i in range(N_WF)]
+    del batches
+    params = dict(model.named_parameters())
+    sizes = {"/".join(p): params[".".join(p)].numel() for p in WF_LEAVES}
+    inv_bytes = {p: -(-n // WF_CHUNK) * WF_CHUNK ** 2 * 4
+                 for p, n in sizes.items()}
+    log(f"  woodfisher leaves (weights, block-inverse bytes): "
+        f"{json.dumps({p: [sizes[p], inv_bytes[p]] for p in sizes})}; "
+        f"total {sum(inv_bytes.values()) / 1e9:.2f} GB")
+    wf = WoodFisher(model, samples, num_samples=N_WF,
+                    include=lambda p: p in WF_LEAVES)
+    probe, grads = WF_LEAVES[0], []
+    chunk = wf._chunk_size(sizes["/".join(probe)])
+    per_sample = wf._per_sample_grads
+
+    def recording():
+        for g in per_sample():
+            grads.append(g[probe].reshape(-1)[:chunk].double().clone())
+            yield g
+
+    wf._per_sample_grads = recording
+    scores = run_phase(rec, "woodfisher",
+                       wf.compute_fisher_inv_and_importance_score)
+    c = rec["counts"]["woodfisher"]
+    g = torch.stack(grads)
+    dense = torch.linalg.inv(wf.fisher_damp * torch.eye(
+        chunk, dtype=torch.float64, device=g.device) + g.T @ g / N_WF)
+    got = wf.fisher_inv_diag[probe].reshape(-1)[:chunk].double()
+    rel = float(((got - torch.diagonal(dense)).abs()
+                 / torch.diagonal(dense).abs()).max())
+    # the gate must be able to fail a fold that does nothing: the seed
+    # I/damp has to miss the fp64 diagonal by far more than the tolerance
+    noop = float(((1.0 / wf.fisher_damp - torch.diagonal(dense)).abs()
+                  / torch.diagonal(dense).abs()).max())
+    bad = [p for p, s in scores.items()
+           if not bool(torch.isfinite(s).all()) or bool((s < 0).any())]
+    per = c[BWD_DBIAS] / N_WF
+    log(f"  woodfisher ({N_WF} samples at batch 1): {secs['woodfisher']:.2f} "
+        f"s ({secs['woodfisher'] / N_WF:.3f} s a sample), peak "
+        f"{rec['peaks']['woodfisher'] / 2**30:.2f} GiB; {len(scores)} "
+        f"leaves scored, {len(bad)} not finite or negative; chunk 0 "
+        f"({chunk} entries) of "
+        f"{'/'.join(probe)}: diag(F^-1) vs fp64 inverse, max relative "
+        f"error {rel:.3e} (tol 1e-4), diag range "
+        f"{float(got.min()):.4e}-{float(got.max()):.4e} against 1/damp "
+        f"{1.0 / wf.fisher_damp:.4e}, the unfolded I/damp's max relative "
+        f"error {noop:.3e} (must exceed 1e-2); attention per "
+        f"sample {attn_routes(c, N_WF)}")
+    if (set(scores) != set(WF_LEAVES) or bad or rel > 1e-4 or noop < 1e-2
+            or per != 48):
+        raise AssertionError(f"woodfisher: {bad} {rel} {noop} {per}")
+    e2e.update(woodfisher_s=secs["woodfisher"],
+               woodfisher_peak_bytes=rec["peaks"]["woodfisher"],
+               woodfisher_chunk_rel_err=rel,
+               woodfisher_chunk_unfolded_rel_err=noop)
+    del model, samples, wf, scores, grads, g, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # D: the CLI, twice
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="wf_cli_")
+    try:
+        _, gqa_ann, images, _ = cli_data(root)
+        eval_cfg = os.path.join(repo, f"configs/projects/eval/{WF_CLI_EVAL}.yaml")
+        options = [f"datasets.gqa.build_info.annotations.val=[{gqa_ann}]",
+                   f"datasets.gqa.build_info.images.storage={images}",
+                   *CLI_EVAL_OPTIONS]
+        cfgd = Config(cfg_path=eval_cfg, options=options,
+                      defaults=default_config_path)
+        ds = load_builder("gqa", cfgd.datasets_cfg["gqa"]).build_datasets()[
+            "val"]
+        gqa_samples = ds.collater([ds[i] for i in range(len(ds))])
+        vit_ids = ";".join(f"{i},{i + 1}" for i in range(0, 38, 2)) + ";38"
+        t5_ids = ";".join(f"{i},{i + 1}" for i in range(0, 24, 2))
+        calls = (
+            ("wf_cli_unstrct", PRUNERS_SEED + 3,
+             ["--get_derivative_info", "--distillation_init", "unstrct",
+              "--distill_merge_ratio", "0.5", "--num_data",
+              str(WF_CLI_DATA)]),
+            ("wf_cli_merge", PRUNERS_SEED + 4,
+             ["--distilled_block_ids", f"{vit_ids}|{t5_ids}",
+              "--permute_before_merge"]))
+        for phase, seed, flags in calls:
+            job = f"{phase}-{seed}"
+            argv = ["--cfg-path", eval_cfg, *flags, "--job_id", job,
+                    "--seed", str(seed), "--options",
+                    f"run.output_dir={root}/{job}", *options, *CLI_ARGS]
+            log(f"  {phase}: python -m vlm_compression_tpu_torch.cli."
+                f"evaluate_woodfisher {' '.join(argv)}")
+            stats, runner, timer = run_phase(
+                rec, phase, lambda: W.run(W.parse_args(argv)))
+            model = runner.model
+            with open(os.path.join(root, job, "result",
+                                   "val_vqa_result.json")) as f:
+                answers = {r["question_id"]: r["answer"]
+                           for r in json.load(f)}
+            direct = run_phase(rec, f"{phase}_direct", lambda: (
+                direct_vqa_answers(model, gqa_samples)[0]))
+            same = [answers[i] for i in range(len(direct))] == direct
+            c = rec["counts"][phase]
+            log(f"  {phase}: {secs[phase]:.2f} s, peak "
+                f"{rec['peaks'][phase] / 2**30:.2f} GiB, phases "
+                f"{json.dumps(timer.stats)}; sizes "
+                f"{stats['orig_total_size']} -> "
+                f"{stats['distilled_total_size']}; eval "
+                f"{json.dumps(stats['eval_results'])}; answers equal to a "
+                f"direct generate_t5: {same}; attention {attn_routes(c)}")
+            if not same:
+                raise AssertionError(f"{phase}: the answers differ from a "
+                                     "direct generate_t5")
+            if phase == "wf_cli_unstrct":
+                towers = (model.visual_encoder, model.t5_model)
+                share = sum(count_nonzero(t) for t in towers) / sum(
+                    count_params(t) for t in towers)
+                log(f"  {phase}: non-zero share of the scored towers "
+                    f"{share:.6f}")
+                if abs(share - 0.5) > 0.01 or stats[
+                        "distilled_total_size"] != count_nonzero(model):
+                    raise AssertionError(f"{phase}: share {share}")
+                e2e.update(wf_cli_unstrct_s=secs[phase],
+                           wf_cli_unstrct_share=share)
+            else:
+                per = block_params(model.cfg)
+                depths = (model.cfg.vit.depth, model.cfg.t5.num_layers,
+                          model.cfg.t5.num_decoder_layers,
+                          len(model.visual_encoder.block_names),
+                          len(model.t5_model.encoder.block_names),
+                          len(model.t5_model.decoder.block_names))
+                want = stats["orig_total_size"] - sum(
+                    (d - -(-d // 2)) * per[t] for d, t in (
+                        (cfg.vit.depth, "vit"), (cfg.t5.num_layers, "enc"),
+                        (cfg.t5.num_decoder_layers, "dec")))
+                log(f"  {phase}: depths {depths}; block parameters "
+                    f"{json.dumps(per)}; distilled_total_size "
+                    f"{stats['distilled_total_size']}, closed form {want}")
+                half = tuple(-(-d // 2) for d in (
+                    cfg.vit.depth, cfg.t5.num_layers,
+                    cfg.t5.num_decoder_layers))
+                if depths != half + half or stats[
+                        "distilled_total_size"] != want or \
+                        count_params(model) != want:
+                    raise AssertionError(f"{phase}: depths {depths}, size "
+                                         f"{stats['distilled_total_size']} "
+                                         f"!= {want}")
+                e2e.update(wf_cli_merge_s=secs[phase],
+                           wf_cli_merge_merge_s=timer.stats.get(
+                               "merge_seconds"))
+            del model, runner
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_phase_counts(rec["counts"])
+    check_shapes(rec["shapes"], "pruners")
+    log(f"  pruners: phase seconds "
+        f"{json.dumps({p: round(t, 3) for p, t in secs.items()})}; peaks GiB "
+        f"{json.dumps({p: round(b / 2**30, 2) for p, b in rec['peaks'].items()})}")
+    e2e.update(ria_prune_s=secs["ria_prune"],
+               hybrid_prune_s=secs["hybrid_prune"])
+    return rec["counts"], e2e
+
+
+def tiny_pruners_check():
+    """The pruners path's slice on a tiny float32 InstructBLIP-T5 (std
+    0.02, biases drawn too), the same weights and batches on the card and
+    the CPU: ``blipt5_ria_pruner``, ``blipt5_wanda_pruner`` 2:4 with
+    hybrid tiles of 4 and ``blipt5_softmask_pruner`` 2:4 (16 steps), every
+    keep-mask bit-equal; WoodFisher's scores over both towers (chunks of
+    16, 3 samples) within 1e-4 relative of each leaf's entries; both
+    towers merged pairwise with the permutation, the merged model's logits
+    within 1e-4; ``cli.evaluate_woodfisher`` at ``--tiny`` with
+    ``--distillation_init unstrct_woodfisher`` from the factory's CPU init
+    (the GQA yaml over ``cli_data``, images at 28²): the size stats, the
+    eval results and the answers equal."""
+    import shutil
+
+    from vlm_compression_tpu_torch.cli import evaluate_woodfisher as W
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.compression.distill_merge import (
+        merge_tower_blocks,
+    )
+    from vlm_compression_tpu_torch.compression.woodfisher import WoodFisher
+    from vlm_compression_tpu_torch.models import factory
+    from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
+        Blip2T5Instruct,
+        Blip2T5InstructConfig,
+    )
+    from vlm_compression_tpu_torch.models.bridge import (
+        export_masks,
+        random_init_,
+    )
+    from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+    from vlm_compression_tpu_torch.models.qformer import QFormerConfig
+    from vlm_compression_tpu_torch.models.t5 import T5Config
+
+    f32 = dict(param_dtype="float32", dtype="float32")
+    cfg = Blip2T5InstructConfig.tiny(
+        vit=EvaViTConfig.tiny(**f32), qformer=QFormerConfig.tiny(
+            dtype="float32"), t5=T5Config.tiny(d_model=16, **f32))
+    cpu = random_init_(Blip2T5Instruct(cfg, device="cpu"), seed=12, std=0.02)
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.rsplit(".", 1)[-1] == "bias":
+                p.normal_(0.0, 0.02, generator=g)
+
+    def batch(b):
+        return dict(
+            image=torch.randn(b, 28, 28, 3, generator=g),
+            input_ids=torch.randint(2, 96, (b, 5), generator=g),
+            attention_mask=torch.ones(b, 5, dtype=torch.int64),
+            labels=torch.randint(2, 96, (b, 4), generator=g),
+            qformer_input_ids=torch.randint(2, 64, (b, 5), generator=g),
+            qformer_attention_mask=torch.ones(b, 5, dtype=torch.int64))
+
+    def on_card(batches):
+        return [{k: v.cuda() for k, v in b.items()} for b in batches]
+
+    calib = [batch(4), batch(4)]
+    nm = dict(prune_n=2, prune_m=4)
+    cases = [("blipt5_ria_pruner", {}),
+             ("blipt5_wanda_pruner", dict(
+                 nm, hybrid_tile=4, vit_prune_spec="2-0.7-1.0-1.0",
+                 t5_prune_spec="2-0.7-1.0-1.0")),
+             ("blipt5_softmask_pruner", dict(nm, softmask_steps=16))]
+    for name, kw in cases:
+        masks = []
+        for model, batches in ((copy.deepcopy(cpu), calib),
+                               (copy.deepcopy(cpu).to("cuda"),
+                                on_card(calib))):
+            spec = dict(vit_prune_spec="2-0.5-1.0-1.0",
+                        t5_prune_spec="2-0.5-1.0-1.0", num_samples=8)
+            with torch.no_grad():
+                load_pruner(name, model, batches,
+                            **{**spec, **kw}).prune(lora_model=True)
+            masks.append(export_masks(model))
+        mc, mg = masks
+        flips = sum(int((mc[p] != mg[p]).sum()) for p in mc)
+        dens = sum(int(m.sum()) for m in mc.values()) / sum(
+            m.size for m in mc.values())
+        log(f"  tiny fp32 {name} {json.dumps(kw)}, card vs CPU: {len(mc)} "
+            f"masks, density {dens:.4f}, {flips} bits differ")
+        if len(mc) != 2 * 4 + 2 * 7 + 2 * 11 or set(mc) != set(mg) or flips:
+            raise AssertionError(f"tiny {name}, card vs CPU")
+
+    samples = [batch(1) for _ in range(3)]
+    scores = []
+    for model, batches in ((cpu, samples),
+                           (copy.deepcopy(cpu).to("cuda"),
+                            on_card(samples))):
+        scores.append(WoodFisher(
+            model, batches, num_samples=3, max_chunk=16,
+            include=lambda p: p[0] in ("visual_encoder", "t5_model"),
+        ).compute_fisher_inv_and_importance_score())
+    sc, sg = scores
+    err = max(float(((sg[p].cpu() - w).abs() / (
+        w.abs() + 1e-6 * float(w.abs().max()) + 1e-30)).max())
+        for p, w in sc.items())
+    log(f"  tiny fp32 WoodFisher (both towers, chunks of 16, 3 samples), "
+        f"card vs CPU: {len(sc)} leaves, worst relative error {err:.3e} "
+        f"(tol 1e-4)")
+    if set(sc) != set(sg) or err > 1e-4:
+        raise AssertionError("tiny WoodFisher, card vs CPU")
+
+    logits = []
+    for dev in ("cpu", "cuda"):
+        state = {k: v.to(dev) for k, v in cpu.state_dict().items()}
+        for prefix in ("visual_encoder", "t5_model.encoder",
+                       "t5_model.decoder"):
+            head = prefix + "."
+            tower = {k[len(head):]: state.pop(k) for k in list(state)
+                     if k.startswith(head)}
+            state.update({head + k: v for k, v in merge_tower_blocks(
+                tower, [[0, 1]], permute=True).items()})
+        merged = Blip2T5Instruct(dataclasses.replace(
+            cfg, vit=dataclasses.replace(cfg.vit, depth=1),
+            t5=dataclasses.replace(cfg.t5, num_layers=1,
+                                   num_decoder_layers=1)), device=dev)
+        merged.load_state_dict(state)
+        with torch.no_grad():
+            logits.append(merged(**{k: v.to(dev) for k, v in
+                                    calib[0].items()})["logits"].cpu())
+    err = float((logits[1] - logits[0]).abs().max())
+    log(f"  tiny fp32 pairwise merge with the permutation (depth 1/1/1), "
+        f"card vs CPU: logits max_abs_err {err:.3e} (tol 1e-4)")
+    if err > 1e-4:
+        raise AssertionError("tiny merged logits, card vs CPU")
+
+    original = factory.build_model
+
+    def seeded_on_the_cpu(model_cfg, seed=0, device=None):
+        model = original(model_cfg, seed=seed, device="cpu")
+        return model if torch.device(device).type == "cpu" else \
+            model.to(device)
+
+    root = tempfile.mkdtemp(prefix="tiny_wf_cli_")
+    runs = {}
+    factory.build_model = seeded_on_the_cpu
+    try:
+        _, gqa_ann, images, _ = cli_data(root)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        for dev in ("cuda", "cpu"):
+            argv = ["--cfg-path", os.path.join(
+                repo, f"configs/projects/eval/{WF_CLI_EVAL}.yaml"),
+                "--tiny", "--distillation_init", "unstrct_woodfisher",
+                "--get_derivative_info", "--num_data", "2", "--device", dev,
+                "--job_id", dev, "--options", f"run.output_dir={root}/{dev}",
+                "model.amp=false", "datasets.gqa.vis_processor.eval."
+                "image_size=28",
+                f"datasets.gqa.build_info.annotations.val=[{gqa_ann}]",
+                f"datasets.gqa.build_info.images.storage={images}"]
+            stats = W.main(argv)
+            with open(os.path.join(root, dev, "result",
+                                   "val_vqa_result.json")) as f:
+                runs[dev] = (stats, {r["question_id"]: r["answer"]
+                                     for r in json.load(f)})
+    finally:
+        factory.build_model = original
+        shutil.rmtree(root, ignore_errors=True)
+    (sg_, ag), (sc_, ac) = runs["cuda"], runs["cpu"]
+    same = {k: sg_[k] == sc_[k] for k in ("orig_total_size",
+                                          "distilled_total_size",
+                                          "eval_results")}
+    log(f"  tiny fp32 cli.evaluate_woodfisher (unstrct_woodfisher, 2 "
+        f"samples), card vs CPU: sizes {sg_['orig_total_size']} -> "
+        f"{sg_['distilled_total_size']}; equal {json.dumps(same)}; "
+        f"{sum(ag[k] == ac[k] for k in ac)} of {len(ac)} answers equal")
+    if not all(same.values()) or ag != ac:
+        raise AssertionError("tiny cli.evaluate_woodfisher, card vs CPU")
+
+
 def profile_first_order(e2e):
     """The first-order path's two gradient phases again under
     torch.profiler (device activity only) on a fresh seed-2 model: the
@@ -6440,8 +7170,11 @@ def main() -> int:
         t_phase = time.perf_counter()
 
     lengths = add_cli_train_shapes()
+    wf_lengths = add_wf_cli_shapes()
     log(f"[kernels] kernel vs plain version (with the CLI train path's "
-        f"retrain shapes: its batches' longest captions {lengths} words)")
+        f"retrain shapes: its batches' longest captions {lengths} words; "
+        f"the pruners path's batch-1 scoring: (Q-Former, T5, label) "
+        f"tokens {wf_lengths})")
     worst = check_kernels()
     check_compressed_kernels(worst)
     check_dbias_kernel(worst)
@@ -6454,6 +7187,7 @@ def main() -> int:
     tiny_vicuna_check()
     tiny_retrieval_check()
     tiny_cli_train_check()
+    tiny_pruners_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -6490,11 +7224,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[grid path] InstructBLIP-FlanT5-XL: DSnoT prune, beam-5 generate; "
         "magnitude and random prunes, layerwise; magnitude, global; aobd; "
-        "the zeroth entry (one sample scored at batch 1), beam-5 generate")
+        "the zeroth entry (one sample scored at batch 1, at 13/8/8 blocks), "
+        "beam-5 generate")
     g_counts, g_e2e = grid_path()
     phase_done("grid path")
     counts.update(g_counts)
     e2e.update(g_e2e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[pruners path] InstructBLIP-FlanT5-XL: RIA (against Wanda) and "
+        "hybrid 2:4 tiles, beam-5 generate each; transposable 2:4; the "
+        "soft-mask anneal at 8/5/5 blocks (the cut), beam-5 generate; "
+        "WoodFisher over named leaves; cli.evaluate_woodfisher: the unstrct "
+        "prune and the pairwise block merge, each with its GQA pass")
+    p_counts, p_e2e = pruners_path()
+    phase_done("pruners path")
+    counts.update(p_counts)
+    e2e.update(p_e2e)
     gc.collect()
     torch.cuda.empty_cache()
     log("[vicuna path] InstructBLIP-Vicuna-7B: Wanda prune (ViT and "

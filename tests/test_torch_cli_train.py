@@ -506,9 +506,49 @@ def test_vicuna_train_ressa_holds_the_artifact_contract(tmp_path):
         assert torch.equal(v, saved[k]), k
 
 
+class _ReachedLoadPruner(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--softmask_steps", "8"), ("--softmask_lr", "0.5"),
+    ("--hybrid_tile", "64")], ids=lambda x: str(x))
+def test_pruner_flags_reach_load_pruner_as_in_jax(flag, value, tmp_path,
+                                                  monkeypatch):
+    """Each soft-mask and hybrid-tile flag reaches ``load_pruner`` under
+    its own name with the value JAX's CLI passes (both CLIs stopped
+    there)."""
+    import vlm_compression_tpu.compression as JC
+    from vlm_compression_tpu.cli import train as JT
+    import vlm_compression_tpu_torch.compression as TC
+
+    seen = {}
+
+    def catcher(who):
+        def load_pruner(name, model, data_loader, cfg=None, **kw):
+            seen[who] = kw
+            raise _ReachedLoadPruner(name)
+        return load_pruner
+
+    monkeypatch.setattr(JC, "load_pruner", catcher("jax"))
+    monkeypatch.setattr(TC, "load_pruner", catcher("port"))
+    train_cfg, _ = _configs(tmp_path)
+    argv = ["--cfg-path", train_cfg, "--prune", "--tiny", "--pruning_method",
+            "blipt5_softmask_pruner", "--prune_n", "2", "--prune_m", "4",
+            "--num_data_for_prune", "2", "--prune_batch_size", "2", flag,
+            value, "--options", f"run.output_dir={tmp_path / 'out'}"]
+    with pytest.raises(_ReachedLoadPruner):
+        JT.main(argv)
+    with pytest.raises(_ReachedLoadPruner):
+        TT.main([*argv, "--device", "cpu"])
+    key = flag[2:]
+    want = seen["jax"][key]
+    assert seen["port"][key] == want == type(want)(value)
+    assert type(seen["port"][key]) is type(want)
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--softmask_steps", "8"], 6), (["--softmask_lr", "0.5"], 6),
-    (["--hybrid_tile", "64"], 6), (["--gptq_bits", "3"], 7),
+    (["--gptq_bits", "3"], 7),
     (["--gptq_group", "64"], 7), (["--gptq_asym"], 7),
     (["--gptq_actorder"], 7), (["--gptq_awq"], 7), (["--autotune"], 9)],
     ids=lambda x: str(x))

@@ -483,10 +483,9 @@ def test_forward_without_its_library_raises(monkeypatch, tmp_path):
 
 
 # the JAX package's pruners the port does not register yet (ROADMAP
-# queue 1, items 6 and 7): RIA, soft-mask and GPTQ for each composition
-NOT_PORTED_PRUNERS = {f"{tower}_{method}_pruner"
-                      for tower in ("t5", "vit", "blipt5")
-                      for method in ("ria", "softmask", "gptq")}
+# queue 1, item 7): GPTQ for each composition
+NOT_PORTED_PRUNERS = {f"{tower}_gptq_pruner"
+                      for tower in ("t5", "vit", "blipt5")}
 
 
 def test_pruner_registry_is_the_jax_one_minus_the_listed_names():

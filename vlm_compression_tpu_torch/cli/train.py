@@ -20,9 +20,9 @@ without its adapters, as the JAX CLI saves the merged ``params`` and
 names: ``pruned_<job>`` (a ``torch.save``d state dict),
 ``sparsity_dict_<job>.yaml`` (a non-uniform allocation),
 ``training_statistics/<job>.yaml`` and ``training_statistics_<job>.json``.
-The flags of what is not ported yet (soft masks and hybrid tiles: ROADMAP
-queue 1, item 6; GPTQ: item 7; autotuning: item 9) parse, and raise when
-set.
+``--softmask_steps``, ``--softmask_lr`` and ``--hybrid_tile`` reach the
+pruner as in the JAX CLI.  The flags of what is not ported yet (GPTQ:
+ROADMAP queue 1, item 7; autotuning: item 9) parse, and raise when set.
 """
 
 from __future__ import annotations
@@ -39,8 +39,7 @@ import torch
 
 # flags that parse but are not ported: (flag, item); each raises when set
 # to anything but the parser's default
-_NOT_PORTED = (("softmask_steps", 6), ("softmask_lr", 6), ("hybrid_tile", 6),
-               ("gptq_bits", 7), ("gptq_group", 7), ("gptq_asym", 7),
+_NOT_PORTED = (("gptq_bits", 7), ("gptq_group", 7), ("gptq_asym", 7),
                ("gptq_actorder", 7), ("gptq_awq", 7), ("autotune", 9))
 
 
@@ -77,11 +76,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--owl_m", type=float, default=5.0,
                    help="OWL outlier threshold for score_method owl_*")
     p.add_argument("--softmask_steps", type=int, default=48,
-                   help="not ported yet (ROADMAP queue 1, item 6)")
-    p.add_argument("--softmask_lr", type=float, default=0.1,
-                   help="not ported yet (ROADMAP queue 1, item 6)")
+                   help="annealing steps for *_softmask_pruner")
+    p.add_argument("--softmask_lr", type=float, default=0.1)
     p.add_argument("--hybrid_tile", type=int, default=0,
-                   help="not ported yet (ROADMAP queue 1, item 6)")
+                   help="with --prune_n/m: tile-level hybrid masks — the "
+                        "most salient (t x t) weight tiles stay dense, the "
+                        "rest take n:m (wanda/ria only)")
     p.add_argument("--gptq_bits", type=int, default=4,
                    help="not ported yet (ROADMAP queue 1, item 7)")
     p.add_argument("--gptq_group", type=int, default=128,
@@ -262,13 +262,16 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
                 num_noise=args.num_noise, noise_eps=args.noise_eps,
                 max_sparsity_per_layer=args.max_sparsity_per_layer,
                 owl_m=args.owl_m,
+                hybrid_tile=args.hybrid_tile,
                 sparsity_dict=sparsity_dict,
                 t5_model_prefix=args.t5_model_prefix,
                 vit_model_prefix=args.vit_model_prefix,
                 initial_method=args.initial_method,
                 max_cycle_time=args.max_cycle_time,
                 update_threshold=args.update_threshold,
-                pow_of_var_regrowing=args.pow_of_var_regrowing)
+                pow_of_var_regrowing=args.pow_of_var_regrowing,
+                softmask_steps=args.softmask_steps,
+                softmask_lr=args.softmask_lr)
             # the masks stay when the prune is retrained (the teacher runs
             # the dense weights), else the weights are zeroed
             model, sparsity_mapping = pruner.prune(lora_model=args.train)

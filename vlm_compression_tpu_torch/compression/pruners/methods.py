@@ -1,31 +1,53 @@
-"""Per-block mask functions (port of the Wanda, SparseGPT and DSnoT parts
-of ``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
+"""Per-block mask functions (port of the Wanda (with RIA and hybrid tiles),
+SparseGPT, DSnoT and soft-mask parts of
+``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
 (in, out); scoring runs unit-major (out, in) and keep-masks go back
-(in, out), contiguous for the masked-matmul kernel."""
+(in, out), contiguous for the masked-matmul kernel.
+
+The JAX functions also return a per-linear importance
+(``BlockPruneResult.importances``).  Nothing in either package reads it
+(the engine applies masks and kernels only, and no CLI saves it), so the
+port does not compute it; the soft-mask fn can hand its OBS errors to a
+caller's list instead."""
 
 from __future__ import annotations
+
+import torch
 
 from vlm_compression_tpu_torch.compression.calibrate import BlockPruneResult
 from vlm_compression_tpu_torch.ops.dsnot import dsnot_refine_mask
 from vlm_compression_tpu_torch.ops.sparsegpt import sparsegpt_prune_group
 from vlm_compression_tpu_torch.ops.masks import (
     flat_threshold_mask,
+    hybrid_tile_mask,
     nm_structured_mask,
+    ria_metric,
     unstructured_mask,
     wanda_metric,
 )
+from vlm_compression_tpu_torch.ops.softmask import softmask_nm_prune_batched
 from vlm_compression_tpu_torch.ops.stats import finalize_hessian
 
 
 def wanda_mask_fn(prune_n: int = 0, prune_m: int = 0,
-                  flat_threshold: bool = False):
+                  flat_threshold: bool = False, metric: str = "wanda",
+                  ria_alpha: float = 0.5, hybrid_tile: int = 0):
     """Wanda |W|·sqrt(E‖X‖²).  flat_threshold=True selects the per-tensor
     value threshold used for the ViT; False the per-unit top-k of the
-    language towers; prune_n > 0 selects n:m."""
+    language towers; prune_n > 0 selects n:m.  metric="ria" swaps in the
+    RIA importance (same statistics, same sweep); hybrid_tile > 0 with n:m
+    keeps the most salient tiles dense and the rest n:m, at the linear's
+    target sparsity overall."""
 
     def one(kernel, scaler_row, sparsity):
-        met = wanda_metric(kernel.T, scaler_row)
-        if prune_n > 0:
+        if metric == "ria":
+            met = ria_metric(kernel.T, scaler_row, alpha=ria_alpha)
+        else:
+            met = wanda_metric(kernel.T, scaler_row)
+        if prune_n > 0 and hybrid_tile > 0:
+            keep = hybrid_tile_mask(met, sparsity, prune_n, prune_m,
+                                    tile=hybrid_tile)
+        elif prune_n > 0:
             keep = nm_structured_mask(met, prune_n, prune_m)
         elif flat_threshold:
             keep = flat_threshold_mask(met, sparsity)
@@ -95,6 +117,43 @@ def dsnot_mask_fn(prune_n: int = 0, prune_m: int = 0,
                 without_dsnot=without_dsnot,
                 initial_method=initial_method, hessian=h)
             masks[p] = res.keep_mask.T.contiguous()
+        return BlockPruneResult(masks, {})
+
+    return fn
+
+
+def softmask_mask_fn(prune_n: int = 0, prune_m: int = 0,
+                     steps: int = 48, lr: float = 0.1,
+                     tau_start: float = 2.0, tau_end: float = 0.05,
+                     errors: list = None):
+    """Annealed Hessian-guided soft-mask n:m (``ops/softmask.py``): logits
+    start from the Wanda metric, the objective is the calibration
+    Hessians' OBS error, and the start mask is kept unless the anneal
+    finds a better one.  n:m only.  Equal-shape linears of a block anneal
+    together as one batched call.  ``errors``: a list that receives
+    (err_best, err_init) of each linear, as device scalars."""
+    if prune_n <= 0 or prune_m <= 0:
+        raise ValueError("softmask pruning is n:m only — set "
+                         "--prune_n/--prune_m (e.g. 2:4)")
+
+    def fn(kernels, stats, sparsities):
+        groups = {}
+        for p, k in kernels.items():
+            groups.setdefault(tuple(k.shape), []).append(p)
+        masks = {}
+        for paths in groups.values():
+            keep, err_t, err_i = softmask_nm_prune_batched(
+                torch.stack([kernels[p].T for p in paths]),
+                torch.stack([finalize_hessian(stats[p]) for p in paths]),
+                prune_n, prune_m,
+                init_metrics=torch.stack([
+                    wanda_metric(kernels[p].T, stats[p].scaler_row)
+                    for p in paths]),
+                steps=steps, lr=lr, tau_start=tau_start, tau_end=tau_end)
+            for i, p in enumerate(paths):
+                masks[p] = keep[i].T.contiguous()
+                if errors is not None:
+                    errors.append((err_t[i], err_i[i]))
         return BlockPruneResult(masks, {})
 
     return fn

@@ -11,9 +11,9 @@ flat threshold, the language towers per-unit top-k.  With a
 ``sparsity_ratio_granularity`` the ratios come from the ``LayerSparsity``
 allocator (``compression/allocator.py``), built in ``get_sparsity``.
 
-Registered here: ``{t5,vit,blipt5}_{wanda,sparsegpt,dsnot}_pruner``; the
-global pruners are in ``global_pruner.py``.  Still to port: the RIA,
-soft-mask and GPTQ pruners (``{t5,vit,blipt5}_{ria,softmask,gptq}_pruner``).
+Registered here: ``{t5,vit,blipt5}_{wanda,sparsegpt,dsnot,ria,softmask}_pruner``;
+the global pruners are in ``global_pruner.py``.  Still to port: the GPTQ
+pruners (``{t5,vit,blipt5}_gptq_pruner``, ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -51,17 +51,28 @@ class _MethodMixin:
     without_dsnot: bool = False
     blocksize: int = 128
     percdamp: float = 0.01
+    # RIA's activation exponent (ops/masks.ria_metric)
+    ria_alpha: float = 0.5
+    # with n:m set, the tile of the hybrid masks (salient tiles dense, the
+    # rest n:m); 0: plain n:m
+    hybrid_tile: int = 0
+    # the soft-mask anneal (ops/softmask.py)
+    softmask_steps: int = 48
+    softmask_lr: float = 0.1
 
     @property
     def with_hessian(self) -> bool:
-        if self.method == "sparsegpt":
+        if self.method in ("sparsegpt", "softmask"):
             return True
         return self.method == "dsnot" and self.initial_method == "sparsegpt"
 
     def make_mask_fn(self, lora_model: bool, tower: str = "llm"):
-        if self.method == "wanda":
+        if self.method in ("wanda", "ria"):
             return M.wanda_mask_fn(self.prune_n, self.prune_m,
-                                   flat_threshold=(tower == "vit"))
+                                   flat_threshold=(tower == "vit"),
+                                   metric=self.method,
+                                   ria_alpha=self.ria_alpha,
+                                   hybrid_tile=self.hybrid_tile)
         if self.method == "sparsegpt":
             return M.sparsegpt_mask_fn(self.prune_n, self.prune_m,
                                        self.blocksize, self.percdamp)
@@ -71,6 +82,12 @@ class _MethodMixin:
                 self.max_cycle_time, self.update_threshold,
                 self.pow_of_var_regrowing, self.without_same_sign,
                 self.without_dsnot)
+        if self.method == "softmask":
+            # each linear's (err_best, err_init), for the caller to read
+            self.softmask_errors = getattr(self, "softmask_errors", [])
+            return M.softmask_mask_fn(
+                self.prune_n, self.prune_m, steps=self.softmask_steps,
+                lr=self.softmask_lr, errors=self.softmask_errors)
         raise NotImplementedError(
             f"pruning method {self.method!r} is not ported yet")
 
@@ -323,3 +340,15 @@ BlipT5SparseGPTPruner = _make(BlipT5PrunerBase, "sparsegpt",
 T5DSnoTPruner = _make(T5PrunerBase, "dsnot", "t5_dsnot_pruner")
 ViTDSnoTPruner = _make(ViTPrunerBase, "dsnot", "vit_dsnot_pruner")
 BlipT5DSnoTPruner = _make(BlipT5PrunerBase, "dsnot", "blipt5_dsnot_pruner")
+
+# RIA (relative importance × activations): the Wanda sweep with another
+# metric (ops/masks.ria_metric)
+T5RIAPruner = _make(T5PrunerBase, "ria", "t5_ria_pruner")
+ViTRIAPruner = _make(ViTPrunerBase, "ria", "vit_ria_pruner")
+BlipT5RIAPruner = _make(BlipT5PrunerBase, "ria", "blipt5_ria_pruner")
+
+# annealed Hessian-guided soft-mask n:m (ops/softmask.py)
+T5SoftMaskPruner = _make(T5PrunerBase, "softmask", "t5_softmask_pruner")
+ViTSoftMaskPruner = _make(ViTPrunerBase, "softmask", "vit_softmask_pruner")
+BlipT5SoftMaskPruner = _make(BlipT5PrunerBase, "softmask",
+                             "blipt5_softmask_pruner")
