@@ -169,7 +169,36 @@ each of which fails the run (non-zero exit, no result line) on error:
                 them): device time by loop (decode kernel, Hopper loop,
                 WMMA loop); each phase's kernels must
                 have launched in it, the bool kernel in no packed or int8
-                phase;
+                phase.  The int4 forms, from the bf16 kernels (put back
+                after): group 128 with bool and with packed-128 masks,
+                beam-5 generate cold and warm each (every ``kernel_q4``
+                (K/2, N) uint8 with (K/128, N) fp32 scales, one linear's
+                codes and scales bit-equal to the CPU's, the bytes at rest
+                the closed form, every launched shape within bf16
+                tolerance of the plain version, the masked and packed
+                kernels, never the int8 kernel or the WMMA loop); the W8A8
+                forms on the int8 model, without and with 32 outlier
+                columns (every shape within bf16 tolerance of the plain
+                version, ``_int_mm`` bit-equal to a float64 product, no
+                matmul kernel of the port, the switches off after); each
+                form's teacher-forced logits' drift against the bf16
+                model printed, not gated, over all steps and at the
+                first, beside the weights' relative RMS error and two
+                controls (the packed bf16 model, 0 expected; every masked
+                kernel perturbed by a seeded 1e-3 and 1e-2 relative);
+  6b. quant path — a full-width XL cut to 8/5/5 blocks (seed 15; the cut:
+                the GPTQ sweep walks its columns one at a time):
+                ``blipt5_gptq_pruner`` jointly at 0.5 / 0.5 (4 bits, group
+                128, symmetric; each linear 0.5 ± 0.01, at most 16 values
+                in each (unit, 128-row group), 0 off its mask), GPTQ's and
+                AWQ's OBS loss at most RTN's on three linears' Hessians,
+                one linear's sweep card against CPU; AWQ card against CPU
+                on 512 units of that linear (the candidate losses and the
+                choice; the best candidate but the identity forced: its
+                scaled problem, RTN unscaled back and its loss); then the
+                ViT restored
+                dense and ``vit_gptq_pruner`` quantizing only with AWQ;
+                beam-5 generate;
   7. first-order path — a third full-width XL model (seed 2, no
                 adapters): ``blipt5_wanda_pruner`` with the EcoFLaP
                 first-order block allocation (aobd_sum on 32 samples, no
@@ -282,8 +311,12 @@ each of which fails the run (non-zero exit, no result line) on error:
                 tensor, each tower 0.5 ± 0.01, GQA exactly 50.00 in
                 ``eval_stats``, the answers equal to a direct
                 ``generate_t5``'s, no linear kernel launched (no masks),
-                every shape held in phase 3, data and checkpoint deleted;
-                each call's phases timed (build, calibration, prune, save,
+                every shape held in phase 3; two more eval calls on the
+                checkpoint, ``--quantize_int4`` and ``--quantize_int8
+                --w8a8 --int8_outliers 32`` (every linear in that form,
+                the W8A8 switches off after the call, the answers equal to
+                a direct ``generate_t5`` of the same quantized model); data
+                and checkpoint deleted; each call's phases timed (build, calibration, prune, save,
                 load, eval), the checkpoint's size, the peaks;
  13. cli train path — the launcher's T5 RESSA grid point
                 ``train_ressa("wanda", 0.5, 0.5, kl_weight=0.1,
@@ -309,17 +342,15 @@ each of which fails the run (non-zero exit, no result line) on error:
                 deleted; the phases' seconds, both checkpoints' bytes, the
                 free disk, the peaks;
  14. profile  — the main path once more under torch.profiler (prune,
-                generate, one train step), the SparseGPT prune (the cut
-                that keeps the command within its limit once the serving
-                passes run: at 8/5/5 of its 39/24/24 blocks, timed
-                unprofiled at that depth first), the first-order path's
-                Fisher (its attention backward's device
-                time a sample) and EcoFLaP prune, and the grid path's
-                zeroth scoring of 24 keys, aobd and global magnitude
-                prunes and (the cut that keeps the command under 900 s:
-                at 13/8/8 of its 39/24/24 blocks, timed unprofiled at
-                that depth first) its DSnoT prune: device time by kernel
-                group against each phase's unprofiled wall-clock;
+                generate, one train step), the SparseGPT prune at 4/3/3
+                blocks (the cut: timed unprofiled at that depth first)
+                and the first-order path's Fisher (its attention
+                backward's device time a sample) and EcoFLaP prune: device
+                time by kernel group against each phase's unprofiled
+                wall-clock.  The cut that keeps the command within its
+                limit once the int4, W8A8 and GPTQ phases run: the grid
+                path's prunes' traces are not taken (their walls stand in
+                their own path; 74.8 s of the command on one H100);
  15. timing   — kernel, plain-version and library-call times (CUDA events,
                 L2 flushed before each call) at the main path's shapes,
                 beside each kernel's bound; where the masked and sparse-LoRA
@@ -380,6 +411,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import logging
@@ -2493,6 +2525,46 @@ PHASE_FORBIDDEN.update(
     wf_cli_unstrct_direct=BACKWARD + WF_LINEAR + (FWD_MMA,),
     wf_cli_merge=BACKWARD + WF_LINEAR + (FWD_MMA,),
     wf_cli_merge_direct=BACKWARD + WF_LINEAR + (FWD_MMA,))
+# the compressed path's int4 forms: the masked products on the
+# dequantized weights (the bool kernel with bool masks, the packed one with
+# packed), prefill on the Hopper loop, decode steps on the decode kernel,
+# never the int8 kernel; its W8A8 forms: every linear an int8 × int8
+# product (torch._int_mm), so no matmul kernel of the port at all
+W8A8_OUTLIERS = 32
+INT4_FORMS = ("int4_bool", "int4_packed128")
+W8A8_FORMS = ("w8a8", f"w8a8_out{W8A8_OUTLIERS}")
+NO_LINEAR_KERNEL = ("masked_matmul", "masked_matmul_packed", "int8_matmul",
+                    "sparse_lora_matmul", DECODE, WGMMA_LOOP, WMMA_LOOP)
+for _when in ("cold", "warm"):
+    PHASE_KERNELS[f"generate_int4_bool_{_when}"] = SERVE + (FWD_WGMMA,)
+    PHASE_FORBIDDEN[f"generate_int4_bool_{_when}"] = BACKWARD + (
+        "int8_matmul", "masked_matmul_packed")
+    PHASE_KERNELS[f"generate_int4_packed128_{_when}"] = (
+        "masked_matmul_packed", "flash_attention", FWD_WGMMA, WGMMA_LOOP,
+        DECODE)
+    PHASE_FORBIDDEN[f"generate_int4_packed128_{_when}"] = BACKWARD + (
+        "int8_matmul", "masked_matmul")
+    for _form in W8A8_FORMS:
+        PHASE_KERNELS[f"generate_{_form}_{_when}"] = ("flash_attention",
+                                                      FWD_WGMMA)
+        PHASE_FORBIDDEN[f"generate_{_form}_{_when}"] = BACKWARD \
+            + NO_LINEAR_KERNEL
+# the quant path: the GPTQ prunes replay their blocks through the masked
+# matmul (no backward), the generate after them as the other generates
+PHASE_KERNELS.update(gptq_prune=PRUNE + (FWD_WGMMA,),
+                     awq_vit_prune=PRUNE + (FWD_WGMMA,),
+                     generate_gptq=SERVE + (FWD_WGMMA,))
+PHASE_FORBIDDEN.update(gptq_prune=BACKWARD + (WMMA_LOOP, FWD_MMA),
+                       awq_vit_prune=BACKWARD + (WMMA_LOOP, FWD_MMA),
+                       generate_gptq=BACKWARD + (FWD_MMA,))
+# the CLI path's quantized eval calls and their direct generates: no
+# masks, so int4 is a plain product on the dequantized weight and W8A8 an
+# int8 × int8 one: attention alone
+CLI_QUANT_PHASES = ("cli_eval_int4", "cli_direct_int4", "cli_eval_w8a8",
+                    "cli_direct_w8a8")
+for _phase in CLI_QUANT_PHASES:
+    PHASE_KERNELS[_phase] = ("flash_attention", FWD_WGMMA)
+    PHASE_FORBIDDEN[_phase] = BACKWARD + NO_LINEAR_KERNEL
 # every generate phase runs its prefill on the Hopper loop and its decode
 # steps on the decode kernel, every VQA and caption phase all its matmuls
 # on the Hopper loop: no WMMA-loop launch at all
@@ -3820,6 +3892,9 @@ def compressed_path():
 
     generate("generate_bool")
     log(f"  tokens: {outs['generate_bool'].tolist()}")
+    # the drift reference of the int4 and W8A8 forms
+    ref_logits, _ = forced_logits(model, req_enc(req), outs["generate_bool"],
+                                  "masked", False)
     sizes["bool"] = model_sizes(model)
     profiles["bool"] = profile_generate(model, req,
                                         1e3 * secs["generate_bool"], "bool")
@@ -3835,6 +3910,19 @@ def compressed_path():
         profiles[f"packed{group}"] = profile_generate(
             model, req, 1e3 * secs[f"generate_packed{group}"],
             f"packed-{group}")
+    controls = drift_controls(model, req, outs["generate_bool"], ref_logits)
+    log(f"  drift controls (teacher-forced logits against the bf16 "
+        f"model's, relative RMS over all steps, first step in brackets): "
+        f"packed-256 masks {fmt_drift(controls['packed'])}; "
+        + "; ".join(f"kernels x (1 + {eps:g} z), weights off by "
+                    f"{controls[f'perturbed_{eps:g}']['weight_rel_rms']:.3e}"
+                    f" relative RMS: "
+                    f"{fmt_drift(controls[f'perturbed_{eps:g}'])}"
+                    for eps in DRIFT_EPS)
+        + f"; restored {fmt_drift(controls['restored'])}; "
+        f"{controls['s']:.1f} s")
+    q4_rec, q4_out = int4_forms(model, cfg, req, outs["generate_bool"],
+                                ref_logits)
     BM.pack_masks_(model, 128)   # the default layout under int8
     t0 = time.perf_counter()
     Q.quantize_model_int8_(model)
@@ -3851,6 +3939,9 @@ def compressed_path():
 
     profiles["int8_packed128"] = profile_generate(
         model, req, 1e3 * secs["generate_int8_warm"], "int8 + packed-128")
+    w8_rec, w8_out = w8a8_forms(model, cfg, req, outs["generate_bool"],
+                                ref_logits)
+    del ref_logits
 
     # the evaluate.py serving form: pruned weights zeroed, masks dropped
     with torch.no_grad():
@@ -3872,12 +3963,14 @@ def compressed_path():
             f"{sz['distilled_total_size']}")
     log(f"  max_memory_allocated (sparsegpt prune + generates): "
         f"{peak / 2**30:.2f} GiB")
+    counts.update(q4_rec["counts"], **w8_rec["counts"])
     log(f"  launches: {json.dumps(counts)}")
     check_phase_counts(counts)
     del model, linears
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, {"sparsegpt_prune_s": secs["sparsegpt_prune"],
+    return counts, {**q4_out, **w8_out, "drift_controls": controls,
+                    "sparsegpt_prune_s": secs["sparsegpt_prune"],
                     "sparsegpt_damped": damped.by_tower,
                     "generate_bool_s": secs["generate_bool"],
                     "generate_packed128_s": secs["generate_packed128"],
@@ -3888,6 +3981,654 @@ def compressed_path():
                     "generate_device_ms": profiles,
                     "bytes_at_rest": {f: sz["total"]
                                       for f, sz in sizes.items()}}
+
+
+# ---------------------------------------------------------------------------
+# int4 weights and W8A8 products on the compressed path's model
+# ---------------------------------------------------------------------------
+
+# the linear whose int4 codes and scales are held bit for bit against the
+# CPU's quantize_weight_int4 of its bf16 kernel
+INT4_NAMED = "t5_model.decoder.blocks_0.ffn.wo"
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got - want) ** 2).mean().sqrt()
+                 / (want ** 2).mean().sqrt())
+
+
+def drift(logits: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Teacher-forced logits (b, L − 1, V) against the bf16 model's: the
+    relative RMS over every step and at the first step alone."""
+    return {"all": rel_rms(logits, ref),
+            "first_step": rel_rms(logits[:, 0], ref[:, 0])}
+
+
+def fmt_drift(d: dict) -> str:
+    return f"{d['all']:.4f} (first step {d['first_step']:.4f})"
+
+
+# the controls of the drift readings: each masked kernel of the bf16 model
+# times (1 + eps·z), z seeded standard normal, then rounded to bf16 (on
+# one H100 a perturbation of 1e-1 read as 1e-3 and 1e-2 do: 1.3194)
+DRIFT_EPS = (1e-3, 1e-2)
+
+
+@torch.no_grad()
+def drift_controls(model, req, seqs, ref_logits) -> dict:
+    """The drift readings' controls on the compressed bf16 model: its
+    teacher-forced logits with the masks packed (the same products as the
+    reference's bool masks: 0 expected), then with every masked kernel
+    perturbed by each DRIFT_EPS (the kernels kept on the host meanwhile
+    and put back after), beside the relative RMS change of the weights."""
+    t0 = time.perf_counter()
+    enc = req_enc(req)
+    logits, _ = forced_logits(model, enc, seqs, "masked", False)
+    out = {"packed": drift(logits, ref_logits)}
+    lins = [m for m in sparse_linears(model).values() if m.mask is not None]
+    saved = [m.kernel.detach().to("cpu", copy=True) for m in lins]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for eps in DRIFT_EPS:
+        num = den = 0.0
+        for m, k in zip(lins, saved):
+            w = k.to(m.kernel.device).float()
+            new = (w * (1 + eps * torch.randn(w.shape, generator=g,
+                                              device="cuda"))).to(k.dtype)
+            num = num + ((new.float() - w) ** 2).sum()
+            den = den + (w ** 2).sum()
+            m.kernel.copy_(new)
+        logits, _ = forced_logits(model, enc, seqs, "masked", False)
+        out[f"perturbed_{eps:g}"] = dict(
+            weight_rel_rms=float((num / den).sqrt()),
+            **drift(logits, ref_logits))
+    for m, k in zip(lins, saved):
+        m.kernel.copy_(k)
+    logits, _ = forced_logits(model, enc, seqs, "masked", False)
+    out["restored"] = drift(logits, ref_logits)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def within_bf16(got: torch.Tensor, plain: torch.Tensor) -> float:
+    """The largest |got − plain| / max(1, |plain|); the gate is 2e-2."""
+    err = (got.double() - plain).abs() / plain.abs().clamp(min=1.0)
+    return float(err.max())
+
+
+def sparse_linears(model) -> dict:
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, SparseLinear)}
+
+
+@torch.no_grad()
+def check_int4_shapes(lins: dict, shapes: dict, what: str) -> tuple:
+    """Every (M, K, N) the int4 phases launched a matmul kernel at, through
+    ``int4_matmul`` on the card with the codes, scales and mask of a
+    linear of that (K, N) and seeded bf16 inputs, against the plain
+    product (fp64: the dequantized weight, zero off its mask): within
+    bf16 2e-2 × max(1, |plain|).  Returns (shapes held, worst error)."""
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    by_kn = {}
+    for m in lins.values():
+        if m.kernel_q4 is not None and m.mask is not None:
+            by_kn.setdefault((m.in_features, m.features), m)
+    seen = sorted({(mm, k, n) for s in shapes.values()
+                   for (mm, n, k, _) in s["matmul"]})
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = 0.0
+    for mm, k, n in seen:
+        lin = by_kn[(k, n)]
+        x = torch.randn(mm, k, generator=g, device="cuda").to(torch.bfloat16)
+        y = Q.int4_matmul(x, lin.kernel_q4, lin.kernel_scale, lin.mask)
+        w = Q.dequantize_weight_int4(lin.kernel_q4, lin.kernel_scale).double()
+        plain = x.double() @ torch.where(lin.bool_mask(), w, 0.0)
+        worst = max(worst, within_bf16(y, plain))
+    if worst > TOL["bfloat16"]:
+        raise AssertionError(f"{what}: int4_matmul off its plain version by "
+                             f"{worst:.3e}")
+    return len(seen), worst
+
+
+def w8a8_plain(x, q, scale, mask, k_out: int) -> torch.Tensor:
+    """The W8A8 product's plain version in fp64: the ``k_out`` activation
+    columns of largest magnitude against their weight rows, the rest
+    quantized per row to int8 steps and multiplied by the dequantized
+    weight."""
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    x2 = x.reshape(-1, x.shape[-1]).double()
+    w = q.double() * scale.double()[None, :]
+    if mask is not None:
+        w = torch.where(mask, w, 0.0)
+    y = torch.zeros(x2.shape[0], w.shape[1], dtype=torch.float64,
+                    device=x.device)
+    if k_out:
+        idx = Q.top_k_indices(x2.abs().amax(dim=0), k_out)
+        y = x2[:, idx] @ w[idx]
+        keep = torch.ones(x2.shape[1], dtype=torch.bool, device=x.device)
+        keep[idx] = False
+        x2 = torch.where(keep[None, :], x2, 0.0)
+    sx = x2.abs().amax(dim=1).clamp(min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(x2 / sx[:, None]), -127, 127)
+    return y + (xq * sx[:, None]) @ w
+
+
+@torch.no_grad()
+def check_w8a8_shapes(lins: dict, calls: dict, k_out: int,
+                      what: str) -> tuple:
+    """Every (M, K, N) a W8A8 phase ran (``calls``: shape → linear name),
+    through the W8A8 product on the card with that linear's codes, scales
+    and mask and seeded bf16 inputs, against ``w8a8_plain``: within bf16
+    2e-2 × max(1, |plain|); and ``_int_mm``'s int32 output at the shape,
+    on seeded int8 codes against the linear's (masked) codes, bit-equal
+    to their float64 product.  Returns (shapes held, worst error)."""
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    worst = 0.0
+    for (mm, k, n), name in sorted(calls.items()):
+        lin = lins[name]
+        mask = lin.bool_mask()
+        x = torch.randn(mm, k, generator=g, device="cuda").to(torch.bfloat16)
+        fn = (functools.partial(Q.int8_matmul_outlier, num_outliers=k_out)
+              if k_out else Q.int8_matmul_dynamic)
+        y = fn(x, lin.kernel, lin.kernel_scale, lin.mask)
+        worst = max(worst, within_bf16(
+            y, w8a8_plain(x, lin.kernel, lin.kernel_scale, mask, k_out)))
+        xq = torch.randint(-127, 128, (mm, k), generator=g, device="cuda",
+                           dtype=torch.int8)
+        qw = lin.kernel if mask is None else torch.where(mask, lin.kernel, 0)
+        acc = Q.int_mm(xq, qw)
+        if acc.dtype != torch.int32 or not torch.equal(
+                acc.double(), xq.double() @ qw.double()):
+            raise AssertionError(f"{what}: _int_mm at M={mm} K={k} N={n} "
+                                 "differs from the float64 product")
+    if worst > TOL["bfloat16"]:
+        raise AssertionError(f"{what}: W8A8 off its plain version by "
+                             f"{worst:.3e}")
+    return len(calls), worst
+
+
+def generate_form(model, cfg, req, rec, form: str) -> torch.Tensor:
+    """Beam-5 generate of one weight form, cold then warm (tokens equal);
+    returns the tokens."""
+    toks = {}
+    for when in ("cold", "warm"):
+        phase = f"generate_{form}_{when}"
+        seqs, gen_cfg = run_phase(rec, phase, lambda: run_generate(model, req))
+        n_tok = check_generate(seqs, gen_cfg, cfg)
+        toks[when] = seqs
+        log(f"  generate_t5 beam-5 ({form}, {when}): "
+            f"{rec['secs'][phase]:.3f} s, {n_tok} tokens")
+    if not torch.equal(toks["cold"], toks["warm"]):
+        raise AssertionError(f"{form}: warm tokens differ from cold")
+    return toks["warm"]
+
+
+def req_enc(req) -> tuple:
+    return (req["image"], req["input_ids"], req["attention_mask"],
+            req["qformer_input_ids"], req["qformer_attention_mask"])
+
+
+@torch.no_grad()
+def int4_forms(model, cfg, req, seqs, ref_logits) -> tuple:
+    """The compressed model in int4 (group 128, every linear: all their
+    input widths are multiples of it), from its bf16 kernels: beam-5
+    generate with its bool masks and with the masks packed at G = 128,
+    each cold and warm.  Gates: every ``kernel_q4`` (K/2, N) uint8 and
+    every scale (K/128, N) fp32; INT4_NAMED's codes and scales bit-equal
+    to ``quantize_weight_int4`` of its bf16 kernel on the CPU; the bytes
+    at rest the closed form; each launched shape within bf16 tolerance of
+    the plain version.  The teacher-forced logits' relative RMS drift
+    against the bf16 model's is printed, not gated.  The bf16 kernels are
+    put back after.  Returns (record, readings)."""
+    from torch import nn
+
+    from vlm_compression_tpu_torch.compression.peft_io import bytes_at_rest
+    from vlm_compression_tpu_torch.models.layers import set_mask
+    from vlm_compression_tpu_torch.ops import bitmask as BM
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    rec, out = new_record(), {}
+    lins = sparse_linears(model)
+    for m in lins.values():                   # the bool masks back
+        if m.mask is not None:
+            set_mask(m, m.bool_mask())
+    saved = {n: m.kernel.detach().clone() for n, m in lins.items()}
+    named_cpu = saved[INT4_NAMED].cpu()
+    t0 = time.perf_counter()
+    Q.quantize_model_int4_(model)
+    torch.cuda.synchronize()
+    out["int4_quantize_s"] = time.perf_counter() - t0
+    g = Q.INT4_GROUP
+    for n, m in lins.items():
+        k, f = m.in_features, m.features
+        if m.kernel is not None or m.kernel_q4 is None \
+                or m.kernel_q4.dtype != torch.uint8 \
+                or tuple(m.kernel_q4.shape) != (k // 2, f) \
+                or m.kernel_scale.dtype != torch.float32 \
+                or tuple(m.kernel_scale.shape) != (k // g, f):
+            raise AssertionError(f"int4: {n} holds {m.kernel_q4} / "
+                                 f"{m.kernel_scale}")
+    want_q, want_s = Q.quantize_weight_int4(named_cpu)
+    lin = lins[INT4_NAMED]
+    if not (torch.equal(lin.kernel_q4.cpu(), want_q)
+            and torch.equal(lin.kernel_scale.cpu(), want_s)):
+        raise AssertionError(f"int4: {INT4_NAMED}'s codes or scales differ "
+                             "from the CPU's")
+    sizes = bytes_at_rest(model)
+    closed = dict(
+        kernels=sum(m.in_features * m.features // 2 for m in lins.values()),
+        scales=sum(4 * (m.in_features // g) * m.features
+                   for m in lins.values()),
+        masks=sum(m.in_features * m.features for m in lins.values()
+                  if m.mask is not None))
+    if any(sizes[k] != v for k, v in closed.items()):
+        raise AssertionError(f"int4 bytes at rest {sizes} vs {closed}")
+    out["int4_bytes_at_rest"] = sizes["total"]
+    # the weights' relative RMS error of the int4 form and of the int8 one
+    # (what the drift readings stand beside)
+    err = {"int4": 0.0, "int8": 0.0}
+    ref = 0.0
+    for n, m in lins.items():
+        w = saved[n].float()
+        err["int4"] = err["int4"] + ((Q.dequantize_weight_int4(
+            m.kernel_q4, m.kernel_scale) - w) ** 2).sum()
+        err["int8"] = err["int8"] + ((Q.dequantize_weight(
+            *Q.quantize_weight(w)) - w) ** 2).sum()
+        ref = ref + (w ** 2).sum()
+    out["weight_rel_rms"] = {k: float((v / ref).sqrt())
+                             for k, v in err.items()}
+    log(f"  quantize_model_int4_ (group {g}): {out['int4_quantize_s']:.2f} "
+        f"s; {len(lins)} kernels (K/2, N) uint8 + (K/{g}, N) fp32 scales; "
+        f"{INT4_NAMED} bit-equal to the CPU's; bytes at rest "
+        f"{json.dumps(sizes)} = the closed form; the weights' relative RMS "
+        f"error: int4 {out['weight_rel_rms']['int4']:.4e}, int8 "
+        f"{out['weight_rel_rms']['int8']:.4e}")
+    enc = req_enc(req)
+    for form in INT4_FORMS:
+        if form == "int4_packed128":
+            BM.pack_masks_(model, 128)
+        toks = generate_form(model, cfg, req, rec, form)
+        logits, _ = forced_logits(model, enc, seqs, "masked", False)
+        out[f"{form}_drift"] = drift(logits, ref_logits)
+        out[f"{form}_s"] = rec["secs"][f"generate_{form}_warm"]
+        log(f"  {form}: tokens {toks.tolist()}, equal to the bf16 ones: "
+            f"{torch.equal(toks, seqs)}; teacher-forced logits' relative "
+            f"RMS against the bf16 model's "
+            f"{fmt_drift(out[f'{form}_drift'])} (a reading on random "
+            f"weights, not gated)")
+    for form in INT4_FORMS:
+        phases = {p: s for p, s in rec["shapes"].items() if form in p}
+        held, worst = check_int4_shapes(lins, phases, form)
+        log(f"  {form}: {held} launched shapes held against the plain "
+            f"version, worst {worst:.3e}")
+    check_shapes(rec["shapes"], "int4")
+    for n, m in lins.items():                 # the bf16 kernels back
+        m.kernel = nn.Parameter(saved.pop(n))
+        m.kernel_q4 = None
+        m.kernel_scale = None
+    return rec, out
+
+
+@torch.no_grad()
+def w8a8_forms(model, cfg, req, seqs, ref_logits) -> tuple:
+    """The int8 model (packed-128 masks) with the W8A8 products:
+    ``use_dynamic_int8`` alone, then with W8A8_OUTLIERS outlier columns,
+    beam-5 generate cold and warm each, the switches restored after.
+    Gates: each (M, K, N) a W8A8 product ran at within bf16 tolerance of
+    its plain version, ``_int_mm`` bit-equal to a float64 product there,
+    the switch off after.  Drift printed as for int4.  Returns (record,
+    readings)."""
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    rec, out = new_record(), {}
+    lins = sparse_linears(model)
+    calls = {form: {} for form in W8A8_FORMS}
+    current = []
+
+    def hook_for(name):
+        def hook(mod, args):
+            if current:
+                x = args[0]
+                key = (x.numel() // x.shape[-1], x.shape[-1], mod.features)
+                calls[current[0]].setdefault(key, name)
+        return hook
+
+    handles = [m.register_forward_pre_hook(hook_for(n))
+               for n, m in lins.items()]
+    enc = req_enc(req)
+    # the weight-only int8 model's drift, the yardstick of the W8A8 ones
+    logits, _ = forced_logits(model, enc, seqs, "masked", False)
+    out["int8_drift"] = drift(logits, ref_logits)
+    log(f"  int8 (weight-only): teacher-forced logits' relative RMS against "
+        f"the bf16 model's {fmt_drift(out['int8_drift'])} (not gated)")
+    try:
+        with Q.int8_switches():
+            Q.use_dynamic_int8(True)
+            for form in W8A8_FORMS:
+                Q.set_int8_outliers(W8A8_OUTLIERS if "out" in form else 0)
+                current[:] = [form]
+                toks = generate_form(model, cfg, req, rec, form)
+                current.clear()
+                logits, _ = forced_logits(model, enc, seqs, "masked", False)
+                out[f"{form}_drift"] = drift(logits, ref_logits)
+                out[f"{form}_s"] = rec["secs"][f"generate_{form}_warm"]
+                log(f"  {form}: tokens {toks.tolist()}, equal to the bf16 "
+                    f"ones: {torch.equal(toks, seqs)}; teacher-forced "
+                    f"logits' relative RMS against the bf16 model's "
+                    f"{fmt_drift(out[f'{form}_drift'])} (not gated)")
+    finally:
+        for h in handles:
+            h.remove()
+    if Q.dynamic_int8_enabled() or Q.int8_outliers():
+        raise AssertionError("the W8A8 switches are still set")
+    for form in W8A8_FORMS:
+        k_out = W8A8_OUTLIERS if "out" in form else 0
+        held, worst = check_w8a8_shapes(lins, calls[form], k_out, form)
+        log(f"  {form}: {held} shapes held against the plain version, "
+            f"worst {worst:.3e}; _int_mm bit-equal to float64 at each")
+    log("  W8A8 switches off after the phase")
+    return rec, out
+
+
+# ---------------------------------------------------------------------------
+# GPTQ and AWQ on a cut XL
+# ---------------------------------------------------------------------------
+
+# the cut: the GPTQ sweep walks its columns one at a time (about 846 k
+# columns at 39/24/24, against 175 k at this depth); every width kept
+GPTQ_DEPTH = (8, 5, 5)
+GPTQ_SEED = 15
+GPTQ_GROUP = 128
+# the linears whose calibration Hessians the OBS-loss gates read: (tower,
+# block, path in the block); the first also runs card against CPU
+GPTQ_NAMED = (("vit", 0, ("attn", "qkv")), ("t5_encoder", 0, ("ffn", "wi_0")),
+              ("t5_decoder", 0, ("ffn", "wo")))
+# the GPTQ parity tests' bound on symmetric grids
+# (tests/test_torch_gptq.py: SYM_TIE_SHARE)
+GPTQ_TIE_SHARE = 0.03
+GPTQ_W_TOL = 1e-5
+# AWQ card against the CPU: on the first GPTQ_NAMED linear's first
+# AWQ_UNITS output units (the CPU's 22 candidate losses take seconds
+# otherwise), the candidate losses within AWQ_LOSS_RTOL (fp32 sums in
+# another order; the rounded weights themselves are equal)
+AWQ_UNITS = 512
+AWQ_LOSS_RTOL = 1e-4
+
+
+def count_kernels(prof) -> int:
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def swept_columns(model, towers) -> int:
+    """Columns the sweep walks: each block's equal-shape groups, their
+    input width once each."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    total = 0
+    for tower in towers:
+        blocks = model.get_submodule(tower)
+        for name, block in blocks.named_children():
+            if not name.startswith("blocks_"):
+                continue
+            shapes = {tuple(m.kernel.shape) for m in block.modules()
+                      if isinstance(m, SparseLinear)}
+            total += sum(k for k, _ in shapes)
+    return total
+
+
+def obs_loss(w: torch.Tensor, q: torch.Tensor, h: torch.Tensor) -> float:
+    d = (w - q.float()).float()
+    return float((torch.matmul(d, h) * d).sum())
+
+
+@torch.no_grad()
+def awq_check(w: torch.Tensor, h: torch.Tensor, sr: torch.Tensor) -> dict:
+    """``awq_search`` on the card against the CPU on the same weights,
+    Hessian and ``scaler_row``: every candidate's loss within
+    AWQ_LOSS_RTOL, the card's choice within that of the CPU's best.  Then
+    the best candidate other than the identity, forced: its scales card
+    against CPU, ``apply_awq``'s scaled problem and ``unscale_weight`` of
+    RTN in scaled space bit-equal to the CPU's (at most GPTQ_TIE_SHARE of
+    the entries off, the grid's ties), equal to ``awq_rtn_quantize``, and
+    its OBS loss recomputed from them within AWQ_LOSS_RTOL of the
+    search's own loss for that candidate.  Returns the readings."""
+    from vlm_compression_tpu_torch.ops import awq as AW
+    from vlm_compression_tpu_torch.ops import gptq as GQ
+
+    kw = dict(groupsize=GPTQ_GROUP)
+    w = w.contiguous()
+    cw, ch, csr = w.cpu(), h.cpu(), sr.cpu()
+    card, cpu = AW.awq_search(w, sr, h, **kw), AW.awq_search(cw, csr, ch, **kw)
+    lc, lp = card.losses.cpu().double(), cpu.losses.double()
+    loss_rel = float(((lc - lp).abs() / lp.abs()).max())
+    chose = int(card.losses.argmin())
+    if loss_rel > AWQ_LOSS_RTOL \
+            or float(lp[chose]) > (1 + AWQ_LOSS_RTOL) * float(lp.min()):
+        raise AssertionError(f"awq: card's candidate losses off the CPU's by "
+                             f"{loss_rel:.3e}, or its choice {chose} not the "
+                             "CPU's best")
+    n = lp.numel() - 1
+    a = int(lp[:n].argmin())          # the best candidate but the identity
+    alphas, cand = AW._candidates(w.float(), sr, n)
+    _, cand_cpu = AW._candidates(cw.float(), csr, n)
+    s = cand[a]
+    s_rel = float(((s.cpu() - cand_cpu[a]).abs() / cand_cpu[a]).max())
+    if bool((s == 1).all()):
+        raise AssertionError("awq: the forced candidate is the identity")
+    ws, hs = AW.apply_awq(w, h, s)
+    back = AW.unscale_weight(GQ.rtn_quantize(ws, **kw), s)
+    cws, chs = AW.apply_awq(cw, ch, s.cpu())
+    cback = AW.unscale_weight(GQ.rtn_quantize(cws, **kw), s.cpu())
+    off = float((back.cpu() != cback).float().mean())
+    forced = obs_loss(w, back, h)
+    forced_rel = abs(forced - float(card.losses[a])) / float(card.losses[a])
+    if not (torch.equal(ws.cpu(), cws) and torch.equal(hs.cpu(), chs)) \
+            or off > GPTQ_TIE_SHARE or s_rel > AWQ_LOSS_RTOL \
+            or not torch.equal(back, AW.awq_rtn_quantize(w, s, **kw)) \
+            or not forced_rel <= AWQ_LOSS_RTOL:
+        raise AssertionError(
+            f"awq at alpha {float(alphas[a]):.2f}: scaled problem equal "
+            f"{torch.equal(ws.cpu(), cws)} / {torch.equal(hs.cpu(), chs)}, "
+            f"entries off {off:.3e}, scales off {s_rel:.3e}, recomputed loss "
+            f"off {forced_rel:.3e}")
+    return {"losses_rel": loss_rel, "alpha": float(card.alpha),
+            "cpu_alpha": float(cpu.alpha),
+            "forced_alpha": float(alphas[a]), "forced_loss": forced,
+            "forced_loss_rel": forced_rel, "identity_loss": float(lc[-1]),
+            "scales_rel": s_rel, "entries_off": off}
+
+
+def quant_path() -> tuple:
+    """GPTQ on a dense full-width XL cut to GPTQ_DEPTH (seed 15, no
+    adapters, 128 calibration samples at batch 16): (a)
+    ``blipt5_gptq_pruner`` jointly at 0.5 / 0.5 (4 bits, group 128,
+    symmetric, no act order, masks kept); (b) on the ViT restored dense,
+    ``vit_gptq_pruner`` quantizing only (keep 1.0) with ``gptq_awq``;
+    then beam-5 generate.  Gates: each joint-pruned linear 0.5 ± 0.01; at
+    most 16 values in each (unit, 128-row group), exactly 0 off the masks;
+    for the three GPTQ_NAMED linears, GPTQ's OBS loss on their Hessian at
+    most RTN's on the same grid and AWQ's at most plain RTN's; the first
+    one's ``gptq_quantize`` on the card against the CPU's on the same
+    Hessian (keep masks equal, at most GPTQ_TIE_SHARE of the weights off
+    by more than GPTQ_W_TOL); (b)'s masks all True; launches and shapes
+    as the other paths.  Returns (launches by phase, readings)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.models.layers import set_mask
+    from vlm_compression_tpu_torch.ops import awq as AW
+    from vlm_compression_tpu_torch.ops import gptq as GQ
+    from vlm_compression_tpu_torch.ops.stats import finalize_hessian
+
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(GPTQ_SEED, lora=False,
+                                        depth=GPTQ_DEPTH)
+    depth = "/".join(map(str, GPTQ_DEPTH))
+    towers = ("visual_encoder", "t5_model.encoder", "t5_model.decoder")
+    cols = swept_columns(model, towers)
+    log(f"  model: InstructBLIP-FlanT5-XL, bf16, seed {GPTQ_SEED}, no "
+        f"adapters, cut to {depth} blocks (the cut; 39/24/24 at full depth), "
+        f"{time.perf_counter() - t0:.1f} s; {N_CALIB} calibration samples "
+        f"at batch {BS}; the sweep walks {cols} columns")
+    rec, out = new_record(), {"gptq_columns": cols}
+    vit = model.visual_encoder
+    vit_lins = sparse_linears(vit)
+    dense_vit = {n: m.kernel.detach().clone() for n, m in vit_lins.items()}
+    captured, calls = {}, []
+    pruner = load_pruner(
+        "blipt5_gptq_pruner", model, batches,
+        vit_prune_spec=f"{GPTQ_DEPTH[0]}-0.5-1.0-1.0",
+        t5_prune_spec=f"{GPTQ_DEPTH[1]}-0.5-1.0-1.0", num_samples=N_CALIB,
+        gptq_group=GPTQ_GROUP)
+    make = pruner.make_mask_fn
+
+    def capturing(lora_model, tower="llm"):
+        fn = make(lora_model, tower)
+
+        def mask_fn(kernels, stats, sparsities):
+            n_llm = calls.count("llm")
+            where = (("vit", calls.count("vit")) if tower == "vit" else
+                     ("t5_encoder", n_llm) if n_llm < GPTQ_DEPTH[1] else
+                     ("t5_decoder", n_llm - GPTQ_DEPTH[1]))
+            calls.append(tower)
+            for tw, blk, path in GPTQ_NAMED:
+                if (tw, blk) == where:
+                    captured[tw] = (kernels[path].detach().t().float(),
+                                    finalize_hessian(stats[path]),
+                                    stats[path].scaler_row.clone())
+            return fn(kernels=kernels, stats=stats, sparsities=sparsities)
+        return mask_fn
+
+    pruner.make_mask_fn = capturing
+    run_phase(rec, "gptq_prune", lambda: pruner.prune(lora_model=True))
+    del pruner
+    secs = rec["secs"]["gptq_prune"]
+    out["gptq_prune_s"] = secs
+    log(f"  (a) blipt5_gptq_pruner at 0.5 / 0.5 (4 bits, group "
+        f"{GPTQ_GROUP}, symmetric): {secs:.2f} s, "
+        f"{1e6 * secs / cols:.1f} us a column; "
+        f"peak {rec['peaks']['gptq_prune'] / 2**30:.2f} GiB")
+    # the joint prune's structure
+    n_lin = 0
+    for tower in towers:
+        for name, m in sparse_linears(model.get_submodule(tower)).items():
+            keep = m.bool_mask()
+            dens = float(keep.float().mean())
+            if abs(dens - 0.5) > 0.01:
+                raise AssertionError(f"gptq: {tower}.{name} density {dens}")
+            k = m.kernel
+            if bool(k[~keep].ne(0).any()) or not bool(
+                    torch.isfinite(k).all()):
+                raise AssertionError(f"gptq: {tower}.{name} non-zero off "
+                                     "its mask or not finite")
+            grp = k.float().reshape(k.shape[0] // GPTQ_GROUP, GPTQ_GROUP,
+                                    k.shape[1])
+            distinct = 1 + (grp.sort(dim=1).values.diff(dim=1) != 0).sum(1)
+            if int(distinct.max()) > 16:
+                raise AssertionError(f"gptq: {tower}.{name} holds "
+                                     f"{int(distinct.max())} values in a "
+                                     "(unit, group) slab")
+            n_lin += 1
+    log(f"  (a) {n_lin} linears 0.5 ± 0.01, exactly 0 off their masks, at "
+        f"most 16 values in each (unit, {GPTQ_GROUP}-row group)")
+    # GPTQ and AWQ against RTN on three linears' own Hessians
+    for tw, blk, path in GPTQ_NAMED:
+        w, h, sr = captured[tw]
+        res = GQ.gptq_quantize(w, h, groupsize=GPTQ_GROUP)
+        rtn = GQ.rtn_quantize(w, groupsize=GPTQ_GROUP)
+        sc = AW.awq_search(w, sr, h, groupsize=GPTQ_GROUP)
+        awq = AW.awq_rtn_quantize(w, sc.s, groupsize=GPTQ_GROUP)
+        losses = {"gptq": obs_loss(w, res.weight, h),
+                  "rtn": obs_loss(w, rtn, h), "awq": obs_loss(w, awq, h)}
+        out[f"gptq_obs_{tw}"] = losses
+        log(f"  OBS loss, {tw} block {blk} {'/'.join(path)} "
+            f"{tuple(w.shape)}: GPTQ {losses['gptq']:.6g}, RTN "
+            f"{losses['rtn']:.6g}, AWQ (alpha {float(sc.alpha):.2f}) "
+            f"{losses['awq']:.6g}")
+        if losses["gptq"] > losses["rtn"] or losses["awq"] > losses["rtn"]:
+            raise AssertionError(f"gptq: {tw} loss GPTQ / AWQ above RTN's")
+    tw, blk, path = GPTQ_NAMED[0]
+    w, h, sr = captured[tw]
+    aw = awq_check(w[:AWQ_UNITS], h, sr)
+    out["awq_card_vs_cpu"] = aw
+    log(f"  AWQ card vs CPU, {tw} block {blk} {'/'.join(path)}, its first "
+        f"{AWQ_UNITS} units: 22 candidate losses within "
+        f"{aw['losses_rel']:.2e} (bound {AWQ_LOSS_RTOL}), alpha "
+        f"{aw['alpha']:.2f} (CPU {aw['cpu_alpha']:.2f}); forced alpha "
+        f"{aw['forced_alpha']:.2f} "
+        f"(the best but the identity): scales within {aw['scales_rel']:.2e}, "
+        f"the scaled problem bit-equal, RTN unscaled back off on "
+        f"{100 * aw['entries_off']:.3f}% of entries, loss recomputed "
+        f"{aw['forced_loss']:.6g} (search's within "
+        f"{aw['forced_loss_rel']:.2e}; identity {aw['identity_loss']:.6g})")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        card = GQ.gptq_quantize(w, h, groupsize=GPTQ_GROUP)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    launches = count_kernels(prof)
+    t0 = time.perf_counter()
+    cpu = GQ.gptq_quantize(w.cpu(), h.cpu(), groupsize=GPTQ_GROUP)
+    cpu_s = time.perf_counter() - t0
+    codes = float((card.codes.cpu() != cpu.codes).float().mean())
+    off = float((~torch.isclose(card.weight.cpu(), cpu.weight,
+                                rtol=GPTQ_W_TOL, atol=GPTQ_W_TOL))
+                .float().mean())
+    per_col = launches / w.shape[1]
+    out.update(gptq_launches_per_column=per_col,
+               gptq_sweep_launches=per_col * cols,
+               gptq_card_vs_cpu={"codes": codes, "weights_off": off})
+    log(f"  {tw} block {blk} {'/'.join(path)} card vs CPU on its Hessian: "
+        f"codes differ {100 * codes:.3f}%, weights off by more than "
+        f"{GPTQ_W_TOL} {100 * off:.3f}% (bound {100 * GPTQ_TIE_SHARE}%), "
+        f"keep masks equal; card {card_s:.2f} s (profiled), CPU "
+        f"{cpu_s:.2f} s; {launches} kernels, {per_col:.1f} a column: about "
+        f"{per_col * cols / 1e6:.2f} M for the sweep at {depth}")
+    if not torch.equal(card.keep_mask.cpu(), cpu.keep_mask) \
+            or off > GPTQ_TIE_SHARE or codes > GPTQ_TIE_SHARE:
+        raise AssertionError("gptq: card and CPU sweeps differ beyond the "
+                             "parity tests' bound")
+    del captured, card, cpu, w, h
+    # (b) the ViT restored dense, quantized only, with AWQ
+    with torch.no_grad():
+        for n, m in vit_lins.items():
+            m.kernel.copy_(dense_vit.pop(n))
+            set_mask(m, None)
+    vp = load_pruner("vit_gptq_pruner", vit, batches, num_samples=N_CALIB,
+                     prune_spec=f"{GPTQ_DEPTH[0]}-1.0-1.0-1.0", gptq_awq=True,
+                     gptq_group=GPTQ_GROUP)
+    run_phase(rec, "awq_vit_prune", lambda: vp.prune(lora_model=True))
+    del vp
+    out["awq_vit_prune_s"] = rec["secs"]["awq_vit_prune"]
+    for n, m in vit_lins.items():
+        if m.mask is None or not bool(m.mask.all()) \
+                or not bool(torch.isfinite(m.kernel).all()):
+            raise AssertionError(f"awq: ViT {n} mask not all True or kernel "
+                                 "not finite")
+    log(f"  (b) vit_gptq_pruner, keep 1.0, gptq_awq: "
+        f"{out['awq_vit_prune_s']:.2f} s; every ViT mask all True")
+    del batches
+    seqs, gen_cfg = run_phase(rec, "generate_gptq",
+                              lambda: run_generate(model, req))
+    n_tok = check_generate(seqs, gen_cfg, cfg)
+    out["generate_gptq_s"] = rec["secs"]["generate_gptq"]
+    log(f"  generate_t5 beam-5 (GPTQ T5, AWQ ViT): "
+        f"{out['generate_gptq_s']:.3f} s, {n_tok} tokens: {seqs.tolist()}")
+    log(f"  launches: {json.dumps(rec['counts'])}")
+    check_phase_counts(rec["counts"])
+    check_shapes(rec["shapes"], "quant")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["counts"], out
 
 
 def first_order_path():
@@ -4045,8 +4786,6 @@ ZEROTH = dict(sparsity_ratio_granularity="block",
               score_method="olmezo-gradient_sum")
 N_ZEROTH, N_ZEROTH_GRID = 1, 32
 ZEROTH_DEPTH = (13, 8, 8)
-# the zeroth scoring's keys traced under the profiler (profile_grid)
-N_PROFILED = 24
 TOWERS = ("visual_encoder", "t5_model.encoder", "t5_model.decoder")
 GLOBAL_PHASES = ("mag_prune", "rand_prune", "mag_global", "aobd_prune")
 
@@ -5410,6 +6149,10 @@ def cli_path() -> tuple:
             raise AssertionError("cli: the eval call's answers differ from a "
                                  "direct generate_t5 of the restored model")
         del restored, e_runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        quant = cli_quant_calls(rec, eval_cfg, eval_job, eval_options, out,
+                                samples)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if os.path.exists(root):
@@ -5420,6 +6163,7 @@ def cli_path() -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return rec["counts"], {
+        **quant,
         "cli_prune_call_s": rec["secs"]["cli_prune"],
         "cli_eval_call_s": rec["secs"]["cli_eval"],
         "cli_wanda_b1_s": p_timer.stats["prune_seconds"],
@@ -5428,6 +6172,66 @@ def cli_path() -> tuple:
         "cli_checkpoint_bytes": ckpt_bytes,
         "cli_gqa_acc": metrics["acc"],
         "cli_peak_bytes": max(rec["peaks"].values())}
+
+
+def cli_quant_calls(rec, eval_cfg, eval_job, eval_options, out,
+                    samples) -> dict:
+    """Two more GQA eval calls on the cli path's checkpoint: one with
+    ``--quantize_int4``, one with ``--quantize_int8 --w8a8
+    --int8_outliers 32``.  Gates: every linear of the evaluated model in
+    that form; the W8A8 switches off when the call returns; the answers
+    equal to a direct ``generate_t5`` of the same quantized model (with
+    the switches set for W8A8); attention alone launched (no masks).
+    Returns the readings."""
+    from vlm_compression_tpu_torch.cli import evaluate as E
+    from vlm_compression_tpu_torch.ops import quant as Q
+
+    readings = {}
+    for form, extra in (("int4", ["--quantize_int4"]),
+                        ("w8a8", ["--quantize_int8", "--w8a8",
+                                  "--int8_outliers", str(W8A8_OUTLIERS)])):
+        job = f"{eval_job}-{form}"
+        argv = ["--cfg-path", eval_cfg, "--pruned_checkpoint",
+                f"{out}/{CLI_JOB}/pruned_{CLI_JOB}", "--job_id", job,
+                "--seed", str(CLI_SEED + 1), *extra, "--options",
+                f"run.output_dir={out}/{job}", *eval_options[1:], *CLI_ARGS]
+        log(f"  cli: the {form} eval call: {' '.join(argv)}")
+        stats, runner, timer = run_phase(
+            rec, f"cli_eval_{form}", lambda: E.run(E.parse_args(argv)))
+        if Q.dynamic_int8_enabled() or Q.int8_outliers():
+            raise AssertionError(f"cli {form}: the W8A8 switches were left "
+                                 "set")
+        lins = sparse_linears(runner.model).values()
+        if not all((m.kernel_q4 is not None) if form == "int4"
+                   else (m.kernel.dtype == torch.int8) for m in lins):
+            raise AssertionError(f"cli {form}: a linear is not in {form}")
+        with open(os.path.join(out, job, "result",
+                               "val_vqa_result.json")) as f:
+            answers = {r["question_id"]: r["answer"] for r in json.load(f)}
+        with Q.int8_switches():
+            if form == "w8a8":
+                Q.use_dynamic_int8(True)
+                Q.set_int8_outliers(W8A8_OUTLIERS)
+            direct = run_phase(
+                rec, f"cli_direct_{form}",
+                lambda: direct_vqa_answers(runner.model, samples)[0])
+        if [answers[i] for i in range(CLI_N_GQA)] != direct:
+            raise AssertionError(f"cli {form}: the eval call's answers "
+                                 "differ from a direct generate_t5 of the "
+                                 "quantized model")
+        metrics = stats["eval_results"]["val"]
+        readings[f"cli_eval_{form}_s"] = rec["secs"][f"cli_eval_{form}"]
+        readings[f"cli_eval_{form}_acc"] = metrics["acc"]
+        log(f"  cli {form}: {rec['secs'][f'cli_eval_{form}']:.2f} s "
+            f"({json.dumps(timer.stats)}), GQA {metrics['acc']} (not gated: "
+            f"the truth is the bf16 model's), answers = a direct "
+            f"generate_t5 of the quantized model; peak "
+            f"{rec['peaks'][f'cli_eval_{form}'] / 2**30:.2f} GiB; "
+            f"attention {attn_routes(rec['counts'][f'cli_eval_{form}'])}")
+        del runner, lins
+        gc.collect()
+        torch.cuda.empty_cache()
+    return readings
 
 
 # the CPU rehearsal's additions to both calls (empty on the card)
@@ -6433,89 +7237,6 @@ def profile_first_order(e2e):
     torch.cuda.empty_cache()
 
 
-# the cut that keeps the command under 900 s: the grid path's DSnoT prune
-# is profiled at a third of its depth (ViT, T5 encoder, T5 decoder blocks;
-# every width as at full depth), timed unprofiled at that depth.  The
-# zeroth scoring and aobd stay at full depth: their walls are mostly
-# per-call host work that the cut hardly shortens while it cuts their
-# device time, so their busy shares would fall (on one H100 the zeroth
-# scoring 4.5 s at the cut against 5.2 s at full depth, aobd 2.45 s
-# against 3.48 s); the global magnitude prune takes 1.4 s at full depth
-GRID_PROFILED_DEPTH = (13, 8, 8)
-
-
-def profile_grid(e2e):
-    """The grid path's prunes once more under torch.profiler (device
-    activity only) on fresh seed-3 models: at full depth the zeroth
-    entry's scoring of its first N_PROFILED keys at batch 1 (timed
-    unprofiled just before), the aobd prune and the global magnitude
-    prune (against the grid path's walls); the DSnoT prune at
-    GRID_PROFILED_DEPTH, timed unprofiled at that depth just before."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from vlm_compression_tpu_torch.compression import allocator as AL
-    from vlm_compression_tpu_torch.models.layers import set_mask
-
-    _, model, batches, _ = xl_setup(seed=3, lora=False)
-    keys = AL.select_prunable_keys(model, ("visual_encoder", "t5_model"))
-    sample = [{k: v[:1] for k, v in batches[0].items()}]
-
-    def score():
-        AL.mezo_layer_scalars(
-            model, keys[:N_PROFILED], sample, AL.model_loss, eps=1e-3,
-            num_noise=1, num_samples=1,
-            z_fn=lambda tag, k, shape: AL.seeded_normal(shape, (0, 1, *tag),
-                                                        "cuda"))
-        torch.cuda.synchronize()
-
-    @torch.no_grad()
-    def drop_masks():
-        for k in AL.select_prunable_keys(model,
-                                         ("visual_encoder", "t5_model")):
-            set_mask(model.get_submodule(".".join(k)), None)
-
-    score()     # warm: the first forwards at batch 1 of this model
-    t0 = time.perf_counter()
-    score()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        score()
-    total, _ = device_breakdown(
-        prof, 1e3 * wall, f"zeroth scoring, {N_PROFILED} keys "
-        f"({2 * N_PROFILED} batch-1 forwards)")
-    e2e["zeroth_score_busy"] = total / (1e3 * wall)
-    for label, name, kw in (("aobd_prune", "blipt5_aobd_pruner", {}),
-                            ("mag_global", "blipt5_mag_pruner",
-                             dict(is_global=True))):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run_prune(model, batches, name, **kw)
-        total, _ = device_breakdown(prof, 1e3 * e2e[f"{label}_s"], label)
-        e2e[f"{label}_busy"] = total / (1e3 * e2e[f"{label}_s"])
-        drop_masks()
-    del model, batches, sample
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the cut; DSnoT keeps the kernels, so the second prune starts from
-    # the same dense weights
-    _, model, batches, _ = xl_setup(seed=3, lora=False,
-                                    depth=GRID_PROFILED_DEPTH)
-    t0 = time.perf_counter()
-    run_prune(model, batches, "blipt5_dsnot_pruner")
-    wall = time.perf_counter() - t0
-    drop_masks()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run_prune(model, batches, "blipt5_dsnot_pruner")
-    total, _ = device_breakdown(
-        prof, 1e3 * wall, f"dsnot_prune at depth "
-        f"{'/'.join(map(str, GRID_PROFILED_DEPTH))} (at full depth "
-        f"{e2e['dsnot_prune_s']:.2f} s)")
-    e2e["dsnot_prune_busy"] = total / (1e3 * wall)
-    del model, batches
-    gc.collect()
-    torch.cuda.empty_cache()
-
-
 # the attention backward's kernel groups (``_kernel_group``), both routes
 BWD_GROUPS = ("flash_attention_bwd_wgmma main kernel",
               "flash_attention_bwd delta pre-pass",
@@ -6713,10 +7434,12 @@ def profile_main_path(e2e):
     torch.cuda.empty_cache()
 
 
-# the cut that keeps the command within its limit once the serving passes
-# run (1110.0 s uncut): the SparseGPT prune's trace at 8/5/5 of its
-# 39/24/24 blocks; the compressed path runs it at full depth
-SPARSEGPT_PROFILED_DEPTH = (8, 5, 5)
+# the cut that keeps the command within its limit: the SparseGPT prune's
+# trace at 4/3/3 of its 39/24/24 blocks (at 8/5/5 the two prunes took
+# 66.0 s of the profile phase on one H100); the compressed path runs it at
+# full depth.  The grid path's prunes are not traced (their walls stand in
+# their own path)
+SPARSEGPT_PROFILED_DEPTH = (4, 3, 3)
 
 
 def profile_sparsegpt_prune(e2e):
@@ -7207,12 +7930,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("[compressed path] InstructBLIP-FlanT5-XL: SparseGPT prune, beam-5 "
-        "generate with bool masks, packed masks (G 128, 256), int8 weights, "
-        "the int8 serving form")
+        "generate with bool masks, packed masks (G 128, 256), int4 weights "
+        "(bool and packed-128 masks), int8 weights, W8A8 (with and without "
+        "outlier columns), the int8 serving form")
     c_counts, c_e2e = compressed_path()
     phase_done("compressed path")
     counts.update(c_counts)
     e2e.update(c_e2e, **sg)
+    log(f"[quant path] InstructBLIP-FlanT5-XL cut to "
+        f"{'/'.join(map(str, GPTQ_DEPTH))} blocks (the cut): GPTQ joint "
+        f"4-bit at 0.5 (blipt5_gptq_pruner), AWQ + GPTQ on the ViT "
+        f"(vit_gptq_pruner, keep 1.0), beam-5 generate")
+    gq_counts, gq_e2e = quant_path()
+    phase_done("quant path")
+    counts.update(gq_counts)
+    e2e.update(gq_e2e)
     log("[first-order path] InstructBLIP-FlanT5-XL: EcoFLaP first-order "
         "block allocation + Wanda, beam-5 generate; diagonal Fisher, "
         "unstrct prune_by_importance, beam-5 generate")
@@ -7261,7 +7993,8 @@ def main() -> int:
     e2e.update(r_e2e)
     log("[cli path] the launcher's T5 grid point through the port's CLI: "
         "the Wanda prune call at batch 1 (checkpoint saved), the GQA eval "
-        "call on the checkpoint")
+        "call on the checkpoint, and again with --quantize_int4 and with "
+        "--quantize_int8 --w8a8 --int8_outliers 32")
     cl_counts, cl_e2e = cli_path()
     phase_done("cli path")
     counts.update(cl_counts)
@@ -7275,13 +8008,16 @@ def main() -> int:
     phase_done("cli train path")
     counts.update(ct_counts)
     e2e.update(ct_e2e)
-    log("[profile] the main path, the SparseGPT prune, the first-order "
-        "path's gradient phases and the grid path's prunes again under "
-        "torch.profiler")
-    profile_main_path(e2e)
-    profile_sparsegpt_prune(e2e)
-    profile_first_order(e2e)
-    profile_grid(e2e)
+    log("[profile] the main path, the SparseGPT prune (at "
+        f"{'/'.join(map(str, SPARSEGPT_PROFILED_DEPTH))} blocks, the cut) "
+        "and the first-order path's gradient phases again under "
+        "torch.profiler (the cut: the grid path's prunes are no longer "
+        "traced; their walls stand in their own path)")
+    for part in (profile_main_path, profile_sparsegpt_prune,
+                 profile_first_order):
+        t0 = time.perf_counter()
+        part(e2e)
+        log(f"  [{part.__name__}] {time.perf_counter() - t0:.1f} s")
     phase_done("profile")
     log("[timing] bf16, each reading the median of 20 calls, CUDA events, "
         "L2 flushed before each call; attention kernels and their library "

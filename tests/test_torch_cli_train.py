@@ -28,7 +28,11 @@ their masks, so the masked and the dense products agree exactly).  Also:
 ``scripts/launch_lib.py``'s with the port's module and ``--device``, and
 parses to JAX's namespace; a tiny Vicuna ``train_ressa`` run (port only:
 ``--t5_model_prefix llm_model``) held to the artifact contract; the
-unported flags raise with their ROADMAP items; the CLI trains on
+soft-mask, hybrid-tile and GPTQ flags reach ``load_pruner`` as JAX's CLI
+passes them, and a ``blipt5_gptq_pruner`` prune call through both CLIs
+saves the same masks and quantized kernels within the GPTQ pruners'
+bounds; the unported flag raises with its
+ROADMAP item; the CLI trains on
 ``RunnerBase`` whatever ``run.runner`` names, as JAX's does; with no GPU
 the default ``--device`` raises.
 """
@@ -77,11 +81,11 @@ def _images(root, n, ext=".jpg", shape=(32, 32, 3), seed=0):
     return names
 
 
-def _configs(root):
+def _configs(root, n_images=8):
     """The train and eval configs of tests/test_launcher_e2e.py (8
     captioned JPEGs; the eval a captioning pass over them), the model in
     fp32."""
-    names = _images(root, 8)
+    names = _images(root, n_images)
     caps = [{"image": n, "caption": f"cap number {i}", "image_id": i}
             for i, n in enumerate(names)]
     (root / "ann.json").write_text(json.dumps(caps))
@@ -512,12 +516,15 @@ class _ReachedLoadPruner(Exception):
 
 @pytest.mark.parametrize("flag,value", [
     ("--softmask_steps", "8"), ("--softmask_lr", "0.5"),
-    ("--hybrid_tile", "64")], ids=lambda x: str(x))
+    ("--hybrid_tile", "64"), ("--gptq_bits", "3"), ("--gptq_group", "64"),
+    ("--gptq_asym", None), ("--gptq_actorder", None), ("--gptq_awq", None)],
+    ids=lambda x: str(x))
 def test_pruner_flags_reach_load_pruner_as_in_jax(flag, value, tmp_path,
                                                   monkeypatch):
-    """Each soft-mask and hybrid-tile flag reaches ``load_pruner`` under
-    its own name with the value JAX's CLI passes (both CLIs stopped
-    there)."""
+    """Each soft-mask, hybrid-tile and GPTQ flag reaches ``load_pruner``
+    with the value JAX's CLI passes (both CLIs stopped there): under its
+    own name, ``--gptq_asym`` as ``gptq_sym=False``; a switch (no value)
+    the opposite of its default."""
     import vlm_compression_tpu.compression as JC
     from vlm_compression_tpu.cli import train as JT
     import vlm_compression_tpu_torch.compression as TC
@@ -536,22 +543,128 @@ def test_pruner_flags_reach_load_pruner_as_in_jax(flag, value, tmp_path,
     argv = ["--cfg-path", train_cfg, "--prune", "--tiny", "--pruning_method",
             "blipt5_softmask_pruner", "--prune_n", "2", "--prune_m", "4",
             "--num_data_for_prune", "2", "--prune_batch_size", "2", flag,
-            value, "--options", f"run.output_dir={tmp_path / 'out'}"]
+            *([] if value is None else [value]), "--options",
+            f"run.output_dir={tmp_path / 'out'}"]
     with pytest.raises(_ReachedLoadPruner):
         JT.main(argv)
     with pytest.raises(_ReachedLoadPruner):
         TT.main([*argv, "--device", "cpu"])
-    key = flag[2:]
+    key = {"gptq_asym": "gptq_sym"}.get(flag[2:], flag[2:])
     want = seen["jax"][key]
+    if value is None:
+        assert want is (key != "gptq_sym")
+        assert seen["port"][key] is want
+        return
     assert seen["port"][key] == want == type(want)(value)
     assert type(seen["port"][key]) is type(want)
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--gptq_bits", "3"], 7),
-    (["--gptq_group", "64"], 7), (["--gptq_asym"], 7),
-    (["--gptq_actorder"], 7), (["--gptq_awq"], 7), (["--autotune"], 9)],
-    ids=lambda x: str(x))
+GPTQ_CLI_IMAGES = 32
+
+
+def test_gptq_prune_call_holds_jax_structure(tmp_path, monkeypatch):
+    """``--pruning_method blipt5_gptq_pruner`` (3-bit asymmetric, group
+    16, joint at 0.5, weights zeroed off the masks) through both CLIs from
+    JAX's initial weights with every bias drawn from a seed, calibrated
+    on 32 images at batch 8 (with zero LayerNorm biases or 4 images the
+    tiny ViT's Hessians are near singular and the packages' factorizations
+    part at its first linear).  Held: the saved masks bit for bit; each
+    swept kernel at least half zero, at most 8 values in each (unit,
+    16-row group), none left at its dense value, in both; the ViT's first
+    block within W_TOL and its zeros where JAX's are; over all swept
+    kernels the zeros and the entries within the bounds of
+    tests/test_torch_gptq_pruners.py (measured: 0.73 % of the zero
+    pattern, 4.0 % of the entries)."""
+    from test_torch_gptq_pruners import (
+        MAX_KERNEL_DIFF,
+        MAX_MASK_DIFF,
+        PRUNER_W_TOL,
+    )
+    from vlm_compression_tpu.cli import train as JT
+    from vlm_compression_tpu.models import factory as jax_factory
+    from vlm_compression_tpu_torch.models import factory
+    from vlm_compression_tpu_torch.models.bridge import load_jax_variables
+
+    jax_build, port_build, seeded = (jax_factory.build_model,
+                                     factory.build_model, {})
+
+    def seeded_init(cfg, seed):
+        """JAX's initial variables, every bias from seed 61 (numpy)."""
+        key = (repr(sorted(dict(cfg).items())), seed)
+        if key not in seeded:
+            module, variables = jax_build(dict(cfg), seed=seed)
+            rng = np.random.default_rng(61)
+
+            def walk(node):
+                return {k: walk(v) if isinstance(v, dict) else
+                        (0.1 * rng.standard_normal(np.shape(v))).astype(
+                            v.dtype) if k == "bias" else v
+                        for k, v in node.items()}
+
+            variables = numpy_tree(variables)
+            seeded[key] = (module, dict(variables,
+                                        params=walk(variables["params"])))
+        module, variables = seeded[key]
+        return module, jax.tree_util.tree_map(np.copy, variables)
+
+    def jax_seeded(cfg, seed=0, **kw):
+        module, variables = seeded_init(cfg, seed)
+        return module, jax.tree_util.tree_map(jax.numpy.asarray, variables)
+
+    def carried(cfg, seed=0, device=None):
+        model = port_build(cfg, seed=seed, device=device)
+        load_jax_variables(model, seeded_init(cfg, seed)[1])
+        return model
+
+    monkeypatch.setattr(jax_factory, "build_model", jax_seeded)
+    monkeypatch.setattr(factory, "build_model", carried)
+    train_cfg, _ = _configs(tmp_path, GPTQ_CLI_IMAGES)
+    argv = ["--cfg-path", train_cfg, "--prune", "--pruning_method",
+            "blipt5_gptq_pruner", "--t5_prune_spec", "2-0.5-1.0-1.0",
+            "--vit_prune_spec", "2-0.5-1.0-1.0", "--num_data_for_prune",
+            str(GPTQ_CLI_IMAGES), "--prune_batch_size", "8", "--gptq_bits",
+            "3", "--gptq_asym", "--gptq_group", "16", "--save_pruned_model",
+            "--tiny"]
+    jstats = JT.main([*argv, "--job_id", "jg", "--options",
+                      f"run.output_dir={tmp_path / 'jax'}"])
+    tstats = TT.main([*argv, "--job_id", "tg", "--device", "cpu",
+                      "--options", f"run.output_dir={tmp_path / 'port'}"])
+    saved = _jax_restore(jstats["pruned_checkpoint"])
+    want = _dotted(saved["params"])
+    got = {k: v.numpy() for k, v in torch.load(
+        tstats["pruned_checkpoint"], weights_only=True).items()}
+    want_masks = _dotted(saved["masks"])
+    got_masks = {k: v for k, v in got.items() if k.endswith(".mask")}
+    assert got_masks and set(got_masks) == set(want_masks)
+    for k, m in want_masks.items():
+        np.testing.assert_array_equal(got_masks[k], m, err_msg=k)
+    dense = _dotted(next(iter(seeded.values()))[1]["params"])
+    swept = sorted(k for k in want if k.endswith(".kernel")
+                   and ".blocks_" in k and not k.startswith("qformer"))
+    assert len(swept) == 2 * 4 + 2 * 7 + 2 * 11
+    assert all(k in got for k in swept)
+    for tree in (want, got):
+        for k in swept:
+            g = tree[k]
+            assert (g == 0).mean() >= 0.5, k
+            assert (g == dense[k]).mean() < 0.01, k
+            groups = g.reshape(-1, 16, g.shape[1])
+            assert max(len(np.unique(groups[i, :, u]))
+                       for i in range(groups.shape[0])
+                       for u in range(groups.shape[2])) <= 2 ** 3, k
+    n = n_zero = n_off = 0
+    for k in swept:
+        zero_diff = int(((got[k] == 0) != (want[k] == 0)).sum())
+        off = int((~np.isclose(got[k], want[k], **PRUNER_W_TOL)).sum())
+        if k.startswith("visual_encoder.blocks_0."):
+            assert zero_diff == off == 0, k
+        n, n_zero, n_off = n + want[k].size, n_zero + zero_diff, n_off + off
+    assert n_zero <= MAX_MASK_DIFF * n
+    assert n_off <= MAX_KERNEL_DIFF["plain"] * n
+
+
+@pytest.mark.parametrize("flag,item", [(["--autotune"], 9)],
+                         ids=lambda x: str(x))
 def test_unported_flags_raise_with_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         TT.main(["--cfg-path", "unused.yaml", "--device", "cpu", *flag])

@@ -329,13 +329,6 @@ def test_sparse_linear_compressed_leaves_match_jax(kernel, mask, mode):
     np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
 
 
-def test_sparse_linear_int4_raises():
-    tl = TL.SparseLinear(8, 4)
-    tl.register_buffer("kernel_q4", torch.zeros(4, 4, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="int4"):
-        tl(torch.zeros(1, 8))
-
-
 def test_pack_and_quantize_model_match_jax_trees():
     """The port's in-place transforms give the words and codes that the JAX
     package's tree transforms give, leaf for leaf."""

@@ -482,10 +482,8 @@ def test_forward_without_its_library_raises(monkeypatch, tmp_path):
     assert (TA.launches, TA.fwd_wgmma_launches) == counts
 
 
-# the JAX package's pruners the port does not register yet (ROADMAP
-# queue 1, item 7): GPTQ for each composition
-NOT_PORTED_PRUNERS = {f"{tower}_gptq_pruner"
-                      for tower in ("t5", "vit", "blipt5")}
+# the JAX package's pruners the port does not register yet: none
+NOT_PORTED_PRUNERS = set()
 
 
 def test_pruner_registry_is_the_jax_one_minus_the_listed_names():

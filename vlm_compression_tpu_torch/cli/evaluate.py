@@ -14,8 +14,12 @@ with ``torch.save``; it is read back with ``weights_only=True`` and strict
 keys.  ``--speculative_gamma`` serves the eval with speculative decoding
 (the masked student drafts, the dense teacher verifies), ``--kv_cache_int8``
 and ``--kv_cache_per_row`` choose the decode cache's storage, as in the JAX
-CLI.  The flags of what is not ported yet (W8A8, int4: ROADMAP queue 1,
-item 7; autotuning: item 9) parse, and raise when set.
+CLI.  ``--quantize_int8`` (with ``--w8a8`` and ``--int8_outliers``: the
+W8A8 products) or ``--quantize_int4`` (``--int4_group``) quantize the
+model before the eval, as in the JAX CLI; the W8A8 switches of
+``ops/quant`` are restored when ``run`` returns or raises.  The flag of
+what is not ported yet (autotuning: ROADMAP queue 1, item 9) parses, and
+raises when set.
 """
 
 from __future__ import annotations
@@ -32,8 +36,7 @@ import torch
 
 # flags that parse but are not ported: (flag, item); each raises when set
 # to anything but the parser's default
-_NOT_PORTED = (("w8a8", 7), ("int8_outliers", 7), ("quantize_int4", 7),
-               ("int4_group", 7), ("autotune", 9))
+_NOT_PORTED = (("autotune", 9),)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -82,15 +85,21 @@ def _parser() -> argparse.ArgumentParser:
                    help="per-output-channel absmax int8 weights for the "
                         "eval")
     p.add_argument("--w8a8", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="with --quantize_int8: also quantize activations "
+                        "per row at run time (int8 x int8 products into "
+                        "int32)")
     p.add_argument("--autotune", action="store_true",
                    help="not ported yet (ROADMAP queue 1, item 9)")
     p.add_argument("--int8_outliers", type=int, default=0,
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="with --w8a8: keep the k highest-magnitude "
+                        "activation columns in float (LLM.int8 outlier "
+                        "decomposition)")
     p.add_argument("--quantize_int4", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="grouped absmax int4 weights (nibble-packed, 4 "
+                        "bits a weight at rest; mutually exclusive with "
+                        "--quantize_int8)")
     p.add_argument("--int4_group", type=int, default=128,
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="input rows per int4 scale group")
     p.add_argument("--speculative_gamma", type=int, default=0,
                    help="serve with speculative decoding: the masked "
                         "student drafts k tokens, the DENSE teacher "
@@ -138,19 +147,23 @@ def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def load_checkpoint(module: torch.nn.Module, state: Dict[str, torch.Tensor],
                     keep: Tuple[str, ...] = ()) -> None:
-    """Copy ``state`` into ``module`` with strict keys.  Masks and int8
-    kernels in the state are attached to their linears first (a fresh
-    model holds neither).  ``keep``: leaf names (``lora_a``, ``mask``, …)
-    of the model's own entries the state may lack; they keep their
-    values."""
+    """Copy ``state`` into ``module`` with strict keys.  Masks, int8 and
+    int4 kernels in the state are attached to their linears first (a
+    fresh model holds none of them).  ``keep``: leaf names (``lora_a``,
+    ``mask``, …) of the model's own entries the state may lack; they keep
+    their values."""
     from vlm_compression_tpu_torch.models.layers import (
+        set_int4_kernel,
         set_int8_kernel,
         set_mask,
     )
 
     for name, t in state.items():
         owner, leaf = name.rpartition(".")[::2]
-        if leaf == "kernel_scale":
+        if leaf == "kernel_scale" and owner + ".kernel_q4" in state:
+            set_int4_kernel(module.get_submodule(owner),
+                            state[owner + ".kernel_q4"], t)
+        elif leaf == "kernel_scale":
             set_int8_kernel(module.get_submodule(owner),
                             state[owner + ".kernel"], t)
         elif leaf == "mask":
@@ -217,7 +230,15 @@ def _tokenizers(model, model_cfg):
 def run(args) -> Tuple[dict, object, object]:
     """The CLI's work for parsed ``args``: (the eval stats written to
     ``eval_stats_<job>.json``, the runner holding the evaluated model, a
-    ``PhaseTimer`` with the seconds of its phases)."""
+    ``PhaseTimer`` with the seconds of its phases).  The W8A8 switches are
+    as they were when it returns or raises."""
+    from vlm_compression_tpu_torch.ops.quant import int8_switches
+
+    with int8_switches():
+        return _run(args)
+
+
+def _run(args) -> Tuple[dict, object, object]:
     from vlm_compression_tpu_torch.common.config import Config
     from vlm_compression_tpu_torch.common.device import resolve_device
     from vlm_compression_tpu_torch.common.profiling import PhaseTimer
@@ -347,10 +368,28 @@ def run(args) -> Tuple[dict, object, object]:
             stats["pruned_checkpoint"] = path
 
     if args.quantize_int8:
-        from vlm_compression_tpu_torch.ops.quant import quantize_model_int8_
+        from vlm_compression_tpu_torch.ops import quant as Q
 
-        quantize_model_int8_(runner.model)
-        logging.info("weights quantized to int8")
+        Q.quantize_model_int8_(runner.model)
+        if args.w8a8:
+            Q.use_dynamic_int8(True)
+            if args.int8_outliers:
+                Q.set_int8_outliers(args.int8_outliers)
+        logging.info(
+            "weights quantized to int8%s%s",
+            " + W8A8 dynamic activations" if args.w8a8 else "",
+            f" + {args.int8_outliers} outlier columns"
+            if args.w8a8 and args.int8_outliers else "")
+
+    if args.quantize_int4:
+        if args.quantize_int8:
+            raise SystemExit("--quantize_int4 and --quantize_int8 are "
+                             "mutually exclusive")
+        from vlm_compression_tpu_torch.ops.quant import quantize_model_int4_
+
+        quantize_model_int4_(runner.model, group=args.int4_group)
+        logging.info("weights quantized to int4 (group=%d, nibble-packed)",
+                     args.int4_group)
 
     with timer.phase("eval"):
         results = runner.evaluate(skip_reload=True)

@@ -20,9 +20,11 @@ without its adapters, as the JAX CLI saves the merged ``params`` and
 names: ``pruned_<job>`` (a ``torch.save``d state dict),
 ``sparsity_dict_<job>.yaml`` (a non-uniform allocation),
 ``training_statistics/<job>.yaml`` and ``training_statistics_<job>.json``.
-``--softmask_steps``, ``--softmask_lr`` and ``--hybrid_tile`` reach the
-pruner as in the JAX CLI.  The flags of what is not ported yet (GPTQ:
-ROADMAP queue 1, item 7; autotuning: item 9) parse, and raise when set.
+``--softmask_steps``, ``--softmask_lr``, ``--hybrid_tile`` and the GPTQ
+knobs (``--gptq_bits``, ``--gptq_group``, ``--gptq_asym``,
+``--gptq_actorder``, ``--gptq_awq``) reach the pruner as in the JAX CLI.
+The flag of what is not ported yet (autotuning: ROADMAP queue 1, item 9)
+parses, and raises when set.
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ import torch
 
 # flags that parse but are not ported: (flag, item); each raises when set
 # to anything but the parser's default
-_NOT_PORTED = (("gptq_bits", 7), ("gptq_group", 7), ("gptq_asym", 7),
-               ("gptq_actorder", 7), ("gptq_awq", 7), ("autotune", 9))
+_NOT_PORTED = (("autotune", 9),)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -83,15 +84,17 @@ def _parser() -> argparse.ArgumentParser:
                         "most salient (t x t) weight tiles stay dense, the "
                         "rest take n:m (wanda/ria only)")
     p.add_argument("--gptq_bits", type=int, default=4,
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="*_gptq_pruner grid bits (keep-ratio 1.0 = "
+                        "quantize-only, else joint sparse+quant)")
     p.add_argument("--gptq_group", type=int, default=128,
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="*_gptq_pruner scale group size (0 = per-tensor "
+                        "row grids)")
     p.add_argument("--gptq_asym", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="asymmetric GPTQ grids (default symmetric)")
     p.add_argument("--gptq_actorder", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="GPTQ desc_act column ordering")
     p.add_argument("--gptq_awq", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 7)")
+                   help="AWQ per-channel scale search before GPTQ")
     p.add_argument("--sparsity_dict", default=None)
     p.add_argument("--t5_model_prefix", default="t5_model")
     p.add_argument("--vit_model_prefix", default="visual_encoder")
@@ -271,7 +274,10 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
                 update_threshold=args.update_threshold,
                 pow_of_var_regrowing=args.pow_of_var_regrowing,
                 softmask_steps=args.softmask_steps,
-                softmask_lr=args.softmask_lr)
+                softmask_lr=args.softmask_lr,
+                gptq_bits=args.gptq_bits, gptq_group=args.gptq_group,
+                gptq_sym=not args.gptq_asym,
+                gptq_actorder=args.gptq_actorder, gptq_awq=args.gptq_awq)
             # the masks stay when the prune is retrained (the teacher runs
             # the dense weights), else the weights are zeroed
             model, sparsity_mapping = pruner.prune(lora_model=args.train)

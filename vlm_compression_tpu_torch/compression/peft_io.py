@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from vlm_compression_tpu_torch.ops.bitmask import infer_pack_group, is_packed
+from vlm_compression_tpu_torch.ops.quant import unpack_int4
 
 from vlm_compression_tpu_torch.models.bridge import flatten
 from vlm_compression_tpu_torch.models.layers import (
@@ -112,8 +113,9 @@ def model_size_accounting(model: nn.Module) -> Dict[str, int]:
     every base parameter (LoRA factors and ``kernel_scale`` excluded) and
     ``distilled_total_size`` = the parameters that survive pruning.  A 2-D
     kernel with a mask (bool or packed) counts the mask's kept entries;
-    without one, its non-zero entries (float or int8).  The int4 branch
-    is not ported (int4 kernels are not)."""
+    without one, its non-zero entries (float or int8); an int4
+    ``kernel_q4`` counts two weights a byte, and without a mask its
+    non-zero codes."""
     orig = distilled = 0
     linears = {name: m for name, m in model.named_modules()
                if isinstance(m, SparseLinear)}
@@ -121,15 +123,15 @@ def model_size_accounting(model: nn.Module) -> Dict[str, int]:
         owner, leaf = name.rpartition(".")[::2]
         if leaf in ("lora_a", "lora_b"):
             continue
-        if leaf == "kernel_q4":
-            raise NotImplementedError("int4 kernels are not ported yet")
-        n = p.numel()
+        n = p.numel() * (2 if leaf == "kernel_q4" else 1)
         orig += n
         lin = linears.get(owner)
-        if leaf == "kernel" and p.ndim == 2 and lin is not None \
-                and lin.mask is not None:
+        kernel = leaf in ("kernel", "kernel_q4") and p.ndim == 2
+        if kernel and lin is not None and lin.mask is not None:
             distilled += int(lin.bool_mask().sum())
-        elif leaf == "kernel" and p.ndim == 2:
+        elif kernel and leaf == "kernel_q4":
+            distilled += int(torch.count_nonzero(unpack_int4(p)))
+        elif kernel:
             distilled += int(torch.count_nonzero(p))
         else:
             distilled += n
@@ -138,12 +140,14 @@ def model_size_accounting(model: nn.Module) -> Dict[str, int]:
 
 def bytes_at_rest(model: nn.Module) -> Dict[str, int]:
     """Bytes the model holds in memory, by kind: the SparseLinear kernels
-    (bf16, fp32 or int8), their masks (bool or packed words), their int8
-    scales, the LoRA factors, and everything else."""
+    (bf16, fp32, int8, or int4 at 4 bits a weight), their masks (bool or
+    packed words), their int8 and int4 scales, the LoRA factors, and
+    everything else."""
     out = dict(kernels=0, masks=0, scales=0, lora=0, other=0)
     for name, m in model.named_modules():
         if isinstance(m, SparseLinear):
-            out["kernels"] += m.kernel.nbytes
+            out["kernels"] += (m.kernel if m.kernel is not None
+                               else m.kernel_q4).nbytes
             out["masks"] += 0 if m.mask is None else m.mask.nbytes
             out["scales"] += (0 if m.kernel_scale is None
                               else m.kernel_scale.nbytes)

@@ -1,5 +1,5 @@
 """Per-block mask functions (port of the Wanda (with RIA and hybrid tiles),
-SparseGPT, DSnoT and soft-mask parts of
+SparseGPT, DSnoT, soft-mask and GPTQ (with AWQ) parts of
 ``vlm_compression_tpu/compression/pruners/methods.py``).  Kernels arrive
 (in, out); scoring runs unit-major (out, in) and keep-masks go back
 (in, out), contiguous for the masked-matmul kernel.
@@ -15,7 +15,16 @@ from __future__ import annotations
 import torch
 
 from vlm_compression_tpu_torch.compression.calibrate import BlockPruneResult
+from vlm_compression_tpu_torch.ops.awq import (
+    apply_awq,
+    awq_search,
+    unscale_weight,
+)
 from vlm_compression_tpu_torch.ops.dsnot import dsnot_refine_mask
+from vlm_compression_tpu_torch.ops.gptq import (
+    gptq_quantize_batched,
+    gptq_quantize_group,
+)
 from vlm_compression_tpu_torch.ops.sparsegpt import sparsegpt_prune_group
 from vlm_compression_tpu_torch.ops.masks import (
     flat_threshold_mask,
@@ -155,5 +164,56 @@ def softmask_mask_fn(prune_n: int = 0, prune_m: int = 0,
                 if errors is not None:
                     errors.append((err_t[i], err_i[i]))
         return BlockPruneResult(masks, {})
+
+    return fn
+
+
+def gptq_fn(prune_n: int = 0, prune_m: int = 0, bits: int = 4,
+            groupsize: int = 128, sym: bool = True, act_order: bool = False,
+            blocksize: int = 128, percdamp: float = 0.01,
+            awq: bool = False):
+    """GPTQ as a calibration-engine method (``ops/gptq.py``): sparsity 0
+    quantizes only (all-True keep masks); sparsity > 0 or n:m prunes and
+    quantizes in one OBS sweep, on the Hessians the sweep accumulates.
+    Linears of one (shape, sparsity) are swept as one batched group.  With
+    ``awq``: the AWQ scale search on the same statistics, GPTQ of the
+    scaled problem, the fake-quant weights unscaled back."""
+
+    def fn(kernels, stats, sparsities):
+        groups = {}
+        for p, k in kernels.items():
+            groups.setdefault((tuple(k.shape), float(sparsities[p])),
+                              []).append(p)
+        masks, new_k = {}, {}
+        for (_, sp), paths in groups.items():
+            kw = dict(bits=bits, groupsize=groupsize, sym=sym,
+                      act_order=act_order, sparsity=sp, prune_n=prune_n,
+                      prune_m=prune_m, blocksize=blocksize,
+                      percdamp=percdamp)
+            if not awq:
+                out = gptq_quantize_group(
+                    [kernels[p] for p in paths], [stats[p] for p in paths],
+                    **kw)
+                for (keep, w, _), p in zip(out, paths):
+                    masks[p] = keep
+                    new_k[p] = w
+                continue
+            ws, hs, ss = [], [], []
+            for p in paths:
+                h = finalize_hessian(stats[p])
+                sc = awq_search(kernels[p].T, stats[p].scaler_row, h,
+                                bits=bits, groupsize=groupsize, sym=sym)
+                w, h = apply_awq(kernels[p].T, h, sc.s)
+                ws.append(w)
+                hs.append(h)
+                ss.append(sc.s)
+            res = gptq_quantize_batched(torch.stack(ws), torch.stack(hs),
+                                        **kw)
+            del ws, hs
+            for i, p in enumerate(paths):
+                masks[p] = res.keep_mask[i].T.contiguous()
+                new_k[p] = unscale_weight(res.weight[i], ss[i]).to(
+                    kernels[p].dtype).T.contiguous()
+        return BlockPruneResult(masks, new_k)
 
     return fn

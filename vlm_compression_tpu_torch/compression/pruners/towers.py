@@ -11,9 +11,10 @@ flat threshold, the language towers per-unit top-k.  With a
 ``sparsity_ratio_granularity`` the ratios come from the ``LayerSparsity``
 allocator (``compression/allocator.py``), built in ``get_sparsity``.
 
-Registered here: ``{t5,vit,blipt5}_{wanda,sparsegpt,dsnot,ria,softmask}_pruner``;
-the global pruners are in ``global_pruner.py``.  Still to port: the GPTQ
-pruners (``{t5,vit,blipt5}_gptq_pruner``, ROADMAP queue 1, item 7).
+Registered here: ``{t5,vit,blipt5}_{wanda,sparsegpt,dsnot,ria,softmask,
+gptq}_pruner``; the global pruners are in ``global_pruner.py``.  GPTQ's
+prune spec keep-ratio 1.0 quantizes only; any other ratio or n:m prunes
+and quantizes in one OBS sweep (fake-quant kernels in the model's dtype).
 """
 
 from __future__ import annotations
@@ -59,10 +60,16 @@ class _MethodMixin:
     # the soft-mask anneal (ops/softmask.py)
     softmask_steps: int = 48
     softmask_lr: float = 0.1
+    # GPTQ (ops/gptq.py) and its AWQ scale search (ops/awq.py)
+    gptq_bits: int = 4
+    gptq_group: int = 128
+    gptq_sym: bool = True
+    gptq_actorder: bool = False
+    gptq_awq: bool = False
 
     @property
     def with_hessian(self) -> bool:
-        if self.method in ("sparsegpt", "softmask"):
+        if self.method in ("sparsegpt", "softmask", "gptq"):
             return True
         return self.method == "dsnot" and self.initial_method == "sparsegpt"
 
@@ -88,6 +95,12 @@ class _MethodMixin:
             return M.softmask_mask_fn(
                 self.prune_n, self.prune_m, steps=self.softmask_steps,
                 lr=self.softmask_lr, errors=self.softmask_errors)
+        if self.method == "gptq":
+            return M.gptq_fn(
+                self.prune_n, self.prune_m, bits=self.gptq_bits,
+                groupsize=self.gptq_group, sym=self.gptq_sym,
+                act_order=self.gptq_actorder, blocksize=self.blocksize,
+                percdamp=self.percdamp, awq=self.gptq_awq)
         raise NotImplementedError(
             f"pruning method {self.method!r} is not ported yet")
 
@@ -352,3 +365,9 @@ T5SoftMaskPruner = _make(T5PrunerBase, "softmask", "t5_softmask_pruner")
 ViTSoftMaskPruner = _make(ViTPrunerBase, "softmask", "vit_softmask_pruner")
 BlipT5SoftMaskPruner = _make(BlipT5PrunerBase, "softmask",
                              "blipt5_softmask_pruner")
+
+# GPTQ (ops/gptq.py): keep-ratio 1.0 in the prune spec quantizes only; any
+# other ratio or n:m prunes and quantizes in one OBS sweep
+T5GPTQPruner = _make(T5PrunerBase, "gptq", "t5_gptq_pruner")
+ViTGPTQPruner = _make(ViTPrunerBase, "gptq", "vit_gptq_pruner")
+BlipT5GPTQPruner = _make(BlipT5PrunerBase, "gptq", "blipt5_gptq_pruner")

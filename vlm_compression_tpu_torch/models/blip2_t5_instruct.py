@@ -74,7 +74,8 @@ class Blip2T5Instruct(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.t5_proj.kernel.device
+        # the bias: an int4 projection has no float ``kernel``
+        return self.t5_proj.bias.device
 
     def encode_image(self, image, vit_mode="masked", qformer_input_ids=None,
                      qformer_attention_mask=None, qformer_mode="masked"):

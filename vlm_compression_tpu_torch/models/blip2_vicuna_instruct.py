@@ -80,7 +80,8 @@ class Blip2VicunaInstruct(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.llm_proj.kernel.device
+        # the bias: an int4 projection has no float ``kernel``
+        return self.llm_proj.bias.device
 
     # the ViT and Q-Former half, 5-dim (video) stacks included, is the T5
     # composition's; only the projection into the LM differs

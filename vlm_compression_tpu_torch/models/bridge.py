@@ -10,7 +10,9 @@ is the port's parameter ``visual_encoder.blocks_0.attn.qkv.kernel``,
 arrive as a nested dict of numpy arrays (``params``, and ``masks`` and
 ``lora`` where present).  Compressed leaves travel bit for bit: an int8
 ``kernel`` with its ``kernel_scale`` (``ops/quant.py``) becomes the
-linear's int8 kernel and scale buffer; a packed uint32 ``mask`` with
+linear's int8 kernel and scale buffer, a uint8 ``kernel_q4`` with its 2-D
+``kernel_scale`` its int4 kernel (the float kernel removed) and scale
+buffer; a packed uint32 ``mask`` with
 ``mask_rows``/``mask_group`` (``ops/bitmask.py``) its int32 words.
 Loading real checkpoints through ``models/convert.py`` waits until weights
 are in the repository.
@@ -28,6 +30,7 @@ from vlm_compression_tpu_torch.models.blip2_qformer import TEMP_INIT
 from vlm_compression_tpu_torch.models.layers import (
     SparseLinear,
     init_lora_,
+    set_int4_kernel,
     set_int8_kernel,
     set_mask,
 )
@@ -67,11 +70,16 @@ def load_jax_variables(model: nn.Module, variables: dict,
     """Copy a JAX variables tree into ``model`` in place.  ``strict``
     requires every parameter of the model to be covered."""
     params = flatten(variables.get("params", {}))
-    # int8 kernels first: they replace the float parameter of their linear
+    # int8 and int4 kernels first: they replace the float parameter of
+    # their linear
     for path, leaf in list(params.items()):
         if path[-1] == "kernel" and np.asarray(leaf).dtype == np.int8:
             scale = params.pop(path[:-1] + ("kernel_scale",))
             set_int8_kernel(model.get_submodule(".".join(path[:-1])),
+                            to_torch(leaf), to_torch(scale))
+        elif path[-1] == "kernel_q4":
+            scale = params.pop(path[:-1] + ("kernel_scale",))
+            set_int4_kernel(model.get_submodule(".".join(path[:-1])),
                             to_torch(leaf), to_torch(scale))
     named = dict(model.named_parameters())
     seen = set()

@@ -27,9 +27,14 @@ Compressed leaves, as the JAX package's ``SparseLinear`` reads them:
     the LoRA modes dequantize once;
   * a bit-packed ``mask`` (int32 words, ``ops/bitmask.pack_masks_``):
     ``masked`` runs ``masked_matmul_packed`` (the packed kernel on the
-    card), the LoRA modes unpack once.
+    card), the LoRA modes unpack once;
+  * an int4 ``kernel_q4`` (nibble-packed uint8 (in/2, out), a frozen
+    parameter; ``ops/quant.quantize_model_int4_``) with its 2-D
+    ``kernel_scale`` (in/g, out), the float ``kernel`` removed: the dense
+    and masked modes run ``int4_matmul``, the LoRA modes dequantize once.
 
-The int4 kernels (``kernel_q4``) are not ported yet.
+The int8 paths run ``select_int8_matmul()``: weight-only by default, W8A8
+under the switches of ``ops/quant``.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from vlm_compression_tpu_torch.ops.masked_linear import (
     masked_matmul_packed,
     sparse_lora_matmul,
 )
-from vlm_compression_tpu_torch.ops.quant import dequantize_weight, int8_matmul
+from vlm_compression_tpu_torch.ops import quant as Q
 
 DENSE = "dense"
 MASKED = "masked"
@@ -76,6 +81,8 @@ class SparseLinear(nn.Module):
                      if use_bias else None)
         self.register_buffer("mask", None)
         self.register_buffer("kernel_scale", None)
+        # set by ``set_int4_kernel``, which removes ``kernel``
+        self.register_parameter("kernel_q4", None)
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.zeros(
                 (in_features, lora_rank), dtype=param_dtype, device=device))
@@ -101,28 +108,34 @@ class SparseLinear(nn.Module):
     def forward(self, x: torch.Tensor, mode: str = MASKED) -> torch.Tensor:
         if mode not in _MODES:
             raise ValueError(f"mode {mode!r} not in {_MODES}")
-        if hasattr(self, "kernel_q4"):
-            raise NotImplementedError("int4 kernels (kernel_q4) are not "
-                                      "ported yet")
         lora = self.lora_rank > 0 and mode in (SPARSE_LORA, LORA)
-        # an int8 kernel holds codes, not weights: branch before any cast
-        qscale = None
-        if self.kernel.dtype == torch.int8:
+        # int8 and int4 kernels hold codes, not weights: branch before any
+        # cast (an int4 linear has no ``kernel``)
+        qscale = q4 = None
+        if self.kernel_q4 is not None:
             if lora:
-                k = dequantize_weight(self.kernel, self.kernel_scale, x.dtype)
+                k = Q.dequantize_weight_int4(self.kernel_q4,
+                                             self.kernel_scale, x.dtype)
+            else:
+                q4 = self.kernel_q4
+        elif self.kernel.dtype == torch.int8:
+            if lora:
+                k = Q.dequantize_weight(self.kernel, self.kernel_scale,
+                                        x.dtype)
             else:
                 qscale = self.kernel_scale
         else:
             # compute dtype follows the input, as in the JAX package
             k = self.kernel.to(x.dtype)
-        mask = self.mask
-        if mode == DENSE:
-            y = x @ k if qscale is None else int8_matmul(x, self.kernel,
-                                                         qscale)
+        mask = None if mode == DENSE else self.mask
+        if qscale is not None:
+            y = Q.select_int8_matmul()(x, self.kernel, qscale, mask)
+        elif q4 is not None:
+            y = Q.int4_matmul(x, q4, self.kernel_scale, mask)
+        elif mode == DENSE:
+            y = x @ k
         elif not lora:
-            if qscale is not None:
-                y = int8_matmul(x, self.kernel, qscale, mask)
-            elif mask is None:
+            if mask is None:
                 y = x @ k
             elif is_packed(mask):
                 y = masked_matmul_packed(x, k, mask)
@@ -180,20 +193,25 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return nn.functional.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def _device(linear: SparseLinear) -> torch.device:
+    kern = linear.kernel if linear.kernel is not None else linear.kernel_q4
+    return kern.device
+
+
 def set_mask(linear: SparseLinear, mask: Optional[torch.Tensor]) -> None:
     """Attach (or drop, with None) the keep-mask of one linear: bool
     (in, out), or its packed words (8·⌈in/G⌉, out), G = 128 or 256."""
-    shape = tuple(linear.kernel.shape)
+    shape = (linear.in_features, linear.features)
     if mask is not None and is_packed(mask):
         infer_pack_group(shape[0], mask.shape[0])   # raises on a mismatch
         if mask.shape[1:] != shape[1:]:
             raise ValueError(f"packed mask {tuple(mask.shape)} vs kernel "
                              f"{shape}")
-        mask = mask.to(linear.kernel.device).view(torch.int32)
+        mask = mask.to(_device(linear)).view(torch.int32)
     elif mask is not None:
         if tuple(mask.shape) != shape:
             raise ValueError(f"mask {tuple(mask.shape)} vs kernel {shape}")
-        mask = mask.to(device=linear.kernel.device, dtype=torch.bool)
+        mask = mask.to(device=_device(linear), dtype=torch.bool)
     linear.mask = mask
 
 
@@ -209,6 +227,25 @@ def set_int8_kernel(linear: SparseLinear, q: torch.Tensor,
                          f"{tuple(scale.shape)} for kernel {shape}")
     dev = linear.kernel.device
     linear.kernel = nn.Parameter(q.to(dev), requires_grad=False)
+    linear.kernel_scale = scale.to(device=dev, dtype=torch.float32)
+
+
+def set_int4_kernel(linear: SparseLinear, packed: torch.Tensor,
+                    scale: torch.Tensor) -> None:
+    """Replace the kernel of one linear with int4 codes, nibble-packed
+    (in/2, out) uint8, and their fp32 group scales (in/g, out): they become
+    the frozen parameter ``kernel_q4`` and the ``kernel_scale`` buffer,
+    and the float ``kernel`` is removed."""
+    k, n = linear.in_features, linear.features
+    if packed.dtype != torch.uint8 or tuple(packed.shape) != (k // 2, n) \
+            or scale.ndim != 2 or scale.shape[1] != n \
+            or scale.shape[0] == 0 or k % scale.shape[0]:
+        raise ValueError(f"int4 kernel {tuple(packed.shape)} {packed.dtype} "
+                         f"and scale {tuple(scale.shape)} for kernel "
+                         f"{(k, n)}")
+    dev = _device(linear)
+    linear.kernel = None
+    linear.kernel_q4 = nn.Parameter(packed.to(dev), requires_grad=False)
     linear.kernel_scale = scale.to(device=dev, dtype=torch.float32)
 
 

@@ -26,12 +26,27 @@ nothing about this card, and the port decides dispatch by H100
 measurements.  ``int8_launches`` counts kernel launches (and
 ``masked_linear``'s route counters count them by loop).
 
-Not ported yet: the W8A8 products (``int8_matmul_dynamic``,
-``int8_matmul_outlier``, ``select_int8_matmul``) and int4; SparseLinear
-raises for an int4 kernel.
+Int4 (``quantize_weight_int4`` … ``quantize_model_int4_``) keeps the JAX
+package's layout bit for bit: grouped absmax scales (K/g, N), codes in
+[-7, 7], two nibbles a byte (row 2i low, row 2i+1 high).  ``int4_matmul``
+dequantizes the weight to x's dtype and, with a mask, runs the masked
+products of ``ops/masked_linear`` (their kernels on the card); without
+one, a plain product, as the JAX package's ``dot_general``.
+
+W8A8 (``int8_matmul_dynamic``, ``int8_matmul_outlier``) quantizes the
+activations per row at run time and multiplies int8 by int8 into int32
+with ``torch._int_mm`` (rows padded with zeros to 17 where the card's
+build refuses 16 or fewer: exact, int32 sums are exact), then rescales in
+the JAX package's order.  ``select_int8_matmul`` picks the product SparseLinear's
+int8 paths run, from two switches of this module that the JAX package
+also keeps as module state (``use_dynamic_int8``, ``set_int8_outliers``);
+``int8_switches`` restores both on exit.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 from torch import nn
@@ -50,10 +65,17 @@ int8_launches = 0
 _NO_MASK, _BOOL_MASK, _PACKED_MASK = 0, 1, 2
 
 
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, an IEEE division on every device: PyTorch's CUDA division by
+    a Python number multiplies by its reciprocal, which rounds otherwise
+    (so codes and scales on the card would differ from the CPU's)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def quantize_weight(w: torch.Tensor):
     """(in, out) float → (q int8 (in, out), scale fp32 (out,))."""
     w32 = w.float()
-    scale = torch.clamp(w32.abs().amax(dim=0), min=1e-12) / 127.0
+    scale = div(torch.clamp(w32.abs().amax(dim=0), min=1e-12), 127.0)
     q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -235,6 +257,232 @@ def quantize_model_int8_(model: nn.Module) -> nn.Module:
     )
 
     for m in model.modules():
-        if isinstance(m, SparseLinear) and m.kernel.is_floating_point():
+        if isinstance(m, SparseLinear) and m.kernel is not None \
+                and m.kernel.is_floating_point():
             set_int8_kernel(m, *quantize_weight(m.kernel))
     return model
+
+
+# ---------------------------------------------------------------------------
+# int4 weights: grouped absmax symmetric scales along the input rows, codes
+# in [-7, 7], two nibbles a uint8 byte (row 2i low, row 2i+1 high)
+# ---------------------------------------------------------------------------
+
+INT4_GROUP = 128
+
+
+def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP):
+    """(in, out) float → (packed uint8 (in/2, out), scale fp32 (in/g, out));
+    in must be a multiple of the group, the group even."""
+    k, n = w.shape
+    if k % group or group % 2:
+        raise ValueError(f"in_features {k} not a multiple of group {group}")
+    wf = w.float().reshape(k // group, group, n)
+    scale = div(torch.clamp(wf.abs().amax(dim=1), min=1e-12), 7.0)
+    q = torch.clamp(torch.round(wf / scale[:, None, :]), -7, 7)
+    q = q.to(torch.int32).reshape(k, n)
+    packed = (q[0::2] & 0xF) | ((q[1::2] & 0xF) << 4)
+    return packed.to(torch.uint8), scale
+
+
+def unpack_int4(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """(in/2, out) uint8 → (in, out) sign-extended values."""
+    p = packed.to(torch.int32)
+    lo = p & 0xF
+    hi = (p >> 4) & 0xF
+    lo = lo - 16 * (lo >= 8).to(torch.int32)
+    hi = hi - 16 * (hi >= 8).to(torch.int32)
+    k2, n = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * k2, n).to(dtype)
+
+
+def dequantize_weight_int4(packed: torch.Tensor, scale: torch.Tensor,
+                           dtype=torch.float32) -> torch.Tensor:
+    k = 2 * packed.shape[0]
+    g = k // scale.shape[0]
+    q = unpack_int4(packed, torch.float32).reshape(k // g, g, scale.shape[1])
+    return (q * scale[:, None, :]).reshape(k, -1).to(dtype)
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                mask=None) -> torch.Tensor:
+    """y = x @ (dequant(packed, scale) [⊙ mask]): the weight dequantized to
+    x's dtype, then the masked product (bool or packed; on the card the
+    masked and packed matmul kernels) or, without a mask, a plain one."""
+    eff = dequantize_weight_int4(packed, scale, x.dtype)
+    if mask is None:
+        return x @ eff
+    if is_packed(mask):
+        return ML.masked_matmul_packed(x, eff, mask)
+    return ML.masked_matmul(x, eff, mask)
+
+
+def quantize_params_tree_int4(params: dict, group: int = INT4_GROUP,
+                              min_size: int = 0) -> dict:
+    """Every 2-D floating ``kernel`` (at least ``min_size`` elements, rows a
+    multiple of the group) → ``kernel_q4`` + 2-D ``kernel_scale``; the
+    float ``kernel`` entry is removed."""
+    if not isinstance(params, dict):
+        return params
+    out = {k: quantize_params_tree_int4(v, group, min_size)
+           if isinstance(v, dict) else v for k, v in params.items()}
+    kern = out.get("kernel")
+    if (isinstance(kern, torch.Tensor) and kern.ndim == 2
+            and kern.is_floating_point() and kern.numel() >= min_size
+            and kern.shape[0] % group == 0):
+        del out["kernel"]
+        out["kernel_q4"], out["kernel_scale"] = quantize_weight_int4(kern,
+                                                                     group)
+    return out
+
+
+@torch.no_grad()
+def quantize_model_int4_(model: nn.Module, group: int = INT4_GROUP
+                         ) -> nn.Module:
+    """Quantize the floating kernel of every SparseLinear of ``model`` whose
+    rows are a multiple of ``group`` to int4 in place (the port of
+    ``evaluate.py --quantize_int4``; int8 kernels are left as they are, as
+    ``quantize_params_tree_int4`` leaves them).  Masks stay."""
+    from vlm_compression_tpu_torch.models.layers import (
+        SparseLinear,
+        set_int4_kernel,
+    )
+
+    for m in model.modules():
+        if isinstance(m, SparseLinear) and m.kernel is not None \
+                and m.kernel.is_floating_point() \
+                and m.in_features % group == 0:
+            set_int4_kernel(m, *quantize_weight_int4(m.kernel, group))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# W8A8: activations quantized per row at run time, int8 × int8 → int32
+# ---------------------------------------------------------------------------
+
+# the card's ``_int_mm`` refuses 16 rows or fewer and widths (K, N) that
+# are not a multiple of 8, and takes any other row count
+# (scripts/torch_int_mm_probe.py); zero rows and columns are exact in int32
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if t.shape == (rows, cols):
+        return t
+    return torch.nn.functional.pad(t, (0, cols - t.shape[1],
+                                       0, rows - t.shape[0]))
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) × int8 (K, N) → int32 (M, N) by ``torch._int_mm``, the
+    operands padded with zeros only where the card's build refuses them:
+    rows up to 17, widths up to a multiple of 8."""
+    m, k = a.shape
+    n = b.shape[1]
+
+    def up(v):
+        return -(-v // _INT_MM_ALIGN) * _INT_MM_ALIGN
+
+    mp, kp, np_ = max(m, _INT_MM_MIN_ROWS), up(k), up(n)
+    acc = torch._int_mm(_pad_to(a, mp, kp), _pad_to(b, kp, np_))
+    return acc if (mp, np_) == (m, n) else acc[:m, :n]
+
+
+def int8_matmul_dynamic(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                        mask=None) -> torch.Tensor:
+    """True int8 × int8 product: activations quantized per row (absmax
+    symmetric), an int32 accumulation, the int32 result rescaled by the
+    row's activation scale and the column's weight scale."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    sx = div(torch.clamp(x2.abs().amax(dim=1), min=1e-12), 127.0)
+    xq = torch.clamp(torch.round(x2 / sx[:, None]), -127, 127).to(torch.int8)
+    mask = _bool_mask(mask, q.shape[0])
+    qw = q if mask is None else torch.where(
+        mask, q, torch.zeros((), dtype=q.dtype, device=q.device))
+    acc = int_mm(xq, qw)
+    y = acc.float() * sx[:, None] * scale[None, :]
+    return y.reshape(*lead, q.shape[1]).to(x.dtype)
+
+
+def top_k_indices(v: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of a 1-D tensor, ties to the lower
+    index (``lax.top_k``'s order; ``torch.topk`` gives none)."""
+    return torch.sort(v, descending=True, stable=True)[1][:k]
+
+
+def int8_matmul_outlier(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                        mask=None, num_outliers: int = 32) -> torch.Tensor:
+    """W8A8 with the outlier decomposition of LLM.int8: the
+    ``num_outliers`` activation columns of largest magnitude stay in fp32
+    against their dequantized weight rows; the other columns go through
+    ``int8_matmul_dynamic`` with the outlier columns zeroed."""
+    lead = x.shape[:-1]
+    k_in, n = q.shape
+    x2 = x.reshape(-1, k_in).float()
+    k = min(int(num_outliers), k_in)
+    idx = top_k_indices(x2.abs().amax(dim=0), k)
+    x_out = x2[:, idx]
+    w_rows = q[idx].float() * scale[None, :]
+    mask = _bool_mask(mask, k_in)
+    if mask is not None:
+        w_rows = torch.where(mask[idx], w_rows,
+                             torch.zeros((), device=w_rows.device))
+    y_out = torch.matmul(x_out, w_rows)
+    keep = torch.ones(k_in, dtype=torch.bool, device=x.device)
+    keep[idx] = False
+    x_rest = torch.where(keep[None, :], x2,
+                         torch.zeros((), device=x2.device))
+    y_int = int8_matmul_dynamic(x_rest, q, scale, mask).float()
+    y = y_int.reshape(-1, n) + y_out
+    return y.reshape(*lead, n).to(x.dtype)
+
+
+# SparseLinear's int8 product: weight-only (default), W8A8
+# (``use_dynamic_int8``), W8A8 with outlier columns (``set_int8_outliers``
+# above 0), as the JAX package's module switches
+_DYNAMIC_INT8 = False
+_INT8_OUTLIERS = 0
+
+
+def set_int8_outliers(k: int) -> None:
+    global _INT8_OUTLIERS
+    _INT8_OUTLIERS = int(k)
+
+
+def int8_outliers() -> int:
+    return _INT8_OUTLIERS
+
+
+def use_dynamic_int8(enable: bool) -> None:
+    global _DYNAMIC_INT8
+    _DYNAMIC_INT8 = bool(enable)
+
+
+def dynamic_int8_enabled() -> bool:
+    return _DYNAMIC_INT8
+
+
+def select_int8_matmul():
+    """The int8 product SparseLinear's quantized paths run: ``int8_matmul``
+    (weight-only, the int8 kernel on the card) by default,
+    ``int8_matmul_dynamic`` under ``use_dynamic_int8(True)``,
+    ``int8_matmul_outlier`` with ``set_int8_outliers(k > 0)`` too."""
+    if not _DYNAMIC_INT8:
+        return int8_matmul
+    if _INT8_OUTLIERS > 0:
+        return functools.partial(int8_matmul_outlier,
+                                 num_outliers=_INT8_OUTLIERS)
+    return int8_matmul_dynamic
+
+
+@contextlib.contextmanager
+def int8_switches():
+    """Restore both W8A8 switches on exit, on success or on error."""
+    saved = (_DYNAMIC_INT8, _INT8_OUTLIERS)
+    try:
+        yield
+    finally:
+        use_dynamic_int8(saved[0])
+        set_int8_outliers(saved[1])
