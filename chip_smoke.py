@@ -65,7 +65,15 @@ each of which fails the run (non-zero exit, no result line) on error:
                 Q-Former's queries-only image pass at b = 64 and 32, its
                 text-only pass over captions of 35 tokens at b = 256 and
                 32, the ITM rerank at b = 128 over 32 + 35 tokens and its
-                cross-attention to the 257 image tokens);
+                cross-attention to the 257 image tokens); the OPT path's
+                (BLIP-2 OPT-6.7B's attention at d = 128 and scale 1 under
+                the one additive bias: the primes and beam steps at b = 20
+                and 320; OPT-2.7B's d = 80 at the GQA eval's prime and
+                step; the queries-only Q-Former at b = 4; the pruned ViT at
+                M = 4 × 257); the Vicuna rank pass's (LLaMA over 32 + the
+                prompt + the candidate for 16 × 128 rows, in the task's
+                chunk and in chunks of 512; the ViT at M = 16 × 257) and
+                the C4 passes' (T5-XL and LLaMA at b = 1 over 128 tokens);
   4. reference — a tiny float32 InstructBLIP-T5 on the card (kernels) vs
                 the same model on the CPU (plain versions): masked logits
                 (bool, packed and int8 leaves), one KD train step (loss,
@@ -105,7 +113,11 @@ each of which fails the run (non-zero exit, no result line) on error:
                 permutation, logits within 1e-4;
                 ``cli.evaluate_woodfisher --tiny --distillation_init
                 unstrct_woodfisher``: sizes, eval results and answers
-                equal);
+                equal); ``load_model_and_preprocess`` /
+                ``load_model`` / ``load_pruner`` at tiny size: a CPU
+                build's checkpoint read back on the card (every tensor
+                equal), masked logits card vs CPU within the bf16
+                tolerance, the processors on one image;
   5. main path — full-width InstructBLIP-FlanT5-XL (EVA-ViT-g 39 layers,
                 Q-Former, FlanT5-XL 24+24, bf16, seeded random weights,
                 SparseLoRA adapters tune_opt=LVQ with ranks 4/8/2):
@@ -152,8 +164,11 @@ each of which fails the run (non-zero exit, no result line) on error:
                 caption metrics), once more with EOS made the top logit
                 of every step (every caption ends, none before min_len,
                 each equal to a direct ``generate_t5``'s), its shapes
-                checked in phase 3, one pass profiled.  Each phase's
-                kernels must have launched in it;
+                checked in phase 3, one pass profiled; C4 perplexity
+                through ``LanguageModelingTask`` (32 seeded texts at
+                max_len 128, batch 1): finite, and exp of the token-weighted
+                loss recomputed by direct calls.  Each phase's kernels must
+                have launched in it;
   6. compressed path — a second full-width XL model (seed 1, after the
                 first is freed; no adapters): ``blipt5_sparsegpt_pruner``
                 (masks kept, updated kernels) on 128 samples, with the
@@ -279,7 +294,26 @@ each of which fails the run (non-zero exit, no result line) on error:
                 scripts/vicuna/dsnot.py's defaults; each tower 0.5 ± 0.01,
                 a finite loss, the refinement's cycles, host syncs and
                 seconds) and beam-5 ``generate_vicuna``, every shape held
-                in phase 3;
+                in phase 3; before that rebuild, on the pruned and merged
+                7B, ranking through ``VQATask``: 16 questions over 128
+                candidates (the cut: the T5 pass ranks 64), answers the
+                argmin of a direct ``predict_class_vicuna`` in chunks of
+                512 rows, and C4 perplexity as on T5;
+ 10b. opt path — full-width BLIP-2 OPT-6.7B (EVA-ViT-g 39, the Q-Former 12
+                queries-only, OPT 32 × 4096, ffn 16384, 32 heads of 128,
+                vocab 50272; bf16, seed 16, built from ``Blip2OPTConfig``:
+                no factory builds ``blip2_opt``; after the Vicuna models
+                are freed): ``vit_wanda_pruner`` on its ViT (masks kept,
+                0.5 ± 0.01; OPT's linears stay plain products, as the JAX
+                pruners sweep no OPT tower); beam-5 ``generate_opt`` on 4
+                left-padded requests, cold and warm (tokens equal); GQA
+                through the task at gqa_zeroshot_opt6.7b_eval.yaml's
+                settings, cold and warm (exactly 50.00), the answers equal
+                to a direct ``generate_opt``'s, one pass profiled; the
+                task at speculative_gamma 4 and with the int8 KV cache,
+                each equal to its direct ``generate_opt`` (their drift
+                against the beam printed); OPT's attention on TMA + wgmma
+                alone, every shape held in phase 3;
  11. retrieval path — the stage-1 BLIP-2 Q-Former at full width (arch
                 blip2, model_type coco: EVA-ViT-g 39 layers in bf16, the
                 Q-Former and its heads in fp32; seed 5, after the Vicuna
@@ -352,22 +386,25 @@ each of which fails the run (non-zero exit, no result line) on error:
                 path's prunes' traces are not taken (their walls stand in
                 their own path; 74.8 s of the command on one H100);
  15. timing   — kernel, plain-version and library-call times (CUDA events,
-                L2 flushed before each call) at the main path's shapes,
+                L2 flushed before each call) at the shapes the kernel line
+                reports (``timed_shapes``; the cut that keeps the command's
+                time: every other shape is held in phase 3, untimed),
                 beside each kernel's bound; where the masked and sparse-LoRA
                 matmuls run the Hopper loop, the WMMA loop too (forced
                 through the wrappers' ``_loop`` argument); the attention
-                backward's two bf16 routes (``_impl``) at every training
-                shape; the backward with the position bias's gradient at
+                backward's two bf16 routes (``_impl``) at the ViT's and
+                LLaMA's training shapes; the backward with the position
+                bias's gradient at
                 the allocation's batch-16 and the Fisher's batch-1 shape —
                 one TMA + wgmma call, in turns with the unfused route (the
                 backward, then the separate dbias kernel), SDPA's backward
                 with a mask gradient and the backward alone; the attention
-                forward's two bf16 routes at every
-                FLASH_SHAPES shape; SDPA, the attention yardstick, on each
+                forward's two bf16 routes at the ViT's, LLaMA's and OPT's
+                reported shapes; SDPA, the attention yardstick, on each
                 of its backends, the fastest timed in turns with the
-                kernel; every prefill and decode shape of the compressed
-                path (and the int8 linears that hold no mask) in every
-                weight form on its planned loop (the Hopper loop, split or
+                kernel; the compressed path's reported prefill and decode
+                shapes in every weight form on its planned loop (the
+                Hopper loop, split or
                 not; the decode kernel), in turns with the WMMA loop and
                 torch.matmul on the pre-masked (dequantized) weight,
                 beside the plain version and the bound.
@@ -398,7 +435,11 @@ path the RIA, hybrid and soft-mask prunes' replays on the Hopper loop and
 their generates' steps on the decode kernel, WoodFisher's and the unstrct
 CLI call's backward on TMA + wgmma with the bias gradients as its
 outputs (no mma.sync backward, no separate dbias kernel), and no linear
-kernel in the CLI calls (no masks).
+kernel in the CLI calls (no masks); in the OPT path, the Vicuna rank and
+the C4 passes the masked matmul on the Hopper loop, the attention forward
+on TMA + wgmma (OPT's d = 128 included), no decode-kernel launch (OPT
+holds no mask; the rest runs at M > 64), no WMMA loop, no mma.sync
+forward and no backward.
 WMMA-loop launches left in other phases are printed with their shapes and
 why the other loops refused them.
 
@@ -770,6 +811,53 @@ VICUNA_FLASH_SHAPES = [
 # VQA eval's prime and beam-decode step, the retrain's forward
 FLASH_VICUNA_TIMED = ("llama_prime_vqa", "llama_beam_step",
                       "llama_self_train")
+# the OPT path (opt_path; BLIP-2 OPT-6.7B, 32 heads of d = 128): OPT scales
+# its queries before the product, so attention runs at scale 1 under the
+# one additive bias LLaMA's takes (the cache's pad bias + the step
+# visibility) — the 4-request generate's prime and steps (b = 20, the
+# 40-token prompt minus its last after 32 query tokens), the GQA eval's
+# (b = 320; the prompts 13 tokens with BOS, as Vicuna's); its speculative
+# and int8-cache passes run the LLaMA rows' (b, n, m) at b = 64 and 320.
+# OPT-2.7B's d = 80 (2560 / 32) at the GQA eval's prime and step is held
+# here too, though no path runs that model.  The Q-Former takes no text:
+# its self-attention runs over the 32 queries alone (b = 4 and 64).
+# opt_path fails if it launches a shape not listed
+OPT_FLASH_SHAPES = [
+    ("opt_prime_gen", 20, 71, 81, 32, 128, ["lpad"], 1.0),
+    ("opt_decode_gen", 20, 1, 81, 32, 128, ["dstep"], 1.0),
+    ("opt_prime_vqa", 320, 44, 55, 32, 128, ["lpad"], 1.0),
+    ("opt_beam_step", 320, 1, 55, 32, 128, ["dstep"], 1.0),
+    ("opt27_prime_vqa", 320, 44, 55, 32, 80, ["lpad"], 1.0),
+    ("opt27_beam_step", 320, 1, 55, 32, 80, ["dstep"], 1.0),
+    ("qformer_query_self_gen", 4, 32, 32, 12, 64, [], 0.125),
+]
+VICUNA_FLASH_SHAPES += OPT_FLASH_SHAPES
+# the OPT shapes timed for the forward's row of the kernel line
+FLASH_OPT_TIMED = ("opt_prime_vqa", "opt_beam_step", "opt27_prime_vqa",
+                   "opt27_beam_step")
+# ranking on Vicuna (vicuna_rank, at the end of the Vicuna path): the rank
+# pass of VICUNA_RANK_N questions over N_CANDS candidates (vqav2_eval.yaml's
+# num_ans_candidates; the T5 rank pass runs 64 questions: the cut), the
+# b · C rows through LLaMA in one chunk by the task and in chunks of
+# VICUNA_RANK_CHUNK by a direct call; C4 perplexity (c4_pass) of C4_TEXTS
+# seeded texts at the task's max_len 128, batch 1
+# (c4_prefix_derivative_compute.yaml's batch_size_eval), on the main path's
+# merged T5-XL and on the Vicuna 7B.  add_rank_c4_shapes() adds their
+# shapes before phase 3
+VICUNA_RANK_N = 16
+VICUNA_RANK_CHUNK = 512
+C4_TEXTS = 32
+C4_LEN = 128
+LLAMA_LINEARS = (("qkvo", 4096, 4096), ("gate_up", 4096, 11008),
+                 ("down", 11008, 4096))
+MM_SHAPES += [(f"vit_{name}_rank", VICUNA_RANK_N * 257, k, n)
+              for name, k, n in VIT_LINEARS]
+MM_SHAPES += [(f"t5_{name}_c4", C4_LEN, k, n) for name, k, n in T5_LINEARS]
+MM_SHAPES += [(f"llama_{name}_c4", C4_LEN, k, n)
+              for name, k, n in LLAMA_LINEARS]
+FLASH_SHAPES += [
+    ("t5_c4", 1, C4_LEN, C4_LEN, 32, 64, ["rel", "pad"], 1.0),
+    ("llama_c4", 1, C4_LEN, C4_LEN, 32, 128, ["cpad"], 128 ** -0.5)]
 
 # retraining (scripts/launch_lib.py:87-125 train_ressa;
 # configs/projects/train/continue_stage2_cc3m_t5_instruct.yaml): SparseLoRA
@@ -951,6 +1039,52 @@ def add_wf_cli_shapes() -> list:
             (f"t5_decoder_cross_wf{ll}_{lt}", 1, ll, t, 32, 64, ["pad"],
              1.0)])
     return lengths
+
+def vicuna_rank_lengths() -> tuple:
+    """(prompt, candidate) tokens of the Vicuna rank pass as the task
+    encodes them: the first VICUNA_RANK_N questions' prompts right-padded
+    (no BOS) and the candidates at the task's max_len."""
+    from vlm_compression_tpu_torch.datasets.processors import (
+        BlipQuestionProcessor,
+    )
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+
+    tok = SimpleTokenizer(32000)
+    prompts = [VQA_PROMPT.format(q) for q in map(
+        BlipQuestionProcessor(), vqa_questions(VICUNA_RANK_N))]
+    return (batch_encode(tok, prompts, 128)[0].shape[1],
+            batch_encode(tok, rank_candidates(),
+                         VQA_RUN["max_len"])[0].shape[1])
+
+
+def add_rank_c4_shapes() -> tuple:
+    """The Vicuna rank pass's shapes, added to the lists phase 3 holds:
+    LLaMA over [32 query tokens ⊕ prompt ⊕ candidate] for every (question,
+    candidate) row — the task's chunk (the default, by
+    ``predict_class_vicuna``'s logit budget) and the direct call's
+    VICUNA_RANK_CHUNK rows — and the Q-Former's self-attention over 32 +
+    the prompt at VICUNA_RANK_N images.  Returns (prompt, candidate,
+    sequence, the task's rows a chunk)."""
+    from vlm_compression_tpu_torch.models import blip2_vicuna_instruct as BV
+
+    p, c = vicuna_rank_lengths()
+    n = 32 + p + c
+    total = VICUNA_RANK_N * N_CANDS
+    rows = max(1, BV._LOGIT_BYTES // (c * 32000 * 4))
+    sizes = {f"llama_rank{b}": b for per in (rows, VICUNA_RANK_CHUNK)
+             for b in {min(per, total - r0) for r0 in range(0, total, per)}}
+    for name, b in sorted(sizes.items()):
+        VICUNA_FLASH_SHAPES.append((name, b, n, n, 32, 128, ["cpad"],
+                                    128 ** -0.5))
+        MM_SHAPES.extend((f"llama_{lin}_{name}", b * n, k, nn)
+                         for lin, k, nn in LLAMA_LINEARS)
+    FLASH_SHAPES.append(("qformer_self_rank", VICUNA_RANK_N, 32 + p, 32 + p,
+                         12, 64, ["pad"], 0.125))
+    return p, c, n, rows
+
 
 # dbias (b, n, m, h, d, biases, scale, causal), the gradient of every bias
 # in the list: the T5 encoder's self-attention at the first-order
@@ -1703,6 +1837,66 @@ def tiny_serving_check(cpu, generate, args, gen_cfg, label):
     del gpu
 
 
+def tiny_loader_check():
+    """The package-level loaders at tiny size, card against CPU:
+    ``load_model_and_preprocess("blip2_t5_instruct", tiny=True)`` built on
+    the CPU, its state saved, and ``load_model(..., device="cuda",
+    checkpoint=...)`` reading it back (every tensor equal); the two
+    models' masked forward (bf16: the factory's dtype policy) within the
+    bf16 tolerance, the card's on its kernels (a random mask on every
+    linear); the processors' arrays equal on one image; ``load_pruner``
+    building the registry's class on the card's model."""
+    import vlm_compression_tpu_torch as T
+    from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+
+    cpu, vis, txt = T.load_model_and_preprocess("blip2_t5_instruct",
+                                                tiny=True, device="cpu")
+    g = torch.Generator().manual_seed(17)
+    for m in cpu.modules():
+        if isinstance(m, SparseLinear) and m.kernel is not None:
+            set_mask(m, torch.rand(m.kernel.shape, generator=g) < 0.5)
+    with tempfile.TemporaryDirectory(prefix="loader_") as tmp:
+        path = os.path.join(tmp, "tiny.pt")
+        torch.save(cpu.state_dict(), path)
+        gpu = T.load_model("blip2_t5_instruct", tiny=True, device="cuda",
+                           checkpoint=path)
+    want = cpu.state_dict()
+    same = all(torch.equal(t.cpu(), want[k])
+               for k, t in gpu.state_dict().items())
+    pixels = torch.randint(0, 256, (37, 45, 3), generator=g,
+                           dtype=torch.uint8).numpy()
+    img = cpu.cfg.vit.img_size
+    image = torch.from_numpy(vis["eval"](pixels))[None].expand(2, img, img,
+                                                               3)
+    ids = torch.randint(3, 60, (2, 6), generator=g, dtype=torch.int32)
+    batch = dict(image=image, input_ids=ids,
+                 attention_mask=torch.ones_like(ids), labels=ids[:, :4],
+                 qformer_input_ids=ids,
+                 qformer_attention_mask=torch.ones_like(ids))
+    reset_counts()
+    with torch.no_grad():
+        lc = cpu(**batch)["logits"]
+        lg = gpu(**{k: v.cuda() for k, v in batch.items()})["logits"].cpu()
+    launched = read_counts()
+    err, scale = max_err(lg, lc)
+    pruner = T.load_pruner("vit_wanda_pruner", gpu.visual_encoder, [],
+                           vit_prune_spec="2-0.5-1.0-1.0")
+    log(f"  tiny load_model / load_model_and_preprocess, card vs CPU: "
+        f"state dicts equal {same}; processors {sorted(vis)} / "
+        f"{sorted(txt)} at {img}px (eval image {tuple(image.shape[1:])}); "
+        f"masked logits max_abs_err={err:.3e} (tol "
+        f"{TOL['bfloat16'] * scale:.3e}); masked_matmul launches "
+        f"{launched['masked_matmul']}; load_pruner gives "
+        f"{type(pruner).__name__}")
+    if not (same and err <= TOL["bfloat16"] * scale
+            and launched["masked_matmul"] > 0
+            and type(pruner) is T.registry.get_pruner_class(
+                "vit_wanda_pruner")
+            and txt["eval"]("A Dog!") == "a dog"):
+        raise AssertionError("tiny loader check")
+    del gpu
+
+
 def tiny_train_check():
     """One KD train step of a tiny float32 InstructBLIP-T5 with SparseLoRA
     (ranks 4/2/8, random masks, seeded non-zero lora_b): kernels on the
@@ -2450,6 +2644,25 @@ for _phase in ("retrieval_prune", "retrieval_cold", "retrieval_warm",
                "retrieval_itc", "retrieval_direct", "retrieval_images",
                "retrieval_captions"):
     PHASE_FORBIDDEN[_phase] = BACKWARD + (WMMA_LOOP,)
+# the OPT path: the ViT's Wanda prune, then every pass of the pruned model —
+# its ViT on the Hopper loop (M ≥ 4 × 257), every attention on TMA + wgmma
+# (OPT's d = 128 included), OPT's linears plain products (the JAX pruners
+# sweep no OPT tower: it holds no mask, so no decode-kernel launch); no
+# backward, no WMMA loop, no mma.sync forward anywhere
+OPT_PHASES = ("generate_opt_cold", "generate_opt_warm", "vqa_opt_gqa",
+              "opt_gqa_direct", "vqa_opt_spec", "opt_spec_direct",
+              "vqa_opt_kv8", "opt_kv8_direct")
+PHASE_KERNELS["opt_prune"] = PRUNE + (FWD_WGMMA,)
+PHASE_FORBIDDEN["opt_prune"] = BACKWARD + (WMMA_LOOP, FWD_MMA)
+for _phase in OPT_PHASES:
+    PHASE_KERNELS[_phase] = VQA
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (DECODE, WMMA_LOOP, FWD_MMA)
+# ranking on the pruned Vicuna (the ViT at M = 16 × 257, LLaMA over the
+# b · C rows, all on the Hopper loop) and C4 perplexity at batch 1 (M =
+# 128: the Hopper loop, not the decode kernel) on T5-XL and Vicuna
+for _phase in ("vicuna_rank", "vicuna_rank_direct", "c4_t5", "c4_vicuna"):
+    PHASE_KERNELS[_phase] = VQA
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (DECODE, WMMA_LOOP, FWD_MMA)
 PHASE_FORBIDDEN.update(
     dsnot_prune=BACKWARD, mag_prune=SCORE_ONLY, rand_prune=SCORE_ONLY,
     mag_global=SCORE_ONLY,
@@ -2934,6 +3147,18 @@ def vqa_tokenizers(cfg) -> dict:
                 qformer_tokenizer=SimpleTokenizer(cfg.qformer.vocab_size))
 
 
+def rank_candidates() -> list:
+    """N_CANDS distinct seeded candidate answers of 1-3 words."""
+    rng = random.Random(VQA_RUN["seed"] + 1)
+    vocab = VQA_WORDS["answer"] + VQA_WORDS["noun"]
+    cands = []
+    while len(cands) < N_CANDS:
+        c = " ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3)))
+        if c not in cands:
+            cands.append(c)
+    return cands
+
+
 def vqa_closed_form(k: int) -> float:
     """VQAv2 accuracy of an answer that k of the 10 annotators gave."""
     return (k * min(1.0, (k - 1) / 3) + (10 - k) * min(1.0, k / 3)) / 10
@@ -3145,13 +3370,7 @@ def vqa_path(model, cfg):
             raise AssertionError(f"OK-VQA {ok_metrics} against {want}")
 
         # --- ranking the batch over N_CANDS distinct candidates
-        rng = random.Random(VQA_RUN["seed"] + 1)
-        vocab = VQA_WORDS["answer"] + VQA_WORDS["noun"]
-        cands = []
-        while len(cands) < N_CANDS:
-            c = " ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3)))
-            if c not in cands:
-                cands.append(c)
+        cands = rank_candidates()
         ranker = VQATask.setup_task(dict(run=VQA_RUN, model=XL_EVAL_MODEL),
                                     **toks)
         ranker.answer_list = cands
@@ -3248,7 +3467,7 @@ def forced_logits(model, enc, seqs, mode: str, vicuna: bool):
     L = seqs.shape[1]
     if vicuna:
         prefix = model.encode_image(image, "masked", q_ids, q_mask, "masked")
-        pe, pm = prefix_inputs(model, prefix, ids[:, :-1],
+        pe, pm = prefix_inputs(model.llm_model, prefix, ids[:, :-1],
                                mask[:, :-1].to(torch.int32))
         step, cache = make_causal_step(model.llm_model, pe, pm, mode=mode,
                                        max_decode_len=L)
@@ -3776,6 +3995,9 @@ def main_path():
     counts.update(serve_counts)
     caption_counts, caption = caption_path(model, cfg)
     counts.update(caption_counts)
+    c4_counts, c4 = c4_pass(model, vqa_tokenizers(cfg)["tokenizer"],
+                            "c4_t5")
+    counts.update(c4_counts)
 
     log(f"  launches: {json.dumps(counts)}")
     check_phase_counts(counts)
@@ -3786,7 +4008,7 @@ def main_path():
                     "generate_s": t_gen["generate_warm"],
                     "tokens_per_s": tokens_per_s,
                     "peak_bytes": peak, **retrain,
-                    "generate_merged_s": t_merged, **vqa, **caption,
+                    "generate_merged_s": t_merged, **vqa, **caption, **c4,
                     "serving": serve}
 
 
@@ -5293,6 +5515,117 @@ def tiny_retrieval_check():
         raise AssertionError("tiny retrieval check")
 
 
+def c4_texts(n: int = C4_TEXTS, seed: int = VQA_RUN["seed"]) -> list:
+    """n seeded texts of C4_LEN to 2 · C4_LEN words: each encodes past the
+    task's max_len, so every batch is one (1, C4_LEN) row, as a C4
+    document of a few hundred tokens is."""
+    rng = random.Random(seed)
+    words = [w for part in VQA_WORDS.values() for phrase in part
+             for w in phrase.split()]
+    return [" ".join(rng.choice(words) for _ in range(
+        rng.randint(C4_LEN, 2 * C4_LEN))) + "." for _ in range(n)]
+
+
+def c4_pass(model, tok, phase: str) -> tuple:
+    """C4 perplexity through ``LanguageModelingTask`` (the language_modeling
+    task of c4_prefix_derivative_compute.yaml, batch 1) on ``model``'s
+    language tower (LLaMA causally, T5 as the seq2seq denoiser) over
+    C4_TEXTS seeded texts, then each batch's loss recomputed by a direct
+    call of the tower: the perplexity finite and exp of the recomputed
+    token-weighted loss (within 1e-6 relative), every shape held in phase
+    3.  Returns (launches by phase, numbers)."""
+    import numpy as np
+
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_encode
+    from vlm_compression_tpu_torch.tasks import setup_task
+
+    texts = c4_texts()
+    task = setup_task({"run": {"task": "language_modeling"}}, tokenizer=tok)
+    batches = [{"text_input": [t], "instance_id": [i]}
+               for i, t in enumerate(texts)]
+    rec = new_record()
+    res = run_phase(rec, phase, lambda: task.evaluation(model, batches))
+    metrics = task.after_evaluation(res, split_name="test")
+    lm = model.llm_model if hasattr(model, "llm_model") else model.t5_model
+    tot = weighted = 0.0
+    with torch.no_grad():
+        for t in texts:
+            ids, mask = batch_encode(tok, [t], task.max_len, add_bos=True,
+                                     add_eos=True)
+            labels = np.where(mask.astype(bool), ids, -100).astype(np.int32)
+            out = lm(*(torch.from_numpy(a).cuda() for a in (ids, mask)),
+                     labels=torch.from_numpy(labels).cuda())
+            tot += int(mask.sum())
+            weighted += float(out["loss"]) * int(mask.sum())
+    ppl = math.exp(min(weighted / tot, 20))
+    log(f"  {phase}: {len(texts)} texts at batch 1, {int(tot)} tokens "
+        f"({sorted({r['n_tokens'] for r in res})} a text): "
+        f"{rec['secs'][phase]:.3f} s ({tot / rec['secs'][phase]:.0f} "
+        f"tokens/s), peak {rec['peaks'][phase] / 2**30:.2f} GiB; metrics "
+        f"{json.dumps(metrics)}; recomputed directly: ppl {ppl!r}; "
+        f"attention {attn_routes(rec['counts'][phase])}")
+    if not (math.isfinite(metrics["ppl"])
+            and abs(metrics["ppl"] - ppl) <= 1e-6 * ppl
+            and metrics["agg_metrics"] == -metrics["ppl"]):
+        raise AssertionError(f"{phase}: ppl {metrics} against {ppl}")
+    check_shapes(rec["shapes"], phase)
+    return rec["counts"], {f"{phase}_s": rec["secs"][phase],
+                           f"{phase}_ppl": metrics["ppl"]}
+
+
+def vicuna_rank(model) -> tuple:
+    """Ranking on the pruned InstructBLIP-Vicuna-7B through ``VQATask``
+    (vqav2_eval.yaml's inference_method rank): VICUNA_RANK_N questions over
+    N_CANDS candidates (the cut: the T5 rank pass runs 64), the ViT and
+    the Q-Former once per image, the b · C rows through LLaMA in the
+    task's chunk; then a direct ``predict_class_vicuna`` in chunks of
+    VICUNA_RANK_CHUNK rows: answers from the list, NLLs finite, the task's
+    answers its argmin; every shape held in phase 3.  Returns (launches by
+    phase, numbers)."""
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_encode
+    from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
+        predict_class_vicuna,
+    )
+    from vlm_compression_tpu_torch.tasks.vqa import VQATask
+
+    cfg = model.cfg
+    toks = vicuna_tokenizers(cfg)
+    samples = vqa_samples(cfg, VICUNA_RANK_N)
+    cands = rank_candidates()
+    ranker = VQATask.setup_task(dict(run=VQA_RUN, model=VICUNA_MODEL), **toks)
+    ranker.answer_list = cands
+    rec = new_record()
+    ranked = run_phase(rec, "vicuna_rank",
+                       lambda: ranker.evaluation(model, [samples]))
+    picked = [r["answer"] for r in ranked]
+    image, ids, mask, q_ids, q_mask = ranker._encode(model, samples)
+    c_ids, c_mask = (torch.from_numpy(a) for a in batch_encode(
+        toks["tokenizer"], cands, ranker.max_len))
+    nll = run_phase(rec, "vicuna_rank_direct", lambda: predict_class_vicuna(
+        model, image, ids, mask, c_ids, c_mask, q_ids, q_mask,
+        rows_per_chunk=VICUNA_RANK_CHUNK))
+    finite = float(torch.isfinite(nll).float().mean())
+    best = [cands[i] for i in nll.argmin(-1).tolist()]
+    secs, peaks = rec["secs"], rec["peaks"]
+    rows = VICUNA_RANK_N * N_CANDS
+    log(f"  vicuna rank: {VICUNA_RANK_N} questions x {N_CANDS} candidates "
+        f"({rows} rows of 32 + {ids.shape[1]} + {c_ids.shape[1]} tokens): "
+        f"task {secs['vicuna_rank']:.3f} s ({rows / secs['vicuna_rank']:.0f}"
+        f" rows/s), peak {peaks['vicuna_rank'] / 2**30:.2f} GiB; direct in "
+        f"chunks of {VICUNA_RANK_CHUNK} rows {secs['vicuna_rank_direct']:.3f}"
+        f" s, peak {peaks['vicuna_rank_direct'] / 2**30:.2f} GiB; answers "
+        f"{picked[:8]}...; NLL matrix {tuple(nll.shape)} finite share "
+        f"{finite}, range [{float(nll.min()):.4f}, {float(nll.max()):.4f}]; "
+        f"the task's answers the direct call's argmin {best == picked}")
+    if any(a not in cands for a in picked) or finite != 1.0 \
+            or best != picked:
+        raise AssertionError("Vicuna ranking")
+    check_shapes(rec["shapes"], "vicuna rank")
+    return rec["counts"], {"vicuna_rank_s": secs["vicuna_rank"],
+                           "vicuna_rank_direct_s": secs["vicuna_rank_direct"],
+                           "vicuna_rank_peak_bytes": peaks["vicuna_rank"]}
+
+
 def vicuna_path():
     """Full-width InstructBLIP-Vicuna-7B (bf16, seeded random weights, seed
     VICUNA_SEED, after the XL models are freed), through the entry points a
@@ -5529,6 +5862,12 @@ def vicuna_path():
     counts.update(serve_counts)
     shapes.update(serve_shapes)
     retrain = vicuna_retrain(model, req, gen_cfg, counts, shapes, secs)
+    rank_counts, rank = vicuna_rank(model)
+    counts.update(rank_counts)
+    c4_counts, c4 = c4_pass(model, vicuna_tokenizers(cfg)["tokenizer"],
+                            "c4_vicuna")
+    counts.update(c4_counts)
+    check_phase_counts({**rank_counts, **c4_counts})
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5548,7 +5887,7 @@ def vicuna_path():
             raise AssertionError(f"vicuna {phase}: d = 128 launches {row}")
     return counts, {
         "vicuna_d128_launches": d128,
-        **retrain, **dsnot,
+        **retrain, **dsnot, **rank, **c4,
         "vicuna_prune_s": secs["vicuna_prune"],
         "vicuna_generate_cold_s": secs["generate_vicuna_cold"],
         "vicuna_generate_s": secs["generate_vicuna_warm"],
@@ -5715,6 +6054,276 @@ def vicuna_dsnot(req, gen_cfg) -> tuple:
 # at batch BS; seed 5.  The cut: 160 synthetic 224² images and 800
 # captions of 8-40 words, 5 an image as in Flickr30k, where the test
 # splits hold the sizes of RET_FULL, to which the readings extrapolate
+OPT_SEED = 16
+# gqa_zeroshot_opt6.7b_eval.yaml's run settings are VQA_RUN's (batch 64,
+# beam 5, max_len 10, min_len 1, its prompt); its model section names the
+# arch no factory builds (the model is built from Blip2OPTConfig)
+OPT_MODEL = dict(arch="blip2_opt", model_type="pretrain_opt6.7b")
+
+
+def opt_tokenizers(cfg) -> dict:
+    """OPT's special ids (pad 1, BOS = EOS = 2) over its 50272 ids; the
+    Q-Former's own vocabulary for the ids the task encodes (BLIP-2 OPT's
+    Q-Former reads no text)."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+    )
+
+    opt = cfg.opt
+    return dict(tokenizer=SimpleTokenizer(
+        opt.vocab_size, pad_token_id=opt.pad_token_id,
+        eos_token_id=opt.eos_token_id, bos_token_id=opt.bos_token_id),
+        qformer_tokenizer=SimpleTokenizer(cfg.qformer.vocab_size))
+
+
+def opt_path() -> tuple:
+    """Full-width BLIP-2 OPT-6.7B (EVA-ViT-g 39, the Q-Former 12, OPT 32 ×
+    4096, ffn 16384, 32 heads of 128, vocab 50272; bf16, seeded random
+    weights, seed OPT_SEED; built from ``Blip2OPTConfig`` directly, as the
+    JAX package's tests build it: no factory has a ``blip2_opt`` arch;
+    after the Vicuna models are freed), through the entry points a user
+    calls: ``vit_wanda_pruner`` on the ViT (masks kept, 0.5 ± 0.01; the JAX
+    pruners sweep no OPT tower); beam-5 ``generate_opt`` on N_REQ
+    left-padded requests, cold and warm (tokens equal); ``GQATask`` at
+    gqa_zeroshot_opt6.7b_eval.yaml's settings cold and warm (warm: each
+    even question's own cold answer as its ground truth → exactly 50.00),
+    its answers equal to a direct ``generate_opt``'s decoded tokens, one
+    pass profiled; the task at ``speculative_gamma`` SPEC_GAMMA and with
+    the int8 KV cache, each equal to its direct ``generate_opt`` (their
+    answers against the bf16 beam's printed, not gated: random weights);
+    every shape launched one that phase 3 held; OPT's d = 128 attention on
+    TMA + wgmma alone.  Returns (launches by phase, numbers)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.datasets.tokenization import batch_encode
+    from vlm_compression_tpu_torch.models.blip2_opt import (
+        Blip2OPT,
+        Blip2OPTConfig,
+        generate_opt,
+    )
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.factory import set_kv_cache_
+    from vlm_compression_tpu_torch.models.generation import GenerationConfig
+    from vlm_compression_tpu_torch.models.opt import OPTConfig
+    from vlm_compression_tpu_torch.tasks.vqa import GQATask
+
+    t0 = time.perf_counter()
+    model = random_init_(Blip2OPT(Blip2OPTConfig(opt=OPTConfig.opt_6_7b()),
+                                  device="cuda"), seed=OPT_SEED)
+    cfg, opt = model.cfg, model.cfg.opt
+    g = torch.Generator(device="cuda").manual_seed(42 + OPT_SEED)
+    img = cfg.vit.img_size
+    calib = [{"image": torch.randn(BS, img, img, 3, generator=g,
+                                   device="cuda")}
+             for _ in range(N_CALIB // BS)]
+    # N_REQ prompts of TXT tokens, BOS first; request 1 left-padded by 7
+    prompt_mask = torch.ones(N_REQ, TXT, dtype=torch.int32, device="cuda")
+    prompt_mask[1, :7] = 0
+    prompt = torch.randint(3, opt.vocab_size, (N_REQ, TXT), generator=g,
+                           device="cuda")
+    prompt = torch.where(prompt_mask == 1, prompt, opt.pad_token_id)
+    prompt[0, 0] = prompt[2, 0] = prompt[3, 0] = prompt[1, 7] = \
+        opt.bos_token_id
+    req = (torch.randn(N_REQ, img, img, 3, generator=g, device="cuda"),
+           prompt, prompt_mask)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  model: BLIP-2 OPT-6.7B, {n_params / 1e9:.3f} B params, "
+        f"{n_bytes / 1e9:.2f} GB at rest, bf16 (the Q-Former and opt_proj "
+        f"fp32), random init + data {time.perf_counter() - t0:.1f} s; "
+        f"cuts: none (depth {cfg.vit.depth}/{cfg.qformer.num_layers}/"
+        f"{opt.num_layers}, {N_CALIB} calibration images)")
+    rec = new_record()
+    counts, shapes, secs, peaks = (rec[k] for k in ("counts", "shapes",
+                                                    "secs", "peaks"))
+
+    # --- the ViT's Wanda prune (masks kept)
+    run_phase(rec, "opt_prune", lambda: load_pruner(
+        "vit_wanda_pruner", model.visual_encoder, calib,
+        vit_prune_spec=f"{cfg.vit.depth}-0.5-1.0-1.0",
+        num_samples=N_CALIB).prune(lora_model=True))
+    del calib
+    (dens, n_lin), = tower_density(model, towers=("visual_encoder",)
+                                   ).values()
+    n_masked = sum(1 for _, m in model.named_modules()
+                   if getattr(m, "mask", None) is not None)
+    log(f"  opt prune (vit_wanda_pruner, lora_model=True): "
+        f"{secs['opt_prune']:.2f} s, peak "
+        f"{peaks['opt_prune'] / 2**30:.2f} GiB; ViT density {dens:.4f} over "
+        f"{n_lin} linears, {n_masked} masked linears in the model; "
+        f"attention {attn_routes(counts['opt_prune'])}")
+    if abs(dens - 0.5) > 0.01 or n_lin != cfg.vit.depth * 4 \
+            or n_masked != n_lin:
+        raise AssertionError(f"opt prune: density {dens} over {n_lin} "
+                             f"({n_masked} masked)")
+
+    # --- beam-5 generate on N_REQ requests, cold then warm
+    gen_cfg = GenerationConfig(num_beams=5, max_length=10, min_length=1,
+                               eos_token_id=opt.eos_token_id,
+                               pad_token_id=opt.pad_token_id)
+    outs = {}
+    for phase in ("generate_opt_cold", "generate_opt_warm"):
+        outs[phase] = run_phase(rec, phase, lambda: generate_opt(
+            model, *req, gen_cfg=gen_cfg)).cpu()
+    seqs = outs["generate_opt_warm"]
+    if tuple(seqs.shape) != (N_REQ, gen_cfg.max_length) \
+            or not torch.equal(seqs[:, 0], prompt[:, -1].int().cpu()) \
+            or not bool(((seqs >= 0) & (seqs < opt.vocab_size)).all()):
+        raise AssertionError(f"bad generate_opt output {seqs}")
+    if not torch.equal(outs["generate_opt_cold"], seqs):
+        raise AssertionError("two generate_opt calls on the same inputs "
+                             "differ")
+    n_tok = int((seqs[:, 1:] != gen_cfg.pad_token_id).sum())
+    for phase in outs:
+        log(f"  generate_opt beam-5 ({phase}), {N_REQ} requests, "
+            f"max_length 10: {secs[phase]:.3f} s, {n_tok} tokens, "
+            f"{n_tok / secs[phase]:.1f} tokens/s, peak "
+            f"{peaks[phase] / 2**30:.2f} GiB; attention "
+            f"{attn_routes(counts[phase])}")
+    log(f"  tokens (first column: each prompt's last token): "
+        f"{seqs.tolist()}; equal cold vs warm")
+
+    # --- GQA through the task, cold and warm; a direct generate_opt
+    n = VQA_RUN["batch_size_eval"]
+    beams = VQA_RUN["num_beams"]
+    samples = vqa_samples(cfg, n)
+    toks = opt_tokenizers(cfg)
+    tok = toks["tokenizer"]
+    prompts = [VQA_PROMPT.format(q) for q in samples["text_input"]]
+    ids, mask = batch_encode(tok, prompts, 128, left_pad=True, add_bos=True)
+    enc = [torch.from_numpy(a).cuda() for a in (ids, mask)]
+
+    def decoded(rows):
+        out = []
+        for row in rows[:, 1:].tolist():
+            row = row[:row.index(tok.eos_token_id)] \
+                if tok.eos_token_id in row else row
+            out.append(tok.decode(row).strip())
+        return out
+
+    def direct(phase, **kw):
+        gcfg = GenerationConfig(
+            num_beams=1 if kw else beams,
+            max_length=VQA_RUN["max_len"] + 1,
+            min_length=VQA_RUN["min_len"], eos_token_id=opt.eos_token_id,
+            pad_token_id=opt.pad_token_id)
+        return decoded(run_phase(rec, phase, lambda: generate_opt(
+            model, samples["image"], *enc, gen_cfg=gcfg, **kw)).cpu())
+
+    gqa = GQATask.setup_task(dict(run=VQA_RUN, model=OPT_MODEL), **toks)
+    cold = run_phase(rec, "vqa_opt_gqa",
+                     lambda: gqa.evaluation(model, [samples]))
+    secs["opt_gqa_cold"] = secs["vqa_opt_gqa"]
+    answers = [r["answer"] for r in cold]
+    scored = dict(samples, answers=[
+        [a] if i % 2 == 0 else [NEVER] for i, a in enumerate(answers)])
+    t0 = time.perf_counter()
+    warm = gqa.evaluation(model, [scored])
+    torch.cuda.synchronize()
+    secs["opt_gqa_warm"] = time.perf_counter() - t0
+    if [r["answer"] for r in warm] != answers:
+        raise AssertionError("OPT GQA: the warm pass answered otherwise")
+    tmp = tempfile.TemporaryDirectory(prefix="opt_vqa_")
+    try:
+        gqa_metrics = gqa.after_evaluation(
+            warm, split_name="val",
+            result_dir=os.path.join(tmp.name, "gqa", "result"))
+    finally:
+        tmp.cleanup()
+    log(f"  opt gqa: {n} questions, beam {beams}, max_len "
+        f"{VQA_RUN['max_len']}: cold {secs['opt_gqa_cold']:.3f} s, warm "
+        f"{secs['opt_gqa_warm']:.3f} s ({n / secs['opt_gqa_warm']:.1f} "
+        f"questions/s), peak {peaks['vqa_opt_gqa'] / 2**30:.2f} GiB; "
+        f"answers equal cold vs warm; {sum(a == '' for a in answers)} "
+        f"empty; metrics {json.dumps(gqa_metrics)}; e.g. "
+        f"{json.dumps(dict(zip(samples['text_input'][:3], answers)))}")
+    if gqa_metrics["acc"] != 50.0 or gqa_metrics["agg_metrics"] != 50.0:
+        raise AssertionError(f"OPT GQA accuracy {gqa_metrics}, not 50.00")
+    # the task adds no drift: a direct generate_opt on the prompts encoded
+    # as the task encodes them (left-padded, BOS first), decoded by hand
+    same = direct("opt_gqa_direct") == answers
+    pads = sorted(set((ids.shape[1] - mask.sum(1)).tolist()))
+    log(f"  opt gqa prompts: {tuple(ids.shape)} (the prime holds "
+        f"{cfg.qformer.num_query_tokens} + {ids.shape[1] - 1} slots, pads "
+        f"per prompt {pads}); answers equal to a direct generate_opt's "
+        f"{same}")
+    if not same:
+        raise AssertionError("the OPT GQA task's answers differ from a "
+                             "direct generate_opt's decoded tokens")
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gqa.evaluation(model, [samples])
+        torch.cuda.synchronize()
+    dev_ms, _ = device_breakdown(prof, 1e3 * secs["opt_gqa_warm"],
+                                 f"opt gqa, {n} questions, beam {beams}")
+    log(f"  opt gqa profiled pass: peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # --- speculative decoding and the int8 KV cache through the task
+    forms = {}
+    for form, run, kv8 in (
+            ("spec", dict(VQA_RUN, speculative_gamma=SPEC_GAMMA), False),
+            ("kv8", VQA_RUN, True)):
+        set_kv_cache_(model, int8=kv8)
+        try:
+            task = GQATask.setup_task(dict(run=run, model=OPT_MODEL), **toks)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got = [r["answer"] for r in run_phase(
+                    rec, f"vqa_opt_{form}",
+                    lambda: task.evaluation(model, [samples]))]
+            kw = (dict(llm_mode="dense", draft_llm_mode="masked",
+                       speculative_gamma=SPEC_GAMMA) if form == "spec"
+                  else {})
+            want = direct(f"opt_{form}_direct", **kw)
+        finally:
+            set_kv_cache_(model)
+        moved = sum(a != b for a, b in zip(got, answers))
+        forms[form] = {"s": secs[f"vqa_opt_{form}"],
+                       "answers_moved_vs_bf16_beam": moved,
+                       "peak_bytes": peaks[f"vqa_opt_{form}"],
+                       **(task.spec_stats if form == "spec" else {})}
+        log(f"  opt gqa {form} (speculative_gamma "
+            f"{run.get('speculative_gamma', 0)}, int8 KV cache {kv8}): "
+            f"{secs[f'vqa_opt_{form}']:.3f} s, peak "
+            f"{peaks[f'vqa_opt_{form}'] / 2**30:.2f} GiB; answers equal to "
+            f"its direct generate_opt {got == want}; {moved} of {n} differ "
+            f"from the bf16 beam-5 pass's (printed, not gated: random "
+            f"weights); {json.dumps(forms[form])}")
+        if got != want:
+            raise AssertionError(f"OPT GQA {form}: the task's answers differ "
+                                 "from its direct generate_opt's")
+
+    log(f"  launches: {json.dumps(counts)}")
+    check_phase_counts(counts)
+    check_shapes(shapes, "opt")
+    d128 = d128_launches(shapes)
+    log(f"  opt: OPT's d = 128 attention launches by phase and route "
+        f"{json.dumps(d128)}")
+    for phase in OPT_PHASES:
+        row = d128[phase]
+        if not row["forward"] or set(row["forward"]) != {"wgmma"} \
+                or row["backward"]:
+            raise AssertionError(f"opt {phase}: d = 128 launches {row}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {
+        "opt_d128_launches": d128, "opt_params": n_params,
+        "opt_prune_s": secs["opt_prune"],
+        "opt_generate_cold_s": secs["generate_opt_cold"],
+        "opt_generate_s": secs["generate_opt_warm"],
+        "opt_tokens_per_s": n_tok / secs["generate_opt_warm"],
+        "opt_gqa_cold_s": secs["opt_gqa_cold"],
+        "opt_gqa_warm_s": secs["opt_gqa_warm"],
+        "opt_gqa_acc": gqa_metrics["acc"], "opt_gqa_device_ms": dev_ms,
+        "opt_forms": forms, "opt_peak_bytes": dict(peaks)}
+
+
 RETRIEVAL_MODEL = dict(arch="blip2", model_type="coco")
 RETRIEVAL_RUN = dict(task="retrieval", batch_size_eval=64, k_test=128)
 RETRIEVAL_SEED = 5
@@ -7580,6 +8189,15 @@ def library_note(r: dict) -> str:
             f"{l1:.4f} / {l2:.4f} ms (spread {spread(l1, l2):.1f} %)")
 
 
+def timed_shapes() -> set:
+    """The shapes the kernel line reports, the only ones the timing phase
+    times (the cut that keeps the command's time: every other shape is
+    held against its plain version in phase 3, untimed)."""
+    return ({MM_TIMED, FLASH_TIMED, LORA_TIMED, BWD_TIMED, *LORA_LLAMA,
+             *FLASH_VICUNA_TIMED, *FLASH_OPT_TIMED}
+            | {c[0] for c in BWD_SHAPES if c[5] == 128})
+
+
 def timing():
     import torch.nn.functional as F
 
@@ -7588,6 +8206,7 @@ def timing():
 
     rows, wmma, extra = {}, {}, {}
     bf16 = torch.bfloat16
+    timed = timed_shapes()
 
     def wmma_ms(key, fn, m, k, n, rank=0):
         """The WMMA loop's time where the plan is the Hopper loop or the
@@ -7599,6 +8218,8 @@ def timing():
         return f", WMMA loop {wmma[key]:.4f} ms"
 
     for name, m, k, n in MM_SHAPES:
+        if name not in timed:
+            continue
         x, w, mask = mm_inputs(m, k, n, bf16)
         wm = w * mask
         ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
@@ -7614,6 +8235,8 @@ def timing():
             f"bound {bound:.4f} ms ({by})")
     for name, b, n, m, h, d, kinds, scale in \
             FLASH_SHAPES + VICUNA_FLASH_SHAPES:
+        if name not in timed:
+            continue
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k_, v))
         bsum = None
@@ -7640,6 +8263,8 @@ def timing():
             f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
             f"{library_note(lib)}")
     for name, m, k, n, r in LORA_SHAPES:
+        if name not in timed:
+            continue
         x, w, mask, a, b = lora_inputs(m, k, n, r, bf16)
         s = 16.0 / r
         e = ML.sparse_lora_weight(w, mask, a, b, s)
@@ -7665,6 +8290,8 @@ def timing():
     # contiguous (b, h, n, d) copies with the biases summed into one bf16
     # mask, in turns with the new route
     for name, b, n, m, h, d, kinds, scale in BWD_SHAPES:
+        if name not in timed:
+            continue
         q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
         g = grad_like(q)
         out, lse = A.flash_attention(q, k_, v, biases, scale)
@@ -7769,9 +8396,11 @@ def time_dbias(rows, extra, name, b, n, m, h, d, kinds, scale, causal):
 
 
 def timing_compressed(rows, wmma):
-    """Every shape of the compressed path — prefill and decode, and the
-    int8 linears that hold no mask — in every weight form (bool, packed G
-    128 and 256, int8 with no, bool and packed-128 masks) on the loop
+    """The compressed path's shapes the kernel line reports (the decode
+    shape of PACKED_TIMED / INT8_TIMED and the prefill shape of
+    INT8_PREFILL_TIMED; the cut: the other shapes are held in phase 3,
+    untimed) in every weight form (bool, packed G 128 and 256, int8 with
+    no, bool and packed-128 masks) on the loop
     ``plan`` picks (the Hopper loop at prefill, split-K where the output
     tiles do not fill the card; the decode kernel at decode), in turns
     with the WMMA loop forced through ``_loop`` and the library (planned,
@@ -7784,8 +8413,12 @@ def timing_compressed(rows, wmma):
 
     bf16 = torch.bfloat16
     unmasked = {s[0] for s in INT8_UNMASKED_SHAPES}
+    reported = {key.split()[0] for key in (PACKED_TIMED, INT8_TIMED,
+                                           INT8_PREFILL_TIMED)}
     table = {}
     for name, m, k, n in SERVE_SHAPES + INT8_UNMASKED_SHAPES:
+        if name not in reported:
+            continue
         x, w, mask = mm_inputs(m, k, n, bf16)
         q, sc = Q.quantize_weight(w)
         wq = Q.dequantize_weight(q, sc, bf16)
@@ -7894,10 +8527,13 @@ def main() -> int:
 
     lengths = add_cli_train_shapes()
     wf_lengths = add_wf_cli_shapes()
+    rank_p, rank_c, rank_n, rank_rows = add_rank_c4_shapes()
     log(f"[kernels] kernel vs plain version (with the CLI train path's "
         f"retrain shapes: its batches' longest captions {lengths} words; "
         f"the pruners path's batch-1 scoring: (Q-Former, T5, label) "
-        f"tokens {wf_lengths})")
+        f"tokens {wf_lengths}; the Vicuna rank pass: prompts of {rank_p} "
+        f"and candidates of {rank_c} tokens, LLaMA over {rank_n}, "
+        f"{rank_rows} rows a chunk in the task)")
     worst = check_kernels()
     check_compressed_kernels(worst)
     check_dbias_kernel(worst)
@@ -7911,6 +8547,7 @@ def main() -> int:
     tiny_retrieval_check()
     tiny_cli_train_check()
     tiny_pruners_check()
+    tiny_loader_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -7924,7 +8561,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[main path] InstructBLIP-FlanT5-XL: Wanda prune, beam-5 generate, "
         "RESSA retrain, merge, beam-5 generate, VQA, serving (speculative "
-        "decoding, per-row and int8 KV caches), NoCaps captioning")
+        "decoding, per-row and int8 KV caches), NoCaps captioning, C4 "
+        "perplexity")
     counts, e2e = main_path()
     phase_done("main path")
     gc.collect()
@@ -7978,12 +8616,21 @@ def main() -> int:
     log("[vicuna path] InstructBLIP-Vicuna-7B: Wanda prune (ViT and "
         "llm_model), beam-5 generate, GQA and OK-VQA through the tasks, "
         "serving (speculative decoding, per-row and int8 KV caches), "
-        "RESSA retrain, merge, beam-5 generate; rebuilt dense: the DSnoT "
-        "grid entry, beam-5 generate")
+        "RESSA retrain, merge, beam-5 generate, ranking, C4 perplexity; "
+        "rebuilt dense: the DSnoT grid entry, beam-5 generate")
     v_counts, v_e2e = vicuna_path()
     phase_done("vicuna path")
     counts.update(v_counts)
     e2e.update(v_e2e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[opt path] BLIP-2 OPT-6.7B: the ViT's Wanda prune, beam-5 "
+        "generate_opt, GQA through the task, speculative decoding and the "
+        "int8 KV cache")
+    o_counts, o_e2e = opt_path()
+    phase_done("opt path")
+    counts.update(o_counts)
+    e2e.update(o_e2e)
     log("[retrieval path] the stage-1 BLIP-2 Q-Former: ViT Wanda prune, "
         "Flickr30k retrieval through the task (ITC ranking + ITM rerank at "
         "k_test 128), cold and warm")
@@ -8021,7 +8668,9 @@ def main() -> int:
     phase_done("profile")
     log("[timing] bf16, each reading the median of 20 calls, CUDA events, "
         "L2 flushed before each call; attention kernels and their library "
-        "call in turns (kernel, library, library, kernel), the means")
+        "call in turns (kernel, library, library, kernel), the means; the "
+        "shapes the kernel line reports (the cut: the others are held in "
+        "phase 3, untimed)")
     rows, wmma, extra = timing()
     timing_compressed(rows, wmma)
     phase_done("timing")
@@ -8137,8 +8786,29 @@ def main() -> int:
                     for p, c in counts.items() if "vicuna" in p},
                 "llama_d128_launches_by_phase": {
                     p: c["forward"]
-                    for p, c in e2e["vicuna_d128_launches"].items()}}
+                    for p, c in e2e["vicuna_d128_launches"].items()},
+                # BLIP-2 OPT's shapes (d = 128 at 6.7B, d = 80 at 2.7B;
+                # scale 1, the queries pre-scaled) on their planned route
+                # ("mma_ms": the mma.sync route's), its launches by phase
+                "opt": {name: dict(zip(
+                    ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by"), rows[(kname, name)]),
+                    **extra[(kname, name)],
+                    max_abs_err=worst[(kname, name, torch.bfloat16)],
+                    route=A.plan_forward(*vicuna_shape[name]))
+                    for name in FLASH_OPT_TIMED},
+                "opt_launches_by_phase": {
+                    p: {"wgmma": counts[p][FWD_WGMMA],
+                        "mma": counts[p][FWD_MMA]}
+                    for p in ("opt_prune",) + OPT_PHASES}}
                if kname == "flash_attention" else {}),
+            # the OPT path's pruned ViT (its only masked linears) by phase
+            **({"opt_launches_by_phase": {
+                p: {"launches": counts[p][kname],
+                    "hopper": counts[p][WGMMA_LOOP],
+                    "decode": counts[p][DECODE]}
+                for p in ("opt_prune",) + OPT_PHASES}}
+               if kname == "masked_matmul" else {}),
             **({"launches_by_route": {
                 "decode": sum(c[DECODE] for p, c in counts.items()
                               if p.startswith("generate_int8")),

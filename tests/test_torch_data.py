@@ -218,8 +218,7 @@ def test_builder_items_and_loader_equal_jax(annotations, name, kind, vis,
 
 
 def test_unported_builders_raise_with_their_item():
-    for name, item in (("c4", "item 6"), ("nlvr", "item 11"),
-                       ("msrvtt_qa", "item 11")):
+    for name, item in (("nlvr", "item 11"), ("msrvtt_qa", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             TB.load_builder(name, {})
     assert set(TB.registry.list_names("builder")) >= set(

@@ -360,19 +360,8 @@ def test_generate_vicuna_matches_jax(tiny, beams, min_length):
 
 
 def test_unported_vicuna_paths_raise(tiny):
-    _, _, tm, _ = tiny
-    image = torch.zeros(1, 28, 28, 3)
-    ids = torch.ones(1, 3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TBV.predict_class_vicuna(tm, image, ids, ids, ids, ids)
     with pytest.raises(NotImplementedError, match="item 9"):
         TL.LlamaForCausalLM(TL.LlamaConfig.tiny(use_remat=True), device="cpu")
-    ranker = TVQA.VQATask(tokenizer=TTok.SimpleTokenizer(96))
-    ranker.answer_list = ["yes", "no"]
-    with pytest.raises(NotImplementedError, match="ranking.*item 8"):
-        ranker.valid_step(tm, {"image": np.zeros((1, 28, 28, 3), np.float32),
-                               "text_input": ["is it?"],
-                               "question_id": [0]})
 
 
 @pytest.mark.parametrize("knob", ["kv_cache_int8", "kv_cache_per_row"])

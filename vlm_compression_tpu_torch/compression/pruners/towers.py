@@ -285,7 +285,7 @@ class BlipT5PrunerBase(_MethodMixin, LayerWisePrunerBase):
 def _llm_inputs_from_prefix(m, batch, prefix):
     """[query prefix ⊕ packed prompt+answer embeds] and its mask, given a
     prefix (the chained sweep feeds the pruned ViT's replayed features)."""
-    return prefix_inputs(m, prefix, batch["text_input_ids"],
+    return prefix_inputs(m.llm_model, prefix, batch["text_input_ids"],
                          batch["text_attention_mask"])
 
 

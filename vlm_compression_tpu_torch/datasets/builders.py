@@ -143,10 +143,11 @@ def load_builder(name: str, cfg=None) -> BaseDatasetBuilder:
     return registry.get_builder_class(name)(cfg)
 
 
-# not ported yet: the C4 text corpus (the derivative computation, item 6),
-# classification folders, NLVR, SNLI-VE, video and dialogue (the legacy
-# zoo's tasks, item 11)
-_not_ported("c4", "text corpus", "6")
+# the language-modeling corpus
+C4Builder = _register("c4", I.TextDataset, I.TextDataset)
+
+# not ported yet: classification folders, NLVR, SNLI-VE, video and dialogue
+# (the legacy zoo's tasks, item 11)
 for _n in ("imagenet", "cifar100"):
     _not_ported(_n, "classification", "11")
 _not_ported("nlvr", "NLVR2 pairs", "11")

@@ -8,14 +8,14 @@ Annotations are JSON lists of dicts (LAVIS format):
   vqa:       {"image": rel_path, "question": str, "question_id": ...,
               "answer": [str] | str}
   retrieval: {"image": rel_path, "caption": [str]}
+  text:      {"text": str}  (C4; no image)
 
 An image file ending in ``.npy`` is read with ``numpy.load`` (a uint8
 (H, W, 3) array: the form the card's machine reads, having no Pillow);
 any other file is decoded with Pillow, imported where it is read.  The
 LAION stream (``LaionDataset``) reads local webdataset tar shards the same
-way, member by member.  The text (C4), classification, NLVR, entailment,
-video and dialogue items are not ported yet (ROADMAP queue 1, items 6 and
-11).
+way, member by member.  The classification, NLVR, entailment, video and
+dialogue items are not ported yet (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -171,6 +171,20 @@ class PrefixCaptionDataset(CaptionDataset):
     """CC3M / CC12M / SBU prefix-LM pretraining data — the RESSA
     calibration and retrain corpus.  The sample schema of
     ``CaptionDataset``; the task decides how the text is split."""
+
+
+class TextDataset(BaseItemDataset):
+    """Text-only corpus (C4) for the language-modeling task: annotations
+    carry ``text`` (or ``text_input``); there are no images."""
+
+    def _image(self, ann):
+        raise RuntimeError("a text-only dataset has no images")
+
+    def __getitem__(self, i):
+        ann = self.annotation[i]
+        txt = ann.get("text", ann.get("text_input", ""))
+        return {"text_input": self.text_processor(txt),
+                "instance_id": ann["instance_id"]}
 
 
 def expand_braces(pattern: str) -> List[str]:

@@ -11,8 +11,10 @@ take none, and every ``model_type`` (``pretrain``, ``coco``, …) gives the
 one full-width config, as in the JAX package.  ``kv_cache_int8`` and
 ``kv_cache_per_row`` reach every tower config that carries them (the JAX
 factory's ``set_field_everywhere``); ``set_kv_cache_`` switches them on a
-built model.  Still raising: the OPT composition and the legacy zoo
-(ROADMAP queue 1, items 8 and 11), and the JAX factory's remat knobs.
+built model.  Still raising: the legacy zoo (ROADMAP queue 1, item 11)
+and the JAX factory's remat knobs; ``blip2_opt`` raises too, as the JAX
+factory builds no such arch either (build ``models/blip2_opt.Blip2OPT``
+from its config).
 """
 
 from __future__ import annotations
@@ -114,6 +116,11 @@ Config = Union[Blip2T5InstructConfig, Blip2VicunaInstructConfig,
 def build_model_config(model_cfg) -> Tuple[str, Config]:
     """(arch, composed config) from a model config node."""
     arch = _get(model_cfg, "arch", "blip2_t5_instruct")
+    if arch == "blip2_opt":
+        raise NotImplementedError(
+            "arch 'blip2_opt' has no factory entry: the JAX factory cannot "
+            "build it either; build models/blip2_opt.Blip2OPT from a "
+            "Blip2OPTConfig")
     if arch not in _MODELS:
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     for key in _NOT_PORTED:

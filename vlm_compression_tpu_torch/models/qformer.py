@@ -117,7 +117,7 @@ class BertFFN(nn.Module):
 
 class QFormerLayer(nn.Module):
     def __init__(self, cfg: QFormerConfig, has_cross_attention: bool,
-                 device=None):
+                 device=None, text: bool = True):
         super().__init__()
         self.attention = BertAttention(cfg, device=device)
         self.has_cross_attention = has_cross_attention
@@ -125,7 +125,8 @@ class QFormerLayer(nn.Module):
             self.crossattention = BertAttention(cfg, is_cross=True,
                                                 device=device)
         self.ffn_query = BertFFN(cfg, device)
-        self.ffn = BertFFN(cfg, device)
+        if text:
+            self.ffn = BertFFN(cfg, device)
 
     def forward(self, x, self_mask, image_embeds, image_mask,
                 query_length: int, mode="masked"):
@@ -145,24 +146,29 @@ class QFormerLayer(nn.Module):
 
 class QFormer(nn.Module):
     """forward(image_embeds, text_ids?, text_mask?) → the full [query; text]
-    hidden states; callers slice the first ``num_query_tokens``."""
+    hidden states; callers slice the first ``num_query_tokens``.
 
-    def __init__(self, cfg: QFormerConfig, device=None):
+    ``text=False`` builds the queries-only Q-Former of BLIP-2 OPT: no word
+    and position embeddings and no text FFN, the parameters its JAX tree
+    holds (Flax creates the text branch only where it runs)."""
+
+    def __init__(self, cfg: QFormerConfig, device=None, text: bool = True):
         super().__init__()
         self.cfg = cfg
         pdt = _dt(cfg.param_dtype)
         self.query_tokens = nn.Parameter(torch.empty(
             (1, cfg.num_query_tokens, cfg.hidden_size), dtype=pdt,
             device=device))
-        self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size, pdt,
-                                     device)
-        self.position_embeddings = Embed(cfg.max_position_embeddings,
-                                         cfg.hidden_size, pdt, device)
+        if text:
+            self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size,
+                                         pdt, device)
+            self.position_embeddings = Embed(cfg.max_position_embeddings,
+                                             cfg.hidden_size, pdt, device)
         self.emb_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
         self.layer_names = [f"layers_{i}" for i in range(cfg.num_layers)]
         for i, name in enumerate(self.layer_names):
             self.add_module(name, QFormerLayer(
-                cfg, i % cfg.cross_attention_freq == 0, device))
+                cfg, i % cfg.cross_attention_freq == 0, device, text))
 
     def embed(self, text_ids: Optional[torch.Tensor]):
         """Queries (+ embedded text), LayerNorm over the concatenation."""

@@ -1,12 +1,14 @@
 """Tasks of the port (counterparts of ``vlm_compression_tpu.tasks``): RESSA
 retraining, stage-2 image-text pretraining, the VQA / OK-VQA / GQA
-evaluation, COCO / NoCaps captioning and Flickr30k / COCO retrieval.
+evaluation, COCO / NoCaps captioning, Flickr30k / COCO retrieval and C4
+language modeling.
 Importing the package registers them; ``setup_task`` builds the one a run
 config's ``run.task`` names."""
 
 from vlm_compression_tpu_torch.common.registry import registry
 from vlm_compression_tpu_torch.tasks import (  # noqa: F401
     captioning,
+    classification,
     pretrain,
     retrain,
     retrieval,

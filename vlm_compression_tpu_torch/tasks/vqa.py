@@ -1,13 +1,16 @@
 """VQA / OK-VQA / GQA tasks — answers generated (or ranked over a candidate
-list) by InstructBLIP-T5 or InstructBLIP-Vicuna and scored with the
-official metrics (port of ``vlm_compression_tpu/tasks/vqa.py``).
+list) by InstructBLIP-T5, InstructBLIP-Vicuna or BLIP-2 OPT and scored with
+the official metrics (port of ``vlm_compression_tpu/tasks/vqa.py``).
 
 ``valid_step`` formats each question with the prompt, encodes it for the
-Q-Former and for the language model (128 tokens; for Vicuna left-padded
-with BOS first) and either generates a short answer (beam search,
-``max_len`` new tokens) or, with ``answer_list`` set, picks the candidate
-of least decoder NLL (InstructBLIP-T5 only).  With ``speculative_gamma``
-set (the run config's, or the CLI's ``--speculative_gamma``) the answers
+Q-Former and for the language model (128 tokens; for Vicuna and OPT
+left-padded with BOS first; OPT's Q-Former takes no text) and either
+generates a short answer (beam search, ``max_len`` new tokens) or, with
+``answer_list`` set, picks the candidate of least NLL
+(``predict_class_t5`` on T5; every other model goes to
+``predict_class_vicuna``, as in the JAX package, which ranks on Vicuna
+only).  With ``speculative_gamma`` set (the run config's, or the CLI's
+``--speculative_gamma``) the answers
 are the dense teacher's greedy decode, the masked student drafting: beams
 give way to greedy, with a warning, as in the JAX package; ``spec_stats``
 sums the decodes' ``rounds``, ``committed`` and ``rows``.
@@ -39,6 +42,7 @@ from vlm_compression_tpu_torch.evaluation.vqa_eval import (
     VQAEval,
     gqa_exact_match,
 )
+from vlm_compression_tpu_torch.models.blip2_opt import Blip2OPT, generate_opt
 from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
     Blip2T5Instruct,
     generate_t5,
@@ -47,15 +51,12 @@ from vlm_compression_tpu_torch.models.blip2_t5_instruct import (
 from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
     Blip2VicunaInstruct,
     generate_vicuna,
+    predict_class_vicuna,
 )
 from vlm_compression_tpu_torch.models.generation import GenerationConfig
 from vlm_compression_tpu_torch.tasks.base import BaseTask
 
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} needs an InstructBLIP-T5 model: ranking on Vicuna and the "
-        "OPT composition are not ported yet (ROADMAP queue 1, item 8)")
+_GENERATORS = (Blip2T5Instruct, Blip2VicunaInstruct, Blip2OPT)
 
 
 @registry.register_task("vqa")
@@ -144,24 +145,36 @@ class VQATask(BaseTask):
         return out
 
     def valid_step(self, model, samples) -> List[Dict]:
-        """model: an InstructBLIP-T5 (``Blip2T5Instruct``) or -Vicuna
-        (``Blip2VicunaInstruct``).  With ``answer_list`` set, answers are
-        ranked by decoder NLL over the candidates instead of generated."""
+        """model: an InstructBLIP-T5 (``Blip2T5Instruct``), -Vicuna
+        (``Blip2VicunaInstruct``) or BLIP-2 OPT (``Blip2OPT``).  With
+        ``answer_list`` set, answers are ranked by NLL over the candidates
+        instead of generated."""
         if self.answer_list:
             return self._rank_step(model, samples)
+        if not isinstance(model, _GENERATORS):
+            raise TypeError(
+                f"the VQA tasks generate with InstructBLIP-T5, "
+                f"InstructBLIP-Vicuna or BLIP-2 OPT, not "
+                f"{type(model).__name__}")
+        opt = isinstance(model, Blip2OPT)
         vicuna = isinstance(model, Blip2VicunaInstruct)
-        if not (vicuna or isinstance(model, Blip2T5Instruct)):
-            raise _not_ported("generating answers")
-        image, ids, mask, q_ids, q_mask = self._encode(model, samples,
-                                                       decoder_only=vicuna)
-        eos = dict(eos_token_id=model.cfg.llm.eos_token_id) if vicuna else {}
+        image, ids, mask, q_ids, q_mask = self._encode(
+            model, samples, decoder_only=vicuna or opt)
+        eos = (dict(eos_token_id=2, pad_token_id=1) if opt
+               else dict(eos_token_id=model.cfg.llm.eos_token_id) if vicuna
+               else {})
         gen_cfg = GenerationConfig(
             num_beams=self.num_beams, max_length=self.max_len + 1,
             min_length=self.min_len, **eos)
         gen_cfg, spec_kw = self._spec(gen_cfg)
-        generate = generate_vicuna if vicuna else generate_t5
-        seqs = generate(model, image, ids, mask, q_ids, q_mask,
-                        gen_cfg=gen_cfg, **spec_kw)
+        if opt:
+            # BLIP-2 OPT's Q-Former takes no instruction text
+            seqs = generate_opt(model, image, ids, mask, gen_cfg=gen_cfg,
+                                **spec_kw)
+        else:
+            generate = generate_vicuna if vicuna else generate_t5
+            seqs = generate(model, image, ids, mask, q_ids, q_mask,
+                            gen_cfg=gen_cfg, **spec_kw)
         if spec_kw:
             for key in ("rounds", "committed"):
                 self.spec_stats[key] += spec_kw["stats"][key]
@@ -187,12 +200,21 @@ class VQATask(BaseTask):
                      speculative_gamma=self.speculative_gamma, stats={}))
 
     def _rank_step(self, model, samples) -> List[Dict]:
-        if not isinstance(model, Blip2T5Instruct):
-            raise _not_ported("ranking an answer list")
+        """T5 scores -100-padded labels; any other model goes to
+        ``predict_class_vicuna`` (right-padded prompts, no BOS, as in the
+        JAX package), which takes InstructBLIP-Vicuna alone."""
         image, ids, mask, q_ids, q_mask = self._encode(model, samples)
-        cands = batch_labels(self.tokenizer, self.answer_list, self.max_len)
-        nll = predict_class_t5(model, image, ids, mask,
-                               torch.from_numpy(cands), q_ids, q_mask)
+        if isinstance(model, Blip2T5Instruct):
+            cands = batch_labels(self.tokenizer, self.answer_list,
+                                 self.max_len)
+            nll = predict_class_t5(model, image, ids, mask,
+                                   torch.from_numpy(cands), q_ids, q_mask)
+        else:
+            c_ids, c_mask = batch_encode(self.tokenizer, self.answer_list,
+                                         self.max_len)
+            nll = predict_class_vicuna(
+                model, image, ids, mask, torch.from_numpy(c_ids),
+                torch.from_numpy(c_mask), q_ids, q_mask)
         # argmin: the first candidate on ties
         best = torch.argmin(nll, dim=-1).cpu().tolist()
         return self._records(samples, [self.answer_list[b] for b in best])
