@@ -201,7 +201,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 first, beside the weights' relative RMS error and two
                 controls (the packed bf16 model, 0 expected; every masked
                 kernel perturbed by a seeded 1e-3 and 1e-2 relative);
-  6b. quant path — a full-width XL cut to 8/5/5 blocks (seed 15; the cut:
+  6b. quant path — a full-width XL cut to 4/3/3 blocks (seed 15; the cut:
                 the GPTQ sweep walks its columns one at a time):
                 ``blipt5_gptq_pruner`` jointly at 0.5 / 0.5 (4 bits, group
                 128, symmetric; each linear 0.5 ± 0.01, at most 16 values
@@ -247,7 +247,7 @@ each of which fails the run (non-zero exit, no result line) on error:
                 0.4 (each linear 0.6 ± 0.01, every tile dense or 2:4), a
                 beam-5 generate after each; transposable 2:4 of T5 wi_0's
                 |W| card vs CPU, bit-equal; ``blipt5_softmask_pruner`` 2:4
-                (48 steps, lr 0.1) at 8/5/5 blocks — the cut: its fp32
+                (48 steps, lr 0.1) at 4/3/3 blocks — the cut: its fp32
                 products are about 2.9 PFLOP at 39/24/24 — every group of
                 4 keeping 2, each linear's OBS error at most its Wanda
                 start's, beam-5 generate; ``WoodFisher`` over three named
@@ -332,6 +332,32 @@ each of which fails the run (non-zero exit, no result line) on error:
                 device ms, and its wall ms in the warm pass and the direct
                 call, with the image and caption branches' rates,
                 extrapolated to the Flickr30k and COCO 5k test splits;
+ 11b. zoo path — the legacy image-text zoo at full width, bf16 (the
+                towers' linears stored in bf16), seeded random weights and
+                a 50 % per-linear magnitude mask on every linear (EVA-CLIP's
+                vision tower dense): BLIP-1 base ``blip_retrieval``, ALBEF
+                base ``albef_retrieval``, CLIP ``ClipConfig.base()`` and
+                EVA-CLIP through ``RetrievalTask`` at k_test 128 over 64
+                images and 320 captions (the cut of Flickr30k's 1000 ×
+                5000): score matrices finite, each reranked row with
+                exactly min(k, n) entries off the −100.0 fill, R@k and the
+                extrapolation; ALBEF's pass on a 16 × 80 cut profiled (busy
+                share); CLIP's text over 77 tokens; ``BlipVQA.rank_answers``
+                (16 questions × 128 candidates), ten greedy
+                ``BlipCaption.decode_step`` calls at batch 4, a
+                ``BlipNLVR`` forward and ``BlipClassification.predict``;
+                ``cli.evaluate`` on configs/projects/blip/eval/
+                ret_flickr_eval.yaml over 16 seeded .npy images (the
+                processor's 384 set to 224: the factory builds the 224
+                tower, as JAX's does); launches of rows 1 and 4 by route;
+                every shape held in phase 3 (``check_zoo_kernels``: both
+                dtypes, two identical calls bit-equal) and tiny float32
+                BLIP-1, ALBEF and CLIP card vs CPU in phase 4
+                (``zoo_sim_matrix`` within 1e-4, the reranked entries the
+                same).  Remat: after the main path's and the Vicuna
+                retrain, one KD step without per-block remat, one with it
+                and one without again (``remat_check``): loss and every
+                LoRA gradient bit-equal, both peaks and times printed;
  12. cli path — the launcher's T5 grid point ``prune_and_eval("wanda",
                 0.5, 0.5)`` (scripts/launch_lib.py:41-84) through the port's
                 own ``cli.evaluate`` (argv composed here, calls made in this
@@ -1172,6 +1198,14 @@ def flash_inputs(b, n, m, h, d, kinds, dtype, seed=0):
                           .expand(1, 1, n, m).contiguous())
         elif kind in ("cpad", "lpad", "lpad0", "dstep"):
             biases.append(llama_bias(kind, b, n, m, g))
+        elif kind == "medc":
+            # MED's causal mask with its right padding, one (b, 1, n, m)
+            # bias; the first key always kept
+            keep = torch.rand(b, 1, 1, m, generator=g, device="cuda") < 0.9
+            keep[..., 0] = True
+            vis = (torch.arange(m, device="cuda")[None, :]
+                   <= torch.arange(n, device="cuda")[:, None] + (m - n))
+            biases.append(torch.where(keep & vis, 0.0, NEG_INF))
         elif kind == "relc":
             vis = (torch.arange(m, device="cuda")[None, :]
                    <= torch.arange(n, device="cuda")[:, None] + (m - n))
@@ -3189,10 +3223,11 @@ def check_shapes(shapes: dict, what: str):
     the attention forward's (FLASH_SHAPES, VICUNA_FLASH_SHAPES and the
     backward's shapes) and the attention backward's (``bwd_held``)."""
     held_bwd = {tuple(c[1:6]) for c in bwd_held()}
-    mm = {(m, k, n) for _, m, k, n in MM_SHAPES + SERVE_SHAPES}
+    mm = {(m, k, n) for _, m, k, n in MM_SHAPES + SERVE_SHAPES} \
+        | {(m, k, n) for _, m, k, n, _ in zoo_mm_shapes()}
     lora = {(m, k, n, r) for _, m, k, n, r in LORA_SHAPES}
-    fl = {tuple(c[1:6]) for c in FLASH_SHAPES + VICUNA_FLASH_SHAPES} \
-        | held_bwd
+    fl = {tuple(c[1:6]) for c in FLASH_SHAPES + VICUNA_FLASH_SHAPES
+          + zoo_flash_shapes()} | held_bwd
     # a matmul launch that is not a sparse-LoRA one is the masked, packed
     # or int8 kernel's
     plain_mm = {}
@@ -3976,6 +4011,11 @@ def main_path():
     check_shapes({"retrain": read_shapes()}, "retrain")
     log(f"  retrain attention per step, by route: "
         f"{attn_routes(counts['retrain'], 1 + N_TIMED_STEPS + N_REPLAY)}")
+    counts["remat_t5"], remat_shapes, remat = remat_check(
+        model, synthetic_batches(cfg, 1, TRAIN_BS, torch.Generator(
+            device="cuda").manual_seed(7))[0], "t5")
+    check_shapes({"remat_t5": remat_shapes}, "remat")
+    retrain.update(remat)
     merge_and_check(model)
     reset_counts()
     t0 = time.perf_counter()
@@ -4563,7 +4603,8 @@ def w8a8_forms(model, cfg, req, seqs, ref_logits) -> tuple:
 
 # the cut: the GPTQ sweep walks its columns one at a time (about 846 k
 # columns at 39/24/24, against 175 k at this depth); every width kept
-GPTQ_DEPTH = (8, 5, 5)
+# 4/3/3 since PR 23 (8/5/5 before: room for the zoo path)
+GPTQ_DEPTH = (4, 3, 3)
 GPTQ_SEED = 15
 GPTQ_GROUP = 128
 # the linears whose calibration Hessians the OBS-loss gates read: (tower,
@@ -5875,15 +5916,17 @@ def vicuna_path():
     counts.update(dsnot_counts)
     # LLaMA's d = 128 attention by phase and route: each phase launched
     # it, on the TMA + wgmma kernels alone (the mma.sync counters also
-    # read 0 there: check_phase_counts)
+    # read 0 there: check_phase_counts); the retrain and remat phases
+    # backward too
     d128 = d128_launches(shapes)
     d128.update(dsnot.pop("vicuna_d128_dsnot"))
     log(f"  vicuna: LLaMA's d = 128 attention launches by phase and route "
         f"{json.dumps(d128)}")
     for phase, row in d128.items():
+        trains = phase in ("vicuna_retrain", "remat_vicuna")
         if not row["forward"] or set(row["forward"]) != {"wgmma"} or \
                 set(row["backward"]) - {"wgmma"} or \
-                (phase == "vicuna_retrain") != bool(row["backward"]):
+                trains != bool(row["backward"]):
             raise AssertionError(f"vicuna {phase}: d = 128 launches {row}")
     return counts, {
         "vicuna_d128_launches": d128,
@@ -5928,6 +5971,9 @@ def vicuna_retrain(model, req, gen_cfg, counts, shapes, secs) -> dict:
     out = run_retrain(model, batches, prefix="vicuna_retrain")
     counts["vicuna_retrain"] = read_counts()
     shapes["vicuna_retrain"] = read_shapes()
+    counts["remat_vicuna"], shapes["remat_vicuna"], remat = remat_check(
+        model, batches[0], "vicuna")
+    out.update(remat)
     log(f"  vicuna retrain attention per step, by route: "
         f"{attn_routes(counts['vicuna_retrain'], 1 + N_TIMED_STEPS + N_REPLAY)}")
     state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
@@ -5957,7 +6003,7 @@ def vicuna_retrain(model, req, gen_cfg, counts, shapes, secs) -> dict:
         raise AssertionError(f"bad merged generate_vicuna output {seqs}")
     log(f"  generate_vicuna beam-5 from the merged model: "
         f"{secs['generate_vicuna_merged']:.3f} s, tokens {seqs.tolist()}")
-    phases = ("vicuna_retrain", "generate_vicuna_merged")
+    phases = ("vicuna_retrain", "remat_vicuna", "generate_vicuna_merged")
     log(f"  launches: {json.dumps({p: counts[p] for p in phases})}")
     check_phase_counts({p: counts[p] for p in phases})
     check_shapes({p: shapes[p] for p in phases}, "vicuna retrain")
@@ -7225,7 +7271,8 @@ def cli_train_path() -> tuple:
 # block inverses), then evaluate_woodfisher twice at full width
 PRUNERS_SEED = 10
 HYBRID_TILE = 64
-SOFTMASK_DEPTH = (8, 5, 5)
+# 4/3/3 since PR 23 (8/5/5 before: room for the zoo path)
+SOFTMASK_DEPTH = (4, 3, 3)
 N_WF = 8
 WF_LEAVES = (("visual_encoder", "blocks_0", "attn", "qkv", "kernel"),
              ("t5_model", "encoder", "blocks_0", "self_attn", "q", "kernel"),
@@ -8044,11 +8091,12 @@ def profile_main_path(e2e):
 
 
 # the cut that keeps the command within its limit: the SparseGPT prune's
-# trace at 4/3/3 of its 39/24/24 blocks (at 8/5/5 the two prunes took
-# 66.0 s of the profile phase on one H100); the compressed path runs it at
-# full depth.  The grid path's prunes are not traced (their walls stand in
+# trace at 2/2/2 of its 39/24/24 blocks (at 8/5/5 the two prunes took
+# 66.0 s of the profile phase on one H100; 4/3/3 in PRs 21-22); the
+# compressed path runs it at full depth.  The grid path's prunes are not traced (their walls stand in
 # their own path)
-SPARSEGPT_PROFILED_DEPTH = (4, 3, 3)
+# 2/2/2 since PR 23 (4/3/3 before: room for the zoo path)
+SPARSEGPT_PROFILED_DEPTH = (2, 2, 2)
 
 
 def profile_sparsegpt_prune(e2e):
@@ -8489,6 +8537,794 @@ def timing_compressed(rows, wmma):
     return table
 
 
+# ------------------------------------------------------------------ the zoo
+# The legacy image-text zoo at full width, bf16, seeded random weights:
+# BLIP-1 base (ViT-B/16 at 224, MED-BERT-base 12 × 768, vocabulary 30524),
+# ALBEF base (fusion from layer 6), CLIP ``ClipConfig.base()`` and EVA-CLIP
+# (EVA ViT-g with CLIP's text tower).  Every linear of BLIP-1, ALBEF and
+# CLIP, and of EVA-CLIP outside its vision tower, gets a 50 % per-linear
+# magnitude mask (``ops/masks.unstructured_mask`` of |W|): no JAX pruner
+# sweeps these towers.  The retrieval task runs at ``k_test`` 128 on the
+# cut of ZOO_IMAGES images × ZOO_PER_IMAGE captions (Flickr30k's test set
+# is 1000 × 5000); every caption's tokens are clipped at the task's 35
+# (the longest caption has 40 words, a token a word).  Then direct calls
+# of the other BLIP-1 heads and one ``cli.evaluate`` call on the BLIP
+# retrieval yaml.
+ZOO_SEED = 17
+ZOO_IMAGES, ZOO_PER_IMAGE = 64, 5
+ZOO_RUN = dict(task="retrieval", batch_size_eval=64, k_test=128)
+ZOO_TXT = 35
+ZOO_WORDS = (8, 40)
+ZOO_PATCHES = 197                     # ViT-B/16 at 224: 14 · 14 + CLS
+ZOO_FAMILIES = ("blip_retrieval", "albef_retrieval", "clip", "eva_clip")
+ZOO_VQA = (16, 128)                   # questions × candidate answers
+ZOO_Q_WORDS, ZOO_A_WORDS = 8, 3       # the longest question and answer
+ZOO_DEC_B, ZOO_DEC_STEPS = 4, 10      # BlipCaption.decode_step, greedy
+ZOO_SMALL_B, ZOO_SMALL_WORDS = 4, 12  # the NLVR and classification calls
+ZOO_N_CLASSES = 3
+CLIP_CTX, CLIP_CTX_B = 77, 16         # a direct encode_text over 77 tokens
+ZOO_CLI_YAML = "configs/projects/blip/eval/ret_flickr_eval.yaml"
+ZOO_CLI_IMAGE = (256, 320)
+ZOO_CLI_IMAGES = 16                   # the CLI call's cut: 16 × 80
+# the pass traced for the busy share: ALBEF's, on the CLI call's cut of
+# ZOO_CLI_IMAGES images (its ITM rows as the full pass's, fewer of them)
+ZOO_PROFILED = "albef_retrieval"
+# the towers' linears, stored in bf16 here (the configs' param_dtype is
+# float32, as in the JAX package: each product would cast its kernel and
+# bias first); the ITC projections and heads stay float32
+ZOO_TOWERS = ("visual_encoder.", "text_encoder.", "visual.",
+              "text.resblocks_")
+ZOO_TINY = ("blip_retrieval", "albef_retrieval", "clip")
+
+# the zoo path: every retrieval family's masked towers on the Hopper loop
+# and its float32 heads on the CUDA-core loop, every attention on TMA +
+# wgmma (d = 64; EVA-CLIP's 88); the greedy caption steps on the decode
+# kernel; the CLI's model holds no mask (attention alone); no backward and
+# no WMMA loop anywhere.  Remat: the retrain step's kernels, twice
+ZOO_PHASES = tuple(f"zoo_{a}" for a in ZOO_FAMILIES) + (
+    f"zoo_{ZOO_PROFILED}_cut", "zoo_clip_ctx77", "zoo_blip_vqa", "zoo_blip_caption", "zoo_blip_nlvr",
+    "zoo_blip_classification", "zoo_cli")
+PHASE_KERNELS.update({p: RETRIEVAL for p in ZOO_PHASES})
+PHASE_KERNELS.update(zoo_clip_ctx77=("masked_matmul", "flash_attention",
+                                     FWD_WGMMA, WGMMA_LOOP),
+                     zoo_blip_caption=SERVE + (FWD_WGMMA,),
+                     zoo_cli=("flash_attention", FWD_WGMMA),
+                     remat_t5=PHASE_KERNELS["retrain"],
+                     remat_vicuna=PHASE_KERNELS["retrain"])
+for _phase in ZOO_PHASES:
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (WMMA_LOOP,)
+PHASE_FORBIDDEN.update(remat_t5=PHASE_FORBIDDEN["retrain"],
+                       remat_vicuna=PHASE_FORBIDDEN["retrain"])
+
+
+def zoo_mm_shapes() -> list:
+    """(name, M, K, N, dtype) of every masked linear the zoo path runs:
+    the towers in bf16, the ITC projections and the heads in float32."""
+    T, P, H, W = ZOO_TXT, ZOO_PATCHES, 768, 512
+    n_txt = ZOO_IMAGES * ZOO_PER_IMAGE
+    k_i2t = min(ZOO_RUN["k_test"], n_txt)
+    k_t2i = min(ZOO_RUN["k_test"], ZOO_IMAGES)
+    q, c = ZOO_VQA
+    out = []
+
+    def add(name, m, k, n, dtype=torch.bfloat16):
+        out.append((name, m, k, n, dtype))
+
+    def vit(tag, b):
+        add(f"zoo_vit_qkv_{tag}", b * P, H, 3 * H)
+        add(f"zoo_vit_proj_{tag}", b * P, H, H)
+        add(f"zoo_vit_fc1_{tag}", b * P, H, 4 * H)
+        add(f"zoo_vit_fc2_{tag}", b * P, 4 * H, H)
+
+    def med(tag, rows):
+        add(f"zoo_med_qkvo_{tag}", rows, H, H)
+        add(f"zoo_med_ffn1_{tag}", rows, H, 4 * H)
+        add(f"zoo_med_ffn2_{tag}", rows, 4 * H, H)
+
+    def clip_text(tag, rows):
+        add(f"zoo_clip_qkv_{tag}", rows, W, 3 * W)
+        add(f"zoo_clip_proj_{tag}", rows, W, W)
+        add(f"zoo_clip_fc_{tag}", rows, W, 4 * W)
+        add(f"zoo_clip_cproj_{tag}", rows, 4 * W, W)
+
+    vit("b64", ZOO_IMAGES)
+    vit("b16", q)
+    vit("b4", ZOO_SMALL_B)
+    med("text", n_txt * T)
+    med("i2t", k_i2t * T)
+    med("t2i", k_t2i * T)
+    add("zoo_med_cross_kv_i2t", k_i2t * P, H, H)
+    med("vqa_q", q * ZOO_Q_WORDS)
+    med("vqa_a", q * c * ZOO_A_WORDS)
+    add("zoo_med_cross_kv_vqa_a", q * c * ZOO_Q_WORDS, H, H)
+    for t in range(1, ZOO_DEC_STEPS + 1):
+        med(f"dec{t}_decode", ZOO_DEC_B * t)
+    med("small", ZOO_SMALL_B * ZOO_SMALL_WORDS)
+    # the profiled pass on the CLI call's cut
+    n_cut = ZOO_CLI_IMAGES * ZOO_PER_IMAGE
+    med("cut_text", n_cut * T)
+    med("cut_t2i", ZOO_CLI_IMAGES * T)
+    add("zoo_med_cross_kv_cut_i2t", n_cut * P, H, H)
+    add("zoo_med_cross_kv_nlvr", ZOO_SMALL_B * 2 * P, H, H)
+    clip_text("text", n_txt * T)
+    clip_text("ctx77", CLIP_CTX_B * CLIP_CTX)
+    f32 = torch.float32
+    add("zoo_vision_proj", ZOO_IMAGES, H, 256, f32)
+    add("zoo_text_proj", n_txt, H, 256, f32)
+    add("zoo_itm_head_i2t", k_i2t, H, 2, f32)
+    add("zoo_itm_head_t2i", k_t2i, H, 2, f32)
+    add("zoo_vision_proj_cut", ZOO_CLI_IMAGES, H, 256, f32)
+    add("zoo_text_proj_cut", n_cut, H, 256, f32)
+    add("zoo_itm_head_cut_i2t", n_cut, H, 2, f32)
+    add("zoo_itm_head_cut_t2i", ZOO_CLI_IMAGES, H, 2, f32)
+    add("zoo_cls_head_nlvr", ZOO_SMALL_B, H, 2, f32)
+    add("zoo_cls_head", ZOO_SMALL_B, H, ZOO_N_CLASSES, f32)
+    add("zoo_clip_visual_proj", ZOO_IMAGES, H, W, f32)
+    add("zoo_clip_text_proj", n_txt, W, W, f32)
+    add("zoo_clip_text_proj_ctx77", CLIP_CTX_B, W, W, f32)
+    add("zoo_eva_clip_visual_proj", ZOO_IMAGES, 1408, 1024, f32)
+    add("zoo_eva_clip_text_proj", n_txt, W, 1024, f32)
+    seen, uniq = set(), []
+    for row in out:
+        if row[1:] not in seen:
+            seen.add(row[1:])
+            uniq.append(row)
+    return uniq
+
+
+def zoo_flash_shapes() -> list:
+    """(name, b, n, m, h, d, biases, scale, causal) of every attention the
+    zoo path runs.  "pad": MED's (b, 1, 1, m) padding bias (its all-ones
+    image mask is a bias too); "medc": MED's causal mask with its padding,
+    one (b, 1, n, n) bias; CLIP's text runs the causal flag, no bias."""
+    T, P, s = ZOO_TXT, ZOO_PATCHES, 0.125
+    n_txt = ZOO_IMAGES * ZOO_PER_IMAGE
+    k_i2t = min(ZOO_RUN["k_test"], n_txt)
+    k_t2i = min(ZOO_RUN["k_test"], ZOO_IMAGES)
+    q, c = ZOO_VQA
+    Ls = ZOO_SMALL_WORDS
+    out = [("zoo_vit_b64", ZOO_IMAGES, P, P, 12, 64, [], s, False),
+           ("zoo_vit_b16", q, P, P, 12, 64, [], s, False),
+           ("zoo_vit_b4", ZOO_SMALL_B, P, P, 12, 64, [], s, False),
+           ("zoo_eva_vit_b64", ZOO_IMAGES, 257, 257, 16, 88, [],
+            88 ** -0.5, False),
+           ("zoo_med_text", n_txt, T, T, 12, 64, ["pad"], s, False),
+           ("zoo_med_self_i2t", k_i2t, T, T, 12, 64, ["pad"], s, False),
+           ("zoo_med_cross_i2t", k_i2t, T, P, 12, 64, ["pad"], s, False),
+           ("zoo_med_self_t2i", k_t2i, T, T, 12, 64, ["pad"], s, False),
+           ("zoo_med_cross_t2i", k_t2i, T, P, 12, 64, ["pad"], s, False),
+           ("zoo_vqa_q_self", q, ZOO_Q_WORDS, ZOO_Q_WORDS, 12, 64, ["pad"],
+            s, False),
+           ("zoo_vqa_q_cross", q, ZOO_Q_WORDS, P, 12, 64, ["pad"], s, False),
+           ("zoo_vqa_a_self", q * c, ZOO_A_WORDS, ZOO_A_WORDS, 12, 64,
+            ["medc"], s, False),
+           ("zoo_vqa_a_cross", q * c, ZOO_A_WORDS, ZOO_Q_WORDS, 12, 64,
+            ["pad"], s, False),
+           ("zoo_small_self", ZOO_SMALL_B, Ls, Ls, 12, 64, ["pad"], s,
+            False),
+           ("zoo_nlvr_cross", ZOO_SMALL_B, Ls, 2 * P, 12, 64, ["pad"], s,
+            False),
+           ("zoo_cls_cross", ZOO_SMALL_B, Ls, P, 12, 64, ["pad"], s, False),
+           ("zoo_clip_text", n_txt, T, T, 8, 64, [], s, True),
+           # the CLI call's cut: its captions, and the rerank over them
+           # and over its images
+           ("zoo_cli_text", ZOO_CLI_IMAGES * ZOO_PER_IMAGE, T, T, 12, 64,
+            ["pad"], s, False),
+           ("zoo_cli_cross_i2t", ZOO_CLI_IMAGES * ZOO_PER_IMAGE, T, P, 12,
+            64, ["pad"], s, False),
+           ("zoo_cli_self_t2i", ZOO_CLI_IMAGES, T, T, 12, 64, ["pad"], s,
+            False),
+           ("zoo_cli_cross_t2i", ZOO_CLI_IMAGES, T, P, 12, 64, ["pad"], s,
+            False),
+           ("zoo_clip_ctx77", CLIP_CTX_B, CLIP_CTX, CLIP_CTX, 8, 64, [], s,
+            True)]
+    for t in range(1, ZOO_DEC_STEPS + 1):
+        out += [(f"zoo_dec_self_{t}", ZOO_DEC_B, t, t, 12, 64, ["medc"], s,
+                 False),
+                (f"zoo_dec_cross_{t}", ZOO_DEC_B, t, P, 12, 64, ["pad"], s,
+                 False)]
+    return out
+
+
+# timed for the kernel line: the Hopper loop (the ViT, the ITM rerank's
+# MED), the float32 loop (the ITM head), the decode kernel (a greedy step);
+# attention at the ViT's n = m = 197, the rerank's cross-attention over
+# 35 × 197, CLIP's causal 77 and MED's text pass
+ZOO_MM_TIMED = ("zoo_vit_qkv_b64", "zoo_med_ffn1_i2t", "zoo_itm_head_i2t",
+                "zoo_med_qkvo_dec10_decode")
+ZOO_FLASH_TIMED = ("zoo_vit_b64", "zoo_med_cross_i2t", "zoo_clip_ctx77",
+                   "zoo_med_text")
+
+
+def zoo_mm_bound_ms(m, k, n, dtype):
+    """x, W, the bool mask and y each once; the bf16 or float32 peak."""
+    if dtype == torch.bfloat16:
+        return mm_bound_ms(m, k, n)
+    t_ops = 2.0 * m * n * k / PEAK_F32_FLOPS
+    t_bytes = (4.0 * m * k + 5.0 * k * n + 4.0 * m * n) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_zoo_kernels(worst):
+    """Rows 1 and 4 at every zoo shape against their plain versions:
+    the masked matmul on the loop ``plan`` picks (bf16 tower shapes in
+    bf16 and float32, the float32 heads in float32), the attention forward
+    on the route ``plan_forward`` picks (and, in bf16, on the mma.sync
+    route); two identical calls of each bit-equal."""
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    n_mm = n_fl = 0
+    for name, m, k, n, own in zoo_mm_shapes():
+        dtypes = ((torch.bfloat16, torch.float32) if own == torch.bfloat16
+                  else (torch.float32,))
+        for dtype in dtypes:
+            tol = TOL[str(dtype).split(".")[-1]]
+            x, w, mask = mm_inputs(m, k, n, dtype)
+            before = loop_counts()
+            got = ML.masked_matmul(x, w, mask)
+            loop = check_loop("masked_matmul", name, m, k, n, dtype, before)
+            err, scale = max_err(got, ML.masked_matmul_ref(x, w, mask))
+            again = ML.masked_matmul(x, w, mask)
+            same = torch.equal(got, again)
+            ok = err <= tol * scale and same
+            log(f"  masked_matmul {name:28s} {str(dtype)[6:]:8s} M={m} "
+                f"K={k} N={n} {loop:6s} max_abs_err={err:.3e} (tol "
+                f"{tol * scale:.3e}), two calls bit-equal {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"masked_matmul {name} {dtype}")
+            if dtype == own:
+                worst[("masked_matmul", name, dtype)] = err
+            n_mm += 1
+    for name, b, n, m, h, d, kinds, scale, causal in zoo_flash_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = TOL[str(dtype).split(".")[-1]]
+            q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, dtype)
+            want = A.mha_reference(q, k_, v, biases, scale, causal)
+            planned = A.plan_forward(n, m, d, bf16=dtype == torch.bfloat16)
+            routes = [planned] + ([A.MMA] if dtype == torch.bfloat16
+                                  and planned != A.MMA else [])
+            for route in routes:
+                before = A.fwd_wgmma_launches
+                impl = None if route == planned else route
+                got, lse = A.flash_attention(q, k_, v, biases, scale, causal,
+                                             _impl=impl)
+                if (A.fwd_wgmma_launches - before) != (route == A.WGMMA):
+                    raise AssertionError(f"flash_attention {name}: route "
+                                         f"{route} not taken")
+                err, s = max_err(got, want)
+                same = True
+                if route == planned:
+                    got2, lse2 = A.flash_attention(q, k_, v, biases, scale,
+                                                   causal)
+                    same = torch.equal(got, got2) and torch.equal(lse, lse2)
+                ok = err <= tol * s and same
+                log(f"  flash_attention {name:22s} {str(dtype)[6:]:8s} "
+                    f"{route:5s} b={b} n={n} m={m} h={h} d={d} "
+                    f"biases={kinds} causal={causal} max_abs_err={err:.3e} "
+                    f"(tol {tol * s:.3e}), two calls bit-equal {same} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"flash_attention {name} {dtype} "
+                                         f"{route}")
+                if route == planned and dtype == torch.bfloat16:
+                    worst[("flash_attention", name, dtype)] = err
+                n_fl += 1
+    log(f"  the zoo's shapes: {n_mm} masked-matmul and {n_fl} attention "
+        f"checks, each within its tolerance and bit-equal to a second "
+        f"identical call")
+
+
+def zoo_bf16_towers_(model):
+    """The towers' linears (ZOO_TOWERS) stored in bf16, kernels and
+    biases."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, SparseLinear) and name.startswith(ZOO_TOWERS):
+                m.kernel.data = m.kernel.data.to(torch.bfloat16)
+                if m.bias is not None:
+                    m.bias.data = m.bias.data.to(torch.bfloat16)
+
+
+def zoo_masks_(model, skip: tuple = ()) -> int:
+    """A 50 % per-linear magnitude mask on every SparseLinear whose name
+    does not start with one of ``skip``: each output unit keeps the larger
+    half of its |w| (``ops/masks.unstructured_mask``).  Returns how many
+    linears it masked."""
+    from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+    from vlm_compression_tpu_torch.ops.masks import unstructured_mask
+
+    n = 0
+    for name, m in model.named_modules():
+        if isinstance(m, SparseLinear) and not (skip and name.startswith(
+                skip)):
+            metric = m.kernel.detach().float().abs().T
+            set_mask(m, unstructured_mask(metric, 0.5).T.contiguous())
+            n += 1
+    return n
+
+
+def zoo_retrieval_set(seed: int) -> tuple:
+    """ZOO_IMAGES seeded images (b, 224, 224, 3) on the card and
+    ZOO_PER_IMAGE seeded captions an image, the first one the longest."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn(ZOO_IMAGES, 224, 224, 3, generator=g,
+                         device="cuda")
+    text = retrieval_captions(ZOO_IMAGES * ZOO_PER_IMAGE,
+                              random.Random(seed), *ZOO_WORDS)
+    return images, text
+
+
+def zoo_fill_check(res: dict, rerank: bool, label: str,
+                   n_img: int = ZOO_IMAGES):
+    """The score matrices' shapes; every entry finite; with the ITM rerank
+    each row keeps min(k_test, columns) entries off the −100.0 fill."""
+    n_txt = n_img * ZOO_PER_IMAGE
+    for key, shape in (("score_i2t", (n_img, n_txt)),
+                       ("score_t2i", (n_txt, n_img))):
+        s = res[key]
+        if s.shape != shape or not bool((s == s).all()):
+            raise AssertionError(f"{label} {key}: shape {s.shape}")
+        if rerank:
+            kept = (s != -100.0).sum(1)
+            want = min(ZOO_RUN["k_test"], shape[1])
+            if not bool((kept == want).all()):
+                raise AssertionError(f"{label} {key}: {kept.min()}-"
+                                     f"{kept.max()} entries reranked a row, "
+                                     f"not {want}")
+
+
+def zoo_route_counts(c: dict) -> dict:
+    """A phase's launches of rows 1 and 4 by route."""
+    other = (c["masked_matmul"] - c[WGMMA_LOOP] - c[DECODE] - c[WMMA_LOOP])
+    return {"masked_matmul": {"hopper": c[WGMMA_LOOP], "decode": c[DECODE],
+                              "wmma": c[WMMA_LOOP], "fp32": other},
+            "flash_attention": {"wgmma": c[FWD_WGMMA],
+                                "mma_or_fp32": c[FWD_MMA]}}
+
+
+def zoo_cli(rec: dict) -> dict:
+    """One ``cli.evaluate`` call on the BLIP retrieval yaml over
+    ZOO_CLI_IMAGES seeded ``.npy`` images (ZOO_CLI_IMAGE, uint8) and
+    ZOO_PER_IMAGE captions an image, the processor's ``image_size`` set to
+    224: the factory builds ViT-B/16 at 224 whatever the yaml says (only
+    ``num_classes`` is read, in both packages), and the yaml's 384 would
+    meet a 197-token ``pos_embed``.  Returns its R@k and seconds."""
+    from vlm_compression_tpu_torch.cli.evaluate import parse_args, run
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    import numpy as np
+
+    rng = np.random.default_rng(ZOO_SEED)
+    text = retrieval_captions(ZOO_CLI_IMAGES * ZOO_PER_IMAGE,
+                              random.Random(ZOO_SEED + 1), *ZOO_WORDS)
+    with tempfile.TemporaryDirectory(prefix="zoo_cli_") as tmp:
+        os.makedirs(os.path.join(tmp, "img"))
+        anns = []
+        for i in range(ZOO_CLI_IMAGES):
+            np.save(os.path.join(tmp, "img", f"{i}.npy"),
+                    rng.integers(0, 256, ZOO_CLI_IMAGE + (3,),
+                                 dtype=np.uint8))
+            anns.append({"image": f"{i}.npy", "caption": text[
+                i * ZOO_PER_IMAGE:(i + 1) * ZOO_PER_IMAGE]})
+        ann = os.path.join(tmp, "test.json")
+        with open(ann, "w") as f:
+            json.dump(anns, f)
+        argv = ["--cfg-path", os.path.join(root, ZOO_CLI_YAML),
+                "--job_id", "zoo", "--seed", str(ZOO_SEED), "--options",
+                f"datasets.flickr30k.build_info.annotations.test=[{ann}]",
+                "datasets.flickr30k.build_info.images.storage="
+                f"{os.path.join(tmp, 'img')}",
+                "datasets.flickr30k.vis_processor.eval.image_size=224",
+                f"run.output_dir={os.path.join(tmp, 'out')}"]
+        log(f"  cli.evaluate {ZOO_CLI_YAML}: the yaml's "
+            f"vis_processor.eval.image_size 384 set to 224 with --options "
+            f"(the factory builds ViT-B/16 at 224 whatever the yaml says, "
+            f"as the JAX package's does; a 384 image would meet its "
+            f"197-token pos_embed)")
+        stats, _, timer = run_phase(rec, "zoo_cli",
+                                    lambda: run(parse_args(argv)))
+    res = stats["eval_results"]["test"]
+    log(f"  cli.evaluate blip_retrieval (k_test {ZOO_RUN['k_test']}, "
+        f"{ZOO_CLI_IMAGES} images × {ZOO_CLI_IMAGES * ZOO_PER_IMAGE} "
+        f"captions, the cut; seed {ZOO_SEED}; no masks: dense linears): "
+        f"{rec['secs']['zoo_cli']:.2f} s, phases {json.dumps(timer.stats)}"
+        f"; {json.dumps(res)}")
+    if not {"txt_r1", "img_r1", "r_mean"} <= set(res):
+        raise AssertionError(f"cli.evaluate zoo retrieval: {res}")
+    return {"zoo_cli_s": rec["secs"]["zoo_cli"], "zoo_cli_metrics": res}
+
+
+def zoo_direct(rec: dict) -> dict:
+    """The other BLIP-1 heads at full width, each with the masks of
+    ``zoo_masks_``: ``BlipVQA.rank_answers`` (ZOO_VQA questions ×
+    candidates), ten greedy ``BlipCaption.decode_step`` calls at batch
+    ZOO_DEC_B, a ``BlipNLVR`` forward and ``BlipClassification.predict``;
+    outputs finite, of their shapes."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.models.factory import build_model
+
+    g = torch.Generator(device="cuda").manual_seed(ZOO_SEED + 2)
+    rng = random.Random(ZOO_SEED + 2)
+    tok = SimpleTokenizer(30524)
+
+    def ids(texts):
+        i, m = batch_encode(tok, texts, ZOO_TXT)
+        return (torch.from_numpy(i).cuda(), torch.from_numpy(m).cuda())
+
+    def image(b):
+        return torch.randn(b, 224, 224, 3, generator=g, device="cuda")
+
+    q, c = ZOO_VQA
+    out = {}
+    for arch in ("blip_vqa", "blip_caption", "blip_nlvr",
+                 "blip_classification"):
+        node = dict(arch=arch)
+        if arch == "blip_classification":
+            node["num_classes"] = ZOO_N_CLASSES
+        model = build_model(node, seed=ZOO_SEED)
+        zoo_bf16_towers_(model)
+        zoo_masks_(model)
+        with torch.no_grad():
+            if arch == "blip_vqa":
+                img, (qi, qm) = image(q), ids(retrieval_captions(
+                    q, rng, 4, ZOO_Q_WORDS))
+                ci, cm = ids(retrieval_captions(c, rng, 1, ZOO_A_WORDS))
+                got = run_phase(rec, "zoo_blip_vqa", lambda: model.rank_answers(
+                    img, qi, qm, ci, cm))
+                want = (q, c)
+            elif arch == "blip_caption":
+                emb = model.encode_image(image(ZOO_DEC_B))
+
+                def greedy():
+                    seq = torch.full((ZOO_DEC_B, 1), 2, dtype=torch.int64,
+                                     device="cuda")
+                    for _ in range(ZOO_DEC_STEPS):
+                        logits = model.decode_step(emb, seq,
+                                                   torch.ones_like(seq))
+                        seq = torch.cat([seq, logits[:, -1].argmax(-1,
+                                                                  True)], 1)
+                    return seq
+
+                got = run_phase(rec, "zoo_blip_caption", greedy)
+                want = (ZOO_DEC_B, ZOO_DEC_STEPS + 1)
+            elif arch == "blip_nlvr":
+                ti, tm = ids(retrieval_captions(ZOO_SMALL_B, rng, 4,
+                                                ZOO_SMALL_WORDS))
+                a, b = image(ZOO_SMALL_B), image(ZOO_SMALL_B)
+                got = run_phase(rec, "zoo_blip_nlvr", lambda: model(
+                    a, b, ti, tm, labels=torch.zeros(
+                        ZOO_SMALL_B, dtype=torch.int64, device="cuda")))
+                want = (ZOO_SMALL_B, 2)
+            else:
+                ti, tm = ids(retrieval_captions(ZOO_SMALL_B, rng, 4,
+                                                ZOO_SMALL_WORDS))
+                a = image(ZOO_SMALL_B)
+                got = run_phase(rec, "zoo_blip_classification",
+                                lambda: model.predict(a, ti, tm))
+                want = (ZOO_SMALL_B, ZOO_N_CLASSES)
+        t = got["logits"] if isinstance(got, dict) else got
+        if tuple(t.shape) != want or not bool(torch.isfinite(
+                t.float()).all()):
+            raise AssertionError(f"zoo {arch}: {tuple(t.shape)} vs {want}")
+        phase = f"zoo_{arch}"
+        out[f"{phase}_s"] = rec["secs"][phase]
+        log(f"  {arch}: {rec['secs'][phase]:.3f} s, output "
+            f"{tuple(t.shape)}, launches by route "
+            f"{json.dumps(zoo_route_counts(rec['counts'][phase]))}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_path() -> tuple:
+    """The zoo path (see ZOO_SEED's comment): the four retrieval families
+    through ``RetrievalTask`` at k_test 128 (BLIP-1's pass profiled once
+    more for the busy share), CLIP's text over 77 tokens, the other
+    BLIP-1 heads and the CLI call.  Every launched shape was held in
+    phase 3; rows 1 and 4 launched in each phase; no backward, no WMMA
+    loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.evaluation.retrieval_metrics import (
+        itm_eval,
+    )
+    from vlm_compression_tpu_torch.models.factory import build_model
+    from vlm_compression_tpu_torch.tasks.retrieval import RetrievalTask
+
+    rec, out = new_record(), {}
+    images, text = zoo_retrieval_set(ZOO_SEED)
+    loader = RetrievalLoader(images, text, ZOO_PER_IMAGE,
+                             ZOO_RUN["batch_size_eval"])
+    n_img, n_txt = ZOO_IMAGES, ZOO_IMAGES * ZOO_PER_IMAGE
+    full_img, full_txt = RET_FULL["flickr30k_test"]
+    for arch in ZOO_FAMILIES:
+        t0 = time.perf_counter()
+        model = build_model(dict(arch=arch), seed=ZOO_SEED)
+        zoo_bf16_towers_(model)
+        clip = arch.endswith("clip")
+        n_mask = zoo_masks_(model, ("visual.",) if arch == "eva_clip"
+                            else ())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        vocab = (model.cfg.text if clip else model.cfg.med).vocab_size
+        task = RetrievalTask(k_test=ZOO_RUN["k_test"],
+                             tokenizer=SimpleTokenizer(vocab))
+        phase = f"zoo_{arch}"
+        res = run_phase(rec, phase, lambda: task.evaluation(model, loader))
+        zoo_fill_check(res, not clip, arch)
+        metrics = itm_eval(res["score_i2t"], res["score_t2i"],
+                           res["txt2img"], res["img2txt"])
+        secs = rec["secs"][phase]
+        # the rerank dominates: k_test ITM rows for each image and caption
+        # at the full set, against this cut's (ITC alone for CLIP: linear
+        # in the images and captions)
+        k = ZOO_RUN["k_test"]
+        scale = ((full_img + full_txt) / (n_img + n_txt) if clip else
+                 (full_img * k + full_txt * k)
+                 / (n_img * min(k, n_txt) + n_txt * min(k, n_img)))
+        log(f"  {arch}: {n_params / 1e6:.1f} M params, {n_mask} masked "
+            f"linears, built in {build_s:.1f} s; retrieval (k_test {k}, "
+            f"{n_img} images × {n_txt} captions, the cut of Flickr30k's "
+            f"{full_img} × {full_txt}): {secs:.3f} s, peak "
+            f"{rec['peaks'][phase] / 2**30:.2f} GiB; extrapolated to "
+            f"Flickr30k's test {secs * scale:.0f} s; "
+            f"{json.dumps(metrics)}; launches by route "
+            f"{json.dumps(zoo_route_counts(rec['counts'][phase]))}")
+        out[f"{phase}_s"] = secs
+        out[f"{phase}_flickr30k_s"] = secs * scale
+        out[f"{phase}_metrics"] = metrics
+        if arch == ZOO_PROFILED:
+            n_cut = ZOO_CLI_IMAGES * ZOO_PER_IMAGE
+            cut = RetrievalLoader(images[:ZOO_CLI_IMAGES], text[:n_cut],
+                                  ZOO_PER_IMAGE, ZOO_RUN["batch_size_eval"])
+            cut_res = run_phase(rec, f"{phase}_cut",
+                                lambda: task.evaluation(model, cut))
+            zoo_fill_check(cut_res, True, f"{arch} cut", ZOO_CLI_IMAGES)
+            wall = rec["secs"][f"{phase}_cut"]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                task.evaluation(model, cut)
+                torch.cuda.synchronize()
+            dev_ms, _ = device_breakdown(
+                prof, 1e3 * wall, f"zoo {arch} pass, {ZOO_CLI_IMAGES} × "
+                f"{n_cut} (the cut of the profile)")
+            out[f"{phase}_busy"] = dev_ms / (1e3 * wall)
+            del prof
+        if arch == "clip":
+            ids, _ = batch_encode(SimpleTokenizer(vocab), retrieval_captions(
+                CLIP_CTX_B, random.Random(ZOO_SEED), CLIP_CTX, CLIP_CTX + 8),
+                CLIP_CTX)
+            ids = torch.from_numpy(ids).cuda()
+            with torch.no_grad():
+                feats = run_phase(rec, "zoo_clip_ctx77",
+                                  lambda: model.encode_text(ids))
+            if tuple(feats.shape) != (CLIP_CTX_B, model.cfg.embed_dim) \
+                    or not bool(torch.isfinite(feats).all()):
+                raise AssertionError(f"clip encode_text: {feats.shape}")
+            log(f"  clip encode_text over {CLIP_CTX} tokens, batch "
+                f"{CLIP_CTX_B}: {rec['secs']['zoo_clip_ctx77']:.4f} s")
+        del model, task
+        gc.collect()
+        torch.cuda.empty_cache()
+    del images, loader
+    out.update(zoo_direct(rec))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(zoo_cli(rec))
+    log(f"  launches: {json.dumps(rec['counts'])}")
+    check_phase_counts(rec["counts"])
+    check_shapes(rec["shapes"], "zoo path")
+    out["zoo_launches_by_route"] = {
+        p: zoo_route_counts(c) for p, c in rec["counts"].items()}
+    return rec["counts"], out
+
+
+def tiny_zoo_check():
+    """Tiny float32 BLIP-1, ALBEF and CLIP retrieval models with random
+    masks on every linear, on the card (kernels) vs on the CPU (plain
+    versions): ``zoo_sim_matrix`` at k_test 0 and 3 over 6 images in
+    batches of 4 and 2 and 12 captions: the sims within 1e-4, each
+    rerank's picked entries (those off the −100.0 fill) the same."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.factory import build_model
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+    from vlm_compression_tpu_torch.tasks.retrieval import zoo_sim_matrix
+
+    for i, arch in enumerate(ZOO_TINY):
+        cpu = random_init_(build_model(dict(arch=arch, tiny=True, amp=False),
+                                       device="cpu"), seed=19 + i, std=0.2)
+        g = torch.Generator().manual_seed(19 + i)
+        for mod in cpu.modules():
+            if isinstance(mod, SparseLinear):
+                mod.mask = torch.rand(mod.kernel.shape, generator=g) < 0.6
+        gpu = copy.deepcopy(cpu).to("cuda")
+        images = torch.randn(6, 28, 28, 3, generator=g)
+        ids, mask = batch_encode(SimpleTokenizer(64), retrieval_captions(
+            12, random.Random(19 + i), 2, 9), 35)
+        res, launched = {}, {}
+        for side, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+            batches = [images[:4].to(dev), images[4:].to(dev)]
+            reset_counts()
+            res[side] = [zoo_sim_matrix(model, batches, ids, mask, k_test=k)
+                         for k in (0, 3)]
+            launched[side] = read_counts()
+        err = max(float(abs(g_ - w).max()) for r_c, r_w in zip(
+            res["card"], res["cpu"]) for g_, w in zip(r_c, r_w))
+        same = all(((g_ == -100.0) == (w == -100.0)).all()
+                   for g_, w in zip(res["card"][1], res["cpu"][1]))
+        c = launched["card"]
+        log(f"  tiny fp32 {arch} zoo_sim_matrix k_test 0 and 3, card vs "
+            f"CPU: max_abs_err={err:.3e} (tol 1e-4); the reranked entries "
+            f"the same {same}; masked_matmul launches {c['masked_matmul']}, "
+            f"attention forwards {c['flash_attention']}")
+        if not (err <= 1e-4 and same and c["masked_matmul"] > 0
+                and c["flash_attention"] > 0):
+            raise AssertionError(f"tiny zoo check {arch}")
+
+
+def remat_check(model, batch, label: str) -> tuple:
+    """One KD step without per-block remat, one with it (``set_remat_``)
+    and one without again, each from the same LoRA factors with a fresh
+    AdamW: the loss, CE, KL and every LoRA gradient bit-equal (the
+    recompute re-enters the same kernels with the same plans and kv
+    order); each step's seconds and peak memory.  The factors are restored and remat switched off after.
+    Returns (the launches of both steps, their shapes, the numbers)."""
+    from vlm_compression_tpu_torch.models.factory import set_remat_
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        RessaTrainState,
+        make_kd_train_step,
+    )
+
+    state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+    saved = {n: p.detach().clone() for n, p in state.lora.items()}
+    runs = {}
+    reset_counts()
+    # plain, remat, plain: the two plain steps hold the step's run-to-run
+    # determinism beside remat's
+    for key, on in (("plain", False), ("remat", True), ("again", False)):
+        set_remat_(model, on)
+        with torch.no_grad():
+            for n, p in state.lora.items():
+                p.copy_(saved[n])
+        state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+        step = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        met = step(batch, 1e-6)
+        torch.cuda.synchronize()
+        runs[key] = dict(s=time.perf_counter() - t0,
+                        peak=torch.cuda.max_memory_allocated(),
+                        met={k: v.detach().clone() for k, v in met.items()},
+                        grads={n: p.grad.detach().clone()
+                               for n, p in state.lora.items()})
+        state.opt.zero_grad(set_to_none=True)
+    set_remat_(model, False)
+    with torch.no_grad():
+        for n, p in state.lora.items():
+            p.copy_(saved[n])
+    counts, shapes = read_counts(), read_shapes()
+    off, on, again = runs["plain"], runs["remat"], runs["again"]
+
+    def differ(a, b):
+        met = [k for k in a["met"] if not torch.equal(a["met"][k],
+                                                      b["met"][k])]
+        grads = {n: int((a["grads"][n] != b["grads"][n]).sum())
+                 for n in a["grads"]
+                 if not torch.equal(a["grads"][n], b["grads"][n])}
+        return met, grads
+
+    diff_met, diff = differ(off, on)
+    rerun_met, rerun = differ(off, again)
+    bad = bool(diff or diff_met or rerun or rerun_met)
+    log(f"  {label} KD step (batch {TRAIN_BS}) without remat: "
+        f"{off['s']:.3f} s and again {again['s']:.3f} s, peak "
+        f"{off['peak'] / 2**30:.2f} GiB; with remat (every EVA-ViT and "
+        f"{label} block checkpointed): {on['s']:.3f} s, peak "
+        f"{on['peak'] / 2**30:.2f} GiB; loss "
+        f"{float(on['met']['loss']):.6f}; remat vs not: metrics that differ "
+        f"{diff_met}, LoRA gradients that differ {len(diff)} of "
+        f"{len(off['grads'])} ({sum(diff.values())} entries); the plain "
+        f"step twice: {rerun_met}, {len(rerun)} "
+        f"{'FAIL' if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"{label} remat: gradients differ "
+                             f"{sorted(diff)[:4]} {diff_met}; plain twice "
+                             f"{sorted(rerun)[:4]} {rerun_met}")
+    del state, step, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, shapes, {
+        f"remat_{label}_plain_s": off["s"],
+        f"remat_{label}_plain_again_s": again["s"],
+        f"remat_{label}_s": on["s"],
+        f"remat_{label}_plain_peak_bytes": off["peak"],
+        f"remat_{label}_peak_bytes": on["peak"]}
+
+
+def timing_zoo(worst) -> dict:
+    """Rows 1 and 4 at the zoo's timed shapes (ZOO_MM_TIMED,
+    ZOO_FLASH_TIMED): the kernel, the plain version, the library call
+    (``torch.matmul(x, W*mask)``; SDPA on its fastest backend, in turns)
+    and the bound, each a median of CUDA-event readings."""
+    import torch.nn.functional as F
+
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    rows = {}
+    for name, m, k, n, dtype in zoo_mm_shapes():
+        if name not in ZOO_MM_TIMED:
+            continue
+        x, w, mask = mm_inputs(m, k, n, dtype)
+        wm = w * mask
+        ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
+        plain = device_ms(lambda: ML.masked_matmul_ref(x, w, mask))
+        lib = device_ms(lambda: torch.matmul(x, wm))
+        bound, by = zoo_mm_bound_ms(m, k, n, dtype)
+        loop = expected_loop(m, k, n, dtype)
+        rows[("masked_matmul", name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+            bound_by=by, loop=loop, dtype=str(dtype)[6:], shape=[m, k, n],
+            max_abs_err=worst[("masked_matmul", name, dtype)])
+        log(f"  time masked_matmul {name:26s} {str(dtype)[6:]:8s} M={m} "
+            f"K={k} N={n} {loop:6s}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, torch.matmul(x, W*mask) {lib:.4f} ms, bound {bound:.4f} "
+            f"ms ({by})")
+    bf16 = torch.bfloat16
+    for name, b, n, m, h, d, kinds, scale, causal in zoo_flash_shapes():
+        if name not in ZOO_FLASH_TIMED:
+            continue
+        q, k_, v, biases = flash_inputs(b, n, m, h, d, kinds, bf16)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k_, v))
+        bsum = None
+        for x in biases:
+            bsum = x if bsum is None else bsum + x
+        bsum = None if bsum is None else bsum.expand(b, h, n, m).to(bf16)
+        lib = against_library(
+            lambda: A.attention_core(q, k_, v, biases, scale, causal),
+            sdpa_candidates(lambda be: pinned(
+                be, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bsum, scale=scale,
+                    is_causal=causal))))
+        plain = device_ms(lambda: A.mha_reference(q, k_, v, biases, scale,
+                                                  causal))
+        bound, by = flash_bound_ms(q, k_, v, biases)
+        if causal:      # the visible half of q·kᵀ and p·v
+            bound, by = _bound(2.0 * b * h * n * (n + 1) * d,
+                               (2 * q.numel() + k_.numel() + v.numel())
+                               * q.element_size() + 4.0 * b * h * n)
+        route = A.plan_forward(n, m, d)
+        rows[("flash_attention", name)] = dict(
+            ms=lib["kernel_ms"], plain_ms=plain,
+            library_ms=lib["library_ms"],
+            library_backend=lib["library_backend"], bound_ms=bound,
+            bound_by=by, route=route, shape=[b, n, m, h, d],
+            biases=kinds, causal=causal,
+            max_abs_err=worst[("flash_attention", name, bf16)])
+        log(f"  time flash_attention {name:22s} b={b} n={n} m={m} h={h} "
+            f"d={d} causal={causal} ({route}): {lib['kernel_ms']:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{library_note(lib)}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8537,6 +9373,8 @@ def main() -> int:
     worst = check_kernels()
     check_compressed_kernels(worst)
     check_dbias_kernel(worst)
+    log("[kernels] rows 1 and 4 at the zoo path's shapes")
+    check_zoo_kernels(worst)
     phase_done("kernels")
     log("[reference] tiny model, card vs CPU")
     tiny_reference_check()
@@ -8548,6 +9386,7 @@ def main() -> int:
     tiny_cli_train_check()
     tiny_pruners_check()
     tiny_loader_check()
+    tiny_zoo_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -8604,7 +9443,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("[pruners path] InstructBLIP-FlanT5-XL: RIA (against Wanda) and "
         "hybrid 2:4 tiles, beam-5 generate each; transposable 2:4; the "
-        "soft-mask anneal at 8/5/5 blocks (the cut), beam-5 generate; "
+        f"soft-mask anneal at {'/'.join(map(str, SOFTMASK_DEPTH))} blocks "
+        "(the cut), beam-5 generate; "
         "WoodFisher over named leaves; cli.evaluate_woodfisher: the unstrct "
         "prune and the pairwise block merge, each with its GQA pass")
     p_counts, p_e2e = pruners_path()
@@ -8638,6 +9478,19 @@ def main() -> int:
     phase_done("retrieval path")
     counts.update(r_counts)
     e2e.update(r_e2e)
+    log("[zoo path] the legacy zoo at full width, bf16, 50 % magnitude "
+        "masks: BLIP-1, ALBEF, CLIP and EVA-CLIP through the retrieval "
+        f"task at k_test {ZOO_RUN['k_test']} on {ZOO_IMAGES} images × "
+        f"{ZOO_IMAGES * ZOO_PER_IMAGE} captions (the cut), CLIP's text over "
+        f"{CLIP_CTX} tokens, BlipVQA.rank_answers, BlipCaption.decode_step, "
+        "BlipNLVR, BlipClassification.predict, and cli.evaluate on the "
+        "BLIP retrieval yaml")
+    z_counts, z_e2e = zoo_path()
+    phase_done("zoo path")
+    counts.update(z_counts)
+    e2e.update(z_e2e)
+    gc.collect()
+    torch.cuda.empty_cache()
     log("[cli path] the launcher's T5 grid point through the port's CLI: "
         "the Wanda prune call at batch 1 (checkpoint saved), the GQA eval "
         "call on the checkpoint, and again with --quantize_int4 and with "
@@ -8673,6 +9526,7 @@ def main() -> int:
         "phase 3, untimed)")
     rows, wmma, extra = timing()
     timing_compressed(rows, wmma)
+    zoo_rows = timing_zoo(worst)
     phase_done("timing")
     log(f"[phases] wall-clock s: "
         f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
@@ -8821,6 +9675,15 @@ def main() -> int:
                if dbias else {}),
             **({"also_replaces": "vlm_compression_tpu/ops/quant.py:84"}
                if kname == DECODE else {}),
+            # the zoo path's shapes (d = 64 attention, MED's padding and
+            # causal biases, CLIP's causal text, the float32 heads), and
+            # the zoo path's launches by route
+            **({"zoo": {name: r for (kn, name), r in zoo_rows.items()
+                        if kn == kname},
+                "zoo_launches_by_route": {
+                    p: r[kname]
+                    for p, r in e2e["zoo_launches_by_route"].items()}}
+               if kname in ("masked_matmul", "flash_attention") else {}),
             "max_abs_err": worst[err_key],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "shape": timed,

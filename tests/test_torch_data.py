@@ -218,9 +218,14 @@ def test_builder_items_and_loader_equal_jax(annotations, name, kind, vis,
 
 
 def test_unported_builders_raise_with_their_item():
-    for name, item in (("nlvr", "item 11"), ("msrvtt_qa", "item 11")):
+    for name, item in (("msvd_caption", "item 11"),
+                       ("msrvtt_qa", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             TB.load_builder(name, {})
+    # the classification and entailment builders are ported
+    for name in ("imagenet", "cifar100", "nlvr", "snli_ve"):
+        assert type(TB.load_builder(name, {})).__name__ == \
+            type(JB.load_builder(name, {})).__name__
     assert set(TB.registry.list_names("builder")) >= set(
         JB.registry.list_names("builder"))
 

@@ -15,6 +15,8 @@ Tolerances, and why:
   one step (2.1·lr) holds.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -297,10 +299,15 @@ def test_factory_ranks_dtype_policy_and_task():
     _, xl = TF.build_model_config(dict(model_type="flant5xl"))
     _, xxl = TF.build_model_config(dict(model_type="flant5xxl"))
     assert (xl.t5.d_model, xxl.t5.d_model) == (2048, 4096)
-    for bad in (dict(arch="blip2_opt"),
-                dict(use_grad_checkpoint=True)):
-        with pytest.raises(NotImplementedError):
-            TF.build_model_config(bad)
+    with pytest.raises(NotImplementedError):
+        TF.build_model_config(dict(arch="blip2_opt"))
+    # the reference's use_grad_checkpoint reaches every tower's use_remat
+    _, plain = TF.build_model_config(base)
+    _, remat = TF.build_model_config(dict(base, use_grad_checkpoint=True))
+    assert remat.vit.use_remat and remat.t5.use_remat
+    assert remat == dataclasses.replace(
+        plain, vit=dataclasses.replace(plain.vit, use_remat=True),
+        t5=dataclasses.replace(plain.t5, use_remat=True))
     model = TF.build_model(dict(base, tune_opt="LVQ"), seed=1, device="cpu")
     assert TP.count_parameters(model)["trainable"] > 0
     task = registry.get_task_class("image_text_retrain").setup_task(

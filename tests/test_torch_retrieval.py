@@ -357,7 +357,7 @@ def test_itm_eval_matches_jax_exactly(seed):
     assert json.dumps(got) == json.dumps(want)
 
 
-NOT_PORTED_KNOBS = {"use_remat"}
+NOT_PORTED_KNOBS = set()
 
 
 @pytest.mark.parametrize("arch", ["blip2", "blip2_feature_extractor",

@@ -360,8 +360,34 @@ def test_generate_vicuna_matches_jax(tiny, beams, min_length):
 
 
 def test_unported_vicuna_paths_raise(tiny):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TL.LlamaForCausalLM(TL.LlamaConfig.tiny(use_remat=True), device="cpu")
+    """``use_remat`` raised until it was ported: LLaMA with every block
+    checkpointed gives JAX's remat'd loss and logits, and the same loss,
+    logits and gradients as without it, bit for bit."""
+    jm, variables, tm, _ = tiny
+    rng = np.random.default_rng(23)
+    ids = rng.integers(3, jm.cfg.llm.vocab_size, (2, 7)).astype(np.int32)
+    mask = np.ones((2, 7), np.int32)
+    mask[0, :2] = 0
+    sub = {c: t["llm_model"] for c, t in variables.items()
+           if isinstance(t, dict) and "llm_model" in t}
+    jl = JL.LlamaForCausalLM(dataclasses.replace(jm.cfg.llm, use_remat=True))
+    want = jl.apply(sub, _j(ids), _j(mask), labels=_j(ids))
+    outs = []
+    for remat in (False, True):
+        lm = TL.LlamaForCausalLM(dataclasses.replace(tm.llm_model.cfg,
+                                                     use_remat=remat),
+                                 device="cpu")
+        load_jax_variables(lm, jax.tree_util.tree_map(np.asarray, sub))
+        with torch.enable_grad():
+            out = lm(_t(ids), _t(mask), labels=_t(ids))
+            out["loss"].backward()
+        outs.append((out, {n: p.grad for n, p in lm.named_parameters()}))
+    (plain, g0), (remat, g1) = outs
+    for key in ("loss", "logits"):
+        assert torch.equal(plain[key], remat[key])
+        np.testing.assert_allclose(remat[key].detach().numpy(),
+                                   np.asarray(want[key]), **TOL)
+    assert set(g0) == set(g1) and all(torch.equal(g0[n], g1[n]) for n in g0)
 
 
 @pytest.mark.parametrize("knob", ["kv_cache_int8", "kv_cache_per_row"])
@@ -643,8 +669,8 @@ def test_vqa_task_answers_are_a_direct_generate(tiny):
 # ----------------------------------------------------------------- factory
 
 
-# the JAX knobs the port's tower configs leave out (their factory raises)
-NOT_PORTED_KNOBS = {"use_remat"}
+# the JAX knobs the port's tower configs leave out (none since remat)
+NOT_PORTED_KNOBS = set()
 
 
 def _assert_fields_equal(tcfg, jcfg):

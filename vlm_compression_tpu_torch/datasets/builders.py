@@ -143,15 +143,19 @@ def load_builder(name: str, cfg=None) -> BaseDatasetBuilder:
     return registry.get_builder_class(name)(cfg)
 
 
-# the language-modeling corpus
+# the language-modeling corpus and the classification folders
 C4Builder = _register("c4", I.TextDataset, I.TextDataset)
+ImageNetBuilder = _register("imagenet", I.ClassificationDataset,
+                            I.ClassificationDataset)
+CIFAR100Builder = _register("cifar100", I.ClassificationDataset,
+                            I.ClassificationDataset)
 
-# not ported yet: classification folders, NLVR, SNLI-VE, video and dialogue
-# (the legacy zoo's tasks, item 11)
-for _n in ("imagenet", "cifar100"):
-    _not_ported(_n, "classification", "11")
-_not_ported("nlvr", "NLVR2 pairs", "11")
-_not_ported("snli_ve", "visual entailment", "11")
+# classification and entailment pairs
+NLVRBuilder = _register("nlvr", I.NLVRDataset, I.NLVRDataset)
+SNLIVEBuilder = _register("snli_ve", I.VisualEntailmentDataset,
+                          I.VisualEntailmentDataset)
+
+# not ported yet: video and dialogue (the legacy zoo's tasks, item 11)
 for _n in ("msrvtt_caption", "msvd_caption", "vatex_caption",
            "msrvtt_retrieval", "didemo_retrieval", "msrvtt_qa", "msvd_qa"):
     _not_ported(_n, "video", "11")

@@ -9,13 +9,18 @@ Annotations are JSON lists of dicts (LAVIS format):
               "answer": [str] | str}
   retrieval: {"image": rel_path, "caption": [str]}
   text:      {"text": str}  (C4; no image)
+  classification: {"image": rel_path, "label": int}
+  nlvr:      {"images": [rel_path, rel_path], "sentence": str,
+              "label": "True" | "False"}
+  entailment: {"image": rel_path, "sentence": str,
+               "label": "entailment" | "neutral" | "contradiction" | int}
 
 An image file ending in ``.npy`` is read with ``numpy.load`` (a uint8
 (H, W, 3) array: the form the card's machine reads, having no Pillow);
 any other file is decoded with Pillow, imported where it is read.  The
 LAION stream (``LaionDataset``) reads local webdataset tar shards the same
-way, member by member.  The classification, NLVR, entailment, video and
-dialogue items are not ported yet (ROADMAP queue 1, item 11).
+way, member by member.  The video and dialogue items are not ported yet
+(ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -199,6 +204,46 @@ def expand_braces(pattern: str) -> List[str]:
              for i in range(int(lo), int(hi) + 1)]
     return [h + tail for h in heads
             for tail in expand_braces(pattern[m.end():])]
+
+
+class ClassificationDataset(BaseItemDataset):
+    """(image, label) items: ImageNet / CIFAR-100 folders described by an
+    annotation list."""
+
+    def __getitem__(self, i):
+        ann = self.annotation[i]
+        return {"image": self._image(ann), "label": int(ann["label"]),
+                "instance_id": ann["instance_id"]}
+
+
+class NLVRDataset(BaseItemDataset):
+    """NLVR2 pairs: two images, a statement and whether it is true."""
+
+    def __getitem__(self, i):
+        ann = self.annotation[i]
+        img0, img1 = (self.vis_processor(load_image(
+            os.path.join(self.vis_root, p))) for p in ann["images"][:2])
+        return {"image0": img0, "image1": img1,
+                "text_input": self.text_processor(ann["sentence"]),
+                "label": int(str(ann.get("label", "")).lower() == "true"),
+                "instance_id": ann["instance_id"]}
+
+
+class VisualEntailmentDataset(BaseItemDataset):
+    """SNLI-VE: image + sentence → entailment (0), neutral (1) or
+    contradiction (2)."""
+
+    LABELS = {"entailment": 0, "neutral": 1, "contradiction": 2}
+
+    def __getitem__(self, i):
+        ann = self.annotation[i]
+        lab = ann.get("label", 0)
+        if isinstance(lab, str):
+            lab = self.LABELS[lab.strip().lower()]
+        return {"image": self._image(ann),
+                "text_input": self.text_processor(
+                    ann.get("sentence", ann.get("caption", ""))),
+                "label": int(lab), "instance_id": ann["instance_id"]}
 
 
 class LaionDataset:

@@ -1,7 +1,8 @@
 """Towers and compositions of the port (EVA ViT-g, Q-Former, FlanT5,
-LLaMA, OPT, InstructBLIP-T5, InstructBLIP-Vicuna, BLIP-2 OPT and the
-stage-1 BLIP-2 Q-Former), decoding, the weight bridge and the checkpoint
-converters; ``load_model`` and ``load_model_and_preprocess``, the LAVIS
+LLaMA, OPT, InstructBLIP-T5, InstructBLIP-Vicuna, BLIP-2 OPT, the stage-1
+BLIP-2 Q-Former, and the legacy zoo: the plain ViT, MED, BLIP-1, ALBEF,
+CLIP / EVA-CLIP and the plain T5), decoding, the weight bridge and the
+checkpoint converters; ``load_model`` and ``load_model_and_preprocess``, the LAVIS
 entry points (imports stay lazy, as in the JAX package)."""
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ are in the repository.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -128,7 +129,9 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
                  ) -> nn.Module:
     """Seeded random weights in place, on the model's own device: N(0, std)
     for kernels, embeddings and tokens; ones for norm scales; zeros for
-    biases; the stage-1 Q-Former's ``temp`` at its init, 0.07.  Base parameters are drawn in name order from one generator;
+    biases; ``temp`` (the stage-1 Q-Former's, BLIP-1's, ALBEF's) at its
+    init, 0.07, and CLIP's ``logit_scale`` at log(1 / 0.07).  Base
+    parameters are drawn in name order from one generator;
     LoRA adapters (A he-uniform, B zeros) from a second one, so a model
     with adapters draws the same base weights as one without."""
     gen = None
@@ -142,6 +145,8 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
             p.fill_(1.0)
         elif leaf == "temp":
             p.fill_(TEMP_INIT)
+        elif leaf == "logit_scale":
+            p.fill_(math.log(1 / TEMP_INIT))
         elif leaf in ("bias", "q_bias", "v_bias"):
             p.zero_()
         else:

@@ -2,9 +2,10 @@
 
 39 pre-LN blocks, embed 1408, 16 heads × 88 head-dim, MLP 6144, patch 14,
 fused qkv with separate q/v biases (k bias fixed at zero), no final norm
-in the BLIP-2 path.  Images are (b, h, w, 3) as in the JAX package; the
-patch embedding keeps the Flax conv kernel layout (p, p, 3, embed) and
-runs as a patchify + matmul (a stride-p VALID conv).  Submodule and
+in the BLIP-2 path; ``use_remat`` checkpoints every block.  Images are
+(b, h, w, 3) as in the JAX package; the patch embedding keeps the Flax
+conv kernel layout (p, p, 3, embed) and runs as a patchify + matmul (a
+stride-p VALID conv).  Submodule and
 parameter names follow the Flax tree (``blocks_<i>``, ``attn/qkv``, …).
 """
 
@@ -21,6 +22,7 @@ from vlm_compression_tpu_torch.models.layers import (
     LayerNorm,
     SparseLinear,
     gelu,
+    run_block,
 )
 from vlm_compression_tpu_torch.ops.attention import attention_core
 
@@ -42,6 +44,7 @@ class EvaViTConfig:
     lora_alpha: float = 16.0
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"
+    use_remat: bool = False             # checkpoint every block (training)
 
     @property
     def num_patches(self) -> int:
@@ -158,7 +161,8 @@ class EvaViT(nn.Module):
     def forward(self, images, mode: str = "masked"):
         x = self.embed(images)
         for name in self.block_names:
-            x = getattr(self, name)(x, mode)
+            x = run_block(getattr(self, name), x, mode,
+                          remat=self.cfg.use_remat)
         return x   # BLIP-2 path: no final norm
 
 

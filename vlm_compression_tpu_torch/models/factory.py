@@ -1,8 +1,10 @@
 """Model factory: model config → composed InstructBLIP-T5,
-InstructBLIP-Vicuna or the stage-1 BLIP-2 Q-Former (port of the
-``blip2_t5_instruct`` and ``blip2_vicuna_instruct`` branches of
-``vlm_compression_tpu/models/factory.py`` and of its ``blip2``,
-``blip2_feature_extractor`` and ``blip2_image_text_matching`` archs).
+InstructBLIP-Vicuna, the stage-1 BLIP-2 Q-Former or a legacy zoo model
+(port of ``vlm_compression_tpu/models/factory.py``: its
+``blip2_t5_instruct`` and ``blip2_vicuna_instruct`` branches, its
+``blip2``, ``blip2_feature_extractor`` and ``blip2_image_text_matching``
+archs, and ``build_legacy_config``'s ``blip_*``, ``albef_*``, ``clip*``,
+``eva_clip*`` and ``t5`` archs).
 
 LoRA ranks per tower follow the reference's ``tune_opt`` selector and
 ``lora_r_v/l/q`` flags: a tower gets its rank only when its letter is in
@@ -10,11 +12,19 @@ LoRA ranks per tower follow the reference's ``tune_opt`` selector and
 take none, and every ``model_type`` (``pretrain``, ``coco``, …) gives the
 one full-width config, as in the JAX package.  ``kv_cache_int8`` and
 ``kv_cache_per_row`` reach every tower config that carries them (the JAX
-factory's ``set_field_everywhere``); ``set_kv_cache_`` switches them on a
-built model.  Still raising: the legacy zoo (ROADMAP queue 1, item 11)
-and the JAX factory's remat knobs; ``blip2_opt`` raises too, as the JAX
-factory builds no such arch either (build ``models/blip2_opt.Blip2OPT``
-from its config).
+factory's ``set_field_everywhere``), and so does ``use_remat`` when the
+node sets ``use_grad_checkpoint`` (or, without it, ``use_remat``);
+``set_kv_cache_`` and ``set_remat_`` switch them on a built model.
+
+The zoo's configs come from the arch alone, as in the JAX package: only
+``num_classes`` is read from the node, so ``blip_retrieval`` builds
+ViT-B/16 at 224 whatever the yaml's ``image_size``, and every CLIP
+``model_type`` builds ``ClipConfig.base()`` (ROADMAP, known differences).
+Still raising, with their ROADMAP item: the ``alpro_*`` archs,
+``gpt_dialogue``, ``pnp_vqa``, ``img2prompt_vqa`` and
+``pnp_unifiedqav2_fid``; ``blip2_opt`` raises too, as the JAX factory
+builds no such arch either (build ``models/blip2_opt.Blip2OPT`` from its
+config).
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from typing import Tuple, Union
 from torch import nn
 
 from vlm_compression_tpu_torch.common.device import DeviceLike
+from vlm_compression_tpu_torch.models.albef import ALBEF_MODELS, AlbefConfig
+from vlm_compression_tpu_torch.models.blip1 import BLIP1_MODELS, Blip1Config
 from vlm_compression_tpu_torch.models.blip2_qformer import (
     Blip2ITM,
     Blip2Qformer,
@@ -39,13 +51,18 @@ from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
     Blip2VicunaInstructConfig,
 )
 from vlm_compression_tpu_torch.models.bridge import random_init_
+from vlm_compression_tpu_torch.models.clip_model import CLIP_MODELS, ClipConfig
 from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
 from vlm_compression_tpu_torch.models.llama import LlamaConfig
 from vlm_compression_tpu_torch.models.qformer import QFormerConfig
 from vlm_compression_tpu_torch.models.t5 import T5Config
+from vlm_compression_tpu_torch.models.t5_plain import PlainT5, PlainT5Config
 
-_NOT_PORTED = ("use_grad_checkpoint", "use_remat")
 _KV_KNOBS = ("kv_cache_int8", "kv_cache_per_row")
+# the zoo archs still to port, by their name's start (ROADMAP queue 1,
+# item 11)
+_ZOO_NOT_PORTED = ("alpro_", "gpt_dialogue", "pnp_vqa", "img2prompt_vqa",
+                   "pnp_unifiedqav2_fid")
 
 
 def _get(cfg, key, default=None):
@@ -92,25 +109,61 @@ def set_field_everywhere(node, field: str, value):
     return dataclasses.replace(node, **updates) if updates else node
 
 
-def set_kv_cache_(model: nn.Module, int8: bool = False,
-                  per_row: bool = False) -> nn.Module:
-    """Switch a built model's decode KV-cache storage in place (every
-    module's config), weights untouched: the next generate allocates its
-    caches in the new form."""
+def _set_knobs_(model: nn.Module, **knobs) -> nn.Module:
+    """Set each knob on every module config of a built model that carries
+    it, weights untouched."""
     for m in model.modules():
         cfg = getattr(m, "cfg", None)
         if dataclasses.is_dataclass(cfg):
-            cfg = set_field_everywhere(cfg, "kv_cache_int8", int8)
-            m.cfg = set_field_everywhere(cfg, "kv_cache_per_row", per_row)
+            for field, value in knobs.items():
+                cfg = set_field_everywhere(cfg, field, value)
+            m.cfg = cfg
     return model
+
+
+def set_kv_cache_(model: nn.Module, int8: bool = False,
+                  per_row: bool = False) -> nn.Module:
+    """Switch a built model's decode KV-cache storage in place: the next
+    generate allocates its caches in the new form."""
+    return _set_knobs_(model, kv_cache_int8=int8, kv_cache_per_row=per_row)
+
+
+def set_remat_(model: nn.Module, on: bool = True) -> nn.Module:
+    """Switch per-block remat in place on every tower of a built model
+    that carries ``use_remat`` (EVA-ViT, T5, LLaMA)."""
+    return _set_knobs_(model, use_remat=on)
 
 
 _MODELS = {"blip2_t5_instruct": Blip2T5Instruct,
            "blip2_vicuna_instruct": Blip2VicunaInstruct,
            "blip2": Blip2Qformer, "blip2_feature_extractor": Blip2Qformer,
-           "blip2_image_text_matching": Blip2ITM}
+           "blip2_image_text_matching": Blip2ITM,
+           **BLIP1_MODELS, **ALBEF_MODELS, **CLIP_MODELS, "t5": PlainT5}
 Config = Union[Blip2T5InstructConfig, Blip2VicunaInstructConfig,
-               Blip2QformerConfig]
+               Blip2QformerConfig, Blip1Config, AlbefConfig, ClipConfig,
+               PlainT5Config]
+
+
+def build_legacy_config(arch: str, size: str, tiny: bool, model_cfg=None):
+    """The config of a legacy zoo arch from its name (only
+    ``num_classes`` is read from ``model_cfg``, as in the JAX package);
+    None for a name that is not a ported zoo arch."""
+    n_cls = int(_get(model_cfg, "num_classes", 2)) if model_cfg else 2
+    if arch.startswith("blip_"):
+        if tiny:
+            return Blip1Config.tiny(num_classes=n_cls)
+        return (Blip1Config.large(num_classes=n_cls) if "large" in size
+                else Blip1Config.base(num_classes=n_cls))
+    if arch.startswith("albef_"):
+        return (AlbefConfig.tiny(num_classes=n_cls) if tiny
+                else AlbefConfig.base(num_classes=n_cls))
+    if arch in ("clip", "clip_feature_extractor"):
+        return ClipConfig.tiny() if tiny else ClipConfig.base()
+    if arch in ("eva_clip", "eva_clip_feature_extractor"):
+        return ClipConfig.tiny_eva() if tiny else ClipConfig.eva_clip_g()
+    if arch == "t5":
+        return PlainT5Config.tiny() if tiny else PlainT5Config.flan_t5_xl()
+    return None
 
 
 def build_model_config(model_cfg) -> Tuple[str, Config]:
@@ -121,11 +174,11 @@ def build_model_config(model_cfg) -> Tuple[str, Config]:
             "arch 'blip2_opt' has no factory entry: the JAX factory cannot "
             "build it either; build models/blip2_opt.Blip2OPT from a "
             "Blip2OPTConfig")
+    if arch.startswith(_ZOO_NOT_PORTED):
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 11)")
     if arch not in _MODELS:
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
-    for key in _NOT_PORTED:
-        if _get(model_cfg, key, False):
-            raise NotImplementedError(f"{key} is not ported yet")
     size = str(_get(model_cfg, "model_type",
                     _get(model_cfg, "model_size", "flant5xl")))
     tune_opt = str(_get(model_cfg, "tune_opt", ""))
@@ -134,7 +187,10 @@ def build_model_config(model_cfg) -> Tuple[str, Config]:
     r_q = int(_get(model_cfg, "lora_r_q", 0)) if "Q" in tune_opt else 0
     alpha = float(_get(model_cfg, "lora_alpha", 16.0))
     tiny = bool(_get(model_cfg, "tiny", False))
-    if issubclass(_MODELS[arch], Blip2Qformer):
+    legacy = build_legacy_config(arch, size, tiny, model_cfg)
+    if legacy is not None:
+        cfg = legacy
+    elif issubclass(_MODELS[arch], Blip2Qformer):
         cfg = Blip2QformerConfig.tiny() if tiny else Blip2QformerConfig()
     elif arch == "blip2_vicuna_instruct":
         if tiny:
@@ -161,6 +217,11 @@ def build_model_config(model_cfg) -> Tuple[str, Config]:
         cfg = Blip2T5InstructConfig(
             vit=EvaViTConfig.eva_clip_g(lora_rank=r_v, lora_alpha=alpha),
             qformer=QFormerConfig(lora_rank=r_q, lora_alpha=alpha), t5=t5)
+    if bool(_get(model_cfg, "use_grad_checkpoint",
+                 _get(model_cfg, "use_remat", False))):
+        # the reference's yamls carry use_grad_checkpoint: it reaches the
+        # towers' use_remat
+        cfg = set_field_everywhere(cfg, "use_remat", True)
     for knob in _KV_KNOBS:
         if bool(_get(model_cfg, knob, False)):
             cfg = set_field_everywhere(cfg, knob, True)

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vlm_compression_tpu_torch.ops.bitmask import (
     infer_pack_group,
@@ -191,6 +192,16 @@ class Embed(nn.Module):
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return nn.functional.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def run_block(block: nn.Module, *args, remat: bool = False, **kw):
+    """One transformer block, under per-block activation checkpointing
+    when ``remat`` is set and autograd records (the JAX package's
+    ``nn.remat``): its activations are recomputed in the backward, by the
+    same calls with the same shapes, so the same kernels and plans."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args, **kw)
 
 
 def _device(linear: SparseLinear) -> torch.device:

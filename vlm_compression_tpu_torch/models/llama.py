@@ -18,7 +18,8 @@ The cached decode takes a cache dict of per-layer ``self`` buffers
 (``models/kvcache.py``) instead of Flax's mutable collection, shaped as the
 T5 decoder's, so ``generation._gather_beams`` reorders it unchanged;
 ``kv_cache_int8`` / ``kv_cache_per_row`` choose its storage
-(``models/kvcache.py``).  Per-block remat is not ported yet.
+(``models/kvcache.py``).  ``use_remat`` checkpoints each block of a
+full-sequence pass; the cached decode is never checkpointed.
 """
 
 from __future__ import annotations
@@ -36,7 +37,11 @@ from vlm_compression_tpu_torch.models.kvcache import (
     init_kv_cache,
     step_visibility_mask,
 )
-from vlm_compression_tpu_torch.models.layers import Embed, SparseLinear
+from vlm_compression_tpu_torch.models.layers import (
+    Embed,
+    SparseLinear,
+    run_block,
+)
 from vlm_compression_tpu_torch.models.t5 import (
     RMSNorm,
     causal_mask,
@@ -70,8 +75,7 @@ class LlamaConfig:
     # decode KV cache storage (models/kvcache.py)
     kv_cache_int8: bool = False
     kv_cache_per_row: bool = False
-    # not ported yet (ROADMAP queue 1, item 9): the model raises when set
-    use_remat: bool = False
+    use_remat: bool = False   # checkpoint each block (not the cached decode)
 
     @property
     def head_dim(self) -> int:
@@ -211,10 +215,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        if cfg.use_remat:
-            raise NotImplementedError(
-                "LlamaConfig.use_remat is not ported yet (ROADMAP queue 1, "
-                "item 9)")
         self.cfg = cfg
         pdt = _dt(cfg.param_dtype)
         self.embed_tokens = TokenEmbed(cfg.vocab_size, cfg.hidden_size, pdt,
@@ -267,9 +267,12 @@ class LlamaForCausalLM(nn.Module):
             if attention_mask is not None:
                 mask = mask + extend_mask(attention_mask)
         for i, blk in enumerate(self.blocks()):
-            x = blk(x, mask, positions, mode=mode,
-                    cache=cache["layers"][i]["self"] if cache is not None
-                    else None)
+            if cache is not None:       # the cached decode: never remat'd
+                x = blk(x, mask, positions, mode=mode,
+                        cache=cache["layers"][i]["self"])
+            else:
+                x = run_block(blk, x, mask, positions, mode=mode,
+                              remat=self.cfg.use_remat)
         return self.final_norm(x)
 
     def logits(self, hidden, mode="masked"):

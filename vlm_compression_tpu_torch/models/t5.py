@@ -31,7 +31,12 @@ from vlm_compression_tpu_torch.models.kvcache import (
     init_kv_cache,
     step_visibility_mask,
 )
-from vlm_compression_tpu_torch.models.layers import Embed, SparseLinear, gelu
+from vlm_compression_tpu_torch.models.layers import (
+    Embed,
+    SparseLinear,
+    gelu,
+    run_block,
+)
 from vlm_compression_tpu_torch.ops.attention import NEG_INF, attention_core
 
 
@@ -61,6 +66,7 @@ class T5Config:
     # decode KV cache storage (models/kvcache.py)
     kv_cache_int8: bool = False
     kv_cache_per_row: bool = False
+    use_remat: bool = False   # checkpoint each block (not the cached decode)
 
     @staticmethod
     def flan_t5_xl(**kw) -> "T5Config":
@@ -271,7 +277,8 @@ class T5Encoder(_Stack):
         bias = self.rel_bias(x.shape[1], x.shape[1])
         mask = extend_mask(attention_mask)
         for blk in self.blocks():
-            x = blk(x, None, bias, mask, None, mode=mode)
+            x = run_block(blk, x, None, bias, mask, None, mode=mode,
+                          remat=self.cfg.use_remat)
         return self.final_norm(x)
 
 
@@ -293,8 +300,12 @@ class T5Decoder(_Stack):
             self_mask = extend_mask(dec_mask)
         cmask = extend_mask(enc_mask)
         for i, blk in enumerate(self.blocks()):
-            x = blk(x, enc_out, bias, self_mask, cmask, mode=mode,
-                    cache=cache["layers"][i] if cache is not None else None)
+            if cache is not None:       # the cached decode: never remat'd
+                x = blk(x, enc_out, bias, self_mask, cmask, mode=mode,
+                        cache=cache["layers"][i])
+            else:
+                x = run_block(blk, x, enc_out, bias, self_mask, cmask,
+                              mode=mode, remat=self.cfg.use_remat)
         return self.final_norm(x)
 
     def init_cache(self, enc_out, max_decode_len: int, mode="masked") -> dict:
