@@ -358,6 +358,41 @@ each of which fails the run (non-zero exit, no result line) on error:
                 retrain, one KD step without per-block remat, one with it
                 and one without again (``remat_check``): loss and every
                 LoRA gradient bit-equal, both peaks and times printed;
+ 11c. leg path — the rest of the legacy zoo at full width, bf16 (the
+                towers' linears stored in bf16), seeded random weights, a
+                50 % per-linear magnitude mask on every linear: ALPRO
+                (TimeSformer-B/16 at 224, 8 frames, MED fused from layer
+                6) through ``RetrievalTask`` over 32 videos × 32 captions
+                at k_test 32 (every score reranked; the cut of MSRVTT's 1k
+                test at k_test 1000, extrapolated), ``AlproQA`` at batch 8
+                (1500 answers), ``cli.evaluate`` on
+                configs/projects/alpro/eval/msrvtt_ret_eval.yaml over 16
+                seeded .npy frame stacks (the cut); PNP-VQA base (BLIP-1
+                base ITM and captioner, the T5-XL FiD reader) through
+                ``VQARCTask`` on 16 questions at batch 16, 5 captions (the
+                yaml's 100: the cut) of up to 20 tokens, answers of up to
+                20 (the relevance's backward on TMA + wgmma inside the
+                serving pass, no bias gradient); GPT dialogue base through
+                ``DialogueTask`` at batch 16 (three-turn dialogues through
+                the ``gpt_dialogue`` processor, 32 rows of i3d_flow ⊕
+                i3d_rgb ⊕ vggish features through ``gpt_video_ft``), and
+                ``cli.evaluate`` on configs/projects/gpt/eval/
+                dialogue_avsd_eval.yaml, which must fail with the JAX
+                CLI's TypeError (its processors do not fit the AVSD
+                items, in both packages); one backward over all
+                parameters of BLIP-1 and ALBEF pretraining, CLIP, ALPRO
+                retrieval, GPT dialogue (with the video regression) and
+                the FiD reader (T5's position-bias gradient as the TMA +
+                wgmma backward's output): finite losses and gradients,
+                seconds, peaks, the backward's launches by route.  Every
+                launch of rows 1 and 4-7 is recorded (``CallRecorder``)
+                and, after the path, each signature is held against its
+                plain version (``check_leg_kernels``: its dtype, its
+                planned route, two calls bit-equal, the backward with the
+                gradients it returned there); tiny float32 ALPRO, PNP-VQA
+                and GPT dialogue card vs CPU in phase 4
+                (``tiny_leg_check``); the timing phase times nine of the
+                signatures (``leg_timed``);
  12. cli path — the launcher's T5 grid point ``prune_and_eval("wanda",
                 0.5, 0.5)`` (scripts/launch_lib.py:41-84) through the port's
                 own ``cli.evaluate`` (argv composed here, calls made in this
@@ -5462,11 +5497,12 @@ def tiny_vicuna_check():
 
 class RetrievalLoader:
     """A retrieval eval loader: batches of ``batch`` images (the last one
-    ragged), the dataset (captions, ``txt2img``, ``img2txt``) on
-    ``.dataset``."""
+    ragged) under ``key`` (ALPRO's: ``video``), the dataset (captions,
+    ``txt2img``, ``img2txt``) on ``.dataset``."""
 
-    def __init__(self, images, text, per_image: int, batch: int):
-        self.images, self.batch = images, batch
+    def __init__(self, images, text, per_image: int, batch: int,
+                 key: str = "image"):
+        self.images, self.batch, self.key = images, batch, key
         self.dataset = type("RetrievalSet", (), {})()
         self.dataset.text = text
         self.dataset.txt2img = [t // per_image for t in range(len(text))]
@@ -5475,7 +5511,7 @@ class RetrievalLoader:
             for i in range(len(images))}
 
     def __iter__(self):
-        return iter({"image": self.images[s:s + self.batch]}
+        return iter({self.key: self.images[s:s + self.batch]}
                     for s in range(0, len(self.images), self.batch))
 
 
@@ -8817,14 +8853,15 @@ def check_zoo_kernels(worst):
         f"identical call")
 
 
-def zoo_bf16_towers_(model):
-    """The towers' linears (ZOO_TOWERS) stored in bf16, kernels and
-    biases."""
+def zoo_bf16_towers_(model, towers: tuple = ZOO_TOWERS):
+    """The towers' linears (those under ``towers``) stored in bf16,
+    kernels and biases; the heads and projections outside them stay
+    float32."""
     from vlm_compression_tpu_torch.models.layers import SparseLinear
 
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, SparseLinear) and name.startswith(ZOO_TOWERS):
+            if isinstance(m, SparseLinear) and name.startswith(towers):
                 m.kernel.data = m.kernel.data.to(torch.bfloat16)
                 if m.bias is not None:
                     m.bias.data = m.bias.data.to(torch.bfloat16)
@@ -9325,6 +9362,881 @@ def timing_zoo(worst) -> dict:
     return rows
 
 
+# ------------------------------------------------------------------ the
+# rest of the legacy zoo: ALPRO over video, PNP-VQA, GPT dialogue and the
+# zoo losses' gradients
+
+LEG_SEED = 18
+# ALPRO: msrvtt_ret_eval.yaml's task on a cut of 32 videos × 32 captions
+# at k_test 32 (all of them; the yaml's 1000 is MSRVTT's whole 1k test)
+ALPRO_VIDEOS, ALPRO_FRAMES = 32, 8
+ALPRO_RUN = dict(task="retrieval", batch_size_eval=64, k_test=32)
+ALPRO_FULL = (1000, 1000)                 # MSRVTT 1k-A: videos × captions
+ALPRO_WORDS = (8, 30)
+ALPRO_QA_B, ALPRO_QA_CLASSES = 8, 1500    # alpro_qa_msrvtt.yaml
+ALPRO_CLI_YAML = "configs/projects/alpro/eval/msrvtt_ret_eval.yaml"
+ALPRO_CLI_VIDEOS = 16                     # the CLI call's cut: 16 × 16
+ALPRO_CLI_STACK = (10, 96, 128)           # frames × H × W of each .npy
+# PNP-VQA: vqav2_eval.yaml's settings, num_captions cut from 100 to 5
+PNP_Q, PNP_BATCH = 16, 16
+PNP_RUN = dict(task="vqa_reading_comprehension", num_captions=5,
+               cap_max_length=20, max_len=20, num_beams=1)
+PNP_YAML_CAPTIONS = 100
+# GPT dialogue: dialogue_avsd_eval.yaml's batch, three-turn dialogues, 32
+# frames of i3d_flow ⊕ i3d_rgb ⊕ vggish features
+GPT_B, GPT_FT_T = 16, 32
+GPT_FEATS = (("i3d_flow", 2048), ("i3d_rgb", 2048), ("vggish", 128))
+GPT_TOKENIZER_VOCAB = 50257               # GPT-2's; the 5 specials follow
+GPT_CLI_YAML = "configs/projects/gpt/eval/dialogue_avsd_eval.yaml"
+# the training half: one backward over all parameters of each
+TRAIN_HALF = (("blip_pretrain", 8), ("albef_pretrain", 8), ("clip", 8),
+              ("alpro_retrieval", 4), ("gpt_dialogue", 8),
+              ("pnp_unifiedqav2_fid", 4))
+
+LEG_FWD = ("masked_matmul", "flash_attention", FWD_WGMMA, WGMMA_LOOP)
+LEG_TRAIN = LEG_FWD + (BWD_WGMMA,)
+LEG_PHASES = ("alpro_retrieval", "alpro_qa", "alpro_cli", "pnp_vqarc",
+              "gpt_dialogue", "gpt_cli") + tuple(
+                  f"train_{a}" for a, _ in TRAIN_HALF)
+PHASE_KERNELS.update(alpro_retrieval=LEG_FWD, alpro_qa=LEG_FWD,
+                     alpro_cli=("flash_attention", FWD_WGMMA),
+                     pnp_vqarc=LEG_FWD + (DECODE, BWD_WGMMA),
+                     gpt_dialogue=LEG_FWD, gpt_cli=())
+PHASE_KERNELS.update({f"train_{a}": LEG_TRAIN for a, _ in TRAIN_HALF})
+PHASE_KERNELS["train_pnp_unifiedqav2_fid"] = LEG_TRAIN + (BWD_DBIAS,)
+# no WMMA loop anywhere; no backward in the forward phases; no bias
+# gradient but the FiD reader's position bias (the TMA + wgmma backward's
+# output, never the separate kernel); the relevance pass's backward takes
+# no bias gradient (the all-ones image bias is a constant)
+for _phase in LEG_PHASES:
+    PHASE_FORBIDDEN[_phase] = (WMMA_LOOP, "flash_attention_bwd_dbias") + (
+        () if _phase == "train_pnp_unifiedqav2_fid" else (BWD_DBIAS,))
+for _phase in ("alpro_retrieval", "alpro_qa", "alpro_cli", "gpt_dialogue",
+               "gpt_cli"):
+    PHASE_FORBIDDEN[_phase] = BACKWARD + (WMMA_LOOP,)
+
+
+class CallRecorder:
+    """Records the signature of every launch of rows 1 and 4-7 while
+    active: the masked matmul by (M, K, N, dtype); the attention forward
+    and backward by (b, n, m, h, d, dtype, bias shapes, scale, causal)
+    (and, backward, which gradients it returned), each with the phase that
+    first launched it and its biases (a copy of the first call's), so
+    that every shape a path ran is held against its plain version after."""
+
+    def __init__(self):
+        self.mm, self.fwd, self.bwd = {}, {}, {}
+        self.phase = None
+
+    @contextlib.contextmanager
+    def active(self):
+        from vlm_compression_tpu_torch.ops import attention as A
+        from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+        mm_cuda, fwd, bwd = (ML._masked_matmul_cuda, A.flash_attention,
+                             A.flash_attention_backward)
+
+        def mm_rec(x, w, mask, loop=None):
+            key = (x.numel() // x.shape[-1], w.shape[0], w.shape[1],
+                   x.dtype)
+            self.mm.setdefault(key, self.phase)
+            return mm_cuda(x, w, mask, loop)
+
+        def sig(q, k, biases, scale, causal):
+            b, n, h, d = q.shape
+            return (b, n, k.shape[1], h, d, q.dtype,
+                    tuple(tuple(x.shape) for x in biases), float(scale),
+                    bool(causal))
+
+        def keep(biases):
+            return [x.detach().clone() for x in biases]
+
+        def fwd_rec(q, k, v, biases=(), scale=1.0, causal=False, **kw):
+            key = sig(q, k, biases, scale, causal)
+            if key not in self.fwd:
+                self.fwd[key] = (self.phase, keep(biases))
+            return fwd(q, k, v, biases, scale, causal, **kw)
+
+        def bwd_rec(q, k, v, out, lse, g, biases=(), scale=1.0,
+                    causal=False, need_dq=True, need_dkv=True, dbias_of=(),
+                    **kw):
+            key = sig(q, k, biases, scale, causal) + (
+                bool(need_dq), bool(need_dkv), tuple(dbias_of))
+            if key not in self.bwd:
+                self.bwd[key] = (self.phase, keep(biases))
+            return bwd(q, k, v, out, lse, g, biases, scale, causal,
+                       need_dq=need_dq, need_dkv=need_dkv,
+                       dbias_of=dbias_of, **kw)
+
+        ML._masked_matmul_cuda, A.flash_attention = mm_rec, fwd_rec
+        A.flash_attention_backward = bwd_rec
+        try:
+            yield self
+        finally:
+            ML._masked_matmul_cuda, A.flash_attention = mm_cuda, fwd
+            A.flash_attention_backward = bwd
+
+
+LEG_CALLS = CallRecorder()
+
+
+def leg_phase(rec: dict, phase: str, fn):
+    """``run_phase`` with the recorder's phase set."""
+    LEG_CALLS.phase = phase
+    return run_phase(rec, phase, fn)
+
+
+# each arch's towers (its linears stored in bf16 on the card)
+LEG_TOWERS = {"alpro_retrieval": ("visual_encoder.", "text_encoder."),
+              "alpro_qa": ("visual_encoder.", "text_encoder."),
+              "pnp_vqa": ("itm.visual_encoder.", "itm.text_encoder.",
+                          "cap.text_encoder."),
+              "gpt_dialogue": ("h_",), "blip_pretrain": ZOO_TOWERS,
+              "albef_pretrain": ZOO_TOWERS, "clip": ZOO_TOWERS}
+
+
+def leg_model(arch: str, seed: int, **node):
+    """A full-width zoo model from the factory, its towers' linears in
+    bf16, a 50 % magnitude mask on every linear; (model, build seconds,
+    parameters)."""
+    from vlm_compression_tpu_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(dict(node, arch=arch), seed=seed)
+    zoo_bf16_towers_(model, LEG_TOWERS.get(arch, ()))
+    zoo_masks_(model)
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            sum(p.numel() for p in model.parameters()))
+
+
+def bwd_routes(c: dict) -> dict:
+    """A phase's attention-backward launches (rows 5-6) and bias gradients
+    (row 7) by route."""
+    return {"rows_5_6": {"wgmma": c[BWD_WGMMA],
+                         "mma_dq": c["flash_attention_bwd_dq"],
+                         "mma_dkv": c["flash_attention_bwd_dkv"]},
+            "row_7": {"fused_outputs": c[BWD_DBIAS],
+                      "separate_kernel": c["flash_attention_bwd_dbias"]}}
+
+
+def alpro_cli(rec: dict) -> dict:
+    """One ``cli.evaluate`` call on msrvtt_ret_eval.yaml over
+    ALPRO_CLI_VIDEOS seeded uint8 ``.npy`` frame stacks (ALPRO_CLI_STACK,
+    subsampled to 8 frames and resized to 224 by ``alpro_video_eval``),
+    one caption each, k_test set to all of them (the cut)."""
+    from vlm_compression_tpu_torch.cli.evaluate import parse_args, run
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(LEG_SEED)
+    text = retrieval_captions(ALPRO_CLI_VIDEOS, random.Random(LEG_SEED),
+                              *ALPRO_WORDS)
+    with tempfile.TemporaryDirectory(prefix="alpro_cli_") as tmp:
+        os.makedirs(os.path.join(tmp, "vid"))
+        anns = []
+        for i in range(ALPRO_CLI_VIDEOS):
+            np.save(os.path.join(tmp, "vid", f"{i}.npy"),
+                    rng.integers(0, 256, ALPRO_CLI_STACK + (3,),
+                                 dtype=np.uint8))
+            anns.append({"video": f"{i}.npy", "caption": [text[i]]})
+        ann = os.path.join(tmp, "test.json")
+        with open(ann, "w") as f:
+            json.dump(anns, f)
+        argv = ["--cfg-path", os.path.join(root, ALPRO_CLI_YAML),
+                "--job_id", "alpro", "--seed", str(LEG_SEED), "--options",
+                f"datasets.msrvtt_retrieval.build_info.annotations.test="
+                f"[{ann}]",
+                "datasets.msrvtt_retrieval.build_info.images.storage="
+                f"{os.path.join(tmp, 'vid')}",
+                f"run.k_test={ALPRO_CLI_VIDEOS}",
+                f"run.output_dir={os.path.join(tmp, 'out')}"]
+        stats, _, timer = leg_phase(rec, "alpro_cli",
+                                    lambda: run(parse_args(argv)))
+    res = stats["eval_results"]["test"]
+    log(f"  cli.evaluate {ALPRO_CLI_YAML} (k_test {ALPRO_CLI_VIDEOS}, "
+        f"{ALPRO_CLI_VIDEOS} videos × {ALPRO_CLI_VIDEOS} captions, the cut; "
+        f"seed {LEG_SEED}; no masks: dense linears): "
+        f"{rec['secs']['alpro_cli']:.2f} s, phases "
+        f"{json.dumps(timer.stats)}; {json.dumps(res)}")
+    if not {"txt_r1", "img_r1", "r_mean"} <= set(res):
+        raise AssertionError(f"cli.evaluate alpro retrieval: {res}")
+    return {"alpro_cli_s": rec["secs"]["alpro_cli"],
+            "alpro_cli_metrics": res}
+
+
+def alpro_part(rec: dict, out: dict):
+    """ALPRO retrieval through ``RetrievalTask`` (k_test 32 over 32 × 32,
+    every score reranked), ``AlproQA`` at batch 8 directly, the CLI call;
+    returns the retrieval model for the training half."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.evaluation.retrieval_metrics import (
+        itm_eval,
+    )
+    from vlm_compression_tpu_torch.tasks.retrieval import RetrievalTask
+
+    model, build_s, n_params = leg_model("alpro_retrieval", LEG_SEED)
+    g = torch.Generator(device="cuda").manual_seed(LEG_SEED)
+    px = model.cfg.timesformer.img_size
+    videos = torch.randn(ALPRO_VIDEOS, ALPRO_FRAMES, px, px, 3,
+                         generator=g, device="cuda")
+    text = retrieval_captions(ALPRO_VIDEOS, random.Random(LEG_SEED),
+                              *ALPRO_WORDS)
+    tok = SimpleTokenizer(model.cfg.med.vocab_size)
+    task = RetrievalTask(k_test=ALPRO_RUN["k_test"], tokenizer=tok)
+    loader = RetrievalLoader(videos, text, 1, ALPRO_RUN["batch_size_eval"],
+                             key="video")
+    res = leg_phase(rec, "alpro_retrieval",
+                    lambda: task.evaluation(model, loader))
+    for key in ("score_i2t", "score_t2i"):
+        s = res[key]
+        if s.shape != (ALPRO_VIDEOS, ALPRO_VIDEOS) or not bool(
+                (s == s).all()) or bool((s == -100.0).any()):
+            raise AssertionError(f"alpro {key}: {s.shape}, every entry "
+                                 f"reranked at k_test {ALPRO_RUN['k_test']}")
+    metrics = itm_eval(res["score_i2t"], res["score_t2i"], res["txt2img"],
+                       res["img2txt"])
+    secs = rec["secs"]["alpro_retrieval"]
+    k, (fv, ft) = ALPRO_RUN["k_test"], ALPRO_FULL
+    # the VTM rerank dominates: k_test fusion rows for each video and each
+    # caption at the full set (the yaml's k_test 1000: all of them)
+    scale = (fv * min(1000, ft) + ft * min(1000, fv)) / (
+        ALPRO_VIDEOS * min(k, ALPRO_VIDEOS) * 2)
+    log(f"  alpro_retrieval: {n_params / 1e6:.1f} M params, built in "
+        f"{build_s:.1f} s; retrieval (k_test {k}, {ALPRO_VIDEOS} videos of "
+        f"{ALPRO_FRAMES} frames × {ALPRO_VIDEOS} captions, the cut of "
+        f"MSRVTT's {fv} × {ft} at k_test 1000): {secs:.3f} s, peak "
+        f"{rec['peaks']['alpro_retrieval'] / 2**30:.2f} GiB; extrapolated "
+        f"{secs * scale:.0f} s; {json.dumps(metrics)}; launches by route "
+        f"{json.dumps(zoo_route_counts(rec['counts']['alpro_retrieval']))}")
+    out.update(alpro_retrieval_s=secs, alpro_retrieval_msrvtt_s=secs * scale,
+               alpro_retrieval_metrics=metrics,
+               alpro_retrieval_params=n_params)
+    del videos, loader, task, res
+    qa, build_s, n_params = leg_model("alpro_qa", LEG_SEED + 1,
+                                      num_classes=ALPRO_QA_CLASSES)
+    vid = torch.randn(ALPRO_QA_B, ALPRO_FRAMES, px, px, 3, generator=g,
+                      device="cuda")
+    ids, mask = batch_encode(tok, retrieval_captions(
+        ALPRO_QA_B, random.Random(LEG_SEED + 1), 4, 12), 35)
+    ids, mask = (torch.from_numpy(t).cuda() for t in (ids, mask))
+    labels = torch.arange(ALPRO_QA_B, device="cuda") * 7 % ALPRO_QA_CLASSES
+    with torch.no_grad():
+        got = leg_phase(rec, "alpro_qa", lambda: qa(vid, ids, mask,
+                                                    labels=labels))
+    if tuple(got["logits"].shape) != (ALPRO_QA_B, ALPRO_QA_CLASSES) or \
+            not bool(torch.isfinite(got["loss"])):
+        raise AssertionError(f"alpro_qa: {tuple(got['logits'].shape)}")
+    log(f"  alpro_qa ({n_params / 1e6:.1f} M params; {ALPRO_QA_CLASSES} "
+        f"answers, {ALPRO_FRAMES} frames: the QA yamls' n_frms 16 meets "
+        f"the 8 rows of time_embed, as in JAX) at batch {ALPRO_QA_B}: "
+        f"{rec['secs']['alpro_qa']:.3f} s, loss {float(got['loss']):.4f}; "
+        f"launches by route "
+        f"{json.dumps(zoo_route_counts(rec['counts']['alpro_qa']))}")
+    out["alpro_qa_s"] = rec["secs"]["alpro_qa"]
+    del qa, vid, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(alpro_cli(rec))
+    return model
+
+
+def pnp_part(rec: dict, out: dict):
+    """PNP-VQA base (BLIP-1 base ITM and captioner, the T5-XL reader)
+    through ``VQARCTask`` on PNP_Q questions at batch PNP_BATCH; returns
+    the model (its reader serves the training half)."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+    )
+    from vlm_compression_tpu_torch.tasks import setup_task
+
+    model, build_s, n_params = leg_model("pnp_vqa", LEG_SEED + 2)
+    g = torch.Generator(device="cuda").manual_seed(LEG_SEED + 2)
+    rng = random.Random(LEG_SEED + 2)
+    blip = model.cfg.blip
+    med_vocab, px = blip.med.vocab_size, blip.vit.img_size
+    task = setup_task({"run": PNP_RUN},
+                      tokenizer=SimpleTokenizer(med_vocab))
+    samples = {"image": torch.randn(PNP_Q, px, px, 3, generator=g,
+                                    device="cuda"),
+               "text_input": retrieval_captions(PNP_Q, rng, 4, 10),
+               "question_id": list(range(PNP_Q)),
+               "answers": [["yes", "no"]] * PNP_Q}
+    result = leg_phase(rec, "pnp_vqarc",
+                       lambda: task.valid_step(model, samples))
+    cams, caps, answers = result[0]
+    rel = torch.tensor([c["gradcam"] for c in cams])
+    n_patch = model.cfg.blip.vit.num_patches
+    if tuple(rel.shape) != (PNP_Q, n_patch) or not bool(
+            torch.isfinite(rel).all()) or len(answers) != PNP_Q or any(
+            len(c["caption"]) != PNP_RUN["num_captions"] for c in caps):
+        raise AssertionError(f"pnp_vqarc: relevance {tuple(rel.shape)}")
+    with tempfile.TemporaryDirectory(prefix="pnp_") as tmp:
+        metrics = task.after_evaluation(result, split_name="val",
+                                        result_dir=os.path.join(tmp, "r"))
+    c = rec["counts"]["pnp_vqarc"]
+    log(f"  pnp_vqa ({n_params / 1e6:.1f} M params, built in {build_s:.1f} "
+        f"s; the questions tokenized in MED's vocabulary {med_vocab}: the "
+        f"reader's {model.cfg.t5.vocab_size} overflows MED's) through "
+        f"VQARCTask, "
+        f"{PNP_Q} questions at batch {PNP_BATCH}, num_captions "
+        f"{PNP_RUN['num_captions']} (the cut of the yaml's "
+        f"{PNP_YAML_CAPTIONS}), cap_max_length {PNP_RUN['cap_max_length']}, "
+        f"max_len {PNP_RUN['max_len']}: {rec['secs']['pnp_vqarc']:.3f} s, "
+        f"peak {rec['peaks']['pnp_vqarc'] / 2**30:.2f} GiB; relevance "
+        f"{tuple(rel.shape)}; answers {[a['answer'] for a in answers[:4]]}"
+        f"…; metrics {json.dumps(metrics)}; launches by route "
+        f"{json.dumps(zoo_route_counts(c))}; the relevance backward in "
+        f"this serving pass: {json.dumps(bwd_routes(c))}")
+    out.update(pnp_vqarc_s=rec["secs"]["pnp_vqarc"],
+               pnp_relevance_shape=list(rel.shape),
+               pnp_bwd_routes=bwd_routes(c), pnp_params=n_params)
+    return model
+
+
+def gpt_batch(n: int, seed: int, ft_root: str) -> dict:
+    """``n`` seeded three-turn AVSD dialogues through the ``gpt_dialogue``
+    processor, right-padded (ids and types 0, labels −1), and their
+    i3d_flow ⊕ i3d_rgb ⊕ vggish features through ``gpt_video_ft`` from
+    ``.npy`` files written under ``ft_root``."""
+    import numpy as np
+
+    from vlm_compression_tpu_torch.datasets.processors import (
+        GPTDialogueProcessor,
+        load_processor,
+    )
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+    )
+
+    proc = GPTDialogueProcessor(
+        max_turns=3, tokenizer=SimpleTokenizer(GPT_TOKENIZER_VOCAB))
+    feats = load_processor("gpt_video_ft", {
+        "visual_ft": [n for n, _ in GPT_FEATS[:2]],
+        "audio_ft": [GPT_FEATS[2][0]]})
+    rng = np.random.default_rng(seed)
+    words = retrieval_captions(4 * n, random.Random(seed), 3, 9)
+    seqs, fts = [], []
+    for i in range(n):
+        ann = {"caption": words[4 * i], "summary": words[4 * i + 1],
+               "dialog": [{"question": words[(4 * i + t) % len(words)],
+                           "answer": words[(4 * i + t + 1) % len(words)]}
+                          for t in range(3)],
+               "question": words[4 * i + 2], "answer": words[4 * i + 3]}
+        seqs.append(proc(ann))
+        for name, dim in GPT_FEATS:
+            os.makedirs(os.path.join(ft_root, name), exist_ok=True)
+            np.save(os.path.join(ft_root, name, f"v{i}.npy"),
+                    rng.standard_normal((GPT_FT_T, dim)).astype(np.float32))
+        fts.append(feats(ft_root, f"v{i}")["video_fts"])
+    width = max(len(s["input_ids"]) for s in seqs)
+    batch = {key: np.stack([np.pad(s[key], (0, width - len(s[key])),
+                                   constant_values=fill) for s in seqs])
+             for key, fill in (("input_ids", 0), ("token_type_ids", 0),
+                               ("labels", -1))}
+    batch["video_fts"] = np.stack(fts)
+    return batch
+
+
+def gpt_part(rec: dict, out: dict):
+    """GPT dialogue base through ``DialogueTask`` at batch GPT_B, and the
+    ``cli.evaluate`` call on dialogue_avsd_eval.yaml, which fails in the
+    JAX package too (its processors do not fit the AVSD items)."""
+    from vlm_compression_tpu_torch.cli.evaluate import parse_args, run
+    from vlm_compression_tpu_torch.tasks.dialogue_rc import DialogueTask
+
+    model, build_s, n_params = leg_model("gpt_dialogue", LEG_SEED + 3)
+    with tempfile.TemporaryDirectory(prefix="avsd_") as tmp:
+        batch = gpt_batch(GPT_B, LEG_SEED + 3, tmp)
+    task = DialogueTask.setup_task({"run": {"max_len": 20}})
+    with torch.no_grad():
+        losses = leg_phase(rec, "gpt_dialogue",
+                           lambda: task.valid_step(model, batch))
+    metrics = task.after_evaluation(losses)
+    if not math.isfinite(metrics["agg_metrics"]):
+        raise AssertionError(f"gpt dialogue: {metrics}")
+    log(f"  gpt_dialogue ({n_params / 1e6:.1f} M params, built in "
+        f"{build_s:.1f} s) through DialogueTask at batch {GPT_B}: "
+        f"{GPT_FT_T} feature rows of {sum(d for _, d in GPT_FEATS)} "
+        f"(video_ff in fp32) before {batch['input_ids'].shape[1]} tokens of "
+        f"three-turn dialogues; {rec['secs']['gpt_dialogue']:.3f} s, "
+        f"metric {json.dumps(metrics)}; launches by route "
+        f"{json.dumps(zoo_route_counts(rec['counts']['gpt_dialogue']))}")
+    out.update(gpt_dialogue_s=rec["secs"]["gpt_dialogue"],
+               gpt_dialogue_metric=metrics["agg_metrics"],
+               gpt_params=n_params)
+    root = os.path.dirname(os.path.abspath(__file__))
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="avsd_cli_") as tmp:
+        np.save(os.path.join(tmp, "v0.npy"),
+                np.zeros((4, 32, 32, 3), np.uint8))
+        ann = os.path.join(tmp, "test.json")
+        with open(ann, "w") as f:
+            json.dump([{"video": "v0.npy", "caption": "a", "question": "b",
+                        "answer": "c", "dialog": []}], f)
+        argv = ["--cfg-path", os.path.join(root, GPT_CLI_YAML), "--job_id",
+                "avsd", "--seed", str(LEG_SEED), "--options",
+                f"datasets.avsd_dialogue.build_info.annotations.test=[{ann}]",
+                f"datasets.avsd_dialogue.build_info.images.storage={tmp}",
+                "run.test_splits=[test]",
+                f"run.output_dir={os.path.join(tmp, 'out')}"]
+
+        def call():
+            try:
+                run(parse_args(argv))
+            except TypeError as exc:
+                return str(exc)
+            return None
+
+        why = leg_phase(rec, "gpt_cli", call)
+    if not why or "vname" not in why:
+        raise AssertionError(f"cli.evaluate on {GPT_CLI_YAML}: expected the "
+                             f"JAX CLI's TypeError, got {why!r}")
+    log(f"  cli.evaluate {GPT_CLI_YAML}: fails as the JAX CLI fails "
+        f"(TypeError: {why}) — the gpt_video_ft processor takes (ft_root, "
+        f"vname), the AVSD item passes it one frame; "
+        f"{rec['secs']['gpt_cli']:.2f} s")
+    return model
+
+
+def train_batch(arch: str, b: int, model, g) -> dict:
+    """Seeded inputs of each arch's loss at full width (captions of 30
+    words, MED's and CLIP's vocabularies)."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+
+    rng = random.Random(LEG_SEED + 4)
+    cfg = model.cfg
+    vocab = (cfg.text.vocab_size if arch == "clip" else cfg.vocab_size
+             if arch == "pnp_unifiedqav2_fid" else getattr(
+                 cfg, "med", cfg).vocab_size)
+    tower = getattr(cfg, "timesformer", None) or getattr(cfg, "vit", None)
+    px = tower.img_size if tower is not None else 0
+    width = min(35, getattr(getattr(cfg, "text", None), "context_length",
+                            35))
+    ids, mask = (torch.from_numpy(t).cuda() for t in batch_encode(
+        SimpleTokenizer(vocab), retrieval_captions(b, rng, 10, 30), width))
+
+    def image():
+        return torch.randn(b, px, px, 3, generator=g, device="cuda")
+
+    if arch == "blip_pretrain":
+        return dict(image=image(), input_ids=ids, attention_mask=mask,
+                    labels=torch.where(mask.bool(), ids, -100))
+    if arch == "albef_pretrain":
+        mlm = ids.clone()
+        mlm[:, 3::5] = min(103, vocab - 1)      # BERT's [MASK]
+        lbl = torch.where(mlm != ids, ids, -100)
+        return dict(image=image(), input_ids=ids, attention_mask=mask,
+                    mlm_input_ids=mlm, mlm_labels=lbl)
+    if arch == "clip":
+        return dict(image=image(), input_ids=ids)
+    if arch == "alpro_retrieval":
+        return dict(video=torch.randn(b, ALPRO_FRAMES, px, px, 3,
+                                      generator=g, device="cuda"),
+                    input_ids=ids, attention_mask=mask)
+    if arch == "gpt_dialogue":
+        with tempfile.TemporaryDirectory(prefix="avsd_train_") as tmp:
+            return {k: torch.from_numpy(v).cuda()
+                    for k, v in gpt_batch(b, LEG_SEED + 5, tmp).items()}
+    # the FiD reader: 5 contexts of up to 64 tokens a question, T5 labels
+    n_ctx = PNP_RUN["num_captions"]
+    c_ids, c_mask = (torch.from_numpy(t).cuda() for t in batch_encode(
+        SimpleTokenizer(vocab), retrieval_captions(b * n_ctx, rng, 20, 60),
+        64))
+    labels = torch.randint(4, vocab, (b, 4), generator=g, device="cuda")
+    return dict(ctx_ids=c_ids.reshape(b, n_ctx, -1),
+                ctx_mask=c_mask.reshape(b, n_ctx, -1), labels=labels)
+
+
+def train_half(rec: dict, out: dict, built: dict):
+    """One backward over all parameters of each TRAIN_HALF loss in masked
+    mode (the models of the paths above where built: ALPRO retrieval, GPT
+    dialogue, PNP-VQA's reader): a finite loss and finite gradients; the
+    seconds, the peak memory and the backward's launches by route."""
+    g = torch.Generator(device="cuda").manual_seed(LEG_SEED + 4)
+    for i, (arch, b) in enumerate(TRAIN_HALF):
+        model = built.get(arch)
+        if model is None:
+            model = leg_model(arch, LEG_SEED + 10 + i)[0]
+        batch = train_batch(arch, b, model, g)
+        model.zero_grad(set_to_none=True)
+
+        def step():
+            loss = model(**batch, mode="masked")["loss"]
+            loss.backward()
+            return loss
+
+        phase = f"train_{arch}"
+        loss = leg_phase(rec, phase, step)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        finite = bool(torch.isfinite(loss.detach())) and all(
+            bool(torch.isfinite(x).all()) for x in grads)
+        c = rec["counts"][phase]
+        log(f"  {phase} (batch {b}, masked): loss {loss.item():.4f}, "
+            f"{len(grads)} gradient leaves, finite {finite}; "
+            f"{rec['secs'][phase]:.3f} s, peak "
+            f"{rec['peaks'][phase] / 2**30:.2f} GiB; backward launches "
+            f"{json.dumps(bwd_routes(c))}")
+        if not finite or not grads:
+            raise AssertionError(f"{phase}: loss {loss.item()}")
+        out[f"{phase}_s"] = rec["secs"][phase]
+        out[f"{phase}_peak_bytes"] = rec["peaks"][phase]
+        out[f"{phase}_bwd_routes"] = bwd_routes(c)
+        model.zero_grad(set_to_none=True)
+        del batch, loss, grads
+        if arch not in built:
+            del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def leg_path() -> tuple:
+    """The video, reading-comprehension and dialogue path and the training
+    half (see LEG_SEED's comment), every launch of rows 1 and 4-7
+    recorded by ``LEG_CALLS``; the phases' launch gates."""
+    rec, out = new_record(), {}
+    with LEG_CALLS.active():
+        alpro = alpro_part(rec, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pnp = pnp_part(rec, out)
+        gpt = gpt_part(rec, out)
+        train_half(rec, out, {"alpro_retrieval": alpro, "gpt_dialogue": gpt,
+                              "pnp_unifiedqav2_fid": pnp.reader})
+    del alpro, pnp, gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches: {json.dumps(rec['counts'])}")
+    check_phase_counts(rec["counts"])
+    out["leg_launches_by_route"] = {
+        p: dict(zoo_route_counts(c), **bwd_routes(c))
+        for p, c in rec["counts"].items()}
+    out["leg_phase_s"] = dict(rec["secs"])
+    return rec, out
+
+
+def check_leg_kernels(rec: dict, worst) -> dict:
+    """Rows 1 and 4-7 at every signature the leg path launched (recorded,
+    so none is missed; the launch tallies cross-checked against them):
+    each in its dtype on its planned route against the plain version
+    (bf16 2e-2 × max(1, |plain|), fp32 1e-4), two identical calls
+    bit-equal; the backward with the gradients it returned there (dq,
+    dk / dv, the bias gradients) from a forward of the kernel.  Returns
+    the names of the checked signatures (for the timing phase)."""
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    names = {"mm": {}, "fwd": {}, "bwd": {}}
+    n_checks = 0
+
+    def held(what, name, err, scale, same, dtype, detail):
+        nonlocal n_checks
+        tol = TOL[str(dtype).split(".")[-1]] * scale
+        ok = err <= tol and same
+        log(f"  {what} {name:34s} {str(dtype)[6:]:8s} {detail} "
+            f"max_abs_err={err:.3e} (tol {tol:.3e}), two calls bit-equal "
+            f"{same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what} {name} {dtype}")
+        n_checks += 1
+
+    for (m, k, n, dtype), phase in sorted(LEG_CALLS.mm.items(),
+                                          key=lambda kv: str(kv)):
+        name = f"leg_{phase}_M{m}_K{k}_N{n}"
+        x, w, mask = mm_inputs(m, k, n, dtype)
+        got = ML.masked_matmul(x, w, mask)
+        err, scale = max_err(got, ML.masked_matmul_ref(x, w, mask))
+        same = torch.equal(got, ML.masked_matmul(x, w, mask))
+        held("masked_matmul", name, err, scale, same, dtype,
+             f"M={m} K={k} N={n} {expected_loop(m, k, n, dtype):6s}")
+        worst[("masked_matmul", name, dtype)] = err
+        names["mm"][name] = (m, k, n, dtype, phase)
+    for key, (phase, biases) in LEG_CALLS.fwd.items():
+        b, n, m, h, d, dtype, shapes, scale, causal = key
+        name = f"leg_{phase}_b{b}_n{n}_m{m}" + ("_causal" if causal else "")
+        q, k_, v, _ = flash_inputs(b, n, m, h, d, [], dtype)
+        want = A.mha_reference(q, k_, v, biases, scale, causal)
+        got, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+        err, s = max_err(got, want)
+        got2, lse2 = A.flash_attention(q, k_, v, biases, scale, causal)
+        same = torch.equal(got, got2) and torch.equal(lse, lse2)
+        held("flash_attention", name, err, s, same, dtype,
+             f"{A.plan_forward(n, m, d, bf16=dtype == torch.bfloat16):5s} "
+             f"b={b} n={n} m={m} h={h} d={d} biases={list(shapes)}")
+        worst[("flash_attention", name, dtype)] = err
+        names["fwd"][name] = key
+    for key, (phase, biases) in LEG_CALLS.bwd.items():
+        b, n, m, h, d, dtype, shapes, scale, causal, dq_, dkv_, dbias_of = key
+        name = (f"leg_{phase}_b{b}_n{n}_m{m}" + ("_causal" if causal else "")
+                + ("_dbias" if dbias_of else ""))
+        q, k_, v, _ = flash_inputs(b, n, m, h, d, [], dtype)
+        g = grad_like(q)
+        o, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+        args = (q, k_, v, o, lse, g, biases, scale, causal)
+        kw = dict(need_dq=dq_, need_dkv=dkv_, dbias_of=dbias_of)
+        got = A.flash_attention_backward(*args, **kw)
+        again = A.flash_attention_backward(*args, **kw)
+        want = A.flash_attention_backward_ref(*args, dbias_of=dbias_of)
+        err, s, same = 0.0, 1.0, True
+        for gi, ai, wi in zip(got, again, want):
+            if gi is None:
+                continue
+            e, sc = max_err(gi, wi)
+            err, s = max(err, e), max(s, sc)
+            same = same and torch.equal(gi, ai)
+        held("flash_attention_backward", name, err, s, same, dtype,
+             f"{A.plan(n, m, d, bf16=dtype == torch.bfloat16):5s} b={b} "
+             f"n={n} m={m} h={h} d={d} biases={list(shapes)} dq={dq_} "
+             f"dk/dv={dkv_} dbias_of={list(dbias_of)}")
+        worst[("flash_attention_backward", name, dtype)] = err
+        names["bwd"][name] = key
+    # every launch the tallies counted is one the recorder saw
+    seen_mm = {(m, k, n) for m, k, n, _ in LEG_CALLS.mm}
+    seen_fl = {c[:5] for c in LEG_CALLS.fwd}
+    seen_bwd = {c[:5] for c in LEG_CALLS.bwd}
+    missing = []
+    for s in rec["shapes"].values():
+        missing += [("matmul", m, k, n) for m, n, k, _ in s["matmul"]
+                    if (m, k, n) not in seen_mm]
+        missing += [("attention", *c[:5]) for c in s["attention"]
+                    if c[:5] not in seen_fl]
+        missing += [("attention backward", *c[:5])
+                    for c in s["attention_bwd"] if c[:5] not in seen_bwd]
+    log(f"  the leg path's signatures: {len(LEG_CALLS.mm)} masked-matmul, "
+        f"{len(LEG_CALLS.fwd)} attention-forward and {len(LEG_CALLS.bwd)} "
+        f"attention-backward, {n_checks} checks; launches the recorder "
+        f"missed: {missing[:6]}")
+    if missing:
+        raise AssertionError(f"leg path: launches not recorded {missing}")
+    return names
+
+
+def tiny_leg_check():
+    """Tiny float32 ALPRO retrieval, PNP-VQA and GPT dialogue with random
+    masks on every linear, on the card (kernels) vs the CPU (plain
+    versions): ALPRO's loss and ``zoo_sim_matrix`` at k_test 0 and 3 over
+    6 videos (the reranked entries the same); PNP-VQA's relevance, caption
+    logits and reader loss (the relevance a backward through the card's
+    kernels); GPT dialogue's logits and loss with the video prefix; all
+    within 1e-4."""
+    from vlm_compression_tpu_torch.datasets.tokenization import (
+        SimpleTokenizer,
+        batch_encode,
+    )
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.factory import build_model
+    from vlm_compression_tpu_torch.models.layers import SparseLinear
+    from vlm_compression_tpu_torch.tasks.retrieval import zoo_sim_matrix
+
+    def pair(arch, seed):
+        cpu = random_init_(build_model(dict(arch=arch, tiny=True, amp=False),
+                                       device="cpu"), seed=seed, std=0.2)
+        g = torch.Generator().manual_seed(seed)
+        for mod in cpu.modules():
+            if isinstance(mod, SparseLinear):
+                mod.mask = torch.rand(mod.kernel.shape, generator=g) < 0.6
+        return cpu, copy.deepcopy(cpu).to("cuda"), g
+
+    def compare(label, fn, cpu, gpu):
+        reset_counts()
+        want = fn(cpu, "cpu")
+        got = fn(gpu, "cuda")
+        c = read_counts()
+        err = max(float((a.float().cpu() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        log(f"  tiny fp32 {label}, card vs CPU: max_abs_err={err:.3e} (tol "
+            f"1e-4); launches masked_matmul {c['masked_matmul']}, attention "
+            f"forwards {c['flash_attention']}, backwards {c[BWD_WGMMA]} + "
+            f"{c['flash_attention_bwd_dq']} + {c['flash_attention_bwd_dkv']}")
+        if not (err <= 1e-4 and c["masked_matmul"] > 0
+                and c["flash_attention"] > 0):
+            raise AssertionError(f"tiny leg check {label}")
+        return got, want
+
+    tok = SimpleTokenizer(64)
+    ids, mask = (torch.from_numpy(t) for t in batch_encode(
+        tok, retrieval_captions(12, random.Random(31), 2, 9), 35))
+    cpu, gpu, g = pair("alpro_retrieval", 31)
+    vids = torch.randn(6, 2, 28, 28, 3, generator=g)
+
+    def alpro(model, dev):
+        batches = [vids[:4].to(dev), vids[4:].to(dev)]
+        sims = [s for k in (0, 3) for s in zoo_sim_matrix(
+            model, batches, ids, mask, k_test=k)]
+        with torch.no_grad():
+            loss = model(vids[:4].to(dev), ids[:4].to(dev),
+                         mask[:4].to(dev))["loss"]
+        return [torch.as_tensor(s) for s in sims] + [loss[None]]
+
+    got, want = compare("alpro_retrieval zoo_sim_matrix k_test 0, 3 and "
+                        "the loss", alpro, cpu, gpu)
+    if not all(bool(((a == -100.0) == (b == -100.0)).all())
+               for a, b in zip(got[2:4], want[2:4])):
+        raise AssertionError("tiny alpro: the reranked entries differ")
+    cpu, gpu, g = pair("pnp_vqa", 32)
+    img = torch.randn(3, 28, 28, 3, generator=g)
+    ctx = torch.randint(4, 96, (3, 2, 6), generator=g)
+
+    def pnp(model, dev):
+        with torch.no_grad():
+            o = model(img.to(dev), ids[:3].to(dev), mask[:3].to(dev),
+                      cap_ids=ids[3:6, :5].to(dev), ctx_ids=ctx.to(dev),
+                      ctx_mask=torch.ones_like(ctx).to(dev),
+                      labels=ctx[:, 0, :4].to(dev))
+        return [o["relevance"], o["caption_logits"], o["loss"][None]]
+
+    compare("pnp_vqa relevance, caption logits, reader loss", pnp, cpu, gpu)
+    cpu, gpu, g = pair("gpt_dialogue", 33)
+    tok_ids = torch.randint(1, 64, (3, 9), generator=g)
+    fts = torch.randn(3, 4, 8, generator=g)
+
+    def gpt(model, dev):
+        with torch.no_grad():
+            o = model(tok_ids.to(dev), video_fts=fts.to(dev),
+                      labels=tok_ids.to(dev))
+        return [o["logits"], o["loss"][None]]
+
+    compare("gpt_dialogue logits and loss with video", gpt, cpu, gpu)
+
+
+# timed for the kernel line at the leg path's shapes (picked from the
+# recorded signatures by what each stands for)
+def leg_timed(names: dict) -> dict:
+    """{row: (kind, name)} of the signatures timed: row 1, TimeSformer's
+    largest product and GPT's float32 video_ff (K = 4224); row 4, the
+    temporal (n = m = 8) and spatial (n = m = 197) attention, GPT's causal
+    trunk and the FiD reader's cross-attention over the contexts; rows
+    5-6, the PNP relevance backward and ALPRO's temporal backward; row 7,
+    the FiD reader's backward with its position bias's gradient."""
+    def pick(kind, pred, size):
+        cands = [(n, k) for n, k in names[kind].items() if pred(n, k)]
+        return max(cands, key=lambda nk: size(nk[1]))[0] if cands else None
+
+    mm_size = lambda k: k[0] * k[1] * k[2]  # noqa: E731
+    at_size = lambda k: k[0] * k[1] * k[2]  # noqa: E731
+    out = {
+        "timesformer_linear": ("mm", pick(
+            "mm", lambda n, k: k[4] == "alpro_retrieval"
+            and k[3] == torch.bfloat16, mm_size)),
+        "gpt_video_ff": ("mm", pick(
+            "mm", lambda n, k: k[1] == sum(d for _, d in GPT_FEATS)
+            and k[3] == torch.float32,
+            mm_size)),
+        "temporal": ("fwd", pick(
+            "fwd", lambda n, k: k[1] == k[2] == ALPRO_FRAMES
+            and "alpro_retrieval" in n, at_size)),
+        "spatial": ("fwd", pick(
+            "fwd", lambda n, k: k[1] == k[2] == ZOO_PATCHES
+            and "alpro_retrieval" in n, at_size)),
+        "gpt_causal": ("fwd", pick(
+            "fwd", lambda n, k: k[8] and "gpt_dialogue" in n, at_size)),
+        "fid_cross": ("fwd", pick(
+            "fwd", lambda n, k: "pnp_vqarc" in n and k[2] > 64 and k[4] == 64
+            and k[3] == 32, at_size)),
+        "pnp_relevance_bwd": ("bwd", pick(
+            "bwd", lambda n, k: "pnp_vqarc" in n, at_size)),
+        "temporal_bwd": ("bwd", pick(
+            "bwd", lambda n, k: "train_alpro" in n
+            and k[1] == k[2] == ALPRO_FRAMES, at_size)),
+        "fid_dbias": ("bwd", pick(
+            "bwd", lambda n, k: bool(k[11]), at_size))}
+    return {row: v for row, v in out.items() if v[1] is not None}
+
+
+def timing_leg(names: dict, worst) -> dict:
+    """The leg path's timed signatures (``leg_timed``): the kernel, the
+    plain version, the library call (``torch.matmul`` of the pre-masked
+    weight; SDPA on its fastest backend, in turns; SDPA's backward, with a
+    mask gradient for row 7) and the bound, each a median of CUDA-event
+    readings."""
+    import torch.nn.functional as F
+
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.ops import masked_linear as ML
+
+    rows = {}
+    for label, (kind, name) in leg_timed(names).items():
+        key = names[kind][name]
+        if kind == "mm":
+            m, k, n, dtype, _ = key
+            x, w, mask = mm_inputs(m, k, n, dtype)
+            wm = w * mask
+            ms = device_ms(lambda: ML.masked_matmul(x, w, mask))
+            plain = device_ms(lambda: ML.masked_matmul_ref(x, w, mask))
+            lib = device_ms(lambda: torch.matmul(x, wm))
+            bound, by = zoo_mm_bound_ms(m, k, n, dtype)
+            rows[label] = dict(kernel="masked_matmul", signature=name,
+                               ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bound, bound_by=by,
+                               loop=expected_loop(m, k, n, dtype),
+                               dtype=str(dtype)[6:], shape=[m, k, n],
+                               max_abs_err=worst[("masked_matmul", name,
+                                                  dtype)])
+            log(f"  time {label} masked_matmul {name} M={m} K={k} N={n} "
+                f"{str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain:.4f} "
+                f"ms, torch.matmul(x, W*mask) {lib:.4f} ms, bound "
+                f"{bound:.4f} ms ({by})")
+            continue
+        b, n, m, h, d, dtype, shapes, scale, causal = key[:9]
+        biases = (LEG_CALLS.fwd if kind == "fwd" else LEG_CALLS.bwd)[key][1]
+        q, k_, v, _ = flash_inputs(b, n, m, h, d, [], dtype)
+        bsum = None
+        for x in biases:
+            bsum = x if bsum is None else bsum + x
+        if kind == "fwd":
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k_, v))
+            mask_ = None if bsum is None else bsum.expand(b, h, n, m).to(
+                dtype)
+            lib = against_library(
+                lambda: A.flash_attention(q, k_, v, biases, scale, causal),
+                sdpa_candidates(lambda be: pinned(
+                    be, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask_, scale=scale,
+                        is_causal=causal))))
+            plain = device_ms(lambda: A.mha_reference(q, k_, v, biases,
+                                                      scale, causal))
+            bound, by = flash_bound_ms(q, k_, v, biases)
+            kernel, route = "flash_attention", A.plan_forward(n, m, d)
+            err = worst[("flash_attention", name, dtype)]
+        else:
+            dq_, dkv_, dbias_of = key[9:]
+            g = grad_like(q)
+            o, lse = A.flash_attention(q, k_, v, biases, scale, causal)
+            args = (q, k_, v, o, lse, g, biases, scale, causal)
+            lib = against_library(
+                lambda: A.flash_attention_backward(
+                    *args, need_dq=dq_, need_dkv=dkv_, dbias_of=dbias_of),
+                sdpa_candidates(lambda be: sdpa_backward(
+                    be, q, k_, v, biases, g, scale,
+                    mask_grad=bool(dbias_of))))
+            plain = device_ms(lambda: A.flash_attention_backward_ref(
+                *args, dbias_of=dbias_of))
+            bound, by = flash_bwd_bound_ms(q, k_, v, biases, dbias_of)
+            kernel = ("flash_attention_bwd_dbias" if dbias_of
+                      else "flash_attention_bwd")
+            route = A.plan(n, m, d)
+            err = worst[("flash_attention_backward", name, dtype)]
+        rows[label] = dict(kernel=kernel, signature=name,
+                           ms=lib["kernel_ms"], plain_ms=plain,
+                           library_ms=lib["library_ms"],
+                           library_backend=lib["library_backend"],
+                           bound_ms=bound, bound_by=by, route=route,
+                           shape=[b, n, m, h, d], biases=list(shapes),
+                           causal=causal, max_abs_err=err)
+        log(f"  time {label} {kernel} {name} b={b} n={n} m={m} h={h} d={d} "
+            f"causal={causal} ({route}): {lib['kernel_ms']:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{library_note(lib)}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9387,6 +10299,7 @@ def main() -> int:
     tiny_pruners_check()
     tiny_loader_check()
     tiny_zoo_check()
+    tiny_leg_check()
     log("[reference] SparseGPT at an XL shape, card vs CPU; one batched "
         "group against its members one by one")
     sg = sparsegpt_check()
@@ -9491,6 +10404,26 @@ def main() -> int:
     e2e.update(z_e2e)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[leg path] the rest of the legacy zoo at full width, bf16, 50 % "
+        f"magnitude masks: ALPRO (TimeSformer-B/16, {ALPRO_FRAMES} frames) "
+        f"through the retrieval task on {ALPRO_VIDEOS} videos × "
+        f"{ALPRO_VIDEOS} captions at k_test {ALPRO_RUN['k_test']} (the "
+        f"cut), AlproQA at batch {ALPRO_QA_B}, cli.evaluate on "
+        f"{ALPRO_CLI_YAML}; PNP-VQA base through VQARCTask ({PNP_Q} "
+        f"questions, {PNP_RUN['num_captions']} captions: the cut); GPT "
+        f"dialogue through DialogueTask at batch {GPT_B} and cli.evaluate "
+        f"on {GPT_CLI_YAML}; one backward of each zoo loss")
+    leg_rec, l_e2e = leg_path()
+    phase_done("leg path")
+    counts.update(leg_rec["counts"])
+    e2e.update(l_e2e)
+    log("[kernels] rows 1 and 4-7 at every signature the leg path launched "
+        "(recorded)")
+    leg_names = check_leg_kernels(leg_rec, worst)
+    del leg_rec
+    phase_done("leg kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
     log("[cli path] the launcher's T5 grid point through the port's CLI: "
         "the Wanda prune call at batch 1 (checkpoint saved), the GQA eval "
         "call on the checkpoint, and again with --quantize_int4 and with "
@@ -9527,6 +10460,7 @@ def main() -> int:
     rows, wmma, extra = timing()
     timing_compressed(rows, wmma)
     zoo_rows = timing_zoo(worst)
+    leg_rows = timing_leg(leg_names, worst)
     phase_done("timing")
     log(f"[phases] wall-clock s: "
         f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
@@ -9684,6 +10618,20 @@ def main() -> int:
                     p: r[kname]
                     for p, r in e2e["zoo_launches_by_route"].items()}}
                if kname in ("masked_matmul", "flash_attention") else {}),
+            # the leg path's shapes (ALPRO's TimeSformer, PNP-VQA, GPT
+            # dialogue, the zoo losses' backward) and its launches by route
+            **({"video_rc_dialogue": {
+                label: r for label, r in leg_rows.items()
+                if r["kernel"] == {"flash_attention_bwd_dq":
+                                   "flash_attention_bwd",
+                                   "flash_attention_bwd_dkv":
+                                   "flash_attention_bwd"}.get(kname, kname)},
+                "video_rc_dialogue_launches_by_route": {
+                    p: r for p, r in e2e["leg_launches_by_route"].items()}}
+               if kname in ("masked_matmul", "flash_attention",
+                            "flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dbias") else {}),
             "max_abs_err": worst[err_key],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "shape": timed,

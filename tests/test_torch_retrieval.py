@@ -394,7 +394,7 @@ def test_task_refuses_instructblip():
     the port says so instead of scoring it."""
     tm = TF.build_model(dict(arch="blip2_t5_instruct", tiny=True),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="no retrieval head"):
         TR.RetrievalTask(k_test=2).evaluation(tm, _Loader(_retrieval_set(3)))
 
 

@@ -31,11 +31,13 @@ from vlm_compression_tpu.models import t5 as JT
 from vlm_compression_tpu.models import t5_plain as JP
 from vlm_compression_tpu.models import vit as JV
 from vlm_compression_tpu_torch.models import albef as TA
+from vlm_compression_tpu_torch.models import alpro as TAL
 from vlm_compression_tpu_torch.models import blip1 as TB
 from vlm_compression_tpu_torch.models import clip_model as TC
 from vlm_compression_tpu_torch.models import eva_vit as TE
 from vlm_compression_tpu_torch.models import factory as TF
 from vlm_compression_tpu_torch.models import med as TM
+from vlm_compression_tpu_torch.models import pnp_vqa as TPN
 from vlm_compression_tpu_torch.models import t5 as TT
 from vlm_compression_tpu_torch.models import t5_plain as TP
 from vlm_compression_tpu_torch.models import vit as TV
@@ -52,7 +54,10 @@ _PORT_CFG = {"ViTConfig": TV.ViTConfig, "MedConfig": TM.MedConfig,
              "Blip1Config": TB.Blip1Config, "AlbefConfig": TA.AlbefConfig,
              "ClipConfig": TC.ClipConfig, "ClipTextConfig": TC.ClipTextConfig,
              "EvaViTConfig": TE.EvaViTConfig, "T5Config": TT.T5Config,
-             "PlainT5Config": TP.PlainT5Config}
+             "PlainT5Config": TP.PlainT5Config,
+             "AlproConfig": TAL.AlproConfig,
+             "TimeSformerConfig": TAL.TimeSformerConfig,
+             "PNPVQAConfig": TPN.PNPVQAConfig}
 
 
 def to_port_config(jcfg):
@@ -547,5 +552,16 @@ def test_factory_ignores_the_yaml_image_size_as_jax_does(arch):
                                   "gpt_dialogue", "pnp_vqa",
                                   "img2prompt_vqa", "pnp_unifiedqav2_fid"])
 def test_factory_unported_zoo_archs_raise_with_their_item(arch):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TF.build_model_config(dict(arch=arch, tiny=True))
+    """The archs that waited for the rest of the zoo are ported: the
+    factory builds JAX's config for each (compared field by field, nested
+    configs included) and the model its registry names."""
+    import dataclasses
+
+    from vlm_compression_tpu.common.registry import registry
+
+    for node in (dict(tiny=True), dict(model_type="base")):
+        _, jcfg = JF.build_model_config(dict(node, arch=arch))
+        _, tcfg = TF.build_model_config(dict(node, arch=arch))
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert TF._MODELS[arch].__name__ == \
+        registry.get_model_class(arch).__name__

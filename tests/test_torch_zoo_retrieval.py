@@ -156,7 +156,7 @@ def test_task_refuses_the_instructblip_compositions():
     from vlm_compression_tpu_torch.models.factory import build_model
 
     tm = build_model(dict(arch="blip2_t5_instruct", tiny=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="no retrieval head"):
         TR.RetrievalTask(k_test=2).evaluation(tm, _Loader(retrieval_set(5)))
 
 

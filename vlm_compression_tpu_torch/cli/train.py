@@ -24,7 +24,8 @@ names: ``pruned_<job>`` (a ``torch.save``d state dict),
 knobs (``--gptq_bits``, ``--gptq_group``, ``--gptq_asym``,
 ``--gptq_actorder``, ``--gptq_awq``) reach the pruner as in the JAX CLI.
 The flag of what is not ported yet (autotuning: ROADMAP queue 1, item 9)
-parses, and raises when set.
+parses, and raises when set.  A legacy zoo arch raises before the build:
+the JAX CLI cannot train one either (``_TRAINED_ARCHS``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,21 @@ import torch
 # flags that parse but are not ported: (flag, item); each raises when set
 # to anything but the parser's default
 _NOT_PORTED = (("autotune", 9),)
+
+# the archs the CLI trains: the JAX CLI reads the language tower's
+# vocabulary from ``module.cfg.t5`` or ``.llm`` and then ``.qformer``
+# (cli/train.py:184-190), which the legacy zoo's configs lack; the zoo's
+# heads take one ``mode``, not the per-tower modes the pretraining step
+# passes (tasks/pretrain.py:28-34); and its configs carry no LoRA rank for
+# the runner to train.  A zoo model's loss is differentiable: take its
+# gradient directly
+_TRAINED_ARCHS = ("blip2_t5_instruct", "blip2_vicuna_instruct")
+_NO_ZOO_TRAINER = (
+    "cli.train trains {arch!r}? No: it trains InstructBLIP (T5 or Vicuna) "
+    "alone, as the JAX CLI does — a legacy zoo config has no t5 / llm / "
+    "qformer tower for its tokenizers, no per-tower modes for the "
+    "pretraining step and no LoRA rank for the runner; call the model's "
+    "loss and its backward() directly")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -217,9 +233,11 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
     if args.kl_weight is not None:
         task.kl_weight = args.kl_weight
         task.T = args.T
+    arch = _get(model_cfg, "arch", "blip2_t5_instruct")
+    if arch not in _TRAINED_ARCHS:
+        raise NotImplementedError(_NO_ZOO_TRAINER.format(arch=arch))
     with timer.phase("build"):
         model = build_model(model_cfg, seed=args.seed, device=device)
-    arch = _get(model_cfg, "arch", "blip2_t5_instruct")
     tok, qtok = _tokenizers(model, model_cfg)
     prepare = (make_t5_batch_preparer if arch == "blip2_t5_instruct"
                else make_vicuna_batch_preparer)(

@@ -12,8 +12,8 @@ Config schema (a dict or ``ConfigNode``):
   vis_processor: {train: {name, ...}, eval: {name, ...}}
   text_processor: {train: {name, ...}, eval: {name, ...}}
 
-Every name of the JAX package is registered; a name whose item class is
-not ported yet raises with the ROADMAP item it waits for.
+Every name of the JAX package is registered and builds its item
+datasets.
 """
 
 from __future__ import annotations
@@ -76,16 +76,6 @@ def _register(name, train_cls, eval_cls):
                {"train_dataset_cls": train_cls, "eval_dataset_cls": eval_cls})
     registry.register_builder(name)(cls)
     return cls
-
-
-def _not_ported(name: str, what: str, item: str):
-    def init(self, cfg=None):
-        raise NotImplementedError(
-            f"dataset builder {name!r} ({what}) is not ported yet (ROADMAP "
-            f"queue 1, item {item})")
-
-    registry.register_builder(name)(
-        type(f"{name}_builder", (BaseDatasetBuilder,), {"__init__": init}))
 
 
 # captioning
@@ -155,8 +145,14 @@ NLVRBuilder = _register("nlvr", I.NLVRDataset, I.NLVRDataset)
 SNLIVEBuilder = _register("snli_ve", I.VisualEntailmentDataset,
                           I.VisualEntailmentDataset)
 
-# not ported yet: video and dialogue (the legacy zoo's tasks, item 11)
-for _n in ("msrvtt_caption", "msvd_caption", "vatex_caption",
-           "msrvtt_retrieval", "didemo_retrieval", "msrvtt_qa", "msvd_qa"):
-    _not_ported(_n, "video", "11")
-_not_ported("avsd_dialogue", "video dialogue", "11")
+# the video datasets: each item a (t, h, w, c) frame stack, batched into
+# the 5-dim (b, t, h, w, c) video input; retrieval's eval split exposes the
+# parallel lists of the ALPRO similarity matrix under the ``video`` key
+for _n in ("msrvtt_caption", "msvd_caption", "vatex_caption"):
+    _register(_n, I.VideoCaptionDataset, I.VideoCaptionEvalDataset)
+for _n in ("msrvtt_retrieval", "didemo_retrieval"):
+    _register(_n, I.VideoCaptionDataset, I.VideoRetrievalDataset)
+for _n in ("msrvtt_qa", "msvd_qa"):
+    _register(_n, I.VideoQADataset, I.VideoQAEvalDataset)
+AVSDBuilder = _register("avsd_dialogue", I.VideoDialogueDataset,
+                        I.VideoDialogueDataset)

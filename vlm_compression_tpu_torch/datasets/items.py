@@ -19,8 +19,8 @@ An image file ending in ``.npy`` is read with ``numpy.load`` (a uint8
 (H, W, 3) array: the form the card's machine reads, having no Pillow);
 any other file is decoded with Pillow, imported where it is read.  The
 LAION stream (``LaionDataset``) reads local webdataset tar shards the same
-way, member by member.  The video and dialogue items are not ported yet
-(ROADMAP queue 1, item 11).
+way, member by member.  The video items (``_VideoFramesMixin``) read
+``.npy`` frame stacks, frame directories or lists of frame paths.
 """
 
 from __future__ import annotations
@@ -244,6 +244,100 @@ class VisualEntailmentDataset(BaseItemDataset):
                 "text_input": self.text_processor(
                     ann.get("sentence", ann.get("caption", ""))),
                 "label": int(lab), "instance_id": ann["instance_id"]}
+
+
+# ---------------------------------------------------------------------------
+# video items (frame stacks)
+# ---------------------------------------------------------------------------
+
+
+class _VideoFramesMixin:
+    """Frames of a video item.  ``ann["video"]`` (or ``ann["image"]``) is a
+    ``.npy`` stack (t, h, w, c) in [0, 255] or [0, 1] (a float stack's range
+    decided by its values, not its dtype), a directory of frame images
+    (sorted by name) or a list of frame paths.  A whole-video processor
+    (one with ``n_frms``: ``alpro_video_*``) takes the uint8 frames and
+    subsamples them itself; any other runs on each frame, and the frames
+    are subsampled (or repeated) to ``num_frames`` after, by
+    ``linspace(...).round()``: a (t, h, w, c) float32 stack either way."""
+
+    num_frames = 4
+
+    def _frame_paths(self, spec):
+        if isinstance(spec, list):
+            return [os.path.join(self.vis_root, p) for p in spec]
+        path = os.path.join(self.vis_root, spec)
+        if os.path.isdir(path):
+            return [os.path.join(path, n) for n in sorted(os.listdir(path))
+                    if n.lower().endswith((".jpg", ".jpeg", ".png"))]
+        return [path]
+
+    def _video(self, ann) -> np.ndarray:
+        spec = ann.get("video", ann.get("image"))
+        whole = hasattr(self.vis_processor, "n_frms")
+        if isinstance(spec, str) and spec.endswith(".npy"):
+            stack = np.load(os.path.join(self.vis_root, spec))
+            if stack.dtype == np.uint8:
+                frames = stack
+            else:
+                arr = stack.astype(np.float32)
+                frames = (np.clip(arr, 0, 255) if arr.max() > 1.5
+                          else np.clip(arr, 0, 1) * 255).astype(np.uint8)
+        else:
+            frames = [load_image(p) for p in self._frame_paths(spec)]
+        if whole:
+            return np.asarray(self.vis_processor(frames), np.float32)
+        frames = [self.vis_processor(f) for f in frames]
+        idx = np.linspace(0, len(frames) - 1, self.num_frames).round() \
+            .astype(int)
+        return np.stack([frames[i] for i in idx]).astype(np.float32)
+
+
+class VideoCaptionDataset(_VideoFramesMixin, CaptionDataset):
+    def _image(self, ann):
+        return self._video(ann)
+
+
+class VideoCaptionEvalDataset(_VideoFramesMixin, CaptionEvalDataset):
+    def _image(self, ann):
+        return self._video(ann)
+
+
+class VideoRetrievalDataset(_VideoFramesMixin, RetrievalDataset):
+    """MSRVTT / DiDeMo retrieval: the parallel video and caption lists of
+    ``RetrievalDataset``, each item under the ``video`` key (the ALPRO
+    retrieval reads it)."""
+
+    def __getitem__(self, i):
+        ann = self.annotation[i]
+        return {"video": self._video(ann), "index": i,
+                "instance_id": ann["instance_id"]}
+
+
+class VideoQADataset(_VideoFramesMixin, VQADataset):
+    def _image(self, ann):
+        return self._video(ann)
+
+
+class VideoQAEvalDataset(VideoQADataset):
+    pass
+
+
+class VideoDialogueDataset(_VideoFramesMixin, BaseItemDataset):
+    """AVSD: the dialogue history (each turn's question and answer joined)
+    as the instruction, the answer (or caption) as the target."""
+
+    def __getitem__(self, i):
+        ann = self.annotation[i]
+        history = ann.get("dialog", ann.get("history", []))
+        if isinstance(history, list):
+            history = " ".join(
+                (f"{h.get('question', '')} {h.get('answer', '')}"
+                 if isinstance(h, dict) else str(h)) for h in history)
+        return {"image": self._video(ann),
+                "text_input": self.text_processor(history),
+                "text_output": ann.get("answer", ann.get("caption", "")),
+                "instance_id": ann["instance_id"]}
 
 
 class LaionDataset:

@@ -6,25 +6,34 @@ to a square, normalize), ``blip2_image_train`` (random resized crop of
 scale 0.5-1 and ratio 3/4-4/3, bicubic resize, horizontal flip at p = 0.5,
 normalize), ``clip_image_eval`` (resize the short side, centre crop,
 normalize), ``blip_caption`` (prompt + cleaning + max-words truncation)
-and ``blip_question`` (lowercase, punctuation stripped).
+and ``blip_question`` (lowercase, punctuation stripped); the train
+transforms ``blip_image_train`` (``blip2_image_train``'s crop and flip,
+then RandAugment(2, 5) over the ten ops of ``_RA_OPS``, each a numpy copy
+of its Pillow call in ``datasets/_randaug.py``) and ``clip_image_train``
+(the crop at scale 0.9-1); ALPRO's ``alpro_video_eval`` /
+``alpro_video_train`` (frames subsampled to ``n_frms``, one crop and flip
+for all of them) and AVSD's ``gpt_dialogue`` (token streams) and
+``gpt_video_ft`` (feature stacks).
 
 The image processors take uint8 (H, W, 3) arrays (``datasets/items.py``
 decodes files into them) and resize with ``datasets/_resample.py``, a
 numpy copy of Pillow's bicubic resize: the card's machine has no Pillow.
 Outputs are float32 (H, W, 3) arrays normalized with the OpenAI-CLIP
-constants, as the JAX package's are.  ``blip2_image_train`` draws its crop
-and flip from its ``np.random.Generator`` with the JAX processor's calls,
-in their order.
+constants, as the JAX package's are.  The train transforms draw their crop, flip
+and augmentations from their ``np.random.Generator`` with the JAX
+processors' calls, in their order.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Optional, Sequence
 
 import numpy as np
 
 from vlm_compression_tpu_torch.common.registry import registry
+from vlm_compression_tpu_torch.datasets import _randaug as RA
 from vlm_compression_tpu_torch.datasets._resample import resize_bicubic
 
 # OpenAI-CLIP normalization used by every BLIP-2 processor
@@ -178,18 +187,199 @@ class BlipQuestionProcessor(BaseProcessor):
         return pre_question(question, self.max_words)
 
 
-def _not_ported(name: str, item: int):
-    def raise_(cfg=None):
-        raise NotImplementedError(f"processor {name!r} is not ported yet "
-                                  f"(ROADMAP queue 1, item {item})")
-    return type(name, (BaseProcessor,), {"from_config": staticmethod(raise_)})
+# ---------------------------------------------------------------------------
+# RandAugment (the BLIP-1 train transform's op list), on uint8 arrays: each op
+# a numpy copy of its Pillow call (``datasets/_randaug.py``)
+# ---------------------------------------------------------------------------
+
+_RA_OPS = {
+    "Identity": lambda img, v: img,
+    "AutoContrast": lambda img, v: RA.autocontrast(img),
+    "Equalize": lambda img, v: RA.equalize(img),
+    "Brightness": lambda img, v: RA.blend(np.zeros_like(img), img,
+                                          1.0 + 0.6 * v),
+    "Sharpness": lambda img, v: RA.blend(RA.smooth(img), img, 1.0 + 0.6 * v),
+    "ShearX": lambda img, v: RA.affine_nearest(img, (1, 0.3 * v, 0, 0, 1, 0)),
+    "ShearY": lambda img, v: RA.affine_nearest(img, (1, 0, 0, 0.3 * v, 1, 0)),
+    "TranslateX": lambda img, v: RA.affine_nearest(
+        img, (1, 0, 0.2 * v * img.shape[1], 0, 1, 0)),
+    "TranslateY": lambda img, v: RA.affine_nearest(
+        img, (1, 0, 0, 0, 1, 0.2 * v * img.shape[0])),
+    "Rotate": lambda img, v: RA.rotate(img, 30 * v),
+}
 
 
-# the JAX package's other names: RandAugment's BLIP-1 transform and the
-# legacy zoo's (CLIP training, ALPRO video, the AVSD dialogue)
-for _name in ("blip_image_train", "clip_image_train", "alpro_video_eval",
-              "alpro_video_train", "gpt_dialogue", "gpt_video_ft"):
-    registry.register_processor(_name)(_not_ported(_name, 11))
+class RandomAugment:
+    """``n`` ops drawn with replacement, each at magnitude ``m``/10 with a
+    drawn sign: ``rng.choice(augs, n)``, then one ``rng.choice((-1, 1))``
+    an op, as the JAX processor draws them."""
+
+    def __init__(self, n: int = 2, m: int = 5, augs=None, rng=None):
+        self.n = n
+        self.m = m
+        self.augs = list(augs or _RA_OPS)
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        for name in self.rng.choice(self.augs, self.n):
+            v = (self.m / 10.0) * self.rng.choice((-1.0, 1.0))
+            img = _RA_OPS[name](img, float(v))
+        return img
+
+
+@registry.register_processor("blip_image_train")
+class BlipImageTrainProcessor(Blip2ImageTrainProcessor):
+    """BLIP-1's train transform: ``blip2_image_train``'s crop and flip,
+    then RandAugment(2, 5), then normalize."""
+
+    def __init__(self, image_size: int = 384, min_scale: float = 0.5,
+                 max_scale: float = 1.0, rng=None):
+        super().__init__(image_size, min_scale, max_scale, rng)
+        self.randaug = RandomAugment(2, 5, rng=self.rng)
+
+    def __call__(self, img) -> np.ndarray:
+        return _to_float(self.randaug(self.crop_flip(img)))
+
+
+@registry.register_processor("clip_image_train")
+class ClipImageTrainProcessor(Blip2ImageTrainProcessor):
+    """The random resized crop at scale 0.9-1.0, flip, normalize."""
+
+    def __init__(self, image_size: int = 224, min_scale: float = 0.9,
+                 max_scale: float = 1.0, rng=None):
+        super().__init__(image_size, min_scale, max_scale, rng)
+
+
+# ---------------------------------------------------------------------------
+# video and dialogue
+# ---------------------------------------------------------------------------
+
+
+class _AlproVideoBase(BaseProcessor):
+    """Video transforms over a (t, h, w, 3) stack or a list of frames:
+    frames subsampled to exactly ``n_frms`` by ``linspace(...).round()``
+    (a short clip repeats frames), one spatial transform for all of
+    them."""
+
+    cfg_keys = ("image_size", "n_frms")
+
+    def __init__(self, image_size: int = 224, n_frms: int = 8, rng=None):
+        self.image_size = image_size
+        self.n_frms = n_frms
+        self.rng = rng or np.random.default_rng()
+
+    def _frames(self, video) -> list:
+        if isinstance(video, np.ndarray) and video.dtype != np.uint8:
+            video = (np.clip(video, 0, 1) * 255).astype(np.uint8)
+        frames = [as_rgb(f) for f in video]
+        idx = np.linspace(0, len(frames) - 1, self.n_frms).round() \
+            .astype(int)
+        return [frames[i] for i in idx]
+
+
+@registry.register_processor("alpro_video_eval")
+class AlproVideoEvalProcessor(_AlproVideoBase):
+    def __call__(self, video) -> np.ndarray:
+        size = (self.image_size, self.image_size)
+        return np.stack([_to_float(resize_bicubic(f, size))
+                         for f in self._frames(video)]).astype(np.float32)
+
+
+@registry.register_processor("alpro_video_train")
+class AlproVideoTrainProcessor(_AlproVideoBase):
+    """One square crop of the short side at a drawn offset and one drawn
+    flip, shared by every frame."""
+
+    def __call__(self, video) -> np.ndarray:
+        frames = self._frames(video)
+        h, w = frames[0].shape[:2]
+        s = min(w, h)
+        x = int(self.rng.integers(0, w - s + 1))
+        y = int(self.rng.integers(0, h - s + 1))
+        flip = self.rng.random() < 0.5
+        size = (self.image_size, self.image_size)
+        out = []
+        for f in frames:
+            f = resize_bicubic(f[y:y + s, x:x + s], size)
+            out.append(_to_float(f[:, ::-1] if flip else f))
+        return np.stack(out).astype(np.float32)
+
+
+@registry.register_processor("gpt_dialogue")
+class GPTDialogueProcessor(BaseProcessor):
+    """An AVSD annotation → GPT token streams: [caption ⊕ the last
+    ``max_turns`` turns ⊕ the question ⊕ the answer], each segment ended
+    by EOS; token-type ids mark the caption and the two speakers; the
+    labels keep the answer alone (−1 elsewhere).  The special ids follow
+    the tokenizer's vocabulary, in the order <bos> <eos> <speaker1>
+    <speaker2> <cap>."""
+
+    cfg_keys = ("max_turns", "use_caption")
+
+    def __init__(self, max_turns: int = 3, use_caption: bool = True,
+                 tokenizer=None):
+        from vlm_compression_tpu_torch.datasets.tokenization import (
+            SimpleTokenizer,
+        )
+
+        self.max_turns = max_turns
+        self.use_caption = use_caption
+        self.tokenizer = tokenizer or SimpleTokenizer(vocab_size=8192)
+        base = getattr(self.tokenizer, "vocab_size", 8192)
+        (self.bos, self.eos, self.speaker1, self.speaker2,
+         self.cap) = range(base, base + 5)
+
+    def _encode(self, text):
+        tok = self.tokenizer
+        ids = tok.encode(text) if hasattr(tok, "encode") else tok(text)
+        if isinstance(ids, dict):
+            ids = ids["input_ids"]
+        return [int(t) for t in ids]
+
+    def sample_sequence(self, caption, history, answer):
+        seqs = [s + [self.eos] for s in [caption] + history + [answer]]
+        input_ids = [t for s in seqs for t in s]
+        token_type = [self.cap] * len(seqs[0]) + [
+            self.speaker2 if i % 2 else self.speaker1
+            for i, s in enumerate(seqs[1:]) for _ in s]
+        labels = [-1] * sum(len(s) for s in seqs[:-1]) + seqs[-1]
+        return {"input_ids": np.asarray(input_ids, np.int32),
+                "token_type_ids": np.asarray(token_type, np.int32),
+                "labels": np.asarray(labels, np.int32)}
+
+    def __call__(self, ann):
+        caption = (self._encode(" ".join(
+            [ann.get("caption", ""), ann.get("summary", "")]))
+            if self.use_caption else [])
+        history = []
+        for turn in ann.get("dialog", [])[-self.max_turns:]:
+            history.append(self._encode(turn["question"]))
+            history.append(self._encode(turn["answer"]))
+        history.append(self._encode(ann["question"]))
+        return self.sample_sequence(caption, history,
+                                    self._encode(ann["answer"]))
+
+
+@registry.register_processor("gpt_video_ft")
+class GPTVideoFeatureProcessor(BaseProcessor):
+    """Pre-extracted feature stacks of a clip: ``{ft_root}/{name}/
+    {vname}.npy`` for each visual then audio feature, cut to the shortest
+    and concatenated along the features, with an all-ones mask."""
+
+    cfg_keys = ("visual_ft", "audio_ft")
+
+    def __init__(self, visual_ft=("i3d_rgb",), audio_ft=("vggish",)):
+        self.visual_ft = list(visual_ft)
+        self.audio_ft = list(audio_ft)
+
+    def __call__(self, ft_root: str, vname: str) -> dict:
+        fts = [np.load(os.path.join(ft_root, name, f"{vname}.npy"))
+               .astype(np.float32)
+               for name in self.visual_ft + self.audio_ft]
+        min_t = min(f.shape[0] for f in fts)
+        feat = np.concatenate([f[:min_t] for f in fts], axis=-1)
+        return {"video_fts": feat,
+                "attention_mask": np.ones((feat.shape[0],), np.int32)}
 
 
 def load_processor(name: str, cfg=None):

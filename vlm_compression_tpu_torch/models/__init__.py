@@ -1,7 +1,8 @@
 """Towers and compositions of the port (EVA ViT-g, Q-Former, FlanT5,
 LLaMA, OPT, InstructBLIP-T5, InstructBLIP-Vicuna, BLIP-2 OPT, the stage-1
 BLIP-2 Q-Former, and the legacy zoo: the plain ViT, MED, BLIP-1, ALBEF,
-CLIP / EVA-CLIP and the plain T5), decoding, the weight bridge and the
+ALPRO with TimeSformer, CLIP / EVA-CLIP, GPT dialogue, PNP-VQA /
+Img2Prompt with the FiD reader and the plain T5), decoding, the weight bridge and the
 checkpoint converters; ``load_model`` and ``load_model_and_preprocess``, the LAVIS
 entry points (imports stay lazy, as in the JAX package)."""
 
@@ -38,13 +39,19 @@ def load_model(name: str, model_type: str = "flant5xl", is_eval: bool = False,
 def load_model_and_preprocess(name: str, model_type: str = "flant5xl",
                               is_eval: bool = False, **kw):
     """(model, vis_processors, txt_processors): the processors are
-    ``blip2_image_train`` / ``blip_image_eval`` at the ViT's ``img_size``
-    and ``blip_caption``, keyed ``train`` and ``eval``.  ``kw`` goes to
+    ``blip2_image_train`` / ``blip_image_eval`` at the vision tower's
+    ``img_size`` (the ViT's, EVA-CLIP's, PNP-VQA's BLIP-1's or ALPRO's
+    TimeSformer's; 224 for a model with none) and ``blip_caption``, keyed
+    ``train`` and ``eval``, as the JAX package picks them.  ``kw`` goes to
     ``load_model``."""
     from vlm_compression_tpu_torch.datasets.processors import load_processor
 
     model = load_model(name, model_type, is_eval, **kw)
-    img = model.cfg.vit.img_size
+    c = model.cfg
+    tower = (getattr(c, "vit", None) or getattr(c, "eva", None)
+             or getattr(getattr(c, "blip", None), "vit", None)
+             or getattr(c, "timesformer", None))
+    img = tower.img_size if tower is not None else 224
     vis = {"train": load_processor("blip2_image_train", {"image_size": img}),
            "eval": load_processor("blip_image_eval", {"image_size": img})}
     txt = {"train": load_processor("blip_caption"),

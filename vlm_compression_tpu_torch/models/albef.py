@@ -55,7 +55,12 @@ class AlbefConfig:
         return AlbefConfig(**d)
 
 
-class AlbefBase(ZooBase):
+class SplitFusion:
+    """A MED split at ``cfg.med.fusion_start`` (ALBEF's and ALPRO's): the
+    unimodal text runs the layers below it with no encoder states, and
+    ``fuse`` the rest from those hidden states, cross-attending to the
+    visual embeddings."""
+
     def unimodal_text(self, ids, mask, mode="masked"):
         """The pre-fusion half: layers [0, fusion_start), no encoder
         states."""
@@ -67,13 +72,15 @@ class AlbefBase(ZooBase):
             x = layer(x, bias, None, None, mode=mode or "masked")
         return x
 
-    def fuse(self, text_hidden, mask, image_embeds, mode="masked"):
+    def fuse(self, text_hidden, mask, visual_embeds, mode="masked"):
         return self.text_encoder(
             inputs_embeds=text_hidden, attention_mask=mask,
-            encoder_hidden_states=image_embeds,
-            encoder_attention_mask=image_mask(image_embeds),
+            encoder_hidden_states=visual_embeds,
+            encoder_attention_mask=image_mask(visual_embeds),
             start_layer=self.cfg.med.fusion_start, mode=mode)
 
+
+class AlbefBase(SplitFusion, ZooBase):
     def fused(self, image_embeds, ids, mask, mode="masked"):
         return self.fuse(self.unimodal_text(ids, mask, mode=mode), mask,
                          image_embeds, mode=mode)

@@ -95,16 +95,20 @@ class ZooBase(nn.Module):
     in ``HEADS`` ("itc": ``vision_proj`` / ``text_proj``; "itm":
     ``itm_head``; "cls": ``cls_head``; "lm": MED's LM head) and ``temp``.
     Each family defines ``fused(image_embeds, ids, mask, mode)``, its way
-    of fusing text with an image, which the shared heads below call."""
+    of fusing text with an image, which the shared heads below call.
+    ``VISION`` False: no vision tower (a stage that reads another model's
+    image tokens, as PNP-VQA's captioner does)."""
 
     HEADS = ("itc", "itm")
+    VISION = True
 
     def __init__(self, cfg, device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         hd = cfg.med.hidden_size
-        self.visual_encoder = ViT(cfg.vit, device)
+        if self.VISION:
+            self.visual_encoder = ViT(cfg.vit, device)
         self.text_encoder = MedBert(cfg.med, lm_head="lm" in self.HEADS,
                                     device=device)
         if "itc" in self.HEADS:

@@ -14,6 +14,11 @@ linear's int8 kernel and scale buffer, a uint8 ``kernel_q4`` with its 2-D
 ``kernel_scale`` its int4 kernel (the float kernel removed) and scale
 buffer; a packed uint32 ``mask`` with
 ``mask_rows``/``mask_group`` (``ops/bitmask.py``) its int32 words.
+The legacy zoo's leaves take the same rename: TimeSformer's HWIO
+``patch_embed`` kernel and its ``cls_token``, ``pos_embed`` and
+``time_embed``; GPT's ``wte`` / ``wpe`` embeddings; the FiD reader's T5
+under ``reader/t5``; PNP-VQA's ``itm`` and ``cap`` sub-trees; and the PEFT
+tuners' Flax ``Dense`` kernels, (in, out) as the port keeps them.
 Loading real checkpoints through ``models/convert.py`` waits until weights
 are in the repository.
 """
@@ -129,8 +134,8 @@ def random_init_(model: nn.Module, seed: int = 0, std: float = 0.02
                  ) -> nn.Module:
     """Seeded random weights in place, on the model's own device: N(0, std)
     for kernels, embeddings and tokens; ones for norm scales; zeros for
-    biases; ``temp`` (the stage-1 Q-Former's, BLIP-1's, ALBEF's) at its
-    init, 0.07, and CLIP's ``logit_scale`` at log(1 / 0.07).  Base
+    biases; ``temp`` (the stage-1 Q-Former's, BLIP-1's, ALBEF's,
+    ALPRO's, PNP-VQA's two) at its init, 0.07, and CLIP's ``logit_scale`` at log(1 / 0.07).  Base
     parameters are drawn in name order from one generator;
     LoRA adapters (A he-uniform, B zeros) from a second one, so a model
     with adapters draws the same base weights as one without."""

@@ -3,8 +3,9 @@ InstructBLIP-Vicuna, the stage-1 BLIP-2 Q-Former or a legacy zoo model
 (port of ``vlm_compression_tpu/models/factory.py``: its
 ``blip2_t5_instruct`` and ``blip2_vicuna_instruct`` branches, its
 ``blip2``, ``blip2_feature_extractor`` and ``blip2_image_text_matching``
-archs, and ``build_legacy_config``'s ``blip_*``, ``albef_*``, ``clip*``,
-``eva_clip*`` and ``t5`` archs).
+archs, and ``build_legacy_config``'s ``blip_*``, ``albef_*``, ``alpro_*``,
+``clip*``, ``eva_clip*``, ``gpt_dialogue``, ``pnp_vqa``,
+``img2prompt_vqa``, ``pnp_unifiedqav2_fid`` and ``t5`` archs).
 
 LoRA ranks per tower follow the reference's ``tune_opt`` selector and
 ``lora_r_v/l/q`` flags: a tower gets its rank only when its letter is in
@@ -19,12 +20,10 @@ node sets ``use_grad_checkpoint`` (or, without it, ``use_remat``);
 The zoo's configs come from the arch alone, as in the JAX package: only
 ``num_classes`` is read from the node, so ``blip_retrieval`` builds
 ViT-B/16 at 224 whatever the yaml's ``image_size``, and every CLIP
-``model_type`` builds ``ClipConfig.base()`` (ROADMAP, known differences).
-Still raising, with their ROADMAP item: the ``alpro_*`` archs,
-``gpt_dialogue``, ``pnp_vqa``, ``img2prompt_vqa`` and
-``pnp_unifiedqav2_fid``; ``blip2_opt`` raises too, as the JAX factory
-builds no such arch either (build ``models/blip2_opt.Blip2OPT`` from its
-config).
+``model_type`` builds ``ClipConfig.base()``, and ALPRO's QA yamls'
+``n_frms`` 16 meets a TimeSformer of 8 frames (ROADMAP, known
+differences).  ``blip2_opt`` and ``blip2_t5`` raise, as the JAX factory
+builds neither (build ``models/blip2_opt.Blip2OPT`` from its config).
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from torch import nn
 
 from vlm_compression_tpu_torch.common.device import DeviceLike
 from vlm_compression_tpu_torch.models.albef import ALBEF_MODELS, AlbefConfig
+from vlm_compression_tpu_torch.models.alpro import ALPRO_MODELS, AlproConfig
 from vlm_compression_tpu_torch.models.blip1 import BLIP1_MODELS, Blip1Config
 from vlm_compression_tpu_torch.models.blip2_qformer import (
     Blip2ITM,
@@ -53,16 +53,17 @@ from vlm_compression_tpu_torch.models.blip2_vicuna_instruct import (
 from vlm_compression_tpu_torch.models.bridge import random_init_
 from vlm_compression_tpu_torch.models.clip_model import CLIP_MODELS, ClipConfig
 from vlm_compression_tpu_torch.models.eva_vit import EvaViTConfig
+from vlm_compression_tpu_torch.models.gpt_dialogue import (
+    GPT_MODELS,
+    GPTDialogueConfig,
+)
 from vlm_compression_tpu_torch.models.llama import LlamaConfig
+from vlm_compression_tpu_torch.models.pnp_vqa import PNP_MODELS, PNPVQAConfig
 from vlm_compression_tpu_torch.models.qformer import QFormerConfig
 from vlm_compression_tpu_torch.models.t5 import T5Config
 from vlm_compression_tpu_torch.models.t5_plain import PlainT5, PlainT5Config
 
 _KV_KNOBS = ("kv_cache_int8", "kv_cache_per_row")
-# the zoo archs still to port, by their name's start (ROADMAP queue 1,
-# item 11)
-_ZOO_NOT_PORTED = ("alpro_", "gpt_dialogue", "pnp_vqa", "img2prompt_vqa",
-                   "pnp_unifiedqav2_fid")
 
 
 def _get(cfg, key, default=None):
@@ -138,9 +139,11 @@ _MODELS = {"blip2_t5_instruct": Blip2T5Instruct,
            "blip2_vicuna_instruct": Blip2VicunaInstruct,
            "blip2": Blip2Qformer, "blip2_feature_extractor": Blip2Qformer,
            "blip2_image_text_matching": Blip2ITM,
-           **BLIP1_MODELS, **ALBEF_MODELS, **CLIP_MODELS, "t5": PlainT5}
+           **BLIP1_MODELS, **ALBEF_MODELS, **ALPRO_MODELS, **CLIP_MODELS,
+           **GPT_MODELS, **PNP_MODELS, "t5": PlainT5}
 Config = Union[Blip2T5InstructConfig, Blip2VicunaInstructConfig,
-               Blip2QformerConfig, Blip1Config, AlbefConfig, ClipConfig,
+               Blip2QformerConfig, Blip1Config, AlbefConfig, AlproConfig,
+               ClipConfig, GPTDialogueConfig, PNPVQAConfig, T5Config,
                PlainT5Config]
 
 
@@ -161,6 +164,15 @@ def build_legacy_config(arch: str, size: str, tiny: bool, model_cfg=None):
         return ClipConfig.tiny() if tiny else ClipConfig.base()
     if arch in ("eva_clip", "eva_clip_feature_extractor"):
         return ClipConfig.tiny_eva() if tiny else ClipConfig.eva_clip_g()
+    if arch.startswith("alpro_"):
+        return (AlproConfig.tiny(num_classes=n_cls) if tiny
+                else AlproConfig.base(num_classes=n_cls))
+    if arch == "gpt_dialogue":
+        return GPTDialogueConfig.tiny() if tiny else GPTDialogueConfig.base()
+    if arch in ("pnp_vqa", "img2prompt_vqa"):
+        return PNPVQAConfig.tiny() if tiny else PNPVQAConfig.base()
+    if arch == "pnp_unifiedqav2_fid":
+        return T5Config.tiny() if tiny else T5Config.flan_t5_xl()
     if arch == "t5":
         return PlainT5Config.tiny() if tiny else PlainT5Config.flan_t5_xl()
     return None
@@ -174,9 +186,11 @@ def build_model_config(model_cfg) -> Tuple[str, Config]:
             "arch 'blip2_opt' has no factory entry: the JAX factory cannot "
             "build it either; build models/blip2_opt.Blip2OPT from a "
             "Blip2OPTConfig")
-    if arch.startswith(_ZOO_NOT_PORTED):
+    if arch == "blip2_t5":
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 11)")
+            "arch 'blip2_t5' has no factory entry: the JAX factory raises "
+            "'unknown arch' for it too; the instruct yamls name "
+            "blip2_t5_instruct")
     if arch not in _MODELS:
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     size = str(_get(model_cfg, "model_type",

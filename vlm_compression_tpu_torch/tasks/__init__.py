@@ -1,7 +1,8 @@
 """Tasks of the port (counterparts of ``vlm_compression_tpu.tasks``): RESSA
 retraining, stage-2 image-text pretraining, the VQA / OK-VQA / GQA
-evaluation, COCO / NoCaps captioning, Flickr30k / COCO retrieval and C4
-language modeling.
+evaluation, COCO / NoCaps captioning, Flickr30k / COCO / MSRVTT retrieval,
+C4 language modeling, AVSD dialogue and the VQA / GQA reading
+comprehension.
 Importing the package registers them; ``setup_task`` builds the one a run
 config's ``run.task`` names."""
 
@@ -9,6 +10,7 @@ from vlm_compression_tpu_torch.common.registry import registry
 from vlm_compression_tpu_torch.tasks import (  # noqa: F401
     captioning,
     classification,
+    dialogue_rc,
     pretrain,
     retrain,
     retrieval,

@@ -11,8 +11,10 @@ The stage-1 ``Blip2Qformer`` (archs ``blip2``, ``blip2_feature_extractor``,
 ``blip2_image_text_matching``) scores through ``compute_sim_matrix``; the
 legacy zoo through ``zoo_sim_matrix``: BLIP-1 and ALBEF rank by ITC and
 rerank the top ``k_test`` of each row by ITM, CLIP and EVA-CLIP by ITC
-alone.  The InstructBLIP compositions have no retrieval head, in the JAX
-package either; nor has ALPRO here yet (ROADMAP queue 1, item 11).
+alone; ALPRO ranks videos (each batch's ``video`` entry) by VTC and
+reranks by VTM, fusing from the text hidden states as ALBEF does.  The
+InstructBLIP compositions have no retrieval head, in the JAX package
+either.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from vlm_compression_tpu_torch.models.blip2_qformer import (
     compute_sim_matrix,
 )
 from vlm_compression_tpu_torch.models.albef import AlbefBase
+from vlm_compression_tpu_torch.models.alpro import AlproBase
 from vlm_compression_tpu_torch.models.blip1 import ZooBase
 from vlm_compression_tpu_torch.models.clip_model import Clip
 from vlm_compression_tpu_torch.tasks.base import BaseTask
@@ -61,8 +64,9 @@ def zoo_sim_matrix(model, image_batches, text_ids, text_mask,
     the score matrix starts at −100.0 and each picked entry becomes its ITC
     score plus the RAW float32 ``itm_head`` logit of class 1 (not a
     probability).  BLIP-1 fuses from token ids, with ``enc_token_id`` (when
-    given) at position 0 for the ITM pass only; ALBEF from the unimodal
-    text hidden states.  The candidates of every row are picked on the host
+    given) at position 0 for the ITM pass only; ALBEF and ALPRO (over
+    video batches, its VTC and VTM heads) from the unimodal text hidden
+    states.  The candidates of every row are picked on the host
     and sent to the card in one copy; the logits come back in one."""
     dev = model.device
     text_ids = torch.as_tensor(text_ids).to(dev)
@@ -73,10 +77,10 @@ def zoo_sim_matrix(model, image_batches, text_ids, text_mask,
                              for b in image_batches])
         s = fi @ ft.T
         return s, s.T
-    if not isinstance(model, ZooBase):
+    if not isinstance(model, (ZooBase, AlproBase)):
         raise TypeError(f"zoo_sim_matrix: {type(model).__name__} is not a "
-                        f"BLIP-1, ALBEF or CLIP model")
-    fuse_hidden = isinstance(model, AlbefBase)
+                        f"BLIP-1, ALBEF, ALPRO or CLIP model")
+    fuse_hidden = isinstance(model, (AlbefBase, AlproBase))
     txt_hidden = model.unimodal_text(text_ids, text_mask)
     ft = _np(model.text_feature(txt_hidden))
     fis, embeds = [], []
@@ -140,27 +144,28 @@ class RetrievalTask(BaseTask):
     def evaluation(self, model, data_loader, **kw):
         """``data_loader`` yields batches with an ``image`` entry and
         carries the dataset (``text``, ``txt2img``, ``img2txt``) as
-        ``.dataset`` (or ``._loader.dataset``).  With no tokenizer, the
+        ``.dataset`` (or ``._loader.dataset``); ALPRO's batches carry
+        ``video`` instead.  With no tokenizer, the
         offline ``SimpleTokenizer`` over the Q-Former's vocabulary."""
         ds = getattr(data_loader, "dataset", None)
         if ds is None:
             ds = data_loader._loader.dataset
         if isinstance(model, Blip2Qformer):
             vocab = model.cfg.qformer.vocab_size
-        elif isinstance(model, (ZooBase, Clip)):
+        elif isinstance(model, (ZooBase, AlproBase, Clip)):
             vocab = (model.cfg.text if isinstance(model, Clip)
                      else model.cfg.med).vocab_size
         else:
             raise NotImplementedError(
                 f"retrieval scores the stage-1 Blip2Qformer and the legacy "
-                f"zoo's BLIP-1, ALBEF and CLIP models, not "
+                f"zoo's BLIP-1, ALBEF, ALPRO and CLIP models, not "
                 f"{type(model).__name__}: the InstructBLIP compositions "
-                f"have no retrieval head (in the JAX package either), and "
-                f"ALPRO is not ported yet (ROADMAP queue 1, item 11)")
+                f"have no retrieval head (in the JAX package either)")
         tokenizer = self.tokenizer or load_tokenizer(vocab_size=vocab)
         text_ids, text_mask = batch_encode(tokenizer, ds.text,
                                            self.max_txt_len)
-        image_batches = (torch.as_tensor(b["image"], dtype=torch.float32)
+        vis_key = "video" if isinstance(model, AlproBase) else "image"
+        image_batches = (torch.as_tensor(b[vis_key], dtype=torch.float32)
                          for b in data_loader)
         if isinstance(model, Blip2Qformer):
             score_i2t, score_t2i = compute_sim_matrix(
