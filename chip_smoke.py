@@ -12,6 +12,40 @@ each of which fails the run (non-zero exit, no result line) on error:
                 sparse-LoRA matmuls, masked_matmul_wgmma.cu, and of the int8
                 one, int8_matmul_wgmma.cu, are sources of their own: their
                 build seconds stand on their own line);
+  2b. parallel path — before anything else holds the card: a world of 1
+                on NCCL in this process (``common.dist.
+                init_distributed_mode`` as torchrun names it, a mesh, a
+                tiny KD step, the LoRA gradients' bucket all-reduce over the
+                NCCL group); then two ranks sharing device 0 on gloo with
+                CUDA tensors (NCCL refuses a second rank on one device:
+                scripts/torch_parallel_probe.py), each building full-width
+                InstructBLIP-FlanT5-XL (seed 28): the Wanda prune at DP = 2
+                and at TP = 2 on 8 calibration samples (the cut), each
+                mask held bit for bit against the one-process mask function
+                on the run's own statistics and the first linear's
+                statistic against one process's, the flipped bits against
+                the one-process prune reported beside a control (one
+                process, the samples in two batches); block 0 of every
+                tower in float32 at DP = 2 and TP = 2 against one process
+                (outputs and LoRA gradients within 1e-4) and in bf16 at
+                TP = 2 (within 2e-2: a row-parallel output rounded once,
+                its shards' products fp32); one KD step of
+                train_ressa's configuration at DP = 2 and TP = 2 (batch 32;
+                the loss within bf16 2e-2 of one process's, the LoRA
+                factors equal on the ranks; their distance from one
+                process's reported beside a control: one process, the
+                batch as two accumulated halves, whose loss, ce and kl
+                the DP step's equal bit for bit); beam-5 generate at TP = 2
+                (finite; its first-step logits' drift beside a control:
+                the random XL model carries any rounding through its
+                depth); T5-XL's encoder attention split over heads and over
+                the batch (dq, dk, dv and both bias gradients within bf16
+                2e-2); a 2-stage GPipe pipeline of 8 of Vicuna-7B's LLaMA
+                blocks (the cut), 4 microbatches (output and gradients
+                within bf16 2e-2 of the blocks in sequence).  Every launch
+                of rows 1 and 3-7 in the ranks is recorded and each
+                signature held here against its plain version; the timing
+                phase times rows 1p, 3p, 4p, 5p and 7p (``par_timed``);
   3. kernels  — each kernel against its plain PyTorch version at the main
                 path's shapes (prune, generate, retrain, the compressed
                 path, and dbias at the first-order path's and every other
@@ -9417,15 +9451,18 @@ for _phase in ("alpro_retrieval", "alpro_qa", "alpro_cli", "gpt_dialogue",
 
 
 class CallRecorder:
-    """Records the signature of every launch of rows 1 and 4-7 while
-    active: the masked matmul by (M, K, N, dtype); the attention forward
+    """Records the signature of every launch of rows 1 and 3-7 while
+    active: the masked matmul by (M, K, N, dtype), the sparse-LoRA matmul
+    by (M, K, N, rank, dtype); the attention forward
     and backward by (b, n, m, h, d, dtype, bias shapes, scale, causal)
     (and, backward, which gradients it returned), each with the phase that
     first launched it and its biases (a copy of the first call's), so
     that every shape a path ran is held against its plain version after."""
 
     def __init__(self):
-        self.mm, self.fwd, self.bwd = {}, {}, {}
+        self.mm, self.fwd, self.bwd, self.lora = {}, {}, {}, {}
+        # the fp32-output launches (a row-parallel shard's products)
+        self.mm32, self.lora32 = {}, {}
         self.phase = None
 
     @contextlib.contextmanager
@@ -9435,12 +9472,19 @@ class CallRecorder:
 
         mm_cuda, fwd, bwd = (ML._masked_matmul_cuda, A.flash_attention,
                              A.flash_attention_backward)
+        lora_cuda = ML._sparse_lora_cuda
 
-        def mm_rec(x, w, mask, loop=None):
+        def mm_rec(x, w, mask, loop=None, out32=False):
             key = (x.numel() // x.shape[-1], w.shape[0], w.shape[1],
                    x.dtype)
-            self.mm.setdefault(key, self.phase)
-            return mm_cuda(x, w, mask, loop)
+            (self.mm32 if out32 else self.mm).setdefault(key, self.phase)
+            return mm_cuda(x, w, mask, loop, out32=out32)
+
+        def lora_rec(x, w, mask, a, b, scale, loop=None, out32=False):
+            key = (x.numel() // x.shape[-1], w.shape[0], w.shape[1],
+                   a.shape[1], x.dtype)
+            (self.lora32 if out32 else self.lora).setdefault(key, self.phase)
+            return lora_cuda(x, w, mask, a, b, scale, loop, out32=out32)
 
         def sig(q, k, biases, scale, causal):
             b, n, h, d = q.shape
@@ -9470,11 +9514,13 @@ class CallRecorder:
 
         ML._masked_matmul_cuda, A.flash_attention = mm_rec, fwd_rec
         A.flash_attention_backward = bwd_rec
+        ML._sparse_lora_cuda = lora_rec
         try:
             yield self
         finally:
             ML._masked_matmul_cuda, A.flash_attention = mm_cuda, fwd
             A.flash_attention_backward = bwd
+            ML._sparse_lora_cuda = lora_cuda
 
 
 LEG_CALLS = CallRecorder()
@@ -9922,8 +9968,11 @@ def leg_path() -> tuple:
     return rec, out
 
 
-def check_leg_kernels(rec: dict, worst) -> dict:
-    """Rows 1 and 4-7 at every signature the leg path launched (recorded,
+def check_leg_kernels(rec: dict, worst, calls: CallRecorder = None,
+                      prefix: str = "leg_") -> dict:
+    """Rows 1 and 4-7 (and 3, the sparse-LoRA matmul, where ``calls``
+    recorded it) at every signature the leg path (or the path ``calls``
+    recorded) launched (recorded,
     so none is missed; the launch tallies cross-checked against them):
     each in its dtype on its planned route against the plain version
     (bf16 2e-2 × max(1, |plain|), fp32 1e-4), two identical calls
@@ -9933,7 +9982,8 @@ def check_leg_kernels(rec: dict, worst) -> dict:
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
-    names = {"mm": {}, "fwd": {}, "bwd": {}}
+    calls = LEG_CALLS if calls is None else calls
+    names = {"mm": {}, "fwd": {}, "bwd": {}, "lora": {}}
     n_checks = 0
 
     def held(what, name, err, scale, same, dtype, detail):
@@ -9947,9 +9997,9 @@ def check_leg_kernels(rec: dict, worst) -> dict:
             raise AssertionError(f"{what} {name} {dtype}")
         n_checks += 1
 
-    for (m, k, n, dtype), phase in sorted(LEG_CALLS.mm.items(),
+    for (m, k, n, dtype), phase in sorted(calls.mm.items(),
                                           key=lambda kv: str(kv)):
-        name = f"leg_{phase}_M{m}_K{k}_N{n}"
+        name = f"{prefix}{phase}_M{m}_K{k}_N{n}"
         x, w, mask = mm_inputs(m, k, n, dtype)
         got = ML.masked_matmul(x, w, mask)
         err, scale = max_err(got, ML.masked_matmul_ref(x, w, mask))
@@ -9958,9 +10008,60 @@ def check_leg_kernels(rec: dict, worst) -> dict:
              f"M={m} K={k} N={n} {expected_loop(m, k, n, dtype):6s}")
         worst[("masked_matmul", name, dtype)] = err
         names["mm"][name] = (m, k, n, dtype, phase)
-    for key, (phase, biases) in LEG_CALLS.fwd.items():
+    for (m, k, n, r, dtype), phase in sorted(calls.lora.items(),
+                                             key=lambda kv: str(kv)):
+        name = f"{prefix}{phase}_M{m}_K{k}_N{n}_r{r}"
+        x, w, mask, a, b = lora_inputs(m, k, n, r, dtype)
+        s = LORA["lora_alpha"] / r
+        got = ML.sparse_lora_matmul(x, w, mask, a, b, s)
+        err, scale = max_err(got, ML.sparse_lora_matmul_ref(x, w, mask, a,
+                                                            b, s))
+        same = torch.equal(got, ML.sparse_lora_matmul(x, w, mask, a, b, s))
+        held("sparse_lora_matmul", name, err, scale, same, dtype,
+             f"M={m} K={k} N={n} r={r} "
+             f"{expected_loop(m, k, n, dtype, rank=r):6s}")
+        worst[("sparse_lora_matmul", name, dtype)] = err
+        names["lora"][name] = (m, k, n, r, dtype, phase)
+    # the fp32-output launches: the same kernel's sums before its one
+    # rounding, so rounded they equal its bf16 output bit for bit, and they
+    # hold more than bf16 keeps
+    f32 = torch.float32
+    for kind, sigs in (("mm", calls.mm32), ("lora", calls.lora32)):
+        for key, phase in sorted(sigs.items(), key=lambda kv: str(kv)):
+            m, k, n = key[:3]
+            dtype = key[-1]
+            if kind == "mm":
+                name = f"{prefix}{phase}_M{m}_K{k}_N{n}_out32"
+                x, w, mask = mm_inputs(m, k, n, dtype)
+
+                def call(**kw):
+                    return ML.masked_matmul(x, w, mask, **kw)
+                ref = ML.masked_matmul_ref(x, w, mask, f32)
+                what, detail = "masked_matmul", f"M={m} K={k} N={n}"
+            else:
+                r = key[3]
+                name = f"{prefix}{phase}_M{m}_K{k}_N{n}_r{r}_out32"
+                x, w, mask, a, b = lora_inputs(m, k, n, r, dtype)
+                s = LORA["lora_alpha"] / r
+
+                def call(**kw):
+                    return ML.sparse_lora_matmul(x, w, mask, a, b, s, **kw)
+                ref = ML.sparse_lora_matmul_ref(x, w, mask, a, b, s, f32)
+                what, detail = ("sparse_lora_matmul",
+                                f"M={m} K={k} N={n} r={r}")
+            got = call(out_dtype=f32)
+            err, scale = max_err(got, ref)
+            once = torch.equal(got.to(dtype), call())
+            finer = bool((got != got.to(dtype).float()).any())
+            same = torch.equal(got, call(out_dtype=f32))
+            held(what, name, err, scale, same and once and finer, dtype,
+                 f"{detail} fp32 out, rounded equal to the bf16 output "
+                 f"{once}, finer than bf16 {finer}")
+            worst[(what, name, dtype)] = err
+    for key, (phase, biases) in calls.fwd.items():
         b, n, m, h, d, dtype, shapes, scale, causal = key
-        name = f"leg_{phase}_b{b}_n{n}_m{m}" + ("_causal" if causal else "")
+        name = f"{prefix}{phase}_b{b}_n{n}_m{m}" + ("_causal" if causal
+                                                    else "")
         q, k_, v, _ = flash_inputs(b, n, m, h, d, [], dtype)
         want = A.mha_reference(q, k_, v, biases, scale, causal)
         got, lse = A.flash_attention(q, k_, v, biases, scale, causal)
@@ -9972,9 +10073,10 @@ def check_leg_kernels(rec: dict, worst) -> dict:
              f"b={b} n={n} m={m} h={h} d={d} biases={list(shapes)}")
         worst[("flash_attention", name, dtype)] = err
         names["fwd"][name] = key
-    for key, (phase, biases) in LEG_CALLS.bwd.items():
+    for key, (phase, biases) in calls.bwd.items():
         b, n, m, h, d, dtype, shapes, scale, causal, dq_, dkv_, dbias_of = key
-        name = (f"leg_{phase}_b{b}_n{n}_m{m}" + ("_causal" if causal else "")
+        name = (f"{prefix}{phase}_b{b}_n{n}_m{m}"
+                + ("_causal" if causal else "")
                 + ("_dbias" if dbias_of else ""))
         q, k_, v, _ = flash_inputs(b, n, m, h, d, [], dtype)
         g = grad_like(q)
@@ -9998,9 +10100,10 @@ def check_leg_kernels(rec: dict, worst) -> dict:
         worst[("flash_attention_backward", name, dtype)] = err
         names["bwd"][name] = key
     # every launch the tallies counted is one the recorder saw
-    seen_mm = {(m, k, n) for m, k, n, _ in LEG_CALLS.mm}
-    seen_fl = {c[:5] for c in LEG_CALLS.fwd}
-    seen_bwd = {c[:5] for c in LEG_CALLS.bwd}
+    seen_mm = {(m, k, n) for m, k, n, _ in (*calls.mm, *calls.mm32)} | {
+        (m, k, n) for m, k, n, _, _ in (*calls.lora, *calls.lora32)}
+    seen_fl = {c[:5] for c in calls.fwd}
+    seen_bwd = {c[:5] for c in calls.bwd}
     missing = []
     for s in rec["shapes"].values():
         missing += [("matmul", m, k, n) for m, n, k, _ in s["matmul"]
@@ -10009,12 +10112,15 @@ def check_leg_kernels(rec: dict, worst) -> dict:
                     if c[:5] not in seen_fl]
         missing += [("attention backward", *c[:5])
                     for c in s["attention_bwd"] if c[:5] not in seen_bwd]
-    log(f"  the leg path's signatures: {len(LEG_CALLS.mm)} masked-matmul, "
-        f"{len(LEG_CALLS.fwd)} attention-forward and {len(LEG_CALLS.bwd)} "
+    log(f"  the path's signatures: {len(calls.mm)} masked-matmul, "
+        f"{len(calls.lora)} sparse-LoRA, {len(calls.mm32)} and "
+        f"{len(calls.lora32)} of them with fp32 output, "
+        f"{len(calls.fwd)} attention-forward and {len(calls.bwd)} "
         f"attention-backward, {n_checks} checks; launches the recorder "
         f"missed: {missing[:6]}")
     if missing:
-        raise AssertionError(f"leg path: launches not recorded {missing}")
+        raise AssertionError(f"{prefix or 'parallel '}path: launches not "
+                             f"recorded {missing}")
     return names
 
 
@@ -10150,20 +10256,46 @@ def leg_timed(names: dict) -> dict:
     return {row: v for row, v in out.items() if v[1] is not None}
 
 
-def timing_leg(names: dict, worst) -> dict:
-    """The leg path's timed signatures (``leg_timed``): the kernel, the
-    plain version, the library call (``torch.matmul`` of the pre-masked
-    weight; SDPA on its fastest backend, in turns; SDPA's backward, with a
-    mask gradient for row 7) and the bound, each a median of CUDA-event
-    readings."""
+def timing_leg(names: dict, worst, calls: CallRecorder = None,
+               timed=None) -> dict:
+    """The leg path's timed signatures (``leg_timed``; or ``timed`` of the
+    path ``calls`` recorded): the kernel, the plain version, the library
+    call (``torch.matmul`` of the pre-masked weight, of the merged one for
+    the sparse-LoRA matmul; SDPA on its fastest backend, in turns; SDPA's
+    backward, with a mask gradient for row 7) and the bound, each a median
+    of CUDA-event readings."""
     import torch.nn.functional as F
 
     from vlm_compression_tpu_torch.ops import attention as A
     from vlm_compression_tpu_torch.ops import masked_linear as ML
 
+    calls = LEG_CALLS if calls is None else calls
     rows = {}
-    for label, (kind, name) in leg_timed(names).items():
+    for label, (kind, name) in (timed or leg_timed)(names).items():
         key = names[kind][name]
+        if kind == "lora":
+            m, k, n, r, dtype, _ = key
+            x, w, mask, a, b = lora_inputs(m, k, n, r, dtype)
+            s = LORA["lora_alpha"] / r
+            merged_w = ML.merge_sparse_lora(w, mask, a, b, s)
+            ms = device_ms(lambda: ML.sparse_lora_matmul(x, w, mask, a, b,
+                                                         s))
+            plain = device_ms(lambda: ML.sparse_lora_matmul_ref(
+                x, w, mask, a, b, s))
+            lib = device_ms(lambda: torch.matmul(x, merged_w))
+            bound, by = lora_bound_ms(m, k, n, r)
+            rows[label] = dict(kernel="sparse_lora_matmul", signature=name,
+                               ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bound, bound_by=by,
+                               loop=expected_loop(m, k, n, dtype, rank=r),
+                               dtype=str(dtype)[6:], shape=[m, k, n, r],
+                               max_abs_err=worst[("sparse_lora_matmul", name,
+                                                  dtype)])
+            log(f"  time {label} sparse_lora_matmul {name} M={m} K={k} "
+                f"N={n} r={r}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"torch.matmul(x, merged W) {lib:.4f} ms, bound "
+                f"{bound:.4f} ms ({by})")
+            continue
         if kind == "mm":
             m, k, n, dtype, _ = key
             x, w, mask = mm_inputs(m, k, n, dtype)
@@ -10185,7 +10317,7 @@ def timing_leg(names: dict, worst) -> dict:
                 f"{bound:.4f} ms ({by})")
             continue
         b, n, m, h, d, dtype, shapes, scale, causal = key[:9]
-        biases = (LEG_CALLS.fwd if kind == "fwd" else LEG_CALLS.bwd)[key][1]
+        biases = (calls.fwd if kind == "fwd" else calls.bwd)[key][1]
         q, k_, v, _ = flash_inputs(b, n, m, h, d, [], dtype)
         bsum = None
         for x in biases:
@@ -10237,6 +10369,920 @@ def timing_leg(names: dict, worst) -> dict:
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# The parallel path: tensor-, data- and pipeline-parallel ranks
+# (``vlm_compression_tpu_torch/parallel``) sharing the one card, each phase
+# held against the same work in one process
+# ---------------------------------------------------------------------------
+PAR_SEED = 28
+PAR_WORLD = 2
+# NCCL refuses two ranks on one device (scripts/torch_parallel_probe.py):
+# the two-rank phases run on gloo with CUDA tensors (the pipeline's hops
+# staged through the host); a world of 1 runs on NCCL in this process
+PAR_BACKEND = "gloo"
+PAR_TIMEOUT = 900.0           # each collective, and the wait for the ranks
+PAR_ATTN = dict(b=16, n=72, h=32, d=64)   # T5-XL's encoder self-attention
+PAR_PIPE = dict(blocks=8, stages=2, micro=4, batch=8, seq=72)
+PAR_LR = SCHED["init_lr"]
+# the parallel path's prunes calibrate on 8 samples, not 128 (the cut:
+# gloo moves the TP = 2 sweep's activations through the host: 127 s at
+# 128, 27 s at 32, 19 s at 16)
+PAR_CALIB = 8
+PAR_BLOCK_B = 8              # the block checks' batch
+# a LoRA gradient entry counts as decided where it is above this share of
+# its leaf's largest: below it, bf16 rounding may flip its sign, and Adam's
+# first step moves a flipped entry by 2·lr
+PAR_BIG = 2e-2
+PAR_MAX_TIES = 4              # flipped metric ties a linear may hold
+PAR_TIE = 1e-5                # a tie: the flipped values' spread over the max
+PAR_DENSITY = 0.01
+PAR_CALLS = CallRecorder()
+PAR_PHASES = ("par_prune_tp", "par_prune_dp", "par_kd_tp", "par_kd_dp",
+              "par_blocks_tp", "par_blocks_dp", "par_blocks_tp_bf16",
+              "par_generate_tp", "par_attention_heads",
+              "par_attention_batch", "par_pipeline")
+PAR_REFS = ("par_prune_ref", "par_prune_ctrl", "par_kd_ref", "par_kd_ctrl",
+            "par_generate_ref")
+# the Wanda control's two calibration batches: unequal, so that the
+# engine does not fuse them and every block runs at other row counts
+PAR_CTRL_SPLIT = 3
+PHASE_KERNELS.update({
+    "par_prune_ref": PRUNE, "par_prune_ctrl": PRUNE, "par_prune_tp": PRUNE,
+    "par_prune_dp": PRUNE,
+    "par_kd_ref": ("sparse_lora_matmul", "flash_attention", BWD_WGMMA),
+    "par_kd_ctrl": ("sparse_lora_matmul", "flash_attention", BWD_WGMMA),
+    "par_kd_tp": ("sparse_lora_matmul", "flash_attention", BWD_WGMMA),
+    "par_kd_dp": ("sparse_lora_matmul", "flash_attention", BWD_WGMMA),
+    "par_blocks_tp": ("sparse_lora_matmul", "flash_attention",
+                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    "par_blocks_dp": ("sparse_lora_matmul", "flash_attention",
+                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    "par_blocks_tp_bf16": ("sparse_lora_matmul", "flash_attention",
+                           BWD_WGMMA),
+    "par_generate_ref": SERVE, "par_generate_tp": SERVE,
+    "par_attention_heads": ("flash_attention", BWD_WGMMA, BWD_DBIAS),
+    "par_attention_batch": ("flash_attention", BWD_WGMMA, BWD_DBIAS),
+    "par_pipeline": ("flash_attention", BWD_WGMMA)})
+for _phase in ("par_kd_ref", "par_kd_ctrl", "par_kd_tp", "par_kd_dp",
+               "par_generate_ref", "par_generate_tp", "par_pipeline"):
+    PHASE_FORBIDDEN[_phase] = (WMMA_LOOP,)
+
+
+def par_prune_checks(model, ref_masks, ref_sink: dict, own: dict,
+                     kernels: dict = None) -> dict:
+    """A Wanda prune's masks, linear by linear, on whole kernels
+    (``kernels``: {linear name: whole kernel}, where the model's are
+    sharded; the model's own otherwise):
+    - against the one-process mask function (``wanda_mask_fn``: the ViT's
+      flat threshold, the T5 stacks' per-unit top-k) on the whole kernel
+      and the run's own statistics (``own``: summed over data, gathered
+      over model): the flipped bits, 0 expected (the unit split and the
+      gathers decide nothing);
+    - the first linear's statistic (the ViT block 0 qkv's, whose input is
+      the stem's on every rank) against one process's (``ref_sink``);
+    - with ``ref_masks`` (the one-process prune's, on the host), the
+      flipped bits and,
+      per unit, whether its flipped entries are metric ties (the Wanda
+      metric of the one-process statistics spread over at most PAR_TIE of
+      their largest);
+    - the three towers' densities."""
+    import types
+
+    from vlm_compression_tpu_torch.compression.pruners.methods import (
+        wanda_mask_fn,
+    )
+    from vlm_compression_tpu_torch.models.layers import SparseLinear, whole
+
+    fns = {flat: wanda_mask_fn(flat_threshold=flat) for flat in (False,
+                                                                 True)}
+    own_flips, worst, flips, non_ties, linears, dens = 0, 0, 0, 0, 0, {}
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if not isinstance(m, SparseLinear) or m.mask is None:
+                continue
+            linears += 1
+            key = name.replace(".", "/")
+            kern = whole(m, "kernel") if kernels is None else kernels[name]
+            got = m.mask
+            tower = name.split(".blocks_")[0]
+            kept, total = dens.get(tower, (0, 0))
+            dens[tower] = (kept + int(got.sum()), total + got.numel())
+            scaler, sp = own[key]
+            want = fns[name.startswith("visual_encoder")](
+                kernels={0: kern}, stats={0: types.SimpleNamespace(
+                    scaler_row=scaler.to(kern.device))},
+                sparsities={0: sp}).masks[0]
+            own_flips += int((want != got).sum())
+            if ref_masks is None:
+                continue
+            diff = got != ref_masks[name].to(got.device)
+            k = int(diff.sum())
+            if not k:
+                continue
+            flips += k
+            worst = max(worst, k)
+            i, j = diff.nonzero(as_tuple=True)
+            metric = kern[i, j].float().abs() * torch.sqrt(
+                ref_sink[key][0].to(kern.device)[i])
+            units = got.shape[1]
+            hi = torch.full((units,), -float("inf"), device=metric.device
+                            ).scatter_reduce(0, j, metric, "amax")
+            lo = torch.full((units,), float("inf"), device=metric.device
+                            ).scatter_reduce(0, j, metric, "amin")
+            hit = torch.zeros(units, dtype=torch.bool, device=metric.device)
+            hit[j] = True
+            non_ties += int(((hi - lo) > PAR_TIE * hi)[hit].sum())
+    first = "visual_encoder/blocks_0/attn/qkv"
+    a, b = own[first][0].double(), ref_sink.get(first, own[first])[0].double()
+    return dict(linears=linears, own_stats_flips=own_flips,
+                first_stat_rel=float((a - b).abs().max() / b.abs().max()),
+                flips=flips, worst=worst, non_tie_units=non_ties,
+                density={t: kept / total for t, (kept, total) in dens.items()})
+
+
+def par_block_checks(model, mesh, key: str, phase, ref=None,
+                     dt=torch.float32) -> tuple:
+    """Block 0 of the ViT, the Q-Former and both T5 stacks at full width
+    (batch PAR_BLOCK_B, the main path's lengths), in float32 (bf16
+    weights are exact in float32; ``dt`` bfloat16: as they are),
+    sparse-LoRA mode with lora_b drawn non-zero (seeded: the same on every
+    call), forward and backward of Σ y ⊙ g over ``mesh`` — TP = 2 (the
+    model sharded by the caller) or DP = 2 (the batch cut here) — with the
+    LoRA gradients reduced as the KD step reduces them, against one
+    process on the same inputs (``ref``; computed here, on the whole
+    model, when None; with ``mesh`` None only that).  Float32 (each
+    parameter back to its own dtype after): a fault in the split shows
+    far above the float32 tolerance.  In bf16 the gate holds that a
+    row-parallel output is rounded once (its partials summed in fp32):
+    rounded twice, TP = 2 reached 1.09 of the bf16 tolerance on T5's
+    cross-attention key B on one H100.  Returns ({key: the worst output
+    and LoRA-gradient error over the tolerance, 1e-4 (bf16 2e-2) ×
+    max(1, |x|), a leaf's largest for a gradient}, ref)."""
+    from vlm_compression_tpu_torch.models.layers import lora_linears
+    from vlm_compression_tpu_torch.models.t5 import causal_mask
+    from vlm_compression_tpu_torch.parallel.mesh import data_sharding
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        freeze_base_,
+        reduce_lora_grads_,
+    )
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(PAR_SEED + 7)
+    b, nq = PAR_BLOCK_B, cfg.qformer.num_query_tokens
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    vit, qf = model.visual_encoder.blocks_0, model.qformer.layers_0
+    enc, dec = model.t5_model.encoder, model.t5_model.decoder
+    n_vit = cfg.vit.num_patches + 1
+    dm = cfg.t5.d_model
+    inputs = dict(vit=rand(b, n_vit, cfg.vit.embed_dim),
+                  qf=rand(b, nq + TXT, cfg.qformer.hidden_size),
+                  img=rand(b, n_vit, cfg.vit.embed_dim),
+                  enc=rand(b, nq + TXT, dm), dec=rand(b, LBL, dm),
+                  mem=rand(b, nq + TXT, dm))
+    outs_g = {k: rand(*inputs[k].shape) for k in ("vit", "qf", "enc",
+                                                  "dec")}
+    blocks = {"vit": vit, "qformer": qf, "t5_encoder": enc.blocks_0,
+              "t5_decoder": dec.blocks_0}
+    lins = [(f"{tag}.{n}", m) for tag, blk in blocks.items()
+            for n, m in lora_linears(blk)]
+    dtypes = [(p, p.dtype) for blk in blocks.values()
+              for p in blk.parameters()]
+    if dt == torch.float32:
+        for blk in blocks.values():
+            blk.float()
+    with torch.no_grad():
+        for _, m in lins:
+            m.lora_b.copy_(torch.randn(m.lora_b.shape, generator=g,
+                                       device="cuda") * 0.02)
+    freeze_base_(model)
+    dp = mesh is not None and "model" in mesh.mesh_dim_names and \
+        mesh.size(mesh.mesh_dim_names.index("model")) == 1
+    cut = data_sharding(mesh) if dp else (lambda x: x)
+
+    def run(mesh=None):
+        c = cut if mesh is not None else (lambda x: x)
+        x = {k: c(v) for k, v in inputs.items()}
+        gy = {k: c(v) for k, v in outs_g.items()}
+        for _, m in lins:
+            m.lora_a.grad = m.lora_b.grad = None
+        n_enc, n_dec = x["enc"].shape[1], x["dec"].shape[1]
+        ys = {"vit": vit(x["vit"], mode="sparse_lora"),
+              "qf": qf(x["qf"], None, x["img"], None, nq,
+                       mode="sparse_lora"),
+              "enc": enc.blocks_0(x["enc"], None,
+                                  enc.rel_bias(n_enc, n_enc), None, None,
+                                  mode="sparse_lora"),
+              "dec": dec.blocks_0(x["dec"], x["mem"],
+                                  dec.rel_bias(n_dec, n_dec)
+                                  + causal_mask(n_dec, device="cuda"),
+                                  None, None, mode="sparse_lora")}
+        torch.autograd.backward([ys[k] for k in ys], [gy[k] for k in ys])
+        if mesh is not None:
+            reduce_lora_grads_(model, mesh)
+        return ({k: y.detach() for k, y in ys.items()},
+                {n: (m.lora_a.grad.clone(), m.lora_b.grad.clone())
+                 for n, m in lins})
+
+    if ref is None:
+        ref = run()
+    if mesh is None:
+        for p, d in dtypes:
+            p.data = p.data.to(d)
+        return {}, ref
+    ref_y, ref_g = ref
+    ys, gs = phase(f"par_blocks_{key}", lambda: run(mesh))
+    tol = TOL[str(dt).split(".")[-1]]
+    worst_y = 0.0
+    for k in ys:
+        e, sc = max_err(ys[k], cut(ref_y[k]))
+        worst_y = max(worst_y, e / (tol * sc))
+    worst_g, leaf = 0.0, None
+    for n, pair in gs.items():
+        for part, got, want in zip(("lora_a", "lora_b"), pair, ref_g[n]):
+            e, sc = max_err(got, want)
+            if e / (tol * sc) > worst_g:
+                worst_g, leaf = e / (tol * sc), f"{n}.{part}"
+    for p, dt in dtypes:               # each back to its own dtype
+        p.data = p.data.to(dt)
+    return ({key: dict(worst_y=worst_y, worst_grad=worst_g,
+                       worst_leaf=leaf, linears=len(lins))}, ref)
+
+
+def par_lora_diff(lora: dict, ref: dict, grads: dict) -> dict:
+    """The LoRA factors after a step against the one-process step's: the
+    largest difference over lr, everywhere and where the gradient entry is
+    decided (above PAR_BIG of its leaf's largest)."""
+    worst, decided = 0.0, 0.0
+    for n, p in lora.items():
+        d = (p.detach().float() - ref[n].float()).abs()
+        g = grads[n].float().abs()
+        worst = max(worst, float(d.max()) / PAR_LR)
+        big = g > PAR_BIG * float(g.max()) if float(g.max()) > 0 else g > 0
+        if bool(big.any()):
+            decided = max(decided, float(d[big].max()) / PAR_LR)
+    return dict(worst_over_lr=worst, decided_over_lr=decided)
+
+
+def par_checksum(tensors) -> float:
+    """One number that two ranks holding the same tensors agree on."""
+    return float(sum(t.detach().double().sum() * (i + 1)
+                     for i, t in enumerate(tensors)))
+
+
+def par_rank(rank: int, world: int) -> dict:
+    """One rank of the parallel path: the phases in order on one XL model
+    (seed PAR_SEED, the same on both ranks), the one-process references on
+    rank 0 while rank 1 waits at a barrier.  Returns the phases' numbers,
+    this rank's launch record and the signatures its sharded phases
+    launched."""
+    import torch.distributed as dist
+
+    from vlm_compression_tpu_torch.compression import load_pruner
+    from vlm_compression_tpu_torch.models.bridge import random_init_
+    from vlm_compression_tpu_torch.models.factory import build_model_config
+    from vlm_compression_tpu_torch.models.layers import (
+        SparseLinear,
+        set_mask,
+    )
+    from vlm_compression_tpu_torch.models.llama import LlamaBlock
+    from vlm_compression_tpu_torch.ops import attention as A
+    from vlm_compression_tpu_torch.parallel import collectives as C
+    from vlm_compression_tpu_torch.parallel.dryrun import make_block_fn
+    from vlm_compression_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        axis_index,
+        data_sharding,
+        gather_params,
+        make_mesh,
+        shard_params,
+    )
+    from vlm_compression_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        shard_stages,
+        split_stages,
+        stack_layer_params,
+    )
+    from vlm_compression_tpu_torch.tasks.retrain import (
+        RessaTrainState,
+        lora_parameters,
+        make_kd_train_step,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    me0 = rank == 0
+    rec, out = new_record(), {"rank": rank}
+    t0 = time.perf_counter()
+    cfg, model, batches, req = xl_setup(PAR_SEED, lora=True)
+    g = torch.Generator(device="cuda").manual_seed(PAR_SEED + 100)
+    train = synthetic_batches(cfg, 1, TRAIN_BS, g)[0]
+    lora0 = {n: p.detach().clone() for n, p in lora_parameters(model).items()}
+    out["build_s"] = time.perf_counter() - t0
+    log(f"  [rank {rank}] XL built in {out['build_s']:.1f} s")
+    mesh_tp = make_mesh(MeshConfig(data=1, model=world))
+    mesh_dp = make_mesh(MeshConfig(data=world, model=1))
+
+    staged = out["staged"] = {}
+
+    def phase(name, fn):
+        PAR_CALLS.phase = name
+        before = dict(C.HOST_STAGED)
+        with PAR_CALLS.active():
+            got = run_phase(rec, name, fn)
+        st = staged[name] = {k: C.HOST_STAGED[k] - before[k]
+                             for k in before}
+        log(f"  [rank {rank}] {name} {rec['secs'][name]:.2f} s, peak "
+            f"{rec['peaks'][name] / 2**30:.2f} GiB, gloo staged "
+            f"{st['bytes'] / 2**30:.2f} GiB in {st['collectives']} "
+            f"collectives ({time.perf_counter() - t0:.1f} s in)")
+        return got
+
+    def linears():
+        return [(n, m) for n, m in model.named_modules()
+                if isinstance(m, SparseLinear)]
+
+    def prune(bs, sink):
+        p = load_pruner("blipt5_wanda_pruner", model, bs,
+                        vit_prune_spec=f"{cfg.vit.depth}-0.5-1.0-1.0",
+                        t5_prune_spec=f"{cfg.t5.num_layers}-0.5-1.0-1.0",
+                        num_samples=PAR_CALIB)
+        p._stats_sink = sink
+        p.prune(lora_model=True)
+
+    def same_on_all(x: float) -> bool:
+        t = torch.tensor([x], dtype=torch.float64, device="cuda")
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return all(float(q) == float(parts[0]) for q in parts)
+
+    # The one-process references run on rank 0 (rank 1 waits); the DP = 2
+    # phases run on the whole model; then the model is sharded once for
+    # every TP = 2 phase, the prune last (it replaces the masks the KD
+    # steps and generate ran on)
+    calib = [{k: v[:PAR_CALIB] for k, v in batches[0].items()}]
+    cut = data_sharding(mesh_dp)
+
+    def kd(batch, accum=1):
+        state = RessaTrainState.create(model, weight_decay=WEIGHT_DECAY)
+        met = make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD,
+                                 accum_grad_iters=accum)(batch, PAR_LR)
+        lora = state.lora
+        return ({k: float(v) for k, v in met.items()},
+                {n: p.detach().clone() for n, p in lora.items()},
+                {n: p.grad.detach().clone() for n, p in lora.items()})
+
+    def reset_lora():
+        with torch.no_grad():
+            for n, p in lora_parameters(model).items():
+                p.copy_(lora0[n])
+                p.grad = None
+
+    def kd_report(name, met, lora):
+        out[name] = dict(met=met, same_on_ranks=same_on_all(
+            par_checksum(lora.values())))
+        if me0:
+            out[name].update(par_lora_diff(lora, ref_lora, ref_grads),
+                             loss_err=abs(met["loss"] - ref_met["loss"]),
+                             ref_met=ref_met)
+
+    keys = ("image", "input_ids", "attention_mask", "qformer_input_ids",
+            "qformer_attention_mask")
+    enc = tuple(req[k] for k in keys)
+
+    def generate():
+        seqs, _ = run_generate(model, req)
+        logits, _ = forced_logits(model, enc, seqs[:, :2], "masked", False)
+        return seqs, logits[:, 0]
+
+    def prune_report(key, own, kernels=None):
+        # the masks are whole on every rank: rank 0 checks them
+        out[f"{key}_same_on_ranks"] = same_on_all(par_checksum(
+            m.mask for _, m in linears() if m.mask is not None))
+        if me0:
+            out[key] = par_prune_checks(model, ref_masks, ref_sink, own,
+                                        kernels)
+
+    # 1. Wanda in one process, then its control (one process, the samples
+    # in two unequal batches), then at DP = 2 (PAR_CALIB samples: the cut)
+    ref_sink, ref_masks = {}, {}
+    if me0:
+        phase("par_prune_ref", lambda: prune(calib, ref_sink))
+        # on the host: rank 0 reaches a one-process KD step's peak later
+        ref_masks = {n: m.mask.cpu() for n, m in linears()
+                     if m.mask is not None}
+        for _, m in linears():
+            set_mask(m, None)
+        ctrl_sink = {}
+        phase("par_prune_ctrl", lambda: prune(
+            [{k: v[sl] for k, v in calib[0].items()}
+             for sl in (slice(0, PAR_CTRL_SPLIT),
+                        slice(PAR_CTRL_SPLIT, PAR_CALIB))], ctrl_sink))
+        out["prune_ctrl"] = par_prune_checks(model, ref_masks, ref_sink,
+                                             ctrl_sink)
+        del ctrl_sink
+        for _, m in linears():
+            set_mask(m, None)
+    dist.barrier()
+    own = {}
+    shard_params(model, mesh_dp)            # nothing divides over data
+    phase("par_prune_dp", lambda: prune([cut(b) for b in calib], own))
+    prune_report("prune_dp", own)
+    gather_params(model)                    # drops the mesh; moves nothing
+
+    # 2. one block of each tower in float32 (each rank's first backward),
+    # then one KD step of train_ressa's configuration on the DP masks
+    out["blocks"], block_ref = par_block_checks(model, mesh_dp, "dp", phase)
+    _, block_ref16 = par_block_checks(model, None, "ref_bf16", phase,
+                                      dt=torch.bfloat16)
+    reset_lora()
+    ref_met = ref_lora = ref_grads = None
+    if me0:
+        ref_met, ref_lora, ref_grads = phase("par_kd_ref", lambda: kd(train))
+        reset_lora()
+        # the control: one process, the batch as two accumulated halves
+        # (every label valid: the same loss), each half planned as a data
+        # rank's
+        met, ctrl_lora, _ = phase("par_kd_ctrl", lambda: kd(train, accum=2))
+        out["kd_ctrl"] = dict(met=met, loss_err=abs(
+            met["loss"] - ref_met["loss"]), **par_lora_diff(
+                ctrl_lora, ref_lora, ref_grads))
+        reset_lora()
+    dist.barrier()
+    shard_params(model, mesh_dp)
+    met, lora, _ = phase("par_kd_dp", lambda: kd(cut(train)))
+    gather_params(model)
+    kd_report("par_kd_dp", met, lora)
+    if me0:
+        # DP = 2 against the control, which runs the same two halves
+        out["par_kd_dp"]["vs_ctrl"] = max(
+            float((p.float() - ctrl_lora[n].float()).abs().max())
+            for n, p in lora.items())
+        del ctrl_lora
+    del lora
+    reset_lora()
+
+    # 3. beam 5 over N_REQ requests, its first-step logits; the control:
+    # one process with the requests in two halves (other kernel plans)
+    ref_seqs = ref_logits = ctrl = None
+    if me0:
+        ref_seqs, ref_logits = phase("par_generate_ref", generate)
+        half = N_REQ // 2
+        ctrl = torch.cat([forced_logits(
+            model, tuple(t[sl] for t in enc), ref_seqs[sl, :2], "masked",
+            False)[0][:, 0] for sl in (slice(0, half),
+                                       slice(half, N_REQ))])
+    dist.barrier()
+
+    # 4. TP = 2: the model sharded once
+    shard_params(model, mesh_tp)
+    out["blocks"].update(par_block_checks(model, mesh_tp, "tp", phase,
+                                          block_ref)[0])
+    out["blocks"].update(par_block_checks(model, mesh_tp, "tp_bf16", phase,
+                                          block_ref16, dt=torch.bfloat16)[0])
+    del block_ref, block_ref16
+    reset_lora()
+    met, lora, _ = phase("par_kd_tp", lambda: kd(train))
+    kd_report("par_kd_tp", met, lora)
+    del lora, ref_lora, ref_grads
+    reset_lora()
+    seqs, logits = phase("par_generate_tp", generate)
+    if me0:
+        out["generate_tp"] = dict(
+            finite=bool(torch.isfinite(logits).all()),
+            shape_ok=tuple(seqs.shape) == tuple(ref_seqs.shape),
+            drift=rel_rms(logits.float(), ref_logits.float()),
+            control_drift=rel_rms(ctrl.float(), ref_logits.float()),
+            token_mismatch=int((seqs != ref_seqs).sum()))
+    for _, m in linears():
+        set_mask(m, None)
+    own = {}
+    phase("par_prune_tp", lambda: prune(calib, own))
+    # rank 0 checks against whole kernels drawn again from the seed (the
+    # prune keeps the kernels, lora_model): gathering the shards would
+    # move every kernel through the host
+    whole_model = kernels = None
+    if me0:
+        from vlm_compression_tpu_torch.models.factory import build_model
+
+        whole_model = build_model(dict(model_type="flant5xl", **LORA),
+                                  seed=PAR_SEED)
+        kernels = {n: m.kernel for n, m in whole_model.named_modules()
+                   if isinstance(m, SparseLinear)}
+    prune_report("prune_tp", own, kernels)
+    del model, batches, calib, train, req, lora0, ref_masks, whole_model
+    del kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. T5-XL's encoder self-attention, split over heads, then batch
+    a = PAR_ATTN
+    q, k, v, biases = flash_inputs(a["b"], a["n"], a["n"], a["h"], a["d"],
+                                   ["rel", "pad"], torch.bfloat16, seed=7)
+    gq = grad_like(q)
+
+    def attn_grads(mesh=None):
+        qkv = [t.detach().clone() for t in (q, k, v)]
+        bs = [x.detach().clone().requires_grad_(True) for x in biases]
+        if mesh is not None:
+            nb = mesh.size(mesh.mesh_dim_names.index("data"))
+            nh = mesh.size(mesh.mesh_dim_names.index("model"))
+            ib, ih = axis_index(mesh, "data"), axis_index(mesh, "model")
+            b, h = a["b"] // nb, a["h"] // nh
+            qkv = [t[ib * b:(ib + 1) * b, :, ih * h:(ih + 1) * h]
+                   .contiguous() for t in qkv]
+            gl = gq[ib * b:(ib + 1) * b, :, ih * h:(ih + 1) * h]
+        else:
+            gl = gq
+        for t in qkv:
+            t.requires_grad_(True)
+        o = (A.sharded_attention_core(*qkv, bs, scale=1.0, mesh=mesh)
+             if mesh is not None else A.attention_core(*qkv, bs, scale=1.0))
+        torch.autograd.backward(o, gl)
+        return [t.grad for t in qkv] + [x.grad for x in bs]
+
+    ref = attn_grads()          # one process, on each rank (small)
+    out["attention"] = {}
+    for name, mesh in (("par_attention_heads", mesh_tp),
+                       ("par_attention_batch", mesh_dp)):
+        got = phase(name, lambda: attn_grads(mesh))
+        nb = mesh.size(mesh.mesh_dim_names.index("data"))
+        nh = mesh.size(mesh.mesh_dim_names.index("model"))
+        ib, ih = axis_index(mesh, "data"), axis_index(mesh, "model")
+        b, h = a["b"] // nb, a["h"] // nh
+        worst = 0.0
+        for i, (x, want) in enumerate(zip(got, ref)):
+            if i < 3:
+                want = want[ib * b:(ib + 1) * b, :, ih * h:(ih + 1) * h]
+            e, s = max_err(x, want)
+            worst = max(worst, e / (TOL["bfloat16"] * s))
+        out["attention"][name] = dict(worst_over_tol=worst)
+    del q, k, v, biases, gq, ref
+
+    # 5. 8 of Vicuna-7B's LLaMA blocks, 2 stages, 4 microbatches
+    pp = PAR_PIPE
+    _, vcfg = build_model_config(dict(VICUNA_MODEL))
+    lcfg = vcfg.llm
+    layers = []
+    for i in range(pp["blocks"]):
+        blk = LlamaBlock(lcfg, device="cuda")
+        random_init_(blk, PAR_SEED + i)
+        layers.append({n: p.detach() for n, p in blk.named_parameters()})
+        del blk
+    gx = torch.Generator(device="cuda").manual_seed(PAR_SEED + 50)
+    x = torch.randn(pp["batch"], pp["seq"], lcfg.hidden_size, generator=gx,
+                    device="cuda").to(torch.bfloat16)
+    fn = make_block_fn("llama", lcfg, "cuda")
+
+    def seq_ref():
+        tree = [{n: t.clone().requires_grad_(True) for n, t in lp.items()}
+                for lp in layers]
+        h = x
+        for lp in tree:
+            h = fn(lp, h)
+        loss = torch.mean(h.float() ** 2)
+        loss.backward()
+        return h.detach(), [{n: t.grad for n, t in lp.items()} for lp in tree]
+
+    y_ref, g_ref = seq_ref()
+    mesh_pp = make_mesh(MeshConfig(pipe=pp["stages"], data=1, model=1))
+
+    def piped():
+        stage = shard_stages(split_stages(stack_layer_params(layers),
+                                          pp["stages"]), mesh_pp,
+                             requires_grad=True)
+        y = pipeline_apply(fn, stage, x, mesh=mesh_pp,
+                           n_microbatches=pp["micro"])
+        torch.mean(y.float() ** 2).backward()
+        return y.detach(), {n: t.grad for n, t in stage.items()}
+
+    C.HOST_STAGED["hops"] = 0
+    y, grads = phase("par_pipeline", piped)
+    s = axis_index(mesh_pp, "pipe")
+    per = pp["blocks"] // pp["stages"]
+    e, sc = max_err(y, y_ref)
+    worst = e / (TOL["bfloat16"] * sc)
+    for n, gs in grads.items():
+        for j in range(per):
+            e, sc = max_err(gs[j], g_ref[s * per + j][n])
+            worst = max(worst, e / (TOL["bfloat16"] * sc))
+    out["pipeline"] = dict(worst_over_tol=worst, stage=s,
+                           host_hops=C.HOST_STAGED["hops"])
+    out["rec"] = rec
+    out["calls"] = {kind: getattr(PAR_CALLS, kind)
+                    for kind in ("mm", "lora", "mm32", "lora32", "fwd",
+                                 "bwd")}
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def par_timed(names: dict) -> dict:
+    """{row: (kind, name)} of the parallel path's timed signatures: 1p the
+    TP prune's largest masked matmul (a linear at half its N or K), 3p the
+    TP KD step's largest sparse-LoRA matmul, 4p its T5 attention forward
+    at 32 / 2 local heads, 5p/6p its largest backward there, 7p the direct
+    head-sharded attention's backward with the position bias's
+    gradient."""
+    def pick(kind, pred, size):
+        cands = [(n, k) for n, k in names[kind].items() if pred(n, k)]
+        return max(cands, key=lambda nk: size(nk[1]))[0] if cands else None
+
+    mm_size = lambda k: k[0] * k[1] * k[2]  # noqa: E731
+    at_size = lambda k: k[0] * k[1] * k[2] * k[3]  # noqa: E731
+    heads = PAR_ATTN["h"] // PAR_WORLD
+    out = {
+        "1p": ("mm", pick("mm", lambda n, k: k[-1] == "par_prune_tp"
+                          and k[3] == torch.bfloat16, mm_size)),
+        "3p": ("lora", pick("lora", lambda n, k: k[-1] == "par_kd_tp",
+                            mm_size)),
+        "4p": ("fwd", pick("fwd", lambda n, k: n.startswith("par_kd_tp")
+                           and k[3] == heads and k[4] == PAR_ATTN["d"],
+                           at_size)),
+        "5p": ("bwd", pick("bwd", lambda n, k: n.startswith("par_kd_tp")
+                           and not k[11], at_size)),
+        "7p": ("bwd", pick("bwd", lambda n, k: n.startswith(
+            "par_attention_heads") and bool(k[11]), at_size))}
+    return {row: v for row, v in out.items() if v[1] is not None}
+
+
+def nccl_world_of_one() -> dict:
+    """``common.dist.init_distributed_mode``'s NCCL branch in this process,
+    a world of 1 named by the environment as torchrun names it: a mesh on
+    it, a KD step of the tiny fp32 model on the card, and the LoRA
+    gradients' data-parallel bucket reduction over the NCCL group (an
+    identity over one rank); the group destroyed after."""
+    import socket
+
+    from vlm_compression_tpu_torch.common import dist as D
+    from vlm_compression_tpu_torch.parallel import dryrun as DR
+    from vlm_compression_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        make_mesh,
+        shard_params,
+    )
+    from vlm_compression_tpu_torch.tasks import retrain as R
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    D._initialized = False
+    t0 = time.perf_counter()
+    try:
+        D.init_distributed_mode(None)
+        backend = torch.distributed.get_backend()
+        mesh = make_mesh(MeshConfig())
+        t_init = time.perf_counter() - t0
+        tcfg = DR.tiny_config(lora=True)
+        model = DR.build_model(tcfg, None, device="cuda")
+        shard_params(model, mesh)
+        state = R.RessaTrainState.create(model)
+        batch = DR.to_device(DR.tiny_batch(tcfg, 4, 0), "cuda")
+        met = R.make_kd_train_step(model, state.opt, KL_WEIGHT, T_KD)(
+            batch, 1e-3)
+        grads = [p.grad for p in state.lora.values()]
+        before = [t.clone() for t in grads]
+        R.bucket_all_reduce_(grads, mesh.get_group("data"))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(before, grads))
+        t_step = time.perf_counter() - t0 - t_init
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        D._initialized = False
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dict(backend=backend, loss=float(met["loss"]),
+                reduced_same=same, mesh=list(mesh.mesh_dim_names),
+                init_s=t_init, step_s=t_step)
+
+
+def parallel_path() -> tuple:
+    """The NCCL world of 1 here, then PAR_WORLD gloo ranks sharing the card
+    (``par_rank``); every gate checked here.  Returns (the ranks' launch
+    record merged, phases named ``par_r<rank>_<phase>``; the numbers)."""
+    import tempfile
+
+    from vlm_compression_tpu_torch.parallel.collectives import spawn
+
+    t0 = time.perf_counter()
+    nccl = nccl_world_of_one()
+    log(f"  NCCL world of 1 (init_distributed_mode, the environment naming "
+        f"it): backend {nccl['backend']}, mesh {nccl['mesh']}, a tiny KD "
+        f"step loss {nccl['loss']:.5f}, the LoRA gradients' bucket "
+        f"all-reduce over the NCCL group an identity: {nccl['reduced_same']}"
+        f" ({time.perf_counter() - t0:.1f} s: the group and mesh "
+        f"{nccl['init_s']:.1f} s, the model, step and reduction "
+        f"{nccl['step_s']:.1f} s)")
+    if nccl["backend"] != "nccl" or not nccl["reduced_same"]:
+        raise AssertionError(f"NCCL world of 1: {nccl}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = spawn(par_rank, PAR_WORLD, PAR_BACKEND,
+                     os.path.join(tmp, "init"), PAR_TIMEOUT)
+    wall = time.perf_counter() - t1
+    r0 = outs[0]
+    log(f"  {PAR_WORLD} ranks on {PAR_BACKEND} with CUDA tensors (NCCL "
+        f"refuses two ranks on one device: scripts/torch_parallel_probe.py)"
+        f": spawn to join {wall:.1f} s; XL built in {r0['build_s']:.1f} s a "
+        f"rank; a rank's phases {[round(o['total_s'], 1) for o in outs]} s")
+    merged = new_record()
+    for o in outs:
+        for part in ("counts", "shapes", "secs", "peaks"):
+            for ph, val in o["rec"][part].items():
+                merged[part][f"par_r{o['rank']}_{ph}"] = val
+    for ph in PAR_REFS + PAR_PHASES:
+        secs = [o["rec"]["secs"].get(ph) for o in outs]
+        peaks = [o["rec"]["peaks"].get(ph) for o in outs]
+        secs_s = ", ".join("-" if x is None else f"{x:.2f}" for x in secs)
+        peak_s = ", ".join("-" if x is None else f"{x / 2**30:.2f}"
+                           for x in peaks)
+        together = sum(x or 0 for x in peaks)
+        moved = ", ".join(
+            "-" if ph not in o["staged"] else
+            f"{o['staged'][ph]['bytes'] / 2**30:.2f}" for o in outs)
+        log(f"  {ph}: s by rank [{secs_s}], peak GiB by rank [{peak_s}], "
+            f"together {together / 2**30:.2f}; gloo staged GiB by rank "
+            f"[{moved}]; " + attn_routes(outs[0]["rec"]["counts"][ph]))
+        if together > torch.cuda.get_device_properties(0).total_memory:
+            raise AssertionError(f"{ph}: the ranks' peaks do not fit")
+    for ph, c in merged["counts"].items():
+        base = ph.split("_", 2)[2]
+        for kernel in PHASE_KERNELS[base]:
+            if c[kernel] <= 0:
+                raise AssertionError(f"{kernel} never launched in {ph}")
+        for kernel in PHASE_FORBIDDEN.get(base, ()):
+            if c[kernel] != 0:
+                raise AssertionError(f"{kernel} launched in {ph}")
+    fails = []
+
+    def gate(ok, what):
+        if not ok:
+            fails.append(what)
+        return "ok" if ok else "FAIL"
+
+    for key in ("prune_tp", "prune_dp"):
+        d = r0[key]
+        # TP = 2 folds the same stem outputs (0 expected); at DP = 2 the
+        # stem's float32 patch product runs at half the rows, and a few of
+        # its outputs round to the neighbouring bf16 value
+        first_tol = 0.0 if key == "prune_tp" else 1e-3
+        ok = (d["own_stats_flips"] == 0
+              and d["first_stat_rel"] <= first_tol
+              and all(abs(x - 0.5) <= PAR_DENSITY
+                      for x in d["density"].values())
+              and r0[f"{key}_same_on_ranks"])
+        log(f"  Wanda at {key[-2:].upper()} = 2 ({PAR_CALIB} samples, the "
+            f"cut): masks against the one-process mask function on the "
+            f"whole kernels and the run's own statistics: "
+            f"{d['own_stats_flips']} flipped bits; the ViT block 0 qkv's "
+            f"statistic against one process's: {d['first_stat_rel']:.2e} "
+            f"relative (bound {first_tol:g}); densities "
+            f"{ {t: round(x, 4) for t, x in d['density'].items()} }; masks "
+            f"equal on the ranks {r0[f'{key}_same_on_ranks']} "
+            f"{gate(ok, key)}. Against the one-process prune (not gated: "
+            f"bf16 rounding in another order, carried through 87 random "
+            f"blocks, moves the statistics of every later block): "
+            f"{d['flips']} flipped bits over {d['linears']} linears (at "
+            f"most {d['worst']} in one), {d['non_tie_units']} units with "
+            f"flips that are not metric ties")
+    c = r0["prune_ctrl"]
+    log(f"  Wanda control (one process, the {PAR_CALIB} samples in batches "
+        f"of {PAR_CTRL_SPLIT} and {PAR_CALIB - PAR_CTRL_SPLIT}: other row "
+        f"counts in every block) against the one-process prune (not "
+        f"gated): {c['flips']} flipped bits over {c['linears']} linears (at "
+        f"most {c['worst']} in one), {c['non_tie_units']} units with flips "
+        f"that are not metric ties; against the mask function on its own "
+        f"statistics {c['own_stats_flips']} flipped bits; the first "
+        f"linear's statistic {c['first_stat_rel']:.2e} relative")
+    for key in ("par_kd_tp", "par_kd_dp"):
+        d = r0[key]
+        loss_tol = TOL["bfloat16"] * max(1.0, abs(d["ref_met"]["loss"]))
+        ok = (d["loss_err"] <= loss_tol
+              and all(math.isfinite(v) for v in d["met"].values())
+              and all(o[key]["same_on_ranks"] for o in outs))
+        log(f"  KD step {key[-2:].upper()} = 2 (batch {TRAIN_BS}) vs one "
+            f"process: loss {d['met']['loss']:.5f} vs "
+            f"{d['ref_met']['loss']:.5f} (err {d['loss_err']:.2e}, tol "
+            f"{loss_tol:.2e}), ce {d['met']['ce']:.5f}, kl "
+            f"{d['met']['kl']:.6f}; LoRA equal on the ranks "
+            f"{all(o[key]['same_on_ranks'] for o in outs)} "
+            f"{gate(ok, key)}; the LoRA factors after the update against "
+            f"one process's (not gated: the random model's gradients "
+            f"follow its activations' rounding): largest difference "
+            f"{d['worst_over_lr']:.3f}·lr, {d['decided_over_lr']:.3f}·lr "
+            f"where the gradient is above {PAR_BIG:g} of its leaf's largest")
+    c = r0["kd_ctrl"]
+    log(f"  KD control (one process, the batch as two accumulated halves) "
+        f"vs one process (not gated): loss {c['met']['loss']:.5f} (err "
+        f"{c['loss_err']:.2e}); the LoRA factors after the update: largest "
+        f"difference {c['worst_over_lr']:.3f}·lr, "
+        f"{c['decided_over_lr']:.3f}·lr where the gradient is above "
+        f"{PAR_BIG:g} of its leaf's largest")
+    # each DP rank runs one half as the control's micro-batch runs it, and
+    # the shares' sum is the halves' mean bit for bit (every label valid)
+    d = r0["par_kd_dp"]
+    ok = d["met"] == c["met"]
+    log(f"  KD step DP = 2 against the control: loss, ce and kl bit-equal "
+        f"{gate(ok, 'kd_dp_vs_control')}; the LoRA factors after the "
+        f"update differ by at most {d['vs_ctrl']:.3e} (not gated)")
+    kd = {k: r0[k] for k in ("par_kd_dp", "par_kd_tp")}
+    log(f"  drift from one process, DP = 2 / TP = 2 / control: Wanda "
+        f"flipped bits {r0['prune_dp']['flips']} / "
+        f"{r0['prune_tp']['flips']} / {r0['prune_ctrl']['flips']}, non-tie "
+        f"units {r0['prune_dp']['non_tie_units']} / "
+        f"{r0['prune_tp']['non_tie_units']} / "
+        f"{r0['prune_ctrl']['non_tie_units']}; KD loss "
+        f"{kd['par_kd_dp']['loss_err']:.2e} / "
+        f"{kd['par_kd_tp']['loss_err']:.2e} / {c['loss_err']:.2e}; LoRA "
+        f"decided entries {kd['par_kd_dp']['decided_over_lr']:.3f} / "
+        f"{kd['par_kd_tp']['decided_over_lr']:.3f} / "
+        f"{c['decided_over_lr']:.3f}·lr; generate (TP and its control "
+        f"only) {r0['generate_tp']['drift']:.4f} / "
+        f"{r0['generate_tp']['control_drift']:.4f} relative RMS")
+    for key, d in r0["blocks"].items():
+        ok = d["worst_y"] <= 1.0 and d["worst_grad"] <= 1.0
+        dt = "bf16" if key.endswith("_bf16") else "float32"
+        log(f"  block 0 of the ViT, Q-Former and both T5 stacks at "
+            f"{key[:2].upper()} = 2 ({dt}, batch {PAR_BLOCK_B}, sparse-LoRA, "
+            f"{d['linears']} adapted linears) vs one process on the same "
+            f"inputs: outputs worst {d['worst_y']:.3f} and LoRA gradients "
+            f"worst {d['worst_grad']:.3f} ({d['worst_leaf']}) of the {dt} "
+            f"tolerance "
+            f"{gate(ok, 'blocks_' + key)}")
+    d = r0["generate_tp"]
+    ok = d["finite"] and d["shape_ok"]
+    log(f"  beam-5 generate of {N_REQ} at TP = 2: finite first-step logits, "
+        f"tokens of the one-process shape {gate(ok, 'generate_tp')}; their "
+        f"relative RMS against one process's {d['drift']:.4f}, the control "
+        f"(one process, the requests in two halves) {d['control_drift']:.4f}"
+        f" (not gated); tokens differing {d['token_mismatch']}")
+    for o in outs:
+        for name, a in o["attention"].items():
+            ok = a["worst_over_tol"] <= 1.0
+            log(f"  rank {o['rank']} {name}: dq, dk, dv and both bias "
+                f"gradients against one process, worst "
+                f"{a['worst_over_tol']:.3f} of the bf16 tolerance "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fails.append(name)
+        p = o["pipeline"]
+        ok = p["worst_over_tol"] <= 1.0
+        log(f"  rank {o['rank']} pipeline stage {p['stage']}: output and "
+            f"gradients against the sequential blocks, worst "
+            f"{p['worst_over_tol']:.3f} of the bf16 tolerance; "
+            f"{p['host_hops']} hops staged through the host "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append("pipeline")
+    if fails:
+        raise AssertionError(f"parallel path: {fails}")
+    # the signatures the ranks launched, for the kernel checks and timing
+    for o in outs:
+        for kind, got in o["calls"].items():
+            mine = getattr(PAR_CALLS, kind)
+            for key, val in got.items():
+                if key in mine:
+                    continue
+                if kind in ("fwd", "bwd"):
+                    ph, bs = val
+                    val = (ph, [torch.as_tensor(x).cuda() for x in bs])
+                mine[key] = val
+    e2e = {"parallel_wall_s": time.perf_counter() - t0,
+           "parallel_spawn_s": wall,
+           "parallel_backend": PAR_BACKEND, "parallel_nccl_world1": nccl,
+           "parallel_phase_s": {f"par_r{o['rank']}_{ph}": s
+                                for o in outs
+                                for ph, s in o["rec"]["secs"].items()},
+           "parallel_peaks": {f"par_r{o['rank']}_{ph}": s
+                              for o in outs
+                              for ph, s in o["rec"]["peaks"].items()},
+           "parallel_prune": {k: r0[k] for k in ("prune_tp", "prune_dp",
+                                                 "prune_ctrl")},
+           "parallel_kd_control": r0["kd_ctrl"],
+           "parallel_staged": {o["rank"]: o["staged"] for o in outs},
+           "parallel_kd": {k: {x: y for x, y in r0[k].items()
+                               if x != "ref_met"}
+                           for k in ("par_kd_tp", "par_kd_dp")},
+           "parallel_generate": r0["generate_tp"],
+           "parallel_blocks": r0["blocks"],
+           "parallel_attention": {o["rank"]: o["attention"] for o in outs},
+           "parallel_pipeline": {o["rank"]: o["pipeline"] for o in outs}}
+    return merged, e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -10272,6 +11318,26 @@ def main() -> int:
         nonlocal t_phase
         phases[name] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
+    # the parallel path first: its ranks share the card with this process,
+    # which holds nothing yet
+    worst = {}
+    log(f"[parallel path] InstructBLIP-FlanT5-XL at full width, "
+        f"{PAR_WORLD} ranks sharing the card: Wanda at TP = 2 and at DP = 2 "
+        f"({PAR_CALIB} samples in one batch: the cut), one KD step at TP = "
+        f"2 and at "
+        f"DP = 2 (batch {TRAIN_BS}), beam-5 generate at TP = 2, block 0 of "
+        f"each tower, one-process controls, T5-XL's "
+        f"encoder attention split over heads and over the batch, a GPipe "
+        f"pipeline of {PAR_PIPE['blocks']} of Vicuna-7B's LLaMA blocks (the "
+        f"cut) over {PAR_PIPE['stages']} stages; each against one process; "
+        f"a world of 1 on NCCL")
+    par_rec, p_e2e = parallel_path()
+    phase_done("parallel path")
+    log("[kernels] rows 1 and 3-7 at every signature the parallel path's "
+        "ranks launched (recorded in each rank, held here)")
+    par_names = check_leg_kernels(par_rec, worst, calls=PAR_CALLS,
+                                  prefix="")
+    phase_done("parallel kernels")
 
     lengths = add_cli_train_shapes()
     wf_lengths = add_wf_cli_shapes()
@@ -10282,7 +11348,7 @@ def main() -> int:
         f"tokens {wf_lengths}; the Vicuna rank pass: prompts of {rank_p} "
         f"and candidates of {rank_c} tokens, LLaMA over {rank_n}, "
         f"{rank_rows} rows a chunk in the task)")
-    worst = check_kernels()
+    worst.update(check_kernels())
     check_compressed_kernels(worst)
     check_dbias_kernel(worst)
     log("[kernels] rows 1 and 4 at the zoo path's shapes")
@@ -10317,6 +11383,9 @@ def main() -> int:
         "perplexity")
     counts, e2e = main_path()
     phase_done("main path")
+    counts.update(par_rec["counts"])
+    e2e.update(p_e2e)
+    del par_rec
     gc.collect()
     torch.cuda.empty_cache()
     log("[compressed path] InstructBLIP-FlanT5-XL: SparseGPT prune, beam-5 "
@@ -10422,6 +11491,7 @@ def main() -> int:
     leg_names = check_leg_kernels(leg_rec, worst)
     del leg_rec
     phase_done("leg kernels")
+
     gc.collect()
     torch.cuda.empty_cache()
     log("[cli path] the launcher's T5 grid point through the port's CLI: "
@@ -10461,6 +11531,8 @@ def main() -> int:
     timing_compressed(rows, wmma)
     zoo_rows = timing_zoo(worst)
     leg_rows = timing_leg(leg_names, worst)
+    par_rows = timing_leg(par_names, worst, calls=PAR_CALLS,
+                          timed=par_timed)
     phase_done("timing")
     log(f"[phases] wall-clock s: "
         f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}")
@@ -10630,6 +11702,19 @@ def main() -> int:
                     p: r for p, r in e2e["leg_launches_by_route"].items()}}
                if kname in ("masked_matmul", "flash_attention",
                             "flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dbias") else {}),
+            # the parallel path's sharded shapes (half the heads, half of
+            # N or K), timed in this process; their launches are in
+            # launches_by_phase under par_r<rank>_<phase>
+            **({"parallel": {
+                label: r for label, r in par_rows.items()
+                if r["kernel"] == {"flash_attention_bwd_dq":
+                                   "flash_attention_bwd",
+                                   "flash_attention_bwd_dkv":
+                                   "flash_attention_bwd"}.get(kname, kname)}}
+               if kname in ("masked_matmul", "sparse_lora_matmul",
+                            "flash_attention", "flash_attention_bwd_dq",
                             "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dbias") else {}),
             "max_abs_err": worst[err_key],

@@ -64,6 +64,47 @@ def test_masked_matmul_matches_plain(cuda, dtype, m, k, n):
     _close(got, ML.masked_matmul_ref(x, w, mask), dtype)
 
 
+@pytest.mark.parametrize("kind", ["masked", "sparse_lora"])
+@pytest.mark.parametrize("m,k,n,loop", [
+    (2056, 704, 1408, None),    # a ViT fc2 shard at calibration: Hopper
+    (20, 1024, 2048, None),     # a T5 wo shard at a beam step: decode
+    (4, 2560, 2048, None),      # decode, split-K
+    (515, 704, 1408, ML.WMMA),  # the WMMA loop
+    (20, 2560, 2048, ML.WMMA),  # the WMMA loop, split-K
+])
+def test_out32_is_the_bf16_outputs_sums_before_their_rounding(
+        cuda, kind, m, k, n, loop):
+    """A row-parallel shard's product in fp32: the kernel's own sums, so
+    rounded they equal its bf16 output bit for bit, and they hold more
+    than bf16 keeps; against the fp32 plain version within the bf16
+    tolerance."""
+    if kind == "sparse_lora" and m <= 64 and loop is None:
+        loop = ML.WMMA       # sparse-LoRA has no decode route
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    x = torch.randn(m, k, generator=g, device=cuda).to(bf16)
+    w = (torch.randn(k, n, generator=g, device=cuda) * 0.05).to(bf16)
+    mask = torch.rand(k, n, generator=g, device=cuda) < 0.5
+    if kind == "masked":
+        def call(**kw):
+            return ML.masked_matmul(x, w, mask, _loop=loop, **kw)
+        ref = ML.masked_matmul_ref(x, w, mask, f32)
+    else:
+        a = (torch.randn(k, 8, generator=g, device=cuda) * 0.05).to(bf16)
+        b = (torch.randn(8, n, generator=g, device=cuda) * 0.05).to(bf16)
+
+        def call(**kw):
+            return ML.sparse_lora_matmul(x, w, mask, a, b, 2.0, _loop=loop,
+                                         **kw)
+        ref = ML.sparse_lora_matmul_ref(x, w, mask, a, b, 2.0, f32)
+    got = call(out_dtype=f32)
+    assert got.dtype == f32
+    assert torch.equal(got.to(bf16), call())
+    assert (got != got.to(bf16).float()).any()
+    assert torch.equal(got, call(out_dtype=f32))
+    _close(got, ref, bf16)
+
+
 def test_masked_matmul_leading_dims_and_strided_x(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(3, 7, 96, generator=g, device=cuda)[:, :, :64]

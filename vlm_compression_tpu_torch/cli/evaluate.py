@@ -239,6 +239,7 @@ def run(args) -> Tuple[dict, object, object]:
 
 
 def _run(args) -> Tuple[dict, object, object]:
+    from vlm_compression_tpu_torch.common import dist
     from vlm_compression_tpu_torch.common.config import Config
     from vlm_compression_tpu_torch.common.device import resolve_device
     from vlm_compression_tpu_torch.common.profiling import PhaseTimer
@@ -246,6 +247,10 @@ def _run(args) -> Tuple[dict, object, object]:
     from vlm_compression_tpu_torch.models.factory import build_model
     from vlm_compression_tpu_torch.models.model_zoo import (
         default_config_path,
+    )
+    from vlm_compression_tpu_torch.parallel.mesh import (
+        data_sharding,
+        gather_params,
     )
     from vlm_compression_tpu_torch.runners.runner_base import RunnerBase, _get
     from vlm_compression_tpu_torch.tasks import setup_task
@@ -277,6 +282,8 @@ def _run(args) -> Tuple[dict, object, object]:
         model_cfg["kv_cache_per_row"] = True
     if args.speculative_gamma:
         cfg.run_cfg["speculative_gamma"] = args.speculative_gamma
+    # the process group the environment names (torchrun), before the build
+    dist.init_distributed_mode(cfg.run_cfg)
 
     job_id = args.job_id or time.strftime("%Y%m%d%H%M%S")
     output_dir = _get(cfg.run_cfg, "output_dir", f"output/{job_id}")
@@ -330,6 +337,9 @@ def _run(args) -> Tuple[dict, object, object]:
                 for b in runner.get_dataloader_for_importance_computation(
                     num_data=args.num_data_for_prune, power=args.power,
                     batch_size=args.prune_batch_size)]
+            if runner.mesh is not None:
+                # each data rank calibrates its share of every batch
+                batches = [data_sharding(runner.mesh)(b) for b in batches]
         sparsity_dict = None
         if args.sparsity_dict:
             with open(args.sparsity_dict) as f:
@@ -364,8 +374,17 @@ def _run(args) -> Tuple[dict, object, object]:
             path = os.path.abspath(
                 os.path.join(output_dir, f"pruned_{job_id}"))
             with timer.phase("save"):
-                torch.save(model.state_dict(), path)
+                if runner.mesh is not None:
+                    gather_params(model)        # saved whole
+                if dist.is_main_process():
+                    torch.save(model.state_dict(), path)
             stats["pruned_checkpoint"] = path
+
+    if (args.quantize_int8 or args.quantize_int4) and any(
+            getattr(m, "_shards", None) for m in runner.model.modules()):
+        raise NotImplementedError(
+            "int8 and int4 weights do not shard yet (ROADMAP.md, item 10): "
+            "run them with run.model_parallel=1")
 
     if args.quantize_int8:
         from vlm_compression_tpu_torch.ops import quant as Q

@@ -173,6 +173,7 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
         safe_dump_flat,
         safe_load,
     )
+    from vlm_compression_tpu_torch.common import dist
     from vlm_compression_tpu_torch.common.config import Config
     from vlm_compression_tpu_torch.common.device import resolve_device
     from vlm_compression_tpu_torch.common.profiling import PhaseTimer
@@ -183,6 +184,10 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
         default_config_path,
     )
     from vlm_compression_tpu_torch.ops.bitmask import pack_masks_
+    from vlm_compression_tpu_torch.parallel.mesh import (
+        data_sharding,
+        gather_params,
+    )
     from vlm_compression_tpu_torch.runners import RunnerBase
     from vlm_compression_tpu_torch.runners.runner_base import _get
     from vlm_compression_tpu_torch.tasks import setup_task
@@ -214,6 +219,8 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
 
     cfg = config(args.cfg_path)
     run_cfg, model_cfg = cfg.run_cfg, cfg.model_cfg
+    # the process group the environment names (torchrun), before the build
+    dist.init_distributed_mode(run_cfg)
     if args.model_size:
         model_cfg["model_type"] = args.model_size
     if args.tiny:
@@ -269,6 +276,9 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
                 for b in prune_runner.get_dataloader_for_importance_computation(
                     num_data=args.num_data_for_prune,
                     batch_size=args.prune_batch_size)]
+            if runner.mesh is not None:
+                # each data rank calibrates its share of every batch
+                batches = [data_sharding(runner.mesh)(b) for b in batches]
         with timer.phase("prune"):
             pruner = load_pruner(
                 args.pruning_method, model, batches,
@@ -314,12 +324,18 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
         with timer.phase("retrain"):
             runner._train_state = None   # over the pruned model's masks
             runner.train(prune_retrain=True)
+            if runner.mesh is not None:
+                gather_params(runner.model)     # merged whole on every rank
             # W += (A·B·α/r) ⊙ M in place; --sparse re-asserts W[~M] = 0
             merge_lora_into_params(runner.model, sparse=args.sparse)
             if args.sparse:
                 apply_masks_to_params(runner.model)
         stats["train_seconds"] = round(time.perf_counter() - t0, 2)
 
+    if runner.mesh is not None and (args.pack_masks or
+                                    args.save_pruned_model) and \
+            getattr(runner.model, "parallel_mesh", None) is not None:
+        gather_params(runner.model)     # packed and saved whole
     if args.pack_masks and any(isinstance(m, SparseLinear) and
                                m.mask is not None
                                for m in runner.model.modules()):
@@ -353,7 +369,8 @@ def run(args, timer=None) -> Tuple[dict, object, object]:
                 # merged: the weights and masks stand alone
                 state = {k: v for k, v in state.items()
                          if _leaf(k) not in ("lora_a", "lora_b")}
-            torch.save(state, path)
+            if dist.is_main_process():
+                torch.save(state, path)
             del state
         stats["pruned_checkpoint"] = path
 

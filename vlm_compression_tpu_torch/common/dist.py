@@ -38,6 +38,9 @@ def init_distributed_mode(run_cfg=None) -> None:
     if env.get("MASTER_ADDR") and env.get("RANK") is not None and \
             env.get("WORLD_SIZE") is not None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if backend == "nccl":
+            # one card per process, as torchrun numbers them on a host
+            torch.cuda.set_device(int(env.get("LOCAL_RANK", 0)))
         torch.distributed.init_process_group(
             backend,
             init_method=(f"tcp://{env['MASTER_ADDR']}:"

@@ -15,6 +15,20 @@ Masks and zeroed kernels are written into the modules in place, so no
 superseded copy of a block is ever held (the JAX package popped each old
 block subtree for the same reason).  Sparsity keys are '/'-joined
 parameter paths (``t5_model/encoder/blocks_3/self_attn/q``).
+
+Over a mesh (``parallel/mesh.shard_params``; the model's
+``parallel_mesh``) the sweep is distributed: each data rank folds its
+share of the batches, and the statistics' sums are all-reduced over
+(``replica``, ``data``) before any mask is taken; a row-parallel linear
+folds its local input features and gathers the per-feature sums over
+``model`` (its inputs gathered instead where a Hessian needs their cross
+terms).  The mask function sees whole kernels; where it splits on
+units (``unit_split``: Wanda's per-unit top-k, SparseGPT's row-parallel
+OBS) each ``model`` rank scores its block of the units and the masks (and
+updated kernels) are all-gathered, else every rank scores the whole.  The
+masks are written whole on every rank (so ``export_masks`` and checkpoints
+do not change), updated or zeroed kernels into each rank's stored block,
+and the replay runs the sharded forward, reduced as the towers reduce it.
 """
 
 from __future__ import annotations
@@ -24,11 +38,22 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+from vlm_compression_tpu_torch.models.layers import (
+    SparseLinear,
+    assign_whole_,
+    set_mask,
+    whole,
+)
 from vlm_compression_tpu_torch.ops.stats import (
     CalibStats,
+    all_reduce_calib_stats,
     init_calib_stats,
     update_calib_stats,
+)
+from vlm_compression_tpu_torch.parallel import collectives as C
+from vlm_compression_tpu_torch.parallel.mesh import (
+    axis_group,
+    data_axes,
 )
 
 Path = Tuple[str, ...]
@@ -121,6 +146,37 @@ def _fuse_side(sides: List[dict], batch_sizes: List[int]) -> dict:
     return out
 
 
+def _whole_features(stats: CalibStats, lin: SparseLinear) -> CalibStats:
+    """A row-parallel linear's statistics of its local input features,
+    all-gathered to every feature (the plan's rows are the rank's
+    contiguous block); the counts are the same on every rank.  Statistics
+    of whole inputs pass."""
+    if stats.ssq.numel() == lin.in_features:
+        return stats
+    return dataclasses.replace(stats, **{
+        f: C.all_gather_dim(getattr(stats, f), lin.tp.group, 0)
+        for f in ("ssq", "ssum", "var_acc", "mean_acc")})
+
+
+def _score(mask_fn, kernels, stats, sparsities, mp) -> BlockPruneResult:
+    """``mask_fn`` over whole kernels; split on the units over ``mp`` where
+    the function allows it and every kernel's units divide, then the masks
+    and kernels all-gathered whole."""
+    n = C.group_size(mp)
+    if n == 1 or not getattr(mask_fn, "unit_split", False) or any(
+            k.shape[1] % n for k in kernels.values()):
+        return mask_fn(kernels=kernels, stats=stats, sparsities=sparsities)
+    local = {p: C.chunk(k, mp, 1).contiguous() for p, k in kernels.items()}
+    kw = {"unit_group": mp} if getattr(mask_fn, "takes_unit_group",
+                                       False) else {}
+    res = mask_fn(kernels=local, stats=stats, sparsities=sparsities, **kw)
+    return BlockPruneResult(
+        {p: C.all_gather_dim(m.contiguous(), mp, 1)
+         for p, m in res.masks.items()},
+        {p: C.all_gather_dim(k.contiguous(), mp, 1)
+         for p, k in res.new_kernels.items()})
+
+
 @torch.no_grad()
 def calibrate_and_prune_tower(
     adapter: TowerAdapter,
@@ -132,6 +188,8 @@ def calibrate_and_prune_tower(
     mode: str = "masked",
     progress: Optional[Callable[[str], None]] = None,
     return_outputs: bool = False,
+    mesh=None,
+    stats_sink: Optional[dict] = None,
 ):
     """Run the layer sweep over one tower, in place.
 
@@ -139,7 +197,13 @@ def calibrate_and_prune_tower(
     instead zeroes the pruned weights and drops the swept linears' masks
     (zeroed weights already encode the sparsity).  With
     ``return_outputs`` the replayed activations after the last block come
-    back, per (fused) batch."""
+    back, per (fused) batch.  ``mesh``: the sweep over a mesh (the module
+    docstring).  ``stats_sink`` (a test and debug hook, as the JAX
+    package's): each linear's Wanda input statistic, ``scaler_row`` on the
+    host, and its sparsity, under its sparsity key, so that a comparison
+    can evaluate the metric where two masks differ."""
+    dp = axis_group(mesh, data_axes(mesh)) if mesh is not None else None
+    mp = axis_group(mesh, "model") if mesh is not None else None
     # 1. stem over every batch, then FUSE equal shapes into one batch:
     # statistics are sums over samples and tokens, so concatenation is
     # exact, and one fold + one replay per block replaces len(batches)
@@ -158,15 +222,23 @@ def calibrate_and_prune_tower(
         lpaths = linear_paths(block)
         linears = {p: block.get_submodule(".".join(p)) for p in lpaths}
 
-        # 2a. fold stats: each linear's input, as the block runs
-        stats: Dict[Path, CalibStats] = {
-            p: init_calib_stats(lin.in_features, with_hessian,
-                                lin.kernel.device)
-            for p, lin in linears.items()}
+        # 2a. fold stats: each linear's input, as the block runs (a
+        # row-parallel linear's local features folded as they come, and
+        # the per-feature sums gathered after; with a Hessian, which needs
+        # the cross terms, its input gathered first)
+        stats: Dict[Path, CalibStats] = {}
 
         def hook_for(p):
+            lin = linears[p]
+
             def hook(_mod, args):
-                stats[p] = update_calib_stats(stats[p], args[0])
+                x = args[0]
+                if with_hessian and x.shape[-1] != lin.in_features:
+                    x = C.all_gather_dim(x, lin.tp.group, -1)
+                if p not in stats:
+                    stats[p] = init_calib_stats(x.shape[-1], with_hessian,
+                                                lin.kernel.device)
+                stats[p] = update_calib_stats(stats[p], x)
             return hook
 
         handles = [lin.register_forward_pre_hook(hook_for(p))
@@ -178,11 +250,20 @@ def calibrate_and_prune_tower(
             for h in handles:
                 h.remove()
 
-        # 2b. score + mask (+ update)
-        kernels = {p: lin.kernel for p, lin in linears.items()}
+        # 2b. score + mask (+ update), on whole kernels and statistics
+        stats = {p: all_reduce_calib_stats(
+            _whole_features(stats[p], lin) if p in stats else
+            init_calib_stats(lin.in_features, with_hessian,
+                             lin.kernel.device), dp)
+            for p, lin in linears.items()}
+        kernels = {p: whole(lin, "kernel") for p, lin in linears.items()}
         sparsities = {p: sparsity_for("/".join(adapter.subtree + (bname,) + p))
                       for p in lpaths}
-        result = mask_fn(kernels=kernels, stats=stats, sparsities=sparsities)
+        if stats_sink is not None:
+            for p in lpaths:
+                stats_sink["/".join(adapter.subtree + (bname,) + p)] = (
+                    stats[p].scaler_row.cpu(), float(sparsities[p]))
+        result = _score(mask_fn, kernels, stats, sparsities, mp)
         del stats
         for p, lin in linears.items():
             keep = result.masks[p]
@@ -190,9 +271,11 @@ def calibrate_and_prune_tower(
                 set_mask(lin, keep)
             kern = result.new_kernels.get(p)
             if kern is not None:
-                lin.kernel.copy_(kern.to(lin.kernel.dtype))
+                assign_whole_(lin, "kernel", kern.to(lin.kernel.dtype))
             elif not lora_model:
-                lin.kernel.masked_fill_(~keep, 0)
+                sh = getattr(lin, "_shards", {}).get("kernel")
+                lin.kernel.masked_fill_(~(sh.local_of(keep) if sh else keep),
+                                        0)
 
         # 3. replay through the pruned block; without LoRA the zeroed
         # weights stand alone: the block's masks leave the model after the

@@ -69,6 +69,11 @@ def wanda_mask_fn(prune_n: int = 0, prune_m: int = 0,
             {p: one(k, stats[p].scaler_row, float(sparsities[p]))
              for p, k in kernels.items()}, {})
 
+    # the per-unit top-k and n:m split on units over a model group as they
+    # stand; the flat threshold, RIA's sums and the hybrid tiles need the
+    # whole kernel
+    fn.unit_split = (metric == "wanda" and not flat_threshold
+                     and not (prune_n > 0 and hybrid_tile > 0))
     return fn
 
 
@@ -78,7 +83,7 @@ def sparsegpt_mask_fn(prune_n: int = 0, prune_m: int = 0,
     reference assigns weight.data unconditionally).  Linears of one
     (shape, sparsity) are solved as one batched group (T5's q/k/v/o)."""
 
-    def fn(kernels, stats, sparsities):
+    def fn(kernels, stats, sparsities, unit_group=None):
         groups = {}
         for p, k in kernels.items():
             groups.setdefault((tuple(k.shape), float(sparsities[p])),
@@ -88,12 +93,14 @@ def sparsegpt_mask_fn(prune_n: int = 0, prune_m: int = 0,
             out = sparsegpt_prune_group(
                 [kernels[p] for p in paths], [stats[p] for p in paths], sp,
                 prune_n=prune_n, prune_m=prune_m, blocksize=blocksize,
-                percdamp=percdamp)
+                percdamp=percdamp, unit_group=unit_group)
             for (keep, w, _), p in zip(out, paths):
                 masks[p] = keep
                 new_k[p] = w
         return BlockPruneResult(masks, new_k)
 
+    fn.unit_split = True
+    fn.takes_unit_group = True
     return fn
 
 
@@ -145,7 +152,7 @@ def softmask_mask_fn(prune_n: int = 0, prune_m: int = 0,
         raise ValueError("softmask pruning is n:m only — set "
                          "--prune_n/--prune_m (e.g. 2:4)")
 
-    def fn(kernels, stats, sparsities):
+    def fn(kernels, stats, sparsities, unit_group=None):
         groups = {}
         for p, k in kernels.items():
             groups.setdefault(tuple(k.shape), []).append(p)
@@ -179,7 +186,7 @@ def gptq_fn(prune_n: int = 0, prune_m: int = 0, bits: int = 4,
     ``awq``: the AWQ scale search on the same statistics, GPTQ of the
     scaled problem, the fake-quant weights unscaled back."""
 
-    def fn(kernels, stats, sparsities):
+    def fn(kernels, stats, sparsities, unit_group=None):
         groups = {}
         for p, k in kernels.items():
             groups.setdefault((tuple(k.shape), float(sparsities[p])),

@@ -114,7 +114,9 @@ class _MethodMixin:
             with_hessian=self.with_hessian,
             lora_model=lora_model,
             progress=logging.info,
-            return_outputs=return_outputs)
+            return_outputs=return_outputs,
+            mesh=getattr(self.model, "parallel_mesh", None),
+            stats_sink=getattr(self, "_stats_sink", None))
         if self.method == "sparsegpt":
             logging.info("[%s] sparsegpt damped Hessians: %d after a failed "
                          "factorization, %d after an overflowing inverse",

@@ -416,6 +416,59 @@ extern "C" int sparse_lora_matmul_bf16(const void* x, const void* w,
       splitk_reduce(partial, static_cast<bf16*>(y), M, N, splits, nullptr, st));
 }
 
+// fp32 y, unrounded (a row-parallel shard's partial sums; the sum over
+// ranks rounds once): one split writes y as its partial, more write the
+// workspace and the split-K pass sums it into y; bool masks, otherwise as
+// masked_matmul_bf16 and sparse_lora_matmul_bf16
+extern "C" int masked_matmul_out32_bf16(const void* x, const void* w,
+                                        const void* mask, void* y,
+                                        void* workspace, int M, int N, int K,
+                                        int splits, int k_split, int vec,
+                                        void* stream) {
+  if (splits < 1 || (long long)splits * k_split < K ||
+      (splits > 1 && workspace == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* partial = static_cast<float*>(splits > 1 ? workspace : y);
+  auto kernel = vec ? masked_matmul_bf16_kernel<true, false>
+                    : masked_matmul_bf16_kernel<false, false>;
+  kernel<<<grid, THREADS, 0, st>>>(static_cast<const bf16*>(x),
+                                   static_cast<const bf16*>(w), mask, 0,
+                                   nullptr, nullptr, partial, M, N, K,
+                                   k_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(splitk_reduce(partial, static_cast<float*>(y), M,
+                                        N, splits, nullptr, st));
+}
+
+extern "C" int sparse_lora_matmul_out32_bf16(
+    const void* x, const void* w, const void* mask, const void* lora_a,
+    const void* lora_b, int r, float scale, void* y, void* workspace, int M,
+    int N, int K, int splits, int k_split, int vec, void* stream) {
+  if (splits < 1 || (long long)splits * k_split < K ||
+      (splits > 1 && workspace == nullptr) || r < 1 || r > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = r * (BN + BK) * static_cast<int>(sizeof(float));
+  auto kernel = vec ? sparse_lora_bf16_kernel<true> : sparse_lora_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* partial = static_cast<float*>(splits > 1 ? workspace : y);
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(lora_a),
+      static_cast<const bf16*>(lora_b), r, scale, nullptr, partial, M, N, K,
+      k_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(splitk_reduce(partial, static_cast<float*>(y), M,
+                                        N, splits, nullptr, st));
+}
+
 extern "C" int sparse_lora_matmul_f32(const void* x, const void* w,
                                       const void* mask, const void* lora_a,
                                       const void* lora_b, int r, float scale,

@@ -21,23 +21,29 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// one kernel name per form, for the profiler's readings
-#define WGMMA_KERNEL(name, KIND, R)                                          \
+// one kernel name per form, for the profiler's readings; F32: `y` is the
+// fp32 output of a row-parallel shard (bf16* in the signature only)
+#define WGMMA_KERNEL(name, KIND, R, F32)                                     \
   __global__ void __launch_bounds__(wg::THREADS, 1)                          \
   name(const __grid_constant__ CUtensorMap tm_x,                             \
        const __grid_constant__ CUtensorMap tm_w,                             \
        const __grid_constant__ CUtensorMap tm_m, const bf16* lora_a,         \
        const bf16* lora_b, float scale, const float* col_scale, bf16* y,     \
        int M, int N, int K, int k_split, int group) {                        \
-    wg::mm_wgmma<KIND, R, false>(&tm_x, &tm_w, &tm_m, lora_a, lora_b, scale, \
-                                 col_scale, y, M, N, K, k_split, group);     \
+    wg::mm_wgmma<KIND, R, false, F32>(&tm_x, &tm_w, &tm_m, lora_a, lora_b,   \
+                                      scale, col_scale, y, M, N, K, k_split, \
+                                      group);                                \
   }
 
-WGMMA_KERNEL(masked_matmul_wgmma_kernel, wg::BOOL_MASK, 0)
-WGMMA_KERNEL(masked_matmul_packed_wgmma_kernel, wg::PACKED_MASK, 0)
-WGMMA_KERNEL(sparse_lora_wgmma_kernel_r2, wg::BOOL_MASK, 2)
-WGMMA_KERNEL(sparse_lora_wgmma_kernel_r4, wg::BOOL_MASK, 4)
-WGMMA_KERNEL(sparse_lora_wgmma_kernel_r8, wg::BOOL_MASK, 8)
+WGMMA_KERNEL(masked_matmul_wgmma_kernel, wg::BOOL_MASK, 0, false)
+WGMMA_KERNEL(masked_matmul_packed_wgmma_kernel, wg::PACKED_MASK, 0, false)
+WGMMA_KERNEL(sparse_lora_wgmma_kernel_r2, wg::BOOL_MASK, 2, false)
+WGMMA_KERNEL(sparse_lora_wgmma_kernel_r4, wg::BOOL_MASK, 4, false)
+WGMMA_KERNEL(sparse_lora_wgmma_kernel_r8, wg::BOOL_MASK, 8, false)
+WGMMA_KERNEL(masked_matmul_out32_wgmma_kernel, wg::BOOL_MASK, 0, true)
+WGMMA_KERNEL(sparse_lora_out32_wgmma_kernel_r2, wg::BOOL_MASK, 2, true)
+WGMMA_KERNEL(sparse_lora_out32_wgmma_kernel_r4, wg::BOOL_MASK, 4, true)
+WGMMA_KERNEL(sparse_lora_out32_wgmma_kernel_r8, wg::BOOL_MASK, 8, true)
 
 template <int KIND, auto kernel>
 int launch(const void* x, const void* w, const void* mask, int group,
@@ -92,6 +98,43 @@ extern "C" int sparse_lora_matmul_wgmma(const void* x, const void* w,
           stream);
     case 8:
       return launch<wg::BOOL_MASK, sparse_lora_wgmma_kernel_r8>(
+          x, w, mask, 0, lora_a, lora_b, scale, y, M, N, K, splits, k_split,
+          stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// fp32 y, unrounded (a row-parallel shard's partial sums; the sum over
+// ranks rounds once): otherwise as masked_matmul_wgmma and
+// sparse_lora_matmul_wgmma
+extern "C" int masked_matmul_out32_wgmma(const void* x, const void* w,
+                                         const void* mask, void* y, int M,
+                                         int N, int K, int splits,
+                                         int k_split, void* stream) {
+  return launch<wg::BOOL_MASK, masked_matmul_out32_wgmma_kernel>(
+      x, w, mask, 0, nullptr, nullptr, 0.f, y, M, N, K, splits, k_split,
+      stream);
+}
+
+extern "C" int sparse_lora_matmul_out32_wgmma(const void* x, const void* w,
+                                              const void* mask,
+                                              const void* lora_a,
+                                              const void* lora_b, int r,
+                                              float scale, void* y, int M,
+                                              int N, int K, int splits,
+                                              int k_split, void* stream) {
+  switch (r) {
+    case 2:
+      return launch<wg::BOOL_MASK, sparse_lora_out32_wgmma_kernel_r2>(
+          x, w, mask, 0, lora_a, lora_b, scale, y, M, N, K, splits, k_split,
+          stream);
+    case 4:
+      return launch<wg::BOOL_MASK, sparse_lora_out32_wgmma_kernel_r4>(
+          x, w, mask, 0, lora_a, lora_b, scale, y, M, N, K, splits, k_split,
+          stream);
+    case 8:
+      return launch<wg::BOOL_MASK, sparse_lora_out32_wgmma_kernel_r8>(
           x, w, mask, 0, lora_a, lora_b, scale, y, M, N, K, splits, k_split,
           stream);
     default:

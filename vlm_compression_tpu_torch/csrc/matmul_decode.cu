@@ -164,8 +164,10 @@ __device__ __forceinline__ uint32_t sw128(uint32_t base, int row, int chunk) {
 }
 
 // One block: output columns [n0, n0 + 64) over K in [blockIdx.x · k_split,
-// + k_split); the cluster is the blockIdx.x row of splits.
-template <bool INT8, int MASK, int MT>
+// + k_split); the cluster is the blockIdx.x row of splits.  F32: `y` points
+// at an fp32 output, written unrounded (a row-parallel shard's partial
+// sums; the sum over ranks rounds once).
+template <bool INT8, int MASK, int MT, bool F32 = false>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const __grid_constant__ CUtensorMap tm_x,
               const __grid_constant__ CUtensorMap tm_w,
@@ -416,18 +418,22 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int m = 8 * t + 2 * c + (i & 1), col = i < 2 ? col0 : col1;
         if (m >= M || n0 + col >= N) continue;
         const float v = INT8 ? __fmul_rn(acc[t][i], s_scale[col]) : acc[t][i];
-        y[static_cast<size_t>(m) * N + n0 + col] = __float2bfloat16(v);
+        if constexpr (F32)
+          reinterpret_cast<float*>(y)[static_cast<size_t>(m) * N + n0 + col] =
+              v;
+        else
+          y[static_cast<size_t>(m) * N + n0 + col] = __float2bfloat16(v);
       }
   }
   if (tid == 0) TRACE(3, 3);
 }
 
-template <bool INT8, int MASK, int MT>
+template <bool INT8, int MASK, int MT, bool F32>
 int launch(const void* x, const void* w, const void* mask, int group,
            const float* scale, void* y, int M, int N, int K, int splits,
            int k_split, cudaStream_t st) {
   using C = Cfg<INT8, MASK, MT>;
-  auto kernel = decode_kernel<INT8, MASK, MT>;
+  auto kernel = decode_kernel<INT8, MASK, MT, F32>;
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap tx, tw, tm;
@@ -469,24 +475,24 @@ int launch(const void* x, const void* w, const void* mask, int group,
 }
 
 // the x tiles a launch needs: 8·MT ≥ M rows
-template <bool INT8, int MASK>
+template <bool INT8, int MASK, bool F32 = false>
 int by_rows(const void* x, const void* w, const void* mask, int group,
             const float* scale, void* y, int M, int N, int K, int splits,
             int k_split, cudaStream_t st) {
   if (M <= 8)
-    return launch<INT8, MASK, 1>(x, w, mask, group, scale, y, M, N, K,
-                                 splits, k_split, st);
+    return launch<INT8, MASK, 1, F32>(x, w, mask, group, scale, y, M, N, K,
+                                      splits, k_split, st);
   if (M <= 16)
-    return launch<INT8, MASK, 2>(x, w, mask, group, scale, y, M, N, K,
-                                 splits, k_split, st);
+    return launch<INT8, MASK, 2, F32>(x, w, mask, group, scale, y, M, N, K,
+                                      splits, k_split, st);
   if (M <= 24)
-    return launch<INT8, MASK, 3>(x, w, mask, group, scale, y, M, N, K,
-                                 splits, k_split, st);
+    return launch<INT8, MASK, 3, F32>(x, w, mask, group, scale, y, M, N, K,
+                                      splits, k_split, st);
   if (M <= 32)
-    return launch<INT8, MASK, 4>(x, w, mask, group, scale, y, M, N, K,
-                                 splits, k_split, st);
-  return launch<INT8, MASK, 8>(x, w, mask, group, scale, y, M, N, K, splits,
-                               k_split, st);
+    return launch<INT8, MASK, 4, F32>(x, w, mask, group, scale, y, M, N, K,
+                                      splits, k_split, st);
+  return launch<INT8, MASK, 8, F32>(x, w, mask, group, scale, y, M, N, K,
+                                    splits, k_split, st);
 }
 
 }  // namespace
@@ -530,6 +536,26 @@ extern "C" int matmul_decode(const void* x, const void* w, int w_int8,
                                       splits, k_split, st);
   return by_rows<true, NO_MASK>(x, w, mask, group, sc, y, M, N, K, splits,
                                 k_split, st);
+}
+
+// fp32 y, unrounded (a row-parallel shard's partial sums): bf16 x and w,
+// a bool mask (K, N); otherwise as matmul_decode
+extern "C" int matmul_decode_out32(const void* x, const void* w,
+                                   const void* mask, void* y, int M, int N,
+                                   int K, int splits, int k_split,
+                                   void* stream) {
+  const bool bad =
+      M < 1 || M > 64 || N < 1 || K < 1 || K % 8 != 0 || N % 16 != 0 ||
+      splits < 1 || splits > MAX_SPLITS || k_split < 1 ||
+      k_split % K_UNIT != 0 ||
+      static_cast<long long>(splits) * k_split < K ||
+      static_cast<long long>(splits - 1) * k_split >= K || mask == nullptr ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(mask)) % 16 != 0;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  return by_rows<false, BOOL_MASK, true>(x, w, mask, 0, nullptr, y, M, N, K,
+                                         splits, k_split,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 #ifdef DECODE_TRACE

@@ -181,21 +181,31 @@ __device__ __forceinline__ void mma_step(Acc (&acc)[4][2], const bf16* As,
   }
 }
 
+__device__ __forceinline__ void put_out(bf16* y, long long i, float v) {
+  y[i] = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put_out(float* y, long long i, float v) {
+  y[i] = v;
+}
+
 // y = Σ_z partial[z] in a fixed order (· scale[n] when given), cast to bf16
+// (a float y: unrounded, a row-parallel shard's partial sums)
+template <typename T>
 __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     bf16* __restrict__ y, long long mn,
+                                     T* __restrict__ y, long long mn,
                                      int splits, int N,
                                      const float* __restrict__ scale) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
        i += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += partial[z * mn + i];
-    y[i] = __float2bfloat16(scale ? s * scale[i % N] : s);
+    put_out(y, i, scale ? s * scale[i % N] : s);
   }
 }
 
 // the split-K sum after a tile kernel; returns cudaGetLastError()
-inline cudaError_t splitk_reduce(const float* partial, bf16* y, int M, int N,
+template <typename T>
+inline cudaError_t splitk_reduce(const float* partial, T* y, int M, int N,
                                  int splits, const float* scale,
                                  cudaStream_t st) {
   const long long mn = (long long)M * N;

@@ -1,5 +1,6 @@
 // The Hopper main loop of the masked, packed-mask, sparse-LoRA and int8
-// matmuls (sm_90a), bf16 x and y:
+// matmuls (sm_90a), bf16 x and y (or, F32, an fp32 y: the unrounded sums
+// of a row-parallel shard, rounded once after the sum over ranks):
 //   bf16 W      y = x @ ((W [+ s·A·B]) ⊙ mask)
 //   int8 codes  y = (x @ (q ⊙ mask)) · scale      (no, bool or packed mask)
 // TMA + wgmma, with the mask (the LoRA merge, the codes' conversion)
@@ -111,6 +112,7 @@ __host__ __device__ constexpr int stage_bytes(bool int8) {
 }
 constexpr int STAGE_BYTES = stage_bytes(false);
 constexpr int LDC = BN + 8;                   // epilogue staging row (272 B)
+constexpr int LDC32 = BN + 4;                 // the fp32 staging row (528 B)
 __host__ __device__ constexpr int smem_bytes(bool int8) {
   return STAGES * stage_bytes(int8) + 1024;   // + alignment
 }
@@ -123,6 +125,7 @@ static_assert(stage_bytes(false) % 1024 == 0 && stage_bytes(true) % 1024 == 0,
               "stages must stay 1024-byte aligned");
 static_assert(CODE_OFF % 128 == 0, "TMA destinations 128-byte aligned");
 static_assert(BM * LDC * 2 <= STAGES * STAGE_BYTES, "epilogue staging");
+static_assert(BM * LDC32 * 4 <= STAGES * STAGE_BYTES, "fp32 staging");
 // the landing slots of the split-K sum, over the spent ring: `splits`
 // source slots of ⌈UNITS / splits⌉ units each, most at 7 splits (21 units)
 static_assert(7 * 3 * UNIT_BYTES <= STAGES * STAGE_BYTES, "landing slots");
@@ -146,9 +149,10 @@ __device__ long long wg_trace[6][1024];
 
 // one m64n128 accumulator (rows row0 + {0, 8} of each lane quad) into the
 // epilogue's bf16 staging tile: lane l holds columns 8j + 2(l % 4) + {0, 1};
-// int8 (SCALE): each column times its scale in fp32 before the rounding
-template <bool SCALE>
-__device__ __forceinline__ void stage_acc(bf16* cs, const float (&acc)[64],
+// int8 (SCALE): each column times its scale in fp32 before the rounding.
+// F32: into the fp32 staging tile (row stride LDC32), unrounded
+template <bool SCALE, bool F32 = false>
+__device__ __forceinline__ void stage_acc(void* cs_, const float (&acc)[64],
                                           const float* sc, int row0,
                                           int lane) {
 #pragma unroll
@@ -161,10 +165,19 @@ __device__ __forceinline__ void stage_acc(bf16* cs, const float (&acc)[64],
       v[2] = __fmul_rn(v[2], sc[col]);
       v[3] = __fmul_rn(v[3], sc[col + 1]);
     }
-    *reinterpret_cast<__nv_bfloat162*>(cs + row0 * LDC + col) =
-        __floats2bfloat162_rn(v[0], v[1]);
-    *reinterpret_cast<__nv_bfloat162*>(cs + (row0 + 8) * LDC + col) =
-        __floats2bfloat162_rn(v[2], v[3]);
+    if constexpr (F32) {
+      float* cs = static_cast<float*>(cs_);
+      *reinterpret_cast<float2*>(cs + row0 * LDC32 + col) =
+          make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(cs + (row0 + 8) * LDC32 + col) =
+          make_float2(v[2], v[3]);
+    } else {
+      bf16* cs = static_cast<bf16*>(cs_);
+      *reinterpret_cast<__nv_bfloat162*>(cs + row0 * LDC + col) =
+          __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(cs + (row0 + 8) * LDC + col) =
+          __floats2bfloat162_rn(v[2], v[3]);
+    }
   }
 }
 
@@ -362,8 +375,9 @@ __device__ __forceinline__ void add_unit(float (&acc)[64], const uint8_t* smem,
 // (INT8, with col_scale: N floats); tm_m: the bool mask (K, N) uint8 or the
 // packed words (8·⌈K/G⌉, N) uint32 (unread for NO_MASK).  R = 0: no
 // adapter; R = 2, 4, 8: sparse-LoRA with A (K, R) and B (R, N) bf16.  Grid
-// (splits, N tiles, M tiles), one cluster of `splits` blocks a tile.
-template <int KIND, int R, bool INT8>
+// (splits, N tiles, M tiles), one cluster of `splits` blocks a tile.  F32:
+// `y` points at an fp32 (M, N) output, written unrounded.
+template <int KIND, int R, bool INT8, bool F32 = false>
 __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
                                          const CUtensorMap* tm_w,
                                          const CUtensorMap* tm_m,
@@ -374,6 +388,7 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
                                          bf16* __restrict__ y, int M, int N,
                                          int K, int k_split, int group) {
   static_assert(!INT8 || R == 0, "no adapter on int8 codes");
+  static_assert(!(INT8 && F32), "int8 codes write bf16");
   constexpr int STAGE = stage_bytes(INT8);
   static_assert(INT8 || KIND != NO_MASK, "bf16 W comes with a mask");
   extern __shared__ uint8_t dyn_smem[];
@@ -534,25 +549,39 @@ __device__ __forceinline__ void mm_wgmma(const CUtensorMap* tm_x,
     }
 
     // epilogue: both consumer warpgroups are done with the ring (and the
-    // landing slots); stage the block's units as bf16 (row stride LDC),
-    // then 16-byte stores of whole rows
+    // landing slots); stage the block's units as bf16 (row stride LDC; F32:
+    // fp32, LDC32), then 16-byte stores of whole rows
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    bf16* cs = reinterpret_cast<bf16*>(smem);
     const int row = g * 128 + warp * 16 + (lane >> 2);
     if (live0 && u0 % splits == rank)
-      stage_acc<INT8>(cs, acc0, s_scale, row, lane);
+      stage_acc<INT8, F32>(smem, acc0, s_scale, row, lane);
     if (live1 && u1 % splits == rank)
-      stage_acc<INT8>(cs, acc1, s_scale, row + 64, lane);
+      stage_acc<INT8, F32>(smem, acc1, s_scale, row + 64, lane);
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     const int u = tid - 128;
+    if constexpr (F32) {
+      const float* cs = reinterpret_cast<const float*>(smem);
+      float* yf = reinterpret_cast<float*>(y);
 #pragma unroll 4
-    for (int it = 0; it < BM * BN / 8 / 256; ++it) {
-      const int id = u + it * 256, r = id >> 4, ch = id & 15;
-      const int gm = m0 + r, gn = n0 + ch * 8;
-      // N % 16 == 0: a chunk is all in or all out
-      if (gm < M && gn < N && (splits == 1 || (r >> 4) % splits == rank))
-        *reinterpret_cast<uint4*>(y + static_cast<size_t>(gm) * N + gn) =
-            *reinterpret_cast<const uint4*>(cs + r * LDC + ch * 8);
+      for (int it = 0; it < BM * BN / 4 / 256; ++it) {
+        const int id = u + it * 256, r = id >> 5, ch = id & 31;
+        const int gm = m0 + r, gn = n0 + ch * 4;
+        // N % 16 == 0: a chunk is all in or all out
+        if (gm < M && gn < N && (splits == 1 || (r >> 4) % splits == rank))
+          *reinterpret_cast<float4*>(yf + static_cast<size_t>(gm) * N + gn) =
+              *reinterpret_cast<const float4*>(cs + r * LDC32 + ch * 4);
+      }
+    } else {
+      const bf16* cs = reinterpret_cast<const bf16*>(smem);
+#pragma unroll 4
+      for (int it = 0; it < BM * BN / 8 / 256; ++it) {
+        const int id = u + it * 256, r = id >> 4, ch = id & 15;
+        const int gm = m0 + r, gn = n0 + ch * 8;
+        // N % 16 == 0: a chunk is all in or all out
+        if (gm < M && gn < N && (splits == 1 || (r >> 4) % splits == rank))
+          *reinterpret_cast<uint4*>(y + static_cast<size_t>(gm) * N + gn) =
+              *reinterpret_cast<const uint4*>(cs + r * LDC + ch * 8);
+      }
     }
     if (tid == 128) TRACE(5, 5);
   }

@@ -19,8 +19,13 @@ import torch
 from torch import nn
 
 from vlm_compression_tpu_torch.models.layers import (
+    COL,
+    ROW,
     LayerNorm,
     SparseLinear,
+    TPPlan,
+    contiguous_plan,
+    whole,
     gelu,
     run_block,
 )
@@ -78,20 +83,43 @@ class EvaAttention(nn.Module):
         self.q_bias = nn.Parameter(torch.zeros(dim, dtype=pdt, device=device))
         self.v_bias = nn.Parameter(torch.zeros(dim, dtype=pdt, device=device))
         self.proj = _sl(cfg, dim, dim, device=device)
+        self.heads, self.head_cols = cfg.num_heads, None
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        """Heads [rank·h/t, (rank+1)·h/t): the fused qkv is
+        column-parallel over those heads' q, k and v columns — not the
+        rule table's contiguous third-and-a-half, so the forward gathers
+        the stored halves for the call and indexes them — and proj is
+        row-parallel over the same features (its stored block)."""
+        cfg = self.cfg
+        if cfg.num_heads % size:
+            return
+        dim = cfg.embed_dim
+        self.heads = cfg.num_heads // size
+        cols = torch.arange(rank * dim // size, (rank + 1) * dim // size)
+        self.head_cols = cols
+        self.qkv.tp = TPPlan(COL, group, size, rank,
+                             torch.cat([cols, cols + dim, cols + 2 * dim]))
+        self.proj.tp = TPPlan(ROW, group, size, rank, cols)
+
+    def clear_tensor_parallel_(self) -> None:
+        self.heads, self.head_cols = self.cfg.num_heads, None
 
     def forward(self, x, mode="masked"):
         cfg = self.cfg
         b, n, _ = x.shape
-        dim = cfg.embed_dim
-        head_dim = dim // cfg.num_heads
+        head_dim = cfg.embed_dim // cfg.num_heads
         qkv = self.qkv(x, mode=mode)
         # fused projection, bias only on q and v
-        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                          self.v_bias]).to(qkv.dtype)
-        qkv = (qkv + bias).reshape(b, n, 3, cfg.num_heads, head_dim)
+        qb, vb = self.q_bias, self.v_bias
+        if self.head_cols is not None:
+            qb = qb[self.head_cols.to(qb.device)]
+            vb = vb[self.head_cols.to(vb.device)]
+        bias = torch.cat([qb, torch.zeros_like(qb), vb]).to(qkv.dtype)
+        qkv = (qkv + bias).reshape(b, n, 3, self.heads, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # strided views
         out = attention_core(q, k, v, scale=head_dim ** -0.5)
-        return self.proj(out.reshape(b, n, dim), mode=mode)
+        return self.proj(out.reshape(b, n, self.heads * head_dim), mode=mode)
 
 
 class EvaMlp(nn.Module):
@@ -99,6 +127,12 @@ class EvaMlp(nn.Module):
         super().__init__()
         self.fc1 = _sl(cfg, cfg.embed_dim, cfg.mlp_hidden_dim, device=device)
         self.fc2 = _sl(cfg, cfg.mlp_hidden_dim, cfg.embed_dim, device=device)
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        hidden = self.fc1.features
+        if hidden % size == 0:
+            self.fc1.tp = contiguous_plan(COL, group, size, rank, hidden)
+            self.fc2.tp = contiguous_plan(ROW, group, size, rank, hidden)
 
     def forward(self, x, mode="masked"):
         return self.fc2(gelu(self.fc1(x, mode=mode)), mode=mode)
@@ -128,6 +162,7 @@ class EvaViT(nn.Module):
         self.cfg = cfg
         pdt, p = _dt(cfg.param_dtype), cfg.patch_size
         self.patch_embed = nn.Module()
+        self.patch_embed.shard_aware = True     # FSDP's rule shards it
         self.patch_embed.kernel = nn.Parameter(torch.empty(
             (p, p, 3, cfg.embed_dim), dtype=pdt, device=device))
         self.patch_embed.bias = nn.Parameter(torch.zeros(
@@ -151,7 +186,8 @@ class EvaViT(nn.Module):
         x = images[:, :gh * p, :gw * p].to(dt)
         x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, gh * gw, p * p * c)
-        kern = self.patch_embed.kernel.to(dt).reshape(p * p * c, -1)
+        kern = whole(self.patch_embed, "kernel").to(dt).reshape(p * p * c,
+                                                                -1)
         x = torch.matmul(x.float(), kern.float()).to(dt) \
             + self.patch_embed.bias.to(dt)
         cls = self.cls_token.to(dt).expand(b, 1, cfg.embed_dim)

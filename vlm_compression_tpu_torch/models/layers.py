@@ -35,6 +35,29 @@ Compressed leaves, as the JAX package's ``SparseLinear`` reads them:
 
 The int8 paths run ``select_int8_matmul()``: weight-only by default, W8A8
 under the switches of ``ops/quant``.
+
+Sharded (``parallel/mesh.shard_params``): a linear may hold its block of
+``kernel`` and ``mask`` (``_shards``), and a Megatron compute plan
+(``tp``, set by its tower's ``tensor_parallel_``):
+
+  column-parallel  out-features split: the input enters through
+                   ``copy_to`` (its gradient all-reduced), the output is
+                   this rank's columns (the bias's too)
+  row-parallel     in-features split: a whole input is cut to this rank's
+                   features (``scatter_last``), the products' fp32 sums
+                   (the kernels' fp32 output) are summed in float32 over
+                   the group and rounded once, then the bias
+
+The kernels run unchanged on the local operands.  Where the stored block
+is the compute slice (the rule table's own split) the forward reads it as
+it is; anywhere else (the fused ViT qkv, whose contiguous halves are not
+a rank's heads; FSDP's data-axis blocks) it all-gathers the whole tensor
+for the call and indexes the compute slice, and frees it after.  The LoRA
+factors stay whole on every rank (no rule names them): a column-parallel
+product takes B's matching columns, a row-parallel one A's matching rows,
+and their gradients are summed over the ``model`` group
+(``tasks/retrain.reduce_lora_grads_``).  int8, int4, W8A8 and packed-mask
+linears do not shard (``shard_params`` raises, naming ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -58,6 +81,11 @@ from vlm_compression_tpu_torch.ops.masked_linear import (
     sparse_lora_matmul,
 )
 from vlm_compression_tpu_torch.ops import quant as Q
+from vlm_compression_tpu_torch.parallel.collectives import (
+    copy_to,
+    reduce_from,
+    scatter_last,
+)
 
 DENSE = "dense"
 MASKED = "masked"
@@ -66,7 +94,86 @@ LORA = "lora"
 _MODES = (DENSE, MASKED, SPARSE_LORA, LORA)
 
 
+COL = "col"
+ROW = "row"
+
+
+class TPPlan:
+    """A linear's Megatron compute plan: ``kind`` COL or ROW, the model
+    group, and ``index`` — the columns (COL) or rows (ROW) of the whole
+    kernel this rank computes with, as a LongTensor; ``natural`` when they
+    are the rank's contiguous block (the rule table's own split)."""
+
+    def __init__(self, kind: str, group, size: int, rank: int,
+                 index: torch.Tensor):
+        self.kind, self.group, self.size, self.rank = kind, group, size, rank
+        self.index = index
+        n = index.numel()
+        self.natural = bool(torch.equal(
+            index.cpu(), torch.arange(rank * n, (rank + 1) * n)))
+
+    def stored_is_compute(self, spec) -> bool:
+        """Whether a tensor stored by ``spec`` holds this plan's slice."""
+        want = (None, "model") if self.kind == COL else ("model", None)
+        spec = tuple(x[0] if isinstance(x, tuple) and len(x) == 1 else x
+                     for x in spec)
+        return self.natural and spec == want
+
+
+def contiguous_plan(kind: str, group, size: int, rank: int,
+                    extent: int) -> TPPlan:
+    per = extent // size
+    return TPPlan(kind, group, size, rank,
+                  torch.arange(rank * per, (rank + 1) * per))
+
+
+def whole(module: nn.Module, name: str) -> Optional[torch.Tensor]:
+    """``module.<name>`` whole: all-gathered for the call where it is
+    stored sharded, as it is otherwise."""
+    t = getattr(module, name)
+    sh = getattr(module, "_shards", {}).get(name)
+    return t if sh is None or t is None else sh.gather(t)
+
+
+def local_view(module: nn.Module, name: str) -> Optional[torch.Tensor]:
+    """``module.<name>`` as the module's compute plan reads it: the stored
+    block where it is the plan's slice, else the plan's slice of the whole
+    (gathered for the call where it is stored sharded)."""
+    t = getattr(module, name)
+    if t is None:
+        return None
+    tp = getattr(module, "tp", None)
+    sh = getattr(module, "_shards", {}).get(name)
+    if sh is not None and tp is not None and tp.stored_is_compute(sh.spec):
+        return t
+    if sh is not None:
+        t = sh.gather(t)
+    if tp is None:
+        return t
+    idx = tp.index.to(t.device)
+    return (t[:, idx] if tp.kind == COL else t[idx]).contiguous()
+
+
+@torch.no_grad()
+def assign_whole_(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    """Write a whole tensor into ``module.<name>``: its stored block where
+    it is sharded, all of it otherwise."""
+    sh = getattr(module, "_shards", {}).get(name)
+    getattr(module, name).copy_(sh.local_of(value) if sh else value)
+
+
+def clear_tensor_parallel_(model: nn.Module) -> None:
+    """Drop every compute plan of ``model`` (whole-model compute again)."""
+    for m in model.modules():
+        if hasattr(m, "clear_tensor_parallel_"):
+            m.clear_tensor_parallel_()
+        if isinstance(m, SparseLinear):
+            m.tp = None
+
+
 class SparseLinear(nn.Module):
+    shard_aware = True
+
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  param_dtype: torch.dtype = torch.float32, device=None,
                  lora_rank: int = 0, lora_alpha: float = 16.0):
@@ -84,6 +191,7 @@ class SparseLinear(nn.Module):
         self.register_buffer("kernel_scale", None)
         # set by ``set_int4_kernel``, which removes ``kernel``
         self.register_parameter("kernel_q4", None)
+        self.tp: Optional[TPPlan] = None
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.zeros(
                 (in_features, lora_rank), dtype=param_dtype, device=device))
@@ -99,7 +207,8 @@ class SparseLinear(nn.Module):
         self.lora_b.zero_()
 
     def bool_mask(self) -> Optional[torch.Tensor]:
-        """The keep-mask as bool (in, out), unpacked if it is packed."""
+        """The keep-mask as bool (in, out), unpacked if it is packed (as it
+        is stored: this rank's block where it is sharded)."""
         if not is_packed(self.mask):
             return self.mask
         return unpack_mask(self.mask, self.in_features,
@@ -110,6 +219,16 @@ class SparseLinear(nn.Module):
         if mode not in _MODES:
             raise ValueError(f"mode {mode!r} not in {_MODES}")
         lora = self.lora_rank > 0 and mode in (SPARSE_LORA, LORA)
+        tp = self.tp
+        if tp is not None:
+            if is_packed(self.mask):
+                raise NotImplementedError(
+                    "packed masks under tensor parallelism (ROADMAP.md, "
+                    "item 10)")
+            if tp.kind == COL:
+                x = copy_to(x, tp.group)
+            elif x.shape[-1] == self.in_features:
+                x = scatter_last(x, tp.group)
         # int8 and int4 kernels hold codes, not weights: branch before any
         # cast (an int4 linear has no ``kernel``)
         qscale = q4 = None
@@ -127,35 +246,83 @@ class SparseLinear(nn.Module):
                 qscale = self.kernel_scale
         else:
             # compute dtype follows the input, as in the JAX package
-            k = self.kernel.to(x.dtype)
-        mask = None if mode == DENSE else self.mask
+            k = local_view(self, "kernel").to(x.dtype)
+        mask = None if mode == DENSE else local_view(self, "mask")
+        # a row-parallel shard's products stay unrounded (fp32) until the
+        # sum over ranks
+        out = (torch.float32 if tp is not None and tp.kind == ROW
+               and x.dtype == torch.bfloat16 else None)
         if qscale is not None:
             y = Q.select_int8_matmul()(x, self.kernel, qscale, mask)
         elif q4 is not None:
             y = Q.int4_matmul(x, q4, self.kernel_scale, mask)
-        elif mode == DENSE:
-            y = x @ k
+        elif mode == DENSE or (not lora and mask is None):
+            y = x @ k if out is None else _matmul_f32(x, k)
         elif not lora:
-            if mask is None:
-                y = x @ k
-            elif is_packed(mask):
+            if is_packed(mask):
                 y = masked_matmul_packed(x, k, mask)
             else:
-                y = masked_matmul(x, k, mask)
+                y = masked_matmul(x, k, mask, out_dtype=out)
         else:
             s = self.lora_alpha / self.lora_rank
-            a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
-            mask = self.bool_mask()
+            a, b = self.lora_a, self.lora_b
+            if tp is not None:
+                idx = tp.index.to(a.device)
+                if tp.kind == COL:
+                    b = b[:, idx]
+                else:
+                    a = a[idx]
+            a, b = a.to(x.dtype), b.to(x.dtype)
+            mask = self.bool_mask() if is_packed(self.mask) \
+                else local_view(self, "mask")
             if mask is None:
                 z = (x @ a) @ b
-                y = x @ k + (s * z.float()).to(x.dtype)
+                y = ((x @ k if out is None else _matmul_f32(x, k))
+                     + (s * z.float()).to(out or x.dtype))
             elif mode == SPARSE_LORA:
-                y = sparse_lora_matmul(x, k, mask, a, b, s)
+                y = sparse_lora_matmul(x, k, mask, a, b, s, out_dtype=out)
             else:
-                y = lora_matmul_ref(x, k, mask, a, b, s)
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
+                y = lora_matmul_ref(x, k, mask, a, b, s, out)
+        bias = self.bias
+        if tp is not None and tp.kind == ROW:
+            y = reduce_from(y, tp.group, x.dtype)
+        elif tp is not None and bias is not None:
+            bias = bias[tp.index.to(bias.device)]
+        if bias is not None:
+            y = y + bias.to(x.dtype)
         return y
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x @ k with fp32 sums, unrounded: bf16 operands with an fp32 result
+    on the card; in fp32 on the CPU, whose matmul has no such variant (the
+    same values: bf16 is exact in fp32).  The backward is x @ k's in x's
+    dtype (the fp32 output gradient holds bf16 values)."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(x, k)
+        if x.is_cuda:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), k,
+                         out_dtype=torch.float32)
+            return y.reshape(*x.shape[:-1], k.shape[1])
+        return x.float() @ k.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ k.t() if ctx.needs_input_grad[0] else None
+        dk = None
+        if ctx.needs_input_grad[1]:
+            dk = (x.reshape(-1, x.shape[-1]).t().float()
+                  @ g.reshape(-1, g.shape[-1]).float()).to(k.dtype)
+        return dx, dk
+
+
+def _matmul_f32(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """x @ k (bf16) with fp32 sums, unrounded."""
+    return _MatmulF32.apply(x, k)
 
 
 class LayerNorm(nn.Module):
@@ -178,7 +345,15 @@ class LayerNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """Flax ``nn.Embed``: a gather from ``embedding`` (vocab, features)."""
+    """Flax ``nn.Embed``: a gather from ``embedding`` (vocab, features).
+
+    Sharded on its rows over ``model`` (the rule ``.*embedding``), the
+    lookup is vocab-parallel: each rank gathers the ids it holds, zeros
+    the rest, and one all-reduce sums them (exact: one rank contributes
+    each row).  Stored any other way (FSDP), the table is gathered whole
+    for the call."""
+
+    shard_aware = True
 
     def __init__(self, num: int, features: int, dtype: torch.dtype,
                  device=None):
@@ -186,8 +361,23 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.empty((num, features), dtype=dtype,
                                                   device=device))
 
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        sh = getattr(self, "_shards", {}).get("embedding")
+        if sh is None:
+            return self.embedding[ids]
+        if len(sh.dims) == 1 and sh.dims[0][0] == 0 and \
+                sh.spec[0] == "model":
+            _, group, _, idx = sh.dims[0]
+            rows = self.embedding.shape[0]
+            local = ids - idx * rows
+            hit = (local >= 0) & (local < rows)
+            out = self.embedding[torch.where(hit, local, 0)]
+            out = out * hit[..., None].to(out.dtype)
+            return reduce_from(out, group)
+        return whole(self, "embedding")[ids]
+
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        return self.lookup(ids)
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
@@ -223,6 +413,8 @@ def set_mask(linear: SparseLinear, mask: Optional[torch.Tensor]) -> None:
         if tuple(mask.shape) != shape:
             raise ValueError(f"mask {tuple(mask.shape)} vs kernel {shape}")
         mask = mask.to(device=_device(linear), dtype=torch.bool)
+    # a mask set whole stays whole on a sharded linear
+    getattr(linear, "_shards", {}).pop("mask", None)
     linear.mask = mask
 
 

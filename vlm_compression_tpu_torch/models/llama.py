@@ -38,6 +38,9 @@ from vlm_compression_tpu_torch.models.kvcache import (
     step_visibility_mask,
 )
 from vlm_compression_tpu_torch.models.layers import (
+    COL,
+    ROW,
+    contiguous_plan,
     Embed,
     SparseLinear,
     run_block,
@@ -144,6 +147,25 @@ class LlamaAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             self.add_module(name, _sl(cfg, cfg.hidden_size, cfg.hidden_size,
                                       device))
+        self.heads = cfg.num_heads
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        """h/t local heads: q/k/v_proj column-parallel, o_proj
+        row-parallel.  The rule table stores every ``*_proj`` kernel by
+        rows (``proj`` matches first), so the column-parallel ones gather
+        their stored blocks for the call and index the rank's columns."""
+        cfg = self.cfg
+        if cfg.num_heads % size:
+            return
+        self.heads = cfg.num_heads // size
+        for name in ("q_proj", "k_proj", "v_proj"):
+            getattr(self, name).tp = contiguous_plan(COL, group, size, rank,
+                                                     cfg.hidden_size)
+        self.o_proj.tp = contiguous_plan(ROW, group, size, rank,
+                                         cfg.hidden_size)
+
+    def clear_tensor_parallel_(self) -> None:
+        self.heads = self.cfg.num_heads
 
     def forward(self, x, mask, positions, mode="masked",
                 cache: Optional[dict] = None):
@@ -152,16 +174,16 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         hd = cfg.head_dim
         b, n, _ = x.shape
-        q = self.q_proj(x, mode=mode).reshape(b, n, cfg.num_heads, hd)
-        k = self.k_proj(x, mode=mode).reshape(b, n, cfg.num_heads, hd)
-        v = self.v_proj(x, mode=mode).reshape(b, n, cfg.num_heads, hd)
+        q = self.q_proj(x, mode=mode).reshape(b, n, self.heads, hd)
+        k = self.k_proj(x, mode=mode).reshape(b, n, self.heads, hd)
+        v = self.v_proj(x, mode=mode).reshape(b, n, self.heads, hd)
         cos, sin = rotary_tables(hd, cfg.max_position_embeddings,
                                  cfg.rope_theta, str(x.device))
         q, k = apply_rotary(q, k, cos, sin, positions)
         if cache is not None:
             k, v, _ = cache_kv(cache, k, v)
         out = attention_core(q, k, v, [mask], scale=float(hd) ** -0.5)
-        return self.o_proj(out.reshape(b, n, cfg.hidden_size), mode=mode)
+        return self.o_proj(out.reshape(b, n, self.heads * hd), mode=mode)
 
 
 class LlamaMLP(nn.Module):
@@ -175,6 +197,13 @@ class LlamaMLP(nn.Module):
                            device)
         self.down_proj = _sl(cfg, cfg.intermediate_size, cfg.hidden_size,
                              device)
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        inter = self.down_proj.in_features
+        if inter % size == 0:
+            for lin in (self.gate_proj, self.up_proj):
+                lin.tp = contiguous_plan(COL, group, size, rank, inter)
+            self.down_proj.tp = contiguous_plan(ROW, group, size, rank, inter)
 
     def forward(self, x, mode="masked"):
         gate = nn.functional.silu(self.gate_proj(x, mode=mode))
@@ -206,7 +235,7 @@ class TokenEmbed(Embed):
         self.dtype = dtype
 
     def forward(self, ids):
-        return self.embedding[ids].to(self.dtype)
+        return self.lookup(ids).to(self.dtype)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -236,10 +265,10 @@ class LlamaForCausalLM(nn.Module):
         config's int8 / per-row storage."""
         cfg = self.cfg
         return {"layers": [
-            {"self": init_kv_cache(batch, max_len, cfg.num_heads,
+            {"self": init_kv_cache(batch, max_len, blk.self_attn.heads,
                                    cfg.head_dim, dtype, device,
                                    cfg.kv_cache_int8, cfg.kv_cache_per_row)}
-            for _ in self.block_names]}
+            for blk in self.blocks()]}
 
     def backbone(self, inputs_embeds, attention_mask=None, positions=None,
                  mode="masked", cache: Optional[dict] = None):

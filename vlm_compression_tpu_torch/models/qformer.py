@@ -16,6 +16,9 @@ import torch
 from torch import nn
 
 from vlm_compression_tpu_torch.models.layers import (
+    COL,
+    ROW,
+    contiguous_plan,
     Embed,
     LayerNorm,
     SparseLinear,
@@ -68,10 +71,11 @@ class BertSelfAttention(nn.Module):
         self.query = _sl(cfg, hd, hd, device)
         self.key = _sl(cfg, kv_width, hd, device)
         self.value = _sl(cfg, kv_width, hd, device)
+        self.heads = cfg.num_heads
 
     def forward(self, x, kv, mask, mode="masked"):
         cfg = self.cfg
-        h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        h, d = self.heads, cfg.hidden_size // cfg.num_heads
         b, n, _ = x.shape
         m = kv.shape[1]
         q = self.query(x, mode=mode).reshape(b, n, h, d)
@@ -94,6 +98,23 @@ class BertAttention(nn.Module):
         self.output_dense = _sl(cfg, cfg.hidden_size, cfg.hidden_size, device)
         self.output_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
 
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        """h/t local heads: query, key and value column-parallel (their
+        stored blocks), output_dense row-parallel over the same features
+        (the rule table replicates it: each rank reads its rows)."""
+        cfg = self.self.cfg
+        if cfg.num_heads % size:
+            return
+        self.self.heads = cfg.num_heads // size
+        for lin in (self.self.query, self.self.key, self.self.value):
+            lin.tp = contiguous_plan(COL, group, size, rank,
+                                     cfg.hidden_size)
+        self.output_dense.tp = contiguous_plan(ROW, group, size, rank,
+                                               cfg.hidden_size)
+
+    def clear_tensor_parallel_(self) -> None:
+        self.self.heads = self.self.cfg.num_heads
+
     def forward(self, x, kv, mask, mode="masked"):
         ctx = self.self(x, kv if kv is not None else x, mask, mode=mode)
         out = self.output_dense(ctx, mode=mode)
@@ -108,6 +129,14 @@ class BertFFN(nn.Module):
         self.output_dense = _sl(cfg, cfg.intermediate_size, cfg.hidden_size,
                                 device)
         self.output_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        hidden = self.intermediate_dense.features
+        if hidden % size == 0:
+            self.intermediate_dense.tp = contiguous_plan(COL, group, size,
+                                                         rank, hidden)
+            self.output_dense.tp = contiguous_plan(ROW, group, size, rank,
+                                                   hidden)
 
     def forward(self, x, mode="masked"):
         h = gelu(self.intermediate_dense(x, mode=mode))

@@ -32,6 +32,10 @@ from vlm_compression_tpu_torch.models.kvcache import (
     step_visibility_mask,
 )
 from vlm_compression_tpu_torch.models.layers import (
+    COL,
+    ROW,
+    contiguous_plan,
+    whole,
     Embed,
     SparseLinear,
     gelu,
@@ -124,9 +128,17 @@ def relative_position_bucket(rel_pos: torch.Tensor, bidirectional: bool,
 
 
 class T5RelPosBias(nn.Module):
+    """The (1, heads, q, k) position bias.  The rule ``.*embedding`` puts
+    its bucket rows on ``model``; the forward gathers the (32 × heads)
+    table whole for the call and, under tensor parallelism, keeps the
+    rank's heads."""
+
+    shard_aware = True
+
     def __init__(self, cfg: T5Config, bidirectional: bool, device=None):
         super().__init__()
         self.cfg = cfg
+        self.head_index = None
         self.bidirectional = bidirectional
         self.rel_embedding = nn.Parameter(torch.empty(
             (cfg.relative_attention_num_buckets, cfg.num_heads),
@@ -140,7 +152,10 @@ class T5RelPosBias(nn.Module):
         buckets = relative_position_bucket(
             mem - ctx, self.bidirectional, cfg.relative_attention_num_buckets,
             cfg.relative_attention_max_distance)
-        bias = self.rel_embedding[buckets.long()]       # (q, k, heads)
+        table = whole(self, "rel_embedding")
+        if self.head_index is not None:
+            table = table[:, self.head_index.to(dev)]
+        bias = table[buckets.long()]                     # (q, k, heads)
         return bias.permute(2, 0, 1)[None]               # (1, heads, q, k)
 
 
@@ -158,12 +173,29 @@ class T5Attention(nn.Module):
         for name in ("q", "k", "v"):
             self.add_module(name, _sl(cfg, cfg.d_model, inner, device))
         self.o = _sl(cfg, inner, cfg.d_model, device)
+        self.heads = cfg.num_heads
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        """h/t local heads: q, k, v column-parallel, o row-parallel (the
+        rule table's own blocks)."""
+        cfg = self.cfg
+        if cfg.num_heads % size:
+            return
+        inner = cfg.num_heads * cfg.d_kv
+        self.heads = cfg.num_heads // size
+        for name in ("q", "k", "v"):
+            getattr(self, name).tp = contiguous_plan(COL, group, size, rank,
+                                                     inner)
+        self.o.tp = contiguous_plan(ROW, group, size, rank, inner)
+
+    def clear_tensor_parallel_(self) -> None:
+        self.heads = self.cfg.num_heads
 
     def project_kv(self, kv, mode="masked"):
         cfg = self.cfg
         b, m, _ = kv.shape
-        k = self.k(kv, mode=mode).reshape(b, m, cfg.num_heads, cfg.d_kv)
-        v = self.v(kv, mode=mode).reshape(b, m, cfg.num_heads, cfg.d_kv)
+        k = self.k(kv, mode=mode).reshape(b, m, self.heads, cfg.d_kv)
+        v = self.v(kv, mode=mode).reshape(b, m, self.heads, cfg.d_kv)
         return k, v
 
     def forward(self, x, kv=None, position_bias=None, mask=None,
@@ -173,8 +205,8 @@ class T5Attention(nn.Module):
         once when the cache was made."""
         cfg = self.cfg
         b, n, _ = x.shape
-        inner = cfg.num_heads * cfg.d_kv
-        q = self.q(x, mode=mode).reshape(b, n, cfg.num_heads, cfg.d_kv)
+        inner = self.heads * cfg.d_kv
+        q = self.q(x, mode=mode).reshape(b, n, self.heads, cfg.d_kv)
         if cache is not None and kv is not None:
             k, v = cache["key"], cache["value"]
         else:
@@ -203,6 +235,13 @@ class T5FFN(nn.Module):
         self.wi_0 = _sl(cfg, cfg.d_model, cfg.d_ff, device)
         self.wi_1 = _sl(cfg, cfg.d_model, cfg.d_ff, device)
         self.wo = _sl(cfg, cfg.d_ff, cfg.d_model, device)
+
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        d_ff = self.wo.in_features
+        if d_ff % size == 0:
+            self.wi_0.tp = contiguous_plan(COL, group, size, rank, d_ff)
+            self.wi_1.tp = contiguous_plan(COL, group, size, rank, d_ff)
+            self.wo.tp = contiguous_plan(ROW, group, size, rank, d_ff)
 
     def forward(self, x, mode="masked"):
         gate = gelu(self.wi_0(x, mode=mode), approximate=True)
@@ -267,6 +306,15 @@ class _Stack(nn.Module):
     def blocks(self):
         return [getattr(self, name) for name in self.block_names]
 
+    def tensor_parallel_(self, group, size: int, rank: int) -> None:
+        h = self.cfg.num_heads
+        if h % size == 0:
+            self.rel_bias.head_index = torch.arange(rank * h // size,
+                                                    (rank + 1) * h // size)
+
+    def clear_tensor_parallel_(self) -> None:
+        self.rel_bias.head_index = None
+
 
 class T5Encoder(_Stack):
     def __init__(self, cfg: T5Config, device=None):
@@ -318,7 +366,7 @@ class T5Decoder(_Stack):
         for blk in self.blocks():
             k, v = blk.cross_attn.project_kv(enc_out, mode)
             layers.append({
-                "self": init_kv_cache(b, max_decode_len, cfg.num_heads,
+                "self": init_kv_cache(b, max_decode_len, blk.self_attn.heads,
                                       cfg.d_kv, enc_out.dtype,
                                       enc_out.device, cfg.kv_cache_int8,
                                       cfg.kv_cache_per_row),

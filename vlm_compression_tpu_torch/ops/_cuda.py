@@ -47,6 +47,12 @@ _SIGNATURES = {
         "masked_matmul_packed_bf16": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _P],
         "masked_matmul_packed_f32": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+        # fp32 y (a row-parallel shard's unrounded sums), else as the bf16
+        # entry points
+        "masked_matmul_out32_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _P],
+        "sparse_lora_matmul_out32_bf16": [_P, _P, _P, _P, _P, _I, _F, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _P],
     },
     # the Hopper loop's entry points take the float32 ones' arguments and
     # the split plan (splits, k_split) before the stream
@@ -56,11 +62,16 @@ _SIGNATURES = {
                                        _I, _P],
         "sparse_lora_matmul_wgmma": [_P, _P, _P, _P, _P, _I, _F, _P, _I, _I,
                                      _I, _I, _I, _P],
+        "masked_matmul_out32_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sparse_lora_matmul_out32_wgmma": [_P, _P, _P, _P, _P, _I, _F, _P, _I,
+                                           _I, _I, _I, _I, _P],
     },
     # the decode-shaped bool, packed and int8 matmuls (one entry point)
     "matmul_decode": {
         "matmul_decode": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                           _P],
+        # bf16 x and w, a bool mask, fp32 y
+        "matmul_decode_out32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "int8_matmul": {
         "int8_matmul_bf16": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,

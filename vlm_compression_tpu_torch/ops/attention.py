@@ -209,6 +209,70 @@ _DTYPES = (torch.bfloat16, torch.float32)
 _STRIDES = ctypes.c_longlong * 17
 
 
+class _BiasShard(torch.autograd.Function):
+    """Forward: this rank's block of a global bias (its batch and head
+    dims cut where the bias does not broadcast on them).  Backward: the
+    global bias's gradient on every rank — the cut dims all-gathered over
+    their groups, the broadcast dims summed over theirs."""
+
+    @staticmethod
+    def forward(ctx, bias, cuts, sums):
+        from vlm_compression_tpu_torch.parallel.collectives import chunk
+
+        ctx.cuts, ctx.sums = cuts, sums
+        for dim, group in cuts:
+            bias = chunk(bias, group, dim)
+        return bias.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        from vlm_compression_tpu_torch.parallel.collectives import (
+            all_gather_dim,
+            all_reduce_,
+        )
+
+        g = g.contiguous().clone()
+        for group in ctx.sums:
+            all_reduce_(g, group)
+        for dim, group in ctx.cuts:
+            g = all_gather_dim(g, group, dim)
+        return g, None, None
+
+
+def sharded_attention_core(q, k, v, biases: Sequence[Optional[torch.Tensor]]
+                           = (), scale: float = 1.0, causal: bool = False, *,
+                           mesh) -> torch.Tensor:
+    """``attention_core`` on this rank's (batch shard, head shard) of q, k
+    and v — the port's counterpart of the JAX package's
+    ``_partitioned_fwd`` / ``_partitioned_bwd`` (``ops/attention.py``): the
+    kernels run per shard, unchanged.  ``biases`` are global (b | 1,
+    h | 1, n, m): each is cut to the rank's block on the dims it does not
+    broadcast on, and its gradient is the global one on every rank —
+    all-gathered over the cut dims' groups and summed over the groups of
+    the axes it broadcasts on (T5's (1, h, n, m) position bias over
+    ``data``, a (b, 1, 1, m) pad bias over ``model``).  The batch is split
+    over the mesh's ``data`` axis, the heads over its ``model`` axis."""
+    from vlm_compression_tpu_torch.parallel.mesh import axis_group
+
+    groups = (axis_group(mesh, "data"), axis_group(mesh, "model"))
+    local = []
+    for x in biases:
+        if x is None:
+            continue
+        x = _as_4d(x)
+        cuts, sums = [], []
+        for dim, group in zip((0, 1), groups):
+            if group is None:
+                continue
+            if x.shape[dim] == 1:
+                sums.append(group)
+            else:
+                cuts.append((dim, group))
+        local.append(_BiasShard.apply(x, tuple(cuts), tuple(sums))
+                     if cuts or sums else x)
+    return attention_core(q, k, v, local, scale=scale, causal=causal)
+
+
 def _on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` lies where the kernels run (a CUDA device)."""
     return t.device.type == "cuda"

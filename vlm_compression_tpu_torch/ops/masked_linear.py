@@ -56,11 +56,12 @@ lora_shape_launches: dict = {}
 
 
 def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor,
-                      mask: torch.Tensor) -> torch.Tensor:
+                      mask: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Plain version: fp32 accumulation, cast to x's dtype (the JAX
-    reference's dot_general with preferred_element_type=float32)."""
+    reference's dot_general with preferred_element_type=float32), or to
+    ``out_dtype``."""
     wm = torch.where(mask, w, torch.zeros((), dtype=w.dtype, device=w.device))
-    return torch.matmul(x.float(), wm.float()).to(x.dtype)
+    return torch.matmul(x.float(), wm.float()).to(out_dtype or x.dtype)
 
 
 def masked_matmul_packed_ref(x: torch.Tensor, w: torch.Tensor,
@@ -84,18 +85,21 @@ def sparse_lora_weight(w, mask, lora_a, lora_b, scale) -> torch.Tensor:
     return torch.where(mask, eff, torch.zeros((), device=w.device)).to(w.dtype)
 
 
-def sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale):
-    """Plain version: the merged weight materialized, then x · E."""
+def sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale,
+                           out_dtype=None):
+    """Plain version: the merged weight materialized, then x · E (cast to
+    x's dtype, or to ``out_dtype``)."""
     return torch.matmul(x.float(), sparse_lora_weight(
-        w, mask, lora_a, lora_b, scale).float()).to(x.dtype)
+        w, mask, lora_a, lora_b, scale).float()).to(out_dtype or x.dtype)
 
 
-def lora_matmul_ref(x, w, mask, lora_a, lora_b, scale):
-    """x · (W ⊙ M) + s·(x·A)·B, the adapter outside the mask."""
-    base = masked_matmul_ref(x, w, mask)
+def lora_matmul_ref(x, w, mask, lora_a, lora_b, scale, out_dtype=None):
+    """x · (W ⊙ M) + s·(x·A)·B, the adapter outside the mask (in x's dtype,
+    or ``out_dtype``)."""
+    base = masked_matmul_ref(x, w, mask, out_dtype)
     z = torch.matmul(torch.matmul(x.float(), lora_a.float()).to(x.dtype)
                      .float(), lora_b.float()).to(x.dtype)
-    return base + (scale * z.float()).to(x.dtype)
+    return base + (scale * z.float()).to(out_dtype or x.dtype)
 
 
 def merge_sparse_lora(w, mask, lora_a, lora_b, scale, sparse: bool = True):
@@ -130,7 +134,10 @@ def _masked_grad(x, g, mask) -> torch.Tensor:
 
 
 def _masked_vjp(ctx, x, w, mask, g):
-    """JAX ``_masked_matmul_bwd``: dx = g·(W⊙M)ᵀ, dW = M ⊙ (xᵀg)."""
+    """JAX ``_masked_matmul_bwd``: dx = g·(W⊙M)ᵀ, dW = M ⊙ (xᵀg).  A float32
+    g of a bf16 product's fp32 output holds bf16 values (the output is
+    rounded once after it): cast back, exactly."""
+    g = g.to(x.dtype)
     dx = dw = None
     if ctx.needs_input_grad[0]:
         wm = torch.where(mask, w, torch.zeros((), dtype=w.dtype,
@@ -143,13 +150,13 @@ def _masked_vjp(ctx, x, w, mask, g):
 
 class _MaskedMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, mask, loop):
+    def forward(ctx, x, w, mask, loop, out32):
         ctx.save_for_backward(x, w, mask)
-        return _masked_matmul_fwd(x, w, mask, loop)
+        return _masked_matmul_fwd(x, w, mask, loop, out32)
 
     @staticmethod
     def backward(ctx, g):
-        return *_masked_vjp(ctx, *ctx.saved_tensors, g), None
+        return *_masked_vjp(ctx, *ctx.saved_tensors, g), None, None
 
 
 class _MaskedMatmulPacked(torch.autograd.Function):
@@ -175,18 +182,22 @@ class _SparseLoraMatmul(torch.autograd.Function):
     merged weight stays alive between the passes."""
 
     @staticmethod
-    def forward(ctx, x, w, mask, lora_a, lora_b, scale, loop):
+    def forward(ctx, x, w, mask, lora_a, lora_b, scale, loop, out32):
         ctx.save_for_backward(x, w, mask, lora_a, lora_b)
         ctx.scale = scale
         if x.device.type == "cpu":
-            return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale)
-        return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop)
+            return sparse_lora_matmul_ref(
+                x, w, mask, lora_a, lora_b, scale,
+                torch.float32 if out32 else None)
+        return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop,
+                                 out32=out32)
 
     @staticmethod
     def backward(ctx, g):
         x, w, mask, lora_a, lora_b = ctx.saved_tensors
+        g = g.to(x.dtype)      # as _masked_vjp's
         s = ctx.scale
-        need_x, need_w, _, need_a, need_b, _, _ = ctx.needs_input_grad
+        need_x, need_w, _, need_a, need_b, _, _, _ = ctx.needs_input_grad
         dx = dw = da = db = None
         if need_x:
             e = sparse_lora_weight(w, mask, lora_a, lora_b, s)
@@ -202,7 +213,7 @@ class _SparseLoraMatmul(torch.autograd.Function):
             if need_b:
                 db = (s * torch.matmul(lora_a.float().t(), gm)
                       ).to(lora_b.dtype)
-        return dx, dw, None, da, db, None, None
+        return dx, dw, None, da, db, None, None, None
 
 
 # ``_loop`` (all three wrappers): None runs the loop ``plan`` picks; WMMA
@@ -210,12 +221,16 @@ class _SparseLoraMatmul(torch.autograd.Function):
 # side by side on the card, not a knob of the model.
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor,
-                  mask: torch.Tensor, *, _loop=None) -> torch.Tensor:
+                  mask: torch.Tensor, *, out_dtype=None,
+                  _loop=None) -> torch.Tensor:
     """y = x @ (w ⊙ mask); the masked weight never exists in memory on the
-    card.  Differentiable in x and w."""
+    card.  Differentiable in x and w.  ``out_dtype`` float32 with bf16
+    operands: the fp32 sums, unrounded (a row-parallel shard's partials,
+    rounded once after the sum over ranks)."""
+    out32 = _out32(x, out_dtype)
     if _needs_graph(x, w):
-        return _MaskedMatmul.apply(x, w, mask, _loop)
-    return _masked_matmul_fwd(x, w, mask, _loop)
+        return _MaskedMatmul.apply(x, w, mask, _loop, out32)
+    return _masked_matmul_fwd(x, w, mask, _loop, out32)
 
 
 def masked_matmul_packed(x: torch.Tensor, w: torch.Tensor,
@@ -232,21 +247,34 @@ def masked_matmul_packed(x: torch.Tensor, w: torch.Tensor,
 
 
 def sparse_lora_matmul(x, w, mask, lora_a, lora_b, scale: float, *,
-                       _loop=None):
+                       out_dtype=None, _loop=None):
     """y = x @ ((w + lora_a·lora_b·scale) ⊙ mask); on the card the merged
-    weight never exists in memory.  Differentiable in x, w, A and B."""
+    weight never exists in memory.  Differentiable in x, w, A and B.
+    ``out_dtype``: as ``masked_matmul``'s."""
+    out32 = _out32(x, out_dtype)
     if _needs_graph(x, w, lora_a, lora_b):
         return _SparseLoraMatmul.apply(x, w, mask, lora_a, lora_b,
-                                       float(scale), _loop)
+                                       float(scale), _loop, out32)
     if x.device.type == "cpu":
-        return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale)
-    return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, _loop)
+        return sparse_lora_matmul_ref(x, w, mask, lora_a, lora_b, scale,
+                                      torch.float32 if out32 else None)
+    return _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, _loop,
+                             out32=out32)
 
 
-def _masked_matmul_fwd(x, w, mask, loop=None):
+def _out32(x, out_dtype) -> bool:
+    """Whether a bf16 product is asked for its fp32 sums."""
+    if out_dtype not in (None, x.dtype, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype}: the product's dtype or "
+                        "float32")
+    return out_dtype == torch.float32 and x.dtype == torch.bfloat16
+
+
+def _masked_matmul_fwd(x, w, mask, loop=None, out32=False):
     if x.device.type == "cpu":
-        return masked_matmul_ref(x, w, mask)
-    return _masked_matmul_cuda(x, w, mask, loop)
+        return masked_matmul_ref(x, w, mask,
+                                 torch.float32 if out32 else None)
+    return _masked_matmul_cuda(x, w, mask, loop, out32=out32)
 
 
 def _masked_matmul_packed_fwd(x, w, packed, loop=None):
@@ -451,7 +479,8 @@ def _valid(x, w, mask, packed: bool = False) -> bool:
 
 
 def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
-            fn_wgmma=None, fn_decode=None, extra_ptrs=(), rank=0, loop=None):
+            fn_wgmma=None, fn_decode=None, extra_ptrs=(), rank=0, loop=None,
+            out32=False):
     """Shared launch of the tiled matmul kernels (masked, packed,
     sparse-LoRA, int8): flatten x, allocate y (and the WMMA loop's split-K
     workspace), ``plan`` the loop — the Hopper or decode one only where x,
@@ -461,7 +490,8 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
     float32 entry point with (splits, k_split) before the stream;
     ``fn_decode`` as (x, w, mask, y, m, n, k, splits, k_split, stream)
     pointers and ints.  ``args`` go after the mask pointer; ``mask`` may be
-    None (no pointer).  ``loop`` = WMMA forces the WMMA loop.  Returns (y,
+    None (no pointer).  ``loop`` = WMMA forces the WMMA loop.  ``out32``: y
+    in float32 (the entry points given write it unrounded).  Returns (y,
     the launch's error code or None when an empty shape left nothing to
     launch)."""
     if loop not in (None, WMMA):
@@ -471,7 +501,8 @@ def _launch(fn_bf16, fn_f32, x, w, mask, args=(), w_align=16, mask_align=8,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
-    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    y = torch.empty((m, n), dtype=torch.float32 if out32 else x.dtype,
+                    device=dev)
     if m == 0 or n == 0:
         return y.reshape(*lead, n), None
     if k == 0:
@@ -544,14 +575,25 @@ def count_route(route, call: tuple) -> None:
         wmma_calls[call] = wmma_calls.get(call, 0) + 1
 
 
-def _masked_matmul_cuda(x, w, mask, loop=None):
+def _decode_out32(x, w, mask, y, m, n, k, splits, k_split, stream):
+    """The decode kernel's bool-mask entry point with an fp32 y."""
+    return _cuda.library("matmul_decode").matmul_decode_out32(
+        x, w, mask, y, m, n, k, splits, k_split, stream)
+
+
+def _masked_matmul_cuda(x, w, mask, loop=None, out32=False):
     global launches
     if not _valid(x, w, mask):
         _check_inputs(x, w, mask)
     lib = _cuda.library("masked_matmul")
-    y, err = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32, x, w,
-                     mask, fn_wgmma=_wgmma("masked_matmul"),
-                     fn_decode=_decode(False, 1), loop=loop)
+    if out32:
+        y, err = _launch(lib.masked_matmul_out32_bf16, None, x, w, mask,
+                         fn_wgmma=_wgmma("masked_matmul_out32"),
+                         fn_decode=_decode_out32, loop=loop, out32=True)
+    else:
+        y, err = _launch(lib.masked_matmul_bf16, lib.masked_matmul_f32, x, w,
+                         mask, fn_wgmma=_wgmma("masked_matmul"),
+                         fn_decode=_decode(False, 1), loop=loop)
     if err is not None:
         _cuda.check(err, "masked_matmul")
         launches += 1
@@ -575,7 +617,8 @@ def _masked_matmul_packed_cuda(x, w, packed, loop=None):
     return y
 
 
-def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
+def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None,
+                      out32=False):
     global lora_launches
     if not _valid(x, w, mask):
         _check_inputs(x, w, mask, "sparse_lora_matmul")
@@ -588,11 +631,12 @@ def _sparse_lora_cuda(x, w, mask, lora_a, lora_b, scale, loop=None):
         _check_lora(x, w, lora_a, lora_b)
     lib = _cuda.library("masked_matmul")
     a, b = lora_a.contiguous(), lora_b.contiguous()
+    kind = "sparse_lora_matmul_out32" if out32 else "sparse_lora_matmul"
     y, err = _launch(
-        lib.sparse_lora_matmul_bf16, lib.sparse_lora_matmul_f32, x, w, mask,
+        getattr(lib, kind + "_bf16"), lib.sparse_lora_matmul_f32, x, w, mask,
         (a.data_ptr(), b.data_ptr(), a.shape[1], float(scale)),
-        fn_wgmma=_wgmma("sparse_lora_matmul"),
-        extra_ptrs=(a.data_ptr(), b.data_ptr()), rank=a.shape[1], loop=loop)
+        fn_wgmma=_wgmma(kind), extra_ptrs=(a.data_ptr(), b.data_ptr()),
+        rank=a.shape[1], loop=loop, out32=out32)
     if err is not None:
         _cuda.check(err, "sparse_lora_matmul")
         lora_launches += 1

@@ -19,6 +19,12 @@ Per linear, unit-major W (units, in) and the calibration Hessian H (in, in):
     choosing its n lowest-metric columns by a stable argsort.  After each
     block, W[:, i2:] -= Err·H⁻¹[i1:i2, i2:].
 
+Split on its units over a ``model`` group (``unit_group``; each rank its
+block of the units, every rank the whole Hessian), the unstructured
+block threshold stays the whole block's: tmp is all-gathered over the
+units for the k-th value, and each rank keeps its units' part of the
+mask.  Everything else is row-parallel as it stands.
+
 ``damped`` counts the matrices that got damping, by why their first
 factorization was not used: ``"factorization"`` (it failed; the JAX
 package damps there too) and ``"inverse"`` (it succeeded, but its inverse
@@ -129,15 +135,21 @@ def _upper_factor_of_inverse(h: torch.Tensor, percdamp: float
 
 
 def _block_threshold_mask(w1: torch.Tensor, d1: torch.Tensor,
-                          sparsity: float) -> torch.Tensor:
+                          sparsity: float, unit_group=None) -> torch.Tensor:
     """Unstructured block mask (True = prune): tmp ≤ the ⌊size·s⌋-th
-    smallest tmp of the block (0-based, ties pruned), per member."""
+    smallest tmp of the block (0-based, ties pruned), per member; the
+    whole block's over ``unit_group``'s units."""
+    from vlm_compression_tpu_torch.parallel.collectives import all_gather_dim
+
     tmp = w1 * w1 / (d1[:, None, :] ** 2)
-    size = tmp[0].numel()
+    whole = all_gather_dim(tmp, unit_group, 1) if unit_group is not None \
+        else tmp
+    size = whole[0].numel()
     # the JAX package forms size·s in float32
     k = int(np.floor(np.float32(size) * np.float32(sparsity)))
     k = min(max(k, 0), size - 1)
-    thresh = torch.kthvalue(tmp.reshape(tmp.shape[0], -1), k + 1, dim=1)[0]
+    thresh = torch.kthvalue(whole.reshape(whole.shape[0], -1), k + 1,
+                            dim=1)[0]
     return tmp <= thresh[:, None, None]
 
 
@@ -202,9 +214,11 @@ def _sweep_block_nm(w1, hinv1, d1, prune_n, prune_m):
 def sparsegpt_prune_batched(weights_um: torch.Tensor, hessians: torch.Tensor,
                             sparsity: float, prune_n: int = 0,
                             prune_m: int = 0, blocksize: int = 128,
-                            percdamp: float = 0.01) -> SparseGPTResult:
+                            percdamp: float = 0.01, unit_group=None
+                            ) -> SparseGPTResult:
     """Prune + OBS-update G linears of one shape: weights (G, units, in),
-    Hessians (G, in, in).  Returns a SparseGPTResult with a leading G."""
+    Hessians (G, in, in).  Returns a SparseGPTResult with a leading G.
+    ``unit_group``: the weights are this rank's units of a split."""
     if weights_um.is_cuda:
         pin_fp32()
     W = weights_um.float().clone()
@@ -232,7 +246,7 @@ def sparsegpt_prune_batched(weights_um: torch.Tensor, hessians: torch.Tensor,
         hinv1 = Hinv[:, i1:i2, i1:i2]
         d1 = torch.diagonal(hinv1, dim1=-2, dim2=-1)
         if prune_n == 0:
-            prune1 = _block_threshold_mask(w1, d1, sparsity)
+            prune1 = _block_threshold_mask(w1, d1, sparsity, unit_group)
             err1 = _solve_block_unstructured(w1, hinv1, d1, prune1)
             q1 = torch.where(prune1, 0.0, w1 - torch.matmul(
                 err1, torch.triu(hinv1, diagonal=1)))
@@ -263,7 +277,8 @@ def sparsegpt_prune(weight_um: torch.Tensor, hessian: torch.Tensor,
 def sparsegpt_prune_group(kernels_io: Sequence[torch.Tensor],
                           stats: Sequence[CalibStats], sparsity: float,
                           prune_n: int = 0, prune_m: int = 0,
-                          blocksize: int = 128, percdamp: float = 0.01):
+                          blocksize: int = 128, percdamp: float = 0.01,
+                          unit_group=None):
     """One batched solve for an equal-shape group of linears: kernels in
     (in, units) layout and their calibration stats.  Returns a tuple of
     (keep_mask (in, units), new kernel (in, units), importance) per
@@ -271,7 +286,7 @@ def sparsegpt_prune_group(kernels_io: Sequence[torch.Tensor],
     ws = torch.stack([k.t() for k in kernels_io])
     hs = torch.stack([finalize_hessian(s) for s in stats])
     res = sparsegpt_prune_batched(ws, hs, sparsity, prune_n, prune_m,
-                                  blocksize, percdamp)
+                                  blocksize, percdamp, unit_group)
     del ws, hs
     return tuple((res.keep_mask[i].t().contiguous(),
                   res.weight[i].t().contiguous(), res.importance[i])

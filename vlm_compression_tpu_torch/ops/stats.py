@@ -105,6 +105,37 @@ def update_calib_stats(stats: CalibStats, x: torch.Tensor,
         hessian=hessian)
 
 
+def all_reduce_calib_stats(stats: CalibStats, group) -> CalibStats:
+    """Every rank's sums added over ``group`` (the data ranks of a sharded
+    calibration; ``stats`` unchanged where the group is one rank): the
+    sample and token counts, Σx², Σx, the moment sums and the Hessian.
+    The moment sums add per rank's update, as they add per update."""
+    from vlm_compression_tpu_torch.parallel.collectives import (
+        all_reduce_,
+        group_size,
+    )
+
+    if group_size(group) == 1:
+        return stats
+    vecs = torch.stack([stats.ssq, stats.ssum, stats.var_acc,
+                        stats.mean_acc])
+    counts = torch.stack([torch.tensor(float(stats.nsamples),
+                                       device=vecs.device),
+                          stats.ntokens.to(vecs.device).double().float()])
+    flat = torch.cat([vecs.reshape(-1), counts])
+    all_reduce_(flat, group)
+    n = stats.ssq.numel()
+    vecs = flat[:4 * n].view(4, n)
+    hessian = stats.hessian
+    if hessian is not None:
+        hessian = all_reduce_(hessian.clone(), group)
+    return CalibStats(
+        nsamples=int(round(float(flat[4 * n]))),
+        ntokens=flat[4 * n + 1].round().to(torch.int64),
+        ssq=vecs[0].clone(), ssum=vecs[1].clone(), var_acc=vecs[2].clone(),
+        mean_acc=vecs[3].clone(), hessian=hessian)
+
+
 def finalize_hessian(stats: CalibStats) -> torch.Tensor:
     """H = (2/n_samples) Σ XᵀX."""
     if stats.hessian is None:

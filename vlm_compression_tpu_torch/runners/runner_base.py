@@ -43,7 +43,19 @@ from vlm_compression_tpu_torch.datasets.loaders import (
     concat_datasets,
     reorg_datasets_by_split,
 )
-from vlm_compression_tpu_torch.models.layers import SparseLinear, set_mask
+from vlm_compression_tpu_torch.models.layers import (
+    SparseLinear,
+    set_mask,
+    whole,
+)
+from vlm_compression_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    axis_index,
+    axis_size,
+    data_axes,
+    make_mesh,
+    shard_params,
+)
 from vlm_compression_tpu_torch.tasks.retrain import RessaTrainState
 
 
@@ -77,13 +89,31 @@ def _get(cfg, key, default=None):
     return default if v is None else v
 
 
+def default_mesh(run_cfg):
+    """The JAX runner's ``("data", "model")`` mesh, ``model`` from
+    ``run.model_parallel``, over the process group; None in one process
+    (where ``model_parallel`` must be 1)."""
+    model = int(_get(run_cfg, "model_parallel", 1))
+    if dist.get_world_size() == 1:
+        if model > 1:
+            raise ValueError(f"run.model_parallel={model} needs as many "
+                             "processes (torchrun --nproc_per_node)")
+        return None
+    return make_mesh(MeshConfig(data=-1, model=model))
+
+
 @registry.register_runner("runner_base")
 class RunnerBase:
     def __init__(self, cfg, task, model, datasets: Dict, job_id: str = "job",
                  prepare_batch: Optional[Callable] = None):
         """model: the port's model (an ``nn.Module``); datasets: {name:
         {split: dataset}}; prepare_batch(samples) -> the model's keyword
-        arrays (tokenization)."""
+        arrays (tokenization).  The mesh is the one the model was sharded
+        over (``model.parallel_mesh``), else a ``(data, model)`` mesh sized
+        by ``run.model_parallel`` over the process group (none in one
+        process); the model is sharded over it
+        (``parallel/mesh.shard_params``) before any optimizer is built,
+        and the loaders cut by data rank."""
         self.config = cfg
         self.run_cfg = cfg.run_cfg if hasattr(cfg, "run_cfg") else cfg
         self.task = task
@@ -91,6 +121,10 @@ class RunnerBase:
         self.datasets = datasets
         self.job_id = job_id
         self.prepare_batch = prepare_batch or (lambda s: s)
+        held = getattr(model, "parallel_mesh", None)
+        self.mesh = held if held is not None else default_mesh(self.run_cfg)
+        if self.mesh is not None and held is None:
+            shard_params(model, self.mesh)
 
         self.start_epoch = 0
         self.max_epoch = int(_get(self.run_cfg, "max_epoch", 1))
@@ -143,9 +177,11 @@ class RunnerBase:
         opt = self.optimizer
         if self._train_step is None or self._train_step[0] is not opt:
             kw = {}
-            if "accum_grad_iters" in inspect.signature(
-                    self.task.make_train_step).parameters:
+            params = inspect.signature(self.task.make_train_step).parameters
+            if "accum_grad_iters" in params:
                 kw["accum_grad_iters"] = self.accum_grad_iters
+            if "mesh" in params:
+                kw["mesh"] = self.mesh
             self._train_step = (opt, self.task.make_train_step(
                 self.model, opt, **kw))
         return self._train_step[1]
@@ -160,7 +196,13 @@ class RunnerBase:
         if self._dataloaders is None:
             by_split = reorg_datasets_by_split(self.datasets)
             out = {}
-            rank, world = dist.get_rank(), dist.get_world_size()
+            # the ranks of one model group see the same batch: cut by the
+            # data rank, not the world rank
+            axes = data_axes(self.mesh)
+            rank, world = ((axis_index(self.mesh, axes),
+                            axis_size(self.mesh, axes))
+                           if self.mesh is not None
+                           else (dist.get_rank(), dist.get_world_size()))
             bs_train = int(_get(self.run_cfg, "batch_size_train", 8))
             bs_eval = int(_get(self.run_cfg, "batch_size_eval", 8))
             ratios = _get(self.run_cfg, "train_dataset_ratios")
@@ -314,17 +356,20 @@ class RunnerBase:
             os.path.join(self.output_dir, f"checkpoint_{tag}"))
 
     def _masks(self) -> Dict[str, torch.Tensor]:
-        return {f"{name}.mask": m.mask for name, m in
+        """Every mask whole (gathered where it is stored sharded: every
+        rank calls this)."""
+        return {f"{name}.mask": whole(m, "mask") for name, m in
                 self.model.named_modules()
                 if isinstance(m, SparseLinear) and m.mask is not None}
 
     def _save_checkpoint(self, cur_epoch, is_best: bool = False):
+        masks = self._masks()
         if not dist.is_main_process():
             return
         state = self.train_state
         payload = {"lora": {n: p.detach() for n, p in state.lora.items()},
                    "opt_state": state.opt.state_dict(), "step": state.step,
-                   "masks": self._masks()}
+                   "masks": masks}
         path = self._ckpt_path("best" if is_best else cur_epoch)
         torch.save(payload, path)
         with open(os.path.join(self.output_dir, "checkpoint_meta.json"),
